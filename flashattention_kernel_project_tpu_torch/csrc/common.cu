@@ -1,0 +1,7 @@
+// Shared C entry points of the kernel library.
+
+#include <cuda_runtime.h>
+
+extern "C" const char* fkp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
