@@ -5,8 +5,9 @@ an NVIDIA H100.
 The JAX package stays beside it as the reference; module names follow it:
   ops/      attention kernels: wrappers, plain PyTorch versions, and the
             loader that builds csrc/*.cu (hand-written CUDA for sm_90a)
-  models/   the GQA decoder, the KV-cache engine and the serving scheduler
-  runtime/  the native continuous-batching core (ctypes)
+  models/   the GQA decoder, its training step and checkpoints, the
+            KV-cache engine and the serving scheduler
+  runtime/  the native continuous-batching core and token loader (ctypes)
   utils/    device checks and H100 peaks, retries, error metrics, oracles
 
 This package imports torch and never jax. Kernels build at first use, not
@@ -20,6 +21,8 @@ from flashattention_kernel_project_tpu_torch.models.transformer import (  # noqa
     TransformerConfig,
     init_params,
     forward,
+    loss_fn,
+    sgd_train_step,
     rms_norm,
     rope_tables,
     apply_rope,
@@ -32,6 +35,14 @@ from flashattention_kernel_project_tpu_torch.models.engine import (  # noqa: F40
     decode_steps,
     fuse_decode_params,
     generate,
+)
+from flashattention_kernel_project_tpu_torch.models.checkpoint import (  # noqa: F401
+    restore_checkpoint,
+    save_checkpoint,
+)
+from flashattention_kernel_project_tpu_torch.runtime.data import (  # noqa: F401
+    TokenLoader,
+    write_token_file,
 )
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention,

@@ -2,7 +2,7 @@
 through ops.flash_attention, SwiGLU MLP, tied embeddings.
 
 Counterpart of flashattention_kernel_project_tpu/models/transformer.py,
-dense path and forward only (training waits for the backward kernel).
+dense path: the forward, the next-token loss and a plain SGD step.
 Parameters are a dict of tensors in the JAX package's layout, so a JAX
 parameter tree converts by copying (models/convert.py):
 
@@ -175,3 +175,54 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
         x = _mlp_block(layer, x)
     x = rms_norm(x, params["rms_final"])
     return logits_f32(x, params["embed"])
+
+
+def loss_fn(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
+    """Next-token cross-entropy, the mean over every position's
+    log_softmax(logits) at the following token, in float32 (the lm_head's
+    logits are float32)."""
+    logits = forward(cfg, params, tokens)
+    # the last position has no target: ignore_index keeps it out of the mean
+    # without copying the [B, N-1, vocab] slice of the logits
+    targets = torch.nn.functional.pad(tokens[:, 1:].long(), (0, 1), value=-100)
+    return torch.nn.functional.cross_entropy(
+        logits.flatten(0, 1), targets.flatten(), ignore_index=-100)
+
+
+def _leaves(tree: dict, prefix: str = "") -> dict:
+    """{"layers.wq": tensor, ...}: the parameter dict flattened."""
+    out = {}
+    for name, x in tree.items():
+        if isinstance(x, dict):
+            out.update(_leaves(x, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = x
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for key, x in flat.items():
+        *path, name = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = x
+    return tree
+
+
+def sgd_train_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+                   lr: float = 1e-3):
+    """One full training step (forward, backward, update) -> (new_params,
+    loss). The update is p - lr * g in float32, cast back to p's dtype, as
+    in the JAX package. Gradients reach the stacked per-layer leaves through
+    layer_params' views; `params` itself is left unchanged."""
+    flat = {k: x.detach().requires_grad_(True)
+            for k, x in _leaves(params).items()}
+    with torch.enable_grad():
+        loss = loss_fn(cfg, _unflatten(flat), tokens)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+    with torch.no_grad():
+        new = {k: (x.float() - lr * g.float()).to(x.dtype)
+               for (k, x), g in zip(flat.items(), grads)}
+    return _unflatten(new), loss.detach()

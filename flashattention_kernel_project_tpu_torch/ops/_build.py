@@ -1,9 +1,10 @@
 """Builds native code into the package's build/ directory and loads it.
 
-The CUDA kernels (csrc/*.cu) are compiled by nvcc for sm_90a into one
-shared library with a plain C interface, at first use, and loaded with
-ctypes. A plain C interface keeps PyTorch's headers out of the build, so
-nvcc takes seconds rather than minutes. The library is rebuilt when a source
+The CUDA kernels (csrc/*.cu) are compiled by nvcc for sm_90a, one nvcc
+process per source, all started together, and linked into one shared
+library with a plain C interface, at first use, and loaded with ctypes. A
+plain C interface keeps PyTorch's headers out of the build, so nvcc takes
+seconds rather than minutes. The library is rebuilt when a source or header
 is newer than it, under a file lock, because several processes may build at
 once. Nothing here runs when the package is imported.
 """
@@ -25,10 +26,14 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # registers, shared memory and spills per kernel go to build/nvcc.log
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    # registers, shared memory and spills per kernel go to build/<library>.log
     "-Xptxas=-v",
 )
+
+# A build is a list of stages run in order; the commands of a stage run
+# at once.
+Stages = list[list[list[str]]]
 
 
 def _stale(out: str, sources: Sequence[str]) -> bool:
@@ -38,30 +43,38 @@ def _stale(out: str, sources: Sequence[str]) -> bool:
     return any(os.path.getmtime(src) > built for src in sources)
 
 
+def _run_stage(argvs: list[list[str]], log) -> None:
+    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv in argvs]
+    failed = []
+    for argv, proc in zip(argvs, procs):
+        out, err = proc.communicate()
+        log.write(" ".join(argv) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{argv[-1]} (exit {proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("build failed: " + "\n".join(failed))
+
+
 def build(
     name: str,
     sources: Sequence[str],
-    command: Callable[[str], list[str]],
+    command: Callable[[str], Stages],
 ) -> str:
-    """Compile `sources` into build/`name` with `command(out_path)` unless
-    the library is newer than every source. Returns the library's path.
-    Raises RuntimeError with the compiler's stderr if the build fails."""
+    """Build build/`name` with the stages `command(out_path)` unless the
+    library is newer than every source. The compilers' output goes to
+    build/`name`.log. Returns the library's path. Raises RuntimeError with
+    the compiler's stderr if a command fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, name)
     with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if _stale(out, sources):
             tmp = f"{out}.{os.getpid()}.tmp"
-            argv = command(tmp)
-            proc = subprocess.run(argv, capture_output=True, text=True)
-            log = os.path.join(BUILD_DIR, name + ".log")
-            with open(log, "w") as f:
-                f.write(" ".join(argv) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"building {name} failed (exit {proc.returncode}):\n"
-                    f"{proc.stderr}"
-                )
+            with open(os.path.join(BUILD_DIR, name + ".log"), "w") as log:
+                for stage in command(tmp):
+                    _run_stage(stage, log)
             os.replace(tmp, out)
     return out
 
@@ -81,9 +94,17 @@ def kernel_sources() -> list[str]:
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built if missing or stale."""
     sources = kernel_sources()
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + ".o")
+            for src in sources]
     path = build(
-        "libfkp_kernels.so", sources,
-        lambda out: [nvcc(), *NVCC_FLAGS, "-o", out, *sources],
+        "libfkp_kernels.so", sources + headers,
+        lambda out: [
+            [[nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj]
+             for src, obj in zip(sources, objs)],
+            [[nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+              *objs, "-o", out]],
+        ],
     )
     lib = ctypes.CDLL(path)
     lib.fkp_error_string.restype = ctypes.c_char_p

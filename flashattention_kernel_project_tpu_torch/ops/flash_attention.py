@@ -1,11 +1,13 @@
-"""Fused GQA attention forward: O and logsumexp.
+"""Fused GQA attention: forward (O and logsumexp) and backward.
 
 Counterpart of flashattention_kernel_project_tpu/ops/flash_attention.py
-(`flash_attention`, `flash_attention_with_lse`, `_fwd`), forward only and
-in the stable=True discipline. On a CUDA tensor `_fwd` launches the
-hand-written Hopper kernel in csrc/flash_fwd.cu; on a CPU tensor it runs
-`_fwd_plain`, the same function in plain PyTorch, which the CPU tests hold
-against the JAX kernel and chip_smoke.py holds the CUDA kernel against.
+(`flash_attention`, `flash_attention_with_lse`, `_fwd`, `_bwd_pallas` and
+the custom_vjp around them), in the stable=True discipline. On a CUDA
+tensor `_fwd` launches the hand-written Hopper kernel in csrc/flash_fwd.cu
+and `_bwd` the two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a
+CPU tensor they run `_fwd_plain` and `_bwd_plain`, the same functions in
+plain PyTorch, which the CPU tests hold against the JAX kernels and
+chip_smoke.py holds the CUDA kernels against.
 
 Layouts follow the JAX package: q [B, Hq, N, D], k/v [B, Hkv, S, D],
 O [B, Hq, N, D] in q's dtype, LSE [B, Hq, N] float32 in natural log.
@@ -77,21 +79,22 @@ def _fwd_plain(q, k, v, causal, sm_scale, q_offset):
 
 
 @functools.cache
-def _kernel():
+def _kernel(name="fkp_flash_fwd", n_ptrs=5):
+    """A C entry point taking `n_ptrs` pointers, then (b, hq, hkv, n, s, d),
+    a float scale, (causal, q_offset) and the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel(
-        "fkp_flash_fwd",
-        [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_float,
-         i32, i32, vp],
+        name,
+        [vp] * n_ptrs + [i32] * 6 + [ctypes.c_float, i32, i32, vp],
     )
 
 
-def _check_cuda_inputs(q, k, v):
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _check_cuda_inputs(q, k, v, **more):
+    for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if x.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA forward takes bf16; {name} is {x.dtype}")
+            raise TypeError(f"the CUDA kernels take bf16; {name} is {x.dtype}")
         if x.dim() != 4 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D tensor")
         if x.data_ptr() % 16:
@@ -101,7 +104,7 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
     if d not in _KERNEL_DIMS:
-        raise ValueError(f"the CUDA forward takes d in {_KERNEL_DIMS}, got {d}")
+        raise ValueError(f"the CUDA kernels take d in {_KERNEL_DIMS}, got {d}")
     if n == 0 or k.shape[2] == 0:
         raise ValueError("empty query or key sequence")
 
@@ -137,6 +140,116 @@ def _fwd(q, k, v, causal, sm_scale, q_offset):
 _fwd.launches = 0  # kernel launches, for showing that a path ran the kernel
 
 
+def _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset):
+    """The backward in plain PyTorch, in float32: recompute p from the
+    saved logsumexp, GQA folded by repeating K/V over the group and the
+    group summed back onto the KV heads for dK and dV. A row that sees no
+    key has p == 0 and so zero dq (its LSE is the finite NEG_INF, for
+    which exp(s - lse) alone would overflow). Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    b, hq, n, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    delta = (o.float() * dof).sum(dim=-1, keepdim=True)  # [B, Hq, N, 1]
+    scores = (qf @ kf.transpose(-1, -2)) * sm_scale
+    p = torch.exp(scores - lse[..., None])
+    if causal:
+        rows = torch.arange(n, device=q.device)[:, None] + q_offset
+        mask = torch.arange(s, device=q.device)[None, :] <= rows
+        p = torch.where(mask, p, torch.zeros((), device=q.device))
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = (ds @ kf) * sm_scale
+    dk = (ds.transpose(-1, -2) @ qf) * sm_scale
+    dk = dk.view(b, hkv, group, s, d).sum(dim=2)
+    dv = dv.view(b, hkv, group, s, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(name, outs, q, k, v, do, lse, delta, causal, sm_scale,
+                q_offset):
+    """Launch one backward kernel writing `outs`; inputs as `_bwd` checked
+    them."""
+    b, hq, n, d = q.shape
+    rc = _kernel(f"fkp_{name}", 6 + len(outs))(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+        b, hq, k.shape[1], n, k.shape[2], d, float(sm_scale),
+        int(bool(causal)), int(q_offset),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, name)
+
+
+def _dkdv_cuda(q, k, v, *args):
+    """(dk, dv) from csrc/flash_bwd_dkdv.cu."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dkdv", (dk, dv), q, k, v, *args)
+    return dk, dv
+
+
+def _dq_cuda(q, k, v, *args):
+    """dq from csrc/flash_bwd_dq.cu."""
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_bwd_dq", (dq,), q, k, v, *args)
+    return dq
+
+
+def _bwd(q, k, v, o, lse, do, causal, sm_scale, q_offset):
+    """(dq, dk, dv) from the forward's (o, lse) and the output gradient.
+    CPU tensors run `_bwd_plain`; CUDA tensors launch
+    csrc/flash_bwd_dkdv.cu, then csrc/flash_bwd_dq.cu, or raise. delta =
+    rowsum(o * do) is plain torch, as the JAX package computes it in XLA
+    outside its kernels. Each call launches each kernel once, and counts
+    one in `_bwd.launches`."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"no backward for device {q.device}")
+    # the model hands do back through a transpose and a reshape
+    do = do.contiguous()
+    _check_cuda_inputs(q, k, v, do=do)
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    lse = lse.contiguous()
+    delta = (o.float() * do.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, causal, sm_scale, q_offset)
+    dk, dv = _dkdv_cuda(*args)
+    dq = _dq_cuda(*args)
+    _bwd.launches += 1
+    return dq, dk, dv
+
+
+_bwd.launches = 0  # backward calls that launched both kernels
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with its backward: the counterpart of the JAX
+    package's custom_vjp (`_flash_attention`). The forward saves (q, k, v,
+    o, lse); the backward recomputes p from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset):
+        o, lse = _fwd(q, k, v, causal, sm_scale, q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, sm_scale, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -158,11 +271,11 @@ def flash_attention(
     reading KV head h // (Hq // Hkv). causal: query i sees key j iff
     j <= i + q_offset (a static offset of the query block within the key
     sequence). sm_scale defaults to 1/sqrt(D). A row that sees no key gives
-    zeros. Returns [B, Hq, N, D] in q's dtype. Forward only: the backward
-    kernel is not ported yet.
+    zeros. Returns [B, Hq, N, D] in q's dtype; differentiable in q, k and v
+    (the backward is `_bwd`).
     """
     _unsupported(stable, window, sinks, k_max, stack_group, pack_heads)
-    return _fwd(q, k, v, causal, sm_scale, q_offset)[0]
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, q_offset)
 
 
 def flash_attention_with_lse(
@@ -170,6 +283,8 @@ def flash_attention_with_lse(
     window=None, sinks=0, pack_heads=None,
 ):
     """flash_attention that also returns the logsumexp [B, Hq, N] float32
-    (natural log; NEG_INF for a row that sees no key)."""
+    (natural log; NEG_INF for a row that sees no key). Not differentiable,
+    as in the JAX package."""
     _unsupported(stable, window, sinks, None, None, pack_heads)
-    return _fwd(q, k, v, causal, sm_scale, q_offset)
+    with torch.no_grad():  # the plain version would otherwise record a graph
+        return _fwd(q, k, v, causal, sm_scale, q_offset)

@@ -31,8 +31,8 @@ def _load_scheduler():
     try:
         so = _build.build(
             "libscheduler.so", [SCHEDULER_SRC],
-            lambda out: ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                         "-pthread", SCHEDULER_SRC, "-o", out],
+            lambda out: [[["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                           "-pthread", SCHEDULER_SRC, "-o", out]]],
         )
     except (RuntimeError, OSError):
         return None
