@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (at first use) and holds each
-against its plain PyTorch version in bf16 at the shapes its path gives it.
-Then it drives the port's two main paths at full width, with random
-weights from a seed:
+against its plain PyTorch version in bf16 at the shapes its path gives it,
+with its bound and the time of one PyTorch library call that computes the
+same function (scaled_dot_product_attention, where there is one). Then it
+drives the port's main paths at full width, with random weights from a
+seed:
   - serving: 32 requests through models.serving.Scheduler at the serving
     configuration of benchmarks/bench_serving.py (8 layers, d_model 2048,
     16 q heads x 128, 4 KV heads, d_ff 5504, vocab 32000, bf16, batch 8,
-    max_len 2048), and cached decoding against a full forward;
+    max_len 2048) three times: the default mode (linear cache), the paged
+    mode (page pool of 128-row pages, a shared 384-token prefix through the
+    prefix cache, prefill in chunks of 256) and multi_step=4; then cached
+    decoding against a full forward, over the linear and the paged cache;
   - training: 5 sgd_train_steps at the configuration of
     benchmarks/bench_train.py (the same widths, 4 layers, batch 4, seq
     4096) on batches from the native TokenLoader, then the trained params
@@ -64,38 +69,52 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, device, iters: int = 10, reps: int = 5) -> float:
+def time_ms(fn, device, iters: int = 10, reps: int = 5,
+            graph: bool = False) -> float:
     """Median per-call milliseconds over `reps` runs of `iters` calls, from
-    CUDA events on a GPU (after a warm-up call)."""
+    CUDA events on a GPU (after a warm-up call). graph=True captures the
+    `iters` calls into one CUDA graph and times its replays: the device's
+    time alone, where an eager loop of a kernel that runs for tens of
+    microseconds measures the host's cost of issuing it."""
     import torch
 
     fn()
+    run = lambda: [fn() for _ in range(iters)]  # noqa: E731
+    if device.type == "cuda" and graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
     times = []
     for _ in range(reps):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(iters):
-                fn()
+            run()
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end) / iters)
         else:
             t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
+            run()
             times.append((time.perf_counter() - t0) * 1e3 / iters)
     return statistics.median(times)
 
 
-def time_pair(kernel_fn, plain_fn, device, iters=10):
+def time_pair(kernel_fn, plain_fn, device, iters=10, graph=True):
     """Kernel and plain times measured in turns (plain, kernel, kernel,
-    plain) so that both see the same clocks."""
-    p1 = time_ms(plain_fn, device, iters)
-    k1 = time_ms(kernel_fn, device, iters)
-    k2 = time_ms(kernel_fn, device, iters)
-    p2 = time_ms(plain_fn, device, iters)
+    plain) so that both see the same clocks; by default from CUDA graphs
+    (device time, see time_ms)."""
+    p1 = time_ms(plain_fn, device, iters, graph=graph)
+    k1 = time_ms(kernel_fn, device, iters, graph=graph)
+    k2 = time_ms(kernel_fn, device, iters, graph=graph)
+    p2 = time_ms(plain_fn, device, iters, graph=graph)
     return min(k1, k2), min(p1, p2)
 
 
@@ -103,6 +122,56 @@ def _rel_l2(a, b) -> float:
     from flashattention_kernel_project_tpu_torch.utils.testing import rel_l2
 
     return rel_l2(a.float().cpu().numpy(), b.float().cpu().numpy())
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for work of `flops` bf16
+    operations moving `nbytes` of device memory (each input read once, each
+    output written once): the larger of the two times at the H100's
+    published peaks, and which of the two sets it."""
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    t_ops = flops / platform.H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / platform.H100_HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def visible_pairs(n: int, kv_len: int, q_offset: int, causal: bool) -> int:
+    """(query, key) pairs that n queries at positions q_offset.. see among
+    kv_len keys: the score and PV work an attention call must do."""
+    if not causal:
+        return n * kv_len
+    seen = np.clip(np.arange(n) + q_offset + 1, 0, kv_len)
+    return int(seen.sum())
+
+
+def sdpa_fn(q, k, v, *, mask=None, causal=False):
+    """A closure making one call of torch's scaled_dot_product_attention on
+    the kernel's inputs: the library yardstick (library_ms), never on the
+    port's path. GQA through enable_gqa; where the installed torch lacks it,
+    K and V are expanded to the q heads here, before the timed call (and the
+    run says so)."""
+    import torch
+    import torch.nn.functional as F
+
+    try:
+        F.scaled_dot_product_attention(
+            torch.zeros(1, 2, 1, 8), *(torch.zeros(1, 1, 1, 8) for _ in range(2)),
+            enable_gqa=True)
+        kw = dict(enable_gqa=True)
+    except TypeError:
+        log("library: this torch lacks enable_gqa; K/V are expanded to the q "
+            "heads before the timed SDPA call")
+        group = q.shape[1] // k.shape[1]
+        k, v = (x.repeat_interleave(group, dim=1) for x in (k, v))
+        kw = {}
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  is_causal=causal, **kw)
 
 
 def phase_forward(device, shapes, label):
@@ -154,8 +223,14 @@ def phase_forward(device, shapes, label):
             f"LSE ok | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) "
             f"vs plain {plain_ms:.4f} ms [{label}]")
         if i == 1:  # the slice's prefill shape stands for the kernel
-            entry.update(ms=ms, plain_ms=plain_ms,
+            assert causal and n == s and q_offset == 0
+            library_ms = time_ms(sdpa_fn(q, k, v, causal=True), device, graph=True)
+            work = 4 * b * hq * d * visible_pairs(n, s, q_offset, causal)
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         **bound(work, nbytes(q, k, v, o, lse)),
                          shape=f"b{b} hq{hq} hkv{hkv} n{n} s{s} d{d} causal")
+            log(f"flash_fwd at the entry's shape: bound {entry['bound_ms']:.4f}"
+                f" ms ({entry['bound_by']}), SDPA {library_ms:.4f} ms")
     return entry
 
 
@@ -203,16 +278,162 @@ def phase_decode(device, b, hq, hkv, s, d, label):
                              device, iters=50)
     live = int(lengths.sum())
     gbytes = 2 * live * hkv * d * 2 / 1e9  # K and V rows read
+    # the decode's work: q, the live K/V rows and o; QK and PV per live key
+    bnd = bound(4 * live * hq * d, nbytes(q, o) + 2 * live * hkv * d * 2)
+    mask = (torch.arange(s, device=device)[None, :] < lengths[:, None])
+    library_ms = time_ms(sdpa_fn(q[:, :, None], k, v, mask=mask[:, None, None]),
+                         device, iters=50, graph=True)
     log(f"flash_decode b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits={n_splits} "
         f"lengths={lengths.tolist()}: rel-L2 {err:.3e}, max-abs {max_abs:.3e} "
         f"| kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s of live K/V) vs "
         f"plain partials {plain_ms:.4f} ms | with the merge: {op_ms:.4f} ms "
-        f"vs plain {op_plain_ms:.4f} ms [{label}]")
+        f"vs plain {op_plain_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}), SDPA with a length mask {library_ms:.4f} ms "
+        f"[{label}]")
     return dict(name="flash_decode", route="cuda",
                 source=f"{PKG}/csrc/flash_decode.cu",
                 replaces="flashattention_kernel_project_tpu/ops/flash_decode.py:38",
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bnd,
                 shape=f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits}")
+
+
+def phase_ragged(device, shapes, label):
+    """The ragged forward kernel against `_fwd_ragged_plain`, bf16, at each
+    (b, hq, hkv, t, s_max, kv_lens, q_offsets, d, causal); the first shape
+    (the slice's prefill chunk) stands for the kernel. Returns its JSON
+    entry."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    entry = dict(name="flash_fwd_ragged", route="cuda",
+                 source=f"{PKG}/csrc/flash_fwd_ragged.cu",
+                 replaces="flashattention_kernel_project_tpu/ops/flash_attention.py:1582",
+                 max_abs_err=0.0)
+    for i, (b, hq, hkv, t, s, lens, offs, d, causal) in enumerate(shapes):
+        q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
+        k = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
+        v = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
+        q_offsets = torch.tensor(offs, dtype=torch.int32, device=device)
+        scale = d ** -0.5
+        args = (q, k, v, kv_lens, q_offsets)
+        o = fa.flash_attention_ragged(*args, causal=causal)
+        po = fa._fwd_ragged_plain(*args, causal, scale)
+        torch.cuda.synchronize()
+        assert o.shape == q.shape and o.dtype == torch.bfloat16
+        assert torch.isfinite(o).all()
+        for row, n_kv in enumerate(lens):
+            if n_kv == 0 and float(o[row].float().abs().max()) != 0.0:
+                raise AssertionError(f"ragged row {row} sees no key but is not 0")
+        err = _rel_l2(o, po)
+        max_abs = float((o.float() - po.float()).abs().max())
+        entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
+        if not err <= O_TOL:
+            raise AssertionError(f"flash_fwd_ragged rel-L2 {err:.3e} > {O_TOL}")
+        ms, plain_ms = time_pair(
+            lambda: fa._fwd_ragged(*args, causal, scale),
+            lambda: fa._fwd_ragged_plain(*args, causal, scale), device)
+        # SDPA over the same cache buffers with the equivalent boolean mask
+        mask = fa._ragged_mask(t, s, kv_lens, q_offsets, causal)
+        library_ms = time_ms(sdpa_fn(q, k, v, mask=mask), device, graph=True)
+        pairs = hq * sum(visible_pairs(t, n_kv, off, causal)
+                         for n_kv, off in zip(lens, offs))
+        live_kv = 2 * sum(lens) * hkv * d * q.element_size()
+        bnd = bound(4 * d * pairs, nbytes(q, o, kv_lens, q_offsets) + live_kv)
+        log(f"flash_fwd_ragged b{b} hq{hq} hkv{hkv} t{t} s_max{s} d{d} "
+            f"kv_lens={lens} q_offsets={offs} causal={causal}: rel-L2 "
+            f"{err:.3e}, max-abs {max_abs:.3e} | kernel {ms:.4f} ms "
+            f"({4 * d * pairs / ms / 1e9:.1f} TFLOP/s) vs plain {plain_ms:.4f} "
+            f"ms, SDPA with the mask {library_ms:.4f} ms | bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{label}]")
+        if i == 0:
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd,
+                         shape=f"b{b} hq{hq} hkv{hkv} t{t} s_max{s} d{d} "
+                               f"kv_lens{lens} q_offsets{offs} causal")
+    return entry
+
+
+def _paged_case(gen, device, b, hq, hkv, d, page, max_pages, lens):
+    """A pool of b * max_pages + 1 pages with random K/V, each row's pages
+    taken in order from a seeded permutation of the pool (page 0 is the
+    junk page that the dead table entries name)."""
+    import torch
+
+    n_pages = b * max_pages + 1
+    q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+    k = torch.randn(n_pages, hkv, page, d, generator=gen, device=device).bfloat16()
+    v = torch.randn(n_pages, hkv, page, d, generator=gen, device=device).bfloat16()
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=device) + 1).tolist()
+    table = torch.zeros(b, max_pages, dtype=torch.int32)
+    for row, n in enumerate(lens):
+        used = -(-n // page)
+        table[row, :used] = torch.tensor(perm[row * max_pages:row * max_pages + used])
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, k, v, table.to(device), lengths
+
+
+def phase_paged_decode(device, shapes, label):
+    """The paged decode kernel in both schedules (gather=False: one page a
+    split; True: splits sized for occupancy) against `_paged_partials_plain`
+    through the same merge, bf16, at each (b, hq, hkv, d, page, max_pages,
+    lengths); the first shape (the slice's) stands for the kernel. Returns
+    its JSON entry (no single PyTorch call computes a paged decode, so its
+    library_ms is null)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    entry = dict(name="paged_decode", route="cuda",
+                 source=f"{PKG}/csrc/paged_decode.cu",
+                 replaces="flashattention_kernel_project_tpu/ops/paged_decode.py:107",
+                 max_abs_err=0.0, library_ms=None)
+    for i, (b, hq, hkv, d, page, max_pages, lens) in enumerate(shapes):
+        q, k, v, table, lengths = _paged_case(gen, device, b, hq, hkv, d, page,
+                                              max_pages, lens)
+        scale = d ** -0.5
+        times = {}
+        for gather in (False, True):
+            pps = pd.gather_pages_per_split(b, hkv, max_pages) if gather else 1
+            part_args = (q, k, v, table, lengths, pps, scale)
+            o = pd.paged_flash_decode(q, k, v, table, lengths, gather=gather)
+            po = fd.merge_partials(*pd._paged_partials_plain(*part_args))
+            po = po.reshape(b, hq, d)
+            torch.cuda.synchronize()
+            assert o.shape == q.shape and torch.isfinite(o).all()
+            for row, n in enumerate(lens):
+                if n == 0 and float(o[row].float().abs().max()) != 0.0:
+                    raise AssertionError(f"paged row {row} is empty but not 0")
+            err = _rel_l2(o, po)
+            max_abs = float((o.float() - po.float()).abs().max())
+            entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
+            if not err <= O_TOL:
+                raise AssertionError(
+                    f"paged_decode gather={gather} rel-L2 {err:.3e} > {O_TOL}")
+            times[gather] = time_pair(
+                lambda: pd._paged_partials_cuda(*part_args),
+                lambda: pd._paged_partials_plain(*part_args), device, iters=50)
+            log(f"paged_decode b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                f"max_pages{max_pages} lengths={lens} gather={gather} "
+                f"({-(-max_pages // pps)} splits of {pps} pages): rel-L2 "
+                f"{err:.3e}, max-abs {max_abs:.3e} | kernel {times[gather][0]:.4f}"
+                f" ms vs plain partials {times[gather][1]:.4f} ms [{label}]")
+        live = sum(lens)
+        bnd = bound(4 * live * hq * d,
+                    nbytes(q, o, table, lengths) + 2 * live * hkv * d * 2)
+        log(f"paged_decode bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
+            f"q, the live K/V rows, the table and o); no single PyTorch call "
+            f"computes a paged decode, so there is no library time")
+        if i == 0:
+            ms, plain_ms = times[True]
+            entry.update(ms=ms, plain_ms=plain_ms, gather_false_ms=times[False][0],
+                         **bnd, shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                                      f"max_pages{max_pages} lengths{lens}")
+    return entry
 
 
 def phase_backward(device, shapes, label, entry_shape):
@@ -287,8 +508,25 @@ def phase_backward(device, shapes, label, entry_shape):
             f"[{label}]")
         if i == entry_shape:
             shape = f"b{b} hq{hq} hkv{hkv} n{n} s{s} d{d} causal={causal}"
-            dkdv.update(ms=kv_ms, plain_ms=plain_ms, shape=shape)
-            dq_e.update(ms=dq_ms, plain_ms=plain_ms, shape=shape)
+            # the library: autograd's backward through one SDPA call, which
+            # gives dq, dk and dv together (both rows carry its time)
+            qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+            out = sdpa_fn(qg, kg, vg, causal=causal)()
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True), device, iters)
+            del out, qg, kg, vg
+            # dK/dV: S, dP, dV, dK; dq: S, dP, dQ (2*d operations each per
+            # visible pair); each reads q, k, v, do, lse, delta
+            pairs = b * hq * visible_pairs(n, s, q_offset, causal)
+            reads = nbytes(q, k, v, do, lse, lse)
+            dkdv.update(ms=kv_ms, plain_ms=plain_ms, library_ms=library_ms,
+                        **bound(8 * d * pairs, reads + nbytes(k, v)), shape=shape)
+            dq_e.update(ms=dq_ms, plain_ms=plain_ms, library_ms=library_ms,
+                        **bound(6 * d * pairs, reads + nbytes(q)), shape=shape)
+            log(f"flash_bwd at the entries' shape: bound dkdv "
+                f"{dkdv['bound_ms']:.4f} ms ({dkdv['bound_by']}), dq "
+                f"{dq_e['bound_ms']:.4f} ms ({dq_e['bound_by']}), SDPA "
+                f"backward {library_ms:.4f} ms")
     return dkdv, dq_e
 
 
@@ -477,50 +715,259 @@ def serving_prompts(cfg, n_requests, ladder=LADDER):
             for n in lens]
 
 
-def phase_slice(device, cfg, params, prompts, max_batch, max_len, max_new,
-                label):
-    """Serve `prompts` through the Scheduler; every request must return
-    max_new tokens and (on a GPU) both kernels must have launched."""
+def _counters():
+    """The launch counters of every kernel wrapper, by kernel name."""
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    return dict(flash_fwd=fa._fwd, flash_fwd_ragged=fa.flash_attention_ragged,
+                flash_decode=fd.flash_decode, paged_decode=pd.paged_flash_decode,
+                flash_bwd=fa._bwd)
+
+
+def serve(device, cfg, params, prompts, max_new, kernels, label, tag, **kw):
+    """Serve `prompts` through Scheduler(**kw) after a warm-up run on a
+    throwaway scheduler, with every launch counter set to 0 just before.
+    Every request must return max_new in-vocab tokens, and (on a GPU) each
+    kernel named in `kernels` must have launched. Returns (scheduler,
+    tokens in submission order, launches by kernel)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.models.serving import Scheduler
-    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
-    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
 
     # warm-up on a throwaway scheduler: allocator, cuBLAS handles
-    warm = Scheduler(cfg, params, max_batch=max_batch, max_len=max_len)
+    warm = Scheduler(cfg, params, **kw)
     warm.submit(prompts[0][:8], max_new_tokens=4)
     warm.run()
     del warm
     if device.type == "cuda":
         torch.cuda.synchronize()
 
-    sched = Scheduler(cfg, params, max_batch=max_batch, max_len=max_len)
-    fa._fwd.launches = 0
-    fd.flash_decode.launches = 0
+    sched = Scheduler(cfg, params, **kw)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     uids = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
     out = sched.run()
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = dict(flash_fwd=fa._fwd.launches,
-                    flash_decode=fd.flash_decode.launches)
+    launches = {name: fn.launches for name, fn in counters.items()}
     for u in uids:
         if len(out[u]) != max_new:
             raise AssertionError(f"request {u} returned {len(out[u])} tokens")
         if not all(0 <= t < cfg.vocab_size for t in out[u]):
             raise AssertionError(f"request {u} returned out-of-vocab tokens")
-    if device.type == "cuda" and not all(launches.values()):
+    if device.type == "cuda" and not all(launches[k] for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     m = sched.metrics()
-    log(f"slice: {len(prompts)} requests x {max_new} new tokens, batch "
-        f"{max_batch}, max_len {max_len}, prompt lengths "
-        f"{sorted(len(p) for p in prompts)}")
-    log(f"slice: {m.tokens} tokens in {m.wall_s:.3f} s = {m.tok_per_s:.1f} tok/s"
-        f" | TTFT mean {m.ttft_s_mean * 1e3:.1f} ms p95 "
+    opts = ", ".join(f"{k}={v}" for k, v in kw.items())
+    log(f"{tag}: {len(prompts)} requests x {max_new} new tokens, {opts}, "
+        f"prompt lengths {sorted(len(p) for p in prompts)}")
+    log(f"{tag}: {m.tokens} tokens in {m.wall_s:.3f} s = {m.tok_per_s:.1f} "
+        f"tok/s | TTFT mean {m.ttft_s_mean * 1e3:.1f} ms p95 "
         f"{m.ttft_s_p95 * 1e3:.1f} ms | latency mean "
         f"{m.latency_s_mean * 1e3:.1f} ms p95 {m.latency_s_p95 * 1e3:.1f} ms"
         f" | kernel launches {launches} [{label}]")
+    return sched, [out[u] for u in uids], launches
+
+
+def phase_slice(device, cfg, params, prompts, max_batch, max_len, max_new,
+                label):
+    """The default Scheduler (linear cache, bucketed prefill): the forward
+    and the linear decode kernel must have launched."""
+    return serve(device, cfg, params, prompts, max_new,
+                 ("flash_fwd", "flash_decode"), label, "slice",
+                 max_batch=max_batch, max_len=max_len)
+
+
+def phase_paged_slice(device, cfg, params, prompts, max_batch, max_len,
+                      max_new, linear, label):
+    """The paged, prefix-cached, chunked Scheduler: the ragged forward and
+    the paged decode must have launched and the linear decode not; some
+    inserts must have reused the shared prefix's pages; after the run every
+    page is back in the pool and the prefix index is empty. `linear` is the
+    default Scheduler's metrics from the same run, printed beside."""
+    sched, tokens, launches = serve(
+        device, cfg, params, prompts, max_new,
+        ("flash_fwd_ragged", "paged_decode"), label, "paged slice",
+        max_batch=max_batch, max_len=max_len, paged=True, page_size=128,
+        prefix_cache=True, prefill_chunk=256)
+    if device.type == "cuda" and launches["flash_decode"]:
+        raise AssertionError(f"the paged path ran the linear decode: {launches}")
+    if not sched.prefix_hits > 0:
+        raise AssertionError("no insert reused the shared prefix's pages")
+    if sched._pool.free_pages != sched._n_pages - 1:
+        raise AssertionError(f"{sched._pool.free_pages} of {sched._n_pages - 1}"
+                             " pages back in the pool")
+    if sched._prefix_index or sched._page_refs:
+        raise AssertionError("prefix index or page references left over")
+    m = sched.metrics()
+    log(f"paged slice: {sched.prefix_hits} of {len(prompts)} inserts reused "
+        f"the shared prefix's pages; pool fully recycled "
+        f"({sched._pool.free_pages} free of {sched._n_pages}, page 0 junk)")
+    log(f"paged slice vs linear slice (same run): {m.tok_per_s:.1f} vs "
+        f"{linear.tok_per_s:.1f} tok/s | TTFT mean {m.ttft_s_mean * 1e3:.1f} vs"
+        f" {linear.ttft_s_mean * 1e3:.1f} ms, p95 {m.ttft_s_p95 * 1e3:.1f} vs "
+        f"{linear.ttft_s_p95 * 1e3:.1f} ms | latency mean "
+        f"{m.latency_s_mean * 1e3:.1f} vs {linear.latency_s_mean * 1e3:.1f} ms,"
+        f" p95 {m.latency_s_p95 * 1e3:.1f} vs {linear.latency_s_p95 * 1e3:.1f}"
+        f" ms [{label}]")
     return launches
+
+
+def phase_multi_step(device, cfg, params, prompts, max_batch, max_len, max_new,
+                     single, label):
+    """The linear Scheduler with 4 decode steps a round on the serving
+    prompts; the fraction of its greedy tokens equal to the multi_step=1
+    run's (`single`, in submission order) is printed."""
+    sched, tokens, launches = serve(
+        device, cfg, params, prompts, max_new, ("flash_fwd", "flash_decode"),
+        label, "multi_step slice", max_batch=max_batch, max_len=max_len,
+        multi_step=4)
+    same = np.mean([a == b for x, y in zip(tokens, single)
+                    for a, b in zip(x, y)])
+    log(f"multi_step slice: {sched.metrics().tok_per_s:.1f} tok/s; greedy "
+        f"tokens equal to the multi_step=1 run: {same:.4f} [{label}]")
+    return launches
+
+
+def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
+                         steps=20, window=5):
+    """Where a decode step's time goes, the linear cache against the paged
+    one, at the serving batch (`batch` slots of `length` tokens): host
+    milliseconds a step with one host sync a step (the Scheduler's pattern),
+    then `window` steps under torch.profiler: device time by kind and the
+    device's busy share of the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashattention_kernel_project_tpu_torch.models import engine
+
+    dec = engine.fuse_decode_params(cfg, params)
+    pages = -(-(length + steps + window + 1) // 128)
+    linear = engine.init_cache(cfg, batch, 2048, device)
+    paged = engine.init_paged_cache(cfg, batch, batch * pages + 1, device,
+                                    page_size=128, max_pages_per_seq=pages)
+    paged.block_tables.copy_(torch.arange(1, batch * pages + 1, device=device,
+                                          dtype=torch.int32).view(batch, pages))
+    for cache in (linear, paged):
+        cache.lengths.fill_(length)
+    tok = torch.zeros(batch, dtype=torch.int32, device=device)
+    for name, step, cache in (
+            ("linear", engine.decode_step, linear),
+            ("paged", engine.decode_step_paged, paged)):
+        step(cfg, dec, tok, cache)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, _ = step(cfg, dec, tok, cache)
+            logits.argmax(-1).cpu()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(window):
+                logits, _ = step(cfg, dec, tok, cache)
+                logits.argmax(-1).cpu()
+            wall = (time.perf_counter() - t0) * 1e3
+        kinds = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            key = e.key
+            ours = re.search(r"(paged|flash)_decode_kernel", key)
+            if ours:
+                kind = ours.group(0)
+            elif "sgemm" in key or "gemm_f32" in key:
+                kind = "f32 GEMM (lm_head)"
+            elif "gemm" in key or "nvjet" in key:
+                kind = "bf16 GEMM"
+            elif "index" in key or "scatter" in key:
+                kind = "cache append (index_put)"
+            else:
+                kind = "elementwise, copies, reductions"
+            kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+        busy = sum(kinds.values())
+        log(f"{name} decode step (B={batch}, lengths {length}): {host_ms:.3f} ms"
+            f" a step on the host clock; profiled {window} steps: {busy / window:.3f}"
+            f" ms of device time a step, busy {100 * busy / wall:.1f}% of "
+            f"{wall / window:.3f} ms | " + ", ".join(
+                f"{k} {v / window:.3f} ms ({100 * v / busy:.1f}%)"
+                for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+            + f" [{label}]")
+
+
+def phase_paged_consistency(device, cfg, params, n_prompt, n_shared, chunk,
+                            n_steps, label):
+    """Two prompts of n_prompt tokens, the second sharing the first's
+    n_shared-token prefix. The first is prefilled through `extend` chunks
+    into a batch-1 cache and paged_insert'ed; the second is built from
+    cache_from_pages of the shared pages plus an `extend` of its suffix.
+    Then n_steps greedy decode_step_paged steps of both; every step's
+    logits against a full forward over the same tokens."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import engine
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+
+    page = 128
+    gen = torch.Generator(device=device).manual_seed(23)
+    prompts = torch.randint(0, cfg.vocab_size, (2, n_prompt), generator=gen,
+                            device=device, dtype=torch.int32)
+    prompts[1, :n_shared] = prompts[0, :n_shared]
+    max_pages = -(-(n_prompt + n_steps) // page)
+    cache = engine.init_paged_cache(cfg, 2, 2 * max_pages + 1, device,
+                                    page_size=page, max_pages_per_seq=max_pages)
+    shared = list(range(1, n_shared // page + 1))
+    rows = [list(range(1, max_pages + 1)),
+            shared + list(range(max_pages + 1, 2 * max_pages + 1 - len(shared)))]
+
+    def extend_from(cache1, seq, start):
+        for j0 in range(start, n_prompt, chunk):
+            nj = min(chunk, n_prompt - j0)
+            part = torch.zeros(1, chunk, dtype=torch.int32, device=device)
+            part[0, :nj] = prompts[seq, j0:j0 + nj]
+            n = torch.full((1,), nj, dtype=torch.int32, device=device)
+            logits, cache1 = engine.extend(cfg, params, part, cache1, n=n)
+        return logits, cache1
+
+    first = []
+    for seq in range(2):
+        if seq == 0:
+            cache1 = engine.init_cache(cfg, 1, n_prompt + chunk, device)
+            logits, cache1 = extend_from(cache1, seq, 0)
+        else:
+            cache1 = engine.cache_from_pages(cfg, cache, shared, n_shared,
+                                             n_prompt + chunk)
+            logits, cache1 = extend_from(cache1, seq, n_shared)
+        first.append(logits[0])
+        engine.paged_insert(cache, seq, rows[seq],
+                            [x[0, :, :n_prompt] for x in cache1.k],
+                            [x[0, :, :n_prompt] for x in cache1.v], n_prompt,
+                            start_page=0 if seq == 0 else len(shared))
+    dec = engine.fuse_decode_params(cfg, params)
+    steps = [torch.stack(first)]
+    toks = [steps[0].argmax(-1).to(torch.int32)]
+    for _ in range(n_steps):
+        logits, cache = engine.decode_step_paged(cfg, dec, toks[-1], cache)
+        steps.append(logits)
+        toks.append(logits.argmax(-1).to(torch.int32))
+    seq_all = torch.cat([prompts, torch.stack(toks[:-1], dim=1)], dim=1)
+    full = tfm.forward(cfg, params, seq_all)[:, n_prompt - 1:]
+    cached = torch.stack(steps, dim=1)
+    assert cached.shape == full.shape and torch.isfinite(cached).all()
+    errs = [[_rel_l2(cached[s, i], full[s, i]) for i in range(n_steps + 1)]
+            for s in range(2)]
+    log(f"paged consistency: 2 prompts of {n_prompt} (the second sharing "
+        f"{n_shared} tokens = {len(shared)} pages through cache_from_pages), "
+        f"extend chunks of {chunk} + {n_steps} decode_step_paged steps vs "
+        f"forward: logits rel-L2 max {max(map(max, errs)):.3e} (first prompt "
+        f"{max(errs[0]):.3e}, prefix path {max(errs[1]):.3e}) [{label}]")
+    if not max(map(max, errs)) <= LOGITS_TOL:
+        raise AssertionError(f"paged decode logits rel-L2 "
+                             f"{max(map(max, errs)):.3e} > {LOGITS_TOL}")
 
 
 def phase_consistency(device, cfg, params, n_prompt, n_steps, label):
@@ -597,20 +1044,52 @@ def main() -> int:
         (2, 4, 2, 200, 333, 128, True, 133),   # ragged, causal, q_offset
     ], label)
     dec = phase_decode(device, 8, 16, 4, 2048, 128, label)
+    ragged = phase_ragged(device, [
+        # the third chunk of a 768-token prompt at chunk 256 (the slice's)
+        (1, 16, 4, 256, 2304, [768], [512], 128, True),
+        # per-row raggedness and an empty row
+        (4, 16, 4, 64, 1024, [64, 300, 1000, 0], [0, 236, 936, 0], 128, True),
+        (2, 4, 2, 200, 512, [333, 512], [133, 312], 64, True),
+        (4, 16, 4, 64, 1024, [64, 300, 1000, 0], [0, 236, 936, 0], 128, False),
+    ], label)
+    paged = phase_paged_decode(device, [
+        # the slice's pool: 16 pages of 128 a slot, 129 pages
+        (8, 16, 4, 128, 128, 16, [1, 127, 128, 129, 700, 1500, 2048, 0]),
+        (4, 8, 2, 64, 16, 19, [5, 16, 300, 0]),
+    ], label)
 
-    # 3. the slice at the serving configuration
+    # 3. the serving slices at the serving configuration: the default
+    # Scheduler, the paged one (a page pool, a shared 384-token system
+    # prompt through the prefix cache, prefill in chunks of 256) and
+    # multi_step=4, each with every launch counter at 0 before it
     cfg = tfm.TransformerConfig(**SERVING, dtype=torch.bfloat16)
     params = tfm.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)
-    launches = phase_slice(device, cfg, params, serving_prompts(cfg, 32),
-                           max_batch=8, max_len=2048, max_new=64, label=label)
+    prompts = serving_prompts(cfg, 32)
+    sched, single, launches = phase_slice(
+        device, cfg, params, prompts, max_batch=8, max_len=2048, max_new=64,
+        label=label)
     fwd["launches"] = launches["flash_fwd"]
     dec["launches"] = launches["flash_decode"]
+    system = np.random.default_rng(1).integers(0, cfg.vocab_size, 384)
+    paged_launches = phase_paged_slice(
+        device, cfg, params,
+        [np.concatenate([system, p]).astype(np.int32) for p in prompts],
+        max_batch=8, max_len=2048, max_new=64, linear=sched.metrics(),
+        label=label)
+    ragged["launches"] = paged_launches["flash_fwd_ragged"]
+    paged["launches"] = paged_launches["paged_decode"]
+    phase_multi_step(device, cfg, params, prompts, max_batch=8, max_len=2048,
+                     max_new=64, single=single, label=label)
 
-    # 4. cached decode against a full forward
+    # 4. cached decode against a full forward: the linear cache, then the
+    # paged cache with a prefix shared through cache_from_pages
     phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
                       label=label)
-    del params
+    phase_paged_consistency(device, cfg, params, n_prompt=640, n_shared=512,
+                            chunk=256, n_steps=16, label=label)
+    profile_decode_steps(device, cfg, params, label)
+    del params, sched
 
     # 5. the backward kernels against their plain version
     bwd = phase_backward(device, [
@@ -635,7 +1114,7 @@ def main() -> int:
     # 7. train -> checkpoint -> restore -> serve
     phase_checkpoint(device, cfg, params, corpus, label)
 
-    print(json.dumps({"kernels": [fwd, dec, *bwd]}), flush=True)
+    print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

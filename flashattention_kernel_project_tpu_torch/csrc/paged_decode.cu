@@ -1,0 +1,103 @@
+// Split-KV single-token GQA decode against a paged KV cache, for Hopper
+// (sm_90a).
+//
+// Replaces both schedules of flashattention_kernel_project_tpu/ops/
+// paged_decode.py::paged_flash_decode for a bf16 pool:
+// - _paged_gather_kernel (gather=True, the engine's path): several pages per
+//   program. Here the wrapper sizes the splits for occupancy, about two
+//   blocks per SM, as the linear decode does; the TPU sized its spans in
+//   bytes because it ran the grid serially.
+// - _paged_decode_kernel (gather=False): one page per program. Here one page
+//   per split.
+// One kernel serves both: the schedules differ only in pages per split.
+//
+// Each (batch row, KV head, split) block reads the page ids of its split
+// from block_tables[b] itself (the TPU had them on the scalar-prefetch
+// channel) and emits the unnormalized partials (m, l, y) of the group's G
+// query rows over its keys below lengths[b]; merge_partials combines the
+// splits outside the kernel. The block's work is decode_partials in
+// decode_core.cuh, where its design and bound (bytes) are described: only
+// the key-row address differs from the linear cache, key j of row b living
+// at row j % page of page block_tables[b, j / page]. Keys at or past
+// lengths[b] are never visited, so table entries past a row's pages (valid
+// ids, typically the junk page 0) cost nothing, a split past the row's
+// length loads nothing, and a row of length 0 gives zeros. Page ids may come
+// in any order.
+
+#include "decode_core.cuh"
+
+namespace {
+
+using fkp_dec::kThreads;
+
+// key j of row b lives in page table[j / page], at row j % page
+struct PagedRows {
+  const int* table;    // block_tables[b]
+  size_t page_stride;  // elements per page of the pool: hkv * page * d
+  int page;
+  int d;
+  __device__ __forceinline__ size_t offset(int key) const {
+    const int pid = __ldg(table + key / page);
+    return (size_t)pid * page_stride + (size_t)(key % page) * d;
+  }
+};
+
+// Launch bounds with a minimum of one block per SM: with the thread count
+// alone, ptxas spilled 8 bytes in the G = 2 instances.
+template <int D, int G>
+__global__ void __launch_bounds__(kThreads, 1)
+    paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k_pages,
+                        const __nv_bfloat16* __restrict__ v_pages,
+                        const int* __restrict__ block_tables,
+                        const int* __restrict__ lengths,
+                        float* __restrict__ m_out, float* __restrict__ l_out,
+                        float* __restrict__ y_out, int hkv, int page,
+                        int max_pages, int n_splits, int pages_per_split,
+                        float sm_scale) {
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int split = blockIdx.z;
+  // the table holds max_pages pages: keys past them are not attended
+  const int len = min(max(lengths[b], 0), max_pages * page);
+  const int span = pages_per_split * page;
+  const int start = split * span;
+  const int end = min(start + span, len);
+  const size_t part = ((size_t)b * hkv + kvh) * n_splits + split;
+  const size_t head = (size_t)kvh * page * D;  // the head's rows in a page
+  const PagedRows rows{block_tables + (size_t)b * max_pages,
+                       (size_t)hkv * page * D, page, D};
+  fkp_dec::decode_partials<D, G>(
+      q + ((size_t)b * hkv + kvh) * G * D, k_pages + head, v_pages + head,
+      rows, start, end, sm_scale, m_out + part * G, l_out + part * G,
+      y_out + part * G * D);
+}
+
+}  // namespace
+
+// q [b, hq, d], k/v pages [n_pages, hkv, page, d] bf16 contiguous,
+// block_tables [b, max_pages] and lengths [b] int32; m, l [b, hkv, n_splits,
+// G] and y [b, hkv, n_splits, G, d] f32, G = hq/hkv in {1, 2, 4, 8}, d in
+// {64, 128}. Split i covers table entries [i*pages_per_split,
+// (i+1)*pages_per_split). Returns cudaGetLastError() after the launch.
+extern "C" int fkp_paged_decode(const void* q, const void* k_pages,
+                                const void* v_pages, const void* block_tables,
+                                const void* lengths, void* m, void* l, void* y,
+                                int b, int hq, int hkv, int page, int d,
+                                int max_pages, int n_splits,
+                                int pages_per_split, float sm_scale,
+                                void* stream) {
+  const dim3 grid(b, hkv, n_splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return fkp_dec::dispatch(d, hq / hkv, [&](auto dc, auto gc) {
+    paged_decode_kernel<decltype(dc)::value, decltype(gc)::value>
+        <<<grid, kThreads, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(q),
+            static_cast<const __nv_bfloat16*>(k_pages),
+            static_cast<const __nv_bfloat16*>(v_pages),
+            static_cast<const int*>(block_tables),
+            static_cast<const int*>(lengths), static_cast<float*>(m),
+            static_cast<float*>(l), static_cast<float*>(y), hkv, page,
+            max_pages, n_splits, pages_per_split, sm_scale);
+  });
+}

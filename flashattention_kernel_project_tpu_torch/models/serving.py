@@ -1,22 +1,38 @@
-"""Continuous-batching serving scheduler over a linear KV cache.
+"""Continuous-batching serving scheduler over a linear or a paged KV cache.
 
-Counterpart of flashattention_kernel_project_tpu/models/serving.py in its
-default mode: a fixed decode batch of `max_batch` slots; new requests are
-prefilled one at a time (prompt padded to a length bucket), spliced into a
-free slot and decoded with the rest of the batch; a finished slot is freed
-at once. Every decode step runs the whole batch: an empty slot has length 0
-and the decode kernel gives it zeros. All scheduling decisions (admission
-order, slot choice, budget/EOS finish, bucketing) live in the native core
-(runtime/native.py).
+Counterpart of flashattention_kernel_project_tpu/models/serving.py: a fixed
+decode batch of `max_batch` slots; new requests are prefilled one at a time,
+put into a free slot and decoded with the rest of the batch; a finished slot
+is freed at once. Every decode step runs the whole batch: an empty slot has
+length 0 and the decode kernel gives it zeros. All scheduling decisions
+(admission order, slot choice, budget/EOS finish, bucketing) live in the
+native core (runtime/native.py).
 
-The other modes of the JAX Scheduler raise NotImplementedError naming the
-ROADMAP item that brings them.
+Modes, as in the JAX Scheduler:
+- default: a prompt padded to its length bucket runs through `prefill` into
+  a batch-1 cache whose rows are copied into the slot's linear buffer;
+- `prefill_chunk`: the prompt enters in chunks through the ragged `extend`,
+  with a decode step of the live batch between chunks;
+- `paged`: a shared page pool with per-slot block tables replaces the
+  per-slot `max_len` buffers; pages are allocated at insert for the
+  request's whole budget and recycled at retirement;
+- `prefix_cache` (paged only): full prompt pages are indexed by a chained
+  hash of their tokens; a request whose prompt starts with resident pages
+  shares them (refcounted) and runs `extend` over its suffix only;
+- `multi_step`: that many greedy (or scheduler-level sampled) decode steps
+  per round, with the tokens past a slot's EOS or budget dropped and its
+  length rolled back.
+
+The JAX Scheduler's remaining modes (8-bit caches, meshes, speculative
+decoding) raise NotImplementedError naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import time
 from typing import Callable
 
@@ -25,6 +41,7 @@ import torch
 
 from flashattention_kernel_project_tpu_torch.models import engine
 from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+from flashattention_kernel_project_tpu_torch.ops.paged_decode import PagePool
 from flashattention_kernel_project_tpu_torch.runtime.native import (
     BatchSchedulerCore,
 )
@@ -70,13 +87,9 @@ class ServingMetrics:
 # mode -> the ROADMAP.md item that brings it to the port
 _NOT_PORTED = {
     "quantized_cache": "A.7 (8-bit KV caches)",
-    "prefill_chunk": "A.6 (ragged extend and chunked prefill)",
     "mesh": "A.9 (multi-device)",
     "seq_mesh": "A.9 (multi-device)",
-    "paged": "A.8 (paged KV)",
-    "prefix_cache": "A.8 (paged KV)",
     "draft_cfg": "A.6 (speculative decoding)",
-    "multi_step": "A.6 (multi_step windows)",
 }
 
 
@@ -101,6 +114,8 @@ class Scheduler:
         mesh=None,
         seq_mesh=None,
         paged: bool = False,
+        page_size: int = 128,
+        n_pages: int | None = None,
         prefix_cache: bool = False,
         draft_cfg: tfm.TransformerConfig | None = None,
         multi_step: int = 1,
@@ -110,10 +125,8 @@ class Scheduler:
         generator: torch.Generator | None = None,
     ):
         requested = dict(
-            quantized_cache=quantized_cache, prefill_chunk=prefill_chunk,
-            mesh=mesh is not None, seq_mesh=seq_mesh is not None, paged=paged,
-            prefix_cache=prefix_cache, draft_cfg=draft_cfg is not None,
-            multi_step=multi_step > 1,
+            quantized_cache=quantized_cache, mesh=mesh is not None,
+            seq_mesh=seq_mesh is not None, draft_cfg=draft_cfg is not None,
         )
         for mode, on in requested.items():
             if on:
@@ -121,11 +134,18 @@ class Scheduler:
                     f"Scheduler({mode}=...) is not ported: ROADMAP item "
                     f"{_NOT_PORTED[mode]}"
                 )
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache requires paged=True")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
         self.max_len = max_len
         self.eos_token = eos_token
+        self.n_splits = n_splits
+        self.prefill_chunk = prefill_chunk
+        self.paged = paged
+        self.prefix_cache = prefix_cache
+        self.multi_step = multi_step
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
@@ -133,17 +153,46 @@ class Scheduler:
         self.sampling = temperature > 0.0 and generator is not None
         # per-slot effective temperature (0 = greedy)
         self._slot_temp = np.zeros(max_batch, np.float32)
-        self.cache = engine.init_cache(cfg, max_batch, max_len, self.device)
+        if paged:
+            # a shared page pool replaces the per-slot max_len buffers. Pages
+            # are allocated at insert for the request's whole budget and
+            # returned at retirement; n_pages below
+            # max_batch * max_len / page_size + 1 bets that requests retire
+            # early, and alloc raises MemoryError when the bet fails. Page 0
+            # is the junk page: empty slots' block tables point at it, so
+            # their masked decode appends land there.
+            self._page = page_size
+            self._pages_per_seq = -(-max_len // page_size)
+            self._n_pages = n_pages or (max_batch * self._pages_per_seq + 1)
+            self.cache = engine.init_paged_cache(
+                cfg, max_batch, self._n_pages, self.device,
+                page_size=page_size, max_pages_per_seq=self._pages_per_seq,
+            )
+            self._pool = PagePool(self._n_pages)
+            self._slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
+            # prefix caching: full prompt pages keyed by a position-chained
+            # hash; a prompt that starts with a resident chain shares those
+            # pages (refcounted) and skips their prefill
+            self._prefix_index: dict[bytes, int] = {}  # key -> page id
+            self._page_refs: dict[int, int] = {}       # page id -> refs
+            self._page_key: dict[int, bytes] = {}      # page id -> key
+            self.prefix_hits = 0  # inserts that reused resident pages
+            self._decode = functools.partial(engine.decode_step_paged, cfg)
+        else:
+            self.cache = engine.init_cache(cfg, max_batch, max_len, self.device)
+            self._decode = functools.partial(
+                engine.decode_step, cfg, n_splits=n_splits
+            )
         self.slots: list[Request | None] = [None] * max_batch
         self.cur_tokens = np.zeros(max_batch, np.int32)
         self.finished: list[Request] = []
-        self.core = BatchSchedulerCore(max_batch, max_len)
+        # a multi_step window writes up to multi_step rows past the committed
+        # length before the host sees EOS or the budget: reserve them
+        self._reserve = multi_step if multi_step > 1 else 0
+        self.core = BatchSchedulerCore(max_batch, max_len - self._reserve)
         self._callbacks: dict[int, Callable[[int, int, bool], None]] = {}
         self._requests: dict[int, Request] = {}
         self._decode_params = engine.fuse_decode_params(cfg, params)
-        self._decode = functools.partial(
-            engine.decode_step, cfg, n_splits=n_splits
-        )
         self._wall_s = 0.0
 
     # ----------------------------------------------------------------- API
@@ -158,13 +207,23 @@ class Scheduler:
         as it lands. temperature overrides the scheduler default for this
         request (needs a generator; 0 = greedy)."""
         prompt = np.asarray(prompt, np.int32)
-        if temperature is not None and temperature > 0.0 and self._generator is None:
-            raise ValueError("per-request temperature needs a generator")
+        if temperature is not None and temperature > 0.0:
+            if self._generator is None:
+                raise ValueError("per-request temperature needs a generator")
+            if self.multi_step > 1:
+                raise ValueError(
+                    "multi_step: per-request temperature overrides are not "
+                    "supported (scheduler-level sampling is)"
+                )
         uid = self.core.submit(len(prompt), max_new_tokens)
         if uid < 0:
+            extra = (
+                f" (= max_len {self.max_len} minus {self._reserve} scratch "
+                f"rows reserved by multi_step)" if self._reserve else ""
+            )
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new ({max_new_tokens}) "
-                f"exceeds capacity {self.max_len}"
+                f"exceeds capacity {self.max_len - self._reserve}{extra}"
             )
         self._requests[uid] = Request(
             uid, prompt, max_new_tokens, t_submit=time.perf_counter(),
@@ -224,23 +283,47 @@ class Scheduler:
             self._insert(slot, self._requests[uid], bucket)
 
     def _insert(self, slot: int, req: Request, tb: int):
-        """Prefill the prompt as a batch-1 sequence padded to its bucket
-        `tb`, splice its KV into the batch cache at `slot`, and record the
-        first generated token."""
+        """Prefill the prompt as a batch-1 sequence (bucket `tb`), move its
+        KV into the batch cache at `slot`, and record the first generated
+        token.
+
+        With `prefill_chunk` set, the prompt enters in chunks through the
+        ragged `extend` (n= gathers the logits at the last real position, so
+        they are exact for a padded chunk), with a decode step of the live
+        batch between chunks: a long prompt stalls the batch for one chunk
+        at a time. A prompt whose leading full pages are resident in the
+        prefix cache runs `extend` over its suffix only."""
         t = len(req.prompt)
-        prompt = np.zeros((1, tb), np.int32)
-        prompt[0, :t] = req.prompt
-        cache1 = engine.init_cache(self.cfg, 1, tb, self.device)
-        logits, cache1 = with_retries(
-            engine.prefill, self.cfg, self.params,
-            torch.from_numpy(prompt).to(self.device), cache1,
-        )
-        # the padded tail cannot change position t-1 (causal), but prefill
-        # returns the logits of position tb-1: recompute the true last
-        # position when the prompt is shorter than its bucket
-        if t != tb:
-            logits = self._exact_last_logits(req.prompt)
-        self._splice_linear(slot, cache1, tb, t)
+        shared: list[int] = []
+        keys: list[bytes] = []
+        if self.prefix_cache:
+            shared, keys = self._match_prefix(req.prompt)
+            # hold the shared pages from here: a decode step between the
+            # suffix's chunks may retire their other holders
+            for pid in shared:
+                self._page_refs[pid] += 1
+        if shared:
+            self.prefix_hits += 1
+            logits, cache1 = self._chunked_prefill(req, tb, prefix_pages=shared)
+        elif self.prefill_chunk:
+            logits, cache1 = self._chunked_prefill(req, tb)
+        else:
+            prompt = np.zeros((1, tb), np.int32)
+            prompt[0, :t] = req.prompt
+            cache1 = engine.init_cache(self.cfg, 1, tb, self.device)
+            logits, cache1 = with_retries(
+                engine.prefill, self.cfg, self.params,
+                torch.from_numpy(prompt).to(self.device), cache1,
+            )
+            # the padded tail cannot change position t-1 (causal), but
+            # prefill returns the logits of position tb-1: recompute the
+            # true last position when the prompt is shorter than its bucket
+            if t != tb:
+                logits = self._exact_last_logits(req.prompt)
+        if self.paged:
+            self._insert_pages(slot, req, cache1, t, shared, keys)
+        else:
+            self._splice_linear(slot, cache1, tb, t)
         self.slots[slot] = req
         t_eff = req.temperature
         if t_eff is None:
@@ -261,6 +344,93 @@ class Scheduler:
             big[slot, :, :tb] = small[0, :, :tb]
         self.cache.lengths[slot] = t
 
+    def _match_prefix(self, prompt: np.ndarray):
+        """The longest chain of resident full prompt pages. Returns (their
+        page ids, the chained keys of every full prompt page). A key hashes
+        the page's tokens after the previous page's key, so a page matches
+        only at the same absolute positions (its K rows carry RoPE
+        positions). A page-aligned prompt never matches its last page: the
+        suffix extend needs at least one token to give the first logits."""
+        page = self._page
+        t = len(prompt)
+        n_full = t // page
+        keys: list[bytes] = []
+        prev = b""
+        for j in range(n_full):
+            h = hashlib.blake2b(digest_size=16)
+            h.update(prev)
+            h.update(np.ascontiguousarray(prompt[j * page:(j + 1) * page]))
+            prev = h.digest()
+            keys.append(prev)
+        shared: list[int] = []
+        for j in range(min(n_full, (t - 1) // page)):
+            pid = self._prefix_index.get(keys[j])
+            if pid is None:
+                break
+            shared.append(pid)
+        return shared, keys
+
+    def _insert_pages(self, slot: int, req: Request, cache1, t: int,
+                      shared: list[int], keys: list[bytes]):
+        """Allocate pages for the request's whole budget (the shared prefix
+        pages, already held by `_insert`, count), copy the prefilled rows
+        past them into the new pages, install the block table, and index the
+        request's own full prompt pages."""
+        # + reserve: a multi_step window appends up to `reserve` rows past
+        # the budget before the host drops them; they must land in this
+        # slot's own pages, not on the junk page
+        n_total = -(-(t + req.max_new_tokens + self._reserve) // self._page)
+        new_pages = self._pool.alloc(n_total - len(shared))
+        for pid in new_pages:
+            self._page_refs[pid] = 1
+        pages = list(shared) + new_pages
+        self._slot_pages[slot] = pages
+        row = self._pool.table_for(pages, self._pages_per_seq)
+        k_seq = [k[0, :, :t] for k in cache1.k]
+        v_seq = [v[0, :, :t] for v in cache1.v]
+        engine.paged_insert(self.cache, slot, row, k_seq, v_seq, t,
+                            start_page=len(shared))
+        if self.prefix_cache:
+            # the tail's partial page and generated tokens' pages are never
+            # shared; a key already indexed keeps its page, this one stays
+            # private
+            for j in range(len(shared), t // self._page):
+                if keys[j] not in self._prefix_index:
+                    self._prefix_index[keys[j]] = pages[j]
+                    self._page_key[pages[j]] = keys[j]
+
+    def _chunked_prefill(self, req: Request, tb: int, prefix_pages=None):
+        """Feed the prompt through the ragged `extend` in chunks of
+        `prefill_chunk` tokens against a batch-1 cache, decoding the live
+        batch between chunks. The cache has tb + C rows: the last chunk's
+        padded tail still writes C - n rows past the prompt. With
+        `prefix_pages`, the cache starts as their rows and only the suffix
+        runs."""
+        c = min(self.prefill_chunk or tb, tb)
+        t = len(req.prompt)
+        if prefix_pages:
+            s = len(prefix_pages) * self._page
+            cache1 = engine.cache_from_pages(self.cfg, self.cache,
+                                             prefix_pages, s, tb + c)
+        else:
+            s = 0
+            cache1 = engine.init_cache(self.cfg, 1, tb + c, self.device)
+        logits = None
+        for j0 in range(s, t, c):
+            nj = min(c, t - j0)
+            chunk = np.zeros((1, c), np.int32)
+            chunk[0, :nj] = req.prompt[j0:j0 + nj]
+            n = torch.full((1,), nj, dtype=torch.int32, device=self.device)
+            logits, cache1 = with_retries(
+                functools.partial(
+                    engine.extend, self.cfg, self.params,
+                    torch.from_numpy(chunk).to(self.device), cache1, n=n,
+                )
+            )
+            if j0 + nj < t:
+                self._decode_once()
+        return logits, cache1
+
     def _exact_last_logits(self, prompt: np.ndarray):
         tokens = torch.from_numpy(np.asarray(prompt, np.int32)[None, :])
         logits = tfm.forward(self.cfg, self.params, tokens.to(self.device))
@@ -269,6 +439,8 @@ class Scheduler:
     def _decode_once(self):
         if not self.core.active():
             return
+        if self.multi_step > 1:
+            return self._multi_step_round()
         tokens = torch.from_numpy(self.cur_tokens.copy()).to(self.device)
         logits, self.cache = with_retries(
             self._decode, self._decode_params, tokens, self.cache,
@@ -281,6 +453,43 @@ class Scheduler:
             req.generated.append(tok)
             self.cur_tokens[i] = tok
             self._on_token(i, tok)
+
+    def _multi_step_round(self):
+        """multi_step decode steps in one call (engine.decode_steps or
+        decode_steps_paged), with no host round trip between them. Tokens a
+        slot produced past its EOS or budget are dropped and its length
+        rolled back. Scheduler-level sampling runs inside the steps."""
+        m = self.multi_step
+        old_len = self.cache.lengths.cpu().numpy().copy()
+        samp = dict(temperature=self.temperature, generator=self._generator,
+                    top_k=self.top_k, top_p=self.top_p) if self.sampling else {}
+        tokens = torch.from_numpy(self.cur_tokens.copy()).to(self.device)
+        if self.paged:
+            step_fn = functools.partial(
+                engine.decode_steps_paged, self.cfg, self._decode_params,
+                tokens, self.cache, n_steps=m, **samp)
+        else:
+            step_fn = functools.partial(
+                engine.decode_steps, self.cfg, self._decode_params, tokens,
+                self.cache, n_steps=m, n_splits=self.n_splits, **samp)
+        toks, self.cache = with_retries(step_fn)
+        toks = toks.cpu().numpy()
+        new_len = old_len.copy()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                new_len[i] = 0  # an empty slot: undo the window's advance
+                continue
+            committed = 0
+            for j in range(m):
+                committed += 1
+                tok = int(toks[i, j])
+                req.generated.append(tok)
+                self.cur_tokens[i] = tok
+                self._on_token(i, tok)
+                if self.slots[i] is None:
+                    break  # retired mid-window: drop the rest
+            new_len[i] = 0 if self.slots[i] is None else old_len[i] + committed
+        self.cache.lengths.copy_(torch.from_numpy(new_len))
 
     def _pick(self, logits, temps=None) -> np.ndarray:
         """Per-slot greedy or temperature/top-k/top-p choice [B, V] -> [B]
@@ -320,8 +529,26 @@ class Scheduler:
 
     def _release_slot(self, slot: int):
         """Free a slot's device-side state (at retirement or cancel): zero
-        its length so decode masks it. The slot keeps riding the batch
-        decode, its length growing from 0; the cache write clamps at the
-        buffer's end."""
+        its length so decode masks it, and recycle its pages. The slot keeps
+        riding the batch decode, its length growing from 0; a linear cache
+        write clamps at the buffer's end, a paged one lands on the junk
+        page."""
         self._slot_temp[slot] = 0.0
         self.cache.lengths[slot] = 0
+        if self.paged:
+            # drop this slot's references; free the pages nobody else holds
+            # (and unindex them), then point the table at the junk page, so
+            # that the slot's appends never land in pages another request
+            # owns
+            dead = []
+            for pid in self._slot_pages[slot]:
+                self._page_refs[pid] -= 1
+                if self._page_refs[pid] == 0:
+                    dead.append(pid)
+                    del self._page_refs[pid]
+                    key = self._page_key.pop(pid, None)
+                    if key is not None:
+                        self._prefix_index.pop(key, None)
+            self._pool.free(dead)
+            self._slot_pages[slot] = []
+            self.cache.block_tables[slot] = 0

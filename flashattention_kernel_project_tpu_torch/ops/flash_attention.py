@@ -1,13 +1,15 @@
-"""Fused GQA attention: forward (O and logsumexp) and backward.
+"""Fused GQA attention: forward (O and logsumexp), backward, and the ragged
+forward against a live cache.
 
 Counterpart of flashattention_kernel_project_tpu/ops/flash_attention.py
 (`flash_attention`, `flash_attention_with_lse`, `_fwd`, `_bwd_pallas` and
-the custom_vjp around them), in the stable=True discipline. On a CUDA
-tensor `_fwd` launches the hand-written Hopper kernel in csrc/flash_fwd.cu
-and `_bwd` the two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a
-CPU tensor they run `_fwd_plain` and `_bwd_plain`, the same functions in
-plain PyTorch, which the CPU tests hold against the JAX kernels and
-chip_smoke.py holds the CUDA kernels against.
+the custom_vjp around them, `flash_attention_ragged`), in the stable=True
+discipline. On a CUDA tensor `_fwd` launches the hand-written Hopper kernel
+in csrc/flash_fwd.cu, `_fwd_ragged` the one in csrc/flash_fwd_ragged.cu and
+`_bwd` the two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a CPU
+tensor they run `_fwd_plain`, `_fwd_ragged_plain` and `_bwd_plain`, the same
+functions in plain PyTorch, which the CPU tests hold against the JAX
+kernels and chip_smoke.py holds the CUDA kernels against.
 
 Layouts follow the JAX package: q [B, Hq, N, D], k/v [B, Hkv, S, D],
 O [B, Hq, N, D] in q's dtype, LSE [B, Hq, N] float32 in natural log.
@@ -288,3 +290,130 @@ def flash_attention_with_lse(
     _unsupported(stable, window, sinks, None, None, pack_heads)
     with torch.no_grad():  # the plain version would otherwise record a graph
         return _fwd(q, k, v, causal, sm_scale, q_offset)
+
+
+def _ragged_mask(n, s, kv_lens, q_offsets, causal):
+    """[B, 1, N, S] bool: query i of row b sees key j iff j < kv_lens[b] and,
+    when causal, j <= i + q_offsets[b]."""
+    col = torch.arange(s, device=kv_lens.device)
+    mask = col[None, None, :] < kv_lens.long()[:, None, None]  # [B, 1, S]
+    if causal:
+        rows = (torch.arange(n, device=kv_lens.device)[None, :, None]
+                + q_offsets.long()[:, None, None])
+        mask = mask & (col[None, None, :] <= rows)  # [B, N, S]
+    return mask.expand(-1, n, -1)[:, None]
+
+
+def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale):
+    """The ragged forward in plain PyTorch, in float32: the dense
+    `_fwd_plain` with a per-row mask. kv_lens above S count as S."""
+    b, hq, n, d = q.shape
+    group = hq // k.shape[1]
+    s = k.shape[2]
+    qf = q.float() * (sm_scale * _LOG2E)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scores = qf @ kf.transpose(-1, -2)  # [B, Hq, N, S], log2 domain
+    mask = _ragged_mask(n, s, kv_lens, q_offsets, causal)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    # a row with no visible key has m == NEG_INF and exp2(0) == 1
+    p = torch.exp2(scores - m) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    o = (p @ vf) / torch.where(l == 0.0, torch.ones_like(l), l)
+    return o.to(q.dtype)
+
+
+@functools.cache
+def _ragged_kernel():
+    """fkp_flash_fwd_ragged: q, k, v, o, kv_lens, q_offsets, then (b, hq,
+    hkv, n, s_max, d), a float scale, causal and the stream."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_flash_fwd_ragged",
+                         [vp] * 6 + [i32] * 6 + [ctypes.c_float, i32, vp])
+
+
+def _check_ragged_bounds(q, kv_lens, q_offsets):
+    b = q.shape[0]
+    for name, x in (("kv_lens", kv_lens), ("q_offsets", q_offsets)):
+        if x.device != q.device or x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32 on q's device")
+        if tuple(x.shape) != (b,) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [{b}] tensor")
+
+
+def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale):
+    """O of the ragged forward. CPU tensors run `_fwd_ragged_plain`; CUDA
+    tensors launch csrc/flash_fwd_ragged.cu (bf16, contiguous, d in {64,
+    128}, int32 bounds on the device) or raise. The bounds are never read
+    on the host."""
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
+                         f"{k.shape[1]}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no ragged forward for device {q.device}")
+    _check_cuda_inputs(q, k, v)
+    _check_ragged_bounds(q, kv_lens, q_offsets)
+    b, hq, n, d = q.shape
+    o = torch.empty_like(q)
+    rc = _ragged_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        kv_lens.data_ptr(), q_offsets.data_ptr(),
+        b, hq, k.shape[1], n, k.shape[2], d, float(sm_scale * _LOG2E),
+        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_attention_ragged.launches += 1
+    _build.check(rc, "flash_fwd_ragged")
+    return o
+
+
+def flash_attention_ragged(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lens: torch.Tensor,
+    q_offsets: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    stable: bool | str = True,
+    window: int | None = None,
+    sinks: int = 0,
+) -> torch.Tensor:
+    """Attention with per-row KV lengths and causal query offsets: the
+    chunked-prefill forward against a live cache.
+
+    q [B, Hq, N, D]; k, v [B, Hkv, S_max, D] (e.g. the cache buffers);
+    kv_lens [B] int32, the valid keys of each row; q_offsets [B] int32, the
+    position of query 0. Query i of row b attends key j iff j < kv_lens[b]
+    and, when causal, j <= i + q_offsets[b]; a row that sees no key gives
+    zeros. Forward only (the serving path). Returns [B, Hq, N, D] in q's
+    dtype. stable="auto" is the online path, as in the JAX package, whose
+    ragged kernel has no hybrid.
+    """
+    if stable == "auto":
+        stable = True
+    if stable is not True:
+        raise NotImplementedError(
+            "flash_attention_ragged: only stable=True is ported; the "
+            "fixed-max discipline is ROADMAP item A.1"
+        )
+    if window is not None or sinks:
+        raise NotImplementedError(
+            "flash_attention_ragged: window/sinks are ROADMAP item A.1"
+        )
+    return _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale)
+
+
+flash_attention_ragged.launches = 0  # kernel launches, for showing that a path ran the kernel
+
+
+def flash_attention_ragged_kv_quant(*args, **kwargs):
+    """The ragged forward over an 8-bit cache: not ported yet."""
+    raise NotImplementedError(
+        "flash_attention_ragged_kv_quant: 8-bit KV caches are ROADMAP item A.7"
+    )

@@ -3,11 +3,12 @@
 Counterpart of flashattention_kernel_project_tpu/runtime/data.py, with the
 same API and batches. `TokenLoader` streams [batch, seq_len+1] uint32 crops
 (inputs + next-token labels, one-token overlap) from a flat packed-token
-file (nanoGPT-style .bin). The native backend is the JAX package's
-runtime/dataloader.cpp (mmap + a prefetch thread pool with a bounded ready
-queue), compiled by path with g++ into this package's build/ directory at
-first use; a numpy memmap fallback gives the same API where no compiler is
-available. This is host input, not a device path.
+file (nanoGPT-style .bin). The native backend is this package's own
+runtime/dataloader.cpp, a copy of the JAX package's (mmap + a prefetch
+thread pool with a bounded ready queue), compiled with g++ into this
+package's build/ directory at first use; a numpy memmap fallback gives the
+same API where no compiler is available. This is host input, not a device
+path.
 """
 
 from __future__ import annotations
@@ -20,9 +21,8 @@ import numpy as np
 
 from flashattention_kernel_project_tpu_torch.ops import _build
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DATALOADER_SRC = os.path.join(
-    _REPO, "flashattention_kernel_project_tpu", "runtime", "dataloader.cpp"
+    os.path.dirname(os.path.abspath(__file__)), "dataloader.cpp"
 )
 
 

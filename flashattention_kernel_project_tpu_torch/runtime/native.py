@@ -1,10 +1,10 @@
 """ctypes binding of the native continuous-batching core.
 
 Counterpart of the scheduler half of
-flashattention_kernel_project_tpu/runtime/native.py. The C++ source is the
-JAX package's runtime/scheduler.cpp, compiled by path with g++ into this
-package's build/ directory at first use (never into the JAX package's
-directory, where its own tests build concurrently). Where no compiler is
+flashattention_kernel_project_tpu/runtime/native.py. The C++ source is
+this package's own runtime/scheduler.cpp, a copy of the JAX package's, so
+that a change to the reference never changes the port; it is compiled with
+g++ into this package's build/ directory at first use. Where no compiler is
 available, a behaviour-identical Python implementation of the same state
 machine takes over: this is host bookkeeping, not a device path.
 """
@@ -19,9 +19,8 @@ import numpy as np
 
 from flashattention_kernel_project_tpu_torch.ops import _build
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SCHEDULER_SRC = os.path.join(
-    _REPO, "flashattention_kernel_project_tpu", "runtime", "scheduler.cpp"
+    os.path.dirname(os.path.abspath(__file__)), "scheduler.cpp"
 )
 
 

@@ -115,14 +115,19 @@ def test_scheduler_sampling_uses_generator(both_params):
 
 @pytest.mark.parametrize(
     "mode",
-    [dict(quantized_cache=True), dict(prefill_chunk=16), dict(mesh=object()),
-     dict(seq_mesh=object()), dict(paged=True), dict(prefix_cache=True),
-     dict(draft_cfg=CFG), dict(multi_step=4)],
+    [dict(quantized_cache=True), dict(mesh=object()), dict(seq_mesh=object()),
+     dict(draft_cfg=CFG), dict(draft_cfg=CFG, multi_step=4)],
 )
 def test_scheduler_unported_modes_raise(both_params, mode):
     _, tp = both_params
     with pytest.raises(NotImplementedError, match="ROADMAP item A"):
         Scheduler(CFG, tp, max_batch=2, max_len=64, **mode)
+
+
+def test_scheduler_prefix_cache_needs_paged(both_params):
+    _, tp = both_params
+    with pytest.raises(ValueError, match="paged=True"):
+        Scheduler(CFG, tp, max_batch=2, max_len=64, prefix_cache=True)
 
 
 def _drive_core(core):
