@@ -16,6 +16,12 @@ seed:
     mode (page pool of 128-row pages, a shared 384-token prefix through the
     prefix cache, prefill in chunks of 256) and multi_step=4; then cached
     decoding against a full forward, over the linear and the paged cache;
+  - speculative decoding at benchmarks/bench_spec.py's configuration (the
+    serving model as the target, a 2-layer draft with half its d_ff):
+    speculative_generate against generate with bench_spec's gates, then
+    the 32 requests through Scheduler(draft_cfg=...) on the linear cache,
+    on the page pool, and on the page pool with the target as its own
+    draft, each against the plain greedy tokens;
   - training: 5 sgd_train_steps at the configuration of
     benchmarks/bench_train.py (the same widths, 4 layers, batch 4, seq
     4096) on batches from the native TokenLoader, then the trained params
@@ -46,6 +52,9 @@ PKG = "flashattention_kernel_project_tpu_torch"
 # the serving configuration of benchmarks/bench_serving.py
 SERVING = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16,
                n_kv_heads=4, d_head=128, d_ff=5504)
+# the draft of benchmarks/bench_spec.py:63-65 (2 layers, d_ff // 2), seed 1
+DRAFT = dict(SERVING, n_layers=2, d_ff=SERVING["d_ff"] // 2)
+SPEC_K = 4
 # the training configuration of benchmarks/bench_train.py:37-41 at its
 # default depth, batch and sequence length
 TRAIN = dict(SERVING, n_layers=4)
@@ -436,6 +445,63 @@ def phase_paged_decode(device, shapes, label):
     return entry
 
 
+def phase_paged_extend(device, shapes, label):
+    """The paged extend kernel (the paged speculative verify) against
+    `_paged_extend_plain`, bf16, at each (b, hq, hkv, d, page, max_pages, t,
+    old lengths); the first shape (the slice's verify) stands for the
+    kernel, with its bound. Returns its JSON entry (no single PyTorch call
+    attends over a paged cache, so its library_ms is null)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator(device=device).manual_seed(29)
+    entry = dict(name="paged_extend", route="cuda",
+                 source=f"{PKG}/csrc/paged_extend.cu",
+                 replaces="flashattention_kernel_project_tpu/ops/paged_decode.py:397",
+                 max_abs_err=0.0, library_ms=None)
+    for i, (b, hq, hkv, d, page, max_pages, t, old) in enumerate(shapes):
+        new = [n + t for n in old]
+        _, k, v, table, new_lengths = _paged_case(gen, device, b, hq, hkv, d,
+                                                  page, max_pages, new)
+        q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
+        old_lengths = torch.tensor(old, dtype=torch.int32, device=device)
+        args = (q, k, v, table, new_lengths, old_lengths, d ** -0.5)
+        tiles = -(-(hq // hkv) * t // 64)
+        o = pd.paged_flash_extend(q, k, v, table, new_lengths, old_lengths)
+        po = pd._paged_extend_plain(*args)
+        torch.cuda.synchronize()
+        assert o.shape == q.shape and o.dtype == torch.bfloat16
+        assert torch.isfinite(o).all()
+        err = _rel_l2(o, po)
+        max_abs = float((o.float() - po.float()).abs().max())
+        entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
+        if not err <= O_TOL:
+            raise AssertionError(f"paged_extend rel-L2 {err:.3e} > {O_TOL}")
+        ms, plain_ms = time_pair(lambda: pd._paged_extend_cuda(*args),
+                                 lambda: pd._paged_extend_plain(*args), device,
+                                 iters=50)
+        # q, the live K/V rows, the table, both lengths and o; QK and PV
+        # (4*d operations) per visible (row, key) pair
+        pairs = hq * sum(visible_pairs(t, n, off, True)
+                         for n, off in zip(new, old))
+        bnd = bound(4 * d * pairs,
+                    nbytes(q, o, table, new_lengths, old_lengths)
+                    + 2 * sum(new) * hkv * d * q.element_size())
+        log(f"paged_extend b{b} hq{hq} hkv{hkv} d{d} page{page} "
+            f"max_pages{max_pages} t{t} old_lengths={old} (G*T = "
+            f"{hq // hkv * t} rows: {tiles} query tile(s) of 64, the wrapper "
+            f"takes it): rel-L2 {err:.3e}, max-abs {max_abs:.3e} | kernel "
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms | bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); no PyTorch call "
+            f"attends over a paged cache, so there is no library time [{label}]")
+        if i == 0:
+            entry.update(ms=ms, plain_ms=plain_ms, **bnd,
+                         shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                               f"max_pages{max_pages} t{t} old_lengths{old}")
+    return entry
+
+
 def phase_backward(device, shapes, label, entry_shape):
     """The two backward kernels against `_bwd_plain`, bf16, on the same
     (o, lse) from the forward kernel, at each (b, hq, hkv, n, s, d, causal,
@@ -723,7 +789,7 @@ def _counters():
 
     return dict(flash_fwd=fa._fwd, flash_fwd_ragged=fa.flash_attention_ragged,
                 flash_decode=fd.flash_decode, paged_decode=pd.paged_flash_decode,
-                flash_bwd=fa._bwd)
+                paged_extend=pd.paged_flash_extend, flash_bwd=fa._bwd)
 
 
 def serve(device, cfg, params, prompts, max_new, kernels, label, tag, **kw):
@@ -761,7 +827,9 @@ def serve(device, cfg, params, prompts, max_new, kernels, label, tag, **kw):
     if device.type == "cuda" and not all(launches[k] for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     m = sched.metrics()
-    opts = ", ".join(f"{k}={v}" for k, v in kw.items())
+    opts = ", ".join(  # a draft's config by its depth and width, not its params
+        f"{k}={v.n_layers} layers d_ff {v.d_ff}" if k == "draft_cfg" else f"{k}={v}"
+        for k, v in kw.items() if k != "draft_params")
     log(f"{tag}: {len(prompts)} requests x {max_new} new tokens, {opts}, "
         f"prompt lengths {sorted(len(p) for p in prompts)}")
     log(f"{tag}: {m.tokens} tokens in {m.wall_s:.3f} s = {m.tok_per_s:.1f} "
@@ -832,6 +900,209 @@ def phase_multi_step(device, cfg, params, prompts, max_batch, max_len, max_new,
     return launches
 
 
+class NearTie:
+    """bench_spec.py:119-175's near-tie audit for one model: a divergence
+    between two greedy streams at position t is allowed only where the
+    model's own top-2 logits after the common prefix lie within
+    max(8 eps, 1e-3), eps being the largest logit difference between two
+    evaluations of one prefix (fresh prefill vs prefill + one decode
+    step)."""
+
+    def __init__(self, cfg, params, prefix):
+        from flashattention_kernel_project_tpu_torch.models import engine
+
+        self.cfg, self.params = cfg, params
+        full = self.last_logits(prefix)
+        cache = engine.init_cache(cfg, 1, len(prefix) + 1, params["embed"].device)
+        engine.prefill(cfg, params, self._tokens(prefix[:-1]), cache)
+        step, _ = engine.decode_step(cfg, engine.fuse_decode_params(cfg, params),
+                                     self._tokens(prefix[-1:])[0], cache)
+        self.eps = float((full - step[0]).abs().max())
+        self.bound = max(8.0 * self.eps, 1e-3)
+
+    def _tokens(self, seq):
+        import torch
+
+        return torch.as_tensor(np.asarray(seq, np.int32)[None],
+                               device=self.params["embed"].device)
+
+    def last_logits(self, prefix):
+        """[V] f32 logits after `prefix`, from a fresh prefill."""
+        from flashattention_kernel_project_tpu_torch.models import engine
+
+        cache = engine.init_cache(self.cfg, 1, len(prefix) + 1,
+                                  self.params["embed"].device)
+        logits, _ = engine.prefill(self.cfg, self.params, self._tokens(prefix),
+                                   cache)
+        return logits[0]
+
+    def gap(self, prefix) -> float:
+        top2 = self.last_logits(prefix).topk(2).values
+        return float(top2[0] - top2[1])
+
+    def audit(self, streams, refs, prefixes, what):
+        """For each pair of token streams, the agreement window (the first
+        divergence, or the stream's length) and the top1-top2 gap there;
+        raises if a gap exceeds the bound. Returns (windows, gaps)."""
+        windows, gaps = [], []
+        for got, want, prefix in zip(streams, refs, prefixes):
+            diff = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+            windows.append(diff[0] if diff else len(want))
+            if diff:
+                gaps.append(self.gap(list(prefix) + list(want[:diff[0]])))
+        big = [g for g in gaps if g > self.bound]
+        if big:
+            raise AssertionError(
+                f"{what}: divergence at a non-near-tie site: top1-top2 gaps "
+                f"{big} exceed {self.bound:.2e} (8 x eps {self.eps:.2e})")
+        return windows, gaps
+
+
+def phase_spec_generate(device, cfg, params, draft_cfg, draft_params, batch,
+                        prompt_len, max_new, label):
+    """bench_spec.py in the port: speculative_generate (spec_k 4) and
+    generate on `batch` seeded prompts, one warm-up each, then its gates:
+    the first 16 tokens of every row equal (bench_spec.py:98-117), and the
+    near-tie audit at every row's first divergence. The forward, the ragged
+    forward (the verify) and the linear decode (the draft) must launch."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import engine
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                           device=device, dtype=torch.int32)
+    counters = _counters()
+
+    def timed(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out.cpu().numpy(), time.perf_counter() - t0,
+                {name: c.launches for name, c in counters.items()})
+
+    plain, dt_plain, _ = timed(lambda: engine.generate(
+        cfg, params, prompt, max_new_tokens=max_new))
+    spec, dt_spec, launches = timed(lambda: engine.speculative_generate(
+        cfg, params, prompt, draft_cfg=draft_cfg, draft_params=draft_params,
+        spec_k=SPEC_K, max_new_tokens=max_new))
+    if device.type == "cuda" and not all(
+            launches[k] for k in ("flash_fwd", "flash_fwd_ragged", "flash_decode")):
+        raise AssertionError(f"a kernel of the spec path never launched: {launches}")
+    assert spec.shape == plain.shape == (batch, prompt_len + max_new)
+    if not ((spec >= 0) & (spec < cfg.vocab_size)).all():
+        raise AssertionError("speculative_generate returned out-of-vocab tokens")
+    agree = 0  # bench_spec.py's window: leading columns equal in every row
+    for a, b in zip(plain.T, spec.T):
+        if not (a == b).all():
+            break
+        agree += 1
+    if agree < min(16, plain.shape[1]):
+        raise AssertionError(f"speculative tokens diverged at column {agree}")
+    tie = NearTie(cfg, params, plain[0, :prompt_len + 1])
+    windows, gaps = tie.audit(spec[:, prompt_len:], plain[:, prompt_len:],
+                              plain[:, :prompt_len], "speculative_generate")
+    rounds = launches["flash_fwd_ragged"] // cfg.n_layers
+    toks = batch * max_new
+    log(f"spec generate: batch {batch} x prompt {prompt_len} + {max_new} new, "
+        f"draft {draft_cfg.n_layers} layers d_ff {draft_cfg.d_ff}, spec_k "
+        f"{SPEC_K}: plain {toks / dt_plain:.1f} tok/s, spec "
+        f"{toks / dt_spec:.1f} tok/s | greedy-agree {agree}/{plain.shape[1]} "
+        f"columns; generated tokens equal to plain up to {windows} per row | "
+        f"{rounds} verify rounds: {(max_new - 1) / max(rounds, 1):.3f} "
+        f"committed tokens per round (the slowest row) | near-tie eps "
+        f"{tie.eps:.2e}, bound {tie.bound:.2e}, gaps at divergences "
+        f"{[f'{g:.2e}' for g in gaps]} | launches {launches} [{label}]")
+    return tie
+
+
+def phase_spec_slice(device, cfg, params, draft_cfg, draft_params, prompts,
+                     max_batch, max_len, max_new, single, linear, tie, label):
+    """The 32 serving requests through the speculative Scheduler (spec_k 4)
+    three ways: (i) the draft on the linear cache, (ii) on the page pool,
+    (iii) the page pool with the target as its own draft, where every draft
+    should be accepted. (i) must launch the ragged forward and the linear
+    decode, (ii) and (iii) the paged extend and not the paged decode; the
+    pools end fully recycled. Greedy tokens against `single` (the plain
+    run): every first divergence must pass the near-tie audit. (iii) must
+    commit more than 2 tokens per slot and verify round. Returns (ii)'s
+    launches."""
+    runs = (("spec slice (linear)", draft_cfg, draft_params, {},
+             ("flash_fwd", "flash_fwd_ragged", "flash_decode")),
+            ("spec slice (paged)", draft_cfg, draft_params,
+             dict(paged=True, page_size=128), ("flash_fwd", "paged_extend")),
+            ("spec slice (paged, draft = target)", cfg, params,
+             dict(paged=True, page_size=128), ("flash_fwd", "paged_extend")))
+    out = {}
+    for tag, dcfg, dparams, kw, kernels in runs:
+        sched, tokens, launches = serve(
+            device, cfg, params, prompts, max_new, kernels, label, tag,
+            max_batch=max_batch, max_len=max_len, draft_cfg=dcfg,
+            draft_params=dparams, spec_k=SPEC_K, **kw)
+        if kw.get("paged"):
+            if device.type == "cuda" and launches["paged_decode"]:
+                raise AssertionError(f"{tag} ran the paged decode: {launches}")
+            if sched._pool.free_pages != sched._n_pages - 1:
+                raise AssertionError(f"{tag}: {sched._pool.free_pages} of "
+                                     f"{sched._n_pages - 1} pages back")
+        windows, gaps = tie.audit(tokens, single, prompts, tag)
+        same = np.mean([a == b for x, y in zip(tokens, single)
+                        for a, b in zip(x, y)])
+        per_round = sched.spec_committed / max(sched.spec_slot_rounds, 1)
+        m = sched.metrics()
+        log(f"{tag}: greedy tokens equal to the plain run {same:.4f}; "
+            f"agreement windows {windows}; gaps at divergences "
+            f"{[f'{g:.2e}' for g in gaps]} (bound {tie.bound:.2e}) | "
+            f"{per_round:.3f} committed tokens per slot per verify round "
+            f"({sched.spec_committed} over {sched.spec_slot_rounds} "
+            f"slot-rounds) | vs the plain slice (same run): {m.tok_per_s:.1f} "
+            f"vs {linear.tok_per_s:.1f} tok/s, TTFT mean "
+            f"{m.ttft_s_mean * 1e3:.1f} vs {linear.ttft_s_mean * 1e3:.1f} ms, "
+            f"latency mean {m.latency_s_mean * 1e3:.1f} vs "
+            f"{linear.latency_s_mean * 1e3:.1f} ms [{label}]")
+        out[tag] = (launches, per_round)
+    _, per_round = out["spec slice (paged, draft = target)"]
+    if not 2.0 < per_round <= SPEC_K + 1:
+        raise AssertionError(f"draft = target committed {per_round:.3f} tokens "
+                             "per slot and round, not above 2")
+    return out["spec slice (paged)"][0]
+
+
+def device_ms_by_kind(prof) -> dict:
+    """Device milliseconds of a torch.profiler window by kind of kernel:
+    this repo's attention kernels by name (the forward core's flavours
+    0, 1, 2 as flash_fwd, flash_fwd_ragged, paged_extend), the GEMMs, the
+    cache appends and the rest."""
+    from torch.autograd import DeviceType
+
+    flavours = {"0": "flash_fwd", "1": "flash_fwd_ragged", "2": "paged_extend"}
+    kinds = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = e.key
+        fwd = re.search(r"flash_fwd_kernel<\d+, (\d)>", key)
+        ours = re.search(r"(paged|flash)_decode_kernel", key)
+        if fwd:
+            kind = flavours[fwd.group(1)]
+        elif ours:
+            kind = ours.group(0)
+        elif "sgemm" in key or "gemm_f32" in key:
+            kind = "f32 GEMM (lm_head)"
+        elif "gemm" in key or "nvjet" in key:
+            kind = "bf16 GEMM"
+        elif "index" in key or "scatter" in key:
+            kind = "cache append (index_put)"
+        else:
+            kind = "elementwise, copies, reductions"
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return kinds
+
+
 def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
                          steps=20, window=5):
     """Where a decode step's time goes, the linear cache against the paged
@@ -840,7 +1111,6 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
     then `window` steps under torch.profiler: device time by kind and the
     device's busy share of the window's wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from flashattention_kernel_project_tpu_torch.models import engine
@@ -872,23 +1142,7 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
                 logits, _ = step(cfg, dec, tok, cache)
                 logits.argmax(-1).cpu()
             wall = (time.perf_counter() - t0) * 1e3
-        kinds = {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            key = e.key
-            ours = re.search(r"(paged|flash)_decode_kernel", key)
-            if ours:
-                kind = ours.group(0)
-            elif "sgemm" in key or "gemm_f32" in key:
-                kind = "f32 GEMM (lm_head)"
-            elif "gemm" in key or "nvjet" in key:
-                kind = "bf16 GEMM"
-            elif "index" in key or "scatter" in key:
-                kind = "cache append (index_put)"
-            else:
-                kind = "elementwise, copies, reductions"
-            kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+        kinds = device_ms_by_kind(prof)
         busy = sum(kinds.values())
         log(f"{name} decode step (B={batch}, lengths {length}): {host_ms:.3f} ms"
             f" a step on the host clock; profiled {window} steps: {busy / window:.3f}"
@@ -897,6 +1151,51 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
                 f"{k} {v / window:.3f} ms ({100 * v / busy:.1f}%)"
                 for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
             + f" [{label}]")
+
+
+def profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
+                       batch=8, length=600, rounds=10, window=3):
+    """Where a speculative round's time goes on the page pool: `batch`
+    requests of `length` prompt tokens in the paged speculative Scheduler;
+    host milliseconds a round (each ends in the host's accept), then
+    `window` rounds under torch.profiler: device time by kind and the
+    device's busy share of the window's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashattention_kernel_project_tpu_torch.models.serving import Scheduler
+
+    sched = Scheduler(cfg, params, max_batch=batch, max_len=2048, paged=True,
+                      page_size=128, draft_cfg=draft_cfg,
+                      draft_params=draft_params, spec_k=SPEC_K)
+    rng = np.random.default_rng(3)
+    for _ in range(batch):  # a budget no round can spend
+        sched.submit(rng.integers(0, cfg.vocab_size, length).astype(np.int32),
+                     max_new_tokens=(SPEC_K + 1) * (rounds + window + 2))
+    sched._fill_slots()
+    sched._decode_once()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        sched._decode_once()
+    host_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    committed = sched.spec_committed
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(window):
+            sched._decode_once()
+        wall = (time.perf_counter() - t0) * 1e3
+    committed = (sched.spec_committed - committed) / (batch * window)
+    kinds = device_ms_by_kind(prof)
+    busy = sum(kinds.values())
+    log(f"paged spec round (B={batch}, prompts {length}, spec_k {SPEC_K}, draft "
+        f"{draft_cfg.n_layers} layers): {host_ms:.3f} ms a round on the host "
+        f"clock; profiled {window} rounds ({committed:.2f} tokens a slot a "
+        f"round): {busy / window:.3f} ms of device time a round, busy "
+        f"{100 * busy / wall:.1f}% of {wall / window:.3f} ms | " + ", ".join(
+            f"{k} {v / window:.3f} ms ({100 * v / busy:.1f}%)"
+            for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+        + f" [{label}]")
 
 
 def phase_paged_consistency(device, cfg, params, n_prompt, n_shared, chunk,
@@ -1033,9 +1332,15 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s from "
         f"{[os.path.relpath(s, ROOT) for s in _build.kernel_sources()]}")
     with open(os.path.join(_build.BUILD_DIR, "libfkp_kernels.so.log")) as f:
+        kernel = ""  # the mangled name of the entry ptxas reports on
         for line in f:
+            entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
+                              r"(?:I((?:Li\d+E)+))?", line)
+            if entry:  # e.g. flash_fwd_kernel<128,2>
+                args = re.findall(r"\d+", entry.group(2) or "")
+                kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
             if "registers" in line or "spill" in line:
-                log("ptxas: " + line.strip())
+                log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill
@@ -1056,6 +1361,14 @@ def main() -> int:
         # the slice's pool: 16 pages of 128 a slot, 129 pages
         (8, 16, 4, 128, 128, 16, [1, 127, 128, 129, 700, 1500, 2048, 0]),
         (4, 8, 2, 64, 16, 19, [5, 16, 300, 0]),
+    ], label)
+    extend = phase_paged_extend(device, [
+        # the slice's verify (T = spec_k + 1): page edges, a full table, a
+        # row with no prefix
+        (8, 16, 4, 128, 128, 16, 5, [0, 1, 124, 127, 128, 700, 1500, 2043]),
+        (4, 8, 2, 64, 16, 19, 3, [0, 14, 300, 5]),
+        # G = 8, T = 9: a folded group of 72 rows, two query tiles
+        (2, 16, 2, 128, 64, 16, 9, [33, 900]),
     ], label)
 
     # 3. the serving slices at the serving configuration: the default
@@ -1082,7 +1395,23 @@ def main() -> int:
     phase_multi_step(device, cfg, params, prompts, max_batch=8, max_len=2048,
                      max_new=64, single=single, label=label)
 
-    # 4. cached decode against a full forward: the linear cache, then the
+    # 4. speculative decoding at bench_spec.py's configuration: the serving
+    # model as the target, the 2-layer draft; then the serving slice through
+    # the speculative Scheduler, linear, paged, and paged with draft = target
+    draft_cfg = tfm.TransformerConfig(**DRAFT, dtype=torch.bfloat16)
+    draft_params = tfm.init_params(
+        draft_cfg, torch.Generator(device=device).manual_seed(1), device)
+    tie = phase_spec_generate(device, cfg, params, draft_cfg, draft_params,
+                              batch=4, prompt_len=128, max_new=128, label=label)
+    spec_launches = phase_spec_slice(
+        device, cfg, params, draft_cfg, draft_params, prompts, max_batch=8,
+        max_len=2048, max_new=64, single=single, linear=sched.metrics(),
+        tie=tie, label=label)
+    extend["launches"] = spec_launches["paged_extend"]
+    profile_spec_round(device, cfg, params, draft_cfg, draft_params, label)
+    del draft_params
+
+    # 5. cached decode against a full forward: the linear cache, then the
     # paged cache with a prefix shared through cache_from_pages
     phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
                       label=label)
@@ -1091,7 +1420,7 @@ def main() -> int:
     profile_decode_steps(device, cfg, params, label)
     del params, sched
 
-    # 5. the backward kernels against their plain version
+    # 6. the backward kernels against their plain version
     bwd = phase_backward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (4, 16, 4, 4096, 4096, 128, True, 0),  # the training step's shape
@@ -1100,7 +1429,7 @@ def main() -> int:
         (2, 4, 2, 200, 333, 128, True, 133),   # ragged, causal, q_offset
     ], label, entry_shape=1)
 
-    # 6. training at the bench_train.py configuration
+    # 7. training at the bench_train.py configuration
     cfg = tfm.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
     params = tfm.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)
@@ -1111,10 +1440,11 @@ def main() -> int:
     for entry in bwd:
         entry["launches"] = train_launches["flash_bwd"]
 
-    # 7. train -> checkpoint -> restore -> serve
+    # 8. train -> checkpoint -> restore -> serve
     phase_checkpoint(device, cfg, params, corpus, label)
 
-    print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged]}), flush=True)
+    print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,6 +35,8 @@ from flashattention_kernel_project_tpu_torch.models.engine import (  # noqa: F40
     decode_steps,
     fuse_decode_params,
     generate,
+    speculative_accept,
+    speculative_generate,
 )
 from flashattention_kernel_project_tpu_torch.models.checkpoint import (  # noqa: F401
     restore_checkpoint,

@@ -26,13 +26,13 @@ extern "C" int fkp_flash_fwd(const void* q, const void* k, const void* v,
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* lp = static_cast<float*>(lse);
   if (d == 64) {
-    flash_fwd_kernel<64, false><<<grid, kThreads, 0, st>>>(
+    flash_fwd_kernel<64, fkp_fwd::kDense><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, lp, hq, hkv, n, s, scale_log2, causal, q_offset,
-        nullptr, nullptr);
+        nullptr, nullptr, fkp_fwd::PagedArgs{});
   } else if (d == 128) {
-    flash_fwd_kernel<128, false><<<grid, kThreads, 0, st>>>(
+    flash_fwd_kernel<128, fkp_fwd::kDense><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, lp, hq, hkv, n, s, scale_log2, causal, q_offset,
-        nullptr, nullptr);
+        nullptr, nullptr, fkp_fwd::PagedArgs{});
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

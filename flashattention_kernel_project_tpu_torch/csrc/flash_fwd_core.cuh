@@ -1,14 +1,23 @@
 // The tiled attention forward shared by flash_fwd.cu (the dense forward, O
-// and LSE) and flash_fwd_ragged.cu (per-row KV lengths and query offsets,
-// O only). One template, `flash_fwd_kernel<D, kRagged>`; each source file
-// instantiates its own flavour.
+// and LSE), flash_fwd_ragged.cu (per-row KV lengths and query offsets, O
+// only) and paged_extend.cu (the ragged bounds over a page pool, with the
+// GQA group folded into the query rows, O only). One template,
+// `flash_fwd_kernel<D, kFlavour>`; each source file instantiates its own
+// flavour.
 //
 // Softmax in the log2 domain (scores times sm_scale * log2(e)), the online
 // (m, l, acc) rescale with exp2, causal and tail masks, GQA with q head h
-// reading KV head h / (Hq / Hkv). Query i of batch row b sees key j iff
-// j < kv_len(b) and, when causal, j <= i + q_off(b); the dense flavour has
-// kv_len = S and one static q_offset, the ragged flavour reads both per row
-// from device memory and keeps S as the K/V row stride only.
+// reading KV head h / (Hq / Hkv). Query row i of batch row b sees key j iff
+// j < kv_len(b) and, when causal, j <= pos(i), the row's position:
+// - kDense: kv_len = S and pos(i) = i + one static q_offset;
+// - kRagged: kv_len and q_off read per row from device memory (S is the K/V
+//   row stride only), pos(i) = i + q_off(b);
+// - kPaged: the same per-row bounds, key j read from row j % page of page
+//   block_tables[b, j / page] of the pool, and the q "head" is a KV head
+//   whose n = G * T rows are the group's G heads' T chunk tokens, row
+//   i = gi * T + tr, so pos(i) = q_off(b) + i % T (the T tokens of each q
+//   head lie contiguous in [B, Hq, T, D], so [B, Hkv, G * T, D] is the same
+//   memory).
 //
 // Precision differs from the TPU kernels in two places, both toward f32.
 // The scale multiplies the f32 scores instead of a bf16-rounded q, and p
@@ -21,22 +30,27 @@
 // thousands, d = 128) the two products do 4*N*S*d flops against about
 // 2*(N + 2*S)*d bytes of device memory, far above the card's ~295 flop/byte
 // ridge, so tensor-core issue and the softmax arithmetic between the two
-// products bound it, not HBM.
+// products bound it, not HBM. The paged flavour at a verify chunk (G * T =
+// 20 rows against S keys) does 80*S*d flops for 4*S*d bytes, below the
+// ridge: there the bytes of the live pages bound it.
 //
 // Design: one block of 4 warps per (64-query tile, q head, batch row). Each
 // warp owns 16 query rows and keeps its Q fragments, running (m, l) and the
 // O accumulator in registers for the whole key loop, so scores and
 // probabilities never touch shared or device memory. 64-key K/V tiles are
 // staged in shared memory (rows padded by 8 bf16 so fragment reads are free
-// of bank conflicts) and shared by the 4 warps. Both products are
+// of bank conflicts; the paged flavour copies them with cp.async) and
+// shared by the 4 warps (in the paged flavour a warp whose 16 rows all lie
+// past n helps load and skips the products). Both products are
 // mma.sync m16n8k16 bf16 -> f32; the score accumulator's register layout is
 // the A-operand layout of the PV product, so p is repacked in registers.
 // Key tiles past the row's bound (kv_len, and the causal diagonal of the
 // tile's last query) are never loaded, and the heaviest causal query tiles
-// are scheduled first. The ragged flavour skips the mask on tiles that lie
-// wholly inside every row's bound, as the TPU kernel does. Left for later:
-// wgmma, TMA loads and warp specialisation (the FlashAttention-3 structure),
-// and double-buffered K/V tiles.
+// are scheduled first. The ragged and paged flavours skip the mask on tiles
+// that lie wholly inside every row's bound, as the TPU kernels do. Left for
+// later: wgmma, TMA loads and warp specialisation (the FlashAttention-3
+// structure), double-buffered K/V tiles, and for the paged flavour a split
+// over pages (its grid is only B * Hkv blocks at the serving shape).
 
 #pragma once
 
@@ -52,6 +66,16 @@ constexpr int kBlockM = 64;  // query rows per block (16 per warp)
 constexpr int kBlockN = 64;  // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+
+enum Flavour : int { kDense = 0, kRagged = 1, kPaged = 2 };
+
+// What the paged flavour adds (ignored by the others).
+struct PagedArgs {
+  const int* block_tables;  // [b, max_pages] int32: each row's page ids
+  int page;                 // rows per page
+  int max_pages;            // table entries per row
+  int t_chunk;              // T: query row i holds chunk token i % T
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
@@ -76,6 +100,20 @@ __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* q_bh,
   return *reinterpret_cast<const uint32_t*>(q_bh + (size_t)row * D + col);
 }
 
+// 16 bytes from device to shared memory without passing through registers
+// (cp.async, sm_80+); valid == false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+                                            bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// wait until every cp.async of this thread has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
 // p as a bf16 pair hi + lo with hi = bf16(p), lo = bf16(p - hi): about 16
 // significant bits, where bf16 alone keeps 8.
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
@@ -86,13 +124,15 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-// q [b, hq, n, D], k/v [b, hkv, s, D], o [b, hq, n, D] bf16; lse [b, hq, n]
-// f32 (dense flavour only). Dense: every row sees keys [0, s) and the static
-// q_offset. Ragged: row b sees keys [0, min(kv_lens[b], s)) and the offset
-// q_offsets[b].
+// q [b, hq, n, D], o [b, hq, n, D] bf16; lse [b, hq, n] f32 (dense flavour
+// only). Dense: k/v [b, hkv, s, D], every row sees keys [0, s) and the
+// static q_offset. Ragged: k/v [b, hkv, s, D], row b sees keys
+// [0, min(kv_lens[b], s)) and the offset q_offsets[b]. Paged: k/v the pools
+// [n_pages, hkv, page, D], hq == hkv and n = G * T (the folded group), row b
+// sees keys [0, min(kv_lens[b], max_pages * page)) and offset q_offsets[b].
 // Launch bounds with a minimum of one block per SM: with the thread count
 // alone, ptxas held the d=64 instances at 128 registers and spilled.
-template <int D, bool kRagged>
+template <int D, int kFlavour>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -100,7 +140,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int hq, int hkv, int n, int s, float scale_log2,
                      int causal, int q_offset, const int* __restrict__ kv_lens,
-                     const int* __restrict__ q_offsets) {
+                     const int* __restrict__ q_offsets, PagedArgs pg) {
+  constexpr bool kBounds = kFlavour != kDense;  // per-row bounds on the device
+  constexpr bool kPagedKV = kFlavour == kPaged;
   constexpr int kStride = D + 8;  // padded shared-memory row, in bf16
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
@@ -115,17 +157,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane / 4;  // fragment row (and row + 8)
   const int t = lane % 4;  // fragment column pair
 
-  // the row's bounds: keys [0, kv_len), query i at position i + q_off
-  const int kv_len = kRagged ? min(max(kv_lens[b], 0), s) : s;
-  const int q_off = kRagged ? q_offsets[b] : q_offset;
+  // the row's bounds: keys [0, kv_len), query i at position pos(i)
+  const int kv_cap = kPagedKV ? pg.max_pages * pg.page : s;
+  const int kv_len = kBounds ? min(max(kv_lens[b], 0), kv_cap) : s;
+  const int q_off = kBounds ? q_offsets[b] : q_offset;
 
   const size_t bh = (size_t)b * hq + h;
   const __nv_bfloat16* q_bh = q + bh * n * D;
-  const __nv_bfloat16* k_bh = k + ((size_t)b * hkv + kvh) * s * D;
-  const __nv_bfloat16* v_bh = v + ((size_t)b * hkv + kvh) * s * D;
+  // the head's first K/V row: in the row's buffer, or in any page of the
+  // pool (the page then adds pid * page_stride)
+  const size_t kv_head = kPagedKV ? (size_t)kvh * pg.page * D
+                                  : ((size_t)b * hkv + kvh) * s * D;
+  const __nv_bfloat16* k_bh = k + kv_head;
+  const __nv_bfloat16* v_bh = v + kv_head;
+  const size_t page_stride = kPagedKV ? (size_t)hkv * pg.page * D : 0;
+  const int* table = kPagedKV ? pg.block_tables + (size_t)b * pg.max_pages
+                              : nullptr;
 
   const int row0 = m_block * kBlockM + warp * 16 + g;
   const int row1 = row0 + 8;
+  const int pos0 = kPagedKV ? q_off + row0 % pg.t_chunk : row0 + q_off;
+  const int pos1 = kPagedKV ? q_off + row1 % pg.t_chunk : row1 + q_off;
+  // paged: a warp whose rows all lie past n (G * T = 20 rows fill two of
+  // the four warps at the serving shape) loads its share and skips the
+  // products; the other flavours keep every warp busy but the last tile's
+  const bool warp_live = !kPagedKV || m_block * kBlockM + warp * 16 < n;
 
   uint32_t qf[D / 16][4];
 #pragma unroll
@@ -147,33 +203,53 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   int n_tiles = (kv_len + kBlockN - 1) / kBlockN;
   if (causal) {
-    const int last_key = m_block * kBlockM + kBlockM - 1 + q_off;
+    // the tile's last position (paged: the chunk's last token)
+    const int last_key = kPagedKV ? q_off + pg.t_chunk - 1
+                                  : m_block * kBlockM + kBlockM - 1 + q_off;
     n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBlockN + 1);
   }
-  // the first query of the tile, whose causal bound is the tightest
-  const int first_pos = m_block * kBlockM + q_off;
+  // the tile's first position, the tightest causal bound (paged: a lower
+  // bound, the chunk's first token)
+  const int first_pos = kPagedKV ? q_off : m_block * kBlockM + q_off;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int key0 = j * kBlockN;
     // a tile wholly inside every row's bound needs no mask (uniform across
     // the block)
-    const bool full = kRagged && key0 + kBlockN <= kv_len &&
+    const bool full = kBounds && key0 + kBlockN <= kv_len &&
                       (!causal || key0 + kBlockN - 1 <= first_pos);
     __syncthreads();  // every warp is done with the previous tile
     constexpr int kVecPerRow = D / 8;
     for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
       const int r = i / kVecPerRow;
       const int c = (i % kVecPerRow) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key0 + r < kv_len) {
-        kv = *reinterpret_cast<const uint4*>(k_bh + (size_t)(key0 + r) * D + c);
-        vv = *reinterpret_cast<const uint4*>(v_bh + (size_t)(key0 + r) * D + c);
+      const int key = key0 + r;
+      if constexpr (kPagedKV) {
+        // every key row is addressed through the table, since a page may
+        // be shorter than the tile; the copies go out with cp.async, all of
+        // the tile's at once, and one wait follows the loop (with one block
+        // per SM nothing else hides a load's latency)
+        const bool live = key < kv_len;  // rows past it are zero-filled
+        const size_t off =
+            live ? (size_t)__ldg(table + key / pg.page) * page_stride +
+                       (size_t)(key % pg.page) * D
+                 : 0;
+        cp_async_16(k_s + r * kStride + c, k_bh + off + c, live);
+        cp_async_16(v_s + r * kStride + c, v_bh + off + c, live);
+      } else {
+        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+        if (key < kv_len) {
+          kv = *reinterpret_cast<const uint4*>(k_bh + (size_t)key * D + c);
+          vv = *reinterpret_cast<const uint4*>(v_bh + (size_t)key * D + c);
+        }
+        *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
+        *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
       }
-      *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
-      *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
     }
+    if constexpr (kPagedKV) cp_async_wait_all();
     __syncthreads();
+    if (!warp_live) continue;  // uniform in the warp; both barriers were met
 
     // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys
     float sc[kBlockN / 8][4];
@@ -197,8 +273,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = key0 + nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const bool ok = full || (col < kv_len && (!causal || col <= row + q_off));
+        const int pos = e < 2 ? pos0 : pos1;
+        const bool ok = full || (col < kv_len && (!causal || col <= pos));
         sc[nt][e] = ok ? sc[nt][e] * scale_log2 : kNegInf;
         if (e < 2) {
           tmax0 = fmaxf(tmax0, sc[nt][e]);
@@ -240,8 +316,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = key0 + nt * 8 + 2 * t + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          const bool ok = full || (col < kv_len && (!causal || col <= row + q_off));
+          const int pos = e < 2 ? pos0 : pos1;
+          const bool ok = full || (col < kv_len && (!causal || col <= pos));
           p[e] = ok ? exp2f(sc[nt][e] - (e < 2 ? m0 : m1)) : 0.f;
         }
         l0 += p[0] + p[1];
@@ -287,7 +363,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           __floats2bfloat162_rn(acc[nd][2] / safe1, acc[nd][3] / safe1);
     }
   }
-  if (!kRagged && t == 0) {
+  if (kFlavour == kDense && t == 0) {
     float* lse_bh = lse + bh * n;
     if (row0 < n) lse_bh[row0] = l0 == 0.f ? kNegInf : m0 * kLn2 + logf(l0);
     if (row1 < n) lse_bh[row1] = l1 == 0.f ? kNegInf : m1 * kLn2 + logf(l1);

@@ -48,13 +48,13 @@ extern "C" int fkp_flash_fwd_ragged(const void* q, const void* k,
   const auto* lens = static_cast<const int*>(kv_lens);
   const auto* offs = static_cast<const int*>(q_offsets);
   if (d == 64) {
-    flash_fwd_kernel<64, true><<<grid, kThreads, 0, st>>>(
+    flash_fwd_kernel<64, fkp_fwd::kRagged><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, nullptr, hq, hkv, n, s_max, scale_log2, causal, 0,
-        lens, offs);
+        lens, offs, fkp_fwd::PagedArgs{});
   } else if (d == 128) {
-    flash_fwd_kernel<128, true><<<grid, kThreads, 0, st>>>(
+    flash_fwd_kernel<128, fkp_fwd::kRagged><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, nullptr, hq, hkv, n, s_max, scale_log2, causal, 0,
-        lens, offs);
+        lens, offs, fkp_fwd::PagedArgs{});
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

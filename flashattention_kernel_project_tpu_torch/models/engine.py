@@ -1,20 +1,22 @@
 """Inference engine: linear and paged KV caches, prefill, chunked extend,
-decode, generation.
+decode, generation, speculative decoding.
 
 Counterpart of flashattention_kernel_project_tpu/models/engine.py for
 full-precision caches: prefill runs attention through ops.flash_attention,
 `extend` (chunked prefill against a live cache) through
-ops.flash_attention.flash_attention_ragged, decode through
-ops.flash_decode over the linear cache and ops.paged_decode over the page
-pool.
+ops.flash_attention.flash_attention_ragged, `extend_paged` through
+ops.paged_decode.paged_flash_extend, decode through ops.flash_decode over
+the linear cache and ops.paged_decode over the page pool.
+`speculative_generate` drafts with a small model's decode steps and
+verifies with one multi-token target `extend` a round.
 
 Unlike the JAX engine, whose functions return a new cache, the port updates
-the cache IN PLACE: `prefill`, `extend`, `decode_step`, `decode_step_paged`
-and `paged_insert` write the new K/V rows into the cache's per-layer
-buffers and advance its lengths, then return the same cache object. Writes
-that would run past a linear buffer are clamped to its end, as
-jax.lax.dynamic_update_slice clamps its start; paged writes past a table's
-capacity go to the junk page 0.
+the cache IN PLACE: `prefill`, `extend`, `extend_paged`, `decode_step`,
+`decode_step_paged` and `paged_insert` write the new K/V rows into the
+cache's per-layer buffers and advance its lengths, then return the same
+cache object. Writes that would run past a linear buffer are clamped to its
+end, as jax.lax.dynamic_update_slice clamps its start; paged writes past a
+table's capacity go to the junk page 0.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ from flashattention_kernel_project_tpu_torch.ops.flash_attention import (
 from flashattention_kernel_project_tpu_torch.ops.flash_decode import flash_decode
 from flashattention_kernel_project_tpu_torch.ops.paged_decode import (
     paged_append,
+    paged_append_chunk,
     paged_flash_decode,
+    paged_flash_extend,
 )
 
 
@@ -484,3 +488,198 @@ def decode_steps_paged(
     return _step_loop(
         lambda cur, c: decode_step_paged(cfg, params, cur, c),
         tokens, cache, n_steps, temperature, generator, top_k, top_p)
+
+
+def extend_paged(cfg, params, tokens, cache: PagedKVCache):
+    """Multi-token extend against the paged cache, in place: tokens [B, T]
+    -> (every position's logits [B, T, vocab] float32, cache advanced by
+    T). The paged counterpart of `extend(..., all_logits=True)`, and the
+    speculative verify step over a page pool: per layer, the chunk's K/V go
+    into the pages in one write per pool (paged_append_chunk), then
+    paged_flash_extend scores every chunk position. Each slot must own the
+    pages for T more tokens (the Scheduler's reserve rows see to it). The
+    lengths advance on the device, with no host sync. `params` may be fused
+    or split."""
+    tfm._dense_only(cfg)
+    pool = cache.k_pages[0]
+    if not pool.is_floating_point() or pool.element_size() < 2:
+        raise NotImplementedError("extend_paged: 8-bit page pools are ROADMAP item A.7")
+    b, t = tokens.shape
+    x = params["embed"][tokens]
+    old_lengths = cache.lengths.clone()
+    positions = old_lengths[:, None].long() + torch.arange(
+        t, device=tokens.device)[None, :]
+    sin, cos = tfm.rope_tables(cfg, positions)
+    new_lengths = old_lengths + t
+    for i in range(cfg.n_layers):
+        layer = tfm.layer_params(params, i)
+        h = tfm.rms_norm(x, layer["rms_attn"])
+        q, k, v = _qkv(cfg, layer, h, b, t)
+        q = tfm.apply_rope(q, sin, cos)
+        k = tfm.apply_rope(k, sin, cos)
+        paged_append_chunk(cache.k_pages[i], cache.v_pages[i], k, v,
+                           cache.block_tables, old_lengths)
+        o = paged_flash_extend(
+            q.transpose(1, 2).contiguous().to(cfg.dtype),
+            cache.k_pages[i], cache.v_pages[i], cache.block_tables,
+            new_lengths, old_lengths,
+        )  # [B, Hq, T, D]
+        x = x + _proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer, "wo")
+        x = _mlp(layer, x)
+    x = tfm.rms_norm(x, params["rms_final"])
+    cache.lengths.copy_(new_lengths)
+    return tfm.logits_f32(x, params["embed"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: a draft model proposes, the target verifies with one
+# chunked extend a round. temperature 0 is greedy and gives exactly the
+# target's greedy tokens; temperature > 0 accepts a draft d_j with
+# probability min(1, p/q) and resamples the residual on a rejection, which
+# keeps the target's sampling distribution.
+# ---------------------------------------------------------------------------
+
+
+def speculative_accept(p, q, d, rng) -> list[int]:
+    """Rejection-sampling acceptance for one slot (numpy).
+
+    p: [k+1, V] target probabilities (p[j] is the target's distribution
+    after the first j+1 chunk tokens), q: [k, V] draft probabilities, d: [k]
+    draft tokens drawn from q, rng: np.random.Generator. Returns the
+    committed tokens (1 to k+1): the accepted draft prefix and one token
+    drawn from the residual norm(max(p - q, 0)) at the first rejection, or a
+    bonus token from p[k] when every draft is accepted. The committed
+    sequence is distributed as target-only sampling (Leviathan et al. 2023,
+    Chen et al. 2023). The same p, q, d and rng state give the JAX
+    package's tokens."""
+    k = len(d)
+    out: list[int] = []
+    for j in range(k):
+        tok = int(d[j])
+        p_j = p[j]
+        q_tok = max(float(q[j, tok]), 1e-20)
+        if rng.random() < float(p_j[tok]) / q_tok:
+            out.append(tok)
+            continue
+        res = np.maximum(p_j - q[j], 0.0)
+        s = float(res.sum())
+        dist = res / s if s > 0.0 else p_j / float(p_j.sum())
+        out.append(int(rng.choice(len(dist), p=dist / dist.sum())))
+        return out
+    pk = p[k] / float(p[k].sum())
+    out.append(int(rng.choice(len(pk), p=pk)))
+    return out
+
+
+def greedy_accept(preds: np.ndarray, d: np.ndarray) -> list[list[int]]:
+    """Verification by argmax, the temperature -> 0 limit of the rejection
+    rule. preds [B, k+1]: the target's token after each chunk prefix
+    [c, d_1..d_j]; d [B, k]: the drafts. Each slot commits its drafts up to
+    the first one the target disagrees with, then the target's own token
+    there, or the bonus token preds[:, k] when every draft matched: 1 to
+    k+1 tokens."""
+    match = preds[:, :-1] == d
+    a = np.where(match.all(axis=1), d.shape[1], np.argmin(match, axis=1))
+    return [[int(x) for x in d[i, :a[i]]] + [int(preds[i, a[i]])]
+            for i in range(len(d))]
+
+
+def host_rng_from(generator: torch.Generator) -> np.random.Generator:
+    """A numpy generator for the host side of the rejection rule, seeded by
+    one draw from `generator`, so a run is deterministic given the
+    generator's seed (the JAX package folds a constant into its key)."""
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                         device=generator.device)
+    return np.random.default_rng(int(seed))
+
+
+def speculative_generate(
+    cfg, params, prompt, *, draft_cfg, draft_params, spec_k: int = 4,
+    max_new_tokens: int = 32, max_len: int | None = None,
+    temperature: float = 0.0, generator: torch.Generator | None = None,
+):
+    """Speculative decoding: prompt [B, T] -> [B, T + max_new_tokens] int32.
+
+    Each round the draft decodes `spec_k` tokens from its own linear cache,
+    then the target verifies [c, d_1..d_k] (c: the previous round's target
+    token) in one `extend(all_logits=True)`. Each slot commits its longest
+    accepted prefix and the target's own next token at the first mismatch,
+    or a bonus token when every draft matched: 1 to spec_k + 1 target-grade
+    tokens a round. Rollback is the lengths vector alone: K/V past a slot's
+    accepted prefix is dead and later rounds overwrite it; the draft's
+    lengths are reset to the target's. Requires equal vocabularies.
+
+    temperature > 0 with a `generator` samples both models and verifies by
+    rejection sampling (`speculative_accept`, on a host rng seeded from the
+    generator), so the committed tokens are distributed as target-only
+    sampling at that temperature."""
+    if draft_cfg.vocab_size != cfg.vocab_size:
+        raise ValueError("the draft and the target need the same vocabulary")
+    sampling = temperature > 0.0 and generator is not None
+    if sampling:
+        host_rng = host_rng_from(generator)
+    b, t = prompt.shape
+    device = prompt.device
+    max_len = max_len or (t + max_new_tokens + spec_k + 2)
+    tcache = init_cache(cfg, b, max_len, device)
+    dcache = init_cache(draft_cfg, b, max_len, device)
+    tl, tcache = prefill(cfg, params, prompt, tcache)
+    _, dcache = prefill(draft_cfg, draft_params, prompt, dcache)
+    ddec = fuse_decode_params(draft_cfg, draft_params)
+
+    out = np.zeros((b, max_new_tokens + spec_k + 2), np.int32)
+    counts = np.zeros(b, np.int64)
+    c = _sample(tl, temperature, generator)  # [B]
+    out[:, 0] = c.cpu().numpy()
+    counts += 1
+
+    while counts.min() < max_new_tokens:
+        # the draft: feed c, then propose spec_k tokens, feeding each one
+        # (the last too: when the target accepts them all, the draft's next
+        # round starts past d_k)
+        dl, dcache = decode_step(draft_cfg, ddec, c, dcache)
+        drafts, q_dists = [], []
+        for _ in range(spec_k):
+            if sampling:
+                q_dists.append(torch.softmax(dl / temperature, dim=-1))
+            d_j = _sample(dl, temperature, generator)
+            drafts.append(d_j)
+            dl, dcache = decode_step(draft_cfg, ddec, d_j, dcache)
+        d = torch.stack(drafts, dim=1)  # [B, k]
+
+        # the target: one chunked extend over [c, d_1..d_k]
+        chunk = torch.cat([c[:, None], d], dim=1)  # [B, k+1]
+        all_l, tcache = extend(cfg, params, chunk, tcache, all_logits=True)
+        d_np = d.cpu().numpy()
+        if sampling:
+            # p[:, j]: the target's distribution after chunk[:, :j+1]
+            p = torch.softmax(all_l / temperature, dim=-1).double().cpu().numpy()
+            q = torch.stack(q_dists, dim=1).double().cpu().numpy()
+            takes = [speculative_accept(p[i], q[i], d_np[i], host_rng)
+                     for i in range(b)]
+        else:
+            preds = all_l.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            takes = greedy_accept(preds, d_np)
+        a = np.array([len(tk) - 1 for tk in takes], np.int64)  # accepted drafts
+
+        # commit d[:a] and the target's token; roll both caches back to the
+        # accepted prefix (+1 for c, which the extend wrote)
+        new_len = tcache.lengths.cpu().numpy() - (spec_k + 1) + 1 + a
+        c_next = np.empty(b, np.int32)
+        for i in range(b):
+            n0 = int(counts[i])
+            # a slot whose output is full rides along for the laggards
+            take = takes[i][:max(out.shape[1] - n0, 0)]
+            out[i, n0:n0 + len(take)] = take
+            counts[i] += len(take)
+            c_next[i] = take[-1] if take else out[i, n0 - 1]
+        # cap a finished slot's length, or its extend would run past max_len
+        new_len = np.minimum(new_len, t + max_new_tokens + 1).astype(np.int32)
+        lengths = torch.from_numpy(new_len).to(device)
+        tcache.lengths.copy_(lengths)
+        dcache.lengths.copy_(lengths)  # the draft holds [.., c, d_1..d_k]
+        c = torch.from_numpy(c_next).to(device)
+
+    return torch.cat([prompt.to(torch.int32),
+                      torch.from_numpy(out[:, :max_new_tokens]).to(device)],
+                     dim=1)

@@ -21,11 +21,15 @@ Modes, as in the JAX Scheduler:
   shares them (refcounted) and runs `extend` over its suffix only;
 - `multi_step`: that many greedy (or scheduler-level sampled) decode steps
   per round, with the tokens past a slot's EOS or budget dropped and its
-  length rolled back.
+  length rolled back;
+- speculative decoding (`draft_cfg`, `draft_params`, `spec_k`, linear or
+  paged): each round the draft proposes spec_k tokens from its own linear
+  cache and the target verifies them in one multi-token extend (`extend`
+  or `extend_paged`); greedy slots commit exactly the target's greedy
+  tokens, sampled slots go through the rejection rule.
 
-The JAX Scheduler's remaining modes (8-bit caches, meshes, speculative
-decoding) raise NotImplementedError naming the ROADMAP item that brings
-them.
+The JAX Scheduler's remaining modes (8-bit caches, meshes) raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -84,12 +88,39 @@ class ServingMetrics:
         )
 
 
+def _host_filtered_probs(z, t, top_k, top_p):
+    """numpy mirror of engine._sample's temperature, top-k and top-p
+    filter: the probabilities its draw takes, [..., V] f32 logits ->
+    float64 probabilities. These are the draft's proposal q and the
+    target's p of the rejection rule."""
+    z = np.asarray(z, np.float64) / float(t)
+    v = z.shape[-1]
+    use_k = top_k is not None and 0 < top_k < v
+    use_p = top_p is not None and 0.0 < top_p < 1.0
+    if use_k or use_p:
+        sd = -np.sort(-z, axis=-1)
+        if use_k:
+            kth = sd[..., top_k - 1][..., None]
+            z = np.where(z < kth, -np.inf, z)
+        if use_p:
+            if use_k:
+                sd = np.where(np.arange(v) < top_k, sd, -np.inf)
+            e = np.exp(sd - sd.max(-1, keepdims=True))
+            probs = e / e.sum(-1, keepdims=True)
+            cum = np.cumsum(probs, -1)
+            keep = cum - probs < top_p
+            cutoff = np.min(np.where(keep, sd, np.inf), axis=-1, keepdims=True)
+            z = np.where(z < cutoff, -np.inf, z)
+    z = z - z.max(-1, keepdims=True)
+    e = np.exp(z)
+    return e / e.sum(-1, keepdims=True)
+
+
 # mode -> the ROADMAP.md item that brings it to the port
 _NOT_PORTED = {
     "quantized_cache": "A.7 (8-bit KV caches)",
     "mesh": "A.9 (multi-device)",
     "seq_mesh": "A.9 (multi-device)",
-    "draft_cfg": "A.6 (speculative decoding)",
 }
 
 
@@ -98,7 +129,8 @@ class Scheduler:
 
     Sampling (temperature > 0, per request or for the scheduler) draws from
     `generator`, a torch.Generator on the parameters' device; without one
-    every request is greedy."""
+    every request is greedy. With `draft_cfg` and `draft_params` the
+    scheduler decodes speculatively, `spec_k` draft tokens a round."""
 
     def __init__(
         self,
@@ -118,6 +150,8 @@ class Scheduler:
         n_pages: int | None = None,
         prefix_cache: bool = False,
         draft_cfg: tfm.TransformerConfig | None = None,
+        draft_params: dict | None = None,
+        spec_k: int = 4,
         multi_step: int = 1,
         temperature: float = 0.0,
         top_k: int | None = None,
@@ -126,7 +160,7 @@ class Scheduler:
     ):
         requested = dict(
             quantized_cache=quantized_cache, mesh=mesh is not None,
-            seq_mesh=seq_mesh is not None, draft_cfg=draft_cfg is not None,
+            seq_mesh=seq_mesh is not None,
         )
         for mode, on in requested.items():
             if on:
@@ -136,6 +170,16 @@ class Scheduler:
                 )
         if prefix_cache and not paged:
             raise ValueError("prefix_cache requires paged=True")
+        # speculative decoding: the verify extend writes spec_k + 1 rows past
+        # each slot's committed length, which admission reserves
+        self.spec = draft_cfg is not None
+        if self.spec:
+            if multi_step > 1:
+                raise NotImplementedError("multi_step: no spec composition")
+            if draft_params is None:
+                raise ValueError("draft_cfg needs draft_params")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("the draft and the target need the same vocabulary")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -183,12 +227,28 @@ class Scheduler:
             self._decode = functools.partial(
                 engine.decode_step, cfg, n_splits=n_splits
             )
+        if self.spec:
+            # the draft keeps its own linear cache; its decode params are
+            # fused once, its split params serve its prefill
+            self.draft_cfg = draft_cfg
+            self.spec_k = spec_k
+            self.dcache = engine.init_cache(draft_cfg, max_batch, max_len,
+                                            self.device)
+            self._draft_split_params = draft_params
+            self._draft_params = engine.fuse_decode_params(draft_cfg,
+                                                           draft_params)
+            # acceptance: tokens committed by verify rounds, over the live
+            # slots those rounds verified (1 to spec_k + 1 a slot-round)
+            self.spec_committed = 0
+            self.spec_slot_rounds = 0
         self.slots: list[Request | None] = [None] * max_batch
         self.cur_tokens = np.zeros(max_batch, np.int32)
         self.finished: list[Request] = []
-        # a multi_step window writes up to multi_step rows past the committed
-        # length before the host sees EOS or the budget: reserve them
-        self._reserve = multi_step if multi_step > 1 else 0
+        # a spec round or a multi_step window writes up to spec_k + 1 or
+        # multi_step rows past the committed length before the host sees EOS
+        # or the budget: reserve them
+        self._reserve = (spec_k + 1 if self.spec
+                         else multi_step if multi_step > 1 else 0)
         self.core = BatchSchedulerCore(max_batch, max_len - self._reserve)
         self._callbacks: dict[int, Callable[[int, int, bool], None]] = {}
         self._requests: dict[int, Request] = {}
@@ -219,7 +279,7 @@ class Scheduler:
         if uid < 0:
             extra = (
                 f" (= max_len {self.max_len} minus {self._reserve} scratch "
-                f"rows reserved by multi_step)" if self._reserve else ""
+                f"rows reserved by spec/multi_step)" if self._reserve else ""
             )
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new ({max_new_tokens}) "
@@ -324,6 +384,16 @@ class Scheduler:
             self._insert_pages(slot, req, cache1, t, shared, keys)
         else:
             self._splice_linear(slot, cache1, tb, t)
+        if self.spec:
+            # the draft's prompt logits are never used, only its K/V rows,
+            # and rows [0, t) of a bucket-padded one-shot prefill are exact
+            dprompt = np.zeros((1, tb), np.int32)
+            dprompt[0, :t] = req.prompt
+            dcache1 = engine.init_cache(self.draft_cfg, 1, tb, self.device)
+            _, dcache1 = engine.prefill(
+                self.draft_cfg, self._draft_split_params,
+                torch.from_numpy(dprompt).to(self.device), dcache1)
+            self._splice_linear(slot, dcache1, tb, t, into=self.dcache)
         self.slots[slot] = req
         t_eff = req.temperature
         if t_eff is None:
@@ -335,14 +405,17 @@ class Scheduler:
         req.t_first_token = time.perf_counter()
         self._on_token(slot, first)
 
-    def _splice_linear(self, slot: int, cache1: engine.KVCache, tb: int, t: int):
+    def _splice_linear(self, slot: int, cache1: engine.KVCache, tb: int, t: int,
+                       into: engine.KVCache | None = None):
         """Copy the batch-1 cache's rows [0, tb) into the batch cache at
-        `slot` (in place) and set the slot's length to t."""
-        for big, small in zip(self.cache.k, cache1.k):
+        `slot` (in place; `into` another linear cache, the draft's) and set
+        the slot's length to t."""
+        target = self.cache if into is None else into
+        for big, small in zip(target.k, cache1.k):
             big[slot, :, :tb] = small[0, :, :tb]
-        for big, small in zip(self.cache.v, cache1.v):
+        for big, small in zip(target.v, cache1.v):
             big[slot, :, :tb] = small[0, :, :tb]
-        self.cache.lengths[slot] = t
+        target.lengths[slot] = t
 
     def _match_prefix(self, prompt: np.ndarray):
         """The longest chain of resident full prompt pages. Returns (their
@@ -439,6 +512,8 @@ class Scheduler:
     def _decode_once(self):
         if not self.core.active():
             return
+        if self.spec:
+            return self._spec_round()
         if self.multi_step > 1:
             return self._multi_step_round()
         tokens = torch.from_numpy(self.cur_tokens.copy()).to(self.device)
@@ -453,6 +528,86 @@ class Scheduler:
             req.generated.append(tok)
             self.cur_tokens[i] = tok
             self._on_token(i, tok)
+
+    def _spec_round(self):
+        """One speculative round over the live batch: spec_k + 1 draft
+        decode steps propose spec_k tokens, one target extend over
+        [cur, d_1..d_k] (`extend(all_logits=True)`, or `extend_paged` on the
+        page pool) verifies every slot, and each slot commits its accepted
+        prefix and the target's correction or bonus token. Rollback is the
+        lengths vector: K/V past a slot's accepted prefix is dead and later
+        rounds overwrite it. An EOS or a spent budget in mid-round retires
+        the slot and drops the rest of its round; empty slots go back to
+        length 0."""
+        k = self.spec_k
+        cur = torch.from_numpy(self.cur_tokens.copy()).to(self.device)
+        temps = self._slot_temp[:len(self.slots)]
+        any_sampled = bool((temps > 0).any()) and self._generator is not None
+        draft = functools.partial(engine.decode_step, self.draft_cfg,
+                                  self._draft_params)
+        dl, self.dcache = with_retries(draft, cur, self.dcache)
+        drafts, dl_steps = [], []  # sampled slots need q, the draft's dist
+        for _ in range(k):
+            if any_sampled:
+                dl_steps.append(dl.float().cpu().numpy())
+                # greedy rows take the argmax, sampled rows draw from the
+                # filtered softmax(logits / temperature): the q used below
+                d_j = torch.from_numpy(self._pick(dl)).to(self.device)
+            else:
+                d_j = dl.argmax(dim=-1).to(torch.int32)
+            drafts.append(d_j)
+            dl, self.dcache = with_retries(draft, d_j, self.dcache)
+        d = torch.stack(drafts, dim=1)                    # [B, k]
+        chunk = torch.cat([cur[:, None], d], dim=1)       # [B, k+1]
+        old_len = self.cache.lengths.cpu().numpy().copy()
+        if self.paged:
+            verify = functools.partial(engine.extend_paged, self.cfg,
+                                       self.params, chunk, self.cache)
+        else:
+            verify = functools.partial(engine.extend, self.cfg, self.params,
+                                       chunk, self.cache, all_logits=True)
+        all_l, self.cache = with_retries(verify)
+        d_np = d.cpu().numpy()
+        greedy = engine.greedy_accept(
+            all_l.argmax(dim=-1).to(torch.int32).cpu().numpy(), d_np)
+        if any_sampled:
+            # a host rng for the rejection rule, drawn from the generator
+            # each round: the run is deterministic given its seed
+            host_rng = engine.host_rng_from(self._generator)
+            all_np = all_l.float().cpu().numpy()    # [B, k+1, V]
+            dq_np = np.stack(dl_steps, axis=1)      # [B, k, V]
+
+        new_len = old_len.copy()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                new_len[i] = 0  # an empty slot: undo the extend's advance
+                continue
+            if any_sampled and temps[i] > 0:
+                # the rejection rule with p the target's and q the draft's
+                # filtered distributions: the committed tokens are
+                # distributed as target-only sampling for this slot
+                p_i = _host_filtered_probs(all_np[i], temps[i], self.top_k,
+                                           self.top_p)
+                q_i = _host_filtered_probs(dq_np[i], temps[i], self.top_k,
+                                           self.top_p)
+                take = engine.speculative_accept(p_i, q_i, d_np[i], host_rng)
+            else:
+                take = greedy[i]
+            committed = 0
+            for tok in take:
+                committed += 1
+                req.generated.append(tok)
+                self.cur_tokens[i] = tok
+                self._on_token(i, tok)
+                if self.slots[i] is None:
+                    break  # retired mid-round: drop the rest
+            new_len[i] = 0 if self.slots[i] is None else old_len[i] + committed
+            self.spec_committed += committed
+            self.spec_slot_rounds += 1
+        lengths = torch.from_numpy(new_len)
+        self.cache.lengths.copy_(lengths)
+        # the draft consumed [cur, d_1..d_k]: resync it to the target's view
+        self.dcache.lengths.copy_(lengths)
 
     def _multi_step_round(self):
         """multi_step decode steps in one call (engine.decode_steps or
