@@ -6,22 +6,28 @@
 Builds the port's CUDA kernels from csrc/ (at first use) and holds each
 against its plain PyTorch version in bf16 at the shapes its path gives it,
 with its bound and the time of one PyTorch library call that computes the
-same function (scaled_dot_product_attention, where there is one). Then it
-drives the port's main paths at full width, with random weights from a
-seed:
+same function (scaled_dot_product_attention, where there is one); the
+8-bit kernels (int8 and e4m3 caches) likewise, each beside the bf16 kernel
+on its dequantized cache. Then it drives the port's main paths at full
+width, with random weights from a seed:
   - serving: 32 requests through models.serving.Scheduler at the serving
     configuration of benchmarks/bench_serving.py (8 layers, d_model 2048,
     16 q heads x 128, 4 KV heads, d_ff 5504, vocab 32000, bf16, batch 8,
     max_len 2048) three times: the default mode (linear cache), the paged
     mode (page pool of 128-row pages, a shared 384-token prefix through the
-    prefix cache, prefill in chunks of 256) and multi_step=4; then cached
-    decoding against a full forward, over the linear and the paged cache;
+    prefix cache, prefill in chunks of 256) and multi_step=4;
   - speculative decoding at benchmarks/bench_spec.py's configuration (the
     serving model as the target, a 2-layer draft with half its d_ff):
     speculative_generate against generate with bench_spec's gates, then
     the 32 requests through Scheduler(draft_cfg=...) on the linear cache,
     on the page pool, and on the page pool with the target as its own
     draft, each against the plain greedy tokens;
+  - the int8 cache of bench_serving.py --int8: the 32 requests through
+    Scheduler(quantized_cache=True) linear, paged (the same prefix and
+    chunks), multi_step=4 and speculative over the page pool and the
+    linear cache, each beside its bf16 run; then cached decoding against a
+    full forward over the bf16, int8 and e4m3 caches, linear and paged,
+    and one decode step with int8 weights;
   - training: 5 sgd_train_steps at the configuration of
     benchmarks/bench_train.py (the same widths, 4 layers, batch 4, seq
     4096) on batches from the native TokenLoader, then the trained params
@@ -30,8 +36,8 @@ Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card and prints no result without CUDA. Its last line
 is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-One more training step runs under torch.profiler: its device time by
-kind of kernel and its ten largest kernels are printed.
+One more training step, a speculative round and decode steps over each
+cache run under torch.profiler: device time by kind is printed.
 Imports nothing of JAX.
 """
 
@@ -72,6 +78,13 @@ LSE_TOL = 1e-3    # rtol and atol of the LSE (tests/test_flash_attention.py:56)
 # is two ulps of bf16: wrong positions, masks or cache rows give errors of
 # order 1.
 LOGITS_TOL = 2e-2
+# the same against an 8-bit cache, whose quantization adds its own error:
+# the JAX suite's bound for 8-bit logits (tests/test_model.py:190, 219),
+# set on a float32 model. On the bf16 model the 8-bit cache's error comes on
+# top of the bf16 floor, so by the triangle inequality the gate there is
+# this bound plus the floor the bf16 cache shows on the same path in the
+# same run.
+QUANT_LOGITS_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -502,6 +515,291 @@ def phase_paged_extend(device, shapes, label):
     return entry
 
 
+FMTS = ("int8", "fp8")  # the 8-bit cache formats; int8 is the Scheduler's
+TPU = "flashattention_kernel_project_tpu/ops"
+
+
+def quantized(gen, device, shape, fmt, lane_major=False):
+    """Random normal K or V of `shape` quantized per token (last axis) to
+    `fmt`: (8-bit values, f32 scales [..., 1], or lane-major [..., 1, n]
+    for a page pool)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import quant
+
+    x = torch.randn(*shape, generator=gen, device=device)
+    vals, scales = quant.quantizer_for(quant.cache_dtype(fmt))(x, axis=-1)
+    if lane_major:
+        scales = scales.transpose(-1, -2).contiguous()
+    return vals, scales
+
+
+def dequantized_bf16(vals, scales):
+    """An 8-bit cache or pool as bf16 (scales of either layout): the bf16
+    kernel's input at the same shape and lengths."""
+    if scales.shape[-1] != 1:
+        scales = scales.transpose(-1, -2)
+    return (vals.float() * scales).bfloat16()
+
+
+def bytes_8bit(live, hkv, d):
+    """Device bytes of `live` keys' K and V in an 8-bit cache: a byte an
+    element and two f32 scales a key and head."""
+    return live * hkv * (2 * d + 8)
+
+
+def kernel_8bit_check(name, got, want, entry, fmt):
+    """rel-L2 of an 8-bit kernel's output against its plain version, held
+    to O_TOL; folds the max-abs error into `entry`."""
+    import torch
+
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = _rel_l2(got, want)
+    max_abs = float((got.float() - want.float()).abs().max())
+    entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
+    if not err <= O_TOL:
+        raise AssertionError(f"{name} {fmt} rel-L2 {err:.3e} > {O_TOL}")
+    return err, max_abs
+
+
+def phase_decode_8bit(device, b, hq, hkv, s, d, label):
+    """The 8-bit linear decode kernel against `_decode_partials_q_plain`
+    through the same merge, int8 and e4m3, ragged lengths with one slot
+    empty and one full; the bf16 kernel timed on the dequantized cache in
+    the same call. Returns its JSON entry, timed on int8 (no PyTorch call
+    attends over an 8-bit cache with scales: library_ms is null)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    entry = dict(name="flash_decode_q", route="cuda",
+                 source=f"{PKG}/csrc/flash_decode.cu",
+                 replaces=f"{TPU}/flash_decode.py:102", max_abs_err=0.0,
+                 library_ms=None)
+    q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+    lengths = torch.randint(1, s, (b,), generator=gen, device=device,
+                            dtype=torch.int32)
+    lengths[0] = 0
+    lengths[-1] = s
+    n_splits = fd.default_n_splits(b, hkv, s)
+    block_s = -(-s // n_splits)
+    live = int(lengths.sum())
+    for fmt in FMTS:
+        k, ks = quantized(gen, device, (b, hkv, s, d), fmt)
+        v, vs = quantized(gen, device, (b, hkv, s, d), fmt)
+        args = (q, k, ks, v, vs, lengths, n_splits, block_s, d ** -0.5)
+        o = fd.flash_decode_int8(q, k, ks, v, vs, lengths)
+        po = fd.merge_partials(*fd._decode_partials_q_plain(*args)).reshape(b, hq, d)
+        err, max_abs = kernel_8bit_check("flash_decode_q", o, po, entry, fmt)
+        assert float(o[0].float().abs().max()) == 0.0  # the empty slot
+        ms, plain_ms = time_pair(lambda: fd._decode_partials_q_cuda(*args),
+                                 lambda: fd._decode_partials_q_plain(*args),
+                                 device, iters=50)
+        kb, vb = dequantized_bf16(k, ks), dequantized_bf16(v, vs)
+        bf16_ms = time_ms(lambda: fd._decode_partials_cuda(
+            q, kb, vb, lengths, n_splits, block_s, d ** -0.5), device,
+            iters=50, graph=True)
+        bnd = bound(4 * live * hq * d, nbytes(q, o) + bytes_8bit(live, hkv, d))
+        log(f"flash_decode_q {fmt} b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits="
+            f"{n_splits} lengths={lengths.tolist()}: rel-L2 {err:.3e}, max-abs "
+            f"{max_abs:.3e} | kernel {ms:.4f} ms "
+            f"({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s of live K/V and "
+            f"scales) vs plain partials {plain_ms:.4f} ms | the bf16 kernel on "
+            f"the dequantized cache {bf16_ms:.4f} ms | bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{label}]")
+        if fmt == "int8":
+            entry.update(ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms, **bnd,
+                         shape=f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits}")
+        else:
+            entry["fp8_ms"] = ms
+    return entry
+
+
+def _paged_8bit_case(gen, device, fmt, b, hkv, d, page, max_pages, lens):
+    """An 8-bit pool (values and lane-major scale pages) of b * max_pages + 1
+    pages, each row's pages in order from a seeded permutation, as
+    _paged_case."""
+    import torch
+
+    n_pages = b * max_pages + 1
+    k, ks = quantized(gen, device, (n_pages, hkv, page, d), fmt, lane_major=True)
+    v, vs = quantized(gen, device, (n_pages, hkv, page, d), fmt, lane_major=True)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=device) + 1).tolist()
+    table = torch.zeros(b, max_pages, dtype=torch.int32)
+    for row, n in enumerate(lens):
+        used = -(-n // page)
+        table[row, :used] = torch.tensor(perm[row * max_pages:row * max_pages + used])
+    return (k, ks, v, vs), table.to(device)
+
+
+def phase_paged_decode_8bit(device, b, hq, hkv, d, page, max_pages, lens, label):
+    """The 8-bit paged decode kernel in both schedules against
+    `_paged_partials_q_plain` through the same merge, int8 and e4m3; the
+    bf16 kernel timed on the dequantized pool in the same call. Returns its
+    JSON entry, timed on int8 with gather=True (library_ms null)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator(device=device).manual_seed(37)
+    entry = dict(name="paged_decode_q", route="cuda",
+                 source=f"{PKG}/csrc/paged_decode.cu",
+                 replaces=f"{TPU}/paged_decode.py:824", max_abs_err=0.0,
+                 library_ms=None)
+    q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    live = sum(lens)
+    for fmt in FMTS:
+        pools, table = _paged_8bit_case(gen, device, fmt, b, hkv, d, page,
+                                        max_pages, lens)
+        kb, vb = dequantized_bf16(*pools[:2]), dequantized_bf16(*pools[2:])
+        times = {}
+        for gather in (False, True):
+            pps = pd.gather_pages_per_split(b, hkv, max_pages) if gather else 1
+            args = (q, *pools, table, lengths, pps, d ** -0.5)
+            o = pd.paged_flash_decode_quant(q, *pools, table, lengths,
+                                            gather=gather)
+            po = fd.merge_partials(*pd._paged_partials_q_plain(*args))
+            err, max_abs = kernel_8bit_check("paged_decode_q", o,
+                                             po.reshape(b, hq, d), entry, fmt)
+            for row, n in enumerate(lens):
+                if n == 0 and float(o[row].float().abs().max()) != 0.0:
+                    raise AssertionError(f"paged row {row} is empty but not 0")
+            ms, plain_ms = time_pair(lambda: pd._paged_partials_q_cuda(*args),
+                                     lambda: pd._paged_partials_q_plain(*args),
+                                     device, iters=50)
+            bf16_ms = time_ms(lambda: pd._paged_partials_cuda(
+                q, kb, vb, table, lengths, pps, d ** -0.5), device, iters=50,
+                graph=True)
+            times[gather] = (ms, plain_ms, bf16_ms)
+            log(f"paged_decode_q {fmt} b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                f"max_pages{max_pages} lengths={lens} gather={gather} "
+                f"({-(-max_pages // pps)} splits of {pps} pages): rel-L2 "
+                f"{err:.3e}, max-abs {max_abs:.3e} | kernel {ms:.4f} ms vs "
+                f"plain partials {plain_ms:.4f} ms | the bf16 kernel on the "
+                f"dequantized pool {bf16_ms:.4f} ms [{label}]")
+        bnd = bound(4 * live * hq * d,
+                    nbytes(q, o, table, lengths) + bytes_8bit(live, hkv, d))
+        log(f"paged_decode_q bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if fmt == "int8":
+            ms, plain_ms, bf16_ms = times[True]
+            entry.update(ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms,
+                         gather_false_ms=times[False][0],
+                         gather_false_bf16_ms=times[False][2], **bnd,
+                         shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                               f"max_pages{max_pages} lengths{lens}")
+        else:
+            entry["fp8_ms"] = times[True][0]
+    return entry
+
+
+def phase_ragged_8bit(device, b, hq, hkv, t, s, lens, offs, d, label):
+    """The 8-bit ragged forward against `_fwd_ragged_q_plain`, int8 and
+    e4m3, at the slice's chunk shape; the bf16 kernel timed on the
+    dequantized cache in the same call. Returns its JSON entry, timed on
+    int8 (library_ms null)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(41)
+    entry = dict(name="flash_fwd_ragged_q", route="cuda",
+                 source=f"{PKG}/csrc/flash_fwd_ragged.cu",
+                 replaces=f"{TPU}/flash_attention.py:1582", max_abs_err=0.0,
+                 library_ms=None)
+    q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
+    q_offsets = torch.tensor(offs, dtype=torch.int32, device=device)
+    pairs = hq * sum(visible_pairs(t, n, off, True) for n, off in zip(lens, offs))
+    for fmt in FMTS:
+        k, ks = quantized(gen, device, (b, hkv, s, d), fmt)
+        v, vs = quantized(gen, device, (b, hkv, s, d), fmt)
+        args = (q, k, ks, v, vs, kv_lens, q_offsets, True, d ** -0.5)
+        o = fa.flash_attention_ragged_kv_quant(*args[:7])
+        err, max_abs = kernel_8bit_check("flash_fwd_ragged_q", o,
+                                         fa._fwd_ragged_q_plain(*args), entry, fmt)
+        ms, plain_ms = time_pair(lambda: fa._fwd_ragged_q_cuda(*args),
+                                 lambda: fa._fwd_ragged_q_plain(*args), device)
+        kb, vb = dequantized_bf16(k, ks), dequantized_bf16(v, vs)
+        bf16_ms = time_ms(lambda: fa._fwd_ragged(q, kb, vb, kv_lens, q_offsets,
+                                                 True, d ** -0.5),
+                          device, graph=True)
+        bnd = bound(4 * d * pairs, nbytes(q, o, kv_lens, q_offsets)
+                    + bytes_8bit(sum(lens), hkv, d))
+        log(f"flash_fwd_ragged_q {fmt} b{b} hq{hq} hkv{hkv} t{t} s_max{s} d{d} "
+            f"kv_lens={lens} q_offsets={offs}: rel-L2 {err:.3e}, max-abs "
+            f"{max_abs:.3e} | kernel {ms:.4f} ms "
+            f"({4 * d * pairs / ms / 1e9:.1f} TFLOP/s) vs plain {plain_ms:.4f} "
+            f"ms | the bf16 kernel on the dequantized cache {bf16_ms:.4f} ms | "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{label}]")
+        if fmt == "int8":
+            entry.update(ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms, **bnd,
+                         shape=f"b{b} hq{hq} hkv{hkv} t{t} s_max{s} d{d} "
+                               f"kv_lens{lens} q_offsets{offs} causal")
+        else:
+            entry["fp8_ms"] = ms
+    return entry
+
+
+def phase_paged_extend_8bit(device, shapes, label):
+    """The 8-bit paged extend against `_paged_extend_q_plain`, int8 and
+    e4m3, at each (b, hq, hkv, d, page, max_pages, t, old lengths); the
+    bf16 kernel timed on the dequantized pool in the same call. The first
+    shape (the slice's verify) stands for the kernel. Returns its JSON
+    entry, timed on int8 (library_ms null)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator(device=device).manual_seed(43)
+    entry = dict(name="paged_extend_q", route="cuda",
+                 source=f"{PKG}/csrc/paged_extend.cu",
+                 replaces=f"{TPU}/paged_decode.py:397", max_abs_err=0.0,
+                 library_ms=None)
+    for i, (b, hq, hkv, d, page, max_pages, t, old) in enumerate(shapes):
+        new = [n + t for n in old]
+        q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
+        new_lengths = torch.tensor(new, dtype=torch.int32, device=device)
+        old_lengths = torch.tensor(old, dtype=torch.int32, device=device)
+        pairs = hq * sum(visible_pairs(t, n, off, True) for n, off in zip(new, old))
+        for fmt in FMTS:
+            pools, table = _paged_8bit_case(gen, device, fmt, b, hkv, d, page,
+                                            max_pages, new)
+            args = (q, *pools, table, new_lengths, old_lengths, d ** -0.5)
+            o = pd.paged_flash_extend(q, pools[0], pools[2], table, new_lengths,
+                                      old_lengths, k_scale_pages=pools[1],
+                                      v_scale_pages=pools[3])
+            err, max_abs = kernel_8bit_check("paged_extend_q", o,
+                                             pd._paged_extend_q_plain(*args),
+                                             entry, fmt)
+            ms, plain_ms = time_pair(lambda: pd._paged_extend_q_cuda(*args),
+                                     lambda: pd._paged_extend_q_plain(*args),
+                                     device, iters=50)
+            kb, vb = dequantized_bf16(*pools[:2]), dequantized_bf16(*pools[2:])
+            bf16_ms = time_ms(lambda: pd._paged_extend_cuda(
+                q, kb, vb, table, new_lengths, old_lengths, d ** -0.5), device,
+                iters=50, graph=True)
+            bnd = bound(4 * d * pairs,
+                        nbytes(q, o, table, new_lengths, old_lengths)
+                        + bytes_8bit(sum(new), hkv, d))
+            log(f"paged_extend_q {fmt} b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                f"max_pages{max_pages} t{t} old_lengths={old}: rel-L2 "
+                f"{err:.3e}, max-abs {max_abs:.3e} | kernel {ms:.4f} ms vs "
+                f"plain {plain_ms:.4f} ms | the bf16 kernel on the dequantized "
+                f"pool {bf16_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}) [{label}]")
+            if i == 0 and fmt == "int8":
+                entry.update(ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms, **bnd,
+                             shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                                   f"max_pages{max_pages} t{t} old_lengths{old}")
+            elif i == 0:
+                entry["fp8_ms"] = ms
+    return entry
+
+
 def phase_backward(device, shapes, label, entry_shape):
     """The two backward kernels against `_bwd_plain`, bf16, on the same
     (o, lse) from the forward kernel, at each (b, hq, hkv, n, s, d, causal,
@@ -789,7 +1087,14 @@ def _counters():
 
     return dict(flash_fwd=fa._fwd, flash_fwd_ragged=fa.flash_attention_ragged,
                 flash_decode=fd.flash_decode, paged_decode=pd.paged_flash_decode,
-                paged_extend=pd.paged_flash_extend, flash_bwd=fa._bwd)
+                paged_extend=pd.paged_flash_extend, flash_bwd=fa._bwd,
+                flash_decode_q=fd.flash_decode_int8,
+                paged_decode_q=pd.paged_flash_decode_quant,
+                flash_fwd_ragged_q=fa.flash_attention_ragged_kv_quant,
+                paged_extend_q=pd.paged_flash_extend_quant)
+
+
+SLICE_METRICS = {}  # tag -> ServingMetrics of each slice served in this run
 
 
 def serve(device, cfg, params, prompts, max_new, kernels, label, tag, **kw):
@@ -826,7 +1131,7 @@ def serve(device, cfg, params, prompts, max_new, kernels, label, tag, **kw):
             raise AssertionError(f"request {u} returned out-of-vocab tokens")
     if device.type == "cuda" and not all(launches[k] for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    m = sched.metrics()
+    m = SLICE_METRICS[tag] = sched.metrics()
     opts = ", ".join(  # a draft's config by its depth and width, not its params
         f"{k}={v.n_layers} layers d_ff {v.d_ff}" if k == "draft_cfg" else f"{k}={v}"
         for k, v in kw.items() if k != "draft_params")
@@ -906,14 +1211,16 @@ class NearTie:
     model's own top-2 logits after the common prefix lie within
     max(8 eps, 1e-3), eps being the largest logit difference between two
     evaluations of one prefix (fresh prefill vs prefill + one decode
-    step)."""
+    step, over an int8 cache when `quantized`, which then counts the
+    cache's own error)."""
 
-    def __init__(self, cfg, params, prefix):
+    def __init__(self, cfg, params, prefix, quantized=False):
         from flashattention_kernel_project_tpu_torch.models import engine
 
         self.cfg, self.params = cfg, params
         full = self.last_logits(prefix)
-        cache = engine.init_cache(cfg, 1, len(prefix) + 1, params["embed"].device)
+        cache = engine.init_cache(cfg, 1, len(prefix) + 1, params["embed"].device,
+                                  quantized=quantized)
         engine.prefill(cfg, params, self._tokens(prefix[:-1]), cache)
         step, _ = engine.decode_step(cfg, engine.fuse_decode_params(cfg, params),
                                      self._tokens(prefix[-1:])[0], cache)
@@ -1072,6 +1379,135 @@ def phase_spec_slice(device, cfg, params, draft_cfg, draft_params, prompts,
     return out["spec slice (paged)"][0]
 
 
+def pool_bytes(cache) -> int:
+    """Device bytes of a paged cache's pools (values and any scale pages)."""
+    pools = cache.k_pages + cache.v_pages
+    if cache.quantized:
+        pools = pools + cache.k_scale_pages + cache.v_scale_pages
+    return nbytes(*pools)
+
+
+def phase_8bit_slices(device, cfg, params, draft_cfg, draft_params, prompts,
+                      system, max_batch, max_len, max_new, label):
+    """The serving requests through Scheduler(quantized_cache=True), the
+    int8 cache of bench_serving.py --int8, five ways: (i) linear, (ii) the
+    paged, prefix-cached, chunked mode with the shared system prompt,
+    (iii) multi_step=4, whose tokens must equal (i)'s, (iv) speculative on
+    the page pool and (v) speculative on the linear cache, both with the
+    bench_spec draft. Each must launch its mode's 8-bit kernels (and not
+    the bf16 one they replace); the paged runs give every page back; every
+    divergence of (iv) and (v) from (i) must be a near-tie of the int8
+    path. Each is printed beside the bf16 slice of the same mode from this
+    run, and the paged pool's bytes beside the bf16 pool's. Returns the
+    launches of each run by its tag."""
+    base = dict(max_batch=max_batch, max_len=max_len, quantized_cache=True)
+    spec = dict(draft_cfg=draft_cfg, draft_params=draft_params, spec_k=SPEC_K)
+    paged = dict(paged=True, page_size=128)
+    with_system = [np.concatenate([system, p]).astype(np.int32) for p in prompts]
+    runs = (  # tag, prompts, options, kernels that must launch, that must not, bf16 tag
+        ("int8 slice (linear)", prompts, {}, ("flash_fwd", "flash_decode_q"),
+         ("flash_decode",), "slice"),
+        ("int8 slice (paged)", with_system,
+         dict(paged, prefix_cache=True, prefill_chunk=256),
+         ("flash_fwd_ragged", "paged_decode_q"), ("paged_decode", "flash_decode"),
+         "paged slice"),
+        ("int8 slice (multi_step=4)", prompts, dict(multi_step=4),
+         ("flash_fwd", "flash_decode_q"), ("flash_decode",), "multi_step slice"),
+        ("int8 spec slice (paged)", prompts, dict(spec, **paged),
+         ("flash_fwd", "paged_extend_q", "flash_decode"),
+         ("paged_extend", "paged_decode_q"), "spec slice (paged)"),
+        ("int8 spec slice (linear)", prompts, spec,
+         ("flash_fwd", "flash_fwd_ragged_q", "flash_decode"),
+         ("flash_fwd_ragged",), "spec slice (linear)"),
+    )
+    out, tokens = {}, {}
+    tie = None
+    for tag, reqs, kw, kernels, absent, bf16_tag in runs:
+        sched, tokens[tag], launches = serve(device, cfg, params, reqs, max_new,
+                                             kernels, label, tag, **base, **kw)
+        if any(launches[k] for k in absent):
+            raise AssertionError(f"{tag} ran a bf16 kernel it replaces: {launches}")
+        if not sched.cache.quantized:
+            raise AssertionError(f"{tag}: the batch cache is not 8-bit")
+        if kw.get("paged"):
+            if sched._pool.free_pages != sched._n_pages - 1:
+                raise AssertionError(f"{tag}: {sched._pool.free_pages} of "
+                                     f"{sched._n_pages - 1} pages back")
+            if kw.get("prefix_cache") and not sched.prefix_hits > 0:
+                raise AssertionError(f"{tag}: no insert reused the prefix's pages")
+            bf16_bytes = nbytes(*sched.cache.k_pages, *sched.cache.v_pages) * 2
+            log(f"{tag}: pool of {sched._n_pages} pages of 128 rows: "
+                f"{pool_bytes(sched.cache) / 2**20:.1f} MiB (int8 values and f32 "
+                f"scales) vs {bf16_bytes / 2**20:.1f} MiB for the same pages in "
+                f"bf16; prefix reuse {sched.prefix_hits} of {len(reqs)}")
+        detail = ""
+        if tag == "int8 slice (multi_step=4)":
+            same = np.mean([a == b for x, y in zip(tokens[tag],
+                                                   tokens["int8 slice (linear)"])
+                            for a, b in zip(x, y)])
+            if same != 1.0:
+                raise AssertionError(f"{tag}: tokens equal to multi_step=1 only "
+                                     f"{same:.4f}")
+            detail = "; tokens equal to (i) 1.0000"
+        if "spec" in tag:
+            ref = tokens["int8 slice (linear)"]
+            if tie is None:
+                tie = NearTie(cfg, params, list(prompts[0]) + ref[0][:1],
+                              quantized=True)
+            windows, gaps = tie.audit(tokens[tag], ref, prompts, tag)
+            same = np.mean([a == b for x, y in zip(tokens[tag], ref)
+                            for a, b in zip(x, y)])
+            per_round = sched.spec_committed / max(sched.spec_slot_rounds, 1)
+            detail = (f"; tokens equal to (i) {same:.4f}, {len(gaps)} divergences,"
+                      f" all near-ties (gaps {[f'{g:.2e}' for g in gaps]}, bound "
+                      f"{tie.bound:.2e} = max(8 x eps {tie.eps:.2e}, 1e-3)); "
+                      f"{per_round:.3f} committed tokens a slot-round")
+        m, ref = SLICE_METRICS[tag], SLICE_METRICS[bf16_tag]
+        log(f"{tag} vs the bf16 {bf16_tag} (same run): {m.tok_per_s:.1f} vs "
+            f"{ref.tok_per_s:.1f} tok/s | TTFT mean {m.ttft_s_mean * 1e3:.1f} vs "
+            f"{ref.ttft_s_mean * 1e3:.1f} ms, p95 {m.ttft_s_p95 * 1e3:.1f} vs "
+            f"{ref.ttft_s_p95 * 1e3:.1f} ms | latency mean "
+            f"{m.latency_s_mean * 1e3:.1f} vs {ref.latency_s_mean * 1e3:.1f} ms, "
+            f"p95 {m.latency_s_p95 * 1e3:.1f} vs {ref.latency_s_p95 * 1e3:.1f} ms"
+            f"{detail} [{label}]")
+        out[tag] = launches
+        del sched
+    return out
+
+
+def phase_int8_weights(device, cfg, params, label):
+    """One decode step with int8 weight-only parameters
+    (quantize_decode_params) against the bf16 step from the same cache, at
+    tests/test_model.py:92-111's 5e-2, and the weight bytes a step reads."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import engine
+
+    gen = torch.Generator(device=device).manual_seed(47)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
+                           device=device, dtype=torch.int32)
+    cache = engine.init_cache(cfg, 8, 130, device)
+    logits, cache = engine.prefill(cfg, params, prompt, cache)
+    nxt = logits.argmax(-1).to(torch.int32)
+    fused = engine.fuse_decode_params(cfg, params)
+    q8 = engine.quantize_decode_params(cfg, fused)
+    lengths = cache.lengths.clone()
+    lf, _ = engine.decode_step(cfg, fused, nxt, cache)
+    cache.lengths.copy_(lengths)
+    lq, _ = engine.decode_step(cfg, q8, nxt, cache)
+    torch.cuda.synchronize()
+    err = _rel_l2(lq, lf)
+    same = (lq.argmax(-1) == lf.argmax(-1)).float().mean().item()
+    wb = nbytes(*fused["layers"].values(), fused["embed"])
+    wq = nbytes(*q8["layers"].values(), q8["lm_head_q"], q8["lm_head_s"])
+    log(f"int8 weights: decode step (B=8, 128-token prompts) vs the bf16 step: "
+        f"logits rel-L2 {err:.3e} (bound 5e-2), equal greedy tokens {same:.3f} "
+        f"| layer and head weights a step reads {wq / 2**20:.1f} MiB vs "
+        f"{wb / 2**20:.1f} MiB in bf16 [{label}]")
+    if not err <= 5e-2:
+        raise AssertionError(f"int8-weight decode logits rel-L2 {err:.3e} > 5e-2")
+
+
 def device_ms_by_kind(prof) -> dict:
     """Device milliseconds of a torch.profiler window by kind of kernel:
     this repo's attention kernels by name (the forward core's flavours
@@ -1085,12 +1521,12 @@ def device_ms_by_kind(prof) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         key = e.key
-        fwd = re.search(r"flash_fwd_kernel<\d+, (\d)>", key)
-        ours = re.search(r"(paged|flash)_decode_kernel", key)
+        fwd = re.search(r"flash_fwd(_q)?_kernel<\d+, (\d)", key)
+        ours = re.search(r"(paged|flash)_decode(_q)?_kernel", key)
         if fwd:
-            kind = flavours[fwd.group(1)]
+            kind = flavours[fwd.group(2)] + ("_q" if fwd.group(1) else "")
         elif ours:
-            kind = ours.group(0)
+            kind = ours.group(0).replace("_kernel", "")
         elif "sgemm" in key or "gemm_f32" in key:
             kind = "f32 GEMM (lm_head)"
         elif "gemm" in key or "nvjet" in key:
@@ -1106,10 +1542,10 @@ def device_ms_by_kind(prof) -> dict:
 def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
                          steps=20, window=5):
     """Where a decode step's time goes, the linear cache against the paged
-    one, at the serving batch (`batch` slots of `length` tokens): host
-    milliseconds a step with one host sync a step (the Scheduler's pattern),
-    then `window` steps under torch.profiler: device time by kind and the
-    device's busy share of the window's wall time."""
+    one, bf16 and int8, at the serving batch (`batch` slots of `length`
+    tokens): host milliseconds a step with one host sync a step (the
+    Scheduler's pattern), then `window` steps under torch.profiler: device
+    time by kind and the device's busy share of the window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1117,17 +1553,23 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
 
     dec = engine.fuse_decode_params(cfg, params)
     pages = -(-(length + steps + window + 1) // 128)
-    linear = engine.init_cache(cfg, batch, 2048, device)
-    paged = engine.init_paged_cache(cfg, batch, batch * pages + 1, device,
-                                    page_size=128, max_pages_per_seq=pages)
-    paged.block_tables.copy_(torch.arange(1, batch * pages + 1, device=device,
-                                          dtype=torch.int32).view(batch, pages))
-    for cache in (linear, paged):
-        cache.lengths.fill_(length)
     tok = torch.zeros(batch, dtype=torch.int32, device=device)
-    for name, step, cache in (
-            ("linear", engine.decode_step, linear),
-            ("paged", engine.decode_step_paged, paged)):
+    for name, step, quantized in (
+            ("linear", engine.decode_step, False),
+            ("paged", engine.decode_step_paged, False),
+            ("int8 linear", engine.decode_step, True),
+            ("int8 paged", engine.decode_step_paged, True)):
+        if step is engine.decode_step:
+            cache = engine.init_cache(cfg, batch, 2048, device,
+                                      quantized=quantized)
+        else:
+            cache = engine.init_paged_cache(
+                cfg, batch, batch * pages + 1, device, page_size=128,
+                max_pages_per_seq=pages, quantized=quantized)
+            cache.block_tables.copy_(torch.arange(
+                1, batch * pages + 1, device=device,
+                dtype=torch.int32).view(batch, pages))
+        cache.lengths.fill_(length)
         step(cfg, dec, tok, cache)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1199,13 +1641,14 @@ def profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
 
 
 def phase_paged_consistency(device, cfg, params, n_prompt, n_shared, chunk,
-                            n_steps, label):
+                            n_steps, label, quantized=False, tol=LOGITS_TOL):
     """Two prompts of n_prompt tokens, the second sharing the first's
     n_shared-token prefix. The first is prefilled through `extend` chunks
     into a batch-1 cache and paged_insert'ed; the second is built from
     cache_from_pages of the shared pages plus an `extend` of its suffix.
     Then n_steps greedy decode_step_paged steps of both; every step's
-    logits against a full forward over the same tokens."""
+    logits against a full forward over the same tokens. `quantized`: an
+    int8 pool (the prefix hit then dequantizes the shared pages)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.models import engine
@@ -1218,7 +1661,8 @@ def phase_paged_consistency(device, cfg, params, n_prompt, n_shared, chunk,
     prompts[1, :n_shared] = prompts[0, :n_shared]
     max_pages = -(-(n_prompt + n_steps) // page)
     cache = engine.init_paged_cache(cfg, 2, 2 * max_pages + 1, device,
-                                    page_size=page, max_pages_per_seq=max_pages)
+                                    page_size=page, max_pages_per_seq=max_pages,
+                                    quantized=quantized)
     shared = list(range(1, n_shared // page + 1))
     rows = [list(range(1, max_pages + 1)),
             shared + list(range(max_pages + 1, 2 * max_pages + 1 - len(shared)))]
@@ -1259,19 +1703,24 @@ def phase_paged_consistency(device, cfg, params, n_prompt, n_shared, chunk,
     assert cached.shape == full.shape and torch.isfinite(cached).all()
     errs = [[_rel_l2(cached[s, i], full[s, i]) for i in range(n_steps + 1)]
             for s in range(2)]
-    log(f"paged consistency: 2 prompts of {n_prompt} (the second sharing "
+    tag = "paged consistency (int8 pool)" if quantized else "paged consistency"
+    log(f"{tag}: 2 prompts of {n_prompt} (the second sharing "
         f"{n_shared} tokens = {len(shared)} pages through cache_from_pages), "
         f"extend chunks of {chunk} + {n_steps} decode_step_paged steps vs "
         f"forward: logits rel-L2 max {max(map(max, errs)):.3e} (first prompt "
         f"{max(errs[0]):.3e}, prefix path {max(errs[1]):.3e}) [{label}]")
-    if not max(map(max, errs)) <= LOGITS_TOL:
-        raise AssertionError(f"paged decode logits rel-L2 "
-                             f"{max(map(max, errs)):.3e} > {LOGITS_TOL}")
+    if not max(map(max, errs)) <= tol:
+        raise AssertionError(f"{tag}: decode logits rel-L2 "
+                             f"{max(map(max, errs)):.3e} > {tol}")
+    return max(map(max, errs))
 
 
-def phase_consistency(device, cfg, params, n_prompt, n_steps, label):
+def phase_consistency(device, cfg, params, n_prompt, n_steps, label,
+                      quant_fmt=None, tol=LOGITS_TOL):
     """prefill + n_steps greedy decode_steps for 2 prompts; each step's
-    logits against a full forward over the same tokens."""
+    logits against a full forward over the same tokens. With quant_fmt
+    ("int8" or "fp8") the cache is 8-bit, and generate(quantized_cache=True,
+    quant_fmt=...) must give the same greedy tokens."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.models import engine
@@ -1280,7 +1729,8 @@ def phase_consistency(device, cfg, params, n_prompt, n_steps, label):
     gen = torch.Generator(device=device).manual_seed(5)
     prompt = torch.randint(0, cfg.vocab_size, (2, n_prompt), generator=gen,
                            device=device, dtype=torch.int32)
-    cache = engine.init_cache(cfg, 2, n_prompt + n_steps + 1, device)
+    q8 = dict(quantized=True, quant_fmt=quant_fmt) if quant_fmt else {}
+    cache = engine.init_cache(cfg, 2, n_prompt + n_steps + 1, device, **q8)
     logits, cache = engine.prefill(cfg, params, prompt, cache)
     dec = engine.fuse_decode_params(cfg, params)
     steps = [logits]
@@ -1295,12 +1745,22 @@ def phase_consistency(device, cfg, params, n_prompt, n_steps, label):
     assert cached.shape == full.shape and torch.isfinite(cached).all()
     errs = [_rel_l2(cached[:, i], full[:, i]) for i in range(n_steps + 1)]
     same = (cached.argmax(-1) == full.argmax(-1)).float().mean().item()
-    log(f"consistency: prefill + {n_steps} decode steps vs forward, 2 prompts "
+    tag = f"consistency ({quant_fmt} cache)" if quant_fmt else "consistency"
+    log(f"{tag}: prefill + {n_steps} decode steps vs forward, 2 prompts "
         f"of {n_prompt}: logits rel-L2 max {max(errs):.3e} mean "
         f"{sum(errs) / len(errs):.3e}, equal greedy tokens {same:.3f} [{label}]")
-    log("consistency: rel-L2 per step " + " ".join(f"{e:.2e}" for e in errs))
-    if not max(errs) <= LOGITS_TOL:
-        raise AssertionError(f"decode logits rel-L2 {max(errs):.3e} > {LOGITS_TOL}")
+    log(f"{tag}: rel-L2 per step " + " ".join(f"{e:.2e}" for e in errs))
+    if not max(errs) <= tol:
+        raise AssertionError(f"{tag}: decode logits rel-L2 {max(errs):.3e} > {tol}")
+    if quant_fmt:
+        out = engine.generate(cfg, params, prompt, max_new_tokens=n_steps + 1,
+                              quantized_cache=True, quant_fmt=quant_fmt)
+        if not torch.equal(out[:, n_prompt:], torch.stack(toks, dim=1)):
+            raise AssertionError(f"{tag}: generate's tokens differ from the "
+                                 "decode steps'")
+        log(f"{tag}: generate(quantized_cache=True, quant_fmt={quant_fmt!r}) "
+            f"gives the decode steps' {n_steps + 1} tokens a row")
+    return max(errs)
 
 
 def main() -> int:
@@ -1335,9 +1795,11 @@ def main() -> int:
         kernel = ""  # the mangled name of the entry ptxas reports on
         for line in f:
             entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
-                              r"(?:I((?:Li\d+E)+))?", line)
-            if entry:  # e.g. flash_fwd_kernel<128,2>
+                              r"(?:I((?:Li\d+E)+)(a|13__nv_fp8_e4m3)?)?", line)
+            if entry:  # e.g. flash_fwd_kernel<128,2>, flash_fwd_q_kernel<128,2,int8>
                 args = re.findall(r"\d+", entry.group(2) or "")
+                args += {"a": ["int8"], "13__nv_fp8_e4m3": ["e4m3"]}.get(
+                    entry.group(3), [])
                 kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
             if "registers" in line or "spill" in line:
                 log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
@@ -1369,6 +1831,17 @@ def main() -> int:
         (4, 8, 2, 64, 16, 19, 3, [0, 14, 300, 5]),
         # G = 8, T = 9: a folded group of 72 rows, two query tiles
         (2, 16, 2, 128, 64, 16, 9, [33, 900]),
+    ], label)
+    # the 8-bit kernels (int8 and e4m3) at the same shapes, each beside the
+    # bf16 kernel on its dequantized cache
+    dec_q = phase_decode_8bit(device, 8, 16, 4, 2048, 128, label)
+    paged_q = phase_paged_decode_8bit(device, 8, 16, 4, 128, 128, 16,
+                                      [1, 127, 128, 129, 700, 1500, 2048, 0], label)
+    ragged_q = phase_ragged_8bit(device, 1, 16, 4, 256, 2304, [768], [512], 128,
+                                 label)
+    extend_q = phase_paged_extend_8bit(device, [
+        (8, 16, 4, 128, 128, 16, 5, [0, 1, 124, 127, 128, 700, 1500, 2043]),
+        (8, 16, 4, 128, 16, 128, 5, [0, 1, 12, 15, 16, 700, 1500, 2043]),
     ], label)
 
     # 3. the serving slices at the serving configuration: the default
@@ -1409,18 +1882,39 @@ def main() -> int:
         tie=tie, label=label)
     extend["launches"] = spec_launches["paged_extend"]
     profile_spec_round(device, cfg, params, draft_cfg, draft_params, label)
+
+    # 5. the int8 cache of bench_serving.py --int8: the serving requests
+    # linear, paged, multi_step=4 and speculative over both caches
+    q8 = phase_8bit_slices(device, cfg, params, draft_cfg, draft_params,
+                           prompts, system, max_batch=8, max_len=2048,
+                           max_new=64, label=label)
+    dec_q["launches"] = q8["int8 slice (linear)"]["flash_decode_q"]
+    paged_q["launches"] = q8["int8 slice (paged)"]["paged_decode_q"]
+    extend_q["launches"] = q8["int8 spec slice (paged)"]["paged_extend_q"]
+    ragged_q["launches"] = q8["int8 spec slice (linear)"]["flash_fwd_ragged_q"]
     del draft_params
 
-    # 5. cached decode against a full forward: the linear cache, then the
-    # paged cache with a prefix shared through cache_from_pages
-    phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
-                      label=label)
+    # 6. cached decode against a full forward: the linear cache, then the
+    # paged cache with a prefix shared through cache_from_pages; bf16 within
+    # its floor, the 8-bit caches (int8, e4m3 linear; int8 paged) within the
+    # JAX suite's 5e-2 on top of that floor; int8 weights
+    floor = phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
+                              label=label)
+    paged_floor = phase_paged_consistency(
+        device, cfg, params, n_prompt=640, n_shared=512, chunk=256, n_steps=16,
+        label=label)
+    for fmt in FMTS:
+        phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
+                          label=label, quant_fmt=fmt,
+                          tol=QUANT_LOGITS_TOL + floor)
     phase_paged_consistency(device, cfg, params, n_prompt=640, n_shared=512,
-                            chunk=256, n_steps=16, label=label)
+                            chunk=256, n_steps=16, label=label, quantized=True,
+                            tol=QUANT_LOGITS_TOL + paged_floor)
+    phase_int8_weights(device, cfg, params, label)
     profile_decode_steps(device, cfg, params, label)
     del params, sched
 
-    # 6. the backward kernels against their plain version
+    # 7. the backward kernels against their plain version
     bwd = phase_backward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (4, 16, 4, 4096, 4096, 128, True, 0),  # the training step's shape
@@ -1429,7 +1923,7 @@ def main() -> int:
         (2, 4, 2, 200, 333, 128, True, 133),   # ragged, causal, q_offset
     ], label, entry_shape=1)
 
-    # 7. training at the bench_train.py configuration
+    # 8. training at the bench_train.py configuration
     cfg = tfm.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
     params = tfm.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)
@@ -1440,11 +1934,11 @@ def main() -> int:
     for entry in bwd:
         entry["launches"] = train_launches["flash_bwd"]
 
-    # 8. train -> checkpoint -> restore -> serve
+    # 9. train -> checkpoint -> restore -> serve
     phase_checkpoint(device, cfg, params, corpus, label)
 
-    print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend]}),
-          flush=True)
+    print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend, dec_q,
+                                  paged_q, ragged_q, extend_q]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

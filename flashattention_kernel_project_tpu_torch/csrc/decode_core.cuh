@@ -2,7 +2,8 @@
 // shared by flash_decode.cu (a linear cache) and paged_decode.cu (a page
 // pool): the two differ only in where key j's K and V rows live, which the
 // `Rows` argument answers (`rows.offset(j)`, in elements from the head's
-// base pointers).
+// base pointers), and, for an 8-bit cache, where key j's two scales live
+// (`rows.scale(j)`, in floats from the head's scale base pointers).
 //
 // The block emits the unnormalized partials (m, l, y) of the G = Hq / Hkv
 // query rows of its group over its keys [start, end); merge_partials (in
@@ -12,18 +13,28 @@
 // 4*G*d flops, G flops per byte at G = 4, far below the ~295 flop/byte
 // ridge, so the roof is the 3.35 TB/s of HBM and tensor cores would buy
 // nothing. What matters is reading only live keys, with wide loads and
-// enough loads in flight to cover device-memory latency.
+// enough loads in flight to cover device-memory latency. An 8-bit cache
+// (int8 or e4m3, one f32 scale per key and head for K and one for V) halves
+// the K/V bytes: 2*d + 8 a key.
 //
 // Design: 128 threads. A split with no live key returns after writing
 // (NEG_INF, 0, 0), with no K/V loads. In a live split every thread loads 16
-// bytes (8 dims) of a key row, d/8 threads share a key, and each group of
-// d/8 threads keeps its own online (m, l, acc) for all G rows over the keys
-// it visits; the loop is unrolled so that every thread has 4 K and 4 V loads
-// in flight. The groups' states are merged through shared memory at the end.
-// p stays f32 in the PV product, where the JAX kernels cast it to the value
-// dtype: rounding p to bf16 widens the gap between the bf16 model's
-// cached-decode logits and its full forward (ROADMAP.md, section C), and the
-// arithmetic here is on CUDA cores, where f32 costs nothing extra.
+// bytes of a key row (8 bf16 dims, or 16 8-bit dims), the threads of a key
+// share it, and each group of them keeps its own online (m, l, acc) for all
+// G rows over the keys it visits; the loop is unrolled so that every thread
+// has 4 K and 4 V loads in flight. The groups' states are merged through
+// shared memory at the end. p stays f32 in the PV product, where the JAX
+// kernels cast it to the value dtype: rounding p to bf16 widens the gap
+// between the bf16 model's cached-decode logits and its full forward
+// (ROADMAP.md, section C), and the arithmetic here is on CUDA cores, where
+// f32 costs nothing extra.
+//
+// 8-bit caches: the values widen exactly to f32 in registers, and the
+// scales enter in the JAX kernel's order: the score is
+// (q . k_int) * (sm_scale * ks[j]), and p * vs[j] enters the V sum while l
+// sums p alone. At G = 8 a thread takes 8 bytes (8 dims) instead of 16, so
+// its q rows and accumulators (2 * G * dims floats) stay within the 255
+// registers a thread may hold.
 
 #pragma once
 
@@ -33,6 +44,8 @@
 
 #include <type_traits>
 
+#include "widen.cuh"
+
 namespace fkp_dec {
 
 constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
@@ -41,7 +54,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kVec = 8;     // bf16 per 16-byte load
 constexpr int kUnroll = 4;  // keys per group in flight
 
-__device__ __forceinline__ void unpack8(const uint4& r, float (&f)[kVec]) {
+// 8 bf16 (one 16-byte load) widened to f32
+__device__ __forceinline__ void unpack8(const uint4& r, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
   for (int i = 0; i < kVec / 2; ++i) {
@@ -51,17 +65,36 @@ __device__ __forceinline__ void unpack8(const uint4& r, float (&f)[kVec]) {
   }
 }
 
-// q_g: the group's G query rows [G, D]; k, v: the head's base pointers, key
-// j's row at rows.offset(j); partials for keys [start, end) into m_p[G],
-// l_p[G], y_p[G, D]. Call from every thread of a kThreads block; `start` and
-// `end` must be uniform across it.
-template <int D, int G, class Rows>
+// the raw bytes a thread loads of a key row: 4 words (16 bytes) or 2
+template <int kWords>
+using Raw = typename std::conditional<kWords == 4, uint4, uint2>::type;
+
+template <class T, int kWords>
+__device__ __forceinline__ void widen(const Raw<kWords>& r, float* f) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    fkp::Widen<T>::word(w[i], f + i * fkp::Widen<T>::kPerWord);
+  }
+}
+
+// q_g: the group's G query rows [G, D] bf16; k, v: the head's base pointers
+// (bf16, int8 or e4m3), key j's row at rows.offset(j); for an 8-bit cache,
+// k_scale, v_scale: the head's scale base pointers, key j's scales at
+// rows.scale(j) (unread for bf16). Partials for keys [start, end) into
+// m_p[G], l_p[G], y_p[G, D]. Call from every thread of a kThreads block;
+// `start` and `end` must be uniform across it.
+template <int D, int G, class T, class Rows>
 __device__ __forceinline__ void decode_partials(
-    const __nv_bfloat16* __restrict__ q_g, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const Rows& rows, int start, int end,
+    const __nv_bfloat16* __restrict__ q_g, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const Rows& rows, int start, int end,
     float sm_scale, float* __restrict__ m_p, float* __restrict__ l_p,
     float* __restrict__ y_p) {
-  constexpr int kTpk = D / kVec;             // threads per key
+  constexpr bool kQuant = sizeof(T) == 1;
+  constexpr int kWords = kQuant && G == 8 ? 2 : 4;  // of a key row a thread
+  constexpr int kDims = kWords * fkp::Widen<T>::kPerWord;  // dims a thread holds
+  constexpr int kTpk = D / kDims;                     // threads per key
   constexpr int kKeysPerWarp = 32 / kTpk;
   constexpr int kGroups = kWarps * kKeysPerWarp;  // keys per block step
   __shared__ float sh_m[kGroups][G];
@@ -80,61 +113,75 @@ __device__ __forceinline__ void decode_partials(
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int grp = warp * kKeysPerWarp + lane / kTpk;
-  const int c0 = (lane % kTpk) * kVec;
+  const int c0 = (lane % kTpk) * kDims;
 
-  float qv[G][kVec];
+  float qv[G][kDims];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
-    unpack8(*reinterpret_cast<const uint4*>(q_g + gi * D + c0), qv[gi]);
+#pragma unroll
+    for (int j = 0; j < kDims; j += kVec) {
+      unpack8(*reinterpret_cast<const uint4*>(q_g + gi * D + c0 + j), qv[gi] + j);
+    }
   }
 
-  float m[G], l[G], acc[G][kVec];
+  float m[G], l[G], acc[G][kDims];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     m[gi] = kNegInf;
     l[gi] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[gi][i] = 0.f;
+    for (int i = 0; i < kDims; ++i) acc[gi][i] = 0.f;
   }
 
   // `base` and `end` are uniform across the block, so every lane runs every
   // iteration and the shuffles below see full warps
   for (int base = start; base < end; base += kGroups * kUnroll) {
-    uint4 kr[kUnroll], vr[kUnroll];
+    Raw<kWords> kr[kUnroll], vr[kUnroll];
+    float ks[kUnroll], vs[kUnroll];  // the keys' scales (8-bit caches)
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int key = base + u * kGroups + grp;
-      kr[u] = make_uint4(0u, 0u, 0u, 0u);
-      vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      kr[u] = Raw<kWords>{};
+      vr[u] = Raw<kWords>{};
+      ks[u] = vs[u] = 0.f;
       if (key < end) {
         const size_t off = rows.offset(key) + c0;
-        kr[u] = *reinterpret_cast<const uint4*>(k + off);
-        vr[u] = *reinterpret_cast<const uint4*>(v + off);
+        kr[u] = *reinterpret_cast<const Raw<kWords>*>(k + off);
+        vr[u] = *reinterpret_cast<const Raw<kWords>*>(v + off);
+        if constexpr (kQuant) {
+          const size_t so = rows.scale(key);
+          ks[u] = k_scale[so];
+          vs[u] = v_scale[so];
+        }
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool live = base + u * kGroups + grp < end;
-      float kf[kVec], vf[kVec];
-      unpack8(kr[u], kf);
-      unpack8(vr[u], vf);
+      float kf[kDims], vf[kDims];
+      widen<T, kWords>(kr[u], kf);
+      widen<T, kWords>(vr[u], vf);
+      // an 8-bit score is (q . k_int) * (sm_scale * ks), as in the JAX kernel
+      const float s_scale = kQuant ? sm_scale * ks[u] : sm_scale;
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) dot = fmaf(qv[gi][i], kf[i], dot);
+        for (int i = 0; i < kDims; ++i) dot = fmaf(qv[gi][i], kf[i], dot);
 #pragma unroll
         for (int off = kTpk / 2; off > 0; off >>= 1) {
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         }
         if (live) {
-          const float sv = dot * sm_scale;
+          const float sv = dot * s_scale;
           const float mn = fmaxf(m[gi], sv);
           const float corr = expf(m[gi] - mn);
           const float p = expf(sv - mn);
           l[gi] = l[gi] * corr + p;
+          // the V scale folds into p for the V sum, not into l
+          const float pv = kQuant ? p * vs[u] : p;
 #pragma unroll
-          for (int i = 0; i < kVec; ++i) acc[gi][i] = fmaf(p, vf[i], acc[gi][i] * corr);
+          for (int i = 0; i < kDims; ++i) acc[gi][i] = fmaf(pv, vf[i], acc[gi][i] * corr);
           m[gi] = mn;
         }
       }
@@ -150,7 +197,7 @@ __device__ __forceinline__ void decode_partials(
       sh_l[grp][gi] = l[gi];
     }
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) sh_acc[grp][gi][c0 + i] = acc[gi][i];
+    for (int i = 0; i < kDims; ++i) sh_acc[grp][gi][c0 + i] = acc[gi][i];
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
@@ -193,6 +240,24 @@ int dispatch(int d, int g, Launch&& launch) {
   if (d == 64) return by_g(Int<64>{});
   if (d == 128) return by_g(Int<128>{});
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class T>
+struct Type {
+  using type = T;
+};
+
+// dispatch for an 8-bit cache: launch(Int<D>{}, Int<G>{}, Type<T>{}) with
+// T = __nv_fp8_e4m3 if fp8, else int8_t
+template <class Launch>
+int dispatch_8bit(int d, int g, int fp8, Launch&& launch) {
+  return dispatch(d, g, [&](auto dc, auto gc) {
+    if (fp8) {
+      launch(dc, gc, Type<__nv_fp8_e4m3>{});
+    } else {
+      launch(dc, gc, Type<int8_t>{});
+    }
+  });
 }
 
 }  // namespace fkp_dec

@@ -1,9 +1,11 @@
 // The tiled attention forward shared by flash_fwd.cu (the dense forward, O
 // and LSE), flash_fwd_ragged.cu (per-row KV lengths and query offsets, O
 // only) and paged_extend.cu (the ragged bounds over a page pool, with the
-// GQA group folded into the query rows, O only). One template,
-// `flash_fwd_kernel<D, kFlavour>`; each source file instantiates its own
-// flavour.
+// GQA group folded into the query rows, O only). One block body,
+// `fwd_block<D, kFlavour, KV>`, behind two kernels: `flash_fwd_kernel<D,
+// kFlavour>` over a bf16 cache and `flash_fwd_q_kernel<D, kFlavour, KV>`
+// over an 8-bit one (KV = int8_t or __nv_fp8_e4m3, the ragged and paged
+// flavours); each source file instantiates its own.
 //
 // Softmax in the log2 domain (scores times sm_scale * log2(e)), the online
 // (m, l, acc) rescale with exp2, causal and tail masks, GQA with q head h
@@ -51,12 +53,26 @@
 // later: wgmma, TMA loads and warp specialisation (the FlashAttention-3
 // structure), double-buffered K/V tiles, and for the paged flavour a split
 // over pages (its grid is only B * Hkv blocks at the serving shape).
+//
+// 8-bit caches (one f32 scale per key and head for K and one for V): each
+// thread loads its 16-byte pieces of the tile's 8-bit K and V rows into
+// registers, all at once, and widens them exactly to bf16 in the shared
+// tiles, so the tensor-core operands are the cache's own values; the tile's
+// scales go to shared memory beside them. The K scale multiplies the f32
+// score column before the mask and the max; the V scale folds into the p
+// column (after l has summed it) before the bf16 hi + lo split. Half the
+// K/V bytes of bf16 cross device memory; the paged flavour reads values and
+// scales through the same table entry. The 8-bit tile does not go through
+// cp.async: a staging copy of it beside the bf16 tiles (16 KB more at
+// d = 128) would pass the 48 KB of static shared memory a block may hold.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "widen.cuh"
 
 namespace fkp_fwd {
 
@@ -114,6 +130,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// What an 8-bit flavour adds (null for bf16): the scale buffers, [b, hkv,
+// s, 1] for the ragged flavour, the scale pools [n_pages, hkv, 1, page] for
+// the paged one.
+struct QuantArgs {
+  const float* k_scale;
+  const float* v_scale;
+};
+
+// 16 8-bit cache values (one 16-byte load) widened exactly to 16 bf16 at
+// dst (16-byte aligned)
+template <class KV>
+__device__ __forceinline__ void widen16_bf16(const uint4& r, __nv_bfloat16* dst) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&r);
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+    fkp::Widen<KV>::word(w[i], f);
+    out[2 * i] = pack_bf16(f[0], f[1]);
+    out[2 * i + 1] = pack_bf16(f[2], f[3]);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2], out[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
 // p as a bf16 pair hi + lo with hi = bf16(p), lo = bf16(p - hi): about 16
 // significant bits, where bf16 alone keeps 8.
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
@@ -130,22 +171,23 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
 // [0, min(kv_lens[b], s)) and the offset q_offsets[b]. Paged: k/v the pools
 // [n_pages, hkv, page, D], hq == hkv and n = G * T (the folded group), row b
 // sees keys [0, min(kv_lens[b], max_pages * page)) and offset q_offsets[b].
-// Launch bounds with a minimum of one block per SM: with the thread count
-// alone, ptxas held the d=64 instances at 128 registers and spilled.
-template <int D, int kFlavour>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int hq, int hkv, int n, int s, float scale_log2,
-                     int causal, int q_offset, const int* __restrict__ kv_lens,
-                     const int* __restrict__ q_offsets, PagedArgs pg) {
+// KV: the cache's element type (__nv_bfloat16, or int8_t / __nv_fp8_e4m3
+// for the 8-bit ragged and paged flavours, which read qa's scales).
+template <int D, int kFlavour, class KV>
+__device__ __forceinline__ void fwd_block(
+    const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
+    const KV* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int hq, int hkv, int n, int s, float scale_log2,
+    int causal, int q_offset, const int* __restrict__ kv_lens,
+    const int* __restrict__ q_offsets, PagedArgs pg, QuantArgs qa) {
   constexpr bool kBounds = kFlavour != kDense;  // per-row bounds on the device
   constexpr bool kPagedKV = kFlavour == kPaged;
+  constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int kStride = D + 8;  // padded shared-memory row, in bf16
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
+  // the tile's K and V scales (8-bit flavours)
+  __shared__ float kvs_s[2][kQuant ? kBlockN : 1];
   const unsigned short* v_u16 = reinterpret_cast<const unsigned short*>(v_s);
 
   const int m_block = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
@@ -168,11 +210,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // pool (the page then adds pid * page_stride)
   const size_t kv_head = kPagedKV ? (size_t)kvh * pg.page * D
                                   : ((size_t)b * hkv + kvh) * s * D;
-  const __nv_bfloat16* k_bh = k + kv_head;
-  const __nv_bfloat16* v_bh = v + kv_head;
+  const KV* k_bh = k + kv_head;
+  const KV* v_bh = v + kv_head;
   const size_t page_stride = kPagedKV ? (size_t)hkv * pg.page * D : 0;
   const int* table = kPagedKV ? pg.block_tables + (size_t)b * pg.max_pages
                               : nullptr;
+  // the head's first scale (8-bit flavours): in the row's buffer, or in any
+  // page of the scale pool (the page then adds pid * hkv * page)
+  const size_t scale_head = kPagedKV ? (size_t)kvh * pg.page
+                                     : ((size_t)b * hkv + kvh) * s;
 
   const int row0 = m_block * kBlockM + warp * 16 + g;
   const int row1 = row0 + 8;
@@ -219,35 +265,83 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool full = kBounds && key0 + kBlockN <= kv_len &&
                       (!causal || key0 + kBlockN - 1 <= first_pos);
     __syncthreads();  // every warp is done with the previous tile
-    constexpr int kVecPerRow = D / 8;
-    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = key0 + r;
-      if constexpr (kPagedKV) {
-        // every key row is addressed through the table, since a page may
-        // be shorter than the tile; the copies go out with cp.async, all of
-        // the tile's at once, and one wait follows the loop (with one block
-        // per SM nothing else hides a load's latency)
-        const bool live = key < kv_len;  // rows past it are zero-filled
-        const size_t off =
-            live ? (size_t)__ldg(table + key / pg.page) * page_stride +
-                       (size_t)(key % pg.page) * D
-                 : 0;
-        cp_async_16(k_s + r * kStride + c, k_bh + off + c, live);
-        cp_async_16(v_s + r * kStride + c, v_bh + off + c, live);
-      } else {
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (kQuant) {
+      // the 8-bit tile: every thread's 16-byte pieces (16 dims) of the K
+      // and V rows go to registers, all loads out at once; then they widen
+      // into the bf16 tiles. Rows past kv_len are zero, their scales too.
+      constexpr int kPerRow = D / 16;
+      constexpr int kPieces = kBlockN * kPerRow / kThreads;
+      uint4 kc[kPieces], vc[kPieces];
+#pragma unroll
+      for (int u = 0; u < kPieces; ++u) {
+        const int i = threadIdx.x + u * kThreads;
+        const int key = key0 + i / kPerRow;
+        const int c = (i % kPerRow) * 16;
+        kc[u] = make_uint4(0u, 0u, 0u, 0u);
+        vc[u] = make_uint4(0u, 0u, 0u, 0u);
         if (key < kv_len) {
-          kv = *reinterpret_cast<const uint4*>(k_bh + (size_t)key * D + c);
-          vv = *reinterpret_cast<const uint4*>(v_bh + (size_t)key * D + c);
+          const size_t off =
+              (kPagedKV ? (size_t)__ldg(table + key / pg.page) * page_stride +
+                              (size_t)(key % pg.page) * D
+                        : (size_t)key * D) + c;
+          kc[u] = *reinterpret_cast<const uint4*>(k_bh + off);
+          vc[u] = *reinterpret_cast<const uint4*>(v_bh + off);
         }
-        *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
-        *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
       }
+      if (threadIdx.x < kBlockN) {
+        const int key = key0 + threadIdx.x;
+        float ks = 0.f, vs = 0.f;
+        if (key < kv_len) {
+          const size_t so =
+              scale_head +
+              (kPagedKV ? (size_t)__ldg(table + key / pg.page) * hkv * pg.page +
+                              key % pg.page
+                        : (size_t)key);
+          ks = qa.k_scale[so];
+          vs = qa.v_scale[so];
+        }
+        kvs_s[0][threadIdx.x] = ks;
+        kvs_s[1][threadIdx.x] = vs;
+      }
+#pragma unroll
+      for (int u = 0; u < kPieces; ++u) {
+        const int i = threadIdx.x + u * kThreads;
+        const int r = i / kPerRow;
+        const int c = (i % kPerRow) * 16;
+        widen16_bf16<KV>(kc[u], k_s + r * kStride + c);
+        widen16_bf16<KV>(vc[u], v_s + r * kStride + c);
+      }
+    } else {
+      constexpr int kVecPerRow = D / 8;
+      for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
+        const int r = i / kVecPerRow;
+        const int c = (i % kVecPerRow) * 8;
+        const int key = key0 + r;
+        if constexpr (kPagedKV) {
+          // every key row is addressed through the table, since a page may
+          // be shorter than the tile; the copies go out with cp.async, all of
+          // the tile's at once, and one wait follows the loop (with one block
+          // per SM nothing else hides a load's latency)
+          const bool live = key < kv_len;  // rows past it are zero-filled
+          const size_t off =
+              live ? (size_t)__ldg(table + key / pg.page) * page_stride +
+                         (size_t)(key % pg.page) * D
+                   : 0;
+          cp_async_16(k_s + r * kStride + c, k_bh + off + c, live);
+          cp_async_16(v_s + r * kStride + c, v_bh + off + c, live);
+        } else {
+          uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+          uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+          if (key < kv_len) {
+            kv = *reinterpret_cast<const uint4*>(k_bh + (size_t)key * D + c);
+            vv = *reinterpret_cast<const uint4*>(v_bh + (size_t)key * D + c);
+          }
+          *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
+          *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
+        }
+      }
+      if constexpr (kPagedKV) cp_async_wait_all();
     }
-    if constexpr (kPagedKV) cp_async_wait_all();
     __syncthreads();
     if (!warp_live) continue;  // uniform in the warp; both barriers were met
 
@@ -275,7 +369,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int col = key0 + nt * 8 + 2 * t + (e & 1);
         const int pos = e < 2 ? pos0 : pos1;
         const bool ok = full || (col < kv_len && (!causal || col <= pos));
-        sc[nt][e] = ok ? sc[nt][e] * scale_log2 : kNegInf;
+        // 8-bit: the key's K scale on its f32 score before the mask and max
+        const float sl = kQuant ? scale_log2 * kvs_s[0][col - key0] : scale_log2;
+        sc[nt][e] = ok ? sc[nt][e] * sl : kNegInf;
         if (e < 2) {
           tmax0 = fmaxf(tmax0, sc[nt][e]);
         } else {
@@ -322,6 +418,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         l0 += p[0] + p[1];
         l1 += p[2] + p[3];
+        if constexpr (kQuant) {  // the V scale folds into p after l
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[e] *= kvs_s[1][nt * 8 + 2 * t + (e & 1)];
+        }
         split_bf16(p[0], p[1], p_hi[kk][2 * half], p_lo[kk][2 * half]);
         split_bf16(p[2], p[3], p_hi[kk][2 * half + 1], p_lo[kk][2 * half + 1]);
       }
@@ -368,6 +468,38 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row0 < n) lse_bh[row0] = l0 == 0.f ? kNegInf : m0 * kLn2 + logf(l0);
     if (row1 < n) lse_bh[row1] = l1 == 0.f ? kNegInf : m1 * kLn2 + logf(l1);
   }
+}
+
+// The bf16 kernel of every flavour. Launch bounds with a minimum of one
+// block per SM: with the thread count alone, ptxas held the d=64 instances
+// at 128 registers and spilled.
+template <int D, int kFlavour>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int hq, int hkv, int n, int s, float scale_log2,
+                     int causal, int q_offset, const int* __restrict__ kv_lens,
+                     const int* __restrict__ q_offsets, PagedArgs pg) {
+  fwd_block<D, kFlavour>(q, k, v, o, lse, hq, hkv, n, s, scale_log2, causal,
+                         q_offset, kv_lens, q_offsets, pg, QuantArgs{});
+}
+
+// The 8-bit kernel of the ragged and paged flavours (KV = int8_t or
+// __nv_fp8_e4m3), with the same launch bounds.
+template <int D, int kFlavour, class KV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_q_kernel(const __nv_bfloat16* __restrict__ q,
+                       const KV* __restrict__ k, const KV* __restrict__ v,
+                       __nv_bfloat16* __restrict__ o, int hq, int hkv, int n,
+                       int s, float scale_log2, int causal,
+                       const int* __restrict__ kv_lens,
+                       const int* __restrict__ q_offsets, PagedArgs pg,
+                       QuantArgs qa) {
+  static_assert(kFlavour != kDense, "the dense forward reads a bf16 cache");
+  fwd_block<D, kFlavour>(q, k, v, o, nullptr, hq, hkv, n, s, scale_log2,
+                         causal, 0, kv_lens, q_offsets, pg, qa);
 }
 
 }  // namespace fkp_fwd

@@ -2,8 +2,10 @@
 // causal query offsets, O only.
 //
 // Replaces flashattention_kernel_project_tpu/ops/flash_attention.py::
-// _fwd_kernel_ragged (reached through flash_attention_ragged) for a bf16
-// cache, stable=True: chunked prefill and the prefix-cache suffix, where a
+// _fwd_kernel_ragged, stable=True, for a bf16 cache (reached through
+// flash_attention_ragged) and for an int8 or e4m3 cache with per-token
+// scales [B, Hkv, S_max, 1] (quant=True, reached through
+// flash_attention_ragged_kv_quant): chunked prefill and the prefix-cache suffix, where a
 // chunk of T queries attends a live KV cache of S_max rows of which row b
 // holds kv_lens[b]. Query i of row b sees key j iff j < kv_lens[b] and, when
 // causal, j <= i + q_offsets[b]. A row that sees no key gives zeros.
@@ -26,6 +28,7 @@
 #include "flash_fwd_core.cuh"
 
 using fkp_fwd::flash_fwd_kernel;
+using fkp_fwd::flash_fwd_q_kernel;
 using fkp_fwd::kBlockM;
 using fkp_fwd::kThreads;
 
@@ -59,4 +62,60 @@ extern "C" int fkp_flash_fwd_ragged(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <class KV>
+int launch_ragged_q(const dim3& grid, cudaStream_t st, const void* q,
+                    const void* k, const void* k_scale, const void* v,
+                    const void* v_scale, void* o, const int* lens,
+                    const int* offs, int hq, int hkv, int n, int s_max, int d,
+                    float scale_log2, int causal) {
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const KV*>(k);
+  const auto* vp = static_cast<const KV*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  const fkp_fwd::QuantArgs qa{static_cast<const float*>(k_scale),
+                              static_cast<const float*>(v_scale)};
+  if (d == 64) {
+    flash_fwd_q_kernel<64, fkp_fwd::kRagged, KV><<<grid, kThreads, 0, st>>>(
+        qp, kp, vp, op, hq, hkv, n, s_max, scale_log2, causal, lens, offs,
+        fkp_fwd::PagedArgs{}, qa);
+  } else if (d == 128) {
+    flash_fwd_q_kernel<128, fkp_fwd::kRagged, KV><<<grid, kThreads, 0, st>>>(
+        qp, kp, vp, op, hq, hkv, n, s_max, scale_log2, causal, lens, offs,
+        fkp_fwd::PagedArgs{}, qa);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q [b, hq, n, d] bf16; k/v [b, hkv, s_max, d] int8 (fp8 == 0) or e4m3
+// (fp8 == 1) and their scales [b, hkv, s_max, 1] f32, all contiguous;
+// kv_lens, q_offsets, o and scale_log2 as fkp_flash_fwd_ragged. Returns
+// cudaGetLastError() after the launch.
+extern "C" int fkp_flash_fwd_ragged_q(const void* q, const void* k,
+                                      const void* k_scale, const void* v,
+                                      const void* v_scale, void* o,
+                                      const void* kv_lens,
+                                      const void* q_offsets, int b, int hq,
+                                      int hkv, int n, int s_max, int d,
+                                      float scale_log2, int causal, int fp8,
+                                      void* stream) {
+  const dim3 grid((n + kBlockM - 1) / kBlockM, hq, b);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* lens = static_cast<const int*>(kv_lens);
+  const auto* offs = static_cast<const int*>(q_offsets);
+  if (fp8) {
+    return launch_ragged_q<__nv_fp8_e4m3>(grid, st, q, k, k_scale, v, v_scale,
+                                          o, lens, offs, hq, hkv, n, s_max, d,
+                                          scale_log2, causal);
+  }
+  return launch_ragged_q<int8_t>(grid, st, q, k, k_scale, v, v_scale, o, lens,
+                                 offs, hq, hkv, n, s_max, d, scale_log2,
+                                 causal);
 }

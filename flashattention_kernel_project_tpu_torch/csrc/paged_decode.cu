@@ -2,7 +2,10 @@
 // (sm_90a).
 //
 // Replaces both schedules of flashattention_kernel_project_tpu/ops/
-// paged_decode.py::paged_flash_decode for a bf16 pool:
+// paged_decode.py::paged_flash_decode for a bf16 pool, and both schedules
+// of paged_flash_decode_quant (_paged_gather_kernel_q and
+// _paged_decode_kernel_q) for an int8 or e4m3 pool whose per-token scales
+// lie lane-major in scale pages [n_pages, Hkv, 1, page]:
 // - _paged_gather_kernel (gather=True, the engine's path): several pages per
 //   program. Here the wrapper sizes the splits for occupancy, about two
 //   blocks per SM, as the linear decode does; the TPU sized its spans in
@@ -22,7 +25,10 @@
 // lengths[b] are never visited, so table entries past a row's pages (valid
 // ids, typically the junk page 0) cost nothing, a split past the row's
 // length loads nothing, and a row of length 0 gives zeros. Page ids may come
-// in any order.
+// in any order. The 8-bit kernel reads each key's scales through the same
+// table entry as its values; the JAX wrapper gathered the scales into a
+// linear buffer first (an XLA take) because a TPU DMA of one 512-byte scale
+// row cost more than it moved.
 
 #include "decode_core.cuh"
 
@@ -30,7 +36,8 @@ namespace {
 
 using fkp_dec::kThreads;
 
-// key j of row b lives in page table[j / page], at row j % page
+// key j of row b lives in page table[j / page], at row j % page; its
+// scales at entry j % page of the same page of the scale pool
 struct PagedRows {
   const int* table;    // block_tables[b]
   size_t page_stride;  // elements per page of the pool: hkv * page * d
@@ -39,6 +46,11 @@ struct PagedRows {
   __device__ __forceinline__ size_t offset(int key) const {
     const int pid = __ldg(table + key / page);
     return (size_t)pid * page_stride + (size_t)(key % page) * d;
+  }
+  // floats per page of a scale pool: page_stride / d = hkv * page
+  __device__ __forceinline__ size_t scale(int key) const {
+    const int pid = __ldg(table + key / page);
+    return (size_t)pid * (page_stride / d) + key % page;
   }
 };
 
@@ -69,8 +81,41 @@ __global__ void __launch_bounds__(kThreads, 1)
                        (size_t)hkv * page * D, page, D};
   fkp_dec::decode_partials<D, G>(
       q + ((size_t)b * hkv + kvh) * G * D, k_pages + head, v_pages + head,
-      rows, start, end, sm_scale, m_out + part * G, l_out + part * G,
-      y_out + part * G * D);
+      nullptr, nullptr, rows, start, end, sm_scale, m_out + part * G,
+      l_out + part * G, y_out + part * G * D);
+}
+
+// the same over an 8-bit pool (T = int8_t or __nv_fp8_e4m3) with its
+// scale pools [n_pages, hkv, 1, page]
+template <int D, int G, class T>
+__global__ void __launch_bounds__(kThreads, 1)
+    paged_decode_q_kernel(const __nv_bfloat16* __restrict__ q,
+                          const T* __restrict__ k_pages,
+                          const float* __restrict__ k_scale_pages,
+                          const T* __restrict__ v_pages,
+                          const float* __restrict__ v_scale_pages,
+                          const int* __restrict__ block_tables,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ m_out, float* __restrict__ l_out,
+                          float* __restrict__ y_out, int hkv, int page,
+                          int max_pages, int n_splits, int pages_per_split,
+                          float sm_scale) {
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int len = min(max(lengths[b], 0), max_pages * page);
+  const int span = pages_per_split * page;
+  const int start = split * span;
+  const int end = min(start + span, len);
+  const size_t part = ((size_t)b * hkv + kvh) * n_splits + split;
+  const size_t head = (size_t)kvh * page * D;
+  const size_t scale_head = (size_t)kvh * page;  // the head's scale row
+  const PagedRows rows{block_tables + (size_t)b * max_pages,
+                       (size_t)hkv * page * D, page, D};
+  fkp_dec::decode_partials<D, G>(
+      q + ((size_t)b * hkv + kvh) * G * D, k_pages + head, v_pages + head,
+      k_scale_pages + scale_head, v_scale_pages + scale_head, rows, start,
+      end, sm_scale, m_out + part * G, l_out + part * G, y_out + part * G * D);
 }
 
 }  // namespace
@@ -95,6 +140,38 @@ extern "C" int fkp_paged_decode(const void* q, const void* k_pages,
             static_cast<const __nv_bfloat16*>(q),
             static_cast<const __nv_bfloat16*>(k_pages),
             static_cast<const __nv_bfloat16*>(v_pages),
+            static_cast<const int*>(block_tables),
+            static_cast<const int*>(lengths), static_cast<float*>(m),
+            static_cast<float*>(l), static_cast<float*>(y), hkv, page,
+            max_pages, n_splits, pages_per_split, sm_scale);
+  });
+}
+
+// q [b, hq, d] bf16; k/v pages [n_pages, hkv, page, d] int8 (fp8 == 0) or
+// e4m3 (fp8 == 1) and their scale pages [n_pages, hkv, 1, page] f32, all
+// contiguous; block_tables, lengths, m, l, y and the splits as
+// fkp_paged_decode. Returns cudaGetLastError() after the launch.
+extern "C" int fkp_paged_decode_q(const void* q, const void* k_pages,
+                                  const void* k_scale_pages,
+                                  const void* v_pages,
+                                  const void* v_scale_pages,
+                                  const void* block_tables,
+                                  const void* lengths, void* m, void* l,
+                                  void* y, int b, int hq, int hkv, int page,
+                                  int d, int max_pages, int n_splits,
+                                  int pages_per_split, float sm_scale, int fp8,
+                                  void* stream) {
+  const dim3 grid(b, hkv, n_splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return fkp_dec::dispatch_8bit(d, hq / hkv, fp8, [&](auto dc, auto gc, auto tc) {
+    using T = typename decltype(tc)::type;
+    paged_decode_q_kernel<decltype(dc)::value, decltype(gc)::value, T>
+        <<<grid, kThreads, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(q),
+            static_cast<const T*>(k_pages),
+            static_cast<const float*>(k_scale_pages),
+            static_cast<const T*>(v_pages),
+            static_cast<const float*>(v_scale_pages),
             static_cast<const int*>(block_tables),
             static_cast<const int*>(lengths), static_cast<float*>(m),
             static_cast<float*>(l), static_cast<float*>(y), hkv, page,

@@ -2,7 +2,9 @@
 
 The port keeps the JAX parameter tree's names, shapes and [in, out] weight
 layout (models/transformer.py), so converting is a copy of each leaf. This
-covers `init_params` trees and `fuse_decode_params` output alike. The input
+covers `init_params` trees, `fuse_decode_params` and
+`quantize_decode_params` output alike (int8 and float8_e4m3fn leaves
+included), and the arrays of an 8-bit KV cache. The input
 is the tree with its leaves already turned into numpy arrays (for example
 jax.tree.map(np.asarray, params)), so this module needs no JAX.
 """
@@ -13,10 +15,17 @@ import numpy as np
 import torch
 
 
+# ml_dtypes' types, which numpy does not know: their bits as an unsigned
+# integer of the same width, viewed as the torch dtype
+_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+         "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def _leaf(x, device) -> torch.Tensor:
     a = np.array(x)  # a writable copy: JAX hands out read-only buffers
-    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: no numpy-native type
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    if a.dtype.name in _BITS:
+        bits, dtype = _BITS[a.dtype.name]
+        return torch.from_numpy(a.view(bits)).view(dtype).to(device)
     return torch.from_numpy(a).to(device)
 
 

@@ -1,14 +1,22 @@
 """Inference engine: linear and paged KV caches, prefill, chunked extend,
 decode, generation, speculative decoding.
 
-Counterpart of flashattention_kernel_project_tpu/models/engine.py for
-full-precision caches: prefill runs attention through ops.flash_attention,
-`extend` (chunked prefill against a live cache) through
-ops.flash_attention.flash_attention_ragged, `extend_paged` through
-ops.paged_decode.paged_flash_extend, decode through ops.flash_decode over
-the linear cache and ops.paged_decode over the page pool.
-`speculative_generate` drafts with a small model's decode steps and
+Counterpart of flashattention_kernel_project_tpu/models/engine.py:
+prefill runs attention through ops.flash_attention, `extend` (chunked
+prefill against a live cache) through ops.flash_attention's ragged forward,
+`extend_paged` through ops.paged_decode.paged_flash_extend, decode through
+ops.flash_decode over the linear cache and ops.paged_decode over the page
+pool. `speculative_generate` drafts with a small model's decode steps and
 verifies with one multi-token target `extend` a round.
+
+Caches are full precision or 8-bit (int8 or e4m3, `quantized=True`,
+`quant_fmt`) with one float32 scale per token and KV head for K and one
+for V: half the bytes, so twice the tokens in the same memory. An 8-bit
+cache is written through the per-token quantizers of ops.quant (prefill
+attends its fresh full-precision K/V, then quantizes them) and read by the
+attention kernels' 8-bit forms, which dequantize inside the kernel.
+`quantize_decode_params` makes 8-bit weight-only decode parameters, which
+the projections multiply by as widened bf16, outside any kernel.
 
 Unlike the JAX engine, whose functions return a new cache, the port updates
 the cache IN PLACE: `prefill`, `extend`, `extend_paged`, `decode_step`,
@@ -30,13 +38,24 @@ from flashattention_kernel_project_tpu_torch.models import transformer as tfm
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_ragged,
+    flash_attention_ragged_kv_quant,
 )
-from flashattention_kernel_project_tpu_torch.ops.flash_decode import flash_decode
+from flashattention_kernel_project_tpu_torch.ops.flash_decode import (
+    flash_decode,
+    flash_decode_int8,
+)
 from flashattention_kernel_project_tpu_torch.ops.paged_decode import (
     paged_append,
     paged_append_chunk,
+    paged_append_chunk_quant,
+    paged_append_quant,
     paged_flash_decode,
+    paged_flash_decode_quant,
     paged_flash_extend,
+)
+from flashattention_kernel_project_tpu_torch.ops.quant import (
+    cache_dtype,
+    quantizer_for,
 )
 
 
@@ -44,13 +63,22 @@ from flashattention_kernel_project_tpu_torch.ops.paged_decode import (
 class KVCache:
     """KV cache as per-layer buffers.
 
-    k, v: lists of L tensors [B, Hkv, S_max, D] in the model dtype
+    k, v: lists of L tensors [B, Hkv, S_max, D] in the model dtype, or
+        int8 / float8_e4m3fn for an 8-bit cache
     lengths: [B] int32 on the same device, the valid tokens per slot
+    k_scale, v_scale: lists of L tensors [B, Hkv, S_max, 1] float32, the
+        per-token scales of an 8-bit cache (None otherwise)
     """
 
     k: list
     v: list
     lengths: torch.Tensor
+    k_scale: list | None = None
+    v_scale: list | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k[0].element_size() == 1
 
 
 def init_cache(
@@ -60,16 +88,28 @@ def init_cache(
     device,
     *,
     quantized: bool = False,
+    quant_fmt: str = "int8",
 ) -> KVCache:
-    """Allocate a zeroed linear KV cache on `device`."""
-    if quantized:
-        raise NotImplementedError("8-bit KV caches are ROADMAP item A.7")
+    """Allocate a zeroed linear KV cache on `device`. quantized=True stores
+    8-bit values (quant_fmt "int8" or "fp8", e4m3) and per-token scales:
+    half the bytes of bf16, chosen for capacity."""
     shape = (batch, cfg.n_kv_heads, max_len, cfg.d_head)
     L = cfg.n_layers
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if quantized:
+        qdt = cache_dtype(quant_fmt)
+        s_shape = shape[:-1] + (1,)
+        return KVCache(
+            k=[torch.zeros(shape, dtype=qdt, device=device) for _ in range(L)],
+            v=[torch.zeros(shape, dtype=qdt, device=device) for _ in range(L)],
+            lengths=lengths,
+            k_scale=[torch.zeros(s_shape, device=device) for _ in range(L)],
+            v_scale=[torch.zeros(s_shape, device=device) for _ in range(L)],
+        )
     return KVCache(
         k=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(L)],
         v=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(L)],
-        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        lengths=lengths,
     )
 
 
@@ -78,13 +118,35 @@ def _write_tokens(cache_layer, new, lengths):
     lengths[b] .. lengths[b] + T - 1 of each slot, in place. A start past
     S - T clamps to S - T (as dynamic_update_slice does), so a retired slot
     riding the batch with a growing length never writes past the buffer."""
-    b, _, s, _ = cache_layer.shape
-    t = new.shape[2]
+    _write_rows((cache_layer,), (new,), lengths)
+
+
+def _write_rows(cache_layers, news, lengths):
+    """_write_tokens of each new [B, Hkv, T, D] (values, or [B, Hkv, T, 1]
+    scales) into its cache layer, the row index computed once for all."""
+    b, _, s, _ = cache_layers[0].shape
+    t = news[0].shape[2]
     start = lengths.long().clamp(0, s - t)
-    pos = start[:, None] + torch.arange(t, device=new.device)[None, :]
-    slots = torch.arange(b, device=new.device)[:, None]
-    # advanced indices on dims 0 and 2 put [B, T] first: value [B, T, Hkv, D]
-    cache_layer[slots, :, pos] = new.transpose(1, 2).to(cache_layer.dtype)
+    pos = start[:, None] + torch.arange(t, device=lengths.device)[None, :]
+    slots = torch.arange(b, device=lengths.device)[:, None]
+    for layer, new in zip(cache_layers, news):
+        # advanced indices on dims 0 and 2 put [B, T] first: [B, T, Hkv, D]
+        layer[slots, :, pos] = new.transpose(1, 2).to(layer.dtype)
+
+
+def _quantize_and_write(cache: KVCache, i: int, k_new, v_new, lengths):
+    """Write layer i's new K/V [B, Hkv, T, D] at `lengths` (as
+    _write_tokens), quantizing them per token and head first when the cache
+    is 8-bit: the values into k/v, the scales into k_scale/v_scale. K and V
+    go through one quantizer call and one index (the decode loop is bound
+    by the host's per-op cost)."""
+    if not cache.quantized:
+        _write_rows((cache.k[i], cache.v[i]), (k_new, v_new), lengths)
+        return
+    vals, scales = quantizer_for(cache.k[i].dtype)(
+        torch.stack((k_new, v_new)), axis=-1)
+    _write_rows((cache.k[i], cache.v[i], cache.k_scale[i], cache.v_scale[i]),
+                (vals[0], vals[1], scales[0], scales[1]), lengths)
 
 
 def prefill(cfg, params, tokens, cache: KVCache):
@@ -93,7 +155,8 @@ def prefill(cfg, params, tokens, cache: KVCache):
     Returns (last-position logits [B, vocab] float32, cache).
 
     Assumes the prefilled slots are empty (lengths == 0): attention here
-    only sees the prompt itself."""
+    only sees the prompt itself, in full precision; an 8-bit cache receives
+    the quantized rows afterwards."""
     tfm._dense_only(cfg)
     b, t = tokens.shape
     x = params["embed"][tokens]
@@ -117,8 +180,7 @@ def prefill(cfg, params, tokens, cache: KVCache):
         )
         x = x + o.transpose(1, 2).reshape(b, t, cfg.q_dim) @ layer["wo"]
         x = _mlp(layer, x)
-        _write_tokens(cache.k[i], kt, cache.lengths)
-        _write_tokens(cache.v[i], vt, cache.lengths)
+        _quantize_and_write(cache, i, kt, vt, cache.lengths)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths += t
     return tfm.logits_f32(x[:, -1], params["embed"]), cache
@@ -144,21 +206,53 @@ def fuse_decode_params(cfg: tfm.TransformerConfig, params: dict) -> dict:
     }
 
 
+def quantize_decode_params(cfg: tfm.TransformerConfig, params: dict,
+                           fmt: str = "int8") -> dict:
+    """8-bit weight-only decode parameters, from fuse_decode_params' output:
+    each of wqkv, wo, w_gate_up and w_down [L, K, N] becomes name_q (int8,
+    or e4m3 for fmt "fp8") and name_s [L, 1, N] float32, one scale per
+    output column; the lm_head becomes lm_head_q [vocab, D] and lm_head_s
+    [vocab, 1], one per vocabulary row. The embedding gather and the norms
+    stay full precision. At decode's small batch the weights are the bytes
+    a step reads, so this halves them."""
+    quantizer = quantizer_for(cache_dtype(fmt))
+    L = params["layers"]
+    layers = {"rms_attn": L["rms_attn"], "rms_mlp": L["rms_mlp"]}
+    for name in ("wqkv", "wo", "w_gate_up", "w_down"):
+        # per output column of each layer's [K, N] matrix
+        layers[name + "_q"], layers[name + "_s"] = quantizer(L[name], axis=1)
+    head_q, head_s = quantizer(params["embed"], axis=-1)
+    return {
+        "embed": params["embed"],
+        "lm_head_q": head_q,
+        "lm_head_s": head_s,
+        "rms_final": params["rms_final"],
+        "layers": layers,
+    }
+
+
 def _proj(x, layer, name):
-    """x [B, T, K] @ layer weight `name` [K, N] (full precision; the 8-bit
-    weight path is ROADMAP item A.7)."""
+    """x [B, T, K] @ layer weight `name` [K, N]. 8-bit weights (name_q,
+    name_s) multiply as x @ w_q widened to x's dtype, then by the column
+    scales, as in the JAX engine (no kernel: the widening is exact)."""
+    if name + "_q" in layer:
+        o = x @ layer[name + "_q"].to(x.dtype)
+        return (o * layer[name + "_s"]).to(x.dtype)
     return x @ layer[name]
 
 
 def _lm_head(params, x):
-    """Logits x [B, D] -> [B, vocab], float32 products, sums and output."""
+    """Logits x [B, D] -> [B, vocab], float32 products, sums and output
+    (an 8-bit head: times its row scales)."""
+    if "lm_head_q" in params:
+        return tfm.logits_f32(x, params["lm_head_q"]) * params["lm_head_s"][:, 0]
     return tfm.logits_f32(x, params["embed"])
 
 
 def _qkv(cfg, layer, h, b, t):
     """Project h -> (q, k, v) [B, T, heads, d_head] with the fused or the
     split weights."""
-    if "wqkv" in layer:
+    if "wqkv" in layer or "wqkv_q" in layer:
         qd, kvd = cfg.q_dim, cfg.kv_dim
         qkv = _proj(h, layer, "wqkv")
         q = qkv[..., :qd].reshape(b, t, cfg.n_heads, cfg.d_head)
@@ -172,7 +266,7 @@ def _qkv(cfg, layer, h, b, t):
 
 
 def _mlp(layer, x):
-    if "w_gate_up" in layer:
+    if "w_gate_up" in layer or "w_gate_up_q" in layer:
         h = tfm.rms_norm(x, layer["rms_mlp"])
         gu = _proj(h, layer, "w_gate_up")
         f = gu.shape[-1] // 2
@@ -184,7 +278,8 @@ def _mlp(layer, x):
 def decode_step(cfg, params, tokens, cache: KVCache, *, n_splits=None):
     """One decode step: tokens [B] -> (logits [B, vocab] float32, cache).
     Appends each slot's K/V row at its length and advances the lengths by
-    one, in place. `params` may be fused (fuse_decode_params) or split."""
+    one, in place. `params` may be fused (fuse_decode_params), 8-bit
+    (quantize_decode_params) or split."""
     tfm._dense_only(cfg)
     b = tokens.shape[0]
     x = params["embed"][tokens][:, None]  # [B, 1, D]
@@ -196,13 +291,17 @@ def decode_step(cfg, params, tokens, cache: KVCache, *, n_splits=None):
         q, k, v = _qkv(cfg, layer, h, b, 1)
         q = tfm.apply_rope(q, sin, cos)
         k = tfm.apply_rope(k, sin, cos)
-        _write_tokens(cache.k[i], k.transpose(1, 2), cache.lengths)
-        _write_tokens(cache.v[i], v.transpose(1, 2), cache.lengths)
-        o = flash_decode(
-            q.reshape(b, cfg.n_heads, cfg.d_head).to(cfg.dtype),
-            cache.k[i], cache.v[i], new_lengths,
-            n_splits=n_splits, window=cfg.attn_window, sinks=cfg.attn_sinks,
-        )
+        _quantize_and_write(cache, i, k.transpose(1, 2), v.transpose(1, 2),
+                            cache.lengths)
+        q_dec = q.reshape(b, cfg.n_heads, cfg.d_head).to(cfg.dtype)
+        kw = dict(n_splits=n_splits, window=cfg.attn_window,
+                  sinks=cfg.attn_sinks)
+        if cache.quantized:
+            o = flash_decode_int8(q_dec, cache.k[i], cache.k_scale[i],
+                                  cache.v[i], cache.v_scale[i], new_lengths,
+                                  **kw)
+        else:
+            o = flash_decode(q_dec, cache.k[i], cache.v[i], new_lengths, **kw)
         x = x + _proj(o.reshape(b, 1, cfg.q_dim), layer, "wo")
         x = _mlp(layer, x)
     x = tfm.rms_norm(x, params["rms_final"])
@@ -250,7 +349,9 @@ def extend(
     the per-slot KV bound keeps the padded tail invisible (later appends
     overwrite it), and the logits are taken at each slot's last real
     position n[b] - 1. The padded tail is still written, so the cache needs
-    T rows of room past each slot's length."""
+    T rows of room past each slot's length (an 8-bit cache's tail scales
+    too, equally invisible). An 8-bit cache is read by the 8-bit ragged
+    kernel, which dequantizes as it loads."""
     tfm._dense_only(cfg)
     b, t = tokens.shape
     x = params["embed"][tokens]
@@ -265,14 +366,18 @@ def extend(
         q, k, v = _qkv(cfg, layer, h, b, t)
         q = tfm.apply_rope(q, sin, cos)
         k = tfm.apply_rope(k, sin, cos)
-        _write_tokens(cache.k[i], k.transpose(1, 2), old_lengths)
-        _write_tokens(cache.v[i], v.transpose(1, 2), old_lengths)
-        o = flash_attention_ragged(
-            q.transpose(1, 2).contiguous().to(cfg.dtype),
-            cache.k[i], cache.v[i], new_lengths, old_lengths,
-            causal=True, stable=cfg.attn_stable, window=cfg.attn_window,
-            sinks=cfg.attn_sinks,
-        )
+        _quantize_and_write(cache, i, k.transpose(1, 2), v.transpose(1, 2),
+                            old_lengths)
+        qh = q.transpose(1, 2).contiguous().to(cfg.dtype)
+        kw = dict(causal=True, stable=cfg.attn_stable, window=cfg.attn_window,
+                  sinks=cfg.attn_sinks)
+        if cache.quantized:
+            o = flash_attention_ragged_kv_quant(
+                qh, cache.k[i], cache.k_scale[i], cache.v[i], cache.v_scale[i],
+                new_lengths, old_lengths, **kw)
+        else:
+            o = flash_attention_ragged(qh, cache.k[i], cache.v[i], new_lengths,
+                                       old_lengths, **kw)
         x = x + _proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer, "wo")
         x = _mlp(layer, x)
     x = tfm.rms_norm(x, params["rms_final"])
@@ -289,17 +394,23 @@ def extend(
 
 def generate(
     cfg, params, prompt, *, max_new_tokens: int = 32, max_len: int | None = None,
-    n_splits=None, temperature: float = 0.0,
+    quantized_cache: bool = False, quant_fmt: str = "int8",
+    int8_weights: bool = False, n_splits=None, temperature: float = 0.0,
     top_k: int | None = None, top_p: float | None = None,
     generator: torch.Generator | None = None,
 ):
     """Greedy (or sampled, with temperature and a generator) generation.
-    prompt [B, T] -> [B, T + max_new_tokens] int32."""
+    prompt [B, T] -> [B, T + max_new_tokens] int32. quantized_cache decodes
+    from an 8-bit cache of quant_fmt ("int8" or "fp8"); int8_weights decodes
+    with int8 weight-only parameters (quantize_decode_params)."""
     b, t = prompt.shape
     max_len = max_len or (t + max_new_tokens)
-    cache = init_cache(cfg, b, max_len, prompt.device)
+    cache = init_cache(cfg, b, max_len, prompt.device,
+                       quantized=quantized_cache, quant_fmt=quant_fmt)
     logits, cache = prefill(cfg, params, prompt, cache)
     dec_params = fuse_decode_params(cfg, params)
+    if int8_weights:
+        dec_params = quantize_decode_params(cfg, dec_params)
     cur = _sample(logits, temperature, generator, top_k, top_p)
     parts = [prompt.to(torch.int32), cur[:, None]]
     if max_new_tokens > 1:
@@ -355,20 +466,30 @@ class PagedKVCache:
     """KV cache as per-layer page pools.
 
     k_pages, v_pages: lists of L tensors [n_pages, Hkv, page, D] in the
-        model dtype (page 0 is the junk page)
+        model dtype, or int8 / float8_e4m3fn for an 8-bit pool (page 0 is
+        the junk page)
     block_tables: [B, max_pages] int32, each slot's page ids in order
         (shared by the layers: a page id names the same page in every pool)
     lengths: [B] int32, the valid tokens per slot
+    k_scale_pages, v_scale_pages: lists of L tensors [n_pages, Hkv, 1,
+        page] float32, an 8-bit pool's per-token scales, lane-major as in
+        the JAX package (None otherwise)
     """
 
     k_pages: list
     v_pages: list
     block_tables: torch.Tensor
     lengths: torch.Tensor
+    k_scale_pages: list | None = None
+    v_scale_pages: list | None = None
 
     @property
     def page_size(self) -> int:
         return self.k_pages[0].shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_pages[0].element_size() == 1
 
 
 def init_paged_cache(
@@ -380,19 +501,27 @@ def init_paged_cache(
     page_size: int = 128,
     max_pages_per_seq: int = 16,
     quantized: bool = False,
+    quant_fmt: str = "int8",
 ) -> PagedKVCache:
-    """Allocate a zeroed page pool with all-zero block tables on `device`."""
-    if quantized:
-        raise NotImplementedError("8-bit page pools are ROADMAP item A.7")
+    """Allocate a zeroed page pool with all-zero block tables on `device`.
+    quantized=True stores 8-bit pages (quant_fmt "int8" or "fp8") and
+    lane-major scale pages: half the bytes, twice the pages in the same
+    memory."""
     shape = (n_pages, cfg.n_kv_heads, page_size, cfg.d_head)
     L = cfg.n_layers
-    return PagedKVCache(
-        k_pages=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(L)],
-        v_pages=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(L)],
+    dtype = cache_dtype(quant_fmt) if quantized else cfg.dtype
+    cache = PagedKVCache(
+        k_pages=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(L)],
+        v_pages=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(L)],
         block_tables=torch.zeros((batch, max_pages_per_seq), dtype=torch.int32,
                                  device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
+    if quantized:
+        s_shape = (n_pages, cfg.n_kv_heads, 1, page_size)
+        cache.k_scale_pages = [torch.zeros(s_shape, device=device) for _ in range(L)]
+        cache.v_scale_pages = [torch.zeros(s_shape, device=device) for _ in range(L)]
+    return cache
 
 
 def paged_insert(
@@ -405,8 +534,9 @@ def paged_insert(
     [Hkv, >= length, D]. Pages start_page .. ceil(length / page) - 1 are
     written whole (rows past `length` zeroed, as the JAX package's page
     scatter does); the first start_page pages are shared prefix-cache
-    pages that already hold this content and are left alone. Returns the
-    cache."""
+    pages that already hold this content and are left alone. An 8-bit pool
+    gets the rows quantized per token (only the rows it writes), their
+    scales in the scale pages, zero past `length`. Returns the cache."""
     page = cache.page_size
     n_full = -(-int(length) // page)
     device = cache.block_tables.device
@@ -419,12 +549,21 @@ def paged_insert(
         return cache
     ids = row[start_page:n_full].long()
     lo, hi = start_page * page, int(length)
-    for pages, seqs in ((cache.k_pages, k_seq), (cache.v_pages, v_seq)):
-        for pool, seq in zip(pages, seqs):
+    n_rows = (n_full - start_page) * page
+    quant = cache.quantized
+    for pages, spages, seqs in (
+            (cache.k_pages, cache.k_scale_pages, k_seq),
+            (cache.v_pages, cache.v_scale_pages, v_seq)):
+        for li, (pool, seq) in enumerate(zip(pages, seqs)):
             hkv, _, d = seq.shape
-            blocks = torch.zeros((hkv, (n_full - start_page) * page, d),
-                                 dtype=pool.dtype, device=device)
-            blocks[:, : hi - lo] = seq[:, lo:hi]
+            rows = seq[:, lo:hi]
+            if quant:
+                rows, scales = quantizer_for(pool.dtype)(rows, axis=-1)
+                sblocks = torch.zeros((hkv, n_rows), device=device)
+                sblocks[:, : hi - lo] = scales[..., 0]
+                spages[li][ids] = sblocks.view(hkv, -1, page).transpose(0, 1)[:, :, None]
+            blocks = torch.zeros((hkv, n_rows, d), dtype=pool.dtype, device=device)
+            blocks[:, : hi - lo] = rows
             pool[ids] = blocks.view(hkv, -1, page, d).transpose(0, 1)
     return cache
 
@@ -436,14 +575,20 @@ def cache_from_pages(
     """A batch-1 linear cache of max_len rows whose first s rows are the
     content of the given (full) pages, with length s: the prefix-cache
     gather that lets a request skip the prefill of a shared prompt prefix
-    and extend only its suffix."""
+    and extend only its suffix. An 8-bit pool is dequantized into the
+    (full-precision) linear rows, so the suffix attends what decode
+    attends."""
     device = cache.lengths.device
     ids = torch.as_tensor(list(page_ids), dtype=torch.long).to(device)
     out = init_cache(cfg, 1, max_len, device)
-    for pools, rows in ((cache.k_pages, out.k), (cache.v_pages, out.v)):
-        for pool, lin in zip(pools, rows):
+    for pools, spools, rows in ((cache.k_pages, cache.k_scale_pages, out.k),
+                                (cache.v_pages, cache.v_scale_pages, out.v)):
+        for li, (pool, lin) in enumerate(zip(pools, rows)):
             hkv, d = pool.shape[1], pool.shape[3]
-            lin[0, :, :s] = pool[ids].transpose(0, 1).reshape(hkv, -1, d)[:, :s]
+            got = pool[ids]  # [ns, Hkv, page, D]
+            if cache.quantized:  # lane-major scales [ns, Hkv, 1, page]
+                got = got.float() * spools[li][ids].transpose(-1, -2)
+            lin[0, :, :s] = got.transpose(0, 1).reshape(hkv, -1, d)[:, :s]
     out.lengths.fill_(s)
     return out
 
@@ -452,7 +597,9 @@ def decode_step_paged(cfg, params, tokens, cache: PagedKVCache):
     """One decode step against the paged cache: tokens [B] -> (logits
     [B, vocab] float32, cache). Appends each slot's K/V row into its current
     page and advances the lengths by one, in place; a slot of length 0 gets
-    zero attention output. `params` may be fused or split."""
+    zero attention output. `params` may be fused, 8-bit or split. An 8-bit
+    pool quantizes each appended token and decodes through the 8-bit
+    paged kernel."""
     tfm._dense_only(cfg)
     b = tokens.shape[0]
     x = params["embed"][tokens][:, None]  # [B, 1, D]
@@ -464,13 +611,19 @@ def decode_step_paged(cfg, params, tokens, cache: PagedKVCache):
         q, k, v = _qkv(cfg, layer, h, b, 1)
         q = tfm.apply_rope(q, sin, cos)
         k = tfm.apply_rope(k, sin, cos)
-        paged_append(cache.k_pages[i], cache.v_pages[i], k[:, 0], v[:, 0],
-                     cache.block_tables, cache.lengths)
-        o = paged_flash_decode(
-            q.reshape(b, cfg.n_heads, cfg.d_head).to(cfg.dtype),
-            cache.k_pages[i], cache.v_pages[i], cache.block_tables,
-            new_lengths,
-        )
+        q_dec = q.reshape(b, cfg.n_heads, cfg.d_head).to(cfg.dtype)
+        if cache.quantized:
+            pools = (cache.k_pages[i], cache.k_scale_pages[i],
+                     cache.v_pages[i], cache.v_scale_pages[i])
+            paged_append_quant(*pools, k[:, 0], v[:, 0], cache.block_tables,
+                               cache.lengths)
+            o = paged_flash_decode_quant(q_dec, *pools, cache.block_tables,
+                                         new_lengths)
+        else:
+            paged_append(cache.k_pages[i], cache.v_pages[i], k[:, 0], v[:, 0],
+                         cache.block_tables, cache.lengths)
+            o = paged_flash_decode(q_dec, cache.k_pages[i], cache.v_pages[i],
+                                   cache.block_tables, new_lengths)
         x = x + _proj(o.reshape(b, 1, cfg.q_dim), layer, "wo")
         x = _mlp(layer, x)
     x = tfm.rms_norm(x, params["rms_final"])
@@ -499,11 +652,9 @@ def extend_paged(cfg, params, tokens, cache: PagedKVCache):
     paged_flash_extend scores every chunk position. Each slot must own the
     pages for T more tokens (the Scheduler's reserve rows see to it). The
     lengths advance on the device, with no host sync. `params` may be fused
-    or split."""
+    or split. An 8-bit pool quantizes the chunk per token as it appends it
+    (paged_append_chunk_quant) and scores it through the 8-bit kernel."""
     tfm._dense_only(cfg)
-    pool = cache.k_pages[0]
-    if not pool.is_floating_point() or pool.element_size() < 2:
-        raise NotImplementedError("extend_paged: 8-bit page pools are ROADMAP item A.7")
     b, t = tokens.shape
     x = params["embed"][tokens]
     old_lengths = cache.lengths.clone()
@@ -517,13 +668,20 @@ def extend_paged(cfg, params, tokens, cache: PagedKVCache):
         q, k, v = _qkv(cfg, layer, h, b, t)
         q = tfm.apply_rope(q, sin, cos)
         k = tfm.apply_rope(k, sin, cos)
-        paged_append_chunk(cache.k_pages[i], cache.v_pages[i], k, v,
-                           cache.block_tables, old_lengths)
-        o = paged_flash_extend(
-            q.transpose(1, 2).contiguous().to(cfg.dtype),
-            cache.k_pages[i], cache.v_pages[i], cache.block_tables,
-            new_lengths, old_lengths,
-        )  # [B, Hq, T, D]
+        qh = q.transpose(1, 2).contiguous().to(cfg.dtype)
+        if cache.quantized:
+            pools = (cache.k_pages[i], cache.k_scale_pages[i],
+                     cache.v_pages[i], cache.v_scale_pages[i])
+            paged_append_chunk_quant(*pools, k, v, cache.block_tables,
+                                     old_lengths)
+            scales = dict(k_scale_pages=pools[1], v_scale_pages=pools[3])
+        else:
+            paged_append_chunk(cache.k_pages[i], cache.v_pages[i], k, v,
+                               cache.block_tables, old_lengths)
+            scales = {}
+        o = paged_flash_extend(qh, cache.k_pages[i], cache.v_pages[i],
+                               cache.block_tables, new_lengths, old_lengths,
+                               **scales)  # [B, Hq, T, D]
         x = x + _proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer, "wo")
         x = _mlp(layer, x)
     x = tfm.rms_norm(x, params["rms_final"])

@@ -26,10 +26,16 @@ Modes, as in the JAX Scheduler:
   paged): each round the draft proposes spec_k tokens from its own linear
   cache and the target verifies them in one multi-token extend (`extend`
   or `extend_paged`); greedy slots commit exactly the target's greedy
-  tokens, sampled slots go through the rejection rule.
+  tokens, sampled slots go through the rejection rule;
+- `quantized_cache`, with any of the above: the batch cache (linear or
+  paged) is int8 with per-token scales, half the bytes of bf16. A linear
+  cache's batch-1 prefill cache is int8 too and the splice carries its
+  scales; a paged Scheduler prefills in full precision and the page
+  scatter quantizes; a prefix hit dequantizes the shared pages into the
+  suffix's linear cache. The draft keeps its full-precision cache.
 
-The JAX Scheduler's remaining modes (8-bit caches, meshes) raise
-NotImplementedError naming the ROADMAP item that brings them.
+The JAX Scheduler's remaining modes (meshes) raise NotImplementedError
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -118,7 +124,6 @@ def _host_filtered_probs(z, t, top_k, top_p):
 
 # mode -> the ROADMAP.md item that brings it to the port
 _NOT_PORTED = {
-    "quantized_cache": "A.7 (8-bit KV caches)",
     "mesh": "A.9 (multi-device)",
     "seq_mesh": "A.9 (multi-device)",
 }
@@ -158,10 +163,7 @@ class Scheduler:
         top_p: float | None = None,
         generator: torch.Generator | None = None,
     ):
-        requested = dict(
-            quantized_cache=quantized_cache, mesh=mesh is not None,
-            seq_mesh=seq_mesh is not None,
-        )
+        requested = dict(mesh=mesh is not None, seq_mesh=seq_mesh is not None)
         for mode, on in requested.items():
             if on:
                 raise NotImplementedError(
@@ -190,6 +192,7 @@ class Scheduler:
         self.paged = paged
         self.prefix_cache = prefix_cache
         self.multi_step = multi_step
+        self.quantized_cache = quantized_cache
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
@@ -211,6 +214,7 @@ class Scheduler:
             self.cache = engine.init_paged_cache(
                 cfg, max_batch, self._n_pages, self.device,
                 page_size=page_size, max_pages_per_seq=self._pages_per_seq,
+                quantized=quantized_cache,
             )
             self._pool = PagePool(self._n_pages)
             self._slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
@@ -223,7 +227,8 @@ class Scheduler:
             self.prefix_hits = 0  # inserts that reused resident pages
             self._decode = functools.partial(engine.decode_step_paged, cfg)
         else:
-            self.cache = engine.init_cache(cfg, max_batch, max_len, self.device)
+            self.cache = engine.init_cache(cfg, max_batch, max_len, self.device,
+                                           quantized=quantized_cache)
             self._decode = functools.partial(
                 engine.decode_step, cfg, n_splits=n_splits
             )
@@ -370,7 +375,7 @@ class Scheduler:
         else:
             prompt = np.zeros((1, tb), np.int32)
             prompt[0, :t] = req.prompt
-            cache1 = engine.init_cache(self.cfg, 1, tb, self.device)
+            cache1 = self._init_cache1(tb)
             logits, cache1 = with_retries(
                 engine.prefill, self.cfg, self.params,
                 torch.from_numpy(prompt).to(self.device), cache1,
@@ -405,16 +410,26 @@ class Scheduler:
         req.t_first_token = time.perf_counter()
         self._on_token(slot, first)
 
+    def _init_cache1(self, rows: int) -> engine.KVCache:
+        """A batch-1 prefill cache of `rows` rows: 8-bit over a linear 8-bit
+        batch cache (the splice copies values and scales); full precision
+        over a page pool, whose page scatter quantizes."""
+        return engine.init_cache(self.cfg, 1, rows, self.device,
+                                 quantized=self.quantized_cache and not self.paged)
+
     def _splice_linear(self, slot: int, cache1: engine.KVCache, tb: int, t: int,
                        into: engine.KVCache | None = None):
         """Copy the batch-1 cache's rows [0, tb) into the batch cache at
         `slot` (in place; `into` another linear cache, the draft's) and set
-        the slot's length to t."""
+        the slot's length to t. An 8-bit cache's scales go with them."""
         target = self.cache if into is None else into
-        for big, small in zip(target.k, cache1.k):
-            big[slot, :, :tb] = small[0, :, :tb]
-        for big, small in zip(target.v, cache1.v):
-            big[slot, :, :tb] = small[0, :, :tb]
+        pairs = [(target.k, cache1.k), (target.v, cache1.v)]
+        if target.quantized:
+            pairs += [(target.k_scale, cache1.k_scale),
+                      (target.v_scale, cache1.v_scale)]
+        for bigs, smalls in pairs:
+            for big, small in zip(bigs, smalls):
+                big[slot, :, :tb] = small[0, :, :tb]
         target.lengths[slot] = t
 
     def _match_prefix(self, prompt: np.ndarray):
@@ -487,7 +502,7 @@ class Scheduler:
                                              prefix_pages, s, tb + c)
         else:
             s = 0
-            cache1 = engine.init_cache(self.cfg, 1, tb + c, self.device)
+            cache1 = self._init_cache1(tb + c)
         logits = None
         for j0 in range(s, t, c):
             nj = min(c, t - j0)

@@ -3,13 +3,16 @@ forward against a live cache.
 
 Counterpart of flashattention_kernel_project_tpu/ops/flash_attention.py
 (`flash_attention`, `flash_attention_with_lse`, `_fwd`, `_bwd_pallas` and
-the custom_vjp around them, `flash_attention_ragged`), in the stable=True
-discipline. On a CUDA tensor `_fwd` launches the hand-written Hopper kernel
-in csrc/flash_fwd.cu, `_fwd_ragged` the one in csrc/flash_fwd_ragged.cu and
-`_bwd` the two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a CPU
-tensor they run `_fwd_plain`, `_fwd_ragged_plain` and `_bwd_plain`, the same
-functions in plain PyTorch, which the CPU tests hold against the JAX
-kernels and chip_smoke.py holds the CUDA kernels against.
+the custom_vjp around them, `flash_attention_ragged`,
+`flash_attention_ragged_kv_quant`), in the stable=True discipline. On a
+CUDA tensor `_fwd` launches the hand-written Hopper kernel in
+csrc/flash_fwd.cu, `_fwd_ragged` the one in csrc/flash_fwd_ragged.cu (a
+bf16 cache) and `flash_attention_ragged_kv_quant` its 8-bit kernel there,
+and `_bwd` the two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a
+CPU tensor they run `_fwd_plain`, `_fwd_ragged_plain` (over the dequantized
+cache for 8 bits) and `_bwd_plain`, the same functions in plain PyTorch,
+which the CPU tests hold against the JAX kernels and chip_smoke.py holds
+the CUDA kernels against.
 
 Layouts follow the JAX package: q [B, Hq, N, D], k/v [B, Hkv, S, D],
 O [B, Hq, N, D] in q's dtype, LSE [B, Hq, N] float32 in natural log.
@@ -24,6 +27,7 @@ import math
 import torch
 
 from flashattention_kernel_project_tpu_torch.ops import _build
+from flashattention_kernel_project_tpu_torch.ops.quant import check_8bit_cache
 from flashattention_kernel_project_tpu_torch.ops.softmax import _LOG2E, NEG_INF
 
 _LN2 = 0.6931471805599453
@@ -371,6 +375,19 @@ def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale):
     return o
 
 
+def _ragged_unsupported(name, stable, window, sinks):
+    """The ragged forward's options still to port (ROADMAP item A.1);
+    stable="auto" is the online path, as in the JAX package, whose ragged
+    kernel has no hybrid."""
+    if stable != "auto" and stable is not True:
+        raise NotImplementedError(
+            f"{name}: only stable=True is ported; the fixed-max discipline is "
+            "ROADMAP item A.1"
+        )
+    if window is not None or sinks:
+        raise NotImplementedError(f"{name}: window/sinks are ROADMAP item A.1")
+
+
 def flash_attention_ragged(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -395,25 +412,94 @@ def flash_attention_ragged(
     dtype. stable="auto" is the online path, as in the JAX package, whose
     ragged kernel has no hybrid.
     """
-    if stable == "auto":
-        stable = True
-    if stable is not True:
-        raise NotImplementedError(
-            "flash_attention_ragged: only stable=True is ported; the "
-            "fixed-max discipline is ROADMAP item A.1"
-        )
-    if window is not None or sinks:
-        raise NotImplementedError(
-            "flash_attention_ragged: window/sinks are ROADMAP item A.1"
-        )
+    _ragged_unsupported("flash_attention_ragged", stable, window, sinks)
     return _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale)
 
 
 flash_attention_ragged.launches = 0  # kernel launches, for showing that a path ran the kernel
 
 
-def flash_attention_ragged_kv_quant(*args, **kwargs):
-    """The ragged forward over an 8-bit cache: not ported yet."""
-    raise NotImplementedError(
-        "flash_attention_ragged_kv_quant: 8-bit KV caches are ROADMAP item A.7"
+def _fwd_ragged_q_plain(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
+                       causal, sm_scale):
+    """The 8-bit ragged forward in plain PyTorch: the cache dequantized to
+    float32 (values times their per-token scales), then `_fwd_ragged_plain`."""
+    return _fwd_ragged_plain(q, k_q.float() * k_scale, v_q.float() * v_scale,
+                             kv_lens, q_offsets, causal, sm_scale)
+
+
+@functools.cache
+def _ragged_kernel_q():
+    """fkp_flash_fwd_ragged_q: q, k, k_scale, v, v_scale, o, kv_lens,
+    q_offsets, then (b, hq, hkv, n, s_max, d), a float scale, causal, fp8
+    and the stream."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_flash_fwd_ragged_q",
+                         [vp] * 8 + [i32] * 6 + [ctypes.c_float, i32, i32, vp])
+
+
+def _fwd_ragged_q_cuda(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
+                       causal, sm_scale):
+    check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
+                     "8-bit ragged forward")
+    _check_ragged_bounds(q, kv_lens, q_offsets)
+    b, hq, n, d = q.shape
+    if k_q.dim() != 4 or k_q.shape[0] != b or k_q.shape[3] != d:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k_q.shape)} "
+                         "do not match")
+    if d not in _KERNEL_DIMS:
+        raise ValueError(f"the CUDA kernels take d in {_KERNEL_DIMS}, got {d}")
+    if n == 0 or k_q.shape[2] == 0:
+        raise ValueError("empty query or key sequence")
+    o = torch.empty_like(q)
+    rc = _ragged_kernel_q()(
+        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+        v_scale.data_ptr(), o.data_ptr(), kv_lens.data_ptr(),
+        q_offsets.data_ptr(), b, hq, k_q.shape[1], n, k_q.shape[2], d,
+        float(sm_scale * _LOG2E), int(bool(causal)),
+        int(k_q.dtype == torch.float8_e4m3fn),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
+    flash_attention_ragged_kv_quant.launches += 1
+    _build.check(rc, "flash_fwd_ragged_q")
+    return o
+
+
+def flash_attention_ragged_kv_quant(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    kv_lens: torch.Tensor,
+    q_offsets: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    stable: bool | str = True,
+    window: int | None = None,
+    sinks: int = 0,
+) -> torch.Tensor:
+    """flash_attention_ragged against an 8-bit KV cache: k_q, v_q
+    [B, Hkv, S_max, D] int8 or float8_e4m3fn, k_scale, v_scale
+    [B, Hkv, S_max, 1] float32 per-token scales (the engine's 8-bit cache
+    layout). The other arguments and the result are flash_attention_ragged's.
+    CPU tensors run `_fwd_ragged_q_plain`; CUDA tensors launch the 8-bit
+    kernel of csrc/flash_fwd_ragged.cu (q bf16, d in {64, 128}, int32
+    bounds on the device) or raise."""
+    _ragged_unsupported("flash_attention_ragged_kv_quant", stable, window, sinks)
+    if q.shape[1] % k_q.shape[1]:
+        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
+                         f"{k_q.shape[1]}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    args = (q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets, causal,
+            sm_scale)
+    if q.device.type == "cpu":
+        return _fwd_ragged_q_plain(*args)
+    if q.device.type == "cuda":
+        return _fwd_ragged_q_cuda(*args)
+    raise ValueError(f"no ragged forward for device {q.device}")
+
+
+# kernel launches, for showing that a path ran the kernel
+flash_attention_ragged_kv_quant.launches = 0

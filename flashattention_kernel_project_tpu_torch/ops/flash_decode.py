@@ -1,13 +1,17 @@
-"""Split-KV single-token GQA decode against a linear bf16 KV cache.
+"""Split-KV single-token GQA decode against a linear KV cache, bf16 or
+8-bit.
 
 Counterpart of flashattention_kernel_project_tpu/ops/flash_decode.py
-(`flash_decode`, `merge_partials`). The cache's key axis is cut into
-`n_splits` independent splits; each emits unnormalized partials (m, l, y)
-over its keys below `lengths`, and `merge_partials` combines them. On a
-CUDA tensor the partials come from the hand-written Hopper kernel in
-csrc/flash_decode.cu; on a CPU tensor from `_decode_partials_plain`, the same
-function in plain PyTorch. The merge is plain PyTorch on both, as it is a
-jnp reduction outside the Pallas kernel in the JAX package.
+(`flash_decode`, `flash_decode_int8`, `flash_decode_fp8`,
+`merge_partials`). The cache's key axis is cut into `n_splits` independent
+splits; each emits unnormalized partials (m, l, y) over its keys below
+`lengths`, and `merge_partials` combines them. On a CUDA tensor the
+partials come from the hand-written Hopper kernels in csrc/flash_decode.cu
+(one for a bf16 cache, one for an int8 or e4m3 cache with per-token
+scales); on a CPU tensor from `_decode_partials_plain` and
+`_decode_partials_q_plain`, the same functions in plain PyTorch. The merge
+is plain PyTorch on both, as it is a jnp reduction outside the Pallas
+kernel in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import math
 import torch
 
 from flashattention_kernel_project_tpu_torch.ops import _build
+from flashattention_kernel_project_tpu_torch.ops.quant import check_8bit_cache
 from flashattention_kernel_project_tpu_torch.ops.softmax import NEG_INF
 from flashattention_kernel_project_tpu_torch.utils.platform import H100_SMS
 
@@ -91,6 +96,10 @@ def _check_cuda_inputs(q, k, v, lengths):
             raise TypeError(f"the CUDA decode takes bf16; {name} is {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _check_decode_shapes(q, k, v, lengths)
+
+
+def _check_decode_shapes(q, k, v, lengths):
     if lengths.device != q.device or lengths.dtype != torch.int32:
         raise TypeError("lengths must be int32 on q's device")
     if not lengths.is_contiguous():
@@ -186,3 +195,114 @@ def flash_decode(
 
 
 flash_decode.launches = 0  # kernel launches, for showing that a path ran the kernel
+
+
+def _decode_partials_q_plain(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
+                             block_s, sm_scale):
+    """The 8-bit kernel's partials in plain PyTorch: the cache dequantized
+    to float32 (values times their per-token scales), then the bf16 plain
+    path's arithmetic."""
+    return _decode_partials_plain(q, k_q.float() * k_scale,
+                                  v_q.float() * v_scale, lengths, n_splits,
+                                  block_s, sm_scale)
+
+
+@functools.cache
+def _kernel_q():
+    """fkp_flash_decode_q: q, k, k_scale, v, v_scale, lengths, m, l, y, then
+    (b, hq, hkv, s, d, n_splits, block_s), a float scale, fp8 and the
+    stream."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_flash_decode_q",
+                         [vp] * 9 + [i32] * 7 + [ctypes.c_float, i32, vp])
+
+
+def _decode_partials_q_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
+                            block_s, sm_scale):
+    check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
+                     "8-bit decode")
+    _check_decode_shapes(q, k_q, v_q, lengths)
+    b, hq, d = q.shape
+    hkv, s = k_q.shape[1], k_q.shape[2]
+    g = hq // hkv
+    m = torch.empty((b, hkv, n_splits, g, 1), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)
+    y = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
+                    device=q.device)
+    rc = _kernel_q()(
+        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+        v_scale.data_ptr(), lengths.data_ptr(), m.data_ptr(), l.data_ptr(),
+        y.data_ptr(), b, hq, hkv, s, d, n_splits, block_s, float(sm_scale),
+        int(k_q.dtype == torch.float8_e4m3fn),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_decode_int8.launches += 1
+    _build.check(rc, "flash_decode_q")
+    return m, l, y
+
+
+def flash_decode_int8(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    n_splits: int | None = None,
+    sm_scale: float | None = None,
+    return_partials: bool = False,
+    window: int | None = None,
+    sinks: int = 0,
+    mxu: bool | None = None,
+) -> torch.Tensor:
+    """flash_decode against an 8-bit KV cache with per-token scales.
+
+    k_q, v_q [B, Hkv, S, D] int8 or float8_e4m3fn; k_scale, v_scale
+    [B, Hkv, S, 1] float32, the cache's own layout. The other arguments and
+    the result are flash_decode's. CPU tensors run
+    `_decode_partials_q_plain`; CUDA tensors launch the 8-bit kernel of
+    csrc/flash_decode.cu (q bf16, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8})
+    or raise. `flash_decode_fp8` is the same function.
+    """
+    if mxu:
+        raise NotImplementedError(
+            "flash_decode_int8: mxu=True (the int8 x int8 decode kernel) is "
+            "ROADMAP item A.7"
+        )
+    if window is not None or sinks:
+        raise NotImplementedError(
+            "flash_decode_int8: window/sinks are ROADMAP item A.4"
+        )
+    if return_partials:
+        raise NotImplementedError(
+            "flash_decode_int8: return_partials (seq-sharded decode) is "
+            "ROADMAP item A.9"
+        )
+    b, hq, d = q.shape
+    hkv, s = k_q.shape[1], k_q.shape[2]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if n_splits is None:
+        n_splits = default_n_splits(b, hkv, s)
+    if n_splits < 1:
+        raise ValueError(f"n_splits must be >= 1, got {n_splits}")
+    block_s = -(-s // n_splits)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    args = (q, k_q, k_scale, v_q, v_scale, lengths, n_splits, block_s,
+            sm_scale)
+    if q.device.type == "cpu":
+        parts = _decode_partials_q_plain(*args)
+    elif q.device.type == "cuda":
+        parts = _decode_partials_q_cuda(*args)
+    else:
+        raise ValueError(f"no decode for device {q.device}")
+    return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
+
+
+flash_decode_int8.launches = 0  # kernel launches, for showing that a path ran the kernel
+
+# an e4m3 cache takes the same function and kernel
+flash_decode_fp8 = flash_decode_int8

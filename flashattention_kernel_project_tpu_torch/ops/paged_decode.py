@@ -1,22 +1,29 @@
 """Paged-KV attention: split-KV GQA decode and the multi-token causal
-extend over a block-table KV cache.
+extend over a block-table KV cache, bf16 or 8-bit.
 
 Counterpart of flashattention_kernel_project_tpu/ops/paged_decode.py
-(`paged_flash_decode`, `paged_flash_extend`, `paged_append`,
-`paged_append_chunk`, `PagePool`) for a bf16 pool. KV lives in fixed-size
-pages of a shared pool, [n_pages, Hkv, page, D] per layer; each sequence
-holds a block table of page ids. The decode cuts a sequence's table into
-splits of whole pages; each split emits unnormalized partials (m, l, y)
-over its keys below the sequence's length, and
-ops.flash_decode.merge_partials combines them. On a CUDA tensor the
-partials come from the hand-written Hopper kernel in csrc/paged_decode.cu;
-on a CPU tensor from `_paged_partials_plain`, the same function in plain
-PyTorch. The extend (the speculative verify step) scores T appended tokens
-per sequence against its pages: csrc/paged_extend.cu on a CUDA tensor,
-`_paged_extend_plain` on a CPU tensor.
+(`paged_flash_decode`, `paged_flash_decode_quant`, `paged_flash_extend`,
+`paged_append`, `paged_append_chunk`, `paged_append_quant`,
+`paged_append_chunk_quant`, `PagePool`). KV lives in fixed-size pages of a
+shared pool, [n_pages, Hkv, page, D] per layer; each sequence holds a block
+table of page ids. The decode cuts a sequence's table into splits of
+whole pages; each split emits unnormalized partials (m, l, y) over its
+keys below the sequence's length, and ops.flash_decode.merge_partials
+combines them. On a CUDA tensor the partials come from the hand-written
+Hopper kernel in csrc/paged_decode.cu; on a CPU tensor from
+`_paged_partials_plain`, the same function in plain PyTorch. The extend
+(the speculative verify step) scores T appended tokens per sequence
+against its pages: csrc/paged_extend.cu on a CUDA tensor,
+`_paged_extend_plain` on a CPU tensor. An 8-bit pool (int8 or
+float8_e4m3fn) keeps each token's K and V scales in scale pools
+[n_pages, Hkv, 1, page] float32, lane-major as in the JAX package; its
+kernels are the 8-bit ones of the same two sources, and its plain
+versions (`_paged_partials_q_plain`, `_paged_extend_q_plain`) dequantize
+the gathered rows.
 
 The pool and the tables are updated in place (`paged_append`,
-`paged_append_chunk`), where the JAX package returns new arrays.
+`paged_append_chunk` and their 8-bit forms, which quantize each token once
+as they write it), where the JAX package returns new arrays.
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ from flashattention_kernel_project_tpu_torch.ops.flash_decode import (
     _KERNEL_GROUPS,
     _decode_partials_plain,
     merge_partials,
+)
+from flashattention_kernel_project_tpu_torch.ops.quant import (
+    check_8bit_cache,
+    quantizer_for,
 )
 from flashattention_kernel_project_tpu_torch.ops.softmax import _LOG2E
 from flashattention_kernel_project_tpu_torch.utils.platform import H100_SMS
@@ -62,6 +73,21 @@ def _linear_rows(pages, block_table):
     _, hkv, _, d = pages.shape
     return (pages[block_table.long()].permute(0, 2, 1, 3, 4)
             .reshape(b, hkv, -1, d))
+
+
+def _linear_scales(scale_pages, block_table):
+    """Each row's lane-major scales in table order: [n_pages, Hkv, 1, page]
+    -> [B, Hkv, max_pages * page, 1], the linear cache's layout."""
+    b = block_table.shape[0]
+    hkv = scale_pages.shape[1]
+    return (scale_pages[block_table.long()].permute(0, 2, 1, 4, 3)
+            .reshape(b, hkv, -1, 1))
+
+
+def _dequantized_rows(pages, scale_pages, block_table):
+    """An 8-bit pool's rows in table order, dequantized to float32."""
+    return (_linear_rows(pages, block_table).float()
+            * _linear_scales(scale_pages, block_table))
 
 
 def _paged_partials_plain(q, k_pages, v_pages, block_table, lengths,
@@ -95,6 +121,10 @@ def _check_pool_inputs(q, k_pages, v_pages, block_table, what):
             raise TypeError(f"the CUDA {what} takes bf16; {name} is {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _check_pool_shapes(q, k_pages, v_pages, block_table, what)
+
+
+def _check_pool_shapes(q, k_pages, v_pages, block_table, what):
     if block_table.device != q.device or block_table.dtype != torch.int32:
         raise TypeError("block_table must be int32 on q's device")
     if not block_table.is_contiguous():
@@ -113,6 +143,10 @@ def _check_pool_inputs(q, k_pages, v_pages, block_table, what):
 
 def _check_cuda_inputs(q, k_pages, v_pages, block_table, lengths):
     _check_pool_inputs(q, k_pages, v_pages, block_table, "paged decode")
+    _check_decode_bounds(q, k_pages, lengths)
+
+
+def _check_decode_bounds(q, k_pages, lengths):
     if lengths.device != q.device or lengths.dtype != torch.int32:
         raise TypeError("lengths must be int32 on q's device")
     b = q.shape[0]
@@ -207,6 +241,123 @@ def paged_flash_decode(
 paged_flash_decode.launches = 0  # kernel launches, for showing that a path ran the kernel
 
 
+def _paged_partials_q_plain(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                            block_table, lengths, pages_per_split, sm_scale):
+    """The 8-bit kernel's partials in plain PyTorch: each row's pages
+    gathered and dequantized to float32, then the linear decode's partials
+    over splits of pages_per_split pages."""
+    max_pages = block_table.shape[1]
+    page = k_pages.shape[2]
+    return _decode_partials_plain(
+        q, _dequantized_rows(k_pages, k_scale_pages, block_table),
+        _dequantized_rows(v_pages, v_scale_pages, block_table), lengths,
+        -(-max_pages // pages_per_split), pages_per_split * page, sm_scale)
+
+
+@functools.cache
+def _kernel_q():
+    """fkp_paged_decode_q: q, k_pages, k_scale_pages, v_pages,
+    v_scale_pages, block_tables, lengths, m, l, y, then (b, hq, hkv, page,
+    d, max_pages, n_splits, pages_per_split), a float scale, fp8 and the
+    stream."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_paged_decode_q",
+                         [vp] * 10 + [i32] * 8 + [ctypes.c_float, i32, vp])
+
+
+def _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                       block_table, what):
+    n_pages, hkv, page, _ = k_pages.shape
+    check_8bit_cache(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                     (n_pages, hkv, 1, page), what)
+    _check_pool_shapes(q, k_pages, v_pages, block_table, what)
+
+
+def _paged_partials_q_cuda(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                           block_table, lengths, pages_per_split, sm_scale):
+    _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                       block_table, "8-bit paged decode")
+    _check_decode_bounds(q, k_pages, lengths)
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    n_splits = -(-max_pages // pages_per_split)
+    g = hq // hkv
+    m = torch.empty((b, hkv, n_splits, g, 1), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)
+    y = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
+                    device=q.device)
+    rc = _kernel_q()(
+        q.data_ptr(), k_pages.data_ptr(), k_scale_pages.data_ptr(),
+        v_pages.data_ptr(), v_scale_pages.data_ptr(), block_table.data_ptr(),
+        lengths.data_ptr(), m.data_ptr(), l.data_ptr(), y.data_ptr(),
+        b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
+        float(sm_scale), int(k_pages.dtype == torch.float8_e4m3fn),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    paged_flash_decode_quant.launches += 1
+    _build.check(rc, "paged_decode_q")
+    return m, l, y
+
+
+def paged_flash_decode_quant(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    k_scale_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    v_scale_pages: torch.Tensor,
+    block_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    sm_scale: float | None = None,
+    gather: bool = True,
+    slots: int = 2,
+    q_int8: bool | None = None,
+) -> torch.Tensor:
+    """paged_flash_decode against an 8-bit page pool.
+
+    k_pages, v_pages [n_pages, Hkv, page, D] int8 or float8_e4m3fn;
+    k_scale_pages, v_scale_pages [n_pages, Hkv, 1, page] float32, each
+    token's scales lane-major (written by paged_append_quant). The other
+    arguments, both schedules and the result are paged_flash_decode's. CPU
+    tensors run `_paged_partials_q_plain`; CUDA tensors launch the 8-bit
+    kernel of csrc/paged_decode.cu (q bf16, d in {64, 128}, Hq/Hkv in
+    {1, 2, 4, 8}, pages of 16 to 128 rows in steps of 16) or raise.
+    """
+    if q_int8:
+        raise NotImplementedError(
+            "paged_flash_decode_quant: q_int8=True (the int8 x int8 score "
+            "product) is ROADMAP item A.7"
+        )
+    if slots != 2:
+        raise NotImplementedError(
+            "paged_flash_decode_quant: slots tunes the TPU's DMA pipeline; "
+            "Hopper stage probes are ROADMAP item A.12"
+        )
+    b, hq, d = q.shape
+    hkv = k_pages.shape[1]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    max_pages = block_table.shape[1]
+    pages_per_split = (gather_pages_per_split(b, hkv, max_pages)
+                       if gather else 1)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    args = (q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_table,
+            lengths, pages_per_split, sm_scale)
+    if q.device.type == "cpu":
+        parts = _paged_partials_q_plain(*args)
+    elif q.device.type == "cuda":
+        parts = _paged_partials_q_cuda(*args)
+    else:
+        raise ValueError(f"no paged decode for device {q.device}")
+    return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
+
+
+paged_flash_decode_quant.launches = 0  # kernel launches, for showing that a path ran the kernel
+
+
 def _paged_extend_plain(q, k_pages, v_pages, block_table, new_lengths,
                         old_lengths, sm_scale):
     """The extend in plain PyTorch, in float32: each row's pages gathered
@@ -272,11 +423,15 @@ def paged_flash_extend(
     [B, Hq, T, D] in q's dtype. CPU tensors run `_paged_extend_plain`; CUDA
     tensors launch csrc/paged_extend.cu (bf16, d in {64, 128}, any page
     size, any Hq/Hkv and T: a folded group of G * T rows above 64 takes
-    more than one query tile) or raise.
+    more than one query tile) or raise. With k_scale_pages and
+    v_scale_pages the pool is 8-bit: `paged_flash_extend_quant`.
     """
     if k_scale_pages is not None or v_scale_pages is not None:
-        raise NotImplementedError(
-            "paged_flash_extend: 8-bit page pools are ROADMAP item A.7")
+        if k_scale_pages is None or v_scale_pages is None:
+            raise ValueError("an 8-bit pool needs k_scale_pages and v_scale_pages")
+        return paged_flash_extend_quant(
+            q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_table,
+            new_lengths, old_lengths, sm_scale=sm_scale)
     b, hq, t, d = q.shape
     if hq % k_pages.shape[1]:
         raise ValueError(f"q heads {hq} not a multiple of kv heads "
@@ -295,6 +450,96 @@ def paged_flash_extend(
 paged_flash_extend.launches = 0  # kernel launches, for showing that a path ran the kernel
 
 
+def _paged_extend_q_plain(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                          block_table, new_lengths, old_lengths, sm_scale):
+    """The 8-bit extend in plain PyTorch: each row's pages gathered and
+    dequantized to float32, then the ragged causal forward as in
+    `_paged_extend_plain`."""
+    return _fwd_ragged_plain(
+        q, _dequantized_rows(k_pages, k_scale_pages, block_table),
+        _dequantized_rows(v_pages, v_scale_pages, block_table), new_lengths,
+        old_lengths, True, sm_scale)
+
+
+@functools.cache
+def _extend_kernel_q():
+    """fkp_paged_extend_q: q, k_pages, k_scale_pages, v_pages,
+    v_scale_pages, block_table, new_lengths, old_lengths, o, then (b, hq,
+    hkv, t, page, d, max_pages), a float scale, fp8 and the stream."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_paged_extend_q",
+                         [vp] * 9 + [i32] * 7 + [ctypes.c_float, i32, vp])
+
+
+def _paged_extend_q_cuda(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                         block_table, new_lengths, old_lengths, sm_scale):
+    _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                       block_table, "8-bit paged extend")
+    _check_ragged_bounds(q, new_lengths, old_lengths)
+    b, hq, t, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    o = torch.empty_like(q)
+    rc = _extend_kernel_q()(
+        q.data_ptr(), k_pages.data_ptr(), k_scale_pages.data_ptr(),
+        v_pages.data_ptr(), v_scale_pages.data_ptr(), block_table.data_ptr(),
+        new_lengths.data_ptr(), old_lengths.data_ptr(), o.data_ptr(),
+        b, hq, hkv, t, page, d, block_table.shape[1],
+        float(sm_scale * _LOG2E), int(k_pages.dtype == torch.float8_e4m3fn),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    paged_flash_extend_quant.launches += 1
+    _build.check(rc, "paged_extend_q")
+    return o
+
+
+def paged_flash_extend_quant(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    k_scale_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    v_scale_pages: torch.Tensor,
+    block_table: torch.Tensor,
+    new_lengths: torch.Tensor,
+    old_lengths: torch.Tensor,
+    *,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """paged_flash_extend against an 8-bit page pool (int8 or
+    float8_e4m3fn pages, float32 scale pages [n_pages, Hkv, 1, page]), the
+    JAX package's paged_flash_extend with k_scale_pages and v_scale_pages.
+    CPU tensors run `_paged_extend_q_plain`; CUDA tensors launch the 8-bit
+    kernel of csrc/paged_extend.cu (q bf16, d in {64, 128}, any page size,
+    Hq/Hkv and T) or raise."""
+    b, hq, t, d = q.shape
+    if hq % k_pages.shape[1]:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads "
+                         f"{k_pages.shape[1]}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    args = (q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_table,
+            new_lengths, old_lengths, sm_scale)
+    if q.device.type == "cpu":
+        return _paged_extend_q_plain(*args)
+    if q.device.type == "cuda":
+        return _paged_extend_q_cuda(*args)
+    raise ValueError(f"no paged extend for device {q.device}")
+
+
+paged_flash_extend_quant.launches = 0  # kernel launches, for showing that a path ran the kernel
+
+
+def _token_slots(page, block_table, lengths, t):
+    """(page ids, rows) [B * T] of positions lengths[b] + 0 .. T - 1: row
+    pos % page of page block_table[b, pos // page], or of the junk page 0
+    past the table's capacity."""
+    max_pages = block_table.shape[1]
+    pos = lengths.long()[:, None] + torch.arange(t, device=lengths.device)[None, :]
+    slot = pos // page
+    ids = block_table.long().gather(1, slot.clamp(0, max_pages - 1))
+    ids = torch.where(slot >= max_pages, torch.zeros_like(ids), ids)
+    return ids.reshape(-1), (pos % page).reshape(-1)
+
+
 def paged_append(k_pages, v_pages, k_new, v_new, block_table, lengths):
     """Append one token per sequence into its current page, in place:
     k_new, v_new [B, Hkv, D] go to row lengths[b] % page of page
@@ -302,13 +547,7 @@ def paged_append(k_pages, v_pages, k_new, v_new, block_table, lengths):
     by the PagePool). A sequence past its table's capacity writes to the
     reserved junk page 0 instead of its own last page, as in the JAX
     package. Returns (k_pages, v_pages)."""
-    page = k_pages.shape[2]
-    max_pages = block_table.shape[1]
-    pos = lengths.long()
-    slot = pos // page
-    ids = block_table.long().gather(1, slot.clamp(0, max_pages - 1)[:, None])[:, 0]
-    ids = torch.where(slot >= max_pages, torch.zeros_like(ids), ids)
-    off = pos % page
+    ids, off = _token_slots(k_pages.shape[2], block_table, lengths, 1)
     # advanced indices on dims 0 and 2 put B first: value [B, Hkv, D]
     k_pages[ids, :, off] = k_new.to(k_pages.dtype)
     v_pages[ids, :, off] = v_new.to(v_pages.dtype)
@@ -323,18 +562,44 @@ def paged_append_chunk(k_pages, v_pages, k_new, v_new, block_table, lengths):
     edges. A position past the table's capacity writes to the junk page 0,
     as in paged_append (several may collide there; its content is
     garbage by design). Returns (k_pages, v_pages)."""
-    page = k_pages.shape[2]
-    max_pages = block_table.shape[1]
     b, t, hkv, d = k_new.shape
-    pos = lengths.long()[:, None] + torch.arange(t, device=lengths.device)[None, :]
-    slot = pos // page
-    ids = block_table.long().gather(1, slot.clamp(0, max_pages - 1))
-    ids = torch.where(slot >= max_pages, torch.zeros_like(ids), ids).reshape(-1)
-    off = (pos % page).reshape(-1)
+    ids, off = _token_slots(k_pages.shape[2], block_table, lengths, t)
     # advanced indices on dims 0 and 2 put the B*T tokens first
     k_pages[ids, :, off] = k_new.reshape(b * t, hkv, d).to(k_pages.dtype)
     v_pages[ids, :, off] = v_new.reshape(b * t, hkv, d).to(v_pages.dtype)
     return k_pages, v_pages
+
+
+def paged_append_chunk_quant(k_pages, k_scale_pages, v_pages, v_scale_pages,
+                             k_new, v_new, block_table, lengths):
+    """paged_append_chunk into an 8-bit pool, in place: each of the B * T
+    tokens' K and V rows (k_new, v_new [B, T, Hkv, D], full precision) is
+    quantized once, per token and head (int8 or e4m3, the pool's type),
+    its values written to the pages and its scales to the lane-major scale
+    pages, in one indexed write per pool. Same junk-page rule. Returns
+    (k_pages, k_scale_pages, v_pages, v_scale_pages)."""
+    b, t, hkv, d = k_new.shape
+    ids, off = _token_slots(k_pages.shape[2], block_table, lengths, t)
+    # K and V in one quantizer call: [2, B*T, Hkv, D]
+    vals, scales = quantizer_for(k_pages.dtype)(
+        torch.stack((k_new, v_new)).reshape(2, b * t, hkv, d), axis=-1)
+    k_pages[ids, :, off] = vals[0]
+    v_pages[ids, :, off] = vals[1]
+    # advanced indices on dims 0 and 3 put the tokens first: [B*T, Hkv]
+    k_scale_pages[ids, :, 0, off] = scales[0, ..., 0]
+    v_scale_pages[ids, :, 0, off] = scales[1, ..., 0]
+    return k_pages, k_scale_pages, v_pages, v_scale_pages
+
+
+def paged_append_quant(k_pages, k_scale_pages, v_pages, v_scale_pages, k_new,
+                       v_new, block_table, lengths):
+    """paged_append into an 8-bit pool, in place: k_new, v_new [B, Hkv, D]
+    full precision, quantized per token and head as they are written (see
+    paged_append_chunk_quant). Returns (k_pages, k_scale_pages, v_pages,
+    v_scale_pages)."""
+    return paged_append_chunk_quant(
+        k_pages, k_scale_pages, v_pages, v_scale_pages, k_new[:, None],
+        v_new[:, None], block_table, lengths)
 
 
 class PagePool:

@@ -85,8 +85,8 @@ def test_flash_attention_ragged_matches_jax(d, causal):
 
 def test_flash_attention_ragged_options():
     """stable="auto" is the online path (as in the JAX package); the
-    fixed-max discipline, window/sinks and the 8-bit cache raise; CPU
-    tensors leave the launch counter at 0."""
+    fixed-max discipline and window/sinks raise, over a bf16 cache and over
+    an 8-bit one; CPU tensors leave the launch counter at 0."""
     q, k, v, kv_lens, q_offsets = (torch.from_numpy(x)
                                    for x in _ragged_inputs(1, 16))
     args = (q, k, v, kv_lens, q_offsets)
@@ -95,8 +95,11 @@ def test_flash_attention_ragged_options():
     for kwargs in (dict(stable=False), dict(window=8), dict(window=8, sinks=2)):
         with pytest.raises(NotImplementedError, match="A.1"):
             tfa.flash_attention_ragged(*args, **kwargs)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tfa.flash_attention_ragged_kv_quant(*args)
+    k8, scale = k.to(torch.int8), torch.ones(*k.shape[:3], 1)
+    for kwargs in (dict(stable=False), dict(window=8)):
+        with pytest.raises(NotImplementedError, match="A.1"):
+            tfa.flash_attention_ragged_kv_quant(q, k8, scale, k8, scale, kv_lens,
+                                                q_offsets, **kwargs)
     assert tfa.flash_attention_ragged.launches == 0
     bf = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(TypeError):  # int64 bounds are refused before any build

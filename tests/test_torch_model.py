@@ -13,6 +13,7 @@ from flashattention_kernel_project_tpu import models as jmodels
 from flashattention_kernel_project_tpu.models import engine as jengine
 from flashattention_kernel_project_tpu_torch.models import engine, transformer
 from flashattention_kernel_project_tpu_torch.models.convert import params_from_jax
+from flashattention_kernel_project_tpu_torch.ops.flash_decode import flash_decode_int8
 from flashattention_kernel_project_tpu_torch.utils.testing import assert_rel_l2
 
 torch.set_num_threads(1)
@@ -141,8 +142,11 @@ def test_convert_keeps_bf16():
 def test_unported_model_options_raise():
     import dataclasses
 
-    with pytest.raises(NotImplementedError):
-        engine.init_cache(CFG, 1, 8, CPU, quantized=True)
+    cache = engine.init_cache(CFG, 1, 8, CPU, quantized=True)
+    with pytest.raises(NotImplementedError):  # the int8 x int8 decode kernel
+        flash_decode_int8(torch.zeros(1, CFG.n_heads, CFG.d_head), cache.k[0],
+                          cache.k_scale[0], cache.v[0], cache.v_scale[0],
+                          cache.lengths, mxu=True)
     moe = dataclasses.replace(CFG, moe_experts=4)
     with pytest.raises(NotImplementedError):
         transformer.init_params(moe, torch.Generator().manual_seed(0), CPU)

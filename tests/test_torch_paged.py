@@ -203,8 +203,10 @@ def test_paged_engine_matches_jax(both_params):
     toks_s, _ = engine.decode_steps_paged(CFG, tfused, torch.from_numpy(cur),
                                           cache, n_steps=2)
     assert toks_s.shape == (2, 2) and int(cache.lengths[0]) == 16
-    with pytest.raises(NotImplementedError, match="A.7"):
-        engine.init_paged_cache(CFG, 1, 4, CPU, quantized=True)
+    # an 8-bit pool: e4m3 pages and lane-major float32 scale pages
+    q8 = engine.init_paged_cache(CFG, 1, 4, CPU, quantized=True, quant_fmt="fp8")
+    assert q8.quantized and q8.k_pages[0].dtype == torch.float8_e4m3fn
+    assert q8.v_scale_pages[0].shape == (4, CFG.n_kv_heads, 1, 128)
 
 
 def _prompts(seed, lens, base=None):

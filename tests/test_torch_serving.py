@@ -115,8 +115,8 @@ def test_scheduler_sampling_uses_generator(both_params):
 
 @pytest.mark.parametrize(
     "mode",
-    [dict(quantized_cache=True), dict(mesh=object()), dict(seq_mesh=object()),
-     dict(draft_cfg=CFG, multi_step=4)],
+    [dict(quantized_cache=True, mesh=object()), dict(mesh=object()),
+     dict(seq_mesh=object()), dict(draft_cfg=CFG, multi_step=4)],
 )
 def test_scheduler_unported_modes_raise(both_params, mode):
     """The modes still to port raise naming their ROADMAP item; speculative

@@ -110,13 +110,12 @@ def test_paged_flash_extend_matches_jax_and_oracle(case):
 
 
 def test_paged_flash_extend_options_and_checks():
-    """The 8-bit flavour raises naming A.7; the CUDA wrapper's checks refuse
-    what the kernel does not take."""
+    """The 8-bit flavour needs both scale pools; the CUDA wrapper's checks
+    refuse what the kernel does not take."""
     q, k, v, table, new, old = (torch.from_numpy(x)
                                 for x in _extend_inputs("page8_shuffled"))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tpd.paged_flash_extend(q, k, v, table, new, old, k_scale_pages=k,
-                               v_scale_pages=v)
+    with pytest.raises(ValueError, match="k_scale_pages and v_scale_pages"):
+        tpd.paged_flash_extend(q, k, v, table, new, old, k_scale_pages=k)
     with pytest.raises(ValueError, match="multiple"):
         tpd.paged_flash_extend(q[:, :3], k, v, table, new, old)
     with pytest.raises(TypeError):  # f32: the kernel takes bf16
@@ -199,9 +198,8 @@ def test_extend_paged_matches_jax_and_linear_extend(both_params):
     dl, _ = engine.decode_step_paged(CFG, tp, tok, cache)
     ld, _ = engine.decode_step(CFG, tp, tok, lin)
     assert_rel_l2(dl.numpy(), ld.numpy(), tol=TOL)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        cache.k_pages = [x.to(torch.int8) for x in cache.k_pages]
-        engine.extend_paged(CFG, tp, torch.from_numpy(chunk), cache)
+    # a bf16 pool: no scale pages (8-bit pools: tests/test_torch_quant_serving.py)
+    assert not cache.quantized and cache.k_scale_pages is None
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -391,15 +389,16 @@ def test_scheduler_spec_sampling(both_params):
 
 
 def test_scheduler_spec_guards(both_params):
-    """spec with multi_step raises as the JAX Scheduler does, spec with an
-    8-bit cache raises naming A.7, a draft needs its params and the
-    target's vocabulary, and admission reserves spec_k + 1 rows."""
+    """spec with multi_step raises as the JAX Scheduler does, spec over an
+    8-bit pool keeps the draft's cache full precision, a draft needs its
+    params and the target's vocabulary, and admission reserves spec_k + 1
+    rows."""
     _, tp, _, td = both_params
     kw = dict(max_batch=2, max_len=64, draft_cfg=DRAFT, draft_params=td)
     with pytest.raises(NotImplementedError, match="no spec composition"):
         Scheduler(CFG, tp, multi_step=4, **kw)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        Scheduler(CFG, tp, quantized_cache=True, paged=True, **kw)
+    q8 = Scheduler(CFG, tp, quantized_cache=True, paged=True, **kw)
+    assert q8.cache.quantized and not q8.dcache.quantized
     with pytest.raises(NotImplementedError, match="A.9"):
         Scheduler(CFG, tp, mesh=object(), **kw)
     with pytest.raises(ValueError, match="draft_params"):
