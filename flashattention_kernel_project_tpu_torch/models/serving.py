@@ -367,28 +367,20 @@ class Scheduler:
             # suffix's chunks may retire their other holders
             for pid in shared:
                 self._page_refs[pid] += 1
-        if shared:
-            self.prefix_hits += 1
-            logits, cache1 = self._chunked_prefill(req, tb, prefix_pages=shared)
-        elif self.prefill_chunk:
-            logits, cache1 = self._chunked_prefill(req, tb)
-        else:
-            prompt = np.zeros((1, tb), np.int32)
-            prompt[0, :t] = req.prompt
-            cache1 = self._init_cache1(tb)
-            logits, cache1 = with_retries(
-                engine.prefill, self.cfg, self.params,
-                torch.from_numpy(prompt).to(self.device), cache1,
-            )
-            # the padded tail cannot change position t-1 (causal), but
-            # prefill returns the logits of position tb-1: recompute the
-            # true last position when the prompt is shorter than its bucket
-            if t != tb:
-                logits = self._exact_last_logits(req.prompt)
-        if self.paged:
-            self._insert_pages(slot, req, cache1, t, shared, keys)
-        else:
-            self._splice_linear(slot, cache1, tb, t)
+        try:
+            logits, cache1 = self._prefill_prompt(req, tb, shared)
+            if self.paged:
+                self._insert_pages(slot, req, cache1, t, shared, keys)
+            else:
+                self._splice_linear(slot, cache1, tb, t)
+        except BaseException:
+            # a failed insert (the prefill, or alloc's MemoryError) keeps
+            # no page: drop the references it took, shared and new
+            if self.paged:
+                self._drop_refs(self._slot_pages[slot] or shared)
+                self._slot_pages[slot] = []
+                self.cache.block_tables[slot] = 0
+            raise
         if self.spec:
             # the draft's prompt logits are never used, only its K/V rows,
             # and rows [0, t) of a bucket-padded one-shot prefill are exact
@@ -409,6 +401,30 @@ class Scheduler:
         req.generated.append(first)
         req.t_first_token = time.perf_counter()
         self._on_token(slot, first)
+
+    def _prefill_prompt(self, req: Request, tb: int, shared: list[int]):
+        """The prompt's (last-position logits, batch-1 cache): the suffix
+        after the resident `shared` pages, chunks of `prefill_chunk`, or
+        one prefill of the prompt padded to its bucket `tb`."""
+        if shared:
+            self.prefix_hits += 1
+            return self._chunked_prefill(req, tb, prefix_pages=shared)
+        if self.prefill_chunk:
+            return self._chunked_prefill(req, tb)
+        t = len(req.prompt)
+        prompt = np.zeros((1, tb), np.int32)
+        prompt[0, :t] = req.prompt
+        cache1 = self._init_cache1(tb)
+        logits, cache1 = with_retries(
+            engine.prefill, self.cfg, self.params,
+            torch.from_numpy(prompt).to(self.device), cache1,
+        )
+        # the padded tail cannot change position t-1 (causal), but prefill
+        # returns the logits of position tb-1: recompute the true last
+        # position when the prompt is shorter than its bucket
+        if t != tb:
+            logits = self._exact_last_logits(req.prompt)
+        return logits, cache1
 
     def _init_cache1(self, rows: int) -> engine.KVCache:
         """A batch-1 prefill cache of `rows` rows: 8-bit over a linear 8-bit
@@ -706,19 +722,23 @@ class Scheduler:
         self._slot_temp[slot] = 0.0
         self.cache.lengths[slot] = 0
         if self.paged:
-            # drop this slot's references; free the pages nobody else holds
-            # (and unindex them), then point the table at the junk page, so
-            # that the slot's appends never land in pages another request
-            # owns
-            dead = []
-            for pid in self._slot_pages[slot]:
-                self._page_refs[pid] -= 1
-                if self._page_refs[pid] == 0:
-                    dead.append(pid)
-                    del self._page_refs[pid]
-                    key = self._page_key.pop(pid, None)
-                    if key is not None:
-                        self._prefix_index.pop(key, None)
-            self._pool.free(dead)
+            # drop this slot's references, then point the table at the junk
+            # page, so that the slot's appends never land in pages another
+            # request owns
+            self._drop_refs(self._slot_pages[slot])
             self._slot_pages[slot] = []
             self.cache.block_tables[slot] = 0
+
+    def _drop_refs(self, pids: list[int]):
+        """Drop one reference on each page; free the pages nobody holds any
+        more, and unindex them."""
+        dead = []
+        for pid in pids:
+            self._page_refs[pid] -= 1
+            if self._page_refs[pid] == 0:
+                dead.append(pid)
+                del self._page_refs[pid]
+                key = self._page_key.pop(pid, None)
+                if key is not None:
+                    self._prefix_index.pop(key, None)
+        self._pool.free(dead)

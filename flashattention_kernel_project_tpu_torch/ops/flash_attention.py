@@ -4,7 +4,9 @@ forward against a live cache.
 Counterpart of flashattention_kernel_project_tpu/ops/flash_attention.py
 (`flash_attention`, `flash_attention_with_lse`, `_fwd`, `_bwd_pallas` and
 the custom_vjp around them, `flash_attention_ragged`,
-`flash_attention_ragged_kv_quant`), in the stable=True discipline. On a
+`flash_attention_ragged_kv_quant`), in the stable=True discipline, with or
+without a sliding window (`window` keys, causal only) and attention sinks
+(the first `sinks` keys, visible to every query). On a
 CUDA tensor `_fwd` launches the hand-written Hopper kernel in
 csrc/flash_fwd.cu, `_fwd_ragged` the one in csrc/flash_fwd_ragged.cu (a
 bf16 cache) and `flash_attention_ragged_kv_quant` its 8-bit kernel there,
@@ -34,17 +36,13 @@ _LN2 = 0.6931471805599453
 _KERNEL_DIMS = (64, 128)
 
 
-def _unsupported(stable, window, sinks, k_max, stack_group, pack_heads):
+def _unsupported(stable, k_max, stack_group, pack_heads):
     """Options of the JAX forward that the port does not take yet (each is
     a ROADMAP item)."""
     if stable is not True:
         raise NotImplementedError(
             "flash_attention: only stable=True is ported; the fixed-max and "
             "'auto' disciplines are ROADMAP item A.1"
-        )
-    if window is not None or sinks:
-        raise NotImplementedError(
-            "flash_attention: window/sinks are ROADMAP item A.1"
         )
     if k_max is not None:
         raise NotImplementedError("flash_attention: k_max is ROADMAP item A.1")
@@ -55,10 +53,33 @@ def _unsupported(stable, window, sinks, k_max, stack_group, pack_heads):
         )
 
 
-def _fwd_plain(q, k, v, causal, sm_scale, q_offset):
+def _band(causal, window, sinks):
+    """The JAX package's argument checks for a sliding window (asserts
+    there, ValueError here): window needs causal and window >= 1; sinks
+    need a window. Returns (window, sinks) as the kernels take them, window
+    0 meaning none."""
+    if window is not None and (not causal or window < 1):
+        raise ValueError(f"window={window} needs causal=True and window >= 1")
+    if sinks < 0 or (sinks and window is None):
+        raise ValueError(f"sinks={sinks} needs a window and sinks >= 0")
+    return (window or 0), sinks
+
+
+def _band_mask(rows, cols, window, sinks):
+    """rows [..., N, 1] query positions, cols [S] key positions -> bool
+    [..., N, S]: key j visible to the query at position p iff j <= p and,
+    with a window (> 0), j > p - window or j < sinks."""
+    mask = cols <= rows
+    if window:
+        mask = mask & ((cols > rows - window) | (cols < sinks))
+    return mask
+
+
+def _fwd_plain(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0):
     """The forward in plain PyTorch, in float32: the same log2-domain
-    scores, masks and empty-row rule as the kernel, with one softmax over
-    all keys."""
+    scores, masks (causal, and the band of `window` keys plus the first
+    `sinks` when window > 0) and empty-row rule as the kernel, with one
+    softmax over all keys."""
     b, hq, n, d = q.shape
     group = hq // k.shape[1]
     s = k.shape[2]
@@ -69,7 +90,7 @@ def _fwd_plain(q, k, v, causal, sm_scale, q_offset):
     mask = None
     if causal:
         rows = torch.arange(n, device=q.device)[:, None] + q_offset
-        mask = torch.arange(s, device=q.device)[None, :] <= rows
+        mask = _band_mask(rows, torch.arange(s, device=q.device), window, sinks)
         scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp2(scores - m)
@@ -87,11 +108,11 @@ def _fwd_plain(q, k, v, causal, sm_scale, q_offset):
 @functools.cache
 def _kernel(name="fkp_flash_fwd", n_ptrs=5):
     """A C entry point taking `n_ptrs` pointers, then (b, hq, hkv, n, s, d),
-    a float scale, (causal, q_offset) and the stream."""
+    a float scale, (causal, q_offset, window, sinks) and the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel(
         name,
-        [vp] * n_ptrs + [i32] * 6 + [ctypes.c_float, i32, i32, vp],
+        [vp] * n_ptrs + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [vp],
     )
 
 
@@ -115,16 +136,18 @@ def _check_cuda_inputs(q, k, v, **more):
         raise ValueError("empty query or key sequence")
 
 
-def _fwd(q, k, v, causal, sm_scale, q_offset):
+def _fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0):
     """(O, LSE). CPU tensors run `_fwd_plain`; CUDA tensors launch
-    csrc/flash_fwd.cu (bf16, contiguous, d in {64, 128}) or raise."""
+    csrc/flash_fwd.cu (bf16, contiguous, d in {64, 128}) or raise. window
+    > 0: the band of `window` keys plus the first `sinks` (causal only),
+    whose key tiles outside it the kernel never visits."""
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
                          f"{k.shape[1]}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return _fwd_plain(q, k, v, causal, sm_scale, q_offset)
+        return _fwd_plain(q, k, v, causal, sm_scale, q_offset, window, sinks)
     if q.device.type != "cuda":
         raise ValueError(f"no forward for device {q.device}")
     _check_cuda_inputs(q, k, v)
@@ -136,19 +159,24 @@ def _fwd(q, k, v, causal, sm_scale, q_offset):
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, hq, hkv, n, s, d, float(sm_scale * _LOG2E), int(bool(causal)),
-        int(q_offset), stream,
+        int(q_offset), int(window), int(sinks), stream,
     )
     _fwd.launches += 1
+    _fwd.window_launches += bool(window)
     _build.check(rc, "flash_fwd")
     return o, lse
 
 
-_fwd.launches = 0  # kernel launches, for showing that a path ran the kernel
+# kernel launches, for showing that a path ran the kernel, and those of
+# them with a window
+_fwd.launches = 0
+_fwd.window_launches = 0
 
 
-def _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset):
+def _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset, window=0,
+               sinks=0):
     """The backward in plain PyTorch, in float32: recompute p from the
-    saved logsumexp, GQA folded by repeating K/V over the group and the
+    saved logsumexp under the forward's masks, GQA folded by repeating K/V over the group and the
     group summed back onto the KV heads for dK and dV. A row that sees no
     key has p == 0 and so zero dq (its LSE is the finite NEG_INF, for
     which exp(s - lse) alone would overflow). Returns (dq, dk, dv) in the
@@ -164,7 +192,7 @@ def _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset):
     p = torch.exp(scores - lse[..., None])
     if causal:
         rows = torch.arange(n, device=q.device)[:, None] + q_offset
-        mask = torch.arange(s, device=q.device)[None, :] <= rows
+        mask = _band_mask(rows, torch.arange(s, device=q.device), window, sinks)
         p = torch.where(mask, p, torch.zeros((), device=q.device))
     dv = p.transpose(-1, -2) @ dof
     ds = p * (dof @ vf.transpose(-1, -2) - delta)
@@ -176,7 +204,7 @@ def _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset):
 
 
 def _launch_bwd(name, outs, q, k, v, do, lse, delta, causal, sm_scale,
-                q_offset):
+                q_offset, window=0, sinks=0):
     """Launch one backward kernel writing `outs`; inputs as `_bwd` checked
     them."""
     b, hq, n, d = q.shape
@@ -184,7 +212,7 @@ def _launch_bwd(name, outs, q, k, v, do, lse, delta, causal, sm_scale,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
         b, hq, k.shape[1], n, k.shape[2], d, float(sm_scale),
-        int(bool(causal)), int(q_offset),
+        int(bool(causal)), int(q_offset), int(window), int(sinks),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, name)
@@ -204,17 +232,20 @@ def _dq_cuda(q, k, v, *args):
     return dq
 
 
-def _bwd(q, k, v, o, lse, do, causal, sm_scale, q_offset):
-    """(dq, dk, dv) from the forward's (o, lse) and the output gradient.
+def _bwd(q, k, v, o, lse, do, causal, sm_scale, q_offset, window=0, sinks=0):
+    """(dq, dk, dv) from the forward's (o, lse) and the output gradient,
+    under the forward's masks (window > 0: the band and the sinks).
     CPU tensors run `_bwd_plain`; CUDA tensors launch
     csrc/flash_bwd_dkdv.cu, then csrc/flash_bwd_dq.cu, or raise. delta =
     rowsum(o * do) is plain torch, as the JAX package computes it in XLA
     outside its kernels. Each call launches each kernel once, and counts
-    one in `_bwd.launches`."""
+    one in `_bwd.launches` (and in `_bwd.window_launches` with a
+    window)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset)
+        return _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset,
+                          window, sinks)
     if q.device.type != "cuda":
         raise ValueError(f"no backward for device {q.device}")
     # the model hands do back through a transpose and a reshape
@@ -227,14 +258,17 @@ def _bwd(q, k, v, o, lse, do, causal, sm_scale, q_offset):
                          f"{lse.dtype} {tuple(lse.shape)}")
     lse = lse.contiguous()
     delta = (o.float() * do.float()).sum(dim=-1)
-    args = (q, k, v, do, lse, delta, causal, sm_scale, q_offset)
+    args = (q, k, v, do, lse, delta, causal, sm_scale, q_offset, window,
+            sinks)
     dk, dv = _dkdv_cuda(*args)
     dq = _dq_cuda(*args)
     _bwd.launches += 1
+    _bwd.window_launches += bool(window)
     return dq, dk, dv
 
 
 _bwd.launches = 0  # backward calls that launched both kernels
+_bwd.window_launches = 0  # those of them with a window
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -243,17 +277,17 @@ class _FlashAttention(torch.autograd.Function):
     o, lse); the backward recomputes p from lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_offset):
-        o, lse = _fwd(q, k, v, causal, sm_scale, q_offset)
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset, window, sinks):
+        o, lse = _fwd(q, k, v, causal, sm_scale, q_offset, window, sinks)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (causal, sm_scale, q_offset)
+        ctx.args = (causal, sm_scale, q_offset, window, sinks)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q, k, v, o, lse, do, *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -276,12 +310,15 @@ def flash_attention(
     q [B, Hq, N, D]; k, v [B, Hkv, S, D] with Hq % Hkv == 0, q head h
     reading KV head h // (Hq // Hkv). causal: query i sees key j iff
     j <= i + q_offset (a static offset of the query block within the key
-    sequence). sm_scale defaults to 1/sqrt(D). A row that sees no key gives
-    zeros. Returns [B, Hq, N, D] in q's dtype; differentiable in q, k and v
-    (the backward is `_bwd`).
+    sequence). window (causal only): the query at position p sees only keys
+    j > p - window, plus the first `sinks` keys. sm_scale defaults to
+    1/sqrt(D). A row that sees no key gives zeros. Returns [B, Hq, N, D] in
+    q's dtype; differentiable in q, k and v (the backward is `_bwd`).
     """
-    _unsupported(stable, window, sinks, k_max, stack_group, pack_heads)
-    return _FlashAttention.apply(q, k, v, causal, sm_scale, q_offset)
+    _unsupported(stable, k_max, stack_group, pack_heads)
+    window, sinks = _band(causal, window, sinks)
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, q_offset, window,
+                                 sinks)
 
 
 def flash_attention_with_lse(
@@ -291,24 +328,27 @@ def flash_attention_with_lse(
     """flash_attention that also returns the logsumexp [B, Hq, N] float32
     (natural log; NEG_INF for a row that sees no key). Not differentiable,
     as in the JAX package."""
-    _unsupported(stable, window, sinks, None, None, pack_heads)
+    _unsupported(stable, None, None, pack_heads)
+    window, sinks = _band(causal, window, sinks)
     with torch.no_grad():  # the plain version would otherwise record a graph
-        return _fwd(q, k, v, causal, sm_scale, q_offset)
+        return _fwd(q, k, v, causal, sm_scale, q_offset, window, sinks)
 
 
-def _ragged_mask(n, s, kv_lens, q_offsets, causal):
+def _ragged_mask(n, s, kv_lens, q_offsets, causal, window=0, sinks=0):
     """[B, 1, N, S] bool: query i of row b sees key j iff j < kv_lens[b] and,
-    when causal, j <= i + q_offsets[b]."""
+    when causal, j <= i + q_offsets[b] (and, with a window, j is in the
+    band of the last `window` positions or among the first `sinks`)."""
     col = torch.arange(s, device=kv_lens.device)
     mask = col[None, None, :] < kv_lens.long()[:, None, None]  # [B, 1, S]
     if causal:
         rows = (torch.arange(n, device=kv_lens.device)[None, :, None]
                 + q_offsets.long()[:, None, None])
-        mask = mask & (col[None, None, :] <= rows)  # [B, N, S]
+        mask = mask & _band_mask(rows, col, window, sinks)  # [B, N, S]
     return mask.expand(-1, n, -1)[:, None]
 
 
-def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale):
+def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale,
+                      window=0, sinks=0):
     """The ragged forward in plain PyTorch, in float32: the dense
     `_fwd_plain` with a per-row mask. kv_lens above S count as S."""
     b, hq, n, d = q.shape
@@ -318,7 +358,7 @@ def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale):
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     scores = qf @ kf.transpose(-1, -2)  # [B, Hq, N, S], log2 domain
-    mask = _ragged_mask(n, s, kv_lens, q_offsets, causal)
+    mask = _ragged_mask(n, s, kv_lens, q_offsets, causal, window, sinks)
     scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     # a row with no visible key has m == NEG_INF and exp2(0) == 1
@@ -331,10 +371,12 @@ def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale):
 @functools.cache
 def _ragged_kernel():
     """fkp_flash_fwd_ragged: q, k, v, o, kv_lens, q_offsets, then (b, hq,
-    hkv, n, s_max, d), a float scale, causal and the stream."""
+    hkv, n, s_max, d), a float scale, (causal, window, sinks) and the
+    stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_flash_fwd_ragged",
-                         [vp] * 6 + [i32] * 6 + [ctypes.c_float, i32, vp])
+                         [vp] * 6 + [i32] * 6 + [ctypes.c_float] + [i32] * 3
+                         + [vp])
 
 
 def _check_ragged_bounds(q, kv_lens, q_offsets):
@@ -346,7 +388,8 @@ def _check_ragged_bounds(q, kv_lens, q_offsets):
             raise ValueError(f"{name} must be a contiguous [{b}] tensor")
 
 
-def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale):
+def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale, window=0,
+                sinks=0):
     """O of the ragged forward. CPU tensors run `_fwd_ragged_plain`; CUDA
     tensors launch csrc/flash_fwd_ragged.cu (bf16, contiguous, d in {64,
     128}, int32 bounds on the device) or raise. The bounds are never read
@@ -357,7 +400,8 @@ def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale):
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale)
+        return _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale,
+                                 window, sinks)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged forward for device {q.device}")
     _check_cuda_inputs(q, k, v)
@@ -368,14 +412,16 @@ def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         kv_lens.data_ptr(), q_offsets.data_ptr(),
         b, hq, k.shape[1], n, k.shape[2], d, float(sm_scale * _LOG2E),
-        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream,
+        int(bool(causal)), int(window), int(sinks),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     flash_attention_ragged.launches += 1
+    flash_attention_ragged.window_launches += bool(window)
     _build.check(rc, "flash_fwd_ragged")
     return o
 
 
-def _ragged_unsupported(name, stable, window, sinks):
+def _ragged_unsupported(name, stable):
     """The ragged forward's options still to port (ROADMAP item A.1);
     stable="auto" is the online path, as in the JAX package, whose ragged
     kernel has no hybrid."""
@@ -384,8 +430,6 @@ def _ragged_unsupported(name, stable, window, sinks):
             f"{name}: only stable=True is ported; the fixed-max discipline is "
             "ROADMAP item A.1"
         )
-    if window is not None or sinks:
-        raise NotImplementedError(f"{name}: window/sinks are ROADMAP item A.1")
 
 
 def flash_attention_ragged(
@@ -407,38 +451,45 @@ def flash_attention_ragged(
     q [B, Hq, N, D]; k, v [B, Hkv, S_max, D] (e.g. the cache buffers);
     kv_lens [B] int32, the valid keys of each row; q_offsets [B] int32, the
     position of query 0. Query i of row b attends key j iff j < kv_lens[b]
-    and, when causal, j <= i + q_offsets[b]; a row that sees no key gives
-    zeros. Forward only (the serving path). Returns [B, Hq, N, D] in q's
+    and, when causal, j <= i + q_offsets[b]; window and sinks narrow that
+    as flash_attention's do; a row that sees no key gives zeros. Forward only (the serving path). Returns [B, Hq, N, D] in q's
     dtype. stable="auto" is the online path, as in the JAX package, whose
     ragged kernel has no hybrid.
     """
-    _ragged_unsupported("flash_attention_ragged", stable, window, sinks)
-    return _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale)
+    _ragged_unsupported("flash_attention_ragged", stable)
+    window, sinks = _band(causal, window, sinks)
+    return _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale, window,
+                       sinks)
 
 
-flash_attention_ragged.launches = 0  # kernel launches, for showing that a path ran the kernel
+# kernel launches, for showing that a path ran the kernel, and those of
+# them with a window
+flash_attention_ragged.launches = 0
+flash_attention_ragged.window_launches = 0
 
 
 def _fwd_ragged_q_plain(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
-                       causal, sm_scale):
+                       causal, sm_scale, window=0, sinks=0):
     """The 8-bit ragged forward in plain PyTorch: the cache dequantized to
     float32 (values times their per-token scales), then `_fwd_ragged_plain`."""
     return _fwd_ragged_plain(q, k_q.float() * k_scale, v_q.float() * v_scale,
-                             kv_lens, q_offsets, causal, sm_scale)
+                             kv_lens, q_offsets, causal, sm_scale, window,
+                             sinks)
 
 
 @functools.cache
 def _ragged_kernel_q():
     """fkp_flash_fwd_ragged_q: q, k, k_scale, v, v_scale, o, kv_lens,
-    q_offsets, then (b, hq, hkv, n, s_max, d), a float scale, causal, fp8
-    and the stream."""
+    q_offsets, then (b, hq, hkv, n, s_max, d), a float scale, (causal,
+    window, sinks), fp8 and the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_flash_fwd_ragged_q",
-                         [vp] * 8 + [i32] * 6 + [ctypes.c_float, i32, i32, vp])
+                         [vp] * 8 + [i32] * 6 + [ctypes.c_float] + [i32] * 4
+                         + [vp])
 
 
 def _fwd_ragged_q_cuda(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
-                       causal, sm_scale):
+                       causal, sm_scale, window=0, sinks=0):
     check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
                      "8-bit ragged forward")
     _check_ragged_bounds(q, kv_lens, q_offsets)
@@ -455,11 +506,12 @@ def _fwd_ragged_q_cuda(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
         q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
         v_scale.data_ptr(), o.data_ptr(), kv_lens.data_ptr(),
         q_offsets.data_ptr(), b, hq, k_q.shape[1], n, k_q.shape[2], d,
-        float(sm_scale * _LOG2E), int(bool(causal)),
+        float(sm_scale * _LOG2E), int(bool(causal)), int(window), int(sinks),
         int(k_q.dtype == torch.float8_e4m3fn),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     flash_attention_ragged_kv_quant.launches += 1
+    flash_attention_ragged_kv_quant.window_launches += bool(window)
     _build.check(rc, "flash_fwd_ragged_q")
     return o
 
@@ -486,14 +538,15 @@ def flash_attention_ragged_kv_quant(
     CPU tensors run `_fwd_ragged_q_plain`; CUDA tensors launch the 8-bit
     kernel of csrc/flash_fwd_ragged.cu (q bf16, d in {64, 128}, int32
     bounds on the device) or raise."""
-    _ragged_unsupported("flash_attention_ragged_kv_quant", stable, window, sinks)
+    _ragged_unsupported("flash_attention_ragged_kv_quant", stable)
+    window, sinks = _band(causal, window, sinks)
     if q.shape[1] % k_q.shape[1]:
         raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
                          f"{k_q.shape[1]}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     args = (q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets, causal,
-            sm_scale)
+            sm_scale, window, sinks)
     if q.device.type == "cpu":
         return _fwd_ragged_q_plain(*args)
     if q.device.type == "cuda":
@@ -501,5 +554,7 @@ def flash_attention_ragged_kv_quant(
     raise ValueError(f"no ragged forward for device {q.device}")
 
 
-# kernel launches, for showing that a path ran the kernel
+# kernel launches, for showing that a path ran the kernel, and those of
+# them with a window
 flash_attention_ragged_kv_quant.launches = 0
+flash_attention_ragged_kv_quant.window_launches = 0

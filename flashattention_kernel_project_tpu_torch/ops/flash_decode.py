@@ -5,7 +5,8 @@ Counterpart of flashattention_kernel_project_tpu/ops/flash_decode.py
 (`flash_decode`, `flash_decode_int8`, `flash_decode_fp8`,
 `merge_partials`). The cache's key axis is cut into `n_splits` independent
 splits; each emits unnormalized partials (m, l, y) over its keys below
-`lengths`, and `merge_partials` combines them. On a CUDA tensor the
+`lengths` (with a sliding window, only the band's keys and the sinks), and
+`merge_partials` combines them. On a CUDA tensor the
 partials come from the hand-written Hopper kernels in csrc/flash_decode.cu
 (one for a bf16 cache, one for an int8 or e4m3 cache with per-token
 scales); on a CPU tensor from `_decode_partials_plain` and
@@ -23,6 +24,7 @@ import math
 import torch
 
 from flashattention_kernel_project_tpu_torch.ops import _build
+from flashattention_kernel_project_tpu_torch.ops.flash_attention import _band_mask
 from flashattention_kernel_project_tpu_torch.ops.quant import check_8bit_cache
 from flashattention_kernel_project_tpu_torch.ops.softmax import NEG_INF
 from flashattention_kernel_project_tpu_torch.utils.platform import H100_SMS
@@ -54,8 +56,23 @@ def merge_partials(m, l, y):
     return y_g / safe_l
 
 
-def _decode_partials_plain(q, k, v, lengths, n_splits, block_s, sm_scale):
-    """The kernel's partials in plain PyTorch, in float32."""
+def _decode_band(window, sinks):
+    """(window, sinks) as the kernels take them, window 0 meaning none. As
+    in the JAX decode, sinks count only under a window; window must be >=
+    1 (a ValueError where JAX asserts)."""
+    if window is not None and window < 1:
+        raise ValueError(f"window={window} must be >= 1")
+    if sinks < 0:
+        raise ValueError(f"sinks={sinks} must be >= 0")
+    return (window, sinks) if window is not None else (0, 0)
+
+
+def _decode_partials_plain(q, k, v, lengths, n_splits, block_s, sm_scale,
+                           window=0, sinks=0):
+    """The kernel's partials in plain PyTorch, in float32: keys below the
+    length, and with a window (> 0) only the last `window` of them and the
+    first `sinks` (the forward's band for the query at position length -
+    1)."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -67,8 +84,8 @@ def _decode_partials_plain(q, k, v, lengths, n_splits, block_s, sm_scale):
     qg = q.float().reshape(b, hkv, 1, g, d)
     scores = (qg @ kp.transpose(-1, -2)) * sm_scale  # [B, Hkv, splits, G, bs]
     col = torch.arange(n_splits * block_s, device=q.device)
-    live = col[None, :] < lengths.clamp(0, s).to(col.dtype)[:, None]
-    mask = live.view(b, 1, n_splits, 1, block_s)
+    pos = lengths.clamp(0, s).to(col.dtype)[:, None] - 1
+    mask = _band_mask(pos, col, window, sinks).view(b, 1, n_splits, 1, block_s)
     scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     # a dead split has m == NEG_INF, where exp(s - m) would be 1
@@ -84,7 +101,7 @@ def _kernel():
     return _build.kernel(
         "fkp_flash_decode",
         [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-         ctypes.c_float, vp],
+         ctypes.c_float, i32, i32, vp],
     )
 
 
@@ -118,7 +135,8 @@ def _check_decode_shapes(q, k, v, lengths):
         raise ValueError("empty cache")
 
 
-def _decode_partials_cuda(q, k, v, lengths, n_splits, block_s, sm_scale):
+def _decode_partials_cuda(q, k, v, lengths, n_splits, block_s, sm_scale,
+                          window=0, sinks=0):
     _check_cuda_inputs(q, k, v, lengths)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -132,9 +150,11 @@ def _decode_partials_cuda(q, k, v, lengths, n_splits, block_s, sm_scale):
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         m.data_ptr(), l.data_ptr(), y.data_ptr(),
-        b, hq, hkv, s, d, n_splits, block_s, float(sm_scale), stream,
+        b, hq, hkv, s, d, n_splits, block_s, float(sm_scale), int(window),
+        int(sinks), stream,
     )
     flash_decode.launches += 1
+    flash_decode.window_launches += bool(window)
     _build.check(rc, "flash_decode")
     return m, l, y
 
@@ -157,15 +177,15 @@ def flash_decode(
     [B, Hkv, S, D]; lengths [B] int32, the valid keys per sequence (keys
     [0, lengths) are attended; lengths above S count as S). Query head h
     reads KV head h // (Hq // Hkv). n_splits defaults to
-    `default_n_splits`. Returns [B, Hq, D] in q's dtype; a sequence of
+    `default_n_splits`. window: the query (at position lengths - 1) sees
+    only keys [lengths - window, lengths), plus the first `sinks` keys
+    (sinks count only with a window, as in the JAX decode); a split with no
+    such key loads nothing. Returns [B, Hq, D] in q's dtype; a sequence of
     length 0 gives zeros. CPU tensors run the plain version; CUDA tensors
     launch csrc/flash_decode.cu (bf16, contiguous, d in {64, 128},
     Hq/Hkv in {1, 2, 4, 8}) or raise.
     """
-    if window is not None or sinks:
-        raise NotImplementedError(
-            "flash_decode: window/sinks are ROADMAP item A.4"
-        )
+    window, sinks = _decode_band(window, sinks)
     if return_partials:
         raise NotImplementedError(
             "flash_decode: return_partials (seq-sharded decode) is ROADMAP "
@@ -182,43 +202,47 @@ def flash_decode(
     block_s = -(-s // n_splits)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    args = (q, k_cache, v_cache, lengths, n_splits, block_s, sm_scale, window,
+            sinks)
     if q.device.type == "cpu":
-        parts = _decode_partials_plain(
-            q, k_cache, v_cache, lengths, n_splits, block_s, sm_scale)
+        parts = _decode_partials_plain(*args)
     elif q.device.type == "cuda":
-        parts = _decode_partials_cuda(
-            q, k_cache, v_cache, lengths, n_splits, block_s, sm_scale)
+        parts = _decode_partials_cuda(*args)
     else:
         raise ValueError(f"no decode for device {q.device}")
     out = merge_partials(*parts)  # [B, Hkv, G, D]
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-flash_decode.launches = 0  # kernel launches, for showing that a path ran the kernel
+# kernel launches, for showing that a path ran the kernel, and those of
+# them with a window
+flash_decode.launches = 0
+flash_decode.window_launches = 0
 
 
 def _decode_partials_q_plain(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
-                             block_s, sm_scale):
+                             block_s, sm_scale, window=0, sinks=0):
     """The 8-bit kernel's partials in plain PyTorch: the cache dequantized
     to float32 (values times their per-token scales), then the bf16 plain
     path's arithmetic."""
     return _decode_partials_plain(q, k_q.float() * k_scale,
                                   v_q.float() * v_scale, lengths, n_splits,
-                                  block_s, sm_scale)
+                                  block_s, sm_scale, window, sinks)
 
 
 @functools.cache
 def _kernel_q():
     """fkp_flash_decode_q: q, k, k_scale, v, v_scale, lengths, m, l, y, then
-    (b, hq, hkv, s, d, n_splits, block_s), a float scale, fp8 and the
-    stream."""
+    (b, hq, hkv, s, d, n_splits, block_s), a float scale, (window, sinks),
+    fp8 and the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_flash_decode_q",
-                         [vp] * 9 + [i32] * 7 + [ctypes.c_float, i32, vp])
+                         [vp] * 9 + [i32] * 7 + [ctypes.c_float] + [i32] * 3
+                         + [vp])
 
 
 def _decode_partials_q_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
-                            block_s, sm_scale):
+                            block_s, sm_scale, window=0, sinks=0):
     check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
                      "8-bit decode")
     _check_decode_shapes(q, k_q, v_q, lengths)
@@ -234,10 +258,11 @@ def _decode_partials_q_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
         q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
         v_scale.data_ptr(), lengths.data_ptr(), m.data_ptr(), l.data_ptr(),
         y.data_ptr(), b, hq, hkv, s, d, n_splits, block_s, float(sm_scale),
-        int(k_q.dtype == torch.float8_e4m3fn),
+        int(window), int(sinks), int(k_q.dtype == torch.float8_e4m3fn),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     flash_decode_int8.launches += 1
+    flash_decode_int8.window_launches += bool(window)
     _build.check(rc, "flash_decode_q")
     return m, l, y
 
@@ -264,17 +289,15 @@ def flash_decode_int8(
     the result are flash_decode's. CPU tensors run
     `_decode_partials_q_plain`; CUDA tensors launch the 8-bit kernel of
     csrc/flash_decode.cu (q bf16, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8})
-    or raise. `flash_decode_fp8` is the same function.
+    or raise. window and sinks as flash_decode's. `flash_decode_fp8` is the
+    same function.
     """
     if mxu:
         raise NotImplementedError(
             "flash_decode_int8: mxu=True (the int8 x int8 decode kernel) is "
             "ROADMAP item A.7"
         )
-    if window is not None or sinks:
-        raise NotImplementedError(
-            "flash_decode_int8: window/sinks are ROADMAP item A.4"
-        )
+    window, sinks = _decode_band(window, sinks)
     if return_partials:
         raise NotImplementedError(
             "flash_decode_int8: return_partials (seq-sharded decode) is "
@@ -292,7 +315,7 @@ def flash_decode_int8(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     args = (q, k_q, k_scale, v_q, v_scale, lengths, n_splits, block_s,
-            sm_scale)
+            sm_scale, window, sinks)
     if q.device.type == "cpu":
         parts = _decode_partials_q_plain(*args)
     elif q.device.type == "cuda":
@@ -302,7 +325,10 @@ def flash_decode_int8(
     return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
 
 
-flash_decode_int8.launches = 0  # kernel launches, for showing that a path ran the kernel
+# kernel launches, for showing that a path ran the kernel, and those of
+# them with a window
+flash_decode_int8.launches = 0
+flash_decode_int8.window_launches = 0
 
 # an e4m3 cache takes the same function and kernel
 flash_decode_fp8 = flash_decode_int8

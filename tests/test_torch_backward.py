@@ -124,10 +124,23 @@ def test_bwd_takes_a_non_contiguous_do():
 
 
 @pytest.mark.parametrize("kwargs", [dict(window=8), dict(window=8, sinks=2)])
-def test_window_and_sinks_raise_with_gradients(kwargs):
-    q, k, v = (torch.zeros(1, 2, 8, 16, requires_grad=True) for _ in range(3))
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, k, v, causal=True, **kwargs)
+def test_window_and_sinks_gradients_match_jax(kwargs):
+    """window and sinks, once raising, now run in both directions: autograd
+    through the port's flash_attention against jax.grad through the JAX
+    one (tests/test_torch_window.py covers more shapes)."""
+    q, k, v, _ = _inputs(6, 1, 4, 2, 40, 40, 16)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal=True, block_q=16, block_k=16,
+                                interpret=True, **kwargs)
+        return jnp.sum(o * jnp.cos(o))
+
+    exp = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o = tfa.flash_attention(*ts, causal=True, **kwargs)
+    got = torch.autograd.grad((o * torch.cos(o)).sum(), ts)
+    for g, e in zip(got, exp):
+        assert_rel_l2(g.numpy(), np.asarray(e), tol=TOL)
 
 
 def test_cpu_backward_never_launches_kernels():

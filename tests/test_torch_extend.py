@@ -85,21 +85,29 @@ def test_flash_attention_ragged_matches_jax(d, causal):
 
 def test_flash_attention_ragged_options():
     """stable="auto" is the online path (as in the JAX package); the
-    fixed-max discipline and window/sinks raise, over a bf16 cache and over
-    an 8-bit one; CPU tensors leave the launch counter at 0."""
+    fixed-max discipline raises, over a bf16 cache and over an 8-bit one;
+    window and sinks run (tests/test_torch_window.py holds them to JAX) and
+    narrow what a row sees; CPU tensors leave the launch counter at 0."""
     q, k, v, kv_lens, q_offsets = (torch.from_numpy(x)
                                    for x in _ragged_inputs(1, 16))
     args = (q, k, v, kv_lens, q_offsets)
     torch.testing.assert_close(tfa.flash_attention_ragged(*args, stable="auto"),
                                tfa.flash_attention_ragged(*args), rtol=0, atol=0)
-    for kwargs in (dict(stable=False), dict(window=8), dict(window=8, sinks=2)):
-        with pytest.raises(NotImplementedError, match="A.1"):
-            tfa.flash_attention_ragged(*args, **kwargs)
+    with pytest.raises(NotImplementedError, match="A.1"):
+        tfa.flash_attention_ragged(*args, stable=False)
+    full = tfa.flash_attention_ragged(*args)
+    for kwargs in (dict(window=8), dict(window=8, sinks=2)):
+        got = tfa.flash_attention_ragged(*args, **kwargs)
+        assert got.shape == full.shape and torch.isfinite(got).all()
+        assert not torch.equal(got, full)  # the band bites
     k8, scale = k.to(torch.int8), torch.ones(*k.shape[:3], 1)
-    for kwargs in (dict(stable=False), dict(window=8)):
-        with pytest.raises(NotImplementedError, match="A.1"):
-            tfa.flash_attention_ragged_kv_quant(q, k8, scale, k8, scale, kv_lens,
-                                                q_offsets, **kwargs)
+    qargs = (q, k8, scale, k8, scale, kv_lens, q_offsets)
+    with pytest.raises(NotImplementedError, match="A.1"):
+        tfa.flash_attention_ragged_kv_quant(*qargs, stable=False)
+    got = tfa.flash_attention_ragged_kv_quant(*qargs, window=8)
+    torch.testing.assert_close(
+        got, tfa.flash_attention_ragged(q, k8.float(), k8.float(), kv_lens,
+                                        q_offsets, window=8))
     assert tfa.flash_attention_ragged.launches == 0
     bf = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(TypeError):  # int64 bounds are refused before any build

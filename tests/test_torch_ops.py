@@ -75,14 +75,29 @@ def test_flash_attention_matches_jax_default_path():
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(stable=False), dict(stable="auto"), dict(window=8),
-     dict(window=8, sinks=2), dict(k_max=1.0), dict(stack_group=True),
-     dict(pack_heads=True)],
+    [dict(stable=False), dict(stable="auto"), dict(k_max=1.0),
+     dict(stack_group=True), dict(pack_heads=True)],
 )
 def test_flash_attention_unported_options_raise(kwargs):
     q, k, v = (torch.zeros(1, 2, 8, 16) for _ in range(3))
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(q, k, v, causal=True, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(window=8), dict(window=8, sinks=2)])
+def test_flash_attention_window_options_match_jax(kwargs):
+    """window and sinks, once raising, now run and match the JAX forward
+    (tests/test_torch_window.py covers the band at more shapes)."""
+    q, k, v = _inputs(7, 1, 4, 2, 40, 40, 16)
+    jo = jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        block_q=16, block_k=16, interpret=True, **kwargs,
+    )
+    to = tfa.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, **kwargs,
+    )
+    assert_rel_l2(to.numpy(), np.asarray(jo), tol=TOL)
 
 
 def _decode_inputs(seed, b, hq, hkv, s, d):
@@ -134,14 +149,31 @@ def test_flash_decode_default_splits_fill_the_card():
     )
 
 
-@pytest.mark.parametrize(
-    "kwargs", [dict(window=8), dict(sinks=2), dict(return_partials=True)],
-)
+@pytest.mark.parametrize("kwargs", [dict(return_partials=True)])
 def test_flash_decode_unported_options_raise(kwargs):
     q = torch.zeros(1, 2, 16)
     kv = torch.zeros(1, 1, 8, 16)
     with pytest.raises(NotImplementedError):
         tfd.flash_decode(q, kv, kv, torch.ones(1, dtype=torch.int32), **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(window=8), dict(sinks=2)])
+def test_flash_decode_window_options_match_jax(kwargs):
+    """window and sinks, once raising, now run and match the JAX decode;
+    sinks without a window count for nothing there, as in JAX."""
+    q, k, v = _decode_inputs(8, 4, 4, 2, 48, 16)
+    lengths = np.array([0, 5, 30, 48], np.int32)
+    jo = jfd.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        n_splits=3, interpret=True, **kwargs,
+    )
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(lengths))
+    to = tfd.flash_decode(*args, n_splits=3, **kwargs)
+    assert_rel_l2(to.numpy(), np.asarray(jo), tol=TOL)
+    if "window" not in kwargs:
+        torch.testing.assert_close(to, tfd.flash_decode(*args, n_splits=3),
+                                   rtol=0, atol=0)
 
 
 def test_merge_partials_matches_jax():

@@ -264,6 +264,30 @@ def test_scheduler_paged_pool_exhaustion(both_params):
         sched.run()
 
 
+def test_failed_prefix_insert_drops_its_page_references(both_params):
+    """A prefix-cached insert that runs out of pages keeps no reference:
+    after the MemoryError each shared page's count equals its live holders,
+    and retiring the holder returns every page to the pool."""
+    _, tp = both_params
+    sched = Scheduler(CFG, tp, max_batch=2, max_len=64, paged=True,
+                      page_size=16, n_pages=5, prefix_cache=True)
+    base = _prompts(21, (40,))[0]  # two full pages and 8 tokens
+    first, second = _prompts(22, (1, 5), base=base)
+    sched.submit(first, max_new_tokens=7)   # 3 pages, 1 left free
+    sched.submit(second, max_new_tokens=8)  # shares 2 pages, needs 2 more
+    with pytest.raises(MemoryError):
+        sched.run()
+    holders = {}
+    for pages in sched._slot_pages:
+        for pid in pages:
+            holders[pid] = holders.get(pid, 0) + 1
+    assert len(holders) == 3 and sched._page_refs == holders
+    assert not sched._slot_pages[1] and not sched.cache.block_tables[1].any()
+    sched._release_slot(0)
+    assert sched._pool.free_pages == sched._n_pages - 1
+    assert not sched._page_refs and not sched._prefix_index
+
+
 @pytest.mark.parametrize("aligned", [False, True])
 def test_scheduler_prefix_cache_matches_jax(both_params, aligned):
     """Two live requests with a common prefix share its full pages

@@ -321,3 +321,69 @@ def test_quantized_scheduler_prefix_cache_matches_jax(both_params):
     assert [out[u] for u in uids] == jout
     assert sched._pool.free_pages == sched._n_pages - 1
     assert not sched._prefix_index and not sched._page_refs
+
+
+# a bf16 model a little wider than CFG, for the cached-decode gap
+GAP_WIDTHS = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                  n_kv_heads=2, d_head=32, d_ff=256)
+
+
+def _decode_gap(prefill, decode_step, forward, toks, n_prompt):
+    """rel-L2 of the logits of prefill(prompt) and teacher-forced decode
+    steps over the rest of `toks` against one full forward over `toks`."""
+    steps = [prefill(toks[:, :n_prompt])]
+    for i in range(n_prompt, toks.shape[1]):
+        steps.append(decode_step(toks[:, i]))
+    full = forward(toks)[:, n_prompt - 1:]
+    return float(np.linalg.norm(np.stack(steps, 1) - full) / np.linalg.norm(full))
+
+
+@pytest.mark.parametrize("window", [None, 12])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_8bit_cache_decode_gap_equals_jax(fmt, window):
+    """The e4m3 bound (ROADMAP C): the same bf16 params and tokens through
+    each package's 8-bit cached decode (JAX in interpret mode, the port's
+    plain path), each against its own full forward, with and without a
+    sliding window (12 keys and 2 sinks, bitten by every decode step). The
+    port's gap is JAX's (int8 ~1.3e-2, e4m3 ~3.7e-2 here), so what the card
+    shows above the JAX suite's 5e-2 is the format's error on top of the
+    bf16 floor, not the port's."""
+    band = dict(attn_window=window, attn_sinks=2 if window else 0)
+    jcfg = jmodels.TransformerConfig(**GAP_WIDTHS, **band, dtype=jnp.bfloat16,
+                                     block_q=32, block_k=32)
+    cfg = transformer.TransformerConfig(**GAP_WIDTHS, **band,
+                                        dtype=torch.bfloat16)
+    jp = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = _to_torch(jp)
+    toks = np.random.default_rng(0).integers(0, 256, size=(2, 32)).astype(np.int32)
+    n_prompt = 24
+
+    jc = [jmodels.init_cache(jcfg, 2, 33, quantized=True, quant_fmt=fmt)]
+    jf = jmodels.fuse_decode_params(jcfg, jp)
+
+    def jprefill(t):
+        logits, jc[0] = jmodels.prefill(jcfg, jp, jnp.asarray(t), jc[0],
+                                        interpret=True)
+        return np.asarray(logits, np.float32)
+
+    def jstep(t):
+        logits, jc[0] = jmodels.decode_step(jcfg, jf, jnp.asarray(t), jc[0],
+                                            interpret=True)
+        return np.asarray(logits, np.float32)
+
+    cache = engine.init_cache(cfg, 2, 33, CPU, quantized=True, quant_fmt=fmt)
+    tf = engine.fuse_decode_params(cfg, tp)
+    jgap = _decode_gap(
+        jprefill, jstep,
+        lambda t: np.asarray(jmodels.forward(jcfg, jp, jnp.asarray(t)), np.float32),
+        toks, n_prompt)
+    tgap = _decode_gap(
+        lambda t: engine.prefill(cfg, tp, torch.from_numpy(t), cache)[0].numpy(),
+        lambda t: engine.decode_step(cfg, tf, torch.from_numpy(t), cache)[0].numpy(),
+        lambda t: transformer.forward(cfg, tp, torch.from_numpy(t)).numpy(),
+        toks, n_prompt)
+    # not larger than JAX's (a larger one would be the port's fault), and
+    # of the same size (JAX rounds its attention to bf16, the plain path
+    # does not, so the port's may be the smaller)
+    assert 0.8 * jgap <= tgap <= 1.1 * jgap, (fmt, window, tgap, jgap)
+    assert jgap < 5e-2  # tests/test_model.py:219's bound, at this width
