@@ -43,7 +43,25 @@ width, with random weights from a seed:
     benchmarks/bench_train.py (the same widths, 4 layers, batch 4, seq
     4096) on batches from the native TokenLoader, then the trained params
     through save_checkpoint / restore_checkpoint and the Scheduler; then 5
-    steps with a window of 1024 and 64 sinks, beside the causal ms/step.
+    steps with a window of 1024 and 64 sinks, beside the causal ms/step;
+  - the fixed-max and "auto" disciplines: kernel 1's fixed-max instances
+    at bench.py's shape (causal and full), a ragged one and run_all.py's
+    32K windowed rungs (window 4096, with and without 64 sinks, every row
+    against plain), the packed d=64 forward (kernel 2's counterpart) at
+    run_all.py's d64 rung, the hybrid at bench.py's shape and the d64
+    `_auto` rung on bounded inputs, on q x +-60 (equal to the stable
+    kernel within 1e-6), on mixed tiles and with a cached or over-estimated
+    k_max, kernel 3's fixed-max instances (bf16, int8, e4m3) at the
+    serving chunk, the dense 8-bit forward in each discipline and at
+    BASELINE.json config 5 (32/8 heads, 32K tokens, int8, the last 512
+    rows against plain), each against its plain version and timed beside
+    the stable kernel; bench.py's headline call (stable="auto" with a
+    cached k_max) with its TFLOP/s and share of 989; the serving model
+    with attn_stable=False through the Scheduler three ways (default,
+    prefill_chunk=256, int8 in chunks), its tokens audited against the
+    stable runs, and its cached decode against a full forward; the JAX
+    package's default model (d_head 64, attn_stable=False) serving 8
+    requests and taking 5 SGD steps through the packed forward.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card and prints no result without CUDA. Its last line
 is one JSON object:
@@ -915,14 +933,16 @@ def motif_corpus(cfg, n_tokens=1 << 17, motif_len=512):
     return np.resize(motif, n_tokens).astype(np.uint32)
 
 
-def phase_train(device, cfg, params, corpus, batch, seq, lr, steps, label):
+def phase_train(device, cfg, params, corpus, batch, seq, lr, steps, label,
+                kernels=None):
     """bench_train.py's training loop in the port: a seeded token file
     streamed through the native TokenLoader, one warm-up and `steps` timed
     sgd_train_steps. Every loss finite, the first within 1.0 of
     ln(vocab), a fixed held-out batch's loss lower after the steps, and
     (on a GPU) the forward and both backward kernels launched (with the
-    config's window, if it has one); then one step profiled. Returns the
-    trained params, the kernels' launch counts and the median ms/step."""
+    config's window, if it has one; `kernels` names the counters to read
+    instead); then one step profiled. Returns the trained params, the
+    kernels' launch counts and the median ms/step."""
     import shutil
     import tempfile
 
@@ -967,7 +987,7 @@ def phase_train(device, cfg, params, corpus, batch, seq, lr, steps, label):
                 end.synchronize()
                 times.append(start.elapsed_time(end))
                 losses.append(float(loss))
-            launches = {k: read_counters()[k] for k in (
+            launches = {k: read_counters()[k] for k in kernels or (
                 ("flash_fwd/window", "flash_bwd/window") if cfg.attn_window
                 else ("flash_fwd", "flash_bwd"))}
             peak = torch.cuda.max_memory_allocated()
@@ -985,8 +1005,9 @@ def phase_train(device, cfg, params, corpus, batch, seq, lr, steps, label):
     n_params = sum(x.numel() for x in tfm._leaves(params).values())
     ms = statistics.median(times)
     tok = batch * seq
-    log(f"train: {cfg.n_layers} layers x d_model {cfg.d_model}, batch {batch}"
-        f" x seq {seq}, window {cfg.attn_window}, sinks {cfg.attn_sinks}, SGD "
+    log(f"train: {cfg.n_layers} layers x d_model {cfg.d_model}, d_head "
+        f"{cfg.d_head}, batch {batch} x seq {seq}, window {cfg.attn_window}, "
+        f"sinks {cfg.attn_sinks}, attn_stable {cfg.attn_stable}, SGD "
         f"lr {lr}: losses " + " ".join(f"{x:.4f}" for x in losses)
         + f" | held-out {held0:.4f} -> {held1:.4f}")
     log(f"train: {ms:.2f} ms/step (median of {steps}; "
@@ -1105,29 +1126,41 @@ def _counters():
                 flash_decode_q=fd.flash_decode_int8,
                 paged_decode_q=pd.paged_flash_decode_quant,
                 flash_fwd_ragged_q=fa.flash_attention_ragged_kv_quant,
-                paged_extend_q=pd.paged_flash_extend_quant)
+                paged_extend_q=pd.paged_flash_extend_quant,
+                flash_fwd_q=fa.flash_attention_kv_quant)
+
+
+# the counters a wrapper keeps beside `.launches` (its online launches, or
+# all of them), by the suffix read_counters gives them
+COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
+                     hybrid="hybrid_launches", packed="packed_launches")
 
 
 def reset_counters():
-    """Every launch counter to 0, the windowed ones too."""
+    """Every launch counter to 0, those by window and discipline too."""
     for fn in _counters().values():
         fn.launches = 0
-        if hasattr(fn, "window_launches"):
-            fn.window_launches = 0
+        for attr in COUNTER_KINDS.values():
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def read_counters() -> dict:
-    """Launches by kernel name; a wrapper that also counts its launches
-    with a sliding window adds them as "<name>/window"."""
+    """Launches by kernel name: "<name>" counts the wrapper's online (or
+    only) launches; a wrapper that also counts its launches with a sliding
+    window, in the fixed-max or hybrid discipline, or through the packed
+    forward adds them as "<name>/window", "/fixed", "/hybrid", "/packed"."""
     out = {}
     for name, fn in _counters().items():
         out[name] = fn.launches
-        if hasattr(fn, "window_launches"):
-            out[f"{name}/window"] = fn.window_launches
+        for kind, attr in COUNTER_KINDS.items():
+            if hasattr(fn, attr):
+                out[f"{name}/{kind}"] = getattr(fn, attr)
     return out
 
 
 SLICE_METRICS = {}  # tag -> ServingMetrics of each slice served in this run
+SLICE_TOKENS = {}   # tag -> its tokens, in submission order
 
 
 def serve(device, cfg, params, prompts, max_new, kernels, label, tag, **kw):
@@ -1164,6 +1197,7 @@ def serve(device, cfg, params, prompts, max_new, kernels, label, tag, **kw):
     if device.type == "cuda" and not all(launches[k] for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     m = SLICE_METRICS[tag] = sched.metrics()
+    SLICE_TOKENS[tag] = [out[u] for u in uids]
     opts = ", ".join(  # a draft's config by its depth and width, not its params
         f"{k}={v.n_layers} layers d_ff {v.d_ff}" if k == "draft_cfg" else f"{k}={v}"
         for k, v in kw.items() if k != "draft_params")
@@ -1173,7 +1207,8 @@ def serve(device, cfg, params, prompts, max_new, kernels, label, tag, **kw):
         f"tok/s | TTFT mean {m.ttft_s_mean * 1e3:.1f} ms p95 "
         f"{m.ttft_s_p95 * 1e3:.1f} ms | latency mean "
         f"{m.latency_s_mean * 1e3:.1f} ms p95 {m.latency_s_p95 * 1e3:.1f} ms"
-        f" | kernel launches {launches} [{label}]")
+        f" | kernel launches { {k: n for k, n in launches.items() if n} } "
+        f"[{label}]")
     return sched, [out[u] for u in uids], launches
 
 
@@ -1946,6 +1981,86 @@ def phase_band_skip(device, label, b=1, hq=16, hkv=4, d=128):
                              "causal one (gate 0.4x): the band is not skipped")
 
 
+def phase_window_fixed(device, label, b=1, hq=16, hkv=4, d=128, chunk=2048):
+    """run_all.py's 32K fixed-max windowed rungs (`_win4k_fast`, window
+    4096, and `_win4k_sinks64_fast`, 64 sinks too) through
+    flash_attention(stable=False) and its _with_lse, with the launches of
+    those calls; every row of each, O and LSE, against `_fwd_plain`
+    (fixed-max) taken `chunk` query rows at a time (all rows at once would
+    need 64 GB of scores). The rung with sinks timed beside the online
+    windowed kernel in turns, the chunked plain version, and SDPA with the
+    band mask (memory-efficient backend, K/V expanded to the q heads)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    n, window = LONG["n"], LONG["window"]
+    gen = torch.Generator(device=device).manual_seed(53)
+    q, k, v = _qkv(gen, device, b, hq, hkv, n, n, d)
+    scale = d ** -0.5
+    entry = _disc_entry("flash_fwd (fixed, window)", "flash_fwd.cu",
+                        "flash_attention.py:92")
+
+    def plain(sinks):
+        parts = [fa._fwd_plain(q[:, :, i:i + chunk], k, v, True, scale, i,
+                               window, sinks, fa.FIXED)
+                 for i in range(0, n, chunk)]
+        return (torch.cat([o for o, _ in parts], dim=2),
+                torch.cat([lse for _, lse in parts], dim=2))
+
+    checks = []
+    reset_counters()
+    for sinks in (0, LONG["sinks"]):
+        o = fa.flash_attention(q, k, v, causal=True, stable=False,
+                               window=window, sinks=sinks)
+        _, lse = fa.flash_attention_with_lse(q, k, v, causal=True, stable=False,
+                                             window=window, sinks=sinks)
+        po, plse = plain(sinks)
+        err = _hold(f"32K windowed fixed-max, sinks {sinks}", entry, o, po, lse,
+                    plse)
+        checks.append(f"sinks {sinks}: O rel-L2 {err:.3e}, LSE ok")
+        del po, plse
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if launches["flash_fwd/fixed"] != 4 or launches["flash_fwd/window"] != 4:
+        raise AssertionError(f"the windowed fixed-max calls launched {launches}")
+    entry["launches"] = launches["flash_fwd/fixed"]
+    band = (q, k, v, True, scale, 0, window, sinks)
+    fixed = lambda: fa._fwd(*band, fa.FIXED)  # noqa: E731
+    online = lambda: fa._fwd(*band)  # noqa: E731
+    f1 = time_ms(fixed, device, iters=3, graph=True)
+    s1 = time_ms(online, device, iters=3, graph=True)
+    s2 = time_ms(online, device, iters=3, graph=True)
+    f2 = time_ms(fixed, device, iters=3, graph=True)
+    f_ms, s_ms = min(f1, f2), min(s1, s2)
+    plain_ms = time_ms(lambda: plain(sinks), device, iters=1, reps=3)
+    group = hq // hkv
+    ke, ve = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    mask = band_mask(n, n, 0, window, sinks, device)
+
+    def library():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+
+    library_ms = time_ms(library, device, iters=3, graph=True)
+    del ke, ve, mask
+    pairs = b * hq * band_pairs(n, n, 0, window, sinks)
+    bnd = bound(4 * d * pairs, nbytes(q, k, v, o, lse))
+    shape = f"b{b} hq{hq} hkv{hkv} n{n} d{d} window{window} sinks{sinks}"
+    log(f"flash_fwd (fixed, window) {shape}: " + "; ".join(checks) + " | "
+        f"kernel {f_ms:.4f} ms ({4 * d * pairs / f_ms / 1e9:.1f} TFLOP/s over "
+        f"the band) vs the online windowed kernel {s_ms:.4f} ms "
+        f"({s_ms / f_ms:.3f}x), plain ({chunk}-row chunks) {plain_ms:.4f} ms, "
+        f"SDPA with the band mask {library_ms:.4f} ms | bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) | launches "
+        f"{entry['launches']} [{label}]")
+    entry.update(ms=f_ms, plain_ms=plain_ms, online_ms=s_ms,
+                 library_ms=library_ms, **bnd, shape=shape)
+    return entry
+
+
 def phase_window_ragged(device, b, hq, hkv, t, s, lens, offs, d, window, sinks,
                         label):
     """The ragged forward with a window and sinks against
@@ -2196,9 +2311,10 @@ def plain_attention():
 
     saved = fa._fwd, fd._decode_partials_cuda, fd._decode_partials_q_cuda
 
-    def fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0):
+    def fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0,
+            disc=fa.ONLINE, k_max=None, pack=False):
         return fa._fwd_plain(q, k, v, causal, sm_scale or q.shape[-1] ** -0.5,
-                             q_offset, window, sinks)
+                             q_offset, window, sinks, disc, k_max)
 
     fa._fwd = fwd
     fd._decode_partials_cuda = fd._decode_partials_plain
@@ -2296,6 +2412,533 @@ def phase_window_slices(device, cfg, params, draft_cfg, draft_params, prompts,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The fixed-max and "auto" disciplines: kernel 1's fixed-max and hybrid
+# instances, kernel 2's counterpart (the packed d=64 forward), kernel 3's
+# fixed-max instances, the dense 8-bit forward, bench.py's headline call,
+# and the models with attn_stable=False served and trained.
+# ---------------------------------------------------------------------------
+
+# the JAX package's default TransformerConfig() (d_head 64, 16/4 heads)
+JAX_DEFAULT = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
+                   n_kv_heads=4, d_head=64, d_ff=2816)
+# BASELINE.json config 5 (benchmarks/run_all.py:430-441): GQA 32/8, d 128,
+# 32K tokens over an int8 KV cache, fixed-max
+CONFIG5 = dict(hq=32, hkv=8, n=32768, d=128)
+# "auto" where every block runs online, against stable=True
+# (tests/test_flash_attention.py:135)
+SAME_TOL = 1e-6
+TURN_BLOCKS = 2  # stable-fixed-fixed-stable blocks of the default slice
+PEAK_TFLOPS = 989.0  # bf16 dense, the H100 SXM at 700 W
+
+
+def _disc_entry(name, source, replaces, library_ms=None):
+    return dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
+                replaces=f"{TPU}/{replaces}", max_abs_err=0.0,
+                library_ms=library_ms)
+
+
+def _hold(what, entry, o, po, lse=None, plse=None):
+    """kernel_8bit_check's O gate for any cache, and the LSE within
+    LSE_TOL of the plain version's. Returns the O rel-L2."""
+    import torch
+
+    err, _ = kernel_8bit_check(what, o, po, entry, "O")
+    if lse is not None:
+        if not torch.isfinite(lse).all():
+            raise AssertionError(f"{what}: non-finite LSE")
+        torch.testing.assert_close(lse, plse, rtol=LSE_TOL, atol=LSE_TOL)
+    return err
+
+
+def _qkv(gen, device, b, hq, hkv, n, s, d):
+    import torch
+
+    return (torch.randn(b, hq, n, d, generator=gen, device=device).bfloat16(),
+            torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16(),
+            torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16())
+
+
+def phase_fixed(device, shapes, label):
+    """Kernel 1's fixed-max instances against `_fwd_plain` in the fixed
+    discipline, bf16, O and LSE, at each (b, hq, hkv, n, s, d, causal,
+    q_offset); each timed beside the stable kernel at the same shape and
+    SDPA. The first shape (bench.py's) stands for the kernel."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(71)
+    entry = _disc_entry("flash_fwd (fixed)", "flash_fwd.cu", "flash_attention.py:92")
+    for i, (b, hq, hkv, n, s, d, causal, q_off) in enumerate(shapes):
+        q, k, v = _qkv(gen, device, b, hq, hkv, n, s, d)
+        args = (q, k, v, causal, d ** -0.5, q_off, 0, 0, fa.FIXED)
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                             q_offset=q_off, stable=False)
+        po, plse = fa._fwd_plain(*args)
+        err = _hold("flash_fwd (fixed)", entry, o, po, lse, plse)
+        del po, plse
+        ms, plain_ms = time_pair(lambda: fa._fwd(*args),
+                                 lambda: fa._fwd_plain(*args), device)
+        stable_ms = time_ms(lambda: fa._fwd(*args[:6]), device, graph=True)
+        library_ms = time_ms(sdpa_fn(q, k, v, causal=causal) if q_off == 0 else
+                             sdpa_fn(q, k, v, mask=band_mask(n, s, q_off, 0, 0,
+                                                             device)),
+                             device, graph=True)
+        pairs = b * hq * visible_pairs(n, s, q_off, causal)
+        bnd = bound(4 * d * pairs, nbytes(q, k, v, o, lse))
+        shape = (f"b{b} hq{hq} hkv{hkv} n{n} s{s} d{d} causal={causal} "
+                 f"q_offset={q_off}")
+        log(f"flash_fwd (fixed) {shape}: O rel-L2 {err:.3e}, LSE ok | kernel "
+            f"{ms:.4f} ms ({4 * d * pairs / ms / 1e9:.1f} TFLOP/s) vs the "
+            f"stable kernel {stable_ms:.4f} ms ({stable_ms / ms:.3f}x), plain "
+            f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms | bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{label}]")
+        if i == 0:
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         stable_ms=stable_ms, **bnd, shape=shape)
+    return entry
+
+
+def phase_packed(device, b, hq, hkv, n, d, label):
+    """Kernel 2's counterpart, the fixed-max d=64 forward that
+    flash_attention(stable=False) takes by default at d = 64 with an even
+    KV-head count, against `_fwd_plain` (fixed), O and LSE, at run_all.py's
+    d64 rung (causal); timed beside the stable d=64 kernel and SDPA."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(73)
+    entry = _disc_entry("flash_fwd_packed", "flash_fwd.cu",
+                        "flash_attention.py:710")
+    q, k, v = _qkv(gen, device, b, hq, hkv, n, n, d)
+    args = (q, k, v, True, d ** -0.5, 0)
+    before = fa._fwd.packed_launches
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=True, stable=False)
+    if fa._fwd.packed_launches != before + 1:
+        raise AssertionError("flash_attention(stable=False) at d=64 did not "
+                             "take the packed forward")
+    po, plse = fa._fwd_plain(*args, 0, 0, fa.FIXED)
+    err = _hold("flash_fwd_packed", entry, o, po, lse, plse)
+    del po, plse
+    ms, plain_ms = time_pair(lambda: fa._fwd(*args, 0, 0, fa.FIXED, pack=True),
+                             lambda: fa._fwd_plain(*args, 0, 0, fa.FIXED), device)
+    stable_ms = time_ms(lambda: fa._fwd(*args), device, graph=True)
+    library_ms = time_ms(sdpa_fn(q, k, v, causal=True), device, graph=True)
+    pairs = b * hq * visible_pairs(n, n, 0, True)
+    bnd = bound(4 * d * pairs, nbytes(q, k, v, o, lse))
+    shape = f"b{b} hq{hq} hkv{hkv} n{n} s{n} d{d} causal"
+    log(f"flash_fwd_packed {shape}: O rel-L2 {err:.3e}, LSE ok | kernel "
+        f"{ms:.4f} ms ({4 * d * pairs / ms / 1e9:.1f} TFLOP/s) vs the stable "
+        f"d=64 kernel {stable_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}) [{label}]")
+    entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 stable_ms=stable_ms, **bnd, shape=shape)
+    return entry
+
+
+def phase_hybrid(device, b, hq, hkv, n, d, label):
+    """Kernel 1's hybrid instance (stable="auto") at bench.py's shape or
+    run_all.py's d64 `_auto` rung (causal): on bounded inputs against
+    `_fwd_plain` routed by the same bound, O and LSE, with the launches of
+    that call; with q x 60 and q x -60, where every block's bound breaches,
+    equal to the stable kernel within SAME_TOL; on mixed tiles (every other
+    64-row tile x 60) against the plain version; with k_max_norm(k) passed
+    in, bit-equal to the call without; with k_max = 1e6 equal to the stable
+    kernel within SAME_TOL. Timed on the bounded inputs beside the
+    fixed-max and stable kernels and SDPA."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(79)
+    entry = _disc_entry(f"flash_fwd (hybrid, d={d})", "flash_fwd.cu",
+                        "flash_attention.py:92")
+    q, k, v = _qkv(gen, device, b, hq, hkv, n, n, d)
+    scale = d ** -0.5
+    k_max = fa.k_max_norm(k)
+
+    def fixed_share(x, km):
+        return float(fa._fixed_rows(x, scale, fa.HYBRID, km).float().mean())
+
+    reset_counters()
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=True, stable="auto")
+    torch.cuda.synchronize()
+    entry["launches"] = read_counters()["flash_fwd/hybrid"]
+    po, plse = fa._fwd_plain(q, k, v, True, scale, 0, 0, 0, fa.HYBRID, k_max)
+    err = _hold("flash_fwd (hybrid)", entry, o, po, lse, plse)
+    del po, plse
+    checks = [f"bounded O rel-L2 {err:.3e} ({fixed_share(q, k_max):.3f} of the "
+              "rows fixed-max), LSE ok"]
+    attend = lambda x, **kw: fa.flash_attention(x, k, v, causal=True, **kw)  # noqa: E731
+    for mult in (60.0, -60.0):
+        qx = (q.float() * mult).bfloat16()
+        if fixed_share(qx, k_max) != 0.0:
+            raise AssertionError(f"q x {mult}: a block passed the bound")
+        same = _rel_l2(attend(qx, stable="auto"), attend(qx))
+        if not same <= SAME_TOL:
+            raise AssertionError(f"hybrid with q x {mult}: rel-L2 {same:.3e} "
+                                 f"from the stable kernel > {SAME_TOL}")
+        checks.append(f"q x {mult:+.0f} vs stable {same:.3e}")
+    tiles = (torch.arange(n, device=device) // 64) % 2 == 0
+    qm = torch.where(tiles[:, None], q.float() * 60.0, q.float()).bfloat16()
+    om = attend(qm, stable="auto")
+    pm = fa._fwd_plain(qm, k, v, True, scale, 0, 0, 0, fa.HYBRID, k_max)[0]
+    errm = _hold("flash_fwd (hybrid), mixed tiles", entry, om, pm)
+    checks.append(f"mixed tiles ({fixed_share(qm, k_max):.3f} fixed-max) vs "
+                  f"plain {errm:.3e}, vs stable {_rel_l2(om, attend(qm)):.3e}")
+    del om, pm
+    if not torch.equal(attend(q, stable="auto", k_max=k_max),
+                       attend(q, stable="auto")):
+        raise AssertionError("hybrid with k_max_norm(k) is not bit-equal")
+    over = _rel_l2(attend(q, stable="auto", k_max=1e6), attend(q))
+    if not over <= SAME_TOL:
+        raise AssertionError(f"hybrid with k_max 1e6: {over:.3e} from stable")
+    checks.append(f"k_max_norm(k) bit-equal, k_max 1e6 vs stable {over:.3e}")
+    args = (q, k, v, True, scale, 0, 0, 0)
+    ms, plain_ms = time_pair(lambda: fa._fwd(*args, fa.HYBRID, k_max),
+                             lambda: fa._fwd_plain(*args, fa.HYBRID, k_max),
+                             device)
+    fixed_ms = time_ms(lambda: fa._fwd(*args, fa.FIXED), device, graph=True)
+    stable_ms = time_ms(lambda: fa._fwd(*args), device, graph=True)
+    library_ms = time_ms(sdpa_fn(q, k, v, causal=True), device, graph=True)
+    pairs = b * hq * visible_pairs(n, n, 0, True)
+    bnd = bound(4 * d * pairs, nbytes(q, k, v, o, lse, k_max))
+    shape = f"b{b} hq{hq} hkv{hkv} n{n} s{n} d{d} causal"
+    log(f"flash_fwd (hybrid, d={d}) {shape}: " + "; ".join(checks) + f" | kernel "
+        f"{ms:.4f} ms ({4 * d * pairs / ms / 1e9:.1f} TFLOP/s) vs fixed-max "
+        f"{fixed_ms:.4f} ms, stable {stable_ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, SDPA {library_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}) [{label}]")
+    entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 fixed_ms=fixed_ms, stable_ms=stable_ms, **bnd, shape=shape)
+    return entry
+
+
+def phase_ragged_fixed(device, b, hq, hkv, t, s, lens, offs, d, label):
+    """Kernel 3's fixed-max instances at the serving chunk: the bf16 ragged
+    forward against `_fwd_ragged_plain` and the 8-bit one (int8, e4m3)
+    against `_fwd_ragged_q_plain`, both fixed-max; each timed beside the
+    online kernel on the same cache. Returns the bf16 and the 8-bit
+    (int8-timed) entries."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(83)
+    entry = _disc_entry("flash_fwd_ragged (fixed)", "flash_fwd_ragged.cu",
+                        "flash_attention.py:1582")
+    entry_q = _disc_entry("flash_fwd_ragged_q (fixed)", "flash_fwd_ragged.cu",
+                          "flash_attention.py:1582")
+    q, k, v = _qkv(gen, device, b, hq, hkv, t, s, d)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
+    q_offsets = torch.tensor(offs, dtype=torch.int32, device=device)
+    args = (q, k, v, kv_lens, q_offsets, True, d ** -0.5)
+    o = fa.flash_attention_ragged(*args[:5], stable=False)
+    err = _hold("flash_fwd_ragged (fixed)", entry, o,
+                fa._fwd_ragged_plain(*args, 0, 0, fa.FIXED))
+    ms, plain_ms = time_pair(lambda: fa._fwd_ragged(*args, 0, 0, fa.FIXED),
+                             lambda: fa._fwd_ragged_plain(*args, 0, 0, fa.FIXED),
+                             device)
+    online_ms = time_ms(lambda: fa._fwd_ragged(*args), device, graph=True)
+    library_ms = time_ms(sdpa_fn(q, k, v, mask=fa._ragged_mask(
+        t, s, kv_lens, q_offsets, True)), device, graph=True)
+    pairs = hq * sum(visible_pairs(t, n, off, True) for n, off in zip(lens, offs))
+    bnd = bound(4 * d * pairs, nbytes(q, o, kv_lens, q_offsets)
+                + 2 * sum(lens) * hkv * d * 2)
+    shape = (f"b{b} hq{hq} hkv{hkv} t{t} s_max{s} d{d} kv_lens{lens} "
+             f"q_offsets{offs} causal")
+    log(f"flash_fwd_ragged (fixed) {shape}: rel-L2 {err:.3e} | kernel {ms:.4f} "
+        f"ms vs online {online_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with "
+        f"the mask {library_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}) [{label}]")
+    entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 online_ms=online_ms, **bnd, shape=shape)
+    for fmt in FMTS:
+        kq, ks = quantized(gen, device, (b, hkv, s, d), fmt)
+        vq, vs = quantized(gen, device, (b, hkv, s, d), fmt)
+        qargs = (q, kq, ks, vq, vs, kv_lens, q_offsets, True, d ** -0.5)
+        o8 = fa.flash_attention_ragged_kv_quant(*qargs[:7], stable=False)
+        err, _ = kernel_8bit_check("flash_fwd_ragged_q (fixed)", o8,
+                                   fa._fwd_ragged_q_plain(*qargs, 0, 0, fa.FIXED),
+                                   entry_q, fmt)
+        ms, plain_ms = time_pair(
+            lambda: fa._fwd_ragged_q_cuda(*qargs, 0, 0, fa.FIXED),
+            lambda: fa._fwd_ragged_q_plain(*qargs, 0, 0, fa.FIXED), device)
+        online_ms = time_ms(lambda: fa._fwd_ragged_q_cuda(*qargs), device,
+                            graph=True)
+        bnd = bound(4 * d * pairs, nbytes(q, o8, kv_lens, q_offsets)
+                    + bytes_8bit(sum(lens), hkv, d))
+        log(f"flash_fwd_ragged_q (fixed) {fmt} {shape}: rel-L2 {err:.3e} | "
+            f"kernel {ms:.4f} ms vs online {online_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}) [{label}]")
+        if fmt == "int8":
+            entry_q.update(ms=ms, plain_ms=plain_ms, online_ms=online_ms, **bnd,
+                           shape=shape)
+        else:
+            entry_q["fp8_ms"] = ms
+    return entry, entry_q
+
+
+def phase_kv_quant(device, b, hq, hkv, n, d, label):
+    """The dense 8-bit forward (flash_attention_kv_quant_with_lse) over int8
+    and e4m3 caches in each discipline against `_fwd_q_plain`, O and LSE,
+    at run_all.py's 4K kvq rung (causal); each timed, beside the bf16
+    fixed-max kernel on the dequantized cache. The int8 fixed-max time
+    stands for the kernel (library_ms null: no PyTorch call attends an
+    8-bit cache)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(89)
+    entry = _disc_entry("flash_fwd_q", "flash_fwd_q.cu", "flash_attention.py:92")
+    q = torch.randn(b, hq, n, d, generator=gen, device=device).bfloat16()
+    pairs = b * hq * visible_pairs(n, n, 0, True)
+    scale = d ** -0.5
+    for fmt in FMTS:
+        kq, ks = quantized(gen, device, (b, hkv, n, d), fmt)
+        vq, vs = quantized(gen, device, (b, hkv, n, d), fmt)
+        cache = (kq, ks, vq, vs)
+        k_max = fa.k_max_norm(kq, ks)
+        times = {}
+        for stable, disc in ((True, fa.ONLINE), (False, fa.FIXED),
+                             ("auto", fa.HYBRID)):
+            o, lse = fa.flash_attention_kv_quant_with_lse(q, *cache, causal=True,
+                                                          stable=stable)
+            args = (q, *cache, True, scale, 0, 0, 0, disc,
+                    k_max if disc == fa.HYBRID else None)
+            po, plse = fa._fwd_q_plain(*args)
+            err = _hold(f"flash_fwd_q {fmt} stable={stable}", entry, o, po, lse,
+                        plse)
+            del po, plse
+            times[stable] = time_pair(lambda: fa._fwd_q_cuda(*args),
+                                      lambda: fa._fwd_q_plain(*args), device)
+            log(f"flash_fwd_q {fmt} stable={stable!r} b{b} hq{hq} hkv{hkv} n{n} "
+                f"d{d} causal: O rel-L2 {err:.3e}, LSE ok | kernel "
+                f"{times[stable][0]:.4f} ms "
+                f"({4 * d * pairs / times[stable][0] / 1e9:.1f} TFLOP/s) vs "
+                f"plain {times[stable][1]:.4f} ms [{label}]")
+        kb, vb = dequantized_bf16(kq, ks), dequantized_bf16(vq, vs)
+        bf16_ms = time_ms(lambda: fa._fwd(q, kb, vb, True, scale, 0, 0, 0,
+                                          fa.FIXED), device, graph=True)
+        bnd = bound(4 * d * pairs, nbytes(q, o, lse) + bytes_8bit(b * n, hkv, d))
+        log(f"flash_fwd_q {fmt}: online {times[True][0]:.4f}, fixed-max "
+            f"{times[False][0]:.4f}, auto {times['auto'][0]:.4f} ms vs the bf16 "
+            f"fixed-max kernel on the dequantized cache {bf16_ms:.4f} ms | bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{label}]")
+        if fmt == "int8":
+            entry.update(ms=times[False][0], plain_ms=times[False][1],
+                         online_ms=times[True][0], auto_ms=times["auto"][0],
+                         bf16_ms=bf16_ms, **bnd,
+                         shape=f"b{b} hq{hq} hkv{hkv} n{n} d{d} causal, fixed-max")
+        else:
+            entry["fp8_ms"] = times[False][0]
+    return entry
+
+
+def phase_config5(device, entry, label, tail=512):
+    """BASELINE.json config 5 through flash_attention_kv_quant: 1 x 32/8
+    heads x 32768 x 128 over an int8 cache, causal, fixed-max (run_all.py's
+    rung); the last `tail` query rows held against `_fwd_q_plain` of those
+    rows (the whole plain forward would need 128 GiB of scores); timed
+    beside the online 8-bit kernel at the same shape. Returns the launches
+    of the 8-bit dense forward in this phase."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    hq, hkv, n, d = (CONFIG5[x] for x in ("hq", "hkv", "n", "d"))
+    gen = torch.Generator(device=device).manual_seed(97)
+    q = torch.randn(1, hq, n, d, generator=gen, device=device).bfloat16()
+    kq, ks = quantized(gen, device, (1, hkv, n, d), "int8")
+    vq, vs = quantized(gen, device, (1, hkv, n, d), "int8")
+    scale = d ** -0.5
+    reset_counters()
+    o = fa.flash_attention_kv_quant(q, kq, ks, vq, vs, causal=True, stable=False)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    po, _ = fa._fwd_q_plain(q[:, :, -tail:].contiguous(), kq, ks, vq, vs, True,
+                            scale, n - tail, 0, 0, fa.FIXED)
+    err = _hold("config 5", entry, o[:, :, -tail:], po)
+    del po
+    args = (q, kq, ks, vq, vs, True, scale, 0, 0, 0)
+    f1 = time_ms(lambda: fa._fwd_q_cuda(*args, fa.FIXED), device, iters=3,
+                 graph=True)
+    s1 = time_ms(lambda: fa._fwd_q_cuda(*args), device, iters=3, graph=True)
+    s2 = time_ms(lambda: fa._fwd_q_cuda(*args), device, iters=3, graph=True)
+    f2 = time_ms(lambda: fa._fwd_q_cuda(*args, fa.FIXED), device, iters=3,
+                 graph=True)
+    f_ms, s_ms = min(f1, f2), min(s1, s2)
+    flops = 4 * hq * d * visible_pairs(n, n, 0, True)
+    bnd = bound(flops, nbytes(q, o) + 4 * n * hq + bytes_8bit(n, hkv, d))
+    log(f"config 5: 1 x {hq}/{hkv} heads x {n} x {d}, int8 KV, causal, "
+        f"fixed-max: the last {tail} rows rel-L2 {err:.3e} vs plain | kernel "
+        f"{f_ms:.4f} ms ({flops / f_ms / 1e9:.1f} TFLOP/s) vs online "
+        f"{s_ms:.4f} ms ({flops / s_ms / 1e9:.1f} TFLOP/s) | bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) | launches "
+        f"{ {k: x for k, x in launches.items() if k.startswith('flash_fwd_q')} } "
+        f"[{label}]")
+    entry.update(config5_ms=f_ms, config5_online_ms=s_ms,
+                 config5_bound_ms=bnd["bound_ms"])
+    return sum(x for k, x in launches.items() if k.startswith("flash_fwd_q/")
+               or k == "flash_fwd_q")
+
+
+def phase_headline(device, entry, label):
+    """bench.py's headline call in the port: flash_attention(q, k, v,
+    causal=True, stable="auto", k_max=k_max_norm(k)) at 1 x 16/4 heads x
+    4096 x 128, bf16, inputs from numpy's generator at seed 42 as bench.py
+    draws them; its TFLOP/s with bench.py:79's FLOP count and its share of
+    the card's 989, beside the stable and fixed-max calls, "auto" without
+    a cached k_max, and SDPA, all timed in turns from CUDA graphs. The
+    output is held against the plain version. Returns the hybrid launches
+    of one headline call."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    B, H, HKV, N, D = 1, 16, 4, 4096, 128
+    rng = np.random.default_rng(42)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(device).bfloat16()
+               for shape in ((B, H, N, D), (B, HKV, N, D), (B, HKV, N, D)))
+    k_max = fa.k_max_norm(k)
+    call = lambda: fa.flash_attention(q, k, v, causal=True, stable="auto",  # noqa: E731
+                                      k_max=k_max)
+    reset_counters()
+    o = call()
+    torch.cuda.synchronize()
+    launches = read_counters()["flash_fwd/hybrid"]
+    if launches != 1:
+        raise AssertionError(f"the headline call launched {launches} hybrid kernels")
+    po = fa._fwd_plain(q, k, v, True, D ** -0.5, 0, 0, 0, fa.HYBRID, k_max)[0]
+    err = _hold("headline", entry, o, po)
+    del po
+    flops = 4 * B * H * N * N * D * 0.5  # bench.py:79
+    calls = dict(
+        auto=call,
+        stable=lambda: fa.flash_attention(q, k, v, causal=True),
+        fixed=lambda: fa.flash_attention(q, k, v, causal=True, stable=False),
+        auto_uncached=lambda: fa.flash_attention(q, k, v, causal=True,
+                                                 stable="auto"),
+        sdpa=sdpa_fn(q, k, v, causal=True))
+    ms = {name: [] for name in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for name in order:
+            ms[name].append(time_ms(calls[name], device, graph=True))
+    ms = {name: min(t) for name, t in ms.items()}
+    tf = {name: flops / t / 1e9 for name, t in ms.items()}
+    log(f"headline (bench.py:70-79): flash_attention(causal=True, "
+        f"stable=\"auto\", k_max=k_max_norm(k)) at {B}x{H}/{HKV}x{N}x{D} bf16: "
+        f"O rel-L2 {err:.3e} vs plain | {ms['auto']:.4f} ms = "
+        f"{tf['auto']:.1f} TFLOP/s, {100 * tf['auto'] / PEAK_TFLOPS:.1f}% of "
+        f"{PEAK_TFLOPS:.0f} | stable {ms['stable']:.4f} ms ({tf['stable']:.1f}),"
+        f" fixed-max {ms['fixed']:.4f} ms ({tf['fixed']:.1f}), auto without "
+        f"k_max {ms['auto_uncached']:.4f} ms ({tf['auto_uncached']:.1f}), SDPA "
+        f"{ms['sdpa']:.4f} ms ({tf['sdpa']:.1f} TFLOP/s) [{label}]")
+    entry.update(headline_ms=ms["auto"], headline_tflops=tf["auto"])
+    return launches
+
+
+def phase_fixed_slices(device, cfg, params, prompts, max_batch, max_len,
+                       max_new, tie, label):
+    """The serving model with attn_stable=False through the Scheduler three
+    ways: (i) the default mode, (ii) prefill in chunks of 256 (the ragged
+    forward), (iii) an int8 cache in chunks of 256 (the 8-bit ragged
+    forward and decode). Each must launch its fixed-max kernels and not
+    their online forms; greedy tokens against the stable run of the same
+    requests (the default slice, and the int8 linear slice for (iii)) with
+    every first divergence a near-tie (`tie`; an int8 one for (iii)).
+    Returns the launches of each run by its tag."""
+    runs = (  # tag, options, must launch, must not, stable tag
+        ("fixed slice", {}, ("flash_fwd/fixed", "flash_decode"),
+         ("flash_fwd", "flash_fwd/hybrid"), "slice"),
+        ("fixed slice (prefill_chunk=256)", dict(prefill_chunk=256),
+         ("flash_fwd_ragged/fixed", "flash_decode"), ("flash_fwd_ragged",),
+         "slice"),
+        ("fixed slice (int8, prefill_chunk=256)",
+         dict(quantized_cache=True, prefill_chunk=256),
+         ("flash_fwd_ragged_q/fixed", "flash_decode_q"), ("flash_fwd_ragged_q",),
+         "int8 slice (linear)"),
+    )
+    out = {}
+    for tag, kw, kernels, absent, ref_tag in runs:
+        sched, tokens, launches = serve(device, cfg, params, prompts, max_new,
+                                        kernels, label, tag, max_batch=max_batch,
+                                        max_len=max_len, **kw)
+        if any(launches[k] for k in absent):
+            raise AssertionError(f"{tag} ran an online forward: {launches}")
+        ref = SLICE_TOKENS[ref_tag]
+        audit = tie
+        if kw.get("quantized_cache"):
+            audit = NearTie(cfg, params, list(prompts[0]) + ref[0][:1],
+                            quantized=True)
+        windows, gaps = audit.audit(tokens, ref, prompts, tag)
+        same = np.mean([a == b for x, y in zip(tokens, ref) for a, b in zip(x, y)])
+        m, r = SLICE_METRICS[tag], SLICE_METRICS[ref_tag]
+        log(f"{tag} vs the stable {ref_tag} (same run): {m.tok_per_s:.1f} vs "
+            f"{r.tok_per_s:.1f} tok/s | TTFT mean {m.ttft_s_mean * 1e3:.1f} vs "
+            f"{r.ttft_s_mean * 1e3:.1f} ms | tokens equal {same:.4f}, "
+            f"{len(gaps)} divergences, all near-ties (gaps "
+            f"{[f'{g:.2e}' for g in gaps]}, bound {audit.bound:.2e}) [{label}]")
+        out[tag] = launches
+        del sched
+        if tag == "fixed slice":
+            # the host's drift over a run is of the order of what the
+            # discipline changes: the stable and the fixed-max default slice
+            # again in blocks of stable, fixed, fixed, stable, for paired
+            # readings
+            stable_cfg = dataclasses.replace(cfg, attn_stable=True)
+            turns = []
+            for _ in range(TURN_BLOCKS):
+                for what, c, must in (
+                        ("stable", stable_cfg, ("flash_fwd", "flash_decode")),
+                        ("fixed", cfg, kernels), ("fixed", cfg, kernels),
+                        ("stable", stable_cfg, ("flash_fwd", "flash_decode"))):
+                    again = f"{what} slice (turn {len(turns) + 1})"
+                    serve(device, c, params, prompts, max_new, must, label,
+                          again, max_batch=max_batch, max_len=max_len)
+                    turns.append((what, SLICE_METRICS[again].tok_per_s))
+            ratios = [(turns[i + 1][1] + turns[i + 2][1])
+                      / (turns[i][1] + turns[i + 3][1])
+                      for i in range(0, len(turns), 4)]
+            log(f"fixed slice in turns with the stable default slice: "
+                + ", ".join(f"{w} {r:.1f}" for w, r in turns) + " tok/s; "
+                f"fixed / stable by block {[f'{x:.3f}' for x in ratios]} "
+                f"[{label}]")
+    return out
+
+
+def phase_default_model(device, label):
+    """The JAX package's default config (d_model 1024, 8 layers, 16/4 heads
+    x 64, d_ff 2816) with attn_stable=False: 8 of the serving requests
+    through the default Scheduler, whose prefill must take the packed
+    forward (and no other dense one), then 5 SGD steps at batch 4 x 4096
+    through the packed forward and the backward kernels, the loss finite
+    and falling. Returns (the serving launches, the training launches)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(**JAX_DEFAULT, attn_stable=False,
+                                dtype=torch.bfloat16)
+    params = tfm.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                             device)
+    _, _, launches = serve(device, cfg, params, serving_prompts(cfg, 8), 64,
+                           ("flash_fwd/packed", "flash_decode"), label,
+                           "d64 fixed slice", max_batch=8, max_len=2048)
+    if launches["flash_fwd"] or launches["flash_fwd/fixed"]:
+        raise AssertionError(f"the d64 slice ran an unpacked forward: {launches}")
+    _, train_launches, _ = phase_train(
+        device, cfg, params, motif_corpus(cfg), TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR,
+        steps=5, label=label, kernels=("flash_fwd/packed", "flash_bwd"))
+    return launches, train_launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside chip_smoke.py: run it from a checkout "
@@ -2329,12 +2972,12 @@ def main() -> int:
         for line in f:
             entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
                               r"(?:I((?:L[ib]\d+E)+)(a|13__nv_fp8_e4m3)?"
-                              r"((?:Lb\dE)?))?", line)
-            if entry:  # e.g. flash_fwd_kernel<128,1,1>, flash_fwd_q_kernel<128,1,int8,0>
+                              r"((?:L[ib]\d+E)*))?", line)
+            if entry:  # e.g. flash_fwd_kernel<128,1,1,0>, flash_fwd_q_kernel<128,1,int8,0,1>
                 args = re.findall(r"\d+", entry.group(2) or "")
                 args += {"a": ["int8"], "13__nv_fp8_e4m3": ["e4m3"]}.get(
                     entry.group(3), [])
-                args += re.findall(r"\d", entry.group(4) or "")
+                args += re.findall(r"\d+", entry.group(4) or "")
                 kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
             if "registers" in line or "spill" in line:
                 log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
@@ -2387,12 +3030,33 @@ def main() -> int:
         (1, 16, 4, 512, 2048, 128, 1536, 256, 4),  # q_offset past the window
     ], label, entry_shape=1)
     phase_band_skip(device, label)
+    win_fix = phase_window_fixed(device, label)
     win_ragged, win_ragged_q = phase_window_ragged(
         device, 1, 16, 4, 256, 2304, [768], [512], 128, SERVING_WINDOW,
         SERVING_SINKS, label)
     win_dec, win_dec_q = phase_window_decode(
         device, 8, 16, 4, 2048, 128, [100, 255, 256, 257, 700, 1500, 2000, 2048],
         SERVING_WINDOW, SERVING_SINKS, label)
+    # the fixed-max and hybrid disciplines against their plain versions:
+    # kernel 1 fixed-max at bench.py's shape (causal and full) and a ragged
+    # one (the 32K windowed one is above), kernel 2's counterpart at
+    # run_all.py's d64 rung, kernel 1 hybrid at d=128 and d=64 on bounded,
+    # breaching and mixed inputs, kernel 3 fixed-max at the
+    # serving chunk, the dense 8-bit forward in each discipline and at
+    # BASELINE config 5, then bench.py's headline call
+    fix_fwd = phase_fixed(device, [
+        (1, 16, 4, 4096, 4096, 128, True, 0),   # bench.py's shape
+        (1, 16, 4, 4096, 4096, 128, False, 0),  # run_all.py's full rung
+        (2, 4, 2, 200, 333, 128, True, 133),    # ragged, causal, q_offset
+    ], label)
+    packed = phase_packed(device, 1, 16, 4, 4096, 64, label)
+    hyb_fwd = phase_hybrid(device, 1, 16, 4, 4096, 128, label)
+    hyb_fwd64 = phase_hybrid(device, 1, 16, 4, 4096, 64, label)  # the d64 rung
+    fix_ragged, fix_ragged_q = phase_ragged_fixed(
+        device, 1, 16, 4, 256, 2304, [768], [512], 128, label)
+    fwd_q = phase_kv_quant(device, 1, 16, 4, 4096, 128, label)
+    fwd_q["launches"] = phase_config5(device, fwd_q, label)
+    hyb_fwd["launches"] = phase_headline(device, hyb_fwd, label)
 
     # 3. the serving slices at the serving configuration: the default
     # Scheduler, the paged one (a page pool, a shared 384-token system
@@ -2494,6 +3158,21 @@ def main() -> int:
     phase_consistency(device, wcfg, params, n_prompt=640, n_steps=16,
                       label=label, quant_fmt="fp8",
                       tol=max(QUANT_LOGITS_TOL, fp8_ref) + wfloor)
+
+    # 7b. the serving model with attn_stable=False (the fixed-max forwards)
+    # on the same weights, three ways, each launch counter at 0 before it,
+    # then cached decode against its full forward
+    fcfg = tfm.TransformerConfig(**SERVING, attn_stable=False,
+                                 dtype=torch.bfloat16)
+    fixed = phase_fixed_slices(device, fcfg, params, prompts, max_batch=8,
+                               max_len=2048, max_new=64, tie=tie, label=label)
+    fix_fwd["launches"] = fixed["fixed slice"]["flash_fwd/fixed"]
+    fix_ragged["launches"] = fixed["fixed slice (prefill_chunk=256)"][
+        "flash_fwd_ragged/fixed"]
+    fix_ragged_q["launches"] = fixed["fixed slice (int8, prefill_chunk=256)"][
+        "flash_fwd_ragged_q/fixed"]
+    phase_consistency(device, fcfg, params, n_prompt=128, n_steps=16,
+                      label=label, what=" (attn_stable=False)")
     del params, sched
 
     # 8. the backward kernels against their plain version, without and with
@@ -2536,10 +3215,22 @@ def main() -> int:
     log(f"train with window {wcfg.attn_window} and {wcfg.attn_sinks} sinks: "
         f"{wtrain_ms:.2f} ms/step vs {train_ms:.2f} without (same run) [{label}]")
 
+    del params
+
+    # 12. the JAX package's default model (d_head 64) with attn_stable=False:
+    # 8 requests served and 5 SGD steps, through the packed forward
+    serve64, train64 = phase_default_model(device, label)
+    packed["launches"] = serve64["flash_fwd/packed"] + train64["flash_fwd/packed"]
+    log(f"packed forward launches: {serve64['flash_fwd/packed']} serving the "
+        f"d64 model, {train64['flash_fwd/packed']} in its 5 training steps")
+
     print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend, dec_q,
                                   paged_q, ragged_q, extend_q, win_fwd, win_dec,
                                   win_dec_q, win_ragged, win_ragged_q,
-                                  *win_bwd]}), flush=True)
+                                  *win_bwd, fix_fwd, win_fix, hyb_fwd,
+                                  hyb_fwd64, packed, fix_ragged, fix_ragged_q,
+                                  fwd_q]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -48,7 +48,10 @@ from flashattention_kernel_project_tpu_torch.runtime.data import (  # noqa: F401
 )
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention,
+    flash_attention_kv_quant,
+    flash_attention_kv_quant_with_lse,
     flash_attention_with_lse,
+    k_max_norm,
 )
 from flashattention_kernel_project_tpu_torch.ops.flash_decode import (  # noqa: F401
     flash_decode,

@@ -1,11 +1,12 @@
 // The tiled attention forward shared by flash_fwd.cu (the dense forward, O
-// and LSE), flash_fwd_ragged.cu (per-row KV lengths and query offsets, O
-// only) and paged_extend.cu (the ragged bounds over a page pool, with the
-// GQA group folded into the query rows, O only). One block body,
-// `fwd_block<D, kFlavour, KV>`, behind two kernels: `flash_fwd_kernel<D,
-// kFlavour>` over a bf16 cache and `flash_fwd_q_kernel<D, kFlavour, KV>`
-// over an 8-bit one (KV = int8_t or __nv_fp8_e4m3, the ragged and paged
-// flavours); each source file instantiates its own.
+// and LSE), flash_fwd_q.cu (the same over an 8-bit cache),
+// flash_fwd_ragged.cu (per-row KV lengths and query offsets, O only) and
+// paged_extend.cu (the ragged bounds over a page pool, with the GQA group
+// folded into the query rows, O only). One block body, `fwd_block<D,
+// kFlavour, kWindow, kDisc, KV>`, behind two kernels: `flash_fwd_kernel<D,
+// kFlavour, kWindow, kDisc>` over a bf16 cache and `flash_fwd_q_kernel<D,
+// kFlavour, KV, kWindow, kDisc>` over an 8-bit one (KV = int8_t or
+// __nv_fp8_e4m3); each source file instantiates its own.
 //
 // Softmax in the log2 domain (scores times sm_scale * log2(e)), the online
 // (m, l, acc) rescale with exp2, causal and tail masks, GQA with q head h
@@ -66,6 +67,36 @@
 // structure), double-buffered K/V tiles, and for the paged flavour a split
 // over pages (its grid is only B * Hkv blocks at the serving shape).
 //
+// The softmax discipline is a third template switch (kDisc), as the TPU
+// kernel's `stable` is a static argument:
+// - kOnline (stable=True): the running max m with the rescale of l and acc
+//   at every tile.
+// - kFixed (stable=False, the fixed-max discipline): m stays 0 for the
+//   row's whole life, so the tile max, its four shuffles and the rescale
+//   are gone; p = exp2(s), a masked lane's exp2(NEG_INF) is exactly 0, LSE
+//   = ln(l), and a row with no key still gives O = 0 and LSE = NEG_INF. It
+//   holds while every |s| (log2 domain) stays below 78 (_SAFE_BOUND of the
+//   TPU kernel): p then lies in [2^-78, 2^78], l and acc in f32 far from
+//   overflow, and the bf16 hi + lo split keeps its 16 bits, since bf16 has
+//   f32's exponent range. Outside it p overflows to inf and the output
+//   turns non-finite: the failure is loud, never a silent drift.
+// - kHybrid (stable="auto", dense only): each warp picks the discipline of
+//   its own 16 rows. It holds their Q fragments in registers, so it takes
+//   max_r ||q_r||^2 over them with seven shuffles, once, before the key
+//   loop, and runs fixed-max iff max_r ||q_r|| * |scale| * log2(e) *
+//   k_max < 78 (Cauchy-Schwarz bounds every score of those rows), online
+//   otherwise; a NaN or inf bound runs online. k_max = max_t ||k_t|| is a
+//   device f32 scalar read by pointer: the host never reads it. The TPU
+//   kernel takes the q half of the bound outside the kernel, per 512- or
+//   1024-row block, because a cross-lane reduce is dear there. The tile's
+//   products and softmax are compiled in both disciplines and each warp
+//   runs its own: a runtime branch around the max and the rescale alone
+//   left a fixed-max warp paying for the tile max and the masked select,
+//   at the online kernel's speed. A warp whose bound breaches runs exactly
+//   the online code, so on such inputs "auto" equals the online kernel.
+// The switch is compile-time for the reason kWindow is: a runtime term in
+// the key loop costs the causal online forward.
+//
 // 8-bit caches (one f32 scale per key and head for K and one for V): each
 // thread loads its 16-byte pieces of the tile's 8-bit K and V rows into
 // registers, all at once, and widens them exactly to bf16 in the shared
@@ -77,12 +108,16 @@
 // scales through the same table entry. The 8-bit tile does not go through
 // cp.async: a staging copy of it beside the bf16 tiles (16 KB more at
 // d = 128) would pass the 48 KB of static shared memory a block may hold.
+// The dense flavour over an 8-bit cache (flash_fwd_q.cu) writes its LSE
+// from registers, as the bf16 one does: no shared memory is added.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "widen.cuh"
 
@@ -96,6 +131,10 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
 enum Flavour : int { kDense = 0, kRagged = 1, kPaged = 2 };
+// the softmax discipline: stable=True, stable=False, stable="auto"
+enum Disc : int { kOnline = 0, kFixed = 1, kHybrid = 2 };
+// the log2-domain score bound under which fixed-max is sound (_SAFE_BOUND)
+constexpr float kSafeBound = 78.f;
 
 // What the paged flavour adds (ignored by the others).
 struct PagedArgs {
@@ -167,6 +206,19 @@ __device__ __forceinline__ void widen16_bf16(const uint4& r, __nv_bfloat16* dst)
   reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
+// a compile-time bool as a type, to pick a generic lambda's instance
+template <bool B>
+struct Bool {
+  static constexpr bool value = B;
+};
+
+// the sum of squares of a bf16 pair
+__device__ __forceinline__ float sq_bf16x2(uint32_t w) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  return f.x * f.x + f.y * f.y;
+}
+
 // p as a bf16 pair hi + lo with hi = bf16(p), lo = bf16(p - hi): about 16
 // significant bits, where bf16 alone keeps 8.
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
@@ -184,19 +236,23 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
 // [n_pages, hkv, page, D], hq == hkv and n = G * T (the folded group), row b
 // sees keys [0, min(kv_lens[b], max_pages * page)) and offset q_offsets[b].
 // KV: the cache's element type (__nv_bfloat16, or int8_t / __nv_fp8_e4m3
-// for the 8-bit ragged and paged flavours, which read qa's scales).
-template <int D, int kFlavour, bool kWindow, class KV>
+// for the 8-bit flavours, which read qa's scales). kDisc: the discipline;
+// k_max (kHybrid only): the device scalar max_t ||k_t|| of the keys as
+// they enter the scores (dequantized for 8 bits).
+template <int D, int kFlavour, bool kWindow, int kDisc, class KV>
 __device__ __forceinline__ void fwd_block(
     const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int hq, int hkv, int n, int s, float scale_log2,
     int causal, int q_offset, int window, int sinks,
     const int* __restrict__ kv_lens, const int* __restrict__ q_offsets,
-    PagedArgs pg, QuantArgs qa) {
+    PagedArgs pg, QuantArgs qa, const float* __restrict__ k_max) {
   constexpr bool kBounds = kFlavour != kDense;  // per-row bounds on the device
   constexpr bool kPagedKV = kFlavour == kPaged;
   constexpr bool kQuant = sizeof(KV) == 1;
   static_assert(!(kWindow && kPagedKV), "the paged flavour takes no window");
+  static_assert(kDisc == kOnline || !kPagedKV, "the paged flavour is online");
+  static_assert(kDisc != kHybrid || kFlavour == kDense, "hybrid is dense only");
   constexpr int kStride = D + 8;  // padded shared-memory row, in bf16
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
@@ -256,12 +312,36 @@ __device__ __forceinline__ void fwd_block(
     qf[kk][3] = load_q_pair<D>(q_bh, row1, c + 8, n);
   }
 
+  // this warp's discipline (uniform in the warp): fixed-max keeps m at 0
+  bool fixed = kDisc == kFixed;
+  if constexpr (kDisc == kHybrid) {
+    // ||q_r||^2 of rows row0 and row1: this thread's columns, then the
+    // row's four threads; then the max over the warp's 16 rows
+    float n0 = 0.f, n1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      n0 += sq_bf16x2(qf[kk][0]) + sq_bf16x2(qf[kk][2]);
+      n1 += sq_bf16x2(qf[kk][1]) + sq_bf16x2(qf[kk][3]);
+    }
+    n0 += __shfl_xor_sync(0xffffffffu, n0, 1);
+    n0 += __shfl_xor_sync(0xffffffffu, n0, 2);
+    n1 += __shfl_xor_sync(0xffffffffu, n1, 1);
+    n1 += __shfl_xor_sync(0xffffffffu, n1, 2);
+    float nmax = fmaxf(n0, n1);
+    nmax = fmaxf(nmax, __shfl_xor_sync(0xffffffffu, nmax, 4));
+    nmax = fmaxf(nmax, __shfl_xor_sync(0xffffffffu, nmax, 8));
+    nmax = fmaxf(nmax, __shfl_xor_sync(0xffffffffu, nmax, 16));
+    const float bound = sqrtf(nmax) * fabsf(scale_log2) * __ldg(k_max);
+    fixed = bound < kSafeBound;  // false for a NaN or inf bound
+  }
+
   float acc[D / 8][4];
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
     acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
   }
-  float m0 = kNegInf, m1 = kNegInf;  // running max, log2 domain
+  // running max, log2 domain (fixed-max: 0 for the row's whole life)
+  float m0 = fixed ? 0.f : kNegInf, m1 = m0;
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
   int n_tiles = (kv_len + kBlockN - 1) / kBlockN;
@@ -375,72 +455,30 @@ __device__ __forceinline__ void fwd_block(
     __syncthreads();
     if (!warp_live) continue;  // uniform in the warp; both barriers were met
 
-    // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys
-    float sc[kBlockN / 8][4];
+    // the tile's two products and softmax in one discipline (kF:
+    // fixed-max); the hybrid compiles both and each warp runs its own
+    auto tile = [&](auto fixed_max) {
+      constexpr bool kF = decltype(fixed_max)::value;
+      // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys
+      float sc[kBlockN / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kp = k_s + (nt * 8 + g) * kStride + kk * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
-        mma_16816(sc[nt], qf[kk], b0, b1);
-      }
-    }
-
-    // masks: element e of n-tile nt is (row0 if e < 2 else row1,
-    // key0 + nt*8 + 2t + (e & 1))
-    float tmax0 = kNegInf, tmax1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = key0 + nt * 8 + 2 * t + (e & 1);
-        const int pos = e < 2 ? pos0 : pos1;
-        const int band = e < 2 ? band0 : band1;
-        const bool ok = full || (col < kv_len && (!causal || (col <= pos &&
-                                 (!kWindow || col > band || col < sinks))));
-        // 8-bit: the key's K scale on its f32 score before the mask and max
-        const float sl = kQuant ? scale_log2 * kvs_s[0][col - key0] : scale_log2;
-        sc[nt][e] = ok ? sc[nt][e] * sl : kNegInf;
-        if (e < 2) {
-          tmax0 = fmaxf(tmax0, sc[nt][e]);
-        } else {
-          tmax1 = fmaxf(tmax1, sc[nt][e]);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const __nv_bfloat16* kp =
+              k_s + (nt * 8 + g) * kStride + kk * 16 + 2 * t;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
+          mma_16816(sc[nt], qf[kk], b0, b1);
         }
       }
-    }
-    tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 1));
-    tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 2));
-    tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 1));
-    tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 2));
-    const float mn0 = fmaxf(m0, tmax0);
-    const float mn1 = fmaxf(m1, tmax1);
-    const float r0 = exp2f(m0 - mn0);
-    const float r1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= r0;
-    l1 *= r1;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      acc[nd][0] *= r0;
-      acc[nd][1] *= r0;
-      acc[nd][2] *= r1;
-      acc[nd][3] *= r1;
-    }
 
-    // p = exp2(s - m), zeroed where masked: with the finite NEG_INF, a row
-    // that has seen no key yet has m == NEG_INF and exp2(s - m) == 1 there.
-    // l sums p in f32; p enters the PV product as a bf16 hi + lo pair.
-    uint32_t p_hi[kBlockN / 16][4], p_lo[kBlockN / 16][4];
+      // masks: element e of n-tile nt is (row0 if e < 2 else row1,
+      // key0 + nt*8 + 2t + (e & 1))
+      [[maybe_unused]] float tmax0 = kNegInf, tmax1 = kNegInf;  // online
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int nt = 2 * kk + half;
-        float p[4];
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = key0 + nt * 8 + 2 * t + (e & 1);
@@ -448,32 +486,102 @@ __device__ __forceinline__ void fwd_block(
           const int band = e < 2 ? band0 : band1;
           const bool ok = full || (col < kv_len && (!causal || (col <= pos &&
                                    (!kWindow || col > band || col < sinks))));
-          p[e] = ok ? exp2f(sc[nt][e] - (e < 2 ? m0 : m1)) : 0.f;
+          // 8-bit: the key's K scale on its f32 score before the mask and max
+          const float sl =
+              kQuant ? scale_log2 * kvs_s[0][col - key0] : scale_log2;
+          sc[nt][e] = ok ? sc[nt][e] * sl : kNegInf;
+          if constexpr (!kF) {
+            if (e < 2) {
+              tmax0 = fmaxf(tmax0, sc[nt][e]);
+            } else {
+              tmax1 = fmaxf(tmax1, sc[nt][e]);
+            }
+          }
         }
-        l0 += p[0] + p[1];
-        l1 += p[2] + p[3];
-        if constexpr (kQuant) {  // the V scale folds into p after l
-#pragma unroll
-          for (int e = 0; e < 4; ++e) p[e] *= kvs_s[1][nt * 8 + 2 * t + (e & 1)];
-        }
-        split_bf16(p[0], p[1], p_hi[kk][2 * half], p_lo[kk][2 * half]);
-        split_bf16(p[2], p[3], p_hi[kk][2 * half + 1], p_lo[kk][2 * half + 1]);
       }
-    }
+      if constexpr (!kF) {  // the online rescale (fixed-max: none)
+        tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 1));
+        tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 2));
+        tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 1));
+        tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 2));
+        const float mn0 = fmaxf(m0, tmax0);
+        const float mn1 = fmaxf(m1, tmax1);
+        const float r0 = exp2f(m0 - mn0);
+        const float r1 = exp2f(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        l0 *= r0;
+        l1 *= r1;
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          acc[nd][0] *= r0;
+          acc[nd][1] *= r0;
+          acc[nd][2] *= r1;
+          acc[nd][3] *= r1;
+        }
+      }
 
-    // acc += P V: B operand element (k, n) is V[key k][dim n]
+      // p = exp2(s - m), zeroed where masked: with the finite NEG_INF, a row
+      // that has seen no key yet has m == NEG_INF and exp2(s - m) == 1 there
+      // (fixed-max: m == 0 and a masked lane's exp2(NEG_INF) is exactly 0).
+      // l sums p in f32; p enters the PV product as a bf16 hi + lo pair.
+      uint32_t p_hi[kBlockN / 16][4], p_lo[kBlockN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const unsigned short* vp = v_u16 + (kk * 16 + 2 * t) * kStride + g;
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
 #pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const unsigned short* vq = vp + nd * 8;
-        const uint32_t b0 = (uint32_t)vq[0] | ((uint32_t)vq[kStride] << 16);
-        const uint32_t b1 =
-            (uint32_t)vq[8 * kStride] | ((uint32_t)vq[9 * kStride] << 16);
-        mma_16816(acc[nd], p_hi[kk], b0, b1);
-        mma_16816(acc[nd], p_lo[kk], b0, b1);
+        for (int half = 0; half < 2; ++half) {
+          const int nt = 2 * kk + half;
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (kF) {
+              p[e] = exp2f(sc[nt][e]);
+            } else {
+              const int col = key0 + nt * 8 + 2 * t + (e & 1);
+              const int pos = e < 2 ? pos0 : pos1;
+              const int band = e < 2 ? band0 : band1;
+              const bool ok =
+                  full || (col < kv_len && (!causal || (col <= pos &&
+                           (!kWindow || col > band || col < sinks))));
+              p[e] = ok ? exp2f(sc[nt][e] - (e < 2 ? m0 : m1)) : 0.f;
+            }
+          }
+          l0 += p[0] + p[1];
+          l1 += p[2] + p[3];
+          if constexpr (kQuant) {  // the V scale folds into p after l
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              p[e] *= kvs_s[1][nt * 8 + 2 * t + (e & 1)];
+            }
+          }
+          split_bf16(p[0], p[1], p_hi[kk][2 * half], p_lo[kk][2 * half]);
+          split_bf16(p[2], p[3], p_hi[kk][2 * half + 1], p_lo[kk][2 * half + 1]);
+        }
       }
+
+      // acc += P V: B operand element (k, n) is V[key k][dim n]
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        const unsigned short* vp = v_u16 + (kk * 16 + 2 * t) * kStride + g;
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          const unsigned short* vq = vp + nd * 8;
+          const uint32_t b0 = (uint32_t)vq[0] | ((uint32_t)vq[kStride] << 16);
+          const uint32_t b1 =
+              (uint32_t)vq[8 * kStride] | ((uint32_t)vq[9 * kStride] << 16);
+          mma_16816(acc[nd], p_hi[kk], b0, b1);
+          mma_16816(acc[nd], p_lo[kk], b0, b1);
+        }
+      }
+    };
+    if constexpr (kDisc == kHybrid) {
+      if (fixed) {
+        tile(Bool<true>{});
+      } else {
+        tile(Bool<false>{});
+      }
+    } else {
+      tile(Bool<kDisc == kFixed>{});
     }
   }
 
@@ -506,8 +614,9 @@ __device__ __forceinline__ void fwd_block(
 
 // The bf16 kernel of every flavour. Launch bounds with a minimum of one
 // block per SM: with the thread count alone, ptxas held the d=64 instances
-// at 128 registers and spilled.
-template <int D, int kFlavour, bool kWindow = false>
+// at 128 registers and spilled. k_max: the hybrid discipline's device
+// scalar (null otherwise).
+template <int D, int kFlavour, bool kWindow = false, int kDisc = kOnline>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -516,27 +625,63 @@ __global__ void __launch_bounds__(kThreads, 1)
                      int hq, int hkv, int n, int s, float scale_log2,
                      int causal, int q_offset, int window, int sinks,
                      const int* __restrict__ kv_lens,
-                     const int* __restrict__ q_offsets, PagedArgs pg) {
-  fwd_block<D, kFlavour, kWindow>(q, k, v, o, lse, hq, hkv, n, s, scale_log2,
-                                  causal, q_offset, window, sinks, kv_lens,
-                                  q_offsets, pg, QuantArgs{});
+                     const int* __restrict__ q_offsets, PagedArgs pg,
+                     const float* __restrict__ k_max) {
+  fwd_block<D, kFlavour, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s,
+                                         scale_log2, causal, q_offset, window,
+                                         sinks, kv_lens, q_offsets, pg,
+                                         QuantArgs{}, k_max);
 }
 
-// The 8-bit kernel of the ragged and paged flavours (KV = int8_t or
-// __nv_fp8_e4m3), with the same launch bounds.
-template <int D, int kFlavour, class KV, bool kWindow = false>
+// The 8-bit kernel of every flavour (KV = int8_t or __nv_fp8_e4m3), with
+// the same launch bounds; the dense flavour writes the LSE too.
+template <int D, int kFlavour, class KV, bool kWindow = false,
+          int kDisc = kOnline>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_q_kernel(const __nv_bfloat16* __restrict__ q,
                        const KV* __restrict__ k, const KV* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int hq, int hkv, int n,
-                       int s, float scale_log2, int causal, int window,
-                       int sinks, const int* __restrict__ kv_lens,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int hq, int hkv, int n, int s, float scale_log2,
+                       int causal, int q_offset, int window, int sinks,
+                       const int* __restrict__ kv_lens,
                        const int* __restrict__ q_offsets, PagedArgs pg,
-                       QuantArgs qa) {
-  static_assert(kFlavour != kDense, "the dense forward reads a bf16 cache");
-  fwd_block<D, kFlavour, kWindow>(q, k, v, o, nullptr, hq, hkv, n, s,
-                                  scale_log2, causal, 0, window, sinks,
-                                  kv_lens, q_offsets, pg, qa);
+                       QuantArgs qa, const float* __restrict__ k_max) {
+  fwd_block<D, kFlavour, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s,
+                                         scale_log2, causal, q_offset, window,
+                                         sinks, kv_lens, q_offsets, pg, qa,
+                                         k_max);
+}
+
+// The instance a dense or ragged entry launches for its head dim d, band
+// (window > 0) and discipline. `pick(D, W, Disc)` names the instance from
+// three std::integral_constants, e.g.
+//   [](auto D, auto W, auto C) {
+//     return &flash_fwd_kernel<decltype(D)::value, kDense,
+//                              decltype(W)::value, decltype(C)::value>; }
+// Only the disciplines the flavour has are instantiated: hybrid is dense
+// only. Returns nullptr for d not in {64, 128} or a discipline the flavour
+// lacks, which the entry turns into cudaErrorInvalidValue.
+template <int kFlavour, class Pick>
+auto pick_instance(int d, bool window, int disc, Pick pick) {
+  using Ptr = decltype(pick(std::integral_constant<int, 64>{},
+                            std::false_type{},
+                            std::integral_constant<int, kOnline>{}));
+  auto by_disc = [&](auto D, auto W) -> Ptr {
+    if (disc == kOnline) return pick(D, W, std::integral_constant<int, kOnline>{});
+    if (disc == kFixed) return pick(D, W, std::integral_constant<int, kFixed>{});
+    if constexpr (kFlavour == kDense) {
+      if (disc == kHybrid) {
+        return pick(D, W, std::integral_constant<int, kHybrid>{});
+      }
+    }
+    return nullptr;
+  };
+  auto by_band = [&](auto D) -> Ptr {
+    return window ? by_disc(D, std::true_type{}) : by_disc(D, std::false_type{});
+  };
+  if (d == 64) return by_band(std::integral_constant<int, 64>{});
+  if (d == 128) return by_band(std::integral_constant<int, 128>{});
+  return Ptr{};
 }
 
 }  // namespace fkp_fwd

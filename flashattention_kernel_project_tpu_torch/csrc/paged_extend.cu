@@ -59,11 +59,11 @@ extern "C" int fkp_paged_extend(const void* q, const void* k_pages,
   if (d == 64) {
     flash_fwd_kernel<64, kPaged><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg);
+        lens, offs, pg, nullptr);
   } else if (d == 128) {
     flash_fwd_kernel<128, kPaged><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg);
+        lens, offs, pg, nullptr);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -86,12 +86,12 @@ int launch_extend_q(const dim3& grid, cudaStream_t st, const void* q,
                               static_cast<const float*>(v_scale_pages)};
   if (d == 64) {
     flash_fwd_q_kernel<64, kPaged, KV><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, lens, offs, pg,
-        qa);
+        qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
+        lens, offs, pg, qa, nullptr);
   } else if (d == 128) {
     flash_fwd_q_kernel<128, kPaged, KV><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, lens, offs, pg,
-        qa);
+        qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
+        lens, offs, pg, qa, nullptr);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,19 +2,26 @@
 forward against a live cache.
 
 Counterpart of flashattention_kernel_project_tpu/ops/flash_attention.py
-(`flash_attention`, `flash_attention_with_lse`, `_fwd`, `_bwd_pallas` and
-the custom_vjp around them, `flash_attention_ragged`,
-`flash_attention_ragged_kv_quant`), in the stable=True discipline, with or
-without a sliding window (`window` keys, causal only) and attention sinks
-(the first `sinks` keys, visible to every query). On a
-CUDA tensor `_fwd` launches the hand-written Hopper kernel in
-csrc/flash_fwd.cu, `_fwd_ragged` the one in csrc/flash_fwd_ragged.cu (a
-bf16 cache) and `flash_attention_ragged_kv_quant` its 8-bit kernel there,
-and `_bwd` the two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a
-CPU tensor they run `_fwd_plain`, `_fwd_ragged_plain` (over the dequantized
-cache for 8 bits) and `_bwd_plain`, the same functions in plain PyTorch,
-which the CPU tests hold against the JAX kernels and chip_smoke.py holds
-the CUDA kernels against.
+(`flash_attention`, `flash_attention_with_lse`, `_fwd`, `_fwd_packed`
+(here `_fwd(pack=True)`), `_bwd_pallas` and the custom_vjp around them, `k_max_norm`,
+`flash_attention_kv_quant` and `_with_lse`, `flash_attention_ragged`,
+`flash_attention_ragged_kv_quant`), with or without a sliding window
+(`window` keys, causal only) and attention sinks (the first `sinks` keys,
+visible to every query), in the JAX package's three softmax disciplines:
+stable=True (the online running max), stable=False (fixed-max: m pinned at
+0, sound while every log2-domain score stays below 78) and stable="auto"
+(per block of rows, fixed-max where a Cauchy-Schwarz bound on the scores
+proves it sound, online elsewhere; the ragged forwards take it as True, as
+in JAX). On a CUDA tensor `_fwd` launches the hand-written Hopper kernel in
+csrc/flash_fwd.cu (with pack=True kernel 2's counterpart, its fixed-max
+d=64 instance), `_fwd_q` the one in csrc/flash_fwd_q.cu (an 8-bit cache),
+`_fwd_ragged` the one in csrc/flash_fwd_ragged.cu (a bf16 cache) and
+`flash_attention_ragged_kv_quant` its 8-bit kernel there, and `_bwd` the
+two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a CPU tensor
+they run `_fwd_plain`, `_fwd_ragged_plain` (over the dequantized cache for
+8 bits) and `_bwd_plain`, the same functions in plain PyTorch, which the
+CPU tests hold against the JAX kernels and chip_smoke.py holds the CUDA
+kernels against.
 
 Layouts follow the JAX package: q [B, Hq, N, D], k/v [B, Hkv, S, D],
 O [B, Hq, N, D] in q's dtype, LSE [B, Hq, N] float32 in natural log.
@@ -35,22 +42,29 @@ from flashattention_kernel_project_tpu_torch.ops.softmax import _LOG2E, NEG_INF
 _LN2 = 0.6931471805599453
 _KERNEL_DIMS = (64, 128)
 
+# The softmax disciplines, as the kernels number them (kDisc in
+# csrc/flash_fwd_core.cuh): stable=True, stable=False, stable="auto"
+ONLINE, FIXED, HYBRID = 0, 1, 2
+# fixed-max is sound while every log2-domain score stays below this
+# (_SAFE_BOUND of the JAX kernel): exp2 then leaves f32 far from overflow
+_SAFE_BOUND = 78.0
+# the rows that share one hybrid decision: one warp's rows in the kernel
+_HYBRID_ROWS = 16
 
-def _unsupported(stable, k_max, stack_group, pack_heads):
-    """Options of the JAX forward that the port does not take yet (each is
-    a ROADMAP item)."""
-    if stable is not True:
-        raise NotImplementedError(
-            "flash_attention: only stable=True is ported; the fixed-max and "
-            "'auto' disciplines are ROADMAP item A.1"
-        )
-    if k_max is not None:
-        raise NotImplementedError("flash_attention: k_max is ROADMAP item A.1")
-    if stack_group or pack_heads:
-        raise NotImplementedError(
-            "flash_attention: stack_group/pack_heads are TPU layouts with no "
-            "Hopper counterpart yet (ROADMAP item A.1)"
-        )
+
+def _discipline(stable) -> int:
+    """ONLINE, FIXED or HYBRID from the JAX package's `stable` (True,
+    False or "auto")."""
+    if isinstance(stable, str):
+        if stable != "auto":
+            raise ValueError(f"stable must be True, False or 'auto', got {stable!r}")
+        return HYBRID
+    return ONLINE if stable else FIXED
+
+
+def _counter(disc) -> str:
+    """The wrapper attribute that counts a discipline's launches."""
+    return ("launches", "fixed_launches", "hybrid_launches")[disc]
 
 
 def _band(causal, window, sinks):
@@ -75,10 +89,62 @@ def _band_mask(rows, cols, window, sinks):
     return mask
 
 
-def _fwd_plain(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0):
+def k_max_norm(k: torch.Tensor, k_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """max_t ||k_t|| over a K cache [..., S, D], as a 0-d float32 tensor on
+    k's device: the cacheable half of stable="auto"'s score bound (pass it
+    to flash_attention(k_max=...)). For an 8-bit cache pass the per-token
+    scales [..., S, 1], so that the bound covers the dequantized keys; the
+    squares are taken in float32 (an int8 square would wrap). Any value at
+    least the true maximum is sound. Plain torch, as the JAX package
+    computes it in XLA; the host never reads it."""
+    kn2 = k.float().square().sum(dim=-1)
+    if k_scale is not None:
+        kn2 = kn2 * k_scale.float()[..., 0].square()
+    return kn2.max().sqrt()
+
+
+def _fixed_rows(q, sm_scale, disc, k_max):
+    """Where the plain versions pin m at 0: [B, Hq, N, 1] bool, True for
+    the rows that run fixed-max (all of them for FIXED; for HYBRID the
+    rows of each block of _HYBRID_ROWS whose bound max ||q_r|| *
+    |sm_scale| * log2(e) * k_max is below _SAFE_BOUND, a NaN bound running
+    online), or None for ONLINE."""
+    if disc == ONLINE:
+        return None
+    b, hq, n, _ = q.shape
+    if disc == FIXED:
+        return torch.ones((b, hq, n, 1), dtype=torch.bool, device=q.device)
+    qn2 = q.float().square().sum(dim=-1)  # [B, Hq, N]
+    pad = (-n) % _HYBRID_ROWS
+    qn2 = torch.nn.functional.pad(qn2, (0, pad))
+    qb = qn2.view(b, hq, -1, _HYBRID_ROWS).amax(dim=-1)
+    bound = qb.sqrt() * (abs(sm_scale) * _LOG2E) * k_max.to(q.device)
+    fixed = (bound < _SAFE_BOUND).repeat_interleave(_HYBRID_ROWS, dim=-1)
+    return fixed[..., :n, None]
+
+
+def _softmax_plain(scores, mask, pinned):
+    """(p, m, l) of log2-domain scores [..., N, S]: masked entries (mask
+    False) NEG_INF; m the row max, or 0 where `pinned` (fixed-max rows)."""
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    if pinned is not None:
+        m = m.masked_fill(pinned, 0.0)
+    p = torch.exp2(scores - m)
+    if mask is not None:
+        # a row with no visible key has m == NEG_INF and exp2(0) == 1
+        p = p * mask
+    return p, m, p.sum(dim=-1, keepdim=True)
+
+
+def _fwd_plain(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0,
+               disc=ONLINE, k_max=None):
     """The forward in plain PyTorch, in float32: the same log2-domain
     scores, masks (causal, and the band of `window` keys plus the first
-    `sinks` when window > 0) and empty-row rule as the kernel, with one
+    `sinks` when window > 0), discipline (FIXED: m pinned at 0; HYBRID: so
+    in each block of _HYBRID_ROWS rows whose bound with `k_max`, a 0-d
+    tensor, proves it sound) and empty-row rule as the kernel, with one
     softmax over all keys."""
     b, hq, n, d = q.shape
     group = hq // k.shape[1]
@@ -91,13 +157,7 @@ def _fwd_plain(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0):
     if causal:
         rows = torch.arange(n, device=q.device)[:, None] + q_offset
         mask = _band_mask(rows, torch.arange(s, device=q.device), window, sinks)
-        scores = scores.masked_fill(~mask, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp2(scores - m)
-    if mask is not None:
-        # a row with no visible key has m == NEG_INF and exp2(0) == 1
-        p = p * mask
-    l = p.sum(dim=-1, keepdim=True)
+    p, m, l = _softmax_plain(scores, mask, _fixed_rows(q, sm_scale, disc, k_max))
     safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
     o = (p @ vf) / safe_l
     lse = torch.where(l == 0.0, torch.full_like(l, NEG_INF),
@@ -106,13 +166,14 @@ def _fwd_plain(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0):
 
 
 @functools.cache
-def _kernel(name="fkp_flash_fwd", n_ptrs=5):
+def _kernel(name="fkp_flash_fwd", n_ptrs=5, n_flags=4):
     """A C entry point taking `n_ptrs` pointers, then (b, hq, hkv, n, s, d),
-    a float scale, (causal, q_offset, window, sinks) and the stream."""
+    a float scale, `n_flags` ints (causal, q_offset, window, sinks, and the
+    forwards' discipline) and the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel(
         name,
-        [vp] * n_ptrs + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [vp],
+        [vp] * n_ptrs + [i32] * 6 + [ctypes.c_float] + [i32] * n_flags + [vp],
     )
 
 
@@ -136,41 +197,109 @@ def _check_cuda_inputs(q, k, v, **more):
         raise ValueError("empty query or key sequence")
 
 
-def _fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0):
-    """(O, LSE). CPU tensors run `_fwd_plain`; CUDA tensors launch
-    csrc/flash_fwd.cu (bf16, contiguous, d in {64, 128}) or raise. window
-    > 0: the band of `window` keys plus the first `sinks` (causal only),
-    whose key tiles outside it the kernel never visits."""
+def _check_k_max(q, disc, k_max):
+    """HYBRID reads k_max on the device: one float32 value on q's device."""
+    if disc == HYBRID and (k_max is None or k_max.device != q.device
+                           or k_max.dtype != torch.float32
+                           or k_max.numel() != 1):
+        raise ValueError("stable='auto' needs k_max as one float32 value on "
+                         "q's device")
+
+
+def _fwd_args(q, k, v, sm_scale, disc, k_max, k_scale=None):
+    """The checks and defaults the dense forwards share: (sm_scale, and for
+    HYBRID k_max as the kernels read it, a 0-d float32 tensor on k's
+    device: computed from k (and k_scale) when None, a number copied
+    there; None for the other disciplines)."""
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
                          f"{k.shape[1]}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return _fwd_plain(q, k, v, causal, sm_scale, q_offset, window, sinks)
-    if q.device.type != "cuda":
-        raise ValueError(f"no forward for device {q.device}")
+    if disc != HYBRID:
+        return sm_scale, None
+    if k_max is None:
+        return sm_scale, k_max_norm(k, k_scale)
+    return sm_scale, torch.as_tensor(k_max, dtype=torch.float32,
+                                     device=k.device).reshape(())
+
+
+def _fwd_cuda(q, k, v, causal, sm_scale, q_offset, window, sinks, disc,
+              k_max, counter):
+    """Launch csrc/flash_fwd.cu on checked inputs and count the launch in
+    `_fwd.<counter>` (and `_fwd.window_launches` with a window)."""
     _check_cuda_inputs(q, k, v)
+    _check_k_max(q, disc, k_max)
     b, hq, n, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel()(
+    rc = _kernel("fkp_flash_fwd", 6, 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        None if k_max is None else k_max.data_ptr(),
         b, hq, hkv, n, s, d, float(sm_scale * _LOG2E), int(bool(causal)),
-        int(q_offset), int(window), int(sinks), stream,
+        int(q_offset), int(window), int(sinks), int(disc), stream,
     )
-    _fwd.launches += 1
+    setattr(_fwd, counter, getattr(_fwd, counter) + 1)
     _fwd.window_launches += bool(window)
     _build.check(rc, "flash_fwd")
     return o, lse
 
 
-# kernel launches, for showing that a path ran the kernel, and those of
-# them with a window
+def _fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0, disc=ONLINE,
+         k_max=None, pack=False):
+    """(O, LSE). CPU tensors run `_fwd_plain`; CUDA tensors launch
+    csrc/flash_fwd.cu (bf16, contiguous, d in {64, 128}) or raise. window
+    > 0: the band of `window` keys plus the first `sinks` (causal only),
+    whose key tiles outside it the kernel never visits. disc: ONLINE,
+    FIXED or HYBRID; HYBRID reads `k_max` (max_t ||k_t||; computed from k
+    when None) on the device. Each launch counts in `_fwd.launches`
+    (ONLINE), `.fixed_launches` or `.hybrid_launches`.
+
+    pack=True (disc FIXED, d = 64): kernel 2's counterpart, the fixed-max
+    d=64 forward, counted in `_fwd.packed_launches` instead. The TPU pairs
+    two KV heads block-diagonally so that a d=64 product fills its 128-deep
+    matrix unit; Hopper's 16-deep mma.sync needs no pairing, so this is the
+    same fixed-max d=64 instance."""
+    if pack and (disc != FIXED or q.shape[-1] != 64):
+        raise ValueError("the packed forward is the fixed-max d=64 one")
+    sm_scale, k_max = _fwd_args(q, k, v, sm_scale, disc, k_max)
+    if q.device.type == "cpu":
+        return _fwd_plain(q, k, v, causal, sm_scale, q_offset, window, sinks,
+                          disc, k_max)
+    if q.device.type != "cuda":
+        raise ValueError(f"no forward for device {q.device}")
+    return _fwd_cuda(q, k, v, causal, sm_scale, q_offset, window, sinks, disc,
+                     k_max, "packed_launches" if pack else _counter(disc))
+
+
+# kernel launches by discipline, for showing that a path ran the kernel,
+# those of them with a window, and those of the packed forward
 _fwd.launches = 0
+_fwd.fixed_launches = 0
+_fwd.hybrid_launches = 0
 _fwd.window_launches = 0
+_fwd.packed_launches = 0
+
+
+def _check_pack(stable, q, k, v):
+    """The JAX package's asserts for pack_heads=True, as ValueErrors:
+    stable=False, d = 64 and an even KV-head count. (Its third, a bf16
+    cache, holds by construction: the 8-bit forwards take no pack_heads,
+    as JAX's do not.)"""
+    if stable is not False:
+        raise ValueError("pack_heads=True needs stable=False")
+    if q.shape[-1] != 64 or v.shape[-1] != 64 or k.shape[1] % 2:
+        raise ValueError(f"pack_heads=True needs d = 64 and an even KV-head "
+                         f"count; got d {q.shape[-1]}, {k.shape[1]} KV heads")
+
+
+def _pack_default(stable, q, k, v) -> bool:
+    """JAX's default for pack_heads: on for stable=False at d = 64 with an
+    even KV-head count."""
+    return (stable is False and q.shape[-1] == 64 and v.shape[-1] == 64
+            and k.shape[1] % 2 == 0)
 
 
 def _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset, window=0,
@@ -273,12 +402,17 @@ _bwd.window_launches = 0  # those of them with a window
 
 class _FlashAttention(torch.autograd.Function):
     """flash_attention with its backward: the counterpart of the JAX
-    package's custom_vjp (`_flash_attention`). The forward saves (q, k, v,
-    o, lse); the backward recomputes p from lse."""
+    package's custom_vjps (`_flash_attention`, and `_flash_attention_km`
+    with a cached k_max). The forward saves (q, k, v, o, lse); the backward
+    recomputes p from lse, whatever the forward's discipline (the saved LSE
+    bounds every exponent), and gives k_max no gradient, as a bound needs
+    none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_offset, window, sinks):
-        o, lse = _fwd(q, k, v, causal, sm_scale, q_offset, window, sinks)
+    def forward(ctx, q, k, v, k_max, causal, sm_scale, q_offset, window, sinks,
+                disc, pack):
+        o, lse = _fwd(q, k, v, causal, sm_scale, q_offset, window, sinks,
+                      disc, k_max, pack)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, sm_scale, q_offset, window, sinks)
         return o
@@ -287,7 +421,22 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q, k, v, o, lse, do, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
+
+
+def _options(q, k, v, causal, stable, window, sinks, pack_heads, k_max):
+    """flash_attention's options resolved as JAX resolves them: (window,
+    sinks, discipline, pack, k_max), k_max kept for stable="auto" only."""
+    window, sinks = _band(causal, window, sinks)
+    disc = _discipline(stable)
+    if pack_heads is None:
+        pack = _pack_default(stable, q, k, v)
+    elif pack_heads:
+        _check_pack(stable, q, k, v)
+        pack = True
+    else:
+        pack = False
+    return window, sinks, disc, pack, (k_max if disc == HYBRID else None)
 
 
 def flash_attention(
@@ -298,7 +447,7 @@ def flash_attention(
     causal: bool = False,
     sm_scale: float | None = None,
     q_offset: int = 0,
-    stable: bool = True,
+    stable: bool | str = True,
     window: int | None = None,
     sinks: int = 0,
     stack_group: bool | None = None,
@@ -313,12 +462,31 @@ def flash_attention(
     sequence). window (causal only): the query at position p sees only keys
     j > p - window, plus the first `sinks` keys. sm_scale defaults to
     1/sqrt(D). A row that sees no key gives zeros. Returns [B, Hq, N, D] in
-    q's dtype; differentiable in q, k and v (the backward is `_bwd`).
+    q's dtype; differentiable in q, k and v (the backward is `_bwd`, the
+    same for every discipline).
+
+    stable: True, the online running max (any input); False, fixed-max
+    (m pinned at 0: no tile max and no rescale), sound while every
+    |score * sm_scale| * log2(e) stays below 78, and loud outside it (the
+    output turns non-finite); "auto", per block of 16 query rows, fixed-max
+    where max_r ||q_r|| * |sm_scale| * log2(e) * k_max < 78 proves the
+    contract and online elsewhere, so never wrong. k_max: max_t ||k_t||
+    (`k_max_norm`, a 0-d tensor or a number; any over-estimate is sound),
+    for stable="auto" only; computed from k on the device when None, and
+    never read on the host. pack_heads: kernel 2 of the JAX package (the
+    fixed-max d=64 forward with KV heads paired), by default on for
+    stable=False at d = 64 with an even KV-head count; ValueError where the
+    JAX package asserts. stack_group: accepted and without effect. The JAX
+    package stacks a GQA group's q heads into one TPU block as a schedule
+    choice; the Hopper kernel runs one block per (64-row tile, q head), the
+    group's heads reading their shared K/V tiles through L2, and computes
+    the same function either way.
     """
-    _unsupported(stable, k_max, stack_group, pack_heads)
-    window, sinks = _band(causal, window, sinks)
-    return _FlashAttention.apply(q, k, v, causal, sm_scale, q_offset, window,
-                                 sinks)
+    del stack_group  # a schedule choice of the TPU kernel: the same function
+    window, sinks, disc, pack, k_max = _options(q, k, v, causal, stable, window,
+                                                sinks, pack_heads, k_max)
+    return _FlashAttention.apply(q, k, v, k_max, causal, sm_scale, q_offset,
+                                 window, sinks, disc, pack)
 
 
 def flash_attention_with_lse(
@@ -328,10 +496,108 @@ def flash_attention_with_lse(
     """flash_attention that also returns the logsumexp [B, Hq, N] float32
     (natural log; NEG_INF for a row that sees no key). Not differentiable,
     as in the JAX package."""
-    _unsupported(stable, None, None, pack_heads)
-    window, sinks = _band(causal, window, sinks)
+    window, sinks, disc, pack, k_max = _options(q, k, v, causal, stable, window,
+                                                sinks, pack_heads, None)
     with torch.no_grad():  # the plain version would otherwise record a graph
-        return _fwd(q, k, v, causal, sm_scale, q_offset, window, sinks)
+        return _fwd(q, k, v, causal, sm_scale, q_offset, window, sinks, disc,
+                    k_max, pack)
+
+
+def _fwd_q_plain(q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset,
+                 window=0, sinks=0, disc=ONLINE, k_max=None):
+    """The 8-bit forward in plain PyTorch: the cache dequantized to float32
+    (values times their per-token scales), then `_fwd_plain`."""
+    return _fwd_plain(q, k_q.float() * k_scale, v_q.float() * v_scale, causal,
+                      sm_scale, q_offset, window, sinks, disc, k_max)
+
+
+def _fwd_q_cuda(q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset,
+                window=0, sinks=0, disc=ONLINE, k_max=None):
+    """(O, LSE) from csrc/flash_fwd_q.cu: q bf16, k_q/v_q [B, Hkv, S, D]
+    int8 or float8_e4m3fn with [B, Hkv, S, 1] float32 scales; k_max (a 0-d
+    device tensor) for HYBRID."""
+    check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
+                     "8-bit forward")
+    b, hq, n, d = q.shape
+    if k_q.dim() != 4 or k_q.shape[0] != b or k_q.shape[3] != d:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k_q.shape)} "
+                         "do not match")
+    if d not in _KERNEL_DIMS:
+        raise ValueError(f"the CUDA kernels take d in {_KERNEL_DIMS}, got {d}")
+    if n == 0 or k_q.shape[2] == 0:
+        raise ValueError("empty query or key sequence")
+    _check_k_max(q, disc, k_max)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
+    rc = _kernel("fkp_flash_fwd_q", 8, 6)(
+        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+        v_scale.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        None if k_max is None else k_max.data_ptr(),
+        b, hq, k_q.shape[1], n, k_q.shape[2], d, float(sm_scale * _LOG2E),
+        int(bool(causal)), int(q_offset), int(window), int(sinks), int(disc),
+        int(k_q.dtype == torch.float8_e4m3fn),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    counters = flash_attention_kv_quant
+    setattr(counters, _counter(disc), getattr(counters, _counter(disc)) + 1)
+    counters.window_launches += bool(window)
+    _build.check(rc, "flash_fwd_q")
+    return o, lse
+
+
+def flash_attention_kv_quant_with_lse(
+    q, k_q, k_scale, v_q, v_scale, *, causal=False, sm_scale=None, q_offset=0,
+    stable=True, window=None, sinks=0,
+):
+    """flash_attention_kv_quant that also returns the logsumexp [B, Hq, N]
+    float32, the merge carry of attention over 8-bit KV shards."""
+    window, sinks = _band(causal, window, sinks)
+    disc = _discipline(stable)
+    sm_scale, k_max = _fwd_args(q, k_q, v_q, sm_scale, disc, None, k_scale)
+    args = (q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset, window,
+            sinks, disc, k_max)
+    with torch.no_grad():
+        if q.device.type == "cpu":
+            return _fwd_q_plain(*args)
+        if q.device.type == "cuda":
+            return _fwd_q_cuda(*args)
+    raise ValueError(f"no forward for device {q.device}")
+
+
+def flash_attention_kv_quant(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    q_offset: int = 0,
+    stable: bool | str = True,
+    window: int | None = None,
+    sinks: int = 0,
+) -> torch.Tensor:
+    """flash_attention against an 8-bit KV cache, forward only (the
+    long-context prefill over a quantized cache): k_q, v_q [B, Hkv, S, D]
+    int8 or float8_e4m3fn, k_scale, v_scale [B, Hkv, S, 1] float32
+    per-token scales (`quantize_kv`). The other arguments are
+    flash_attention's; stable="auto" bounds the scores with the norms of
+    the dequantized keys. CPU tensors run `_fwd_q_plain`; CUDA tensors
+    launch csrc/flash_fwd_q.cu (q bf16, d in {64, 128}) or raise, counting
+    in `.launches` (online), `.fixed_launches`, `.hybrid_launches` and
+    `.window_launches`."""
+    return flash_attention_kv_quant_with_lse(
+        q, k_q, k_scale, v_q, v_scale, causal=causal, sm_scale=sm_scale,
+        q_offset=q_offset, stable=stable, window=window, sinks=sinks)[0]
+
+
+# kernel launches by discipline, for showing that a path ran the kernel,
+# and those of them with a window
+flash_attention_kv_quant.launches = 0
+flash_attention_kv_quant.fixed_launches = 0
+flash_attention_kv_quant.hybrid_launches = 0
+flash_attention_kv_quant.window_launches = 0
 
 
 def _ragged_mask(n, s, kv_lens, q_offsets, causal, window=0, sinks=0):
@@ -348,9 +614,10 @@ def _ragged_mask(n, s, kv_lens, q_offsets, causal, window=0, sinks=0):
 
 
 def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale,
-                      window=0, sinks=0):
+                      window=0, sinks=0, disc=ONLINE):
     """The ragged forward in plain PyTorch, in float32: the dense
-    `_fwd_plain` with a per-row mask. kv_lens above S count as S."""
+    `_fwd_plain` with a per-row mask (FIXED: m pinned at 0). kv_lens above
+    S count as S."""
     b, hq, n, d = q.shape
     group = hq // k.shape[1]
     s = k.shape[2]
@@ -359,11 +626,7 @@ def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale,
     vf = v.float().repeat_interleave(group, dim=1)
     scores = qf @ kf.transpose(-1, -2)  # [B, Hq, N, S], log2 domain
     mask = _ragged_mask(n, s, kv_lens, q_offsets, causal, window, sinks)
-    scores = scores.masked_fill(~mask, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    # a row with no visible key has m == NEG_INF and exp2(0) == 1
-    p = torch.exp2(scores - m) * mask
-    l = p.sum(dim=-1, keepdim=True)
+    p, _, l = _softmax_plain(scores, mask, _fixed_rows(q, sm_scale, disc, None))
     o = (p @ vf) / torch.where(l == 0.0, torch.ones_like(l), l)
     return o.to(q.dtype)
 
@@ -371,11 +634,11 @@ def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale,
 @functools.cache
 def _ragged_kernel():
     """fkp_flash_fwd_ragged: q, k, v, o, kv_lens, q_offsets, then (b, hq,
-    hkv, n, s_max, d), a float scale, (causal, window, sinks) and the
+    hkv, n, s_max, d), a float scale, (causal, window, sinks, disc) and the
     stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_flash_fwd_ragged",
-                         [vp] * 6 + [i32] * 6 + [ctypes.c_float] + [i32] * 3
+                         [vp] * 6 + [i32] * 6 + [ctypes.c_float] + [i32] * 4
                          + [vp])
 
 
@@ -389,11 +652,12 @@ def _check_ragged_bounds(q, kv_lens, q_offsets):
 
 
 def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale, window=0,
-                sinks=0):
+                sinks=0, disc=ONLINE):
     """O of the ragged forward. CPU tensors run `_fwd_ragged_plain`; CUDA
     tensors launch csrc/flash_fwd_ragged.cu (bf16, contiguous, d in {64,
     128}, int32 bounds on the device) or raise. The bounds are never read
-    on the host."""
+    on the host. disc: ONLINE or FIXED, counted in
+    `flash_attention_ragged.launches` or `.fixed_launches`."""
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
                          f"{k.shape[1]}")
@@ -401,7 +665,7 @@ def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale, window=0,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale,
-                                 window, sinks)
+                                 window, sinks, disc)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged forward for device {q.device}")
     _check_cuda_inputs(q, k, v)
@@ -412,24 +676,21 @@ def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale, window=0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         kv_lens.data_ptr(), q_offsets.data_ptr(),
         b, hq, k.shape[1], n, k.shape[2], d, float(sm_scale * _LOG2E),
-        int(bool(causal)), int(window), int(sinks),
+        int(bool(causal)), int(window), int(sinks), int(disc),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    flash_attention_ragged.launches += 1
-    flash_attention_ragged.window_launches += bool(window)
+    counters = flash_attention_ragged
+    setattr(counters, _counter(disc), getattr(counters, _counter(disc)) + 1)
+    counters.window_launches += bool(window)
     _build.check(rc, "flash_fwd_ragged")
     return o
 
 
-def _ragged_unsupported(name, stable):
-    """The ragged forward's options still to port (ROADMAP item A.1);
-    stable="auto" is the online path, as in the JAX package, whose ragged
-    kernel has no hybrid."""
-    if stable != "auto" and stable is not True:
-        raise NotImplementedError(
-            f"{name}: only stable=True is ported; the fixed-max discipline is "
-            "ROADMAP item A.1"
-        )
+def _ragged_discipline(stable) -> int:
+    """ONLINE or FIXED: the ragged kernels have no hybrid, so "auto" is
+    the online path, as in the JAX package."""
+    disc = _discipline(stable)
+    return ONLINE if disc == HYBRID else disc
 
 
 def flash_attention_ragged(
@@ -452,44 +713,47 @@ def flash_attention_ragged(
     kv_lens [B] int32, the valid keys of each row; q_offsets [B] int32, the
     position of query 0. Query i of row b attends key j iff j < kv_lens[b]
     and, when causal, j <= i + q_offsets[b]; window and sinks narrow that
-    as flash_attention's do; a row that sees no key gives zeros. Forward only (the serving path). Returns [B, Hq, N, D] in q's
-    dtype. stable="auto" is the online path, as in the JAX package, whose
-    ragged kernel has no hybrid.
+    as flash_attention's do; a row that sees no key gives zeros. Forward
+    only (the serving path). Returns [B, Hq, N, D] in q's dtype. stable:
+    True (online) or False (fixed-max, flash_attention's contract);
+    "auto" is the online path, as in the JAX package, whose ragged kernel
+    has no hybrid.
     """
-    _ragged_unsupported("flash_attention_ragged", stable)
+    disc = _ragged_discipline(stable)
     window, sinks = _band(causal, window, sinks)
     return _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale, window,
-                       sinks)
+                       sinks, disc)
 
 
-# kernel launches, for showing that a path ran the kernel, and those of
-# them with a window
+# kernel launches by discipline, for showing that a path ran the kernel,
+# and those of them with a window
 flash_attention_ragged.launches = 0
+flash_attention_ragged.fixed_launches = 0
 flash_attention_ragged.window_launches = 0
 
 
 def _fwd_ragged_q_plain(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
-                       causal, sm_scale, window=0, sinks=0):
+                        causal, sm_scale, window=0, sinks=0, disc=ONLINE):
     """The 8-bit ragged forward in plain PyTorch: the cache dequantized to
     float32 (values times their per-token scales), then `_fwd_ragged_plain`."""
     return _fwd_ragged_plain(q, k_q.float() * k_scale, v_q.float() * v_scale,
                              kv_lens, q_offsets, causal, sm_scale, window,
-                             sinks)
+                             sinks, disc)
 
 
 @functools.cache
 def _ragged_kernel_q():
     """fkp_flash_fwd_ragged_q: q, k, k_scale, v, v_scale, o, kv_lens,
     q_offsets, then (b, hq, hkv, n, s_max, d), a float scale, (causal,
-    window, sinks), fp8 and the stream."""
+    window, sinks, disc), fp8 and the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_flash_fwd_ragged_q",
-                         [vp] * 8 + [i32] * 6 + [ctypes.c_float] + [i32] * 4
+                         [vp] * 8 + [i32] * 6 + [ctypes.c_float] + [i32] * 5
                          + [vp])
 
 
 def _fwd_ragged_q_cuda(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
-                       causal, sm_scale, window=0, sinks=0):
+                       causal, sm_scale, window=0, sinks=0, disc=ONLINE):
     check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
                      "8-bit ragged forward")
     _check_ragged_bounds(q, kv_lens, q_offsets)
@@ -507,11 +771,12 @@ def _fwd_ragged_q_cuda(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
         v_scale.data_ptr(), o.data_ptr(), kv_lens.data_ptr(),
         q_offsets.data_ptr(), b, hq, k_q.shape[1], n, k_q.shape[2], d,
         float(sm_scale * _LOG2E), int(bool(causal)), int(window), int(sinks),
-        int(k_q.dtype == torch.float8_e4m3fn),
+        int(disc), int(k_q.dtype == torch.float8_e4m3fn),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    flash_attention_ragged_kv_quant.launches += 1
-    flash_attention_ragged_kv_quant.window_launches += bool(window)
+    counters = flash_attention_ragged_kv_quant
+    setattr(counters, _counter(disc), getattr(counters, _counter(disc)) + 1)
+    counters.window_launches += bool(window)
     _build.check(rc, "flash_fwd_ragged_q")
     return o
 
@@ -538,7 +803,7 @@ def flash_attention_ragged_kv_quant(
     CPU tensors run `_fwd_ragged_q_plain`; CUDA tensors launch the 8-bit
     kernel of csrc/flash_fwd_ragged.cu (q bf16, d in {64, 128}, int32
     bounds on the device) or raise."""
-    _ragged_unsupported("flash_attention_ragged_kv_quant", stable)
+    disc = _ragged_discipline(stable)
     window, sinks = _band(causal, window, sinks)
     if q.shape[1] % k_q.shape[1]:
         raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
@@ -546,7 +811,7 @@ def flash_attention_ragged_kv_quant(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     args = (q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets, causal,
-            sm_scale, window, sinks)
+            sm_scale, window, sinks, disc)
     if q.device.type == "cpu":
         return _fwd_ragged_q_plain(*args)
     if q.device.type == "cuda":
@@ -554,7 +819,8 @@ def flash_attention_ragged_kv_quant(
     raise ValueError(f"no ragged forward for device {q.device}")
 
 
-# kernel launches, for showing that a path ran the kernel, and those of
-# them with a window
+# kernel launches by discipline, for showing that a path ran the kernel,
+# and those of them with a window
 flash_attention_ragged_kv_quant.launches = 0
+flash_attention_ragged_kv_quant.fixed_launches = 0
 flash_attention_ragged_kv_quant.window_launches = 0

@@ -85,16 +85,20 @@ def test_flash_attention_ragged_matches_jax(d, causal):
 
 def test_flash_attention_ragged_options():
     """stable="auto" is the online path (as in the JAX package); the
-    fixed-max discipline raises, over a bf16 cache and over an 8-bit one;
-    window and sinks run (tests/test_torch_window.py holds them to JAX) and
-    narrow what a row sees; CPU tensors leave the launch counter at 0."""
-    q, k, v, kv_lens, q_offsets = (torch.from_numpy(x)
-                                   for x in _ragged_inputs(1, 16))
+    fixed-max discipline runs and matches JAX's, over a bf16 cache and over
+    an 8-bit one (tests/test_torch_stable.py covers it more); window and
+    sinks run (tests/test_torch_window.py holds them to JAX) and narrow
+    what a row sees; CPU tensors leave the launch counter at 0."""
+    npargs = _ragged_inputs(1, 16)
+    q, k, v, kv_lens, q_offsets = (torch.from_numpy(x) for x in npargs)
     args = (q, k, v, kv_lens, q_offsets)
     torch.testing.assert_close(tfa.flash_attention_ragged(*args, stable="auto"),
                                tfa.flash_attention_ragged(*args), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tfa.flash_attention_ragged(*args, stable=False)
+    jfixed = jfa.flash_attention_ragged(
+        *(jnp.asarray(x) for x in npargs), stable=False, block_q=16,
+        block_k=16, interpret=True)
+    assert_rel_l2(tfa.flash_attention_ragged(*args, stable=False).numpy(),
+                  np.asarray(jfixed), tol=TOL)
     full = tfa.flash_attention_ragged(*args)
     for kwargs in (dict(window=8), dict(window=8, sinks=2)):
         got = tfa.flash_attention_ragged(*args, **kwargs)
@@ -102,8 +106,11 @@ def test_flash_attention_ragged_options():
         assert not torch.equal(got, full)  # the band bites
     k8, scale = k.to(torch.int8), torch.ones(*k.shape[:3], 1)
     qargs = (q, k8, scale, k8, scale, kv_lens, q_offsets)
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tfa.flash_attention_ragged_kv_quant(*qargs, stable=False)
+    jfixed = jfa.flash_attention_ragged_kv_quant(
+        *(jnp.asarray(x.numpy()) for x in qargs), stable=False, block_q=16,
+        block_k=16, interpret=True)
+    assert_rel_l2(tfa.flash_attention_ragged_kv_quant(*qargs, stable=False).numpy(),
+                  np.asarray(jfixed), tol=TOL)
     got = tfa.flash_attention_ragged_kv_quant(*qargs, window=8)
     torch.testing.assert_close(
         got, tfa.flash_attention_ragged(q, k8.float(), k8.float(), kv_lens,
