@@ -61,7 +61,19 @@ width, with random weights from a seed:
     prefill_chunk=256, int8 in chunks), its tokens audited against the
     stable runs, and its cached decode against a full forward; the JAX
     package's default model (d_head 64, attn_stable=False) serving 8
-    requests and taking 5 SGD steps through the packed forward.
+    requests and taking 5 SGD steps through the packed forward;
+  - the GEMM and softmax ladder through the ops API, its own path with
+    every launch counter at 0 before it: benchmarks/run_all.py's GEMM rungs
+    (matmul bf16 4096^3 to bf16 and to f32, f32 2048^3, batched bf16
+    8 x 1024^3, the fused epilogue at 4096^3) and softmax rungs (8192 x
+    4096 and 4096 x 512 f32, and a bf16 input), BASELINE.json config 3 (the
+    softmax-epilogue GEMM at 32 x 2048^3, bf16) and configs 1 and 2 (matmul
+    f32 and matmul_bf16 at 1024^3, then softmax, held on the host against
+    the fp64 oracle at max-abs 1e-2), with ragged shapes; every output
+    against its plain version, each kernel timed beside it, its bound and
+    the library call (torch.matmul, torch.bmm, torch.softmax, float32
+    products without TF32; run_all.py's unfused bmm + softmax beside
+    config 3).
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card and prints no result without CUDA. Its last line
 is one JSON object:
@@ -178,14 +190,15 @@ def _rel_l2(a, b) -> float:
     return rel_l2(a.float().cpu().numpy(), b.float().cpu().numpy())
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take for work of `flops` bf16
-    operations moving `nbytes` of device memory (each input read once, each
-    output written once): the larger of the two times at the H100's
-    published peaks, and which of the two sets it."""
+def bound(flops: float, nbytes: float, peak: float | None = None) -> dict:
+    """The least time the card could take for work of `flops` operations
+    (at `peak` operations a second: by default the bf16 tensor-core rate)
+    moving `nbytes` of device memory (each input read once, each output
+    written once): the larger of the two times at the H100's published
+    peaks, and which of the two sets it."""
     from flashattention_kernel_project_tpu_torch.utils import platform
 
-    t_ops = flops / platform.H100_BF16_FLOPS * 1e3
+    t_ops = flops / (peak or platform.H100_BF16_FLOPS) * 1e3
     t_bytes = nbytes / platform.H100_HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -1118,7 +1131,9 @@ def _counters():
     """The launch counters of every kernel wrapper, by kernel name."""
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
     from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+    from flashattention_kernel_project_tpu_torch.ops import softmax as sm
 
     return dict(flash_fwd=fa._fwd, flash_fwd_ragged=fa.flash_attention_ragged,
                 flash_decode=fd.flash_decode, paged_decode=pd.paged_flash_decode,
@@ -1127,7 +1142,11 @@ def _counters():
                 paged_decode_q=pd.paged_flash_decode_quant,
                 flash_fwd_ragged_q=fa.flash_attention_ragged_kv_quant,
                 paged_extend_q=pd.paged_flash_extend_quant,
-                flash_fwd_q=fa.flash_attention_kv_quant)
+                flash_fwd_q=fa.flash_attention_kv_quant, gemm=g.matmul,
+                gemm_batched=g.batched_matmul,
+                gemm_fused_epilogue=g.matmul_fused_epilogue,
+                gemm_softmax=g.batched_matmul_softmax_epilogue,
+                softmax=sm.softmax)
 
 
 # the counters a wrapper keeps beside `.launches` (its online launches, or
@@ -2939,6 +2958,291 @@ def phase_default_model(device, label):
     return launches, train_launches
 
 
+# The GEMM and softmax ladder: benchmarks/run_all.py:44-162's GEMM and
+# softmax rungs at their shapes and BASELINE.json configs 1-3, with ragged
+# shapes (tests/test_gemm.py:13, :65) for the kernels' edge handling.
+GEMM_F32_TOL = 2e-5   # rel-L2 of f32 GEMM outputs: TF32 would read ~5e-4
+GEMM_MAX_ABS = 1e-2   # max-abs of f32 GEMM outputs (tests/test_gemm.py:19)
+BF16_TOL = 1e-2       # rel-L2 of bf16 outputs, the JAX suite's bound
+SOFTMAX_MAX_ABS = 1e-5  # the f32 row softmax (tests/test_softmax.py:23)
+# softmax-epilogue rows sum to 1 within rtol 1e-3 (tests/test_gemm.py:80-82)
+# in f32; a bf16 output rounds each p by up to 2^-9 of itself, which alone
+# moves a row's sum by up to 2^-9, so bf16 rows are held to 2^-8
+ROW_SUM_RTOL = {"f32": 1e-3, "bf16": 2.0 ** -8}
+BASELINE_MAX_ABS = 1e-2  # BASELINE.json's target against the fp64 oracle
+CONFIG3 = dict(b=32, n=2048, scale=0.125)
+
+
+@dataclasses.dataclass
+class Rung:
+    """One call of the ladder through the ops API and how it is held: its
+    kernel's entry name, the call, its plain version on the same inputs,
+    the gate ("f32", "bf16", "softmax", "rows f32", "rows bf16"), the
+    function's operations and bytes (inputs read once, the output written
+    once) with the peak rate of its type, the one library call of the same
+    function (or None), and whether its times stand for the kernel
+    ("entry") or are logged beside it ("extra")."""
+
+    kernel: str
+    label: str
+    call: object
+    plain: object
+    gate: str
+    flops: float
+    nbytes: int
+    peak: float
+    library: object = None
+    timed: str | None = None
+    unfused: object = None  # run_all.py:131's two-call baseline (config 3)
+
+
+def ladder_rungs(device) -> list:
+    """The ladder's calls at their shapes; inputs normal from a seed on the
+    card."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+    from flashattention_kernel_project_tpu_torch.ops import softmax as sm
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    gen = torch.Generator(device=device).manual_seed(42)
+    bf, f32 = torch.bfloat16, torch.float32
+    peak = {bf: platform.H100_BF16_FLOPS, f32: platform.H100_FP32_FLOPS}
+    rungs = []
+
+    def rand(*shape, dtype=f32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+    def out_bytes(shape, dt):
+        return int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
+
+    def gemm(label, a, b, out=f32, bias=None, res=None, timed=None, library=None):
+        batched = a.dim() == 3
+        kernel = ("gemm_fused_epilogue" if bias is not None
+                  else "gemm_batched" if batched else "gemm")
+        if bias is not None:
+            call = lambda: g.matmul_fused_epilogue(a, b, bias, res, out_dtype=out)  # noqa: E731
+            plain = lambda: g._fused_epilogue_plain(a, b, bias, res, out)  # noqa: E731
+        else:
+            mm = g.batched_matmul if batched else g.matmul
+            call = lambda: mm(a, b, out_dtype=out)  # noqa: E731
+            plain = lambda: g._matmul_plain(a, b, out)  # noqa: E731
+        shape = (*a.shape[:-1], b.shape[-1])
+        extra = () if bias is None else (bias, res)
+        rungs.append(Rung(kernel, label, call, plain, "f32" if out == f32 else "bf16",
+                          2 * a.numel() * b.shape[-1],
+                          nbytes(a, b, *extra) + out_bytes(shape, out), peak[a.dtype],
+                          library, timed))
+
+    # run_all.py:44-75
+    a16, b16 = rand(4096, 4096, dtype=bf), rand(4096, 4096, dtype=bf)
+    gemm("matmul bf16 4096^3 -> bf16", a16, b16, out=bf, timed="entry",
+         library=lambda: torch.matmul(a16, b16))
+    gemm("matmul bf16 4096^3 -> f32", a16, b16, timed="extra")
+    a32, b32 = rand(2048, 2048), rand(2048, 2048)
+    gemm("matmul f32 2048^3", a32, b32, timed="extra",
+         library=lambda: torch.matmul(a32, b32))
+    ab, bb = rand(8, 1024, 1024, dtype=bf), rand(8, 1024, 1024, dtype=bf)
+    gemm("batched bf16 8x1024^3 -> bf16", ab, bb, out=bf, timed="entry",
+         library=lambda: torch.bmm(ab, bb))
+    bias, res = rand(4096), rand(4096, 4096)
+    gemm("fused epilogue bf16 4096^3 -> bf16", a16, b16, out=bf, bias=bias,
+         res=res, timed="entry")
+    # ragged: K = 130 (and 72 columns of bf16) take the element-wise loads,
+    # K = 132 (f32) and 136 (bf16) the 16-byte copies with zero-filled edges
+    for dt, ks in ((f32, (130, 132)), (bf, (130, 136))):
+        name = "f32" if dt == f32 else "bf16"
+        for k in ks:
+            gemm(f"matmul {name} 200x{k}x72", rand(200, k, dtype=dt), rand(k, 72, dtype=dt))
+    gemm("batched bf16 3x200x130x72", rand(3, 200, 130, dtype=bf), rand(3, 130, 72, dtype=bf))
+    for dt, k in ((bf, 130), (f32, 132)):
+        gemm(f"fused epilogue {'f32' if dt == f32 else 'bf16'} 200x{k}x72",
+             rand(200, k, dtype=dt), rand(k, 72, dtype=dt), bias=rand(72),
+             res=rand(200, 72))
+
+    # BASELINE config 3 (run_all.py:105-116) in bf16 and f32 out, and the
+    # ragged N = 160 of tests/test_gemm.py:65 (the padded-column mask)
+    b3, n3, sc = CONFIG3["b"], CONFIG3["n"], CONFIG3["scale"]
+    cases = ((f"config 3: {b3}x{n3}^3", rand(b3, n3, n3, dtype=bf),
+              rand(b3, n3, n3, dtype=bf), rand(n3)),
+             ("3x96x128x160", rand(3, 96, 128, dtype=bf), rand(3, 128, 160, dtype=bf),
+              rand(160)))
+    for i, (what, a, b, bi) in enumerate(cases):
+        for out in (bf, f32):
+            name = "f32" if out == f32 else "bf16"
+            entry = (i, out) == (0, bf)
+            rungs.append(Rung(
+                "gemm_softmax", f"softmax epilogue {what} -> {name}",
+                lambda a=a, b=b, bi=bi, out=out: g.batched_matmul_softmax_epilogue(
+                    a, b, bi, scale=sc, out_dtype=out),
+                lambda a=a, b=b, bi=bi, out=out: g._softmax_epilogue_plain(
+                    a, b, bi, sc, out),
+                f"rows {name}", 2 * a.numel() * b.shape[-1],
+                nbytes(a, b, bi) + out_bytes((*a.shape[:-1], b.shape[-1]), out),
+                peak[bf], timed="entry" if entry else None,
+                # bmm, then softmax in f32: the scores through device memory
+                unfused=(lambda a=a, b=b, bi=bi: torch.softmax(
+                    torch.bmm(a, b).float() * sc + bi, dim=-1).bfloat16())
+                if entry else None))
+
+    # run_all.py:143-157, a bf16 input, a ragged row, leading dims, and rows
+    # of a vocabulary's width, too long for registers (read twice)
+    for what, x, gate, timed in (
+            ("softmax f32 8192x4096", rand(8192, 4096), "softmax", "entry"),
+            ("softmax f32 4096x512", rand(4096, 512), "softmax", "extra"),
+            ("softmax bf16 8192x4096", rand(8192, 4096, dtype=bf), "bf16", "extra"),
+            ("softmax f32 7x33", rand(7, 33, scale=4.0), "softmax", None),
+            ("softmax f32 4x8x256", rand(4, 8, 256, scale=4.0), "softmax", None),
+            ("softmax f32 256x32000", rand(256, 32000, scale=4.0), "softmax", None),
+            ("softmax bf16 64x40001", rand(64, 40001, dtype=bf, scale=4.0), "bf16",
+             None)):
+        rungs.append(Rung("softmax", what, lambda x=x: sm.softmax(x),
+                          lambda x=x: sm._softmax_plain(x), gate, 5 * x.numel(),
+                          2 * nbytes(x), peak[f32],
+                          lambda x=x: torch.softmax(x, dim=-1), timed))
+    return rungs
+
+
+def _hold_ladder(rung, got, want, entry):
+    """Hold a ladder output against its plain version by the rung's gate;
+    folds the max-abs error into `entry`. Returns a line for the log."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{rung.label}: {tuple(got.shape)} {got.dtype} "
+                             f"against {tuple(want.shape)} {want.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{rung.label}: non-finite output")
+    err = _rel_l2(got, want)
+    max_abs = float((got.float() - want.float()).abs().max())
+    entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
+    line = f"rel-L2 {err:.3e}, max-abs {max_abs:.3e}"
+    gate = rung.gate
+    if gate == "f32" and not (err <= GEMM_F32_TOL and max_abs <= GEMM_MAX_ABS):
+        raise AssertionError(f"{rung.label}: {line} (gates {GEMM_F32_TOL}, "
+                             f"{GEMM_MAX_ABS})")
+    if gate == "softmax" and not max_abs <= SOFTMAX_MAX_ABS:
+        raise AssertionError(f"{rung.label}: max-abs {max_abs:.3e} > {SOFTMAX_MAX_ABS}")
+    if gate in ("bf16", "rows f32", "rows bf16") and not err <= BF16_TOL:
+        raise AssertionError(f"{rung.label}: rel-L2 {err:.3e} > {BF16_TOL}")
+    if gate.startswith("rows"):
+        rtol = ROW_SUM_RTOL[gate.split()[1]]
+        dev = float((got.float().sum(-1) - 1.0).abs().max())
+        if not dev <= rtol:
+            raise AssertionError(f"{rung.label}: a row sums to 1 +- {dev:.3e} > {rtol:.3e}")
+        line += f", rows sum to 1 within {dev:.3e}"
+    return line
+
+
+def phase_baseline_configs(device, label):
+    """BASELINE.json configs 1 and 2: matmul (f32) and matmul_bf16 (f32
+    out) at 1024^3, then the row softmax of the product, both held on the
+    host against the fp64 oracle (the port's runtime/oracle.cpp where g++
+    builds it, else numpy) at BASELINE's max-abs 1e-2; config 2's oracle
+    takes the bf16-rounded inputs, as tests/test_gemm.py:33-36 does."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+    from flashattention_kernel_project_tpu_torch.ops import softmax as sm
+    from flashattention_kernel_project_tpu_torch.runtime import native
+    from flashattention_kernel_project_tpu_torch.utils.testing import max_abs_diff
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    a = torch.randn(1024, 1024, generator=gen, device=device)
+    b = torch.randn(1024, 1024, generator=gen, device=device)
+    oracle = "native (runtime/oracle.cpp)" if native.available() else "numpy"
+    for cfg, mm, operands in ((1, g.matmul, (a, b)),
+                              (2, g.matmul_bf16, (a.bfloat16(), b.bfloat16()))):
+        c = mm(a, b)
+        p = sm.softmax(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c_ref = native.gemm(*(x.float().cpu().numpy() for x in operands))
+        p_ref = native.softmax(c_ref)
+        host_s = time.perf_counter() - t0
+        c_err = max_abs_diff(c.cpu().numpy(), c_ref)
+        p_err = max_abs_diff(p.cpu().numpy(), p_ref)
+        log(f"BASELINE config {cfg} ({mm.__name__} 1024^3, then softmax): "
+            f"against the fp64 oracle, {oracle}, {host_s:.2f} s on the host: "
+            f"product max-abs {c_err:.3e}, softmax max-abs {p_err:.3e} [{label}]")
+        if not (c_err <= BASELINE_MAX_ABS and p_err <= BASELINE_MAX_ABS):
+            raise AssertionError(f"config {cfg} misses BASELINE's max-abs "
+                                 f"{BASELINE_MAX_ABS}")
+
+
+LADDER_KERNELS = dict(  # entry name -> (source, the TPU kernel's def line)
+    gemm=("gemm.cu", "gemm.py:75"), gemm_batched=("gemm.cu", "gemm.py:172"),
+    gemm_fused_epilogue=("gemm.cu", "gemm.py:250"),
+    gemm_softmax=("gemm_softmax.cu", "gemm.py:334"),
+    softmax=("softmax.cu", "softmax.py:44"))
+
+
+def phase_ladder(device, label):
+    """The GEMM and softmax ladder through the ops API, BASELINE configs 1
+    and 2 among it, with every launch counter at 0 before it (its launches
+    are the main path's); then each output against its plain version, and
+    the rungs marked `timed` timed beside their plain versions, bounds and
+    library calls. Returns the five kernels' entries."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("library: torch.backends.cuda.matmul.allow_tf32 = False and "
+        "torch.backends.cudnn.allow_tf32 = False (f32 products in float32)")
+    rungs = ladder_rungs(device)
+    torch.cuda.synchronize()
+    reset_counters()
+    outs = [r.call() for r in rungs]
+    phase_baseline_configs(device, label)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    entries = {}
+    for name, (source, replaces) in LADDER_KERNELS.items():
+        # configs 1 and 2 add a GEMM and a softmax each
+        calls = sum(r.kernel == name for r in rungs) + 2 * (name in ("gemm", "softmax"))
+        if launches[name] != calls:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"ladder's path of {calls} calls")
+        entries[name] = dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
+                             replaces=f"{TPU}/{replaces}", launches=launches[name],
+                             max_abs_err=0.0)
+    log(f"ladder: kernel launches { {k: launches[k] for k in entries} } [{label}]")
+    for rung, got in zip(rungs, outs):
+        want = rung.plain()
+        torch.cuda.synchronize()
+        log(f"{rung.label}: {_hold_ladder(rung, got, want, entries[rung.kernel])} "
+            f"[{label}]")
+        del want
+    del outs
+
+    for rung in rungs:
+        if rung.timed is None:
+            continue
+        # config 3's plain version runs for tens of ms: eager, few calls
+        heavy = rung.kernel == "gemm_softmax"
+        kw = dict(iters=3, graph=False) if heavy else {}
+        ms, plain_ms = time_pair(rung.call, rung.plain, device, **kw)
+        lib_ms = None if rung.library is None else time_ms(rung.library, device,
+                                                           graph=not heavy)
+        bnd = bound(rung.flops, rung.nbytes, rung.peak)
+        rate = (f"{rung.flops / ms / 1e9:.1f} TFLOP/s" if bnd["bound_by"] == "operations"
+                else f"{rung.nbytes / ms / 1e6:.1f} GB/s")
+        log(f"{rung.label}: kernel {ms:.4f} ms ({rate}, {bnd['bound_ms'] / ms:.1%} "
+            f"of its bound {bnd['bound_ms']:.4f} ms, {bnd['bound_by']}) | plain "
+            f"{plain_ms:.4f} ms | library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} [{label}]")
+        times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
+        if rung.unfused is not None:
+            times["unfused_ms"] = time_ms(rung.unfused, device, iters=3, graph=False)
+            log(f"{rung.label}: the unfused baseline (torch.bmm, then "
+                f"torch.softmax in f32) {times['unfused_ms']:.4f} ms [{label}]")
+        entry = entries[rung.kernel]
+        if rung.timed == "entry":
+            entry.update(times, shape=rung.label)
+        else:
+            entry.setdefault("extra", {})[rung.label] = times
+    return list(entries.values())
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside chip_smoke.py: run it from a checkout "
@@ -2969,15 +3273,14 @@ def main() -> int:
         f"{[os.path.relpath(s, ROOT) for s in _build.kernel_sources()]}")
     with open(os.path.join(_build.BUILD_DIR, "libfkp_kernels.so.log")) as f:
         kernel = ""  # the mangled name of the entry ptxas reports on
+        arg = r"L[ib]\d+E|f|a|13__nv_fp8_e4m3|13__nv_bfloat16"  # template arguments
+        types = {"f": "f32", "a": "int8", "13__nv_fp8_e4m3": "e4m3",
+                 "13__nv_bfloat16": "bf16"}
         for line in f:
             entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
-                              r"(?:I((?:L[ib]\d+E)+)(a|13__nv_fp8_e4m3)?"
-                              r"((?:L[ib]\d+E)*))?", line)
-            if entry:  # e.g. flash_fwd_kernel<128,1,1,0>, flash_fwd_q_kernel<128,1,int8,0,1>
-                args = re.findall(r"\d+", entry.group(2) or "")
-                args += {"a": ["int8"], "13__nv_fp8_e4m3": ["e4m3"]}.get(
-                    entry.group(3), [])
-                args += re.findall(r"\d+", entry.group(4) or "")
+                              rf"(?:I((?:{arg})+)E)?", line)
+            if entry:  # e.g. flash_fwd_q_kernel<128,1,int8,0,1>, gemm_kernel<bf16,1,1>
+                args = [types.get(a, a[2:-1]) for a in re.findall(arg, entry.group(2) or "")]
                 kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
             if "registers" in line or "spill" in line:
                 log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
@@ -3057,6 +3360,9 @@ def main() -> int:
     fwd_q = phase_kv_quant(device, 1, 16, 4, 4096, 128, label)
     fwd_q["launches"] = phase_config5(device, fwd_q, label)
     hyb_fwd["launches"] = phase_headline(device, hyb_fwd, label)
+    # the GEMM and softmax ladder (run_all.py's GEMM and softmax rungs,
+    # BASELINE configs 1-3), its own path with the counters at 0 before it
+    ladder = phase_ladder(device, label)
 
     # 3. the serving slices at the serving configuration: the default
     # Scheduler, the paged one (a page pool, a shared 384-token system
@@ -3229,7 +3535,7 @@ def main() -> int:
                                   win_dec_q, win_ragged, win_ragged_q,
                                   *win_bwd, fix_fwd, win_fix, hyb_fwd,
                                   hyb_fwd64, packed, fix_ragged, fix_ragged_q,
-                                  fwd_q]}),
+                                  fwd_q, *ladder]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

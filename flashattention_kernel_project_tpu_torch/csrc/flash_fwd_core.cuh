@@ -119,9 +119,15 @@
 
 #include <type_traits>
 
+#include "mma.cuh"
 #include "widen.cuh"
 
 namespace fkp_fwd {
+
+using fkp_mma::cp_async_16;
+using fkp_mma::cp_async_wait_all;
+using fkp_mma::mma_16816;
+using fkp_mma::pack_bf16;
 
 constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
 constexpr float kLn2 = 0.6931471805599453f;
@@ -144,41 +150,12 @@ struct PagedArgs {
   int t_chunk;              // T: query row i holds chunk token i % T
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // q[row, col:col+2] as a bf16 pair (zero past the last row).
 template <int D>
 __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* q_bh,
                                                 int row, int col, int n) {
   if (row >= n) return 0u;
   return *reinterpret_cast<const uint32_t*>(q_bh + (size_t)row * D + col);
-}
-
-// 16 bytes from device to shared memory without passing through registers
-// (cp.async, sm_80+); valid == false writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-// wait until every cp.async of this thread has landed
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // What an 8-bit flavour adds (null for bf16): the scale buffers, [b, hkv,

@@ -1,0 +1,97 @@
+// The GEMM ladder's products for Hopper (sm_90a): C = A @ B with f32
+// accumulation, over an optional leading batch, with an optional fused
+// epilogue C = ReLU(A @ B + bias[col]) + residual.
+//
+// Replaces flashattention_kernel_project_tpu/ops/gemm.py::_matmul_kernel
+// (matmul, matmul_bf16), _batched_matmul_kernel (batched_matmul: the batch
+// on blockIdx.z with strides, as the TPU's leading parallel grid axis) and
+// _fused_epilogue_kernel (matmul_fused_epilogue: the epilogue in f32 on the
+// accumulator before the single store). The TPU kernels walk K on a
+// sequential grid axis into a VMEM accumulator; here a block keeps its
+// 128 x 128 accumulator in registers and loops over K itself. The epilogue
+// is a template switch. The tile, its precision and its bound are described
+// in gemm_core.cuh.
+
+#include "gemm_core.cuh"
+
+namespace {
+
+using namespace fkp_gemm_core;
+
+// two blocks an SM: at most 128 registers a thread (without the bound the
+// aligned f32 instance took 149 and ran one block an SM)
+template <class T, bool kEpi, bool kAligned>
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_kernel(const T* a, const T* b, Out o, int k) {
+  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
+  a += (size_t)blockIdx.z * o.m * k;
+  b += (size_t)blockIdx.z * k * o.n;
+  const size_t base = (size_t)blockIdx.z * o.m * o.n;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    __shared__ SmemBf16 s;
+    float acc[4][4][4];
+    tile_bf16<kAligned>(acc, s, a, b, row0, col0, o.m, o.n, k);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int r0 = row0 + (warp / 4) * 64 + lane / 4;
+    const int c0 = col0 + (warp % 4) * 32 + (lane % 4) * 2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        store2<kEpi>(o, base, r0 + i * 16, c0 + j * 8, acc[i][j][0], acc[i][j][1]);
+        store2<kEpi>(o, base, r0 + i * 16 + 8, c0 + j * 8, acc[i][j][2], acc[i][j][3]);
+      }
+    }
+  } else {
+    __shared__ SmemF32 s;
+    float acc[8][8];
+    tile_f32<kAligned>(acc, s, a, b, row0, col0, o.m, o.n, k);
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = row0 + (r / 4) * 64 + ty * 4 + r % 4;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = col0 + q * 64 + tx * 4;
+        store2<kEpi>(o, base, row, col, acc[r][q * 4], acc[r][q * 4 + 1]);
+        store2<kEpi>(o, base, row, col + 2, acc[r][q * 4 + 2], acc[r][q * 4 + 3]);
+      }
+    }
+  }
+}
+
+template <class T, bool kEpi>
+int launch(const void* a, const void* b, const Out& o, int batch, int k,
+           int aligned, cudaStream_t stream) {
+  const dim3 grid((o.n + kBN - 1) / kBN, (o.m + kBM - 1) / kBM, batch);
+  const T* ta = static_cast<const T*>(a);
+  const T* tb = static_cast<const T*>(b);
+  if (aligned) {
+    gemm_kernel<T, kEpi, true><<<grid, kThreads, 0, stream>>>(ta, tb, o, k);
+  } else {
+    gemm_kernel<T, kEpi, false><<<grid, kThreads, 0, stream>>>(ta, tb, o, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a [batch, m, k], b [batch, k, n] contiguous, both bf16 (bf16_in) or both
+// f32; c [batch, m, n] bf16 (bf16_out) or f32. epilogue: bias f32 [n] and
+// residual f32 [m, n] (batch 1), else both may be null. aligned: k and n are
+// multiples of 8 (bf16) or 4 (f32) elements and a, b are 16-byte aligned.
+// Returns cudaGetLastError() after the launch.
+extern "C" int fkp_gemm(const void* a, const void* b, void* c,
+                        const void* bias, const void* residual, int batch,
+                        int m, int n, int k, int bf16_in, int bf16_out,
+                        int epilogue, int aligned, void* stream) {
+  const Out o{c, static_cast<const float*>(bias),
+              static_cast<const float*>(residual), m, n, bf16_out};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (bf16_in) {
+    return epilogue ? launch<__nv_bfloat16, true>(a, b, o, batch, k, aligned, s)
+                    : launch<__nv_bfloat16, false>(a, b, o, batch, k, aligned, s);
+  }
+  return epilogue ? launch<float, true>(a, b, o, batch, k, aligned, s)
+                  : launch<float, false>(a, b, o, batch, k, aligned, s);
+}

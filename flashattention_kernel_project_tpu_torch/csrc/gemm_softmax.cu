@@ -1,0 +1,193 @@
+// The batched GEMM with a fused scale + bias + row-softmax epilogue for
+// Hopper (sm_90a): C[b] = softmax_rows(scale * A[b] @ B[b] + bias[col]).
+//
+// Replaces flashattention_kernel_project_tpu/ops/gemm.py::
+// _batched_softmax_epilogue_kernel (batched_matmul_softmax_epilogue,
+// through _batched_softmax_epilogue_rows; BASELINE.json config 3). The TPU
+// kernel keeps the whole N-wide f32 row of a 512-row block in VMEM (a 14 MB
+// budget) and runs the softmax on it before the single store. A Hopper block
+// has 227 KB of shared memory and 256 KB of registers per SM: at N = 2048 a
+// 16-row f32 band is already 128 KB, and a block of 16 rows would re-read
+// all of B for every 16 rows of C. So the block here owns 128 rows and sweeps
+// N twice in 128-column tiles of the GEMM core (gemm_core.cuh):
+// - sweep 1 computes each tile's scores z = (scale * acc + bias) * log2(e)
+//   and folds them into a running (m, l) per row and thread, in the log2
+//   domain; the threads that share a row then merge their (m, l) by
+//   shuffles and through shared memory;
+// - sweep 2 computes each tile again and writes exp2(z - m) / l.
+// It is one launch, any N works, and no score ever goes to device memory;
+// the price is twice the GEMM's operations. Columns past N are masked out
+// of the max and the sum (the TPU kernel's padded-column mask); a row whose
+// sum is 0 gives 0.
+//
+// Precision: exp2 and the normalisation run in f32 and round once, to the
+// output type. The TPU kernel takes exp2 at the output type (bf16) after the
+// max subtraction and multiplies by a bf16 reciprocal; the port keeps f32
+// there, as its attention kernels do (ROADMAP.md, section C).
+//
+// What bounds it on the H100: at config 3 (32 x 2048^3, bf16) the function
+// is 2*B*M*N*K = 550 GFLOP against 0.8 GB of inputs and outputs, so
+// the tensor-core rate bounds it (0.556 ms at 989 TFLOP/s); this kernel
+// runs twice those products on mma.sync. Left for later: one sweep with the tile
+// exponentials kept in the output and a rescale by the final (m, l)
+// (the TPU's resident form, kernel 17), wgmma and TMA. bf16 inputs only.
+
+#include "gemm_core.cuh"
+
+namespace {
+
+using namespace fkp_gemm_core;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
+
+// (m, l) <- the merge of two partial row states, log2 domain
+__device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
+  const float mm = fmaxf(m, m2);
+  l = l * exp2f(m - mm) + l2 * exp2f(m2 - mm);
+  m = mm;
+}
+
+// two blocks an SM: at most 128 registers a thread (without the bound the
+// aligned instance took 234 and ran one block an SM)
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_softmax_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                        const float* bias, Out o, int k, float scale_log2) {
+  __shared__ SmemBf16 s;
+  __shared__ float part_m[4][kBM], part_l[4][kBM];  // by warp column, row
+  const int m = o.m, n = o.n;
+  const int row0 = blockIdx.x * kBM;
+  a += (size_t)blockIdx.y * m * k;
+  b += (size_t)blockIdx.y * k * n;
+  const size_t base = (size_t)blockIdx.y * m * n;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wn = warp % 4;
+  const int lrow = (warp / 4) * 64 + lane / 4;  // + i * 16 + h * 8
+  const int ccol = wn * 32 + (lane % 4) * 2;    // + j * 8 + e
+  float acc[4][4][4];
+
+  // z of acc[i][j][h * 2 + e] in place; masked columns get kNegInf
+  auto scores = [&](int col0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + ccol + j * 8 + e;
+        const bool live = col < n;
+        const float bl = live ? bias[col] * kLog2e : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& z = acc[i][j][h * 2 + e];
+            z = live ? fmaf(z, scale_log2, bl) : kNegInf;
+          }
+        }
+      }
+    }
+  };
+
+  // sweep 1: each thread's running (m, l) over its columns, rows i * 2 + h
+  float rm[8], rl[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) rm[r] = kNegInf, rl[r] = 0.f;
+  for (int col0 = 0; col0 < n; col0 += kBN) {
+    tile_bf16<kAligned>(acc, s, a, b, row0, col0, m, n, k);
+    scores(col0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mx = fmaxf(mx, fmaxf(acc[i][j][h * 2], acc[i][j][h * 2 + 1]));
+        }
+        const float m_new = fmaxf(rm[i * 2 + h], mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float z = acc[i][j][h * 2 + e];
+            // a masked column adds nothing, even while m_new is kNegInf
+            sum += z == kNegInf ? 0.f : exp2f(z - m_new);
+          }
+        }
+        rl[i * 2 + h] = rl[i * 2 + h] * exp2f(rm[i * 2 + h] - m_new) + sum;
+        rm[i * 2 + h] = m_new;
+      }
+    }
+  }
+  // the 4 lanes of a row group, then the 4 warps along n
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      merge(rm[r], rl[r], __shfl_xor_sync(0xffffffffu, rm[r], off),
+            __shfl_xor_sync(0xffffffffu, rl[r], off));
+    }
+  }
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      part_m[wn][lrow + (r / 2) * 16 + (r % 2) * 8] = rm[r];
+      part_l[wn][lrow + (r / 2) * 16 + (r % 2) * 8] = rl[r];
+    }
+  }
+  __syncthreads();
+  float inv[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = lrow + (r / 2) * 16 + (r % 2) * 8;
+    float mr = part_m[0][row], lr = part_l[0][row];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) merge(mr, lr, part_m[w][row], part_l[w][row]);
+    rm[r] = mr;
+    inv[r] = 1.f / (lr == 0.f ? 1.f : lr);
+  }
+
+  // sweep 2: the same tiles again, normalised
+  for (int col0 = 0; col0 < n; col0 += kBN) {
+    tile_bf16<kAligned>(acc, s, a, b, row0, col0, m, n, k);
+    scores(col0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = i * 2 + h;
+          store2<false>(o, base, row0 + lrow + i * 16 + h * 8, col0 + ccol + j * 8,
+                        exp2f(acc[i][j][h * 2] - rm[r]) * inv[r],
+                        exp2f(acc[i][j][h * 2 + 1] - rm[r]) * inv[r]);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// a [batch, m, k], b [batch, k, n] bf16 contiguous, bias f32 [n]; c [batch,
+// m, n] bf16 (bf16_out) or f32. scale_log2 = scale * log2(e). aligned: k and
+// n are multiples of 8 and a, b are 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
+extern "C" int fkp_gemm_softmax(const void* a, const void* b, const void* bias,
+                                void* c, int batch, int m, int n, int k,
+                                float scale_log2, int bf16_out, int aligned,
+                                void* stream) {
+  const Out o{c, nullptr, nullptr, m, n, bf16_out};
+  const dim3 grid((m + kBM - 1) / kBM, batch);
+  const auto ta = static_cast<const __nv_bfloat16*>(a);
+  const auto tb = static_cast<const __nv_bfloat16*>(b);
+  const auto tbias = static_cast<const float*>(bias);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (aligned) {
+    gemm_softmax_kernel<true><<<grid, kThreads, 0, s>>>(ta, tb, tbias, o, k, scale_log2);
+  } else {
+    gemm_softmax_kernel<false><<<grid, kThreads, 0, s>>>(ta, tb, tbias, o, k, scale_log2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

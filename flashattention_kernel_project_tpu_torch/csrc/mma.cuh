@@ -1,0 +1,97 @@
+// Warp-level helpers shared by every kernel that stages bf16 tiles in shared
+// memory and multiplies them on the tensor cores: the attention forward
+// (flash_fwd_core.cuh), the backward (flash_bwd_common.cuh) and the GEMMs
+// (gemm_core.cuh). One copy, so that the fragment layouts and the copy
+// semantics cannot drift apart between the kernel families.
+//
+// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   B (16 x 8, col):   b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
+//   C (16 x 8):        c0, c1 (g, 2t..2t+1)  c2, c3 (g+8, 2t..2t+1)
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fkp_mma {
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// The A fragment of the 16 x 16 block at (row0, col0) of a row-major tile.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s,
+                                       int stride, int row0, int col0, int lane) {
+  ldsm_x4(a, s + (row0 + (lane % 16)) * stride + col0 + (lane / 16) * 8);
+}
+
+// B fragments of two n-tiles (n0..n0+7 in b[0..1], n0+8..n0+15 in b[2..3])
+// over k0..k0+15, from a tile stored [n][k] (B = tile^T).
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const __nv_bfloat16* s,
+                                          int stride, int n0, int k0, int lane) {
+  ldsm_x4(b, s + (n0 + (lane % 8) + (lane / 16) * 8) * stride + k0 +
+                 ((lane / 8) % 2) * 8);
+}
+
+// The same two n-tiles from a tile stored [k][n] (B = tile), transposed
+// on the way in.
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const __nv_bfloat16* s,
+                                          int stride, int k0, int n0, int lane) {
+  ldsm_x4_t(b, s + (k0 + (lane % 8) + ((lane / 8) % 2) * 8) * stride + n0 +
+                   (lane / 16) * 8);
+}
+
+// 16 bytes from device to shared memory without passing through registers
+// (cp.async, sm_80+); valid == false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+                                            bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// wait until every cp.async of this thread has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// close the group of this thread's cp.async started since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `kPending` of this thread's committed groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+}  // namespace fkp_mma

@@ -1,18 +1,38 @@
-"""Attention kernels: forward (prefill), ragged forward (chunked prefill),
+"""Kernels: the GEMM ladder (tiled, batched, fused-epilogue and
+softmax-epilogue products), the row softmax and the online-softmax state
+machine; attention: forward (prefill), ragged forward (chunked prefill),
 split-KV decode over a linear cache and over a page pool, and the
 multi-token extend over a page pool (the speculative verify), each over a
-bf16 or an 8-bit (int8, e4m3) cache; and the 8-bit quantizers. The modules
-are not re-exported here, so `ops.flash_attention` names the module (and
-its `_fwd.launches` counter), not the function; the functions the kernel
-modules' names do not shadow are (`k_max_norm`, the cacheable half of
-stable="auto"'s bound, and the dense 8-bit forward)."""
+bf16 or an 8-bit (int8, e4m3) cache; and the 8-bit quantizers. The kernel
+modules are not re-exported here, so `ops.flash_attention` names the module
+(and its `_fwd.launches` counter), not the function, and `ops.softmax` the
+module whose `softmax` is the row softmax; the functions the module names
+do not shadow are (the GEMMs, the state machine, `k_max_norm`, the
+cacheable half of stable="auto"'s bound, and the dense 8-bit forward)."""
 
 from flashattention_kernel_project_tpu_torch.ops import (  # noqa: F401
     flash_attention,
     flash_decode,
+    gemm,
     paged_decode,
     quant,
     softmax,
+)
+from flashattention_kernel_project_tpu_torch.ops.gemm import (  # noqa: F401
+    batched_matmul,
+    batched_matmul_softmax_epilogue,
+    matmul,
+    matmul_bf16,
+    matmul_fused_epilogue,
+    matmul_xla,
+)
+from flashattention_kernel_project_tpu_torch.ops.softmax import (  # noqa: F401
+    SoftmaxState,
+    finalize,
+    init_state,
+    merge,
+    online_softmax_reference,
+    tile_state,
 )
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_kv_quant,

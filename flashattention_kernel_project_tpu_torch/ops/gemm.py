@@ -1,0 +1,237 @@
+"""The GEMM ladder: tiled, batched, fused-epilogue and softmax-epilogue
+products with f32 accumulation.
+
+Counterpart of flashattention_kernel_project_tpu/ops/gemm.py. On a CUDA
+tensor the products are the hand-written Hopper kernels: csrc/gemm.cu (one
+templated GEMM for `matmul`, `matmul_bf16`, `batched_matmul` and
+`matmul_fused_epilogue`, bf16 on the tensor cores and float32 in full
+float32, not TF32, as the TPU kernels run float32 at Precision.HIGHEST) and
+csrc/gemm_softmax.cu (`batched_matmul_softmax_epilogue`). On a CPU tensor
+each takes its plain version in PyTorch, the same function in float32.
+`matmul_xla` is the ladder's library rung, torch.matmul, as the JAX
+package's is XLA's own dot. The TPU kernels' block sizes (block_m, block_n,
+block_k) size VMEM blocks and do not change the function: the CUDA kernels
+pick their own tiles, and ragged shapes need no padding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from flashattention_kernel_project_tpu_torch.ops import _build
+from flashattention_kernel_project_tpu_torch.ops.softmax import _LOG2E
+
+_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_types(a, b, out_dtype):
+    if a.dtype not in _TYPES or b.dtype != a.dtype:
+        raise TypeError(f"the CUDA GEMMs take two f32 or two bf16 operands, "
+                        f"got {a.dtype} and {b.dtype}")
+    if out_dtype not in _TYPES:
+        raise TypeError(f"out_dtype must be f32 or bf16, got {out_dtype}")
+    if b.device != a.device:
+        raise ValueError(f"b is on {b.device}, a on {a.device}")
+
+
+def _aligned(*tensors) -> bool:
+    """Whether the kernels may copy 16-byte pieces: each row of every
+    operand a multiple of 16 bytes long, every base 16-byte aligned."""
+    return all(t.shape[-1] * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+@functools.cache
+def _gemm_kernel():
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_gemm", [vp] * 5 + [i32] * 8 + [vp])
+
+
+def _gemm_cuda(wrapper, a, b, out_dtype, bias=None, residual=None):
+    """C = a @ b (a [B, M, K], b [B, K, N]), through the epilogue when bias
+    and residual are given, launched on the current stream and counted in
+    `wrapper.launches`."""
+    _check_types(a, b, out_dtype)
+    a, b = a.contiguous(), b.contiguous()
+    batch, m, k = a.shape
+    n = b.shape[-1]
+    c = torch.empty((batch, m, n), dtype=out_dtype, device=a.device)
+    if bias is not None:
+        bias = bias.to(a.device, torch.float32).contiguous()
+        residual = residual.to(a.device, torch.float32).contiguous()
+    rc = _gemm_kernel()(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if residual is None else residual.data_ptr(),
+        batch, m, n, k, int(a.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), int(bias is not None),
+        int(_aligned(a, b)), torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    wrapper.launches += 1
+    _build.check(rc, "gemm")
+    return c
+
+
+def _matmul_plain(a, b, out_dtype):
+    """The kernels' function in plain PyTorch: float32 products, f32 out
+    rounded to out_dtype. bf16 operands widen exactly."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def _dims(a, b, batched: bool):
+    rank = 3 if batched else 2
+    if a.dim() != rank or b.dim() != rank or a.shape[-1] != b.shape[-2] or (
+            batched and a.shape[0] != b.shape[0]):
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)} do not "
+                         f"make a{' batched' if batched else ''} product")
+
+
+def _empty(a, b, out_dtype):
+    """An output with no element: nothing to launch."""
+    return torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=out_dtype,
+                       device=a.device)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           out_dtype=torch.float32) -> torch.Tensor:
+    """C = A @ B with f32 accumulation: a [M, K], b [K, N], both f32 (full
+    float32 products) or both bf16; C [M, N] in out_dtype (f32 or bf16).
+    CPU tensors run the plain version; CUDA tensors launch csrc/gemm.cu or
+    raise."""
+    _dims(a, b, batched=False)
+    if a.device.type == "cpu":
+        return _matmul_plain(a, b, out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM for device {a.device}")
+    if a.shape[0] == 0 or b.shape[1] == 0:
+        return _empty(a, b, out_dtype)
+    return _gemm_cuda(matmul, a[None], b[None], out_dtype)[0]
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    """The tensor-core rung: `matmul` of a and b rounded to bf16 (f32
+    accumulation, f32 out by default)."""
+    return matmul(a.to(torch.bfloat16), b.to(torch.bfloat16), **kw)
+
+
+def matmul_xla(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The ladder's library rung: one torch.matmul with an f32 result (bf16
+    operands widen exactly, so their products are exact as in XLA's dot
+    with preferred_element_type f32)."""
+    return torch.matmul(a.float(), b.float())
+
+
+def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """C[i] = A[i] @ B[i]: a [B, M, K], b [B, K, N] -> [B, M, N], the batch
+    on the kernel's third grid axis. Types as `matmul`."""
+    _dims(a, b, batched=True)
+    if a.device.type == "cpu":
+        return _matmul_plain(a, b, out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM for device {a.device}")
+    if 0 in (a.shape[0], a.shape[1], b.shape[2]):
+        return _empty(a, b, out_dtype)
+    return _gemm_cuda(batched_matmul, a, b, out_dtype)
+
+
+def _fused_epilogue_plain(a, b, bias, residual, out_dtype):
+    c = torch.matmul(a.float(), b.float()) + bias.float()
+    return (torch.relu(c) + residual.float()).to(out_dtype)
+
+
+def matmul_fused_epilogue(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                          residual: torch.Tensor, *,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """C = ReLU(A @ B + bias[col]) + residual, the epilogue in f32 on the
+    accumulator before the single store: a [M, K], b [K, N], bias [N],
+    residual [M, N] (any float type, read as f32). Types as `matmul`."""
+    _dims(a, b, batched=False)
+    m, n = a.shape[0], b.shape[1]
+    if tuple(bias.shape) != (n,) or tuple(residual.shape) != (m, n):
+        raise ValueError(f"bias {tuple(bias.shape)} and residual "
+                         f"{tuple(residual.shape)} must be ({n},) and ({m}, {n})")
+    if a.device.type == "cpu":
+        return _fused_epilogue_plain(a, b, bias, residual, out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM for device {a.device}")
+    if m == 0 or n == 0:
+        return _empty(a, b, out_dtype)
+    return _gemm_cuda(matmul_fused_epilogue, a[None], b[None], out_dtype, bias,
+                      residual)[0]
+
+
+def _softmax_epilogue_plain(a, b, bias, scale, out_dtype):
+    """The kernel's function in plain PyTorch, in f32: scores in the log2
+    domain, the row max subtracted, exp2, one reciprocal of the row sum (a
+    sum of 0 counts as 1)."""
+    z = torch.matmul(a.float(), b.float()) * (scale * _LOG2E) + bias.float() * _LOG2E
+    e = torch.exp2(z - z.amax(dim=-1, keepdim=True))
+    s = e.sum(dim=-1, keepdim=True)
+    return (e * (1.0 / torch.where(s == 0.0, 1.0, s))).to(out_dtype)
+
+
+@functools.cache
+def _softmax_kernel():
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_gemm_softmax",
+                         [vp] * 4 + [i32] * 4 + [ctypes.c_float, i32, i32, vp])
+
+
+def batched_matmul_softmax_epilogue(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    scale: float = 1.0,
+    out_dtype=torch.float32,
+    resident: bool | None = None,
+) -> torch.Tensor:
+    """C[i] = softmax_rows(scale * A[i] @ B[i] + bias[col]): a [B, M, K],
+    b [B, K, N], bias [N] -> [B, M, N] in out_dtype, the softmax fused on
+    the f32 accumulator (BASELINE.json config 3). `resident` (None or False)
+    is the JAX default, the rows structure; resident=True, the TPU's
+    A-resident fixed-max form (kernel 17), is not ported yet. CPU tensors
+    run the plain version; CUDA tensors launch csrc/gemm_softmax.cu (bf16
+    operands) or raise."""
+    if resident:
+        raise NotImplementedError(
+            "batched_matmul_softmax_epilogue(resident=True), the A-resident "
+            "fixed-max kernel, is ROADMAP item A.11")
+    _dims(a, b, batched=True)
+    bsz, m, k = a.shape
+    n = b.shape[2]
+    if tuple(bias.shape) != (n,):
+        raise ValueError(f"bias {tuple(bias.shape)} must be ({n},)")
+    if a.device.type == "cpu":
+        return _softmax_epilogue_plain(a, b, bias, scale, out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM for device {a.device}")
+    _check_types(a, b, out_dtype)
+    if a.dtype != torch.bfloat16:
+        raise TypeError("the CUDA softmax-epilogue GEMM takes bf16 operands, "
+                        f"got {a.dtype}")
+    if 0 in (bsz, m, n):
+        return _empty(a, b, out_dtype)
+    a, b = a.contiguous(), b.contiguous()
+    bias = bias.to(a.device, torch.float32).contiguous()
+    c = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
+    rc = _softmax_kernel()(
+        a.data_ptr(), b.data_ptr(), bias.data_ptr(), c.data_ptr(), bsz, m, n, k,
+        float(scale * _LOG2E), int(out_dtype == torch.bfloat16),
+        int(_aligned(a, b)), torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    batched_matmul_softmax_epilogue.launches += 1
+    _build.check(rc, "gemm_softmax")
+    return c
+
+
+# kernel launches, for showing that a path ran the kernels (matmul_bf16
+# counts in matmul's)
+matmul.launches = 0
+batched_matmul.launches = 0
+matmul_fused_epilogue.launches = 0
+batched_matmul_softmax_epilogue.launches = 0

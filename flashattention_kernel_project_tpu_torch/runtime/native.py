@@ -1,12 +1,14 @@
-"""ctypes binding of the native continuous-batching core.
+"""ctypes bindings of the native host code: the fp64 C++ oracle and the
+continuous-batching core.
 
-Counterpart of the scheduler half of
-flashattention_kernel_project_tpu/runtime/native.py. The C++ source is
-this package's own runtime/scheduler.cpp, a copy of the JAX package's, so
-that a change to the reference never changes the port; it is compiled with
-g++ into this package's build/ directory at first use. Where no compiler is
-available, a behaviour-identical Python implementation of the same state
-machine takes over: this is host bookkeeping, not a device path.
+Counterpart of flashattention_kernel_project_tpu/runtime/native.py. The C++
+sources are this package's own runtime/oracle.cpp and runtime/scheduler.cpp,
+copies of the JAX package's, so that a change to the reference never changes
+the port; each is compiled with g++ into this package's build/ directory at
+first use. Where no compiler is available, the oracle's functions take the
+numpy oracles of utils/oracles.py and the core a behaviour-identical Python
+implementation of the same state machine: these are host references and
+bookkeeping, not device paths.
 """
 
 from __future__ import annotations
@@ -18,24 +20,118 @@ import os
 import numpy as np
 
 from flashattention_kernel_project_tpu_torch.ops import _build
+from flashattention_kernel_project_tpu_torch.utils import oracles as np_oracles
 
-SCHEDULER_SRC = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "scheduler.cpp"
-)
+_DIR = os.path.dirname(os.path.abspath(__file__))
+ORACLE_SRC = os.path.join(_DIR, "oracle.cpp")
+SCHEDULER_SRC = os.path.join(_DIR, "scheduler.cpp")
 
+
+def _gxx(src: str, name: str):
+    """build/`name` from `src` with g++, loaded; None where it cannot be
+    built."""
+    try:
+        so = _build.build(
+            name, [src],
+            lambda out: [[["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                           "-pthread", src, "-o", out]]],
+        )
+    except (RuntimeError, OSError):
+        return None
+    return ctypes.CDLL(so)
+
+
+# ---------------------------------------------------------------------------
+# The fp64 C++ oracle (runtime/oracle.cpp): threaded over rows, for checks
+# at the ladder's full sizes, where numpy's float64 loops are slow
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _load_oracle():
+    lib = _gxx(ORACLE_SRC, "liboracle.so")
+    if lib is None:
+        return None
+    i64, i32, f32 = ctypes.c_int64, ctypes.c_int32, ctypes.c_float
+    ptr = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    for fn in (lib.gemm_f32, lib.softmax_f32, lib.gqa_attention_f32):
+        fn.restype = None
+    lib.gemm_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64]
+    lib.softmax_f32.argtypes = [ptr, ptr, i64, i64]
+    lib.gqa_attention_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, f32, i32, i64,
+    ]
+    return lib
+
+
+def available() -> bool:
+    """Whether the oracle runs natively (else its functions take numpy)."""
+    return _load_oracle() is not None
+
+
+def gemm(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """C = A @ B in float64, as float32; leading batch dims go to numpy."""
+    lib = _load_oracle()
+    if lib is None or a.ndim != 2:
+        return np_oracles.gemm(a, b)
+    a = np.ascontiguousarray(a, np.float32)
+    b = np.ascontiguousarray(b, np.float32)
+    m, k = a.shape
+    n = b.shape[1]
+    c = np.empty((m, n), np.float32)
+    lib.gemm_f32(a, b, c, m, k, n)
+    return c
+
+
+def softmax(x: np.ndarray) -> np.ndarray:
+    """Row softmax over the last axis in float64, as float32."""
+    lib = _load_oracle()
+    if lib is None:
+        return np_oracles.softmax(x)
+    x2 = np.ascontiguousarray(x, np.float32).reshape(-1, x.shape[-1])
+    y = np.empty_like(x2)
+    lib.softmax_f32(x2, y, x2.shape[0], x2.shape[1])
+    return y.reshape(x.shape)
+
+
+def gqa_attention(
+    q: np.ndarray,
+    k: np.ndarray,
+    v: np.ndarray,
+    *,
+    scale: float | None = None,
+    causal: bool = False,
+    q_offset: int = 0,
+) -> np.ndarray:
+    """utils.oracles.gqa_attention (no window) in float64, as float32."""
+    lib = _load_oracle()
+    if lib is None:
+        return np_oracles.gqa_attention(
+            q, k, v, scale=scale, causal=causal, q_offset=q_offset
+        )
+    b, hq, n, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    q = np.ascontiguousarray(q, np.float32)
+    k = np.ascontiguousarray(k, np.float32)
+    v = np.ascontiguousarray(v, np.float32)
+    o = np.empty((b, hq, n, d), np.float32)
+    lib.gqa_attention_f32(
+        q, k, v, o, b, hq, hkv, n, s, d, float(scale), int(causal), q_offset
+    )
+    return o
+
+
+# ---------------------------------------------------------------------------
+# The continuous-batching core (runtime/scheduler.cpp)
+# ---------------------------------------------------------------------------
 
 @functools.cache
 def _load_scheduler():
     """The native core's library, or None where it cannot be built."""
-    try:
-        so = _build.build(
-            "libscheduler.so", [SCHEDULER_SRC],
-            lambda out: [[["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                           "-pthread", SCHEDULER_SRC, "-o", out]]],
-        )
-    except (RuntimeError, OSError):
+    lib = _gxx(SCHEDULER_SRC, "libscheduler.so")
+    if lib is None:
         return None
-    lib = ctypes.CDLL(so)
     i32, i64, vp = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
     lib.cbs_create.restype = vp
     lib.cbs_create.argtypes = [i32, i32, i32]

@@ -185,9 +185,9 @@ def test_port_builds_and_imports_nothing_of_the_jax_package():
     from flashattention_kernel_project_tpu_torch.runtime import data, native
 
     port = os.path.join(ROOT, "flashattention_kernel_project_tpu_torch") + os.sep
-    sources = [native.SCHEDULER_SRC, data.DATALOADER_SRC,
+    sources = [native.SCHEDULER_SRC, native.ORACLE_SRC, data.DATALOADER_SRC,
                *_build.kernel_sources()]
-    assert len(sources) >= 8
+    assert len(sources) >= 12
     for src in sources:
         assert os.path.abspath(src).startswith(port), src
         assert os.path.exists(src), src
