@@ -69,11 +69,18 @@ width, with random weights from a seed:
     4096 and 4096 x 512 f32, and a bf16 input), BASELINE.json config 3 (the
     softmax-epilogue GEMM at 32 x 2048^3, bf16) and configs 1 and 2 (matmul
     f32 and matmul_bf16 at 1024^3, then softmax, held on the host against
-    the fp64 oracle at max-abs 1e-2), with ragged shapes; every output
-    against its plain version, each kernel timed beside it, its bound and
-    the library call (torch.matmul, torch.bmm, torch.softmax, float32
-    products without TF32; run_all.py's unfused bmm + softmax beside
-    config 3).
+    the fp64 oracle at max-abs 1e-2), run_all.py's 8-bit GEMM rungs
+    (weight-only int8 and e4m3 at 4096^3, int8 x int8 at 4096^3, bit-equal
+    to plain), config 3 through the resident fixed-max form (witness 0;
+    inputs scaled by 40 must fall back to kernel 16's output bit for bit)
+    and run_all.py's streaming decode (B 256, 8/1 heads, S 4096, d 128),
+    with ragged shapes; every output against its plain version, each
+    kernel timed beside it, its bound and the library call (torch.matmul,
+    torch.bmm, torch.softmax, float32 products without TF32; SDPA for the
+    streaming decode) or the multi-call baseline (run_all.py's unfused bmm
+    + softmax, the engine's cast-and-matmul for 8-bit weights,
+    torch._int_mm and the scales), and the port's kernel 16 beside the
+    resident form, its split decode beside the streaming one.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card and prints no result without CUDA. Its last line
 is one JSON object:
@@ -1133,7 +1140,9 @@ def _counters():
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
     from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+    from flashattention_kernel_project_tpu_torch.ops import quant as qt
     from flashattention_kernel_project_tpu_torch.ops import softmax as sm
+    from flashattention_kernel_project_tpu_torch.ops import streaming as st
 
     return dict(flash_fwd=fa._fwd, flash_fwd_ragged=fa.flash_attention_ragged,
                 flash_decode=fd.flash_decode, paged_decode=pd.paged_flash_decode,
@@ -1146,13 +1155,16 @@ def _counters():
                 gemm_batched=g.batched_matmul,
                 gemm_fused_epilogue=g.matmul_fused_epilogue,
                 gemm_softmax=g.batched_matmul_softmax_epilogue,
-                softmax=sm.softmax)
+                softmax=sm.softmax, gemm_w8=qt.matmul_int8_weights,
+                gemm_w8_fp8=qt.matmul_fp8_weights, gemm_i8=qt.matmul_int8,
+                streaming_decode=st.streaming_decode)
 
 
 # the counters a wrapper keeps beside `.launches` (its online launches, or
 # all of them), by the suffix read_counters gives them
 COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
-                     hybrid="hybrid_launches", packed="packed_launches")
+                     hybrid="hybrid_launches", packed="packed_launches",
+                     resident="resident_launches", fallback="fallback_launches")
 
 
 def reset_counters():
@@ -1168,7 +1180,9 @@ def read_counters() -> dict:
     """Launches by kernel name: "<name>" counts the wrapper's online (or
     only) launches; a wrapper that also counts its launches with a sliding
     window, in the fixed-max or hybrid discipline, or through the packed
-    forward adds them as "<name>/window", "/fixed", "/hybrid", "/packed"."""
+    forward adds them as "<name>/window", "/fixed", "/hybrid", "/packed";
+    the softmax-epilogue GEMM its resident (one-sweep) launches and the
+    gated rows launches after them as "/resident" and "/fallback"."""
     out = {}
     for name, fn in _counters().items():
         out[name] = fn.launches
@@ -2959,8 +2973,10 @@ def phase_default_model(device, label):
 
 
 # The GEMM and softmax ladder: benchmarks/run_all.py:44-162's GEMM and
-# softmax rungs at their shapes and BASELINE.json configs 1-3, with ragged
-# shapes (tests/test_gemm.py:13, :65) for the kernels' edge handling.
+# softmax rungs at their shapes and BASELINE.json configs 1-3, its 8-bit
+# GEMM rungs, the resident softmax epilogue and the streaming decode
+# (:521-530), with ragged shapes (tests/test_gemm.py:13, :65,
+# tests/test_quant.py, tests/test_streaming.py) for the kernels' edges.
 GEMM_F32_TOL = 2e-5   # rel-L2 of f32 GEMM outputs: TF32 would read ~5e-4
 GEMM_MAX_ABS = 1e-2   # max-abs of f32 GEMM outputs (tests/test_gemm.py:19)
 BF16_TOL = 1e-2       # rel-L2 of bf16 outputs, the JAX suite's bound
@@ -2969,6 +2985,9 @@ SOFTMAX_MAX_ABS = 1e-5  # the f32 row softmax (tests/test_softmax.py:23)
 # in f32; a bf16 output rounds each p by up to 2^-9 of itself, which alone
 # moves a row's sum by up to 2^-9, so bf16 rows are held to 2^-8
 ROW_SUM_RTOL = {"f32": 1e-3, "bf16": 2.0 ** -8}
+# the resident form's rows sum to 1 within 1e-2 (tests/test_gemm.py:105-107):
+# e and 1/l are each rounded to the output type before their product
+RESIDENT_ROW_RTOL = 1e-2
 BASELINE_MAX_ABS = 1e-2  # BASELINE.json's target against the fp64 oracle
 CONFIG3 = dict(b=32, n=2048, scale=0.125)
 
@@ -2977,11 +2996,17 @@ CONFIG3 = dict(b=32, n=2048, scale=0.125)
 class Rung:
     """One call of the ladder through the ops API and how it is held: its
     kernel's entry name, the call, its plain version on the same inputs,
-    the gate ("f32", "bf16", "softmax", "rows f32", "rows bf16"), the
+    the gate ("f32", "bf16", "softmax", "rows f32", "rows bf16",
+    "resident": bf16 and rows summing to 1 within 1e-2, "exact": bit-equal,
+    "decode": bf16 with the rows of empty sequences exactly 0), the
     function's operations and bytes (inputs read once, the output written
     once) with the peak rate of its type, the one library call of the same
     function (or None), and whether its times stand for the kernel
-    ("entry") or are logged beside it ("extra")."""
+    ("entry") or are logged beside it ("extra"). `unfused` is a multi-call
+    baseline of the same function, `beside` other calls of it on the same
+    inputs (name -> call: the port's other kernels, a baseline in another
+    layout), each timed and logged; `graph` times from
+    CUDA graphs (else eagerly, for calls of milliseconds)."""
 
     kernel: str
     label: str
@@ -2993,7 +3018,10 @@ class Rung:
     peak: float
     library: object = None
     timed: str | None = None
-    unfused: object = None  # run_all.py:131's two-call baseline (config 3)
+    unfused: object = None  # e.g. run_all.py:131's two-call baseline (config 3)
+    beside: dict | None = None
+    graph: bool = True
+    empty: tuple = ()  # the rows that must be exactly 0 ("decode")
 
 
 def ladder_rungs(device) -> list:
@@ -3083,7 +3111,8 @@ def ladder_rungs(device) -> list:
                 # bmm, then softmax in f32: the scores through device memory
                 unfused=(lambda a=a, b=b, bi=bi: torch.softmax(
                     torch.bmm(a, b).float() * sc + bi, dim=-1).bfloat16())
-                if entry else None))
+                if entry else None, graph=False))
+    resident_rungs(rungs, cases, rand, out_bytes, peak[bf])
 
     # run_all.py:143-157, a bf16 input, a ragged row, leading dims, and rows
     # of a vocabulary's width, too long for registers (read twice)
@@ -3100,7 +3129,164 @@ def ladder_rungs(device) -> list:
                           lambda x=x: sm._softmax_plain(x), gate, 5 * x.numel(),
                           2 * nbytes(x), peak[f32],
                           lambda x=x: torch.softmax(x, dim=-1), timed))
+    gemm8_rungs(rungs, gen, rand, out_bytes, a16)
+    streaming_rungs(rungs, gen, device)
     return rungs
+
+
+WITNESS = {}  # label -> the resident form's witness count of that rung's call
+
+
+def resident_rungs(rungs, cases, rand, out_bytes, peak):
+    """Kernel 17 (batched_matmul_softmax_epilogue(resident=True)) at config
+    3's inputs (the entry: beside kernel 16 on them and the unfused pair)
+    and at two ragged shapes; each call keeps its witness count in
+    WITNESS."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    bf = torch.bfloat16
+    sc = CONFIG3["scale"]
+    fn = g.batched_matmul_softmax_epilogue
+    # config 3; M and N ragged against the 128 x 128 tiles; K and N not
+    # multiples of 8 (the element-wise instance)
+    shapes = (cases[0], ("2x1088x256x200", rand(2, 1088, 256, dtype=bf),
+                         rand(2, 256, 200, dtype=bf), rand(200)),
+              ("1x200x130x75", rand(1, 200, 130, dtype=bf), rand(1, 130, 75, dtype=bf),
+               rand(75)))
+    for i, (what, a, b, bi) in enumerate(shapes):
+        label = f"resident softmax epilogue {what} -> bf16"
+
+        def call(a=a, b=b, bi=bi, label=label):
+            out = fn(a, b, bi, scale=sc, out_dtype=bf, resident=True)
+            WITNESS[label] = fn.witness
+            return out
+
+        rungs.append(Rung(
+            "gemm_softmax_resident", label, call,
+            lambda a=a, b=b, bi=bi: g._softmax_epilogue_resident_plain(a, b, bi, sc, bf)[0],
+            "resident", 2 * a.numel() * b.shape[-1],
+            nbytes(a, b, bi) + out_bytes((*a.shape[:-1], b.shape[-1]), bf), peak,
+            timed="entry" if i == 0 else None,
+            unfused=(lambda a=a, b=b, bi=bi: torch.softmax(
+                torch.bmm(a, b).float() * sc + bi, dim=-1).bfloat16()) if i == 0 else None,
+            beside=dict(rows_kernel=lambda a=a, b=b, bi=bi: fn(a, b, bi, scale=sc,
+                                                               out_dtype=bf))
+            if i == 0 else None, graph=False))
+
+
+def gemm8_rungs(rungs, gen, rand, out_bytes, a16):
+    """Kernels 19 and 20 at run_all.py:76-101's shapes (bf16 4096^2
+    activations, 4096^2 weights quantized per column by the port's own
+    quantizers, bit-equal to JAX's; int8 activations per row), with the
+    ragged shapes of tests/test_quant.py, a ragged K, and kernel 19 at the
+    decode shape of the JAX engine's int8 projections (M 8, K 2048, N
+    11008, models/engine.py:388-390)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import quant as qt
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def w8(label, x, n, fmt, out=bf, timed=None):
+        w = rand(x.shape[1], n)
+        wq, ws = qt.quantize_int8(w, axis=0) if fmt == "int8" else qt.quantize_fp8_weights(w)
+        fn = qt.matmul_int8_weights if fmt == "int8" else qt.matmul_fp8_weights
+        rungs.append(Rung(
+            "gemm_w8", label, lambda: fn(x, wq, ws, out_dtype=out),
+            lambda: qt._matmul_w8_plain(x, wq, ws, out),
+            "f32" if out == f32 else "bf16", 2 * x.numel() * n,
+            nbytes(x.bfloat16(), wq, ws) + out_bytes((x.shape[0], n), out),
+            platform.H100_BF16_FLOPS, timed=timed,
+            # the JAX engine's own form (engine.py:394-401): three calls
+            unfused=(lambda: (torch.matmul(x, wq.to(bf)) * ws).to(out))
+            if timed else None))
+        return wq, ws
+
+    # run_all.py:76-86
+    w8_4096 = w8("gemm_int8_weights_4096 (bf16 4096^3 -> bf16)", a16, 4096, "int8",
+                 timed="entry")
+    w8("gemm_fp8_weights_4096 (bf16 4096^3 -> bf16)", a16, 4096, "fp8", timed="extra")
+    # ragged (tests/test_quant.py: 100 x 200 x 130), an f32 x rounded in the
+    # wrapper, f32 out; the decode shape
+    x_r = rand(100, 200)
+    w8("matmul_int8_weights f32 100x200x130 -> f32", x_r, 130, "int8", out=f32)
+    w8("matmul_fp8_weights f32 100x200x130 -> f32", x_r, 130, "fp8", out=f32)
+    w8("matmul_int8_weights bf16 8x2048x11008 (decode) -> bf16", rand(8, 2048, dtype=bf),
+       11008, "int8")
+
+    def i8(label, m, k, n, out=f32, timed=None, b=None):
+        a_q, a_s = qt.quantize_int8(rand(m, k), axis=1)
+        b_q, b_s = b if b is not None else qt.quantize_int8(rand(k, n), axis=0)
+        rungs.append(Rung(
+            "gemm_i8", label, lambda: qt.matmul_int8(a_q, a_s, b_q, b_s, out_dtype=out),
+            lambda: qt._matmul_i8_plain(a_q, a_s, b_q, b_s, out), "exact",
+            2 * m * k * n, nbytes(a_q, a_s, b_q, b_s) + out_bytes((m, n), out),
+            platform.H100_INT8_OPS, timed=timed,
+            unfused=int_mm(a_q, a_s, b_q, b_s, out) if timed else None,
+            beside=dict(int_mm_col_major_b=int_mm(a_q, a_s, b_q, b_s, out, True))
+            if timed else None))
+
+    # run_all.py:88-101, the int8 weights of the rung above as B, as there
+    i8("gemm_int8_int8_4096 (int8 4096^3 -> f32)", 4096, 4096, 4096, timed="entry",
+       b=w8_4096)
+    i8("matmul_int8 200x320x150 -> f32", 200, 320, 150)
+    i8("matmul_int8 200x320x150 -> bf16", 200, 320, 150, out=bf)
+    i8("matmul_int8 200x130x72 -> f32 (K not a multiple of 16)", 200, 130, 72)
+
+
+def int_mm(a_q, a_s, b_q, b_s, out, col_major=False):
+    """torch._int_mm, then the scales: the unfused baseline of kernel 20
+    (several calls), never on the port's path. col_major: B laid out
+    column-major before the timed call (cuBLASLt's int8 products want it so;
+    the port's kernel takes B row-major, as JAX's does)."""
+    import torch
+
+    if col_major:
+        b_q = b_q.t().contiguous().t()
+    return lambda: (torch._int_mm(a_q, b_q).float() * a_s * b_s).to(out)
+
+
+def streaming_rungs(rungs, gen, device):
+    """Kernel 21 (streaming_decode) at run_all.py:521-530's rung (B 256,
+    8/1 heads, S 4096, d 128, every length 4096: 512 MiB of K/V), beside
+    SDPA (one call: every length is S) and the port's split decode (kernel
+    6); and with ragged lengths, 0 among them, at G = 4, d = 128 (S not a
+    multiple of the 64-key tile) and G = 8, d = 64."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import streaming as st
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    bf = torch.bfloat16
+
+    def case(label, b, hq, hkv, s, d, lens, timed=None):
+        q = torch.randn(b, hq, d, generator=gen, device=device).to(bf)
+        k = torch.randn(b, hkv, s, d, generator=gen, device=device).to(bf)
+        v = torch.randn(b, hkv, s, d, generator=gen, device=device).to(bf)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        live = int(sum(min(n, s) for n in lens))
+        kw = dict(block_s=512, seq_chunk=8) if timed else {}  # run_all.py's
+        rungs.append(Rung(
+            "streaming_decode", label,
+            lambda: st.streaming_decode(q, k, v, lengths, **kw),
+            lambda: st._streaming_plain(q, k, v, lengths, d ** -0.5), "decode",
+            # q, lengths, the output (q's size) and the live K/V rows
+            4 * live * hq * d, 2 * nbytes(q) + nbytes(lengths) + 2 * live * hkv * d * 2,
+            platform.H100_BF16_FLOPS,
+            library=sdpa_fn(q[:, :, None], k, v) if timed else None, timed=timed,
+            beside=dict(flash_decode=lambda: fd.flash_decode(q, k, v, lengths))
+            if timed else None, graph=False,
+            empty=tuple(i for i, n in enumerate(lens) if n == 0)))
+
+    case("streaming_dma_decode_b256_s4096 (8/1 heads, d128)", 256, 8, 1, 4096, 128,
+         [4096] * 256, timed="entry")
+    case("streaming b6 16/4 s1000 d128, lengths 0-1000", 6, 16, 4, 1000, 128,
+         [0, 1, 63, 64, 700, 1000])
+    case("streaming b4 8/1 s300 d64, lengths 0-300", 4, 8, 1, 300, 64, [300, 5, 0, 129])
 
 
 def _hold_ladder(rung, got, want, entry):
@@ -3118,6 +3304,21 @@ def _hold_ladder(rung, got, want, entry):
     entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
     line = f"rel-L2 {err:.3e}, max-abs {max_abs:.3e}"
     gate = rung.gate
+    if gate == "exact" and not torch.equal(got, want):
+        raise AssertionError(f"{rung.label}: not bit-equal to plain ({line})")
+    if gate in ("resident", "decode") and not err <= BF16_TOL:
+        raise AssertionError(f"{rung.label}: rel-L2 {err:.3e} > {BF16_TOL}")
+    if gate == "resident":
+        dev = float((got.float().sum(-1) - 1.0).abs().max())
+        if not dev <= RESIDENT_ROW_RTOL:
+            raise AssertionError(f"{rung.label}: a row sums to 1 +- {dev:.3e} > "
+                                 f"{RESIDENT_ROW_RTOL}")
+        line += f", rows sum to 1 within {dev:.3e}"
+    for i in rung.empty:
+        if float(got[i].float().abs().max()) != 0.0:
+            raise AssertionError(f"{rung.label}: sequence {i} of length 0 is not 0")
+    if rung.empty:
+        line += f", sequences {list(rung.empty)} of length 0 exactly 0"
     if gate == "f32" and not (err <= GEMM_F32_TOL and max_abs <= GEMM_MAX_ABS):
         raise AssertionError(f"{rung.label}: {line} (gates {GEMM_F32_TOL}, "
                              f"{GEMM_MAX_ABS})")
@@ -3174,7 +3375,38 @@ LADDER_KERNELS = dict(  # entry name -> (source, the TPU kernel's def line)
     gemm=("gemm.cu", "gemm.py:75"), gemm_batched=("gemm.cu", "gemm.py:172"),
     gemm_fused_epilogue=("gemm.cu", "gemm.py:250"),
     gemm_softmax=("gemm_softmax.cu", "gemm.py:334"),
-    softmax=("softmax.cu", "softmax.py:44"))
+    softmax=("softmax.cu", "softmax.py:44"),
+    gemm_softmax_resident=("gemm_softmax.cu", "gemm.py:458"),
+    gemm_w8=("gemm_w8.cu", "quant.py:72"), gemm_i8=("gemm_i8.cu", "quant.py:224"),
+    streaming_decode=("streaming_decode.cu", "streaming.py:45"))
+# the counters whose sum is an entry's launches, where not its own name
+LADDER_COUNTERS = dict(gemm_softmax_resident=("gemm_softmax/resident",),
+                       gemm_w8=("gemm_w8", "gemm_w8_fp8"))
+
+
+def phase_resident_fallback(device, label):
+    """The resident form on inputs scaled by 40 (tests/test_gemm.py:110-127,
+    bf16 operands as the card takes them, f32 out): the witness must count
+    breaching rows, and the output must be kernel 16's on the same inputs,
+    bit for bit (the gated rows launch overwrote it)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    gen = torch.Generator(device=device).manual_seed(42)
+    a = (40 * torch.randn(1, 1024, 256, generator=gen, device=device)).bfloat16()
+    w = (40 * torch.randn(1, 256, 128, generator=gen, device=device)).bfloat16()
+    bias = torch.randn(128, generator=gen, device=device)
+    fn = g.batched_matmul_softmax_epilogue
+    got = fn(a, w, bias, scale=1.0, out_dtype=torch.float32, resident=True)
+    witness = fn.witness
+    rows = fn(a, w, bias, scale=1.0, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    log(f"resident fallback (1x1024x256x128, inputs x 40): witness "
+        f"{int(witness)} rows, output bit-equal to kernel 16's: "
+        f"{torch.equal(got, rows)} [{label}]")
+    if not int(witness) > 0 or not torch.equal(got, rows):
+        raise AssertionError("the resident form did not fall back to kernel 16")
 
 
 def phase_ladder(device, label):
@@ -3182,7 +3414,8 @@ def phase_ladder(device, label):
     and 2 among it, with every launch counter at 0 before it (its launches
     are the main path's); then each output against its plain version, and
     the rungs marked `timed` timed beside their plain versions, bounds and
-    library calls. Returns the five kernels' entries."""
+    library calls (or multi-call baselines), the resident form's fallback
+    checked on its own. Returns the kernels' entries."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3200,13 +3433,23 @@ def phase_ladder(device, label):
     for name, (source, replaces) in LADDER_KERNELS.items():
         # configs 1 and 2 add a GEMM and a softmax each
         calls = sum(r.kernel == name for r in rungs) + 2 * (name in ("gemm", "softmax"))
-        if launches[name] != calls:
-            raise AssertionError(f"{name}: {launches[name]} launches on the "
-                                 f"ladder's path of {calls} calls")
+        got = sum(launches[c] for c in LADDER_COUNTERS.get(name, (name,)))
+        if got != calls:
+            raise AssertionError(f"{name}: {got} launches on the ladder's path "
+                                 f"of {calls} calls")
         entries[name] = dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
-                             replaces=f"{TPU}/{replaces}", launches=launches[name],
+                             replaces=f"{TPU}/{replaces}", launches=got,
                              max_abs_err=0.0)
-    log(f"ladder: kernel launches { {k: launches[k] for k in entries} } [{label}]")
+    # every resident launch is followed by the gated rows launch
+    if launches["gemm_softmax/fallback"] != launches["gemm_softmax/resident"]:
+        raise AssertionError(f"{launches['gemm_softmax/fallback']} gated rows "
+                             f"launches for {launches['gemm_softmax/resident']} resident")
+    log(f"ladder: kernel launches { {k: e['launches'] for k, e in entries.items()} }, "
+        f"gated rows launches {launches['gemm_softmax/fallback']} [{label}]")
+    witness = {k: int(v) for k, v in WITNESS.items()}
+    log(f"resident witness counts: {witness} [{label}]")
+    if any(witness.values()):
+        raise AssertionError(f"the resident form's witness fired: {witness}")
     for rung, got in zip(rungs, outs):
         want = rung.plain()
         torch.cuda.synchronize()
@@ -3214,18 +3457,19 @@ def phase_ladder(device, label):
             f"[{label}]")
         del want
     del outs
+    phase_resident_fallback(device, label)
 
     for rung in rungs:
         if rung.timed is None:
             continue
-        # config 3's plain version runs for tens of ms: eager, few calls
-        heavy = rung.kernel == "gemm_softmax"
-        kw = dict(iters=3, graph=False) if heavy else {}
+        # calls of milliseconds (config 3, the resident form, the streaming
+        # rung and their plain versions) eagerly, few calls
+        kw = {} if rung.graph else dict(iters=3, graph=False)
         ms, plain_ms = time_pair(rung.call, rung.plain, device, **kw)
-        lib_ms = None if rung.library is None else time_ms(rung.library, device,
-                                                           graph=not heavy)
+        kw = kw or dict(graph=True)  # time_pair's default
+        lib_ms = None if rung.library is None else time_ms(rung.library, device, **kw)
         bnd = bound(rung.flops, rung.nbytes, rung.peak)
-        rate = (f"{rung.flops / ms / 1e9:.1f} TFLOP/s" if bnd["bound_by"] == "operations"
+        rate = (f"{rung.flops / ms / 1e9:.1f} T(FL)OP/s" if bnd["bound_by"] == "operations"
                 else f"{rung.nbytes / ms / 1e6:.1f} GB/s")
         log(f"{rung.label}: kernel {ms:.4f} ms ({rate}, {bnd['bound_ms'] / ms:.1%} "
             f"of its bound {bnd['bound_ms']:.4f} ms, {bnd['bound_by']}) | plain "
@@ -3233,9 +3477,13 @@ def phase_ladder(device, label):
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} [{label}]")
         times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
         if rung.unfused is not None:
-            times["unfused_ms"] = time_ms(rung.unfused, device, iters=3, graph=False)
-            log(f"{rung.label}: the unfused baseline (torch.bmm, then "
-                f"torch.softmax in f32) {times['unfused_ms']:.4f} ms [{label}]")
+            times["unfused_ms"] = time_ms(rung.unfused, device, **kw)
+            log(f"{rung.label}: the unfused baseline (several library calls) "
+                f"{times['unfused_ms']:.4f} ms [{label}]")
+        for what, fn in (rung.beside or {}).items():
+            times[f"{what}_ms"] = time_ms(fn, device, **kw)
+            log(f"{rung.label}: beside it, {what} on the same inputs "
+                f"{times[f'{what}_ms']:.4f} ms [{label}]")
         entry = entries[rung.kernel]
         if rung.timed == "entry":
             entry.update(times, shape=rung.label)

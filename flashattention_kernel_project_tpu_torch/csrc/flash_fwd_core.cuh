@@ -128,6 +128,7 @@ using fkp_mma::cp_async_16;
 using fkp_mma::cp_async_wait_all;
 using fkp_mma::mma_16816;
 using fkp_mma::pack_bf16;
+using fkp_mma::split_bf16;
 
 constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
 constexpr float kLn2 = 0.6931471805599453f;
@@ -194,16 +195,6 @@ __device__ __forceinline__ float sq_bf16x2(uint32_t w) {
   const float2 f =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
   return f.x * f.x + f.y * f.y;
-}
-
-// p as a bf16 pair hi + lo with hi = bf16(p), lo = bf16(p - hi): about 16
-// significant bits, where bf16 alone keeps 8.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
 // q [b, hq, n, D], o [b, hq, n, D] bf16; lse [b, hq, n] f32 (dense flavour

@@ -38,8 +38,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        store2<kEpi>(o, base, r0 + i * 16, c0 + j * 8, acc[i][j][0], acc[i][j][1]);
-        store2<kEpi>(o, base, r0 + i * 16 + 8, c0 + j * 8, acc[i][j][2], acc[i][j][3]);
+        store2<kEpi ? kBiasRelu : kPlain>(o, base, r0 + i * 16, c0 + j * 8, acc[i][j][0], acc[i][j][1]);
+        store2<kEpi ? kBiasRelu : kPlain>(o, base, r0 + i * 16 + 8, c0 + j * 8, acc[i][j][2], acc[i][j][3]);
       }
     }
   } else {
@@ -53,8 +53,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int col = col0 + q * 64 + tx * 4;
-        store2<kEpi>(o, base, row, col, acc[r][q * 4], acc[r][q * 4 + 1]);
-        store2<kEpi>(o, base, row, col + 2, acc[r][q * 4 + 2], acc[r][q * 4 + 3]);
+        store2<kEpi ? kBiasRelu : kPlain>(o, base, row, col, acc[r][q * 4], acc[r][q * 4 + 1]);
+        store2<kEpi ? kBiasRelu : kPlain>(o, base, row, col + 2, acc[r][q * 4 + 2], acc[r][q * 4 + 3]);
       }
     }
   }

@@ -1,6 +1,7 @@
 // The tiled GEMM shared by gemm.cu (C = A @ B over an optional leading
-// batch, with an optional ReLU(. + bias) + residual epilogue) and
+// batch, with an optional ReLU(. + bias) + residual epilogue),
 // gemm_softmax.cu (the batched product with the row softmax in its
+// epilogue) and gemm_w8.cu (bf16 A times 8-bit B, a per-column scale in the
 // epilogue). A [M, K] and B [K, N] are row-major, as the TPU kernels take
 // them; a block computes one 128 x 128 tile of C with 256 threads (8 warps).
 //
@@ -10,7 +11,9 @@
 // a 64 x 32 piece of the tile: 4 x 4 mma.sync m16n8k16 bf16 -> f32 products
 // a 16-deep step, A fragments by ldmatrix, B fragments by ldmatrix.trans
 // from the [k][n] slice. Rows are padded by 8 bf16 so the ldmatrix rows of a
-// warp fall on distinct banks.
+// warp fall on distinct banks. An 8-bit B (int8 or e4m3) is copied by
+// cp.async into a byte staging slice and widened, exactly, into the bf16 B
+// stage once it has landed; from there the bf16 path runs unchanged.
 //
 // float32 (the reference's shared-memory tiled rung): full float32 FFMA,
 // not TF32, which keeps about three decimal digits where the TPU kernel runs
@@ -42,6 +45,7 @@
 #include <type_traits>
 
 #include "mma.cuh"
+#include "widen.cuh"
 
 namespace fkp_gemm_core {
 
@@ -63,6 +67,11 @@ struct __align__(16) SmemBf16 {
   __nv_bfloat16 b[2][kBK16 * kStrideB16];  // [k][n]
 };
 
+// an 8-bit B slice as it lies in device memory, [k][n], before widening
+struct __align__(16) Stage8 {
+  uint8_t b[2][kBK16 * kBN];
+};
+
 // float32: 8-deep slices, rows padded by 4 floats
 constexpr int kBK32 = 8;
 constexpr int kStride32 = kBM + 4;
@@ -71,26 +80,35 @@ struct __align__(16) SmemF32 {
   float b[2][kBK32 * kStride32];  // [k][n]
 };
 
+// What the epilogue does to the f32 accumulator before the single store:
+// nothing; ReLU(. + bias[col]) + residual[row, col] (gemm.cu); or times
+// row_scale[row] (where given), then times col_scale[col] (the 8-bit GEMMs'
+// dequantization, in the TPU kernels' order).
+enum Epi : int { kPlain = 0, kBiasRelu = 1, kScale = 2 };
+
 // Where and how a block writes C. bias and residual (f32, [N] and [M, N])
-// are read only by the epilogue instances.
+// are read only by the kBiasRelu instances, row_scale and col_scale (f32,
+// [M] and [N]) only by the kScale ones.
 struct Out {
   void* c;
   const float* bias;
   const float* residual;
   int m, n;
   int bf16;  // C is bf16, else f32
+  const float* row_scale;
+  const float* col_scale;
 };
 
 // A bf16 slice: the [kBM x kBK16] block of A at (row0, k0) and the
-// [kBK16 x kBN] block of B at (k0, col0) into stage `st`, zero outside
-// [m) x [k) and [k) x [n).
-template <bool kAligned>
-__device__ __forceinline__ void load_slice_bf16(SmemBf16& s, int st,
+// [kBK16 x kBN] block of B at (k0, col0) into stage `st` (an 8-bit B into
+// the staging slice `b8`), zero outside [m) x [k) and [k) x [n).
+template <bool kAligned, class TB>
+__device__ __forceinline__ void load_slice_bf16(SmemBf16& s, Stage8* b8, int st,
                                                 const __nv_bfloat16* a,
-                                                const __nv_bfloat16* b, int row0,
+                                                const TB* b, int row0,
                                                 int col0, int k0, int m, int n,
                                                 int k) {
-  constexpr int kPiecesA = kBK16 / 8, kPiecesB = kBN / 8;
+  constexpr int kPiecesA = kBK16 / 8;
   for (int i = threadIdx.x; i < kBM * kPiecesA; i += kThreads) {
     const int r = i / kPiecesA, c = (i % kPiecesA) * 8;
     const int gr = row0 + r, gc = k0 + c;
@@ -106,32 +124,66 @@ __device__ __forceinline__ void load_slice_bf16(SmemBf16& s, int st,
       }
     }
   }
+  // 16-byte pieces of B: 8 bf16 or 16 8-bit values
+  constexpr int kPer = 16 / sizeof(TB), kPiecesB = kBN / kPer;
   for (int i = threadIdx.x; i < kBK16 * kPiecesB; i += kThreads) {
-    const int r = i / kPiecesB, c = (i % kPiecesB) * 8;
+    const int r = i / kPiecesB, c = (i % kPiecesB) * kPer;
     const int gr = k0 + r, gc = col0 + c;
-    __nv_bfloat16* dst = &s.b[st][r * kStrideB16 + c];
+    TB* dst;
+    if constexpr (sizeof(TB) == 1) {
+      dst = reinterpret_cast<TB*>(&b8->b[st][r * kBN + c]);
+    } else {
+      dst = &s.b[st][r * kStrideB16 + c];
+    }
     if constexpr (kAligned) {
       const bool live = gr < k && gc < n;
       cp_async_16(dst, live ? b + (size_t)gr * n + gc : b, live);
-    } else {
+    } else {  // element by element, as raw bits (zero is all-zero bits)
+      using Bits = std::conditional_t<sizeof(TB) == 2, uint16_t, uint8_t>;
+      const Bits* src = reinterpret_cast<const Bits*>(b);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        dst[j] = gr < k && gc + j < n ? b[(size_t)gr * n + gc + j]
-                                      : __float2bfloat16(0.f);
+      for (int j = 0; j < kPer; ++j) {
+        reinterpret_cast<Bits*>(dst)[j] =
+            gr < k && gc + j < n ? src[(size_t)gr * n + gc + j] : Bits{0};
       }
     }
   }
 }
 
+// The 8-bit B slice of stage `st` widened into the bf16 B stage: 16 values
+// a thread, exact (int8 and e4m3 values are bf16 values).
+template <class TB>
+__device__ __forceinline__ void widen_slice(SmemBf16& s, const Stage8& b8, int st) {
+  constexpr int kPieces = kBN / 16;
+  for (int i = threadIdx.x; i < kBK16 * kPieces; i += kThreads) {
+    const int r = i / kPieces, c = (i % kPieces) * 16;
+    const uint4 w = *reinterpret_cast<const uint4*>(&b8.b[st][r * kBN + c]);
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(&w);
+    uint32_t out[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float f[4];
+      fkp::Widen<TB>::word(words[j], f);
+      out[2 * j] = fkp_mma::pack_bf16(f[0], f[1]);
+      out[2 * j + 1] = fkp_mma::pack_bf16(f[2], f[3]);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(&s.b[st][r * kStrideB16 + c]);
+    dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  }
+}
+
 // acc = the 128 x 128 tile of A @ B at (row0, col0), bf16 -> f32. Warp w
 // holds rows (w / 4) * 64 + i * 16 + {g, g + 8} and columns (w % 4) * 32 +
-// j * 8 + {2t, 2t + 1} in acc[i][j] (mma.cuh's C layout). Every thread of
-// the block calls it; it ends with shared memory free for the next call.
-template <bool kAligned>
+// j * 8 + {2t, 2t + 1} in acc[i][j] (mma.cuh's C layout). B is bf16, or
+// int8_t or __nv_fp8_e4m3 with `b8` its staging slices (unread for bf16).
+// Every thread of the block calls it; it ends with shared memory free for
+// the next call.
+template <bool kAligned, class TB = __nv_bfloat16>
 __device__ __forceinline__ void tile_bf16(float (&acc)[4][4][4], SmemBf16& s,
-                                          const __nv_bfloat16* a,
-                                          const __nv_bfloat16* b, int row0,
-                                          int col0, int m, int n, int k) {
+                                          const __nv_bfloat16* a, const TB* b,
+                                          int row0, int col0, int m, int n,
+                                          int k, Stage8* b8 = nullptr) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
 #pragma unroll
@@ -141,16 +193,22 @@ __device__ __forceinline__ void tile_bf16(float (&acc)[4][4][4], SmemBf16& s,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   const int n_k = (k + kBK16 - 1) / kBK16;
-  load_slice_bf16<kAligned>(s, 0, a, b, row0, col0, 0, m, n, k);
+  load_slice_bf16<kAligned>(s, b8, 0, a, b, row0, col0, 0, m, n, k);
   fkp_mma::cp_async_commit();
   for (int t = 0; t < n_k; ++t) {
     if (t + 1 < n_k) {
-      load_slice_bf16<kAligned>(s, (t + 1) & 1, a, b, row0, col0,
+      load_slice_bf16<kAligned>(s, b8, (t + 1) & 1, a, b, row0, col0,
                                 (t + 1) * kBK16, m, n, k);
     }
     fkp_mma::cp_async_commit();  // an empty group on the last slice
     fkp_mma::cp_async_wait<1>();  // slice t has landed, t + 1 may be in flight
     __syncthreads();
+    if constexpr (sizeof(TB) == 1) {
+      // B stage t & 1 was last read at t - 2, staging slice t & 1 is
+      // refilled only at t + 1: both behind a barrier
+      widen_slice<TB>(s, *b8, t & 1);
+      __syncthreads();
+    }
     const __nv_bfloat16* sa = s.a[t & 1];
     const __nv_bfloat16* sb = s.b[t & 1];
 #pragma unroll
@@ -249,17 +307,23 @@ __device__ __forceinline__ void tile_f32(float (&acc)[8][8], SmemF32& s,
 }
 
 // C[row, col..col+1] (offset `base` elements into C) = v0, v1, past the
-// epilogue ReLU(. + bias[col]) + residual[row, col] when kEpi; columns
-// past n and rows past m are not written.
-template <bool kEpi>
+// epilogue kEpi; columns past n and rows past m are not written.
+template <int kEpi>
 __device__ __forceinline__ void store2(const Out& o, size_t base, int row,
                                        int col, float v0, float v1) {
   if (row >= o.m || col >= o.n) return;
   const bool two = col + 1 < o.n;
-  if constexpr (kEpi) {
+  if constexpr (kEpi == kBiasRelu) {
     const float* res = o.residual + (size_t)row * o.n + col;
     v0 = fmaxf(v0 + o.bias[col], 0.f) + res[0];
     if (two) v1 = fmaxf(v1 + o.bias[col + 1], 0.f) + res[1];
+  } else if constexpr (kEpi == kScale) {
+    if (o.row_scale != nullptr) {
+      v0 = __fmul_rn(v0, o.row_scale[row]);
+      v1 = __fmul_rn(v1, o.row_scale[row]);
+    }
+    v0 = __fmul_rn(v0, o.col_scale[col]);
+    if (two) v1 = __fmul_rn(v1, o.col_scale[col + 1]);
   }
   const size_t idx = base + (size_t)row * o.n + col;
   if (o.bf16) {

@@ -1,13 +1,18 @@
-// Warp-level helpers shared by every kernel that stages bf16 tiles in shared
+// Warp-level helpers shared by every kernel that stages tiles in shared
 // memory and multiplies them on the tensor cores: the attention forward
-// (flash_fwd_core.cuh), the backward (flash_bwd_common.cuh) and the GEMMs
-// (gemm_core.cuh). One copy, so that the fragment layouts and the copy
-// semantics cannot drift apart between the kernel families.
+// (flash_fwd_core.cuh), the backward (flash_bwd_common.cuh), the GEMMs
+// (gemm_core.cuh, gemm_i8.cu) and the streaming decode. One copy, so that
+// the fragment layouts and the copy semantics cannot drift apart between
+// the kernel families.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
 //   B (16 x 8, col):   b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
 //   C (16 x 8):        c0, c1 (g, 2t..2t+1)  c2, c3 (g+8, 2t..2t+1)
+// mma.m16n8k32 with int8 operands has the same layouts in bytes: each
+// 32-bit register holds 4 int8 where the bf16 form holds 2 bf16 (a0: row g,
+// k 4t..4t+3; b0: k 4t..4t+3, n g), so ldmatrix (b16) loads int8 tiles
+// stored [m][k] and [n][k] unchanged, a pair of int8 taken as one b16.
 
 #pragma once
 
@@ -29,6 +34,26 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// p as a bf16 pair hi + lo with hi = bf16(p), lo = bf16(p - hi): about 16
+// significant bits, where bf16 alone keeps 8.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// D = A(16x32, row) * B(32x8, col) + D, int8 inputs, exact int32 accumulate.
+__device__ __forceinline__ void mma_16832_s8(int (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -6,7 +6,9 @@ tensor the products are the hand-written Hopper kernels: csrc/gemm.cu (one
 templated GEMM for `matmul`, `matmul_bf16`, `batched_matmul` and
 `matmul_fused_epilogue`, bf16 on the tensor cores and float32 in full
 float32, not TF32, as the TPU kernels run float32 at Precision.HIGHEST) and
-csrc/gemm_softmax.cu (`batched_matmul_softmax_epilogue`). On a CPU tensor
+csrc/gemm_softmax.cu (`batched_matmul_softmax_epilogue`: the two-sweep rows
+kernel, and with resident=True the one-sweep fixed-max kernel that falls
+back to it on the device). On a CPU tensor
 each takes its plain version in PyTorch, the same function in float32.
 `matmul_xla` is the ladder's library rung, torch.matmul, as the JAX
 package's is XLA's own dot. The TPU kernels' block sizes (block_m, block_n,
@@ -174,11 +176,42 @@ def _softmax_epilogue_plain(a, b, bias, scale, out_dtype):
     return (e * (1.0 / torch.where(s == 0.0, 1.0, s))).to(out_dtype)
 
 
+# the l-range of the fixed-max form (JAX gemm.py:598-603): a real row whose
+# l is not finite or leaves [2^-100, 2^120] breaches it
+_L_LO, _L_HI = 2.0 ** -100, 2.0 ** 120
+
+
+def _softmax_epilogue_resident_plain(a, b, bias, scale, out_dtype):
+    """The resident kernel's function in plain PyTorch: fixed-max e =
+    exp2(z) in f32 with no max subtracted, l its row sum, e rounded to
+    out_dtype times (1/l) rounded to out_dtype (an l of 0 counts as 1); the
+    l-range witness (the count of rows that breach it, a 0-d int32 tensor),
+    and where it is above 0, the rows structure's output instead (read on
+    the host: this is the reference, not the card's path). Returns (output,
+    witness)."""
+    z = torch.matmul(a.float(), b.float()) * (scale * _LOG2E) + bias.float() * _LOG2E
+    e = torch.exp2(z)
+    l = e.sum(dim=-1, keepdim=True)
+    bad = ~torch.isfinite(l) | (l > _L_HI) | (l < _L_LO)
+    witness = bad.sum().to(torch.int32)
+    if witness > 0:
+        return _softmax_epilogue_plain(a, b, bias, scale, out_dtype), witness
+    inv = (1.0 / torch.where(l == 0.0, 1.0, l)).to(out_dtype)
+    return e.to(out_dtype) * inv, witness
+
+
 @functools.cache
 def _softmax_kernel():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_gemm_softmax",
-                         [vp] * 4 + [i32] * 4 + [ctypes.c_float, i32, i32, vp])
+                         [vp] * 5 + [i32] * 4 + [ctypes.c_float, i32, i32, vp])
+
+
+@functools.cache
+def _resident_kernel():
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_gemm_softmax_resident",
+                         [vp] * 5 + [i32] * 4 + [ctypes.c_float, i32, i32, vp])
 
 
 def batched_matmul_softmax_epilogue(
@@ -192,22 +225,32 @@ def batched_matmul_softmax_epilogue(
 ) -> torch.Tensor:
     """C[i] = softmax_rows(scale * A[i] @ B[i] + bias[col]): a [B, M, K],
     b [B, K, N], bias [N] -> [B, M, N] in out_dtype, the softmax fused on
-    the f32 accumulator (BASELINE.json config 3). `resident` (None or False)
-    is the JAX default, the rows structure; resident=True, the TPU's
-    A-resident fixed-max form (kernel 17), is not ported yet. CPU tensors
-    run the plain version; CUDA tensors launch csrc/gemm_softmax.cu (bf16
-    operands) or raise."""
-    if resident:
-        raise NotImplementedError(
-            "batched_matmul_softmax_epilogue(resident=True), the A-resident "
-            "fixed-max kernel, is ROADMAP item A.11")
+    the f32 accumulator (BASELINE.json config 3). `resident` None or False
+    (the JAX default) is the rows structure: the row max subtracted, two
+    sweeps over N on the card. resident=True is the TPU's A-resident
+    fixed-max form: one sweep, exp2 with no max subtracted, and an l-range
+    witness (a real row whose l is not finite or leaves [2^-100, 2^120])
+    that sends the call to the rows structure's output; the last call's
+    witness count stays on `batched_matmul_softmax_epilogue.witness`, a
+    0-d int32 tensor on the inputs' device (reading it from the card
+    synchronises; the call itself does not). CPU tensors run the plain
+    versions; CUDA tensors launch csrc/gemm_softmax.cu (bf16 operands) or
+    raise. Launches are counted: `.launches` the rows kernel on its own,
+    `.resident_launches` the one-sweep kernel, `.fallback_launches` the rows
+    kernel gated on the witness (launched after every resident one; it
+    returns at once while the witness is 0)."""
     _dims(a, b, batched=True)
     bsz, m, k = a.shape
     n = b.shape[2]
     if tuple(bias.shape) != (n,):
         raise ValueError(f"bias {tuple(bias.shape)} must be ({n},)")
+    fn = batched_matmul_softmax_epilogue
     if a.device.type == "cpu":
-        return _softmax_epilogue_plain(a, b, bias, scale, out_dtype)
+        if not resident:
+            return _softmax_epilogue_plain(a, b, bias, scale, out_dtype)
+        out, fn.witness = _softmax_epilogue_resident_plain(a, b, bias, scale,
+                                                           out_dtype)
+        return out
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM for device {a.device}")
     _check_types(a, b, out_dtype)
@@ -215,16 +258,28 @@ def batched_matmul_softmax_epilogue(
         raise TypeError("the CUDA softmax-epilogue GEMM takes bf16 operands, "
                         f"got {a.dtype}")
     if 0 in (bsz, m, n):
+        if resident:
+            fn.witness = torch.zeros((), dtype=torch.int32, device=a.device)
         return _empty(a, b, out_dtype)
     a, b = a.contiguous(), b.contiguous()
     bias = bias.to(a.device, torch.float32).contiguous()
     c = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
-    rc = _softmax_kernel()(
-        a.data_ptr(), b.data_ptr(), bias.data_ptr(), c.data_ptr(), bsz, m, n, k,
-        float(scale * _LOG2E), int(out_dtype == torch.bfloat16),
-        int(_aligned(a, b)), torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    batched_matmul_softmax_epilogue.launches += 1
+    args = (bsz, m, n, k, float(scale * _LOG2E), int(out_dtype == torch.bfloat16),
+            int(_aligned(a, b)), torch.cuda.current_stream(a.device).cuda_stream)
+    gate = None
+    if resident:
+        witness = torch.zeros((), dtype=torch.int32, device=a.device)
+        rc = _resident_kernel()(a.data_ptr(), b.data_ptr(), bias.data_ptr(),
+                                c.data_ptr(), witness.data_ptr(), *args)
+        fn.resident_launches += 1
+        _build.check(rc, "gemm_softmax_resident")
+        fn.witness, gate = witness, witness.data_ptr()
+    rc = _softmax_kernel()(a.data_ptr(), b.data_ptr(), bias.data_ptr(),
+                           c.data_ptr(), gate, *args)
+    if resident:
+        fn.fallback_launches += 1
+    else:
+        fn.launches += 1
     _build.check(rc, "gemm_softmax")
     return c
 
@@ -235,3 +290,7 @@ matmul.launches = 0
 batched_matmul.launches = 0
 matmul_fused_epilogue.launches = 0
 batched_matmul_softmax_epilogue.launches = 0
+batched_matmul_softmax_epilogue.resident_launches = 0
+batched_matmul_softmax_epilogue.fallback_launches = 0
+# the resident form's last witness count (None before the first such call)
+batched_matmul_softmax_epilogue.witness = None

@@ -1,0 +1,98 @@
+"""Streaming single-token GQA decode with a hand-written double-buffered
+copy pipeline.
+
+Counterpart of flashattention_kernel_project_tpu/ops/streaming.py
+(`streaming_decode`): the contract of `flash_decode` without splits (q
+[B, Hq, D], caches [B, Hkv, S, D], lengths [B] read on the device, a length
+of 0 giving 0), computed by one program per (sequence, KV head) that
+streams its keys through an explicit two-slot pipeline with an online
+(m, l, acc). On a CUDA tensor it launches the hand-written Hopper kernel
+csrc/streaming_decode.cu (cp.async into a two-stage shared-memory ring,
+tile t + 1 in flight under tile t); on a CPU tensor `_streaming_plain`, the
+same function in plain PyTorch (flash_decode's plain path with one split).
+
+`seq_chunk` and `block_s` are accepted and checked and do not change the
+function: the TPU folded `seq_chunk` sequences into one program to amortise
+a per-program cost Hopper blocks do not have (folding 8 of run_all.py's 256
+sequences would leave 32 blocks for 132 SMs), and `block_s` sized its VMEM
+tiles; the kernel streams 64-key tiles, one block per (sequence, KV head).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from flashattention_kernel_project_tpu_torch.ops import _build
+from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+from flashattention_kernel_project_tpu_torch.ops.softmax import _LOG2E
+
+
+def _streaming_plain(q, k_cache, v_cache, lengths, sm_scale):
+    """The kernel's function in plain PyTorch, in float32: flash_decode's
+    plain partials over one split, merged; q's dtype out."""
+    b, hq, d = q.shape
+    parts = fd._decode_partials_plain(q, k_cache, v_cache, lengths, 1,
+                                      k_cache.shape[2], sm_scale)
+    return fd.merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
+
+
+@functools.cache
+def _kernel():
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_streaming_decode",
+                         [vp] * 5 + [i32] * 5 + [ctypes.c_float, vp])
+
+
+def streaming_decode(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    block_s: int = 512,
+    sm_scale: float | None = None,
+    seq_chunk: int = 1,
+) -> torch.Tensor:
+    """Single-token GQA decode against a (padded) KV cache, streamed.
+
+    q [B, Hq, D]; k_cache, v_cache [B, Hkv, S, D]; lengths [B] int32, keys
+    [0, lengths) attended (lengths above S count as S; 0 gives zeros).
+    Query head h reads KV head h // (Hq // Hkv). sm_scale defaults to
+    D^-0.5. block_s >= 1 and seq_chunk >= 1 dividing B (a ValueError
+    otherwise, where JAX asserts) do not change the function (module
+    docstring). Returns [B, Hq, D] in q's dtype. CPU tensors run the plain
+    version; CUDA tensors launch csrc/streaming_decode.cu (bf16, contiguous,
+    d in {64, 128}, Hq/Hkv in {1, 2, 4, 8}) or raise.
+    """
+    b, hq, d = q.shape
+    hkv = k_cache.shape[1]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if seq_chunk < 1 or b % seq_chunk:
+        raise ValueError(f"seq_chunk={seq_chunk} must divide the batch {b}")
+    if block_s < 1:
+        raise ValueError(f"block_s={block_s} must be >= 1")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return _streaming_plain(q, k_cache, v_cache, lengths, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode for device {q.device}")
+    fd._check_cuda_inputs(q, k_cache, v_cache, lengths)
+    out = torch.empty_like(q)
+    rc = _kernel()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, hq, hkv, k_cache.shape[2], d,
+        float(sm_scale * _LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    streaming_decode.launches += 1
+    _build.check(rc, "streaming_decode")
+    return out
+
+
+# kernel launches, for showing that a path ran the kernel
+streaming_decode.launches = 0

@@ -18,6 +18,7 @@ import torch
 H100_SMS = 132
 H100_BF16_FLOPS = 989e12
 H100_FP8_FLOPS = 1979e12
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core operations a second
 H100_TF32_FLOPS = 495e12
 H100_FP32_FLOPS = 67e12
 H100_HBM_BYTES_PER_S = 3.35e12

@@ -1,7 +1,8 @@
 """The port's GEMM ladder against the JAX package's, on the CPU (the JAX
 kernels in interpret mode, the port's wrappers on their plain versions):
 matmul in f32 and bf16, the batched, fused-epilogue and softmax-epilogue
-products, BASELINE.json configs 1 and 2 as slices at a small size, and the
+products (the rows structure and the resident fixed-max form with its
+fallback), BASELINE.json configs 1 and 2 as slices at a small size, and the
 port's numpy and native fp64 oracles against the JAX package's."""
 
 import jax.numpy as jnp
@@ -140,14 +141,52 @@ def test_batched_matmul_softmax_epilogue_matches_jax(rng, dtype, out):
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-3 if out == "f32" else 2.0 ** -8)
 
 
-def test_softmax_epilogue_resident_is_not_ported():
-    a, w = torch.zeros(1, 8, 16), torch.zeros(1, 16, 8)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ops.batched_matmul_softmax_epilogue(a, w, torch.zeros(8), resident=True)
-    # resident=None and False are the rows structure, JAX's default
+def test_softmax_epilogue_resident_matches_jax(rng):
+    """resident=True (kernel 17, fixed-max with the l-range witness) at 2 x
+    1088 x 256 x 200 in bf16: ragged against the TPU kernel's 1024-row
+    panels and 128-column tiles, against JAX's resident=True and the
+    float64 reference within 1e-2, rows summing to 1 within 1e-2
+    (tests/test_gemm.py:86-107), the witness 0. resident None and False
+    stay the rows structure, JAX's default."""
+    b, m, k, n = 2, 1088, 256, 200
+    a = rng.standard_normal((b, m, k)).astype(np.float32)
+    w = rng.standard_normal((b, k, n)).astype(np.float32)
+    bias = rng.standard_normal((n,)).astype(np.float32)
+    want = jops.batched_matmul_softmax_epilogue(
+        jnp.asarray(a, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), jnp.asarray(bias),
+        scale=0.125, out_dtype=jnp.bfloat16, resident=True)
+    ta, tw = _t(a).bfloat16(), _t(w).bfloat16()
+    fn = ops.batched_matmul_softmax_epilogue
+    got = fn(ta, tw, _t(bias), scale=0.125, out_dtype=torch.bfloat16, resident=True)
+    assert int(fn.witness) == 0
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, m, n)
+    got = got.float().numpy()
+    assert_rel_l2(got, _np(want), tol=BF16_TOL)
+    assert_rel_l2(got, _softmax_rows(_bf16(a), _bf16(w), bias, 0.125), tol=BF16_TOL)
+    np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-2)
+    rows = fn(ta, tw, _t(bias), scale=0.125, out_dtype=torch.bfloat16)
     for resident in (None, False):
-        got = ops.batched_matmul_softmax_epilogue(a, w, torch.zeros(8), resident=resident)
-        np.testing.assert_allclose(got.numpy(), 1.0 / 8)
+        again = fn(ta, tw, _t(bias), scale=0.125, out_dtype=torch.bfloat16,
+                   resident=resident)
+        assert torch.equal(again, rows)
+
+
+def test_softmax_epilogue_resident_falls_back(rng):
+    """Inputs scaled by 40 (tests/test_gemm.py:110-127) breach the
+    fixed-max range: the witness counts rows and the output is the rows
+    structure's, bit for bit, and JAX's within float32's order of sums."""
+    b, m, k, n = 1, 1024, 256, 128
+    a = 40.0 * rng.standard_normal((b, m, k)).astype(np.float32)
+    w = 40.0 * rng.standard_normal((b, k, n)).astype(np.float32)
+    bias = rng.standard_normal((n,)).astype(np.float32)
+    want = jops.batched_matmul_softmax_epilogue(
+        jnp.asarray(a), jnp.asarray(w), jnp.asarray(bias), scale=1.0,
+        out_dtype=jnp.float32, resident=True)
+    fn = ops.batched_matmul_softmax_epilogue
+    got = fn(_t(a), _t(w), _t(bias), resident=True)
+    assert int(fn.witness) > 0
+    assert torch.equal(got, fn(_t(a), _t(w), _t(bias)))
+    assert_rel_l2(got.numpy(), _np(want), tol=F32_TOL)
 
 
 @pytest.mark.parametrize("call", ["matmul", "batched", "fused", "softmax_epilogue"])

@@ -255,8 +255,8 @@ def test_paged_append_quant_matches_jax_bit_for_bit(chunk, fmt):
 def test_8bit_options_and_checks_raise():
     """The options still to port raise naming their ROADMAP item; window
     and sinks run (tests/test_torch_window.py holds them to JAX); the CUDA
-    wrappers' checks refuse what the kernels do not take; the 8-bit GEMM
-    kernels are not ported."""
+    wrappers' checks refuse what the kernels do not take (the 8-bit GEMMs'
+    checks are in tests/test_torch_gemm8.py)."""
     rng = np.random.default_rng(7)
     q = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
     _, _, k, ks = _quantized(rng, (2, 2, 8, 16), "int8")
@@ -281,9 +281,6 @@ def test_8bit_options_and_checks_raise():
                                               lengths, lengths - 1, window=4)
     torch.testing.assert_close(got[:, :, 0], tfd.flash_decode_int8(
         *args, window=4, n_splits=1))  # a one-row chunk is a decode
-    for fn in (tq.matmul_int8_weights, tq.matmul_fp8_weights, tq.matmul_int8):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            fn(q, q)
     with pytest.raises(TypeError, match="bf16 q"):  # the kernels take bf16 q
         tfd._decode_partials_q_cuda(*args, 1, 8, 0.25)
     with pytest.raises(TypeError, match="int8 or float8"):
