@@ -80,7 +80,23 @@ width, with random weights from a seed:
     streaming decode) or the multi-call baseline (run_all.py's unfused bmm
     + softmax, the engine's cast-and-matmul for 8-bit weights,
     torch._int_mm and the scales), and the port's kernel 16 beside the
-    resident form, its split decode beside the streaming one.
+    resident form, its split decode beside the streaming one;
+  - the int8 x int8 decodes and the fixed-max range guard, each its own
+    path with the counters at 0 before it: flash_decode_int8(mxu=True)
+    (kernel 8) at run_all.py's decode rung (B 8, 16/4 heads, S 8192, d
+    128) and at the serving shape with and without window 256 + 4 sinks,
+    paged_flash_decode_quant(q_int8=True) at run_all.py's paged rung
+    (page 128, 64 pages a row) and the serving pool, each against its
+    plain version, against the kernel without the option (kernel 7 or
+    12) and timed beside it and the bf16 kernel on the dequantized cache;
+    q_int8=True on e4m3 pages and with gather=False must run the ordinary
+    kernel bit for bit; kernel 8 must equal its plain version bit for
+    bit; _fwd(guard=True) at bench.py's shape, the d64 rung (packed, a row
+    counted once for a KV pair) and _fwd_q_cuda(guard=True) over an int8
+    cache: count 0 with O and LSE
+    bit-equal to the unguarded kernel on bounded inputs, 1 on the JAX
+    test's crafted row, plain's count on q x 60, timed beside the
+    unguarded kernel.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card and prints no result without CUDA. Its last line
 is one JSON object:
@@ -598,6 +614,14 @@ def bytes_8bit(live, hkv, d):
     """Device bytes of `live` keys' K and V in an 8-bit cache: a byte an
     element and two f32 scales a key and head."""
     return live * hkv * (2 * d + 8)
+
+
+def _live_keys(lens, window, sinks):
+    """Keys the decode of each length attends, summed: all of them, or the
+    band of the last `window` and the first `sinks`."""
+    if window is None:
+        return sum(lens)
+    return sum(min(n, window) + min(sinks, max(n - window, 0)) for n in lens)
 
 
 def kernel_8bit_check(name, got, want, entry, fmt):
@@ -1164,7 +1188,9 @@ def _counters():
 # all of them), by the suffix read_counters gives them
 COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
                      hybrid="hybrid_launches", packed="packed_launches",
-                     resident="resident_launches", fallback="fallback_launches")
+                     resident="resident_launches", fallback="fallback_launches",
+                     mxu="mxu_launches", q_int8="q_int8_launches",
+                     guard="guard_launches")
 
 
 def reset_counters():
@@ -2190,7 +2216,7 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
     n_splits = fd.default_n_splits(b, hkv, s)
     block_s = -(-s // n_splits)
     scale = d ** -0.5
-    live = sum(min(n, window) + min(sinks, max(n - window, 0)) for n in lens)
+    live = _live_keys(lens, window, sinks)
     shape = (f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits} lengths{lens} "
              f"window{window} sinks{sinks}")
     cases = [("bf16", None)] + [(fmt, fmt) for fmt in FMTS]
@@ -3491,6 +3517,341 @@ def phase_ladder(device, label):
             entry.setdefault("extra", {})[rung.label] = times
     return list(entries.values())
 
+# kernels 8 and 12 (q_int8) and kernel 1's range guard: no engine path
+# passes mxu, q_int8 or guard, so their path is run_all.py's 8-bit decode
+# rungs with the option on, serving shapes of the 8-bit decodes, and
+# `_fwd(guard=True)` at bench.py's shape and the d64 rung
+# mxu=True against the cast kernel: JAX's bound (tests/test_flash_decode.py:70,
+# 128 keys). The function's own distance grows with the split, one
+# requantization group of the weights (4.1e-2 at run_all.py's rung with
+# JAX's 2 splits, in both packages), so the kernel is held to the larger of
+# this and 1.1 times its plain version's distance on the same inputs
+MXU_VS_CAST_TOL = 2e-2
+QI8_VS_Q_TOL = 2e-2     # q_int8=True against q_int8=False, the same bound
+# q_int8=True against its plain version: 2.4x the largest distance read on
+# the H100 (4.1e-4 at run_all.py's rung), under the ordinary kernel's own
+# distance from it (6.8e-3 there, 1.7e-3 at the serving shape), so a kernel
+# that took the bf16 score product would fail. Kernel 8 is held to its
+# plain version bit for bit: both sum exact integer products and round the
+# same f32 steps
+QI8_VS_PLAIN_TOL = 1e-3
+DEC_I8 = [  # (b, hq, hkv, s, d, lengths "full" or "ragged", (window, sinks) or None)
+    (8, 16, 4, 8192, 128, "full", None),    # run_all.py:443-458's decode rung
+    (8, 16, 4, 2048, 128, "ragged", None),  # phase_decode_8bit's serving shape
+    (8, 16, 4, 2048, 128, "ragged", (256, 4)),
+]
+PAGED_I8 = [  # (b, hq, hkv, d, page, max_pages, lengths)
+    (8, 16, 4, 128, 128, 64, [8192] * 8),  # run_all.py:461-511's paged rung
+    (8, 16, 4, 128, 128, 16, [1, 127, 128, 129, 700, 1500, 2048, 0]),
+]
+GUARD = [(1, 16, 4, 4096, 128), (1, 16, 4, 4096, 64)]  # bench.py's; the d64 rung
+
+
+def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8):
+    """Kernel 8 (flash_decode_int8(mxu=True)) and kernel 12's int8 score
+    product (paged_flash_decode_quant(q_int8=True)) over int8 caches: every
+    call first, with the launch counters at 0 before them (each must have
+    launched its own kernel once, and the cast kernels never); then each
+    output against its plain version (kernel 8 bit for bit, kernel 12's
+    q_int8 instance rel-L2 QI8_VS_PLAIN_TOL), against the kernel without
+    the option on the same cache (kernel 7 or 12, within JAX's 2e-2),
+    empty rows exactly 0; q_int8=True on e4m3 pages and with
+    gather=False must launch the ordinary kernel and equal q_int8=False bit
+    for bit. Each kernel timed beside its plain version, the kernel without
+    the option and the bf16 kernel on the dequantized cache. Returns the
+    two JSON entries (library_ms null: no PyTorch call attends an int8
+    cache), timed at the first (run_all.py's) shape."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    gen = torch.Generator(device=device).manual_seed(101)
+    dec = []
+    for b, hq, hkv, s, d, lens, band in dec_shapes:
+        q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+        if lens == "full":
+            lengths = torch.full((b,), s, dtype=torch.int32, device=device)
+        else:
+            lengths = torch.randint(1, s, (b,), generator=gen, device=device,
+                                    dtype=torch.int32)
+            lengths[0], lengths[-1] = 0, s
+        k, ks = quantized(gen, device, (b, hkv, s, d), "int8")
+        v, vs = quantized(gen, device, (b, hkv, s, d), "int8")
+        window, sinks = band or (None, 0)
+        dec.append(dict(q=q, cache=(k, ks, v, vs), lengths=lengths,
+                        window=window, sinks=sinks, shape=(b, hq, hkv, s, d)))
+    paged = []
+    for b, hq, hkv, d, page, max_pages, lens in paged_shapes:
+        q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+        pools, table = _paged_8bit_case(gen, device, "int8", b, hkv, d, page,
+                                        max_pages, lens)
+        paged.append(dict(q=q, pools=pools, table=table, lens=lens,
+                          lengths=torch.tensor(lens, dtype=torch.int32,
+                                               device=device),
+                          shape=(b, hq, hkv, d, page, max_pages)))
+    torch.cuda.synchronize()
+    reset_counters()
+    outs_d = [fd.flash_decode_int8(c["q"], *c["cache"], c["lengths"], mxu=True,
+                                   window=c["window"], sinks=c["sinks"])
+              for c in dec]
+    outs_p = [pd.paged_flash_decode_quant(c["q"], *c["pools"], c["table"],
+                                          c["lengths"], q_int8=True)
+              for c in paged]
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = {"flash_decode_q/mxu": len(dec), "flash_decode_q": 0,
+            "paged_decode_q/q_int8": len(paged), "paged_decode_q": 0}
+    got = {name: launches[name] for name in want}
+    log(f"int8 x int8 decodes: launches {got} for {len(dec)} mxu and "
+        f"{len(paged)} q_int8 calls [{label}]")
+    if got != want:
+        raise AssertionError(f"int8 x int8 decodes: launches {got}, want {want}")
+
+    mxu = dict(name="flash_decode_mxu", route="cuda",
+               source=f"{PKG}/csrc/flash_decode_mxu.cu",
+               replaces=f"{TPU}/flash_decode.py:171", max_abs_err=0.0,
+               library_ms=None, launches=got["flash_decode_q/mxu"])
+    for i, (c, o) in enumerate(zip(dec, outs_d)):
+        b, hq, hkv, s, d = c["shape"]
+        window, sinks, lengths = c["window"], c["sinks"], c["lengths"]
+        n_splits = fd.default_n_splits(b, hkv, s)
+        block_s = fd.mxu_block_s(s, n_splits)
+        args = (c["q"], *c["cache"], lengths, n_splits, block_s, d ** -0.5,
+                window or 0, sinks)
+        po = fd.merge_partials(*fd._decode_partials_mxu_plain(*args))
+        po = po.reshape(b, hq, d).bfloat16()
+        err, max_abs = kernel_8bit_check("flash_decode_mxu", o, po, mxu, "int8")
+        if not torch.equal(o, po):
+            raise AssertionError(f"flash_decode_mxu is not bit-equal to its "
+                                 f"plain version: max-abs {max_abs:.3e}")
+        o7 = fd.flash_decode_int8(c["q"], *c["cache"], lengths, window=window,
+                                  sinks=sinks)
+        cast, plain_cast = _rel_l2(o, o7), _rel_l2(po, o7)
+        if not cast <= max(MXU_VS_CAST_TOL, 1.1 * plain_cast):
+            raise AssertionError(
+                f"flash_decode_mxu {cast:.3e} from the cast kernel > "
+                f"max({MXU_VS_CAST_TOL}, 1.1 x plain's {plain_cast:.3e})")
+        lens = lengths.tolist()
+        for row, n in enumerate(lens):
+            if n == 0 and float(o[row].float().abs().max()) != 0.0:
+                raise AssertionError(f"flash_decode_mxu row {row} is empty but not 0")
+        ms, plain_ms = time_pair(lambda: fd._decode_partials_mxu_cuda(*args),
+                                 lambda: fd._decode_partials_mxu_plain(*args),
+                                 device, iters=50)
+        args7 = (*args[:7], -(-s // n_splits), *args[8:])
+        cast_ms = time_ms(lambda: fd._decode_partials_q_cuda(*args7), device,
+                          iters=50, graph=True)
+        kb, vb = (dequantized_bf16(*c["cache"][:2]),
+                  dequantized_bf16(*c["cache"][2:]))
+        bf16_ms = time_ms(lambda: fd._decode_partials_cuda(
+            c["q"], kb, vb, *args7[5:]), device, iters=50, graph=True)
+        del kb, vb
+        live = _live_keys(lens, window, sinks)
+        bnd = bound(4 * live * hq * d, nbytes(c["q"], o) + bytes_8bit(live, hkv, d),
+                    platform.H100_INT8_OPS)
+        shape = (f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits} "
+                 f"block_s{block_s} window{window} sinks{sinks}")
+        log(f"flash_decode_mxu {shape} lengths={lens}: rel-L2 {err:.3e} vs "
+            f"plain, {cast:.3e} vs the cast kernel (plain {plain_cast:.3e}), "
+            f"max-abs {max_abs:.3e} | "
+            f"kernel {ms:.4f} ms ({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s "
+            f"of live K/V and scales, {bnd['bound_ms'] / ms:.1%} of its bound "
+            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}) vs plain partials "
+            f"{plain_ms:.4f} ms | the cast kernel (7) {cast_ms:.4f} ms | the "
+            f"bf16 kernel (6) on the dequantized cache {bf16_ms:.4f} ms [{label}]")
+        times = dict(ms=ms, plain_ms=plain_ms, cast_ms=cast_ms, bf16_ms=bf16_ms,
+                     **bnd)
+        if i == 0:
+            mxu.update(times, shape=shape)
+        else:
+            mxu.setdefault("extra", {})[shape] = times
+
+    qi8 = dict(name="paged_decode_qi8", route="cuda",
+               source=f"{PKG}/csrc/paged_decode.cu",
+               replaces=f"{TPU}/paged_decode.py:824", max_abs_err=0.0,
+               library_ms=None, launches=got["paged_decode_q/q_int8"])
+    for i, (c, o) in enumerate(zip(paged, outs_p)):
+        b, hq, hkv, d, page, max_pages = c["shape"]
+        pps = pd.gather_pages_per_split(b, hkv, max_pages)
+        args = (c["q"], *c["pools"], c["table"], c["lengths"], pps, d ** -0.5)
+        po = fd.merge_partials(*pd._paged_partials_qi8_plain(*args))
+        err, max_abs = kernel_8bit_check("paged_decode_qi8", o,
+                                         po.reshape(b, hq, d).bfloat16(), qi8,
+                                         "int8")
+        if not err <= QI8_VS_PLAIN_TOL:
+            raise AssertionError(f"paged_decode_qi8 rel-L2 {err:.3e} from plain "
+                                 f"> {QI8_VS_PLAIN_TOL}")
+        o12 = pd.paged_flash_decode_quant(c["q"], *c["pools"], c["table"],
+                                          c["lengths"])
+        off = _rel_l2(o, o12)
+        if not off <= QI8_VS_Q_TOL:
+            raise AssertionError(f"paged_decode_qi8 {off:.3e} from q_int8=False "
+                                 f"> {QI8_VS_Q_TOL}")
+        for row, n in enumerate(c["lens"]):
+            if n == 0 and float(o[row].float().abs().max()) != 0.0:
+                raise AssertionError(f"paged_decode_qi8 row {row} is empty but not 0")
+        ms, plain_ms = time_pair(lambda: pd._paged_partials_qi8_cuda(*args),
+                                 lambda: pd._paged_partials_qi8_plain(*args),
+                                 device, iters=50)
+        q_ms = time_ms(lambda: pd._paged_partials_q_cuda(*args), device,
+                       iters=50, graph=True)
+        kb, vb = dequantized_bf16(*c["pools"][:2]), dequantized_bf16(*c["pools"][2:])
+        bf16_ms = time_ms(lambda: pd._paged_partials_cuda(
+            c["q"], kb, vb, *args[5:]), device, iters=50, graph=True)
+        del kb, vb
+        live = sum(c["lens"])
+        bnd = bound(4 * live * hq * d, nbytes(c["q"], o, c["table"], c["lengths"])
+                    + bytes_8bit(live, hkv, d))
+        shape = (f"b{b} hq{hq} hkv{hkv} d{d} page{page} max_pages{max_pages} "
+                 f"({-(-max_pages // pps)} splits of {pps} pages)")
+        log(f"paged_decode_qi8 {shape} lengths={c['lens']}: rel-L2 {err:.3e} "
+            f"vs plain, {off:.3e} vs q_int8=False, max-abs {max_abs:.3e} | "
+            f"kernel {ms:.4f} ms ({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s "
+            f"of live K/V and scales, {bnd['bound_ms'] / ms:.1%} of its bound "
+            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}) vs plain partials "
+            f"{plain_ms:.4f} ms | q_int8=False (kernel 12) {q_ms:.4f} ms | the "
+            f"bf16 kernel on the dequantized pool {bf16_ms:.4f} ms [{label}]")
+        times = dict(ms=ms, plain_ms=plain_ms, q_ms=q_ms, bf16_ms=bf16_ms, **bnd)
+        if i == 0:
+            qi8.update(times, shape=shape)
+        else:
+            qi8.setdefault("extra", {})[shape] = times
+
+    # JAX's rule: q_int8 applies only with gather=True over an int8 pool
+    c = paged[-1]
+    b, hq, hkv, d, page, max_pages = c["shape"]
+    fp8, table8 = _paged_8bit_case(gen, device, "fp8", b, hkv, d, page,
+                                   max_pages, c["lens"])
+    cases = [(fp8, table8, {}), (c["pools"], c["table"], dict(gather=False))]
+    before = read_counters()
+    pairs = [[pd.paged_flash_decode_quant(c["q"], *pools, table, c["lengths"],
+                                          q_int8=flag, **kw) for flag in (True, False)]
+             for pools, table, kw in cases]
+    torch.cuda.synchronize()
+    after = read_counters()
+    ran = {name: after[name] - before[name] for name in ("paged_decode_q",
+                                                         "paged_decode_q/q_int8")}
+    same = [torch.equal(x, y) for x, y in pairs]
+    log(f"paged_decode_quant(q_int8=True) on e4m3 pages and with gather=False: "
+        f"launches {ran}, equal to q_int8=False bit for bit {same} [{label}]")
+    if ran != {"paged_decode_q": 4, "paged_decode_q/q_int8": 0} or not all(same):
+        raise AssertionError("q_int8=True did not fall back to the ordinary "
+                             "8-bit kernel on e4m3 pages or with gather=False")
+    return mxu, qi8
+
+
+def phase_guard(device, label, shapes=GUARD):
+    """Kernel 1's fixed-max range guard, `_fwd(guard=True)`, at bench.py's
+    shape (causal) and the d64 rung (pack=True: a row counts once for a KV
+    pair's two heads), and over an int8 cache at bench.py's shape
+    (`_fwd_q_cuda(guard=True)`): every call first, with the launch counters
+    at 0 before them; then on those bounded inputs the count must be 0 and
+    O and LSE bit-equal to the unguarded fixed-max kernel's (and O, LSE
+    within O_TOL, LSE_TOL of plain); on the JAX test's crafted row (one q
+    row of 90 against |k|, tests/test_flash_attention.py:227-234) exactly
+    1; on q x 60 the plain version's count. Timed beside the unguarded
+    kernel, in turns. Returns its JSON entry (library_ms null: no PyTorch
+    call computes the count), timed at the first shape."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(103)
+    entry = _disc_entry("flash_fwd (guard)", "flash_fwd.cu", "flash_attention.py:92")
+    cases = [(shape, *_qkv(gen, device, *shape[:3], shape[3], shape[3], shape[4]))
+             for shape in shapes]
+    b, hq, hkv, n, d = shapes[0]
+    kq, ks = quantized(gen, device, (b, hkv, n, d), "int8")
+    vq, vs = quantized(gen, device, (b, hkv, n, d), "int8")
+    q8 = cases[0][1]
+
+    def guarded(q, k, v, d, **kw):
+        return fa._fwd(q, k, v, True, None, 0, disc=fa.FIXED, pack=d == 64,
+                       guard=True, **kw)
+
+    torch.cuda.synchronize()
+    reset_counters()
+    def guarded8(q, kq, ks, vq, vs, d):
+        return fa._fwd_q_cuda(q, kq, ks, vq, vs, True, d ** -0.5, 0,
+                              disc=fa.FIXED, guard=True)
+
+    outs = [guarded(q, k, v, shape[4]) for shape, q, k, v in cases]
+    out8 = guarded8(q8, kq, ks, vq, vs, d)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    got = {name: launches[name] for name in ("flash_fwd/guard", "flash_fwd_q/guard")}
+    log(f"range guard: launches {got} for {len(cases)} bf16 and one int8 "
+        f"calls [{label}]")
+    if got != {"flash_fwd/guard": len(cases), "flash_fwd_q/guard": 1}:
+        raise AssertionError(f"range guard: launches {got}")
+    entry["launches"] = sum(got.values())
+
+    for i, ((shape, q, k, v), (o, lse, bad)) in enumerate(zip(cases, outs)):
+        b, hq, hkv, n, d = shape
+        args = (q, k, v, True, d ** -0.5, 0, 0, 0, fa.FIXED)
+        uo, ulse = fa._fwd(*args, pack=d == 64)
+        po, plse, pbad = fa._fwd_plain(*args, None, True, d == 64)
+        err = _hold("flash_fwd (guard)", entry, o, po, lse, plse)
+        del po, plse
+        checks = [f"bounded: count {int(bad)} (plain {int(pbad)}), O and LSE "
+                  f"bit-equal to the unguarded kernel "
+                  f"{torch.equal(o, uo) and torch.equal(lse, ulse)}, O rel-L2 "
+                  f"{err:.3e} vs plain"]
+        if int(bad) != 0 or int(pbad) != 0 or not (torch.equal(o, uo)
+                                                   and torch.equal(lse, ulse)):
+            raise AssertionError("range guard on bounded inputs: " + checks[0])
+        qc, kc = q.clone(), k.abs()
+        qc[0, 0, 5, :] = 90.0  # one row far outside the fixed-max range
+        crafted = int(guarded(qc, kc, v, d)[2])
+        qx = (q.float() * 60.0).bfloat16()
+        x60 = int(guarded(qx, k, v, d)[2])
+        px60 = int(fa._fwd_plain(qx, *args[1:], None, True, d == 64)[2])
+        checks.append(f"crafted row: count {crafted}; q x 60: count {x60}, "
+                      f"plain {px60} of {b * hq * n} rows")
+        if crafted != 1 or x60 != px60:
+            raise AssertionError("range guard: " + checks[-1])
+        g1 = time_ms(lambda: guarded(q, k, v, d), device, graph=True)
+        u1 = time_ms(lambda: fa._fwd(*args, pack=d == 64), device, graph=True)
+        u2 = time_ms(lambda: fa._fwd(*args, pack=d == 64), device, graph=True)
+        g2 = time_ms(lambda: guarded(q, k, v, d), device, graph=True)
+        ms, unguarded_ms = min(g1, g2), min(u1, u2)
+        plain_ms = time_ms(lambda: fa._fwd_plain(*args, None, True, d == 64),
+                           device, graph=True)
+        pairs = b * hq * visible_pairs(n, n, 0, True)
+        bnd = bound(4 * d * pairs, nbytes(q, k, v, o, lse, bad))
+        shape_s = f"b{b} hq{hq} hkv{hkv} n{n} s{n} d{d} causal"
+        log(f"flash_fwd (guard) {shape_s}: " + "; ".join(checks) + f" | kernel "
+            f"{ms:.4f} ms ({4 * d * pairs / ms / 1e9:.1f} TFLOP/s) vs the "
+            f"unguarded fixed-max kernel {unguarded_ms:.4f} ms "
+            f"({ms / unguarded_ms - 1:+.2%}), plain {plain_ms:.4f} ms | bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{label}]")
+        times = dict(ms=ms, plain_ms=plain_ms, unguarded_ms=unguarded_ms, **bnd)
+        if i == 0:
+            entry.update(times, shape=shape_s)
+        else:
+            entry.setdefault("extra", {})[shape_s] = times
+
+    # the 8-bit dense forward's guard (JAX's _fwd takes it with k_scale)
+    b, hq, hkv, n, d = shapes[0]
+    o, lse, bad = out8
+    args8 = (q8, kq, ks, vq, vs, True, d ** -0.5, 0, 0, 0, fa.FIXED)
+    uo, ulse = fa._fwd_q_cuda(*args8)
+    kqc, ksc = quantized(gen, device, (b, hkv, n, d), "int8")
+    qc = q8.clone()
+    qc[0, 0, 5, :] = 90.0
+    crafted = int(guarded8(qc, kqc.abs(), ksc, vq, vs, d)[2])
+    log(f"flash_fwd_q (guard) int8 b{b} hq{hq} hkv{hkv} n{n} d{d} causal: "
+        f"bounded count {int(bad)}, O and LSE bit-equal to the unguarded "
+        f"8-bit kernel {torch.equal(o, uo) and torch.equal(lse, ulse)}; "
+        f"crafted row count {crafted} [{label}]")
+    if int(bad) != 0 or crafted != 1 or not (torch.equal(o, uo)
+                                             and torch.equal(lse, ulse)):
+        raise AssertionError("the 8-bit forward's range guard failed")
+    return entry
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside chip_smoke.py: run it from a checkout "
@@ -3611,6 +3972,10 @@ def main() -> int:
     # the GEMM and softmax ladder (run_all.py's GEMM and softmax rungs,
     # BASELINE configs 1-3), its own path with the counters at 0 before it
     ladder = phase_ladder(device, label)
+    # kernels 8 and 12 (q_int8) over int8 caches and kernel 1's range guard,
+    # each its own path with the counters at 0 before it
+    mxu, qi8 = phase_int8_products(device, label)
+    guard = phase_guard(device, label)
 
     # 3. the serving slices at the serving configuration: the default
     # Scheduler, the paged one (a page pool, a shared 384-token system
@@ -3783,7 +4148,7 @@ def main() -> int:
                                   win_dec_q, win_ragged, win_ragged_q,
                                   *win_bwd, fix_fwd, win_fix, hyb_fwd,
                                   hyb_fwd64, packed, fix_ragged, fix_ragged_q,
-                                  fwd_q, *ladder]}),
+                                  fwd_q, *ladder, mxu, qi8, guard]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

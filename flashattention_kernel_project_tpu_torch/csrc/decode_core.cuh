@@ -38,6 +38,18 @@
 // sums p alone. At G = 8 a thread takes 8 bytes (8 dims) instead of 16, so
 // its q rows and accumulators (2 * G * dims floats) stay within the 255
 // registers a thread may hold.
+//
+// The int8 score product (kQInt8, paged_flash_decode_quant(q_int8=True),
+// int8 caches only): the block first quantizes its G q rows, folded into
+// the log2 domain (q * sm_scale * log2(e)), to int8 with one scale a row,
+// qs = max|row| / 127 (quantize_q_rows). The score of a key is then
+// __dp4a over the thread's raw key bytes against the row's int8 q bytes,
+// an int32 partial dot, summed exactly across the threads of the key by
+// integer shuffles and turned into a float once:
+// (f32(q_int8 . k_int) * ks[j]) * (qs * ln 2), the JAX kernel's log2-domain
+// score in natural-log units, so the partials merge as the others do. K is
+// never widened. It is a template switch, not a runtime branch in the key
+// loop (a runtime term there cost the forward about a tenth).
 
 #pragma once
 
@@ -52,6 +64,7 @@
 namespace fkp_dec {
 
 constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kVec = 8;     // bf16 per 16-byte load
@@ -71,6 +84,46 @@ __device__ __forceinline__ void unpack8(const uint4& r, float* f) {
 // the raw bytes a thread loads of a key row: 4 words (16 bytes) or 2
 template <int kWords>
 using Raw = typename std::conditional<kWords == 4, uint4, uint2>::type;
+
+// The group's G query rows [G, D] (bf16) quantized to int8 with one
+// symmetric scale a row into q_s, one warp a row (JAX's wrappers do this in
+// XLA before their kernels):
+// - kFold (paged_decode.py:1011-1024): qf = q * scale, s = qmax == 0 ? 1 :
+//   qmax / 127, q_s = clip(round(qf / s), -127, 127), qs_s = s;
+// - otherwise (flash_decode.py:485-490): s = (qmax == 0 ? 1 : qmax) *
+//   (1 / 127), q_s = round(q / s), qs_s = s * scale.
+// qmax is the row's largest |qf|; rounding is half to even (rintf), as
+// jnp.round and torch.round. The caller syncs before reading q_s.
+template <int D, int G, bool kFold>
+__device__ __forceinline__ void quantize_q_rows(
+    const __nv_bfloat16* __restrict__ q_g, float scale, int8_t (*q_s)[D],
+    float* qs_s) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int gi = warp; gi < G; gi += kWarps) {
+    float x[D / 32];
+    float mx = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      x[i] = __bfloat162float(q_g[gi * D + lane + 32 * i]);
+      if (kFold) x[i] *= scale;
+      mx = fmaxf(mx, fabsf(x[i]));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    const float s = kFold ? (mx == 0.f ? 1.f : mx / 127.f)
+                          : (mx == 0.f ? 1.f : mx) * (1.f / 127.f);
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      float r = rintf(x[i] / s);
+      if (kFold) r = fminf(fmaxf(r, -127.f), 127.f);
+      q_s[gi][lane + 32 * i] = static_cast<int8_t>(r);
+    }
+    if (lane == 0) qs_s[gi] = kFold ? s : s * scale;
+  }
+}
 
 template <class T, int kWords>
 __device__ __forceinline__ void widen(const Raw<kWords>& r, float* f) {
@@ -114,8 +167,9 @@ __device__ __forceinline__ void window_ranges(int start, int end, int len,
 // rows.scale(j) (unread for bf16). Partials for keys [start, end) and
 // [start1, end1) (disjoint; either may be empty) into m_p[G], l_p[G],
 // y_p[G, D]. Call from every thread of a kThreads block; the bounds must
-// be uniform across it.
-template <int D, int G, class T, class Rows>
+// be uniform across it. kQInt8 (T = int8_t): the int8 score product, with
+// sm_scale the log2-domain scale sm_scale * log2(e).
+template <int D, int G, class T, class Rows, bool kQInt8 = false>
 __device__ __forceinline__ void decode_partials(
     const __nv_bfloat16* __restrict__ q_g, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ k_scale,
@@ -123,6 +177,8 @@ __device__ __forceinline__ void decode_partials(
     float sm_scale, float* __restrict__ m_p, float* __restrict__ l_p,
     float* __restrict__ y_p, int start1 = 0, int end1 = 0) {
   constexpr bool kQuant = sizeof(T) == 1;
+  static_assert(!kQInt8 || std::is_same<T, int8_t>::value,
+                "the int8 score product needs an int8 cache");
   constexpr int kWords = kQuant && G == 8 ? 2 : 4;  // of a key row a thread
   constexpr int kDims = kWords * fkp::Widen<T>::kPerWord;  // dims a thread holds
   constexpr int kTpk = D / kDims;                     // threads per key
@@ -131,6 +187,9 @@ __device__ __forceinline__ void decode_partials(
   __shared__ float sh_m[kGroups][G];
   __shared__ float sh_l[kGroups][G];
   __shared__ float sh_acc[kGroups][G][D];
+  // kQInt8: the group's int8 q rows and their natural-log scales
+  __shared__ __align__(16) int8_t sh_q[kQInt8 ? G : 1][kQInt8 ? D : 16];
+  __shared__ float sh_qs[kQInt8 ? G : 1];
 
   if (start >= end && start1 >= end1) {  // dead split: no K/V loads
     for (int i = threadIdx.x; i < G * D; i += kThreads) y_p[i] = 0.f;
@@ -146,12 +205,28 @@ __device__ __forceinline__ void decode_partials(
   const int grp = warp * kKeysPerWarp + lane / kTpk;
   const int c0 = (lane % kTpk) * kDims;
 
-  float qv[G][kDims];
+  // the thread's q dims: f32, or (kQInt8) int8 words and the row scales
+  float qv[kQInt8 ? 1 : G][kDims];
+  int qi[kQInt8 ? G : 1][kWords];
+  float qsl[kQInt8 ? G : 1];
+  if constexpr (kQInt8) {
+    quantize_q_rows<D, G, true>(q_g, sm_scale, sh_q, sh_qs);
+    __syncthreads();
 #pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
+    for (int gi = 0; gi < G; ++gi) {
 #pragma unroll
-    for (int j = 0; j < kDims; j += kVec) {
-      unpack8(*reinterpret_cast<const uint4*>(q_g + gi * D + c0 + j), qv[gi] + j);
+      for (int w = 0; w < kWords; ++w) {
+        qi[gi][w] = *reinterpret_cast<const int*>(&sh_q[gi][c0 + 4 * w]);
+      }
+      qsl[gi] = sh_qs[gi] * kLn2;
+    }
+  } else {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+      for (int j = 0; j < kDims; j += kVec) {
+        unpack8(*reinterpret_cast<const uint4*>(q_g + gi * D + c0 + j), qv[gi] + j);
+      }
     }
   }
 
@@ -193,22 +268,35 @@ __device__ __forceinline__ void decode_partials(
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const bool live = base + u * kGroups + grp < hi;
-        float kf[kDims], vf[kDims];
-        widen<T, kWords>(kr[u], kf);
+        float kf[kQInt8 ? 1 : kDims], vf[kDims];
+        if constexpr (!kQInt8) widen<T, kWords>(kr[u], kf);
         widen<T, kWords>(vr[u], vf);
         // an 8-bit score is (q . k_int) * (sm_scale * ks), as in the JAX kernel
-        const float s_scale = kQuant ? sm_scale * ks[u] : sm_scale;
+        [[maybe_unused]] const float s_scale = kQuant ? sm_scale * ks[u] : sm_scale;
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) {
-          float dot = 0.f;
+          float sv;
+          if constexpr (kQInt8) {
+            const int* kw = reinterpret_cast<const int*>(&kr[u]);
+            int dot = 0;
 #pragma unroll
-          for (int i = 0; i < kDims; ++i) dot = fmaf(qv[gi][i], kf[i], dot);
+            for (int w = 0; w < kWords; ++w) dot = __dp4a(kw[w], qi[gi][w], dot);
 #pragma unroll
-          for (int off = kTpk / 2; off > 0; off >>= 1) {
-            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+            for (int off = kTpk / 2; off > 0; off >>= 1) {
+              dot += __shfl_xor_sync(0xffffffffu, dot, off);
+            }
+            sv = (static_cast<float>(dot) * ks[u]) * qsl[gi];
+          } else {
+            float dot = 0.f;
+#pragma unroll
+            for (int i = 0; i < kDims; ++i) dot = fmaf(qv[gi][i], kf[i], dot);
+#pragma unroll
+            for (int off = kTpk / 2; off > 0; off >>= 1) {
+              dot += __shfl_xor_sync(0xffffffffu, dot, off);
+            }
+            sv = dot * s_scale;
           }
           if (live) {
-            const float sv = dot * s_scale;
             const float mn = fmaxf(m[gi], sv);
             const float corr = expf(m[gi] - mn);
             const float p = expf(sv - mn);

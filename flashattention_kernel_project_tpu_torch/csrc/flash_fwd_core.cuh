@@ -167,6 +167,32 @@ struct QuantArgs {
   const float* v_scale;
 };
 
+// The fixed-max range guard's outputs (the dense fixed-max instances; null
+// when off). count: an int32 to which the breaching rows are added. pairs
+// (the packed d=64 call; null: each head's row counts): one bit per (b, KV
+// head pair, group member, row), zeroed by the caller, so that a row counts
+// once when either head of a KV pair breaches there, as the TPU's paired
+// kernel counts it.
+struct GuardArgs {
+  int* count;
+  unsigned* pairs;
+};
+
+// Sets the pairs bit of head h's row (its KV pair's, group member's) and
+// says whether it was clear: the first of the pair's two heads to breach
+// there counts the row. Not inlined: inline, the index and the atomic
+// slowed the packed d=64 kernel's key loop by a tenth (ptxas reallocated
+// it), though they run only for a breaching row.
+static __device__ __noinline__ bool first_of_pair(unsigned* pairs, int b,
+                                                  int h, int hq, int hkv,
+                                                  int n, int row) {
+  const int group = hq / hkv;
+  const size_t pair = (size_t)b * (hkv / 2) + h / group / 2;
+  const size_t i = (pair * group + h % group) * n + row;
+  const unsigned bit = 1u << (i % 32);
+  return (atomicOr(pairs + i / 32, bit) & bit) == 0u;
+}
+
 // 16 8-bit cache values (one 16-byte load) widened exactly to 16 bf16 at
 // dst (16-byte aligned)
 template <class KV>
@@ -206,7 +232,10 @@ __device__ __forceinline__ float sq_bf16x2(uint32_t w) {
 // KV: the cache's element type (__nv_bfloat16, or int8_t / __nv_fp8_e4m3
 // for the 8-bit flavours, which read qa's scales). kDisc: the discipline;
 // k_max (kHybrid only): the device scalar max_t ||k_t|| of the keys as
-// they enter the scores (dequantized for 8 bits).
+// they enter the scores (dequantized for 8 bits). gd (dense fixed-max
+// only; null when off): the range guard's count of breaching rows, added to
+// after the key loop (see the epilogue); the other instances compile no
+// guard.
 template <int D, int kFlavour, bool kWindow, int kDisc, class KV>
 __device__ __forceinline__ void fwd_block(
     const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
@@ -214,7 +243,8 @@ __device__ __forceinline__ void fwd_block(
     float* __restrict__ lse, int hq, int hkv, int n, int s, float scale_log2,
     int causal, int q_offset, int window, int sinks,
     const int* __restrict__ kv_lens, const int* __restrict__ q_offsets,
-    PagedArgs pg, QuantArgs qa, const float* __restrict__ k_max) {
+    PagedArgs pg, QuantArgs qa, const float* __restrict__ k_max,
+    GuardArgs gd) {
   constexpr bool kBounds = kFlavour != kDense;  // per-row bounds on the device
   constexpr bool kPagedKV = kFlavour == kPaged;
   constexpr bool kQuant = sizeof(KV) == 1;
@@ -578,12 +608,47 @@ __device__ __forceinline__ void fwd_block(
     if (row0 < n) lse_bh[row0] = l0 == 0.f ? kNegInf : m0 * kLn2 + logf(l0);
     if (row1 < n) lse_bh[row1] = l1 == 0.f ? kNegInf : m1 * kLn2 + logf(l1);
   }
+  if constexpr (kFlavour == kDense && kDisc == kFixed) {
+    if (gd.count != nullptr) {
+      // The fixed-max range guard (the TPU kernel's guard=True): with m
+      // pinned at 0, l itself witnesses the range, so a row breaches when l
+      // is not finite or leaves [2^-100, 2^120], or an element of its acc is
+      // not finite. Only real rows count: row < n, and, when causal, a
+      // position >= 0 (a row before the first key has l == 0 by right). The
+      // row's acc lies with its 4 threads t; each warp adds its count once.
+      // O and LSE above are what they are without the guard.
+      int nf0 = 0, nf1 = 0;  // a non-finite acc element of row0, of row1
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        nf0 |= !isfinite(acc[nd][0]) || !isfinite(acc[nd][1]);
+        nf1 |= !isfinite(acc[nd][2]) || !isfinite(acc[nd][3]);
+      }
+      nf0 |= __shfl_xor_sync(0xffffffffu, nf0, 1);
+      nf0 |= __shfl_xor_sync(0xffffffffu, nf0, 2);
+      nf1 |= __shfl_xor_sync(0xffffffffu, nf1, 1);
+      nf1 |= __shfl_xor_sync(0xffffffffu, nf1, 2);
+      // a breaching row counts unless it is paired and the other head of
+      // its KV pair set the pair's bit first
+      const auto counts = [&](int row, int pos, float l, int nf) {
+        if (t != 0 || row >= n || (causal && pos < 0)) return false;
+        if (!nf && isfinite(l) && l <= 0x1p120f && l >= 0x1p-100f) {
+          return false;
+        }
+        return gd.pairs == nullptr ||
+               first_of_pair(gd.pairs, b, h, hq, hkv, n, row);
+      };
+      const int cnt =
+          __popc(__ballot_sync(0xffffffffu, counts(row0, pos0, l0, nf0))) +
+          __popc(__ballot_sync(0xffffffffu, counts(row1, pos1, l1, nf1)));
+      if (lane == 0 && cnt > 0) atomicAdd(gd.count, cnt);
+    }
+  }
 }
 
 // The bf16 kernel of every flavour. Launch bounds with a minimum of one
 // block per SM: with the thread count alone, ptxas held the d=64 instances
 // at 128 registers and spilled. k_max: the hybrid discipline's device
-// scalar (null otherwise).
+// scalar (null otherwise); gd: the range guard's outputs (null: off).
 template <int D, int kFlavour, bool kWindow = false, int kDisc = kOnline>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -594,11 +659,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                      int causal, int q_offset, int window, int sinks,
                      const int* __restrict__ kv_lens,
                      const int* __restrict__ q_offsets, PagedArgs pg,
-                     const float* __restrict__ k_max) {
+                     const float* __restrict__ k_max, GuardArgs gd) {
   fwd_block<D, kFlavour, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s,
                                          scale_log2, causal, q_offset, window,
                                          sinks, kv_lens, q_offsets, pg,
-                                         QuantArgs{}, k_max);
+                                         QuantArgs{}, k_max, gd);
 }
 
 // The 8-bit kernel of every flavour (KV = int8_t or __nv_fp8_e4m3), with
@@ -613,11 +678,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                        int causal, int q_offset, int window, int sinks,
                        const int* __restrict__ kv_lens,
                        const int* __restrict__ q_offsets, PagedArgs pg,
-                       QuantArgs qa, const float* __restrict__ k_max) {
+                       QuantArgs qa, const float* __restrict__ k_max,
+                       GuardArgs gd) {
   fwd_block<D, kFlavour, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s,
                                          scale_log2, causal, q_offset, window,
                                          sinks, kv_lens, q_offsets, pg, qa,
-                                         k_max);
+                                         k_max, gd);
 }
 
 // The instance a dense or ragged entry launches for its head dim d, band

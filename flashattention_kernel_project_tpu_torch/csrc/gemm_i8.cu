@@ -39,6 +39,7 @@ using fkp_gemm_core::kThreads;
 using fkp_gemm_core::Out;
 using fkp_gemm_core::store2;
 using fkp_mma::cp_async_16;
+using fkp_mma::transpose4;
 
 constexpr int kBK = 64;            // int8 depth of a slice
 constexpr int kStride = kBK + 16;  // bytes a row in shared memory
@@ -46,19 +47,6 @@ struct __align__(16) SmemI8 {
   int8_t a[2][kBM * kStride];  // [m][k]
   int8_t b[2][kBN * kStride];  // [n][k]: B transposed
 };
-
-// the 4 x 4 bytes w[r] (row r, bytes = columns 0..3) transposed: out[c]
-// holds column c, rows 0..3 in its bytes
-__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&out)[4]) {
-  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
-  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
-  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-  out[0] = __byte_perm(lo01, lo23, 0x5410);
-  out[1] = __byte_perm(lo01, lo23, 0x7632);
-  out[2] = __byte_perm(hi01, hi23, 0x5410);
-  out[3] = __byte_perm(hi01, hi23, 0x7632);
-}
 
 // A's [kBM x kBK] slice at (row0, k0) into stage st, zero outside [m) x [k)
 template <bool kAligned>

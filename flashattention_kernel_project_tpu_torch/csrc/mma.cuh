@@ -103,6 +103,22 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
                :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
 }
 
+// the 4 x 4 bytes w[r] (row r, bytes = columns 0..3) transposed: out[c]
+// holds column c, rows 0..3 in its bytes. The int8 products want 4 bytes
+// consecutive along their depth: gemm_i8.cu turns B's [k][n] rows into
+// [n][k] words with it, flash_decode_mxu.cu 4 keys' V rows into one word a
+// dim.
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&out)[4]) {
+  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
+  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
+  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
+  out[0] = __byte_perm(lo01, lo23, 0x5410);
+  out[1] = __byte_perm(lo01, lo23, 0x7632);
+  out[2] = __byte_perm(hi01, hi23, 0x5410);
+  out[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
 // wait until every cp.async of this thread has landed
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");

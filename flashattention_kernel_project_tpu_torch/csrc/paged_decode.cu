@@ -12,7 +12,10 @@
 //   bytes because it ran the grid serially.
 // - _paged_decode_kernel (gather=False): one page per program. Here one page
 //   per split.
-// One kernel serves both: the schedules differ only in pages per split.
+// One kernel serves both: the schedules differ only in pages per split. Its
+// int8 instance with the int8 score product (q_int8=True, which JAX takes
+// only with gather=True over an int8 pool) replaces _paged_gather_kernel_q's
+// q_int8 branch (paged_decode.py:915-928).
 //
 // Each (batch row, KV head, split) block reads the page ids of its split
 // from block_tables[b] itself (the TPU had them on the scalar-prefetch
@@ -86,8 +89,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // the same over an 8-bit pool (T = int8_t or __nv_fp8_e4m3) with its
-// scale pools [n_pages, hkv, 1, page]
-template <int D, int G, class T>
+// scale pools [n_pages, hkv, 1, page]; kQInt8 (int8 only): the int8 score
+// product of decode_core.cuh, sm_scale then the log2-domain scale
+template <int D, int G, class T, bool kQInt8 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_decode_q_kernel(const __nv_bfloat16* __restrict__ q,
                           const T* __restrict__ k_pages,
@@ -112,7 +116,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t scale_head = (size_t)kvh * page;  // the head's scale row
   const PagedRows rows{block_tables + (size_t)b * max_pages,
                        (size_t)hkv * page * D, page, D};
-  fkp_dec::decode_partials<D, G>(
+  fkp_dec::decode_partials<D, G, T, PagedRows, kQInt8>(
       q + ((size_t)b * hkv + kvh) * G * D, k_pages + head, v_pages + head,
       k_scale_pages + scale_head, v_scale_pages + scale_head, rows, start,
       end, sm_scale, m_out + part * G, l_out + part * G, y_out + part * G * D);
@@ -176,5 +180,37 @@ extern "C" int fkp_paged_decode_q(const void* q, const void* k_pages,
             static_cast<const int*>(lengths), static_cast<float*>(m),
             static_cast<float*>(l), static_cast<float*>(y), hkv, page,
             max_pages, n_splits, pages_per_split, sm_scale);
+  });
+}
+
+// paged_flash_decode_quant(q_int8=True) over an int8 pool: arguments as
+// fkp_paged_decode_q (without fp8), scale_log2 = sm_scale * log2(e). Each
+// block quantizes its group's q rows, folded by scale_log2, to int8 and
+// takes the scores as int8 x int8 products (decode_core.cuh). Returns
+// cudaGetLastError() after the launch.
+extern "C" int fkp_paged_decode_qi8(const void* q, const void* k_pages,
+                                    const void* k_scale_pages,
+                                    const void* v_pages,
+                                    const void* v_scale_pages,
+                                    const void* block_tables,
+                                    const void* lengths, void* m, void* l,
+                                    void* y, int b, int hq, int hkv, int page,
+                                    int d, int max_pages, int n_splits,
+                                    int pages_per_split, float scale_log2,
+                                    void* stream) {
+  const dim3 grid(b, hkv, n_splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return fkp_dec::dispatch(d, hq / hkv, [&](auto dc, auto gc) {
+    paged_decode_q_kernel<decltype(dc)::value, decltype(gc)::value, int8_t,
+                          true><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const int8_t*>(k_pages),
+        static_cast<const float*>(k_scale_pages),
+        static_cast<const int8_t*>(v_pages),
+        static_cast<const float*>(v_scale_pages),
+        static_cast<const int*>(block_tables),
+        static_cast<const int*>(lengths), static_cast<float*>(m),
+        static_cast<float*>(l), static_cast<float*>(y), hkv, page, max_pages,
+        n_splits, pages_per_split, scale_log2);
   });
 }

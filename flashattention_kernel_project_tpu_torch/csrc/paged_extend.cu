@@ -59,11 +59,11 @@ extern "C" int fkp_paged_extend(const void* q, const void* k_pages,
   if (d == 64) {
     flash_fwd_kernel<64, kPaged><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg, nullptr);
+        lens, offs, pg, nullptr, fkp_fwd::GuardArgs{});
   } else if (d == 128) {
     flash_fwd_kernel<128, kPaged><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg, nullptr);
+        lens, offs, pg, nullptr, fkp_fwd::GuardArgs{});
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -87,11 +87,11 @@ int launch_extend_q(const dim3& grid, cudaStream_t st, const void* q,
   if (d == 64) {
     flash_fwd_q_kernel<64, kPaged, KV><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg, qa, nullptr);
+        lens, offs, pg, qa, nullptr, fkp_fwd::GuardArgs{});
   } else if (d == 128) {
     flash_fwd_q_kernel<128, kPaged, KV><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg, qa, nullptr);
+        lens, offs, pg, qa, nullptr, fkp_fwd::GuardArgs{});
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -21,7 +21,9 @@ two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a CPU tensor
 they run `_fwd_plain`, `_fwd_ragged_plain` (over the dequantized cache for
 8 bits) and `_bwd_plain`, the same functions in plain PyTorch, which the
 CPU tests hold against the JAX kernels and chip_smoke.py holds the CUDA
-kernels against.
+kernels against. `_fwd(guard=True)` (fixed-max only) also returns the
+range guard's count of rows whose l or acc left the fixed-max range,
+counted in the kernel's epilogue (`_guard_count` on the CPU).
 
 Layouts follow the JAX package: q [B, Hq, N, D], k/v [B, Hkv, S, D],
 O [B, Hq, N, D] in q's dtype, LSE [B, Hq, N] float32 in natural log.
@@ -138,14 +140,42 @@ def _softmax_plain(scores, mask, pinned):
     return p, m, p.sum(dim=-1, keepdim=True)
 
 
+def _guard_count(l, acc, causal, q_offset, hkv, pack=False):
+    """The fixed-max range guard (JAX `_fwd(guard=True)`,
+    flash_attention.py:672-701): the number of rows, as a 0-d int32
+    tensor, whose l [B, Hq, N, 1] is not finite or lies outside
+    [2^-100, 2^120], or whose unnormalized acc [B, Hq, N, D] holds a
+    non-finite element. With m pinned at 0, l witnesses the range of every
+    p = exp2(s). When causal, a row at a negative position sees no key and
+    carries l == 0 by right: it does not count. pack=True counts a row once
+    for the two heads of a KV pair (of the `hkv` KV heads), as JAX's paired
+    d=64 kernel does (:957-974)."""
+    bad = (~torch.isfinite(l) | (l > 2.0 ** 120) | (l < 2.0 ** -100)
+           | ~torch.isfinite(acc).all(dim=-1, keepdim=True))
+    b, hq, n, _ = bad.shape
+    if pack:
+        bad = bad.reshape(b, hkv // 2, 2, hq // hkv, n, 1).any(dim=2)
+    if causal:
+        bad = bad & (torch.arange(n, device=l.device)[:, None] + q_offset >= 0)
+    return bad.sum(dtype=torch.int32)
+
+
+def _check_guard(guard, disc):
+    """JAX's assert that the guard instruments the fixed-max kernel, as a
+    ValueError."""
+    if guard and disc != FIXED:
+        raise ValueError("guard instruments the fixed-max kernel (stable=False)")
+
+
 def _fwd_plain(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0,
-               disc=ONLINE, k_max=None):
+               disc=ONLINE, k_max=None, guard=False, pack=False):
     """The forward in plain PyTorch, in float32: the same log2-domain
     scores, masks (causal, and the band of `window` keys plus the first
     `sinks` when window > 0), discipline (FIXED: m pinned at 0; HYBRID: so
     in each block of _HYBRID_ROWS rows whose bound with `k_max`, a 0-d
     tensor, proves it sound) and empty-row rule as the kernel, with one
-    softmax over all keys."""
+    softmax over all keys. guard=True adds `_guard_count` (over KV-head
+    pairs with pack=True) to the result."""
     b, hq, n, d = q.shape
     group = hq // k.shape[1]
     s = k.shape[2]
@@ -159,14 +189,17 @@ def _fwd_plain(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0,
         mask = _band_mask(rows, torch.arange(s, device=q.device), window, sinks)
     p, m, l = _softmax_plain(scores, mask, _fixed_rows(q, sm_scale, disc, k_max))
     safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
-    o = (p @ vf) / safe_l
+    acc = p @ vf
     lse = torch.where(l == 0.0, torch.full_like(l, NEG_INF),
                       m * _LN2 + torch.log(safe_l))
-    return o.to(q.dtype), lse[..., 0]
+    out = (acc / safe_l).to(q.dtype), lse[..., 0]
+    if not guard:
+        return out
+    return (*out, _guard_count(l, acc, causal, q_offset, k.shape[1], pack))
 
 
 @functools.cache
-def _kernel(name="fkp_flash_fwd", n_ptrs=5, n_flags=4):
+def _kernel(name, n_ptrs, n_flags=4):
     """A C entry point taking `n_ptrs` pointers, then (b, hq, hkv, n, s, d),
     a float scale, `n_flags` ints (causal, q_offset, window, sinks, and the
     forwards' discipline) and the stream."""
@@ -225,30 +258,40 @@ def _fwd_args(q, k, v, sm_scale, disc, k_max, k_scale=None):
 
 
 def _fwd_cuda(q, k, v, causal, sm_scale, q_offset, window, sinks, disc,
-              k_max, counter):
+              k_max, counter, guard=False, pack=False):
     """Launch csrc/flash_fwd.cu on checked inputs and count the launch in
-    `_fwd.<counter>` (and `_fwd.window_launches` with a window)."""
+    `_fwd.<counter>` (and `_fwd.window_launches` with a window,
+    `_fwd.guard_launches` with the guard). guard=True adds the range
+    guard's count, a 0-d int32 device tensor, to the result; with
+    pack=True the kernel counts a row once for a KV pair's two heads, by a
+    zeroed bit a (b, pair, group member, row) that the first of them sets."""
     _check_cuda_inputs(q, k, v)
     _check_k_max(q, disc, k_max)
     b, hq, n, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
+    bad = torch.zeros((), dtype=torch.int32, device=q.device) if guard else None
+    pairs = (torch.zeros(-(-b * hq * n // 64), dtype=torch.int32,
+                         device=q.device) if guard and pack else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel("fkp_flash_fwd", 6, 5)(
+    rc = _kernel("fkp_flash_fwd", 8, 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         None if k_max is None else k_max.data_ptr(),
+        None if bad is None else bad.data_ptr(),
+        None if pairs is None else pairs.data_ptr(),
         b, hq, hkv, n, s, d, float(sm_scale * _LOG2E), int(bool(causal)),
         int(q_offset), int(window), int(sinks), int(disc), stream,
     )
     setattr(_fwd, counter, getattr(_fwd, counter) + 1)
     _fwd.window_launches += bool(window)
+    _fwd.guard_launches += guard
     _build.check(rc, "flash_fwd")
-    return o, lse
+    return (o, lse, bad) if guard else (o, lse)
 
 
 def _fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0, disc=ONLINE,
-         k_max=None, pack=False):
+         k_max=None, pack=False, *, guard=False):
     """(O, LSE). CPU tensors run `_fwd_plain`; CUDA tensors launch
     csrc/flash_fwd.cu (bf16, contiguous, d in {64, 128}) or raise. window
     > 0: the band of `window` keys plus the first `sinks` (causal only),
@@ -257,30 +300,46 @@ def _fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0, disc=ONLINE,
     when None) on the device. Each launch counts in `_fwd.launches`
     (ONLINE), `.fixed_launches` or `.hybrid_launches`.
 
-    pack=True (disc FIXED, d = 64): kernel 2's counterpart, the fixed-max
-    d=64 forward, counted in `_fwd.packed_launches` instead. The TPU pairs
-    two KV heads block-diagonally so that a d=64 product fills its 128-deep
-    matrix unit; Hopper's 16-deep mma.sync needs no pairing, so this is the
-    same fixed-max d=64 instance."""
-    if pack and (disc != FIXED or q.shape[-1] != 64):
-        raise ValueError("the packed forward is the fixed-max d=64 one")
+    pack=True (disc FIXED, d = 64, an even KV-head count): kernel 2's
+    counterpart, the fixed-max d=64 forward, counted in
+    `_fwd.packed_launches` instead. The TPU pairs two KV heads
+    block-diagonally so that a d=64 product fills its 128-deep matrix unit;
+    Hopper's 16-deep mma.sync needs no pairing, so this is the same
+    fixed-max d=64 instance.
+
+    guard=True (disc FIXED only; ValueError otherwise, where JAX asserts):
+    (O, LSE, bad), bad the fixed-max range guard's count of rows whose l
+    left [2^-100, 2^120] or whose acc is not finite (`_guard_count`), a 0-d
+    int32 tensor the kernel adds to on the device, with no host sync. The
+    kernel is the fixed-max one with a count pointer, O and LSE as without
+    it; its launches count in `.guard_launches` too. With pack=True a row
+    counts once for the two heads of a KV pair, as in JAX's paired kernel.
+    The 8-bit dense forward takes the guard in `_fwd_q_plain` and
+    `_fwd_q_cuda`."""
+    if pack and (disc != FIXED or q.shape[-1] != 64 or k.shape[1] % 2):
+        raise ValueError("the packed forward is the fixed-max d=64 one, over "
+                         "an even KV-head count")
+    _check_guard(guard, disc)
     sm_scale, k_max = _fwd_args(q, k, v, sm_scale, disc, k_max)
     if q.device.type == "cpu":
         return _fwd_plain(q, k, v, causal, sm_scale, q_offset, window, sinks,
-                          disc, k_max)
+                          disc, k_max, guard, pack)
     if q.device.type != "cuda":
         raise ValueError(f"no forward for device {q.device}")
     return _fwd_cuda(q, k, v, causal, sm_scale, q_offset, window, sinks, disc,
-                     k_max, "packed_launches" if pack else _counter(disc))
+                     k_max, "packed_launches" if pack else _counter(disc),
+                     guard, pack)
 
 
 # kernel launches by discipline, for showing that a path ran the kernel,
-# those of them with a window, and those of the packed forward
+# those of them with a window, those of the packed forward, and those with
+# the range guard
 _fwd.launches = 0
 _fwd.fixed_launches = 0
 _fwd.hybrid_launches = 0
 _fwd.window_launches = 0
 _fwd.packed_launches = 0
+_fwd.guard_launches = 0
 
 
 def _check_pack(stable, q, k, v):
@@ -504,18 +563,22 @@ def flash_attention_with_lse(
 
 
 def _fwd_q_plain(q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset,
-                 window=0, sinks=0, disc=ONLINE, k_max=None):
+                 window=0, sinks=0, disc=ONLINE, k_max=None, guard=False):
     """The 8-bit forward in plain PyTorch: the cache dequantized to float32
-    (values times their per-token scales), then `_fwd_plain`."""
+    (values times their per-token scales), then `_fwd_plain`. guard=True
+    (FIXED; as JAX's `_fwd` takes it with k_scale): (O, LSE, bad)."""
+    _check_guard(guard, disc)
     return _fwd_plain(q, k_q.float() * k_scale, v_q.float() * v_scale, causal,
-                      sm_scale, q_offset, window, sinks, disc, k_max)
+                      sm_scale, q_offset, window, sinks, disc, k_max, guard)
 
 
 def _fwd_q_cuda(q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset,
-                window=0, sinks=0, disc=ONLINE, k_max=None):
+                window=0, sinks=0, disc=ONLINE, k_max=None, guard=False):
     """(O, LSE) from csrc/flash_fwd_q.cu: q bf16, k_q/v_q [B, Hkv, S, D]
     int8 or float8_e4m3fn with [B, Hkv, S, 1] float32 scales; k_max (a 0-d
-    device tensor) for HYBRID."""
+    device tensor) for HYBRID. guard=True (FIXED): (O, LSE, bad), as
+    `_fwd`'s, counted in `flash_attention_kv_quant.guard_launches` too."""
+    _check_guard(guard, disc)
     check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
                      "8-bit forward")
     b, hq, n, d = q.shape
@@ -529,10 +592,12 @@ def _fwd_q_cuda(q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset,
     _check_k_max(q, disc, k_max)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
-    rc = _kernel("fkp_flash_fwd_q", 8, 6)(
+    bad = torch.zeros((), dtype=torch.int32, device=q.device) if guard else None
+    rc = _kernel("fkp_flash_fwd_q", 9, 6)(
         q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
         v_scale.data_ptr(), o.data_ptr(), lse.data_ptr(),
         None if k_max is None else k_max.data_ptr(),
+        None if bad is None else bad.data_ptr(),
         b, hq, k_q.shape[1], n, k_q.shape[2], d, float(sm_scale * _LOG2E),
         int(bool(causal)), int(q_offset), int(window), int(sinks), int(disc),
         int(k_q.dtype == torch.float8_e4m3fn),
@@ -541,8 +606,9 @@ def _fwd_q_cuda(q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset,
     counters = flash_attention_kv_quant
     setattr(counters, _counter(disc), getattr(counters, _counter(disc)) + 1)
     counters.window_launches += bool(window)
+    counters.guard_launches += guard
     _build.check(rc, "flash_fwd_q")
-    return o, lse
+    return (o, lse, bad) if guard else (o, lse)
 
 
 def flash_attention_kv_quant_with_lse(
@@ -593,11 +659,12 @@ def flash_attention_kv_quant(
 
 
 # kernel launches by discipline, for showing that a path ran the kernel,
-# and those of them with a window
+# those of them with a window, and those with the range guard
 flash_attention_kv_quant.launches = 0
 flash_attention_kv_quant.fixed_launches = 0
 flash_attention_kv_quant.hybrid_launches = 0
 flash_attention_kv_quant.window_launches = 0
+flash_attention_kv_quant.guard_launches = 0
 
 
 def _ragged_mask(n, s, kv_lens, q_offsets, causal, window=0, sinks=0):

@@ -9,8 +9,10 @@ splits; each emits unnormalized partials (m, l, y) over its keys below
 `merge_partials` combines them. On a CUDA tensor the
 partials come from the hand-written Hopper kernels in csrc/flash_decode.cu
 (one for a bf16 cache, one for an int8 or e4m3 cache with per-token
-scales); on a CPU tensor from `_decode_partials_plain` and
-`_decode_partials_q_plain`, the same functions in plain PyTorch. The merge
+scales) and csrc/flash_decode_mxu.cu (an int8 cache with both products
+int8 x int8, mxu=True); on a CPU tensor from `_decode_partials_plain`,
+`_decode_partials_q_plain` and `_decode_partials_mxu_plain`, the same
+functions in plain PyTorch. The merge
 is plain PyTorch on both, as it is a jnp reduction outside the Pallas
 kernel in the JAX package.
 """
@@ -27,7 +29,10 @@ from flashattention_kernel_project_tpu_torch.ops import _build
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import _band_mask
 from flashattention_kernel_project_tpu_torch.ops.quant import check_8bit_cache
 from flashattention_kernel_project_tpu_torch.ops.softmax import NEG_INF
-from flashattention_kernel_project_tpu_torch.utils.platform import H100_SMS
+from flashattention_kernel_project_tpu_torch.utils.platform import (
+    H100_SMEM_PER_BLOCK,
+    H100_SMS,
+)
 
 _KERNEL_DIMS = (64, 128)
 _KERNEL_GROUPS = (1, 2, 4, 8)
@@ -67,6 +72,23 @@ def _decode_band(window, sinks):
     return (window, sinks) if window is not None else (0, 0)
 
 
+def _split_rows(x, n_splits, block_s):
+    """[B, Hkv, S, X] -> [B, Hkv, n_splits, block_s, X], zero-padded past S."""
+    b, hkv, s, width = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 0, n_splits * block_s - s))
+    return xp.view(b, hkv, n_splits, block_s, width)
+
+
+def _split_mask(lengths, s, n_splits, block_s, window, sinks, device):
+    """[B, 1, n_splits, 1, block_s] bool: the keys below the length (lengths
+    above S count as S), and with a window (> 0) only the last `window` of
+    them and the first `sinks` (the forward's band for the query at
+    position length - 1)."""
+    col = torch.arange(n_splits * block_s, device=device)
+    pos = lengths.clamp(0, s).to(col.dtype)[:, None] - 1
+    return _band_mask(pos, col, window, sinks).view(-1, 1, n_splits, 1, block_s)
+
+
 def _decode_partials_plain(q, k, v, lengths, n_splits, block_s, sm_scale,
                            window=0, sinks=0):
     """The kernel's partials in plain PyTorch, in float32: keys below the
@@ -76,23 +98,23 @@ def _decode_partials_plain(q, k, v, lengths, n_splits, block_s, sm_scale,
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     g = hq // hkv
-    pad = n_splits * block_s - s
-    kp = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
-    vp = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
-    kp = kp.view(b, hkv, n_splits, block_s, d)
-    vp = vp.view(b, hkv, n_splits, block_s, d)
+    kp = _split_rows(k.float(), n_splits, block_s)
+    vp = _split_rows(v.float(), n_splits, block_s)
     qg = q.float().reshape(b, hkv, 1, g, d)
     scores = (qg @ kp.transpose(-1, -2)) * sm_scale  # [B, Hkv, splits, G, bs]
-    col = torch.arange(n_splits * block_s, device=q.device)
-    pos = lengths.clamp(0, s).to(col.dtype)[:, None] - 1
-    mask = _band_mask(pos, col, window, sinks).view(b, 1, n_splits, 1, block_s)
+    mask = _split_mask(lengths, s, n_splits, block_s, window, sinks, q.device)
+    return _split_partials(scores, mask, vp)
+
+
+def _split_partials(scores, mask, vp):
+    """(m, l, y) of each split from its scores [B, Hkv, splits, G, bs]
+    (natural log) where `mask` holds, against its V rows [B, Hkv, splits,
+    bs, D]."""
     scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     # a dead split has m == NEG_INF, where exp(s - m) would be 1
     e = torch.exp(scores - m) * mask
-    l = e.sum(dim=-1, keepdim=True)
-    y = e @ vp
-    return m, l, y
+    return m, e.sum(dim=-1, keepdim=True), e @ vp
 
 
 @functools.cache
@@ -267,6 +289,107 @@ def _decode_partials_q_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
     return m, l, y
 
 
+def _quantize_q_rows(q, sm_scale):
+    """q [B, Hq, D] quantized per row as the JAX wrapper does for mxu=True
+    (flash_decode.py:485-490): qsc = (max|q| == 0 ? 1 : max|q|) * (1 / 127),
+    q_i8 = round(q / qsc), half to even. Returns (q_i8 as float32 values,
+    the row's score scale qsc * sm_scale [B, Hq, 1])."""
+    qf = q.float()
+    qmax = qf.abs().amax(dim=-1, keepdim=True)
+    qsc = torch.where(qmax == 0.0, 1.0, qmax) * (1.0 / 127.0)
+    return torch.round(qf / qsc), qsc * sm_scale
+
+
+def _decode_partials_mxu_plain(q, k_q, k_scale, v_q, v_scale, lengths,
+                               n_splits, block_s, sm_scale, window=0, sinks=0):
+    """Kernel 8's partials in plain PyTorch (int8 cache): q quantized per
+    row (`_quantize_q_rows`), the scores f32(q_i8 . k_i8) * (qs * ks), the
+    split's softmax statistics, its weights e * vs requantized per row over
+    the split (rs = max / 127, ei = floor(ew / rs + 0.5)) and y = f32(ei .
+    v_i8) * rs. Both integer products are exact (float64 sums of integers
+    below 2^53), as the kernel's int32 sums are."""
+    b, hq, d = q.shape
+    hkv, s = k_q.shape[1], k_q.shape[2]
+    g = hq // hkv
+    q_i8, qs = _quantize_q_rows(q, sm_scale)
+    kp = _split_rows(k_q.double(), n_splits, block_s)
+    vp = _split_rows(v_q.double(), n_splits, block_s)
+    ks = _split_rows(k_scale, n_splits, block_s).transpose(-1, -2)  # [.., 1, bs]
+    vs = _split_rows(v_scale, n_splits, block_s).transpose(-1, -2)
+    s32 = (q_i8.double().reshape(b, hkv, 1, g, d) @ kp.transpose(-1, -2)).float()
+    scores = s32 * (qs.reshape(b, hkv, 1, g, 1) * ks)  # [B, Hkv, splits, G, bs]
+    mask = _split_mask(lengths, s, n_splits, block_s, window, sinks, q.device)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m) * mask
+    l = e.sum(dim=-1, keepdim=True)
+    ew = torch.where(mask, e * vs, 0.0)
+    r = ew.amax(dim=-1, keepdim=True)
+    rs = torch.where(r == 0.0, 1.0, r) * (1.0 / 127.0)
+    ei = torch.floor(ew / rs + 0.5)
+    y = (ei.double() @ vp).float() * rs
+    return m, l, y
+
+
+@functools.cache
+def _kernel_mxu():
+    """fkp_flash_decode_mxu: q, k, k_scale, v, v_scale, lengths, m, l, y,
+    then (b, hq, hkv, s, d, n_splits, block_s), a float scale, (window,
+    sinks) and the stream."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_flash_decode_mxu",
+                         [vp] * 9 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
+                         + [vp])
+
+
+def _mxu_smem_bytes(g, d, block_s):
+    """Shared memory of a kernel-8 block: the split's f32 scores and int8
+    weights (dynamic) and the int8 q rows, int32 sums and row statistics
+    (static) of csrc/flash_decode_mxu.cu."""
+    return 5 * g * block_s + 5 * g * d + (4 + 2) * 4 * g
+
+
+def _decode_partials_mxu_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
+                              block_s, sm_scale, window=0, sinks=0):
+    check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
+                     "int8 x int8 decode")
+    if k_q.dtype != torch.int8:
+        raise TypeError(f"the int8 x int8 decode needs an int8 cache, got {k_q.dtype}")
+    _check_decode_shapes(q, k_q, v_q, lengths)
+    b, hq, d = q.shape
+    hkv, s = k_q.shape[1], k_q.shape[2]
+    g = hq // hkv
+    if _mxu_smem_bytes(g, d, block_s) > H100_SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the int8 x int8 decode keeps a split's scores and weights in "
+            f"shared memory: {block_s} keys at G = {g} need "
+            f"{_mxu_smem_bytes(g, d, block_s)} bytes, over the "
+            f"{H100_SMEM_PER_BLOCK} a block may hold; use more splits")
+    m = torch.empty((b, hkv, n_splits, g, 1), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)
+    y = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
+                    device=q.device)
+    rc = _kernel_mxu()(
+        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+        v_scale.data_ptr(), lengths.data_ptr(), m.data_ptr(), l.data_ptr(),
+        y.data_ptr(), b, hq, hkv, s, d, n_splits, block_s, float(sm_scale),
+        int(window), int(sinks), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_decode_int8.mxu_launches += 1
+    _build.check(rc, "flash_decode_mxu")
+    return m, l, y
+
+
+def mxu_block_s(s: int, n_splits: int) -> int:
+    """Keys a split of the int8 x int8 decode covers: ceil(S / n_splits)
+    rounded up to a multiple of 32, JAX's rule (flash_decode.py:497-502).
+    Each split is one requantization group of the exp weights, so the same
+    n_splits gives the same function in both packages."""
+    block_s = -(-s // n_splits)
+    return block_s + (-block_s) % 32
+
+
 def flash_decode_int8(
     q: torch.Tensor,
     k_q: torch.Tensor,
@@ -291,12 +414,18 @@ def flash_decode_int8(
     csrc/flash_decode.cu (q bf16, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8})
     or raise. window and sinks as flash_decode's. `flash_decode_fp8` is the
     same function.
+
+    mxu=True (an int8 cache only; ValueError for e4m3, where JAX asserts):
+    both products int8 x int8, q and the exp weights requantized per row
+    (kernel 8 of the JAX package, `_decode_partials_mxu_plain`; on a CUDA
+    tensor csrc/flash_decode_mxu.cu, counted in `.mxu_launches`). Each
+    split is one requantization group of the weights and is sized by JAX's
+    rule (`mxu_block_s`); n_splits defaults to `default_n_splits`, where
+    JAX's default is one split per 4096 keys. A split must fit the kernel's
+    shared memory (ValueError otherwise).
     """
-    if mxu:
-        raise NotImplementedError(
-            "flash_decode_int8: mxu=True (the int8 x int8 decode kernel) is "
-            "ROADMAP item A.7"
-        )
+    if mxu and k_q.dtype != torch.int8:
+        raise ValueError(f"mxu=True needs an int8 cache, got {k_q.dtype}")
     window, sinks = _decode_band(window, sinks)
     if return_partials:
         raise NotImplementedError(
@@ -311,24 +440,25 @@ def flash_decode_int8(
         n_splits = default_n_splits(b, hkv, s)
     if n_splits < 1:
         raise ValueError(f"n_splits must be >= 1, got {n_splits}")
-    block_s = -(-s // n_splits)
+    block_s = mxu_block_s(s, n_splits) if mxu else -(-s // n_splits)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     args = (q, k_q, k_scale, v_q, v_scale, lengths, n_splits, block_s,
             sm_scale, window, sinks)
     if q.device.type == "cpu":
-        parts = _decode_partials_q_plain(*args)
+        parts = (_decode_partials_mxu_plain if mxu else _decode_partials_q_plain)(*args)
     elif q.device.type == "cuda":
-        parts = _decode_partials_q_cuda(*args)
+        parts = (_decode_partials_mxu_cuda if mxu else _decode_partials_q_cuda)(*args)
     else:
         raise ValueError(f"no decode for device {q.device}")
     return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
 
 
-# kernel launches, for showing that a path ran the kernel, and those of
-# them with a window
+# kernel launches, for showing that a path ran the kernel, those of them
+# with a window, and those of the int8 x int8 kernel (mxu=True)
 flash_decode_int8.launches = 0
 flash_decode_int8.window_launches = 0
+flash_decode_int8.mxu_launches = 0
 
 # an e4m3 cache takes the same function and kernel
 flash_decode_fp8 = flash_decode_int8

@@ -37,6 +37,7 @@ import torch
 
 from flashattention_kernel_project_tpu_torch.ops import _build
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (
+    _LN2,
     _check_ragged_bounds,
     _fwd_ragged_plain,
 )
@@ -44,6 +45,9 @@ from flashattention_kernel_project_tpu_torch.ops.flash_decode import (
     _KERNEL_DIMS,
     _KERNEL_GROUPS,
     _decode_partials_plain,
+    _split_mask,
+    _split_partials,
+    _split_rows,
     merge_partials,
 )
 from flashattention_kernel_project_tpu_torch.ops.quant import (
@@ -301,6 +305,86 @@ def _paged_partials_q_cuda(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
     return m, l, y
 
 
+def _q_int8_rows(q, sm_scale):
+    """q [B, Hq, D] folded into the log2 domain and quantized per row, as
+    the JAX wrapper does for q_int8=True (paged_decode.py:1011-1024): qf =
+    q * sm_scale * log2(e), qs = max|qf| == 0 ? 1 : max|qf| / 127, q_i8 =
+    clip(round(qf / qs), -127, 127), half to even. Returns (q_i8 as float32
+    values, qs * ln 2 [B, Hq, 1], the scale that takes an int32 score to
+    natural-log units)."""
+    qf = q.float() * (sm_scale * _LOG2E)
+    qmax = qf.abs().amax(dim=-1, keepdim=True)
+    qs = torch.where(qmax == 0.0, 1.0, qmax / 127.0)
+    return torch.round(qf / qs).clamp(-127, 127), qs * _LN2
+
+
+def _paged_partials_qi8_plain(q, k_pages, k_scale_pages, v_pages,
+                              v_scale_pages, block_table, lengths,
+                              pages_per_split, sm_scale):
+    """Kernel 12's q_int8 partials in plain PyTorch (an int8 pool): q
+    quantized per row (`_q_int8_rows`), the scores (f32(q_i8 . k_i8) *
+    ks) * (qs * ln 2), the int8 product exact (float64 sums of integers),
+    then the 8-bit decode's softmax against the dequantized V rows."""
+    b, hq, d = q.shape
+    hkv, page = k_pages.shape[1], k_pages.shape[2]
+    max_pages = block_table.shape[1]
+    n_splits = -(-max_pages // pages_per_split)
+    block_s = pages_per_split * page
+    q_i8, qsl = _q_int8_rows(q, sm_scale)
+    kp = _split_rows(_linear_rows(k_pages, block_table).double(), n_splits,
+                     block_s)
+    ks = _split_rows(_linear_scales(k_scale_pages, block_table), n_splits,
+                     block_s).transpose(-1, -2)  # [B, Hkv, splits, 1, bs]
+    vp = _split_rows(_dequantized_rows(v_pages, v_scale_pages, block_table),
+                     n_splits, block_s)
+    g = hq // hkv
+    s32 = (q_i8.double().reshape(b, hkv, 1, g, d) @ kp.transpose(-1, -2)).float()
+    scores = (s32 * ks) * qsl.reshape(b, hkv, 1, g, 1)
+    mask = _split_mask(lengths, max_pages * page, n_splits, block_s, 0, 0,
+                       q.device)
+    return _split_partials(scores, mask, vp)
+
+
+@functools.cache
+def _kernel_qi8():
+    """fkp_paged_decode_qi8: as fkp_paged_decode_q without fp8, the float
+    the log2-domain scale sm_scale * log2(e)."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_paged_decode_qi8",
+                         [vp] * 10 + [i32] * 8 + [ctypes.c_float, vp])
+
+
+def _paged_partials_qi8_cuda(q, k_pages, k_scale_pages, v_pages,
+                             v_scale_pages, block_table, lengths,
+                             pages_per_split, sm_scale):
+    _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                       block_table, "int8-score paged decode")
+    _check_decode_bounds(q, k_pages, lengths)
+    if k_pages.dtype != torch.int8:
+        raise TypeError(f"the int8 score product needs an int8 pool, got "
+                        f"{k_pages.dtype}")
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    n_splits = -(-max_pages // pages_per_split)
+    g = hq // hkv
+    m = torch.empty((b, hkv, n_splits, g, 1), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)
+    y = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
+                    device=q.device)
+    rc = _kernel_qi8()(
+        q.data_ptr(), k_pages.data_ptr(), k_scale_pages.data_ptr(),
+        v_pages.data_ptr(), v_scale_pages.data_ptr(), block_table.data_ptr(),
+        lengths.data_ptr(), m.data_ptr(), l.data_ptr(), y.data_ptr(),
+        b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
+        float(sm_scale * _LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    paged_flash_decode_quant.q_int8_launches += 1
+    _build.check(rc, "paged_decode_qi8")
+    return m, l, y
+
+
 def paged_flash_decode_quant(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -324,12 +408,15 @@ def paged_flash_decode_quant(
     tensors run `_paged_partials_q_plain`; CUDA tensors launch the 8-bit
     kernel of csrc/paged_decode.cu (q bf16, d in {64, 128}, Hq/Hkv in
     {1, 2, 4, 8}, pages of 16 to 128 rows in steps of 16) or raise.
+
+    q_int8=True: the scores as int8 x int8 products, q folded into the log2
+    domain and quantized per row (`_paged_partials_qi8_plain`; on a CUDA
+    tensor the int8-score instance of csrc/paged_decode.cu, counted in
+    `.q_int8_launches`). As in JAX it applies only with gather=True over an
+    int8 pool: on e4m3 pages or with gather=False the ordinary 8-bit kernel
+    runs (`.launches`).
     """
-    if q_int8:
-        raise NotImplementedError(
-            "paged_flash_decode_quant: q_int8=True (the int8 x int8 score "
-            "product) is ROADMAP item A.7"
-        )
+    q_int8 = bool(q_int8) and gather and k_pages.dtype == torch.int8
     if slots != 2:
         raise NotImplementedError(
             "paged_flash_decode_quant: slots tunes the TPU's DMA pipeline; "
@@ -347,15 +434,18 @@ def paged_flash_decode_quant(
     args = (q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_table,
             lengths, pages_per_split, sm_scale)
     if q.device.type == "cpu":
-        parts = _paged_partials_q_plain(*args)
+        parts = (_paged_partials_qi8_plain if q_int8 else _paged_partials_q_plain)(*args)
     elif q.device.type == "cuda":
-        parts = _paged_partials_q_cuda(*args)
+        parts = (_paged_partials_qi8_cuda if q_int8 else _paged_partials_q_cuda)(*args)
     else:
         raise ValueError(f"no paged decode for device {q.device}")
     return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
 
 
-paged_flash_decode_quant.launches = 0  # kernel launches, for showing that a path ran the kernel
+# kernel launches, for showing that a path ran the kernel, and those of the
+# int8-score instance (q_int8=True)
+paged_flash_decode_quant.launches = 0
+paged_flash_decode_quant.q_int8_launches = 0
 
 
 def _paged_extend_plain(q, k_pages, v_pages, block_table, new_lengths,

@@ -254,29 +254,30 @@ def test_paged_append_quant_matches_jax_bit_for_bit(chunk, fmt):
 
 def test_8bit_options_and_checks_raise():
     """The options still to port raise naming their ROADMAP item; window
-    and sinks run (tests/test_torch_window.py holds them to JAX); the CUDA
-    wrappers' checks refuse what the kernels do not take (the 8-bit GEMMs'
-    checks are in tests/test_torch_gemm8.py)."""
+    and sinks, mxu and q_int8 run (tests/test_torch_window.py and
+    tests/test_torch_int8_decodes.py hold them to JAX); the CUDA wrappers'
+    checks refuse what the kernels do not take (the 8-bit GEMMs' checks
+    are in tests/test_torch_gemm8.py)."""
     rng = np.random.default_rng(7)
     q = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
     _, _, k, ks = _quantized(rng, (2, 2, 8, 16), "int8")
     lengths = torch.tensor([3, 8], dtype=torch.int32)
     args = (q, k, ks, k, ks, lengths)
-    for kwargs, item in ((dict(mxu=True), "A.7"),
-                         (dict(return_partials=True), "A.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            tfd.flash_decode_int8(*args, **kwargs)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        tfd.flash_decode_int8(*args, return_partials=True)
     full = tfd.flash_decode_int8(*args)
+    got = tfd.flash_decode_int8(*args, mxu=True)
+    assert got.shape == full.shape and torch.isfinite(got).all()
     for kwargs in (dict(window=4), dict(window=4, sinks=1)):
         got = tfd.flash_decode_int8(*args, **kwargs)
         assert got.shape == full.shape and torch.isfinite(got).all()
         assert not torch.equal(got, full)  # the band bites at length 8
-    table = torch.tensor([[1], [2]], dtype=torch.int32)
+    table = torch.tensor([[0], [1]], dtype=torch.int32)
     pool = k.view(2, 2, 8, 16)[:, :, :8].contiguous()
     spool = ks.view(2, 2, 1, 8).contiguous()
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tpd.paged_flash_decode_quant(q, pool, spool, pool, spool, table, lengths,
-                                     q_int8=True)
+    got = tpd.paged_flash_decode_quant(q, pool, spool, pool, spool, table,
+                                       lengths, q_int8=True)
+    assert got.shape == q.shape and torch.isfinite(got).all()
     got = tfa.flash_attention_ragged_kv_quant(q[:, :, None], k, ks, k, ks,
                                               lengths, lengths - 1, window=4)
     torch.testing.assert_close(got[:, :, 0], tfd.flash_decode_int8(

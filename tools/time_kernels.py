@@ -7,7 +7,8 @@ ROOT is a directory holding flashattention_kernel_project_tpu_torch/ (the
 repository root, or an unpacked `git archive` of another commit). The
 kernels build there at first use. Prints one line: ms per call (CUDA
 events, the median of 7 runs of a few calls each, eager) of the forward at
-1x16/4 heads x 512 and x 4096 tokens (d 128, causal), dK/dV and dq at 4x16/4
+1x16/4 heads x 512 and x 4096 tokens (d 128, causal), the fixed-max
+forward at 1x16/4 x 4096 (d 128, and d 64 packed), dK/dV and dq at 4x16/4
 x 4096, the ragged forward at the serving chunk (T 256, kv_len 768,
 q_offset 512) and the split-KV decode partials at B8 S2048. To compare two
 commits, time both on one card in turns (parent, change, change, parent):
@@ -64,6 +65,10 @@ def main() -> int:
     for n in (512, 4096):
         q, k, v = randn(1, 16, n, 128), randn(1, 4, n, 128), randn(1, 4, n, 128)
         res[f"fwd{n}"] = ms(lambda: fa._fwd(q, k, v, True, scale, 0))
+    res["fixed4096"] = ms(lambda: fa._fwd(q, k, v, True, scale, 0, disc=fa.FIXED))
+    q, k, v = randn(1, 16, 4096, 64), randn(1, 4, 4096, 64), randn(1, 4, 4096, 64)
+    res["packed4096"] = ms(lambda: fa._fwd(q, k, v, True, 64 ** -0.5, 0,
+                                           disc=fa.FIXED, pack=True))
     q, do = randn(4, 16, 4096, 128), randn(4, 16, 4096, 128)
     k, v = randn(4, 4, 4096, 128), randn(4, 4, 4096, 128)
     o, lse = fa._fwd(q, k, v, True, scale, 0)
