@@ -96,10 +96,23 @@ width, with random weights from a seed:
     cache: count 0 with O and LSE
     bit-equal to the unguarded kernel on bounded inputs, 1 on the JAX
     test's crafted row, plain's count on q x 60, timed beside the
-    unguarded kernel.
+    unguarded kernel;
+  - the stage probes and the paged gather's probe options, each its own
+    path with the counters at 0 before it: benchmarks/profile_attention.py's
+    breakdown at its shape (1 x 16/4 heads x 4096 x 128 bf16, non-causal,
+    block_q = block_k = 512): the copy, qk, pv and softmax-chain probes
+    and qk_kt, each against its plain version, timed beside it and its
+    bound, and kernel 1 stable and stable=False at the same shape, with
+    the sum of the stages against the fused kernel; run_all.py's probe
+    rungs (qk and pv at d64, qk_packed at d64, the stream copy at 8192 x
+    4096 f32 beside torch's x + 1); the chain's exp2 count in the SASS;
+    then ab_paged_int8.py's slots 2, 3 and 4 over its int8 and bf16 pools
+    (each depth bit-equal to slots 2) and copy_only (bit-equal to its plain
+    version), timed beside kernel 10.
 Every phase raises on failure, so the script exits non-zero if any check
-fails. It needs one card and prints no result without CUDA. Its last line
-is one JSON object:
+fails. It needs one card, checks first that the card answers
+(utils.health.device_healthcheck), and prints no result without CUDA. Its
+last line is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 One more training step, a speculative round and decode steps over each
 cache run under torch.profiler: device time by kind is printed.
@@ -1164,6 +1177,7 @@ def _counters():
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
     from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+    from flashattention_kernel_project_tpu_torch.ops import probes as pr
     from flashattention_kernel_project_tpu_torch.ops import quant as qt
     from flashattention_kernel_project_tpu_torch.ops import softmax as sm
     from flashattention_kernel_project_tpu_torch.ops import streaming as st
@@ -1181,7 +1195,11 @@ def _counters():
                 gemm_softmax=g.batched_matmul_softmax_epilogue,
                 softmax=sm.softmax, gemm_w8=qt.matmul_int8_weights,
                 gemm_w8_fp8=qt.matmul_fp8_weights, gemm_i8=qt.matmul_int8,
-                streaming_decode=st.streaming_decode)
+                streaming_decode=st.streaming_decode, probe_copy=pr.copy_probe,
+                probe_qk=pr.qk_probe, probe_pv=pr.pv_probe,
+                probe_chain=pr.softmax_chain_probe, probe_qk_kt=pr.qk_kt_probe,
+                probe_qk_packed=pr.qk_packed_probe,
+                probe_stream_copy=pr.stream_copy_probe)
 
 
 # the counters a wrapper keeps beside `.launches` (its online launches, or
@@ -1190,7 +1208,8 @@ COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
                      hybrid="hybrid_launches", packed="packed_launches",
                      resident="resident_launches", fallback="fallback_launches",
                      mxu="mxu_launches", q_int8="q_int8_launches",
-                     guard="guard_launches")
+                     guard="guard_launches", slots="slots_launches",
+                     copy_only="copy_only_launches")
 
 
 def reset_counters():
@@ -3852,6 +3871,436 @@ def phase_guard(device, label, shapes=GUARD):
     return entry
 
 
+# the stage probes (kernels 22-23) and the paged gather's probe options:
+# their path is benchmarks/profile_attention.py's stage breakdown, the probe
+# rungs of run_all.py and ab_paged_int8.py's slots and copy_only runs
+PROFILE = (1, 16, 4, 4096, 128)  # profile_attention.py:42's B, H, HKV, N, D
+PROBE_BLOCKS = dict(block_q=512, block_k=512)  # its default blocks
+SUM_ORDER_TOL = 1e-5  # qk, pv, packed: rel-L2, sums taken in another order
+EXACT_RTOL = 1e-6     # copy, chain: the plain version's sums in its order
+MUFU_PER_SM_CLK = 16  # exp2 results a clock an SM (compute capability 9.0)
+AB_PAGED = dict(b=8, hq=16, hkv=4, d=128, page=128, s=8192)  # ab_paged_int8.py:45-57
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def sass_counts(obj: str, kernel: str, opcodes) -> dict:
+    """How often each SASS opcode occurs in the instance `kernel` (a mangled
+    name's fragment) of an object file, from cuobjdump beside nvcc; raises
+    where the toolkit has no cuobjdump, since the count is a gate."""
+    import subprocess
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the probes' "
+                             "SASS gate cannot run")
+    sass = subprocess.run([tool, "-sass", obj], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    for section in sass.split("Function : ")[1:]:
+        if kernel in section.split("\n", 1)[0]:
+            return {op: section.count(op) for op in opcodes}
+    raise AssertionError(f"no instance {kernel} in {obj}")
+
+
+def _probe_entry(name, replaces, launches, **times):
+    return dict(name=name, route="cuda", source=f"{PKG}/csrc/probes.cu",
+                replaces=f"{TPU}/probes.py:{replaces}", launches=launches,
+                library_ms=None, **times)
+
+
+def phase_probes(device, label):
+    """The stage probes through the ops API, its own path with every launch
+    counter at 0 before it: benchmarks/profile_attention.py's breakdown at
+    its shape (1 x 16/4 heads x 4096 x 128 bf16, non-causal, block_q =
+    block_k = 512, numpy seed 0): copy, qk, pv and the softmax chain, qk_kt
+    beside qk, and kernel 1 at the same shape, stable and stable=False; then
+    run_all.py's probe rungs: qk and pv at d64, qk_packed at d64 and the
+    stream copy at 8192 x 4096 f32 (and bf16). Each launch counted, each
+    output held against its plain version (copy and chain within 1e-6, the
+    products' rel-L2 within 1e-5, the stream copy bit for bit), each probe
+    timed beside it (CUDA graphs, in turns) and its bound; the chain's
+    exp2 count checked in the SASS. Prints the sum of the stages against the
+    fused kernel. Returns the JSON entries."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+    from flashattention_kernel_project_tpu_torch.ops import probes as pr
+    from flashattention_kernel_project_tpu_torch.ops import _build
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    B, H, HKV, N, D = PROFILE
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(device).bfloat16()
+               for shape in ((B, H, N, D), (B, HKV, N, D), (B, HKV, N, D)))
+    gen = torch.Generator(device=device).manual_seed(42)
+    q64, k64, v64 = (torch.randn(*shape, generator=gen, device=device).bfloat16()
+                     for shape in ((B, H, N, 64), (B, HKV, N, 64), (B, HKV, N, 64)))
+    x = torch.randn(8192, 4096, generator=gen, device=device)
+    stages = dict(copy=pr.copy_probe, qk=pr.qk_probe, pv=pr.pv_probe,
+                  chain=pr.softmax_chain_probe)
+    torch.cuda.synchronize()
+    reset_counters()
+    out = {name: fn(q, k, v, **PROBE_BLOCKS) for name, fn in stages.items()}
+    out["qk_kt"] = pr.qk_kt_probe(q, k, v, **PROBE_BLOCKS)
+    fa.flash_attention(q, k, v, causal=False)
+    fa.flash_attention(q, k, v, causal=False, stable=False)
+    out["qk64"] = pr.qk_probe(q64, k64, v64)
+    out["pv64"] = pr.pv_probe(q64, k64, v64)
+    out["packed64"] = pr.qk_packed_probe(q64, k64)
+    out["stream"] = pr.stream_copy_probe(x)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = dict(probe_copy=1, probe_qk=2, probe_pv=2, probe_chain=1,
+                probe_qk_kt=1, probe_qk_packed=1, probe_stream_copy=1,
+                flash_fwd=1, **{"flash_fwd/fixed": 1})
+    got = {name: launches[name] for name in want}
+    log(f"probes: launches {got} on the profiling path [{label}]")
+    if got != want:
+        raise AssertionError(f"probes: launches {got}, want {want}")
+
+    # each output against its plain version
+    block_k = PROBE_BLOCKS["block_k"]
+    plain = dict(copy=lambda: pr._copy_plain(q, k, v, block_k),
+                 qk=lambda: pr._qk_plain(q, k), pv=lambda: pr._pv_plain(q, v),
+                 chain=lambda: pr._chain_plain(q, N, block_k),
+                 qk_kt=lambda: pr._qk_plain(q, k),
+                 qk64=lambda: pr._qk_plain(q64, k64),
+                 pv64=lambda: pr._pv_plain(q64, v64),
+                 packed64=lambda: pr._packed_plain(q64, k64),
+                 stream=lambda: x + 1)
+    errs = {}
+    for name, fn in plain.items():
+        want_o = fn()
+        got_o = out[name]
+        if got_o.shape != want_o.shape or not torch.isfinite(got_o).all():
+            raise AssertionError(f"probe {name}: shape {tuple(got_o.shape)}, "
+                                 f"want {tuple(want_o.shape)}, or not finite")
+        max_abs = float((got_o.float() - want_o.float()).abs().max())
+        if name == "stream":
+            ok, err = torch.equal(got_o, want_o), max_abs
+        elif name in ("copy", "chain"):
+            err = float(((got_o - want_o).abs() / want_o.abs().clamp_min(1e-30)).max())
+            ok = err <= EXACT_RTOL
+        else:
+            err = _rel_l2(got_o, want_o)
+            ok = err <= SUM_ORDER_TOL
+        errs[name] = (err, max_abs)
+        log(f"probe {name}: {'rel err' if name in ('copy', 'chain') else 'rel-L2'} "
+            f"{err:.3e} vs plain, max-abs {max_abs:.3e}")
+        if not ok:
+            raise AssertionError(f"probe {name} disagrees with its plain version: {err:.3e}")
+    xb = x.bfloat16()
+    if not torch.equal(pr.stream_copy_probe(xb), xb + 1):
+        raise AssertionError("stream_copy_probe on bf16 is not x + 1 bit for bit")
+
+    # the chain's exp2 of every score stays in the binary (a hoisted exp2
+    # would leave a handful), and the products run per tile
+    obj = os.path.join(_build.BUILD_DIR, "probes.cu.o")
+    sass = {stage: sass_counts(obj, f"probe_kernelILi128ELi{i}E",
+                               ("MUFU.EX2", "HMMA"))
+            for stage, i in (("copy", 0), ("qk", 1), ("pv", 2), ("chain", 3))}
+    log(f"probes SASS at d128 (MUFU.EX2, HMMA per instance): {sass}")
+    if (sass["chain"]["MUFU.EX2"] < 32 or sass["pv"]["HMMA"] < 64
+            or sass["qk"]["HMMA"] < 64):
+        raise AssertionError(f"a probe's stage work left its key loop: {sass}")
+
+    # times, each beside its plain version, in turns, from CUDA graphs
+    calls = dict(
+        copy=lambda: pr.copy_probe(q, k, v, **PROBE_BLOCKS),
+        qk=lambda: pr.qk_probe(q, k, v, **PROBE_BLOCKS),
+        pv=lambda: pr.pv_probe(q, k, v, **PROBE_BLOCKS),
+        chain=lambda: pr.softmax_chain_probe(q, k, v, **PROBE_BLOCKS),
+        qk_kt=lambda: pr.qk_kt_probe(q, k, v, **PROBE_BLOCKS),
+        qk64=lambda: pr.qk_probe(q64, k64, v64),
+        pv64=lambda: pr.pv_probe(q64, k64, v64),
+        packed64=lambda: pr.qk_packed_probe(q64, k64),
+        stream=lambda: pr.stream_copy_probe(x))
+    ms = {name: time_pair(calls[name], plain[name], device) for name in calls}
+    fused = dict(stable=lambda: fa.flash_attention(q, k, v, causal=False),
+                 fixed=lambda: fa.flash_attention(q, k, v, causal=False, stable=False))
+    fused_ms = {name: [] for name in fused}
+    for order in (list(fused), list(fused)[::-1]):
+        for name in order:
+            fused_ms[name].append(time_ms(fused[name], device, graph=True))
+    fused_ms = {name: min(t) for name, t in fused_ms.items()}
+    stream_lib_ms = time_ms(lambda: x + 1, device, graph=True)
+    # the chain's output is l / (l + 1e-6) whatever work it does, so its
+    # time must grow with the keys: half of them must take well under the
+    # whole's time
+    k_half, v_half = (t[:, :, :N // 2].contiguous() for t in (k, v))
+    half_ms = time_ms(lambda: pr.softmax_chain_probe(q, k_half, v_half,
+                                                     **PROBE_BLOCKS),
+                      device, graph=True)
+    log(f"probe chain: {N // 2} keys {half_ms:.4f} ms vs {N} keys "
+        f"{ms['chain'][0]:.4f} ms, x{ms['chain'][0] / half_ms:.2f} (gate 1.5)")
+    if not ms["chain"][0] >= 1.5 * half_ms:
+        raise AssertionError(f"the chain's time does not grow with its keys: "
+                             f"{half_ms:.4f} ms at {N // 2}, {ms['chain'][0]:.4f} "
+                             f"ms at {N}")
+
+    # bounds, over the bytes each function reads: copy K and V; qk q and K;
+    # pv q's first column and V; the chain q's first column
+    flops = 2 * B * H * N * N * D
+    flops64 = 2 * B * H * N * N * 64
+    q_col = B * H * N * q.element_size()
+    exp2 = B * H * N * (N + N // 64)  # every score, and each tile's rescale
+    clock = max_sm_clock_hz()
+    t_exp = exp2 / (MUFU_PER_SM_CLK * platform.H100_SMS * clock) * 1e3
+    chain_bytes = bound(0, q_col + nbytes(out["chain"]))
+    chain_bnd = dict(bound_ms=max(t_exp, chain_bytes["bound_ms"]),
+                     bound_by="operations" if t_exp >= chain_bytes["bound_ms"] else "bytes")
+    bnd = dict(copy=bound(0, nbytes(k, v, out["copy"])),
+               qk=bound(flops, nbytes(q, k, out["qk"])),
+               pv=bound(flops, q_col + nbytes(v, out["pv"])),
+               chain=chain_bnd,
+               qk_kt=bound(flops, nbytes(q, k, out["qk_kt"])),
+               qk64=bound(flops64, nbytes(q64, k64, out["qk64"])),
+               pv64=bound(flops64, q_col + nbytes(v64, out["pv64"])),
+               packed64=bound(flops64, nbytes(q64, k64, out["packed64"])),
+               stream=bound(0, 2 * nbytes(x)))
+    shape = f"{B}x{H}/{HKV}x{N}x{D} bf16, block_q 512, block_k 512"
+    shape64 = f"{B}x{H}/{HKV}x{N}x64 bf16"
+    tiles_bytes = (N // 64) * B * H * N * D * 2 * 2  # K and V once a query tile
+    for name in calls:
+        k_ms, p_ms = ms[name]
+        extra = ""
+        if name == "copy":
+            extra = (f" | the tiles' traffic {tiles_bytes / k_ms / 1e6:.1f} GB/s "
+                     f"(K and V once a 64-row query tile, mostly from L2); K "
+                     f"and V once from HBM {nbytes(k, v) / 3.35e12 * 1e3:.4f} ms")
+        if name == "chain":
+            extra = (f" | {exp2} exp2 at {MUFU_PER_SM_CLK}/clock/SM x "
+                     f"{platform.H100_SMS} SMs x {clock / 1e6:.0f} MHz: {t_exp:.4f} ms")
+        if name == "stream":
+            extra = f" | x + 1 in torch {stream_lib_ms:.4f} ms"
+        b_ = bnd[name]
+        where = dict(stream="8192x4096 f32").get(
+            name, shape64 if name.endswith("64") else shape)
+        log(f"probe {name} ({where}): "
+            f"kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms | bound "
+            f"{b_['bound_ms']:.4f} ms ({b_['bound_by']}), "
+            f"{b_['bound_ms'] / k_ms:.1%} of it{extra} [{label}]")
+    serial = sum(ms[name][0] for name in stages)
+    log(f"stage breakdown ({shape}, profile_attention.py:50-89): copy "
+        f"{ms['copy'][0]:.4f} ms, qk {ms['qk'][0]:.4f}, pv {ms['pv'][0]:.4f}, "
+        f"softmax chain {ms['chain'][0]:.4f}; qk_kt {ms['qk_kt'][0]:.4f}; fused "
+        f"full (non-causal) {fused_ms['stable']:.4f} ms "
+        f"({4 * B * H * N * N * D / fused_ms['stable'] / 1e9:.1f} TFLOP/s), "
+        f"stable=False {fused_ms['fixed']:.4f} ms "
+        f"({4 * B * H * N * N * D / fused_ms['fixed'] / 1e9:.1f} TFLOP/s) | "
+        f"sum of stages {serial:.4f} ms vs fused {fused_ms['stable']:.4f} ms -> "
+        f"overlap factor {serial / fused_ms['stable']:.2f}x [{label}]")
+
+    def times(name):
+        return dict(ms=ms[name][0], plain_ms=ms[name][1], max_abs_err=errs[name][1],
+                    **bnd[name])
+
+    entries = [
+        _probe_entry("probe_copy", 83, got["probe_copy"], shape=shape,
+                     **times("copy")),
+        _probe_entry("probe_qk", 106, got["probe_qk"], shape=shape, **times("qk"),
+                     extra={shape64: times("qk64")}),
+        _probe_entry("probe_pv", 262, got["probe_pv"], shape=shape, **times("pv"),
+                     extra={shape64: times("pv64")}),
+        _probe_entry("probe_softmax_chain", 287, got["probe_chain"], shape=shape,
+                     **times("chain")),
+        _probe_entry("probe_qk_kt", 129, got["probe_qk_kt"], shape=shape,
+                     **times("qk_kt")),
+        _probe_entry("probe_qk_packed", 184, got["probe_qk_packed"],
+                     shape=shape64 + ", block_q 256, block_k 512", **times("packed64")),
+        _probe_entry("probe_stream_copy", 360, got["probe_stream_copy"],
+                     shape="8192x4096 f32", **times("stream")),
+    ]
+    entries[-1]["library_ms"] = stream_lib_ms
+    entries[0].update(fused_ms=fused_ms["stable"], fused_fixed_ms=fused_ms["fixed"],
+                      stage_sum_ms=serial)
+    return entries
+
+
+def ragged_paged_probes(device, label):
+    """slots 3 and 4 and copy_only on ragged lengths with dead splits,
+    tests/test_paged_decode.py:385-399's case (B 2, 8/2 heads, d 64, pages
+    of 32, 8 table entries a row in shuffled order, lengths 200 and 64, so 8
+    splits of one page and row 1's last 6 dead; numpy seed 42), over a bf16
+    and an int8 pool: each depth bit-equal to slots=2 and slots=2 within
+    O_TOL of its plain version; copy_only bit-equal to its plain version."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+    from flashattention_kernel_project_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(42)
+    b, hq, hkv, d, page, n_pages, maxp = 2, 8, 2, 64, 32, 24, 8
+    q, kf, vf = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 .to(device) for shape in ((b, hq, d), (n_pages, hkv, page, d),
+                                          (n_pages, hkv, page, d)))
+    table = torch.from_numpy((rng.permutation(np.arange(1, 1 + b * maxp))
+                              .reshape(b, maxp) % n_pages).astype(np.int32)).to(device)
+    lengths = torch.tensor([200, 64], dtype=torch.int32, device=device)
+    q, kb, vb = q.bfloat16(), kf.bfloat16(), vf.bfloat16()
+    kq, ks = quant.quantize_int8(kf, axis=-1)
+    vq, vs = quant.quantize_int8(vf, axis=-1)
+    pool8 = (kq, ks.transpose(-1, -2).contiguous(), vq,
+             vs.transpose(-1, -2).contiguous())
+    pps = pd.gather_pages_per_split(b, hkv, maxp)
+    scale = d ** -0.5
+    plain = dict(
+        bf16=pd._paged_partials_plain(q, kb, vb, table, lengths, pps, scale),
+        int8=pd._paged_partials_q_plain(q, *pool8, table, lengths, pps, scale))
+    runs = dict(bf16=lambda n: pd.paged_flash_decode(q, kb, vb, table, lengths,
+                                                     slots=n),
+                int8=lambda n: pd.paged_flash_decode_quant(q, *pool8, table,
+                                                           lengths, slots=n))
+    same, errs = {}, {}
+    for pool, run in runs.items():
+        outs = {n: run(n) for n in (2, 3, 4)}
+        same.update({f"{pool}/slots{n}": torch.equal(outs[n], outs[2])
+                     for n in (3, 4)})
+        errs[pool] = _rel_l2(outs[2], fd.merge_partials(*plain[pool])
+                             .reshape(b, hq, d))
+    copy = pd.paged_flash_decode(q, kb, vb, table, lengths, copy_only=True)
+    copy_ok = torch.equal(copy, pd._paged_copy_only_plain(
+        q, kb, vb, table, lengths, pps).to(q.dtype))
+    log(f"paged probes, ragged (lengths [200, 64], {-(-maxp // pps)} splits of "
+        f"{pps} page, row 1's last {maxp - 2} dead): bit-equal to slots=2 "
+        f"{same}; slots=2 rel-L2 vs plain {errs}; copy_only equal to its plain "
+        f"version {copy_ok} [{label}]")
+    if not all(same.values()) or not copy_ok or not max(errs.values()) <= O_TOL:
+        raise AssertionError("the paged gather's probe options failed on "
+                             "ragged lengths")
+
+
+def phase_paged_probes(device, label, shape=AB_PAGED):
+    """The paged gather's probe options at ab_paged_int8.py's shape (B 8,
+    16/4 heads, d 128, pages of 128, 8192 keys a row, every length 8192,
+    seed 42; the int8 pool as it builds it: clip(x * 30) with scales 1/30),
+    its own path with the counters at 0 before it: slots 2, 3 and 4 over the
+    int8 and the bf16 pool, and copy_only over the bf16 pool. Each depth
+    must equal slots=2 bit for bit (and q_int8=True at slots 4 its own
+    slots=2), slots=2 its plain version within O_TOL, copy_only its plain
+    version bit for bit; each timed (CUDA graphs) with the live K/V rate,
+    copy_only as the gather's byte floor beside kernel 10. Returns the JSON
+    entries of the slots instances (bf16, 8-bit) and of copy_only."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    b, hq, hkv, d, page, s = (shape[x] for x in ("b", "hq", "hkv", "d", "page", "s"))
+    maxp = s // page
+    n_pages = b * maxp + 1
+    gen = torch.Generator(device=device).manual_seed(42)
+    q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+    kf = torch.randn(n_pages, hkv, page, d, generator=gen, device=device)
+    vf = torch.randn(n_pages, hkv, page, d, generator=gen, device=device)
+    kq, vq = ((x * 30).clamp(-127, 127).to(torch.int8) for x in (kf, vf))
+    ks = torch.full((n_pages, hkv, 1, page), 1 / 30.0, device=device)
+    vs = ks.clone()
+    kb, vb = kf.bfloat16(), vf.bfloat16()
+    del kf, vf
+    table = torch.arange(1, 1 + b * maxp, dtype=torch.int32,
+                         device=device).reshape(b, maxp)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=device)
+    pool8 = (kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    reset_counters()
+    outs8 = {n: pd.paged_flash_decode_quant(q, *pool8, table, lengths, slots=n)
+             for n in (2, 3, 4)}
+    outs16 = {n: pd.paged_flash_decode(q, kb, vb, table, lengths, slots=n)
+              for n in (2, 3, 4)}
+    copy = pd.paged_flash_decode(q, kb, vb, table, lengths, copy_only=True)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = {"paged_decode": 3, "paged_decode/slots": 2,
+            "paged_decode/copy_only": 1, "paged_decode_q": 3,
+            "paged_decode_q/slots": 2}
+    got = {name: launches[name] for name in want}
+    log(f"paged probes: launches {got} on ab_paged_int8.py's path [{label}]")
+    if got != want:
+        raise AssertionError(f"paged probes: launches {got}, want {want}")
+
+    pps = pd.gather_pages_per_split(b, hkv, maxp)
+    scale = d ** -0.5
+    args8 = (q, *pool8, table, lengths, pps, scale)
+    args16 = (q, kb, vb, table, lengths, pps, scale)
+    po8 = fd.merge_partials(*pd._paged_partials_q_plain(*args8)).reshape(b, hq, d)
+    po16 = fd.merge_partials(*pd._paged_partials_plain(*args16)).reshape(b, hq, d)
+    qi8 = {n: pd.paged_flash_decode_quant(q, *pool8, table, lengths, slots=n,
+                                          q_int8=True) for n in (2, 4)}
+    same = {f"{pool}/slots{n}": torch.equal(outs[n], outs[2])
+            for pool, outs in (("int8", outs8), ("bf16", outs16)) for n in (3, 4)}
+    same["int8 q_int8/slots4"] = torch.equal(qi8[4], qi8[2])
+    errs = dict(int8=_rel_l2(outs8[2], po8), bf16=_rel_l2(outs16[2], po16))
+    copy_plain = pd._paged_copy_only_plain(q, kb, vb, table, lengths, pps).to(q.dtype)
+    log(f"paged probes: bit-equal to slots=2 {same}; slots=2 rel-L2 vs plain "
+        f"{errs}; copy_only equal to its plain version "
+        f"{torch.equal(copy, copy_plain)} [{label}]")
+    if not all(same.values()) or not torch.equal(copy, copy_plain) or not (
+            max(errs.values()) <= O_TOL):
+        raise AssertionError("the paged gather's probe options failed")
+    ragged_paged_probes(device, label)
+
+    live = b * s
+    bytes16 = 2 * live * hkv * d * 2
+    bytes8 = bytes_8bit(live, hkv, d)
+    io = nbytes(q, outs16[2], table, lengths)
+    ms8 = {n: time_ms(lambda n=n: pd._paged_partials_q_cuda(*args8, slots=n),
+                      device, iters=50, graph=True) for n in (2, 3, 4)}
+    ms16 = {n: time_ms(lambda n=n: pd._paged_partials_cuda(*args16, slots=n),
+                       device, iters=50, graph=True) for n in (2, 3, 4)}
+    copy_ms = time_ms(lambda: pd._paged_partials_cuda(*args16, copy_only=True),
+                      device, iters=50, graph=True)
+    plain8_ms = time_ms(lambda: pd._paged_partials_q_plain(*args8), device,
+                        iters=5, graph=True)
+    plain16_ms = time_ms(lambda: pd._paged_partials_plain(*args16), device,
+                         iters=5, graph=True)
+    copy_plain_ms = time_ms(lambda: pd._paged_copy_only_plain(*args16[:6]),
+                            device, iters=5, graph=True)
+    bnd16 = bound(4 * live * hq * d, io + bytes16)
+    bnd8 = bound(4 * live * hq * d, io + bytes8)
+    bndc = bound(0, io + bytes16)
+    geo = (f"b{b} hq{hq} hkv{hkv} d{d} page{page} {maxp} pages a row, every "
+           f"length {s} ({-(-maxp // pps)} splits of {pps} pages)")
+    for pool, t, nb, bd in (("int8", ms8, bytes8, bnd8), ("bf16", ms16, bytes16, bnd16)):
+        log(f"paged gather {pool} {geo}: " + ", ".join(
+            f"slots={n} {t[n]:.4f} ms ({nb / t[n] / 1e6:.1f} GB/s of live K/V)"
+            for n in (2, 3, 4))
+            + f" | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{label}]")
+    log(f"paged gather copy_only (bf16) {geo}: {copy_ms:.4f} ms "
+        f"({bytes16 / copy_ms / 1e6:.1f} GB/s of live K/V), the byte floor "
+        f"beside kernel 10's {ms16[2]:.4f} ms ({copy_ms / ms16[2]:.1%}); plain "
+        f"{copy_plain_ms:.4f} ms | bound {bndc['bound_ms']:.4f} ms [{label}]")
+    src = f"{PKG}/csrc/paged_decode.cu"
+    slots16 = dict(name="paged_decode_slots", route="cuda", source=src,
+                   replaces=f"{TPU}/paged_decode.py:124", shape=geo + " slots 4",
+                   launches=got["paged_decode/slots"], max_abs_err=0.0,
+                   ms=ms16[4], plain_ms=plain16_ms, library_ms=None,
+                   slots_ms={str(n): ms16[n] for n in (2, 3, 4)}, **bnd16)
+    slots8 = dict(name="paged_decode_q_slots", route="cuda", source=src,
+                  replaces=f"{TPU}/paged_decode.py:832", shape=geo + " int8 slots 4",
+                  launches=got["paged_decode_q/slots"], max_abs_err=0.0,
+                  ms=ms8[4], plain_ms=plain8_ms, library_ms=None,
+                  slots_ms={str(n): ms8[n] for n in (2, 3, 4)}, **bnd8)
+    copy_entry = dict(name="paged_decode_copy_only", route="cuda", source=src,
+                      replaces=f"{TPU}/paged_decode.py:203", shape=geo,
+                      launches=got["paged_decode/copy_only"], max_abs_err=0.0,
+                      ms=copy_ms, plain_ms=copy_plain_ms, library_ms=None,
+                      decode_ms=ms16[2], **bndc)
+    return slots16, slots8, copy_entry
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside chip_smoke.py: run it from a checkout "
@@ -3868,7 +4317,14 @@ def main() -> int:
     from flashattention_kernel_project_tpu_torch.ops import _build
     from flashattention_kernel_project_tpu_torch.utils import platform
 
-    # 1. device
+    # 1. device: alive, a Hopper card
+    from flashattention_kernel_project_tpu_torch.utils import health
+
+    alive = health.device_healthcheck()
+    log(f"device healthcheck: {alive}")
+    if not alive["ok"]:
+        print(f"the device failed its healthcheck: {alive}", file=sys.stderr)
+        return 3
     name = platform.require_hopper()
     label = platform.card_label()
     log(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3976,6 +4432,11 @@ def main() -> int:
     # each its own path with the counters at 0 before it
     mxu, qi8 = phase_int8_products(device, label)
     guard = phase_guard(device, label)
+    # the stage probes (profile_attention.py's breakdown, run_all.py's probe
+    # rungs) and the paged gather's slots and copy_only (ab_paged_int8.py),
+    # each its own path with the counters at 0 before it
+    probes = phase_probes(device, label)
+    paged_probes = phase_paged_probes(device, label)
 
     # 3. the serving slices at the serving configuration: the default
     # Scheduler, the paged one (a page pool, a shared 384-token system
@@ -4148,7 +4609,8 @@ def main() -> int:
                                   win_dec_q, win_ragged, win_ragged_q,
                                   *win_bwd, fix_fwd, win_fix, hyb_fwd,
                                   hyb_fwd64, packed, fix_ragged, fix_ragged_q,
-                                  fwd_q, *ladder, mxu, qi8, guard]}),
+                                  fwd_q, *ladder, mxu, qi8, guard, *probes,
+                                  *paged_probes]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

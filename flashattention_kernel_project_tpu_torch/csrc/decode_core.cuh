@@ -50,6 +50,20 @@
 // score in natural-log units, so the partials merge as the others do. K is
 // never widened. It is a template switch, not a runtime branch in the key
 // loop (a runtime term there cost the forward about a tenth).
+//
+// The depth of loads in flight is a template argument, kUnroll (keys a
+// group loads before it computes on them; 4 by default). The paged decode's
+// `slots`, the depth of the TPU gather's DMA ring, picks it (slots - 1 sets
+// of 4 keys; paged_decode.cu). The loop visits key base + u * kGroups +
+// grp, so each group sees the same keys in the same order at any depth,
+// and the output is bit-equal across depths by construction.
+//
+// kCopyOnly (the paged decode's copy_only probe, bf16): the same key loop's
+// loads, and no score or PV math. The split's partials are then the JAX
+// probe's: y[g] = k + v in f32 at the split's first key row start + g (read
+// whole, as the TPU's buffer held whole pages), m = 0, and l the bits of
+// the XOR of every word the block loaded, which keeps the loads in the
+// binary.
 
 #pragma once
 
@@ -67,8 +81,7 @@ constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kVec = 8;     // bf16 per 16-byte load
-constexpr int kUnroll = 4;  // keys per group in flight
+constexpr int kVec = 8;  // bf16 per 16-byte load
 
 // 8 bf16 (one 16-byte load) widened to f32
 __device__ __forceinline__ void unpack8(const uint4& r, float* f) {
@@ -168,8 +181,10 @@ __device__ __forceinline__ void window_ranges(int start, int end, int len,
 // [start1, end1) (disjoint; either may be empty) into m_p[G], l_p[G],
 // y_p[G, D]. Call from every thread of a kThreads block; the bounds must
 // be uniform across it. kQInt8 (T = int8_t): the int8 score product, with
-// sm_scale the log2-domain scale sm_scale * log2(e).
-template <int D, int G, class T, class Rows, bool kQInt8 = false>
+// sm_scale the log2-domain scale sm_scale * log2(e). kUnroll: keys a group
+// has in flight. kCopyOnly (T = bf16, one range): the copy probe's partials.
+template <int D, int G, class T, class Rows, bool kQInt8 = false,
+          int kUnroll = 4, bool kCopyOnly = false>
 __device__ __forceinline__ void decode_partials(
     const __nv_bfloat16* __restrict__ q_g, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ k_scale,
@@ -179,6 +194,7 @@ __device__ __forceinline__ void decode_partials(
   constexpr bool kQuant = sizeof(T) == 1;
   static_assert(!kQInt8 || std::is_same<T, int8_t>::value,
                 "the int8 score product needs an int8 cache");
+  static_assert(!kCopyOnly || (!kQuant && !kQInt8), "copy_only is bf16");
   constexpr int kWords = kQuant && G == 8 ? 2 : 4;  // of a key row a thread
   constexpr int kDims = kWords * fkp::Widen<T>::kPerWord;  // dims a thread holds
   constexpr int kTpk = D / kDims;                     // threads per key
@@ -239,6 +255,8 @@ __device__ __forceinline__ void decode_partials(
     for (int i = 0; i < kDims; ++i) acc[gi][i] = 0.f;
   }
 
+  [[maybe_unused]] uint32_t loaded = 0u;  // kCopyOnly: the loads' XOR
+
   // `base` and the range's end are uniform across the block, so every lane
   // runs every iteration and the shuffles below see full warps
 #pragma unroll 1
@@ -264,6 +282,16 @@ __device__ __forceinline__ void decode_partials(
             vs[u] = v_scale[so];
           }
         }
+      }
+      if constexpr (kCopyOnly) {  // no math: fold the loaded words
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const uint32_t* kw = reinterpret_cast<const uint32_t*>(&kr[u]);
+          const uint32_t* vw = reinterpret_cast<const uint32_t*>(&vr[u]);
+#pragma unroll
+          for (int w = 0; w < kWords; ++w) loaded ^= kw[w] ^ vw[w];
+        }
+        continue;
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -310,6 +338,29 @@ __device__ __forceinline__ void decode_partials(
         }
       }
     }
+  }
+
+  if constexpr (kCopyOnly) {
+    __shared__ uint32_t sh_loaded;
+    if (threadIdx.x == 0) sh_loaded = 0u;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      loaded ^= __shfl_xor_sync(0xffffffffu, loaded, off);
+    }
+    __syncthreads();
+    if (lane == 0) atomicXor(&sh_loaded, loaded);
+    // the split's first key rows, whole (start + g lies in the split's first
+    // page, past the length or not)
+    for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
+      const size_t off = rows.offset(start + idx / D) + idx % D;
+      y_p[idx] = __bfloat162float(k[off]) + __bfloat162float(v[off]);
+    }
+    __syncthreads();
+    if (threadIdx.x < G) {
+      m_p[threadIdx.x] = 0.f;
+      l_p[threadIdx.x] = __uint_as_float(sh_loaded);
+    }
+    return;
   }
 
   // merge the groups' states; a group that saw no key holds (NEG_INF, 0, 0)

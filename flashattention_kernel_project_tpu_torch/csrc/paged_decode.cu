@@ -17,6 +17,21 @@
 // only with gather=True over an int8 pool) replaces _paged_gather_kernel_q's
 // q_int8 branch (paged_decode.py:915-928).
 //
+// The gather's probe options (paged_decode.py:124-125, :165-210, :832,
+// :880-898): `slots`, the depth of the TPU's DMA ring (slots - 1 splits in
+// flight), is here the depth of the key loop's loads in flight (kUnroll of
+// decode_core.cuh: 4, 8 or 12 keys a group for slots 2, 3, 4), with the
+// output bit-equal at every depth; slots = 2 is the instance every other
+// path runs. copy_only (bf16, built at slots = 2 only: deeper loads do not
+// move the gather's floor) is the same gather with no score or PV math:
+// each live split gives y[g] = k + v at its first key row start + g, the
+// wrapper sums the splits, and the time is the gather's byte floor. The
+// kernels and their launcher are in paged_decode.cuh; the slots 3 and 4
+// instances compile in paged_decode_slots3.cu and paged_decode_slots4.cu,
+// beside this file. ptxas reports each depth's registers and spills in the
+// build log (the deepest spills at G = 4 over an 8-bit pool and at G = 8
+// over bf16; PERF.md).
+//
 // Each (batch row, KV head, split) block reads the page ids of its split
 // from block_tables[b] itself (the TPU had them on the scalar-prefetch
 // channel) and emits the unnormalized partials (m, l, y) of the group's G
@@ -33,93 +48,25 @@
 // linear buffer first (an XLA take) because a TPU DMA of one 512-byte scale
 // row cost more than it moved.
 
-#include "decode_core.cuh"
+#include "paged_decode.cuh"
+
+using fkp_paged::Args;
+
+namespace fkp_paged {
+template int launch<4>(const Args&);
+}  // namespace fkp_paged
 
 namespace {
 
-using fkp_dec::kThreads;
-
-// key j of row b lives in page table[j / page], at row j % page; its
-// scales at entry j % page of the same page of the scale pool
-struct PagedRows {
-  const int* table;    // block_tables[b]
-  size_t page_stride;  // elements per page of the pool: hkv * page * d
-  int page;
-  int d;
-  __device__ __forceinline__ size_t offset(int key) const {
-    const int pid = __ldg(table + key / page);
-    return (size_t)pid * page_stride + (size_t)(key % page) * d;
+// a's launch at the depth of `slots`: slots - 1 sets of 4 keys a group in
+// flight (decode_core.cuh); cudaErrorInvalidValue for slots outside {2, 3, 4}
+int launch_slots(const Args& a, int slots) {
+  switch (slots) {
+    case 2: return fkp_paged::launch<4>(a);
+    case 3: return fkp_paged::launch<8>(a);
+    case 4: return fkp_paged::launch<12>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  // floats per page of a scale pool: page_stride / d = hkv * page
-  __device__ __forceinline__ size_t scale(int key) const {
-    const int pid = __ldg(table + key / page);
-    return (size_t)pid * (page_stride / d) + key % page;
-  }
-};
-
-// Launch bounds with a minimum of one block per SM: with the thread count
-// alone, ptxas spilled 8 bytes in the G = 2 instances.
-template <int D, int G>
-__global__ void __launch_bounds__(kThreads, 1)
-    paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k_pages,
-                        const __nv_bfloat16* __restrict__ v_pages,
-                        const int* __restrict__ block_tables,
-                        const int* __restrict__ lengths,
-                        float* __restrict__ m_out, float* __restrict__ l_out,
-                        float* __restrict__ y_out, int hkv, int page,
-                        int max_pages, int n_splits, int pages_per_split,
-                        float sm_scale) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int split = blockIdx.z;
-  // the table holds max_pages pages: keys past them are not attended
-  const int len = min(max(lengths[b], 0), max_pages * page);
-  const int span = pages_per_split * page;
-  const int start = split * span;
-  const int end = min(start + span, len);
-  const size_t part = ((size_t)b * hkv + kvh) * n_splits + split;
-  const size_t head = (size_t)kvh * page * D;  // the head's rows in a page
-  const PagedRows rows{block_tables + (size_t)b * max_pages,
-                       (size_t)hkv * page * D, page, D};
-  fkp_dec::decode_partials<D, G>(
-      q + ((size_t)b * hkv + kvh) * G * D, k_pages + head, v_pages + head,
-      nullptr, nullptr, rows, start, end, sm_scale, m_out + part * G,
-      l_out + part * G, y_out + part * G * D);
-}
-
-// the same over an 8-bit pool (T = int8_t or __nv_fp8_e4m3) with its
-// scale pools [n_pages, hkv, 1, page]; kQInt8 (int8 only): the int8 score
-// product of decode_core.cuh, sm_scale then the log2-domain scale
-template <int D, int G, class T, bool kQInt8 = false>
-__global__ void __launch_bounds__(kThreads, 1)
-    paged_decode_q_kernel(const __nv_bfloat16* __restrict__ q,
-                          const T* __restrict__ k_pages,
-                          const float* __restrict__ k_scale_pages,
-                          const T* __restrict__ v_pages,
-                          const float* __restrict__ v_scale_pages,
-                          const int* __restrict__ block_tables,
-                          const int* __restrict__ lengths,
-                          float* __restrict__ m_out, float* __restrict__ l_out,
-                          float* __restrict__ y_out, int hkv, int page,
-                          int max_pages, int n_splits, int pages_per_split,
-                          float sm_scale) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int split = blockIdx.z;
-  const int len = min(max(lengths[b], 0), max_pages * page);
-  const int span = pages_per_split * page;
-  const int start = split * span;
-  const int end = min(start + span, len);
-  const size_t part = ((size_t)b * hkv + kvh) * n_splits + split;
-  const size_t head = (size_t)kvh * page * D;
-  const size_t scale_head = (size_t)kvh * page;  // the head's scale row
-  const PagedRows rows{block_tables + (size_t)b * max_pages,
-                       (size_t)hkv * page * D, page, D};
-  fkp_dec::decode_partials<D, G, T, PagedRows, kQInt8>(
-      q + ((size_t)b * hkv + kvh) * G * D, k_pages + head, v_pages + head,
-      k_scale_pages + scale_head, v_scale_pages + scale_head, rows, start,
-      end, sm_scale, m_out + part * G, l_out + part * G, y_out + part * G * D);
 }
 
 }  // namespace
@@ -128,32 +75,28 @@ __global__ void __launch_bounds__(kThreads, 1)
 // block_tables [b, max_pages] and lengths [b] int32; m, l [b, hkv, n_splits,
 // G] and y [b, hkv, n_splits, G, d] f32, G = hq/hkv in {1, 2, 4, 8}, d in
 // {64, 128}. Split i covers table entries [i*pages_per_split,
-// (i+1)*pages_per_split). Returns cudaGetLastError() after the launch.
+// (i+1)*pages_per_split). slots in {2, 3, 4}; copy_only: the copy probe's
+// partials (decode_core.cuh), at slots = 2 only. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue without one for slots outside
+// {2, 3, 4} or copy_only with slots != 2.
 extern "C" int fkp_paged_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const void* block_tables,
                                 const void* lengths, void* m, void* l, void* y,
                                 int b, int hq, int hkv, int page, int d,
                                 int max_pages, int n_splits,
-                                int pages_per_split, float sm_scale,
-                                void* stream) {
-  const dim3 grid(b, hkv, n_splits);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fkp_dec::dispatch(d, hq / hkv, [&](auto dc, auto gc) {
-    paged_decode_kernel<decltype(dc)::value, decltype(gc)::value>
-        <<<grid, kThreads, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(q),
-            static_cast<const __nv_bfloat16*>(k_pages),
-            static_cast<const __nv_bfloat16*>(v_pages),
-            static_cast<const int*>(block_tables),
-            static_cast<const int*>(lengths), static_cast<float*>(m),
-            static_cast<float*>(l), static_cast<float*>(y), hkv, page,
-            max_pages, n_splits, pages_per_split, sm_scale);
-  });
+                                int pages_per_split, float sm_scale, int slots,
+                                int copy_only, void* stream) {
+  return launch_slots(
+      Args{q, k_pages, nullptr, v_pages, nullptr, block_tables, lengths, m, l,
+           y, b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
+           sm_scale, fkp_paged::kBf16, copy_only,
+           static_cast<cudaStream_t>(stream)},
+      slots);
 }
 
 // q [b, hq, d] bf16; k/v pages [n_pages, hkv, page, d] int8 (fp8 == 0) or
 // e4m3 (fp8 == 1) and their scale pages [n_pages, hkv, 1, page] f32, all
-// contiguous; block_tables, lengths, m, l, y and the splits as
+// contiguous; block_tables, lengths, m, l, y, the splits and slots as
 // fkp_paged_decode. Returns cudaGetLastError() after the launch.
 extern "C" int fkp_paged_decode_q(const void* q, const void* k_pages,
                                   const void* k_scale_pages,
@@ -164,23 +107,14 @@ extern "C" int fkp_paged_decode_q(const void* q, const void* k_pages,
                                   void* y, int b, int hq, int hkv, int page,
                                   int d, int max_pages, int n_splits,
                                   int pages_per_split, float sm_scale, int fp8,
-                                  void* stream) {
-  const dim3 grid(b, hkv, n_splits);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fkp_dec::dispatch_8bit(d, hq / hkv, fp8, [&](auto dc, auto gc, auto tc) {
-    using T = typename decltype(tc)::type;
-    paged_decode_q_kernel<decltype(dc)::value, decltype(gc)::value, T>
-        <<<grid, kThreads, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(q),
-            static_cast<const T*>(k_pages),
-            static_cast<const float*>(k_scale_pages),
-            static_cast<const T*>(v_pages),
-            static_cast<const float*>(v_scale_pages),
-            static_cast<const int*>(block_tables),
-            static_cast<const int*>(lengths), static_cast<float*>(m),
-            static_cast<float*>(l), static_cast<float*>(y), hkv, page,
-            max_pages, n_splits, pages_per_split, sm_scale);
-  });
+                                  int slots, void* stream) {
+  return launch_slots(
+      Args{q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
+           lengths, m, l, y, b, hq, hkv, page, d, max_pages, n_splits,
+           pages_per_split, sm_scale,
+           fp8 ? fkp_paged::kFp8 : fkp_paged::kInt8, 0,
+           static_cast<cudaStream_t>(stream)},
+      slots);
 }
 
 // paged_flash_decode_quant(q_int8=True) over an int8 pool: arguments as
@@ -197,20 +131,11 @@ extern "C" int fkp_paged_decode_qi8(const void* q, const void* k_pages,
                                     void* y, int b, int hq, int hkv, int page,
                                     int d, int max_pages, int n_splits,
                                     int pages_per_split, float scale_log2,
-                                    void* stream) {
-  const dim3 grid(b, hkv, n_splits);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fkp_dec::dispatch(d, hq / hkv, [&](auto dc, auto gc) {
-    paged_decode_q_kernel<decltype(dc)::value, decltype(gc)::value, int8_t,
-                          true><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const int8_t*>(k_pages),
-        static_cast<const float*>(k_scale_pages),
-        static_cast<const int8_t*>(v_pages),
-        static_cast<const float*>(v_scale_pages),
-        static_cast<const int*>(block_tables),
-        static_cast<const int*>(lengths), static_cast<float*>(m),
-        static_cast<float*>(l), static_cast<float*>(y), hkv, page, max_pages,
-        n_splits, pages_per_split, scale_log2);
-  });
+                                    int slots, void* stream) {
+  return launch_slots(
+      Args{q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
+           lengths, m, l, y, b, hq, hkv, page, d, max_pages, n_splits,
+           pages_per_split, scale_log2, fkp_paged::kQInt8, 0,
+           static_cast<cudaStream_t>(stream)},
+      slots);
 }

@@ -1,5 +1,8 @@
 """The GQA decoder, its training step, checkpoints, the KV-cache engine
-and the serving scheduler."""
+and the serving scheduler. Every public name of the JAX package's `models`
+is here, apart from MoE (`MoEConfig`, `init_moe_params`, `moe_ffn`, the
+`moe` module; ROADMAP A.10a) and the mesh shardings (`param_shardings`,
+`moe_param_shardings`, `make_ep_moe`; ROADMAP A.9), not yet ported."""
 
 from flashattention_kernel_project_tpu_torch.models import (  # noqa: F401
     checkpoint,
@@ -12,7 +15,29 @@ from flashattention_kernel_project_tpu_torch.models.checkpoint import (  # noqa:
     restore_checkpoint,
     save_checkpoint,
 )
+from flashattention_kernel_project_tpu_torch.models.engine import (  # noqa: F401
+    KVCache,
+    decode_step,
+    decode_step_paged,
+    decode_steps,
+    extend,
+    fuse_decode_params,
+    generate,
+    init_cache,
+    init_paged_cache,
+    paged_insert,
+    prefill,
+    quantize_decode_params,
+    speculative_accept,
+    speculative_generate,
+)
 from flashattention_kernel_project_tpu_torch.models.transformer import (  # noqa: F401
+    TransformerConfig,
+    apply_rope,
+    forward,
+    init_params,
     loss_fn,
+    rms_norm,
+    rope_tables,
     sgd_train_step,
 )

@@ -18,6 +18,7 @@ from flashattention_kernel_project_tpu_torch.ops import (  # noqa: F401
     flash_decode,
     gemm,
     paged_decode,
+    probes,
     quant,
     softmax,
     streaming,
@@ -31,9 +32,15 @@ from flashattention_kernel_project_tpu_torch.ops.gemm import (  # noqa: F401
     matmul_xla,
 )
 from flashattention_kernel_project_tpu_torch.ops.quant import (  # noqa: F401
+    dequantize_fp8,
+    dequantize_int8,
     matmul_fp8_weights,
     matmul_int8,
     matmul_int8_weights,
+    quantize_fp8,
+    quantize_fp8_weights,
+    quantize_int8,
+    quantize_kv,
 )
 from flashattention_kernel_project_tpu_torch.ops.streaming import (  # noqa: F401
     streaming_decode,
@@ -49,5 +56,23 @@ from flashattention_kernel_project_tpu_torch.ops.softmax import (  # noqa: F401
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_kv_quant,
     flash_attention_kv_quant_with_lse,
+    flash_attention_ragged,
+    flash_attention_ragged_kv_quant,
+    flash_attention_with_lse,
     k_max_norm,
+)
+from flashattention_kernel_project_tpu_torch.ops.flash_decode import (  # noqa: F401
+    flash_decode_fp8,
+    flash_decode_int8,
+    merge_partials,
+)
+from flashattention_kernel_project_tpu_torch.ops.paged_decode import (  # noqa: F401
+    PagePool,
+    paged_append,
+    paged_append_chunk,
+    paged_append_chunk_quant,
+    paged_append_quant,
+    paged_flash_decode,
+    paged_flash_decode_quant,
+    paged_flash_extend,
 )

@@ -21,6 +21,13 @@ kernels are the 8-bit ones of the same two sources, and its plain
 versions (`_paged_partials_q_plain`, `_paged_extend_q_plain`) dequantize
 the gathered rows.
 
+The gather schedule's two probe options follow JAX's: `slots` (the
+depth of the TPU gather's DMA ring) sets how many keys each thread group of
+the kernel has in flight, with the output bit-equal at every depth;
+`copy_only` runs the same gather with no attention math
+(`_paged_copy_only_plain` on a CPU tensor), at slots=2 only. The plain
+versions accept any slots >= 2 and ignore it.
+
 The pool and the tables are updated in place (`paged_append`,
 `paged_append_chunk` and their 8-bit forms, which quantize each token once
 as they write it), where the JAX package returns new arrays.
@@ -58,6 +65,18 @@ from flashattention_kernel_project_tpu_torch.ops.softmax import _LOG2E
 from flashattention_kernel_project_tpu_torch.utils.platform import H100_SMS
 
 _MAX_PAGE = 128  # the kernel takes pages of 16, 32, ..., 128 rows
+_KERNEL_SLOTS = (2, 3, 4)  # the gather depths the kernel is built for
+
+
+def _check_slots(slots: int, device: torch.device,
+                 copy_only: bool = False) -> None:
+    if slots < 2:
+        raise ValueError(f"slots={slots}: the gather needs at least 2")
+    if copy_only and slots != 2:
+        raise ValueError(f"copy_only runs at slots=2 only, got slots={slots}")
+    if device.type == "cuda" and slots not in _KERNEL_SLOTS:
+        raise ValueError(f"the CUDA paged decode takes slots in {_KERNEL_SLOTS}, "
+                         f"got {slots}")
 
 
 def gather_pages_per_split(batch: int, kv_heads: int, max_pages: int) -> int:
@@ -108,11 +127,33 @@ def _paged_partials_plain(q, k_pages, v_pages, block_table, lengths,
         pages_per_split * page, sm_scale)
 
 
+def _paged_copy_only_plain(q, k_pages, v_pages, block_table, lengths,
+                           pages_per_split):
+    """The gather with no attention math (JAX's copy_only, paged_decode.py
+    :203-210, :338-345), in plain PyTorch: for q head h * G + g, the sum
+    over the live splits (those that start below the row's length) of
+    k + v at the split's first key row start + g, in float32, split by
+    split in order. Returns [B, Hq, D] float32."""
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    g = hq // hkv
+    span = pages_per_split * page
+    rows = (_linear_rows(k_pages, block_table).float()
+            + _linear_rows(v_pages, block_table).float())  # [B, Hkv, S, D]
+    lens = lengths.to(q.device).clamp(0, max_pages * page)
+    out = torch.zeros(b, hkv, g, d, dtype=torch.float32, device=q.device)
+    for start in range(0, max_pages * page, span):
+        live = (start < lens).reshape(b, 1, 1, 1)
+        out = out + torch.where(live, rows[:, :, start:start + g], 0.0)
+    return out.reshape(b, hq, d)
+
+
 @functools.cache
 def _kernel():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel(
-        "fkp_paged_decode", [vp] * 8 + [i32] * 8 + [ctypes.c_float, vp])
+        "fkp_paged_decode", [vp] * 8 + [i32] * 8 + [ctypes.c_float, i32, i32, vp])
 
 
 def _check_pool_inputs(q, k_pages, v_pages, block_table, what):
@@ -166,8 +207,11 @@ def _check_decode_bounds(q, k_pages, lengths):
 
 
 def _paged_partials_cuda(q, k_pages, v_pages, block_table, lengths,
-                         pages_per_split, sm_scale):
+                         pages_per_split, sm_scale, slots=2, copy_only=False):
+    """The kernel's partials (m, l, y); with copy_only the copy probe's
+    (y: each split's k + v rows, m and l not partials, decode_core.cuh)."""
     _check_cuda_inputs(q, k_pages, v_pages, block_table, lengths)
+    _check_slots(slots, q.device, copy_only)
     b, hq, d = q.shape
     _, hkv, page, _ = k_pages.shape
     max_pages = block_table.shape[1]
@@ -183,9 +227,14 @@ def _paged_partials_cuda(q, k_pages, v_pages, block_table, lengths,
         block_table.data_ptr(), lengths.data_ptr(),
         m.data_ptr(), l.data_ptr(), y.data_ptr(),
         b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(sm_scale), slots, int(copy_only),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    paged_flash_decode.launches += 1
+    if copy_only:
+        paged_flash_decode.copy_only_launches += 1
+    else:
+        paged_flash_decode.launches += 1
+    paged_flash_decode.slots_launches += slots != 2
     _build.check(rc, "paged_decode")
     return m, l, y
 
@@ -216,17 +265,24 @@ def paged_flash_decode(
     gives zeros. CPU tensors run the plain version; CUDA tensors launch
     csrc/paged_decode.cu (bf16, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8},
     pages of 16 to 128 rows in steps of 16) or raise.
+
+    The gather's probe options, as in JAX (gather=False ignores both):
+    slots (>= 2; on the card 2, 3 or 4) sets the keys the kernel has in
+    flight and leaves the output bit-equal; copy_only=True gathers the same
+    pages with no attention math and returns, for q head h * G + g, the
+    sum over live splits of k + v at the split's first key row + g
+    (`_paged_copy_only_plain`), counted in `.copy_only_launches`; it
+    takes slots=2 only. Launches with slots != 2 also count in
+    `.slots_launches`.
     """
-    if slots != 2 or copy_only:
-        raise NotImplementedError(
-            "paged_flash_decode: slots and copy_only tune and probe the TPU's "
-            "DMA pipeline; Hopper stage probes are ROADMAP item A.12"
-        )
     b, hq, d = q.shape
     hkv = k_pages.shape[1]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     max_pages = block_table.shape[1]
+    _check_slots(slots, q.device, copy_only)
+    if not gather:  # JAX's one-page kernel takes neither option
+        slots, copy_only = 2, False
     pages_per_split = (gather_pages_per_split(b, hkv, max_pages)
                        if gather else 1)
     if sm_scale is None:
@@ -234,15 +290,27 @@ def paged_flash_decode(
     args = (q, k_pages, v_pages, block_table, lengths, pages_per_split,
             sm_scale)
     if q.device.type == "cpu":
+        if copy_only:
+            return _paged_copy_only_plain(*args[:6]).to(q.dtype)
         parts = _paged_partials_plain(*args)
     elif q.device.type == "cuda":
-        parts = _paged_partials_cuda(*args)
+        parts = _paged_partials_cuda(*args, slots=slots, copy_only=copy_only)
+        if copy_only:
+            y = parts[2]  # [B, Hkv, splits, G, D]: the splits' rows, summed in order
+            out = torch.zeros_like(y[:, :, 0])
+            for i in range(y.shape[2]):
+                out = out + y[:, :, i]
+            return out.reshape(b, hq, d).to(q.dtype)
     else:
         raise ValueError(f"no paged decode for device {q.device}")
     return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
 
 
-paged_flash_decode.launches = 0  # kernel launches, for showing that a path ran the kernel
+# kernel launches, for showing that a path ran the kernel; the copy probe's;
+# and those (of either) with slots != 2
+paged_flash_decode.launches = 0
+paged_flash_decode.copy_only_launches = 0
+paged_flash_decode.slots_launches = 0
 
 
 def _paged_partials_q_plain(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
@@ -262,11 +330,11 @@ def _paged_partials_q_plain(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
 def _kernel_q():
     """fkp_paged_decode_q: q, k_pages, k_scale_pages, v_pages,
     v_scale_pages, block_tables, lengths, m, l, y, then (b, hq, hkv, page,
-    d, max_pages, n_splits, pages_per_split), a float scale, fp8 and the
-    stream."""
+    d, max_pages, n_splits, pages_per_split), a float scale, fp8, slots and
+    the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_paged_decode_q",
-                         [vp] * 10 + [i32] * 8 + [ctypes.c_float, i32, vp])
+                         [vp] * 10 + [i32] * 8 + [ctypes.c_float, i32, i32, vp])
 
 
 def _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
@@ -278,10 +346,12 @@ def _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
 
 
 def _paged_partials_q_cuda(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
-                           block_table, lengths, pages_per_split, sm_scale):
+                           block_table, lengths, pages_per_split, sm_scale,
+                           slots=2):
     _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
                        block_table, "8-bit paged decode")
     _check_decode_bounds(q, k_pages, lengths)
+    _check_slots(slots, q.device)
     b, hq, d = q.shape
     _, hkv, page, _ = k_pages.shape
     max_pages = block_table.shape[1]
@@ -297,10 +367,11 @@ def _paged_partials_q_cuda(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
         v_pages.data_ptr(), v_scale_pages.data_ptr(), block_table.data_ptr(),
         lengths.data_ptr(), m.data_ptr(), l.data_ptr(), y.data_ptr(),
         b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
-        float(sm_scale), int(k_pages.dtype == torch.float8_e4m3fn),
+        float(sm_scale), int(k_pages.dtype == torch.float8_e4m3fn), slots,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     paged_flash_decode_quant.launches += 1
+    paged_flash_decode_quant.slots_launches += slots != 2
     _build.check(rc, "paged_decode_q")
     return m, l, y
 
@@ -351,15 +422,16 @@ def _kernel_qi8():
     the log2-domain scale sm_scale * log2(e)."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_paged_decode_qi8",
-                         [vp] * 10 + [i32] * 8 + [ctypes.c_float, vp])
+                         [vp] * 10 + [i32] * 8 + [ctypes.c_float, i32, vp])
 
 
 def _paged_partials_qi8_cuda(q, k_pages, k_scale_pages, v_pages,
                              v_scale_pages, block_table, lengths,
-                             pages_per_split, sm_scale):
+                             pages_per_split, sm_scale, slots=2):
     _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
                        block_table, "int8-score paged decode")
     _check_decode_bounds(q, k_pages, lengths)
+    _check_slots(slots, q.device)
     if k_pages.dtype != torch.int8:
         raise TypeError(f"the int8 score product needs an int8 pool, got "
                         f"{k_pages.dtype}")
@@ -378,9 +450,11 @@ def _paged_partials_qi8_cuda(q, k_pages, k_scale_pages, v_pages,
         v_pages.data_ptr(), v_scale_pages.data_ptr(), block_table.data_ptr(),
         lengths.data_ptr(), m.data_ptr(), l.data_ptr(), y.data_ptr(),
         b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
-        float(sm_scale * _LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
+        float(sm_scale * _LOG2E), slots,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     paged_flash_decode_quant.q_int8_launches += 1
+    paged_flash_decode_quant.slots_launches += slots != 2
     _build.check(rc, "paged_decode_qi8")
     return m, l, y
 
@@ -415,13 +489,14 @@ def paged_flash_decode_quant(
     `.q_int8_launches`). As in JAX it applies only with gather=True over an
     int8 pool: on e4m3 pages or with gather=False the ordinary 8-bit kernel
     runs (`.launches`).
+
+    slots: as paged_flash_decode's, for either kernel (gather=True only, as
+    in JAX); launches with slots != 2 also count in `.slots_launches`.
     """
     q_int8 = bool(q_int8) and gather and k_pages.dtype == torch.int8
-    if slots != 2:
-        raise NotImplementedError(
-            "paged_flash_decode_quant: slots tunes the TPU's DMA pipeline; "
-            "Hopper stage probes are ROADMAP item A.12"
-        )
+    _check_slots(slots, q.device)
+    if not gather:
+        slots = 2
     b, hq, d = q.shape
     hkv = k_pages.shape[1]
     if hq % hkv:
@@ -436,16 +511,18 @@ def paged_flash_decode_quant(
     if q.device.type == "cpu":
         parts = (_paged_partials_qi8_plain if q_int8 else _paged_partials_q_plain)(*args)
     elif q.device.type == "cuda":
-        parts = (_paged_partials_qi8_cuda if q_int8 else _paged_partials_q_cuda)(*args)
+        parts = (_paged_partials_qi8_cuda if q_int8
+                 else _paged_partials_q_cuda)(*args, slots=slots)
     else:
         raise ValueError(f"no paged decode for device {q.device}")
     return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
 
 
-# kernel launches, for showing that a path ran the kernel, and those of the
-# int8-score instance (q_int8=True)
+# kernel launches, for showing that a path ran the kernel, those of the
+# int8-score instance (q_int8=True), and those (of either) with slots != 2
 paged_flash_decode_quant.launches = 0
 paged_flash_decode_quant.q_int8_launches = 0
+paged_flash_decode_quant.slots_launches = 0
 
 
 def _paged_extend_plain(q, k_pages, v_pages, block_table, new_lengths,

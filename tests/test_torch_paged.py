@@ -78,8 +78,10 @@ def test_paged_flash_decode_matches_jax(gather, page):
 
 
 def test_paged_flash_decode_schedules_and_options():
-    """Both schedules give the linear decode of the gathered rows; the TPU's
-    DMA knobs raise; the occupancy split sizing at the serving shape."""
+    """Both schedules give the linear decode of the gathered rows; the
+    gather's probe options (slots leaves the output as it is, copy_only
+    gives its rows' sums, slots < 2 raises); the occupancy split sizing at
+    the serving shape."""
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as tfd
 
     q, k, v, table, lengths = (torch.from_numpy(x) for x in _paged_inputs(1, 8))
@@ -91,15 +93,126 @@ def test_paged_flash_decode_schedules_and_options():
         torch.testing.assert_close(
             tpd.paged_flash_decode(q, k, v, table, lengths, gather=gather),
             ref, rtol=1e-5, atol=1e-6)
-    for kwargs in (dict(slots=3), dict(copy_only=True)):
-        with pytest.raises(NotImplementedError, match="A.12"):
-            tpd.paged_flash_decode(q, k, v, table, lengths, **kwargs)
+    base = tpd.paged_flash_decode(q, k, v, table, lengths)
+    assert torch.equal(tpd.paged_flash_decode(q, k, v, table, lengths, slots=3),
+                       base)
+    with pytest.raises(ValueError, match="slots"):
+        tpd.paged_flash_decode(q, k, v, table, lengths, slots=1)
+    # the plain version takes any depth; the card's kernels are built for 2-4
+    assert torch.equal(tpd.paged_flash_decode(q, k, v, table, lengths, slots=9),
+                       base)
+    with pytest.raises(ValueError, match="slots in"):
+        tpd._check_slots(5, torch.device("cuda"))
+    # copy_only: per live split (here 6 splits of one page), k + v at its
+    # first key row + g
+    got = tpd.paged_flash_decode(q, k, v, table, lengths, copy_only=True)
+    assert torch.equal(got, _copy_only_definition(k, v, table, lengths, 1, 2))
+    with pytest.raises(ValueError, match="copy_only runs at slots=2"):
+        tpd.paged_flash_decode(q, k, v, table, lengths, copy_only=True, slots=3)
+    # gather=False takes neither option, as JAX's one-page kernel
+    assert torch.equal(tpd.paged_flash_decode(q, k, v, table, lengths,
+                                              gather=False, copy_only=True),
+                       tpd.paged_flash_decode(q, k, v, table, lengths,
+                                              gather=False))
     # B=8, Hkv=4, 16 pages: 2 pages a split, 8 splits, 256 blocks
     assert tpd.gather_pages_per_split(8, 4, 16) == 2
     bf = torch.zeros(4, 4, 16, dtype=torch.bfloat16)
     pool = torch.zeros(25, 2, 8, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # pages of 8 rows: the kernel takes 16..128
         tpd._check_cuda_inputs(bf, pool, pool, table, lengths)
+
+
+def _copy_only_definition(k, v, table, lengths, pages_per_split, g):
+    """copy_only's output, key row by key row: for q head h * G + g, the sum
+    over the live splits of k + v at the split's first key row + g."""
+    page, max_pages = k.shape[2], table.shape[1]
+    b, hkv, d = table.shape[0], k.shape[1], k.shape[3]
+    span = pages_per_split * page
+    want = torch.zeros(b, hkv, g, d)
+    for row in range(b):
+        for start in range(0, max_pages * page, span):
+            if start < int(lengths[row]):
+                pid = int(table[row, start // page])
+                want[row] += k[pid, :, :g].float() + v[pid, :, :g].float()
+    return want.reshape(b, hkv * g, d)
+
+
+def _slot_case(pool):
+    """JAX's slot-rotation case (tests/test_paged_decode.py:385-399): 8/2
+    heads, d 64, pages of 32, 8 table entries a row, ragged lengths (the
+    dead splits of row 1 included), over a float32, bf16 or int8 pool."""
+    rng = np.random.default_rng(42)
+    b, hq, hkv, d, page, npages, maxp = 2, 8, 2, 64, 32, 24, 8
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    kp = rng.standard_normal((npages, hkv, page, d)).astype(np.float32)
+    vp = rng.standard_normal((npages, hkv, page, d)).astype(np.float32)
+    tbl = (rng.permutation(np.arange(1, 1 + b * maxp)).reshape(b, maxp)
+           % npages).astype(np.int32)
+    lens = np.array([200, 64], np.int32)
+    arrays = q, kp, vp, tbl, lens
+    if pool == "float32":
+        return arrays
+    tq, tk, tv, tt, tl = (torch.from_numpy(x) for x in arrays)
+    if pool == "bf16":
+        return tq.bfloat16(), tk.bfloat16(), tv.bfloat16(), tt, tl
+    from flashattention_kernel_project_tpu_torch.ops import quant
+
+    kq, ks = quant.quantize_int8(tk, axis=-1)
+    vq, vs = quant.quantize_int8(tv, axis=-1)
+    return (tq.bfloat16(), kq, ks.transpose(-1, -2).contiguous(), vq,
+            vs.transpose(-1, -2).contiguous(), tt, tl)
+
+
+@pytest.mark.parametrize("slots", [3, 4])
+@pytest.mark.parametrize("pool", ["float32", "bf16", "int8"])
+def test_paged_slots_give_the_two_slot_result(slots, pool):
+    """Every gather depth gives the 2-slot result bit for bit, as JAX's test
+    requires of its DMA ring; over a float32 pool both packages' slots runs
+    agree too."""
+    case = _slot_case(pool)
+    if pool == "float32":
+        jo = jpd.paged_flash_decode(*(jnp.asarray(x) for x in case), slots=slots,
+                                    interpret=True)
+        case = [torch.from_numpy(x) for x in case]
+    fn = tpd.paged_flash_decode_quant if pool == "int8" else tpd.paged_flash_decode
+    base = fn(*case)
+    rot = fn(*case, slots=slots)
+    assert torch.equal(rot, base)
+    if pool == "float32":
+        assert_rel_l2(rot.numpy(), np.asarray(jo), tol=TOL)
+    if pool == "int8":
+        qi8 = fn(*case, q_int8=True)
+        assert torch.equal(fn(*case, slots=slots, q_int8=True), qi8)
+    assert fn.launches == fn.slots_launches == 0
+
+
+def test_paged_copy_only_matches_its_definition_and_jax():
+    """copy_only over the port's splits: for q head h * G + g, the sum over
+    the live splits of k + v at the split's first key row + g. At B * Hkv =
+    264 (two blocks per SM of an H100) and 4 pages of 16 rows of a float32
+    pool, both packages make one split a row, so the JAX probe's output is
+    the same function."""
+    rng = np.random.default_rng(11)
+    b, hq, hkv, d, page, maxp = 66, 8, 4, 16, 16, 4
+    n_pages = b * maxp + 1
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, hkv, page, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, hkv, page, d)).astype(np.float32)
+    tbl = rng.permutation(np.arange(1, n_pages)).reshape(b, maxp).astype(np.int32)
+    lens = rng.integers(0, maxp * page + 1, b).astype(np.int32)
+    lens[:3] = [0, 1, maxp * page]
+    assert tpd.gather_pages_per_split(b, hkv, maxp) == maxp
+    jo = jpd.paged_flash_decode(*(jnp.asarray(x) for x in (q, kp, vp, tbl, lens)),
+                                copy_only=True, interpret=True)
+    to = tpd.paged_flash_decode(*(torch.from_numpy(x) for x in (q, kp, vp, tbl, lens)),
+                                copy_only=True)
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    # the definition over several splits of several pages: 4/2 heads, 6
+    # pages of 8, 2 pages and 3 splits a row
+    q, k, v, table, lengths = (torch.from_numpy(x) for x in _paged_inputs(3, 8))
+    got = tpd._paged_copy_only_plain(q, k, v, table, lengths, 2)
+    assert torch.equal(got, _copy_only_definition(k, v, table, lengths, 2, 2))
+    assert tpd.paged_flash_decode.copy_only_launches == 0
 
 
 def test_paged_append_matches_jax_bit_for_bit():
