@@ -108,7 +108,19 @@ width, with random weights from a seed:
     4096 f32 beside torch's x + 1); the chain's exp2 count in the SASS;
     then ab_paged_int8.py's slots 2, 3 and 4 over its int8 and bf16 pools
     (each depth bit-equal to slots 2) and copy_only (bit-equal to its plain
-    version), timed beside kernel 10.
+    version), timed beside kernel 10;
+  - the dense forward (kernels 1 and 2, csrc/flash_fwd_sm90.cuh: wgmma,
+    TMA and a K/V ring): its 24 instances built with no spill and no
+    wgmma serialized by ptxas, HGMMA and UTMALDG and no HMMA.16816 in
+    their SASS; every discipline at the edges of its tiles (64- and
+    128-row query blocks, 128-key tiles: n and s off the tile, q_offset
+    with n < s, rows before the first key, sinks wider than a tile, d 64
+    and 128) against the plain version and, at most 4 x 256 x 256 pairs,
+    the float64 oracle; the
+    hybrid with one breaching warp a warpgroup; and its time at bench.py's
+    shape (each discipline, causal and full), d=64 (stable, packed,
+    hybrid), the training band and the serving prefill, each in turns with
+    SDPA from CUDA graphs, with its bound and factor.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -287,7 +299,7 @@ def phase_forward(device, shapes, label):
 
     gen = torch.Generator(device=device).manual_seed(7)
     entry = dict(name="flash_fwd", route="cuda",
-                 source=f"{PKG}/csrc/flash_fwd.cu",
+                 source=f"{PKG}/csrc/flash_fwd_sm90.cuh",
                  replaces="flashattention_kernel_project_tpu/ops/flash_attention.py:92",
                  max_abs_err=0.0)
     for i, (b, hq, hkv, n, s, d, causal, q_offset) in enumerate(shapes):
@@ -335,6 +347,260 @@ def phase_forward(device, shapes, label):
             log(f"flash_fwd at the entry's shape: bound {entry['bound_ms']:.4f}"
                 f" ms ({entry['bound_by']}), SDPA {library_ms:.4f} ms")
     return entry
+
+
+# The dense forward's instances: one source a discipline (kDisc 0, 1, 2)
+SM90_OBJECTS = {0: "flash_fwd.cu", 1: "flash_fwd_fixed.cu", 2: "flash_fwd_hybrid.cu"}
+SM90_KERNEL = "flash_fwd_sm90_kernel"
+
+
+def mangled_name(sym: str) -> tuple[str, str]:
+    """(the innermost name, what follows it) of a mangled symbol, e.g.
+    ("flash_fwd_sm90_kernel", "ILi128ELb0ELi0EEEv...") for
+    "_ZN8fkp_sm9021flash_fwd_sm90_kernelILi128ELb0ELi0EEEv..."."""
+    i = 3 if sym.startswith("_ZN") else 2
+    name = ""
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        name, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
+    return name, sym[i:]
+
+
+def sm90_instance(sym: str):
+    """(d, band, disc, block rows) of a flash_fwd_sm90_kernel instance's
+    symbol, or None for another symbol."""
+    name, rest = mangled_name(sym)
+    if name != SM90_KERNEL:
+        return None
+    return tuple(int(a) for a in re.findall(r"L[ib](\d+)E", rest)[:4])
+
+
+def dense_rows(n: int, hq: int, b: int, sms: int) -> int:
+    """The query rows of the dense forward's blocks for a call, as its entry
+    picks them (block_rows in csrc/flash_fwd_sm90.cuh): 64 where a grid of
+    64-row blocks fits in one wave of the card's SMs, else 128."""
+    return 64 if -(-n // 64) * hq * b <= sms else 128
+
+
+def phase_fwd_sm90_build(build_log: str, label):
+    """The dense forward's 24 instances (d 64 and 128, without and with a
+    band, in the three disciplines, in blocks of 64 and 128 query rows) as
+    ptxas and the SASS show them: each
+    compiled, none spilling, none with wgmma instructions serialized by
+    ptxas, and in its source's object HGMMA (wgmma) and UTMALDG (TMA loads)
+    and no HMMA.16816 (mma.sync). Raises otherwise; cuobjdump must sit
+    beside nvcc, as for the probes' gate."""
+    import subprocess
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+
+    spills, current = {}, None
+    for line in build_log.splitlines():
+        props = re.search(r"(?:Compiling entry function '|Function properties "
+                          r"for )([^'\s]+)", line)
+        if props:  # a spill line follows the function it is about
+            current = sm90_instance(props.group(1))
+        elif current is not None and "spill stores" in line:
+            spills[current] = line.strip()
+            current = None
+        if "serialized" in line and SM90_KERNEL in line:
+            raise AssertionError(f"ptxas serialized wgmma: {line.strip()}")
+    want = {(d, w, c, rows) for d in (64, 128) for w in (0, 1)
+            for c in (0, 1, 2) for rows in (64, 128)}
+    if set(spills) != want:
+        raise AssertionError(f"dense forward instances built: {sorted(spills)}")
+    for inst, line in sorted(spills.items()):
+        if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
+            raise AssertionError(f"{SM90_KERNEL}{inst} spills: {line}")
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the dense "
+                             "forward's SASS gate cannot run")
+    counts = {}
+    for disc, src in SM90_OBJECTS.items():
+        obj = os.path.join(_build.BUILD_DIR, src + ".o")
+        sass = subprocess.run([tool, "-sass", obj], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        for section in sass.split("Function : ")[1:]:
+            inst = sm90_instance(section.split("\n", 1)[0].strip())
+            if inst is None:
+                continue
+            if inst[2] != disc:
+                raise AssertionError(f"{SM90_KERNEL}{inst} built in {src}")
+            ops = {op: section.count(op) for op in ("HGMMA", "UTMALDG",
+                                                      "HMMA.16816")}
+            if not ops["HGMMA"] or not ops["UTMALDG"] or ops["HMMA.16816"]:
+                raise AssertionError(f"{SM90_KERNEL}{inst} in {src}: {ops}")
+            counts[inst] = ops
+    if set(counts) != want:
+        raise AssertionError(f"dense forward instances in the SASS: {sorted(counts)}")
+    log(f"dense forward: 24 instances (d, band, disc, rows) built with no spill and no "
+        f"serialized wgmma; SASS (HGMMA, UTMALDG, HMMA.16816): "
+        + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}"
+                    for inst, c in sorted(counts.items())) + f" [{label}]")
+
+
+# (b, hq, hkv, n, s, d, causal, q_offset, window, sinks) at the edges of the
+# dense forward's 128-row and 128-key tiles
+FWD_TILE_SHAPES = [
+    (1, 2, 1, 200, 333, 128, False, 0, 0, 0),    # n, s not multiples of 128
+    (2, 4, 2, 200, 333, 64, False, 0, 0, 0),
+    (1, 4, 2, 1000, 1000, 128, True, 0, 0, 0),   # 1000 causal
+    (1, 2, 1, 130, 300, 64, True, 170, 0, 0),    # q_offset with n < s
+    (1, 4, 2, 300, 700, 128, True, 400, 0, 0),
+    (1, 4, 2, 1024, 1024, 128, True, 0, 256, 200),  # sinks wider than a tile
+    (1, 4, 2, 1024, 1024, 64, True, 0, 256, 200),
+    (1, 2, 1, 256, 256, 64, True, 0, 100, 150),
+    (1, 2, 1, 100, 100, 128, True, -50, 0, 0),   # rows before the first key
+]
+
+
+def phase_fwd_tiles(device, label, shapes=FWD_TILE_SHAPES):
+    """The dense forward (kernels 1 and 2) at the edges of its tiles (query
+    blocks of 64 or 128 rows, 128-key tiles), in each discipline, against
+    `_fwd_plain` (O rel-L2 O_TOL, LSE LSE_TOL) and, at most 4 x 256 x 256
+    (query, key) pairs, O against the float64 oracle. Each shape runs as
+    given (64-row blocks: its grid fits one wave of the SMs) and again
+    with enough batch rows that it does not (128-row blocks). Then the
+    hybrid on mixed inputs, where one warp's 16 rows of each 64-row
+    warpgroup breach the fixed-max bound (q x 60) and the rest are
+    bounded, at d 128 and 64."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+    from flashattention_kernel_project_tpu_torch.utils import oracles
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(83)
+    names = {fa.ONLINE: "stable", fa.FIXED: "fixed-max", fa.HYBRID: "hybrid"}
+    worst = {name: 0.0 for name in names.values()}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    runs = []
+    for b, hq, hkv, n, s, d, causal, q_off, win, sinks in shapes:
+        wide = sms // (-(-n // 64) * hq) + 1  # batch rows past one wave
+        if dense_rows(n, hq, b, sms) != 64:
+            raise AssertionError(f"tile shape n{n} hq{hq} b{b} is past one wave")
+        runs += [(b, hq, hkv, n, s, d, causal, q_off, win, sinks),
+                 (wide, hq, hkv, n, s, d, causal, q_off, win, sinks)]
+    for b, hq, hkv, n, s, d, causal, q_off, win, sinks in runs:
+        q, k, v = _qkv(gen, device, b, hq, hkv, n, s, d)
+        small = b * hq * n * s <= 4 * 256 * 256
+        exp = None
+        if small:
+            exp = torch.from_numpy(oracles.gqa_attention(
+                *(x.float().cpu().numpy() for x in (q, k, v)), causal=causal,
+                q_offset=q_off, window=win or None, sinks=sinks))
+        for disc, name in names.items():
+            k_max = fa.k_max_norm(k) if disc == fa.HYBRID else None
+            args = (q, k, v, causal, d ** -0.5, q_off, win, sinks, disc, k_max)
+            o, lse = fa._fwd(*args)
+            po, plse = fa._fwd_plain(*args)
+            torch.cuda.synchronize()
+            what = (f"flash_fwd ({name}) b{b} hq{hq} hkv{hkv} n{n} s{s} d{d} "
+                    f"causal={causal} q_offset={q_off} window={win} sinks={sinks} "
+                    f"rows={dense_rows(n, hq, b, sms)}")
+            if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+                raise AssertionError(f"{what}: non-finite output")
+            err = _rel_l2(o, po)
+            if not err <= O_TOL:
+                raise AssertionError(f"{what}: O rel-L2 {err:.3e} > {O_TOL}")
+            torch.testing.assert_close(lse, plse, rtol=LSE_TOL, atol=LSE_TOL)
+            worst[name] = max(worst[name], err)
+            if exp is not None:
+                oerr = _rel_l2(o, exp)
+                if not oerr <= O_TOL:
+                    raise AssertionError(f"{what}: rel-L2 {oerr:.3e} from the "
+                                         "float64 oracle")
+    checks = []
+    for d, b in ((128, 1), (128, 3), (64, 1), (64, 3)):  # 64- and 128-row blocks
+        hq, hkv, n = 4, 2, 1024
+        q, k, v = _qkv(gen, device, b, hq, hkv, n, n, d)
+        r = torch.arange(n, device=device) % 128
+        breach = ((r >= 16) & (r < 32)) | ((r >= 96) & (r < 112))
+        q = torch.where(breach[:, None], q.float() * 60.0, q.float()).bfloat16()
+        k_max = fa.k_max_norm(k)
+        share = float(fa._fixed_rows(q, d ** -0.5, fa.HYBRID, k_max).float().mean())
+        if not 0.0 < share < 1.0:
+            raise AssertionError(f"hybrid mixed inputs at d={d}: fixed-max share "
+                                 f"{share}")
+        args = (q, k, v, True, d ** -0.5, 0, 0, 0, fa.HYBRID, k_max)
+        o, lse = fa._fwd(*args)
+        po, plse = fa._fwd_plain(*args)
+        err = _rel_l2(o, po)
+        if not err <= O_TOL:
+            raise AssertionError(f"hybrid mixed inputs at d={d}: O rel-L2 {err:.3e}")
+        torch.testing.assert_close(lse, plse, rtol=LSE_TOL, atol=LSE_TOL)
+        checks.append(f"d={d} rows={dense_rows(n, hq, b, sms)} {err:.3e} "
+                      f"({share:.3f} of the rows fixed-max)")
+    log(f"dense forward at tile edges ({len(shapes)} shapes, each in blocks of 64 "
+        f"and 128 rows, three disciplines; the oracle at <= 4x256x256 pairs): "
+        f"worst O rel-L2 vs plain "
+        + ", ".join(f"{name} {e:.3e}" for name, e in worst.items())
+        + "; LSE ok; hybrid with one breaching warp a warpgroup: "
+        + ", ".join(checks) + f" ({time.perf_counter() - t0:.1f} s) [{label}]")
+
+
+def phase_fwd_sm90_times(device, label):
+    """The dense forward's time at the shapes its callers give it, each in
+    turns with SDPA at the same shape (the windowed case: SDPA with the
+    band as a boolean mask), from CUDA graphs: every discipline at bench.py's
+    shape (1 x 16/4 heads x 4096 x 128, causal; stable and fixed-max also
+    non-causal, profile_attention.py's shape), d=64 (stable, kernel 2's
+    packed fixed-max call, hybrid), the training band (4096, window 1024,
+    64 sinks) and the serving prefill (512). Each with its bound (the
+    visible pairs' 4*d flops at 989 TFLOP/s, or the bytes), its factor
+    against SDPA and its share of the bound. Returns {case: row}."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(89)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cases = [  # name, (n, d, causal, window, sinks), disc, pack
+        ("stable", (4096, 128, True, 0, 0), fa.ONLINE, False),
+        ("fixed-max", (4096, 128, True, 0, 0), fa.FIXED, False),
+        ("hybrid (headline)", (4096, 128, True, 0, 0), fa.HYBRID, False),
+        ("stable, full", (4096, 128, False, 0, 0), fa.ONLINE, False),
+        ("fixed-max, full", (4096, 128, False, 0, 0), fa.FIXED, False),
+        ("stable d=64", (4096, 64, True, 0, 0), fa.ONLINE, False),
+        ("packed d=64 (kernel 2)", (4096, 64, True, 0, 0), fa.FIXED, True),
+        ("hybrid d=64", (4096, 64, True, 0, 0), fa.HYBRID, False),
+        ("stable, window 1024 + 64 sinks", (4096, 128, True, 1024, 64),
+         fa.ONLINE, False),
+        ("stable, serving prefill 512", (512, 128, True, 0, 0), fa.ONLINE, False),
+        ("fixed-max, serving prefill 512", (512, 128, True, 0, 0), fa.FIXED,
+         False),
+    ]
+    inputs, rows = {}, {}
+    for name, shape, disc, pack in cases:
+        n, d, causal, win, sinks = shape
+        if shape not in inputs:
+            inputs[shape] = _qkv(gen, device, 1, 16, 4, n, n, d)
+        q, k, v = inputs[shape]
+        k_max = fa.k_max_norm(k) if disc == fa.HYBRID else None
+        kernel = lambda: fa._fwd(q, k, v, causal, d ** -0.5, 0, win, sinks,  # noqa: E731
+                                 disc, k_max, pack)
+        mask = band_mask(n, n, 0, win, sinks, device) if win else None
+        ms, sdpa_ms = time_pair(kernel, sdpa_fn(q, k, v, mask=mask,
+                                                causal=causal and not win),
+                                device)
+        pairs = 16 * band_pairs(n, n, 0, win, sinks) if causal else 16 * n * n
+        o, lse = kernel()
+        bnd = bound(4 * d * pairs, nbytes(q, k, v, o, lse))
+        rows[name] = dict(ms=ms, sdpa_ms=sdpa_ms, factor=ms / sdpa_ms,
+                          bound_share=bnd["bound_ms"] / ms, **bnd)
+        log(f"dense forward, {name} (1x16/4x{n}x{d}, blocks of "
+            f"{dense_rows(n, 16, 1, sms)} rows): {ms:.4f} ms, SDPA "
+            f"{sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x), bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of it), "
+            f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s [{label}]")
+    log(f"dense forward timed at {len(cases)} cases in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def phase_decode(device, b, hq, hkv, s, d, label):
@@ -1965,7 +2231,7 @@ def phase_window_forward(device, shapes, label, entry_shape):
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(43)
-    entry = _window_entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:92")
+    entry = _window_entry("flash_fwd", "flash_fwd_sm90.cuh", "flash_attention.py:92")
     for i, (b, hq, hkv, n, s, d, q_off, window, sinks) in enumerate(shapes):
         q = torch.randn(b, hq, n, d, generator=gen, device=device).bfloat16()
         k = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
@@ -2078,7 +2344,7 @@ def phase_window_fixed(device, label, b=1, hq=16, hkv=4, d=128, chunk=2048):
     gen = torch.Generator(device=device).manual_seed(53)
     q, k, v = _qkv(gen, device, b, hq, hkv, n, n, d)
     scale = d ** -0.5
-    entry = _disc_entry("flash_fwd (fixed, window)", "flash_fwd.cu",
+    entry = _disc_entry("flash_fwd (fixed, window)", "flash_fwd_sm90.cuh",
                         "flash_attention.py:92")
 
     def plain(sinks):
@@ -2547,7 +2813,7 @@ def phase_fixed(device, shapes, label):
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(71)
-    entry = _disc_entry("flash_fwd (fixed)", "flash_fwd.cu", "flash_attention.py:92")
+    entry = _disc_entry("flash_fwd (fixed)", "flash_fwd_sm90.cuh", "flash_attention.py:92")
     for i, (b, hq, hkv, n, s, d, causal, q_off) in enumerate(shapes):
         q, k, v = _qkv(gen, device, b, hq, hkv, n, s, d)
         args = (q, k, v, causal, d ** -0.5, q_off, 0, 0, fa.FIXED)
@@ -2588,7 +2854,7 @@ def phase_packed(device, b, hq, hkv, n, d, label):
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(73)
-    entry = _disc_entry("flash_fwd_packed", "flash_fwd.cu",
+    entry = _disc_entry("flash_fwd_packed", "flash_fwd_sm90.cuh",
                         "flash_attention.py:710")
     q, k, v = _qkv(gen, device, b, hq, hkv, n, n, d)
     args = (q, k, v, True, d ** -0.5, 0)
@@ -2632,7 +2898,7 @@ def phase_hybrid(device, b, hq, hkv, n, d, label):
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(79)
-    entry = _disc_entry(f"flash_fwd (hybrid, d={d})", "flash_fwd.cu",
+    entry = _disc_entry(f"flash_fwd (hybrid, d={d})", "flash_fwd_sm90.cuh",
                         "flash_attention.py:92")
     q, k, v = _qkv(gen, device, b, hq, hkv, n, n, d)
     scale = d ** -0.5
@@ -3778,7 +4044,7 @@ def phase_guard(device, label, shapes=GUARD):
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(103)
-    entry = _disc_entry("flash_fwd (guard)", "flash_fwd.cu", "flash_attention.py:92")
+    entry = _disc_entry("flash_fwd (guard)", "flash_fwd_sm90.cuh", "flash_attention.py:92")
     cases = [(shape, *_qkv(gen, device, *shape[:3], shape[3], shape[3], shape[4]))
              for shape in shapes]
     b, hq, hkv, n, d = shapes[0]
@@ -4337,18 +4603,22 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s from "
         f"{[os.path.relpath(s, ROOT) for s in _build.kernel_sources()]}")
     with open(os.path.join(_build.BUILD_DIR, "libfkp_kernels.so.log")) as f:
-        kernel = ""  # the mangled name of the entry ptxas reports on
-        arg = r"L[ib]\d+E|f|a|13__nv_fp8_e4m3|13__nv_bfloat16"  # template arguments
-        types = {"f": "f32", "a": "int8", "13__nv_fp8_e4m3": "e4m3",
-                 "13__nv_bfloat16": "bf16"}
-        for line in f:
-            entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
-                              rf"(?:I((?:{arg})+)E)?", line)
-            if entry:  # e.g. flash_fwd_q_kernel<128,1,int8,0,1>, gemm_kernel<bf16,1,1>
-                args = [types.get(a, a[2:-1]) for a in re.findall(arg, entry.group(2) or "")]
-                kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
-            if "registers" in line or "spill" in line:
-                log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
+        build_log = f.read()
+    kernel = ""  # the entry ptxas reports on
+    arg = r"L[ib]\d+E|f|a|13__nv_fp8_e4m3|13__nv_bfloat16"  # template arguments
+    types = {"f": "f32", "a": "int8", "13__nv_fp8_e4m3": "e4m3",
+             "13__nv_bfloat16": "bf16"}
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+?)'", line)
+        if entry:  # e.g. flash_fwd_q_kernel<128,1,int8,0,1>, gemm_kernel<bf16,1,1>
+            name, rest = mangled_name(entry.group(1))
+            targs = re.match(rf"I((?:{arg})+)E", rest)
+            args = [types.get(a, a[2:-1])
+                    for a in re.findall(arg, targs.group(1) if targs else "")]
+            kernel = name + (f"<{','.join(args)}>" if args else "")
+        if "registers" in line or "spill" in line:
+            log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
+    phase_fwd_sm90_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill
@@ -4356,6 +4626,8 @@ def main() -> int:
         (2, 4, 2, 200, 333, 128, False, 0),    # ragged, non-causal
         (2, 4, 2, 200, 333, 128, True, 133),   # ragged, causal, q_offset
     ], label)
+    phase_fwd_tiles(device, label)
+    phase_fwd_sm90_times(device, label)
     dec = phase_decode(device, 8, 16, 4, 2048, 128, label)
     ragged = phase_ragged(device, [
         # the third chunk of a 768-token prompt at chunk 256 (the slice's)

@@ -1,12 +1,14 @@
-// The tiled attention forward shared by flash_fwd.cu (the dense forward, O
-// and LSE), flash_fwd_q.cu (the same over an 8-bit cache),
-// flash_fwd_ragged.cu (per-row KV lengths and query offsets, O only) and
-// paged_extend.cu (the ragged bounds over a page pool, with the GQA group
-// folded into the query rows, O only). One block body, `fwd_block<D,
-// kFlavour, kWindow, kDisc, KV>`, behind two kernels: `flash_fwd_kernel<D,
-// kFlavour, kWindow, kDisc>` over a bf16 cache and `flash_fwd_q_kernel<D,
-// kFlavour, KV, kWindow, kDisc>` over an 8-bit one (KV = int8_t or
-// __nv_fp8_e4m3); each source file instantiates its own.
+// The mma.sync attention forward shared by flash_fwd_q.cu (the dense
+// forward, O and LSE, over an 8-bit cache), flash_fwd_ragged.cu (per-row KV
+// lengths and query offsets, O only) and paged_extend.cu (the ragged bounds
+// over a page pool, with the GQA group folded into the query rows, O only).
+// One block body, `fwd_block<D, kFlavour, kWindow, kDisc, KV>`, behind two
+// kernels: `flash_fwd_kernel<D, kFlavour, kWindow, kDisc>` over a bf16
+// cache and `flash_fwd_q_kernel<D, kFlavour, KV, kWindow, kDisc>` over an
+// 8-bit one (KV = int8_t or __nv_fp8_e4m3); each source file instantiates
+// its own. The dense bf16 forward (flash_fwd.cu) no longer runs here: it is
+// flash_fwd_sm90.cuh's wgmma kernel, which takes this header's disciplines,
+// guard and helpers and computes the same function.
 //
 // Softmax in the log2 domain (scores times sm_scale * log2(e)), the online
 // (m, l, acc) rescale with exp2, causal and tail masks, GQA with q head h
@@ -63,9 +65,10 @@
 // before it existed: as a runtime term it cost the causal dense forward
 // about a tenth of its time at 4096 keys on the H100. The paged flavour
 // takes no window, as the JAX engine passes none there. Left for
-// later: wgmma, TMA loads and warp specialisation (the FlashAttention-3
-// structure), double-buffered K/V tiles, and for the paged flavour a split
-// over pages (its grid is only B * Hkv blocks at the serving shape).
+// later: moving these flavours onto the wgmma, TMA and K/V-ring structure
+// of flash_fwd_sm90.cuh (which the dense bf16 forward took), and for the
+// paged flavour a split over pages (its grid is only B * Hkv blocks at the
+// serving shape).
 //
 // The softmax discipline is a third template switch (kDisc), as the TPU
 // kernel's `stable` is a static argument:

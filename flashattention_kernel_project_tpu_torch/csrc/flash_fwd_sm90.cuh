@@ -1,0 +1,838 @@
+// The dense attention forward for Hopper (sm_90a): wgmma, TMA and a K/V
+// ring. flash_fwd.cu, flash_fwd_fixed.cu and flash_fwd_hybrid.cu each build
+// the instances of one discipline (kDisc) from this header, for d in
+// {64, 128} with and without a band (kWindow), in blocks of 128 or 64 query
+// rows (kRows): 24 instances in all.
+//
+// Replaces flashattention_kernel_project_tpu/ops/flash_attention.py::
+// _fwd_kernel (:92, pallas_call :1375/:1380) in its three disciplines, with
+// a static q_offset and the optional sliding window with sinks, and
+// _fwd_kernel_packed (:710, pallas_call :1526), the fixed-max d=64 forward
+// (the TPU pairs two KV heads there because a d=64 product fills half of
+// its 128-deep matrix unit; wgmma is 16 deep, so the fixed-max d=64
+// instance computes it as it stands). It computes what the mma.sync dense
+// flavour of flash_fwd_core.cuh computed, which the ragged, paged and 8-bit
+// forwards still use: the same masks, disciplines, empty-row rule, range
+// guard and precision (the scale on f32 scores, p into PV as a bf16 hi + lo
+// pair, two products); that header's notes describe them.
+//
+// What bounds it on the H100: at prefill shapes (N = S in the hundreds to
+// thousands, d = 128) the two products do 4*N*S*d flops (6*N*S*d with the
+// second PV product) against about 2*(N + 2*S)*d bytes of device memory,
+// far above the card's ~295 flop/byte ridge: tensor-core issue and the
+// softmax arithmetic between the products bound it (flash_fwd_core.cuh
+// :35-42). The mma.sync design reached 13.5% of the bf16 peak at bench.py's
+// shape: its PV gathered V's B fragments two bytes at a time, its K/V tiles
+// were loaded through registers between two block barriers with no second
+// buffer, and every tile paid the causal compare and select. What each
+// choice here does about that:
+// - wgmma (m64nNk16, f32 accumulators in registers), the only path to the
+//   full tensor-core rate: S = Q K^T with both operands read from shared
+//   memory by descriptor (K stored [key][dim] is the K-major B operand),
+//   O += P V with p from registers (the accumulator's layout is the
+//   A-fragment layout, repacked to a bf16 hi + lo pair in place) and V read
+//   as it lies, MN-major (transposed): no fragment gathers.
+// - TMA: one producer thread loads Q once and every K/V tile as two 3-D
+//   boxes of 128 rows x 64 dims (a 128-byte row, swizzled 128B; d = 128
+//   takes two per tile) from maps over [b*h, rows, d], so rows past n or s
+//   are zero-filled, never the next head's. No consumer register or
+//   instruction is spent on loads.
+// - A ring of 3 K/V stages (d = 128: 32 KB Q + 3 x 64 KB = 224 KB of the
+//   227 at 128 rows; d = 64: 16 + 3 x 32) with full/empty mbarriers: the next tiles
+//   load while the consumers compute, where the mma.sync design waited for
+//   each tile. With 2 stages the d=128 kernel ran 23% slower: a stage is
+//   released only when its PV product is done, a tile after its QK.
+// - 128 query rows a block, two consumer warpgroups of 64 (4 warps of 16
+//   rows each, the wgmma row split) sharing the ring: each tile read from
+//   device memory or L2 serves 128 rows. Where a grid of 64-row blocks
+//   fits in one wave of the SMs (the serving prefill), blocks of 64 rows
+//   and one consumer warpgroup: twice the blocks (block_rows below). A
+//   producer warpgroup, one thread of which issues the loads, gives its
+//   registers to the consumers by setmaxnreg (24 and 240 a thread): a
+//   consumer holds S (64 f32), O (64 at d = 128) and the previous tile's p
+//   pair (64) at once. Under ptxas's 168-register cap for 288 threads (a
+//   producer warp, no setmaxnreg) the d=128 instances spilled.
+// - The key loop is software-pipelined (FlashAttention-3's intra-warpgroup
+//   overlap): tile j's QK and tile j-1's PV go out together, and tile j's
+//   softmax runs while that PV is in flight; O's rescale by tile j's max
+//   waits for it. The two warpgroups of a 128-row block take turns to issue
+//   their products (ping-pong, two named barriers), so one's softmax runs
+//   under the other's products: 11% of the online kernel's time at
+//   bench.py's shape, none for fixed-max, which has no rescale chain.
+//   Every wgmma issue and wait lies on control flow uniform in the
+//   warpgroup: with them under the data-dependent branches of a tile
+//   skip, ptxas serialized them.
+// - The mask only where a 128-key tile crosses the causal diagonal, the key
+//   tail (s) or a band edge, classified once per warpgroup (uniform across
+//   its 128 threads); the other tiles run a copy of the softmax compiled
+//   without it. A masked score is -inf, so p needs no second test.
+// - Heaviest causal query tiles first, as before; with a window, the sink
+//   tiles and then the band's tiles, each once.
+// The hybrid decides per warp (16 rows) as before, from the Q tile in
+// shared memory; only the softmax and the rescale branch on it, never a
+// wgmma, which is .sync.aligned over the warpgroup.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+#include "flash_fwd_core.cuh"
+
+namespace fkp_sm90 {
+
+using fkp_fwd::Bool;
+using fkp_fwd::GuardArgs;
+using fkp_fwd::kFixed;
+using fkp_fwd::kHybrid;
+using fkp_fwd::kLn2;
+using fkp_fwd::kNegInf;
+using fkp_fwd::kOnline;
+using fkp_fwd::kSafeBound;
+using fkp_mma::split_bf16;
+
+constexpr int kN = 128;                 // keys a K/V tile
+// registers a thread after setmaxnreg: the producer gives up what the
+// consumers take (128 * 24 + 256 * 240 <= 65536)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kBoxCols = 64;            // bf16 columns of one 128-byte box row
+constexpr int kBoxBytes = kN * 128;     // a K or V box: 128 keys of 128 bytes
+
+// The threads of a block of kRows query rows (64 or 128): a consumer
+// warpgroup for each 64 rows, then the producer warpgroup.
+template <int kRows>
+struct Block {
+  static constexpr int kConsumers = kRows * 2;
+  static constexpr int kThreads = kConsumers + 128;
+};
+
+// Shared memory of the (d, kRows) instance: Q (boxes of kRows rows), then
+// the ring's stages, each K then V, every box 1024-byte aligned (the 128B
+// swizzle's period), after up to 1 KB of alignment slack.
+template <int D, int kRows>
+struct Layout {
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kStages = 3;
+  static constexpr int kQBox = kRows * 128;
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kTile = kBoxes * kBoxBytes;  // K or V
+  static constexpr int kBytes = 1024 + kQTile + 2 * kStages * kTile;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\n"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// box (c0 column, c1 row, c2 head) of a 3-D map into shared memory at dst,
+// completing its bytes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor over 128B-swizzled 1024-byte atoms of
+// 8 rows x 128 bytes: start address, leading and stride byte offsets. For
+// a K-major operand the stride offset steps 8 rows (1024 bytes) and the
+// leading one is unused; for an MN-major one (V) the leading offset steps
+// 64 columns along MN (the next box) and the stride one 8 rows along K.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);  // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most kPending of this warpgroup's committed groups run
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
+               : "memory");
+}
+
+// named barrier `id` over two consumer warpgroups: wait there, or arrive
+// without waiting
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// pins accumulator registers at this point of the program: reads after a
+// wgmma wait cannot move above it
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory
+// (descriptors), both K-major; scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (each warp's 16
+// rows in the m16n8k16 A-fragment layout), B in shared memory MN-major
+// (transposed, imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (each warp's 16
+// rows in the m16n8k16 A-fragment layout), B in shared memory MN-major
+// (transposed, imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, db);
+  } else {
+    wgmma_rs_n64(d, a, db);
+  }
+}
+
+// the sum of squares of 8 bf16
+__device__ __forceinline__ float sq_bf16x8(const uint4& w) {
+  return fkp_fwd::sq_bf16x2(w.x) + fkp_fwd::sq_bf16x2(w.y) +
+         fkp_fwd::sq_bf16x2(w.z) + fkp_fwd::sq_bf16x2(w.w);
+}
+
+// One block per (kRows-row query tile, q head, batch row): the first
+// kRows * 2 threads are the consumer warpgroups, 64 rows each, the last 128
+// the producer warpgroup. Maps: q over [b*hq, n, d] in boxes of kRows rows,
+// k and v over [b*hkv, s, d] in boxes of 128 keys, 64 dims a box. The other
+// arguments as fkp_flash_fwd takes them.
+template <int D, bool kWindow, int kDisc, int kRows>
+__global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int hq, int hkv, int n,
+                          int s, float scale_log2, int causal, int q_offset,
+                          int window, int sinks,
+                          const float* __restrict__ k_max, GuardArgs gd) {
+  using L = Layout<D, kRows>;
+  constexpr int kM = kRows;
+  constexpr int kConsumers = Block<kRows>::kConsumers;
+  constexpr bool kPingPong = kRows == 128;  // two consumer warpgroups
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * L::kStages];  // Q, full, empty
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t q_s = base;
+  const auto k_s = [&](int st) { return base + L::kQTile + L::kTile * 2 * st; };
+  const auto v_s = [&](int st) { return k_s(st) + L::kTile; };
+  const uint32_t q_bar = smem_u32(&bars[0]);
+  const auto full_bar = [&](int st) { return smem_u32(&bars[1 + st]); };
+  const auto empty_bar = [&](int st) {
+    return smem_u32(&bars[1 + L::kStages + st]);
+  };
+
+  const int m_block = gridDim.x - 1 - blockIdx.x;  // heaviest causal first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (hq / hkv);  // contiguous GQA grouping
+  const int row_first = m_block * kM;
+  const int row_last = min(row_first + kM, n) - 1;  // the block's last real row
+
+  // the key tiles the block visits, the same list for producer and
+  // consumers: up to the last real row's diagonal; with a window the sink
+  // tiles below the band, then the band's tiles from the one holding the
+  // first row's first band key
+  int n_tiles = (s + kN - 1) / kN;
+  if (causal) {
+    const int last_key = row_last + q_offset;
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kN + 1);
+  }
+  int band_tile = 0, n_sink_tiles = 0;
+  if constexpr (kWindow) {
+    band_tile = min(max(row_first + q_offset - (window - 1), 0) / kN, n_tiles);
+    n_sink_tiles = min((sinks + kN - 1) / kN, band_tile);
+  }
+  const int n_visit = n_sink_tiles + n_tiles - band_tile;
+  const auto tile_of = [&](int it) {
+    return it < n_sink_tiles ? it : band_tile + it - n_sink_tiles;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(full_bar(st), 1);
+      mbar_init(empty_bar(st), kConsumers / 32);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      const int qh = b * hq + h;
+      const int kh = b * hkv + kvh;
+      mbar_expect_tx(q_bar, L::kQTile);
+      for (int x = 0; x < L::kBoxes; ++x) {
+        tma_load(q_s + x * L::kQBox, &q_map, q_bar, x * kBoxCols, row_first,
+                 qh);
+      }
+      for (int it = 0; it < n_visit; ++it) {
+        const int st = it % L::kStages;
+        const int key0 = tile_of(it) * kN;
+        // the stage's previous tile released by every consumer warp (the
+        // first round passes at once)
+        mbar_wait(empty_bar(st), ((it / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full_bar(st), 2 * L::kTile);
+        for (int x = 0; x < L::kBoxes; ++x) {
+          tma_load(k_s(st) + x * kBoxBytes, &k_map, full_bar(st),
+                   x * kBoxCols, key0, kh);
+          tma_load(v_s(st) + x * kBoxBytes, &v_map, full_bar(st),
+                   x * kBoxCols, key0, kh);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4;  // in the warpgroup
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // accumulator row (and row + 8)
+  const int t = lane % 4;  // accumulator column pair
+  const int wg_first = row_first + wg * 64;      // the warpgroup's rows
+  const int wg_last = min(wg_first + 64, n) - 1;  // < wg_first: none real
+  const int row0 = wg_first + warp * 16 + g;
+  const int row1 = row0 + 8;
+  const int pos0 = row0 + q_offset;
+  const int pos1 = row1 + q_offset;
+  // the band: key j is in row i's band iff j > band(i) or j < sinks
+  const int band0 = pos0 - window;
+  const int band1 = pos1 - window;
+  const int first_pos = wg_first + q_offset;
+  const int last_pos = wg_last + q_offset;
+
+  mbar_wait(q_bar, 0);
+  // this warp's discipline (uniform in the warp): fixed-max keeps m at 0
+  bool fixed = kDisc == kFixed;
+  if constexpr (kDisc == kHybrid) {
+    // ||q_r||^2 of rows row0 and row1 from the swizzled Q tile (16-byte
+    // chunk c of tile row r lies at chunk c ^ (r % 8)): this thread's two
+    // chunks a box, then the row's four threads; then the max over the
+    // warp's 16 rows. Rows past n are zero-filled.
+    const int r = wg * 64 + warp * 16 + g;  // row1 is r + 8: the same swizzle
+    float n0 = 0.f, n1 = 0.f;
+#pragma unroll
+    for (int x = 0; x < L::kBoxes; ++x) {
+#pragma unroll
+      for (int c = 2 * t; c < 2 * t + 2; ++c) {
+        const uint8_t* p =
+            base_ptr + x * L::kQBox + r * 128 + ((c ^ (r % 8)) << 4);
+        n0 += sq_bf16x8(*reinterpret_cast<const uint4*>(p));
+        n1 += sq_bf16x8(*reinterpret_cast<const uint4*>(p + 8 * 128));
+      }
+    }
+    n0 += __shfl_xor_sync(0xffffffffu, n0, 1);
+    n0 += __shfl_xor_sync(0xffffffffu, n0, 2);
+    n1 += __shfl_xor_sync(0xffffffffu, n1, 1);
+    n1 += __shfl_xor_sync(0xffffffffu, n1, 2);
+    float nmax = fmaxf(n0, n1);
+    nmax = fmaxf(nmax, __shfl_xor_sync(0xffffffffu, nmax, 4));
+    nmax = fmaxf(nmax, __shfl_xor_sync(0xffffffffu, nmax, 8));
+    nmax = fmaxf(nmax, __shfl_xor_sync(0xffffffffu, nmax, 16));
+    const float bound = sqrtf(nmax) * fabsf(scale_log2) * __ldg(k_max);
+    fixed = bound < kSafeBound;  // false for a NaN or inf bound
+  }
+
+  float acc[D / 2];  // O: element 4 * nd + e at (row0 if e < 2 else row1,
+                     // column nd * 8 + 2t + (e & 1))
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[kN / 2];  // S, the same layout over the tile's 128 keys; then p
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
+  // running max, log2 domain (fixed-max: 0 for the row's whole life)
+  float m0 = fixed ? 0.f : kNegInf, m1 = m0;
+  float l0 = 0.f, l1 = 0.f;  // this thread's share of the row sums
+  uint32_t p_hi[kN / 16][4], p_lo[kN / 16][4];  // p as PV's A fragments
+  // The loop is software-pipelined: tile j's S = Q K^T goes out with tile
+  // j-1's O += P V, and tile j's softmax runs while that PV product is in
+  // flight; O's rescale by tile j's max waits for it. So tile j-1's p
+  // (p_hi/p_lo) and stage stay live across an iteration. Every wgmma issue
+  // and wait lies on control flow uniform in the warpgroup.
+  const auto issue_qk = [&](int st) {  // S = Q K^T, 16 dims (32 bytes) a step
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = kk % 4 * 32;
+      wgmma_ss_n128(
+          sc, desc(q_s + kk / 4 * L::kQBox + wg * 64 * 128 + col, 16, 1024),
+          desc(k_s(st) + kk / 4 * kBoxBytes + col, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V: the hi product, then the lo one, over 16 keys at a time (a
+  // 2048-byte step down V's rows); V's 64-dim boxes are the MN-major atoms,
+  // one box apart
+  const auto issue_pv = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      const uint64_t dv = desc(v_s(st) + kk * 2048, kBoxBytes, 1024);
+      wgmma_pv<D>(acc, p_hi[kk], dv);
+      wgmma_pv<D>(acc, p_lo[kk], dv);
+    }
+    wgmma_commit();
+  };
+  const auto release = [&](int st) {  // this warp is done with the stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar(st));
+  };
+  // The tile's softmax in one discipline (kF: fixed-max), with or without
+  // the mask, into sc in place: p = exp2(s - m), l sums p in f32. A masked
+  // score is -inf: it leaves the max alone (m starts at the finite NEG_INF
+  // and only rises, so it stays finite) and its p = exp2(-inf - m) is
+  // exactly 0, as the mma.sync kernel's second test of the mask made it,
+  // without keeping the tile's 64 mask bits live. Online, r0 and r1 are
+  // the factors O takes for the new max (1 for a fixed-max warp).
+  float r0 = 1.f, r1 = 1.f;
+  const auto softmax = [&](int key0, auto fixed_max, auto masked) {
+    constexpr bool kF = decltype(fixed_max)::value;
+    constexpr bool kMask = decltype(masked)::value;
+    // element e of n-tile nt: (row0 if e < 2 else row1,
+    // key0 + nt * 8 + 2t + (e & 1))
+    const auto visible = [&](int nt, int e) {
+      const int col = key0 + nt * 8 + 2 * t + (e & 1);
+      const int pos = e < 2 ? pos0 : pos1;
+      const int band = e < 2 ? band0 : band1;
+      return col < s && (!causal || (col <= pos && (!kWindow || col > band ||
+                                                    col < sinks)));
+    };
+    [[maybe_unused]] float tmax0 = kNegInf, tmax1 = kNegInf;  // online
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = sc[4 * nt + e];
+        if constexpr (kMask) {
+          x = visible(nt, e) ? x * scale_log2 : __int_as_float(0xff800000);
+        } else {
+          x *= scale_log2;
+        }
+        if constexpr (!kF) {
+          if (e < 2) {
+            tmax0 = fmaxf(tmax0, x);
+          } else {
+            tmax1 = fmaxf(tmax1, x);
+          }
+        }
+      }
+    }
+    if constexpr (!kF) {  // the online rescale (fixed-max: none)
+      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 1));
+      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 2));
+      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 1));
+      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 2));
+      const float mn0 = fmaxf(m0, tmax0);
+      const float mn1 = fmaxf(m1, tmax1);
+      r0 = exp2f(m0 - mn0);
+      r1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= r0;
+      l1 *= r1;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = sc[4 * nt + e];
+        x = kF ? exp2f(x) : exp2f(x - (e < 2 ? m0 : m1));
+      }
+      l0 += sc[4 * nt] + sc[4 * nt + 1];
+      l1 += sc[4 * nt + 2] + sc[4 * nt + 3];
+    }
+  };
+  // tile `it`'s softmax in this warp's discipline, masked unless every
+  // row of the warpgroup sees every key of it (uniform in the warpgroup):
+  // below s, below the first row's diagonal, and all sinks or inside the
+  // last row's band
+  const auto tile_softmax = [&](int it) {
+    const int key0 = tile_of(it) * kN;
+    const bool full = key0 + kN <= s &&
+                      (!causal || key0 + kN - 1 <= first_pos) &&
+                      (!kWindow || key0 + kN <= sinks ||
+                       key0 > last_pos - window);
+    const auto run = [&](auto masked) {
+      if constexpr (kDisc == kHybrid) {
+        if (fixed) {  // uniform in the warp; no wgmma inside
+          softmax(key0, Bool<true>{}, masked);
+        } else {
+          softmax(key0, Bool<false>{}, masked);
+        }
+      } else {
+        softmax(key0, Bool<kDisc == kFixed>{}, masked);
+      }
+    };
+    if (full) {
+      run(Bool<false>{});
+    } else {
+      run(Bool<true>{});
+    }
+  };
+  // O's rescale (online, and the hybrid's online warps), then p into the A
+  // fragments as a bf16 hi + lo pair: fragment kk holds keys 16kk..16kk+15,
+  // n-tiles 2kk and 2kk + 1
+  const auto to_fragments = [&] {
+    if (kDisc == kOnline || (kDisc == kHybrid && !fixed)) {
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        acc[4 * nd] *= r0;
+        acc[4 * nd + 1] *= r0;
+        acc[4 * nd + 2] *= r1;
+        acc[4 * nd + 3] *= r1;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int nt = 2 * kk + half;
+        split_bf16(sc[4 * nt], sc[4 * nt + 1], p_hi[kk][2 * half],
+                   p_lo[kk][2 * half]);
+        split_bf16(sc[4 * nt + 2], sc[4 * nt + 3], p_hi[kk][2 * half + 1],
+                   p_lo[kk][2 * half + 1]);
+      }
+    }
+  };
+  // Ping-pong (128-row blocks): the two warpgroups take turns to issue
+  // their products (named barriers 1 and 2 over 256 threads: one
+  // warpgroup waits there, the other arrives), so that one's softmax runs
+  // under the other's products. Warpgroup 1 lets warpgroup 0 go first and
+  // skips its last arrival, so that every arrival is waited for.
+  const int turn = 1 + wg;
+  const int other_turn = 2 - wg;
+  if (n_visit > 0) {
+    if (kPingPong && wg == 1) named_arrive(other_turn);
+    mbar_wait(full_bar(0), 0);
+    if (kPingPong) named_sync(turn);
+    wgmma_fence();
+    issue_qk(0);
+    if (kPingPong && (wg == 0 || n_visit > 1)) named_arrive(other_turn);
+    wgmma_wait<0>();
+    pin(sc);
+    tile_softmax(0);
+    to_fragments();
+    for (int it = 1; it < n_visit; ++it) {
+      const int st = it % L::kStages;
+      const int prev = (it - 1) % L::kStages;
+      mbar_wait(full_bar(st), (it / L::kStages) & 1);
+      if (kPingPong) named_sync(turn);
+      wgmma_fence();
+      issue_qk(st);
+      issue_pv(prev);
+      if (kPingPong && (wg == 0 || it + 1 < n_visit)) {
+        named_arrive(other_turn);
+      }
+      wgmma_wait<1>();  // S; the previous tile's PV may still run
+      pin(sc);
+      tile_softmax(it);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(sc);
+      release(prev);
+      to_fragments();
+    }
+    const int last = (n_visit - 1) % L::kStages;
+    wgmma_fence();
+    issue_pv(last);
+    wgmma_wait<0>();
+    pin(acc);
+    release(last);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // a row with no visible key has l == 0 and acc == 0: output 0, LSE NEG_INF
+  const float safe0 = l0 == 0.f ? 1.f : l0;
+  const float safe1 = l1 == 0.f ? 1.f : l1;
+  const size_t bh = (size_t)b * hq + h;
+  __nv_bfloat16* o_bh = o + bh * n * D;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (row0 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(o_bh + (size_t)row0 * D + c) =
+          __floats2bfloat162_rn(acc[4 * nd] / safe0, acc[4 * nd + 1] / safe0);
+    }
+    if (row1 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(o_bh + (size_t)row1 * D + c) =
+          __floats2bfloat162_rn(acc[4 * nd + 2] / safe1,
+                                acc[4 * nd + 3] / safe1);
+    }
+  }
+  if (t == 0) {
+    float* lse_bh = lse + bh * n;
+    if (row0 < n) lse_bh[row0] = l0 == 0.f ? kNegInf : m0 * kLn2 + logf(l0);
+    if (row1 < n) lse_bh[row1] = l1 == 0.f ? kNegInf : m1 * kLn2 + logf(l1);
+  }
+  if constexpr (kDisc == kFixed) {
+    if (gd.count != nullptr) {
+      // The fixed-max range guard, as flash_fwd_core.cuh's epilogue: a row
+      // breaches when l is not finite or leaves [2^-100, 2^120], or an
+      // element of its acc is not finite; only real rows count (row < n,
+      // and, when causal, a position >= 0). Each warp adds its count once.
+      int nf0 = 0, nf1 = 0;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        nf0 |= !isfinite(acc[4 * nd]) || !isfinite(acc[4 * nd + 1]);
+        nf1 |= !isfinite(acc[4 * nd + 2]) || !isfinite(acc[4 * nd + 3]);
+      }
+      nf0 |= __shfl_xor_sync(0xffffffffu, nf0, 1);
+      nf0 |= __shfl_xor_sync(0xffffffffu, nf0, 2);
+      nf1 |= __shfl_xor_sync(0xffffffffu, nf1, 1);
+      nf1 |= __shfl_xor_sync(0xffffffffu, nf1, 2);
+      // a breaching row counts unless it is paired and the other head of
+      // its KV pair set the pair's bit first
+      const auto counts = [&](int row, int pos, float l, int nf) {
+        if (t != 0 || row >= n || (causal && pos < 0)) return false;
+        if (!nf && isfinite(l) && l <= 0x1p120f && l >= 0x1p-100f) {
+          return false;
+        }
+        return gd.pairs == nullptr ||
+               fkp_fwd::first_of_pair(gd.pairs, b, h, hq, hkv, n, row);
+      };
+      const int cnt =
+          __popc(__ballot_sync(0xffffffffu, counts(row0, pos0, l0, nf0))) +
+          __popc(__ballot_sync(0xffffffffu, counts(row1, pos1, l1, nf1)));
+      if (lane == 0 && cnt > 0) atomicAdd(gd.count, cnt);
+    }
+  }
+}
+
+// What fkp_flash_fwd passes to the instance it launches.
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  void* lse;
+  const float* k_max;
+  GuardArgs gd;
+  int b, hq, hkv, n, s;
+  float scale_log2;
+  int causal, q_offset, window, sinks;
+  cudaStream_t stream;
+};
+
+// A TMA map over a contiguous bf16 [heads, rows, d] tensor with boxes of
+// box_rows rows x 64 dims, 128B-swizzled; rows past `rows` read as zeros.
+// The encoder, cuTensorMapEncodeTiled, lives in libcuda.so.1, which the
+// CUDA runtime has loaded; the library links the runtime only, so dlsym
+// finds it there. False if it fails.
+inline bool encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
+                       int heads, int box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static const Encode encode = []() -> Encode {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<Encode>(dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {kBoxCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches instance <D, kWindow, kDisc, kRows>; returns a CUDA error code
+// (the shared-memory attribute's, cudaErrorInvalidValue where a map cannot
+// be encoded, else cudaGetLastError() after the launch).
+template <int D, bool kWindow, int kDisc, int kRows>
+int launch(const FwdArgs& a) {
+  const auto kernel = &flash_fwd_sm90_kernel<D, kWindow, kDisc, kRows>;
+  constexpr int kBytes = Layout<D, kRows>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap qm, km, vm;
+  if (!encode_map(&qm, a.q, D, a.n, a.b * a.hq, kRows) ||
+      !encode_map(&km, a.k, D, a.s, a.b * a.hkv, kN) ||
+      !encode_map(&vm, a.v, D, a.s, a.b * a.hkv, kN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((a.n + kRows - 1) / kRows, a.hq, a.b);
+  kernel<<<grid, Block<kRows>::kThreads, kBytes, a.stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.lse),
+      a.hq, a.hkv, a.n, a.s, a.scale_log2, a.causal, a.q_offset, a.window,
+      a.sinks, a.k_max, a.gd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of 64 query rows where their grid fits in one wave of the card's
+// SMs (the serving prefill: 512 tokens at 16 q heads make 128 blocks), 128
+// elsewhere. A 64-row block has one consumer warpgroup, so no ping-pong,
+// and each K/V tile serves half the rows: on the H100 it ran 11-16% faster
+// than a 128-row one at 256 and 512 tokens and 19-37% slower from 1024 up
+// (PERF.md).
+inline int block_rows(const FwdArgs& a) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 128;
+  }
+  return (long long)((a.n + 63) / 64) * a.hq * a.b <= sms ? 64 : 128;
+}
+
+// The instances of one discipline, by d (64 or 128), band and block rows;
+// -1 for another d. flash_fwd.cu builds kOnline's, flash_fwd_fixed.cu
+// kFixed's and flash_fwd_hybrid.cu kHybrid's, each in its own nvcc process.
+template <int kDisc>
+int launch_disc(int d, const FwdArgs& a) {
+  const auto by_rows = [&](auto D, auto W) {
+    constexpr int kD = decltype(D)::value;
+    constexpr bool kW = decltype(W)::value;
+    return block_rows(a) == 64 ? launch<kD, kW, kDisc, 64>(a)
+                               : launch<kD, kW, kDisc, 128>(a);
+  };
+  const auto by_band = [&](auto D) {
+    return a.window > 0 ? by_rows(D, std::true_type{})
+                        : by_rows(D, std::false_type{});
+  };
+  if (d == 64) return by_band(std::integral_constant<int, 64>{});
+  if (d == 128) return by_band(std::integral_constant<int, 128>{});
+  return -1;
+}
+
+int launch_fixed(int d, const FwdArgs& a);   // flash_fwd_fixed.cu
+int launch_hybrid(int d, const FwdArgs& a);  // flash_fwd_hybrid.cu
+
+}  // namespace fkp_sm90

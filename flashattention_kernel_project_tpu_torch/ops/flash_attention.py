@@ -12,7 +12,8 @@ stable=True (the online running max), stable=False (fixed-max: m pinned at
 0, sound while every log2-domain score stays below 78) and stable="auto"
 (per block of rows, fixed-max where a Cauchy-Schwarz bound on the scores
 proves it sound, online elsewhere; the ragged forwards take it as True, as
-in JAX). On a CUDA tensor `_fwd` launches the hand-written Hopper kernel in
+in JAX). On a CUDA tensor `_fwd` launches the hand-written Hopper kernel of
+csrc/flash_fwd_sm90.cuh (wgmma, TMA and a K/V ring) through
 csrc/flash_fwd.cu (with pack=True kernel 2's counterpart, its fixed-max
 d=64 instance), `_fwd_q` the one in csrc/flash_fwd_q.cu (an 8-bit cache),
 `_fwd_ragged` the one in csrc/flash_fwd_ragged.cu (a bf16 cache) and
@@ -304,7 +305,7 @@ def _fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0, disc=ONLINE,
     counterpart, the fixed-max d=64 forward, counted in
     `_fwd.packed_launches` instead. The TPU pairs two KV heads
     block-diagonally so that a d=64 product fills its 128-deep matrix unit;
-    Hopper's 16-deep mma.sync needs no pairing, so this is the same
+    Hopper's wgmma is 16 deep and needs no pairing, so this is the same
     fixed-max d=64 instance.
 
     guard=True (disc FIXED only; ValueError otherwise, where JAX asserts):
