@@ -120,7 +120,18 @@ width, with random weights from a seed:
     hybrid with one breaching warp a warpgroup; and its time at bench.py's
     shape (each discipline, causal and full), d=64 (stable, packed,
     hybrid), the training band and the serving prefill, each in turns with
-    SDPA from CUDA graphs, with its bound and factor.
+    SDPA from CUDA graphs, with its bound and factor;
+  - the bf16 GEMM (kernels 13 and 14, csrc/gemm_sm90.cuh: wgmma, TMA and a
+    K ring): its two instances (128 x 256 and 128 x 128 tiles) built with
+    no spill and no wgmma serialized by ptxas, HGMMA and UTMALDG and no
+    HMMA.16816 in their SASS; on the ladder's path the aligned bf16 rungs
+    (4096^3, 8 x 1024^3, K = 136) must take it and the others (f32, K =
+    130, the epilogue) must not; matmul and batched_matmul at the edges of
+    its tiles (M, N off the tile, K not a multiple of 64 and K < 64, batch
+    3, more tiles than SMs, both tile widths), bf16 and f32 out, against
+    the plain version; and its time at 4096^3 (bf16 and f32 out) and
+    8 x 1024^3, each in turns with torch.matmul or torch.bmm from CUDA
+    graphs, with its bound and factor.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -384,14 +395,14 @@ def dense_rows(n: int, hq: int, b: int, sms: int) -> int:
     return 64 if -(-n // 64) * hq * b <= sms else 128
 
 
-def phase_fwd_sm90_build(build_log: str, label):
-    """The dense forward's 24 instances (d 64 and 128, without and with a
-    band, in the three disciplines, in blocks of 64 and 128 query rows) as
-    ptxas and the SASS show them: each
-    compiled, none spilling, none with wgmma instructions serialized by
-    ptxas, and in its source's object HGMMA (wgmma) and UTMALDG (TMA loads)
-    and no HMMA.16816 (mma.sync). Raises otherwise; cuobjdump must sit
-    beside nvcc, as for the probes' gate."""
+def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set):
+    """The instances of a wgmma kernel as ptxas and the SASS show them: each
+    compiled (`want`, as `instance` reads them from a symbol), none
+    spilling, none with wgmma instructions serialized by ptxas, and each in
+    the object of its source (objects: source -> whether an instance
+    belongs there) with HGMMA (wgmma) and UTMALDG (TMA loads) and no
+    HMMA.16816 (mma.sync). Raises otherwise; cuobjdump must sit beside
+    nvcc. Returns {instance: SASS counts}."""
     import subprocess
 
     from flashattention_kernel_project_tpu_torch.ops import _build
@@ -401,45 +412,198 @@ def phase_fwd_sm90_build(build_log: str, label):
         props = re.search(r"(?:Compiling entry function '|Function properties "
                           r"for )([^'\s]+)", line)
         if props:  # a spill line follows the function it is about
-            current = sm90_instance(props.group(1))
+            current = instance(props.group(1))
         elif current is not None and "spill stores" in line:
             spills[current] = line.strip()
             current = None
-        if "serialized" in line and SM90_KERNEL in line:
+        if "serialized" in line and kernel in line:
             raise AssertionError(f"ptxas serialized wgmma: {line.strip()}")
-    want = {(d, w, c, rows) for d in (64, 128) for w in (0, 1)
-            for c in (0, 1, 2) for rows in (64, 128)}
     if set(spills) != want:
-        raise AssertionError(f"dense forward instances built: {sorted(spills)}")
+        raise AssertionError(f"{kernel} instances built: {sorted(spills)}")
     for inst, line in sorted(spills.items()):
         if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
-            raise AssertionError(f"{SM90_KERNEL}{inst} spills: {line}")
+            raise AssertionError(f"{kernel}{inst} spills: {line}")
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the dense "
-                             "forward's SASS gate cannot run")
+        raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the SASS gate "
+                             f"of {kernel} cannot run")
     counts = {}
-    for disc, src in SM90_OBJECTS.items():
+    for src, belongs in objects.items():
         obj = os.path.join(_build.BUILD_DIR, src + ".o")
         sass = subprocess.run([tool, "-sass", obj], check=True,
                               capture_output=True, text=True, timeout=300).stdout
         for section in sass.split("Function : ")[1:]:
-            inst = sm90_instance(section.split("\n", 1)[0].strip())
+            inst = instance(section.split("\n", 1)[0].strip())
             if inst is None:
                 continue
-            if inst[2] != disc:
-                raise AssertionError(f"{SM90_KERNEL}{inst} built in {src}")
+            if not belongs(inst):
+                raise AssertionError(f"{kernel}{inst} built in {src}")
             ops = {op: section.count(op) for op in ("HGMMA", "UTMALDG",
                                                       "HMMA.16816")}
             if not ops["HGMMA"] or not ops["UTMALDG"] or ops["HMMA.16816"]:
-                raise AssertionError(f"{SM90_KERNEL}{inst} in {src}: {ops}")
+                raise AssertionError(f"{kernel}{inst} in {src}: {ops}")
             counts[inst] = ops
     if set(counts) != want:
-        raise AssertionError(f"dense forward instances in the SASS: {sorted(counts)}")
+        raise AssertionError(f"{kernel} instances in the SASS: {sorted(counts)}")
+    return counts
+
+
+def phase_fwd_sm90_build(build_log: str, label):
+    """The dense forward's 24 instances (d 64 and 128, without and with a
+    band, in the three disciplines, in blocks of 64 and 128 query rows)
+    through `wgmma_gate`, each discipline's in its own source's object."""
+    want = {(d, w, c, rows) for d in (64, 128) for w in (0, 1)
+            for c in (0, 1, 2) for rows in (64, 128)}
+    counts = wgmma_gate(
+        build_log, SM90_KERNEL, sm90_instance,
+        {src: (lambda inst, disc=disc: inst[2] == disc)
+         for disc, src in SM90_OBJECTS.items()}, want)
     log(f"dense forward: 24 instances (d, band, disc, rows) built with no spill and no "
         f"serialized wgmma; SASS (HGMMA, UTMALDG, HMMA.16816): "
         + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}"
                     for inst, c in sorted(counts.items())) + f" [{label}]")
+
+
+# The bf16 GEMM's wgmma instances (csrc/gemm_sm90.cuh): tiles of 128 x kBN
+GEMM_SM90_OBJECT = "gemm_sm90.cu"
+GEMM_SM90_KERNEL = "gemm_sm90_kernel"
+GEMM_SM90_TILES = (128, 256)
+
+
+def gemm_sm90_instance(sym: str):
+    """kBN of a gemm_sm90_kernel instance's symbol, or None for another
+    symbol."""
+    name, rest = mangled_name(sym)
+    if name != GEMM_SM90_KERNEL:
+        return None
+    return int(re.findall(r"L[ib](\d+)E", rest)[0])
+
+
+def phase_gemm_sm90_build(build_log: str, label):
+    """The bf16 GEMM's two wgmma instances (128 x 256 and 128 x 128 tiles)
+    through `wgmma_gate`, in gemm_sm90.cu's object."""
+    counts = wgmma_gate(build_log, GEMM_SM90_KERNEL, gemm_sm90_instance,
+                        {GEMM_SM90_OBJECT: lambda inst: True}, set(GEMM_SM90_TILES))
+    log("bf16 GEMM: 2 wgmma instances (128 x kBN) built with no spill and no "
+        "serialized wgmma; SASS (HGMMA, UTMALDG, HMMA.16816): "
+        + ", ".join(f"kBN {inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}"
+                    for inst, c in sorted(counts.items())) + f" [{label}]")
+
+
+def sm90_launches() -> int:
+    """The launches of the wgmma GEMM so far, over both wrappers."""
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    return g.matmul.sm90_launches + g.batched_matmul.sm90_launches
+
+
+def gemm_tile_n(batch: int, m: int, n: int) -> int:
+    """The tile width (128 or 256) the wgmma GEMM's entry picks for a call
+    of this shape on this card (csrc/gemm_sm90.cu)."""
+    import ctypes
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+
+    return _build.kernel("fkp_gemm_sm90_tile_n", [ctypes.c_int] * 3)(batch, m, n)
+
+
+# (batch, m, k, n) at the edges of the wgmma GEMM's 128-row tiles, 64-deep
+# slices and 128- or 256-column tiles: M, N off the tile, K not a multiple
+# of 64 and K < 64, batch 3 with a ragged M, an N tile of 8 live columns,
+# more tiles than SMs (a block walks several, the ring's phase carried
+# across them)
+GEMM_TILE_SHAPES = [
+    (1, 200, 136, 72), (1, 1000, 1000, 1000), (3, 200, 520, 264),
+    (1, 129, 8, 4104), (2, 1100, 328, 2056), (4, 520, 72, 4104),
+]
+
+
+def phase_gemm_tiles(device, label, shapes=GEMM_TILE_SHAPES):
+    """The wgmma GEMM (kernels 13 and 14) at the edges of its tiles, through
+    matmul (batch 1) and batched_matmul, bf16 operands to bf16 and to f32,
+    against `_matmul_plain` (bf16: rel-L2 BF16_TOL; f32: GEMM_F32_TOL and
+    GEMM_MAX_ABS). Each call must take the wgmma kernel (its counter rises
+    by one), and the shapes must take both tile widths."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    gen = torch.Generator(device=device).manual_seed(97)
+    bf, f32 = torch.bfloat16, torch.float32
+    widths = set()
+    for batch, m, k, n in shapes:
+        a = torch.randn(batch, m, k, generator=gen, device=device).to(bf)
+        b = torch.randn(batch, k, n, generator=gen, device=device).to(bf)
+        tile = gemm_tile_n(batch, m, n)
+        widths.add(tile)
+        for out in (bf, f32):
+            before = sm90_launches()
+            if batch == 1:
+                got = g.matmul(a[0], b[0], out_dtype=out)[None]
+            else:
+                got = g.batched_matmul(a, b, out_dtype=out)
+            took = sm90_launches() - before
+            want = g._matmul_plain(a, b, out)
+            torch.cuda.synchronize()
+            what = (f"wgmma GEMM {batch}x{m}x{k}x{n} -> "
+                    f"{'bf16' if out == bf else 'f32'} (128 x {tile} tiles)")
+            if took != 1:
+                raise AssertionError(f"{what}: {took} wgmma launches for one call")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{what}: non-finite output")
+            err = _rel_l2(got, want)
+            max_abs = float((got.float() - want.float()).abs().max())
+            ok = (err <= BF16_TOL if out == bf
+                  else err <= GEMM_F32_TOL and max_abs <= GEMM_MAX_ABS)
+            if not ok:
+                raise AssertionError(f"{what}: rel-L2 {err:.3e}, max-abs {max_abs:.3e}")
+            log(f"{what}: rel-L2 {err:.3e}, max-abs {max_abs:.3e} [{label}]")
+    if widths != set(GEMM_SM90_TILES):
+        raise AssertionError(f"the tile-edge shapes took tile widths {sorted(widths)}")
+
+
+def phase_gemm_sm90_times(device, label):
+    """The wgmma GEMM's time at run_all.py's rungs (4096^3 bf16 -> bf16 and
+    -> f32, 8 x 1024^3 bf16 -> bf16), each in turns with torch.matmul or
+    torch.bmm (bf16 out) on the same inputs, from CUDA graphs, with its
+    bound (2*M*N*K flops at 989 TFLOP/s, or the bytes), factor and share
+    of the bound. Returns {case: row}."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    gen = torch.Generator(device=device).manual_seed(101)
+    bf, f32 = torch.bfloat16, torch.float32
+    a = torch.randn(4096, 4096, generator=gen, device=device).to(bf)
+    b = torch.randn(4096, 4096, generator=gen, device=device).to(bf)
+    ab = torch.randn(8, 1024, 1024, generator=gen, device=device).to(bf)
+    bb = torch.randn(8, 1024, 1024, generator=gen, device=device).to(bf)
+    cases = [
+        ("4096^3 -> bf16", lambda: g.matmul(a, b, out_dtype=bf),
+         lambda: torch.matmul(a, b), (a, b), bf, 1),
+        ("4096^3 -> f32", lambda: g.matmul(a, b, out_dtype=f32),
+         lambda: torch.matmul(a, b), (a, b), f32, 1),
+        ("8 x 1024^3 -> bf16", lambda: g.batched_matmul(ab, bb, out_dtype=bf),
+         lambda: torch.bmm(ab, bb), (ab, bb), bf, 8),
+    ]
+    rows = {}
+    for name, kernel, library, (x, y), out, batch in cases:
+        before = sm90_launches()
+        c = kernel()
+        if sm90_launches() != before + 1:
+            raise AssertionError(f"wgmma GEMM {name}: the call took another kernel")
+        ms, lib_ms = time_pair(kernel, library, device)
+        flops = 2 * x.numel() * y.shape[-1]
+        bnd = bound(flops, nbytes(x, y, c))
+        tile = gemm_tile_n(batch, x.shape[-2], y.shape[-1])
+        rows[name] = dict(ms=ms, library_ms=lib_ms, factor=ms / lib_ms,
+                          bound_share=bnd["bound_ms"] / ms, tile_n=tile, **bnd)
+        log(f"wgmma GEMM {name} (128 x {tile} tiles): {ms:.4f} ms, "
+            f"{'torch.bmm' if batch > 1 else 'torch.matmul'} (bf16 out) "
+            f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}; {100 * bnd['bound_ms'] / ms:.1f}% of it), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s [{label}]")
+    return rows
 
 
 # (b, hq, hkv, n, s, d, causal, q_offset, window, sinks) at the edges of the
@@ -1475,7 +1639,7 @@ COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
                      resident="resident_launches", fallback="fallback_launches",
                      mxu="mxu_launches", q_int8="q_int8_launches",
                      guard="guard_launches", slots="slots_launches",
-                     copy_only="copy_only_launches")
+                     copy_only="copy_only_launches", sm90="sm90_launches")
 
 
 def reset_counters():
@@ -3333,6 +3497,7 @@ class Rung:
     beside: dict | None = None
     graph: bool = True
     empty: tuple = ()  # the rows that must be exactly 0 ("decode")
+    sm90: bool | None = None  # a GEMM call that must (not) take the wgmma kernel
 
 
 def ladder_rungs(device) -> list:
@@ -3355,7 +3520,8 @@ def ladder_rungs(device) -> list:
     def out_bytes(shape, dt):
         return int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
 
-    def gemm(label, a, b, out=f32, bias=None, res=None, timed=None, library=None):
+    def gemm(label, a, b, out=f32, bias=None, res=None, timed=None, library=None,
+             sm90=False):
         batched = a.dim() == 3
         kernel = ("gemm_fused_epilogue" if bias is not None
                   else "gemm_batched" if batched else "gemm")
@@ -3371,28 +3537,30 @@ def ladder_rungs(device) -> list:
         rungs.append(Rung(kernel, label, call, plain, "f32" if out == f32 else "bf16",
                           2 * a.numel() * b.shape[-1],
                           nbytes(a, b, *extra) + out_bytes(shape, out), peak[a.dtype],
-                          library, timed))
+                          library, timed, sm90=sm90))
 
-    # run_all.py:44-75
+    # run_all.py:44-75; the aligned bf16 products take the wgmma kernel
     a16, b16 = rand(4096, 4096, dtype=bf), rand(4096, 4096, dtype=bf)
     gemm("matmul bf16 4096^3 -> bf16", a16, b16, out=bf, timed="entry",
-         library=lambda: torch.matmul(a16, b16))
-    gemm("matmul bf16 4096^3 -> f32", a16, b16, timed="extra")
+         library=lambda: torch.matmul(a16, b16), sm90=True)
+    gemm("matmul bf16 4096^3 -> f32", a16, b16, timed="extra", sm90=True)
     a32, b32 = rand(2048, 2048), rand(2048, 2048)
     gemm("matmul f32 2048^3", a32, b32, timed="extra",
          library=lambda: torch.matmul(a32, b32))
     ab, bb = rand(8, 1024, 1024, dtype=bf), rand(8, 1024, 1024, dtype=bf)
     gemm("batched bf16 8x1024^3 -> bf16", ab, bb, out=bf, timed="entry",
-         library=lambda: torch.bmm(ab, bb))
+         library=lambda: torch.bmm(ab, bb), sm90=True)
     bias, res = rand(4096), rand(4096, 4096)
     gemm("fused epilogue bf16 4096^3 -> bf16", a16, b16, out=bf, bias=bias,
          res=res, timed="entry")
     # ragged: K = 130 (and 72 columns of bf16) take the element-wise loads,
-    # K = 132 (f32) and 136 (bf16) the 16-byte copies with zero-filled edges
+    # K = 132 (f32) the 16-byte copies with zero-filled edges, K = 136
+    # (bf16) the wgmma kernel's zero-filled TMA boxes
     for dt, ks in ((f32, (130, 132)), (bf, (130, 136))):
         name = "f32" if dt == f32 else "bf16"
         for k in ks:
-            gemm(f"matmul {name} 200x{k}x72", rand(200, k, dtype=dt), rand(k, 72, dtype=dt))
+            gemm(f"matmul {name} 200x{k}x72", rand(200, k, dtype=dt), rand(k, 72, dtype=dt),
+                 sm90=(dt, k) == (bf, 136))
     gemm("batched bf16 3x200x130x72", rand(3, 200, 130, dtype=bf), rand(3, 130, 72, dtype=bf))
     for dt, k in ((bf, 130), (f32, 132)):
         gemm(f"fused epilogue {'f32' if dt == f32 else 'bf16'} 200x{k}x72",
@@ -3683,7 +3851,7 @@ def phase_baseline_configs(device, label):
 
 
 LADDER_KERNELS = dict(  # entry name -> (source, the TPU kernel's def line)
-    gemm=("gemm.cu", "gemm.py:75"), gemm_batched=("gemm.cu", "gemm.py:172"),
+    gemm=("gemm_sm90.cuh", "gemm.py:75"), gemm_batched=("gemm_sm90.cuh", "gemm.py:172"),
     gemm_fused_epilogue=("gemm.cu", "gemm.py:250"),
     gemm_softmax=("gemm_softmax.cu", "gemm.py:334"),
     softmax=("softmax.cu", "softmax.py:44"),
@@ -3736,7 +3904,14 @@ def phase_ladder(device, label):
     rungs = ladder_rungs(device)
     torch.cuda.synchronize()
     reset_counters()
-    outs = [r.call() for r in rungs]
+    outs = []
+    for r in rungs:  # each GEMM call on the kernel its shape and type pick
+        before = sm90_launches()
+        outs.append(r.call())
+        took = sm90_launches() - before
+        if r.sm90 is not None and took != int(r.sm90):
+            raise AssertionError(f"{r.label}: {took} wgmma GEMM launches, "
+                                 f"{int(r.sm90)} expected")
     phase_baseline_configs(device, label)
     torch.cuda.synchronize()
     launches = read_counters()
@@ -3751,11 +3926,22 @@ def phase_ladder(device, label):
         entries[name] = dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
                              replaces=f"{TPU}/{replaces}", launches=got,
                              max_abs_err=0.0)
+    # kernels 13 and 14: the entries' launches are the wgmma kernel's
+    # (gemm_sm90.cuh), the rest went to the mma.sync core (f32, ragged K,
+    # the epilogue)
+    for name in ("gemm", "gemm_batched"):
+        sm90 = launches[f"{name}/sm90"]
+        if not sm90 > 0:
+            raise AssertionError(f"{name}: no wgmma launch on the ladder's path")
+        entries[name].update(launches=sm90,
+                             mma_sync_launches=entries[name]["launches"] - sm90)
     # every resident launch is followed by the gated rows launch
     if launches["gemm_softmax/fallback"] != launches["gemm_softmax/resident"]:
         raise AssertionError(f"{launches['gemm_softmax/fallback']} gated rows "
                              f"launches for {launches['gemm_softmax/resident']} resident")
-    log(f"ladder: kernel launches { {k: e['launches'] for k, e in entries.items()} }, "
+    log(f"ladder: kernel launches { {k: e['launches'] for k, e in entries.items()} } "
+        f"(gemm, gemm_batched: the wgmma kernel's; on the mma.sync core "
+        f"{ {k: entries[k]['mma_sync_launches'] for k in ('gemm', 'gemm_batched')} }), "
         f"gated rows launches {launches['gemm_softmax/fallback']} [{label}]")
     witness = {k: int(v) for k, v in WITNESS.items()}
     log(f"resident witness counts: {witness} [{label}]")
@@ -4619,6 +4805,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
     phase_fwd_sm90_build(build_log, label)
+    phase_gemm_sm90_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill
@@ -4700,6 +4887,14 @@ def main() -> int:
     # the GEMM and softmax ladder (run_all.py's GEMM and softmax rungs,
     # BASELINE configs 1-3), its own path with the counters at 0 before it
     ladder = phase_ladder(device, label)
+    # the wgmma GEMM (kernels 13 and 14) at its tiles' edges, then timed in
+    # turns with torch.matmul / torch.bmm
+    phase_gemm_tiles(device, label)
+    gemm_times = phase_gemm_sm90_times(device, label)
+    for entry in ladder:
+        if entry["name"] in ("gemm", "gemm_batched"):
+            entry["turns"] = {k: v for k, v in gemm_times.items()
+                              if (k.startswith("8 x")) == (entry["name"] == "gemm_batched")}
     # kernels 8 and 12 (q_int8) over int8 caches and kernel 1's range guard,
     # each its own path with the counters at 0 before it
     mxu, qi8 = phase_int8_products(device, label)

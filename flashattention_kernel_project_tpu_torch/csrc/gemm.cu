@@ -8,11 +8,15 @@
 // _fused_epilogue_kernel (matmul_fused_epilogue: the epilogue in f32 on the
 // accumulator before the single store). The TPU kernels walk K on a
 // sequential grid axis into a VMEM accumulator; here a block keeps its
-// 128 x 128 accumulator in registers and loops over K itself. The epilogue
-// is a template switch. The tile, its precision and its bound are described
-// in gemm_core.cuh.
+// accumulator in registers and loops over K itself. fkp_gemm takes one of
+// two kernels by the call's path (ops/gemm.py::gemm_path): two bf16
+// operands with no epilogue and aligned shapes go to the wgmma kernel of
+// gemm_sm90.cuh (built in gemm_sm90.cu); f32 operands, the fused epilogue
+// and unaligned shapes to gemm_kernel below, on gemm_core.cuh's mma.sync
+// and FFMA tiles of 128 x 128, the epilogue a template switch.
 
 #include "gemm_core.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -78,16 +82,26 @@ int launch(const void* a, const void* b, const Out& o, int batch, int k,
 
 // a [batch, m, k], b [batch, k, n] contiguous, both bf16 (bf16_in) or both
 // f32; c [batch, m, n] bf16 (bf16_out) or f32. epilogue: bias f32 [n] and
-// residual f32 [m, n] (batch 1), else both may be null. aligned: k and n are
-// multiples of 8 (bf16) or 4 (f32) elements and a, b are 16-byte aligned.
-// Returns cudaGetLastError() after the launch.
+// residual f32 [m, n] (batch 1), else both may be null. path: 0 reads
+// element by element (any shape); 1 copies 16-byte pieces (k and n
+// multiples of 8 (bf16) or 4 (f32) elements, a and b 16-byte aligned); 2
+// the wgmma kernel (gemm_sm90.cuh: path 1's alignment, bf16 operands, no
+// epilogue, k > 0; cudaErrorInvalidValue otherwise). Returns
+// cudaGetLastError() after the launch, or the wgmma launch's error code.
 extern "C" int fkp_gemm(const void* a, const void* b, void* c,
                         const void* bias, const void* residual, int batch,
                         int m, int n, int k, int bf16_in, int bf16_out,
-                        int epilogue, int aligned, void* stream) {
+                        int epilogue, int path, void* stream) {
   const Out o{c, static_cast<const float*>(bias),
               static_cast<const float*>(residual), m, n, bf16_out};
   const auto s = static_cast<cudaStream_t>(stream);
+  if (path == 2) {
+    if (!bf16_in || epilogue || k <= 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return fkp_gemm_sm90::launch_gemm(a, b, o, batch, k, s);
+  }
+  const int aligned = path;
   if (bf16_in) {
     return epilogue ? launch<__nv_bfloat16, true>(a, b, o, batch, k, aligned, s)
                     : launch<__nv_bfloat16, false>(a, b, o, batch, k, aligned, s);

@@ -1,9 +1,13 @@
-// The tiled GEMM shared by gemm.cu (C = A @ B over an optional leading
-// batch, with an optional ReLU(. + bias) + residual epilogue),
-// gemm_softmax.cu (the batched product with the row softmax in its
-// epilogue) and gemm_w8.cu (bf16 A times 8-bit B, a per-column scale in the
-// epilogue). A [M, K] and B [K, N] are row-major, as the TPU kernels take
-// them; a block computes one 128 x 128 tile of C with 256 threads (8 warps).
+// The mma.sync tiled GEMM shared by gemm.cu's gemm_kernel (C = A @ B over
+// an optional leading batch, with an optional ReLU(. + bias) + residual
+// epilogue: the calls with f32 operands, the fused epilogue or shapes that
+// are not aligned; an aligned bf16 call without an epilogue takes the
+// wgmma kernel of gemm_sm90.cuh instead), gemm_softmax.cu (the batched
+// product with the row softmax in its epilogue) and gemm_w8.cu (bf16 A
+// times 8-bit B, a per-column scale in the epilogue); gemm_sm90.cuh reads
+// Out and store2 from here. A [M, K] and B [K, N] are row-major, as the TPU
+// kernels take them; a block computes one 128 x 128 tile of C with 256
+// threads (8 warps).
 //
 // bf16 (the reference's cp.async double-buffered and tensor-core rungs):
 // 32-deep slices of A and B go to shared memory by cp.async, two stages, so
@@ -32,9 +36,11 @@
 // What bounds it on the H100: at the ladder's shapes (M = N = K >= 1024) a
 // GEMM does 2*M*N*K operations against 2*(M*K + K*N) + M*N*4 bytes, far
 // above the ridge, so the rate of tensor-core (bf16) or FFMA (float32)
-// instructions bounds it: 989 TFLOP/s bf16, 67 TFLOP/s float32 FFMA. Left
-// for later: wgmma and TMA (mma.sync reaches only part of the bf16 peak),
-// more stages, a persistent schedule.
+// instructions bounds it: 989 TFLOP/s bf16, 67 TFLOP/s float32 FFMA.
+// mma.sync reaches only part of the bf16 peak (23% at 4096^3); wgmma, TMA,
+// a deeper ring and a persistent schedule are gemm_sm90.cuh's, so far for
+// gemm.cu's aligned bf16 calls only: the fused epilogue, the softmax
+// epilogues and the 8-bit-weight GEMM still run this core.
 
 #pragma once
 

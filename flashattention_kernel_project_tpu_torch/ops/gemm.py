@@ -2,10 +2,13 @@
 products with f32 accumulation.
 
 Counterpart of flashattention_kernel_project_tpu/ops/gemm.py. On a CUDA
-tensor the products are the hand-written Hopper kernels: csrc/gemm.cu (one
-templated GEMM for `matmul`, `matmul_bf16`, `batched_matmul` and
-`matmul_fused_epilogue`, bf16 on the tensor cores and float32 in full
-float32, not TF32, as the TPU kernels run float32 at Precision.HIGHEST) and
+tensor the products are the hand-written Hopper kernels: csrc/gemm.cu's
+entry for `matmul`, `matmul_bf16`, `batched_matmul` and
+`matmul_fused_epilogue`, which takes one of two kernels by `gemm_path`:
+the wgmma kernel of csrc/gemm_sm90.cuh for two bf16 operands with no
+epilogue and aligned shapes, else the mma.sync core (bf16 on the tensor
+cores, float32 in full float32, not TF32, as the TPU kernels run float32 at
+Precision.HIGHEST) and
 csrc/gemm_softmax.cu (`batched_matmul_softmax_epilogue`: the two-sweep rows
 kernel, and with resident=True the one-sweep fixed-max kernel that falls
 back to it on the device). On a CPU tensor
@@ -46,6 +49,26 @@ def _aligned(*tensors) -> bool:
                for t in tensors)
 
 
+# fkp_gemm's paths (csrc/gemm.cu): the mma.sync core reading element by
+# element or in 16-byte pieces, or the wgmma kernel (csrc/gemm_sm90.cuh)
+PATH_ELEMENTWISE, PATH_ALIGNED, PATH_SM90 = 0, 1, 2
+
+
+def gemm_path(a_dtype, b_dtype, a_shape, b_shape, aligned: bool,
+              epilogue: bool) -> int:
+    """The kernel a CUDA call of the GEMMs takes, by type and shape alone
+    (fkp_gemm's `path`, a [.., M, K] @ b [.., K, N]): the wgmma kernel
+    (PATH_SM90) for two bf16 operands, no epilogue, K > 0 and `aligned`
+    operands (`_aligned`: K and N multiples of 8, 16-byte bases, which is
+    what a TMA map asks of a tensor); else the mma.sync core, in 16-byte
+    pieces where aligned (PATH_ALIGNED), element by element where not."""
+    if not aligned:
+        return PATH_ELEMENTWISE
+    if a_dtype == b_dtype == torch.bfloat16 and not epilogue and a_shape[-1] > 0:
+        return PATH_SM90
+    return PATH_ALIGNED
+
+
 @functools.cache
 def _gemm_kernel():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -54,8 +77,9 @@ def _gemm_kernel():
 
 def _gemm_cuda(wrapper, a, b, out_dtype, bias=None, residual=None):
     """C = a @ b (a [B, M, K], b [B, K, N]), through the epilogue when bias
-    and residual are given, launched on the current stream and counted in
-    `wrapper.launches`."""
+    and residual are given, launched on the current stream on the kernel
+    `gemm_path` picks, counted in `wrapper.launches` and, on the wgmma
+    kernel, also in `wrapper.sm90_launches`."""
     _check_types(a, b, out_dtype)
     a, b = a.contiguous(), b.contiguous()
     batch, m, k = a.shape
@@ -64,15 +88,19 @@ def _gemm_cuda(wrapper, a, b, out_dtype, bias=None, residual=None):
     if bias is not None:
         bias = bias.to(a.device, torch.float32).contiguous()
         residual = residual.to(a.device, torch.float32).contiguous()
+    path = gemm_path(a.dtype, b.dtype, a.shape, b.shape, _aligned(a, b),
+                     bias is not None)
     rc = _gemm_kernel()(
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
         batch, m, n, k, int(a.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), int(bias is not None),
-        int(_aligned(a, b)), torch.cuda.current_stream(a.device).cuda_stream,
+        int(out_dtype == torch.bfloat16), int(bias is not None), path,
+        torch.cuda.current_stream(a.device).cuda_stream,
     )
     wrapper.launches += 1
+    if path == PATH_SM90:
+        wrapper.sm90_launches += 1
     _build.check(rc, "gemm")
     return c
 
@@ -285,9 +313,12 @@ def batched_matmul_softmax_epilogue(
 
 
 # kernel launches, for showing that a path ran the kernels (matmul_bf16
-# counts in matmul's)
+# counts in matmul's); `.sm90_launches` counts those of `.launches` that
+# took the wgmma kernel
 matmul.launches = 0
+matmul.sm90_launches = 0
 batched_matmul.launches = 0
+batched_matmul.sm90_launches = 0
 matmul_fused_epilogue.launches = 0
 batched_matmul_softmax_epilogue.launches = 0
 batched_matmul_softmax_epilogue.resident_launches = 0

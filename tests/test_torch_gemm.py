@@ -14,6 +14,7 @@ from flashattention_kernel_project_tpu import ops as jops
 from flashattention_kernel_project_tpu.utils import oracles as joracles
 from flashattention_kernel_project_tpu.utils import testing as jtesting
 from flashattention_kernel_project_tpu_torch import ops
+from flashattention_kernel_project_tpu_torch.ops import gemm as tgemm
 from flashattention_kernel_project_tpu_torch.runtime import native
 from flashattention_kernel_project_tpu_torch.utils import oracles, testing
 from flashattention_kernel_project_tpu_torch.utils.testing import (
@@ -204,6 +205,45 @@ def test_gemm_shape_errors(call):
         else:
             ops.batched_matmul_softmax_epilogue(a[None], torch.zeros(1, 8, 5),
                                                 torch.zeros(6))
+
+
+def _operands(case):
+    """(a, b) of a dispatch case, CPU tensors of its shapes and types."""
+    bf, f32 = torch.bfloat16, torch.float32
+    if case == "offset view":  # a contiguous view 2 bytes past an aligned base
+        buf = torch.empty(256 * 256 + 1, dtype=bf)
+        return buf[1:].view(1, 256, 256), torch.empty(1, 256, 256, dtype=bf)
+    (bm, m, k, n), dt = {
+        "4096^3 bf16": ((1, 4096, 4096, 4096), bf),
+        "8 x 1024^3 bf16": ((8, 1024, 1024, 1024), bf),
+        "K 136, N 72 bf16": ((1, 200, 136, 72), bf),
+        "K 130 bf16": ((1, 200, 130, 72), bf),
+        "N 75 bf16": ((1, 200, 136, 75), bf),
+        "K 0 bf16": ((1, 200, 0, 72), bf),
+        "2048^3 f32": ((1, 2048, 2048, 2048), f32),
+        "epilogue bf16": ((1, 256, 256, 256), bf),
+    }[case]
+    return torch.empty(bm, m, k, dtype=dt), torch.empty(bm, k, n, dtype=dt)
+
+
+@pytest.mark.parametrize("case,path", [
+    ("4096^3 bf16", "sm90"), ("8 x 1024^3 bf16", "sm90"),
+    ("K 136, N 72 bf16", "sm90"), ("K 130 bf16", "elementwise"),
+    ("N 75 bf16", "elementwise"), ("K 0 bf16", "aligned"),
+    ("2048^3 f32", "aligned"), ("epilogue bf16", "aligned"),
+    ("offset view", "elementwise"),
+])
+def test_gemm_path(case, path):
+    """Which kernel a CUDA call takes (gemm_path, by type and shape alone):
+    the wgmma kernel for two bf16 operands, no epilogue, K > 0, K and N
+    multiples of 8 and 16-byte bases; the mma.sync core otherwise, in
+    16-byte pieces where aligned."""
+    a, b = _operands(case)
+    want = dict(sm90=tgemm.PATH_SM90, aligned=tgemm.PATH_ALIGNED,
+                elementwise=tgemm.PATH_ELEMENTWISE)[path]
+    got = tgemm.gemm_path(a.dtype, b.dtype, a.shape, b.shape, tgemm._aligned(a, b),
+                          epilogue=case == "epilogue bf16")
+    assert got == want
 
 
 @pytest.mark.parametrize("config", [1, 2])
