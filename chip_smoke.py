@@ -131,7 +131,21 @@ width, with random weights from a seed:
     3, more tiles than SMs, both tile widths), bf16 and f32 out, against
     the plain version; and its time at 4096^3 (bf16 and f32 out) and
     8 x 1024^3, each in turns with torch.matmul or torch.bmm from CUDA
-    graphs, with its bound and factor.
+    graphs, with its bound and factor;
+  - the backward (kernels 4 and 5, csrc/flash_bwd_sm90.cuh: kernel A, dK
+    and dV and in the fused-dq schedule dQ's partials, summed by TMA
+    reduce-adds; csrc/flash_bwd_dq_sm90.cuh: kernel B, dQ alone): its 12
+    instances built with no spill and no wgmma serialized by ptxas, HGMMA
+    and UTMALDG and no HMMA.16816 in their SASS; both dq schedules at the
+    edges of its tiles (kernel A's 128-key blocks and 64-row query tiles,
+    kernel B's 128-row blocks and 64-key tiles: n and s off the tiles,
+    q_offset with n < s, rows before the first key with dq = 0 exactly,
+    sinks wider than a tile, d 64 and 128, GQA groups 1-8) against the
+    plain version and, at most 4 x 256 x 256 pairs, the float64 oracle;
+    and `_bwd` in each schedule at the training shape, bench.py's b = 1,
+    d = 64 and the training band, in turns with SDPA's backward, from
+    CUDA graphs, with its bounds (5 and 7 products) and factor; the
+    training phases count which schedule trained.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -1319,24 +1333,55 @@ def phase_paged_extend_8bit(device, shapes, label):
     return entry
 
 
+def bwd_entries(src_suffix=""):
+    """The JSON entries of rows 4 (kernel A, csrc/flash_bwd_sm90.cuh) and 5
+    (kernel B, csrc/flash_bwd_dq_sm90.cuh), `src_suffix` after their
+    names."""
+    src = f"{TPU}/flash_attention.py"
+    return (dict(name=f"flash_bwd_dkdv{src_suffix}", route="cuda",
+                 source=f"{PKG}/csrc/flash_bwd_sm90.cuh", replaces=f"{src}:1949",
+                 max_abs_err=0.0),
+            dict(name=f"flash_bwd_dq{src_suffix}", route="cuda",
+                 source=f"{PKG}/csrc/flash_bwd_dq_sm90.cuh", replaces=f"{src}:2203",
+                 max_abs_err=0.0))
+
+
+def hold_bwd(what, grads, plain, entries, fuse):
+    """dq, dk and dv of one `_bwd` call against plain: bf16, finite,
+    rel-L2 within O_TOL; the max-abs errors go to the entries (kernel A's
+    dk and dv and, fused, its dq; else kernel B's dq). Returns the
+    rel-L2s."""
+    import torch
+
+    errs = []
+    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: {name} is not finite")
+        err = _rel_l2(got, want)
+        if not err <= O_TOL:
+            raise AssertionError(f"{what}: {name} rel-L2 {err:.3e} > {O_TOL}")
+        errs.append(err)
+        entry = entries[1] if name == "dq" and not fuse else entries[0]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   float((got.float() - want.float()).abs().max()))
+    return errs
+
+
 def phase_backward(device, shapes, label, entry_shape):
-    """The two backward kernels against `_bwd_plain`, bf16, on the same
-    (o, lse) from the forward kernel, at each (b, hq, hkv, n, s, d, causal,
-    q_offset); small shapes also against the float64 oracle. Returns the
-    kernels' JSON entries, timed at shapes[entry_shape]."""
+    """The backward in both dq schedules against `_bwd_plain`, bf16, on the
+    same (o, lse) from the forward kernel, at each (b, hq, hkv, n, s, d,
+    causal, q_offset); small shapes also against the float64 oracle.
+    Returns the kernels' JSON entries (row 4: kernel A, row 5: kernel B),
+    timed at shapes[entry_shape]: kernel A alone and with the fused dq,
+    kernel B, each against its bound."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
     from flashattention_kernel_project_tpu_torch.utils import oracles
 
     gen = torch.Generator(device=device).manual_seed(13)
-    src = "flashattention_kernel_project_tpu/ops/flash_attention.py"
-    dkdv = dict(name="flash_bwd_dkdv", route="cuda",
-                source=f"{PKG}/csrc/flash_bwd_dkdv.cu", replaces=f"{src}:1949",
-                max_abs_err=0.0)
-    dq_e = dict(name="flash_bwd_dq", route="cuda",
-                source=f"{PKG}/csrc/flash_bwd_dq.cu", replaces=f"{src}:2203",
-                max_abs_err=0.0)
+    dkdv, dq_e = entries = bwd_entries()
     for i, (b, hq, hkv, n, s, d, causal, q_offset) in enumerate(shapes):
         q, do = (torch.randn(b, hq, n, d, generator=gen, device=device).bfloat16()
                  for _ in range(2))
@@ -1344,53 +1389,51 @@ def phase_backward(device, shapes, label, entry_shape):
                 for _ in range(2))
         scale = d ** -0.5
         o, lse = fa._fwd(q, k, v, causal, scale, q_offset)
-        grads = fa._bwd(q, k, v, o, lse, do, causal, scale, q_offset)
         plain = fa._bwd_plain(q, k, v, o, lse, do, causal, scale, q_offset)
-        torch.cuda.synchronize()
-        errs = []
-        for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
-            assert got.shape == want.shape and got.dtype == torch.bfloat16
-            assert torch.isfinite(got).all(), f"{name} is not finite"
-            err = _rel_l2(got, want)
-            if not err <= O_TOL:
-                raise AssertionError(f"backward {name} rel-L2 {err:.3e} > {O_TOL}")
-            errs.append(err)
-            max_abs = float((got.float() - want.float()).abs().max())
-            entry = dq_e if name == "dq" else dkdv
-            entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
-        del plain
-        oracle = ""
-        if b * hq * n * s <= 16 * 1024 * 1024:
-            exp = oracles.gqa_attention_grads(
-                *(x.float().cpu().numpy() for x in (q, k, v, do)),
-                causal=causal, q_offset=q_offset)
-            oerrs = [_rel_l2(got, torch.from_numpy(want))
-                     for got, want in zip(grads, exp)]
-            if not max(oerrs) <= O_TOL:
-                raise AssertionError(f"backward vs float64 oracle rel-L2 {oerrs}")
-            oracle = " | vs float64 " + " ".join(f"{e:.2e}" for e in oerrs)
-        del grads
-        args = (q, k, v, do, lse, (o.float() * do.float()).sum(-1), causal,
-                scale, q_offset)
-        iters = 1 if b * hq * n * s > 16 * 1024 * 1024 else 10
+        shape = (f"b{b} hq{hq} hkv{hkv} n{n} s{s} d{d} causal={causal} "
+                 f"q_offset={q_offset}")
+        small = b * hq * n * s <= 16 * 1024 * 1024
+        exp = (oracles.gqa_attention_grads(
+            *(x.float().cpu().numpy() for x in (q, k, v, do)), causal=causal,
+            q_offset=q_offset) if small else None)
+        line = []
+        for fuse in (True, False):
+            grads = fa._bwd(q, k, v, o, lse, do, causal, scale, q_offset,
+                            fuse_dq=fuse)
+            torch.cuda.synchronize()
+            errs = hold_bwd(f"backward (fuse_dq={fuse}) {shape}", grads, plain,
+                            entries, fuse)
+            oracle = ""
+            if exp is not None:
+                oerrs = [_rel_l2(got, torch.from_numpy(want))
+                         for got, want in zip(grads, exp)]
+                if not max(oerrs) <= O_TOL:
+                    raise AssertionError(f"backward (fuse_dq={fuse}) vs float64 "
+                                         f"oracle rel-L2 {oerrs}")
+                oracle = " | vs float64 " + " ".join(f"{e:.2e}" for e in oerrs)
+            line.append(f"fuse_dq={fuse}: rel-L2 dq {errs[0]:.2e} dk {errs[1]:.2e} "
+                        f"dv {errs[2]:.2e}{oracle}")
+            del grads
+        del plain, exp
+        args = (q, k, v, do, *fa._bwd_rows(lse, o, do), causal, scale, q_offset)
+        iters = 1 if not small else 10
         p1 = time_ms(lambda: fa._bwd_plain(q, k, v, o, lse, do, causal, scale,
                                            q_offset), device, iters)
         kv_ms = time_ms(lambda: fa._dkdv_cuda(*args), device, iters)
+        fused_ms = time_ms(lambda: fa._fused_cuda(*args), device, iters)
         dq_ms = time_ms(lambda: fa._dq_cuda(*args), device, iters)
         bwd_ms = time_ms(lambda: fa._bwd(q, k, v, o, lse, do, causal, scale,
                                          q_offset), device, iters)
         p2 = time_ms(lambda: fa._bwd_plain(q, k, v, o, lse, do, causal, scale,
                                            q_offset), device, iters)
         plain_ms = min(p1, p2)
-        flops = 10 * b * hq * n * s * d * (0.5 if causal and n == s else 1.0)
-        log(f"flash_bwd b{b} hq{hq} hkv{hkv} n{n} s{s} d{d} causal={causal} "
-            f"q_offset={q_offset}: rel-L2 dq {errs[0]:.2e} dk {errs[1]:.2e} "
-            f"dv {errs[2]:.2e}{oracle} | dkdv {kv_ms:.4f} ms, dq {dq_ms:.4f} "
-            f"ms, _bwd with delta {bwd_ms:.4f} ms "
-            f"({flops / bwd_ms / 1e9:.1f} TFLOP/s) vs plain {plain_ms:.4f} ms "
-            f"[{label}]")
+        pairs = b * hq * visible_pairs(n, s, q_offset, causal)
+        log(f"flash_bwd {shape}: " + "; ".join(line) + f" | kernel A {kv_ms:.4f} "
+            f"ms, with the fused dq {fused_ms:.4f} ms, kernel B {dq_ms:.4f} ms, "
+            f"_bwd (default, with delta) {bwd_ms:.4f} ms "
+            f"({10 * d * pairs / bwd_ms / 1e9:.1f} TFLOP/s at 5 products) vs "
+            f"plain {plain_ms:.4f} ms [{label}]")
         if i == entry_shape:
-            shape = f"b{b} hq{hq} hkv{hkv} n{n} s{s} d{d} causal={causal}"
             # the library: autograd's backward through one SDPA call, which
             # gives dq, dk and dv together (both rows carry its time)
             qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -1398,19 +1441,226 @@ def phase_backward(device, shapes, label, entry_shape):
             library_ms = time_ms(lambda: torch.autograd.grad(
                 out, (qg, kg, vg), do, retain_graph=True), device, iters)
             del out, qg, kg, vg
-            # dK/dV: S, dP, dV, dK; dq: S, dP, dQ (2*d operations each per
-            # visible pair); each reads q, k, v, do, lse, delta
-            pairs = b * hq * visible_pairs(n, s, q_offset, causal)
+            # kernel A: S, dP, dV, dK (and dQ fused); kernel B: S, dP, dQ
+            # (2*d operations each per visible pair); each reads q, k, v,
+            # do, lse, delta
             reads = nbytes(q, k, v, do, lse, lse)
+            fused = bound(10 * d * pairs, reads + nbytes(k, v) + 2 * nbytes(q))
             dkdv.update(ms=kv_ms, plain_ms=plain_ms, library_ms=library_ms,
-                        **bound(8 * d * pairs, reads + nbytes(k, v)), shape=shape)
+                        **bound(8 * d * pairs, reads + nbytes(k, v)), shape=shape,
+                        fused_ms=fused_ms, fused_bound_ms=fused["bound_ms"])
             dq_e.update(ms=dq_ms, plain_ms=plain_ms, library_ms=library_ms,
                         **bound(6 * d * pairs, reads + nbytes(q)), shape=shape)
-            log(f"flash_bwd at the entries' shape: bound dkdv "
-                f"{dkdv['bound_ms']:.4f} ms ({dkdv['bound_by']}), dq "
-                f"{dq_e['bound_ms']:.4f} ms ({dq_e['bound_by']}), SDPA "
-                f"backward {library_ms:.4f} ms")
+            log(f"flash_bwd at the entries' shape: bound kernel A "
+                f"{dkdv['bound_ms']:.4f} ms ({dkdv['bound_by']}; "
+                f"{100 * dkdv['bound_ms'] / kv_ms:.1f}% of it), with the fused "
+                f"dq {fused['bound_ms']:.4f} ms "
+                f"({100 * fused['bound_ms'] / fused_ms:.1f}%), kernel B "
+                f"{dq_e['bound_ms']:.4f} ms ({dq_e['bound_by']}; "
+                f"{100 * dq_e['bound_ms'] / dq_ms:.1f}%), SDPA backward "
+                f"{library_ms:.4f} ms")
     return dkdv, dq_e
+
+
+# The backward's wgmma instances: kernel A (csrc/flash_bwd_sm90.cuh) by
+# (d, band, kFuseDq), each (d, kFuseDq) in a source of its own; kernel B
+# (csrc/flash_bwd_dq_sm90.cuh) by (d, band), each d in its own
+BWD_KERNEL = "flash_bwd_sm90_kernel"
+BWD_DQ_KERNEL = "flash_bwd_dq_sm90_kernel"
+BWD_OBJECTS = {"flash_bwd_kv64.cu": (64, 0), "flash_bwd_kv128.cu": (128, 0),
+               "flash_bwd_fused64.cu": (64, 1), "flash_bwd_fused128.cu": (128, 1)}
+BWD_DQ_OBJECTS = {"flash_bwd_dq64.cu": 64, "flash_bwd_dq128.cu": 128}
+
+
+def template_args(kernel: str, count: int):
+    """A reader of `kernel`'s symbols: its first `count` integer template
+    arguments, or None for another symbol."""
+    def read(sym: str):
+        name, rest = mangled_name(sym)
+        if name != kernel:
+            return None
+        return tuple(int(a) for a in re.findall(r"L[ib](\d+)E", rest)[:count])
+    return read
+
+
+def phase_bwd_sm90_build(build_log: str, label):
+    """The backward's 12 wgmma instances through `wgmma_gate`: kernel A's 8
+    (d 64 and 128, without and with a band, without and with the fused
+    dq), each (d, kFuseDq) in its own source's object, and kernel B's 4
+    (d, band), each d in its own."""
+    a = wgmma_gate(build_log, BWD_KERNEL, template_args(BWD_KERNEL, 3),
+                   {src: (lambda inst, df=df: (inst[0], inst[2]) == df)
+                    for src, df in BWD_OBJECTS.items()},
+                   {(d, w, fu) for d in (64, 128) for w in (0, 1) for fu in (0, 1)})
+    b = wgmma_gate(build_log, BWD_DQ_KERNEL, template_args(BWD_DQ_KERNEL, 2),
+                   {src: (lambda inst, d=d: inst[0] == d)
+                    for src, d in BWD_DQ_OBJECTS.items()},
+                   {(d, w) for d in (64, 128) for w in (0, 1)})
+    log("backward: kernel A's 8 instances (d, band, fused dq) and kernel B's 4 "
+        "(d, band) built with no spill and no serialized wgmma; SASS (HGMMA, "
+        "UTMALDG, HMMA.16816): "
+        + ", ".join(f"A{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}"
+                    for inst, c in sorted(a.items())) + "; "
+        + ", ".join(f"B{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}"
+                    for inst, c in sorted(b.items())) + f" [{label}]")
+
+
+# (b, hq, hkv, n, s, d, causal, q_offset, window, sinks) at the edges of the
+# backward's tiles: kernel A's 128-key blocks and 64-row query tiles,
+# kernel B's 128-row blocks and 64-key tiles; GQA groups 1, 2, 4 and 8
+BWD_TILE_SHAPES = [
+    (1, 2, 1, 200, 333, 128, False, 0, 0, 0),    # n, s off the tiles
+    (2, 4, 1, 200, 333, 64, False, 0, 0, 0),
+    (1, 4, 4, 130, 300, 64, True, 170, 0, 0),    # q_offset with n < s
+    (1, 4, 2, 300, 700, 128, True, 400, 0, 0),
+    (1, 4, 2, 1024, 1024, 128, True, 0, 256, 200),  # sinks wider than a tile
+    (1, 4, 2, 1024, 1024, 64, True, 0, 256, 200),
+    (1, 8, 1, 256, 256, 64, True, 0, 100, 150),
+    (1, 2, 1, 100, 100, 128, True, -50, 0, 0),   # rows before the first key
+    (1, 8, 1, 300, 300, 64, True, -70, 0, 0),
+    (2, 4, 1, 520, 520, 128, True, 0, 0, 0),     # more tiles than one block
+]
+
+
+def phase_bwd_tiles(device, label, shapes=BWD_TILE_SHAPES):
+    """The backward (kernels A and B) at the edges of its tiles, in both dq
+    schedules, against `_bwd_plain` (rel-L2 O_TOL) and, at most 4 x 256 x
+    256 (query, key) pairs without a window, the float64 oracle; each call
+    counted in its schedule's counter, and dq exactly 0 for the rows that
+    see no key."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+    from flashattention_kernel_project_tpu_torch.utils import oracles
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(67)
+    worst = {True: 0.0, False: 0.0}
+    entries = bwd_entries()
+    n_oracle = 0
+    for b, hq, hkv, n, s, d, causal, q_off, win, sinks in shapes:
+        q, do = (torch.randn(b, hq, n, d, generator=gen, device=device).bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
+                for _ in range(2))
+        band = (causal, d ** -0.5, q_off, win, sinks)
+        o, lse = fa._fwd(q, k, v, *band)
+        plain = fa._bwd_plain(q, k, v, o, lse, do, *band)
+        exp = None
+        if not win and b * hq * n * s <= 4 * 256 * 256:
+            exp = oracles.gqa_attention_grads(
+                *(x.float().cpu().numpy() for x in (q, k, v, do)), causal=causal,
+                q_offset=q_off)
+            n_oracle += 1
+        for fuse in (True, False):
+            what = (f"backward (fuse_dq={fuse}) b{b} hq{hq} hkv{hkv} n{n} s{s} "
+                    f"d{d} causal={causal} q_offset={q_off} window={win} "
+                    f"sinks={sinks}")
+            before = fa._bwd.fused_launches, fa._bwd.split_launches
+            grads = fa._bwd(q, k, v, o, lse, do, *band, fuse_dq=fuse)
+            torch.cuda.synchronize()
+            took = (fa._bwd.fused_launches - before[0],
+                    fa._bwd.split_launches - before[1])
+            if took != ((1, 0) if fuse else (0, 1)):
+                raise AssertionError(f"{what}: schedule counters moved by {took}")
+            errs = hold_bwd(what, grads, plain, entries, fuse)
+            worst[fuse] = max(worst[fuse], *errs)
+            if exp is not None:
+                oerrs = [_rel_l2(got, torch.from_numpy(want))
+                         for got, want in zip(grads, exp)]
+                if not max(oerrs) <= O_TOL:
+                    raise AssertionError(f"{what}: rel-L2 {oerrs} from the "
+                                         "float64 oracle")
+            if q_off < 0 and grads[0][:, :, :min(-q_off, n)].any():
+                raise AssertionError(f"{what}: dq of a row that sees no key is "
+                                     "not 0")
+    log(f"backward at tile edges ({len(shapes)} shapes, both dq schedules; the "
+        f"oracle at {n_oracle} shapes of <= 4x256x256 pairs): worst rel-L2 vs "
+        f"plain fused {worst[True]:.3e}, two-kernel {worst[False]:.3e}; dq = 0 "
+        f"exactly where a row sees no key ({time.perf_counter() - t0:.1f} s) "
+        f"[{label}]")
+
+
+def sdpa_backward_ms(q, k, v, do, mask, causal, device):
+    """SDPA's backward on (q, k, v, do): the time of one forward and
+    backward through autograd less that of the forward alone, both from
+    CUDA graphs (the capture holds the autograd graph's own ops), or eager
+    where the capture fails; returns (ms, how it was timed)."""
+    import torch
+
+    fwd = sdpa_fn(q, k, v, mask=mask, causal=causal)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    both = sdpa_fn(qg, kg, vg, mask=mask, causal=causal)
+    step = lambda: torch.autograd.grad(both(), (qg, kg, vg), do)  # noqa: E731
+    try:
+        return time_ms(step, device, graph=True) - time_ms(fwd, device, graph=True), \
+            "CUDA graphs"
+    except RuntimeError as e:
+        log(f"SDPA's forward and backward did not capture ({e}); timed eager")
+        torch.cuda.synchronize()
+        return time_ms(step, device) - time_ms(fwd, device), "eager"
+
+
+def phase_bwd_sm90_times(device, label):
+    """`_bwd` in each dq schedule in turns with SDPA's backward (forward
+    and backward less the forward), from CUDA graphs: the training shape
+    (4 x 16/4 heads x 4096 x 128, causal), bench.py's b = 1, d = 64 and the
+    training band (window 1024, 64 sinks; SDPA with the band as a boolean
+    mask). Each with its bounds (10*d flops a visible pair for the fused
+    schedule's 5 products, 14*d for the two-kernel one's 7, at 989
+    TFLOP/s, or the bytes), factor against SDPA and share of the bound,
+    and the time of the plain torch around the kernels (`_bwd_rows`).
+    Returns {case: row}."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(71)
+    cases = [  # name, (b, n, d, window, sinks)
+        ("training shape", (4, 4096, 128, 0, 0)),
+        ("bench.py's b=1", (1, 4096, 128, 0, 0)),
+        ("d=64", (4, 4096, 64, 0, 0)),
+        (f"training band ({TRAIN_WINDOW}, {TRAIN_SINKS} sinks)",
+         (4, 4096, 128, TRAIN_WINDOW, TRAIN_SINKS)),
+    ]
+    rows = {}
+    for name, (b, n, d, win, sinks) in cases:
+        q, do = (torch.randn(b, 16, n, d, generator=gen, device=device).bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(b, 4, n, d, generator=gen, device=device).bfloat16()
+                for _ in range(2))
+        band = (True, d ** -0.5, 0, win, sinks)
+        o, lse = fa._fwd(q, k, v, *band)
+        mask = band_mask(n, n, 0, win, sinks, device) if win else None
+        sdpa1, how = sdpa_backward_ms(q, k, v, do, mask, not win, device)
+        ms = {}
+        for fuse in (True, False, False, True):
+            t = time_ms(lambda: fa._bwd(q, k, v, o, lse, do, *band, fuse_dq=fuse),
+                        device, graph=True)
+            ms[fuse] = min(ms.get(fuse, t), t)
+        sdpa2, _ = sdpa_backward_ms(q, k, v, do, mask, not win, device)
+        sdpa = min(sdpa1, sdpa2)
+        # the plain torch `_bwd` runs around its kernels: lse * log2(e),
+        # delta = rowsum(o * do) in float32, their pads
+        rows_ms = time_ms(lambda: fa._bwd_rows(lse, o, do), device, graph=True)
+        pairs = b * 16 * band_pairs(n, n, 0, win, sinks)
+        moved = nbytes(q, k, v, o, lse, do) + nbytes(q, k, v)
+        five, seven = bound(10 * d * pairs, moved), bound(14 * d * pairs, moved)
+        rows[name] = dict(fused_ms=ms[True], split_ms=ms[False], sdpa_ms=sdpa,
+                          sdpa_timed=how, torch_ms=rows_ms,
+                          bound5_ms=five["bound_ms"], bound7_ms=seven["bound_ms"])
+        log(f"backward, {name} ({b}x16/4x{n}x{d}): fused {ms[True]:.4f} ms "
+            f"({ms[True] / sdpa:.2f}x SDPA, {100 * five['bound_ms'] / ms[True]:.1f}% "
+            f"of the 5-product bound), two-kernel {ms[False]:.4f} ms "
+            f"({ms[False] / sdpa:.2f}x, {100 * seven['bound_ms'] / ms[False]:.1f}% of "
+            f"the 7-product bound), SDPA backward {sdpa:.4f} ms ({how}; "
+            f"{100 * five['bound_ms'] / sdpa:.1f}% of the 5-product bound); bounds "
+            f"{five['bound_ms']:.4f} / {seven['bound_ms']:.4f} ms "
+            f"({five['bound_by']}); of which plain torch (lse2, delta) "
+            f"{rows_ms:.4f} ms [{label}]")
+    log(f"backward timed at {len(cases)} cases in {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def motif_corpus(cfg, n_tokens=1 << 17, motif_len=512):
@@ -1477,6 +1727,8 @@ def phase_train(device, cfg, params, corpus, batch, seq, lr, steps, label,
             launches = {k: read_counters()[k] for k in kernels or (
                 ("flash_fwd/window", "flash_bwd/window") if cfg.attn_window
                 else ("flash_fwd", "flash_bwd"))}
+            schedules = {k: read_counters()[k]
+                         for k in ("flash_bwd", "flash_bwd/fused", "flash_bwd/split")}
             peak = torch.cuda.max_memory_allocated()
             profile_step(cfg, params, tokens(), lr, label)
         with torch.no_grad():
@@ -1489,6 +1741,14 @@ def phase_train(device, cfg, params, corpus, batch, seq, lr, steps, label,
         raise AssertionError(f"held-out loss did not fall: {held0} -> {held1}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    # every backward in the default schedule (kernel A with its fused dq, or
+    # kernel A then kernel B)
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    taken = "flash_bwd/fused" if fa._FUSE_DQ_DEFAULT else "flash_bwd/split"
+    if not schedules[taken] == schedules["flash_bwd"] > 0:
+        raise AssertionError(f"the backward did not train in {taken}: {schedules}")
+    launches.update(schedules)
     n_params = sum(x.numel() for x in tfm._leaves(params).values())
     ms = statistics.median(times)
     tok = batch * seq
@@ -1639,7 +1899,8 @@ COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
                      resident="resident_launches", fallback="fallback_launches",
                      mxu="mxu_launches", q_int8="q_int8_launches",
                      guard="guard_launches", slots="slots_launches",
-                     copy_only="copy_only_launches", sm90="sm90_launches")
+                     copy_only="copy_only_launches", sm90="sm90_launches",
+                     fused="fused_launches", split="split_launches")
 
 
 def reset_counters():
@@ -2725,19 +2986,18 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
 
 
 def phase_window_backward(device, b, hq, hkv, n, d, window, sinks, label):
-    """Both backward kernels with a window and sinks against `_bwd_plain`
-    over the same band, on (o, lse) from the windowed forward kernel; dK and
-    dV of the keys no row sees must be 0 exactly (with q_offset placing the
-    queries past a gap), and the windowed backward must take less time than
-    the same kernels without a window. Returns the two entries."""
+    """The backward with a window and sinks in both dq schedules against
+    `_bwd_plain` over the same band, on (o, lse) from the windowed forward
+    kernel; dK and dV of the keys no row sees must be 0 exactly (with
+    q_offset placing the queries past a gap), and the windowed backward
+    must take less time than the same kernels without a window. Returns
+    the two entries."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(61)
-    dkdv = _window_entry("flash_bwd_dkdv", "flash_bwd_dkdv.cu",
-                         "flash_attention.py:1949")
-    dq_e = _window_entry("flash_bwd_dq", "flash_bwd_dq.cu", "flash_attention.py:2203")
+    dkdv, dq_e = entries = bwd_entries(" (window)")
     q, do = (torch.randn(b, hq, n, d, generator=gen, device=device).bfloat16()
              for _ in range(2))
     k, v = (torch.randn(b, hkv, n, d, generator=gen, device=device).bfloat16()
@@ -2745,31 +3005,28 @@ def phase_window_backward(device, b, hq, hkv, n, d, window, sinks, label):
     scale = d ** -0.5
     band = (True, scale, 0, window, sinks)
     o, lse = fa._fwd(q, k, v, *band)
-    grads = fa._bwd(q, k, v, o, lse, do, *band)
     plain = fa._bwd_plain(q, k, v, o, lse, do, *band)
-    torch.cuda.synchronize()
-    errs = []
-    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
-        assert torch.isfinite(got).all(), f"windowed {name} is not finite"
-        err = _rel_l2(got, want)
-        if not err <= O_TOL:
-            raise AssertionError(f"windowed backward {name} rel-L2 {err:.3e}")
-        errs.append(err)
-        entry = dq_e if name == "dq" else dkdv
-        entry["max_abs_err"] = max(entry["max_abs_err"],
-                                   float((got.float() - want.float()).abs().max()))
-    del grads, plain
+    errs = {}
+    for fuse in (True, False):
+        grads = fa._bwd(q, k, v, o, lse, do, *band, fuse_dq=fuse)
+        torch.cuda.synchronize()
+        errs[fuse] = hold_bwd(f"windowed backward (fuse_dq={fuse})", grads, plain,
+                              entries, fuse)
+        del grads
+    del plain
     # the last 64 queries with a window of 256: keys [sinks, n - 319) unseen
     qs = q[:, :, -64:].contiguous()
     os_, ls = fa._fwd(qs, k, v, True, scale, n - 64, 256, sinks)
-    _, dk0, dv0 = fa._bwd(qs, k, v, os_, ls, do[:, :, -64:].contiguous(), True,
-                          scale, n - 64, 256, sinks)
     gap = slice(sinks, n - 64 - 255)
-    if dk0[:, :, gap].any() or dv0[:, :, gap].any():
-        raise AssertionError("dK/dV of keys no row sees are not 0")
-    delta = (o.float() * do.float()).sum(-1)
-    args = (q, k, v, do, lse, delta) + band
+    for fuse in (True, False):
+        _, dk0, dv0 = fa._bwd(qs, k, v, os_, ls, do[:, :, -64:].contiguous(), True,
+                              scale, n - 64, 256, sinks, fuse_dq=fuse)
+        if dk0[:, :, gap].any() or dv0[:, :, gap].any():
+            raise AssertionError(f"dK/dV of keys no row sees are not 0 "
+                                 f"(fuse_dq={fuse})")
+    args = (q, k, v, do, *fa._bwd_rows(lse, o, do)) + band
     kv_ms = time_ms(lambda: fa._dkdv_cuda(*args), device)
+    fused_ms = time_ms(lambda: fa._fused_cuda(*args), device)
     dq_ms = time_ms(lambda: fa._dq_cuda(*args), device)
     w1 = time_ms(lambda: fa._bwd(q, k, v, o, lse, do, *band), device)
     c1 = time_ms(lambda: fa._bwd(q, k, v, o, lse, do, True, scale, 0), device)
@@ -2789,18 +3046,24 @@ def phase_window_backward(device, b, hq, hkv, n, d, window, sinks, label):
     pairs = b * hq * band_pairs(n, n, 0, window, sinks)
     reads = nbytes(q, k, v, do, lse, lse)
     shape = f"b{b} hq{hq} hkv{hkv} n{n} s{n} d{d} window{window} sinks{sinks}"
+    fused = bound(10 * d * pairs, reads + nbytes(k, v) + 2 * nbytes(q))
     dkdv.update(ms=kv_ms, plain_ms=p1, library_ms=library_ms,
-                **bound(8 * d * pairs, reads + nbytes(k, v)), shape=shape)
+                **bound(8 * d * pairs, reads + nbytes(k, v)), shape=shape,
+                fused_ms=fused_ms, fused_bound_ms=fused["bound_ms"])
     dq_e.update(ms=dq_ms, plain_ms=p1, library_ms=library_ms,
                 **bound(6 * d * pairs, reads + nbytes(q)), shape=shape)
-    log(f"flash_bwd (window) {shape}: rel-L2 dq {errs[0]:.2e} dk {errs[1]:.2e} "
-        f"dv {errs[2]:.2e}; dK/dV of the keys in the gap exactly 0 | dkdv "
-        f"{kv_ms:.4f} ms, dq {dq_ms:.4f} ms, _bwd {w_ms:.4f} ms vs without a "
-        f"window {c_ms:.4f} ms ({w_ms / c_ms:.3f}x for "
+    log(f"flash_bwd (window) {shape}: rel-L2 (dq, dk, dv) fused "
+        + " ".join(f"{x:.2e}" for x in errs[True]) + ", two-kernel "
+        + " ".join(f"{x:.2e}" for x in errs[False])
+        + f"; dK/dV of the keys in the gap exactly 0 | kernel A {kv_ms:.4f} ms, "
+        f"with the fused dq {fused_ms:.4f} ms, kernel B {dq_ms:.4f} ms, _bwd "
+        f"(default) {w_ms:.4f} ms vs without a window {c_ms:.4f} ms "
+        f"({w_ms / c_ms:.3f}x for "
         f"{pairs / (b * hq * visible_pairs(n, n, 0, True)):.3f}x of the pairs), "
         f"plain {p1:.4f} ms, SDPA backward with the band mask "
         f"{library_ms if library_ms is None else f'{library_ms:.4f}'} ms | "
-        f"bound dkdv {dkdv['bound_ms']:.4f} ms, dq {dq_e['bound_ms']:.4f} ms "
+        f"bound kernel A {dkdv['bound_ms']:.4f} ms, fused "
+        f"{fused['bound_ms']:.4f} ms, kernel B {dq_e['bound_ms']:.4f} ms "
         f"[{label}]")
     if not w_ms < c_ms:
         raise AssertionError(f"the windowed backward took {w_ms:.4f} ms, not "
@@ -4806,6 +5069,7 @@ def main() -> int:
             log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
     phase_fwd_sm90_build(build_log, label)
     phase_gemm_sm90_build(build_log, label)
+    phase_bwd_sm90_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill
@@ -5033,6 +5297,11 @@ def main() -> int:
     ], label, entry_shape=1)
     win_bwd = phase_window_backward(device, 4, 16, 4, 4096, 128, TRAIN_WINDOW,
                                     TRAIN_SINKS, label)
+    # the backward at its tiles' edges in both schedules, then timed in
+    # turns with SDPA's backward
+    phase_bwd_tiles(device, label)
+    bwd_times = phase_bwd_sm90_times(device, label)
+    bwd[0]["turns"] = bwd_times
 
     # 9. training at the bench_train.py configuration
     cfg = tfm.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
@@ -5042,8 +5311,10 @@ def main() -> int:
     params, train_launches, train_ms = phase_train(
         device, cfg, params, corpus, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, steps=5,
         label=label)
-    for entry in bwd:
-        entry["launches"] = train_launches["flash_bwd"]
+    # row 4 (kernel A) runs in every backward, row 5 (kernel B) in the
+    # two-kernel schedule's
+    bwd[0]["launches"] = train_launches["flash_bwd"]
+    bwd[1]["launches"] = train_launches["flash_bwd/split"]
 
     # 10. train -> checkpoint -> restore -> serve
     phase_checkpoint(device, cfg, params, corpus, label)
@@ -5057,8 +5328,8 @@ def main() -> int:
     _, wtrain_launches, wtrain_ms = phase_train(
         device, wcfg, params, corpus, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, steps=5,
         label=label)
-    for entry in win_bwd:
-        entry["launches"] = wtrain_launches["flash_bwd/window"]
+    win_bwd[0]["launches"] = wtrain_launches["flash_bwd/window"]
+    win_bwd[1]["launches"] = wtrain_launches["flash_bwd/split"]
     log(f"train with window {wcfg.attn_window} and {wcfg.attn_sinks} sinks: "
         f"{wtrain_ms:.2f} ms/step vs {train_ms:.2f} without (same run) [{label}]")
 

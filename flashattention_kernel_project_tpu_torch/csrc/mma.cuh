@@ -1,9 +1,9 @@
 // Warp-level helpers shared by every kernel that stages tiles in shared
-// memory and multiplies them on the tensor cores: the attention forward
-// (flash_fwd_core.cuh), the backward (flash_bwd_common.cuh), the GEMMs
-// (gemm_core.cuh, gemm_i8.cu) and the streaming decode. One copy, so that
-// the fragment layouts and the copy semantics cannot drift apart between
-// the kernel families.
+// memory and multiplies them on the tensor cores: the mma.sync attention
+// forwards (flash_fwd_core.cuh), the GEMMs (gemm_core.cuh, gemm_i8.cu) and
+// the streaming decode (the wgmma kernels take its bf16 packing). One copy,
+// so that the fragment layouts and the copy semantics cannot drift apart
+// between the kernel families.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) primitives shared by the kernels built on wgmma and TMA:
-// the dense attention forward (flash_fwd_sm90.cuh) and the bf16 GEMM
-// (gemm_sm90.cuh). mbarriers for a ring of shared-memory stages, the 3-D
-// TMA load that completes on one, the wgmma shared-memory descriptor under
-// the 128-byte swizzle, wgmma's fence, commit and wait, named barriers, and
-// the host-side encoder of a TMA map.
+// the dense attention forward (flash_fwd_sm90.cuh), the bf16 GEMM
+// (gemm_sm90.cuh) and the attention backward (flash_bwd_sm90.cuh,
+// flash_bwd_dq_sm90.cuh). mbarriers for a ring of shared-memory stages,
+// the 3-D TMA load and the 1-D bulk load that complete on one, the wgmma
+// shared-memory descriptor under the 128-byte swizzle, the wgmma products
+// the attention kernels issue, wgmma's fence, commit and wait, the proxy
+// fence, named barriers, and the host-side encoder of a TMA map.
 
 #pragma once
 
@@ -61,6 +63,51 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global src (16-byte aligned) into shared
+// memory at dst, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// adds the box at shared memory src into global memory at box (c0 column,
+// c1 row, c2 head) of a 3-D f32 map, as one bulk-group operation
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
+                                               uint32_t src, int c0, int c1,
+                                               int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's bulk groups have read their shared memory
+// (kRead) or completed
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// orders this thread's shared-memory writes before the async proxy's reads
+// (a wgmma operand written by st.shared)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // A wgmma shared-memory descriptor over 128B-swizzled 1024-byte atoms of
 // 8 rows x 128 bytes: start address, leading and stride byte offsets. For
 // a K-major operand the stride offset steps 8 rows (1024 bytes) and the
@@ -90,6 +137,126 @@ __device__ __forceinline__ void wgmma_wait() {
                : "memory");
 }
 
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory
+// (descriptors), both K-major; scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (each warp's 16
+// rows in the m16n8k16 A-fragment layout), B in shared memory MN-major
+// (transposed, imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (each warp's 16
+// rows in the m16n8k16 A-fragment layout), B in shared memory MN-major
+// (transposed, imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B in shared memory
+// (descriptors); kTransA / kTransB = 1 read A / B MN-major (transposed),
+// 0 K-major; scale_d == 0 overwrites D.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// D[64 x D] += A[64 x 16] * B[16 x D] for D in {64, 128}, A in registers,
+// B in shared memory MN-major
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, db);
+  } else {
+    wgmma_rs_n64(d, a, db);
+  }
+}
+
 // named barrier `id` over two consumer warpgroups: wait there, or arrive
 // without waiting
 __device__ __forceinline__ void named_sync(int id) {
@@ -100,6 +267,11 @@ __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
 }
 
+// named barrier `id` over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // pins accumulator registers at this point of the program: reads after a
 // wgmma wait cannot move above it
 template <int N>
@@ -108,13 +280,27 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// A TMA map over a contiguous bf16 [heads, rows, d] tensor with boxes of
-// box_rows rows x 64 columns, 128B-swizzled; rows past `rows` and columns
-// past `d` read as zeros. The encoder, cuTensorMapEncodeTiled, lives in
-// libcuda.so.1, which the CUDA runtime has loaded; the library links the
-// runtime only, so dlsym finds it there. False if it fails.
-inline bool encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
-                       int heads, int box_rows) {
+// pins wgmma A fragments held in registers: a product that reads them runs
+// asynchronously, so their registers must not be reused before its wait
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// A TMA map over a contiguous [heads, rows, d] tensor of `type` (`elem`
+// bytes an element) with boxes of box_rows rows x box_cols columns (128
+// bytes), 128B-swizzled; rows past `rows` and columns past `d` read as
+// zeros, and a store or reduce there writes nothing. The encoder,
+// cuTensorMapEncodeTiled, lives in libcuda.so.1, which the CUDA runtime
+// has loaded; the library links the runtime only, so dlsym finds it there.
+// False if it fails.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                         const void* ptr, int d, int rows, int heads,
+                         int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -129,14 +315,22 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {kBoxCols, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem,
+                                 (cuuint64_t)rows * d * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A TMA map over a contiguous bf16 [heads, rows, d] tensor with boxes of
+// box_rows rows x 64 columns (encode_tiled).
+inline bool encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
+                       int heads, int box_rows) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, d, rows,
+                      heads, box_rows);
 }
 
 }  // namespace fkp_sm90

@@ -18,7 +18,9 @@ csrc/flash_fwd.cu (with pack=True kernel 2's counterpart, its fixed-max
 d=64 instance), `_fwd_q` the one in csrc/flash_fwd_q.cu (an 8-bit cache),
 `_fwd_ragged` the one in csrc/flash_fwd_ragged.cu (a bf16 cache) and
 `flash_attention_ragged_kv_quant` its 8-bit kernel there, and `_bwd` the
-two in csrc/flash_bwd_dkdv.cu and csrc/flash_bwd_dq.cu; on a CPU tensor
+Hopper backward of csrc/flash_bwd_sm90.cuh (kernel A: dK, dV and in the
+fused-dq schedule dQ's partials) and csrc/flash_bwd_dq_sm90.cuh (kernel B:
+dQ alone, the two-kernel schedule); on a CPU tensor
 they run `_fwd_plain`, `_fwd_ragged_plain` (over the dequantized cache for
 8 bits) and `_bwd_plain`, the same functions in plain PyTorch, which the
 CPU tests hold against the JAX kernels and chip_smoke.py holds the CUDA
@@ -392,14 +394,34 @@ def _bwd_plain(q, k, v, o, lse, do, causal, sm_scale, q_offset, window=0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _launch_bwd(name, outs, q, k, v, do, lse, delta, causal, sm_scale,
+# the query rows of the backward's ring stage (kernel A): the kernels read
+# lse and delta from arrays padded to a multiple of it
+_BWD_ROWS = 64
+
+
+def _bwd_rows(lse, o, do):
+    """(lse2, delta) as the backward kernels read them: lse * log2(e) and
+    delta = rowsum(o * do) (plain torch, as the JAX package computes it in
+    XLA), [B, Hq, N_pad] float32 with N_pad = N rounded up to _BWD_ROWS,
+    zero in the pad."""
+    pad = (-lse.shape[-1]) % _BWD_ROWS
+    # the product of two bf16 is exact in float32: one float32 copy of o,
+    # multiplied in place
+    delta = o.to(torch.float32, copy=True).mul_(do).sum(dim=-1)
+    return (torch.nn.functional.pad(lse * _LOG2E, (0, pad)),
+            torch.nn.functional.pad(delta, (0, pad)))
+
+
+def _launch_bwd(name, outs, q, k, v, do, lse2, delta, causal, sm_scale,
                 q_offset, window=0, sinks=0):
-    """Launch one backward kernel writing `outs`; inputs as `_bwd` checked
-    them."""
+    """Launch one backward entry writing `outs` (a None passes a null
+    pointer); inputs as `_bwd` checked them, (lse2, delta) from
+    `_bwd_rows`."""
     b, hq, n, d = q.shape
     rc = _kernel(f"fkp_{name}", 6 + len(outs))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+        lse2.data_ptr(), delta.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in outs),
         b, hq, k.shape[1], n, k.shape[2], d, float(sm_scale),
         int(bool(causal)), int(q_offset), int(window), int(sinks),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -407,29 +429,56 @@ def _launch_bwd(name, outs, q, k, v, do, lse, delta, causal, sm_scale,
     _build.check(rc, name)
 
 
-def _dkdv_cuda(q, k, v, *args):
-    """(dk, dv) from csrc/flash_bwd_dkdv.cu."""
+def _dkdv_cuda(q, k, v, *args, dq_accum=None):
+    """(dk, dv) from kernel A (csrc/flash_bwd_sm90.cuh); with `dq_accum` (a
+    zeroed float32 tensor of q's shape) its fused-dq instance, which also
+    adds the unscaled dq partials to it."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dkdv", (dk, dv), q, k, v, *args)
+    _launch_bwd("flash_bwd_dkdv", (dk, dv, dq_accum), q, k, v, *args)
     return dk, dv
 
 
 def _dq_cuda(q, k, v, *args):
-    """dq from csrc/flash_bwd_dq.cu."""
+    """dq from kernel B (csrc/flash_bwd_dq_sm90.cuh), the two-kernel
+    schedule's second half."""
     dq = torch.empty_like(q)
     _launch_bwd("flash_bwd_dq", (dq,), q, k, v, *args)
     return dq
 
 
-def _bwd(q, k, v, o, lse, do, causal, sm_scale, q_offset, window=0, sinks=0):
+def _fused_cuda(q, k, v, do, lse2, delta, causal, sm_scale, *band):
+    """(dq, dk, dv) from kernel A's fused-dq instance: dq = sm_scale * the
+    sum of its partials, rounded to q's dtype in plain torch, as the JAX
+    package sums them in XLA."""
+    dq_accum = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = _dkdv_cuda(q, k, v, do, lse2, delta, causal, sm_scale, *band,
+                        dq_accum=dq_accum)
+    return dq_accum.mul_(sm_scale).to(q.dtype), dk, dv
+
+
+# The schedule `_bwd` takes when fuse_dq is None: the two-kernel one, measured
+# faster on the H100 at the training shape (4 x 16/4 heads x 4096 x 128:
+# 1.92 ms against 2.30; PERF.md, row 4) and within 2% at d = 64. The JAX
+# package defaults to the fused one (`_bwd_pallas`, fuse_dq=None -> True); on
+# Hopper its dq product, the lockstep of the two warpgroups that share dS and
+# the reduce-adds cost more than kernel B's three products.
+_FUSE_DQ_DEFAULT = False
+
+
+def _bwd(q, k, v, o, lse, do, causal, sm_scale, q_offset, window=0, sinks=0,
+         fuse_dq=None):
     """(dq, dk, dv) from the forward's (o, lse) and the output gradient,
     under the forward's masks (window > 0: the band and the sinks).
-    CPU tensors run `_bwd_plain`; CUDA tensors launch
-    csrc/flash_bwd_dkdv.cu, then csrc/flash_bwd_dq.cu, or raise. delta =
-    rowsum(o * do) is plain torch, as the JAX package computes it in XLA
-    outside its kernels. Each call launches each kernel once, and counts
-    one in `_bwd.launches` (and in `_bwd.window_launches` with a
-    window)."""
+    CPU tensors run `_bwd_plain` (one function for both schedules); CUDA
+    tensors launch the Hopper kernels or raise. fuse_dq (JAX `_bwd_pallas`'s
+    option): True, kernel A with its dq partials summed by reduce-adds
+    (`_fused_cuda`); False, kernel A for dk and dv, then kernel B for dq;
+    None, `_FUSE_DQ_DEFAULT`. delta = rowsum(o * do) is plain torch, as the
+    JAX package computes it in XLA outside its kernels. Each call counts one
+    in `_bwd.launches` (and in `_bwd.window_launches` with a window), and
+    one in `_bwd.fused_launches` or `_bwd.split_launches` by schedule."""
+    if fuse_dq is not None and not isinstance(fuse_dq, bool):
+        raise ValueError(f"fuse_dq must be True, False or None, got {fuse_dq!r}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -445,19 +494,26 @@ def _bwd(q, k, v, o, lse, do, causal, sm_scale, q_offset, window=0, sinks=0):
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    lse = lse.contiguous()
-    delta = (o.float() * do.float()).sum(dim=-1)
-    args = (q, k, v, do, lse, delta, causal, sm_scale, q_offset, window,
-            sinks)
-    dk, dv = _dkdv_cuda(*args)
-    dq = _dq_cuda(*args)
+    if fuse_dq is None:
+        fuse_dq = _FUSE_DQ_DEFAULT
+    args = (q, k, v, do, *_bwd_rows(lse, o, do), causal, sm_scale, q_offset,
+            window, sinks)
+    if fuse_dq:
+        dq, dk, dv = _fused_cuda(*args)
+        _bwd.fused_launches += 1
+    else:
+        dk, dv = _dkdv_cuda(*args)
+        dq = _dq_cuda(*args)
+        _bwd.split_launches += 1
     _bwd.launches += 1
     _bwd.window_launches += bool(window)
     return dq, dk, dv
 
 
-_bwd.launches = 0  # backward calls that launched both kernels
+_bwd.launches = 0  # backward calls that launched their kernels
 _bwd.window_launches = 0  # those of them with a window
+_bwd.fused_launches = 0  # those of them in the fused-dq schedule (kernel A)
+_bwd.split_launches = 0  # those of them in the two-kernel one (A, then B)
 
 
 class _FlashAttention(torch.autograd.Function):

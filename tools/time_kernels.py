@@ -9,8 +9,9 @@ kernels build there at first use. Prints one line: ms per call (CUDA
 events, the median of 7 runs of a few calls each, eager) of the forward at
 1x16/4 heads x 512 and x 4096 tokens (d 128, causal), the fixed-max
 forward at 1x16/4 x 4096 (d 128, and d 64 packed), dK/dV and dq at 4x16/4
-x 4096, the ragged forward at the serving chunk (T 256, kv_len 768,
-q_offset 512) and the split-KV decode partials at B8 S2048. To compare two
+x 4096 (and, where the checkout has it, dK/dV with the fused dq), the
+ragged forward at the serving chunk (T 256, kv_len 768, q_offset 512) and
+the split-KV decode partials at B8 S2048. To compare two
 commits, time both on one card in turns (parent, change, change, parent):
 
     for r in parent . . parent; do python3 tools/time_kernels.py $r; done
@@ -72,7 +73,11 @@ def main() -> int:
     q, do = randn(4, 16, 4096, 128), randn(4, 16, 4096, 128)
     k, v = randn(4, 4, 4096, 128), randn(4, 4, 4096, 128)
     o, lse = fa._fwd(q, k, v, True, scale, 0)
-    args = (q, k, v, do, lse, (o.float() * do.float()).sum(-1), True, scale, 0)
+    if hasattr(fa, "_bwd_rows"):  # the Hopper backward: padded lse2 and delta
+        args = (q, k, v, do, *fa._bwd_rows(lse, o, do), True, scale, 0)
+        res["fused"] = ms(lambda: fa._fused_cuda(*args), iters=3)
+    else:  # the mma.sync kernels of earlier commits
+        args = (q, k, v, do, lse, (o.float() * do.float()).sum(-1), True, scale, 0)
     res["dkdv"] = ms(lambda: fa._dkdv_cuda(*args), iters=3)
     res["dq"] = ms(lambda: fa._dq_cuda(*args), iters=3)
     q, k, v = randn(1, 16, 256, 128), randn(1, 4, 2304, 128), randn(1, 4, 2304, 128)
