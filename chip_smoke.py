@@ -145,7 +145,18 @@ width, with random weights from a seed:
     and `_bwd` in each schedule at the training shape, bench.py's b = 1,
     d = 64 and the training band, in turns with SDPA's backward, from
     CUDA graphs, with its bounds (5 and 7 products) and factor; the
-    training phases count which schedule trained.
+    training phases count which schedule trained;
+  - the bf16 linear decode (kernel 6, csrc/flash_decode_sm90.cuh: 64-key
+    tiles through a TMA ring, both products on mma.sync, splits sized for
+    any batch, the split merge on the card): its 16 instances built with
+    no spill, UTMALDG and HMMA.16816 in their SASS; the whole call and the
+    kernel's partials against the plain version at the serving shape and
+    at the edges of its tiles and splits (lengths about a tile with S off
+    the tile and above S, every G at d 64 and 128, a caller's splits off
+    the tile, one split, a window of 70 with 66 sinks cutting a split in
+    two); at most two device operations a call (torch.profiler); the kernel
+    alone, the whole call and SDPA with a length mask in turns from CUDA
+    graphs, and with the serving window beside SDPA with the band mask.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -409,14 +420,16 @@ def dense_rows(n: int, hq: int, b: int, sms: int) -> int:
     return 64 if -(-n // 64) * hq * b <= sms else 128
 
 
-def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set):
+def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set,
+               need=("HGMMA", "UTMALDG"), forbid=("HMMA.16816",)):
     """The instances of a wgmma kernel as ptxas and the SASS show them: each
     compiled (`want`, as `instance` reads them from a symbol), none
     spilling, none with wgmma instructions serialized by ptxas, and each in
     the object of its source (objects: source -> whether an instance
-    belongs there) with HGMMA (wgmma) and UTMALDG (TMA loads) and no
-    HMMA.16816 (mma.sync). Raises otherwise; cuobjdump must sit beside
-    nvcc. Returns {instance: SASS counts}."""
+    belongs there) with the opcodes of `need` (by default HGMMA, wgmma, and
+    UTMALDG, TMA loads) and none of `forbid` (by default HMMA.16816,
+    mma.sync). Raises otherwise; cuobjdump must sit beside nvcc. Returns
+    {instance: SASS counts of HGMMA, UTMALDG and HMMA.16816}."""
     import subprocess
 
     from flashattention_kernel_project_tpu_torch.ops import _build
@@ -454,7 +467,7 @@ def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set):
                 raise AssertionError(f"{kernel}{inst} built in {src}")
             ops = {op: section.count(op) for op in ("HGMMA", "UTMALDG",
                                                       "HMMA.16816")}
-            if not ops["HGMMA"] or not ops["UTMALDG"] or ops["HMMA.16816"]:
+            if not all(ops[op] for op in need) or any(ops[op] for op in forbid):
                 raise AssertionError(f"{kernel}{inst} in {src}: {ops}")
             counts[inst] = ops
     if set(counts) != want:
@@ -781,9 +794,123 @@ def phase_fwd_sm90_times(device, label):
     return rows
 
 
+# The bf16 linear decode's instances (csrc/flash_decode_sm90.cuh: d, G,
+# window), built in flash_decode_sm90.cu's object
+DEC_OBJECT = "flash_decode_sm90.cu"
+DEC_KERNEL = "flash_decode_sm90_kernel"
+DEC_SOURCE = f"{PKG}/csrc/flash_decode_sm90.cuh"
+# (b, hq, hkv, s, d, lengths, n_splits, window, sinks) at the edges of the
+# decode's 64-key tiles and splits: lengths about a tile with S off the
+# tile and one above S (clamped), every G at both d (the default splits:
+# two of 128 keys, merged on the card); a caller's 3 splits of 67 keys;
+# one split (normalised in the block); 300 splits of 2 keys (the merge
+# holds 256 splits at a time); a window of 70 with 66 sinks, both wider
+# than a tile, at 2 splits of 150 keys (the length-200 row's first split
+# holds the sinks and the band's start with a gap: two ranges), at 3 and
+# at the default
+EDGE_LENS = [0, 1, 63, 64, 65, 127, 200, 999]
+WIN_LENS = [0, 1, 50, 66, 136, 137, 200, 250, 300]
+DEC_EDGE_SHAPES = (
+    [(8, hq, hkv, 200, d, EDGE_LENS, None, 0, 0)
+     for d in (64, 128) for hq, hkv in ((2, 2), (4, 2), (16, 4), (8, 1))]
+    + [(8, 16, 4, 200, d, EDGE_LENS, 3, 0, 0) for d in (64, 128)]
+    + [(8, 16, 4, 200, 128, EDGE_LENS, 1, 0, 0),
+       (2, 8, 1, 600, 64, [599, 600], 300, 0, 0)]
+    + [(9, hq, hkv, 300, d, WIN_LENS, n, 70, 66)
+       for hq, hkv, d in ((2, 2, 64), (8, 1, 128), (16, 4, 128))
+       for n in (None, 2, 3)])
+
+
+def phase_dec_sm90_build(build_log: str, label):
+    """The bf16 decode's 16 instances (d 64 and 128, G 1, 2, 4 and 8,
+    without and with a window) through `wgmma_gate` with mma.sync in place
+    of wgmma: built with no spill, in flash_decode_sm90.cu's object, with
+    UTMALDG (the TMA ring) and HMMA.16816 (both products) in each SASS."""
+    counts = wgmma_gate(build_log, DEC_KERNEL, template_args(DEC_KERNEL, 3),
+                        {DEC_OBJECT: lambda inst: True},
+                        {(d, g, w) for d in (64, 128) for g in (1, 2, 4, 8)
+                         for w in (0, 1)},
+                        need=("UTMALDG", "HMMA.16816"), forbid=())
+    log("bf16 decode: 16 instances (d, G, window) built with no spill; SASS "
+        "(UTMALDG, HMMA.16816): "
+        + ", ".join(f"{inst}: {c['UTMALDG']}/{c['HMMA.16816']}"
+                    for inst, c in sorted(counts.items())) + f" [{label}]")
+
+
+def time_turns(fns: dict, device, iters: int = 50) -> dict:
+    """Each closure's ms from CUDA graphs, measured in turns: in order and
+    then in reverse order, the smaller of its two."""
+    first = {k: time_ms(f, device, iters, graph=True) for k, f in fns.items()}
+    second = {k: time_ms(fns[k], device, iters, graph=True)
+              for k in reversed(list(fns))}
+    return {k: min(first[k], second[k]) for k in fns}
+
+
+def device_ops(fn) -> list:
+    """The names of the device operations (kernels, memsets, copies) one
+    call of fn enqueues, from torch.profiler, after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def dec_edges(device, label, shapes=DEC_EDGE_SHAPES):
+    """flash_decode (one launch, the splits merged on the card) and the
+    kernel's partials through `merge_partials` against the plain version at
+    `shapes` (rel-L2 1e-2); a row of length 0 exactly 0; a length above S
+    bit-equal to S. Returns the largest max-abs error."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    worst = 0.0
+    for b, hq, hkv, s, d, lens, n_splits, window, sinks in shapes:
+        q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+        k = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
+        v = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        kw = dict(n_splits=n_splits, window=window or None, sinks=sinks)
+        n = n_splits or fd.default_n_splits(b, hkv, s, d)
+        block_s = fd.default_block_s(s, n) if n_splits is None else -(-s // n)
+        args = (q, k, v, lengths, n, block_s, d ** -0.5, window, sinks)
+        o = fd.flash_decode(q, k, v, lengths, **kw)
+        merged = fd.merge_partials(*fd._decode_partials_cuda(*args)).reshape(b, hq, d)
+        po = fd._decode_plain(*args)
+        clamped = fd.flash_decode(q, k, v, lengths.clamp(max=s), **kw)
+        torch.cuda.synchronize()
+        what = (f"flash_decode edge b{b} hq{hq} hkv{hkv} s{s} d{d} {n} splits "
+                f"of {block_s} lengths {lens} window {window} sinks {sinks}")
+        assert o.shape == q.shape and torch.isfinite(o).all(), what
+        for name, got in (("whole call", o), ("kernel partials + plain merge", merged)):
+            err = _rel_l2(got, po)
+            if not err <= O_TOL:
+                raise AssertionError(f"{what}: {name} rel-L2 {err:.3e} > {O_TOL}")
+        empty = [i for i, n_b in enumerate(lens) if n_b == 0]
+        if any(float(o[i].float().abs().max()) != 0.0 for i in empty):
+            raise AssertionError(f"{what}: a row of length 0 is not 0")
+        if not torch.equal(o, clamped):
+            raise AssertionError(f"{what}: a length above S differs from S")
+        worst = max(worst, float((o.float() - po.float()).abs().max()))
+        log(f"{what}: rel-L2 {_rel_l2(o, po):.3e} (partials "
+            f"{_rel_l2(merged, po):.3e}) [{label}]")
+    return worst
+
+
 def phase_decode(device, b, hq, hkv, s, d, label):
-    """The decode kernel against `_decode_partials_plain` through the same
-    merge, bf16, ragged lengths with one slot empty and one full."""
+    """The bf16 decode (csrc/flash_decode_sm90.cuh) against the plain
+    version: at the serving shape, ragged lengths with one slot empty and
+    one full, then at the edges of its tiles and splits (`dec_edges`); the
+    device operations of one call (at most two, the split merge on the
+    card); the kernel alone (its partials), the whole call and SDPA with a
+    length mask timed in turns from CUDA graphs."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
@@ -796,16 +923,12 @@ def phase_decode(device, b, hq, hkv, s, d, label):
                             dtype=torch.int32)
     lengths[0] = 0
     lengths[-1] = s
-    n_splits = fd.default_n_splits(b, hkv, s)
-    block_s = -(-s // n_splits)
-    scale = d ** -0.5
-
-    def plain():
-        return fd.merge_partials(*fd._decode_partials_plain(
-            q, k, v, lengths, n_splits, block_s, scale)).reshape(b, hq, d)
+    n_splits = fd.default_n_splits(b, hkv, s, d)
+    block_s = fd.default_block_s(s, n_splits)
+    args = (q, k, v, lengths, n_splits, block_s, d ** -0.5)
 
     o = fd.flash_decode(q, k, v, lengths)
-    po = plain()
+    po = fd._decode_plain(*args)
     if device.type == "cuda":
         torch.cuda.synchronize()
     assert o.shape == q.shape and torch.isfinite(o).all()
@@ -814,34 +937,38 @@ def phase_decode(device, b, hq, hkv, s, d, label):
     max_abs = float((o.float() - po.float()).abs().max())
     if not err <= O_TOL:
         raise AssertionError(f"flash_decode rel-L2 {err:.3e} > {O_TOL}")
-    op_ms, op_plain_ms = time_pair(lambda: fd.flash_decode(q, k, v, lengths),
-                                   plain, device, iters=50)
-    # the kernel alone against the plain partials (no merge, no cast)
-    part_args = (q, k, v, lengths, n_splits, block_s, scale)
-    kernel_parts = (fd._decode_partials_cuda if device.type == "cuda"
-                    else fd._decode_partials_plain)  # a CPU rehearsal
-    ms, plain_ms = time_pair(lambda: kernel_parts(*part_args),
-                             lambda: fd._decode_partials_plain(*part_args),
-                             device, iters=50)
+    if device.type != "cuda":  # a CPU rehearsal: the plain path alone
+        return dict(name="flash_decode", max_abs_err=max_abs)
+    max_abs = max(max_abs, dec_edges(device, label))
+    ops = device_ops(lambda: fd.flash_decode(q, k, v, lengths))
+    if not 1 <= len(ops) <= 2:
+        raise AssertionError(f"one flash_decode call ran {len(ops)} device "
+                             f"operations (at most 2): {ops}")
+    mask = (torch.arange(s, device=device)[None, :] < lengths[:, None])
+    times = time_turns({
+        "sdpa": sdpa_fn(q[:, :, None], k, v, mask=mask[:, None, None]),
+        "kernel": lambda: fd._decode_partials_cuda(*args),
+        "call": lambda: fd.flash_decode(q, k, v, lengths)}, device)
+    plain_ms = time_ms(lambda: fd._decode_plain(*args), device, iters=50,
+                       graph=True)
     live = int(lengths.sum())
     gbytes = 2 * live * hkv * d * 2 / 1e9  # K and V rows read
     # the decode's work: q, the live K/V rows and o; QK and PV per live key
     bnd = bound(4 * live * hq * d, nbytes(q, o) + 2 * live * hkv * d * 2)
-    mask = (torch.arange(s, device=device)[None, :] < lengths[:, None])
-    library_ms = time_ms(sdpa_fn(q[:, :, None], k, v, mask=mask[:, None, None]),
-                         device, iters=50, graph=True)
-    log(f"flash_decode b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits={n_splits} "
-        f"lengths={lengths.tolist()}: rel-L2 {err:.3e}, max-abs {max_abs:.3e} "
-        f"| kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s of live K/V) vs "
-        f"plain partials {plain_ms:.4f} ms | with the merge: {op_ms:.4f} ms "
-        f"vs plain {op_plain_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
-        f"({bnd['bound_by']}), SDPA with a length mask {library_ms:.4f} ms "
-        f"[{label}]")
-    return dict(name="flash_decode", route="cuda",
-                source=f"{PKG}/csrc/flash_decode.cu",
+    log(f"flash_decode b{b} hq{hq} hkv{hkv} s{s} d{d} {n_splits} splits of "
+        f"{block_s} lengths={lengths.tolist()}: rel-L2 {err:.3e}, max-abs "
+        f"{max_abs:.3e} (the edge shapes included) | device operations of a "
+        f"call: {ops} | in turns from CUDA graphs: kernel (partials) "
+        f"{times['kernel']:.4f} ms ({gbytes / times['kernel'] * 1e3:.1f} GB/s "
+        f"of live K/V), whole call {times['call']:.4f} ms, SDPA with a length "
+        f"mask {times['sdpa']:.4f} ms ({times['call'] / times['sdpa']:.2f}x) | "
+        f"plain {plain_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}, {bnd['bound_ms'] / times['call']:.1%} of the "
+        f"call) [{label}]")
+    return dict(name="flash_decode", route="cuda", source=DEC_SOURCE,
                 replaces="flashattention_kernel_project_tpu/ops/flash_decode.py:38",
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **bnd,
+                max_abs_err=max_abs, ms=times["call"], kernel_ms=times["kernel"],
+                plain_ms=plain_ms, library_ms=times["sdpa"], **bnd,
                 shape=f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits}")
 
 
@@ -1116,7 +1243,7 @@ def phase_decode_8bit(device, b, hq, hkv, s, d, label):
                             dtype=torch.int32)
     lengths[0] = 0
     lengths[-1] = s
-    n_splits = fd.default_n_splits(b, hkv, s)
+    n_splits = fd._core_n_splits(b, hkv, s)
     block_s = -(-s // n_splits)
     live = int(lengths.sum())
     for fmt in FMTS:
@@ -2358,7 +2485,7 @@ def device_ms_by_kind(prof) -> dict:
             continue
         key = e.key
         fwd = re.search(r"flash_fwd(_q)?_kernel<\d+, (\d)", key)
-        ours = re.search(r"(paged|flash)_decode(_q)?_kernel", key)
+        ours = re.search(r"(paged|flash)_decode(_q|_sm90)?_kernel", key)
         if fwd:
             kind = flavours[fwd.group(2)] + ("_q" if fwd.group(1) else "")
         elif ours:
@@ -2918,19 +3045,25 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
 
     gen = torch.Generator(device=device).manual_seed(59)
-    entry = _window_entry("flash_decode", "flash_decode.cu", "flash_decode.py:38")
+    entry = _window_entry("flash_decode", "flash_decode_sm90.cuh", "flash_decode.py:38")
     entry_q = dict(_window_entry("flash_decode_q", "flash_decode.cu",
                                  "flash_decode.py:102"), library_ms=None)
     q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
     lengths = torch.tensor(lens, dtype=torch.int32, device=device)
-    n_splits = fd.default_n_splits(b, hkv, s)
-    block_s = -(-s // n_splits)
     scale = d ** -0.5
     live = _live_keys(lens, window, sinks)
-    shape = (f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits} lengths{lens} "
-             f"window{window} sinks{sinks}")
     cases = [("bf16", None)] + [(fmt, fmt) for fmt in FMTS]
     for tag, fmt in cases:
+        # each kernel at its wrapper's default splits: the bf16 decode's
+        # whole tiles, the 8-bit decodes' decode_core.cuh rule
+        if fmt is None:
+            n_splits = fd.default_n_splits(b, hkv, s, d)
+            block_s = fd.default_block_s(s, n_splits)
+        else:
+            n_splits = fd._core_n_splits(b, hkv, s)
+            block_s = -(-s // n_splits)
+        shape = (f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits} "
+                 f"lengths{lens} window{window} sinks{sinks}")
         if fmt is None:
             k = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
             v = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
@@ -2962,13 +3095,18 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
         bnd = bound(4 * live * hq * d, nbytes(q, o) + kv_bytes)
         library = ""
         if fmt is None:
+            # the whole call (the splits merged on the card) in turns with
+            # SDPA over the band as a boolean mask
             col = torch.arange(s, device=device)[None, :]
             n_b = lengths[:, None]
             mask = (col < n_b) & ((col >= n_b - window) | (col < sinks))
-            ent["library_ms"] = time_ms(
-                sdpa_fn(q[:, :, None], k, v, mask=mask[:, None, None]), device,
-                iters=50, graph=True)
-            library = f", SDPA with the band mask {ent['library_ms']:.4f} ms"
+            turns = time_turns({
+                "sdpa": sdpa_fn(q[:, :, None], k, v, mask=mask[:, None, None]),
+                "call": lambda: fd.flash_decode(q, k, v, lengths, window=window,
+                                                sinks=sinks)}, device)
+            ent["library_ms"], ent["call_ms"] = turns["sdpa"], turns["call"]
+            library = (f", whole call {turns['call']:.4f} ms, SDPA with the band "
+                       f"mask {turns['sdpa']:.4f} ms (in turns)")
         log(f"{ent['name']} {tag} {shape}: rel-L2 {err:.3e}, max-abs "
             f"{max_abs:.3e} | kernel {ms:.4f} ms vs without a window "
             f"{full_ms:.4f} ms, plain partials {plain_ms:.4f} ms{library} | "
@@ -2979,6 +3117,9 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
                                  f"the full decode's {full_ms:.4f} ms")
         if fmt == "fp8":
             entry_q["fp8_ms"] = ms
+        elif fmt is None:  # the row's time is the whole call's
+            ent.update(ms=ent.pop("call_ms"), kernel_ms=ms, plain_ms=plain_ms,
+                       causal_ms=full_ms, **bnd, shape=shape)
         else:
             ent.update(ms=ms, plain_ms=plain_ms, causal_ms=full_ms, **bnd,
                        shape=shape)
@@ -3080,7 +3221,7 @@ def plain_attention():
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
 
-    saved = fa._fwd, fd._decode_partials_cuda, fd._decode_partials_q_cuda
+    saved = fa._fwd, fd._decode_cuda, fd._decode_partials_q_cuda
 
     def fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0,
             disc=fa.ONLINE, k_max=None, pack=False):
@@ -3088,12 +3229,12 @@ def plain_attention():
                              q_offset, window, sinks, disc, k_max)
 
     fa._fwd = fwd
-    fd._decode_partials_cuda = fd._decode_partials_plain
+    fd._decode_cuda = fd._decode_plain
     fd._decode_partials_q_cuda = fd._decode_partials_q_plain
     try:
         yield
     finally:
-        fa._fwd, fd._decode_partials_cuda, fd._decode_partials_q_cuda = saved
+        fa._fwd, fd._decode_cuda, fd._decode_partials_q_cuda = saved
 
 
 def phase_window_slices(device, cfg, params, draft_cfg, draft_params, prompts,
@@ -4350,7 +4491,7 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
     for i, (c, o) in enumerate(zip(dec, outs_d)):
         b, hq, hkv, s, d = c["shape"]
         window, sinks, lengths = c["window"], c["sinks"], c["lengths"]
-        n_splits = fd.default_n_splits(b, hkv, s)
+        n_splits = fd._core_n_splits(b, hkv, s)
         block_s = fd.mxu_block_s(s, n_splits)
         args = (c["q"], *c["cache"], lengths, n_splits, block_s, d ** -0.5,
                 window or 0, sinks)
@@ -5070,6 +5211,7 @@ def main() -> int:
     phase_fwd_sm90_build(build_log, label)
     phase_gemm_sm90_build(build_log, label)
     phase_bwd_sm90_build(build_log, label)
+    phase_dec_sm90_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill

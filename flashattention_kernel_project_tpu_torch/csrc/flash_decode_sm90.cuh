@@ -1,0 +1,469 @@
+// The bf16 linear-cache decode for Hopper (sm_90a): one new token per
+// sequence against a linear bf16 KV cache, split over the keys, with
+// 64-key K/V tiles through a TMA ring, both products on the tensor cores,
+// and the splits merged on the card. flash_decode_sm90.cu builds its
+// instances (d in {64, 128} x G = Hq / Hkv in {1, 2, 4, 8} x with and
+// without a window: 16) and the C entries.
+//
+// Replaces flashattention_kernel_project_tpu/ops/flash_decode.py::
+// _decode_kernel (:38, pallas_call :392), reached through flash_decode for
+// a bf16 cache, with its sliding window and sinks (:60-67, _clamp_to_live
+// :254), and the merge of its splits (merge_partials, a jnp reduction
+// after the pallas_call). Each (batch row, KV head, split) block computes
+// the partials (m, l, y) of the group's G query rows over the split's keys
+// below lengths[b] (with a window, only the band's keys and the sinks),
+// and the split's partials are merged into the normalised output in q's
+// dtype on the card.
+//
+// What bounds it on the H100: bytes. Each key costs 4 * d bytes of K and V
+// and 4 * G * d flops, at most 2 flops a byte (G = 8), far below the ~295
+// flop/byte ridge: the 3.35 TB/s of HBM is the roof. What matters is
+// having enough bytes in flight, spending few instructions per key, and,
+// at small batch, enough blocks to keep every SM loading. What the design
+// does about it:
+// - Key tiles through a TMA ring. A producer warp, one thread of which
+//   issues the loads, brings each tile's K and V as boxes of 64 keys x 64
+//   dims (128-byte rows, 128B-swizzled) from 3-D maps over [B * Hkv, S, d]
+//   into a ring of 3 stages (32 KB a stage at d = 128), tracked by full and
+//   empty mbarriers. No consumer register or instruction goes to a load,
+//   and 2 blocks an SM (4 at d = 64) keep up to 192 KB in flight. A box
+//   may start at any key row, so a split that does not start on a
+//   multiple of 64 needs no special case; rows past S are zero-filled, and
+//   keys past the split's end or the length are masked in the scores.
+// - Both products on mma.sync m16n8k16, one softmax a tile. The group's G
+//   query rows are the A operand, zero-padded to 16 rows (rows G..15 and
+//   8..15 are padding); each of the 4 consumer warps takes 16 keys of a
+//   tile: S = Q K^T from ldmatrix fragments of the swizzled K tile, then
+//   one max a row (two shuffles), one rescale and one exp2 a (row, key),
+//   in the log2 domain in f32, and P V from ldmatrix.trans fragments of
+//   the V tile with p as a bf16 hi + lo pair (streaming_decode.cu's
+//   precision, about 16 bits of p). decode_core.cuh, which kernel 7 and
+//   the paged decodes keep, gave one key to 16 threads, each with its own
+//   online state for all G rows: two exp2 and four shuffles a key and row,
+//   and the accumulator rescaled a key at a time. The warps' states merge
+//   through shared memory (the ring's, free after the loop).
+// - Splits sized for any batch by the wrapper (ops/flash_decode.py::
+//   default_n_splits: whole 64-key tiles, at least two a split, and as
+//   many as fill the SMs at the blocks an SM holds; one split where B *
+//   Hkv already fills the card). A split with no live key loads nothing.
+//   Under a window a split visits its sink keys, then its band (two key
+//   ranges, window_ranges below), each in tiles from its first key.
+// - The merge on the card. With one split the block normalises its rows
+//   and writes them in q's dtype. With more, each block writes its f32
+//   partials, and the last block of a (batch row, KV head) to arrive, by
+//   an atomic counter, merges them and writes the output; it then resets
+//   the counter to 0. The counters are a zero-initialised device array of
+//   the library, so a launch needs no memset and a CUDA graph replays it
+//   as it is: every completed launch leaves them at 0. A launch that faults
+//   leaves the context unusable, and a refused one never touched them. Two
+//   launches running at once on two streams of one device would share
+//   them: the wrapper's callers run one decode at a time a device.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "mma.cuh"
+#include "sm90.cuh"
+
+namespace fkp_dec90 {
+
+using fkp_mma::mma_16816;
+using fkp_mma::split_bf16;
+using fkp_sm90::kBoxCols;
+using fkp_sm90::mbar_arrive;
+using fkp_sm90::mbar_expect_tx;
+using fkp_sm90::mbar_init;
+using fkp_sm90::mbar_wait;
+using fkp_sm90::smem_u32;
+using fkp_sm90::tma_load;
+
+constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTile = 64;           // keys a tile, 16 a consumer warp
+constexpr int kStages = 3;          // the ring's depth
+constexpr int kWarps = 4;           // consumer warps
+constexpr int kConsumers = kWarps * 32;
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kBoxBytes = kTile * 128;     // 64 keys x 64 dims, bf16
+// arrival counters, one a (batch row, KV head): a call with more splits
+// than one takes at most this many pairs
+constexpr int kMaxCounters = 1 << 18;
+// splits the merge holds in shared memory at once (m and l: 16 KB at G = 8)
+constexpr int kMergeSplits = 256;
+
+// Shared memory of the d instances: the ring's stages, each K then V,
+// every box 1024-byte aligned (the 128B swizzle's period), after up to 1 KB
+// of alignment slack. kMinBlocks: the blocks an SM holds at that size
+// (ops/flash_decode.py::_blocks_per_sm computes the same).
+template <int D>
+struct Layout {
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // K or V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBytes = 1024 + kStages * kStageBytes;
+  static constexpr int kMinBlocks = D == 64 ? 4 : 2;
+};
+
+// What a launch takes besides the two TMA maps. m, l [b, hkv, n_splits,
+// G] and y [b, hkv, n_splits, G, D] f32 hold each split's partials (m in
+// natural-log units, NEG_INF and l = 0 for a split with no live key);
+// out [b, hq, D] bf16 takes the merged rows, or is null (partials only).
+struct Params {
+  const __nv_bfloat16* q;
+  const int* lengths;
+  float* m;
+  float* l;
+  float* y;
+  __nv_bfloat16* out;
+  int hkv, s, n_splits, block_s;
+  float scale_log2;
+  int window, sinks;
+};
+
+// The live keys of the split [start, end) of a sequence of `len` keys
+// under a sliding window (kWindow): the sink keys [0, min(sinks, len)) and
+// the band [max(len - window, 0), len), as at most two disjoint ranges
+// [s0, e0) and [s1, e1) (one where they touch; an empty range has s >= e).
+// Without a window: [start, end) itself. (decode_core.cuh's
+// window_ranges, copied.)
+template <bool kWindow>
+__device__ __forceinline__ void window_ranges(int start, int end, int len,
+                                              int window, int sinks, int& s0,
+                                              int& e0, int& s1, int& e1) {
+  s0 = start;
+  e0 = end;
+  s1 = e1 = 0;
+  if (!kWindow) return;
+  const int sink_end = min(end, min(sinks, len));  // [start, sink_end)
+  const int band_start = max(start, max(len - window, 0));  // [.., end)
+  const bool has_sinks = sink_end > start;
+  const bool has_band = end > band_start;
+  if (has_sinks && has_band && sink_end < band_start) {  // a gap between
+    e0 = sink_end;
+    s1 = band_start;
+    e1 = end;
+  } else if (has_sinks && !has_band) {
+    e0 = sink_end;
+  } else if (!has_sinks) {
+    s0 = band_start;  // the band, or nothing (band_start >= end)
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The shared address of the 16 bytes at (row r, columns c..c+7, c a
+// multiple of 8) of a K or V tile at `tile`: boxes of 64 columns, one after
+// the other, each 64 rows of 128 bytes in which 16-byte chunk x of row r
+// lies at chunk x ^ (r % 8) (the 128B swizzle).
+__device__ __forceinline__ uint32_t tile_addr(uint32_t tile, int r, int c) {
+  return tile + (c / kBoxCols) * kBoxBytes + r * 128 +
+         ((((c % kBoxCols) / 8) ^ (r % 8)) << 4);
+}
+
+// One block per (split, KV head, batch row): threads 0..127 are the
+// consumer warps, 128..159 the producer warp. Maps: k and v over [b * hkv,
+// s, D] in boxes of 64 keys x 64 dims. counters: kMaxCounters ints, 0
+// between launches (read only when out is set and n_splits > 1).
+template <int D, int G, bool kWindow>
+__global__ void __launch_bounds__(kThreads, Layout<D>::kMinBlocks)
+    flash_decode_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const Params p, int* __restrict__ counters) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];  // full, empty
+  __shared__ float sh_m[kWarps][G];
+  __shared__ float sh_l[kWarps][G];
+  __shared__ int sh_last;
+  // the merge's running max, sum of l and rescale factor, a row
+  __shared__ float sh_run_m[G], sh_run_l[G], sh_scale[G];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const auto k_s = [&](int st) { return base + L::kStageBytes * st; };
+  const auto v_s = [&](int st) { return k_s(st) + L::kTileBytes; };
+  const auto full_bar = [&](int st) { return smem_u32(&bars[st]); };
+  const auto empty_bar = [&](int st) { return smem_u32(&bars[kStages + st]); };
+
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int len = min(max(p.lengths[b], 0), p.s);  // lengths above S count as S
+  const int start = split * p.block_s;
+  int s0, e0, s1, e1;
+  window_ranges<kWindow>(start, min(start + p.block_s, len), len, p.window,
+                         p.sinks, s0, e0, s1, e1);
+  const int n0 = s0 < e0 ? (e0 - s0 + kTile - 1) / kTile : 0;
+  const int n_tiles = n0 + (s1 < e1 ? (e1 - s1 + kTile - 1) / kTile : 0);
+  // tile `it`'s first key and the end of its range: keys at or past the
+  // end are masked (the same list for producer and consumers)
+  const auto tile_key = [&](int it) {
+    return it < n0 ? s0 + it * kTile : s1 + (it - n0) * kTile;
+  };
+  const size_t bh = (size_t)b * p.hkv + kvh;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar(st), 1);
+      mbar_init(empty_bar(st), kWarps);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one thread loads
+    if (threadIdx.x == kConsumers) {
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        // the stage's previous tile released by every consumer warp (the
+        // first round passes at once)
+        mbar_wait(empty_bar(st), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_bar(st), L::kStageBytes);
+        const int key0 = tile_key(it);
+#pragma unroll
+        for (int x = 0; x < L::kBoxes; ++x) {
+          tma_load(k_s(st) + x * kBoxBytes, &k_map, full_bar(st),
+                   x * kBoxCols, key0, (int)bh);
+          tma_load(v_s(st) + x * kBoxBytes, &v_map, full_bar(st),
+                   x * kBoxCols, key0, (int)bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = lane / 4, quad = lane % 4;  // this thread's C row and pair
+  float m = kNegInf, l = 0.f;  // row `row` over this warp's keys (l: this thread's)
+  float acc[D / 8][4];          // [.][0..1]: row `row`, dims n * 8 + 2 * quad + e
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  if (n_tiles > 0) {
+    // the A fragments of Q: row `row` of the group (q heads kvh * G ..);
+    // rows 8..15 are zero, as are rows >= G
+    const __nv_bfloat16* q_g = p.q + bh * G * D;
+    uint32_t qa[D / 16][2];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const __nv_bfloat16* qp = q_g + row * D + kk * 16 + quad * 2;
+      qa[kk][0] = row < G ? *reinterpret_cast<const uint32_t*>(qp) : 0u;
+      qa[kk][1] = row < G ? *reinterpret_cast<const uint32_t*>(qp + 8) : 0u;
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const int end = it < n0 ? e0 : e1;
+      mbar_wait(full_bar(st), (it / kStages) & 1);
+
+      // S = Q K^T over the warp's keys warp * 16 + j * 8 + 2 * quad + e
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bk[4];
+        ldsm_x4(bk, tile_addr(k_s(st), warp * 16 + lane % 8 + lane / 16 * 8,
+                              kk * 16 + lane / 8 % 2 * 8));
+        const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+        mma_16816(sc[0], a, bk[0], bk[1]);
+        mma_16816(sc[1], a, bk[2], bk[3]);
+      }
+      // the tile's softmax for row `row` over the warp's 16 keys: one max
+      // (the quad's four threads hold them), one rescale, one exp2 a key
+      const int key0 = tile_key(it) + warp * 16 + quad * 2;
+      float z[2][2], mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          z[j][e] = key0 + j * 8 + e < end ? sc[j][e] * p.scale_log2 : kNegInf;
+          mx = fmaxf(mx, z[j][e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx);
+      const float corr = exp2f(m - m_new);
+      float pr[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // a masked key adds nothing, even while m_new is kNegInf
+          pr[j][e] = key0 + j * 8 + e < end ? exp2f(z[j][e] - m_new) : 0.f;
+        }
+      }
+      l = l * corr + (pr[0][0] + pr[0][1]) + (pr[1][0] + pr[1][1]);
+      m = m_new;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] *= corr;
+        acc[n][1] *= corr;
+      }
+      // P (row `row`, the warp's 16 keys) as the A operand, a bf16 hi + lo pair
+      uint32_t hi[4] = {0u, 0u, 0u, 0u}, lo[4] = {0u, 0u, 0u, 0u};
+      split_bf16(pr[0][0], pr[0][1], hi[0], lo[0]);
+      split_bf16(pr[1][0], pr[1][1], hi[2], lo[2]);
+#pragma unroll
+      for (int nn = 0; nn < D / 16; ++nn) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, tile_addr(v_s(st), warp * 16 + lane % 8 + lane / 8 % 2 * 8,
+                                nn * 16 + lane / 16 * 8));
+        mma_16816(acc[2 * nn], hi, bv[0], bv[1]);
+        mma_16816(acc[2 * nn], lo, bv[0], bv[1]);
+        mma_16816(acc[2 * nn + 1], hi, bv[2], bv[3]);
+        mma_16816(acc[2 * nn + 1], lo, bv[2], bv[3]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(st));  // this warp is done with it
+    }
+  }
+
+  // merge the warps' states through shared memory (the ring's, free once
+  // every warp has left the loop); a warp that saw no live key holds
+  // (kNegInf, 0, 0) and weighs 0
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  float* const sh_acc = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)));
+  fkp_sm90::named_sync(1, kConsumers);
+  if (row < G) {
+    if (quad == 0) {
+      sh_m[warp][row] = m;
+      sh_l[warp][row] = l;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float* dst = sh_acc + (warp * G + row) * D + n * 8 + quad * 2;
+      dst[0] = acc[n][0];
+      dst[1] = acc[n][1];
+    }
+  }
+  fkp_sm90::named_sync(1, kConsumers);
+  const int tid = threadIdx.x;
+  const bool single = p.out != nullptr && p.n_splits == 1;
+  const size_t part = bh * p.n_splits + split;
+  for (int i = tid; i < G * D; i += kConsumers) {
+    const int r = i / D;
+    float mw = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, sh_m[w][r]);
+    float lt = 0.f, yt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = exp2f(sh_m[w][r] - mw);
+      lt += sh_l[w][r] * c;
+      yt += sh_acc[(w * G + r) * D + i % D] * c;
+    }
+    if (single) {
+      p.out[bh * G * D + i] = __float2bfloat16(lt == 0.f ? 0.f : yt / lt);
+    } else {
+      p.y[part * G * D + i] = yt;
+      if (i % D == 0) {
+        p.m[part * G + r] = lt == 0.f ? kNegInf : mw * kLn2;
+        p.l[part * G + r] = lt;
+      }
+    }
+  }
+  if (p.out == nullptr || single) return;
+
+  // More splits than one: the last block of (b, kvh) to arrive merges the
+  // splits' partials (written by every block before its arrival) and
+  // resets the counter for the next launch.
+  __threadfence();
+  fkp_sm90::named_sync(1, kConsumers);
+  if (tid < G) {
+    sh_run_m[tid] = kNegInf;
+    sh_run_l[tid] = 0.f;
+  }
+  if (tid == 0) {
+    const int arrived = atomicAdd(counters + bh, 1) + 1;
+    sh_last = arrived == p.n_splits;
+    if (sh_last) counters[bh] = 0;
+  }
+  fkp_sm90::named_sync(1, kConsumers);
+  if (!sh_last) return;
+#if defined(FKP_DEC_PROBE) && FKP_DEC_PROBE == 1
+  return;  // a probe (tools/ab_decode.py): the arrival without the merge
+#endif
+  __threadfence();
+  // The merge, kMergeSplits splits at a time in shared memory (the ring's,
+  // free again): their m and l with one load a thread, then each row's max,
+  // the splits' weights and the rescaled sum of l (one thread a row), then
+  // each thread's outputs summed over the splits' y rows, four splits of
+  // loads in flight at once. Rows that see no key give 0.
+  float* const w_s = sh_acc;                     // [kMergeSplits][G]: m, then weights
+  float* const l_s = sh_acc + kMergeSplits * G;  // [kMergeSplits][G]
+  const float* m_bh = p.m + bh * p.n_splits * G;
+  const float* l_bh = p.l + bh * p.n_splits * G;
+  const float* y_bh = p.y + bh * p.n_splits * G * D;
+  constexpr int kPer = (G * D + kConsumers - 1) / kConsumers;  // outputs a thread
+  float yg[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) yg[u] = 0.f;
+  for (int c0 = 0; c0 < p.n_splits; c0 += kMergeSplits) {
+    const int cn = min(kMergeSplits, p.n_splits - c0);
+    for (int j = tid; j < cn * G; j += kConsumers) {
+      w_s[j] = __ldcg(m_bh + c0 * G + j);
+      l_s[j] = __ldcg(l_bh + c0 * G + j);
+    }
+    fkp_sm90::named_sync(1, kConsumers);
+    if (tid < G) {  // row tid: the new max, the weights, the sum of l
+      const float m_old = sh_run_m[tid];
+      float mc = m_old;
+      for (int sp = 0; sp < cn; ++sp) mc = fmaxf(mc, w_s[sp * G + tid]);
+      const float scale = exp2f((m_old - mc) * kLog2e);  // the earlier sums'
+      float lsum = sh_run_l[tid] * scale;
+      for (int sp = 0; sp < cn; ++sp) {
+        const float ls = l_s[sp * G + tid];
+        // a split with no live key weighs nothing
+        const float w = ls == 0.f ? 0.f : exp2f((w_s[sp * G + tid] - mc) * kLog2e);
+        w_s[sp * G + tid] = w;
+        lsum += ls * w;
+      }
+      sh_run_m[tid] = mc;
+      sh_run_l[tid] = lsum;
+      sh_scale[tid] = scale;
+    }
+    fkp_sm90::named_sync(1, kConsumers);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kConsumers;
+      if (i < G * D) yg[u] *= sh_scale[i / D];
+    }
+#pragma unroll 4
+    for (int sp = 0; sp < cn; ++sp) {
+      const float* y_sp = y_bh + (size_t)(c0 + sp) * G * D;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int i = tid + u * kConsumers;
+        if (i < G * D) yg[u] += w_s[sp * G + i / D] * __ldcg(y_sp + i);
+      }
+    }
+    fkp_sm90::named_sync(1, kConsumers);  // before the next chunk's loads
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = tid + u * kConsumers;
+    if (i < G * D) {
+      const float lg = sh_run_l[i / D];
+      p.out[bh * G * D + i] = __float2bfloat16(lg == 0.f ? 0.f : yg[u] / lg);
+    }
+  }
+}
+
+}  // namespace fkp_dec90

@@ -6,15 +6,16 @@ Counterpart of flashattention_kernel_project_tpu/ops/flash_decode.py
 `merge_partials`). The cache's key axis is cut into `n_splits` independent
 splits; each emits unnormalized partials (m, l, y) over its keys below
 `lengths` (with a sliding window, only the band's keys and the sinks), and
-`merge_partials` combines them. On a CUDA tensor the
-partials come from the hand-written Hopper kernels in csrc/flash_decode.cu
-(one for a bf16 cache, one for an int8 or e4m3 cache with per-token
-scales) and csrc/flash_decode_mxu.cu (an int8 cache with both products
-int8 x int8, mxu=True); on a CPU tensor from `_decode_partials_plain`,
-`_decode_partials_q_plain` and `_decode_partials_mxu_plain`, the same
-functions in plain PyTorch. The merge
-is plain PyTorch on both, as it is a jnp reduction outside the Pallas
-kernel in the JAX package.
+`merge_partials` combines them. On a CPU tensor the partials come from
+`_decode_partials_plain`, `_decode_partials_q_plain` and
+`_decode_partials_mxu_plain` and the merge is plain PyTorch, as it is a jnp
+reduction outside the Pallas kernel in the JAX package. On a CUDA tensor a
+bf16 cache takes the Hopper kernel of csrc/flash_decode_sm90.cuh (64-key
+tiles through a TMA ring, both products on the tensor cores), which also
+merges the splits: one launch a call, no plain merge. An 8-bit cache takes
+csrc/flash_decode.cu (int8 or e4m3 with per-token scales) or
+csrc/flash_decode_mxu.cu (an int8 cache with both products int8 x int8,
+mxu=True) for the partials, and the plain merge.
 """
 
 from __future__ import annotations
@@ -31,22 +32,63 @@ from flashattention_kernel_project_tpu_torch.ops.quant import check_8bit_cache
 from flashattention_kernel_project_tpu_torch.ops.softmax import NEG_INF
 from flashattention_kernel_project_tpu_torch.utils.platform import (
     H100_SMEM_PER_BLOCK,
+    H100_SMEM_PER_SM,
+    H100_SMEM_RESERVED_PER_BLOCK,
     H100_SMS,
 )
 
 _KERNEL_DIMS = (64, 128)
 _KERNEL_GROUPS = (1, 2, 4, 8)
 _MIN_SPLIT = 128  # keys
+# csrc/flash_decode_sm90.cuh: keys a tile, the ring's stages, its shared
+# memory besides the ring (alignment slack, barriers, row statistics) and
+# the (batch row, KV head) pairs its split merge counts
+_TILE = 64
+_STAGES = 3
+_SMEM_EXTRA = 1024 + 512
+_MAX_COUNTERS = 1 << 18
 
 
-def default_n_splits(batch: int, kv_heads: int, s_max: int) -> int:
-    """Splits that give about two blocks per SM on an H100: B*Hkv alone is
-    32 blocks at the serving shape (B=8, Hkv=4), a quarter of the 132 SMs.
-    Splits are kept at 128 keys or more, so short caches get fewer. Only the
-    order of the sums depends on this. (The TPU default, one split per 4096
-    keys, suits a core that runs its grid serially.)"""
+def _core_n_splits(batch: int, kv_heads: int, s_max: int) -> int:
+    """The 8-bit decodes' splits (decode_core.cuh's kernel 7 and kernel 8):
+    about two blocks per SM on an H100, B*Hkv alone being 32 blocks at the
+    serving shape (B=8, Hkv=4), a quarter of the 132 SMs. Splits are kept at
+    128 keys or more, so short caches get fewer. Only the order of the sums
+    depends on this (with mxu=True the requantization groups too). (The TPU
+    default, one split per 4096 keys, suits a core that runs its grid
+    serially.)"""
     want = -(-2 * H100_SMS // max(batch * kv_heads, 1))
     return max(1, min(want, -(-s_max // _MIN_SPLIT)))
+
+
+def _blocks_per_sm(d: int) -> int:
+    """Blocks of the Hopper decode an H100 SM holds at the shared memory of
+    its ring (3 stages of a 64-key K and V tile): 2 at d = 128, 4 at d = 64,
+    the kernel's __launch_bounds__."""
+    ring = _STAGES * 2 * _TILE * d * 2
+    return H100_SMEM_PER_SM // (ring + _SMEM_EXTRA + H100_SMEM_RESERVED_PER_BLOCK)
+
+
+def default_n_splits(batch: int, kv_heads: int, s_max: int, d: int = 128) -> int:
+    """Splits of the bf16 decode: as many as keep the card's blocks full
+    (132 SMs times the blocks an SM holds at the kernel's ring, over the
+    B*Hkv blocks a split adds) and no more, each whole 64-key tiles and at
+    least two of them; one where B*Hkv already fills the card (B 256 x
+    Hkv 1). At the serving shape (B 8, Hkv 4, S 2048) 8 splits of 256 keys:
+    256 blocks. Only the order of the sums depends on this. (The TPU
+    default, one split per 4096 keys, suits a core that runs its grid
+    serially.)"""
+    tiles = -(-s_max // _TILE)
+    want = H100_SMS * _blocks_per_sm(d) // max(batch * kv_heads, 1)
+    n = max(1, min(want, tiles // 2))
+    return -(-tiles // -(-tiles // n))  # whole tiles, none of them empty
+
+
+def default_block_s(s_max: int, n_splits: int) -> int:
+    """Keys a split of the bf16 decode covers at the default split count:
+    whole 64-key tiles, ceil(tiles / n_splits) of them."""
+    tiles = -(-s_max // _TILE)
+    return -(-tiles // n_splits) * _TILE
 
 
 def merge_partials(m, l, y):
@@ -117,14 +159,24 @@ def _split_partials(scores, mask, vp):
     return m, e.sum(dim=-1, keepdim=True), e @ vp
 
 
+_DECODE_ARGS = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+
+
 @functools.cache
 def _kernel():
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel(
-        "fkp_flash_decode",
-        [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-         ctypes.c_float, i32, i32, vp],
-    )
+    """fkp_flash_decode: q, k, v, lengths, m, l, y, then (b, hq, hkv, s, d,
+    n_splits, block_s), sm_scale, (window, sinks) and the stream: the
+    splits' partials."""
+    return _build.kernel("fkp_flash_decode", [ctypes.c_void_p] * 7 + _DECODE_ARGS)
+
+
+@functools.cache
+def _kernel_out():
+    """fkp_flash_decode_out: q, k, v, lengths, out, m, l, y (the splits'
+    workspace, None with one split), then as fkp_flash_decode: the merged
+    rows."""
+    return _build.kernel("fkp_flash_decode_out", [ctypes.c_void_p] * 8 + _DECODE_ARGS)
 
 
 def _check_cuda_inputs(q, k, v, lengths):
@@ -159,6 +211,8 @@ def _check_decode_shapes(q, k, v, lengths):
 
 def _decode_partials_cuda(q, k, v, lengths, n_splits, block_s, sm_scale,
                           window=0, sinks=0):
+    """The Hopper kernel's partials of each split (fkp_flash_decode), the
+    same (m, l, y) as `_decode_partials_plain`."""
     _check_cuda_inputs(q, k, v, lengths)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -181,6 +235,48 @@ def _decode_partials_cuda(q, k, v, lengths, n_splits, block_s, sm_scale,
     return m, l, y
 
 
+def _decode_plain(q, k, v, lengths, n_splits, block_s, sm_scale, window=0,
+                  sinks=0):
+    """flash_decode in plain PyTorch: the plain partials through
+    `merge_partials`, [B, Hq, D] in q's dtype."""
+    b, hq, d = q.shape
+    parts = _decode_partials_plain(q, k, v, lengths, n_splits, block_s,
+                                   sm_scale, window, sinks)
+    return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
+
+
+def _decode_cuda(q, k, v, lengths, n_splits, block_s, sm_scale, window=0,
+                 sinks=0):
+    """flash_decode on the card in one launch (fkp_flash_decode_out): the
+    kernel merges its splits itself, through an f32 workspace of their
+    partials when there are more than one."""
+    _check_cuda_inputs(q, k, v, lengths)
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if n_splits > 1 and b * hkv > _MAX_COUNTERS:
+        raise ValueError(f"the CUDA decode merges more than one split for at "
+                         f"most {_MAX_COUNTERS} (batch row, KV head) pairs, "
+                         f"got {b * hkv}")
+    out = torch.empty_like(q)
+    work = [None] * 3
+    if n_splits > 1:  # m, l, y of every split, one allocation
+        rows = b * hkv * n_splits * g
+        ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+        work = [ws.data_ptr(), ws.data_ptr() + 4 * rows,
+                ws.data_ptr() + 8 * rows]
+    rc = _kernel_out()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), *work, b, hq, hkv, s, d, n_splits, block_s,
+        float(sm_scale), int(window), int(sinks),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_decode.launches += 1
+    flash_decode.window_launches += bool(window)
+    _build.check(rc, "flash_decode")
+    return out
+
+
 def flash_decode(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -198,14 +294,18 @@ def flash_decode(
     q [B, Hq, D], one new token per sequence; k_cache, v_cache
     [B, Hkv, S, D]; lengths [B] int32, the valid keys per sequence (keys
     [0, lengths) are attended; lengths above S count as S). Query head h
-    reads KV head h // (Hq // Hkv). n_splits defaults to
-    `default_n_splits`. window: the query (at position lengths - 1) sees
+    reads KV head h // (Hq // Hkv). n_splits: split i covers keys
+    [i * block_s, (i + 1) * block_s) with block_s = ceil(S / n_splits);
+    None takes `default_n_splits`, whose splits are whole 64-key tiles
+    (`default_block_s`). window: the query (at position lengths - 1) sees
     only keys [lengths - window, lengths), plus the first `sinks` keys
     (sinks count only with a window, as in the JAX decode); a split with no
     such key loads nothing. Returns [B, Hq, D] in q's dtype; a sequence of
     length 0 gives zeros. CPU tensors run the plain version; CUDA tensors
-    launch csrc/flash_decode.cu (bf16, contiguous, d in {64, 128},
-    Hq/Hkv in {1, 2, 4, 8}) or raise.
+    launch csrc/flash_decode_sm90.cuh's kernel once, the split merge
+    included (bf16, contiguous, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8}),
+    or raise. Two calls must not run at once on two streams of one device:
+    they would share the kernel's split-merge counters.
     """
     window, sinks = _decode_band(window, sinks)
     if return_partials:
@@ -218,22 +318,21 @@ def flash_decode(
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if n_splits is None:
-        n_splits = default_n_splits(b, hkv, s)
-    if n_splits < 1:
+        n_splits = default_n_splits(b, hkv, s, d)
+        block_s = default_block_s(s, n_splits)
+    elif n_splits < 1:
         raise ValueError(f"n_splits must be >= 1, got {n_splits}")
-    block_s = -(-s // n_splits)
+    else:
+        block_s = -(-s // n_splits)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     args = (q, k_cache, v_cache, lengths, n_splits, block_s, sm_scale, window,
             sinks)
     if q.device.type == "cpu":
-        parts = _decode_partials_plain(*args)
-    elif q.device.type == "cuda":
-        parts = _decode_partials_cuda(*args)
-    else:
-        raise ValueError(f"no decode for device {q.device}")
-    out = merge_partials(*parts)  # [B, Hkv, G, D]
-    return out.reshape(b, hq, d).to(q.dtype)
+        return _decode_plain(*args)
+    if q.device.type == "cuda":
+        return _decode_cuda(*args)
+    raise ValueError(f"no decode for device {q.device}")
 
 
 # kernel launches, for showing that a path ran the kernel, and those of
@@ -420,7 +519,7 @@ def flash_decode_int8(
     (kernel 8 of the JAX package, `_decode_partials_mxu_plain`; on a CUDA
     tensor csrc/flash_decode_mxu.cu, counted in `.mxu_launches`). Each
     split is one requantization group of the weights and is sized by JAX's
-    rule (`mxu_block_s`); n_splits defaults to `default_n_splits`, where
+    rule (`mxu_block_s`); n_splits defaults to `_core_n_splits`, where
     JAX's default is one split per 4096 keys. A split must fit the kernel's
     shared memory (ValueError otherwise).
     """
@@ -437,7 +536,7 @@ def flash_decode_int8(
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if n_splits is None:
-        n_splits = default_n_splits(b, hkv, s)
+        n_splits = _core_n_splits(b, hkv, s)
     if n_splits < 1:
         raise ValueError(f"n_splits must be >= 1, got {n_splits}")
     block_s = mxu_block_s(s, n_splits) if mxu else -(-s // n_splits)

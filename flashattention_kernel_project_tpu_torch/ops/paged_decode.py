@@ -81,7 +81,7 @@ def _check_slots(slots: int, device: torch.device,
 
 def gather_pages_per_split(batch: int, kv_heads: int, max_pages: int) -> int:
     """Pages per split of the gather schedule: splits that give about two
-    blocks per SM on an H100, as the linear decode's `default_n_splits`
+    blocks per SM on an H100, as the 8-bit linear decodes' `_core_n_splits`
     (2 pages of 128 at the serving shape: 32 (row, head) pairs x 8 splits).
     The TPU sized its spans in bytes, 2048 bf16 tokens, because its grid
     runs serially. Only the order of the sums depends on this."""

@@ -23,6 +23,8 @@ H100_TF32_FLOPS = 495e12
 H100_FP32_FLOPS = 67e12
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_SMEM_PER_BLOCK = 232_448  # bytes, as dynamic shared memory
+H100_SMEM_PER_SM = 233_472  # bytes an SM gives its blocks' shared memory
+H100_SMEM_RESERVED_PER_BLOCK = 1024  # bytes the system keeps of each block's
 
 
 def require_hopper(device: int = 0) -> str:

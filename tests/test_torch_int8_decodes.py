@@ -116,8 +116,8 @@ def test_mxu_decode_near_the_dequantized_cache():
 
 def test_mxu_split_rule_and_default_splits():
     """block_s follows JAX's rule (ceil(S / n_splits) up to a multiple of
-    32; a split wholly past S holds no key); n_splits=None takes the port's
-    default_n_splits, the same function as passing it."""
+    32; a split wholly past S holds no key); n_splits=None takes the 8-bit
+    decodes' default (`_core_n_splits`), the same function as passing it."""
     assert tfd.mxu_block_s(100, 3) == 64  # ceil(100/3) = 34 -> 64
     assert tfd.mxu_block_s(4096, 1) == 4096
     assert tfd.mxu_block_s(8192, 9) == 928
@@ -128,7 +128,7 @@ def test_mxu_split_rule_and_default_splits():
     lengths = torch.tensor([40, 9], dtype=torch.int32)
     got = tfd.flash_decode_int8(q, *cache, lengths, mxu=True)
     want = tfd.flash_decode_int8(q, *cache, lengths, mxu=True,
-                                 n_splits=tfd.default_n_splits(b, hkv, s))
+                                 n_splits=tfd._core_n_splits(b, hkv, s))
     assert torch.equal(got, want)
     # 3 splits of 32 over 40 keys: the third is past S and weighs nothing
     jo, to = _both_mxu(q.numpy(), tuple(np.asarray(x) for x in cache),

@@ -147,8 +147,9 @@ def test_flash_decode_lengths_above_cache_clamp():
 
 
 def test_flash_decode_default_splits_fill_the_card():
-    # B*Hkv = 32 at the serving shape: 9 splits give 288 blocks for 132 SMs
-    assert tfd.default_n_splits(8, 4, 2048) == 9
+    # B*Hkv = 32 at the serving shape: 8 splits of 4 tiles give 256 blocks,
+    # the 132 SMs at the 2 blocks each holds
+    assert tfd.default_n_splits(8, 4, 2048) == 8
     assert tfd.default_n_splits(1, 1, 100) == 1  # short caches: no tiny splits
     q, k, v = _decode_inputs(4, 2, 4, 2, 300, 16)
     lengths = torch.tensor([300, 123], dtype=torch.int32)
