@@ -156,7 +156,21 @@ width, with random weights from a seed:
     the tile, one split, a window of 70 with 66 sinks cutting a split in
     two); at most two device operations a call (torch.profiler); the kernel
     alone, the whole call and SDPA with a length mask in turns from CUDA
-    graphs, and with the serving window beside SDPA with the band mask.
+    graphs, and with the serving window beside SDPA with the band mask;
+  - the paged extend (kernel 11, csrc/paged_extend_sm90.cuh: TMA boxes
+    that follow the block table into a ring of 64-key tiles, both products
+    on mma.sync, splits over the pages, the split merge on the card): its
+    18 instances built with no spill, UTMALDG and HMMA.16816 in their
+    SASS; the whole call and the kernel's partials against the plain
+    version over bf16, int8 and e4m3 pools at the serving verify and at
+    the edges of its tiles, boxes, row slabs and splits (pages of 16 to
+    128, G 1-8 with T 1, 5 and 9, old length 0, lengths at tile, page and
+    split edges and at the table's capacity, splits with no live key, a
+    table of mostly dead entries); one device operation a call, a CUDA
+    graph's replay bit-equal; the kernel alone, the whole call and SDPA on
+    the K/V gathered into a linear cache (a yardstick, not the same
+    function) in turns from CUDA graphs; a profiled speculative round over
+    the int8 pool beside the bf16 one.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -848,17 +862,26 @@ def time_turns(fns: dict, device, iters: int = 50) -> dict:
 
 def device_ops(fn) -> list:
     """The names of the device operations (kernels, memsets, copies) one
-    call of fn enqueues, from torch.profiler, after a warm-up call."""
+    call of fn enqueues, from torch.profiler, after a warm-up call. A
+    profiling window that records no device operation at all (seen once in
+    a process that had profiled before) is taken again, up to three
+    times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ops:
+            break
+        log("device_ops: the profiler recorded no device operation; again")
+    return ops
 
 
 def dec_edges(device, label, shapes=DEC_EDGE_SHAPES):
@@ -1110,29 +1133,249 @@ def phase_paged_decode(device, shapes, label):
     return entry
 
 
+# The paged extend's instances (csrc/paged_extend_sm90.cuh: d, folded rows
+# a block, pool type), the bf16 ones in paged_extend.cu's object, the 8-bit
+# ones in paged_extend_q.cu's
+EXT_KERNEL = "paged_extend_sm90_kernel"
+EXT_SOURCE = f"{PKG}/csrc/paged_extend_sm90.cuh"
+EXT_TYPES = {"13__nv_bfloat16": "bf16", "a": "int8", "13__nv_fp8_e4m3": "e4m3"}
+EXT_OBJECTS = {"paged_extend.cu": ("bf16",), "paged_extend_q.cu": ("int8", "e4m3")}
+
+
+def ext_instance(sym: str):
+    """(d, block rows, pool type) of a paged_extend_sm90_kernel instance's
+    symbol, or None for another symbol."""
+    name, rest = mangled_name(sym)
+    if name != EXT_KERNEL:
+        return None
+    m = re.match(r"ILi(\d+)ELi(\d+)E(13__nv_bfloat16|a|13__nv_fp8_e4m3)E", rest)
+    return int(m.group(1)), int(m.group(2)), EXT_TYPES[m.group(3)]
+
+
+def phase_ext_sm90_build(build_log: str, label):
+    """The paged extend's 18 instances (d 64 and 128, 16, 32 and 64 folded
+    rows a block, bf16, int8 and e4m3 pools) through `wgmma_gate` with
+    mma.sync in place of wgmma: built with no spill, each pool type in its
+    source's object, with UTMALDG (the TMA boxes) and HMMA.16816 (both
+    products) in each SASS."""
+    counts = wgmma_gate(
+        build_log, EXT_KERNEL, ext_instance,
+        {src: (lambda inst, kinds=kinds: inst[2] in kinds)
+         for src, kinds in EXT_OBJECTS.items()},
+        {(d, r, kv) for d in (64, 128) for r in (16, 32, 64)
+         for kv in EXT_TYPES.values()},
+        need=("UTMALDG", "HMMA.16816"), forbid=())
+    log("paged extend: 18 instances (d, rows, pool) built with no spill; SASS "
+        "(UTMALDG, HMMA.16816): "
+        + ", ".join(f"{inst}: {c['UTMALDG']}/{c['HMMA.16816']}"
+                    for inst, c in sorted(counts.items())) + f" [{label}]")
+
+
+# (b, hq, hkv, d, page, max_pages, t, old lengths, n_splits) at the edges
+# of the extend's tiles, boxes, row slabs and splits: pages of 16 to 128
+# (48: a tile across two pages) with chunks ending on a tile edge (new 64),
+# past it (65), on a page edge, across it, across a split edge (the
+# default splits of 128 keys), at the table's capacity and from old 0;
+# G 1, 2, 4 and 8 with T 1, 5 and 9 (1 to 72 folded rows: one slab, two,
+# three, four, two row tiles); d 64; a caller's 16 splits of 64 keys (most
+# with no live key), 3, and one (normalised in the block); a table of 64
+# pages a row with most entries dead (32 default splits)
+EXT_EDGE_SHAPES = (
+    [(8, 16, 4, 128, page, 1024 // page, 5,
+      [0, 59, 60, page - 5, page - 3, 123, 126, 1024 // page * page - 5], None)
+     for page in (16, 32, 48, 64, 128)]
+    + [(4, hq, hkv, 128, 64, 8, t, [0, 61, 130, 512 - t], None)
+       for hq, hkv in ((4, 4), (8, 4), (16, 4), (16, 2)) for t in (1, 5, 9)]
+    + [(4, 16, 4, 64, 16, 16, 5, [0, 59, 126, 251], None),
+       (2, 16, 2, 64, 32, 8, 9, [0, 247], None)]
+    + [(4, 16, 4, 128, 128, 8, 5, [0, 10, 300, 1019], n) for n in (16, 3, 1)]
+    + [(2, 16, 4, 128, 128, 64, 5, [0, 300], None)])
+# the 8-bit pools at a subset: pages 16, 48 and 128, two row tiles, d 64,
+# splits with no live key, one split
+EXT_EDGE_SHAPES_8BIT = (
+    [(6, 16, 4, 128, page, 1024 // page, 5,
+      [0, 59, 60, page - 3, 126, 1024 // page * page - 5], None)
+     for page in (16, 48, 128)]
+    + [(2, 16, 2, 128, 64, 8, 9, [0, 503], None),
+       (4, 16, 4, 64, 16, 16, 5, [0, 59, 126, 251], None)]
+    + [(4, 16, 4, 128, 128, 8, 5, [0, 10, 300, 1019], n) for n in (16, 1)])
+
+
+def _ext_case(gen, device, fmt, b, hq, hkv, d, page, max_pages, t, old):
+    """(q, pools, table, new_lengths, old_lengths) of an extend call: a pool
+    of b * max_pages + 1 pages (bf16 (k, v), or 8-bit (k, k_scale, v,
+    v_scale)) with each row's pages for old + t keys from a seeded
+    permutation, as _paged_case."""
+    import torch
+
+    new = [n + t for n in old]
+    if fmt is None:
+        _, k, v, table, new_lengths = _paged_case(gen, device, b, hq, hkv, d,
+                                                  page, max_pages, new)
+        pools = (k, v)
+    else:
+        pools, table = _paged_8bit_case(gen, device, fmt, b, hkv, d, page,
+                                        max_pages, new)
+        new_lengths = torch.tensor(new, dtype=torch.int32, device=device)
+    q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
+    old_lengths = torch.tensor(old, dtype=torch.int32, device=device)
+    return q, pools, table, new_lengths, old_lengths
+
+
+def ext_plain(q, pools, *rest):
+    """The extend's plain version for a bf16 or an 8-bit pool."""
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    return (pd._paged_extend_plain if len(pools) == 2
+            else pd._paged_extend_q_plain)(q, *pools, *rest)
+
+
+def ext_edges(device, label, fmt=None, shapes=EXT_EDGE_SHAPES):
+    """The extend's whole call (one launch, the splits merged on the card)
+    and the kernel's split partials through `merge_partials` against the
+    plain version at `shapes` (rel-L2 1e-2), over a bf16 pool (fmt None) or
+    an 8-bit one. Returns the largest max-abs error."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator(device=device).manual_seed(37)
+    worst = 0.0
+    for b, hq, hkv, d, page, max_pages, t, old, n_splits in shapes:
+        q, pools, table, new_lengths, old_lengths = _ext_case(
+            gen, device, fmt, b, hq, hkv, d, page, max_pages, t, old)
+        call = (q, pools, table, new_lengths, old_lengths, d ** -0.5, n_splits)
+        o = pd._extend_cuda(*call, whole=True)
+        merged = pd._merge_extend(pd._extend_cuda(*call, whole=False), q)
+        po = ext_plain(q, pools, table, new_lengths, old_lengths, d ** -0.5)
+        torch.cuda.synchronize()
+        rows, tiles, n, block_s = pd.extend_plan(q.shape, hkv, page, max_pages,
+                                                 n_splits)
+        what = (f"paged_extend edge {fmt or 'bf16'} b{b} hq{hq} hkv{hkv} d{d} "
+                f"page{page} max_pages{max_pages} t{t} old {old}: {n} splits "
+                f"of {block_s}, {tiles} row tile(s) of {rows}")
+        assert o.shape == q.shape and torch.isfinite(o).all(), what
+        for name, got in (("whole call", o), ("kernel partials + plain merge", merged)):
+            err = _rel_l2(got, po)
+            if not torch.isfinite(got).all() or not err <= O_TOL:
+                raise AssertionError(f"{what}: {name} rel-L2 {err:.3e} > {O_TOL}")
+        worst = max(worst, float((o.float() - po.float()).abs().max()))
+        log(f"{what}: rel-L2 {_rel_l2(o, po):.3e} (partials "
+            f"{_rel_l2(merged, po):.3e}) [{label}]")
+    return worst
+
+
+def graph_bit_equal(fn) -> bool:
+    """Whether one call of fn captured in a CUDA graph and replayed twice
+    gives its eager output bit for bit."""
+    import torch
+
+    want = fn().clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = fn()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    return torch.equal(want, got)
+
+
+def ext_yardstick(q, k_pages, v_pages, table, new_lengths, old_lengths):
+    """SDPA (enable_gqa) with the verify's causal-offset mask over the K/V
+    already gathered into a linear cache: a yardstick only, not the same
+    function (the gather is left out), never on the port's path."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    k, v = pd._linear_rows(k_pages, table), pd._linear_rows(v_pages, table)
+    t = q.shape[2]
+    col = torch.arange(k.shape[2], device=q.device)
+    pos = old_lengths[:, None] + torch.arange(t, device=q.device)[None, :]
+    mask = (col[None, None] < new_lengths[:, None, None]) & (
+        col[None, None] <= pos[:, :, None])
+    return sdpa_fn(q, k, v, mask=mask[:, None])
+
+
+def ext_measure(device, entry, q, pools, table, new_lengths, old_lengths,
+                what, label):
+    """At the serving verify: the kernel's partials against plain, one
+    device operation a call, a CUDA graph's replay bit-equal, and the
+    kernel alone (its partials), the whole call and the SDPA yardstick in
+    turns from CUDA graphs, beside plain; into `entry`."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    d = q.shape[-1]
+    call = (q, pools, table, new_lengths, old_lengths, d ** -0.5, None)
+    po = ext_plain(q, pools, table, new_lengths, old_lengths, d ** -0.5)
+    merged = pd._merge_extend(pd._extend_cuda(*call, whole=False), q)
+    err = _rel_l2(merged, po)
+    if not err <= O_TOL:
+        raise AssertionError(f"{what}: kernel partials rel-L2 {err:.3e} > {O_TOL}")
+    whole = lambda: pd._extend_cuda(*call, whole=True)  # noqa: E731
+    ops = device_ops(whole)
+    if len(ops) != 1:
+        raise AssertionError(f"{what}: one call ran {len(ops)} device "
+                             f"operations (one expected): {ops}")
+    if not graph_bit_equal(whole):
+        raise AssertionError(f"{what}: a CUDA graph's replay differs")
+    if len(pools) == 2:
+        yard_pools = pools
+    else:
+        yard_pools = (dequantized_bf16(*pools[:2]), dequantized_bf16(*pools[2:]))
+    times = time_turns({
+        "yardstick": ext_yardstick(q, *yard_pools, table, new_lengths, old_lengths),
+        "kernel": lambda: pd._extend_cuda(*call, whole=False),
+        "call": whole}, device)
+    plain_ms = time_ms(lambda: ext_plain(q, pools, table, new_lengths,
+                                         old_lengths, d ** -0.5),
+                       device, iters=50, graph=True)
+    log(f"{what}: partials rel-L2 {err:.3e} | device operations of a call: "
+        f"{ops}; a CUDA graph replays it bit-equal | in turns from CUDA "
+        f"graphs: kernel (partials) {times['kernel']:.4f} ms, whole call "
+        f"{times['call']:.4f} ms, SDPA on the K/V gathered into a linear "
+        f"cache with the verify's mask {times['yardstick']:.4f} ms (a "
+        f"yardstick, not the same function: the gather is left out) | plain "
+        f"{plain_ms:.4f} ms [{label}]")
+    entry.update(ms=times["call"], kernel_ms=times["kernel"], plain_ms=plain_ms,
+                 yardstick_sdpa_ms=times["yardstick"])
+
+
+# the serving verify (T = spec_k + 1) at the slice's pool: page edges, a
+# full table, a row with no prefix
+EXT_SERVING = (8, 16, 4, 128, 128, 16, 5, [0, 1, 124, 127, 128, 700, 1500, 2043])
+
+
 def phase_paged_extend(device, shapes, label):
-    """The paged extend kernel (the paged speculative verify) against
-    `_paged_extend_plain`, bf16, at each (b, hq, hkv, d, page, max_pages, t,
-    old lengths); the first shape (the slice's verify) stands for the
-    kernel, with its bound. Returns its JSON entry (no single PyTorch call
-    attends over a paged cache, so its library_ms is null)."""
+    """The paged extend (the paged speculative verify, csrc/
+    paged_extend_sm90.cuh) against `_paged_extend_plain`, bf16, at each
+    (b, hq, hkv, d, page, max_pages, t, old lengths), then at the edges of
+    its tiles, boxes and splits (`ext_edges`); the first shape (the slice's
+    verify) stands for the kernel: its partials, one device operation a
+    call, a CUDA graph's replay, and its times in turns (`ext_measure`),
+    with its bound. Returns its JSON entry (no single PyTorch call attends
+    over a paged cache, so its library_ms is null)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
 
     gen = torch.Generator(device=device).manual_seed(29)
-    entry = dict(name="paged_extend", route="cuda",
-                 source=f"{PKG}/csrc/paged_extend.cu",
+    entry = dict(name="paged_extend", route="cuda", source=EXT_SOURCE,
                  replaces="flashattention_kernel_project_tpu/ops/paged_decode.py:397",
                  max_abs_err=0.0, library_ms=None)
     for i, (b, hq, hkv, d, page, max_pages, t, old) in enumerate(shapes):
-        new = [n + t for n in old]
-        _, k, v, table, new_lengths = _paged_case(gen, device, b, hq, hkv, d,
-                                                  page, max_pages, new)
-        q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
-        old_lengths = torch.tensor(old, dtype=torch.int32, device=device)
+        q, (k, v), table, new_lengths, old_lengths = _ext_case(
+            gen, device, None, b, hq, hkv, d, page, max_pages, t, old)
         args = (q, k, v, table, new_lengths, old_lengths, d ** -0.5)
-        tiles = -(-(hq // hkv) * t // 64)
+        rows, tiles, n_splits, block_s = pd.extend_plan(q.shape, hkv, page,
+                                                        max_pages)
         o = pd.paged_flash_extend(q, k, v, table, new_lengths, old_lengths)
         po = pd._paged_extend_plain(*args)
         torch.cuda.synchronize()
@@ -1143,27 +1386,32 @@ def phase_paged_extend(device, shapes, label):
         entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
         if not err <= O_TOL:
             raise AssertionError(f"paged_extend rel-L2 {err:.3e} > {O_TOL}")
-        ms, plain_ms = time_pair(lambda: pd._paged_extend_cuda(*args),
-                                 lambda: pd._paged_extend_plain(*args), device,
-                                 iters=50)
         # q, the live K/V rows, the table, both lengths and o; QK and PV
         # (4*d operations) per visible (row, key) pair
+        new = [n + t for n in old]
         pairs = hq * sum(visible_pairs(t, n, off, True)
                          for n, off in zip(new, old))
         bnd = bound(4 * d * pairs,
                     nbytes(q, o, table, new_lengths, old_lengths)
                     + 2 * sum(new) * hkv * d * q.element_size())
-        log(f"paged_extend b{b} hq{hq} hkv{hkv} d{d} page{page} "
-            f"max_pages{max_pages} t{t} old_lengths={old} (G*T = "
-            f"{hq // hkv * t} rows: {tiles} query tile(s) of 64, the wrapper "
-            f"takes it): rel-L2 {err:.3e}, max-abs {max_abs:.3e} | kernel "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms | bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); no PyTorch call "
-            f"attends over a paged cache, so there is no library time [{label}]")
+        what = (f"paged_extend b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                f"max_pages{max_pages} t{t} old_lengths={old} (G*T = "
+                f"{hq // hkv * t} rows: {tiles} row tile(s) of {rows}, "
+                f"{n_splits} splits of {block_s})")
         if i == 0:
-            entry.update(ms=ms, plain_ms=plain_ms, **bnd,
-                         shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
-                               f"max_pages{max_pages} t{t} old_lengths{old}")
+            ext_measure(device, entry, q, (k, v), table, new_lengths,
+                        old_lengths, what, label)
+            entry.update(**bnd, shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                                      f"max_pages{max_pages} t{t} old_lengths{old}")
+            ms = entry["ms"]
+        else:
+            ms = time_ms(lambda: pd._paged_extend_cuda(*args), device, iters=50,
+                         graph=True)
+        log(f"{what}: rel-L2 {err:.3e}, max-abs {max_abs:.3e} | whole call "
+            f"{ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+            f"{bnd['bound_ms'] / ms:.1%} of the call); no PyTorch call attends "
+            f"over a paged cache, so there is no library time [{label}]")
+    entry["max_abs_err"] = max(entry["max_abs_err"], ext_edges(device, label))
     return entry
 
 
@@ -1406,28 +1654,27 @@ def phase_ragged_8bit(device, b, hq, hkv, t, s, lens, offs, d, label):
 
 def phase_paged_extend_8bit(device, shapes, label):
     """The 8-bit paged extend against `_paged_extend_q_plain`, int8 and
-    e4m3, at each (b, hq, hkv, d, page, max_pages, t, old lengths); the
-    bf16 kernel timed on the dequantized pool in the same call. The first
-    shape (the slice's verify) stands for the kernel. Returns its JSON
-    entry, timed on int8 (library_ms null)."""
+    e4m3, at each (b, hq, hkv, d, page, max_pages, t, old lengths), then at
+    the edges of its tiles, boxes and splits (`ext_edges`); the bf16
+    kernel timed on the dequantized pool in the same call. The first shape
+    (the slice's verify) stands for the kernel: its partials, one device
+    operation a call, a CUDA graph's replay and its times in turns
+    (`ext_measure`). Returns its JSON entry, timed on int8 (library_ms
+    null)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
 
     gen = torch.Generator(device=device).manual_seed(43)
-    entry = dict(name="paged_extend_q", route="cuda",
-                 source=f"{PKG}/csrc/paged_extend.cu",
+    entry = dict(name="paged_extend_q", route="cuda", source=EXT_SOURCE,
                  replaces=f"{TPU}/paged_decode.py:397", max_abs_err=0.0,
                  library_ms=None)
     for i, (b, hq, hkv, d, page, max_pages, t, old) in enumerate(shapes):
         new = [n + t for n in old]
-        q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
-        new_lengths = torch.tensor(new, dtype=torch.int32, device=device)
-        old_lengths = torch.tensor(old, dtype=torch.int32, device=device)
         pairs = hq * sum(visible_pairs(t, n, off, True) for n, off in zip(new, old))
         for fmt in FMTS:
-            pools, table = _paged_8bit_case(gen, device, fmt, b, hkv, d, page,
-                                            max_pages, new)
+            q, pools, table, new_lengths, old_lengths = _ext_case(
+                gen, device, fmt, b, hq, hkv, d, page, max_pages, t, old)
             args = (q, *pools, table, new_lengths, old_lengths, d ** -0.5)
             o = pd.paged_flash_extend(q, pools[0], pools[2], table, new_lengths,
                                       old_lengths, k_scale_pages=pools[1],
@@ -1435,28 +1682,37 @@ def phase_paged_extend_8bit(device, shapes, label):
             err, max_abs = kernel_8bit_check("paged_extend_q", o,
                                              pd._paged_extend_q_plain(*args),
                                              entry, fmt)
-            ms, plain_ms = time_pair(lambda: pd._paged_extend_q_cuda(*args),
-                                     lambda: pd._paged_extend_q_plain(*args),
-                                     device, iters=50)
             kb, vb = dequantized_bf16(*pools[:2]), dequantized_bf16(*pools[2:])
-            bf16_ms = time_ms(lambda: pd._paged_extend_cuda(
-                q, kb, vb, table, new_lengths, old_lengths, d ** -0.5), device,
-                iters=50, graph=True)
+            bf16_args = (q, kb, vb, table, new_lengths, old_lengths, d ** -0.5)
+            what = (f"paged_extend_q {fmt} b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                    f"max_pages{max_pages} t{t} old_lengths={old}")
+            if i == 0:
+                sub = {}
+                ext_measure(device, sub, q, pools, table, new_lengths,
+                            old_lengths, what, label)
+                ms = sub["ms"]
+            else:
+                ms = time_ms(lambda: pd._paged_extend_q_cuda(*args), device,
+                             iters=50, graph=True)
+            bf16_ms = time_ms(lambda: pd._paged_extend_cuda(*bf16_args), device,
+                              iters=50, graph=True)
             bnd = bound(4 * d * pairs,
                         nbytes(q, o, table, new_lengths, old_lengths)
                         + bytes_8bit(sum(new), hkv, d))
-            log(f"paged_extend_q {fmt} b{b} hq{hq} hkv{hkv} d{d} page{page} "
-                f"max_pages{max_pages} t{t} old_lengths={old}: rel-L2 "
-                f"{err:.3e}, max-abs {max_abs:.3e} | kernel {ms:.4f} ms vs "
-                f"plain {plain_ms:.4f} ms | the bf16 kernel on the dequantized "
-                f"pool {bf16_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}) [{label}]")
+            log(f"{what}: rel-L2 {err:.3e}, max-abs {max_abs:.3e} | whole call "
+                f"{ms:.4f} ms | the bf16 kernel on the dequantized pool "
+                f"{bf16_ms:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}, {bnd['bound_ms'] / ms:.1%} of the call) "
+                f"[{label}]")
             if i == 0 and fmt == "int8":
-                entry.update(ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms, **bnd,
+                entry.update(sub, bf16_ms=bf16_ms, **bnd,
                              shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
                                    f"max_pages{max_pages} t{t} old_lengths{old}")
             elif i == 0:
-                entry["fp8_ms"] = ms
+                entry.update(fp8_ms=ms, fp8_kernel_ms=sub["kernel_ms"])
+    for fmt in FMTS:
+        entry["max_abs_err"] = max(entry["max_abs_err"], ext_edges(
+            device, label, fmt, EXT_EDGE_SHAPES_8BIT))
     return entry
 
 
@@ -2474,8 +2730,9 @@ def phase_int8_weights(device, cfg, params, label):
 def device_ms_by_kind(prof) -> dict:
     """Device milliseconds of a torch.profiler window by kind of kernel:
     this repo's attention kernels by name (the forward core's flavours
-    0, 1, 2 as flash_fwd, flash_fwd_ragged, paged_extend), the GEMMs, the
-    cache appends and the rest."""
+    0, 1 as flash_fwd, flash_fwd_ragged; 2, the paged extend of commits
+    before paged_extend_sm90.cuh, which tools/ab_paged_extend.py runs), the
+    GEMMs, the cache appends and the rest."""
     from torch.autograd import DeviceType
 
     flavours = {"0": "flash_fwd", "1": "flash_fwd_ragged", "2": "paged_extend"}
@@ -2485,7 +2742,7 @@ def device_ms_by_kind(prof) -> dict:
             continue
         key = e.key
         fwd = re.search(r"flash_fwd(_q)?_kernel<\d+, (\d)", key)
-        ours = re.search(r"(paged|flash)_decode(_q|_sm90)?_kernel", key)
+        ours = re.search(r"(paged|flash)_(decode|extend)(_q|_sm90)?_kernel", key)
         if fwd:
             kind = flavours[fwd.group(2)] + ("_q" if fwd.group(1) else "")
         elif ours:
@@ -2559,12 +2816,13 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
 
 
 def profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
-                       batch=8, length=600, rounds=10, window=3):
-    """Where a speculative round's time goes on the page pool: `batch`
-    requests of `length` prompt tokens in the paged speculative Scheduler;
-    host milliseconds a round (each ends in the host's accept), then
-    `window` rounds under torch.profiler: device time by kind and the
-    device's busy share of the window's wall time."""
+                       batch=8, length=600, rounds=10, window=3,
+                       quantized=False):
+    """Where a speculative round's time goes on the page pool (an int8 one
+    with `quantized`): `batch` requests of `length` prompt tokens in the
+    paged speculative Scheduler; host milliseconds a round (each ends in
+    the host's accept), then `window` rounds under torch.profiler: device
+    time by kind and the device's busy share of the window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2572,7 +2830,8 @@ def profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
 
     sched = Scheduler(cfg, params, max_batch=batch, max_len=2048, paged=True,
                       page_size=128, draft_cfg=draft_cfg,
-                      draft_params=draft_params, spec_k=SPEC_K)
+                      draft_params=draft_params, spec_k=SPEC_K,
+                      quantized_cache=quantized)
     rng = np.random.default_rng(3)
     for _ in range(batch):  # a budget no round can spend
         sched.submit(rng.integers(0, cfg.vocab_size, length).astype(np.int32),
@@ -2593,7 +2852,8 @@ def profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
     committed = (sched.spec_committed - committed) / (batch * window)
     kinds = device_ms_by_kind(prof)
     busy = sum(kinds.values())
-    log(f"paged spec round (B={batch}, prompts {length}, spec_k {SPEC_K}, draft "
+    log(f"{'int8 ' if quantized else ''}paged spec round (B={batch}, prompts "
+        f"{length}, spec_k {SPEC_K}, draft "
         f"{draft_cfg.n_layers} layers): {host_ms:.3f} ms a round on the host "
         f"clock; profiled {window} rounds ({committed:.2f} tokens a slot a "
         f"round): {busy / window:.3f} ms of device time a round, busy "
@@ -5212,6 +5472,7 @@ def main() -> int:
     phase_gemm_sm90_build(build_log, label)
     phase_bwd_sm90_build(build_log, label)
     phase_dec_sm90_build(build_log, label)
+    phase_ext_sm90_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill
@@ -5236,9 +5497,7 @@ def main() -> int:
         (4, 8, 2, 64, 16, 19, [5, 16, 300, 0]),
     ], label)
     extend = phase_paged_extend(device, [
-        # the slice's verify (T = spec_k + 1): page edges, a full table, a
-        # row with no prefix
-        (8, 16, 4, 128, 128, 16, 5, [0, 1, 124, 127, 128, 700, 1500, 2043]),
+        EXT_SERVING,  # the slice's verify (T = spec_k + 1)
         (4, 8, 2, 64, 16, 19, 3, [0, 14, 300, 5]),
         # G = 8, T = 9: a folded group of 72 rows, two query tiles
         (2, 16, 2, 128, 64, 16, 9, [33, 900]),
@@ -5251,7 +5510,7 @@ def main() -> int:
     ragged_q = phase_ragged_8bit(device, 1, 16, 4, 256, 2304, [768], [512], 128,
                                  label)
     extend_q = phase_paged_extend_8bit(device, [
-        (8, 16, 4, 128, 128, 16, 5, [0, 1, 124, 127, 128, 700, 1500, 2043]),
+        EXT_SERVING,
         (8, 16, 4, 128, 16, 128, 5, [0, 1, 12, 15, 16, 700, 1500, 2043]),
     ], label)
     # the band kernels against their plain versions over the same band, and
@@ -5348,7 +5607,9 @@ def main() -> int:
         max_len=2048, max_new=64, single=single, linear=sched.metrics(),
         tie=tie, label=label)
     extend["launches"] = spec_launches["paged_extend"]
-    profile_spec_round(device, cfg, params, draft_cfg, draft_params, label)
+    for quantized in (False, True):
+        profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
+                           quantized=quantized)
 
     # 5. the int8 cache of bench_serving.py --int8: the serving requests
     # linear, paged, multi_step=4 and speculative over both caches

@@ -1,7 +1,7 @@
 // The mma.sync attention forward shared by flash_fwd_q.cu (the dense
-// forward, O and LSE, over an 8-bit cache), flash_fwd_ragged.cu (per-row KV
-// lengths and query offsets, O only) and paged_extend.cu (the ragged bounds
-// over a page pool, with the GQA group folded into the query rows, O only).
+// forward, O and LSE, over an 8-bit cache) and flash_fwd_ragged.cu (per-row
+// KV lengths and query offsets, O only). The paged extend, once its third
+// flavour, is paged_extend_sm90.cuh's Hopper kernel.
 // One block body, `fwd_block<D, kFlavour, kWindow, kDisc, KV>`, behind two
 // kernels: `flash_fwd_kernel<D, kFlavour, kWindow, kDisc>` over a bf16
 // cache and `flash_fwd_q_kernel<D, kFlavour, KV, kWindow, kDisc>` over an
@@ -19,13 +19,7 @@
 // keys, the StreamingLLM attention sinks):
 // - kDense: kv_len = S and pos(i) = i + one static q_offset;
 // - kRagged: kv_len and q_off read per row from device memory (S is the K/V
-//   row stride only), pos(i) = i + q_off(b);
-// - kPaged: the same per-row bounds, key j read from row j % page of page
-//   block_tables[b, j / page] of the pool, and the q "head" is a KV head
-//   whose n = G * T rows are the group's G heads' T chunk tokens, row
-//   i = gi * T + tr, so pos(i) = q_off(b) + i % T (the T tokens of each q
-//   head lie contiguous in [B, Hq, T, D], so [B, Hkv, G * T, D] is the same
-//   memory).
+//   row stride only), pos(i) = i + q_off(b).
 //
 // Precision differs from the TPU kernels in two places, both toward f32.
 // The scale multiplies the f32 scores instead of a bf16-rounded q, and p
@@ -38,18 +32,14 @@
 // thousands, d = 128) the two products do 4*N*S*d flops against about
 // 2*(N + 2*S)*d bytes of device memory, far above the card's ~295 flop/byte
 // ridge, so tensor-core issue and the softmax arithmetic between the two
-// products bound it, not HBM. The paged flavour at a verify chunk (G * T =
-// 20 rows against S keys) does 80*S*d flops for 4*S*d bytes, below the
-// ridge: there the bytes of the live pages bound it.
+// products bound it, not HBM.
 //
 // Design: one block of 4 warps per (64-query tile, q head, batch row). Each
 // warp owns 16 query rows and keeps its Q fragments, running (m, l) and the
 // O accumulator in registers for the whole key loop, so scores and
 // probabilities never touch shared or device memory. 64-key K/V tiles are
 // staged in shared memory (rows padded by 8 bf16 so fragment reads are free
-// of bank conflicts; the paged flavour copies them with cp.async) and
-// shared by the 4 warps (in the paged flavour a warp whose 16 rows all lie
-// past n helps load and skips the products). Both products are
+// of bank conflicts) and shared by the 4 warps. Both products are
 // mma.sync m16n8k16 bf16 -> f32; the score accumulator's register layout is
 // the A-operand layout of the PV product, so p is repacked in registers.
 // Key tiles past the row's bound (kv_len, and the causal diagonal of the
@@ -59,16 +49,13 @@
 // the q tile's first row to the diagonal, each once (a sink tile that the
 // band reaches is a band tile): the tiles in the gap are never loaded, so a
 // window of W keys costs O(N * W), as the TPU kernel's windowed grid does.
-// The ragged and paged flavours skip the mask on tiles that lie wholly
+// The ragged flavour skips the mask on tiles that lie wholly
 // inside every row's bound (and band), as the TPU kernels do. The window is
 // a template switch (kWindow), so the causal instances compile as they did
 // before it existed: as a runtime term it cost the causal dense forward
-// about a tenth of its time at 4096 keys on the H100. The paged flavour
-// takes no window, as the JAX engine passes none there. Left for
-// later: moving these flavours onto the wgmma, TMA and K/V-ring structure
-// of flash_fwd_sm90.cuh (which the dense bf16 forward took), and for the
-// paged flavour a split over pages (its grid is only B * Hkv blocks at the
-// serving shape).
+// about a tenth of its time at 4096 keys on the H100. Left for later:
+// moving these flavours onto the wgmma, TMA and K/V-ring structure of
+// flash_fwd_sm90.cuh (which the dense bf16 forward took).
 //
 // The softmax discipline is a third template switch (kDisc), as the TPU
 // kernel's `stable` is a static argument:
@@ -107,8 +94,7 @@
 // scales go to shared memory beside them. The K scale multiplies the f32
 // score column before the mask and the max; the V scale folds into the p
 // column (after l has summed it) before the bf16 hi + lo split. Half the
-// K/V bytes of bf16 cross device memory; the paged flavour reads values and
-// scales through the same table entry. The 8-bit tile does not go through
+// K/V bytes of bf16 cross device memory. The 8-bit tile does not go through
 // cp.async: a staging copy of it beside the bf16 tiles (16 KB more at
 // d = 128) would pass the 48 KB of static shared memory a block may hold.
 // The dense flavour over an 8-bit cache (flash_fwd_q.cu) writes its LSE
@@ -127,8 +113,6 @@
 
 namespace fkp_fwd {
 
-using fkp_mma::cp_async_16;
-using fkp_mma::cp_async_wait_all;
 using fkp_mma::mma_16816;
 using fkp_mma::pack_bf16;
 using fkp_mma::split_bf16;
@@ -140,19 +124,11 @@ constexpr int kBlockN = 64;  // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-enum Flavour : int { kDense = 0, kRagged = 1, kPaged = 2 };
+enum Flavour : int { kDense = 0, kRagged = 1 };
 // the softmax discipline: stable=True, stable=False, stable="auto"
 enum Disc : int { kOnline = 0, kFixed = 1, kHybrid = 2 };
 // the log2-domain score bound under which fixed-max is sound (_SAFE_BOUND)
 constexpr float kSafeBound = 78.f;
-
-// What the paged flavour adds (ignored by the others).
-struct PagedArgs {
-  const int* block_tables;  // [b, max_pages] int32: each row's page ids
-  int page;                 // rows per page
-  int max_pages;            // table entries per row
-  int t_chunk;              // T: query row i holds chunk token i % T
-};
 
 // q[row, col:col+2] as a bf16 pair (zero past the last row).
 template <int D>
@@ -162,9 +138,8 @@ __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* q_bh,
   return *reinterpret_cast<const uint32_t*>(q_bh + (size_t)row * D + col);
 }
 
-// What an 8-bit flavour adds (null for bf16): the scale buffers, [b, hkv,
-// s, 1] for the ragged flavour, the scale pools [n_pages, hkv, 1, page] for
-// the paged one.
+// What an 8-bit flavour adds (null for bf16): the scale buffers [b, hkv,
+// s, 1].
 struct QuantArgs {
   const float* k_scale;
   const float* v_scale;
@@ -229,9 +204,7 @@ __device__ __forceinline__ float sq_bf16x2(uint32_t w) {
 // q [b, hq, n, D], o [b, hq, n, D] bf16; lse [b, hq, n] f32 (dense flavour
 // only). Dense: k/v [b, hkv, s, D], every row sees keys [0, s) and the
 // static q_offset. Ragged: k/v [b, hkv, s, D], row b sees keys
-// [0, min(kv_lens[b], s)) and the offset q_offsets[b]. Paged: k/v the pools
-// [n_pages, hkv, page, D], hq == hkv and n = G * T (the folded group), row b
-// sees keys [0, min(kv_lens[b], max_pages * page)) and offset q_offsets[b].
+// [0, min(kv_lens[b], s)) and the offset q_offsets[b].
 // KV: the cache's element type (__nv_bfloat16, or int8_t / __nv_fp8_e4m3
 // for the 8-bit flavours, which read qa's scales). kDisc: the discipline;
 // k_max (kHybrid only): the device scalar max_t ||k_t|| of the keys as
@@ -246,13 +219,10 @@ __device__ __forceinline__ void fwd_block(
     float* __restrict__ lse, int hq, int hkv, int n, int s, float scale_log2,
     int causal, int q_offset, int window, int sinks,
     const int* __restrict__ kv_lens, const int* __restrict__ q_offsets,
-    PagedArgs pg, QuantArgs qa, const float* __restrict__ k_max,
+    QuantArgs qa, const float* __restrict__ k_max,
     GuardArgs gd) {
   constexpr bool kBounds = kFlavour != kDense;  // per-row bounds on the device
-  constexpr bool kPagedKV = kFlavour == kPaged;
   constexpr bool kQuant = sizeof(KV) == 1;
-  static_assert(!(kWindow && kPagedKV), "the paged flavour takes no window");
-  static_assert(kDisc == kOnline || !kPagedKV, "the paged flavour is online");
   static_assert(kDisc != kHybrid || kFlavour == kDense, "hybrid is dense only");
   constexpr int kStride = D + 8;  // padded shared-memory row, in bf16
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
@@ -271,37 +241,24 @@ __device__ __forceinline__ void fwd_block(
   const int t = lane % 4;  // fragment column pair
 
   // the row's bounds: keys [0, kv_len), query i at position pos(i)
-  const int kv_cap = kPagedKV ? pg.max_pages * pg.page : s;
-  const int kv_len = kBounds ? min(max(kv_lens[b], 0), kv_cap) : s;
+  const int kv_len = kBounds ? min(max(kv_lens[b], 0), s) : s;
   const int q_off = kBounds ? q_offsets[b] : q_offset;
 
   const size_t bh = (size_t)b * hq + h;
   const __nv_bfloat16* q_bh = q + bh * n * D;
-  // the head's first K/V row: in the row's buffer, or in any page of the
-  // pool (the page then adds pid * page_stride)
-  const size_t kv_head = kPagedKV ? (size_t)kvh * pg.page * D
-                                  : ((size_t)b * hkv + kvh) * s * D;
+  // the head's first K/V row and (8-bit flavours) scale
+  const size_t kv_head = ((size_t)b * hkv + kvh) * s * D;
   const KV* k_bh = k + kv_head;
   const KV* v_bh = v + kv_head;
-  const size_t page_stride = kPagedKV ? (size_t)hkv * pg.page * D : 0;
-  const int* table = kPagedKV ? pg.block_tables + (size_t)b * pg.max_pages
-                              : nullptr;
-  // the head's first scale (8-bit flavours): in the row's buffer, or in any
-  // page of the scale pool (the page then adds pid * hkv * page)
-  const size_t scale_head = kPagedKV ? (size_t)kvh * pg.page
-                                     : ((size_t)b * hkv + kvh) * s;
+  const size_t scale_head = ((size_t)b * hkv + kvh) * s;
 
   const int row0 = m_block * kBlockM + warp * 16 + g;
   const int row1 = row0 + 8;
-  const int pos0 = kPagedKV ? q_off + row0 % pg.t_chunk : row0 + q_off;
-  const int pos1 = kPagedKV ? q_off + row1 % pg.t_chunk : row1 + q_off;
+  const int pos0 = row0 + q_off;
+  const int pos1 = row1 + q_off;
   // the band: key j is in row i's band iff j > band(i) or j < sinks
   const int band0 = pos0 - window;
   const int band1 = pos1 - window;
-  // paged: a warp whose rows all lie past n (G * T = 20 rows fill two of
-  // the four warps at the serving shape) loads its share and skips the
-  // products; the other flavours keep every warp busy but the last tile's
-  const bool warp_live = !kPagedKV || m_block * kBlockM + warp * 16 < n;
 
   uint32_t qf[D / 16][4];
 #pragma unroll
@@ -347,14 +304,12 @@ __device__ __forceinline__ void fwd_block(
 
   int n_tiles = (kv_len + kBlockN - 1) / kBlockN;
   if (causal) {
-    // the tile's last position (paged: the chunk's last token)
-    const int last_key = kPagedKV ? q_off + pg.t_chunk - 1
-                                  : m_block * kBlockM + kBlockM - 1 + q_off;
+    // the tile's last position
+    const int last_key = m_block * kBlockM + kBlockM - 1 + q_off;
     n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBlockN + 1);
   }
-  // the tile's first position, the tightest causal bound (paged: a lower
-  // bound, the chunk's first token)
-  const int first_pos = kPagedKV ? q_off : m_block * kBlockM + q_off;
+  // the tile's first position, the tightest causal bound
+  const int first_pos = m_block * kBlockM + q_off;
   // sliding window: the sink tiles below the band, then the band's tiles
   // from the one holding the first row's first band key
   int band_tile = 0, n_sink_tiles = 0;
@@ -391,10 +346,7 @@ __device__ __forceinline__ void fwd_block(
         kc[u] = make_uint4(0u, 0u, 0u, 0u);
         vc[u] = make_uint4(0u, 0u, 0u, 0u);
         if (key < kv_len) {
-          const size_t off =
-              (kPagedKV ? (size_t)__ldg(table + key / pg.page) * page_stride +
-                              (size_t)(key % pg.page) * D
-                        : (size_t)key * D) + c;
+          const size_t off = (size_t)key * D + c;
           kc[u] = *reinterpret_cast<const uint4*>(k_bh + off);
           vc[u] = *reinterpret_cast<const uint4*>(v_bh + off);
         }
@@ -403,11 +355,7 @@ __device__ __forceinline__ void fwd_block(
         const int key = key0 + threadIdx.x;
         float ks = 0.f, vs = 0.f;
         if (key < kv_len) {
-          const size_t so =
-              scale_head +
-              (kPagedKV ? (size_t)__ldg(table + key / pg.page) * hkv * pg.page +
-                              key % pg.page
-                        : (size_t)key);
+          const size_t so = scale_head + (size_t)key;
           ks = qa.k_scale[so];
           vs = qa.v_scale[so];
         }
@@ -428,33 +376,17 @@ __device__ __forceinline__ void fwd_block(
         const int r = i / kVecPerRow;
         const int c = (i % kVecPerRow) * 8;
         const int key = key0 + r;
-        if constexpr (kPagedKV) {
-          // every key row is addressed through the table, since a page may
-          // be shorter than the tile; the copies go out with cp.async, all of
-          // the tile's at once, and one wait follows the loop (with one block
-          // per SM nothing else hides a load's latency)
-          const bool live = key < kv_len;  // rows past it are zero-filled
-          const size_t off =
-              live ? (size_t)__ldg(table + key / pg.page) * page_stride +
-                         (size_t)(key % pg.page) * D
-                   : 0;
-          cp_async_16(k_s + r * kStride + c, k_bh + off + c, live);
-          cp_async_16(v_s + r * kStride + c, v_bh + off + c, live);
-        } else {
-          uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-          uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-          if (key < kv_len) {
-            kv = *reinterpret_cast<const uint4*>(k_bh + (size_t)key * D + c);
-            vv = *reinterpret_cast<const uint4*>(v_bh + (size_t)key * D + c);
-          }
-          *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
-          *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
+        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+        if (key < kv_len) {
+          kv = *reinterpret_cast<const uint4*>(k_bh + (size_t)key * D + c);
+          vv = *reinterpret_cast<const uint4*>(v_bh + (size_t)key * D + c);
         }
+        *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
+        *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
       }
-      if constexpr (kPagedKV) cp_async_wait_all();
     }
     __syncthreads();
-    if (!warp_live) continue;  // uniform in the warp; both barriers were met
 
     // the tile's two products and softmax in one discipline (kF:
     // fixed-max); the hybrid compiles both and each warp runs its own
@@ -661,11 +593,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                      int hq, int hkv, int n, int s, float scale_log2,
                      int causal, int q_offset, int window, int sinks,
                      const int* __restrict__ kv_lens,
-                     const int* __restrict__ q_offsets, PagedArgs pg,
+                     const int* __restrict__ q_offsets,
                      const float* __restrict__ k_max, GuardArgs gd) {
   fwd_block<D, kFlavour, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s,
                                          scale_log2, causal, q_offset, window,
-                                         sinks, kv_lens, q_offsets, pg,
+                                         sinks, kv_lens, q_offsets,
                                          QuantArgs{}, k_max, gd);
 }
 
@@ -680,12 +612,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                        int hq, int hkv, int n, int s, float scale_log2,
                        int causal, int q_offset, int window, int sinks,
                        const int* __restrict__ kv_lens,
-                       const int* __restrict__ q_offsets, PagedArgs pg,
-                       QuantArgs qa, const float* __restrict__ k_max,
-                       GuardArgs gd) {
+                       const int* __restrict__ q_offsets, QuantArgs qa,
+                       const float* __restrict__ k_max, GuardArgs gd) {
   fwd_block<D, kFlavour, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s,
                                          scale_log2, causal, q_offset, window,
-                                         sinks, kv_lens, q_offsets, pg, qa,
+                                         sinks, kv_lens, q_offsets, qa,
                                          k_max, gd);
 }
 

@@ -50,7 +50,7 @@ int launch_dense_q(const dim3& grid, cudaStream_t st, const void* q,
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), hq, hkv, n, s, scale_log2, causal, q_offset,
-      window, sinks, nullptr, nullptr, fkp_fwd::PagedArgs{}, qa,
+      window, sinks, nullptr, nullptr, qa,
       static_cast<const float*>(k_max),
       fkp_fwd::GuardArgs{static_cast<int*>(bad), nullptr});
   return static_cast<int>(cudaGetLastError());

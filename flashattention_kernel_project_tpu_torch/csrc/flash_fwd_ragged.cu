@@ -62,7 +62,7 @@ extern "C" int fkp_flash_fwd_ragged(const void* q, const void* k,
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       nullptr, hq, hkv, n, s_max, scale_log2, causal, 0, window, sinks,
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_offsets),
-      fkp_fwd::PagedArgs{}, nullptr, fkp_fwd::GuardArgs{});
+      nullptr, fkp_fwd::GuardArgs{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -88,7 +88,7 @@ int launch_ragged_q(const dim3& grid, cudaStream_t st, const void* q,
       static_cast<const KV*>(v), static_cast<__nv_bfloat16*>(o), nullptr, hq,
       hkv, n, s_max, scale_log2, causal, 0, window, sinks,
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_offsets),
-      fkp_fwd::PagedArgs{}, qa, nullptr, fkp_fwd::GuardArgs{});
+      qa, nullptr, fkp_fwd::GuardArgs{});
   return static_cast<int>(cudaGetLastError());
 }
 

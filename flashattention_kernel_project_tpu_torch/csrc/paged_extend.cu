@@ -1,131 +1,146 @@
 // Causal multi-token GQA extend against a paged KV cache, for Hopper
 // (sm_90a): the verify step of speculative decoding over the page pool.
-//
-// Replaces flashattention_kernel_project_tpu/ops/paged_decode.py::
-// _paged_extend_kernel (reached through paged_flash_extend) for a bf16 pool,
-// and its quant=True flavour for an int8 or e4m3 pool with lane-major scale
-// pages [n_pages, Hkv, 1, page] (paged_flash_extend with k_scale_pages and
-// v_scale_pages).
-// The chunk's T tokens are already appended to the pages; chunk token tr of
-// row b sits at position old_lens[b] + tr and sees keys j < new_lens[b] and
-// j <= old_lens[b] + tr. Only pages below new_lens[b] are read, so dead
-// table entries (the junk page 0) cost nothing.
-//
-// It is the paged flavour of the tiled forward in flash_fwd_core.cuh (the
-// design, precision and bound are described there). As the TPU kernel does,
-// it folds the GQA group and the chunk into the rows of one query tile, row
-// gi * T + tr, so each block reads its KV head's pages once for the whole
-// group: one block per (64-row tile of the G * T folded rows, KV head, batch
-// row). G * T above 64 (G = 8 and T >= 9) takes a second tile, not a
-// truncation; rows past G * T load zeros and write nothing. Key rows are
-// addressed one by one through the block table, because a 64-key tile
-// spans several pages of 16 or 32 rows. At the serving shape (B = 8,
-// Hkv = 4, G = 4, T = 5) the grid is 32 blocks of 20 live rows, bound by the
-// bytes of the live pages, which one block per (row, KV head) streams alone:
-// splitting over pages, as the paged decode does, is left for later.
+// This source builds the bf16 instances of paged_extend_sm90.cuh's kernel
+// (d in {64, 128} x 16, 32 or 64 folded rows a block: 6), the arrival
+// counters of its split merge, and the C entries of both flavours (the
+// 8-bit instances are paged_extend_q.cu's). The kernel's design, bound and
+// the TPU kernel it replaces (paged_decode.py::_paged_extend_kernel, bf16
+// and quant=True) are described in the header.
 
-#include "flash_fwd_core.cuh"
+#include "paged_extend_sm90.cuh"
 
-using fkp_fwd::flash_fwd_kernel;
-using fkp_fwd::flash_fwd_q_kernel;
-using fkp_fwd::kBlockM;
-using fkp_fwd::kPaged;
-using fkp_fwd::kThreads;
-using fkp_fwd::PagedArgs;
-
-// q [b, hq, t, d] bf16 contiguous (read as [b, hkv, G * t, d]); k/v pages
-// [n_pages, hkv, page, d] bf16 contiguous; block_tables [b, max_pages],
-// new_lens and old_lens [b] int32 on the device; o [b, hq, t, d] bf16.
-// scale_log2 = sm_scale * log2(e). d in {64, 128}. Returns
-// cudaGetLastError() after the launch.
-extern "C" int fkp_paged_extend(const void* q, const void* k_pages,
-                                const void* v_pages, const void* block_tables,
-                                const void* new_lens, const void* old_lens,
-                                void* o, int b, int hq, int hkv, int t,
-                                int page, int d, int max_pages,
-                                float scale_log2, void* stream) {
-  const int rows = (hq / hkv) * t;  // the folded group
-  const dim3 grid((rows + kBlockM - 1) / kBlockM, hkv, b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_pages);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_pages);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  const auto* lens = static_cast<const int*>(new_lens);
-  const auto* offs = static_cast<const int*>(old_lens);
-  const PagedArgs pg{static_cast<const int*>(block_tables), page, max_pages,
-                     t};
-  // the folded q is one "head" per KV head: hq = hkv, n = rows
-  if (d == 64) {
-    flash_fwd_kernel<64, kPaged><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg, nullptr, fkp_fwd::GuardArgs{});
-  } else if (d == 128) {
-    flash_fwd_kernel<128, kPaged><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg, nullptr, fkp_fwd::GuardArgs{});
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
+namespace fkp_ext90 {
 namespace {
 
-template <class KV>
-int launch_extend_q(const dim3& grid, cudaStream_t st, const void* q,
-                    const void* k_pages, const void* k_scale_pages,
-                    const void* v_pages, const void* v_scale_pages, void* o,
-                    const int* lens, const int* offs, const PagedArgs& pg,
-                    int hkv, int rows, int d, float scale_log2) {
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const KV*>(k_pages);
-  const auto* vp = static_cast<const KV*>(v_pages);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  const fkp_fwd::QuantArgs qa{static_cast<const float*>(k_scale_pages),
-                              static_cast<const float*>(v_scale_pages)};
-  if (d == 64) {
-    flash_fwd_q_kernel<64, kPaged, KV><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg, qa, nullptr, fkp_fwd::GuardArgs{});
-  } else if (d == 128) {
-    flash_fwd_q_kernel<128, kPaged, KV><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, nullptr, hkv, hkv, rows, 0, scale_log2, 1, 0, 0, 0,
-        lens, offs, pg, qa, nullptr, fkp_fwd::GuardArgs{});
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+// one a (batch row, KV head, row tile); every completed launch leaves them
+// at 0
+__device__ int g_counters[kMaxCounters];
+
+// The call's shape as the kernel takes it, or false: pages of 16 to 128
+// rows in steps of 16, splits of whole 64-key tiles, at most kMaxSplits of
+// them, 16, 32 or 64 folded rows a block; with out set and more than one
+// split the workspace and at most kMaxCounters (batch row, KV head, row
+// tile) triples; without out the partials' buffers.
+bool valid(int b, int hq, int hkv, int t, int page, int max_pages,
+           int n_pages, int n_splits, int block_s, int block_rows,
+           const void* out, const void* m, const void* l, const void* y) {
+  if (b <= 0 || hkv <= 0 || hq % hkv || t <= 0 || max_pages <= 0 ||
+      n_pages <= 0 || page % 16 || page < kMinPage || page > kMaxPage ||
+      n_splits < 1 || n_splits > kMaxSplits || block_s <= 0 ||
+      block_s % kTile || (block_rows != 16 && block_rows != 32 &&
+                          block_rows != 64)) {
+    return false;
   }
-  return static_cast<int>(cudaGetLastError());
+  const long long rows = (long long)(hq / hkv) * t;
+  const long long row_tiles = (rows + block_rows - 1) / block_rows;
+  if (b > 65535 || hkv * row_tiles > 65535 ||
+      (long long)n_pages * hkv > 0x7fffffffLL) {
+    return false;
+  }
+  const bool parts = !out || n_splits > 1;
+  if (parts && (!m || !l || !y)) return false;
+  return !(out && n_splits > 1 && b * hkv * row_tiles > kMaxCounters);
+}
+
+// the Params of a call (k_scale and v_scale null for bf16)
+Params params(const void* q, const void* tables, const void* new_lens,
+              const void* old_lens, const void* k_scale, const void* v_scale,
+              void* out, void* m, void* l, void* y, int hq, int hkv, int t,
+              int page, int max_pages, int n_splits, int block_s,
+              int block_rows, float scale_log2) {
+  const int rows = (hq / hkv) * t;
+  int box_rows = 64;  // gcd(page, 64)
+  while (page % box_rows) box_rows /= 2;
+  return Params{static_cast<const __nv_bfloat16*>(q),
+                static_cast<const int*>(tables),
+                static_cast<const int*>(new_lens),
+                static_cast<const int*>(old_lens),
+                static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale),
+                static_cast<float*>(m),
+                static_cast<float*>(l),
+                static_cast<float*>(y),
+                static_cast<__nv_bfloat16*>(out),
+                hkv, t, rows, (rows + block_rows - 1) / block_rows, page,
+                max_pages, n_splits, block_s, box_rows, scale_log2};
+}
+
+int* counters() {
+  int* c = nullptr;
+  return cudaGetSymbolAddress(reinterpret_cast<void**>(&c), g_counters) ==
+                 cudaSuccess
+             ? c
+             : nullptr;
 }
 
 }  // namespace
+}  // namespace fkp_ext90
 
-// q [b, hq, t, d] bf16; k/v pages [n_pages, hkv, page, d] int8 (fp8 == 0)
-// or e4m3 (fp8 == 1) and their scale pages [n_pages, hkv, 1, page] f32, all
-// contiguous; block_tables, the lengths, o and scale_log2 as
-// fkp_paged_extend. Returns cudaGetLastError() after the launch.
+// q [b, hq, t, d] bf16 contiguous (read as [b, hkv, G * t, d]); k/v pages
+// [n_pages, hkv, page, d] bf16 contiguous and 16-byte aligned; block_tables
+// [b, max_pages], new_lens and old_lens [b] int32 on the device. Chunk
+// token tr of row b sees keys j < min(new_lens[b], max_pages * page) with
+// j <= old_lens[b] + tr. The keys are cut into n_splits splits of block_s
+// keys (a multiple of 64), at most 64; block_rows (16, 32 or 64) folded
+// rows a block. o [b, hq, t, d] bf16 takes the normalised rows (0 for a row
+// that sees no key); with n_splits > 1, m, l [b, hkv, row_tiles, n_splits,
+// block_rows] and y [..., block_rows, d] f32 (row_tiles = ceil(G * t /
+// block_rows)) are the splits' workspace, and b * hkv * row_tiles is at
+// most 2^18; with one split they may be null. o null: the kernel writes
+// every split's partials to m, l and y (m in natural-log units, NEG_INF
+// with l = 0 and y = 0 for a row with no live key in the split) and
+// nothing else. scale_log2 = sm_scale * log2(e). d in {64, 128}, pages of
+// 16 to 128 rows in steps of 16. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue without one for a shape outside these
+// or inputs a TMA map cannot describe.
+extern "C" int fkp_paged_extend(const void* q, const void* k_pages,
+                                const void* v_pages, const void* block_tables,
+                                const void* new_lens, const void* old_lens,
+                                void* o, void* m, void* l, void* y, int b,
+                                int hq, int hkv, int t, int page, int d,
+                                int max_pages, int n_pages, int n_splits,
+                                int block_s, int block_rows, float scale_log2,
+                                void* stream) {
+  if (!fkp_ext90::valid(b, hq, hkv, t, page, max_pages, n_pages, n_splits,
+                        block_s, block_rows, o, m, l, y)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* c = fkp_ext90::counters();
+  if (!c) return static_cast<int>(cudaGetLastError());
+  const fkp_ext90::Params p = fkp_ext90::params(
+      q, block_tables, new_lens, old_lens, nullptr, nullptr, o, m, l, y, hq,
+      hkv, t, page, max_pages, n_splits, block_s, block_rows, scale_log2);
+  return fkp_ext90::launch_any<__nv_bfloat16>(
+      d, block_rows, p, k_pages, v_pages, n_pages, b, c,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same over an 8-bit pool: k/v pages [n_pages, hkv, page, d] int8
+// (fp8 == 0) or e4m3 (fp8 == 1) and their scale pages [n_pages, hkv, 1,
+// page] f32, contiguous and 16-byte aligned; the rest as fkp_paged_extend.
 extern "C" int fkp_paged_extend_q(const void* q, const void* k_pages,
                                   const void* k_scale_pages,
                                   const void* v_pages,
                                   const void* v_scale_pages,
                                   const void* block_tables,
                                   const void* new_lens, const void* old_lens,
-                                  void* o, int b, int hq, int hkv, int t,
-                                  int page, int d, int max_pages,
+                                  void* o, void* m, void* l, void* y, int b,
+                                  int hq, int hkv, int t, int page, int d,
+                                  int max_pages, int n_pages, int n_splits,
+                                  int block_s, int block_rows,
                                   float scale_log2, int fp8, void* stream) {
-  const int rows = (hq / hkv) * t;  // the folded group
-  const dim3 grid((rows + kBlockM - 1) / kBlockM, hkv, b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* lens = static_cast<const int*>(new_lens);
-  const auto* offs = static_cast<const int*>(old_lens);
-  const PagedArgs pg{static_cast<const int*>(block_tables), page, max_pages,
-                     t};
-  if (fp8) {
-    return launch_extend_q<__nv_fp8_e4m3>(grid, st, q, k_pages, k_scale_pages,
-                                          v_pages, v_scale_pages, o, lens,
-                                          offs, pg, hkv, rows, d, scale_log2);
+  if (!fkp_ext90::valid(b, hq, hkv, t, page, max_pages, n_pages, n_splits,
+                        block_s, block_rows, o, m, l, y) ||
+      !k_scale_pages || !v_scale_pages) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_extend_q<int8_t>(grid, st, q, k_pages, k_scale_pages, v_pages,
-                                 v_scale_pages, o, lens, offs, pg, hkv, rows,
-                                 d, scale_log2);
+  int* c = fkp_ext90::counters();
+  if (!c) return static_cast<int>(cudaGetLastError());
+  const fkp_ext90::Params p = fkp_ext90::params(
+      q, block_tables, new_lens, old_lens, k_scale_pages, v_scale_pages, o, m,
+      l, y, hq, hkv, t, page, max_pages, n_splits, block_s, block_rows,
+      scale_log2);
+  return fkp_ext90::launch_8bit(fp8, d, block_rows, p, k_pages, v_pages,
+                                n_pages, b, c,
+                                static_cast<cudaStream_t>(stream));
 }

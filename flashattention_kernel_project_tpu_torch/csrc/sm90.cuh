@@ -1,11 +1,13 @@
 // Hopper (sm_90a) primitives shared by the kernels built on wgmma and TMA:
 // the dense attention forward (flash_fwd_sm90.cuh), the bf16 GEMM
 // (gemm_sm90.cuh) and the attention backward (flash_bwd_sm90.cuh,
-// flash_bwd_dq_sm90.cuh). mbarriers for a ring of shared-memory stages,
-// the 3-D TMA load and the 1-D bulk load that complete on one, the wgmma
-// shared-memory descriptor under the 128-byte swizzle, the wgmma products
-// the attention kernels issue, wgmma's fence, commit and wait, the proxy
-// fence, named barriers, and the host-side encoder of a TMA map.
+// flash_bwd_dq_sm90.cuh), and by the TMA rings of the linear decode
+// (flash_decode_sm90.cuh) and the paged extend (paged_extend_sm90.cuh):
+// mbarriers for a ring of shared-memory stages, the 3-D TMA load and the
+// 1-D bulk load that complete on one, the wgmma shared-memory descriptor
+// under the 128-byte swizzle, the wgmma products the attention kernels
+// issue, wgmma's fence, commit and wait, the proxy fence, named barriers,
+// and the host-side encoder of a TMA map.
 
 #pragma once
 
@@ -292,15 +294,17 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 }
 
 // A TMA map over a contiguous [heads, rows, d] tensor of `type` (`elem`
-// bytes an element) with boxes of box_rows rows x box_cols columns (128
-// bytes), 128B-swizzled; rows past `rows` and columns past `d` read as
-// zeros, and a store or reduce there writes nothing. The encoder,
+// bytes an element) with boxes of box_rows rows x box_cols columns (by
+// default 128 bytes, 128B-swizzled; the paged extend's 8-bit pool takes
+// whole rows of d bytes unswizzled); rows past `rows` and columns past `d`
+// read as zeros, and a store or reduce there writes nothing. The encoder,
 // cuTensorMapEncodeTiled, lives in libcuda.so.1, which the CUDA runtime
 // has loaded; the library links the runtime only, so dlsym finds it there.
 // False if it fails.
 inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type, int elem,
                          const void* ptr, int d, int rows, int heads,
-                         int box_rows) {
+                         int box_rows, int box_cols = 0,
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -317,10 +321,11 @@ inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type, int elem,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * elem,
                                  (cuuint64_t)rows * d * elem};
-  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)(box_cols ? box_cols : 128 / elem),
+                             (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

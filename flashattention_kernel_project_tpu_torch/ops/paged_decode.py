@@ -13,11 +13,14 @@ combines them. On a CUDA tensor the partials come from the hand-written
 Hopper kernel in csrc/paged_decode.cu; on a CPU tensor from
 `_paged_partials_plain`, the same function in plain PyTorch. The extend
 (the speculative verify step) scores T appended tokens per sequence
-against its pages: csrc/paged_extend.cu on a CUDA tensor,
-`_paged_extend_plain` on a CPU tensor. An 8-bit pool (int8 or
+against its pages: on a CUDA tensor csrc/paged_extend_sm90.cuh's Hopper
+kernel (built by paged_extend.cu and paged_extend_q.cu), split over the
+pages (`extend_n_splits`) with the split merge on the card, one launch a
+call; on a CPU tensor `_paged_extend_plain` (`_paged_extend_partials_plain`
+gives the kernel's split partials). An 8-bit pool (int8 or
 float8_e4m3fn) keeps each token's K and V scales in scale pools
 [n_pages, Hkv, 1, page] float32, lane-major as in the JAX package; its
-kernels are the 8-bit ones of the same two sources, and its plain
+kernels are the 8-bit ones of the same sources, and its plain
 versions (`_paged_partials_q_plain`, `_paged_extend_q_plain`) dequantize
 the gathered rows.
 
@@ -51,7 +54,10 @@ from flashattention_kernel_project_tpu_torch.ops.flash_attention import (
 from flashattention_kernel_project_tpu_torch.ops.flash_decode import (
     _KERNEL_DIMS,
     _KERNEL_GROUPS,
+    _TILE,
+    _blocks_per_sm,
     _decode_partials_plain,
+    default_block_s,
     _split_mask,
     _split_partials,
     _split_rows,
@@ -64,7 +70,11 @@ from flashattention_kernel_project_tpu_torch.ops.quant import (
 from flashattention_kernel_project_tpu_torch.ops.softmax import _LOG2E
 from flashattention_kernel_project_tpu_torch.utils.platform import H100_SMS
 
-_MAX_PAGE = 128  # the kernel takes pages of 16, 32, ..., 128 rows
+_MAX_PAGE = 128  # the kernels take pages of 16, 32, ..., 128 rows
+# csrc/paged_extend_sm90.cuh: the splits a call takes and the (batch row,
+# KV head, row tile) triples its split merge counts
+_EXTEND_MAX_SPLITS = 64
+_EXTEND_MAX_COUNTERS = 1 << 18
 _KERNEL_SLOTS = (2, 3, 4)  # the gather depths the kernel is built for
 
 
@@ -198,10 +208,7 @@ def _check_decode_bounds(q, k_pages, lengths):
     if tuple(lengths.shape) != (b,) or not lengths.is_contiguous():
         raise ValueError(f"lengths must be a contiguous [{b}] tensor, got "
                          f"{tuple(lengths.shape)}")
-    page = k_pages.shape[2]
-    if page % 16 or not 16 <= page <= _MAX_PAGE:
-        raise ValueError(f"the CUDA paged decode takes pages of 16 to "
-                         f"{_MAX_PAGE} rows in steps of 16, got {page}")
+    _check_kernel_page(k_pages.shape[2], "paged decode")
     if q.shape[1] // k_pages.shape[1] not in _KERNEL_GROUPS:
         raise ValueError(f"the CUDA paged decode takes Hq/Hkv in {_KERNEL_GROUPS}")
 
@@ -537,33 +544,201 @@ def _paged_extend_plain(q, k_pages, v_pages, block_table, new_lengths,
         sm_scale)
 
 
+def extend_block_rows(rows: int) -> int:
+    """Folded rows (G * T) a block of the Hopper extend holds
+    (csrc/paged_extend_sm90.cuh's kRows): the fewest 16-row slabs that hold
+    `rows`, up to four, so 16, 32 or 64; more rows take more row tiles (G 8
+    and T 9: two of 64). The serving verify's 20 rows take 32."""
+    return (16, 32, 64, 64)[min(-(-rows // 16), 4) - 1]
+
+
+def extend_n_splits(batch: int, kv_heads: int, row_tiles: int, capacity: int,
+                    d: int = 128) -> int:
+    """Splits of the Hopper extend: as many as bring B * Hkv * row_tiles
+    blocks to the card's (132 SMs times the blocks an SM holds at the
+    kernel's ring, as `default_n_splits` for the linear decode) and no
+    more, each whole 64-key tiles and at least two of them, at most
+    _EXTEND_MAX_SPLITS; one where the triples already fill the card. Sized
+    by the table's capacity (max_pages * page), not by the lengths, which
+    stay on the device. At the serving verify (B 8, Hkv 4, one row tile,
+    16 pages of 128) 8 splits of 256 keys. Only the order of the sums
+    depends on this."""
+    tiles = -(-capacity // _TILE)
+    want = H100_SMS * _blocks_per_sm(d) // max(batch * kv_heads * row_tiles, 1)
+    n = max(1, min(want, tiles // 2, _EXTEND_MAX_SPLITS))
+    return -(-tiles // -(-tiles // n))  # whole tiles, none of them empty
+
+
+def _check_kernel_page(page: int, what: str) -> None:
+    """The paged kernels' page rule on the card: 16 to 128 rows in steps
+    of 16 (the extend's TMA boxes are gcd(page, 64) rows)."""
+    if page % 16 or not 16 <= page <= _MAX_PAGE:
+        raise ValueError(f"the CUDA {what} takes pages of 16 to "
+                         f"{_MAX_PAGE} rows in steps of 16, got {page}")
+
+
+def _extend_partials(q, k_rows, v_rows, new_lengths, old_lengths, n_splits,
+                     block_s, sm_scale):
+    """The Hopper extend's split partials in plain PyTorch, in float32:
+    q [B, Hq, T, D] folded into [B, Hkv, G*T, D] (row gi * T + tr), each
+    row's keys k_rows, v_rows [B, Hkv, S, D] cut into n_splits splits of
+    block_s keys; folded row r of batch row b sees key j iff j < new_len
+    (clamped to S) and j <= old_len + r % T. Returns (m, l [B, Hkv,
+    n_splits, G*T, 1], y [B, Hkv, n_splits, G*T, D]) for `merge_partials`
+    (m NEG_INF and l = 0 for a row with no live key in a split)."""
+    b, hq, t, d = q.shape
+    hkv, s = k_rows.shape[1], k_rows.shape[2]
+    rows = hq // hkv * t
+    if n_splits * block_s < s:
+        raise ValueError(f"{n_splits} splits of {block_s} keys miss keys of {s}")
+    kp = _split_rows(k_rows.float(), n_splits, block_s)
+    vp = _split_rows(v_rows.float(), n_splits, block_s)
+    qg = q.float().reshape(b, hkv, 1, rows, d)
+    scores = (qg @ kp.transpose(-1, -2)) * sm_scale  # [B, Hkv, splits, R, bs]
+    col = torch.arange(n_splits * block_s, device=q.device)
+    new = new_lengths.to(q.device).clamp(0, s).long()[:, None, None]
+    pos = (old_lengths.to(q.device).long()[:, None, None]
+           + (torch.arange(rows, device=q.device) % t)[None, :, None])
+    mask = (col < new) & (col <= pos)  # [B, R, splits * bs]
+    mask = mask.view(b, rows, n_splits, block_s).transpose(1, 2)[:, None]
+    return _split_partials(scores, mask, vp)
+
+
+def _merge_extend(parts, q):
+    """The extend's split partials merged (`merge_partials`) into [B, Hq,
+    T, D] in q's dtype."""
+    return merge_partials(*parts).reshape(q.shape).to(q.dtype)
+
+
+def _paged_extend_partials_plain(q, k_pages, v_pages, block_table,
+                                 new_lengths, old_lengths, n_splits, block_s,
+                                 sm_scale):
+    """The bf16 kernel's split partials in plain PyTorch: each row's pages
+    gathered into a linear cache, then `_extend_partials`."""
+    return _extend_partials(q, _linear_rows(k_pages, block_table),
+                            _linear_rows(v_pages, block_table), new_lengths,
+                            old_lengths, n_splits, block_s, sm_scale)
+
+
+def _paged_extend_q_partials_plain(q, k_pages, k_scale_pages, v_pages,
+                                   v_scale_pages, block_table, new_lengths,
+                                   old_lengths, n_splits, block_s, sm_scale):
+    """The 8-bit kernel's split partials in plain PyTorch: each row's pages
+    gathered and dequantized to float32, then `_extend_partials`."""
+    return _extend_partials(
+        q, _dequantized_rows(k_pages, k_scale_pages, block_table),
+        _dequantized_rows(v_pages, v_scale_pages, block_table), new_lengths,
+        old_lengths, n_splits, block_s, sm_scale)
+
+
+def extend_plan(q_shape, kv_heads: int, page: int, max_pages: int,
+                n_splits: int | None = None):
+    """How the Hopper extend cuts a call: (block_rows, row_tiles, n_splits,
+    block_s). n_splits None takes `extend_n_splits`; block_s is whole
+    64-key tiles (`default_block_s` over the table's capacity)."""
+    b, hq, t, d = q_shape
+    rows = hq // kv_heads * t
+    block_rows = extend_block_rows(rows)
+    row_tiles = -(-rows // block_rows)
+    capacity = max_pages * page
+    if n_splits is None:
+        n_splits = extend_n_splits(b, kv_heads, row_tiles, capacity, d)
+    elif not 1 <= n_splits <= _EXTEND_MAX_SPLITS:
+        raise ValueError(f"the CUDA paged extend takes 1 to "
+                         f"{_EXTEND_MAX_SPLITS} splits, got {n_splits}")
+    return block_rows, row_tiles, n_splits, default_block_s(capacity, n_splits)
+
+
+# b, hq, hkv, t, page, d, max_pages, n_pages, n_splits, block_s, block_rows
+_EXTEND_INTS = [ctypes.c_int] * 11
+
+
 @functools.cache
 def _extend_kernel():
     """fkp_paged_extend: q, k_pages, v_pages, block_table, new_lengths,
-    old_lengths, o, then (b, hq, hkv, t, page, d, max_pages), a float scale
-    and the stream."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    old_lengths, o (None: partials only), m, l, y (the splits' partials or
+    workspace), then (b, hq, hkv, t, page, d, max_pages, n_pages, n_splits,
+    block_s, block_rows), the log2-domain scale and the stream."""
+    vp = ctypes.c_void_p
     return _build.kernel("fkp_paged_extend",
-                         [vp] * 7 + [i32] * 7 + [ctypes.c_float, vp])
+                         [vp] * 10 + _EXTEND_INTS + [ctypes.c_float, vp])
+
+
+@functools.cache
+def _extend_kernel_q():
+    """fkp_paged_extend_q: q, k_pages, k_scale_pages, v_pages,
+    v_scale_pages, block_table, new_lengths, old_lengths, o, m, l, y, then
+    as fkp_paged_extend, fp8 before the stream."""
+    vp = ctypes.c_void_p
+    return _build.kernel("fkp_paged_extend_q",
+                         [vp] * 12 + _EXTEND_INTS + [ctypes.c_float, ctypes.c_int, vp])
+
+
+def _extend_cuda(q, pools, block_table, new_lengths, old_lengths, sm_scale,
+                 n_splits, whole):
+    """One launch of the Hopper extend over `pools` ((k_pages, v_pages) bf16,
+    or (k_pages, k_scale_pages, v_pages, v_scale_pages) 8-bit). whole: the
+    output [B, Hq, T, D] bf16, the splits merged on the card; else the
+    kernel's split partials (m, l, y) in `_extend_partials`' layout, at
+    `extend_plan`'s block_s (n_splits None: `extend_n_splits`)."""
+    quant = len(pools) == 4
+    k_pages = pools[0]
+    if quant:
+        _check_scale_pools(q, *pools, block_table, "8-bit paged extend")
+    else:
+        _check_pool_inputs(q, *pools, block_table, "paged extend")
+    _check_ragged_bounds(q, new_lengths, old_lengths)
+    n_pages, hkv, page, _ = k_pages.shape
+    _check_kernel_page(page, "paged extend")
+    b, hq, t, d = q.shape
+    max_pages = block_table.shape[1]
+    block_rows, row_tiles, n_splits, block_s = extend_plan(
+        q.shape, hkv, page, max_pages, n_splits)
+    if whole and n_splits > 1 and b * hkv * row_tiles > _EXTEND_MAX_COUNTERS:
+        raise ValueError(f"the CUDA paged extend merges more than one split "
+                         f"for at most {_EXTEND_MAX_COUNTERS} (batch row, KV "
+                         f"head, row tile) triples, got {b * hkv * row_tiles}")
+    o = torch.empty_like(q) if whole else None
+    work = [None] * 3
+    if not whole or n_splits > 1:  # m, l, y of every split, one allocation
+        cells = b * hkv * row_tiles * n_splits * block_rows
+        ws = torch.empty(cells * (d + 2), dtype=torch.float32, device=q.device)
+        work = [ws[:cells], ws[cells:2 * cells], ws[2 * cells:]]
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    args = [x.data_ptr() for x in (q, *pools, block_table, new_lengths,
+                                   old_lengths)]
+    args += [ptr(o), *map(ptr, work), b, hq, hkv, t, page, d, max_pages,
+             n_pages, n_splits, block_s, block_rows, float(sm_scale * _LOG2E)]
+    if quant:
+        args.append(int(k_pages.dtype == torch.float8_e4m3fn))
+    args.append(torch.cuda.current_stream(q.device).cuda_stream)
+    rc = (_extend_kernel_q if quant else _extend_kernel)()(*args)
+    counter = paged_flash_extend_quant if quant else paged_flash_extend
+    counter.launches += 1
+    _build.check(rc, "paged_extend_q" if quant else "paged_extend")
+    if whole:
+        return o
+    rows = hq // hkv * t
+    return tuple(_kernel_partials(x, (b, hkv, row_tiles, n_splits, block_rows),
+                                  rows, width)
+                 for x, width in zip(work, (1, 1, d)))
+
+
+def _kernel_partials(x, grid, rows, width):
+    """A partial the kernel writes, [B, Hkv, row_tiles, n_splits,
+    block_rows(, D)] flat (grid: those five sizes), as `_extend_partials`
+    gives it: [B, Hkv, n_splits, rows, width], the padding rows dropped."""
+    b, hkv, row_tiles, n_splits, block_rows = grid
+    x = x.view(b, hkv, row_tiles, n_splits, block_rows, width)
+    return x.transpose(2, 3).reshape(b, hkv, n_splits, -1, width)[:, :, :, :rows]
 
 
 def _paged_extend_cuda(q, k_pages, v_pages, block_table, new_lengths,
                        old_lengths, sm_scale):
-    _check_pool_inputs(q, k_pages, v_pages, block_table, "paged extend")
-    _check_ragged_bounds(q, new_lengths, old_lengths)
-    b, hq, t, d = q.shape
-    _, hkv, page, _ = k_pages.shape
-    o = torch.empty_like(q)
-    rc = _extend_kernel()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), new_lengths.data_ptr(),
-        old_lengths.data_ptr(), o.data_ptr(),
-        b, hq, hkv, t, page, d, block_table.shape[1],
-        float(sm_scale * _LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    paged_flash_extend.launches += 1
-    _build.check(rc, "paged_extend")
-    return o
+    """paged_flash_extend on the card in one launch (the splits merged in
+    the kernel)."""
+    return _extend_cuda(q, (k_pages, v_pages), block_table, new_lengths,
+                        old_lengths, sm_scale, None, whole=True)
 
 
 def paged_flash_extend(
@@ -587,11 +762,14 @@ def paged_flash_extend(
     new_lengths, old_lengths [B] int32, the lengths after and before the
     chunk. Chunk token t of row b attends keys [0, old_lengths[b] + t], the
     semantics of the linear engine's ragged `extend`. Returns
-    [B, Hq, T, D] in q's dtype. CPU tensors run `_paged_extend_plain`; CUDA
-    tensors launch csrc/paged_extend.cu (bf16, d in {64, 128}, any page
-    size, any Hq/Hkv and T: a folded group of G * T rows above 64 takes
-    more than one query tile) or raise. With k_scale_pages and
-    v_scale_pages the pool is 8-bit: `paged_flash_extend_quant`.
+    [B, Hq, T, D] in q's dtype. CPU tensors run `_paged_extend_plain` (any
+    page size); CUDA tensors launch csrc/paged_extend_sm90.cuh's kernel
+    once, the split merge included (bf16, d in {64, 128}, pages of 16 to
+    128 rows in steps of 16, any Hq/Hkv and T: a folded group of G * T rows
+    above 64 takes more than one row tile), or raise. Two calls must not run
+    at once on two streams of one device: they would share the kernel's
+    split-merge counters. With k_scale_pages and v_scale_pages the pool is
+    8-bit: `paged_flash_extend_quant`.
     """
     if k_scale_pages is not None or v_scale_pages is not None:
         if k_scale_pages is None or v_scale_pages is None:
@@ -628,35 +806,12 @@ def _paged_extend_q_plain(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
         old_lengths, True, sm_scale)
 
 
-@functools.cache
-def _extend_kernel_q():
-    """fkp_paged_extend_q: q, k_pages, k_scale_pages, v_pages,
-    v_scale_pages, block_table, new_lengths, old_lengths, o, then (b, hq,
-    hkv, t, page, d, max_pages), a float scale, fp8 and the stream."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel("fkp_paged_extend_q",
-                         [vp] * 9 + [i32] * 7 + [ctypes.c_float, i32, vp])
-
-
 def _paged_extend_q_cuda(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
                          block_table, new_lengths, old_lengths, sm_scale):
-    _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
-                       block_table, "8-bit paged extend")
-    _check_ragged_bounds(q, new_lengths, old_lengths)
-    b, hq, t, d = q.shape
-    _, hkv, page, _ = k_pages.shape
-    o = torch.empty_like(q)
-    rc = _extend_kernel_q()(
-        q.data_ptr(), k_pages.data_ptr(), k_scale_pages.data_ptr(),
-        v_pages.data_ptr(), v_scale_pages.data_ptr(), block_table.data_ptr(),
-        new_lengths.data_ptr(), old_lengths.data_ptr(), o.data_ptr(),
-        b, hq, hkv, t, page, d, block_table.shape[1],
-        float(sm_scale * _LOG2E), int(k_pages.dtype == torch.float8_e4m3fn),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    paged_flash_extend_quant.launches += 1
-    _build.check(rc, "paged_extend_q")
-    return o
+    """paged_flash_extend_quant on the card in one launch."""
+    return _extend_cuda(q, (k_pages, k_scale_pages, v_pages, v_scale_pages),
+                        block_table, new_lengths, old_lengths, sm_scale,
+                        None, whole=True)
 
 
 def paged_flash_extend_quant(
@@ -675,8 +830,8 @@ def paged_flash_extend_quant(
     float8_e4m3fn pages, float32 scale pages [n_pages, Hkv, 1, page]), the
     JAX package's paged_flash_extend with k_scale_pages and v_scale_pages.
     CPU tensors run `_paged_extend_q_plain`; CUDA tensors launch the 8-bit
-    kernel of csrc/paged_extend.cu (q bf16, d in {64, 128}, any page size,
-    Hq/Hkv and T) or raise."""
+    instances of csrc/paged_extend_sm90.cuh once (q bf16, d in {64, 128},
+    pages of 16 to 128 rows in steps of 16, any Hq/Hkv and T) or raise."""
     b, hq, t, d = q.shape
     if hq % k_pages.shape[1]:
         raise ValueError(f"q heads {hq} not a multiple of kv heads "
