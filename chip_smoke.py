@@ -860,12 +860,50 @@ def time_turns(fns: dict, device, iters: int = 50) -> dict:
     return {k: min(first[k], second[k]) for k in fns}
 
 
+def graph_device_ops(fn) -> list:
+    """The device operations (kernels, memsets, copies) one call of fn
+    enqueues, read from the nodes of a CUDA graph that captures the call
+    (through the driver's cuGraphGetNodes / cuGraphNodeGetType), after a
+    warm-up call. Exact and independent of CUPTI; nodes are named by
+    type only."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+    ops = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value in kinds:
+            ops.append(f"graph {kinds[kind.value]} node")
+    del g
+    return ops
+
+
 def device_ops(fn) -> list:
     """The names of the device operations (kernels, memsets, copies) one
     call of fn enqueues, from torch.profiler, after a warm-up call. A
-    profiling window that records no device operation at all (seen once in
-    a process that had profiled before) is taken again, up to three
-    times."""
+    profiling window that records no device operation at all (seen in a
+    process that had profiled many times before, on calls whose kernel
+    ran) is taken again, up to three times; if none records one, the
+    operations are counted from the nodes of a CUDA graph that captures
+    the call (`graph_device_ops`), which is exact."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -879,8 +917,10 @@ def device_ops(fn) -> list:
             torch.cuda.synchronize()
         ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
         if ops:
-            break
+            return ops
         log("device_ops: the profiler recorded no device operation; again")
+    ops = graph_device_ops(fn)
+    log(f"device_ops: counted from a captured CUDA graph's nodes: {ops}")
     return ops
 
 
@@ -967,6 +1007,11 @@ def phase_decode(device, b, hq, hkv, s, d, label):
     if not 1 <= len(ops) <= 2:
         raise AssertionError(f"one flash_decode call ran {len(ops)} device "
                              f"operations (at most 2): {ops}")
+    graph_ops = graph_device_ops(lambda: fd.flash_decode(q, k, v, lengths))
+    if not 1 <= len(graph_ops) <= 2:
+        raise AssertionError(f"a captured flash_decode call holds "
+                             f"{len(graph_ops)} device operations (at most 2): "
+                             f"{graph_ops}")
     mask = (torch.arange(s, device=device)[None, :] < lengths[:, None])
     times = time_turns({
         "sdpa": sdpa_fn(q[:, :, None], k, v, mask=mask[:, None, None]),
@@ -1324,6 +1369,10 @@ def ext_measure(device, entry, q, pools, table, new_lengths, old_lengths,
     if len(ops) != 1:
         raise AssertionError(f"{what}: one call ran {len(ops)} device "
                              f"operations (one expected): {ops}")
+    graph_ops = graph_device_ops(whole)
+    if len(graph_ops) != 1:
+        raise AssertionError(f"{what}: a captured call holds {len(graph_ops)} "
+                             f"device operations (one expected): {graph_ops}")
     if not graph_bit_equal(whole):
         raise AssertionError(f"{what}: a CUDA graph's replay differs")
     if len(pools) == 2:
@@ -1338,7 +1387,8 @@ def ext_measure(device, entry, q, pools, table, new_lengths, old_lengths,
                                          old_lengths, d ** -0.5),
                        device, iters=50, graph=True)
     log(f"{what}: partials rel-L2 {err:.3e} | device operations of a call: "
-        f"{ops}; a CUDA graph replays it bit-equal | in turns from CUDA "
+        f"{ops} (a captured call: {graph_ops}); a CUDA graph replays it "
+        f"bit-equal | in turns from CUDA "
         f"graphs: kernel (partials) {times['kernel']:.4f} ms, whole call "
         f"{times['call']:.4f} ms, SDPA on the K/V gathered into a linear "
         f"cache with the verify's mask {times['yardstick']:.4f} ms (a "
