@@ -1111,44 +1111,307 @@ def _paged_case(gen, device, b, hq, hkv, d, page, max_pages, lens):
     perm = (torch.randperm(n_pages - 1, generator=gen, device=device) + 1).tolist()
     table = torch.zeros(b, max_pages, dtype=torch.int32)
     for row, n in enumerate(lens):
-        used = -(-n // page)
+        used = min(-(-n // page), max_pages)  # a length may pass the capacity
         table[row, :used] = torch.tensor(perm[row * max_pages:row * max_pages + used])
     lengths = torch.tensor(lens, dtype=torch.int32, device=device)
     return q, k, v, table.to(device), lengths
 
 
+# The paged decode's instances (csrc/paged_extend_sm90.cuh's
+# paged_decode_sm90_kernel: d, pool type, ring depth, mode 0 attention, 1
+# the int8 score product, 2 the copy probe), by the source that builds them:
+# (pool types, depths, modes)
+PDEC_KERNEL = "paged_decode_sm90_kernel"
+PDEC_SOURCE = f"{PKG}/csrc/paged_decode.cu"
+PDEC_OBJECTS = {
+    "paged_decode.cu": (("bf16",), (2,), (0, 2)),
+    "paged_decode_deep.cu": (("bf16",), (3, 4), (0,)),
+    "paged_decode_q.cu": (("int8", "e4m3"), (2,), (0,)),
+    "paged_decode_q_deep.cu": (("int8", "e4m3"), (3, 4), (0,)),
+    "paged_decode_qi8.cu": (("int8",), (2, 3, 4), (1,)),
+}
+
+
+def pdec_instance(sym: str):
+    """(d, pool type, ring depth, mode) of a paged_decode_sm90_kernel
+    instance's symbol, or None for another symbol."""
+    name, rest = mangled_name(sym)
+    if name != PDEC_KERNEL:
+        return None
+    m = re.match(r"ILi(\d+)E(13__nv_bfloat16|a|13__nv_fp8_e4m3)Li(\d+)ELi(\d+)E",
+                 rest)
+    return int(m.group(1)), EXT_TYPES[m.group(2)], int(m.group(3)), int(m.group(4))
+
+
+def ptxas_registers(build_log: str, instance) -> dict:
+    """{instance: registers a thread} from ptxas's lines in the build log."""
+    regs, current = {}, None
+    for line in build_log.splitlines():
+        props = re.search(r"Compiling entry function '([^']+)'", line)
+        if props:
+            current = instance(props.group(1))
+        elif current is not None and "registers" in line:
+            regs[current] = int(re.search(r"Used (\d+) registers", line).group(1))
+            current = None
+    return regs
+
+
+def phase_dec_paged_build(build_log: str, label):
+    """The paged decode's 26 instances (d 64 and 128; bf16, int8 and e4m3
+    pools at ring depths 2, 3 and 4; the int8 score product at each depth;
+    the copy probe at depth 2) through `wgmma_gate` with mma.sync in place
+    of wgmma: built with no spill (every instance, the serving path's depth
+    2 among them), each in its source's object, UTMALDG (the TMA ring) in
+    each SASS, HMMA.16816 in each but the copy probe's (none there) and
+    IMMA.16832 (the int8 score product) in the q_int8 instances; ptxas's
+    registers by depth."""
+    from flashattention_kernel_project_tpu_torch.ops import _build
+
+    want = {(d, kv, depth, mode) for kvs, depths, modes in PDEC_OBJECTS.values()
+            for d in (64, 128) for kv in kvs for depth in depths for mode in modes}
+    objects = {src: (lambda inst, spec=spec: inst[1] in spec[0]
+                     and inst[2] in spec[1] and inst[3] in spec[2])
+               for src, spec in PDEC_OBJECTS.items()}
+    counts = wgmma_gate(build_log, PDEC_KERNEL, pdec_instance, objects, want,
+                        need=("UTMALDG",), forbid=())
+    for inst, c in sorted(counts.items()):
+        if (c["HMMA.16816"] == 0) != (inst[3] == 2):
+            raise AssertionError(f"{PDEC_KERNEL}{inst}: HMMA.16816 {c['HMMA.16816']}")
+    imma = {}
+    for d in (64, 128):
+        for depth in (2, 3, 4):
+            imma[(d, depth)] = sass_counts(
+                os.path.join(_build.BUILD_DIR, "paged_decode_qi8.cu.o"),
+                f"{PDEC_KERNEL}ILi{d}EaLi{depth}ELi1E", ("IMMA.16832",))["IMMA.16832"]
+    if not all(imma.values()):
+        raise AssertionError(f"the int8 score product's IMMA.16832 counts: {imma}")
+    regs = ptxas_registers(build_log, pdec_instance)
+    log(f"paged decode: {len(want)} instances (d, pool, depth, mode) built with "
+        f"no spill; SASS (UTMALDG, HMMA.16816): "
+        + ", ".join(f"{inst}: {c['UTMALDG']}/{c['HMMA.16816']}"
+                    for inst, c in sorted(counts.items()))
+        + f"; IMMA.16832 of q_int8 (d, depth): {imma}; registers: "
+        + ", ".join(f"{inst}: {r}" for inst, r in sorted(regs.items()))
+        + f" [{label}]")
+
+
+# (b, hq, hkv, d, page, max_pages, lengths) at the edges of the decode's
+# tiles, boxes and splits: pages of 16 to 128 (48, 80, 112: tiles across
+# pages) with lengths about a tile's edge, a page's edge and past the
+# capacity; G 1, 2, 4 and 8 at d 64 and 128 about the gather plan's split
+# edge (4 splits of 128 keys); the serving pool at the edges of its 8
+# splits of 256 keys; a table of 64 pages (gather=False: 64 splits); B *
+# Hkv past the card's blocks (one split). Each runs in both schedules.
+PDEC_EDGE_SHAPES = (
+    [(8, 16, 4, 128, page, 1024 // page,
+      [0, 1, 63, 64, 65, page - 1, page + 1, 1024 // page * page + 7])
+     for page in (16, 32, 48, 64, 80, 96, 112, 128)]
+    + [(4, hq, hkv, d, 64, 8, [0, 127, 128, 513])
+       for hq, hkv in ((4, 4), (8, 4), (16, 4), (16, 2)) for d in (64, 128)]
+    + [(8, 16, 4, 128, 128, 16, [255, 256, 257, 511, 512, 513, 2047, 2048]),
+       (2, 16, 4, 128, 128, 64, [0, 8191]),
+       (66, 16, 4, 64, 16, 8, [0] + [7 * i % 129 for i in range(1, 66)])])
+# the 8-bit pools at a subset: pages 16, 48 and 128, G 1 and 8, d 64, one
+# split
+PDEC_EDGE_SHAPES_8BIT = (
+    [(6, 16, 4, 128, page, 1024 // page,
+      [0, 63, 65, page + 1, 700, 1024 // page * page + 7])
+     for page in (16, 48, 128)]
+    + [(4, 4, 4, 64, 64, 8, [0, 127, 128, 513]),
+       (4, 16, 2, 64, 64, 8, [0, 127, 128, 513]),
+       (66, 16, 4, 64, 16, 8, [0] + [7 * i % 129 for i in range(1, 66)])])
+
+
+def pdec_plain(q, pools, *rest, q_int8=False):
+    """The decode's plain split partials over a bf16 or an 8-bit pool."""
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    if len(pools) == 2:
+        return pd._paged_partials_plain(q, *pools, *rest)
+    plain = pd._paged_partials_qi8_plain if q_int8 else pd._paged_partials_q_plain
+    return plain(q, *pools, *rest)
+
+
+def pdec_whole(q, pools, table, lengths, **kw):
+    """A closure making one public call of the paged decode."""
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    if len(pools) == 2:
+        return lambda: pd.paged_flash_decode(q, *pools, table, lengths, **kw)
+    return lambda: pd.paged_flash_decode_quant(q, *pools, table, lengths, **kw)
+
+
+def pdec_edges(device, label, fmt=None, shapes=PDEC_EDGE_SHAPES):
+    """The paged decode's whole call (one launch, the splits merged on the
+    card) and the kernel's split partials through `merge_partials` against
+    the plain version at `shapes`, in both schedules (rel-L2 O_TOL; with
+    the int8 score product, int8 gather=True, QI8_VS_PLAIN_TOL); rows of
+    length 0 exactly 0; a length past the capacity bit-equal to the
+    capacity. Over a bf16 pool (fmt None) or an 8-bit one. Returns the
+    largest max-abs error."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator(device=device).manual_seed(41)
+    worst = 0.0
+    for b, hq, hkv, d, page, max_pages, lens in shapes:
+        q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+        if fmt is None:
+            _, k, v, table, lengths = _paged_case(gen, device, b, hq, hkv, d,
+                                                  page, max_pages, lens)
+            pools = (k, v)
+        else:
+            pools, table = _paged_8bit_case(gen, device, fmt, b, hkv, d, page,
+                                            max_pages, lens)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        capped = lengths.clamp(max=max_pages * page)
+        runs = [(g, False) for g in (True, False)]
+        if fmt == "int8":
+            runs.append((True, True))
+        for gather, q_int8 in runs:
+            kw = dict(gather=gather, **({"q_int8": True} if q_int8 else {}))
+            n, block_s = pd.decode_plan(b, hkv, page, max_pages, d, gather)
+            o = pdec_whole(q, pools, table, lengths, **kw)()
+            rest = (table, lengths, block_s, d ** -0.5)
+            parts = pd._decode_cuda(q, pools, *rest, False, q_int8=q_int8)
+            po = fd.merge_partials(*pdec_plain(q, pools, *rest, q_int8=q_int8))
+            po = po.reshape(b, hq, d)
+            merged = fd.merge_partials(*parts).reshape(b, hq, d)
+            same = torch.equal(o, pdec_whole(q, pools, table, capped, **kw)())
+            torch.cuda.synchronize()
+            what = (f"paged_decode edge {fmt or 'bf16'}{' q_int8' if q_int8 else ''} "
+                    f"b{b} hq{hq} hkv{hkv} d{d} page{page} max_pages{max_pages} "
+                    f"gather={gather} ({n} splits of {block_s}) lengths "
+                    f"{lens if len(lens) <= 8 else str(lens[:8])[:-1] + ', ...]'}")
+            assert o.shape == q.shape and o.dtype == q.dtype, what
+            tol = QI8_VS_PLAIN_TOL if q_int8 else O_TOL
+            for name, got in (("whole call", o), ("kernel partials + plain merge",
+                                                  merged)):
+                err = _rel_l2(got, po.to(got.dtype))
+                if not torch.isfinite(got).all() or not err <= tol:
+                    raise AssertionError(f"{what}: {name} rel-L2 {err:.3e} > {tol}")
+            if any(float(o[i].float().abs().max()) != 0.0
+                   for i, n_b in enumerate(lens) if n_b == 0):
+                raise AssertionError(f"{what}: a row of length 0 is not 0")
+            if not same:
+                raise AssertionError(f"{what}: a length past the capacity "
+                                     f"differs from the capacity")
+            worst = max(worst, float((o.float() - po.float()).abs().max()))
+            log(f"{what}: rel-L2 {_rel_l2(o, po):.3e} (partials "
+                f"{_rel_l2(merged, po):.3e}) [{label}]")
+    return worst
+
+
+def pdec_yardstick(q, k_pages, v_pages, table, lengths):
+    """SDPA (enable_gqa) with the length mask over the K/V already gathered
+    into a linear cache: a yardstick only, not the same function (the
+    gather is left out), never on the port's path."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    k, v = pd._linear_rows(k_pages, table), pd._linear_rows(v_pages, table)
+    col = torch.arange(k.shape[2], device=q.device)
+    mask = col[None] < lengths[:, None]
+    return sdpa_fn(q[:, :, None], k, v, mask=mask[:, None, None])
+
+
+def pdec_measure(device, entry, q, pools, table, lengths, what, label,
+                 q_int8=False):
+    """At one shape: the kernel's partials against plain, one device
+    operation a call (torch.profiler, and the nodes of a captured CUDA
+    graph), a CUDA graph's replay bit-equal to the eager call, ring depths
+    3 and 4 bit-equal to 2, and the kernel alone (its split partials), the
+    whole call and the SDPA yardstick in turns from CUDA graphs, beside
+    plain; into `entry`."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    b, hq, d = q.shape
+    hkv, page = pools[0].shape[1], pools[0].shape[2]
+    _, block_s = pd.decode_plan(b, hkv, page, table.shape[1], d)
+    rest = (table, lengths, block_s, d ** -0.5)
+    po = fd.merge_partials(*pdec_plain(q, pools, *rest, q_int8=q_int8))
+    kernel = lambda: pd._decode_cuda(q, pools, *rest, False, q_int8=q_int8)  # noqa: E731
+    err = _rel_l2(fd.merge_partials(*kernel()), po)
+    tol = QI8_VS_PLAIN_TOL if q_int8 else O_TOL
+    if not err <= tol:
+        raise AssertionError(f"{what}: kernel partials rel-L2 {err:.3e} > {tol}")
+    kw = {"q_int8": True} if q_int8 else {}
+    whole = pdec_whole(q, pools, table, lengths, **kw)
+    ops = device_ops(whole)
+    if len(ops) != 1:
+        raise AssertionError(f"{what}: one call ran {len(ops)} device "
+                             f"operations (one expected): {ops}")
+    graph_ops = graph_device_ops(whole)
+    if len(graph_ops) != 1:
+        raise AssertionError(f"{what}: a captured call holds {len(graph_ops)} "
+                             f"device operations (one expected): {graph_ops}")
+    if not graph_bit_equal(whole):
+        raise AssertionError(f"{what}: a CUDA graph's replay differs")
+    base = whole()
+    same = {n: torch.equal(pdec_whole(q, pools, table, lengths, slots=n, **kw)(),
+                           base) for n in (3, 4)}
+    if not all(same.values()):
+        raise AssertionError(f"{what}: ring depths 3, 4 not bit-equal to 2: {same}")
+    if len(pools) == 2:
+        yard_pools = pools
+    else:
+        yard_pools = (dequantized_bf16(*pools[:2]), dequantized_bf16(*pools[2:]))
+    times = time_turns({
+        "yardstick": pdec_yardstick(q, *yard_pools, table, lengths),
+        "kernel": kernel, "call": whole}, device)
+    plain_ms = time_ms(lambda: pdec_plain(q, pools, *rest, q_int8=q_int8),
+                       device, iters=20, graph=True)
+    log(f"{what}: partials rel-L2 {err:.3e} | device operations of a call: "
+        f"{ops} (a captured call: {graph_ops}); a CUDA graph replays it "
+        f"bit-equal; slots 3 and 4 bit-equal to 2 | in turns from CUDA graphs: "
+        f"kernel (partials) {times['kernel']:.4f} ms, whole call "
+        f"{times['call']:.4f} ms, SDPA on the K/V gathered into a linear cache "
+        f"with the length mask {times['yardstick']:.4f} ms (a yardstick, not "
+        f"the same function: the gather is left out) | plain partials "
+        f"{plain_ms:.4f} ms [{label}]")
+    entry.update(ms=times["call"], kernel_ms=times["kernel"], plain_ms=plain_ms,
+                 yardstick_sdpa_ms=times["yardstick"])
+
+
 def phase_paged_decode(device, shapes, label):
-    """The paged decode kernel in both schedules (gather=False: one page a
-    split; True: splits sized for occupancy) against `_paged_partials_plain`
-    through the same merge, bf16, at each (b, hq, hkv, d, page, max_pages,
-    lengths); the first shape (the slice's) stands for the kernel. Returns
-    its JSON entry (no single PyTorch call computes a paged decode, so its
-    library_ms is null)."""
+    """The paged decode (csrc/paged_decode.cu: paged_extend_sm90.cuh's block
+    at T = 1) over a bf16 pool in both schedules against
+    `_paged_partials_plain` through `merge_partials`, at each (b, hq, hkv,
+    d, page, max_pages, lengths), then at the edges of its tiles, boxes and
+    splits (`pdec_edges`); the first shape (the slice's) stands for the
+    kernel: its partials, one device operation a call, a CUDA graph's
+    replay, slots 3 and 4, and its times in turns (`pdec_measure`), with
+    its bound. Returns its JSON entry (no single PyTorch call attends over
+    a paged cache, so its library_ms is null)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
     from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
 
     gen = torch.Generator(device=device).manual_seed(19)
-    entry = dict(name="paged_decode", route="cuda",
-                 source=f"{PKG}/csrc/paged_decode.cu",
+    entry = dict(name="paged_decode", route="cuda", source=PDEC_SOURCE,
                  replaces="flashattention_kernel_project_tpu/ops/paged_decode.py:107",
                  max_abs_err=0.0, library_ms=None)
     for i, (b, hq, hkv, d, page, max_pages, lens) in enumerate(shapes):
         q, k, v, table, lengths = _paged_case(gen, device, b, hq, hkv, d, page,
                                               max_pages, lens)
-        scale = d ** -0.5
         times = {}
         for gather in (False, True):
-            pps = pd.gather_pages_per_split(b, hkv, max_pages) if gather else 1
-            part_args = (q, k, v, table, lengths, pps, scale)
+            n, block_s = pd.decode_plan(b, hkv, page, max_pages, d, gather)
+            part_args = (q, k, v, table, lengths, block_s, d ** -0.5)
             o = pd.paged_flash_decode(q, k, v, table, lengths, gather=gather)
             po = fd.merge_partials(*pd._paged_partials_plain(*part_args))
             po = po.reshape(b, hq, d)
             torch.cuda.synchronize()
             assert o.shape == q.shape and torch.isfinite(o).all()
-            for row, n in enumerate(lens):
-                if n == 0 and float(o[row].float().abs().max()) != 0.0:
+            for row, n_b in enumerate(lens):
+                if n_b == 0 and float(o[row].float().abs().max()) != 0.0:
                     raise AssertionError(f"paged row {row} is empty but not 0")
             err = _rel_l2(o, po)
             max_abs = float((o.float() - po.float()).abs().max())
@@ -1156,25 +1419,29 @@ def phase_paged_decode(device, shapes, label):
             if not err <= O_TOL:
                 raise AssertionError(
                     f"paged_decode gather={gather} rel-L2 {err:.3e} > {O_TOL}")
-            times[gather] = time_pair(
-                lambda: pd._paged_partials_cuda(*part_args),
-                lambda: pd._paged_partials_plain(*part_args), device, iters=50)
+            times[gather] = time_ms(lambda: pd.paged_flash_decode(
+                q, k, v, table, lengths, gather=gather), device, iters=50,
+                graph=True)
             log(f"paged_decode b{b} hq{hq} hkv{hkv} d{d} page{page} "
-                f"max_pages{max_pages} lengths={lens} gather={gather} "
-                f"({-(-max_pages // pps)} splits of {pps} pages): rel-L2 "
-                f"{err:.3e}, max-abs {max_abs:.3e} | kernel {times[gather][0]:.4f}"
-                f" ms vs plain partials {times[gather][1]:.4f} ms [{label}]")
-        live = sum(lens)
+                f"max_pages{max_pages} lengths={lens} gather={gather} ({n} "
+                f"splits of {block_s}): rel-L2 {err:.3e}, max-abs {max_abs:.3e} "
+                f"| whole call {times[gather]:.4f} ms [{label}]")
+        live = sum(min(n_b, max_pages * page) for n_b in lens)
         bnd = bound(4 * live * hq * d,
                     nbytes(q, o, table, lengths) + 2 * live * hkv * d * 2)
         log(f"paged_decode bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
             f"q, the live K/V rows, the table and o); no single PyTorch call "
             f"computes a paged decode, so there is no library time")
         if i == 0:
-            ms, plain_ms = times[True]
-            entry.update(ms=ms, plain_ms=plain_ms, gather_false_ms=times[False][0],
-                         **bnd, shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
-                                      f"max_pages{max_pages} lengths{lens}")
+            what = (f"paged_decode b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                    f"max_pages{max_pages} lengths={lens}")
+            pdec_measure(device, entry, q, (k, v), table, lengths, what, label)
+            entry.update(gather_false_ms=times[False], **bnd,
+                         shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                               f"max_pages{max_pages} lengths{lens}")
+            log(f"{what}: whole call {entry['ms']:.4f} ms, "
+                f"{bnd['bound_ms'] / entry['ms']:.1%} of its bound [{label}]")
+    entry["max_abs_err"] = max(entry["max_abs_err"], pdec_edges(device, label))
     return entry
 
 
@@ -1587,24 +1854,28 @@ def _paged_8bit_case(gen, device, fmt, b, hkv, d, page, max_pages, lens):
     perm = (torch.randperm(n_pages - 1, generator=gen, device=device) + 1).tolist()
     table = torch.zeros(b, max_pages, dtype=torch.int32)
     for row, n in enumerate(lens):
-        used = -(-n // page)
+        used = min(-(-n // page), max_pages)  # a length may pass the capacity
         table[row, :used] = torch.tensor(perm[row * max_pages:row * max_pages + used])
     return (k, ks, v, vs), table.to(device)
 
 
 def phase_paged_decode_8bit(device, b, hq, hkv, d, page, max_pages, lens, label):
-    """The 8-bit paged decode kernel in both schedules against
-    `_paged_partials_q_plain` through the same merge, int8 and e4m3; the
-    bf16 kernel timed on the dequantized pool in the same call. Returns its
-    JSON entry, timed on int8 with gather=True (library_ms null)."""
+    """The 8-bit paged decode (csrc/paged_decode_q.cu's instances of
+    paged_extend_sm90.cuh's block) in both schedules against
+    `_paged_partials_q_plain` through the same merge, int8 and e4m3, each
+    with its partials, one device operation a call, a CUDA graph's replay,
+    slots 3 and 4 and its times in turns (`pdec_measure`), and the bf16
+    kernel timed on the dequantized pool in the same call; then at the
+    edges (`pdec_edges`, with the int8 score product over the int8 pool).
+    Returns its JSON entry, timed on int8 with gather=True (library_ms
+    null)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
     from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
 
     gen = torch.Generator(device=device).manual_seed(37)
-    entry = dict(name="paged_decode_q", route="cuda",
-                 source=f"{PKG}/csrc/paged_decode.cu",
+    entry = dict(name="paged_decode_q", route="cuda", source=PDEC_SOURCE,
                  replaces=f"{TPU}/paged_decode.py:824", max_abs_err=0.0,
                  library_ms=None)
     q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
@@ -1616,41 +1887,43 @@ def phase_paged_decode_8bit(device, b, hq, hkv, d, page, max_pages, lens, label)
         kb, vb = dequantized_bf16(*pools[:2]), dequantized_bf16(*pools[2:])
         times = {}
         for gather in (False, True):
-            pps = pd.gather_pages_per_split(b, hkv, max_pages) if gather else 1
-            args = (q, *pools, table, lengths, pps, d ** -0.5)
+            n, block_s = pd.decode_plan(b, hkv, page, max_pages, d, gather)
+            args = (q, *pools, table, lengths, block_s, d ** -0.5)
             o = pd.paged_flash_decode_quant(q, *pools, table, lengths,
                                             gather=gather)
             po = fd.merge_partials(*pd._paged_partials_q_plain(*args))
             err, max_abs = kernel_8bit_check("paged_decode_q", o,
                                              po.reshape(b, hq, d), entry, fmt)
-            for row, n in enumerate(lens):
-                if n == 0 and float(o[row].float().abs().max()) != 0.0:
+            for row, n_b in enumerate(lens):
+                if n_b == 0 and float(o[row].float().abs().max()) != 0.0:
                     raise AssertionError(f"paged row {row} is empty but not 0")
-            ms, plain_ms = time_pair(lambda: pd._paged_partials_q_cuda(*args),
-                                     lambda: pd._paged_partials_q_plain(*args),
-                                     device, iters=50)
-            bf16_ms = time_ms(lambda: pd._paged_partials_cuda(
-                q, kb, vb, table, lengths, pps, d ** -0.5), device, iters=50,
+            times[gather] = time_ms(lambda: pd.paged_flash_decode_quant(
+                q, *pools, table, lengths, gather=gather), device, iters=50,
                 graph=True)
-            times[gather] = (ms, plain_ms, bf16_ms)
             log(f"paged_decode_q {fmt} b{b} hq{hq} hkv{hkv} d{d} page{page} "
-                f"max_pages{max_pages} lengths={lens} gather={gather} "
-                f"({-(-max_pages // pps)} splits of {pps} pages): rel-L2 "
-                f"{err:.3e}, max-abs {max_abs:.3e} | kernel {ms:.4f} ms vs "
-                f"plain partials {plain_ms:.4f} ms | the bf16 kernel on the "
-                f"dequantized pool {bf16_ms:.4f} ms [{label}]")
+                f"max_pages{max_pages} lengths={lens} gather={gather} ({n} "
+                f"splits of {block_s}): rel-L2 {err:.3e}, max-abs {max_abs:.3e} "
+                f"| whole call {times[gather]:.4f} ms [{label}]")
+        what = (f"paged_decode_q {fmt} b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                f"max_pages{max_pages} lengths={lens}")
+        timed = {}
+        pdec_measure(device, timed, q, pools, table, lengths, what, label)
+        bf16_ms = time_ms(lambda: pd.paged_flash_decode(q, kb, vb, table, lengths),
+                          device, iters=50, graph=True)
         bnd = bound(4 * live * hq * d,
                     nbytes(q, o, table, lengths) + bytes_8bit(live, hkv, d))
-        log(f"paged_decode_q bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        log(f"{what}: whole call {timed['ms']:.4f} ms "
+            f"({bnd['bound_ms'] / timed['ms']:.1%} of its bound "
+            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}) | the bf16 kernel on "
+            f"the dequantized pool {bf16_ms:.4f} ms [{label}]")
         if fmt == "int8":
-            ms, plain_ms, bf16_ms = times[True]
-            entry.update(ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms,
-                         gather_false_ms=times[False][0],
-                         gather_false_bf16_ms=times[False][2], **bnd,
-                         shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
-                               f"max_pages{max_pages} lengths{lens}")
+            entry.update(timed, bf16_ms=bf16_ms, gather_false_ms=times[False],
+                         **bnd, shape=f"b{b} hq{hq} hkv{hkv} d{d} page{page} "
+                                      f"max_pages{max_pages} lengths{lens}")
         else:
-            entry["fp8_ms"] = times[True][0]
+            entry.update(fp8_ms=timed["ms"], fp8_kernel_ms=timed["kernel_ms"])
+        entry["max_abs_err"] = max(entry["max_abs_err"], pdec_edges(
+            device, label, fmt, PDEC_EDGE_SHAPES_8BIT))
     return entry
 
 
@@ -2810,13 +3083,16 @@ def device_ms_by_kind(prof) -> dict:
 
 
 def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
-                         steps=20, window=5):
+                         steps=20, window=5, one_attention_op=True):
     """Where a decode step's time goes, the linear cache against the paged
     one, bf16 and int8, at the serving batch (`batch` slots of `length`
     tokens): host milliseconds a step with one host sync a step (the
     Scheduler's pattern), then `window` steps under torch.profiler: device
-    time by kind and the device's busy share of the window's wall time."""
+    time by kind and the device's busy share of the window's wall time.
+    With one_attention_op a paged step must run its attention as one device
+    operation a layer (the paged decode, its splits merged on the card)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from flashattention_kernel_project_tpu_torch.models import engine
@@ -2847,16 +3123,30 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
             logits, _ = step(cfg, dec, tok, cache)
             logits.argmax(-1).cpu()
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(window):
-                logits, _ = step(cfg, dec, tok, cache)
-                logits.argmax(-1).cpu()
-            wall = (time.perf_counter() - t0) * 1e3
+        for _ in range(3):  # a window that records no device operation: again
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(window):
+                    logits, _ = step(cfg, dec, tok, cache)
+                    logits.argmax(-1).cpu()
+                wall = (time.perf_counter() - t0) * 1e3
+            ops = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+            if ops:
+                break
         kinds = device_ms_by_kind(prof)
         busy = sum(kinds.values())
-        log(f"{name} decode step (B={batch}, lengths {length}): {host_ms:.3f} ms"
+        if one_attention_op and step is engine.decode_step_paged:
+            attn = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and PDEC_KERNEL in e.key)
+            log(f"{name} decode step: {attn} paged decode launches in {window} "
+                f"steps of {cfg.n_layers} layers (one a layer expected) [{label}]")
+            if attn != window * cfg.n_layers:
+                raise AssertionError(f"{name} decode step: {attn} paged decode "
+                                     f"launches, {window * cfg.n_layers} expected")
+        log(f"{name} decode step (B={batch}, lengths {length}): {ops / window:.1f} "
+            f"device operations a step | {host_ms:.3f} ms"
             f" a step on the host clock; profiled {window} steps: {busy / window:.3f}"
             f" ms of device time a step, busy {100 * busy / wall:.1f}% of "
             f"{wall / window:.3f} ms | " + ", ".join(
@@ -4854,13 +5144,13 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
             mxu.setdefault("extra", {})[shape] = times
 
     qi8 = dict(name="paged_decode_qi8", route="cuda",
-               source=f"{PKG}/csrc/paged_decode.cu",
+               source=f"{PKG}/csrc/paged_decode_qi8.cu",
                replaces=f"{TPU}/paged_decode.py:824", max_abs_err=0.0,
                library_ms=None, launches=got["paged_decode_q/q_int8"])
     for i, (c, o) in enumerate(zip(paged, outs_p)):
         b, hq, hkv, d, page, max_pages = c["shape"]
-        pps = pd.gather_pages_per_split(b, hkv, max_pages)
-        args = (c["q"], *c["pools"], c["table"], c["lengths"], pps, d ** -0.5)
+        n_splits, block_s = pd.decode_plan(b, hkv, page, max_pages, d)
+        args = (c["q"], *c["pools"], c["table"], c["lengths"], block_s, d ** -0.5)
         po = fd.merge_partials(*pd._paged_partials_qi8_plain(*args))
         err, max_abs = kernel_8bit_check("paged_decode_qi8", o,
                                          po.reshape(b, hq, d).bfloat16(), qi8,
@@ -4877,28 +5167,42 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
         for row, n in enumerate(c["lens"]):
             if n == 0 and float(o[row].float().abs().max()) != 0.0:
                 raise AssertionError(f"paged_decode_qi8 row {row} is empty but not 0")
-        ms, plain_ms = time_pair(lambda: pd._paged_partials_qi8_cuda(*args),
+        whole = pdec_whole(c["q"], c["pools"], c["table"], c["lengths"],
+                           q_int8=True)
+        ops, graph_ops = device_ops(whole), graph_device_ops(whole)
+        if len(ops) != 1 or len(graph_ops) != 1:
+            raise AssertionError(f"paged_decode_qi8: one call ran {ops} (a "
+                                 f"captured call: {graph_ops}); one expected")
+        if not graph_bit_equal(whole):
+            raise AssertionError("paged_decode_qi8: a CUDA graph's replay differs")
+        ms, plain_ms = time_pair(whole,
                                  lambda: pd._paged_partials_qi8_plain(*args),
                                  device, iters=50)
-        q_ms = time_ms(lambda: pd._paged_partials_q_cuda(*args), device,
-                       iters=50, graph=True)
+        kernel_ms = time_ms(lambda: pd._paged_partials_qi8_cuda(*args), device,
+                            iters=50, graph=True)
+        q_ms = time_ms(pdec_whole(c["q"], c["pools"], c["table"], c["lengths"]),
+                       device, iters=50, graph=True)
         kb, vb = dequantized_bf16(*c["pools"][:2]), dequantized_bf16(*c["pools"][2:])
-        bf16_ms = time_ms(lambda: pd._paged_partials_cuda(
-            c["q"], kb, vb, *args[5:]), device, iters=50, graph=True)
+        bf16_ms = time_ms(pdec_whole(c["q"], (kb, vb), c["table"], c["lengths"]),
+                          device, iters=50, graph=True)
         del kb, vb
         live = sum(c["lens"])
         bnd = bound(4 * live * hq * d, nbytes(c["q"], o, c["table"], c["lengths"])
                     + bytes_8bit(live, hkv, d))
         shape = (f"b{b} hq{hq} hkv{hkv} d{d} page{page} max_pages{max_pages} "
-                 f"({-(-max_pages // pps)} splits of {pps} pages)")
+                 f"({n_splits} splits of {block_s})")
         log(f"paged_decode_qi8 {shape} lengths={c['lens']}: rel-L2 {err:.3e} "
-            f"vs plain, {off:.3e} vs q_int8=False, max-abs {max_abs:.3e} | "
-            f"kernel {ms:.4f} ms ({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s "
-            f"of live K/V and scales, {bnd['bound_ms'] / ms:.1%} of its bound "
-            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}) vs plain partials "
-            f"{plain_ms:.4f} ms | q_int8=False (kernel 12) {q_ms:.4f} ms | the "
-            f"bf16 kernel on the dequantized pool {bf16_ms:.4f} ms [{label}]")
-        times = dict(ms=ms, plain_ms=plain_ms, q_ms=q_ms, bf16_ms=bf16_ms, **bnd)
+            f"vs plain, {off:.3e} vs q_int8=False, max-abs {max_abs:.3e} | one "
+            f"device operation a call ({ops}; captured: {graph_ops}), a CUDA "
+            f"graph's replay bit-equal | whole call {ms:.4f} ms "
+            f"({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s of live K/V and "
+            f"scales, {bnd['bound_ms'] / ms:.1%} of its bound "
+            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}), kernel (partials) "
+            f"{kernel_ms:.4f} ms vs plain partials {plain_ms:.4f} ms | "
+            f"q_int8=False (kernel 12) {q_ms:.4f} ms | the bf16 kernel on the "
+            f"dequantized pool {bf16_ms:.4f} ms [{label}]")
+        times = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, q_ms=q_ms,
+                     bf16_ms=bf16_ms, **bnd)
         if i == 0:
             qi8.update(times, shape=shape)
         else:
@@ -5298,9 +5602,10 @@ def ragged_paged_probes(device, label):
     """slots 3 and 4 and copy_only on ragged lengths with dead splits,
     tests/test_paged_decode.py:385-399's case (B 2, 8/2 heads, d 64, pages
     of 32, 8 table entries a row in shuffled order, lengths 200 and 64, so 8
-    splits of one page and row 1's last 6 dead; numpy seed 42), over a bf16
-    and an int8 pool: each depth bit-equal to slots=2 and slots=2 within
-    O_TOL of its plain version; copy_only bit-equal to its plain version."""
+    splits of one page and row 1's last 6 dead in JAX; here one split of 256
+    keys a row, the gather plan; numpy seed 42), over a bf16 and an int8
+    pool: each depth bit-equal to slots=2 and slots=2 within O_TOL of its
+    plain version; copy_only bit-equal to its plain version."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
@@ -5320,11 +5625,11 @@ def ragged_paged_probes(device, label):
     vq, vs = quant.quantize_int8(vf, axis=-1)
     pool8 = (kq, ks.transpose(-1, -2).contiguous(), vq,
              vs.transpose(-1, -2).contiguous())
-    pps = pd.gather_pages_per_split(b, hkv, maxp)
+    n_splits, block_s = pd.decode_plan(b, hkv, page, maxp, d)
     scale = d ** -0.5
     plain = dict(
-        bf16=pd._paged_partials_plain(q, kb, vb, table, lengths, pps, scale),
-        int8=pd._paged_partials_q_plain(q, *pool8, table, lengths, pps, scale))
+        bf16=pd._paged_partials_plain(q, kb, vb, table, lengths, block_s, scale),
+        int8=pd._paged_partials_q_plain(q, *pool8, table, lengths, block_s, scale))
     runs = dict(bf16=lambda n: pd.paged_flash_decode(q, kb, vb, table, lengths,
                                                      slots=n),
                 int8=lambda n: pd.paged_flash_decode_quant(q, *pool8, table,
@@ -5338,9 +5643,9 @@ def ragged_paged_probes(device, label):
                              .reshape(b, hq, d))
     copy = pd.paged_flash_decode(q, kb, vb, table, lengths, copy_only=True)
     copy_ok = torch.equal(copy, pd._paged_copy_only_plain(
-        q, kb, vb, table, lengths, pps).to(q.dtype))
-    log(f"paged probes, ragged (lengths [200, 64], {-(-maxp // pps)} splits of "
-        f"{pps} page, row 1's last {maxp - 2} dead): bit-equal to slots=2 "
+        q, kb, vb, table, lengths, block_s).to(q.dtype))
+    log(f"paged probes, ragged (lengths [200, 64], {n_splits} split(s) of "
+        f"{block_s} keys): bit-equal to slots=2 "
         f"{same}; slots=2 rel-L2 vs plain {errs}; copy_only equal to its plain "
         f"version {copy_ok} [{label}]")
     if not all(same.values()) or not copy_ok or not max(errs.values()) <= O_TOL:
@@ -5397,10 +5702,10 @@ def phase_paged_probes(device, label, shape=AB_PAGED):
     if got != want:
         raise AssertionError(f"paged probes: launches {got}, want {want}")
 
-    pps = pd.gather_pages_per_split(b, hkv, maxp)
+    n_splits, block_s = pd.decode_plan(b, hkv, page, maxp, d)
     scale = d ** -0.5
-    args8 = (q, *pool8, table, lengths, pps, scale)
-    args16 = (q, kb, vb, table, lengths, pps, scale)
+    args8 = (q, *pool8, table, lengths, block_s, scale)
+    args16 = (q, kb, vb, table, lengths, block_s, scale)
     po8 = fd.merge_partials(*pd._paged_partials_q_plain(*args8)).reshape(b, hq, d)
     po16 = fd.merge_partials(*pd._paged_partials_plain(*args16)).reshape(b, hq, d)
     qi8 = {n: pd.paged_flash_decode_quant(q, *pool8, table, lengths, slots=n,
@@ -5409,7 +5714,8 @@ def phase_paged_probes(device, label, shape=AB_PAGED):
             for pool, outs in (("int8", outs8), ("bf16", outs16)) for n in (3, 4)}
     same["int8 q_int8/slots4"] = torch.equal(qi8[4], qi8[2])
     errs = dict(int8=_rel_l2(outs8[2], po8), bf16=_rel_l2(outs16[2], po16))
-    copy_plain = pd._paged_copy_only_plain(q, kb, vb, table, lengths, pps).to(q.dtype)
+    copy_plain = pd._paged_copy_only_plain(q, kb, vb, table, lengths,
+                                           block_s).to(q.dtype)
     log(f"paged probes: bit-equal to slots=2 {same}; slots=2 rel-L2 vs plain "
         f"{errs}; copy_only equal to its plain version "
         f"{torch.equal(copy, copy_plain)} [{label}]")
@@ -5422,12 +5728,15 @@ def phase_paged_probes(device, label, shape=AB_PAGED):
     bytes16 = 2 * live * hkv * d * 2
     bytes8 = bytes_8bit(live, hkv, d)
     io = nbytes(q, outs16[2], table, lengths)
-    ms8 = {n: time_ms(lambda n=n: pd._paged_partials_q_cuda(*args8, slots=n),
+    ms8 = {n: time_ms(pdec_whole(q, pool8, table, lengths, slots=n),
                       device, iters=50, graph=True) for n in (2, 3, 4)}
-    ms16 = {n: time_ms(lambda n=n: pd._paged_partials_cuda(*args16, slots=n),
+    ms16 = {n: time_ms(pdec_whole(q, (kb, vb), table, lengths, slots=n),
                        device, iters=50, graph=True) for n in (2, 3, 4)}
+    # the probe's kernel alone (its split partials), and the decode's
     copy_ms = time_ms(lambda: pd._paged_partials_cuda(*args16, copy_only=True),
                       device, iters=50, graph=True)
+    kernel16_ms = time_ms(lambda: pd._paged_partials_cuda(*args16), device,
+                          iters=50, graph=True)
     plain8_ms = time_ms(lambda: pd._paged_partials_q_plain(*args8), device,
                         iters=5, graph=True)
     plain16_ms = time_ms(lambda: pd._paged_partials_plain(*args16), device,
@@ -5438,17 +5747,18 @@ def phase_paged_probes(device, label, shape=AB_PAGED):
     bnd8 = bound(4 * live * hq * d, io + bytes8)
     bndc = bound(0, io + bytes16)
     geo = (f"b{b} hq{hq} hkv{hkv} d{d} page{page} {maxp} pages a row, every "
-           f"length {s} ({-(-maxp // pps)} splits of {pps} pages)")
+           f"length {s} ({n_splits} splits of {block_s} keys)")
     for pool, t, nb, bd in (("int8", ms8, bytes8, bnd8), ("bf16", ms16, bytes16, bnd16)):
         log(f"paged gather {pool} {geo}: " + ", ".join(
             f"slots={n} {t[n]:.4f} ms ({nb / t[n] / 1e6:.1f} GB/s of live K/V)"
             for n in (2, 3, 4))
             + f" | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{label}]")
-    log(f"paged gather copy_only (bf16) {geo}: {copy_ms:.4f} ms "
+    log(f"paged gather copy_only (bf16) {geo}: the kernel {copy_ms:.4f} ms "
         f"({bytes16 / copy_ms / 1e6:.1f} GB/s of live K/V), the byte floor "
-        f"beside kernel 10's {ms16[2]:.4f} ms ({copy_ms / ms16[2]:.1%}); plain "
+        f"beside kernel 10's partials {kernel16_ms:.4f} ms "
+        f"({copy_ms / kernel16_ms:.1%}) and whole call {ms16[2]:.4f} ms; plain "
         f"{copy_plain_ms:.4f} ms | bound {bndc['bound_ms']:.4f} ms [{label}]")
-    src = f"{PKG}/csrc/paged_decode.cu"
+    src = PDEC_SOURCE
     slots16 = dict(name="paged_decode_slots", route="cuda", source=src,
                    replaces=f"{TPU}/paged_decode.py:124", shape=geo + " slots 4",
                    launches=got["paged_decode/slots"], max_abs_err=0.0,
@@ -5463,7 +5773,7 @@ def phase_paged_probes(device, label, shape=AB_PAGED):
                       replaces=f"{TPU}/paged_decode.py:203", shape=geo,
                       launches=got["paged_decode/copy_only"], max_abs_err=0.0,
                       ms=copy_ms, plain_ms=copy_plain_ms, library_ms=None,
-                      decode_ms=ms16[2], **bndc)
+                      decode_ms=ms16[2], decode_kernel_ms=kernel16_ms, **bndc)
     return slots16, slots8, copy_entry
 
 
@@ -5523,6 +5833,7 @@ def main() -> int:
     phase_bwd_sm90_build(build_log, label)
     phase_dec_sm90_build(build_log, label)
     phase_ext_sm90_build(build_log, label)
+    phase_dec_paged_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill

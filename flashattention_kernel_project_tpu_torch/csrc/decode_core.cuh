@@ -1,9 +1,9 @@
-// The single-token GQA decode of one (batch row, KV head, split) block,
-// shared by flash_decode.cu (a linear cache) and paged_decode.cu (a page
-// pool): the two differ only in where key j's K and V rows live, which the
-// `Rows` argument answers (`rows.offset(j)`, in elements from the head's
-// base pointers), and, for an 8-bit cache, where key j's two scales live
-// (`rows.scale(j)`, in floats from the head's scale base pointers).
+// The single-token GQA decode of one (batch row, KV head, split) block
+// over an 8-bit linear cache (flash_decode.cu, kernel 7): where key j's K
+// and V rows live is the `Rows` argument's answer (`rows.offset(j)`, in
+// elements from the head's base pointers), and where its two scales live
+// (`rows.scale(j)`, in floats from the head's scale base pointers). Also
+// the q quantizer of kernel 8 (flash_decode_mxu.cu).
 //
 // The block emits the unnormalized partials (m, l, y) of the G = Hq / Hkv
 // query rows of its group over its keys [start, end) (and a second range
@@ -38,32 +38,6 @@
 // sums p alone. At G = 8 a thread takes 8 bytes (8 dims) instead of 16, so
 // its q rows and accumulators (2 * G * dims floats) stay within the 255
 // registers a thread may hold.
-//
-// The int8 score product (kQInt8, paged_flash_decode_quant(q_int8=True),
-// int8 caches only): the block first quantizes its G q rows, folded into
-// the log2 domain (q * sm_scale * log2(e)), to int8 with one scale a row,
-// qs = max|row| / 127 (quantize_q_rows). The score of a key is then
-// __dp4a over the thread's raw key bytes against the row's int8 q bytes,
-// an int32 partial dot, summed exactly across the threads of the key by
-// integer shuffles and turned into a float once:
-// (f32(q_int8 . k_int) * ks[j]) * (qs * ln 2), the JAX kernel's log2-domain
-// score in natural-log units, so the partials merge as the others do. K is
-// never widened. It is a template switch, not a runtime branch in the key
-// loop (a runtime term there cost the forward about a tenth).
-//
-// The depth of loads in flight is a template argument, kUnroll (keys a
-// group loads before it computes on them; 4 by default). The paged decode's
-// `slots`, the depth of the TPU gather's DMA ring, picks it (slots - 1 sets
-// of 4 keys; paged_decode.cu). The loop visits key base + u * kGroups +
-// grp, so each group sees the same keys in the same order at any depth,
-// and the output is bit-equal across depths by construction.
-//
-// kCopyOnly (the paged decode's copy_only probe, bf16): the same key loop's
-// loads, and no score or PV math. The split's partials are then the JAX
-// probe's: y[g] = k + v in f32 at the split's first key row start + g (read
-// whole, as the TPU's buffer held whole pages), m = 0, and l the bits of
-// the XOR of every word the block loaded, which keeps the loads in the
-// binary.
 
 #pragma once
 
@@ -78,7 +52,6 @@
 namespace fkp_dec {
 
 constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kVec = 8;  // bf16 per 16-byte load
@@ -99,15 +72,12 @@ template <int kWords>
 using Raw = typename std::conditional<kWords == 4, uint4, uint2>::type;
 
 // The group's G query rows [G, D] (bf16) quantized to int8 with one
-// symmetric scale a row into q_s, one warp a row (JAX's wrappers do this in
-// XLA before their kernels):
-// - kFold (paged_decode.py:1011-1024): qf = q * scale, s = qmax == 0 ? 1 :
-//   qmax / 127, q_s = clip(round(qf / s), -127, 127), qs_s = s;
-// - otherwise (flash_decode.py:485-490): s = (qmax == 0 ? 1 : qmax) *
-//   (1 / 127), q_s = round(q / s), qs_s = s * scale.
-// qmax is the row's largest |qf|; rounding is half to even (rintf), as
-// jnp.round and torch.round. The caller syncs before reading q_s.
-template <int D, int G, bool kFold>
+// symmetric scale a row into q_s, one warp a row, as JAX's wrapper does in
+// XLA before its kernel (flash_decode.py:485-490): s = (qmax == 0 ? 1 :
+// qmax) * (1 / 127), q_s = round(q / s), qs_s = s * scale. qmax is the
+// row's largest |q|; rounding is half to even (rintf), as jnp.round and
+// torch.round. The caller syncs before reading q_s.
+template <int D, int G>
 __device__ __forceinline__ void quantize_q_rows(
     const __nv_bfloat16* __restrict__ q_g, float scale, int8_t (*q_s)[D],
     float* qs_s) {
@@ -119,22 +89,18 @@ __device__ __forceinline__ void quantize_q_rows(
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
       x[i] = __bfloat162float(q_g[gi * D + lane + 32 * i]);
-      if (kFold) x[i] *= scale;
       mx = fmaxf(mx, fabsf(x[i]));
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     }
-    const float s = kFold ? (mx == 0.f ? 1.f : mx / 127.f)
-                          : (mx == 0.f ? 1.f : mx) * (1.f / 127.f);
+    const float s = (mx == 0.f ? 1.f : mx) * (1.f / 127.f);
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
-      float r = rintf(x[i] / s);
-      if (kFold) r = fminf(fmaxf(r, -127.f), 127.f);
-      q_s[gi][lane + 32 * i] = static_cast<int8_t>(r);
+      q_s[gi][lane + 32 * i] = static_cast<int8_t>(rintf(x[i] / s));
     }
-    if (lane == 0) qs_s[gi] = kFold ? s : s * scale;
+    if (lane == 0) qs_s[gi] = s * scale;
   }
 }
 
@@ -180,11 +146,8 @@ __device__ __forceinline__ void window_ranges(int start, int end, int len,
 // rows.scale(j) (unread for bf16). Partials for keys [start, end) and
 // [start1, end1) (disjoint; either may be empty) into m_p[G], l_p[G],
 // y_p[G, D]. Call from every thread of a kThreads block; the bounds must
-// be uniform across it. kQInt8 (T = int8_t): the int8 score product, with
-// sm_scale the log2-domain scale sm_scale * log2(e). kUnroll: keys a group
-// has in flight. kCopyOnly (T = bf16, one range): the copy probe's partials.
-template <int D, int G, class T, class Rows, bool kQInt8 = false,
-          int kUnroll = 4, bool kCopyOnly = false>
+// be uniform across it. Each group has kUnroll keys' loads in flight.
+template <int D, int G, class T, class Rows>
 __device__ __forceinline__ void decode_partials(
     const __nv_bfloat16* __restrict__ q_g, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ k_scale,
@@ -192,9 +155,7 @@ __device__ __forceinline__ void decode_partials(
     float sm_scale, float* __restrict__ m_p, float* __restrict__ l_p,
     float* __restrict__ y_p, int start1 = 0, int end1 = 0) {
   constexpr bool kQuant = sizeof(T) == 1;
-  static_assert(!kQInt8 || std::is_same<T, int8_t>::value,
-                "the int8 score product needs an int8 cache");
-  static_assert(!kCopyOnly || (!kQuant && !kQInt8), "copy_only is bf16");
+  constexpr int kUnroll = 4;
   constexpr int kWords = kQuant && G == 8 ? 2 : 4;  // of a key row a thread
   constexpr int kDims = kWords * fkp::Widen<T>::kPerWord;  // dims a thread holds
   constexpr int kTpk = D / kDims;                     // threads per key
@@ -203,9 +164,6 @@ __device__ __forceinline__ void decode_partials(
   __shared__ float sh_m[kGroups][G];
   __shared__ float sh_l[kGroups][G];
   __shared__ float sh_acc[kGroups][G][D];
-  // kQInt8: the group's int8 q rows and their natural-log scales
-  __shared__ __align__(16) int8_t sh_q[kQInt8 ? G : 1][kQInt8 ? D : 16];
-  __shared__ float sh_qs[kQInt8 ? G : 1];
 
   if (start >= end && start1 >= end1) {  // dead split: no K/V loads
     for (int i = threadIdx.x; i < G * D; i += kThreads) y_p[i] = 0.f;
@@ -221,28 +179,13 @@ __device__ __forceinline__ void decode_partials(
   const int grp = warp * kKeysPerWarp + lane / kTpk;
   const int c0 = (lane % kTpk) * kDims;
 
-  // the thread's q dims: f32, or (kQInt8) int8 words and the row scales
-  float qv[kQInt8 ? 1 : G][kDims];
-  int qi[kQInt8 ? G : 1][kWords];
-  float qsl[kQInt8 ? G : 1];
-  if constexpr (kQInt8) {
-    quantize_q_rows<D, G, true>(q_g, sm_scale, sh_q, sh_qs);
-    __syncthreads();
+  // the thread's q dims in f32
+  float qv[G][kDims];
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
+  for (int gi = 0; gi < G; ++gi) {
 #pragma unroll
-      for (int w = 0; w < kWords; ++w) {
-        qi[gi][w] = *reinterpret_cast<const int*>(&sh_q[gi][c0 + 4 * w]);
-      }
-      qsl[gi] = sh_qs[gi] * kLn2;
-    }
-  } else {
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-#pragma unroll
-      for (int j = 0; j < kDims; j += kVec) {
-        unpack8(*reinterpret_cast<const uint4*>(q_g + gi * D + c0 + j), qv[gi] + j);
-      }
+    for (int j = 0; j < kDims; j += kVec) {
+      unpack8(*reinterpret_cast<const uint4*>(q_g + gi * D + c0 + j), qv[gi] + j);
     }
   }
 
@@ -254,8 +197,6 @@ __device__ __forceinline__ void decode_partials(
 #pragma unroll
     for (int i = 0; i < kDims; ++i) acc[gi][i] = 0.f;
   }
-
-  [[maybe_unused]] uint32_t loaded = 0u;  // kCopyOnly: the loads' XOR
 
   // `base` and the range's end are uniform across the block, so every lane
   // runs every iteration and the shuffles below see full warps
@@ -283,47 +224,24 @@ __device__ __forceinline__ void decode_partials(
           }
         }
       }
-      if constexpr (kCopyOnly) {  // no math: fold the loaded words
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const uint32_t* kw = reinterpret_cast<const uint32_t*>(&kr[u]);
-          const uint32_t* vw = reinterpret_cast<const uint32_t*>(&vr[u]);
-#pragma unroll
-          for (int w = 0; w < kWords; ++w) loaded ^= kw[w] ^ vw[w];
-        }
-        continue;
-      }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const bool live = base + u * kGroups + grp < hi;
-        float kf[kQInt8 ? 1 : kDims], vf[kDims];
-        if constexpr (!kQInt8) widen<T, kWords>(kr[u], kf);
+        float kf[kDims], vf[kDims];
+        widen<T, kWords>(kr[u], kf);
         widen<T, kWords>(vr[u], vf);
         // an 8-bit score is (q . k_int) * (sm_scale * ks), as in the JAX kernel
-        [[maybe_unused]] const float s_scale = kQuant ? sm_scale * ks[u] : sm_scale;
+        const float s_scale = kQuant ? sm_scale * ks[u] : sm_scale;
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) {
-          float sv;
-          if constexpr (kQInt8) {
-            const int* kw = reinterpret_cast<const int*>(&kr[u]);
-            int dot = 0;
+          float dot = 0.f;
 #pragma unroll
-            for (int w = 0; w < kWords; ++w) dot = __dp4a(kw[w], qi[gi][w], dot);
+          for (int i = 0; i < kDims; ++i) dot = fmaf(qv[gi][i], kf[i], dot);
 #pragma unroll
-            for (int off = kTpk / 2; off > 0; off >>= 1) {
-              dot += __shfl_xor_sync(0xffffffffu, dot, off);
-            }
-            sv = (static_cast<float>(dot) * ks[u]) * qsl[gi];
-          } else {
-            float dot = 0.f;
-#pragma unroll
-            for (int i = 0; i < kDims; ++i) dot = fmaf(qv[gi][i], kf[i], dot);
-#pragma unroll
-            for (int off = kTpk / 2; off > 0; off >>= 1) {
-              dot += __shfl_xor_sync(0xffffffffu, dot, off);
-            }
-            sv = dot * s_scale;
+          for (int off = kTpk / 2; off > 0; off >>= 1) {
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
           }
+          const float sv = dot * s_scale;
           if (live) {
             const float mn = fmaxf(m[gi], sv);
             const float corr = expf(m[gi] - mn);
@@ -338,29 +256,6 @@ __device__ __forceinline__ void decode_partials(
         }
       }
     }
-  }
-
-  if constexpr (kCopyOnly) {
-    __shared__ uint32_t sh_loaded;
-    if (threadIdx.x == 0) sh_loaded = 0u;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      loaded ^= __shfl_xor_sync(0xffffffffu, loaded, off);
-    }
-    __syncthreads();
-    if (lane == 0) atomicXor(&sh_loaded, loaded);
-    // the split's first key rows, whole (start + g lies in the split's first
-    // page, past the length or not)
-    for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-      const size_t off = rows.offset(start + idx / D) + idx % D;
-      y_p[idx] = __bfloat162float(k[off]) + __bfloat162float(v[off]);
-    }
-    __syncthreads();
-    if (threadIdx.x < G) {
-      m_p[threadIdx.x] = 0.f;
-      l_p[threadIdx.x] = __uint_as_float(sh_loaded);
-    }
-    return;
   }
 
   // merge the groups' states; a group that saw no key holds (NEG_INF, 0, 0)

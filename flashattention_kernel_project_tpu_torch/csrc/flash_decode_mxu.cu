@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int c0 = (threadIdx.x % kTpk) * kDims;
 
   // 0. the q rows to int8; every score to NEG_INF, the output sums to 0
-  fkp_dec::quantize_q_rows<D, G, false>(q + bh * G * D, sm_scale, q_s, qs_s);
+  fkp_dec::quantize_q_rows<D, G>(q + bh * G * D, sm_scale, q_s, qs_s);
   for (int i = threadIdx.x; i < G * n_buf; i += kThreads) {
     sc[(i / n_buf) * block_s + i % n_buf] = kNegInf;
   }

@@ -16,55 +16,6 @@ namespace {
 // at 0
 __device__ int g_counters[kMaxCounters];
 
-// The call's shape as the kernel takes it, or false: pages of 16 to 128
-// rows in steps of 16, splits of whole 64-key tiles, at most kMaxSplits of
-// them, 16, 32 or 64 folded rows a block; with out set and more than one
-// split the workspace and at most kMaxCounters (batch row, KV head, row
-// tile) triples; without out the partials' buffers.
-bool valid(int b, int hq, int hkv, int t, int page, int max_pages,
-           int n_pages, int n_splits, int block_s, int block_rows,
-           const void* out, const void* m, const void* l, const void* y) {
-  if (b <= 0 || hkv <= 0 || hq % hkv || t <= 0 || max_pages <= 0 ||
-      n_pages <= 0 || page % 16 || page < kMinPage || page > kMaxPage ||
-      n_splits < 1 || n_splits > kMaxSplits || block_s <= 0 ||
-      block_s % kTile || (block_rows != 16 && block_rows != 32 &&
-                          block_rows != 64)) {
-    return false;
-  }
-  const long long rows = (long long)(hq / hkv) * t;
-  const long long row_tiles = (rows + block_rows - 1) / block_rows;
-  if (b > 65535 || hkv * row_tiles > 65535 ||
-      (long long)n_pages * hkv > 0x7fffffffLL) {
-    return false;
-  }
-  const bool parts = !out || n_splits > 1;
-  if (parts && (!m || !l || !y)) return false;
-  return !(out && n_splits > 1 && b * hkv * row_tiles > kMaxCounters);
-}
-
-// the Params of a call (k_scale and v_scale null for bf16)
-Params params(const void* q, const void* tables, const void* new_lens,
-              const void* old_lens, const void* k_scale, const void* v_scale,
-              void* out, void* m, void* l, void* y, int hq, int hkv, int t,
-              int page, int max_pages, int n_splits, int block_s,
-              int block_rows, float scale_log2) {
-  const int rows = (hq / hkv) * t;
-  int box_rows = 64;  // gcd(page, 64)
-  while (page % box_rows) box_rows /= 2;
-  return Params{static_cast<const __nv_bfloat16*>(q),
-                static_cast<const int*>(tables),
-                static_cast<const int*>(new_lens),
-                static_cast<const int*>(old_lens),
-                static_cast<const float*>(k_scale),
-                static_cast<const float*>(v_scale),
-                static_cast<float*>(m),
-                static_cast<float*>(l),
-                static_cast<float*>(y),
-                static_cast<__nv_bfloat16*>(out),
-                hkv, t, rows, (rows + block_rows - 1) / block_rows, page,
-                max_pages, n_splits, block_s, box_rows, scale_log2};
-}
-
 int* counters() {
   int* c = nullptr;
   return cudaGetSymbolAddress(reinterpret_cast<void**>(&c), g_counters) ==

@@ -3,7 +3,12 @@
 // tiles brought by TMA boxes that follow the block table into a ring, both
 // products on the tensor cores, and the splits merged on the card.
 // paged_extend.cu builds the bf16 instances and the C entries,
-// paged_extend_q.cu the 8-bit ones (int8 and e4m3).
+// paged_extend_q.cu the 8-bit ones (int8 and e4m3). The paged decode is
+// the same block at T = 1 (paged_decode_sm90_kernel below, built by
+// paged_decode*.cu, whose head says what it replaces): its G query rows
+// are one 16-row slab, its mask j < len needs no old_lens (null), and it
+// adds the ring's depth as a template argument, the int8 score product
+// (kQInt8) and the copy probe (kCopy).
 //
 // Replaces flashattention_kernel_project_tpu/ops/paged_decode.py::
 // _paged_extend_kernel (:397, pallas_call :568), reached through
@@ -51,8 +56,11 @@
 //   warps widen its K and V bytes exactly to bf16 (e4m3 by widen.cuh, int8
 //   by a PRMT and an FADD a value, below) into one swizzled bf16 tile,
 //   zero at keys past new_len, with the tile's scales, release the stage to
-//   the producer, and run the bf16 products on the widened tile: two
-//   consumer barriers a tile, while the next stages load.
+//   the producer, and run the bf16 products on the widened tile, while the
+//   next stages load. With one slab (16 rows: the decode) each warp widens
+//   the 16 keys it alone reads and waits on no other warp; with more slabs
+//   the warps share every key and widen the tile together between two
+//   consumer barriers.
 // - Folded rows as the A operand of mma.sync m16n8k16, in 16-row slabs,
 //   kRows = 16, 32 or 64 rows a block (the wrapper picks the fewest slabs
 //   that hold G * T rows, up to 4; more rows take more row tiles in the
@@ -119,7 +127,7 @@ constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTile = 64;                  // keys a tile
-constexpr int kStages = 3;                 // the ring's depth
+constexpr int kStages = 3;                 // the extend's ring depth
 constexpr int kWarps = 4;                  // consumer warps
 constexpr int kConsumers = kWarps * 32;
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
@@ -129,16 +137,23 @@ constexpr int kMaxCounters = 1 << 18;
 constexpr int kMaxSplits = 64;             // splits a call takes
 constexpr int kMinPage = 16;               // pages of 16 to 128 rows in steps of 16
 constexpr int kMaxPage = 128;
+constexpr int kDecodeRows = 16;            // the decode's block: one slab of G rows
 
-// Shared memory of the (D, kRows, KV) instances: the ring's stages (a
+// What a block computes: attention (the extend, and the decode over a bf16
+// or 8-bit pool), the decode's int8 score product over an int8 pool
+// (q_int8), or the decode's copy probe (copy_only, bf16).
+enum Mode : int { kAttend = 0, kQInt8 = 1, kCopy = 2 };
+
+// Shared memory of the (D, kRows, KV, kDepth) instances: the ring's kDepth stages (a
 // bf16 stage: K then V, each D / 64 boxes of 64 rows x 128 bytes; an 8-bit
 // stage: K and V rows of D bytes, then their 64 + 64 f32 scales, rounded
 // to 1 KB), the widened bf16 K and V tile of the 8-bit instances, the
 // block's kRows rows of Q (bf16, in the same swizzled boxes of kRows
-// rows), after up to 1 KB of alignment slack. After the key loop the ring
-// holds the warps' accumulators ([kWarps][16][kAccStride] f32), then the
-// split merge's weights and sums of l ([2][kMaxSplits][64] f32).
-template <int D, int kRows, class KV>
+// rows; under kQInt8 the int8 rows, [kRows][D]), after up to 1 KB of
+// alignment slack. After the key loop the ring holds the warps'
+// accumulators ([kWarps][16][kAccStride] f32), then the split merge's
+// weights and sums of l ([2][kMaxSplits][64] f32).
+template <int D, int kRows, class KV, int kDepth = kStages>
 struct Layout {
   static constexpr bool kQuant = sizeof(KV) == 1;
   static constexpr int kTileBytes = kTile * D * (int)sizeof(KV);  // K or V
@@ -147,7 +162,7 @@ struct Layout {
       (2 * kTileBytes + kScaleBytes + 1023) / 1024 * 1024;
   static constexpr int kWideBytes = kQuant ? 2 * kTile * D * 2 : 0;
   static constexpr int kAccStride = D + 4;  // floats, off the banks' period
-  static constexpr int kRing = kStages * kStageBytes + kWideBytes;
+  static constexpr int kRing = kDepth * kStageBytes + kWideBytes;
   static constexpr int kQBytes = kRows * D * 2;
   static constexpr int kMerge = kWarps * 16 * kAccStride * 4 > 2 * kMaxSplits * 64 * 4
                                     ? kWarps * 16 * kAccStride * 4
@@ -167,7 +182,8 @@ struct Layout {
 // old_lens [b]; k_scale, v_scale the 8-bit scale pools (null for bf16);
 // m, l [pairs, n_splits, kRows] and y [pairs, n_splits, kRows, D] f32 the
 // splits' partials, pairs = b * hkv * row_tiles (row tile the fastest);
-// out [b, hkv, rows, D] bf16, or null (partials only).
+// out [b, hkv, rows, D] bf16, or null (partials only). The decode passes
+// t = 1 and old_lens null: its rows see the keys j < new_len.
 struct Params {
   const __nv_bfloat16* q;
   const int* tables;
@@ -240,47 +256,77 @@ __device__ __forceinline__ void widen16(const uint4& in, uint4& lo, uint4& hi) {
   hi = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
+// The 8-bit K tile of the int8 score product (kQInt8) lands by TMA in
+// the 128B swizzle (D = 128: 16-byte chunk x of row r at x ^ (r % 8)) or
+// the 64B one (D = 64: at x ^ (r / 2 % 4)), so that ldmatrix reads 8 key
+// rows of one 16-byte column without bank conflicts: the shared address of
+// bytes (row r, c..c+15) of the stage's K tile at `tile`.
+template <int D>
+__device__ __forceinline__ uint32_t k8_addr(uint32_t tile, int r, int c) {
+  const uint32_t off = r * D + c;
+  return tile + (off ^ (((off >> 7) & (D == 128 ? 7u : 3u)) << 4));
+}
+
 // One block per (split, KV head x row tile, batch row): threads 0..127 are
 // the consumer warps, 128..159 the producer warp. kRows: the folded rows a
 // block holds (16, 32 or 64), which is also the keys a warp takes of each
-// tile. Maps: k and v over the pool as [n_pages * hkv, page, D] in boxes of
-// box_rows rows (bf16: x 64 dims, 128B-swizzled; 8-bit: x D bytes).
+// tile. kDepth: the ring's stages. Maps: k and v over the pool as
+// [n_pages * hkv, page, D] in boxes of box_rows rows (bf16: x 64 dims,
+// 128B-swizzled; 8-bit: x D bytes, K swizzled under kQInt8 (k8_addr)).
 // counters: kMaxCounters ints, 0 between launches (read only when out is
-// set and n_splits > 1).
-template <int D, int kRows, class KV>
-__global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
-    paged_extend_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
-                             const __grid_constant__ CUtensorMap v_map,
-                             const Params p, int* __restrict__ counters) {
-  using L = Layout<D, kRows, KV>;
+// set and n_splits > 1). kQInt8 (int8 pool, the decode): the block's q
+// rows quantized to int8 in the log2 domain, one scale a row, and the
+// scores as int8 mma.sync m16n8k32 products over the stage's K bytes,
+// never widened ((f32(dot) * ks[j]) * qs in log2 units); V widens as in
+// the 8-bit instances. kCopy (bf16, the decode's copy probe, partials
+// only): the same loads and no math; each split with a live key gives
+// y[r] = k + v in f32 at its first key row + r, m = l = 0 (0 rows at a
+// split with none).
+template <int D, int kRows, class KV, int kDepth, int kMode>
+__device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
+                                            const CUtensorMap* v_map,
+                                            const Params& p,
+                                            int* __restrict__ counters) {
+  using L = Layout<D, kRows, KV, kDepth>;
   constexpr bool kQuant = L::kQuant;
+  constexpr bool kQi8 = kMode == kQInt8;
+  static_assert(!kQi8 || std::is_same_v<KV, int8_t>,
+                "the int8 score product reads an int8 pool");
+  static_assert(kMode != kCopy || !kQuant, "the copy probe reads a bf16 pool");
+  // (the decode's modes hold one slab, so every warp runs the products)
+  static_assert(kMode == kAttend || kRows == kDecodeRows, "a decode mode");
   constexpr int kSlabWarps = kTile / kRows;  // warps that share a slab's keys
   constexpr int kNt = kRows / 8;             // 8-key n-tiles a warp a tile
+  // one slab: each warp alone reads its 16 keys of a tile, and widens them
+  // itself
+  constexpr bool kWarpWiden = kSlabWarps == kWarps;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[2 * kStages];  // full, empty
+  __shared__ __align__(8) uint64_t bars[2 * kDepth];  // full, empty
   __shared__ float sh_m[kWarps][16];
   __shared__ float sh_l[kWarps][16];
   __shared__ float sh_lsum[kRows];
   __shared__ float sh_sc[2][kQuant ? kTile : 1];  // the widened tile's K, V scales
+  __shared__ float sh_qs[kQi8 ? kRows : 1];       // kQInt8: the rows' q scales
   __shared__ int sh_last;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
   const auto k_s = [&](int st) { return base + L::kStageBytes * st; };
   const auto v_s = [&](int st) { return k_s(st) + L::kTileBytes; };
   const auto sc_s = [&](int st) { return v_s(st) + L::kTileBytes; };
-  const uint32_t wide = base + kStages * L::kStageBytes;  // 8-bit: K, then V
-  const uint32_t q_s = base + L::kRing;                   // the block's Q rows
+  const uint32_t wide = base + kDepth * L::kStageBytes;  // 8-bit: K, then V
+  const uint32_t q_s = base + L::kRing;                  // the block's Q rows
   const auto full_bar = [&](int st) { return smem_u32(&bars[st]); };
-  const auto empty_bar = [&](int st) { return smem_u32(&bars[kStages + st]); };
+  const auto empty_bar = [&](int st) { return smem_u32(&bars[kDepth + st]); };
 
   const int split = blockIdx.x;
   const int kvh = blockIdx.y / p.row_tiles;
   const int rt = blockIdx.y % p.row_tiles;
   const int b = blockIdx.z;
   // the live keys: below new_len (a length past the table's capacity
-  // counts as the capacity), in this split
+  // counts as the capacity), in this split; a decode's row (old_lens null)
+  // sits at new_len - 1 and sees them all
   const int nl = min(max(p.new_lens[b], 0), p.max_pages * p.page);
-  const int old = p.old_lens[b];
+  const int old = p.old_lens != nullptr ? p.old_lens[b] : nl - 1;
   const int start = split * p.block_s;
   const int end = min(start + p.block_s, nl);
   const int n_tiles = end > start ? (end - start + kTile - 1) / kTile : 0;
@@ -291,10 +337,11 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
   if (p.out != nullptr && split >= max(n_live, 1)) return;
   const size_t bh = (size_t)b * p.hkv + kvh;
   const size_t pair = bh * p.row_tiles + rt;
+  const size_t part = pair * p.n_splits + split;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < kDepth; ++st) {
       mbar_init(full_bar(st), 1);
       mbar_init(empty_bar(st), kWarps);  // one arrival a consumer warp
     }
@@ -308,7 +355,7 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
     if (n_tiles > 0 && tid < kConsumers &&
         (end - key_last + p.box_rows - 1) / p.box_rows * p.box_rows < kTile) {
       uint4* v0 = reinterpret_cast<uint4*>(
-          base_ptr + (v_s((n_tiles - 1) % kStages) - base));
+          base_ptr + (v_s((n_tiles - 1) % kDepth) - base));
       for (int i = tid; i < L::kTileBytes / 16; i += kConsumers) {
         v0[i] = make_uint4(0u, 0u, 0u, 0u);
       }
@@ -322,10 +369,10 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
       const int* table = p.tables + (size_t)b * p.max_pages;
       const int boxes = kTile / p.box_rows;
       for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % kStages;
+        const int st = it % kDepth;
         // the stage's previous tile released by every consumer warp (the
         // first round passes at once)
-        mbar_wait(empty_bar(st), ((it / kStages) & 1) ^ 1);
+        mbar_wait(empty_bar(st), ((it / kDepth) & 1) ^ 1);
         const int key0 = start + it * kTile;
         const int live = min(boxes, (end - key0 + p.box_rows - 1) / p.box_rows);
         mbar_expect_tx(full_bar(st), live * p.box_rows *
@@ -336,8 +383,8 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
           const int row = key % p.page;
           if constexpr (kQuant) {
             const uint32_t off = i * p.box_rows * D;
-            tma_load(k_s(st) + off, &k_map, full_bar(st), 0, row, head);
-            tma_load(v_s(st) + off, &v_map, full_bar(st), 0, row, head);
+            tma_load(k_s(st) + off, k_map, full_bar(st), 0, row, head);
+            tma_load(v_s(st) + off, v_map, full_bar(st), 0, row, head);
             const size_t s_off = (size_t)head * p.page + row;
             bulk_load(sc_s(st) + i * p.box_rows * 4, p.k_scale + s_off,
                       p.box_rows * 4, full_bar(st));
@@ -347,9 +394,9 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
 #pragma unroll
             for (int x = 0; x < D / kBoxCols; ++x) {
               const uint32_t off = x * (kTile * 128) + i * p.box_rows * 128;
-              tma_load(k_s(st) + off, &k_map, full_bar(st), x * kBoxCols, row,
+              tma_load(k_s(st) + off, k_map, full_bar(st), x * kBoxCols, row,
                        head);
-              tma_load(v_s(st) + off, &v_map, full_bar(st), x * kBoxCols, row,
+              tma_load(v_s(st) + off, v_map, full_bar(st), x * kBoxCols, row,
                        head);
             }
           }
@@ -361,6 +408,33 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
 
   const int warp = tid / 32;
   const int lane = tid % 32;
+  if constexpr (kMode == kCopy) {
+    // the copy probe: wait for each tile and release it; the first holds
+    // the split's key rows start + r (r < rows < 16 <= box_rows: its first
+    // box, always issued), read whole, past new_len or not
+    float* const y_p = p.y + part * kRows * D;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kDepth;
+      mbar_wait(full_bar(st), (it / kDepth) & 1);
+      if (it == 0) {
+        for (int i = tid; i < p.rows * D; i += kConsumers) {
+          const int r = i / D, c = i % D;
+          const auto at = [&](uint32_t t) {
+            return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                base_ptr + (tile_addr(t, r, c - c % 8) - base) + (c % 8) * 2));
+          };
+          y_p[i] = at(k_s(0)) + at(v_s(0));
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(st));
+    }
+    if (n_tiles == 0) {
+      for (int i = tid; i < p.rows * D; i += kConsumers) y_p[i] = 0.f;
+    }
+    if (tid < p.rows) p.m[part * kRows + tid] = p.l[part * kRows + tid] = 0.f;
+    return;
+  }
   const int g = lane / 4, quad = lane % 4;  // this thread's C rows g, g + 8 and pair
   const int slab = warp / kSlabWarps;
   const int key_off = (warp % kSlabWarps) * kRows;  // the warp's keys in a tile
@@ -379,36 +453,109 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   if (n_tiles > 0) {
-    // the block's rows of the folded group into shared memory, zero past
-    // it; each tile reads its A fragments from there (held in registers
-    // for the whole loop, they spilled at 32 and 64 rows)
     const __nv_bfloat16* q_bh = p.q + bh * p.rows * D;
-    for (int i = tid; i < kRows * D / 8; i += kConsumers) {
-      const int r = i / (D / 8), c = i % (D / 8) * 8;
-      const int row = rt * kRows + r;
-      *reinterpret_cast<uint4*>(base_ptr + (tile_addr<kRows>(q_s, r, c) - base)) =
-          row < p.rows
-              ? *reinterpret_cast<const uint4*>(q_bh + (size_t)row * D + c)
-              : make_uint4(0u, 0u, 0u, 0u);
+    // kQInt8: this thread's A fragments of the int8 q rows (m16n8k32: rows
+    // g and g + 8, bytes 4 quad.. and 16 + 4 quad.. of each 32-dim step)
+    // and the two rows' scales
+    [[maybe_unused]] uint32_t qa8[kQi8 ? D / 32 : 1][4];
+    [[maybe_unused]] float qs0 = 0.f, qs1 = 0.f;
+    if constexpr (kQi8) {
+      // the rows quantized once, one warp a row, in the log2 domain as
+      // JAX's wrapper does (paged_decode.py:1011-1024): qf = q * scale_log2,
+      // s = max|qf| / 127 (1 where it is 0), round half to even, clip to
+      // +-127; int8 rows [kRows][D] where the bf16 rows would lie
+      int8_t* const q8 = reinterpret_cast<int8_t*>(base_ptr + (q_s - base));
+      for (int r = warp; r < kRows; r += kWarps) {
+        const int row = rt * kRows + r;
+        float x[D / 32];
+        float mx = 0.f;
+#pragma unroll
+        for (int i = 0; i < D / 32; ++i) {
+          x[i] = row < p.rows
+                     ? __bfloat162float(q_bh[(size_t)row * D + lane + 32 * i]) *
+                           p.scale_log2
+                     : 0.f;
+          mx = fmaxf(mx, fabsf(x[i]));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        }
+        const float s = mx == 0.f ? 1.f : mx / 127.f;
+#pragma unroll
+        for (int i = 0; i < D / 32; ++i) {
+          q8[r * D + lane + 32 * i] =
+              static_cast<int8_t>(fminf(fmaxf(rintf(x[i] / s), -127.f), 127.f));
+        }
+        if (lane == 0) sh_qs[r] = s;
+      }
+      named_sync(1, kConsumers);
+      const int ra = slab * 16 + g, rb = ra + 8;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {
+        const int c = kk * 32 + quad * 4;
+        qa8[kk][0] = *reinterpret_cast<const uint32_t*>(q8 + ra * D + c);
+        qa8[kk][1] = *reinterpret_cast<const uint32_t*>(q8 + rb * D + c);
+        qa8[kk][2] = *reinterpret_cast<const uint32_t*>(q8 + ra * D + c + 16);
+        qa8[kk][3] = *reinterpret_cast<const uint32_t*>(q8 + rb * D + c + 16);
+      }
+      qs0 = sh_qs[ra];
+      qs1 = sh_qs[rb];
+    } else {
+      // the block's rows of the folded group into shared memory, zero past
+      // it; each tile reads its A fragments from there (held in registers
+      // for the whole loop, they spilled at 32 and 64 rows)
+      for (int i = tid; i < kRows * D / 8; i += kConsumers) {
+        const int r = i / (D / 8), c = i % (D / 8) * 8;
+        const int row = rt * kRows + r;
+        *reinterpret_cast<uint4*>(base_ptr + (tile_addr<kRows>(q_s, r, c) - base)) =
+            row < p.rows
+                ? *reinterpret_cast<const uint4*>(q_bh + (size_t)row * D + c)
+                : make_uint4(0u, 0u, 0u, 0u);
+      }
+      named_sync(1, kConsumers);
     }
-    named_sync(1, kConsumers);
     for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % kStages;
+      const int st = it % kDepth;
       const int key0 = start + it * kTile;
-      mbar_wait(full_bar(st), (it / kStages) & 1);
+      mbar_wait(full_bar(st), (it / kDepth) & 1);
       uint32_t kt = k_s(st), vt = v_s(st);
+#if defined(FKP_DEC_PROBE) && FKP_DEC_PROBE == 2
+      // a probe (tools/ab_paged_decode.py): the loads alone
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(st));
+      continue;
+#endif
       if constexpr (kQuant) {
-        // widen the stage's 8-bit K and V rows into the bf16 tile (every
-        // warp done with the previous one), zero at keys past new_len, and
-        // take the tile's scales; then release the stage
-        named_sync(1, kConsumers);
+        // widen the stage's 8-bit K and V rows (kQInt8: V alone) into the
+        // bf16 tile, zero at keys past new_len, and take the tile's scales;
+        // then release the stage (kQInt8: after the scores, which read its
+        // K). In one slab (16 rows) each warp widens the 16 keys it alone
+        // reads, with no barrier but its own; with more slabs the warps
+        // share every key and widen the tile together, between two
+        // barriers (every warp done with the previous tile, then with
+        // this one's widening)
         constexpr int kPieces = kTile * D / 16;  // 16-byte pieces of a tile
+        constexpr int kFirst = kQi8 ? 1 : 0;     // K stays 8-bit under kQInt8
+        constexpr int kPart = kWarpWiden ? 16 * D / 16 : kPieces;  // pieces a part
+        const int part_tid = kWarpWiden ? lane : tid;
+        if constexpr (kWarpWiden) {
+          __syncwarp();  // every lane done with the previous tile's rows
+        } else {
+          named_sync(1, kConsumers);
+        }
         const uint8_t* ring = base_ptr + (k_s(st) - base);
-#pragma unroll 2  // (unrolled whole it spilled and ran 10% slower)
-        for (int k = 0; k < 2 * kPieces / kConsumers; ++k) {
-          const int i = tid + k * kConsumers;
-          const int kv = i / kPieces;  // 0: K, 1: V
-          const int r = i % kPieces / (D / 16);
+        // two pieces at a time (unrolled whole it spilled at 32 and 64 rows
+        // and, at 16, ran the decode at 8192 keys 24% slower on an H100);
+        // V alone (the int8 score product) unrolled whole, 11% faster there
+        // (tools/ab_paged_decode.py)
+        constexpr int kWidenUnroll = kQi8 ? 4 : 2;
+#pragma unroll(kWidenUnroll)
+        for (int k = 0; k < (2 - kFirst) * kPart / (kWarpWiden ? 32 : kConsumers);
+             ++k) {
+          const int i = part_tid + k * (kWarpWiden ? 32 : kConsumers);
+          const int kv = kFirst + i / kPart;  // 0: K, 1: V
+          const int r = (kWarpWiden ? key_off : 0) + i % kPart / (D / 16);
           const int c = i % (D / 16) * 16;
           uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
           if (key0 + r < nl) {
@@ -420,38 +567,76 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
           *reinterpret_cast<uint4*>(base_ptr + (tile_addr(t0, r, c) - base)) = lo;
           *reinterpret_cast<uint4*>(base_ptr + (tile_addr(t0, r, c + 8) - base)) = hi;
         }
-        if (tid < kTile) {
+        const int key_s = kWarpWiden ? key_off + lane : tid;  // a key's scales
+        if (kWarpWiden ? lane < 16 : tid < kTile) {
           const float* scales = reinterpret_cast<const float*>(
               base_ptr + (sc_s(st) - base));
-          const bool live = key0 + tid < nl;
-          sh_sc[0][tid] = live ? scales[tid] : 0.f;
-          sh_sc[1][tid] = live ? scales[kTile + tid] : 0.f;
+          const bool live = key0 + key_s < nl;
+          sh_sc[0][key_s] = live ? scales[key_s] : 0.f;
+          sh_sc[1][key_s] = live ? scales[kTile + key_s] : 0.f;
         }
         __syncwarp();
-        if (lane == 0) mbar_arrive(empty_bar(st));  // this warp is done with it
-        named_sync(1, kConsumers);
-        kt = wide;
+        if constexpr (!kQi8) {
+          if (lane == 0) mbar_arrive(empty_bar(st));  // this warp is done with it
+          kt = wide;
+        }
+        if constexpr (!kWarpWiden) named_sync(1, kConsumers);
         vt = wide + kTile * D * 2;
       }
+#if defined(FKP_DEC_PROBE) && FKP_DEC_PROBE == 3
+      // a probe (tools/ab_paged_decode.py): the loads and the widening alone
+      if constexpr (!kQuant || kQi8) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar(st));
+      }
+      continue;
+#endif
       if (slab_live) {
         // S = Q K^T over the warp's keys key_off + j * 8 + 2 * quad + e
         float sc[kNt][4];
 #pragma unroll
         for (int j = 0; j < kNt; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-        // (two 16-dim steps unrolled at a time: with more, ptxas ran the
-        // fragment loads of several steps ahead and spilled)
-#pragma unroll 2
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t qa[4];  // rows slab * 16 .. + 15, columns kk * 16 .. + 15
-          ldsm_x4(qa, tile_addr<kRows>(q_s, slab * 16 + lane % 16,
-                                       kk * 16 + lane / 16 * 8));
+        if constexpr (kQi8) {
+          // exact int32 dots of the int8 q rows and the stage's K bytes,
+          // 32 dims a step (ldmatrix takes a pair of int8 as one b16)
+          int si[kNt][4];
 #pragma unroll
-          for (int jj = 0; jj < kNt / 2; ++jj) {
-            uint32_t bk[4];
-            ldsm_x4(bk, tile_addr(kt, key_off + jj * 16 + lane % 8 + lane / 16 * 8,
-                                  kk * 16 + lane / 8 % 2 * 8));
-            mma_16816(sc[2 * jj], qa, bk[0], bk[1]);
-            mma_16816(sc[2 * jj + 1], qa, bk[2], bk[3]);
+          for (int j = 0; j < kNt; ++j) si[j][0] = si[j][1] = si[j][2] = si[j][3] = 0;
+#pragma unroll
+          for (int kk = 0; kk < D / 32; ++kk) {
+#pragma unroll
+            for (int jj = 0; jj < kNt / 2; ++jj) {
+              uint32_t bk[4];
+              ldsm_x4(bk, k8_addr<D>(kt, key_off + jj * 16 + lane % 8 + lane / 16 * 8,
+                                     kk * 32 + lane / 8 % 2 * 16));
+              fkp_mma::mma_16832_s8(si[2 * jj], qa8[kk], bk[0], bk[1]);
+              fkp_mma::mma_16832_s8(si[2 * jj + 1], qa8[kk], bk[2], bk[3]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] = static_cast<float>(si[j][e]);
+          }
+          // the stage's K read by this warp: release it
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty_bar(st));
+        } else {
+          // (two 16-dim steps unrolled at a time: with more, ptxas ran the
+          // fragment loads of several steps ahead and spilled)
+#pragma unroll 2
+          for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t qa[4];  // rows slab * 16 .. + 15, columns kk * 16 .. + 15
+            ldsm_x4(qa, tile_addr<kRows>(q_s, slab * 16 + lane % 16,
+                                         kk * 16 + lane / 16 * 8));
+#pragma unroll
+            for (int jj = 0; jj < kNt / 2; ++jj) {
+              uint32_t bk[4];
+              ldsm_x4(bk, tile_addr(kt, key_off + jj * 16 + lane % 8 + lane / 16 * 8,
+                                    kk * 16 + lane / 8 % 2 * 8));
+              mma_16816(sc[2 * jj], qa, bk[0], bk[1]);
+              mma_16816(sc[2 * jj + 1], qa, bk[2], bk[3]);
+            }
           }
         }
         // the tile's softmax for rows g and g + 8 over the warp's keys: one
@@ -464,9 +649,15 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = kb + j * 8 + (e & 1);
-            float sl = p.scale_log2;
-            if constexpr (kQuant) sl *= sh_sc[0][key - key0];
-            sc[j][e] = key < (e < 2 ? lim0 : lim1) ? sc[j][e] * sl : kNegInf;
+            const bool ok = key < (e < 2 ? lim0 : lim1);
+            if constexpr (kQi8) {  // (f32(dot) * ks) * qs, as the TPU kernel
+              sc[j][e] = ok ? (sc[j][e] * sh_sc[0][key - key0]) * (e < 2 ? qs0 : qs1)
+                            : kNegInf;
+            } else {
+              float sl = p.scale_log2;
+              if constexpr (kQuant) sl *= sh_sc[0][key - key0];
+              sc[j][e] = ok ? sc[j][e] * sl : kNegInf;
+            }
           }
           mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
           mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
@@ -558,7 +749,6 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
   }
   named_sync(1, kConsumers);
   const bool single = p.out != nullptr && n_live <= 1;
-  const size_t part = pair * p.n_splits + split;
   __nv_bfloat16* const out_bh = p.out ? p.out + bh * p.rows * D : nullptr;
   // the block's real rows (the rest are padding, written nowhere)
   const int live_rows = min(kRows, p.rows - rt * kRows);
@@ -608,11 +798,11 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
   // splits' weights (0 for a split with l = 0) and the weighted sum of l
   // (one thread a row), then each thread's outputs (kPer of them, in
   // registers, four at a time) summed over the splits' y in 16-byte
-  // loads, those of two splits in flight at once (one at 64 rows). The
-  // merge is bound by the bytes one SM has in flight from L2, so the loads
-  // are as wide as they go and issued unconditionally (a padding row's
-  // are in the workspace and discarded; 4-byte loads took twice as long);
-  // the padding rows are not written
+  // loads, those of two splits in flight at once (four at 16 rows, one at
+  // 64). The merge is bound by the bytes one SM has in flight from L2, so
+  // the loads are as wide as they go and issued unconditionally (a
+  // padding row's are in the workspace and discarded; 4-byte loads took
+  // twice as long); the padding rows are not written
   float* const w_s = sh_acc;                      // [n_live][kRows]: m, then weights
   float* const l_s = sh_acc + kMaxSplits * kRows;  // [n_live][kRows]
   const int n = p.n_splits;
@@ -641,7 +831,7 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
   float4 yg[kPer];
 #pragma unroll
   for (int u = 0; u < kPer; ++u) yg[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll(kRows == 64 ? 1 : 2)
+#pragma unroll(kRows == 64 ? 1 : kRows == 16 ? 4 : 2)
   for (int sp = 0; sp < n_live; ++sp) {
     const float4* y_sp = reinterpret_cast<const float4*>(y_pr + (size_t)sp * kRows * D);
 #pragma unroll
@@ -668,15 +858,37 @@ __global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
   }
 }
 
-// Launches instance <D, kRows, KV> on a grid of (n_splits, hkv * row_tiles,
-// b) over a pool of n_pages pages; returns a CUDA error code (the
-// shared-memory attribute's, cudaErrorInvalidValue where a map cannot be
-// encoded, else cudaGetLastError() after the launch).
+// The paged extend: instance <D, kRows, KV>, the ring of kStages. At most
+// 200 registers a thread (__maxnreg__), so that two blocks of five warps
+// share an SM (one block at 64 rows: 255).
 template <int D, int kRows, class KV>
-int launch(const Params& p, const void* k_pages, const void* v_pages,
-           int n_pages, int b, int* counters, cudaStream_t stream) {
-  const auto kernel = &paged_extend_sm90_kernel<D, kRows, KV>;
-  constexpr int kBytes = Layout<D, kRows, KV>::kBytes;
+__global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
+    paged_extend_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const Params p, int* __restrict__ counters) {
+  paged_block<D, kRows, KV, kStages, kAttend>(&k_map, &v_map, p, counters);
+}
+
+// The paged decode (the block at T = 1, one slab of G <= 16 rows):
+// instance <D, KV, ring depth, mode>.
+template <int D, class KV, int kDepth, int kMode>
+__global__ void __maxnreg__((Layout<D, kDecodeRows, KV, kDepth>::kMaxRegs))
+    paged_decode_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const Params p, int* __restrict__ counters) {
+  paged_block<D, kDecodeRows, KV, kDepth, kMode>(&k_map, &v_map, p, counters);
+}
+
+// Launches `kernel`, an instance over <D, kRows, KV, kDepth, kMode>, on a
+// grid of (n_splits, hkv * row_tiles, b) over a pool of n_pages pages;
+// returns a CUDA error code (the shared-memory attribute's,
+// cudaErrorInvalidValue where a map cannot be encoded, else
+// cudaGetLastError() after the launch).
+template <int D, int kRows, class KV, int kDepth, int kMode, class Kernel>
+int launch_on(Kernel kernel, const Params& p, const void* k_pages,
+              const void* v_pages, int n_pages, int b, int* counters,
+              cudaStream_t stream) {
+  constexpr int kBytes = Layout<D, kRows, KV, kDepth>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -684,9 +896,13 @@ int launch(const Params& p, const void* k_pages, const void* v_pages,
   const int heads = n_pages * p.hkv;
   bool ok;
   if constexpr (sizeof(KV) == 1) {
+    // the int8 score product reads K in place: swizzled (k8_addr)
+    const CUtensorMapSwizzle k_swizzle =
+        kMode != kQInt8 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                        : (D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B);
     ok = fkp_sm90::encode_tiled(&km, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k_pages,
-                                D, p.page, heads, p.box_rows, D,
-                                CU_TENSOR_MAP_SWIZZLE_NONE) &&
+                                D, p.page, heads, p.box_rows, D, k_swizzle) &&
          fkp_sm90::encode_tiled(&vm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, v_pages,
                                 D, p.page, heads, p.box_rows, D,
                                 CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -700,8 +916,16 @@ int launch(const Params& p, const void* k_pages, const void* v_pages,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for d (64, 128) and block_rows (16, 32, 64) over KV;
-// cudaErrorInvalidValue for another d or block_rows.
+template <int D, int kRows, class KV>
+int launch(const Params& p, const void* k_pages, const void* v_pages,
+           int n_pages, int b, int* counters, cudaStream_t stream) {
+  return launch_on<D, kRows, KV, kStages, kAttend>(
+      &paged_extend_sm90_kernel<D, kRows, KV>, p, k_pages, v_pages, n_pages, b,
+      counters, stream);
+}
+
+// The extend's instance for d (64, 128) and block_rows (16, 32, 64) over
+// KV; cudaErrorInvalidValue for another d or block_rows.
 template <class KV>
 int launch_any(int d, int block_rows, const Params& p, const void* k_pages,
                const void* v_pages, int n_pages, int b, int* counters,
@@ -724,5 +948,93 @@ int launch_any(int d, int block_rows, const Params& p, const void* k_pages,
 int launch_8bit(int fp8, int d, int block_rows, const Params& p,
                 const void* k_pages, const void* v_pages, int n_pages, int b,
                 int* counters, cudaStream_t stream);
+
+// The decode's instance <d, KV, kDepth, kMode> for d in {64, 128};
+// cudaErrorInvalidValue for another d.
+template <class KV, int kDepth, int kMode>
+int launch_decode(int d, const Params& p, const void* k_pages,
+                  const void* v_pages, int n_pages, int b, int* counters,
+                  cudaStream_t stream) {
+  const auto go = [&](auto dc) {
+    constexpr int kD = decltype(dc)::value;
+    return launch_on<kD, kDecodeRows, KV, kDepth, kMode>(
+        &paged_decode_sm90_kernel<kD, KV, kDepth, kMode>, p, k_pages, v_pages,
+        n_pages, b, counters, stream);
+  };
+  if (d == 64) return go(std::integral_constant<int, 64>{});
+  if (d == 128) return go(std::integral_constant<int, 128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The decode's instances by source, so that nvcc builds them in parallel:
+// the bf16 ring of depth 2 and the copy probe are paged_decode.cu's (with
+// the C entries); the bf16 depths 3 and 4 paged_decode_deep.cu's; int8 and
+// e4m3 (fp8 == 1) at depth 2 paged_decode_q.cu's, at 3 and 4
+// paged_decode_q_deep.cu's; the int8 score product at every depth
+// paged_decode_qi8.cu's. Each returns cudaErrorInvalidValue for a depth or
+// d it lacks.
+int decode_bf16_deep(int depth, int d, const Params& p, const void* k_pages,
+                     const void* v_pages, int n_pages, int b, int* counters,
+                     cudaStream_t stream);
+int decode_8bit(int fp8, int d, const Params& p, const void* k_pages,
+                const void* v_pages, int n_pages, int b, int* counters,
+                cudaStream_t stream);
+int decode_8bit_deep(int fp8, int depth, int d, const Params& p,
+                     const void* k_pages, const void* v_pages, int n_pages,
+                     int b, int* counters, cudaStream_t stream);
+int decode_qi8(int depth, int d, const Params& p, const void* k_pages,
+               const void* v_pages, int n_pages, int b, int* counters,
+               cudaStream_t stream);
+
+// The call's shape as the kernels take it, or false: pages of 16 to 128
+// rows in steps of 16, splits of whole 64-key tiles, at most kMaxSplits of
+// them, 16, 32 or 64 folded rows a block; with out set and more than one
+// split the workspace and at most kMaxCounters (batch row, KV head, row
+// tile) triples; without out the partials' buffers.
+inline bool valid(int b, int hq, int hkv, int t, int page, int max_pages,
+                  int n_pages, int n_splits, int block_s, int block_rows,
+                  const void* out, const void* m, const void* l, const void* y) {
+  if (b <= 0 || hkv <= 0 || hq % hkv || t <= 0 || max_pages <= 0 ||
+      n_pages <= 0 || page % 16 || page < kMinPage || page > kMaxPage ||
+      n_splits < 1 || n_splits > kMaxSplits || block_s <= 0 ||
+      block_s % kTile || (block_rows != 16 && block_rows != 32 &&
+                          block_rows != 64)) {
+    return false;
+  }
+  const long long rows = (long long)(hq / hkv) * t;
+  const long long row_tiles = (rows + block_rows - 1) / block_rows;
+  if (b > 65535 || hkv * row_tiles > 65535 ||
+      (long long)n_pages * hkv > 0x7fffffffLL) {
+    return false;
+  }
+  const bool parts = !out || n_splits > 1;
+  if (parts && (!m || !l || !y)) return false;
+  return !(out && n_splits > 1 && b * hkv * row_tiles > kMaxCounters);
+}
+
+// the Params of a call (k_scale and v_scale null for bf16, old_lens null
+// for the decode)
+inline Params params(const void* q, const void* tables, const void* new_lens,
+                     const void* old_lens, const void* k_scale,
+                     const void* v_scale, void* out, void* m, void* l, void* y,
+                     int hq, int hkv, int t, int page, int max_pages,
+                     int n_splits, int block_s, int block_rows,
+                     float scale_log2) {
+  const int rows = (hq / hkv) * t;
+  int box_rows = 64;  // gcd(page, 64)
+  while (page % box_rows) box_rows /= 2;
+  return Params{static_cast<const __nv_bfloat16*>(q),
+                static_cast<const int*>(tables),
+                static_cast<const int*>(new_lens),
+                static_cast<const int*>(old_lens),
+                static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale),
+                static_cast<float*>(m),
+                static_cast<float*>(l),
+                static_cast<float*>(y),
+                static_cast<__nv_bfloat16*>(out),
+                hkv, t, rows, (rows + block_rows - 1) / block_rows, page,
+                max_pages, n_splits, block_s, box_rows, scale_log2};
+}
 
 }  // namespace fkp_ext90

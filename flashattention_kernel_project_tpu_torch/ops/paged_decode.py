@@ -6,30 +6,31 @@ Counterpart of flashattention_kernel_project_tpu/ops/paged_decode.py
 `paged_append`, `paged_append_chunk`, `paged_append_quant`,
 `paged_append_chunk_quant`, `PagePool`). KV lives in fixed-size pages of a
 shared pool, [n_pages, Hkv, page, D] per layer; each sequence holds a block
-table of page ids. The decode cuts a sequence's table into splits of
-whole pages; each split emits unnormalized partials (m, l, y) over its
-keys below the sequence's length, and ops.flash_decode.merge_partials
-combines them. On a CUDA tensor the partials come from the hand-written
-Hopper kernel in csrc/paged_decode.cu; on a CPU tensor from
-`_paged_partials_plain`, the same function in plain PyTorch. The extend
-(the speculative verify step) scores T appended tokens per sequence
-against its pages: on a CUDA tensor csrc/paged_extend_sm90.cuh's Hopper
-kernel (built by paged_extend.cu and paged_extend_q.cu), split over the
-pages (`extend_n_splits`) with the split merge on the card, one launch a
-call; on a CPU tensor `_paged_extend_plain` (`_paged_extend_partials_plain`
+table of page ids. The decode cuts a sequence's keys into splits of whole
+64-key tiles (`decode_plan`); each split gives unnormalized partials (m, l,
+y) over its keys below the sequence's length, and the splits merge. On a
+CUDA tensor that is one launch of the Hopper kernel of
+csrc/paged_extend_sm90.cuh at T = 1 (built by csrc/paged_decode*.cu),
+which merges the splits itself; on a CPU tensor `_paged_partials_plain`,
+the same partials in plain PyTorch, through ops.flash_decode.merge_partials.
+The extend (the speculative verify step) scores T appended tokens per
+sequence against its pages: on a CUDA tensor the same header's kernel
+(built by paged_extend.cu and paged_extend_q.cu), split over the pages
+(`extend_n_splits`) with the split merge on the card, one launch a call;
+on a CPU tensor `_paged_extend_plain` (`_paged_extend_partials_plain`
 gives the kernel's split partials). An 8-bit pool (int8 or
 float8_e4m3fn) keeps each token's K and V scales in scale pools
 [n_pages, Hkv, 1, page] float32, lane-major as in the JAX package; its
-kernels are the 8-bit ones of the same sources, and its plain
+kernels are the 8-bit instances of the same sources, and its plain
 versions (`_paged_partials_q_plain`, `_paged_extend_q_plain`) dequantize
 the gathered rows.
 
 The gather schedule's two probe options follow JAX's: `slots` (the
-depth of the TPU gather's DMA ring) sets how many keys each thread group of
-the kernel has in flight, with the output bit-equal at every depth;
-`copy_only` runs the same gather with no attention math
-(`_paged_copy_only_plain` on a CPU tensor), at slots=2 only. The plain
-versions accept any slots >= 2 and ignore it.
+depth of the TPU gather's DMA ring) is the depth of the kernel's TMA ring
+(2, 3 or 4 stages), with the output bit-equal at every depth; `copy_only`
+runs the same loads with no attention math (`_paged_copy_only_plain` on a
+CPU tensor), at slots=2 only. The plain versions accept any slots >= 2
+and ignore it.
 
 The pool and the tables are updated in place (`paged_append`,
 `paged_append_chunk` and their 8-bit forms, which quantize each token once
@@ -75,7 +76,8 @@ _MAX_PAGE = 128  # the kernels take pages of 16, 32, ..., 128 rows
 # KV head, row tile) triples its split merge counts
 _EXTEND_MAX_SPLITS = 64
 _EXTEND_MAX_COUNTERS = 1 << 18
-_KERNEL_SLOTS = (2, 3, 4)  # the gather depths the kernel is built for
+_KERNEL_SLOTS = (2, 3, 4)  # the ring depths the decode is built for
+_DECODE_ROWS = 16  # csrc/paged_extend_sm90.cuh's kDecodeRows: one slab of G rows
 
 
 def _check_slots(slots: int, device: torch.device,
@@ -89,14 +91,31 @@ def _check_slots(slots: int, device: torch.device,
                          f"got {slots}")
 
 
-def gather_pages_per_split(batch: int, kv_heads: int, max_pages: int) -> int:
-    """Pages per split of the gather schedule: splits that give about two
-    blocks per SM on an H100, as the 8-bit linear decodes' `_core_n_splits`
-    (2 pages of 128 at the serving shape: 32 (row, head) pairs x 8 splits).
-    The TPU sized its spans in bytes, 2048 bf16 tokens, because its grid
-    runs serially. Only the order of the sums depends on this."""
-    want = -(-2 * H100_SMS // max(batch * kv_heads, 1))
-    return -(-max_pages // max(1, min(want, max_pages)))
+def decode_plan(batch: int, kv_heads: int, page: int, max_pages: int,
+                d: int = 128, gather: bool = True) -> tuple[int, int]:
+    """How the paged decode cuts each row's keys: (n_splits, block_s), the
+    splits of block_s keys (whole 64-key tiles) that cover the table's
+    capacity (max_pages * page; the lengths stay on the device), none of
+    them empty. gather=True (the engine's path): the extend's rule at one
+    row tile (`extend_n_splits`): as many splits as bring B * Hkv blocks
+    to the card's and no more, at least two tiles a split, at most 64; one
+    where B * Hkv fills the card (8 splits of 256 keys at the serving
+    shape, B 8, Hkv 4, 16 pages of 128). gather=False (JAX's one page a
+    program): splits of the fewest whole pages that make whole tiles,
+    lcm(page, 64) keys, as many pages more each as keep them at 64 or
+    fewer; one split where B * Hkv passes the split merge's 2^18
+    counters. Only the order of the sums depends on this (and copy_only's
+    output, a sum over the splits)."""
+    capacity = max_pages * page
+    if gather:
+        n = extend_n_splits(batch, kv_heads, 1, capacity, d)
+        return n, default_block_s(capacity, n)
+    unit = math.lcm(page, _TILE)
+    units = -(-capacity // unit)
+    per = (units if batch * kv_heads > _EXTEND_MAX_COUNTERS
+           else -(-units // _EXTEND_MAX_SPLITS))
+    block_s = per * unit
+    return -(-capacity // block_s), block_s
 
 
 def _linear_rows(pages, block_table):
@@ -123,32 +142,35 @@ def _dequantized_rows(pages, scale_pages, block_table):
             * _linear_scales(scale_pages, block_table))
 
 
+def _n_splits(block_table, page, block_s):
+    """The splits of block_s keys that cover a table's capacity."""
+    return -(-block_table.shape[1] * page // block_s)
+
+
 def _paged_partials_plain(q, k_pages, v_pages, block_table, lengths,
-                          pages_per_split, sm_scale):
+                          block_s, sm_scale):
     """The kernel's partials in plain PyTorch, in float32: each row's pages
     gathered into a linear [B, Hkv, max_pages*page, D] cache, then the
-    linear decode's partials over splits of pages_per_split pages."""
-    max_pages = block_table.shape[1]
-    page = k_pages.shape[2]
-    n_splits = -(-max_pages // pages_per_split)
+    linear decode's partials over splits of block_s keys (`decode_plan`)."""
     return _decode_partials_plain(
         q, _linear_rows(k_pages, block_table),
-        _linear_rows(v_pages, block_table), lengths, n_splits,
-        pages_per_split * page, sm_scale)
+        _linear_rows(v_pages, block_table), lengths,
+        _n_splits(block_table, k_pages.shape[2], block_s), block_s, sm_scale)
 
 
 def _paged_copy_only_plain(q, k_pages, v_pages, block_table, lengths,
-                           pages_per_split):
+                           block_s):
     """The gather with no attention math (JAX's copy_only, paged_decode.py
-    :203-210, :338-345), in plain PyTorch: for q head h * G + g, the sum
-    over the live splits (those that start below the row's length) of
-    k + v at the split's first key row start + g, in float32, split by
-    split in order. Returns [B, Hq, D] float32."""
+    :203-210, :338-345), over the port's splits of block_s keys, in plain
+    PyTorch: for q head h * G + g, the sum over the live splits (those that
+    start below the row's length) of k + v at the split's first key row
+    start + g, in float32, split by split in order. Returns [B, Hq, D]
+    float32."""
     b, hq, d = q.shape
     _, hkv, page, _ = k_pages.shape
     max_pages = block_table.shape[1]
     g = hq // hkv
-    span = pages_per_split * page
+    span = block_s
     rows = (_linear_rows(k_pages, block_table).float()
             + _linear_rows(v_pages, block_table).float())  # [B, Hkv, S, D]
     lens = lengths.to(q.device).clamp(0, max_pages * page)
@@ -159,11 +181,30 @@ def _paged_copy_only_plain(q, k_pages, v_pages, block_table, lengths,
     return out.reshape(b, hq, d)
 
 
+# b, hq, hkv, page, d, max_pages, n_pages, n_splits, block_s
+_DECODE_INTS = [ctypes.c_int] * 9
+
+
 @functools.cache
 def _kernel():
+    """fkp_paged_decode: q, k_pages, v_pages, block_table, lengths, o (None:
+    partials only), m, l, y (the splits' partials or workspace), then
+    (b, hq, hkv, page, d, max_pages, n_pages, n_splits, block_s), the
+    log2-domain scale, slots, copy_only and the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel(
-        "fkp_paged_decode", [vp] * 8 + [i32] * 8 + [ctypes.c_float, i32, i32, vp])
+    return _build.kernel("fkp_paged_decode",
+                         [vp] * 9 + _DECODE_INTS + [ctypes.c_float, i32, i32, vp])
+
+
+@functools.cache
+def _kernel_q():
+    """fkp_paged_decode_q: q, k_pages, k_scale_pages, v_pages,
+    v_scale_pages, block_table, lengths, o, m, l, y, then as
+    fkp_paged_decode, with fp8, q_int8 and slots before the stream."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_paged_decode_q",
+                         [vp] * 11 + _DECODE_INTS
+                         + [ctypes.c_float, i32, i32, i32, vp])
 
 
 def _check_pool_inputs(q, k_pages, v_pages, block_table, what):
@@ -197,6 +238,7 @@ def _check_pool_shapes(q, k_pages, v_pages, block_table, what):
 
 
 def _check_cuda_inputs(q, k_pages, v_pages, block_table, lengths):
+    """The bf16 paged decode's checks on the card."""
     _check_pool_inputs(q, k_pages, v_pages, block_table, "paged decode")
     _check_decode_bounds(q, k_pages, lengths)
 
@@ -213,37 +255,99 @@ def _check_decode_bounds(q, k_pages, lengths):
         raise ValueError(f"the CUDA paged decode takes Hq/Hkv in {_KERNEL_GROUPS}")
 
 
-def _paged_partials_cuda(q, k_pages, v_pages, block_table, lengths,
-                         pages_per_split, sm_scale, slots=2, copy_only=False):
-    """The kernel's partials (m, l, y); with copy_only the copy probe's
-    (y: each split's k + v rows, m and l not partials, decode_core.cuh)."""
-    _check_cuda_inputs(q, k_pages, v_pages, block_table, lengths)
-    _check_slots(slots, q.device, copy_only)
-    b, hq, d = q.shape
-    _, hkv, page, _ = k_pages.shape
-    max_pages = block_table.shape[1]
-    n_splits = -(-max_pages // pages_per_split)
-    g = hq // hkv
-    m = torch.empty((b, hkv, n_splits, g, 1), dtype=torch.float32,
-                    device=q.device)
-    l = torch.empty_like(m)
-    y = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
-                    device=q.device)
-    rc = _kernel()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), lengths.data_ptr(),
-        m.data_ptr(), l.data_ptr(), y.data_ptr(),
-        b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
-        float(sm_scale), slots, int(copy_only),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if copy_only:
-        paged_flash_decode.copy_only_launches += 1
+def _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                       block_table, what):
+    n_pages, hkv, page, _ = k_pages.shape
+    check_8bit_cache(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                     (n_pages, hkv, 1, page), what)
+    _check_pool_shapes(q, k_pages, v_pages, block_table, what)
+
+
+def _check_block_s(block_s: int, capacity: int) -> int:
+    """The splits of a call's block_s on the card: whole 64-key tiles, at
+    most 64 splits over the capacity."""
+    if block_s <= 0 or block_s % _TILE:
+        raise ValueError(f"the CUDA paged decode takes splits of whole "
+                         f"{_TILE}-key tiles, got {block_s} keys")
+    n_splits = -(-capacity // block_s)
+    if n_splits > _EXTEND_MAX_SPLITS:
+        raise ValueError(f"the CUDA paged decode takes 1 to "
+                         f"{_EXTEND_MAX_SPLITS} splits, got {n_splits}")
+    return n_splits
+
+
+def _decode_cuda(q, pools, block_table, lengths, block_s, sm_scale, whole,
+                 slots=2, copy_only=False, q_int8=False):
+    """One launch of the Hopper paged decode (csrc/paged_decode*.cu) over
+    `pools` ((k_pages, v_pages) bf16, or (k_pages, k_scale_pages, v_pages,
+    v_scale_pages) 8-bit), in splits of block_s keys, the ring `slots`
+    deep. whole: the output [B, Hq, D] bf16, the splits merged on the card;
+    else the kernel's split partials (m, l [B, Hkv, n_splits, G, 1], y
+    [B, Hkv, n_splits, G, D], `_paged_partials_plain`'s layout; copy_only:
+    the copy probe's, y alone meaningful). q_int8: the int8 score product
+    over an int8 pool. Raises ValueError or TypeError before any launch
+    on a call the kernel does not take."""
+    quant = len(pools) == 4
+    k_pages = pools[0]
+    if quant:
+        what = "int8-score paged decode" if q_int8 else "8-bit paged decode"
+        _check_scale_pools(q, *pools, block_table, what)
+        _check_decode_bounds(q, k_pages, lengths)
     else:
-        paged_flash_decode.launches += 1
-    paged_flash_decode.slots_launches += slots != 2
-    _build.check(rc, "paged_decode")
-    return m, l, y
+        _check_cuda_inputs(q, *pools, block_table, lengths)
+    _check_slots(slots, torch.device("cuda"), copy_only)  # the card's depths
+    if copy_only and (whole or quant):
+        raise ValueError("copy_only gives the bf16 gather's split partials")
+    if q_int8 and k_pages.dtype != torch.int8:
+        raise TypeError(f"the int8 score product needs an int8 pool, got "
+                        f"{k_pages.dtype}")
+    b, hq, d = q.shape
+    n_pages, hkv, page, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    n_splits = _check_block_s(block_s, max_pages * page)
+    if whole and n_splits > 1 and b * hkv > _EXTEND_MAX_COUNTERS:
+        raise ValueError(f"the CUDA paged decode merges more than one split "
+                         f"for at most {_EXTEND_MAX_COUNTERS} (batch row, KV "
+                         f"head) pairs, got {b * hkv}")
+    o = torch.empty_like(q) if whole else None
+    work = [None] * 3
+    if not whole or n_splits > 1:  # m, l, y of every split, one allocation
+        cells = b * hkv * n_splits * _DECODE_ROWS
+        ws = torch.empty(cells * (d + 2), dtype=torch.float32, device=q.device)
+        work = [ws[:cells], ws[cells:2 * cells], ws[2 * cells:]]
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    args = [x.data_ptr() for x in (q, *pools, block_table, lengths)]
+    args += [ptr(o), *map(ptr, work), b, hq, hkv, page, d, max_pages, n_pages,
+             n_splits, block_s, float(sm_scale * _LOG2E)]
+    if quant:
+        args += [int(k_pages.dtype == torch.float8_e4m3fn), int(q_int8), slots]
+    else:
+        args += [slots, int(copy_only)]
+    args.append(torch.cuda.current_stream(q.device).cuda_stream)
+    rc = (_kernel_q if quant else _kernel)()(*args)
+    counter = paged_flash_decode_quant if quant else paged_flash_decode
+    if q_int8:
+        counter.q_int8_launches += 1
+    elif copy_only:
+        counter.copy_only_launches += 1
+    else:
+        counter.launches += 1
+    counter.slots_launches += slots != 2
+    _build.check(rc, "paged_decode_q" if quant else "paged_decode")
+    if whole:
+        return o
+    return tuple(_kernel_partials(x, (b, hkv, 1, n_splits, _DECODE_ROWS),
+                                  hq // hkv, width)
+                 for x, width in zip(work, (1, 1, d)))
+
+
+def _paged_partials_cuda(q, k_pages, v_pages, block_table, lengths, block_s,
+                         sm_scale, slots=2, copy_only=False):
+    """The kernel's split partials (m, l, y) over a bf16 pool, for the tests
+    and for timing the kernel alone; with copy_only the copy probe's (y:
+    each split's k + v rows, m and l 0)."""
+    return _decode_cuda(q, (k_pages, v_pages), block_table, lengths, block_s,
+                        sm_scale, False, slots, copy_only)
 
 
 def paged_flash_decode(
@@ -265,52 +369,54 @@ def paged_flash_decode(
     each sequence's page ids in order (entries past its pages must still be
     valid ids, e.g. 0; they are never read); lengths [B] int32, the valid
     tokens of each sequence (a length past the table's max_pages pages
-    counts as that many). gather=True (the engine's path) cuts the table
-    into splits sized for occupancy (`gather_pages_per_split`); False runs
-    one page per split, the schedule of the JAX package's one-page-per-
-    program kernel. Returns [B, Hq, D] in q's dtype; a sequence of length 0
-    gives zeros. CPU tensors run the plain version; CUDA tensors launch
-    csrc/paged_decode.cu (bf16, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8},
-    pages of 16 to 128 rows in steps of 16) or raise.
+    counts as that many). gather=True (the engine's path) cuts the keys
+    into splits sized for occupancy, False into splits of the fewest whole
+    pages that make whole 64-key tiles, the port's form of the JAX
+    package's one-page-per-program kernel (`decode_plan`); the function is
+    the same. Returns [B, Hq, D] in q's dtype; a sequence of length 0 gives
+    zeros. CPU tensors run the plain version; CUDA tensors launch
+    csrc/paged_extend_sm90.cuh's decode once, the split merge included
+    (bf16, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8}, pages of 16 to 128 rows
+    in steps of 16), or raise. Two calls must not run at once on two
+    streams of one device: they would share the kernel's split-merge
+    counters.
 
     The gather's probe options, as in JAX (gather=False ignores both):
-    slots (>= 2; on the card 2, 3 or 4) sets the keys the kernel has in
-    flight and leaves the output bit-equal; copy_only=True gathers the same
-    pages with no attention math and returns, for q head h * G + g, the
+    slots (>= 2; on the card 2, 3 or 4) is the depth of the kernel's TMA
+    ring and leaves the output bit-equal; copy_only=True loads the same
+    keys with no attention math and returns, for q head h * G + g, the
     sum over live splits of k + v at the split's first key row + g
     (`_paged_copy_only_plain`), counted in `.copy_only_launches`; it
     takes slots=2 only. Launches with slots != 2 also count in
     `.slots_launches`.
     """
     b, hq, d = q.shape
-    hkv = k_pages.shape[1]
+    hkv, page = k_pages.shape[1], k_pages.shape[2]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
-    max_pages = block_table.shape[1]
     _check_slots(slots, q.device, copy_only)
     if not gather:  # JAX's one-page kernel takes neither option
         slots, copy_only = 2, False
-    pages_per_split = (gather_pages_per_split(b, hkv, max_pages)
-                       if gather else 1)
+    _, block_s = decode_plan(b, hkv, page, block_table.shape[1], d, gather)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    args = (q, k_pages, v_pages, block_table, lengths, pages_per_split,
-            sm_scale)
+    args = (q, k_pages, v_pages, block_table, lengths, block_s, sm_scale)
     if q.device.type == "cpu":
         if copy_only:
             return _paged_copy_only_plain(*args[:6]).to(q.dtype)
-        parts = _paged_partials_plain(*args)
-    elif q.device.type == "cuda":
-        parts = _paged_partials_cuda(*args, slots=slots, copy_only=copy_only)
-        if copy_only:
-            y = parts[2]  # [B, Hkv, splits, G, D]: the splits' rows, summed in order
-            out = torch.zeros_like(y[:, :, 0])
-            for i in range(y.shape[2]):
-                out = out + y[:, :, i]
-            return out.reshape(b, hq, d).to(q.dtype)
-    else:
+        return merge_partials(*_paged_partials_plain(*args)).reshape(
+            b, hq, d).to(q.dtype)
+    if q.device.type != "cuda":
         raise ValueError(f"no paged decode for device {q.device}")
-    return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
+    if copy_only:
+        # [B, Hkv, splits, G, D]: the splits' rows, summed in order
+        y = _paged_partials_cuda(*args, copy_only=True)[2]
+        out = torch.zeros_like(y[:, :, 0])
+        for i in range(y.shape[2]):
+            out = out + y[:, :, i]
+        return out.reshape(b, hq, d).to(q.dtype)
+    return _decode_cuda(q, (k_pages, v_pages), block_table, lengths, block_s,
+                        sm_scale, True, slots)
 
 
 # kernel launches, for showing that a path ran the kernel; the copy probe's;
@@ -321,66 +427,21 @@ paged_flash_decode.slots_launches = 0
 
 
 def _paged_partials_q_plain(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
-                            block_table, lengths, pages_per_split, sm_scale):
+                            block_table, lengths, block_s, sm_scale):
     """The 8-bit kernel's partials in plain PyTorch: each row's pages
     gathered and dequantized to float32, then the linear decode's partials
-    over splits of pages_per_split pages."""
-    max_pages = block_table.shape[1]
-    page = k_pages.shape[2]
+    over splits of block_s keys."""
     return _decode_partials_plain(
         q, _dequantized_rows(k_pages, k_scale_pages, block_table),
         _dequantized_rows(v_pages, v_scale_pages, block_table), lengths,
-        -(-max_pages // pages_per_split), pages_per_split * page, sm_scale)
-
-
-@functools.cache
-def _kernel_q():
-    """fkp_paged_decode_q: q, k_pages, k_scale_pages, v_pages,
-    v_scale_pages, block_tables, lengths, m, l, y, then (b, hq, hkv, page,
-    d, max_pages, n_splits, pages_per_split), a float scale, fp8, slots and
-    the stream."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel("fkp_paged_decode_q",
-                         [vp] * 10 + [i32] * 8 + [ctypes.c_float, i32, i32, vp])
-
-
-def _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
-                       block_table, what):
-    n_pages, hkv, page, _ = k_pages.shape
-    check_8bit_cache(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
-                     (n_pages, hkv, 1, page), what)
-    _check_pool_shapes(q, k_pages, v_pages, block_table, what)
+        _n_splits(block_table, k_pages.shape[2], block_s), block_s, sm_scale)
 
 
 def _paged_partials_q_cuda(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
-                           block_table, lengths, pages_per_split, sm_scale,
-                           slots=2):
-    _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
-                       block_table, "8-bit paged decode")
-    _check_decode_bounds(q, k_pages, lengths)
-    _check_slots(slots, q.device)
-    b, hq, d = q.shape
-    _, hkv, page, _ = k_pages.shape
-    max_pages = block_table.shape[1]
-    n_splits = -(-max_pages // pages_per_split)
-    g = hq // hkv
-    m = torch.empty((b, hkv, n_splits, g, 1), dtype=torch.float32,
-                    device=q.device)
-    l = torch.empty_like(m)
-    y = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
-                    device=q.device)
-    rc = _kernel_q()(
-        q.data_ptr(), k_pages.data_ptr(), k_scale_pages.data_ptr(),
-        v_pages.data_ptr(), v_scale_pages.data_ptr(), block_table.data_ptr(),
-        lengths.data_ptr(), m.data_ptr(), l.data_ptr(), y.data_ptr(),
-        b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
-        float(sm_scale), int(k_pages.dtype == torch.float8_e4m3fn), slots,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    paged_flash_decode_quant.launches += 1
-    paged_flash_decode_quant.slots_launches += slots != 2
-    _build.check(rc, "paged_decode_q")
-    return m, l, y
+                           block_table, lengths, block_s, sm_scale, slots=2):
+    """The 8-bit kernel's split partials (m, l, y)."""
+    return _decode_cuda(q, (k_pages, k_scale_pages, v_pages, v_scale_pages),
+                        block_table, lengths, block_s, sm_scale, False, slots)
 
 
 def _q_int8_rows(q, sm_scale):
@@ -389,25 +450,29 @@ def _q_int8_rows(q, sm_scale):
     q * sm_scale * log2(e), qs = max|qf| == 0 ? 1 : max|qf| / 127, q_i8 =
     clip(round(qf / qs), -127, 127), half to even. Returns (q_i8 as float32
     values, qs * ln 2 [B, Hq, 1], the scale that takes an int32 score to
-    natural-log units)."""
+    natural-log units). qmax / 127 divides by a tensor: on a CUDA tensor
+    PyTorch takes a scalar divisor as a product with its rounded
+    reciprocal, a step off the quotient for some rows, and a row with an
+    element at exactly half its largest (qf / qs = 63.5, common in bf16)
+    then rounds that element the other way."""
     qf = q.float() * (sm_scale * _LOG2E)
     qmax = qf.abs().amax(dim=-1, keepdim=True)
-    qs = torch.where(qmax == 0.0, 1.0, qmax / 127.0)
+    qs = torch.where(qmax == 0.0, 1.0, qmax / torch.full_like(qmax, 127.0))
     return torch.round(qf / qs).clamp(-127, 127), qs * _LN2
 
 
 def _paged_partials_qi8_plain(q, k_pages, k_scale_pages, v_pages,
-                              v_scale_pages, block_table, lengths,
-                              pages_per_split, sm_scale):
+                              v_scale_pages, block_table, lengths, block_s,
+                              sm_scale):
     """Kernel 12's q_int8 partials in plain PyTorch (an int8 pool): q
     quantized per row (`_q_int8_rows`), the scores (f32(q_i8 . k_i8) *
     ks) * (qs * ln 2), the int8 product exact (float64 sums of integers),
-    then the 8-bit decode's softmax against the dequantized V rows."""
+    then the 8-bit decode's softmax against the dequantized V rows, over
+    splits of block_s keys."""
     b, hq, d = q.shape
     hkv, page = k_pages.shape[1], k_pages.shape[2]
     max_pages = block_table.shape[1]
-    n_splits = -(-max_pages // pages_per_split)
-    block_s = pages_per_split * page
+    n_splits = _n_splits(block_table, page, block_s)
     q_i8, qsl = _q_int8_rows(q, sm_scale)
     kp = _split_rows(_linear_rows(k_pages, block_table).double(), n_splits,
                      block_s)
@@ -423,47 +488,13 @@ def _paged_partials_qi8_plain(q, k_pages, k_scale_pages, v_pages,
     return _split_partials(scores, mask, vp)
 
 
-@functools.cache
-def _kernel_qi8():
-    """fkp_paged_decode_qi8: as fkp_paged_decode_q without fp8, the float
-    the log2-domain scale sm_scale * log2(e)."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel("fkp_paged_decode_qi8",
-                         [vp] * 10 + [i32] * 8 + [ctypes.c_float, i32, vp])
-
-
 def _paged_partials_qi8_cuda(q, k_pages, k_scale_pages, v_pages,
-                             v_scale_pages, block_table, lengths,
-                             pages_per_split, sm_scale, slots=2):
-    _check_scale_pools(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
-                       block_table, "int8-score paged decode")
-    _check_decode_bounds(q, k_pages, lengths)
-    _check_slots(slots, q.device)
-    if k_pages.dtype != torch.int8:
-        raise TypeError(f"the int8 score product needs an int8 pool, got "
-                        f"{k_pages.dtype}")
-    b, hq, d = q.shape
-    _, hkv, page, _ = k_pages.shape
-    max_pages = block_table.shape[1]
-    n_splits = -(-max_pages // pages_per_split)
-    g = hq // hkv
-    m = torch.empty((b, hkv, n_splits, g, 1), dtype=torch.float32,
-                    device=q.device)
-    l = torch.empty_like(m)
-    y = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32,
-                    device=q.device)
-    rc = _kernel_qi8()(
-        q.data_ptr(), k_pages.data_ptr(), k_scale_pages.data_ptr(),
-        v_pages.data_ptr(), v_scale_pages.data_ptr(), block_table.data_ptr(),
-        lengths.data_ptr(), m.data_ptr(), l.data_ptr(), y.data_ptr(),
-        b, hq, hkv, page, d, max_pages, n_splits, pages_per_split,
-        float(sm_scale * _LOG2E), slots,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    paged_flash_decode_quant.q_int8_launches += 1
-    paged_flash_decode_quant.slots_launches += slots != 2
-    _build.check(rc, "paged_decode_qi8")
-    return m, l, y
+                             v_scale_pages, block_table, lengths, block_s,
+                             sm_scale, slots=2):
+    """The int8-score instance's split partials (m, l, y)."""
+    return _decode_cuda(q, (k_pages, k_scale_pages, v_pages, v_scale_pages),
+                        block_table, lengths, block_s, sm_scale, False, slots,
+                        q_int8=True)
 
 
 def paged_flash_decode_quant(
@@ -487,15 +518,17 @@ def paged_flash_decode_quant(
     token's scales lane-major (written by paged_append_quant). The other
     arguments, both schedules and the result are paged_flash_decode's. CPU
     tensors run `_paged_partials_q_plain`; CUDA tensors launch the 8-bit
-    kernel of csrc/paged_decode.cu (q bf16, d in {64, 128}, Hq/Hkv in
-    {1, 2, 4, 8}, pages of 16 to 128 rows in steps of 16) or raise.
+    decode of csrc/paged_extend_sm90.cuh once, the split merge included (q
+    bf16, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8}, pages of 16 to 128 rows
+    in steps of 16), or raise. Two calls must not run at once on two
+    streams of one device: they would share the kernel's split-merge
+    counters (those of paged_flash_decode).
 
     q_int8=True: the scores as int8 x int8 products, q folded into the log2
     domain and quantized per row (`_paged_partials_qi8_plain`; on a CUDA
-    tensor the int8-score instance of csrc/paged_decode.cu, counted in
-    `.q_int8_launches`). As in JAX it applies only with gather=True over an
-    int8 pool: on e4m3 pages or with gather=False the ordinary 8-bit kernel
-    runs (`.launches`).
+    tensor the int8-score instance, counted in `.q_int8_launches`). As in
+    JAX it applies only with gather=True over an int8 pool: on e4m3 pages
+    or with gather=False the ordinary 8-bit kernel runs (`.launches`).
 
     slots: as paged_flash_decode's, for either kernel (gather=True only, as
     in JAX); launches with slots != 2 also count in `.slots_launches`.
@@ -505,24 +538,21 @@ def paged_flash_decode_quant(
     if not gather:
         slots = 2
     b, hq, d = q.shape
-    hkv = k_pages.shape[1]
+    hkv, page = k_pages.shape[1], k_pages.shape[2]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
-    max_pages = block_table.shape[1]
-    pages_per_split = (gather_pages_per_split(b, hkv, max_pages)
-                       if gather else 1)
+    _, block_s = decode_plan(b, hkv, page, block_table.shape[1], d, gather)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    args = (q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_table,
-            lengths, pages_per_split, sm_scale)
+    pools = (k_pages, k_scale_pages, v_pages, v_scale_pages)
     if q.device.type == "cpu":
-        parts = (_paged_partials_qi8_plain if q_int8 else _paged_partials_q_plain)(*args)
-    elif q.device.type == "cuda":
-        parts = (_paged_partials_qi8_cuda if q_int8
-                 else _paged_partials_q_cuda)(*args, slots=slots)
-    else:
+        plain = _paged_partials_qi8_plain if q_int8 else _paged_partials_q_plain
+        parts = plain(q, *pools, block_table, lengths, block_s, sm_scale)
+        return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
+    if q.device.type != "cuda":
         raise ValueError(f"no paged decode for device {q.device}")
-    return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
+    return _decode_cuda(q, pools, block_table, lengths, block_s, sm_scale,
+                        True, slots, q_int8=q_int8)
 
 
 # kernel launches, for showing that a path ran the kernel, those of the

@@ -103,10 +103,10 @@ def test_paged_flash_decode_schedules_and_options():
                        base)
     with pytest.raises(ValueError, match="slots in"):
         tpd._check_slots(5, torch.device("cuda"))
-    # copy_only: per live split (here 6 splits of one page), k + v at its
-    # first key row + g
+    # copy_only: per live split (here one split of 64 keys, 8 pages of 8),
+    # k + v at its first key row + g
     got = tpd.paged_flash_decode(q, k, v, table, lengths, copy_only=True)
-    assert torch.equal(got, _copy_only_definition(k, v, table, lengths, 1, 2))
+    assert torch.equal(got, _copy_only_definition(k, v, table, lengths, 8, 2))
     with pytest.raises(ValueError, match="copy_only runs at slots=2"):
         tpd.paged_flash_decode(q, k, v, table, lengths, copy_only=True, slots=3)
     # gather=False takes neither option, as JAX's one-page kernel
@@ -114,8 +114,8 @@ def test_paged_flash_decode_schedules_and_options():
                                               gather=False, copy_only=True),
                        tpd.paged_flash_decode(q, k, v, table, lengths,
                                               gather=False))
-    # B=8, Hkv=4, 16 pages: 2 pages a split, 8 splits, 256 blocks
-    assert tpd.gather_pages_per_split(8, 4, 16) == 2
+    # B=8, Hkv=4, 16 pages of 128: 8 splits of 256 keys, 256 blocks
+    assert tpd.decode_plan(8, 4, 128, 16) == (8, 256)
     bf = torch.zeros(4, 4, 16, dtype=torch.bfloat16)
     pool = torch.zeros(25, 2, 8, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # pages of 8 rows: the kernel takes 16..128
@@ -201,7 +201,7 @@ def test_paged_copy_only_matches_its_definition_and_jax():
     tbl = rng.permutation(np.arange(1, n_pages)).reshape(b, maxp).astype(np.int32)
     lens = rng.integers(0, maxp * page + 1, b).astype(np.int32)
     lens[:3] = [0, 1, maxp * page]
-    assert tpd.gather_pages_per_split(b, hkv, maxp) == maxp
+    assert tpd.decode_plan(b, hkv, page, maxp, d)[0] == 1
     jo = jpd.paged_flash_decode(*(jnp.asarray(x) for x in (q, kp, vp, tbl, lens)),
                                 copy_only=True, interpret=True)
     to = tpd.paged_flash_decode(*(torch.from_numpy(x) for x in (q, kp, vp, tbl, lens)),
@@ -210,7 +210,7 @@ def test_paged_copy_only_matches_its_definition_and_jax():
     # the definition over several splits of several pages: 4/2 heads, 6
     # pages of 8, 2 pages and 3 splits a row
     q, k, v, table, lengths = (torch.from_numpy(x) for x in _paged_inputs(3, 8))
-    got = tpd._paged_copy_only_plain(q, k, v, table, lengths, 2)
+    got = tpd._paged_copy_only_plain(q, k, v, table, lengths, 2 * 8)
     assert torch.equal(got, _copy_only_definition(k, v, table, lengths, 2, 2))
     assert tpd.paged_flash_decode.copy_only_launches == 0
 
