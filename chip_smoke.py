@@ -443,7 +443,8 @@ def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set,
     belongs there) with the opcodes of `need` (by default HGMMA, wgmma, and
     UTMALDG, TMA loads) and none of `forbid` (by default HMMA.16816,
     mma.sync). Raises otherwise; cuobjdump must sit beside nvcc. Returns
-    {instance: SASS counts of HGMMA, UTMALDG and HMMA.16816}."""
+    {instance: SASS counts of HGMMA, UTMALDG, HMMA.16816 and the opcodes of
+    `need` and `forbid`}."""
     import subprocess
 
     from flashattention_kernel_project_tpu_torch.ops import _build
@@ -479,8 +480,8 @@ def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set,
                 continue
             if not belongs(inst):
                 raise AssertionError(f"{kernel}{inst} built in {src}")
-            ops = {op: section.count(op) for op in ("HGMMA", "UTMALDG",
-                                                      "HMMA.16816")}
+            ops = {op: section.count(op) for op in {"HGMMA", "UTMALDG",
+                                                      "HMMA.16816", *need, *forbid}}
             if not all(ops[op] for op in need) or any(ops[op] for op in forbid):
                 raise AssertionError(f"{kernel}{inst} in {src}: {ops}")
             counts[inst] = ops
@@ -531,11 +532,47 @@ def phase_gemm_sm90_build(build_log: str, label):
                     for inst, c in sorted(counts.items())) + f" [{label}]")
 
 
+# The f32 GEMM's wgmma kernel (csrc/gemm_f32_sm90.cuh): tiles of 128 x 128
+GEMM_F32_OBJECT = "gemm_f32_sm90.cu"
+GEMM_F32_KERNEL = "gemm_f32_sm90_kernel"
+GEMM_F32_TILE = 128
+
+
+def gemm_f32_instance(sym: str):
+    """The tile width of the gemm_f32_sm90_kernel symbol (its one
+    instance), or None for another symbol."""
+    return GEMM_F32_TILE if mangled_name(sym)[0] == GEMM_F32_KERNEL else None
+
+
+def phase_gemm_f32_build(build_log: str, label):
+    """The f32 GEMM's wgmma kernel through `wgmma_gate`, in
+    gemm_f32_sm90.cu's object: HGMMA and UTMALDG in its SASS, no HMMA.16816
+    and no FFMA (the split subtracts, the products are the tensor cores',
+    the promotion adds), no spill, no serialized wgmma; with its registers
+    from ptxas."""
+    counts = wgmma_gate(build_log, GEMM_F32_KERNEL, gemm_f32_instance,
+                        {GEMM_F32_OBJECT: lambda inst: True}, {GEMM_F32_TILE},
+                        forbid=("HMMA.16816", "FFMA"))
+    regs = ptxas_registers(build_log, gemm_f32_instance)
+    c = counts[GEMM_F32_TILE]
+    log(f"f32 GEMM: the wgmma kernel (128 x 128 tiles) built with no spill and "
+        f"no serialized wgmma; SASS HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}, "
+        f"HMMA.16816 {c['HMMA.16816']}, FFMA {c['FFMA']}; "
+        f"{regs.get(GEMM_F32_TILE)} registers a thread at launch [{label}]")
+
+
 def sm90_launches() -> int:
-    """The launches of the wgmma GEMM so far, over both wrappers."""
+    """The launches of the bf16 wgmma GEMM so far, over both wrappers."""
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
 
     return g.matmul.sm90_launches + g.batched_matmul.sm90_launches
+
+
+def f32x_launches() -> int:
+    """The launches of the f32 wgmma GEMM so far, over both wrappers."""
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    return g.matmul.f32x_launches + g.batched_matmul.f32x_launches
 
 
 def gemm_tile_n(batch: int, m: int, n: int) -> int:
@@ -559,48 +596,219 @@ GEMM_TILE_SHAPES = [
 ]
 
 
-def phase_gemm_tiles(device, label, shapes=GEMM_TILE_SHAPES):
-    """The wgmma GEMM (kernels 13 and 14) at the edges of its tiles, through
-    matmul (batch 1) and batched_matmul, bf16 operands to bf16 and to f32,
-    against `_matmul_plain` (bf16: rel-L2 BF16_TOL; f32: GEMM_F32_TOL and
-    GEMM_MAX_ABS). Each call must take the wgmma kernel (its counter rises
-    by one), and the shapes must take both tile widths."""
+# the f32 wgmma GEMM at the same edges, with N = 100 (a multiple of 4, not
+# of 8: bf16 out in pairs of columns) and batch 3 at K = 132
+GEMM_F32_TILE_SHAPES = GEMM_TILE_SHAPES + [(1, 200, 132, 100), (3, 200, 132, 72)]
+# the f32 wgmma GEMM against its split's plain version (the same six
+# products summed in another order): rel-L2, ten times under GEMM_F32_TOL
+# (f32 out) and BF16_TOL (bf16 out, where a sum on a rounding edge may
+# round the other way)
+SPLIT_TOL = 2e-6
+SPLIT_BF16_TOL = 1e-3
+
+
+def _hold_gemm(what, got, want, out, split=None):
+    """One GEMM output against `_matmul_plain` (bf16: rel-L2 BF16_TOL; f32:
+    GEMM_F32_TOL and GEMM_MAX_ABS) and, for the f32 wgmma kernel, against
+    `_matmul_f32_split_plain` (SPLIT_TOL, bf16 out SPLIT_BF16_TOL). Returns
+    a line for the log."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = _rel_l2(got, want)
+    max_abs = float((got.float() - want.float()).abs().max())
+    ok = (err <= BF16_TOL if out == torch.bfloat16
+          else err <= GEMM_F32_TOL and max_abs <= GEMM_MAX_ABS)
+    line = f"rel-L2 {err:.3e}, max-abs {max_abs:.3e}"
+    if split is not None:
+        err_split = _rel_l2(got, split)
+        ok = ok and err_split <= (SPLIT_BF16_TOL if out == torch.bfloat16 else SPLIT_TOL)
+        line += f", against the split's plain version rel-L2 {err_split:.3e}"
+    if not ok:
+        raise AssertionError(f"{what}: {line}")
+    return line
+
+
+def phase_gemm_tiles(device, label, shapes=GEMM_TILE_SHAPES,
+                     f32_shapes=GEMM_F32_TILE_SHAPES):
+    """The wgmma GEMMs (kernels 13 and 14) at the edges of their tiles,
+    through matmul (batch 1) and batched_matmul, bf16 operands on the bf16
+    kernel and f32 operands on the f32 one, to bf16 and to f32, against
+    `_matmul_plain` and (f32 operands) `_matmul_f32_split_plain`
+    (`_hold_gemm`). Each call must take its wgmma kernel (its counter
+    rises by one), and the bf16 shapes must take both tile widths. Then the f32
+    kernel on inf and NaN operands (its non-finite entries torch.matmul
+    f32's) and on operands whose lower pieces are bf16 subnormals (logged:
+    whether the tensor cores keep them)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=device).manual_seed(97)
     bf, f32 = torch.bfloat16, torch.float32
-    widths = set()
-    for batch, m, k, n in shapes:
-        a = torch.randn(batch, m, k, generator=gen, device=device).to(bf)
-        b = torch.randn(batch, k, n, generator=gen, device=device).to(bf)
-        tile = gemm_tile_n(batch, m, n)
-        widths.add(tile)
-        for out in (bf, f32):
-            before = sm90_launches()
-            if batch == 1:
-                got = g.matmul(a[0], b[0], out_dtype=out)[None]
-            else:
-                got = g.batched_matmul(a, b, out_dtype=out)
-            took = sm90_launches() - before
-            want = g._matmul_plain(a, b, out)
-            torch.cuda.synchronize()
-            what = (f"wgmma GEMM {batch}x{m}x{k}x{n} -> "
-                    f"{'bf16' if out == bf else 'f32'} (128 x {tile} tiles)")
-            if took != 1:
-                raise AssertionError(f"{what}: {took} wgmma launches for one call")
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{what}: non-finite output")
-            err = _rel_l2(got, want)
-            max_abs = float((got.float() - want.float()).abs().max())
-            ok = (err <= BF16_TOL if out == bf
-                  else err <= GEMM_F32_TOL and max_abs <= GEMM_MAX_ABS)
-            if not ok:
-                raise AssertionError(f"{what}: rel-L2 {err:.3e}, max-abs {max_abs:.3e}")
-            log(f"{what}: rel-L2 {err:.3e}, max-abs {max_abs:.3e} [{label}]")
-    if widths != set(GEMM_SM90_TILES):
-        raise AssertionError(f"the tile-edge shapes took tile widths {sorted(widths)}")
+    for dt, cases, counter, tiles in (
+            (bf, shapes, sm90_launches, set(GEMM_SM90_TILES)),
+            (f32, f32_shapes, f32x_launches, {GEMM_F32_TILE})):
+        widths = set()
+        kind = "bf16" if dt == bf else "f32"
+        for batch, m, k, n in cases:
+            a = torch.randn(batch, m, k, generator=gen, device=device).to(dt)
+            b = torch.randn(batch, k, n, generator=gen, device=device).to(dt)
+            tile = gemm_tile_n(batch, m, n) if dt == bf else GEMM_F32_TILE
+            widths.add(tile)
+            for out in (bf, f32):
+                before = counter()
+                if batch == 1:
+                    got = g.matmul(a[0], b[0], out_dtype=out)[None]
+                else:
+                    got = g.batched_matmul(a, b, out_dtype=out)
+                took = counter() - before
+                want = g._matmul_plain(a, b, out)
+                split = g._matmul_f32_split_plain(a, b, out) if dt == f32 else None
+                torch.cuda.synchronize()
+                what = (f"wgmma GEMM {kind} {batch}x{m}x{k}x{n} -> "
+                        f"{'bf16' if out == bf else 'f32'} (128 x {tile} tiles)")
+                if took != 1:
+                    raise AssertionError(f"{what}: {took} {kind} wgmma launches "
+                                         f"for one call")
+                log(f"{what}: {_hold_gemm(what, got, want, out, split)} [{label}]")
+        if widths != tiles:
+            raise AssertionError(f"the {kind} tile-edge shapes took tile widths "
+                                 f"{sorted(widths)}")
+
+    # inf and NaN: B has bf16 values (zero lower pieces), a row of ones and
+    # zeros, where an inf met a zero piece would give NaN
+    a = torch.randn(200, 132, generator=gen, device=device)
+    b = torch.randn(132, 72, generator=gen, device=device)
+    b[:8] = b[:8].bfloat16().float()
+    b[8] = 1.0
+    b[9, ::3] = 0.0
+    a[3, 8], a[5, 9], a[7, 2], a[7, 8], a[11, 4] = (float("inf"), -float("inf"),
+                                                    float("inf"), -float("inf"),
+                                                    float("nan"))
+    b[8, 5], b[2, 6], b[9, 7], b[0, 30] = -float("inf"), float("inf"), float("nan"), float("inf")
+    before = f32x_launches()
+    got = g.matmul(a, b)
+    want = torch.matmul(a, b)
+    torch.cuda.synchronize()
+    same = all(torch.equal(t(got), t(want))
+               for t in (torch.isnan, torch.isposinf, torch.isneginf))
+    fin = torch.isfinite(want)
+    err = _rel_l2(got[fin], want[fin])
+    log(f"f32 wgmma GEMM 200x132x72 with inf and NaN operands: "
+        f"{int((~fin).sum())} non-finite entries, the same as torch.matmul f32's: "
+        f"{same}; the finite ones rel-L2 {err:.3e} [{label}]")
+    if f32x_launches() != before + 1 or not same or not err <= GEMM_F32_TOL:
+        raise AssertionError("the f32 wgmma GEMM on inf and NaN operands")
+    # A times 2^-120: its mid and lo pieces are bf16 subnormals (the products
+    # stay normal f32); a flushed piece would cost ~2^-9 of the product
+    a = torch.randn(256, 512, generator=gen, device=device) * 2.0 ** -120
+    b = torch.randn(512, 256, generator=gen, device=device)
+    got = g.matmul(a, b)
+    split = g._matmul_f32_split_plain(a, b, f32)
+    want = g._matmul_plain(a, b, f32)
+    torch.cuda.synchronize()
+    err, err_split = _rel_l2(got, want), _rel_l2(got, split)
+    log(f"f32 wgmma GEMM 256x512x256, A times 2^-120 (bf16-subnormal lower "
+        f"pieces): rel-L2 {err:.3e} against plain, {err_split:.3e} against the "
+        f"split's plain version: the tensor cores "
+        f"{'keep' if err_split <= SPLIT_TOL else 'do not keep'} bf16 subnormals "
+        f"[{label}]")
+
+
+def ffma_core(a, b):
+    """A closure making one call of the FFMA core (gemm_core.cuh's f32 tile,
+    fkp_gemm's aligned path) on f32 a [M, K] @ b [K, N], f32 out: the kernel
+    the aligned f32 calls took before the f32 wgmma kernel, called
+    directly as a yardstick (no launch counter)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    m, k = a.shape
+    n = b.shape[1]
+    c = torch.empty(m, n, dtype=torch.float32, device=a.device)
+
+    def run():
+        rc = g._gemm_kernel()(a.data_ptr(), b.data_ptr(), c.data_ptr(), None, None,
+                              1, m, n, k, 0, 0, 0, g.PATH_ALIGNED,
+                              torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check(rc, "gemm (FFMA core)")
+        return c
+    return run
+
+
+# the f32 wgmma GEMM's error against the fp64 oracle at two depths: (m, k, n)
+GEMM_F32_ORACLE = [(512, 2048, 512), (256, 8192, 256)]
+
+
+def phase_gemm_f32_times(device, label):
+    """The f32 wgmma GEMM at run_all.py's f32 rung (2048^3) and BASELINE
+    config 1's shape (1024^3), f32 -> f32, in turns with torch.matmul f32
+    (TF32 off) and the FFMA core on the same inputs (`ffma_core`), from CUDA
+    graphs, with its bound (six bf16 products at 989 TFLOP/s) and the FFMA
+    bound (2*M*N*K at 67 TFLOP/s) beside it; then the error against the
+    fp64 oracle (native.gemm) at K = 2048 and K = 8192, of the kernel,
+    torch.matmul, the FFMA core and the split's plain version, the
+    kernel's held to GEMM_F32_TOL and GEMM_MAX_ABS. Returns {case: row}."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+    from flashattention_kernel_project_tpu_torch.runtime import native
+    from flashattention_kernel_project_tpu_torch.utils import platform
+    from flashattention_kernel_project_tpu_torch.utils.testing import max_abs_diff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(103)
+    rows = {}
+    for size in (2048, 1024):
+        a = torch.randn(size, size, generator=gen, device=device)
+        b = torch.randn(size, size, generator=gen, device=device)
+        before = f32x_launches()
+        c = g.matmul(a, b)
+        if f32x_launches() != before + 1:
+            raise AssertionError(f"f32 GEMM {size}^3: the call took another kernel")
+        ms = time_turns({"kernel": lambda: g.matmul(a, b),
+                         "torch.matmul": lambda: torch.matmul(a, b),
+                         "ffma": ffma_core(a, b)}, device)
+        flops = 2 * size ** 3
+        bnd = bound(6 * flops, nbytes(a, b, c))
+        ffma = bound(flops, nbytes(a, b, c), platform.H100_FP32_FLOPS)
+        name = f"{size}^3 f32"
+        rows[name] = dict(ms=ms["kernel"], library_ms=ms["torch.matmul"],
+                          ffma_ms=ms["ffma"], factor=ms["kernel"] / ms["torch.matmul"],
+                          bound_share=bnd["bound_ms"] / ms["kernel"],
+                          ffma_bound_ms=ffma["bound_ms"], **bnd)
+        log(f"f32 wgmma GEMM {name}: {ms['kernel']:.4f} ms, "
+            f"torch.matmul f32 {ms['torch.matmul']:.4f} ms "
+            f"({ms['kernel'] / ms['torch.matmul']:.2f}x), the FFMA core "
+            f"{ms['ffma']:.4f} ms; bound {bnd['bound_ms']:.4f} ms (six bf16 "
+            f"products; {100 * bnd['bound_ms'] / ms['kernel']:.1f}% of it), FFMA "
+            f"bound {ffma['bound_ms']:.4f} ms; {flops / ms['kernel'] / 1e9:.1f} "
+            f"TFLOP/s of f32 product [{label}]")
+    for m, k, n in GEMM_F32_ORACLE:
+        a = torch.randn(m, k, generator=gen, device=device)
+        b = torch.randn(k, n, generator=gen, device=device)
+        outs = {"kernel": g.matmul(a, b), "torch.matmul": torch.matmul(a, b),
+                "ffma": ffma_core(a, b)(),
+                "split plain": g._matmul_f32_split_plain(a, b, torch.float32)}
+        torch.cuda.synchronize()
+        exact = native.gemm(a.cpu().numpy(), b.cpu().numpy())
+        err = {key: (float(np.linalg.norm(v.cpu().numpy() - exact) / np.linalg.norm(exact)),
+                     max_abs_diff(v.cpu().numpy(), exact)) for key, v in outs.items()}
+        rows[f"oracle {m}x{k}x{n}"] = {key: dict(rel_l2=e, max_abs=x)
+                                       for key, (e, x) in err.items()}
+        log(f"f32 GEMM {m}x{k}x{n} against the fp64 oracle (rel-L2, max-abs): "
+            + ", ".join(f"{key} {e:.3e} / {x:.3e}" for key, (e, x) in err.items())
+            + f" [{label}]")
+        e, x = err["kernel"]
+        if not (e <= GEMM_F32_TOL and x <= GEMM_MAX_ABS):
+            raise AssertionError(f"f32 wgmma GEMM {m}x{k}x{n}: rel-L2 {e:.3e}, "
+                                 f"max-abs {x:.3e} against the fp64 oracle")
+    return rows
 
 
 def phase_gemm_sm90_times(device, label):
@@ -2606,6 +2814,7 @@ COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
                      mxu="mxu_launches", q_int8="q_int8_launches",
                      guard="guard_launches", slots="slots_launches",
                      copy_only="copy_only_launches", sm90="sm90_launches",
+                     f32x="f32x_launches",
                      fused="fused_launches", split="split_launches")
 
 
@@ -4479,7 +4688,8 @@ class Rung:
     "resident": bf16 and rows summing to 1 within 1e-2, "exact": bit-equal,
     "decode": bf16 with the rows of empty sequences exactly 0), the
     function's operations and bytes (inputs read once, the output written
-    once) with the peak rate of its type, the one library call of the same
+    once; the f32 wgmma kernel's six bf16 products) with the peak rate of
+    their type, the one library call of the same
     function (or None), and whether its times stand for the kernel
     ("entry") or are logged beside it ("extra"). `unfused` is a multi-call
     baseline of the same function, `beside` other calls of it on the same
@@ -4501,7 +4711,10 @@ class Rung:
     beside: dict | None = None
     graph: bool = True
     empty: tuple = ()  # the rows that must be exactly 0 ("decode")
-    sm90: bool | None = None  # a GEMM call that must (not) take the wgmma kernel
+    sm90: bool | None = None  # a GEMM call that must (not) take the bf16 wgmma kernel
+    f32x: bool | None = None  # ... (not) take the f32 wgmma kernel
+    entry: str | None = None  # the kernels-line entry it stands for, if not `kernel`
+    split: object = None  # the f32 wgmma kernel's split plain version ("f32")
 
 
 def ladder_rungs(device) -> list:
@@ -4525,7 +4738,7 @@ def ladder_rungs(device) -> list:
         return int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
 
     def gemm(label, a, b, out=f32, bias=None, res=None, timed=None, library=None,
-             sm90=False):
+             sm90=False, f32x=False):
         batched = a.dim() == 3
         kernel = ("gemm_fused_epilogue" if bias is not None
                   else "gemm_batched" if batched else "gemm")
@@ -4538,19 +4751,25 @@ def ladder_rungs(device) -> list:
             plain = lambda: g._matmul_plain(a, b, out)  # noqa: E731
         shape = (*a.shape[:-1], b.shape[-1])
         extra = () if bias is None else (bias, res)
+        # the f32 wgmma kernel: six bf16 products on the tensor cores
+        passes, rate = (6, peak[bf]) if f32x else (1, peak[a.dtype])
         rungs.append(Rung(kernel, label, call, plain, "f32" if out == f32 else "bf16",
-                          2 * a.numel() * b.shape[-1],
-                          nbytes(a, b, *extra) + out_bytes(shape, out), peak[a.dtype],
-                          library, timed, sm90=sm90))
+                          passes * 2 * a.numel() * b.shape[-1],
+                          nbytes(a, b, *extra) + out_bytes(shape, out), rate,
+                          library, timed, sm90=sm90, f32x=f32x,
+                          entry="gemm_f32" if f32x else None,
+                          split=(lambda: g._matmul_f32_split_plain(a, b, out))
+                          if f32x else None))
 
     # run_all.py:44-75; the aligned bf16 products take the wgmma kernel
     a16, b16 = rand(4096, 4096, dtype=bf), rand(4096, 4096, dtype=bf)
     gemm("matmul bf16 4096^3 -> bf16", a16, b16, out=bf, timed="entry",
          library=lambda: torch.matmul(a16, b16), sm90=True)
     gemm("matmul bf16 4096^3 -> f32", a16, b16, timed="extra", sm90=True)
+    # run_all.py's f32 rung on the f32 wgmma kernel (JAX's six bf16 passes)
     a32, b32 = rand(2048, 2048), rand(2048, 2048)
-    gemm("matmul f32 2048^3", a32, b32, timed="extra",
-         library=lambda: torch.matmul(a32, b32))
+    gemm("matmul f32 2048^3", a32, b32, timed="entry",
+         library=lambda: torch.matmul(a32, b32), f32x=True)
     ab, bb = rand(8, 1024, 1024, dtype=bf), rand(8, 1024, 1024, dtype=bf)
     gemm("batched bf16 8x1024^3 -> bf16", ab, bb, out=bf, timed="entry",
          library=lambda: torch.bmm(ab, bb), sm90=True)
@@ -4558,13 +4777,13 @@ def ladder_rungs(device) -> list:
     gemm("fused epilogue bf16 4096^3 -> bf16", a16, b16, out=bf, bias=bias,
          res=res, timed="entry")
     # ragged: K = 130 (and 72 columns of bf16) take the element-wise loads,
-    # K = 132 (f32) the 16-byte copies with zero-filled edges, K = 136
-    # (bf16) the wgmma kernel's zero-filled TMA boxes
+    # K = 132 (f32) and K = 136 (bf16) the wgmma kernels' zero-filled TMA
+    # boxes
     for dt, ks in ((f32, (130, 132)), (bf, (130, 136))):
         name = "f32" if dt == f32 else "bf16"
         for k in ks:
             gemm(f"matmul {name} 200x{k}x72", rand(200, k, dtype=dt), rand(k, 72, dtype=dt),
-                 sm90=(dt, k) == (bf, 136))
+                 sm90=(dt, k) == (bf, 136), f32x=(dt, k) == (f32, 132))
     gemm("batched bf16 3x200x130x72", rand(3, 200, 130, dtype=bf), rand(3, 130, 72, dtype=bf))
     for dt, k in ((bf, 130), (f32, 132)):
         gemm(f"fused epilogue {'f32' if dt == f32 else 'bf16'} 200x{k}x72",
@@ -4805,6 +5024,11 @@ def _hold_ladder(rung, got, want, entry):
     if gate == "f32" and not (err <= GEMM_F32_TOL and max_abs <= GEMM_MAX_ABS):
         raise AssertionError(f"{rung.label}: {line} (gates {GEMM_F32_TOL}, "
                              f"{GEMM_MAX_ABS})")
+    if rung.split is not None:
+        err_split = _rel_l2(got, rung.split())
+        line += f", against the split's plain version rel-L2 {err_split:.3e}"
+        if not err_split <= SPLIT_TOL:
+            raise AssertionError(f"{rung.label}: {line} (gate {SPLIT_TOL})")
     if gate == "softmax" and not max_abs <= SOFTMAX_MAX_ABS:
         raise AssertionError(f"{rung.label}: max-abs {max_abs:.3e} > {SOFTMAX_MAX_ABS}")
     if gate in ("bf16", "rows f32", "rows bf16") and not err <= BF16_TOL:
@@ -4819,8 +5043,9 @@ def _hold_ladder(rung, got, want, entry):
 
 
 def phase_baseline_configs(device, label):
-    """BASELINE.json configs 1 and 2: matmul (f32) and matmul_bf16 (f32
-    out) at 1024^3, then the row softmax of the product, both held on the
+    """BASELINE.json configs 1 and 2: matmul (f32, on the f32 wgmma kernel)
+    and matmul_bf16 (f32 out, on the bf16 one) at 1024^3, then the row
+    softmax of the product, both held on the
     host against the fp64 oracle (the port's runtime/oracle.cpp where g++
     builds it, else numpy) at BASELINE's max-abs 1e-2; config 2's oracle
     takes the bf16-rounded inputs, as tests/test_gemm.py:33-36 does."""
@@ -4835,9 +5060,14 @@ def phase_baseline_configs(device, label):
     a = torch.randn(1024, 1024, generator=gen, device=device)
     b = torch.randn(1024, 1024, generator=gen, device=device)
     oracle = "native (runtime/oracle.cpp)" if native.available() else "numpy"
-    for cfg, mm, operands in ((1, g.matmul, (a, b)),
-                              (2, g.matmul_bf16, (a.bfloat16(), b.bfloat16()))):
+    for cfg, mm, operands, counter in (
+            (1, g.matmul, (a, b), f32x_launches),
+            (2, g.matmul_bf16, (a.bfloat16(), b.bfloat16()), sm90_launches)):
+        before = counter()
         c = mm(a, b)
+        if counter() != before + 1:
+            raise AssertionError(f"config {cfg}: the product took another kernel "
+                                 f"than its wgmma GEMM")
         p = sm.softmax(c)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4856,15 +5086,17 @@ def phase_baseline_configs(device, label):
 
 LADDER_KERNELS = dict(  # entry name -> (source, the TPU kernel's def line)
     gemm=("gemm_sm90.cuh", "gemm.py:75"), gemm_batched=("gemm_sm90.cuh", "gemm.py:172"),
+    gemm_f32=("gemm_f32_sm90.cuh", "gemm.py:75"),
     gemm_fused_epilogue=("gemm.cu", "gemm.py:250"),
     gemm_softmax=("gemm_softmax.cu", "gemm.py:334"),
     softmax=("softmax.cu", "softmax.py:44"),
     gemm_softmax_resident=("gemm_softmax.cu", "gemm.py:458"),
     gemm_w8=("gemm_w8.cu", "quant.py:72"), gemm_i8=("gemm_i8.cu", "quant.py:224"),
-    streaming_decode=("streaming_decode.cu", "streaming.py:45"))
+    streaming_decode=("flash_decode_sm90.cuh", "streaming.py:45"))
 # the counters whose sum is an entry's launches, where not its own name
 LADDER_COUNTERS = dict(gemm_softmax_resident=("gemm_softmax/resident",),
-                       gemm_w8=("gemm_w8", "gemm_w8_fp8"))
+                       gemm_w8=("gemm_w8", "gemm_w8_fp8"),
+                       gemm_f32=("gemm/f32x", "gemm_batched/f32x"))
 
 
 def phase_resident_fallback(device, label):
@@ -4910,19 +5142,22 @@ def phase_ladder(device, label):
     reset_counters()
     outs = []
     for r in rungs:  # each GEMM call on the kernel its shape and type pick
-        before = sm90_launches()
+        before = sm90_launches(), f32x_launches()
         outs.append(r.call())
-        took = sm90_launches() - before
-        if r.sm90 is not None and took != int(r.sm90):
-            raise AssertionError(f"{r.label}: {took} wgmma GEMM launches, "
-                                 f"{int(r.sm90)} expected")
+        for want, got, kind in ((r.sm90, sm90_launches() - before[0], "bf16"),
+                                (r.f32x, f32x_launches() - before[1], "f32")):
+            if want is not None and got != int(want):
+                raise AssertionError(f"{r.label}: {got} {kind} wgmma GEMM launches, "
+                                     f"{int(want)} expected")
     phase_baseline_configs(device, label)
     torch.cuda.synchronize()
     launches = read_counters()
     entries = {}
     for name, (source, replaces) in LADDER_KERNELS.items():
-        # configs 1 and 2 add a GEMM and a softmax each
-        calls = sum(r.kernel == name for r in rungs) + 2 * (name in ("gemm", "softmax"))
+        # configs 1 and 2 add a GEMM and a softmax each; config 1's GEMM is
+        # on the f32 wgmma kernel
+        calls = (sum(bool(r.f32x) for r in rungs) + 1 if name == "gemm_f32" else
+                 sum(r.kernel == name for r in rungs) + 2 * (name in ("gemm", "softmax")))
         got = sum(launches[c] for c in LADDER_COUNTERS.get(name, (name,)))
         if got != calls:
             raise AssertionError(f"{name}: {got} launches on the ladder's path "
@@ -4930,15 +5165,19 @@ def phase_ladder(device, label):
         entries[name] = dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
                              replaces=f"{TPU}/{replaces}", launches=got,
                              max_abs_err=0.0)
-    # kernels 13 and 14: the entries' launches are the wgmma kernel's
-    # (gemm_sm90.cuh), the rest went to the mma.sync core (f32, ragged K,
-    # the epilogue)
+    # kernels 13 and 14: the entries' launches are the bf16 wgmma kernel's
+    # (gemm_sm90.cuh), gemm_f32's the f32 one's (gemm_f32_sm90.cuh), the
+    # rest went to the mma.sync core (ragged K, the epilogue)
     for name in ("gemm", "gemm_batched"):
         sm90 = launches[f"{name}/sm90"]
         if not sm90 > 0:
             raise AssertionError(f"{name}: no wgmma launch on the ladder's path")
-        entries[name].update(launches=sm90,
-                             mma_sync_launches=entries[name]["launches"] - sm90)
+        entries[name].update(launches=sm90, mma_sync_launches=entries[name]["launches"]
+                             - sm90 - launches[f"{name}/f32x"])
+    # the streaming rungs count in streaming_decode's counter alone
+    if launches["flash_decode"]:
+        raise AssertionError(f"{launches['flash_decode']} flash_decode launches on "
+                             f"the ladder's path")
     # every resident launch is followed by the gated rows launch
     if launches["gemm_softmax/fallback"] != launches["gemm_softmax/resident"]:
         raise AssertionError(f"{launches['gemm_softmax/fallback']} gated rows "
@@ -4954,8 +5193,8 @@ def phase_ladder(device, label):
     for rung, got in zip(rungs, outs):
         want = rung.plain()
         torch.cuda.synchronize()
-        log(f"{rung.label}: {_hold_ladder(rung, got, want, entries[rung.kernel])} "
-            f"[{label}]")
+        line = _hold_ladder(rung, got, want, entries[rung.entry or rung.kernel])
+        log(f"{rung.label}: {line} [{label}]")
         del want
     del outs
     phase_resident_fallback(device, label)
@@ -4985,7 +5224,7 @@ def phase_ladder(device, label):
             times[f"{what}_ms"] = time_ms(fn, device, **kw)
             log(f"{rung.label}: beside it, {what} on the same inputs "
                 f"{times[f'{what}_ms']:.4f} ms [{label}]")
-        entry = entries[rung.kernel]
+        entry = entries[rung.entry or rung.kernel]
         if rung.timed == "entry":
             entry.update(times, shape=rung.label)
         else:
@@ -5830,6 +6069,7 @@ def main() -> int:
             log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
     phase_fwd_sm90_build(build_log, label)
     phase_gemm_sm90_build(build_log, label)
+    phase_gemm_f32_build(build_log, label)
     phase_bwd_sm90_build(build_log, label)
     phase_dec_sm90_build(build_log, label)
     phase_ext_sm90_build(build_log, label)
@@ -5913,14 +6153,18 @@ def main() -> int:
     # the GEMM and softmax ladder (run_all.py's GEMM and softmax rungs,
     # BASELINE configs 1-3), its own path with the counters at 0 before it
     ladder = phase_ladder(device, label)
-    # the wgmma GEMM (kernels 13 and 14) at its tiles' edges, then timed in
-    # turns with torch.matmul / torch.bmm
+    # the wgmma GEMMs (kernels 13 and 14, bf16 and f32) at their tiles'
+    # edges, then timed in turns with torch.matmul / torch.bmm (the f32 one
+    # beside the FFMA core too, and against the fp64 oracle)
     phase_gemm_tiles(device, label)
     gemm_times = phase_gemm_sm90_times(device, label)
+    f32_times = phase_gemm_f32_times(device, label)
     for entry in ladder:
         if entry["name"] in ("gemm", "gemm_batched"):
             entry["turns"] = {k: v for k, v in gemm_times.items()
                               if (k.startswith("8 x")) == (entry["name"] == "gemm_batched")}
+        elif entry["name"] == "gemm_f32":
+            entry["turns"] = f32_times
     # kernels 8 and 12 (q_int8) over int8 caches and kernel 1's range guard,
     # each its own path with the counters at 0 before it
     mxu, qi8 = phase_int8_products(device, label)

@@ -13,7 +13,10 @@
 // the partials (m, l, y) of the group's G query rows over the split's keys
 // below lengths[b] (with a window, only the band's keys and the sinks),
 // and the split's partials are merged into the normalised output in q's
-// dtype on the card.
+// dtype on the card. Also replaces ops/streaming.py::_streaming_kernel
+// (:45, pallas_call :229): streaming_decode computes flash_decode's
+// function with one program a (sequence, KV head), which is this kernel at
+// one split of S rounded up to whole 64-key tiles.
 //
 // What bounds it on the H100: bytes. Each key costs 4 * d bytes of K and V
 // and 4 * G * d flops, at most 2 flops a byte (G = 8), far below the ~295
@@ -36,8 +39,8 @@
 //   tile: S = Q K^T from ldmatrix fragments of the swizzled K tile, then
 //   one max a row (two shuffles), one rescale and one exp2 a (row, key),
 //   in the log2 domain in f32, and P V from ldmatrix.trans fragments of
-//   the V tile with p as a bf16 hi + lo pair (streaming_decode.cu's
-//   precision, about 16 bits of p). decode_core.cuh, which kernel 7 and
+//   the V tile with p as a bf16 hi + lo pair (about 16 bits of p, the
+//   precision of the earlier decodes). decode_core.cuh, which kernel 7 and
 //   the paged decodes keep, gave one key to 16 threads, each with its own
 //   online state for all G rows: two exp2 and four shuffles a key and row,
 //   and the accumulator rescaled a key at a time. The warps' states merge

@@ -9,14 +9,24 @@
 // accumulator before the single store). The TPU kernels walk K on a
 // sequential grid axis into a VMEM accumulator; here a block keeps its
 // accumulator in registers and loops over K itself. fkp_gemm takes one of
-// two kernels by the call's path (ops/gemm.py::gemm_path): two bf16
-// operands with no epilogue and aligned shapes go to the wgmma kernel of
-// gemm_sm90.cuh (built in gemm_sm90.cu); f32 operands, the fused epilogue
-// and unaligned shapes to gemm_kernel below, on gemm_core.cuh's mma.sync
-// and FFMA tiles of 128 x 128, the epilogue a template switch.
+// three kernels by the call's path (ops/gemm.py::gemm_path), every call
+// with aligned operands (K and N multiples of 16 bytes' worth of elements,
+// 16-byte bases), no epilogue and K > 0 on wgmma: two bf16 operands go to
+// gemm_sm90.cuh (built in gemm_sm90.cu), two f32 operands to
+// gemm_f32_sm90.cuh (built in gemm_f32_sm90.cu: JAX's six-pass bf16
+// product for f32 at Precision.HIGHEST). The fused epilogue, unaligned
+// shapes and K = 0 go to gemm_kernel below, on gemm_core.cuh's mma.sync
+// (bf16) and FFMA (f32) tiles of 128 x 128, the epilogue a template switch.
 
 #include "gemm_core.cuh"
 #include "gemm_sm90.cuh"
+
+namespace fkp_gemm_sm90 {
+// the f32 wgmma kernel's launch (gemm_f32_sm90.cuh, built in
+// gemm_f32_sm90.cu, whose kernel must be defined in one object only)
+int launch_gemm_f32(const void* a, const void* b, const Out& o, int batch,
+                    int k, cudaStream_t stream);
+}  // namespace fkp_gemm_sm90
 
 namespace {
 
@@ -85,9 +95,11 @@ int launch(const void* a, const void* b, const Out& o, int batch, int k,
 // residual f32 [m, n] (batch 1), else both may be null. path: 0 reads
 // element by element (any shape); 1 copies 16-byte pieces (k and n
 // multiples of 8 (bf16) or 4 (f32) elements, a and b 16-byte aligned); 2
-// the wgmma kernel (gemm_sm90.cuh: path 1's alignment, bf16 operands, no
-// epilogue, k > 0; cudaErrorInvalidValue otherwise). Returns
-// cudaGetLastError() after the launch, or the wgmma launch's error code.
+// the bf16 wgmma kernel (gemm_sm90.cuh: path 1's alignment, bf16 operands,
+// no epilogue, k > 0); 3 the f32 wgmma kernel (gemm_f32_sm90.cuh: path 1's
+// alignment, f32 operands, no epilogue, k > 0); cudaErrorInvalidValue for
+// a call a wgmma path does not take. Returns cudaGetLastError() after the
+// launch, or the wgmma launch's error code.
 extern "C" int fkp_gemm(const void* a, const void* b, void* c,
                         const void* bias, const void* residual, int batch,
                         int m, int n, int k, int bf16_in, int bf16_out,
@@ -95,11 +107,12 @@ extern "C" int fkp_gemm(const void* a, const void* b, void* c,
   const Out o{c, static_cast<const float*>(bias),
               static_cast<const float*>(residual), m, n, bf16_out};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (path == 2) {
-    if (!bf16_in || epilogue || k <= 0) {
+  if (path == 2 || path == 3) {
+    if (bf16_in != (path == 2) || epilogue || k <= 0) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return fkp_gemm_sm90::launch_gemm(a, b, o, batch, k, s);
+    return path == 2 ? fkp_gemm_sm90::launch_gemm(a, b, o, batch, k, s)
+                     : fkp_gemm_sm90::launch_gemm_f32(a, b, o, batch, k, s);
   }
   const int aligned = path;
   if (bf16_in) {

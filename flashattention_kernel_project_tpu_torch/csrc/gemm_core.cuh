@@ -1,13 +1,13 @@
 // The mma.sync tiled GEMM shared by gemm.cu's gemm_kernel (C = A @ B over
 // an optional leading batch, with an optional ReLU(. + bias) + residual
-// epilogue: the calls with f32 operands, the fused epilogue or shapes that
-// are not aligned; an aligned bf16 call without an epilogue takes the
-// wgmma kernel of gemm_sm90.cuh instead), gemm_softmax.cu (the batched
-// product with the row softmax in its epilogue) and gemm_w8.cu (bf16 A
-// times 8-bit B, a per-column scale in the epilogue); gemm_sm90.cuh reads
-// Out and store2 from here. A [M, K] and B [K, N] are row-major, as the TPU
-// kernels take them; a block computes one 128 x 128 tile of C with 256
-// threads (8 warps).
+// epilogue: the calls with the fused epilogue, shapes that are not aligned
+// or K = 0; an aligned call without an epilogue takes a wgmma kernel
+// instead, gemm_sm90.cuh for bf16 operands and gemm_f32_sm90.cuh for f32),
+// gemm_softmax.cu (the batched product with the row softmax in its
+// epilogue) and gemm_w8.cu (bf16 A times 8-bit B, a per-column scale in the
+// epilogue); gemm_sm90.cuh reads Out and store2 from here. A [M, K] and B
+// [K, N] are row-major, as the TPU kernels take them; a block computes one
+// 128 x 128 tile of C with 256 threads (8 warps).
 //
 // bf16 (the reference's cp.async double-buffered and tensor-core rungs):
 // 32-deep slices of A and B go to shared memory by cp.async, two stages, so
@@ -19,9 +19,10 @@
 // cp.async into a byte staging slice and widened, exactly, into the bf16 B
 // stage once it has landed; from there the bf16 path runs unchanged.
 //
-// float32 (the reference's shared-memory tiled rung): full float32 FFMA,
-// not TF32, which keeps about three decimal digits where the TPU kernel runs
-// float32 at Precision.HIGHEST. Each thread computes an 8 x 8 register tile
+// float32 (the reference's shared-memory tiled rung; the unaligned f32
+// calls and the f32 epilogue): full float32 FFMA, not TF32, which keeps
+// about three decimal digits where the TPU kernel runs float32 at
+// Precision.HIGHEST. Each thread computes an 8 x 8 register tile
 // (two 4-row by two 4-column quarters, so its shared-memory reads are 16
 // bytes wide and conflict-free); A's 8-deep slice is stored transposed,
 // [k][m]. The next slice is read into registers while the current one is
@@ -38,9 +39,10 @@
 // above the ridge, so the rate of tensor-core (bf16) or FFMA (float32)
 // instructions bounds it: 989 TFLOP/s bf16, 67 TFLOP/s float32 FFMA.
 // mma.sync reaches only part of the bf16 peak (23% at 4096^3); wgmma, TMA,
-// a deeper ring and a persistent schedule are gemm_sm90.cuh's, so far for
-// gemm.cu's aligned bf16 calls only: the fused epilogue, the softmax
-// epilogues and the 8-bit-weight GEMM still run this core.
+// a deeper ring and a persistent schedule are gemm_sm90.cuh's and
+// gemm_f32_sm90.cuh's, for gemm.cu's aligned calls without an epilogue:
+// the fused epilogue, the softmax epilogues and the 8-bit-weight GEMM
+// still run this core.
 
 #pragma once
 

@@ -17,9 +17,9 @@ int launch_gemm(const void* a, const void* b, const Out& o, int batch, int k,
 
 }  // namespace fkp_gemm_sm90
 
-// The column width of the tiles fkp_gemm's wgmma path takes for a call of
-// this shape on the current device (128 or 256), or -1 where the device
-// cannot be read.
+// The column width of the tiles fkp_gemm's bf16 wgmma path takes for a
+// call of this shape on the current device (128 or 256), or -1 where the
+// device cannot be read (the f32 one always takes 128).
 extern "C" int fkp_gemm_sm90_tile_n(int batch, int m, int n) {
   int sms = 0;
   if (fkp_gemm_sm90::sm_count(&sms) != 0) return -1;

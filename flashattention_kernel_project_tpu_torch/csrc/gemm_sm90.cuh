@@ -7,8 +7,9 @@
 //
 // Replaces flashattention_kernel_project_tpu/ops/gemm.py::_matmul_kernel
 // (:75, pallas_call :138) and _batched_matmul_kernel (:172, pallas_call
-// :226) on those calls; the mma.sync core of gemm_core.cuh keeps the rest
-// (f32 operands, the fused epilogue, unaligned shapes). The function is
+// :226) on those calls; aligned f32 calls take gemm_f32_sm90.cuh, which
+// shares this skeleton, and the mma.sync core of gemm_core.cuh keeps the
+// rest (the fused epilogue, unaligned shapes). The function is
 // the same: C = A @ B with f32 accumulation over the whole of K, rounded
 // once to the output type; rows past M and K are zero-filled by the TMA
 // maps and columns past N never written.

@@ -1,7 +1,7 @@
 // Warp-level helpers shared by every kernel that stages tiles in shared
 // memory and multiplies them on the tensor cores: the mma.sync attention
 // forwards (flash_fwd_core.cuh), the GEMMs (gemm_core.cuh, gemm_i8.cu) and
-// the streaming decode (the wgmma kernels take its bf16 packing). One copy,
+// the decodes (the wgmma kernels take its bf16 packing). One copy,
 // so that the fragment layouts and the copy semantics cannot drift apart
 // between the kernel families.
 //

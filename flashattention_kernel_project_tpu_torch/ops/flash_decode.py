@@ -246,10 +246,12 @@ def _decode_plain(q, k, v, lengths, n_splits, block_s, sm_scale, window=0,
 
 
 def _decode_cuda(q, k, v, lengths, n_splits, block_s, sm_scale, window=0,
-                 sinks=0):
+                 sinks=0, counter=None):
     """flash_decode on the card in one launch (fkp_flash_decode_out): the
     kernel merges its splits itself, through an f32 workspace of their
-    partials when there are more than one."""
+    partials when there are more than one. The launch counts in
+    `flash_decode.launches` (and `.window_launches` with a window), or in
+    `counter.launches` where a counter is given (streaming_decode's)."""
     _check_cuda_inputs(q, k, v, lengths)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -271,8 +273,11 @@ def _decode_cuda(q, k, v, lengths, n_splits, block_s, sm_scale, window=0,
         float(sm_scale), int(window), int(sinks),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    flash_decode.launches += 1
-    flash_decode.window_launches += bool(window)
+    if counter is None:
+        flash_decode.launches += 1
+        flash_decode.window_launches += bool(window)
+    else:
+        counter.launches += 1
     _build.check(rc, "flash_decode")
     return out
 

@@ -4,11 +4,13 @@ products with f32 accumulation.
 Counterpart of flashattention_kernel_project_tpu/ops/gemm.py. On a CUDA
 tensor the products are the hand-written Hopper kernels: csrc/gemm.cu's
 entry for `matmul`, `matmul_bf16`, `batched_matmul` and
-`matmul_fused_epilogue`, which takes one of two kernels by `gemm_path`:
-the wgmma kernel of csrc/gemm_sm90.cuh for two bf16 operands with no
-epilogue and aligned shapes, else the mma.sync core (bf16 on the tensor
-cores, float32 in full float32, not TF32, as the TPU kernels run float32 at
-Precision.HIGHEST) and
+`matmul_fused_epilogue`, which takes one of three kernels by `gemm_path`:
+for aligned shapes with no epilogue, the wgmma kernel of
+csrc/gemm_sm90.cuh (two bf16 operands) or of csrc/gemm_f32_sm90.cuh (two
+f32 operands: JAX's Precision.HIGHEST, each operand split exactly into
+three bf16 pieces and six bf16 products summed in f32,
+`_matmul_f32_split_plain`); else the mma.sync core (bf16 on the tensor
+cores, float32 in full float32 FFMA, never TF32) and
 csrc/gemm_softmax.cu (`batched_matmul_softmax_epilogue`: the two-sweep rows
 kernel, and with resident=True the one-sweep fixed-max kernel that falls
 back to it on the device). On a CPU tensor
@@ -50,22 +52,29 @@ def _aligned(*tensors) -> bool:
 
 
 # fkp_gemm's paths (csrc/gemm.cu): the mma.sync core reading element by
-# element or in 16-byte pieces, or the wgmma kernel (csrc/gemm_sm90.cuh)
-PATH_ELEMENTWISE, PATH_ALIGNED, PATH_SM90 = 0, 1, 2
+# element or in 16-byte pieces, the bf16 wgmma kernel (csrc/gemm_sm90.cuh)
+# or the f32 one (csrc/gemm_f32_sm90.cuh)
+PATH_ELEMENTWISE, PATH_ALIGNED, PATH_SM90, PATH_SM90_F32 = 0, 1, 2, 3
 
 
 def gemm_path(a_dtype, b_dtype, a_shape, b_shape, aligned: bool,
               epilogue: bool) -> int:
     """The kernel a CUDA call of the GEMMs takes, by type and shape alone
-    (fkp_gemm's `path`, a [.., M, K] @ b [.., K, N]): the wgmma kernel
-    (PATH_SM90) for two bf16 operands, no epilogue, K > 0 and `aligned`
-    operands (`_aligned`: K and N multiples of 8, 16-byte bases, which is
-    what a TMA map asks of a tensor); else the mma.sync core, in 16-byte
-    pieces where aligned (PATH_ALIGNED), element by element where not."""
+    (fkp_gemm's `path`, a [.., M, K] @ b [.., K, N]): with no epilogue,
+    K > 0 and `aligned` operands (`_aligned`: K and N multiples of 16
+    bytes' worth of elements, 16-byte bases, which is what a TMA map asks
+    of a tensor), the bf16 wgmma kernel (PATH_SM90) for two bf16 operands
+    and the f32 one (PATH_SM90_F32) for two f32 operands; else the mma.sync
+    core, in 16-byte pieces where aligned (PATH_ALIGNED), element by
+    element where not."""
     if not aligned:
         return PATH_ELEMENTWISE
-    if a_dtype == b_dtype == torch.bfloat16 and not epilogue and a_shape[-1] > 0:
+    if epilogue or a_shape[-1] == 0:
+        return PATH_ALIGNED
+    if a_dtype == b_dtype == torch.bfloat16:
         return PATH_SM90
+    if a_dtype == b_dtype == torch.float32:
+        return PATH_SM90_F32
     return PATH_ALIGNED
 
 
@@ -78,8 +87,9 @@ def _gemm_kernel():
 def _gemm_cuda(wrapper, a, b, out_dtype, bias=None, residual=None):
     """C = a @ b (a [B, M, K], b [B, K, N]), through the epilogue when bias
     and residual are given, launched on the current stream on the kernel
-    `gemm_path` picks, counted in `wrapper.launches` and, on the wgmma
-    kernel, also in `wrapper.sm90_launches`."""
+    `gemm_path` picks, counted in `wrapper.launches` and, on a wgmma
+    kernel, also in `wrapper.sm90_launches` (bf16) or
+    `wrapper.f32x_launches` (f32)."""
     _check_types(a, b, out_dtype)
     a, b = a.contiguous(), b.contiguous()
     batch, m, k = a.shape
@@ -101,6 +111,8 @@ def _gemm_cuda(wrapper, a, b, out_dtype, bias=None, residual=None):
     wrapper.launches += 1
     if path == PATH_SM90:
         wrapper.sm90_launches += 1
+    elif path == PATH_SM90_F32:
+        wrapper.f32x_launches += 1
     _build.check(rc, "gemm")
     return c
 
@@ -109,6 +121,44 @@ def _matmul_plain(a, b, out_dtype):
     """The kernels' function in plain PyTorch: float32 products, f32 out
     rounded to out_dtype. bf16 operands widen exactly."""
     return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def _f32_pieces(x):
+    """The exact split of csrc/gemm_f32_sm90.cuh in plain PyTorch: x (f32)
+    as (hi, hf, mid, lo), f32 tensors of bf16 values. hi is x with its low
+    16 bits cleared, mid the same of x - hi, lo of x - hi - mid, each with
+    x's sign (a zero piece of a negative x is -0), so that hi + mid + lo ==
+    x bit for bit wherever x's bits lie at or above 2^-133 (every |x| >=
+    2^-110); a non-finite x keeps hi (a NaN as the quiet NaN) and has
+    mid = lo = 0; hf is hi where x is finite, else 0."""
+    x = x.float()
+    sign = x.view(torch.int32) & -2 ** 31
+
+    def cut(v):
+        return ((v.view(torch.int32) & -65536) | sign).view(torch.float32)
+
+    hi = cut(x)
+    mid = cut(x - hi)
+    lo = cut(x - hi - mid)
+    finite = torch.isfinite(x)
+    zero = torch.zeros_like(x)
+    hi = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), hi)
+    return (hi, torch.where(finite, hi, zero), torch.where(finite, mid, zero),
+            torch.where(finite, lo, zero))
+
+
+def _matmul_f32_split_plain(a, b, out_dtype):
+    """The f32 wgmma kernel's function in plain PyTorch: a and b split
+    exactly into bf16 pieces (`_f32_pieces`), the six products JAX's
+    Precision.HIGHEST keeps (smallest first, hi.hi last; the five lower ones
+    on hf, so that an inf or NaN meets the other operand only in hi.hi)
+    summed in f32, rounded to out_dtype. For the tests and chip_smoke.py;
+    the port's path calls `matmul`."""
+    ah, ahf, am, al = _f32_pieces(a)
+    bh, bhf, bm, bl = _f32_pieces(b)
+    mm = torch.matmul
+    c = mm(al, bhf) + mm(ahf, bl) + mm(am, bhf) + mm(ahf, bm) + mm(am, bm)
+    return (c + mm(ah, bh)).to(out_dtype)
 
 
 def _dims(a, b, batched: bool):
@@ -127,10 +177,11 @@ def _empty(a, b, out_dtype):
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype=torch.float32) -> torch.Tensor:
-    """C = A @ B with f32 accumulation: a [M, K], b [K, N], both f32 (full
-    float32 products) or both bf16; C [M, N] in out_dtype (f32 or bf16).
-    CPU tensors run the plain version; CUDA tensors launch csrc/gemm.cu or
-    raise."""
+    """C = A @ B with f32 accumulation: a [M, K], b [K, N], both f32 (f32
+    products: six bf16 passes on the card where aligned, as JAX's
+    Precision.HIGHEST, else FFMA) or both bf16; C [M, N] in out_dtype (f32
+    or bf16). CPU tensors run the plain version; CUDA tensors launch
+    csrc/gemm.cu or raise."""
     _dims(a, b, batched=False)
     if a.device.type == "cpu":
         return _matmul_plain(a, b, out_dtype)
@@ -313,12 +364,14 @@ def batched_matmul_softmax_epilogue(
 
 
 # kernel launches, for showing that a path ran the kernels (matmul_bf16
-# counts in matmul's); `.sm90_launches` counts those of `.launches` that
-# took the wgmma kernel
+# counts in matmul's); `.sm90_launches` and `.f32x_launches` count those of
+# `.launches` that took the bf16 and the f32 wgmma kernel
 matmul.launches = 0
 matmul.sm90_launches = 0
+matmul.f32x_launches = 0
 batched_matmul.launches = 0
 batched_matmul.sm90_launches = 0
+batched_matmul.f32x_launches = 0
 matmul_fused_epilogue.launches = 0
 batched_matmul_softmax_epilogue.launches = 0
 batched_matmul_softmax_epilogue.resident_launches = 0

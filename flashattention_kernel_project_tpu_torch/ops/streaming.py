@@ -1,15 +1,18 @@
-"""Streaming single-token GQA decode with a hand-written double-buffered
-copy pipeline.
+"""Streaming single-token GQA decode.
 
 Counterpart of flashattention_kernel_project_tpu/ops/streaming.py
 (`streaming_decode`): the contract of `flash_decode` without splits (q
 [B, Hq, D], caches [B, Hkv, S, D], lengths [B] read on the device, a length
 of 0 giving 0), computed by one program per (sequence, KV head) that
 streams its keys through an explicit two-slot pipeline with an online
-(m, l, acc). On a CUDA tensor it launches the hand-written Hopper kernel
-csrc/streaming_decode.cu (cp.async into a two-stage shared-memory ring,
-tile t + 1 in flight under tile t); on a CPU tensor `_streaming_plain`, the
-same function in plain PyTorch (flash_decode's plain path with one split).
+(m, l, acc). That is `flash_decode`'s Hopper kernel
+(csrc/flash_decode_sm90.cuh: 64-key K/V tiles by TMA through a 3-stage
+ring, both products on the tensor cores) at one split: on a CUDA tensor
+`streaming_decode` launches it with `streaming_plan`'s one split of S
+rounded up to whole 64-key tiles, so no workspace and no merge, and counts
+the launch in `streaming_decode.launches` (not in flash_decode's). On a CPU
+tensor it runs `_streaming_plain`, the same function in plain PyTorch
+(flash_decode's plain path with one split).
 
 `seq_chunk` and `block_s` are accepted and checked and do not change the
 function: the TPU folded `seq_chunk` sequences into one program to amortise
@@ -20,15 +23,11 @@ tiles; the kernel streams 64-key tiles, one block per (sequence, KV head).
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
 
-from flashattention_kernel_project_tpu_torch.ops import _build
 from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
-from flashattention_kernel_project_tpu_torch.ops.softmax import _LOG2E
 
 
 def _streaming_plain(q, k_cache, v_cache, lengths, sm_scale):
@@ -40,11 +39,11 @@ def _streaming_plain(q, k_cache, v_cache, lengths, sm_scale):
     return fd.merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
 
 
-@functools.cache
-def _kernel():
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel("fkp_streaming_decode",
-                         [vp] * 5 + [i32] * 5 + [ctypes.c_float, vp])
+def streaming_plan(s: int) -> tuple[int, int]:
+    """(n_splits, block_s) of the CUDA route for a cache of S keys: one
+    split of S rounded up to whole 64-key tiles, JAX's one program per
+    (sequence, KV head)."""
+    return 1, -(-s // fd._TILE) * fd._TILE
 
 
 def streaming_decode(
@@ -65,8 +64,9 @@ def streaming_decode(
     D^-0.5. block_s >= 1 and seq_chunk >= 1 dividing B (a ValueError
     otherwise, where JAX asserts) do not change the function (module
     docstring). Returns [B, Hq, D] in q's dtype. CPU tensors run the plain
-    version; CUDA tensors launch csrc/streaming_decode.cu (bf16, contiguous,
-    d in {64, 128}, Hq/Hkv in {1, 2, 4, 8}) or raise.
+    version; CUDA tensors launch csrc/flash_decode_sm90.cuh's kernel once at
+    one split (bf16, contiguous, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8}) or
+    raise.
     """
     b, hq, d = q.shape
     hkv = k_cache.shape[1]
@@ -82,16 +82,9 @@ def streaming_decode(
         return _streaming_plain(q, k_cache, v_cache, lengths, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no decode for device {q.device}")
-    fd._check_cuda_inputs(q, k_cache, v_cache, lengths)
-    out = torch.empty_like(q)
-    rc = _kernel()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hq, hkv, k_cache.shape[2], d,
-        float(sm_scale * _LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    streaming_decode.launches += 1
-    _build.check(rc, "streaming_decode")
-    return out
+    n_splits, split = streaming_plan(k_cache.shape[2])
+    return fd._decode_cuda(q, k_cache, v_cache, lengths, n_splits, split,
+                           sm_scale, counter=streaming_decode)
 
 
 # kernel launches, for showing that a path ran the kernel

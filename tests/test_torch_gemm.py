@@ -221,7 +221,12 @@ def _operands(case):
         "N 75 bf16": ((1, 200, 136, 75), bf),
         "K 0 bf16": ((1, 200, 0, 72), bf),
         "2048^3 f32": ((1, 2048, 2048, 2048), f32),
+        "K 132 f32": ((1, 200, 132, 72), f32),
+        "K 130 f32": ((1, 200, 130, 72), f32),
+        "K 0 f32": ((1, 200, 0, 72), f32),
+        "batched f32": ((3, 200, 132, 72), f32),
         "epilogue bf16": ((1, 256, 256, 256), bf),
+        "epilogue f32": ((1, 200, 132, 72), f32),
     }[case]
     return torch.empty(bm, m, k, dtype=dt), torch.empty(bm, k, n, dtype=dt)
 
@@ -230,19 +235,22 @@ def _operands(case):
     ("4096^3 bf16", "sm90"), ("8 x 1024^3 bf16", "sm90"),
     ("K 136, N 72 bf16", "sm90"), ("K 130 bf16", "elementwise"),
     ("N 75 bf16", "elementwise"), ("K 0 bf16", "aligned"),
-    ("2048^3 f32", "aligned"), ("epilogue bf16", "aligned"),
-    ("offset view", "elementwise"),
+    ("2048^3 f32", "sm90_f32"), ("K 132 f32", "sm90_f32"),
+    ("K 130 f32", "elementwise"), ("K 0 f32", "aligned"),
+    ("batched f32", "sm90_f32"), ("epilogue bf16", "aligned"),
+    ("epilogue f32", "aligned"), ("offset view", "elementwise"),
 ])
 def test_gemm_path(case, path):
     """Which kernel a CUDA call takes (gemm_path, by type and shape alone):
-    the wgmma kernel for two bf16 operands, no epilogue, K > 0, K and N
-    multiples of 8 and 16-byte bases; the mma.sync core otherwise, in
-    16-byte pieces where aligned."""
+    with no epilogue, K > 0 and aligned operands (K and N multiples of 16
+    bytes' worth of elements, 16-byte bases) the bf16 wgmma kernel for two
+    bf16 operands and the f32 one for two f32 operands; the mma.sync core
+    otherwise, in 16-byte pieces where aligned."""
     a, b = _operands(case)
-    want = dict(sm90=tgemm.PATH_SM90, aligned=tgemm.PATH_ALIGNED,
-                elementwise=tgemm.PATH_ELEMENTWISE)[path]
+    want = dict(sm90=tgemm.PATH_SM90, sm90_f32=tgemm.PATH_SM90_F32,
+                aligned=tgemm.PATH_ALIGNED, elementwise=tgemm.PATH_ELEMENTWISE)[path]
     got = tgemm.gemm_path(a.dtype, b.dtype, a.shape, b.shape, tgemm._aligned(a, b),
-                          epilogue=case == "epilogue bf16")
+                          epilogue=case.startswith("epilogue"))
     assert got == want
 
 

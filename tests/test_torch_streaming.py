@@ -99,3 +99,20 @@ def test_streaming_decode_checks_raise():
         ops.streaming_decode(q, k, k, lengths, block_s=0)
     with pytest.raises(ValueError, match="multiple"):
         ops.streaming_decode(q[:, :3], k, k, lengths)
+
+
+@pytest.mark.parametrize("s,block_s", [(300, 320), (1000, 1024), (4096, 4096)])
+def test_streaming_cuda_plan(rng, s, block_s):
+    """The CUDA route's plan (streaming_plan): flash_decode's Hopper kernel
+    at one split of S rounded up to whole 64-key tiles, which computes the
+    streaming decode's function (the plain decode at that plan equals
+    `_streaming_plain`, lengths 0 and S among them)."""
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.ops import streaming as st
+
+    assert st.streaming_plan(s) == (1, block_s)
+    q, k, v, lengths = (torch.from_numpy(x) for x in
+                        _inputs(rng, 3, 4, 2, s, 64, [s, 0, s // 3 + 1]))
+    want = st._streaming_plain(q, k, v, lengths, 0.125)
+    got = fd._decode_plain(q, k, v, lengths, *st.streaming_plan(s), 0.125)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)

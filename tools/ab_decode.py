@@ -4,8 +4,8 @@ turns.
 
     python3 tools/ab_decode.py [NAME=CSRC_DIR[:FLAG,...] ...]
 
-Builds this checkout's decode sources (csrc/flash_decode_sm90.cu, with
-streaming_decode.cu and common.cu) into a library of its own under
+Builds this checkout's decode sources (csrc/flash_decode_sm90.cu and
+common.cu) into a library of its own under
 flashattention_kernel_project_tpu_torch/build/ab/, prints ptxas's register
 and spill lines for the decode's instances, and runs the port's
 `flash_decode` on it ("this"). Each NAME=CSRC_DIR builds that directory's
@@ -27,7 +27,7 @@ alone (its partials) beside SDPA at the serving shape (B 8, 16/4 heads, S
 2048, d 128, chip_smoke.py's lengths, SDPA with a length mask), with the
 serving window (256, 4 sinks; SDPA with the band mask) and at run_all.py's
 streaming rung (B 256, 8/1 heads, S 4096, every length 4096), there beside
-kernel 21 (streaming_decode) and SDPA.
+kernel 21 (streaming_decode: the same kernel at one split) and SDPA.
 """
 
 import ctypes
@@ -40,7 +40,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-NEW_SOURCES = ("flash_decode_sm90.cu", "streaming_decode.cu", "common.cu")
+NEW_SOURCES = ("flash_decode_sm90.cu", "common.cu")
 OLD_SOURCES = ("flash_decode.cu", "common.cu")
 SERVING = (8, 16, 4, 2048, 128)
 WINDOW = ([100, 255, 256, 257, 700, 1500, 2000, 2048], 256, 4)
