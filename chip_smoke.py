@@ -1260,6 +1260,7 @@ def phase_ragged(device, shapes, label):
     gen = torch.Generator(device=device).manual_seed(17)
     entry = dict(name="flash_fwd_ragged", route="cuda",
                  source=f"{PKG}/csrc/flash_fwd_ragged.cu",
+                 slab_source=f"{PKG}/csrc/ragged_slab.cu",
                  replaces="flashattention_kernel_project_tpu/ops/flash_attention.py:1582",
                  max_abs_err=0.0)
     for i, (b, hq, hkv, t, s, lens, offs, d, causal) in enumerate(shapes):
@@ -1303,7 +1304,222 @@ def phase_ragged(device, shapes, label):
             entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd,
                          shape=f"b{b} hq{hq} hkv{hkv} t{t} s_max{s} d{d} "
                                f"kv_lens{lens} q_offsets{offs} causal")
+    ragged_verify(device, entry, None, label)
+    ragged_edges(device, entry, None, label)
     return entry
+
+
+# The ragged forward's two routes (ops.paged_decode.ragged_plan): chunks of
+# T < 9 on the slab route (csrc/ragged_slab.cu, the paged extend's block
+# over the linear cache), longer ones on the wgmma route
+# (csrc/flash_fwd_ragged.cu, the dense forward's kernel in its ragged
+# flavour). RAGGED_VERIFY is the linear speculative verify (T = spec_k + 1)
+# at the serving cache (S_max 2048) with EXT_SERVING's old lengths as the
+# q offsets: (b, hq, hkv, t, s_max, kv_lens, q_offsets, d).
+_VERIFY_OLD = [0, 1, 124, 127, 128, 700, 1500, 2043]
+RAGGED_VERIFY = (8, 16, 4, 5, 2048, [n + 5 for n in _VERIFY_OLD], _VERIFY_OLD,
+                 128)
+# (b, hq, hkv, t, s_max, kv_lens, q_offsets, d) at the edges of each route's
+# tiles and splits: kv_len 0, 1, 63, 64, 65, at a split boundary (the
+# verify's 8 splits of 256; 1000 rows: 8 splits of 128) and at S_max, S_max
+# not a multiple of 64, q offsets before the cache and off kv_len - T, G 16
+# x T 8 (two row tiles of the slab route), T 1, d 64 on both routes, the
+# threshold's neighbours T 8 (slab) and 9 (wgmma), short chunks on the
+# wgmma route (G 8 x T 9, T 15, 16), blocks of 128 rows, a chunk of 200
+# over 333 rows
+RAGGED_EDGES = (
+    (8, 16, 4, 5, 2048, [0, 1, 63, 64, 65, 256, 257, 2048],
+     [-5, -4, 58, 59, 60, 251, 252, 2043], 128),
+    (8, 16, 4, 5, 1000, [0, 1, 63, 64, 65, 128, 129, 1000],
+     [-3, 0, 60, 30, 60, 123, 100, 995], 128),
+    (4, 16, 4, 9, 1000, [0, 65, 500, 1000], [-9, 10, 200, 991], 64),
+    (2, 16, 2, 9, 1024, [1, 1024], [0, 1015], 128),
+    (2, 32, 2, 8, 1024, [1, 1024], [0, 1016], 128),
+    (4, 16, 4, 8, 1000, [0, 65, 500, 1000], [-8, 10, 200, 992], 64),
+    (1, 16, 4, 8, 2304, [520], [512], 128),
+    (1, 16, 4, 9, 2304, [521], [512], 128),
+    (8, 16, 4, 1, 2048, [1, 63, 64, 65, 256, 257, 1500, 2048],
+     [0, 62, 63, 64, 255, 256, 1499, 2047], 128),
+    (1, 16, 4, 15, 2304, [527], [512], 128),
+    (2, 16, 4, 16, 2304, [528, 0], [512, -16], 128),
+    (6, 16, 4, 64, 1000, [0, 1, 63, 64, 65, 1000], [-64, -63, 0, 0, 1, 936], 128),
+    (2, 16, 4, 200, 333, [333, 65], [133, -135], 64),
+    (8, 16, 4, 256, 2048, [256, 300, 511, 512, 513, 1000, 1500, 2048],
+     [0, 44, 255, 256, 257, 744, 1244, 1792], 128),
+    (2, 4, 2, 100, 333, [333, 65], [233, -35], 64),
+)
+# the flavours each edge shape runs: causal; not causal; a band of 70 keys
+# with 66 sinks (a sink tile and a band that cuts a 64-key tile); fixed-max
+RAGGED_FLAVOURS = (dict(), dict(causal=False), dict(window=70, sinks=66),
+                   dict(stable=False))
+
+
+def _ragged_inputs(gen, device, shape, fmt):
+    """(q, cache, kv_lens, q_offsets) of a ragged call at `shape`: cache
+    (k, v) bf16, or (k_q, k_scale, v_q, v_scale) in `fmt`."""
+    import torch
+
+    b, hq, hkv, t, s, lens, offs, d = shape
+    q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
+    if fmt is None:
+        cache = tuple(torch.randn(b, hkv, s, d, generator=gen,
+                                  device=device).bfloat16() for _ in range(2))
+    else:
+        cache = (*quantized(gen, device, (b, hkv, s, d), fmt),
+                 *quantized(gen, device, (b, hkv, s, d), fmt))
+    return (q, cache, torch.tensor(lens, dtype=torch.int32, device=device),
+            torch.tensor(offs, dtype=torch.int32, device=device))
+
+
+def _ragged_fns(q, cache, kv_lens, q_offsets, kw):
+    """(the wrapper's call, its plain version, the wrapper) of a ragged call
+    with flash_attention_ragged's keywords `kw`."""
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    causal = kw.get("causal", True)
+    window, sinks = fa._band(causal, kw.get("window"), kw.get("sinks", 0))
+    disc = fa._ragged_discipline(kw.get("stable", True))
+    rest = (kv_lens, q_offsets, causal, q.shape[-1] ** -0.5, window, sinks, disc)
+    if len(cache) == 2:
+        wrapper = fa.flash_attention_ragged
+        return ((lambda: wrapper(q, *cache, kv_lens, q_offsets, **kw)),
+                (lambda: fa._fwd_ragged_plain(q, *cache, *rest)), wrapper)
+    wrapper = fa.flash_attention_ragged_kv_quant
+    return ((lambda: wrapper(q, *cache, kv_lens, q_offsets, **kw)),
+            (lambda: fa._fwd_ragged_q_plain(q, *cache, *rest)), wrapper)
+
+
+def ragged_hold(what, o, po, kv_lens, q_offsets, kw):
+    """A ragged call's output against its plain version, batch row by batch
+    row (rel-L2 O_TOL where the row sees a key), every query row that sees
+    no key exactly 0. Returns the largest max-abs error."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    assert o.shape == po.shape and o.dtype == torch.bfloat16, what
+    if not torch.isfinite(o).all():
+        raise AssertionError(f"{what}: non-finite output")
+    causal = kw.get("causal", True)
+    window, sinks = fa._band(causal, kw.get("window"), kw.get("sinks", 0))
+    sees = fa._ragged_mask(o.shape[2], int(kv_lens.max().clamp(min=1)) + 1,
+                           kv_lens, q_offsets, causal, window, sinks).any(-1)
+    dead = ~sees.expand(-1, o.shape[1], -1)  # [B, Hq, T]: rows that see no key
+    if dead.any() and float(o[dead].float().abs().max()) != 0.0:
+        raise AssertionError(f"{what}: a row that sees no key is not 0")
+    for row in range(o.shape[0]):
+        if dead[row].all():
+            continue
+        err = _rel_l2(o[row], po[row])
+        if not err <= O_TOL:
+            raise AssertionError(f"{what}: batch row {row} rel-L2 {err:.3e} > {O_TOL}")
+    return float((o.float() - po.float()).abs().max())
+
+
+def _route_counted(wrapper, plan, before):
+    """Whether the call made since `before` (the wrapper's (slab, wgmma)
+    counts) went down the plan's route, one launch."""
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    slab, wgmma = wrapper.slab_launches - before[0], wrapper.wgmma_launches - before[1]
+    return (slab, wgmma) == ((1, 0) if plan.route == pd.RAGGED_SLAB else (0, 1))
+
+
+def ragged_edges(device, entry, fmt, label, flavours=RAGGED_FLAVOURS,
+                 shapes=RAGGED_EDGES):
+    """Both routes of the ragged forward at the edges of their tiles and
+    splits (`shapes`) in each of `flavours`, over a bf16 cache (fmt None) or
+    an 8-bit one: each call down the route its plan names (its counters),
+    held to plain by `ragged_hold`; folds the max-abs error into `entry`."""
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(67)
+    routes = {}
+    for shape in shapes:
+        b, hq, hkv, t, s, lens, offs, d = shape
+        q, cache, kv_lens, q_offsets = _ragged_inputs(gen, device, shape, fmt)
+        plan = pd.ragged_plan(b, hq, hkv, t, s, d, fmt is not None)
+        for kw in flavours:
+            call, plain, wrapper = _ragged_fns(q, cache, kv_lens, q_offsets, kw)
+            before = (wrapper.slab_launches, wrapper.wgmma_launches)
+            o = call()
+            what = (f"ragged edge {fmt or 'bf16'} {plan.route} b{b} {hq}/{hkv} "
+                    f"t{t} s_max{s} d{d} kv_lens {lens} q_offsets {offs} {kw}")
+            if not _route_counted(wrapper, plan, before):
+                raise AssertionError(f"{what}: not counted on the {plan.route} route")
+            entry["max_abs_err"] = max(entry["max_abs_err"], ragged_hold(
+                what, o, plain(), kv_lens, q_offsets, kw))
+            routes[plan.route] = routes.get(plan.route, 0) + 1
+    log(f"ragged edges {fmt or 'bf16'}: {len(shapes)} shapes x {len(flavours)} "
+        f"flavours held to plain (rows that see no key exactly 0), calls by "
+        f"route {routes} [{label}]")
+
+
+def ragged_verify(device, entry, fmt, label, **kw):
+    """The linear speculative verify (RAGGED_VERIFY) through the ragged
+    forward with flash_attention_ragged's keywords `kw`: held to plain, the
+    slab route (its counter), one device operation a call (torch.profiler
+    and a captured CUDA graph's nodes), a CUDA graph's replay bit-equal,
+    and the call, plain and SDPA with the ragged mask timed in turns from
+    CUDA graphs, beside its bound; into `entry` as verify_*."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator(device=device).manual_seed(71)
+    b, hq, hkv, t, s, lens, offs, d = RAGGED_VERIFY
+    q, cache, kv_lens, q_offsets = _ragged_inputs(gen, device, RAGGED_VERIFY, fmt)
+    plan = pd.ragged_plan(b, hq, hkv, t, s, d, fmt is not None)
+    call, plain, wrapper = _ragged_fns(q, cache, kv_lens, q_offsets, kw)
+    what = f"ragged verify {fmt or 'bf16'} {kw or ''}".rstrip()
+    before = (wrapper.slab_launches, wrapper.wgmma_launches)
+    o = call()
+    if plan.route != pd.RAGGED_SLAB or not _route_counted(wrapper, plan, before):
+        raise AssertionError(f"{what}: not on the slab route ({plan})")
+    max_abs = ragged_hold(what, o, plain(), kv_lens, q_offsets, kw)
+    entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
+    ops = device_ops(call)
+    graph_ops = graph_device_ops(call)
+    if len(ops) != 1 or len(graph_ops) != 1:
+        raise AssertionError(f"{what}: a call ran {ops} (a captured call "
+                             f"{graph_ops}); one device operation expected")
+    if not graph_bit_equal(call):
+        raise AssertionError(f"{what}: a CUDA graph's replay differs")
+    window, sinks = fa._band(True, kw.get("window"), kw.get("sinks", 0))
+    mask = fa._ragged_mask(t, s, kv_lens, q_offsets, True, window, sinks)
+    yard = cache if fmt is None else (dequantized_bf16(*cache[:2]),
+                                      dequantized_bf16(*cache[2:]))
+    times = time_turns({"call": call, "plain": plain,
+                        "sdpa": sdpa_fn(q, *yard, mask=mask)}, device)
+    if window:
+        pairs = hq * sum(band_pairs(t, n, off, window, sinks)
+                         for n, off in zip(lens, offs))
+        live = sum(min(n, max(sinks, 0)) + n - max(off - window + 1, sinks, 0)
+                   for n, off in zip(lens, offs))
+    else:
+        pairs = hq * sum(visible_pairs(t, n, off, True) for n, off in zip(lens, offs))
+        live = sum(lens)
+    kv_bytes = (2 * live * hkv * d * 2 if fmt is None
+                else bytes_8bit(live, hkv, d))
+    bnd = bound(4 * d * pairs, nbytes(q, o, kv_lens, q_offsets) + kv_bytes)
+    log(f"{what} (b{b} {hq}/{hkv} t{t} s_max{s} d{d} kv_lens {lens}): "
+        f"{plan.route} route, {plan.n_splits} splits of {plan.block_s}, "
+        f"{plan.row_tiles} row tile(s) of {plan.block_rows} | max-abs "
+        f"{max_abs:.3e} | device operations of a call {ops} (captured: "
+        f"{graph_ops}); a CUDA graph replays it bit-equal | in turns from CUDA "
+        f"graphs: call {times['call']:.4f} ms, plain {times['plain']:.4f} ms, "
+        f"SDPA with the ragged mask {times['sdpa']:.4f} ms | bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+        f"{bnd['bound_ms'] / times['call']:.1%} of the call) [{label}]")
+    entry.update(verify_ms=times["call"], verify_plain_ms=times["plain"],
+                 verify_library_ms=times["sdpa"],
+                 verify_bound_ms=bnd["bound_ms"], verify_bound_by=bnd["bound_by"],
+                 verify_shape=f"b{b} hq{hq} hkv{hkv} t{t} s_max{s} d{d} "
+                              f"kv_lens{lens} q_offsets{offs} {kw}")
 
 
 def _paged_case(gen, device, b, hq, hkv, d, page, max_pages, lens):
@@ -1689,6 +1905,100 @@ def phase_ext_sm90_build(build_log: str, label):
         "(UTMALDG, HMMA.16816): "
         + ", ".join(f"{inst}: {c['UTMALDG']}/{c['HMMA.16816']}"
                     for inst, c in sorted(counts.items())) + f" [{label}]")
+
+
+RAGGED_KERNEL = "flash_fwd_ragged_sm90_kernel"
+RAGGED_OBJECTS = {"flash_fwd_ragged.cu": ("bf16", (0,)),
+                  "flash_fwd_ragged_fixed.cu": ("bf16", (1,)),
+                  "flash_fwd_ragged_q.cu": ("int8", (0, 1)),
+                  "flash_fwd_ragged_fp8.cu": ("e4m3", (0, 1))}
+SLAB_KERNEL = "ragged_slab_sm90_kernel"
+SLAB_OBJECTS = {"ragged_slab.cu": ("bf16",), "ragged_slab_q.cu": ("int8",),
+                "ragged_slab_fp8.cu": ("e4m3",)}
+
+
+def ragged_instance(sym: str):
+    """(d, band, disc, block rows, cache type) of a
+    flash_fwd_ragged_sm90_kernel instance's symbol, or None."""
+    name, rest = mangled_name(sym)
+    if name != RAGGED_KERNEL:
+        return None
+    m = re.match(r"ILi(\d+)ELb(\d)ELi(\d)ELi(\d+)E(13__nv_bfloat16|a|13__nv_fp8_e4m3)E",
+                 rest)
+    return (int(m.group(1)), int(m.group(2)), int(m.group(3)), int(m.group(4)),
+            EXT_TYPES[m.group(5)])
+
+
+def slab_instance(sym: str):
+    """(d, block rows, cache type, call: 1 plain, 2 general) of a
+    ragged_slab_sm90_kernel instance's symbol, or None."""
+    name, rest = mangled_name(sym)
+    if name != SLAB_KERNEL:
+        return None
+    m = re.match(r"ILi(\d+)ELi(\d+)E(13__nv_bfloat16|a|13__nv_fp8_e4m3)Li(\d)E",
+                 rest)
+    return (int(m.group(1)), int(m.group(2)), EXT_TYPES[m.group(3)],
+            int(m.group(4)))
+
+
+def no_stack_frames(build_log: str, instance) -> int:
+    """The instances `instance` reads from the build log, each with a stack
+    frame of 0 bytes (no local memory), or raise. Returns their count."""
+    seen, current = 0, None
+    for line in build_log.splitlines():
+        props = re.search(r"(?:Compiling entry function '|Function properties "
+                          r"for )([^'\s]+)", line)
+        if props:
+            current = instance(props.group(1))
+        elif current is not None and "bytes stack frame" in line:
+            if not re.search(r"\b0 bytes stack frame", line):
+                raise AssertionError(f"{current}: local memory: {line.strip()}")
+            seen += 1
+            current = None
+    return seen
+
+
+def phase_ragged_build(build_log: str, label):
+    """Kernel 3's two routes as ptxas and the SASS show them: the wgmma
+    route's 32 instances (d 64 and 128, without and with a band, online and
+    fixed-max; bf16 in blocks of 64 and 128 rows, int8 and e4m3 in 64) with
+    HGMMA and UTMALDG and no HMMA.16816 in each, the slab route's 36 (d,
+    16, 32 or 64 folded rows, bf16, int8 and e4m3, the plain and the
+    general call) with UTMALDG and HMMA.16816; each in its source's
+    object, none spilling, none with a stack frame or a local load or store
+    (LDL, STL)."""
+    want = {(d, w, c, rows, kv) for d in (64, 128) for w in (0, 1)
+            for kv, (discs, rowss) in (("bf16", ((0, 1), (64, 128))),
+                                       ("int8", ((0, 1), (64,))),
+                                       ("e4m3", ((0, 1), (64,))))
+            for c in discs for rows in rowss}
+    counts = wgmma_gate(
+        build_log, RAGGED_KERNEL, ragged_instance,
+        {src: (lambda inst, kv=kv, discs=discs: inst[4] == kv and inst[2] in discs)
+         for src, (kv, discs) in RAGGED_OBJECTS.items()}, want,
+        forbid=("HMMA.16816", "LDL", "STL"))
+    slab = wgmma_gate(
+        build_log, SLAB_KERNEL, slab_instance,
+        {src: (lambda inst, kinds=kinds: inst[2] in kinds)
+         for src, kinds in SLAB_OBJECTS.items()},
+        {(d, r, kv, call) for d in (64, 128) for r in (16, 32, 64)
+         for kv in EXT_TYPES.values() for call in (1, 2)},
+        need=("UTMALDG", "HMMA.16816"), forbid=("LDL", "STL"))
+    frames = (no_stack_frames(build_log, ragged_instance)
+              + no_stack_frames(build_log, slab_instance))
+    regs = {**ptxas_registers(build_log, ragged_instance),
+            **ptxas_registers(build_log, slab_instance)}
+    log(f"ragged forward: wgmma route {len(counts)} instances (d, band, disc, "
+        f"rows, cache), slab route {len(slab)} (d, rows, cache, call), built with no "
+        f"spill and no stack frame ({frames} frames of 0 bytes), no local "
+        f"load or store; SASS HGMMA/UTMALDG: "
+        + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}"
+                    for inst, c in sorted(counts.items()))
+        + "; UTMALDG/HMMA.16816: "
+        + ", ".join(f"{inst}: {c['UTMALDG']}/{c['HMMA.16816']}"
+                    for inst, c in sorted(slab.items()))
+        + "; registers: " + ", ".join(f"{inst}: {r}" for inst, r in sorted(regs.items()))
+        + f" [{label}]")
 
 
 # (b, hq, hkv, d, page, max_pages, t, old lengths, n_splits) at the edges
@@ -2147,6 +2457,7 @@ def phase_ragged_8bit(device, b, hq, hkv, t, s, lens, offs, d, label):
     gen = torch.Generator(device=device).manual_seed(41)
     entry = dict(name="flash_fwd_ragged_q", route="cuda",
                  source=f"{PKG}/csrc/flash_fwd_ragged.cu",
+                 slab_source=f"{PKG}/csrc/ragged_slab.cu",
                  replaces=f"{TPU}/flash_attention.py:1582", max_abs_err=0.0,
                  library_ms=None)
     q = torch.randn(b, hq, t, d, generator=gen, device=device).bfloat16()
@@ -2180,6 +2491,13 @@ def phase_ragged_8bit(device, b, hq, hkv, t, s, lens, offs, d, label):
                                f"kv_lens{lens} q_offsets{offs} causal")
         else:
             entry["fp8_ms"] = ms
+    fp8 = dict(entry, max_abs_err=0.0)
+    ragged_verify(device, fp8, "fp8", label)
+    ragged_verify(device, entry, "int8", label)
+    entry["fp8_verify_ms"] = fp8["verify_ms"]
+    for fmt in FMTS:
+        ragged_edges(device, entry, fmt, label)
+    entry["max_abs_err"] = max(entry["max_abs_err"], fp8["max_abs_err"])
     return entry
 
 
@@ -2815,7 +3133,8 @@ COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
                      guard="guard_launches", slots="slots_launches",
                      copy_only="copy_only_launches", sm90="sm90_launches",
                      f32x="f32x_launches",
-                     fused="fused_launches", split="split_launches")
+                     fused="fused_launches", split="split_launches",
+                     slab="slab_launches", wgmma="wgmma_launches")
 
 
 def reset_counters():
@@ -2914,7 +3233,8 @@ def phase_paged_slice(device, cfg, params, prompts, max_batch, max_len,
     default Scheduler's metrics from the same run, printed beside."""
     sched, tokens, launches = serve(
         device, cfg, params, prompts, max_new,
-        ("flash_fwd_ragged", "paged_decode"), label, "paged slice",
+        ("flash_fwd_ragged", "flash_fwd_ragged/wgmma", "paged_decode"), label,
+        "paged slice",
         max_batch=max_batch, max_len=max_len, paged=True, page_size=128,
         prefix_cache=True, prefill_chunk=256)
     if device.type == "cuda" and launches["flash_decode"]:
@@ -3090,7 +3410,8 @@ def phase_spec_slice(device, cfg, params, draft_cfg, draft_params, prompts,
     commit more than 2 tokens per slot and verify round. Returns (ii)'s
     launches."""
     runs = (("spec slice (linear)", draft_cfg, draft_params, {},
-             ("flash_fwd", "flash_fwd_ragged", "flash_decode")),
+             ("flash_fwd", "flash_fwd_ragged", "flash_fwd_ragged/slab",
+              "flash_decode")),
             ("spec slice (paged)", draft_cfg, draft_params,
              dict(paged=True, page_size=128), ("flash_fwd", "paged_extend")),
             ("spec slice (paged, draft = target)", cfg, params,
@@ -3168,7 +3489,8 @@ def phase_8bit_slices(device, cfg, params, draft_cfg, draft_params, prompts,
          ("flash_fwd", "paged_extend_q", "flash_decode"),
          ("paged_extend", "paged_decode_q"), "spec slice (paged)"),
         ("int8 spec slice (linear)", prompts, spec,
-         ("flash_fwd", "flash_fwd_ragged_q", "flash_decode"),
+         ("flash_fwd", "flash_fwd_ragged_q", "flash_fwd_ragged_q/slab",
+          "flash_decode"),
          ("flash_fwd_ragged",), "spec slice (linear)"),
     )
     out, tokens = {}, {}
@@ -3261,10 +3583,12 @@ def phase_int8_weights(device, cfg, params, label):
 
 def device_ms_by_kind(prof) -> dict:
     """Device milliseconds of a torch.profiler window by kind of kernel:
-    this repo's attention kernels by name (the forward core's flavours
-    0, 1 as flash_fwd, flash_fwd_ragged; 2, the paged extend of commits
-    before paged_extend_sm90.cuh, which tools/ab_paged_extend.py runs), the
-    GEMMs, the cache appends and the rest."""
+    this repo's attention kernels by name (the Hopper forward as flash_fwd,
+    the ragged forward's routes as flash_fwd_ragged (wgmma) and
+    ragged_slab; the mma.sync core's flavours of earlier commits 0, 1 as
+    flash_fwd, flash_fwd_ragged, 2 as the paged extend, which
+    tools/ab_ragged.py and ab_paged_extend.py run), the GEMMs, the cache
+    appends and the rest."""
     from torch.autograd import DeviceType
 
     flavours = {"0": "flash_fwd", "1": "flash_fwd_ragged", "2": "paged_extend"}
@@ -3275,7 +3599,10 @@ def device_ms_by_kind(prof) -> dict:
         key = e.key
         fwd = re.search(r"flash_fwd(_q)?_kernel<\d+, (\d)", key)
         ours = re.search(r"(paged|flash)_(decode|extend)(_q|_sm90)?_kernel", key)
-        if fwd:
+        sm90 = re.search(r"(flash_fwd|flash_fwd_ragged|ragged_slab)_sm90_kernel", key)
+        if sm90:
+            kind = sm90.group(1)
+        elif fwd:
             kind = flavours[fwd.group(2)] + ("_q" if fwd.group(1) else "")
         elif ours:
             kind = ours.group(0).replace("_kernel", "")
@@ -3366,19 +3693,23 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
 
 def profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
                        batch=8, length=600, rounds=10, window=3,
-                       quantized=False):
-    """Where a speculative round's time goes on the page pool (an int8 one
-    with `quantized`): `batch` requests of `length` prompt tokens in the
-    paged speculative Scheduler; host milliseconds a round (each ends in
-    the host's accept), then `window` rounds under torch.profiler: device
-    time by kind and the device's busy share of the window's wall time."""
+                       quantized=False, paged=True):
+    """Where a speculative round's time goes on the page pool (the linear
+    cache with paged=False; an int8 one with `quantized`): `batch` requests
+    of `length` prompt tokens in the speculative Scheduler; host
+    milliseconds a round (each ends in the host's accept), then `window`
+    rounds under torch.profiler: device time by kind, device operations a
+    round and the device's busy share of the window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from torch.autograd import DeviceType
+
     from flashattention_kernel_project_tpu_torch.models.serving import Scheduler
 
-    sched = Scheduler(cfg, params, max_batch=batch, max_len=2048, paged=True,
-                      page_size=128, draft_cfg=draft_cfg,
+    pool = dict(paged=True, page_size=128) if paged else {}
+    sched = Scheduler(cfg, params, max_batch=batch, max_len=2048, **pool,
+                      draft_cfg=draft_cfg,
                       draft_params=draft_params, spec_k=SPEC_K,
                       quantized_cache=quantized)
     rng = np.random.default_rng(3)
@@ -3401,11 +3732,14 @@ def profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
     committed = (sched.spec_committed - committed) / (batch * window)
     kinds = device_ms_by_kind(prof)
     busy = sum(kinds.values())
-    log(f"{'int8 ' if quantized else ''}paged spec round (B={batch}, prompts "
+    n_ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    log(f"{'int8 ' if quantized else ''}{'paged' if paged else 'linear'} spec "
+        f"round (B={batch}, prompts "
         f"{length}, spec_k {SPEC_K}, draft "
         f"{draft_cfg.n_layers} layers): {host_ms:.3f} ms a round on the host "
         f"clock; profiled {window} rounds ({committed:.2f} tokens a slot a "
-        f"round): {busy / window:.3f} ms of device time a round, busy "
+        f"round): {busy / window:.3f} ms of device time a round, "
+        f"{n_ops / window:.0f} device operations a round, busy "
         f"{100 * busy / wall:.1f}% of {wall / window:.3f} ms | " + ", ".join(
             f"{k} {v / window:.3f} ms ({100 * v / busy:.1f}%)"
             for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
@@ -3839,6 +4173,11 @@ def phase_window_ragged(device, b, hq, hkv, t, s, lens, offs, d, window, sinks,
                            shape=shape)
         else:
             entry_q["fp8_ms"] = ms
+    band = dict(window=window, sinks=sinks)
+    ragged_verify(device, entry, None, label, **band)
+    ragged_verify(device, entry_q, "int8", label, **band)
+    ragged_edges(device, entry, None, label, flavours=(band, dict(window=1),
+                                                       dict(window=64, sinks=1)))
     return entry, entry_q
 
 
@@ -4401,6 +4740,8 @@ def phase_ragged_fixed(device, b, hq, hkv, t, s, lens, offs, d, label):
                            shape=shape)
         else:
             entry_q["fp8_ms"] = ms
+    ragged_verify(device, entry, None, label, stable=False)
+    ragged_verify(device, entry_q, "int8", label, stable=False)
     return entry, entry_q
 
 
@@ -5712,6 +6053,17 @@ def phase_probes(device, label):
     xb = x.bfloat16()
     if not torch.equal(pr.stream_copy_probe(xb), xb + 1):
         raise AssertionError("stream_copy_probe on bf16 is not x + 1 bit for bit")
+    # the element tail (n not a multiple of the 16-byte vector) and a block's
+    # chunk edge, in f32 and bf16, bit for bit
+    tails = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 7, 8 * 4096 + 3):
+            xt = x.reshape(-1)[:n].to(dtype).contiguous()
+            if not torch.equal(pr.stream_copy_probe(xt), xt + 1):
+                raise AssertionError(f"stream_copy_probe at n {n} {dtype} is not "
+                                     "x + 1 bit for bit")
+            tails.append(f"{n} {str(dtype)[6:]}")
+    log(f"probe stream copy: bit-equal to x + 1 at n = {tails} [{label}]")
 
     # the chain's exp2 of every score stays in the binary (a hoisted exp2
     # would leave a handful), and the products run per tile
@@ -5743,7 +6095,9 @@ def phase_probes(device, label):
         for name in order:
             fused_ms[name].append(time_ms(fused[name], device, graph=True))
     fused_ms = {name: min(t) for name, t in fused_ms.items()}
-    stream_lib_ms = time_ms(lambda: x + 1, device, graph=True)
+    # the stream copy over bf16 beside x + 1, in turns (f32: time_pair's)
+    stream_bf16 = time_turns({"kernel": lambda: pr.stream_copy_probe(xb),
+                              "x + 1": lambda: xb + 1}, device)
     # the chain's output is l / (l + 1e-6) whatever work it does, so its
     # time must grow with the keys: half of them must take well under the
     # whole's time
@@ -5792,7 +6146,11 @@ def phase_probes(device, label):
             extra = (f" | {exp2} exp2 at {MUFU_PER_SM_CLK}/clock/SM x "
                      f"{platform.H100_SMS} SMs x {clock / 1e6:.0f} MHz: {t_exp:.4f} ms")
         if name == "stream":
-            extra = f" | x + 1 in torch {stream_lib_ms:.4f} ms"
+            bb = bound(0, 2 * nbytes(xb))["bound_ms"]
+            extra = (f" | x + 1 in torch {p_ms:.4f} ms (in turns); bf16 kernel "
+                     f"{stream_bf16['kernel']:.4f} ms vs x + 1 "
+                     f"{stream_bf16['x + 1']:.4f} ms, bound {bb:.4f} ms "
+                     f"({bb / stream_bf16['kernel']:.1%} of it)")
         b_ = bnd[name]
         where = dict(stream="8192x4096 f32").get(
             name, shape64 if name.endswith("64") else shape)
@@ -5831,7 +6189,8 @@ def phase_probes(device, label):
         _probe_entry("probe_stream_copy", 360, got["probe_stream_copy"],
                      shape="8192x4096 f32", **times("stream")),
     ]
-    entries[-1]["library_ms"] = stream_lib_ms
+    entries[-1].update(library_ms=ms["stream"][1], bf16_ms=stream_bf16["kernel"],
+                       bf16_library_ms=stream_bf16["x + 1"])
     entries[0].update(fused_ms=fused_ms["stable"], fused_fixed_ms=fused_ms["fixed"],
                       stage_sum_ms=serial)
     return entries
@@ -6074,6 +6433,7 @@ def main() -> int:
     phase_dec_sm90_build(build_log, label)
     phase_ext_sm90_build(build_log, label)
     phase_dec_paged_build(build_log, label)
+    phase_ragged_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill
@@ -6215,6 +6575,9 @@ def main() -> int:
     for quantized in (False, True):
         profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
                            quantized=quantized)
+    # the linear cache's round: its verify is the ragged forward's slab route
+    profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
+                       paged=False)
 
     # 5. the int8 cache of bench_serving.py --int8: the serving requests
     # linear, paged, multi_step=4 and speculative over both caches

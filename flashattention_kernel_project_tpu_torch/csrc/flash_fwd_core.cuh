@@ -1,14 +1,13 @@
-// The mma.sync attention forward shared by flash_fwd_q.cu (the dense
-// forward, O and LSE, over an 8-bit cache) and flash_fwd_ragged.cu (per-row
-// KV lengths and query offsets, O only). The paged extend, once its third
-// flavour, is paged_extend_sm90.cuh's Hopper kernel.
-// One block body, `fwd_block<D, kFlavour, kWindow, kDisc, KV>`, behind two
-// kernels: `flash_fwd_kernel<D, kFlavour, kWindow, kDisc>` over a bf16
-// cache and `flash_fwd_q_kernel<D, kFlavour, KV, kWindow, kDisc>` over an
-// 8-bit one (KV = int8_t or __nv_fp8_e4m3); each source file instantiates
-// its own. The dense bf16 forward (flash_fwd.cu) no longer runs here: it is
-// flash_fwd_sm90.cuh's wgmma kernel, which takes this header's disciplines,
-// guard and helpers and computes the same function.
+// The mma.sync attention forward of flash_fwd_q.cu: the dense forward, O
+// and LSE, over an 8-bit cache (ROADMAP A.14.12b: the next to move onto
+// the Hopper kernel). Its other flavours are Hopper kernels now: the dense
+// bf16 forward (flash_fwd.cu) and the ragged forward's wgmma route
+// (flash_fwd_ragged.cu) flash_fwd_sm90.cuh's, the paged extend and the
+// ragged forward's slab route paged_extend_sm90.cuh's; they take this
+// header's disciplines, guard and helpers and compute the same function.
+// One block body, `fwd_block<D, kWindow, kDisc, KV>`, behind the kernel
+// `flash_fwd_q_kernel<D, KV, kWindow, kDisc>` (KV = int8_t or
+// __nv_fp8_e4m3).
 //
 // Softmax in the log2 domain (scores times sm_scale * log2(e)), the online
 // (m, l, acc) rescale with exp2, causal and tail masks, GQA with q head h
@@ -16,10 +15,8 @@
 // j < kv_len(b) and, when causal, j <= pos(i), the row's position, and,
 // with a sliding window (window > 0, causal only), j > pos(i) - window or
 // j < sinks (the band of the last `window` positions and the first `sinks`
-// keys, the StreamingLLM attention sinks):
-// - kDense: kv_len = S and pos(i) = i + one static q_offset;
-// - kRagged: kv_len and q_off read per row from device memory (S is the K/V
-//   row stride only), pos(i) = i + q_off(b).
+// keys, the StreamingLLM attention sinks), with kv_len = S and pos(i) = i +
+// one static q_offset.
 //
 // Precision differs from the TPU kernels in two places, both toward f32.
 // The scale multiplies the f32 scores instead of a bf16-rounded q, and p
@@ -49,13 +46,9 @@
 // the q tile's first row to the diagonal, each once (a sink tile that the
 // band reaches is a band tile): the tiles in the gap are never loaded, so a
 // window of W keys costs O(N * W), as the TPU kernel's windowed grid does.
-// The ragged flavour skips the mask on tiles that lie wholly
-// inside every row's bound (and band), as the TPU kernels do. The window is
-// a template switch (kWindow), so the causal instances compile as they did
-// before it existed: as a runtime term it cost the causal dense forward
-// about a tenth of its time at 4096 keys on the H100. Left for later:
-// moving these flavours onto the wgmma, TMA and K/V-ring structure of
-// flash_fwd_sm90.cuh (which the dense bf16 forward took).
+// The window is a template switch (kWindow), so the causal instances
+// compile as they did before it existed: as a runtime term it cost the
+// causal dense forward about a tenth of its time at 4096 keys on the H100.
 //
 // The softmax discipline is a third template switch (kDisc), as the TPU
 // kernel's `stable` is a static argument:
@@ -124,7 +117,6 @@ constexpr int kBlockN = 64;  // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-enum Flavour : int { kDense = 0, kRagged = 1 };
 // the softmax discipline: stable=True, stable=False, stable="auto"
 enum Disc : int { kOnline = 0, kFixed = 1, kHybrid = 2 };
 // the log2-domain score bound under which fixed-max is sound (_SAFE_BOUND)
@@ -201,34 +193,29 @@ __device__ __forceinline__ float sq_bf16x2(uint32_t w) {
   return f.x * f.x + f.y * f.y;
 }
 
-// q [b, hq, n, D], o [b, hq, n, D] bf16; lse [b, hq, n] f32 (dense flavour
-// only). Dense: k/v [b, hkv, s, D], every row sees keys [0, s) and the
-// static q_offset. Ragged: k/v [b, hkv, s, D], row b sees keys
-// [0, min(kv_lens[b], s)) and the offset q_offsets[b].
-// KV: the cache's element type (__nv_bfloat16, or int8_t / __nv_fp8_e4m3
-// for the 8-bit flavours, which read qa's scales). kDisc: the discipline;
+// q [b, hq, n, D], o [b, hq, n, D] bf16; lse [b, hq, n] f32; k/v [b, hkv,
+// s, D], every row sees keys [0, s) and the static q_offset.
+// KV: the cache's element type (int8_t or __nv_fp8_e4m3, with qa's
+// scales). kDisc: the discipline;
 // k_max (kHybrid only): the device scalar max_t ||k_t|| of the keys as
 // they enter the scores (dequantized for 8 bits). gd (dense fixed-max
 // only; null when off): the range guard's count of breaching rows, added to
 // after the key loop (see the epilogue); the other instances compile no
 // guard.
-template <int D, int kFlavour, bool kWindow, int kDisc, class KV>
+template <int D, bool kWindow, int kDisc, class KV>
 __device__ __forceinline__ void fwd_block(
     const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int hq, int hkv, int n, int s, float scale_log2,
     int causal, int q_offset, int window, int sinks,
-    const int* __restrict__ kv_lens, const int* __restrict__ q_offsets,
     QuantArgs qa, const float* __restrict__ k_max,
     GuardArgs gd) {
-  constexpr bool kBounds = kFlavour != kDense;  // per-row bounds on the device
-  constexpr bool kQuant = sizeof(KV) == 1;
-  static_assert(kDisc != kHybrid || kFlavour == kDense, "hybrid is dense only");
+  static_assert(sizeof(KV) == 1, "the mma.sync core serves 8-bit caches");
   constexpr int kStride = D + 8;  // padded shared-memory row, in bf16
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
-  // the tile's K and V scales (8-bit flavours)
-  __shared__ float kvs_s[2][kQuant ? kBlockN : 1];
+  // the tile's K and V scales
+  __shared__ float kvs_s[2][kBlockN];
   const unsigned short* v_u16 = reinterpret_cast<const unsigned short*>(v_s);
 
   const int m_block = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
@@ -240,13 +227,13 @@ __device__ __forceinline__ void fwd_block(
   const int g = lane / 4;  // fragment row (and row + 8)
   const int t = lane % 4;  // fragment column pair
 
-  // the row's bounds: keys [0, kv_len), query i at position pos(i)
-  const int kv_len = kBounds ? min(max(kv_lens[b], 0), s) : s;
-  const int q_off = kBounds ? q_offsets[b] : q_offset;
+  // keys [0, kv_len), query i at position pos(i)
+  const int kv_len = s;
+  const int q_off = q_offset;
 
   const size_t bh = (size_t)b * hq + h;
   const __nv_bfloat16* q_bh = q + bh * n * D;
-  // the head's first K/V row and (8-bit flavours) scale
+  // the head's first K/V row and scale
   const size_t kv_head = ((size_t)b * hkv + kvh) * s * D;
   const KV* k_bh = k + kv_head;
   const KV* v_bh = v + kv_head;
@@ -322,16 +309,8 @@ __device__ __forceinline__ void fwd_block(
   for (int it = 0; it < n_visit; ++it) {
     const int j = it < n_sink_tiles ? it : band_tile + it - n_sink_tiles;
     const int key0 = j * kBlockN;
-    // a tile wholly inside every row's bound needs no mask (uniform across
-    // the block): below kv_len, below the first row's diagonal, and all
-    // sinks or inside the last row's band
-    const bool full =
-        kBounds && key0 + kBlockN <= kv_len &&
-        (!causal || key0 + kBlockN - 1 <= first_pos) &&
-        (!kWindow || key0 + kBlockN <= sinks ||
-         key0 > first_pos + kBlockM - 1 - window);
     __syncthreads();  // every warp is done with the previous tile
-    if constexpr (kQuant) {
+    {
       // the 8-bit tile: every thread's 16-byte pieces (16 dims) of the K
       // and V rows go to registers, all loads out at once; then they widen
       // into the bf16 tiles. Rows past kv_len are zero, their scales too.
@@ -370,21 +349,6 @@ __device__ __forceinline__ void fwd_block(
         widen16_bf16<KV>(kc[u], k_s + r * kStride + c);
         widen16_bf16<KV>(vc[u], v_s + r * kStride + c);
       }
-    } else {
-      constexpr int kVecPerRow = D / 8;
-      for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-        const int r = i / kVecPerRow;
-        const int c = (i % kVecPerRow) * 8;
-        const int key = key0 + r;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-        if (key < kv_len) {
-          kv = *reinterpret_cast<const uint4*>(k_bh + (size_t)key * D + c);
-          vv = *reinterpret_cast<const uint4*>(v_bh + (size_t)key * D + c);
-        }
-        *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
-        *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
-      }
     }
     __syncthreads();
 
@@ -417,11 +381,10 @@ __device__ __forceinline__ void fwd_block(
           const int col = key0 + nt * 8 + 2 * t + (e & 1);
           const int pos = e < 2 ? pos0 : pos1;
           const int band = e < 2 ? band0 : band1;
-          const bool ok = full || (col < kv_len && (!causal || (col <= pos &&
-                                   (!kWindow || col > band || col < sinks))));
-          // 8-bit: the key's K scale on its f32 score before the mask and max
-          const float sl =
-              kQuant ? scale_log2 * kvs_s[0][col - key0] : scale_log2;
+          const bool ok = col < kv_len && (!causal || (col <= pos &&
+                          (!kWindow || col > band || col < sinks)));
+          // the key's K scale on its f32 score before the mask and max
+          const float sl = scale_log2 * kvs_s[0][col - key0];
           sc[nt][e] = ok ? sc[nt][e] * sl : kNegInf;
           if constexpr (!kF) {
             if (e < 2) {
@@ -473,19 +436,16 @@ __device__ __forceinline__ void fwd_block(
               const int col = key0 + nt * 8 + 2 * t + (e & 1);
               const int pos = e < 2 ? pos0 : pos1;
               const int band = e < 2 ? band0 : band1;
-              const bool ok =
-                  full || (col < kv_len && (!causal || (col <= pos &&
-                           (!kWindow || col > band || col < sinks))));
+              const bool ok = col < kv_len && (!causal || (col <= pos &&
+                              (!kWindow || col > band || col < sinks)));
               p[e] = ok ? exp2f(sc[nt][e] - (e < 2 ? m0 : m1)) : 0.f;
             }
           }
           l0 += p[0] + p[1];
           l1 += p[2] + p[3];
-          if constexpr (kQuant) {  // the V scale folds into p after l
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              p[e] *= kvs_s[1][nt * 8 + 2 * t + (e & 1)];
-            }
+          for (int e = 0; e < 4; ++e) {  // the V scale folds into p after l
+            p[e] *= kvs_s[1][nt * 8 + 2 * t + (e & 1)];
           }
           split_bf16(p[0], p[1], p_hi[kk][2 * half], p_lo[kk][2 * half]);
           split_bf16(p[2], p[3], p_hi[kk][2 * half + 1], p_lo[kk][2 * half + 1]);
@@ -538,12 +498,12 @@ __device__ __forceinline__ void fwd_block(
           __floats2bfloat162_rn(acc[nd][2] / safe1, acc[nd][3] / safe1);
     }
   }
-  if (kFlavour == kDense && t == 0) {
+  if (t == 0) {
     float* lse_bh = lse + bh * n;
     if (row0 < n) lse_bh[row0] = l0 == 0.f ? kNegInf : m0 * kLn2 + logf(l0);
     if (row1 < n) lse_bh[row1] = l1 == 0.f ? kNegInf : m1 * kLn2 + logf(l1);
   }
-  if constexpr (kFlavour == kDense && kDisc == kFixed) {
+  if constexpr (kDisc == kFixed) {
     if (gd.count != nullptr) {
       // The fixed-max range guard (the TPU kernel's guard=True): with m
       // pinned at 0, l itself witnesses the range, so a row breaches when l
@@ -580,56 +540,33 @@ __device__ __forceinline__ void fwd_block(
   }
 }
 
-// The bf16 kernel of every flavour. Launch bounds with a minimum of one
-// block per SM: with the thread count alone, ptxas held the d=64 instances
-// at 128 registers and spilled. k_max: the hybrid discipline's device
-// scalar (null otherwise); gd: the range guard's outputs (null: off).
-template <int D, int kFlavour, bool kWindow = false, int kDisc = kOnline>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int hq, int hkv, int n, int s, float scale_log2,
-                     int causal, int q_offset, int window, int sinks,
-                     const int* __restrict__ kv_lens,
-                     const int* __restrict__ q_offsets,
-                     const float* __restrict__ k_max, GuardArgs gd) {
-  fwd_block<D, kFlavour, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s,
-                                         scale_log2, causal, q_offset, window,
-                                         sinks, kv_lens, q_offsets,
-                                         QuantArgs{}, k_max, gd);
-}
-
-// The 8-bit kernel of every flavour (KV = int8_t or __nv_fp8_e4m3), with
-// the same launch bounds; the dense flavour writes the LSE too.
-template <int D, int kFlavour, class KV, bool kWindow = false,
-          int kDisc = kOnline>
+// The kernel (KV = int8_t or __nv_fp8_e4m3). Launch bounds with a minimum
+// of one block per SM: with the thread count alone, ptxas held the d=64
+// instances at 128 registers and spilled. k_max: the hybrid discipline's
+// device scalar (null otherwise); gd: the range guard's outputs (null:
+// off).
+template <int D, class KV, bool kWindow = false, int kDisc = kOnline>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_q_kernel(const __nv_bfloat16* __restrict__ q,
                        const KV* __restrict__ k, const KV* __restrict__ v,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int hq, int hkv, int n, int s, float scale_log2,
                        int causal, int q_offset, int window, int sinks,
-                       const int* __restrict__ kv_lens,
-                       const int* __restrict__ q_offsets, QuantArgs qa,
-                       const float* __restrict__ k_max, GuardArgs gd) {
-  fwd_block<D, kFlavour, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s,
-                                         scale_log2, causal, q_offset, window,
-                                         sinks, kv_lens, q_offsets, qa,
-                                         k_max, gd);
+                       QuantArgs qa, const float* __restrict__ k_max,
+                       GuardArgs gd) {
+  fwd_block<D, kWindow, kDisc>(q, k, v, o, lse, hq, hkv, n, s, scale_log2,
+                               causal, q_offset, window, sinks, qa, k_max, gd);
 }
 
-// The instance a dense or ragged entry launches for its head dim d, band
-// (window > 0) and discipline. `pick(D, W, Disc)` names the instance from
-// three std::integral_constants, e.g.
+// The instance the entry launches for its head dim d, band (window > 0)
+// and discipline. `pick(D, W, Disc)` names the instance from three
+// std::integral_constants, e.g.
 //   [](auto D, auto W, auto C) {
-//     return &flash_fwd_kernel<decltype(D)::value, kDense,
-//                              decltype(W)::value, decltype(C)::value>; }
-// Only the disciplines the flavour has are instantiated: hybrid is dense
-// only. Returns nullptr for d not in {64, 128} or a discipline the flavour
-// lacks, which the entry turns into cudaErrorInvalidValue.
-template <int kFlavour, class Pick>
+//     return &flash_fwd_q_kernel<decltype(D)::value, KV,
+//                                decltype(W)::value, decltype(C)::value>; }
+// Returns nullptr for d not in {64, 128} or another discipline, which the
+// entry turns into cudaErrorInvalidValue.
+template <class Pick>
 auto pick_instance(int d, bool window, int disc, Pick pick) {
   using Ptr = decltype(pick(std::integral_constant<int, 64>{},
                             std::false_type{},
@@ -637,11 +574,7 @@ auto pick_instance(int d, bool window, int disc, Pick pick) {
   auto by_disc = [&](auto D, auto W) -> Ptr {
     if (disc == kOnline) return pick(D, W, std::integral_constant<int, kOnline>{});
     if (disc == kFixed) return pick(D, W, std::integral_constant<int, kFixed>{});
-    if constexpr (kFlavour == kDense) {
-      if (disc == kHybrid) {
-        return pick(D, W, std::integral_constant<int, kHybrid>{});
-      }
-    }
+    if (disc == kHybrid) return pick(D, W, std::integral_constant<int, kHybrid>{});
     return nullptr;
   };
   auto by_band = [&](auto D) -> Ptr {

@@ -8,7 +8,7 @@
 // in the three disciplines and with the optional window and sinks of the
 // bf16 forward (flash_fwd.cu). It serves the long-context prefill over a
 // quantized cache (the 32K int8 case of BASELINE.json's config 5). The
-// kernel is the dense flavour of the 8-bit tiles in flash_fwd_core.cuh:
+// kernel is the mma.sync core of flash_fwd_core.cuh:
 // each tile's 8-bit rows widen exactly to bf16 in shared memory, the K
 // scale multiplies the f32 score column, the V scale folds into p after l
 // has summed it. It reads half the K/V bytes of the bf16 forward; at
@@ -23,7 +23,6 @@
 
 using fkp_fwd::flash_fwd_q_kernel;
 using fkp_fwd::kBlockM;
-using fkp_fwd::kDense;
 using fkp_fwd::kThreads;
 
 namespace {
@@ -35,9 +34,9 @@ int launch_dense_q(const dim3& grid, cudaStream_t st, const void* q,
                    void* bad, int hq, int hkv, int n, int s, int d,
                    float scale_log2, int causal, int q_offset, int window,
                    int sinks, int disc) {
-  const auto kernel = fkp_fwd::pick_instance<kDense>(
+  const auto kernel = fkp_fwd::pick_instance(
       d, window > 0, disc, [](auto D, auto W, auto C) {
-        return &flash_fwd_q_kernel<decltype(D)::value, kDense, KV,
+        return &flash_fwd_q_kernel<decltype(D)::value, KV,
                                    decltype(W)::value, decltype(C)::value>;
       });
   if (!kernel || (disc == fkp_fwd::kHybrid && !k_max) ||
@@ -50,7 +49,7 @@ int launch_dense_q(const dim3& grid, cudaStream_t st, const void* q,
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), hq, hkv, n, s, scale_log2, causal, q_offset,
-      window, sinks, nullptr, nullptr, qa,
+      window, sinks, qa,
       static_cast<const float*>(k_max),
       fkp_fwd::GuardArgs{static_cast<int*>(bad), nullptr});
   return static_cast<int>(cudaGetLastError());

@@ -2,7 +2,11 @@
 // ring. flash_fwd.cu, flash_fwd_fixed.cu and flash_fwd_hybrid.cu each build
 // the instances of one discipline (kDisc) from this header, for d in
 // {64, 128} with and without a band (kWindow), in blocks of 128 or 64 query
-// rows (kRows): 24 instances in all. The Hopper primitives it shares with
+// rows (kRows): 24 instances in all. The same block body (fwd_block) is
+// the ragged forward's wgmma route behind flash_fwd_ragged_sm90_kernel
+// (flash_fwd_ragged.cu's head describes it): per-row bounds read on the
+// device, no LSE, and over an 8-bit cache 64-key byte tiles widened to
+// bf16 by the producer warpgroup. The Hopper primitives it shares with
 // the bf16 GEMM and the backward (mbarriers, the TMA load, the wgmma
 // descriptor and products, fence, commit and wait, the map encoder) are
 // sm90.cuh's.
@@ -14,8 +18,8 @@
 // (the TPU pairs two KV heads there because a d=64 product fills half of
 // its 128-deep matrix unit; wgmma is 16 deep, so the fixed-max d=64
 // instance computes it as it stands). It computes what the mma.sync dense
-// flavour of flash_fwd_core.cuh computed, which the ragged, paged and 8-bit
-// forwards still use: the same masks, disciplines, empty-row rule, range
+// flavour of flash_fwd_core.cuh computed, which the dense 8-bit forward
+// still uses: the same masks, disciplines, empty-row rule, range
 // guard and precision (the scale on f32 scores, p into PV as a bf16 hi + lo
 // pair, two products); that header's notes describe them.
 //
@@ -79,11 +83,15 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_fwd_core.cuh"
 #include "sm90.cuh"
+#include "widen.cuh"
 
 namespace fkp_sm90 {
 
@@ -105,24 +113,45 @@ constexpr int kConsumerRegs = 240;
 constexpr int kBoxBytes = kN * 128;     // a K or V box: 128 keys of 128 bytes
 
 // The threads of a block of kRows query rows (64 or 128): a consumer
-// warpgroup for each 64 rows, then the producer warpgroup.
-template <int kRows>
+// warpgroup for each 64 rows, then the producer warpgroup; over an 8-bit
+// cache (kQuant) a loading warp and four widening warps.
+template <int kRows, bool kQuant = false>
 struct Block {
   static constexpr int kConsumers = kRows * 2;
-  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kWideners = kQuant ? 128 : 0;
+  static constexpr int kThreads = kConsumers + (kQuant ? 32 + kWideners : 128);
 };
 
-// Shared memory of the (d, kRows) instance: Q (boxes of kRows rows), then
-// the ring's stages, each K then V, every box 1024-byte aligned (the 128B
-// swizzle's period), after up to 1 KB of alignment slack.
-template <int D, int kRows>
+// Shared memory of the (d, kRows, KV) instance: Q (boxes of kRows rows),
+// then the ring's stages, each K then V, every box 1024-byte aligned (the
+// 128B swizzle's period), after up to 1 KB of alignment slack. The 8-bit
+// instances (the ragged forward over an int8 or e4m3 cache) take tiles of
+// 64 keys and add, after the ring of widened bf16 stages, each stage's 64
+// K and 64 V scales (f32, in a KB) and a ring of 3 byte stages, the 8-bit
+// K and V tiles as the TMA brings them ([key][D] bytes, unswizzled). At
+// d = 128: Q (16 KB at 64 rows), 3 widened stages (96 KB), their scales
+// (3 KB) and 3 byte stages (48 KB), 163 KB of the 227. With 128-key tiles
+// the byte stages and the widened ones passed the 227 at three stages
+// each, and at two a widened stage is free only when the consumers need
+// it again, so the widening would not overlap the products.
+template <int D, int kRows, class KV = __nv_bfloat16>
 struct Layout {
+  static constexpr bool kQuant = sizeof(KV) == 1;
   static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kStages = 3;
+  static constexpr int kKeys = kQuant ? 64 : kN;  // keys a K/V tile
+  static constexpr int kBox = kKeys * 128;        // a K or V box: 128 bytes a key
+  static constexpr int kStages = 3;               // bf16 (widened) stages
+  static constexpr int kByteStages = kQuant ? 3 : 0;
   static constexpr int kQBox = kRows * 128;
   static constexpr int kQTile = kBoxes * kQBox;
-  static constexpr int kTile = kBoxes * kBoxBytes;  // K or V
-  static constexpr int kBytes = 1024 + kQTile + 2 * kStages * kTile;
+  static constexpr int kTile = kBoxes * kBox;     // K or V
+  static constexpr int kScales = kQuant ? 1024 : 0;  // a stage's K, V scales
+  static constexpr int kByteTile = kKeys * D;     // an 8-bit K or V tile
+  static constexpr int kScaleOff = kQTile + 2 * kStages * kTile;
+  static constexpr int kByteOff = kScaleOff + kStages * kScales;
+  static constexpr int kBytes = 1024 + kByteOff + kByteStages * 2 * kByteTile;
+  static_assert(!kQuant || kRows == 64, "the 8-bit instances run 64-row blocks");
+  static_assert(kBytes <= 232448, "past the 227 KB a block may hold");
 };
 
 // the sum of squares of 8 bf16
@@ -131,36 +160,59 @@ __device__ __forceinline__ float sq_bf16x8(const uint4& w) {
          fkp_fwd::sq_bf16x2(w.z) + fkp_fwd::sq_bf16x2(w.w);
 }
 
-// One block per (kRows-row query tile, q head, batch row): the first
-// kRows * 2 threads are the consumer warpgroups, 64 rows each, the last 128
-// the producer warpgroup. Maps: q over [b*hq, n, d] in boxes of kRows rows,
-// k and v over [b*hkv, s, d] in boxes of 128 keys, 64 dims a box. The other
-// arguments as fkp_flash_fwd takes them.
-template <int D, bool kWindow, int kDisc, int kRows>
-__global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
-    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
-                          const __grid_constant__ CUtensorMap k_map,
-                          const __grid_constant__ CUtensorMap v_map,
-                          __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int hq, int hkv, int n,
-                          int s, float scale_log2, int causal, int q_offset,
-                          int window, int sinks,
-                          const float* __restrict__ k_max, GuardArgs gd) {
-  using L = Layout<D, kRows>;
+// The ragged flavour's per-row bounds and 8-bit scales: kv_lens and
+// q_offsets [b] int32 on the device (row b sees keys j < min(kv_lens[b], s)
+// and its query i sits at position i + q_offsets[b]); k_scale, v_scale
+// [b, hkv, s, 1] f32 (8-bit caches; null for bf16).
+struct RaggedPtrs {
+  const int* kv_lens;
+  const int* q_offsets;
+  const float* k_scale;
+  const float* v_scale;
+};
+
+// The block body. One block per (kRows-row query tile, q head, batch row):
+// the first kRows * 2 threads are the consumer warpgroups, 64 rows each,
+// the last 128 the producer warpgroup. Maps: q over [b*hq, n, d] in boxes of
+// kRows rows, k and v over [b*hkv, s, d] in boxes of 128 keys, 64 dims a
+// box (8-bit: whole rows of D bytes, unswizzled). The other arguments as
+// fkp_flash_fwd takes them; kRagged reads s and q_offset of the block's
+// row from rp and writes no LSE (lse null); KV the cache's type.
+template <int D, bool kWindow, int kDisc, int kRows, class KV, bool kRagged>
+__device__ __forceinline__ void fwd_block(
+    const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int hq, int hkv, int n, int s, float scale_log2,
+    int causal, int q_offset, int window, int sinks,
+    const float* __restrict__ k_max, GuardArgs gd, RaggedPtrs rp) {
+  using L = Layout<D, kRows, KV>;
+  constexpr bool kQuant = L::kQuant;
+  static_assert(kRagged || !kQuant, "the 8-bit instances are ragged");
+  static_assert(!kRagged || kDisc != kHybrid, "the ragged forward has no hybrid");
   constexpr int kM = kRows;
-  constexpr int kConsumers = Block<kRows>::kConsumers;
+  using Threads = Block<kRows, kQuant>;
+  constexpr int kConsumers = Threads::kConsumers;
   constexpr bool kPingPong = kRows == 128;  // two consumer warpgroups
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + 2 * L::kStages];  // Q, full, empty
+  // Q, full, empty; the 8-bit instances' byte stages: full, empty
+  __shared__ __align__(8) uint64_t bars[1 + 2 * L::kStages + 2 * L::kByteStages];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t q_s = base;
   const auto k_s = [&](int st) { return base + L::kQTile + L::kTile * 2 * st; };
   const auto v_s = [&](int st) { return k_s(st) + L::kTile; };
+  const auto sc_s = [&](int st) { return base + L::kScaleOff + L::kScales * st; };
+  const auto kb_s = [&](int bs) { return base + L::kByteOff + L::kByteTile * 2 * bs; };
   const uint32_t q_bar = smem_u32(&bars[0]);
   const auto full_bar = [&](int st) { return smem_u32(&bars[1 + st]); };
   const auto empty_bar = [&](int st) {
     return smem_u32(&bars[1 + L::kStages + st]);
+  };
+  const auto byte_full = [&](int bs) {
+    return smem_u32(&bars[1 + 2 * L::kStages + bs]);
+  };
+  const auto byte_empty = [&](int bs) {
+    return smem_u32(&bars[1 + 2 * L::kStages + L::kByteStages + bs]);
   };
 
   const int m_block = gridDim.x - 1 - blockIdx.x;  // heaviest causal first
@@ -169,20 +221,27 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
   const int kvh = h / (hq / hkv);  // contiguous GQA grouping
   const int row_first = m_block * kM;
   const int row_last = min(row_first + kM, n) - 1;  // the block's last real row
+  [[maybe_unused]] const int s_max = s;  // the K/V rows (the maps')
+  if constexpr (kRagged) {
+    // the row's bounds, read once a block: keys [0, kv_len) with kv_len
+    // clamped to s, queries from position q_offsets[b]
+    s = min(max(__ldg(rp.kv_lens + b), 0), s);
+    q_offset = __ldg(rp.q_offsets + b);
+  }
 
   // the key tiles the block visits, the same list for producer and
   // consumers: up to the last real row's diagonal; with a window the sink
   // tiles below the band, then the band's tiles from the one holding the
   // first row's first band key
-  int n_tiles = (s + kN - 1) / kN;
+  int n_tiles = (s + L::kKeys - 1) / L::kKeys;
   if (causal) {
     const int last_key = row_last + q_offset;
-    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kN + 1);
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / L::kKeys + 1);
   }
   int band_tile = 0, n_sink_tiles = 0;
   if constexpr (kWindow) {
-    band_tile = min(max(row_first + q_offset - (window - 1), 0) / kN, n_tiles);
-    n_sink_tiles = min((sinks + kN - 1) / kN, band_tile);
+    band_tile = min(max(row_first + q_offset - (window - 1), 0) / L::kKeys, n_tiles);
+    n_sink_tiles = min((sinks + L::kKeys - 1) / L::kKeys, band_tile);
   }
   const int n_visit = n_sink_tiles + n_tiles - band_tile;
   const auto tile_of = [&](int it) {
@@ -192,42 +251,147 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
     for (int st = 0; st < L::kStages; ++st) {
-      mbar_init(full_bar(st), 1);
+      // a bf16 stage fills by the TMA's bytes (one arrival); a widened one
+      // by the widening warps' arrivals
+      mbar_init(full_bar(st), kQuant ? Threads::kWideners / 32 : 1);
       mbar_init(empty_bar(st), kConsumers / 32);  // one arrival a warp
+    }
+    for (int bs = 0; bs < L::kByteStages; ++bs) {
+      mbar_init(byte_full(bs), 1);
+      mbar_init(byte_empty(bs), Threads::kWideners / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {  // the producer warpgroup: one thread loads
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
-    if (threadIdx.x == kConsumers) {
-      const int qh = b * hq + h;
-      const int kh = b * hkv + kvh;
-      mbar_expect_tx(q_bar, L::kQTile);
-      for (int x = 0; x < L::kBoxes; ++x) {
-        tma_load(q_s + x * L::kQBox, &q_map, q_bar, x * kBoxCols, row_first,
-                 qh);
-      }
-      for (int it = 0; it < n_visit; ++it) {
-        const int st = it % L::kStages;
-        const int key0 = tile_of(it) * kN;
-        // the stage's previous tile released by every consumer warp (the
-        // first round passes at once)
-        mbar_wait(empty_bar(st), ((it / L::kStages) & 1) ^ 1);
-        mbar_expect_tx(full_bar(st), 2 * L::kTile);
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    const int qh = b * hq + h;
+    const int kh = b * hkv + kvh;
+    if constexpr (!kQuant) {
+      // one thread loads Q and the K/V tiles into the ring
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+      if (threadIdx.x == kConsumers) {
+        mbar_expect_tx(q_bar, L::kQTile);
         for (int x = 0; x < L::kBoxes; ++x) {
-          tma_load(k_s(st) + x * kBoxBytes, &k_map, full_bar(st),
-                   x * kBoxCols, key0, kh);
-          tma_load(v_s(st) + x * kBoxBytes, &v_map, full_bar(st),
-                   x * kBoxCols, key0, kh);
+          tma_load(q_s + x * L::kQBox, q_map, q_bar, x * kBoxCols, row_first,
+                   qh);
+        }
+        for (int it = 0; it < n_visit; ++it) {
+          const int st = it % L::kStages;
+          const int key0 = tile_of(it) * L::kKeys;
+          // the stage's previous tile released by every consumer warp (the
+          // first round passes at once)
+          mbar_wait(empty_bar(st), ((it / L::kStages) & 1) ^ 1);
+          mbar_expect_tx(full_bar(st), 2 * L::kTile);
+          for (int x = 0; x < L::kBoxes; ++x) {
+            tma_load(k_s(st) + x * L::kBox, k_map, full_bar(st),
+                     x * kBoxCols, key0, kh);
+            tma_load(v_s(st) + x * L::kBox, v_map, full_bar(st),
+                     x * kBoxCols, key0, kh);
+          }
+        }
+      }
+    } else {
+      // 8-bit: warp 0's first thread loads Q and the byte tiles into the
+      // byte ring; warps 1-4 widen each byte tile exactly to the swizzled
+      // bf16 K and V tiles of a ring stage (the layout the bf16 TMA boxes
+      // give, which the products' descriptors read), zero at keys past
+      // kv_len, with the tile's scales beside them (0 there too), while the
+      // consumers multiply the stages before it: each thread loads its
+      // eight (d 64: four) 16-byte pieces of the tile at once, then widens
+      // and stores them (with three warps and two pieces in flight the
+      // widening set the pace: 0.033 ms at the serving chunk against 0.018
+      // with the widening taken out, tools/ab_ragged.py). No setmaxnreg: a
+      // 64-row block's 288 threads fit the SM's registers at ptxas's 224.
+      const int pw = (threadIdx.x - kConsumers) / 32;
+      if (pw == 0) {
+        if (threadIdx.x == kConsumers) {
+          mbar_expect_tx(q_bar, L::kQTile);
+          for (int x = 0; x < L::kBoxes; ++x) {
+            tma_load(q_s + x * L::kQBox, q_map, q_bar, x * kBoxCols,
+                     row_first, qh);
+          }
+          for (int it = 0; it < n_visit; ++it) {
+            const int bs = it % L::kByteStages;
+            mbar_wait(byte_empty(bs), ((it / L::kByteStages) & 1) ^ 1);
+            mbar_expect_tx(byte_full(bs), 2 * L::kByteTile);
+            tma_load(kb_s(bs), k_map, byte_full(bs), 0, tile_of(it) * L::kKeys, kh);
+            tma_load(kb_s(bs) + L::kByteTile, v_map, byte_full(bs), 0,
+                     tile_of(it) * L::kKeys, kh);
+          }
+        }
+        return;
+      }
+      constexpr int kWideners = Threads::kWideners;
+      const int wt = threadIdx.x - kConsumers - 32;  // 0 .. kWideners - 1
+      const int lane = threadIdx.x % 32;
+      const size_t plane = (size_t)kh * s_max;  // the (b, kvh) scale row
+      constexpr int kPieces = L::kKeys * D / 16;  // 16-byte pieces of a byte tile
+      constexpr int kEach = 2 * kPieces / kWideners;  // a thread's, K and V
+      static_assert(kEach * kWideners == 2 * kPieces && L::kKeys <= kWideners);
+      for (int it = 0; it < n_visit; ++it) {
+        const int bs = it % L::kByteStages;
+        const int st = it % L::kStages;
+        const int key0 = tile_of(it) * L::kKeys;
+        // the tile's scales first (their loads in flight while the waits
+        // pass), then the byte tile, then a free stage
+        float* const sc = reinterpret_cast<float*>(base_ptr + (sc_s(st) - base));
+        const bool live = wt < L::kKeys && key0 + wt < s;  // key key0 + wt
+        const float ks = live ? __ldg(rp.k_scale + plane + key0 + wt) : 0.f;
+        const float vs = live ? __ldg(rp.v_scale + plane + key0 + wt) : 0.f;
+        mbar_wait(byte_full(bs), (it / L::kByteStages) & 1);
+        mbar_wait(empty_bar(st), ((it / L::kStages) & 1) ^ 1);
+        const uint8_t* const bytes = base_ptr + (kb_s(bs) - base);
+        // (a probe, tools/ab_ragged.py's -DFKP_RAGGED_PROBE=2: the loads
+        // without the widening, the output unchecked; no other value builds)
+#if defined(FKP_RAGGED_PROBE) && FKP_RAGGED_PROBE != 2
+#error "FKP_RAGGED_PROBE takes only 2 (the 8-bit tiles left unwidened)"
+#elif defined(FKP_RAGGED_PROBE)
+        constexpr bool kWiden = false;
+#else
+        constexpr bool kWiden = true;
+#endif
+        uint4 raw[kEach];
+#pragma unroll
+        for (int u = 0; u < kEach; ++u) {
+          const int i = wt + u * kWideners;
+          raw[u] = *reinterpret_cast<const uint4*>(
+              bytes + i / kPieces * L::kByteTile + i % kPieces * 16);
+        }
+#pragma unroll
+        for (int u = 0; kWiden && u < kEach; ++u) {
+          const int i = wt + u * kWideners;
+          const int kv = i / kPieces;  // 0: K, 1: V
+          const int r = i % kPieces / (D / 16);
+          const int c = i % (D / 16) * 16;
+          uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+          if (key0 + r < s) fkp::widen16<KV>(raw[u], lo, hi);
+          // (row r, columns c..c+15) of the 128B-swizzled tile: box c / 64,
+          // 16-byte chunks (c % 64) / 8 and the next, each at chunk ^ (r % 8)
+          uint8_t* const box = base_ptr + ((kv ? v_s(st) : k_s(st)) - base) +
+                               c / kBoxCols * L::kBox + r * 128;
+          const int ch = c % kBoxCols / 8;
+          *reinterpret_cast<uint4*>(box + ((ch ^ (r % 8)) << 4)) = lo;
+          *reinterpret_cast<uint4*>(box + (((ch + 1) ^ (r % 8)) << 4)) = hi;
+        }
+        if (wt < L::kKeys) {
+          sc[wt] = ks;
+          sc[L::kKeys + wt] = vs;
+        }
+        fkp_sm90::fence_proxy_async();  // the tiles are wgmma's operands
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(full_bar(st));
+          mbar_arrive(byte_empty(bs));
         }
       }
     }
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  if constexpr (!kQuant) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  }
   const int wg = threadIdx.x / 128;
   const int warp = threadIdx.x / 32 % 4;  // in the warpgroup
   const int lane = threadIdx.x % 32;
@@ -281,13 +445,13 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
                      // column nd * 8 + 2t + (e & 1))
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float sc[kN / 2];  // S, the same layout over the tile's 128 keys; then p
+  float sc[L::kKeys / 2];  // S, the same layout over the tile's keys; then p
 #pragma unroll
-  for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
+  for (int i = 0; i < L::kKeys / 2; ++i) sc[i] = 0.f;
   // running max, log2 domain (fixed-max: 0 for the row's whole life)
   float m0 = fixed ? 0.f : kNegInf, m1 = m0;
   float l0 = 0.f, l1 = 0.f;  // this thread's share of the row sums
-  uint32_t p_hi[kN / 16][4], p_lo[kN / 16][4];  // p as PV's A fragments
+  uint32_t p_hi[L::kKeys / 16][4], p_lo[L::kKeys / 16][4];  // p as PV's A fragments
   // The loop is software-pipelined: tile j's S = Q K^T goes out with tile
   // j-1's O += P V, and tile j's softmax runs while that PV product is in
   // flight; O's rescale by tile j's max waits for it. So tile j-1's p
@@ -297,9 +461,14 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t col = kk % 4 * 32;
-      wgmma_ss_n128(
-          sc, desc(q_s + kk / 4 * L::kQBox + wg * 64 * 128 + col, 16, 1024),
-          desc(k_s(st) + kk / 4 * kBoxBytes + col, 16, 1024), kk > 0);
+      const uint64_t dq =
+          desc(q_s + kk / 4 * L::kQBox + wg * 64 * 128 + col, 16, 1024);
+      const uint64_t dk = desc(k_s(st) + kk / 4 * L::kBox + col, 16, 1024);
+      if constexpr (L::kKeys == 128) {
+        wgmma_ss_n128(sc, dq, dk, kk > 0);
+      } else {
+        wgmma_ss_n64<0, 0>(sc, dq, dk, kk > 0);
+      }
     }
     wgmma_commit();
   };
@@ -308,8 +477,8 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
   // one box apart
   const auto issue_pv = [&](int st) {
 #pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) {
-      const uint64_t dv = desc(v_s(st) + kk * 2048, kBoxBytes, 1024);
+    for (int kk = 0; kk < L::kKeys / 16; ++kk) {
+      const uint64_t dv = desc(v_s(st) + kk * 2048, L::kBox, 1024);
       wgmma_rs<D>(acc, p_hi[kk], dv);
       wgmma_rs<D>(acc, p_lo[kk], dv);
     }
@@ -327,7 +496,14 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
   // without keeping the tile's 64 mask bits live. Online, r0 and r1 are
   // the factors O takes for the new max (1 for a fixed-max warp).
   float r0 = 1.f, r1 = 1.f;
-  const auto softmax = [&](int key0, auto fixed_max, auto masked) {
+  // the stage's scales (8-bit): K's 64 then V's, 0 past kv_len
+  const auto scales = [&](int st) {
+    return reinterpret_cast<const float*>(base_ptr + (sc_s(st) - base));
+  };
+  // (8-bit: the K scale of each key multiplies its score column with the
+  // log2-domain scale, before the mask and the max)
+  const auto softmax = [&](int key0, const float* ksc, auto fixed_max,
+                           auto masked) {
     constexpr bool kF = decltype(fixed_max)::value;
     constexpr bool kMask = decltype(masked)::value;
     // element e of n-tile nt: (row0 if e < 2 else row1,
@@ -341,14 +517,20 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
     };
     [[maybe_unused]] float tmax0 = kNegInf, tmax1 = kNegInf;  // online
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt) {
+    for (int nt = 0; nt < L::kKeys / 8; ++nt) {
+      [[maybe_unused]] float2 kpair;
+      if constexpr (kQuant) {
+        kpair = *reinterpret_cast<const float2*>(ksc + nt * 8 + 2 * t);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float& x = sc[4 * nt + e];
+        float sl = scale_log2;
+        if constexpr (kQuant) sl *= (e & 1) ? kpair.y : kpair.x;
         if constexpr (kMask) {
-          x = visible(nt, e) ? x * scale_log2 : __int_as_float(0xff800000);
+          x = visible(nt, e) ? x * sl : __int_as_float(0xff800000);
         } else {
-          x *= scale_log2;
+          x *= sl;
         }
         if constexpr (!kF) {
           if (e < 2) {
@@ -374,7 +556,7 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
       l1 *= r1;
     }
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt) {
+    for (int nt = 0; nt < L::kKeys / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float& x = sc[4 * nt + e];
@@ -389,20 +571,21 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
   // below s, below the first row's diagonal, and all sinks or inside the
   // last row's band
   const auto tile_softmax = [&](int it) {
-    const int key0 = tile_of(it) * kN;
-    const bool full = key0 + kN <= s &&
-                      (!causal || key0 + kN - 1 <= first_pos) &&
-                      (!kWindow || key0 + kN <= sinks ||
+    const int key0 = tile_of(it) * L::kKeys;
+    const float* const ksc = kQuant ? scales(it % L::kStages) : nullptr;
+    const bool full = key0 + L::kKeys <= s &&
+                      (!causal || key0 + L::kKeys - 1 <= first_pos) &&
+                      (!kWindow || key0 + L::kKeys <= sinks ||
                        key0 > last_pos - window);
     const auto run = [&](auto masked) {
       if constexpr (kDisc == kHybrid) {
         if (fixed) {  // uniform in the warp; no wgmma inside
-          softmax(key0, Bool<true>{}, masked);
+          softmax(key0, ksc, Bool<true>{}, masked);
         } else {
-          softmax(key0, Bool<false>{}, masked);
+          softmax(key0, ksc, Bool<false>{}, masked);
         }
       } else {
-        softmax(key0, Bool<kDisc == kFixed>{}, masked);
+        softmax(key0, ksc, Bool<kDisc == kFixed>{}, masked);
       }
     };
     if (full) {
@@ -413,8 +596,20 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
   };
   // O's rescale (online, and the hybrid's online warps), then p into the A
   // fragments as a bf16 hi + lo pair: fragment kk holds keys 16kk..16kk+15,
-  // n-tiles 2kk and 2kk + 1
-  const auto to_fragments = [&] {
+  // n-tiles 2kk and 2kk + 1. 8-bit: each key's V scale folds into its p
+  // column first (l has summed p without it), from stage st's scales.
+  const auto to_fragments = [&]([[maybe_unused]] int st) {
+    if constexpr (kQuant) {
+      const float* const vsc = scales(st) + L::kKeys;
+#pragma unroll
+      for (int nt = 0; nt < L::kKeys / 8; ++nt) {
+        const float2 vpair = *reinterpret_cast<const float2*>(vsc + nt * 8 + 2 * t);
+        sc[4 * nt] *= vpair.x;
+        sc[4 * nt + 1] *= vpair.y;
+        sc[4 * nt + 2] *= vpair.x;
+        sc[4 * nt + 3] *= vpair.y;
+      }
+    }
     if (kDisc == kOnline || (kDisc == kHybrid && !fixed)) {
 #pragma unroll
       for (int nd = 0; nd < D / 8; ++nd) {
@@ -425,7 +620,7 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
       }
     }
 #pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) {
+    for (int kk = 0; kk < L::kKeys / 16; ++kk) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int nt = 2 * kk + half;
@@ -453,7 +648,7 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
     wgmma_wait<0>();
     pin(sc);
     tile_softmax(0);
-    to_fragments();
+    to_fragments(0);
     for (int it = 1; it < n_visit; ++it) {
       const int st = it % L::kStages;
       const int prev = (it - 1) % L::kStages;
@@ -472,7 +667,7 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
       pin(acc);
       pin(sc);
       release(prev);
-      to_fragments();
+      to_fragments(st);
     }
     const int last = (n_visit - 1) % L::kStages;
     wgmma_fence();
@@ -504,12 +699,12 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
                                 acc[4 * nd + 3] / safe1);
     }
   }
-  if (t == 0) {
+  if (!kRagged && t == 0) {
     float* lse_bh = lse + bh * n;
     if (row0 < n) lse_bh[row0] = l0 == 0.f ? kNegInf : m0 * kLn2 + logf(l0);
     if (row1 < n) lse_bh[row1] = l1 == 0.f ? kNegInf : m1 * kLn2 + logf(l1);
   }
-  if constexpr (kDisc == kFixed) {
+  if constexpr (kDisc == kFixed && !kRagged) {
     if (gd.count != nullptr) {
       // The fixed-max range guard, as flash_fwd_core.cuh's epilogue: a row
       // breaches when l is not finite or leaves [2^-100, 2^120], or an
@@ -541,6 +736,39 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
       if (lane == 0 && cnt > 0) atomicAdd(gd.count, cnt);
     }
   }
+}
+
+// The dense forward: instance <D, kWindow, kDisc, kRows> over bf16 K/V.
+template <int D, bool kWindow, int kDisc, int kRows>
+__global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int hq, int hkv, int n,
+                          int s, float scale_log2, int causal, int q_offset,
+                          int window, int sinks,
+                          const float* __restrict__ k_max, GuardArgs gd) {
+  fwd_block<D, kWindow, kDisc, kRows, __nv_bfloat16, false>(
+      &q_map, &k_map, &v_map, o, lse, hq, hkv, n, s, scale_log2, causal,
+      q_offset, window, sinks, k_max, gd, RaggedPtrs{});
+}
+
+// The ragged forward's wgmma route (the prefill chunks): instance <D,
+// kWindow, kDisc (online or fixed-max), kRows, KV (bf16, int8_t or
+// __nv_fp8_e4m3; 8-bit at 64 rows only)> over a cache [b, hkv, s_max, D].
+template <int D, bool kWindow, int kDisc, int kRows, class KV>
+__global__ void __launch_bounds__(Block<kRows, sizeof(KV) == 1>::kThreads, 1)
+    flash_fwd_ragged_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 __nv_bfloat16* __restrict__ o, int hq,
+                                 int hkv, int n, int s_max, float scale_log2,
+                                 int causal, int window, int sinks,
+                                 RaggedPtrs rp) {
+  fwd_block<D, kWindow, kDisc, kRows, KV, true>(
+      &q_map, &k_map, &v_map, o, nullptr, hq, hkv, n, s_max, scale_log2,
+      causal, 0, window, sinks, nullptr, GuardArgs{}, rp);
 }
 
 // What fkp_flash_fwd passes to the instance it launches.
@@ -620,5 +848,79 @@ int launch_disc(int d, const FwdArgs& a) {
 
 int launch_fixed(int d, const FwdArgs& a);   // flash_fwd_fixed.cu
 int launch_hybrid(int d, const FwdArgs& a);  // flash_fwd_hybrid.cu
+
+// What fkp_flash_fwd_ragged passes to the wgmma route's instance: rows
+// the block rows (64 or 128; the 8-bit instances take 64).
+struct RaggedArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  RaggedPtrs rp;
+  int b, hq, hkv, n, s_max;
+  float scale_log2;
+  int causal, window, sinks, rows;
+  cudaStream_t stream;
+};
+
+// Launches the ragged instance <D, kWindow, kDisc, kRows, KV>; returns a
+// CUDA error code as `launch`.
+template <int D, bool kWindow, int kDisc, int kRows, class KV>
+int launch_ragged(const RaggedArgs& a) {
+  using L = Layout<D, kRows, KV>;
+  const auto kernel = &flash_fwd_ragged_sm90_kernel<D, kWindow, kDisc, kRows, KV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap qm, km, vm;
+  bool ok = encode_map(&qm, a.q, D, a.n, a.b * a.hq, kRows);
+  if constexpr (L::kQuant) {
+    // whole rows of D bytes, unswizzled, 64 keys a box
+    ok = ok &&
+         encode_tiled(&km, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.k, D, a.s_max,
+                      a.b * a.hkv, L::kKeys, D, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         encode_tiled(&vm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.v, D, a.s_max,
+                      a.b * a.hkv, L::kKeys, D, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    ok = ok && encode_map(&km, a.k, D, a.s_max, a.b * a.hkv, L::kKeys) &&
+         encode_map(&vm, a.v, D, a.s_max, a.b * a.hkv, L::kKeys);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.n + kRows - 1) / kRows, a.hq, a.b);
+  kernel<<<grid, Block<kRows, L::kQuant>::kThreads, L::kBytes, a.stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(a.o), a.hq, a.hkv, a.n, a.s_max,
+      a.scale_log2, a.causal, a.window, a.sinks, a.rp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The ragged instances of one cache type and discipline, by d (64 or
+// 128), band and block rows; cudaErrorInvalidValue for another d or rows.
+template <class KV, int kDisc>
+int launch_ragged_disc(int d, const RaggedArgs& a) {
+  const auto by_rows = [&](auto D, auto W) {
+    constexpr int kD = decltype(D)::value;
+    constexpr bool kW = decltype(W)::value;
+    if (a.rows == 64) return launch_ragged<kD, kW, kDisc, 64, KV>(a);
+    if constexpr (sizeof(KV) == 2) {
+      if (a.rows == 128) return launch_ragged<kD, kW, kDisc, 128, KV>(a);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  const auto by_band = [&](auto D) {
+    return a.window > 0 ? by_rows(D, std::true_type{})
+                        : by_rows(D, std::false_type{});
+  };
+  if (d == 64) return by_band(std::integral_constant<int, 64>{});
+  if (d == 128) return by_band(std::integral_constant<int, 128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The ragged instances by source, so that nvcc builds them in parallel:
+// bf16 online (with the C entries) flash_fwd_ragged.cu, bf16 fixed-max
+// flash_fwd_ragged_fixed.cu, int8 flash_fwd_ragged_q.cu and e4m3
+// flash_fwd_ragged_fp8.cu, each 8-bit source both disciplines.
+int launch_ragged_fixed(int d, const RaggedArgs& a);
+int launch_ragged_int8(int d, int disc, const RaggedArgs& a);
+int launch_ragged_e4m3(int d, int disc, const RaggedArgs& a);
 
 }  // namespace fkp_sm90

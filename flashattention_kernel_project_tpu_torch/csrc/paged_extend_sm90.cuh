@@ -144,6 +144,14 @@ constexpr int kDecodeRows = 16;            // the decode's block: one slab of G 
 // (q_int8), or the decode's copy probe (copy_only, bf16).
 enum Mode : int { kAttend = 0, kQInt8 = 1, kCopy = 2 };
 
+// The cache a block reads: a page pool through the block table, or a
+// linear cache [b * hkv, s_max, D] (the ragged forward's slab route), as
+// the causal online unbanded call (kLinearPlain: the linear speculative
+// verify) or with causal, the band and fixed-max as runtime arguments
+// (kLinearGeneral). As runtime arguments in every linear instance they
+// cost the verify 39% (0.0230 ms against 0.0165, tools/ab_ragged.py).
+enum Cache : int { kPaged = 0, kLinearPlain = 1, kLinearGeneral = 2 };
+
 // Shared memory of the (D, kRows, KV, kDepth) instances: the ring's kDepth stages (a
 // bf16 stage: K then V, each D / 64 boxes of 64 rows x 128 bytes; an 8-bit
 // stage: K and V rows of D bytes, then their 64 + 64 f32 scales, rounded
@@ -197,6 +205,11 @@ struct Params {
   __nv_bfloat16* out;
   int hkv, t, rows, row_tiles, page, max_pages, n_splits, block_s, box_rows;
   float scale_log2;
+  // the linear cache's ragged forward in its general instances
+  // (kLinearGeneral) alone: causal or not, the band (window > 0: the last
+  // `window` positions and the first `sinks` keys), fixed-max (m pinned at
+  // 0)
+  int causal, window, sinks, fixed;
 };
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -222,38 +235,6 @@ template <int kRows = kTile>
 __device__ __forceinline__ uint32_t tile_addr(uint32_t tile, int r, int c) {
   return tile + (c / kBoxCols) * (kRows * 128) + r * 128 +
          ((((c % kBoxCols) / 8) ^ (r % 8)) << 4);
-}
-
-// Four int8 values widened exactly to f32 without I2F (a quarter-rate
-// conversion): byte x ^ 0x80 = x + 128 placed in the mantissa of 2^23,
-// then 2^23 + 128 taken off, one PRMT and one FADD a value.
-__device__ __forceinline__ void widen_int8(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // bytes (u.i, 0, 0, 0x4b) of (u, 0x4b): 0x4b0000.. = 2^23 + (x + 128)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4bu, 0x4550 | i)) - 8388736.f;
-  }
-}
-
-// 16 8-bit values widened exactly to bf16, as two 16-byte words
-template <class KV>
-__device__ __forceinline__ void widen16(const uint4& in, uint4& lo, uint4& hi) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(&in);
-  uint32_t out[8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float f[4];
-    if constexpr (std::is_same_v<KV, int8_t>) {
-      widen_int8(w[i], f);
-    } else {
-      fkp::Widen<KV>::word(w[i], f);
-    }
-    out[2 * i] = pack_bf16(f[0], f[1]);
-    out[2 * i + 1] = pack_bf16(f[2], f[3]);
-  }
-  lo = make_uint4(out[0], out[1], out[2], out[3]);
-  hi = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
 // The 8-bit K tile of the int8 score product (kQInt8) lands by TMA in
@@ -282,7 +263,8 @@ __device__ __forceinline__ uint32_t k8_addr(uint32_t tile, int r, int c) {
 // only): the same loads and no math; each split with a live key gives
 // y[r] = k + v in f32 at its first key row + r, m = l = 0 (0 rows at a
 // split with none).
-template <int D, int kRows, class KV, int kDepth, int kMode>
+template <int D, int kRows, class KV, int kDepth, int kMode,
+          int kCache = kPaged>
 __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
                                             const CUtensorMap* v_map,
                                             const Params& p,
@@ -328,8 +310,31 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
   const int nl = min(max(p.new_lens[b], 0), p.max_pages * p.page);
   const int old = p.old_lens != nullptr ? p.old_lens[b] : nl - 1;
   const int start = split * p.block_s;
-  const int end = min(start + p.block_s, nl);
+  int end = min(start + p.block_s, nl);
+  // a linear cache (the slab route); its general instances read causal,
+  // the band and fixed-max from the Params
+  constexpr bool kLinear = kCache != kPaged;
+  constexpr bool kRuntime = kCache == kLinearGeneral;
+  // kLinear, causal: no row of the call sees a key past the last chunk
+  // token's position
+  if (kLinear && (!kRuntime || p.causal)) end = min(end, old + p.t);
   const int n_tiles = end > start ? (end - start + kTile - 1) / kTile : 0;
+  // the tiles the block visits, the same list for the producer and the
+  // consumers: the split's n_tiles, but with a band (kRuntime, window > 0)
+  // its sink tiles and then its tiles from the one holding chunk token 0's
+  // first band key (a split with neither loads nothing)
+  int n_sink = n_tiles, first_band = n_tiles;
+  if constexpr (kRuntime) {
+    if (p.window > 0) {
+      n_sink = min(max((p.sinks - start + kTile - 1) / kTile, 0), n_tiles);
+      first_band = max(min(max(old - p.window + 1 - start, 0) / kTile, n_tiles),
+                       n_sink);
+    }
+  }
+  const int n_visit = n_sink + n_tiles - first_band;
+  const auto tile_of = [&](int it) {
+    return it < n_sink ? it : first_band + it - n_sink;
+  };
   // the splits that start below new_len: with the output, only they run
   // (the rest exit at once), and with at most one the first block writes
   // the rows itself (zeros where new_len is 0)
@@ -347,7 +352,7 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if constexpr (!kQuant) {
+  if constexpr (!kQuant && !kLinear) {
     // a last tile with unissued boxes: zero its stage's V, so that those
     // rows (weighted 0) cannot bring NaN bits into P V; earlier tiles of
     // the stage, if any, overwrite it with pool rows
@@ -365,7 +370,56 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
   __syncthreads();
 
   if (tid >= kConsumers) {  // the producer warp: one thread loads
-    if (tid == kConsumers) {
+    if constexpr (kLinear) {
+      // the linear cache [b * hkv, s_max, D]: a tile is one box of 64 rows
+      // at row key0 of the (b, kvh) plane (rows past s_max read as zeros),
+      // no table. 8-bit: the warp's lanes read the tile's 64 + 64 scales
+      // (0 past new_len) into the stage beside it before the first lane's
+      // arrival (the scale rows are not 16-byte aligned for a bulk copy
+      // unless s_max is a multiple of 4)
+      const int lane = tid % 32;
+      if (!kQuant && lane != 0) return;
+      const int head = b * p.hkv + kvh;
+      for (int it = 0; it < n_visit; ++it) {
+        const int st = it % kDepth;
+        const int key0 = start + tile_of(it) * kTile;
+        [[maybe_unused]] float sk[2], sv[2];
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int key = key0 + lane + 32 * u;
+            const size_t at = bh * p.page + key;  // page = s_max
+            sk[u] = key < nl ? __ldg(p.k_scale + at) : 0.f;
+            sv[u] = key < nl ? __ldg(p.v_scale + at) : 0.f;
+          }
+        }
+        mbar_wait(empty_bar(st), ((it / kDepth) & 1) ^ 1);
+        if constexpr (kQuant) {
+          float* const sc = reinterpret_cast<float*>(base_ptr + (sc_s(st) - base));
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            sc[lane + 32 * u] = sk[u];
+            sc[kTile + lane + 32 * u] = sv[u];
+          }
+          __syncwarp();
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full_bar(st), kTile * 2 * D * (int)sizeof(KV));
+          if constexpr (kQuant) {
+            tma_load(k_s(st), k_map, full_bar(st), 0, key0, head);
+            tma_load(v_s(st), v_map, full_bar(st), 0, key0, head);
+          } else {
+#pragma unroll
+            for (int x = 0; x < D / kBoxCols; ++x) {
+              tma_load(k_s(st) + x * (kTile * 128), k_map, full_bar(st),
+                       x * kBoxCols, key0, head);
+              tma_load(v_s(st) + x * (kTile * 128), v_map, full_bar(st),
+                       x * kBoxCols, key0, head);
+            }
+          }
+        }
+      }
+    } else if (tid == kConsumers) {
       const int* table = p.tables + (size_t)b * p.max_pages;
       const int boxes = kTile / p.box_rows;
       for (int it = 0; it < n_tiles; ++it) {
@@ -442,17 +496,32 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
   // (its causal bound old_len + tr; padding rows see none)
   const int r0 = rt * kRows + slab * 16 + g;
   const int r1 = r0 + 8;
-  const int lim0 = r0 < p.rows ? min(end, old + r0 % p.t + 1) : 0;
-  const int lim1 = r1 < p.rows ? min(end, old + r1 % p.t + 1) : 0;
+  const bool causal = !kRuntime || p.causal;
+  const int lim0 = r0 >= p.rows ? 0 : causal ? min(end, old + r0 % p.t + 1) : end;
+  const int lim1 = r1 >= p.rows ? 0 : causal ? min(end, old + r1 % p.t + 1) : end;
+  // kRuntime with a band: key j is in row r's band iff j > band(r) or
+  // j < sinks (band(r) = its position - window)
+  const bool banded = kRuntime && p.window > 0;
+  const int band0 = banded ? old + r0 % p.t - p.window : -1;
+  const int band1 = banded ? old + r1 % p.t - p.window : -1;
+  const auto sees = [&](int key, int lim, int band) {
+    if constexpr (kRuntime) {
+      return key < lim && (key > band || key < p.sinks);
+    } else {
+      return key < lim;
+    }
+  };
+  // kRuntime, fixed-max: m pinned at 0 for the row's whole life
+  const bool fixed = kRuntime && p.fixed;
   const bool slab_live = rt * kRows + slab * 16 < p.rows;  // uniform in the warp
 
-  float m0 = kNegInf, m1 = kNegInf;  // rows g, g + 8 over the warp's keys
+  float m0 = fixed ? 0.f : kNegInf, m1 = m0;  // rows g, g + 8 over the warp's keys
   float l0 = 0.f, l1 = 0.f;          // this thread's share of their sums
   float acc[D / 8][4];               // [.][0..1] row g, [.][2..3] row g + 8
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  if (n_tiles > 0) {
+  if (n_visit > 0) {
     const __nv_bfloat16* q_bh = p.q + bh * p.rows * D;
     // kQInt8: this thread's A fragments of the int8 q rows (m16n8k32: rows
     // g and g + 8, bytes 4 quad.. and 16 + 4 quad.. of each 32-dim step)
@@ -515,9 +584,9 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
       }
       named_sync(1, kConsumers);
     }
-    for (int it = 0; it < n_tiles; ++it) {
+    for (int it = 0; it < n_visit; ++it) {
       const int st = it % kDepth;
-      const int key0 = start + it * kTile;
+      const int key0 = start + tile_of(it) * kTile;
       mbar_wait(full_bar(st), (it / kDepth) & 1);
       uint32_t kt = k_s(st), vt = v_s(st);
 #if defined(FKP_DEC_PROBE) && FKP_DEC_PROBE == 2
@@ -559,7 +628,7 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
           const int c = i % (D / 16) * 16;
           uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
           if (key0 + r < nl) {
-            widen16<KV>(*reinterpret_cast<const uint4*>(
+            fkp::widen16<KV>(*reinterpret_cast<const uint4*>(
                             ring + kv * L::kTileBytes + r * D + c),
                         lo, hi);
           }
@@ -649,7 +718,7 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = kb + j * 8 + (e & 1);
-            const bool ok = key < (e < 2 ? lim0 : lim1);
+            const bool ok = sees(key, e < 2 ? lim0 : lim1, e < 2 ? band0 : band1);
             if constexpr (kQi8) {  // (f32(dot) * ks) * qs, as the TPU kernel
               sc[j][e] = ok ? (sc[j][e] * sh_sc[0][key - key0]) * (e < 2 ? qs0 : qs1)
                             : kNegInf;
@@ -666,7 +735,8 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float mn0 = fixed ? 0.f : fmaxf(m0, mx0);
+        const float mn1 = fixed ? 0.f : fmaxf(m1, mx1);
         const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
         m0 = mn0;
         m1 = mn1;
@@ -689,7 +759,7 @@ __device__ __forceinline__ void paged_block(const CUtensorMap* k_map,
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int key = kb + (2 * kc + h) * 8 + (e & 1);
-              const bool ok = key < (e < 2 ? lim0 : lim1);
+              const bool ok = sees(key, e < 2 ? lim0 : lim1, e < 2 ? band0 : band1);
               const float pr =
                   ok ? exp2f(sc[2 * kc + h][e] - (e < 2 ? mn0 : mn1)) : 0.f;
               if (e < 2) {
@@ -1035,6 +1105,147 @@ inline Params params(const void* q, const void* tables, const void* new_lens,
                 static_cast<__nv_bfloat16*>(out),
                 hkv, t, rows, (rows + block_rows - 1) / block_rows, page,
                 max_pages, n_splits, block_s, box_rows, scale_log2};
+}
+
+// The ragged forward's slab route over a linear cache [b, hkv, s_max, D]
+// (flash_attention_ragged / _kv_quant at T < 9: the linear speculative
+// verify and short chunks): the block over a linear cache, instance <D,
+// kRows, KV, kCache (kLinearPlain or kLinearGeneral)>, seen as a pool of
+// one page of s_max rows a batch row with an implicit table. Its instances
+// and C entry are ragged_slab.cu's (bf16, with the arrival counters, a
+// zeroed array of its own), ragged_slab_q.cu's (int8) and
+// ragged_slab_fp8.cu's (e4m3).
+template <int D, int kRows, class KV, int kCache>
+__global__ void __maxnreg__((Layout<D, kRows, KV>::kMaxRegs))
+    ragged_slab_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const Params p, int* __restrict__ counters) {
+  paged_block<D, kRows, KV, kStages, kAttend, kCache>(&k_map, &v_map, p,
+                                                      counters);
+}
+
+// Launches the slab route's instance on a grid of (n_splits, hkv *
+// row_tiles, b), its maps 3-D over k and v as [b * hkv, s_max, D] in boxes
+// of 64 rows; returns a CUDA error code as launch_on.
+template <int D, int kRows, class KV, int kCache>
+int launch_linear(const Params& p, const void* k, const void* v, int b,
+                  int* counters, cudaStream_t stream) {
+  const auto kernel = &ragged_slab_sm90_kernel<D, kRows, KV, kCache>;
+  constexpr int kBytes = Layout<D, kRows, KV>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap km, vm;
+  const int planes = b * p.hkv;
+  bool ok;
+  if constexpr (sizeof(KV) == 1) {
+    ok = fkp_sm90::encode_tiled(&km, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k, D,
+                                p.page, planes, kTile, D,
+                                CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         fkp_sm90::encode_tiled(&vm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, v, D,
+                                p.page, planes, kTile, D,
+                                CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    ok = fkp_sm90::encode_map(&km, k, D, p.page, planes, kTile) &&
+         fkp_sm90::encode_map(&vm, v, D, p.page, planes, kTile);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<dim3(p.n_splits, p.hkv * p.row_tiles, b), kThreads, kBytes,
+           stream>>>(km, vm, p, counters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The slab route's instance for d (64, 128), block_rows (16, 32, 64) and
+// the call (kLinearPlain for a causal online call with no band, else
+// kLinearGeneral; a probe build, tools/ab_ragged.py's -DFKP_SLAB_PROBE=2,
+// takes kLinearGeneral for every call) over KV; cudaErrorInvalidValue for
+// another d or block_rows.
+template <class KV>
+int launch_linear_any(int d, int block_rows, const Params& p, const void* k,
+                      const void* v, int b, int* counters, cudaStream_t stream) {
+#if defined(FKP_SLAB_PROBE) && FKP_SLAB_PROBE != 2
+#error "FKP_SLAB_PROBE takes only 2 (every call on kLinearGeneral)"
+#elif defined(FKP_SLAB_PROBE)
+  const bool plain = false;
+#else
+  const bool plain = p.causal && p.window <= 0 && !p.fixed;
+#endif
+  const auto by_cache = [&](auto dc, auto rc) {
+    constexpr int kD = decltype(dc)::value;
+    constexpr int kR = decltype(rc)::value;
+    return plain ? launch_linear<kD, kR, KV, kLinearPlain>(p, k, v, b, counters, stream)
+                 : launch_linear<kD, kR, KV, kLinearGeneral>(p, k, v, b, counters,
+                                                             stream);
+  };
+  const auto by_rows = [&](auto dc) {
+    switch (block_rows) {
+      case 16: return by_cache(dc, std::integral_constant<int, 16>{});
+      case 32: return by_cache(dc, std::integral_constant<int, 32>{});
+      case 64: return by_cache(dc, std::integral_constant<int, 64>{});
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  if (d == 64) return by_rows(std::integral_constant<int, 64>{});
+  if (d == 128) return by_rows(std::integral_constant<int, 128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The slab route's 8-bit instances: int8 (ragged_slab_q.cu) and e4m3
+// (ragged_slab_fp8.cu).
+int linear_int8(int d, int block_rows, const Params& p, const void* k,
+                const void* v, int b, int* counters, cudaStream_t stream);
+int linear_e4m3(int d, int block_rows, const Params& p, const void* k,
+                const void* v, int b, int* counters, cudaStream_t stream);
+
+// The slab route's call as the kernels take it, or false: a cache of s_max
+// > 0 rows cut into n_splits (1 to kMaxSplits) splits of block_s keys
+// (whole 64-key tiles) that cover it, 16, 32 or 64 folded rows a block,
+// the grid's limits, and with more than one split the workspace and at
+// most kMaxCounters (batch row, KV head, row tile) triples.
+inline bool linear_valid(int b, int hq, int hkv, int t, int s_max,
+                         int n_splits, int block_s, int block_rows,
+                         const void* m, const void* l, const void* y) {
+  if (b <= 0 || hkv <= 0 || hq % hkv || t <= 0 || s_max <= 0 ||
+      n_splits < 1 || n_splits > kMaxSplits || block_s <= 0 ||
+      block_s % kTile || (long long)n_splits * block_s < s_max ||
+      (block_rows != 16 && block_rows != 32 && block_rows != 64)) {
+    return false;
+  }
+  const long long rows = (long long)(hq / hkv) * t;
+  const long long row_tiles = (rows + block_rows - 1) / block_rows;
+  if (b > 65535 || hkv * row_tiles > 65535 || (long long)b * hkv > 0x7fffffffLL) {
+    return false;
+  }
+  if (n_splits > 1 && (!m || !l || !y || b * hkv * row_tiles > kMaxCounters)) {
+    return false;
+  }
+  return true;
+}
+
+// the Params of a slab call: the linear cache as a pool of one page of
+// s_max rows a batch row (page = s_max, one page a row, boxes of 64 rows);
+// q_offsets in the place of old_lens
+inline Params linear_params(const void* q, const void* kv_lens,
+                            const void* q_offsets, const void* k_scale,
+                            const void* v_scale, void* out, void* m, void* l,
+                            void* y, int hq, int hkv, int t, int s_max,
+                            int n_splits, int block_s, int block_rows,
+                            float scale_log2, int causal, int window,
+                            int sinks, int fixed) {
+  const int rows = (hq / hkv) * t;
+  return Params{static_cast<const __nv_bfloat16*>(q),
+                nullptr,
+                static_cast<const int*>(kv_lens),
+                static_cast<const int*>(q_offsets),
+                static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale),
+                static_cast<float*>(m),
+                static_cast<float*>(l),
+                static_cast<float*>(y),
+                static_cast<__nv_bfloat16*>(out),
+                hkv, t, rows, (rows + block_rows - 1) / block_rows, s_max, 1,
+                n_splits, block_s, kTile, scale_log2, causal, window, sinks,
+                fixed};
 }
 
 }  // namespace fkp_ext90

@@ -1,7 +1,9 @@
 // How a 32-bit word of KV-cache elements widens to f32, exactly: two bf16,
 // or four int8 or e4m3 values. Shared by the decode core (which widens into
-// registers) and the tiled forward core (which widens 8-bit tiles into bf16
-// tensor-core operands: int8 and e4m3 values are exact in bf16 too).
+// registers) and the tiled kernels that widen 8-bit tiles into bf16
+// tensor-core operands in shared memory (int8 and e4m3 values are exact in
+// bf16 too): the mma.sync forward core, the paged extend and decode, and
+// the ragged forward's wgmma instances (widen16).
 
 #pragma once
 
@@ -9,6 +11,8 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fkp {
 
@@ -53,5 +57,40 @@ struct Widen<__nv_fp8_e4m3> {
     f[3] = b.y;
   }
 };
+
+// Four int8 values widened exactly to f32 without I2F (a quarter-rate
+// conversion): byte x ^ 0x80 = x + 128 placed in the mantissa of 2^23,
+// then 2^23 + 128 taken off, one PRMT and one FADD a value.
+__device__ __forceinline__ void widen_int8(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // bytes (u.i, 0, 0, 0x4b) of (u, 0x4b): 0x4b0000.. = 2^23 + (x + 128)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4bu, 0x4550 | i)) - 8388736.f;
+  }
+}
+
+// 16 8-bit values (int8_t or __nv_fp8_e4m3) widened exactly to bf16, as
+// two 16-byte words: values 0..7 in lo, 8..15 in hi
+template <class KV>
+__device__ __forceinline__ void widen16(const uint4& in, uint4& lo, uint4& hi) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&in);
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+    if constexpr (std::is_same_v<KV, int8_t>) {
+      widen_int8(w[i], f);
+    } else {
+      Widen<KV>::word(w[i], f);
+    }
+    __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
+    __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
+    out[2 * i] = *reinterpret_cast<uint32_t*>(&a);
+    out[2 * i + 1] = *reinterpret_cast<uint32_t*>(&b);
+  }
+  lo = make_uint4(out[0], out[1], out[2], out[3]);
+  hi = make_uint4(out[4], out[5], out[6], out[7]);
+}
 
 }  // namespace fkp

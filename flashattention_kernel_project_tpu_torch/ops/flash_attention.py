@@ -16,8 +16,12 @@ in JAX). On a CUDA tensor `_fwd` launches the hand-written Hopper kernel of
 csrc/flash_fwd_sm90.cuh (wgmma, TMA and a K/V ring) through
 csrc/flash_fwd.cu (with pack=True kernel 2's counterpart, its fixed-max
 d=64 instance), `_fwd_q` the one in csrc/flash_fwd_q.cu (an 8-bit cache),
-`_fwd_ragged` the one in csrc/flash_fwd_ragged.cu (a bf16 cache) and
-`flash_attention_ragged_kv_quant` its 8-bit kernel there, and `_bwd` the
+`_fwd_ragged` (a bf16 cache) and `flash_attention_ragged_kv_quant` (8-bit)
+one of two Hopper kernels by the route `ops.paged_decode.ragged_plan`
+picks from static shapes (chunks of T < 9, the linear speculative verify
+among them: the paged extend's block over the linear cache,
+csrc/ragged_slab.cu; longer chunks: the dense forward's kernel in its
+ragged flavour, csrc/flash_fwd_ragged.cu), and `_bwd` the
 Hopper backward of csrc/flash_bwd_sm90.cuh (kernel A: dK, dV and in the
 fused-dq schedule dQ's partials) and csrc/flash_bwd_dq_sm90.cuh (kernel B:
 dQ alone, the two-kernel schedule); on a CPU tensor
@@ -757,12 +761,24 @@ def _fwd_ragged_plain(q, k, v, kv_lens, q_offsets, causal, sm_scale,
 
 @functools.cache
 def _ragged_kernel():
-    """fkp_flash_fwd_ragged: q, k, v, o, kv_lens, q_offsets, then (b, hq,
-    hkv, n, s_max, d), a float scale, (causal, window, sinks, disc) and the
-    stream."""
+    """fkp_flash_fwd_ragged (the wgmma route): q, k, k_scale, v, v_scale,
+    o, kv_lens, q_offsets, then (b, hq, hkv, n, s_max, d), a float scale,
+    (causal, window, sinks, disc, kv_type, block_rows) and the stream."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_flash_fwd_ragged",
-                         [vp] * 6 + [i32] * 6 + [ctypes.c_float] + [i32] * 4
+                         [vp] * 8 + [i32] * 6 + [ctypes.c_float] + [i32] * 6
+                         + [vp])
+
+
+@functools.cache
+def _slab_kernel():
+    """fkp_ragged_slab (the slab route): q, k, k_scale, v, v_scale, kv_lens,
+    q_offsets, o, m, l, y (the splits' workspace), then (b, hq, hkv, t,
+    s_max, d, n_splits, block_s, block_rows), a float scale, (causal,
+    window, sinks, fixed, kv_type) and the stream."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_ragged_slab",
+                         [vp] * 11 + [i32] * 9 + [ctypes.c_float] + [i32] * 5
                          + [vp])
 
 
@@ -775,12 +791,62 @@ def _check_ragged_bounds(q, kv_lens, q_offsets):
             raise ValueError(f"{name} must be a contiguous [{b}] tensor")
 
 
+def _ragged_cuda(q, cache, kv_lens, q_offsets, causal, sm_scale, window,
+                 sinks, disc, counters):
+    """One launch of the ragged forward on checked inputs: cache (k, v)
+    bf16 or (k_q, k_scale, v_q, v_scale) 8-bit, on the route
+    `ragged_plan` picks (the slab route's splits merged on the card).
+    Counts it in `counters.<discipline>`, `.window_launches` with a window,
+    and `.slab_launches` or `.wgmma_launches` by route."""
+    from flashattention_kernel_project_tpu_torch.ops import paged_decode as pd
+
+    quant = len(cache) == 4
+    k, k_scale, v, v_scale = cache if quant else (cache[0], None, cache[1], None)
+    b, hq, t, d = q.shape
+    hkv, s_max = k.shape[1], k.shape[2]
+    plan = pd.ragged_plan(b, hq, hkv, t, s_max, d, quant)
+    # the kernel first: no library, no launch and nothing allocated
+    kernel = _slab_kernel() if plan.route == pd.RAGGED_SLAB else _ragged_kernel()
+    kv_type = (2 if k.dtype == torch.float8_e4m3fn else 1) if quant else 0
+    o = torch.empty_like(q)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    scale = float(sm_scale * _LOG2E)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if plan.route == pd.RAGGED_SLAB:
+        work = [None] * 3
+        if plan.n_splits > 1:  # m, l, y of every split, one allocation
+            cells = b * hkv * plan.row_tiles * plan.n_splits * plan.block_rows
+            ws = torch.empty(cells * (d + 2), dtype=torch.float32,
+                             device=q.device)
+            work = [ws[:cells], ws[cells:2 * cells], ws[2 * cells:]]
+        rc = kernel(
+            q.data_ptr(), k.data_ptr(), ptr(k_scale), v.data_ptr(),
+            ptr(v_scale), kv_lens.data_ptr(), q_offsets.data_ptr(),
+            o.data_ptr(), *map(ptr, work), b, hq, hkv, t, s_max, d,
+            plan.n_splits, plan.block_s, plan.block_rows, scale,
+            int(bool(causal)), int(window), int(sinks), int(disc == FIXED),
+            kv_type, stream)
+        counters.slab_launches += 1
+    else:
+        rc = kernel(
+            q.data_ptr(), k.data_ptr(), ptr(k_scale), v.data_ptr(),
+            ptr(v_scale), o.data_ptr(), kv_lens.data_ptr(),
+            q_offsets.data_ptr(), b, hq, hkv, t, s_max, d, scale,
+            int(bool(causal)), int(window), int(sinks), int(disc), kv_type,
+            plan.block_rows, stream)
+        counters.wgmma_launches += 1
+    setattr(counters, _counter(disc), getattr(counters, _counter(disc)) + 1)
+    counters.window_launches += bool(window)
+    _build.check(rc, f"ragged forward ({plan.route} route)")
+    return o
+
+
 def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale, window=0,
                 sinks=0, disc=ONLINE):
     """O of the ragged forward. CPU tensors run `_fwd_ragged_plain`; CUDA
-    tensors launch csrc/flash_fwd_ragged.cu (bf16, contiguous, d in {64,
-    128}, int32 bounds on the device) or raise. The bounds are never read
-    on the host. disc: ONLINE or FIXED, counted in
+    tensors (bf16, contiguous, d in {64, 128}, int32 bounds on the device)
+    launch `_ragged_cuda`'s kernel or raise. The bounds are never read on
+    the host. disc: ONLINE or FIXED, counted in
     `flash_attention_ragged.launches` or `.fixed_launches`."""
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
@@ -794,20 +860,8 @@ def _fwd_ragged(q, k, v, kv_lens, q_offsets, causal, sm_scale, window=0,
         raise ValueError(f"no ragged forward for device {q.device}")
     _check_cuda_inputs(q, k, v)
     _check_ragged_bounds(q, kv_lens, q_offsets)
-    b, hq, n, d = q.shape
-    o = torch.empty_like(q)
-    rc = _ragged_kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        kv_lens.data_ptr(), q_offsets.data_ptr(),
-        b, hq, k.shape[1], n, k.shape[2], d, float(sm_scale * _LOG2E),
-        int(bool(causal)), int(window), int(sinks), int(disc),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    counters = flash_attention_ragged
-    setattr(counters, _counter(disc), getattr(counters, _counter(disc)) + 1)
-    counters.window_launches += bool(window)
-    _build.check(rc, "flash_fwd_ragged")
-    return o
+    return _ragged_cuda(q, (k, v), kv_lens, q_offsets, causal, sm_scale,
+                        window, sinks, disc, flash_attention_ragged)
 
 
 def _ragged_discipline(stable) -> int:
@@ -850,10 +904,12 @@ def flash_attention_ragged(
 
 
 # kernel launches by discipline, for showing that a path ran the kernel,
-# and those of them with a window
+# those of them with a window, and by route (ops.paged_decode.ragged_plan)
 flash_attention_ragged.launches = 0
 flash_attention_ragged.fixed_launches = 0
 flash_attention_ragged.window_launches = 0
+flash_attention_ragged.slab_launches = 0
+flash_attention_ragged.wgmma_launches = 0
 
 
 def _fwd_ragged_q_plain(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
@@ -863,17 +919,6 @@ def _fwd_ragged_q_plain(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
     return _fwd_ragged_plain(q, k_q.float() * k_scale, v_q.float() * v_scale,
                              kv_lens, q_offsets, causal, sm_scale, window,
                              sinks, disc)
-
-
-@functools.cache
-def _ragged_kernel_q():
-    """fkp_flash_fwd_ragged_q: q, k, k_scale, v, v_scale, o, kv_lens,
-    q_offsets, then (b, hq, hkv, n, s_max, d), a float scale, (causal,
-    window, sinks, disc), fp8 and the stream."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel("fkp_flash_fwd_ragged_q",
-                         [vp] * 8 + [i32] * 6 + [ctypes.c_float] + [i32] * 5
-                         + [vp])
 
 
 def _fwd_ragged_q_cuda(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
@@ -889,20 +934,12 @@ def _fwd_ragged_q_cuda(q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets,
         raise ValueError(f"the CUDA kernels take d in {_KERNEL_DIMS}, got {d}")
     if n == 0 or k_q.shape[2] == 0:
         raise ValueError("empty query or key sequence")
-    o = torch.empty_like(q)
-    rc = _ragged_kernel_q()(
-        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
-        v_scale.data_ptr(), o.data_ptr(), kv_lens.data_ptr(),
-        q_offsets.data_ptr(), b, hq, k_q.shape[1], n, k_q.shape[2], d,
-        float(sm_scale * _LOG2E), int(bool(causal)), int(window), int(sinks),
-        int(disc), int(k_q.dtype == torch.float8_e4m3fn),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    counters = flash_attention_ragged_kv_quant
-    setattr(counters, _counter(disc), getattr(counters, _counter(disc)) + 1)
-    counters.window_launches += bool(window)
-    _build.check(rc, "flash_fwd_ragged_q")
-    return o
+    for name, x in (("q", q), ("k_q", k_q), ("v_q", v_q)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return _ragged_cuda(q, (k_q, k_scale, v_q, v_scale), kv_lens, q_offsets,
+                        causal, sm_scale, window, sinks, disc,
+                        flash_attention_ragged_kv_quant)
 
 
 def flash_attention_ragged_kv_quant(
@@ -925,8 +962,8 @@ def flash_attention_ragged_kv_quant(
     [B, Hkv, S_max, 1] float32 per-token scales (the engine's 8-bit cache
     layout). The other arguments and the result are flash_attention_ragged's.
     CPU tensors run `_fwd_ragged_q_plain`; CUDA tensors launch the 8-bit
-    kernel of csrc/flash_fwd_ragged.cu (q bf16, d in {64, 128}, int32
-    bounds on the device) or raise."""
+    kernel of `_ragged_cuda`'s route (q bf16, d in {64, 128}, int32 bounds
+    on the device) or raise."""
     disc = _ragged_discipline(stable)
     window, sinks = _band(causal, window, sinks)
     if q.shape[1] % k_q.shape[1]:
@@ -944,7 +981,9 @@ def flash_attention_ragged_kv_quant(
 
 
 # kernel launches by discipline, for showing that a path ran the kernel,
-# and those of them with a window
+# those of them with a window, and by route (ops.paged_decode.ragged_plan)
 flash_attention_ragged_kv_quant.launches = 0
 flash_attention_ragged_kv_quant.fixed_launches = 0
 flash_attention_ragged_kv_quant.window_launches = 0
+flash_attention_ragged_kv_quant.slab_launches = 0
+flash_attention_ragged_kv_quant.wgmma_launches = 0

@@ -42,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -597,6 +598,63 @@ def extend_n_splits(batch: int, kv_heads: int, row_tiles: int, capacity: int,
     want = H100_SMS * _blocks_per_sm(d) // max(batch * kv_heads * row_tiles, 1)
     n = max(1, min(want, tiles // 2, _EXTEND_MAX_SPLITS))
     return -(-tiles // -(-tiles // n))  # whole tiles, none of them empty
+
+
+# The ragged forward's two routes on the card (flash_attention_ragged and
+# _kv_quant): "slab", the paged extend's block over the linear cache
+# (csrc/ragged_slab.cu), and "wgmma", the dense forward's kernel in its
+# ragged flavour (csrc/flash_fwd_ragged.cu). Chunks of fewer than
+# RAGGED_WGMMA_MIN_T tokens take the slab route. Which route wins turns on
+# the rows' lengths, which stay on the device, more than on B: on an H100
+# at 16/4 heads (PERF.md, tools/ab_ragged.py --threshold) the slab route
+# lost from T 8 at 512 cached keys a row, at B 1 to 8 alike (27% at B 8,
+# T 8; 63% at T 14), and won up to T 16 at long rows (1500 keys at B 1,
+# the verify's lengths to 2048 at B 8; the wgmma route 34% behind at T 10,
+# 15% at T 16; at B 1 the slab route won to T 32 there). The cut at 9
+# keeps the larger of the two losses smallest
+# (27% and 34%, against 63% and 15% with the cut at 16): past G * T = 32
+# folded rows the slab route's blocks take 64 rows.
+RAGGED_SLAB = "slab"
+RAGGED_WGMMA = "wgmma"
+RAGGED_WGMMA_MIN_T = 9
+
+
+class RaggedPlan(NamedTuple):
+    """How the ragged forward cuts a call on the card: its route, the query
+    rows a block holds (the slab route's folded G * T rows, 16, 32 or 64;
+    the wgmma route's query rows, 64 or 128), the row tiles, and the splits
+    of the keys (the slab route's; the wgmma route takes one) of block_s
+    keys each."""
+
+    route: str
+    block_rows: int
+    row_tiles: int
+    n_splits: int
+    block_s: int
+
+
+def ragged_plan(b: int, hq: int, hkv: int, t: int, s_max: int, d: int = 128,
+                quant: bool = False) -> RaggedPlan:
+    """The route and cut of a ragged forward call [b, hq, t, d] against a
+    cache of s_max rows and hkv KV heads (8-bit with quant), from static
+    shapes only (the lengths stay on the device). T < RAGGED_WGMMA_MIN_T
+    (the linear speculative verify, T = spec_k + 1, and chunks of a few
+    tokens): the slab route, as the paged extend cuts a call (`extend_block_rows`,
+    `extend_n_splits` over the capacity s_max, `default_block_s`). Else the
+    wgmma route: blocks of 64 query rows where their grid fits one wave of
+    the card's SMs (and always over an 8-bit cache), else 128; one split."""
+    tiles = -(-s_max // _TILE)
+    if t < RAGGED_WGMMA_MIN_T:
+        rows = hq // hkv * t
+        block_rows = extend_block_rows(rows)
+        row_tiles = -(-rows // block_rows)
+        n_splits = extend_n_splits(b, hkv, row_tiles, s_max, d)
+        return RaggedPlan(RAGGED_SLAB, block_rows, row_tiles, n_splits,
+                          default_block_s(s_max, n_splits))
+    fits = -(-t // 64) * hq * b <= H100_SMS
+    block_rows = 64 if quant or fits else 128
+    return RaggedPlan(RAGGED_WGMMA, block_rows, -(-t // block_rows), 1,
+                      tiles * _TILE)
 
 
 def _check_kernel_page(page: int, what: str) -> None:
