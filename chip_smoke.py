@@ -170,7 +170,20 @@ width, with random weights from a seed:
     graph's replay bit-equal; the kernel alone, the whole call and SDPA on
     the K/V gathered into a linear cache (a yardstick, not the same
     function) in turns from CUDA graphs; a profiled speculative round over
-    the int8 pool beside the bf16 one.
+    the int8 pool beside the bf16 one;
+  - the 8-bit linear decode (kernel 7, the same header's 8-bit kernel:
+    byte tiles widened in registers, the split merge on the card): its 32
+    instances built with no spill, UTMALDG and HMMA.16816 and no local
+    load or store in their SASS; the whole call and the kernel's partials
+    against the plain version, int8 and e4m3, at the serving shape, with
+    the serving window and at the edges of its tiles and splits; one
+    device operation a call and a graph's replay bit-equal; one launch a
+    layer in the profiled int8 linear decode step;
+  - the dense 8-bit forward (flash_fwd_sm90.cuh's block body over widened
+    byte tiles, 64- and 128-row blocks): its 32 instances built with no
+    spill, HGMMA and UTMALDG and no HMMA.16816 in their SASS; O, LSE and
+    the guard's count against the plain version at its row-block and tile
+    edges in the three disciplines, int8 and e4m3.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -1059,6 +1072,46 @@ def phase_dec_sm90_build(build_log: str, label):
                     for inst, c in sorted(counts.items())) + f" [{label}]")
 
 
+# kernel 7, the 8-bit linear decode (flash_decode_sm90.cuh's 8-bit kernel):
+# int8 instances in flash_decode_q.cu, e4m3 in flash_decode_q_fp8.cu
+DEC_Q_KERNEL = "flash_decode_q_sm90_kernel"
+DEC_Q_OBJECTS = {"flash_decode_q.cu": "int8", "flash_decode_q_fp8.cu": "e4m3"}
+DEC_Q_SOURCE = f"{PKG}/csrc/flash_decode_q.cu"
+
+
+def dec_q_instance(sym: str):
+    """(d, G, cache, window) of a flash_decode_q_sm90_kernel instance's
+    symbol, or None for another symbol."""
+    name, rest = mangled_name(sym)
+    if name != DEC_Q_KERNEL:
+        return None
+    m = re.match(r"ILi(\d+)ELi(\d+)E(a|13__nv_fp8_e4m3)Lb([01])E", rest)
+    return (int(m.group(1)), int(m.group(2)),
+            "int8" if m.group(3) == "a" else "e4m3", int(m.group(4)))
+
+
+def phase_dec_q_build(build_log: str, label):
+    """Kernel 7's 32 instances (d 64 and 128, G 1, 2, 4 and 8, int8 and
+    e4m3, without and with a window) through `wgmma_gate` with mma.sync in
+    place of wgmma: built with no spill, each type in its source's object,
+    with UTMALDG (the TMA ring) and HMMA.16816 (both products) and no
+    local load or store in each SASS."""
+    counts = wgmma_gate(build_log, DEC_Q_KERNEL, dec_q_instance,
+                        {src: (lambda inst, kv=kv: inst[2] == kv)
+                         for src, kv in DEC_Q_OBJECTS.items()},
+                        {(d, g, kv, w) for d in (64, 128) for g in (1, 2, 4, 8)
+                         for kv in DEC_Q_OBJECTS.values() for w in (0, 1)},
+                        need=("UTMALDG", "HMMA.16816"), forbid=("LDL", "STL"))
+    regs = ptxas_registers(build_log, dec_q_instance)
+    log("8-bit linear decode (kernel 7): 32 instances (d, G, cache, window) "
+        "built with no spill, no local load or store; SASS (UTMALDG, "
+        "HMMA.16816): " + ", ".join(
+            f"{inst}: {c['UTMALDG']}/{c['HMMA.16816']}"
+            for inst, c in sorted(counts.items()))
+        + "; registers: " + ", ".join(f"{inst}: {r}" for inst, r in sorted(regs.items()))
+        + f" [{label}]")
+
+
 def time_turns(fns: dict, device, iters: int = 50) -> dict:
     """Each closure's ms from CUDA graphs, measured in turns: in order and
     then in reverse order, the smaller of its two."""
@@ -1172,6 +1225,68 @@ def dec_edges(device, label, shapes=DEC_EDGE_SHAPES):
         worst = max(worst, float((o.float() - po.float()).abs().max()))
         log(f"{what}: rel-L2 {_rel_l2(o, po):.3e} (partials "
             f"{_rel_l2(merged, po):.3e}) [{label}]")
+    return worst
+
+
+# (b, hq, hkv, s, d, lengths, n_splits, window, sinks) at the edges of
+# kernel 7's tiles and splits: lengths 0, 1, 63, 64, 65 and S with S off the
+# tile, G 1, 2, 4 and 8, d 64 and 128, the default splits (whole tiles), a
+# caller's three (off the tile), a window wider than a tile with sinks past
+# one, and one split
+DEC_Q_EDGE_SHAPES = (
+    [(6, hq, hkv, 200, d, [0, 1, 63, 64, 65, 200], n, window, sinks)
+     for d in (64, 128) for hq, hkv in ((2, 2), (4, 2), (4, 1), (8, 1))
+     for n, window, sinks in ((None, 0, 0), (3, 0, 0), (None, 70, 66))]
+    + [(3, 8, 8, 301, 128, [301, 300, 17], 1, 0, 0)])
+
+
+def dec_q_edges(device, label, shapes=DEC_Q_EDGE_SHAPES):
+    """Kernel 7 (flash_decode_int8, one launch, the splits merged on the
+    card) and its partials through `merge_partials` against the plain
+    version at `shapes`, int8 and e4m3 (rel-L2 1e-2); a row of length 0
+    exactly 0; a length above S bit-equal to S. Returns the largest max-abs
+    error."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    worst = 0.0
+    for fmt in FMTS:
+        for b, hq, hkv, s, d, lens, n_splits, window, sinks in shapes:
+            q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+            k, ks = quantized(gen, device, (b, hkv, s, d), fmt)
+            v, vs = quantized(gen, device, (b, hkv, s, d), fmt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+            kw = dict(n_splits=n_splits, window=window or None, sinks=sinks)
+            n = n_splits or fd.q_n_splits(b, hkv, s, d)
+            block_s = fd.default_block_s(s, n) if n_splits is None else -(-s // n)
+            args = (q, k, ks, v, vs, lengths, n, block_s, d ** -0.5, window,
+                    sinks)
+            o = fd.flash_decode_int8(q, k, ks, v, vs, lengths, **kw)
+            merged = fd.merge_partials(*fd._decode_partials_q_cuda(*args))
+            po = fd._decode_q_plain(*args)
+            over = fd.flash_decode_int8(q, k, ks, v, vs, lengths + s, **kw)
+            at_s = fd.flash_decode_int8(q, k, ks, v, vs,
+                                        torch.full_like(lengths, s), **kw)
+            torch.cuda.synchronize()
+            what = (f"flash_decode_q {fmt} edge b{b} hq{hq} hkv{hkv} s{s} d{d} "
+                    f"{n} splits of {block_s} lengths {lens} window {window} "
+                    f"sinks {sinks}")
+            assert o.shape == q.shape and torch.isfinite(o).all(), what
+            for name, got in (("whole call", o), ("kernel partials + plain merge",
+                                                  merged.reshape(b, hq, d))):
+                err = _rel_l2(got, po)
+                if not err <= O_TOL:
+                    raise AssertionError(f"{what}: {name} rel-L2 {err:.3e} > {O_TOL}")
+            if any(float(o[i].float().abs().max()) != 0.0
+                   for i, n_b in enumerate(lens) if n_b == 0):
+                raise AssertionError(f"{what}: a row of length 0 is not 0")
+            if not torch.equal(over, at_s):
+                raise AssertionError(f"{what}: a length above S differs from S")
+            worst = max(worst, float((o.float() - po.float()).abs().max()))
+            log(f"{what}: rel-L2 {_rel_l2(o, po):.3e} (partials "
+                f"{_rel_l2(merged.reshape(b, hq, d), po):.3e}) [{label}]")
     return worst
 
 
@@ -1929,6 +2044,54 @@ def ragged_instance(sym: str):
             EXT_TYPES[m.group(5)])
 
 
+# the dense forward over an 8-bit cache (flash_fwd_sm90.cuh's block body
+# behind flash_fwd_q_sm90_kernel), by source: (cache type, disciplines)
+FWD_Q_KERNEL = "flash_fwd_q_sm90_kernel"
+FWD_Q_OBJECTS = {"flash_fwd_q.cu": ("int8", 0), "flash_fwd_q_fixed.cu": ("int8", 1),
+                 "flash_fwd_q_hybrid.cu": ("int8", 2), "flash_fwd_q_fp8.cu": ("e4m3", 0),
+                 "flash_fwd_q_fp8_fixed.cu": ("e4m3", 1),
+                 "flash_fwd_q_fp8_hybrid.cu": ("e4m3", 2)}
+
+
+def fwd_q_instance(sym: str):
+    """(d, band, disc, block rows, cache type) of a flash_fwd_q_sm90_kernel
+    instance's symbol, or None."""
+    name, rest = mangled_name(sym)
+    if name != FWD_Q_KERNEL:
+        return None
+    m = re.match(r"ILi(\d+)ELb(\d)ELi(\d)ELi(\d+)E(a|13__nv_fp8_e4m3)E", rest)
+    return (int(m.group(1)), int(m.group(2)), int(m.group(3)), int(m.group(4)),
+            EXT_TYPES[m.group(5)])
+
+
+def phase_fwd_q_build(build_log: str, label):
+    """The dense 8-bit forward's 32 instances (d 64 and 128, without and
+    with a band, the three disciplines, int8 and e4m3, in blocks of 64
+    rows, and of 128 without a band online and fixed-max) through
+    `wgmma_gate`: each in its source's object (one cache type and
+    discipline a source), none spilling, none with a stack frame or a
+    local load or store, each with HGMMA and UTMALDG and no HMMA.16816 (the
+    mma.sync body is gone)."""
+    want = {(d, w, c, rows, kv) for d in (64, 128) for w in (0, 1)
+            for c in (0, 1, 2)
+            for rows in ((64, 128) if c < 2 and not w else (64,))
+            for kv in ("int8", "e4m3")}
+    counts = wgmma_gate(
+        build_log, FWD_Q_KERNEL, fwd_q_instance,
+        {src: (lambda inst, kv=kv, disc=disc: inst[4] == kv and inst[2] == disc)
+         for src, (kv, disc) in FWD_Q_OBJECTS.items()}, want,
+        forbid=("HMMA.16816", "LDL", "STL"))
+    frames = no_stack_frames(build_log, fwd_q_instance)
+    regs = ptxas_registers(build_log, fwd_q_instance)
+    log(f"dense 8-bit forward: {len(counts)} instances (d, band, disc, rows, "
+        f"cache) built with no spill and no stack frame ({frames} frames of 0 "
+        f"bytes), no local load or store; SASS HGMMA/UTMALDG: "
+        + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}"
+                    for inst, c in sorted(counts.items()))
+        + "; registers: " + ", ".join(f"{inst}: {r}" for inst, r in sorted(regs.items()))
+        + f" [{label}]")
+
+
 def slab_instance(sym: str):
     """(d, block rows, cache type, call: 1 plain, 2 general) of a
     ragged_slab_sm90_kernel instance's symbol, or None."""
@@ -2307,18 +2470,22 @@ def kernel_8bit_check(name, got, want, entry, fmt):
 
 
 def phase_decode_8bit(device, b, hq, hkv, s, d, label):
-    """The 8-bit linear decode kernel against `_decode_partials_q_plain`
-    through the same merge, int8 and e4m3, ragged lengths with one slot
-    empty and one full; the bf16 kernel timed on the dequantized cache in
-    the same call. Returns its JSON entry, timed on int8 (no PyTorch call
-    attends over an 8-bit cache with scales: library_ms is null)."""
+    """Kernel 7, the 8-bit linear decode (flash_decode_sm90.cuh's 8-bit
+    kernel), against `_decode_partials_q_plain` through `merge_partials`,
+    int8 and e4m3: at the serving shape, ragged lengths with one slot empty
+    and one full, then at its tile and split edges (`dec_q_edges`); one
+    device operation a call and a CUDA graph's replay bit-equal; the whole
+    call and the kernel alone (its partials) timed in turns from CUDA
+    graphs, beside the plain version and the bf16 decode's whole call on
+    the dequantized cache. Returns its JSON entry, timed on int8 (no
+    PyTorch call attends over an 8-bit cache with scales: library_ms is
+    null)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
 
     gen = torch.Generator(device=device).manual_seed(31)
-    entry = dict(name="flash_decode_q", route="cuda",
-                 source=f"{PKG}/csrc/flash_decode.cu",
+    entry = dict(name="flash_decode_q", route="cuda", source=DEC_Q_SOURCE,
                  replaces=f"{TPU}/flash_decode.py:102", max_abs_err=0.0,
                  library_ms=None)
     q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
@@ -2326,37 +2493,55 @@ def phase_decode_8bit(device, b, hq, hkv, s, d, label):
                             dtype=torch.int32)
     lengths[0] = 0
     lengths[-1] = s
-    n_splits = fd._core_n_splits(b, hkv, s)
-    block_s = -(-s // n_splits)
+    n_splits = fd.q_n_splits(b, hkv, s, d)
+    block_s = fd.default_block_s(s, n_splits)
     live = int(lengths.sum())
     for fmt in FMTS:
         k, ks = quantized(gen, device, (b, hkv, s, d), fmt)
         v, vs = quantized(gen, device, (b, hkv, s, d), fmt)
         args = (q, k, ks, v, vs, lengths, n_splits, block_s, d ** -0.5)
         o = fd.flash_decode_int8(q, k, ks, v, vs, lengths)
-        po = fd.merge_partials(*fd._decode_partials_q_plain(*args)).reshape(b, hq, d)
+        po = fd._decode_q_plain(*args)
         err, max_abs = kernel_8bit_check("flash_decode_q", o, po, entry, fmt)
         assert float(o[0].float().abs().max()) == 0.0  # the empty slot
-        ms, plain_ms = time_pair(lambda: fd._decode_partials_q_cuda(*args),
-                                 lambda: fd._decode_partials_q_plain(*args),
-                                 device, iters=50)
+
+        def call():
+            return fd.flash_decode_int8(q, k, ks, v, vs, lengths)
+
+        ops, graph_ops = device_ops(call), graph_device_ops(call)
+        if len(ops) != 1 or len(graph_ops) != 1:
+            raise AssertionError(f"flash_decode_q {fmt}: one call ran {ops} (a "
+                                 f"captured call: {graph_ops}); one expected")
+        if not graph_bit_equal(call):
+            raise AssertionError(f"flash_decode_q {fmt}: a CUDA graph's replay "
+                                 f"differs")
+        times = time_turns({
+            "call": call,
+            "kernel": lambda: fd._decode_partials_q_cuda(*args)}, device)
+        plain_ms = time_ms(lambda: fd._decode_q_plain(*args), device, iters=50,
+                           graph=True)
         kb, vb = dequantized_bf16(k, ks), dequantized_bf16(v, vs)
-        bf16_ms = time_ms(lambda: fd._decode_partials_cuda(
-            q, kb, vb, lengths, n_splits, block_s, d ** -0.5), device,
-            iters=50, graph=True)
+        bf16_ms = time_ms(lambda: fd.flash_decode(q, kb, vb, lengths), device,
+                          iters=50, graph=True)
+        del kb, vb
         bnd = bound(4 * live * hq * d, nbytes(q, o) + bytes_8bit(live, hkv, d))
-        log(f"flash_decode_q {fmt} b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits="
-            f"{n_splits} lengths={lengths.tolist()}: rel-L2 {err:.3e}, max-abs "
-            f"{max_abs:.3e} | kernel {ms:.4f} ms "
-            f"({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s of live K/V and "
-            f"scales) vs plain partials {plain_ms:.4f} ms | the bf16 kernel on "
-            f"the dequantized cache {bf16_ms:.4f} ms | bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{label}]")
+        log(f"flash_decode_q {fmt} b{b} hq{hq} hkv{hkv} s{s} d{d} {n_splits} "
+            f"splits of {block_s} lengths={lengths.tolist()}: rel-L2 {err:.3e}, "
+            f"max-abs {max_abs:.3e} | one device operation a call ({ops}; "
+            f"captured: {graph_ops}), a CUDA graph's replay bit-equal | in "
+            f"turns from CUDA graphs: whole call {times['call']:.4f} ms "
+            f"({bytes_8bit(live, hkv, d) / times['call'] / 1e6:.1f} GB/s of live "
+            f"K/V and scales, {bnd['bound_ms'] / times['call']:.1%} of its bound "
+            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}), kernel (partials) "
+            f"{times['kernel']:.4f} ms | plain {plain_ms:.4f} ms | the bf16 "
+            f"decode on the dequantized cache {bf16_ms:.4f} ms [{label}]")
         if fmt == "int8":
-            entry.update(ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms, **bnd,
+            entry.update(ms=times["call"], kernel_ms=times["kernel"],
+                         plain_ms=plain_ms, bf16_ms=bf16_ms, **bnd,
                          shape=f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits}")
         else:
-            entry["fp8_ms"] = ms
+            entry["fp8_ms"] = times["call"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], dec_q_edges(device, label))
     return entry
 
 
@@ -3598,8 +3783,9 @@ def device_ms_by_kind(prof) -> dict:
             continue
         key = e.key
         fwd = re.search(r"flash_fwd(_q)?_kernel<\d+, (\d)", key)
-        ours = re.search(r"(paged|flash)_(decode|extend)(_q|_sm90)?_kernel", key)
-        sm90 = re.search(r"(flash_fwd|flash_fwd_ragged|ragged_slab)_sm90_kernel", key)
+        ours = re.search(r"(paged|flash)_(decode|extend)(_q)?(_sm90)?_kernel", key)
+        sm90 = re.search(r"(flash_fwd|flash_fwd_q|flash_fwd_ragged|ragged_slab)"
+                         r"_sm90_kernel", key)
         if sm90:
             kind = sm90.group(1)
         elif fwd:
@@ -3625,8 +3811,9 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
     tokens): host milliseconds a step with one host sync a step (the
     Scheduler's pattern), then `window` steps under torch.profiler: device
     time by kind and the device's busy share of the window's wall time.
-    With one_attention_op a paged step must run its attention as one device
-    operation a layer (the paged decode, its splits merged on the card)."""
+    With one_attention_op a step must run its attention as one device
+    operation a layer (the paged decode, the bf16 or the 8-bit linear
+    decode, its splits merged on the card)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3673,13 +3860,15 @@ def profile_decode_steps(device, cfg, params, label, batch=8, length=600,
                 break
         kinds = device_ms_by_kind(prof)
         busy = sum(kinds.values())
-        if one_attention_op and step is engine.decode_step_paged:
+        attn_kernel = (PDEC_KERNEL if step is engine.decode_step_paged
+                       else DEC_Q_KERNEL if quantized else DEC_KERNEL)
+        if one_attention_op:
             attn = sum(e.count for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and PDEC_KERNEL in e.key)
-            log(f"{name} decode step: {attn} paged decode launches in {window} "
+                       if e.device_type == DeviceType.CUDA and attn_kernel in e.key)
+            log(f"{name} decode step: {attn} {attn_kernel} launches in {window} "
                 f"steps of {cfg.n_layers} layers (one a layer expected) [{label}]")
             if attn != window * cfg.n_layers:
-                raise AssertionError(f"{name} decode step: {attn} paged decode "
+                raise AssertionError(f"{name} decode step: {attn} {attn_kernel} "
                                      f"launches, {window * cfg.n_layers} expected")
         log(f"{name} decode step (B={batch}, lengths {length}): {ops / window:.1f} "
             f"device operations a step | {host_ms:.3f} ms"
@@ -4194,7 +4383,7 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
 
     gen = torch.Generator(device=device).manual_seed(59)
     entry = _window_entry("flash_decode", "flash_decode_sm90.cuh", "flash_decode.py:38")
-    entry_q = dict(_window_entry("flash_decode_q", "flash_decode.cu",
+    entry_q = dict(_window_entry("flash_decode_q", "flash_decode_q.cu",
                                  "flash_decode.py:102"), library_ms=None)
     q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
     lengths = torch.tensor(lens, dtype=torch.int32, device=device)
@@ -4202,14 +4391,11 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
     live = _live_keys(lens, window, sinks)
     cases = [("bf16", None)] + [(fmt, fmt) for fmt in FMTS]
     for tag, fmt in cases:
-        # each kernel at its wrapper's default splits: the bf16 decode's
-        # whole tiles, the 8-bit decodes' decode_core.cuh rule
-        if fmt is None:
-            n_splits = fd.default_n_splits(b, hkv, s, d)
-            block_s = fd.default_block_s(s, n_splits)
-        else:
-            n_splits = fd._core_n_splits(b, hkv, s)
-            block_s = -(-s // n_splits)
+        # each kernel at its wrapper's default splits, whole tiles at the
+        # blocks an SM holds of it
+        n_splits = (fd.default_n_splits if fmt is None else fd.q_n_splits)(
+            b, hkv, s, d)
+        block_s = fd.default_block_s(s, n_splits)
         shape = (f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits} "
                  f"lengths{lens} window{window} sinks{sinks}")
         if fmt is None:
@@ -4224,7 +4410,8 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
             kq, ks = quantized(gen, device, (b, hkv, s, d), fmt)
             vq, vs = quantized(gen, device, (b, hkv, s, d), fmt)
             cache = (kq, ks, vq, vs)
-            wrapper, cuda, plain = (fd.flash_decode_int8, fd._decode_partials_q_cuda,
+            # the 8-bit decode's whole call, one launch
+            wrapper, cuda, plain = (fd.flash_decode_int8, fd._decode_q_cuda,
                                     fd._decode_partials_q_plain)
             kv_bytes = bytes_8bit(live, hkv, d)
             ent = entry_q
@@ -4263,6 +4450,15 @@ def phase_window_decode(device, b, hq, hkv, s, d, lens, window, sinks, label):
         if not ms <= 1.05 * full_ms:
             raise AssertionError(f"{ent['name']} {tag}: windowed {ms:.4f} ms > "
                                  f"the full decode's {full_ms:.4f} ms")
+        if fmt is not None:
+            def call():
+                return wrapper(q, *cache, lengths, window=window, sinks=sinks)
+
+            ops = graph_device_ops(call)
+            if len(ops) != 1 or not graph_bit_equal(call):
+                raise AssertionError(f"{ent['name']} {tag} with a window: a "
+                                     f"captured call holds {ops} (one expected), "
+                                     f"or its replay differs")
         if fmt == "fp8":
             entry_q["fp8_ms"] = ms
         elif fmt is None:  # the row's time is the whole call's
@@ -4369,7 +4565,7 @@ def plain_attention():
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
 
-    saved = fa._fwd, fd._decode_cuda, fd._decode_partials_q_cuda
+    saved = fa._fwd, fd._decode_cuda, fd._decode_q_cuda
 
     def fwd(q, k, v, causal, sm_scale, q_offset, window=0, sinks=0,
             disc=fa.ONLINE, k_max=None, pack=False):
@@ -4378,11 +4574,11 @@ def plain_attention():
 
     fa._fwd = fwd
     fd._decode_cuda = fd._decode_plain
-    fd._decode_partials_q_cuda = fd._decode_partials_q_plain
+    fd._decode_q_cuda = fd._decode_q_plain
     try:
         yield
     finally:
-        fa._fwd, fd._decode_cuda, fd._decode_partials_q_cuda = saved
+        fa._fwd, fd._decode_cuda, fd._decode_q_cuda = saved
 
 
 def phase_window_slices(device, cfg, params, draft_cfg, draft_params, prompts,
@@ -4745,13 +4941,65 @@ def phase_ragged_fixed(device, b, hq, hkv, t, s, lens, offs, d, label):
     return entry, entry_q
 
 
+# (b, hq, hkv, n, s, d, causal, q_offset, window, sinks) at the edges of the
+# dense 8-bit forward's row blocks and 64-key tiles: N and S on, under and
+# past them, a q_offset, non-causal, a window wider than a tile with sinks
+# past one, d 64 and 128; 4 q heads in 64-row blocks (their grid fits one
+# wave of the SMs), 16 in 128-row ones
+FWD_Q_EDGE_SHAPES = [
+    (1, hq, 2, n, s, d, causal, off, window, sinks) for d in (64, 128)
+    for hq, n, s, causal, off, window, sinks in (
+        (4, 63, 63, True, 0, 0, 0), (4, 65, 130, True, 65, 0, 0),
+        (4, 129, 129, True, 0, 0, 0), (4, 200, 333, False, 0, 0, 0),
+        (4, 200, 333, True, 133, 0, 0), (4, 300, 300, True, 0, 100, 66),
+        (4, 129, 700, True, 571, 70, 3), (16, 1100, 1100, True, 0, 0, 0),
+        (16, 1025, 1000, False, 0, 0, 0), (16, 700, 900, True, 200, 300, 70))]
+
+
+def fwd_q_edges(device, entry, label, shapes=FWD_Q_EDGE_SHAPES):
+    """The dense 8-bit forward against `_fwd_q_plain` at `shapes`, int8 and
+    e4m3, in the three disciplines: O within 1e-2, LSE within 1e-3 (the
+    same rows with no key), and the fixed-max guard's count equal to the
+    plain version's, on these inputs and on rows scaled past its range."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(83)
+    for fmt in FMTS:
+        for b, hq, hkv, n, s, d, causal, off, window, sinks in shapes:
+            q = torch.randn(b, hq, n, d, generator=gen, device=device).bfloat16()
+            cache = (*quantized(gen, device, (b, hkv, s, d), fmt),
+                     *quantized(gen, device, (b, hkv, s, d), fmt))
+            k_max = fa.k_max_norm(cache[0], cache[1])
+            what = (f"flash_fwd_q {fmt} edge b{b} hq{hq} hkv{hkv} n{n} s{s} d{d} "
+                    f"causal {causal} q_offset {off} window {window} sinks {sinks}")
+            for disc in (fa.ONLINE, fa.FIXED, fa.HYBRID):
+                args = (q, *cache, causal, d ** -0.5, off, window, sinks, disc,
+                        k_max if disc == fa.HYBRID else None)
+                o, lse = fa._fwd_q_cuda(*args)
+                po, plse = fa._fwd_q_plain(*args)
+                _hold(f"{what} disc {disc}", entry, o, po, lse, plse)
+            for scale in (1.0, 40.0):  # bounded rows, then rows past the range
+                args = (q * scale, *cache, causal, d ** -0.5, off, window, sinks,
+                        fa.FIXED)
+                bad = int(fa._fwd_q_cuda(*args, guard=True)[2])
+                pbad = int(fa._fwd_q_plain(*args, guard=True)[2])
+                if bad != pbad:
+                    raise AssertionError(f"{what}: the guard counts {bad} rows "
+                                         f"at q x {scale}, plain {pbad}")
+            log(f"{what}: O, LSE and the guard's count hold in the three "
+                f"disciplines [{label}]")
+
+
 def phase_kv_quant(device, b, hq, hkv, n, d, label):
-    """The dense 8-bit forward (flash_attention_kv_quant_with_lse) over int8
-    and e4m3 caches in each discipline against `_fwd_q_plain`, O and LSE,
-    at run_all.py's 4K kvq rung (causal); each timed, beside the bf16
-    fixed-max kernel on the dequantized cache. The int8 fixed-max time
-    stands for the kernel (library_ms null: no PyTorch call attends an
-    8-bit cache)."""
+    """The dense 8-bit forward (flash_attention_kv_quant_with_lse,
+    flash_fwd_sm90.cuh's block body over widened byte tiles) over int8 and
+    e4m3 caches in each discipline against `_fwd_q_plain`, O and LSE, at
+    run_all.py's 4K kvq rung (causal); each timed, beside the bf16
+    fixed-max kernel on the dequantized cache; then at its blocks' and
+    tiles' edges (`fwd_q_edges`). The int8 fixed-max time stands for the
+    kernel (library_ms null: no PyTorch call attends an 8-bit cache)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
@@ -4799,6 +5047,7 @@ def phase_kv_quant(device, b, hq, hkv, n, d, label):
                          shape=f"b{b} hq{hq} hkv{hkv} n{n} d{d} causal, fixed-max")
         else:
             entry["fp8_ms"] = times[False][0]
+    fwd_q_edges(device, entry, label)
     return entry
 
 
@@ -5695,13 +5944,21 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
         ms, plain_ms = time_pair(lambda: fd._decode_partials_mxu_cuda(*args),
                                  lambda: fd._decode_partials_mxu_plain(*args),
                                  device, iters=50)
-        args7 = (*args[:7], -(-s // n_splits), *args[8:])
-        cast_ms = time_ms(lambda: fd._decode_partials_q_cuda(*args7), device,
-                          iters=50, graph=True)
+        # kernel 7 (the cast kernel) at its own splits, against its plain
+        # version, one launch a call
+        n7 = fd.q_n_splits(b, hkv, s, d)
+        args7 = (*args[:6], n7, fd.default_block_s(s, n7), *args[8:])
+        err7 = _rel_l2(o7, fd._decode_q_plain(*args7))
+        if not err7 <= O_TOL:
+            raise AssertionError(f"flash_decode_q at {s} keys: rel-L2 "
+                                 f"{err7:.3e} > {O_TOL}")
+        cast_ms = time_ms(lambda: fd._decode_q_cuda(*args7), device, iters=50,
+                          graph=True)
         kb, vb = (dequantized_bf16(*c["cache"][:2]),
                   dequantized_bf16(*c["cache"][2:]))
-        bf16_ms = time_ms(lambda: fd._decode_partials_cuda(
-            c["q"], kb, vb, *args7[5:]), device, iters=50, graph=True)
+        bf16_ms = time_ms(lambda: fd.flash_decode(
+            c["q"], kb, vb, lengths, window=window, sinks=sinks), device,
+            iters=50, graph=True)
         del kb, vb
         live = _live_keys(lens, window, sinks)
         bnd = bound(4 * live * hq * d, nbytes(c["q"], o) + bytes_8bit(live, hkv, d),
@@ -5714,8 +5971,10 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
             f"kernel {ms:.4f} ms ({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s "
             f"of live K/V and scales, {bnd['bound_ms'] / ms:.1%} of its bound "
             f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}) vs plain partials "
-            f"{plain_ms:.4f} ms | the cast kernel (7) {cast_ms:.4f} ms | the "
-            f"bf16 kernel (6) on the dequantized cache {bf16_ms:.4f} ms [{label}]")
+            f"{plain_ms:.4f} ms | the cast kernel (7), whole call, "
+            f"{cast_ms:.4f} ms (rel-L2 {err7:.3e} vs its plain version) | the "
+            f"bf16 decode (6), whole call, on the dequantized cache "
+            f"{bf16_ms:.4f} ms [{label}]")
         times = dict(ms=ms, plain_ms=plain_ms, cast_ms=cast_ms, bf16_ms=bf16_ms,
                      **bnd)
         if i == 0:
@@ -6431,9 +6690,11 @@ def main() -> int:
     phase_gemm_f32_build(build_log, label)
     phase_bwd_sm90_build(build_log, label)
     phase_dec_sm90_build(build_log, label)
+    phase_dec_q_build(build_log, label)
     phase_ext_sm90_build(build_log, label)
     phase_dec_paged_build(build_log, label)
     phase_ragged_build(build_log, label)
+    phase_fwd_q_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill

@@ -5,8 +5,8 @@
 // _decode_kernel_int8_mxu (reached through flash_decode_int8(mxu=True)).
 // Each (batch row, KV head, split) block emits the unnormalized partials
 // (m, l, y) of the G = Hq / Hkv query rows of its group over its split's
-// live keys, as the cast kernel (_decode_kernel_int8, flash_decode.cu)
-// does, but in the TPU kernel's arithmetic:
+// live keys, as the cast kernel (_decode_kernel_int8, kernel 7) does,
+// but in the TPU kernel's arithmetic:
 // - q is quantized per row: qsc = (max|q| == 0 ? 1 : max|q|) / 127,
 //   q_i8 = round(q / qsc), and the row's score scale is qs = qsc * sm_scale;
 // - the score of key j is f32(q_i8 . k_i8) * (qs * ks[j]), an exact int32
@@ -27,7 +27,7 @@
 // (opted in past 48 KB; the wrapper refuses a split that does not fit the
 // 227 KB a block may hold):
 //   0. every warp quantizes its q rows (decode_core.cuh's quantize_q_rows);
-//   1. scores: as in decode_core.cuh, the threads of a key each load 16 (at
+//   1. scores: the threads of a key each load 16 (at
 //      G = 8, 8) bytes of its K row, 8 keys in flight a thread, and __dp4a
 //      them against the row's int8 q bytes; integer shuffles sum the key's
 //      partial dots exactly;
@@ -38,7 +38,7 @@
 //      so that a word holds one dim of the 4 keys, and __dp4a's it against
 //      the 4 keys' weights; the int32 sums meet across the block by integer
 //      shuffles and shared-memory atomics, exact in any order.
-// What bounds it on the H100: bytes, as every decode (decode_core.cuh): a
+// What bounds it on the H100: bytes, as every decode: a
 // key costs 2 * d + 8 bytes and 4 * G * d integer operations, far below the
 // card's ridge, so the CUDA cores' __dp4a keeps up and the tensor cores
 // (mma.m16n8k32, which would waste 12 of its 16 rows at G = 4) would buy

@@ -37,34 +37,13 @@ int launch(const Params& p, const void* k, const void* v, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for d (64, 128), g (1, 2, 4, 8) and the window (> 0: the
-// band's instance); cudaErrorInvalidValue for another d or g.
+// The instance for the call's d, g and window (by_shape).
 int launch_any(int d, int g, const Params& p, const void* k, const void* v,
                int b, cudaStream_t stream) {
-  const auto by_window = [&](auto dc, auto gc) {
-    constexpr int kD = decltype(dc)::value;
-    constexpr int kG = decltype(gc)::value;
-    return p.window > 0 ? launch<kD, kG, true>(p, k, v, b, stream)
-                        : launch<kD, kG, false>(p, k, v, b, stream);
-  };
-  const auto by_group = [&](auto dc) {
-    switch (g) {
-      case 1: return by_window(dc, std::integral_constant<int, 1>{});
-      case 2: return by_window(dc, std::integral_constant<int, 2>{});
-      case 4: return by_window(dc, std::integral_constant<int, 4>{});
-      case 8: return by_window(dc, std::integral_constant<int, 8>{});
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  };
-  if (d == 64) return by_group(std::integral_constant<int, 64>{});
-  if (d == 128) return by_group(std::integral_constant<int, 128>{});
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the call's shape as the kernel takes it, or false
-bool valid(int b, int hq, int hkv, int s, int n_splits, int block_s) {
-  return b > 0 && hkv > 0 && hq % hkv == 0 && s > 0 && n_splits > 0 &&
-         block_s > 0 && b <= 65535 && hkv <= 65535;
+  return by_shape(d, g, p.window, [&](auto dc, auto gc, auto wc) {
+    return launch<decltype(dc)::value, decltype(gc)::value, decltype(wc)::value>(
+        p, k, v, b, stream);
+  });
 }
 
 }  // namespace

@@ -1,9 +1,13 @@
-// The bf16 linear-cache decode for Hopper (sm_90a): one new token per
+// The linear-cache decodes for Hopper (sm_90a): one new token per
 // sequence against a linear bf16 KV cache, split over the keys, with
 // 64-key K/V tiles through a TMA ring, both products on the tensor cores,
 // and the splits merged on the card. flash_decode_sm90.cu builds its
 // instances (d in {64, 128} x G = Hq / Hkv in {1, 2, 4, 8} x with and
-// without a window: 16) and the C entries.
+// without a window: 16) and the C entries. The same block over an 8-bit
+// cache (kernel 7, flash_decode_q_sm90_kernel below: the ring, the split
+// merge and the entries' contract, over byte tiles widened in registers)
+// is built by flash_decode_q.cu (int8, and the 8-bit entries) and
+// flash_decode_q_fp8.cu (e4m3), whose head says what it replaces.
 //
 // Replaces flashattention_kernel_project_tpu/ops/flash_decode.py::
 // _decode_kernel (:38, pallas_call :392), reached through flash_decode for
@@ -40,11 +44,11 @@
 //   one max a row (two shuffles), one rescale and one exp2 a (row, key),
 //   in the log2 domain in f32, and P V from ldmatrix.trans fragments of
 //   the V tile with p as a bf16 hi + lo pair (about 16 bits of p, the
-//   precision of the earlier decodes). decode_core.cuh, which kernel 7 and
-//   the paged decodes keep, gave one key to 16 threads, each with its own
-//   online state for all G rows: two exp2 and four shuffles a key and row,
-//   and the accumulator rescaled a key at a time. The warps' states merge
-//   through shared memory (the ring's, free after the loop).
+//   precision of the earlier decodes). The CUDA-core decode body this
+//   replaced gave one key to 16 threads, each with its own online state
+//   for all G rows: two exp2 and four shuffles a key and row, and the
+//   accumulator rescaled a key at a time. The warps' states merge through
+//   shared memory (the ring's, free after the loop).
 // - Splits sized for any batch by the wrapper (ops/flash_decode.py::
 //   default_n_splits: whole 64-key tiles, at least two a split, and as
 //   many as fill the SMs at the blocks an SM holds; one split where B *
@@ -66,6 +70,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,6 +78,7 @@
 
 #include "mma.cuh"
 #include "sm90.cuh"
+#include "widen.cuh"
 
 namespace fkp_dec90 {
 
@@ -114,6 +120,30 @@ struct Layout {
   static constexpr int kMinBlocks = D == 64 ? 4 : 2;
 };
 
+// Shared memory of the 8-bit instances: the ring's stages, each the K
+// tile's 64 rows of D bytes, then V's, then the tile's 64 K and 64 V
+// scales (f32), rounded up to 1 KB so that every tile keeps the swizzle's
+// 1024-byte alignment, after up to 1 KB of alignment slack (52 KB at
+// d = 128, 28 KB at d = 64). kMinBlocks: the blocks an SM holds, set by
+// the registers (__launch_bounds__), whose shared memory the SM holds too
+// (ops/flash_decode.py::_blocks_per_sm_q computes the same).
+template <int D>
+struct LayoutQ {
+  static constexpr int kTileBytes = kTile * D;  // K or V, a byte a value
+  static constexpr int kScaleOff = 2 * kTileBytes;  // in a stage: K's, then V's
+  static constexpr int kStageBytes =
+      (2 * kTileBytes + 2 * kTile * 4 + 1023) / 1024 * 1024;
+  static constexpr int kBytes = 1024 + kStages * kStageBytes;
+  static constexpr int kMinBlocks = D == 64 ? 4 : 3;
+  // (2 KB a block besides: its static shared memory and the 1 KB the
+  // runtime reserves)
+  static_assert(kMinBlocks * (kBytes + 2048) <= 233472,
+                "the SM holds kMinBlocks blocks' shared memory");
+  static_assert(kStages * kStageBytes >= kWarps * 8 * D * 4 &&
+                    kStages * kStageBytes >= kMergeSplits * 8 * 2 * 4,
+                "the warps' states and the merge reuse the ring");
+};
+
 // What a launch takes besides the two TMA maps. m, l [b, hkv, n_splits,
 // G] and y [b, hkv, n_splits, G, D] f32 hold each split's partials (m in
 // natural-log units, NEG_INF and l = 0 for a split with no live key);
@@ -128,6 +158,9 @@ struct Params {
   int hkv, s, n_splits, block_s;
   float scale_log2;
   int window, sinks;
+  // the 8-bit instances' per-token scales [b, hkv, s, 1] f32 (null for bf16)
+  const float* k_scale = nullptr;
+  const float* v_scale = nullptr;
 };
 
 // The live keys of the split [start, end) of a sequence of `len` keys
@@ -181,6 +214,171 @@ __device__ __forceinline__ uint32_t tile_addr(uint32_t tile, int r, int c) {
          ((((c % kBoxCols) / 8) ^ (r % 8)) << 4);
 }
 
+// The block's end, after the consumer warps have stored their states
+// (sh_m, sh_l: each warp's row max, log2 domain, and sum; sh_acc: its
+// [kWarps][G][D] f32 rows, in the ring's memory) and met at named barrier
+// 1: the warps' states merged, then with one split the block's rows
+// normalised into out, else its partials written and, by the last block
+// of (b, kvh) to arrive, the splits merged into out (the counter reset to
+// 0). Out null: the partials alone. Called by the kConsumers threads.
+template <int D, int G>
+__device__ __forceinline__ void finish(const Params& p, int split, size_t bh,
+                                       const float (*sh_m)[G],
+                                       const float (*sh_l)[G], float* sh_acc,
+                                       int* __restrict__ counters) {
+  __shared__ int sh_last;
+  // the merge's running max, sum of l and rescale factor, a row
+  __shared__ float sh_run_m[G], sh_run_l[G], sh_scale[G];
+  const int tid = threadIdx.x;
+  const bool single = p.out != nullptr && p.n_splits == 1;
+  const size_t part = bh * p.n_splits + split;
+  for (int i = tid; i < G * D; i += kConsumers) {
+    const int r = i / D;
+    float mw = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, sh_m[w][r]);
+    float lt = 0.f, yt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = exp2f(sh_m[w][r] - mw);
+      lt += sh_l[w][r] * c;
+      yt += sh_acc[(w * G + r) * D + i % D] * c;
+    }
+    if (single) {
+      p.out[bh * G * D + i] = __float2bfloat16(lt == 0.f ? 0.f : yt / lt);
+    } else {
+      p.y[part * G * D + i] = yt;
+      if (i % D == 0) {
+        p.m[part * G + r] = lt == 0.f ? kNegInf : mw * kLn2;
+        p.l[part * G + r] = lt;
+      }
+    }
+  }
+  if (p.out == nullptr || single) return;
+
+  // More splits than one: the last block of (b, kvh) to arrive merges the
+  // splits' partials (written by every block before its arrival) and
+  // resets the counter for the next launch.
+  __threadfence();
+  fkp_sm90::named_sync(1, kConsumers);
+  if (tid < G) {
+    sh_run_m[tid] = kNegInf;
+    sh_run_l[tid] = 0.f;
+  }
+  if (tid == 0) {
+    const int arrived = atomicAdd(counters + bh, 1) + 1;
+    sh_last = arrived == p.n_splits;
+    if (sh_last) counters[bh] = 0;
+  }
+  fkp_sm90::named_sync(1, kConsumers);
+  if (!sh_last) return;
+#if defined(FKP_DEC_PROBE) && FKP_DEC_PROBE == 1
+  return;  // a probe (tools/ab_decode.py): the arrival without the merge
+#endif
+  __threadfence();
+  // The merge, kMergeSplits splits at a time in shared memory (the ring's,
+  // free again): their m and l with one load a thread, then each row's max,
+  // the splits' weights and the rescaled sum of l (one thread a row), then
+  // each thread's outputs summed over the splits' y rows, four splits of
+  // loads in flight at once. Rows that see no key give 0.
+  float* const w_s = sh_acc;                     // [kMergeSplits][G]: m, then weights
+  float* const l_s = sh_acc + kMergeSplits * G;  // [kMergeSplits][G]
+  const float* m_bh = p.m + bh * p.n_splits * G;
+  const float* l_bh = p.l + bh * p.n_splits * G;
+  const float* y_bh = p.y + bh * p.n_splits * G * D;
+  constexpr int kPer = (G * D + kConsumers - 1) / kConsumers;  // outputs a thread
+  float yg[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) yg[u] = 0.f;
+  for (int c0 = 0; c0 < p.n_splits; c0 += kMergeSplits) {
+    const int cn = min(kMergeSplits, p.n_splits - c0);
+    for (int j = tid; j < cn * G; j += kConsumers) {
+      w_s[j] = __ldcg(m_bh + c0 * G + j);
+      l_s[j] = __ldcg(l_bh + c0 * G + j);
+    }
+    fkp_sm90::named_sync(1, kConsumers);
+    if (tid < G) {  // row tid: the new max, the weights, the sum of l
+      const float m_old = sh_run_m[tid];
+      float mc = m_old;
+      for (int sp = 0; sp < cn; ++sp) mc = fmaxf(mc, w_s[sp * G + tid]);
+      const float scale = exp2f((m_old - mc) * kLog2e);  // the earlier sums'
+      float lsum = sh_run_l[tid] * scale;
+      for (int sp = 0; sp < cn; ++sp) {
+        const float ls = l_s[sp * G + tid];
+        // a split with no live key weighs nothing
+        const float w = ls == 0.f ? 0.f : exp2f((w_s[sp * G + tid] - mc) * kLog2e);
+        w_s[sp * G + tid] = w;
+        lsum += ls * w;
+      }
+      sh_run_m[tid] = mc;
+      sh_run_l[tid] = lsum;
+      sh_scale[tid] = scale;
+    }
+    fkp_sm90::named_sync(1, kConsumers);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kConsumers;
+      if (i < G * D) yg[u] *= sh_scale[i / D];
+    }
+#pragma unroll 4
+    for (int sp = 0; sp < cn; ++sp) {
+      const float* y_sp = y_bh + (size_t)(c0 + sp) * G * D;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int i = tid + u * kConsumers;
+        if (i < G * D) yg[u] += w_s[sp * G + i / D] * __ldcg(y_sp + i);
+      }
+    }
+    fkp_sm90::named_sync(1, kConsumers);  // before the next chunk's loads
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = tid + u * kConsumers;
+    if (i < G * D) {
+      const float lg = sh_run_l[i / D];
+      p.out[bh * G * D + i] = __float2bfloat16(lg == 0.f ? 0.f : yg[u] / lg);
+    }
+  }
+}
+
+// The shared address of bytes (row r, c..c+15, c a multiple of 16) of an
+// 8-bit K or V tile at `tile` as the TMA lands it: rows of D bytes,
+// 128B-swizzled at d = 128 (16-byte chunk x of row r at x ^ (r % 8)),
+// 64B-swizzled at d = 64 (at x ^ (r / 2 % 4)), so that ldmatrix over 8 key
+// rows of one column, and a warp's 16-byte row pieces, meet no bank
+// conflict.
+template <int D>
+__device__ __forceinline__ uint32_t byte_addr(uint32_t tile, int r, int c) {
+  const uint32_t off = r * D + c;
+  return tile + (off ^ (((off >> 7) & (D == 128 ? 7u : 3u)) << 4));
+}
+
+// Four 8-bit values (a word, value 0 in its low byte) widened exactly to
+// two bf16 pairs, lo (x0, x1) and hi (x2, x3). int8: x = low7 - 128 * sign
+// as the bf16 difference (128 + low7) - (128 + 128 * sign), both terms and
+// the result exact (0x4300 | low7 is 128 + low7, 0x4380 is 256): one
+// PRMT, two LOP3 and one HSUB2 a pair. e4m3 by widen.cuh, then packed.
+template <class KV>
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  if constexpr (std::is_same_v<KV, int8_t>) {
+    const auto pair = [](uint32_t t) {
+      const uint32_t val = (t & 0x007f007fu) | 0x43004300u;
+      const uint32_t off = (t & 0x00800080u) | 0x43004300u;
+      const __nv_bfloat162 r =
+          __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&val),
+                  *reinterpret_cast<const __nv_bfloat162*>(&off));
+      return *reinterpret_cast<const uint32_t*>(&r);
+    };
+    lo = pair(__byte_perm(w, 0u, 0x4140));  // bytes (x0, 0, x1, 0)
+    hi = pair(__byte_perm(w, 0u, 0x4342));
+  } else {
+    float f[4];
+    fkp::Widen<KV>::word(w, f);
+    lo = fkp_mma::pack_bf16(f[0], f[1]);
+    hi = fkp_mma::pack_bf16(f[2], f[3]);
+  }
+}
+
 // One block per (split, KV head, batch row): threads 0..127 are the
 // consumer warps, 128..159 the producer warp. Maps: k and v over [b * hkv,
 // s, D] in boxes of 64 keys x 64 dims. counters: kMaxCounters ints, 0
@@ -195,9 +393,6 @@ __global__ void __launch_bounds__(kThreads, Layout<D>::kMinBlocks)
   __shared__ __align__(8) uint64_t bars[2 * kStages];  // full, empty
   __shared__ float sh_m[kWarps][G];
   __shared__ float sh_l[kWarps][G];
-  __shared__ int sh_last;
-  // the merge's running max, sum of l and rescale factor, a row
-  __shared__ float sh_run_m[G], sh_run_l[G], sh_scale[G];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const auto k_s = [&](int st) { return base + L::kStageBytes * st; };
   const auto v_s = [&](int st) { return k_s(st) + L::kTileBytes; };
@@ -357,116 +552,355 @@ __global__ void __launch_bounds__(kThreads, Layout<D>::kMinBlocks)
     }
   }
   fkp_sm90::named_sync(1, kConsumers);
-  const int tid = threadIdx.x;
-  const bool single = p.out != nullptr && p.n_splits == 1;
-  const size_t part = bh * p.n_splits + split;
-  for (int i = tid; i < G * D; i += kConsumers) {
-    const int r = i / D;
-    float mw = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, sh_m[w][r]);
-    float lt = 0.f, yt = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = exp2f(sh_m[w][r] - mw);
-      lt += sh_l[w][r] * c;
-      yt += sh_acc[(w * G + r) * D + i % D] * c;
-    }
-    if (single) {
-      p.out[bh * G * D + i] = __float2bfloat16(lt == 0.f ? 0.f : yt / lt);
-    } else {
-      p.y[part * G * D + i] = yt;
-      if (i % D == 0) {
-        p.m[part * G + r] = lt == 0.f ? kNegInf : mw * kLn2;
-        p.l[part * G + r] = lt;
-      }
-    }
-  }
-  if (p.out == nullptr || single) return;
-
-  // More splits than one: the last block of (b, kvh) to arrive merges the
-  // splits' partials (written by every block before its arrival) and
-  // resets the counter for the next launch.
-  __threadfence();
-  fkp_sm90::named_sync(1, kConsumers);
-  if (tid < G) {
-    sh_run_m[tid] = kNegInf;
-    sh_run_l[tid] = 0.f;
-  }
-  if (tid == 0) {
-    const int arrived = atomicAdd(counters + bh, 1) + 1;
-    sh_last = arrived == p.n_splits;
-    if (sh_last) counters[bh] = 0;
-  }
-  fkp_sm90::named_sync(1, kConsumers);
-  if (!sh_last) return;
-#if defined(FKP_DEC_PROBE) && FKP_DEC_PROBE == 1
-  return;  // a probe (tools/ab_decode.py): the arrival without the merge
-#endif
-  __threadfence();
-  // The merge, kMergeSplits splits at a time in shared memory (the ring's,
-  // free again): their m and l with one load a thread, then each row's max,
-  // the splits' weights and the rescaled sum of l (one thread a row), then
-  // each thread's outputs summed over the splits' y rows, four splits of
-  // loads in flight at once. Rows that see no key give 0.
-  float* const w_s = sh_acc;                     // [kMergeSplits][G]: m, then weights
-  float* const l_s = sh_acc + kMergeSplits * G;  // [kMergeSplits][G]
-  const float* m_bh = p.m + bh * p.n_splits * G;
-  const float* l_bh = p.l + bh * p.n_splits * G;
-  const float* y_bh = p.y + bh * p.n_splits * G * D;
-  constexpr int kPer = (G * D + kConsumers - 1) / kConsumers;  // outputs a thread
-  float yg[kPer];
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) yg[u] = 0.f;
-  for (int c0 = 0; c0 < p.n_splits; c0 += kMergeSplits) {
-    const int cn = min(kMergeSplits, p.n_splits - c0);
-    for (int j = tid; j < cn * G; j += kConsumers) {
-      w_s[j] = __ldcg(m_bh + c0 * G + j);
-      l_s[j] = __ldcg(l_bh + c0 * G + j);
-    }
-    fkp_sm90::named_sync(1, kConsumers);
-    if (tid < G) {  // row tid: the new max, the weights, the sum of l
-      const float m_old = sh_run_m[tid];
-      float mc = m_old;
-      for (int sp = 0; sp < cn; ++sp) mc = fmaxf(mc, w_s[sp * G + tid]);
-      const float scale = exp2f((m_old - mc) * kLog2e);  // the earlier sums'
-      float lsum = sh_run_l[tid] * scale;
-      for (int sp = 0; sp < cn; ++sp) {
-        const float ls = l_s[sp * G + tid];
-        // a split with no live key weighs nothing
-        const float w = ls == 0.f ? 0.f : exp2f((w_s[sp * G + tid] - mc) * kLog2e);
-        w_s[sp * G + tid] = w;
-        lsum += ls * w;
-      }
-      sh_run_m[tid] = mc;
-      sh_run_l[tid] = lsum;
-      sh_scale[tid] = scale;
-    }
-    fkp_sm90::named_sync(1, kConsumers);
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int i = tid + u * kConsumers;
-      if (i < G * D) yg[u] *= sh_scale[i / D];
-    }
-#pragma unroll 4
-    for (int sp = 0; sp < cn; ++sp) {
-      const float* y_sp = y_bh + (size_t)(c0 + sp) * G * D;
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int i = tid + u * kConsumers;
-        if (i < G * D) yg[u] += w_s[sp * G + i / D] * __ldcg(y_sp + i);
-      }
-    }
-    fkp_sm90::named_sync(1, kConsumers);  // before the next chunk's loads
-  }
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int i = tid + u * kConsumers;
-    if (i < G * D) {
-      const float lg = sh_run_l[i / D];
-      p.out[bh * G * D + i] = __float2bfloat16(lg == 0.f ? 0.f : yg[u] / lg);
-    }
-  }
+  finish<D, G>(p, split, bh, sh_m, sh_l, sh_acc, counters);
 }
+
+// The 8-bit decode (kernel 7): one block per (split, KV head, batch row)
+// as the bf16 kernel's, over an int8 or e4m3 cache (KV) with per-token
+// scales p.k_scale, p.v_scale [b, hkv, s, 1]. Maps: k and v over [b * hkv,
+// s, D] bytes in boxes of 64 keys x D bytes, swizzled (byte_addr). The
+// producer warp's lanes read each tile's 64 K and 64 V scales (0 past the
+// length) into the stage beside it before the first lane issues its two
+// boxes: a scale row is 16-byte aligned for a bulk copy only where s and
+// the tile's first key are multiples of 4. Each consumer warp takes 16
+// keys of a tile, its K and V widened exactly to bf16 in registers, never
+// in shared memory:
+// - S = Q K^T: ldmatrix over the byte tile gives each thread 4 bytes of a
+//   key row, dims 4t..4t+3 of a 16-dim column, which widen to the B
+//   fragment (k 2t, 2t+1 | 2t+8, 2t+9, n g) of those dims taken in that
+//   order; q's A fragment takes its dims in the same order (one 8-byte
+//   load a column, once), so the sum over the dims is the same.
+// - O^T += V^T P^T: the output's dims are the rows of the product and the
+//   group's G <= 8 query rows its 8 columns, so p, the score
+//   accumulator's layout, is the B fragment as it stands (a bf16 hi + lo
+//   pair) and each accumulator register is a real output: D / 16 m-tiles
+//   of 4, two products each. Thread (g, t) takes output dims g * D / 8 ..
+//   + D / 8 - 1 (m-tile mt: rows g and g + 8 are dims g * D / 8 + 2 mt and
+//   + 1), so its A fragments (keys 2t, 2t + 1, 2t + 8, 2t + 9) come from
+//   the 16 (d 64: 8) bytes of those four key rows at its dims, one load a
+//   row, paired by PRMT before the widening.
+// The K scale multiplies the f32 score column before the mask and the
+// max; the V scale folds into p after l has summed it (JAX's order). A
+// tile that ends inside it zeroes its V rows past the end, so that a
+// masked key adds 0 and never 0 * NaN.
+template <int D, int G, class KV, bool kWindow>
+__global__ void __launch_bounds__(kThreads, LayoutQ<D>::kMinBlocks)
+    flash_decode_q_sm90_kernel(const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const Params p, int* __restrict__ counters) {
+  using L = LayoutQ<D>;
+  static_assert(G <= 8, "the group's rows are the 8 columns of P^T");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];  // full, empty
+  __shared__ float sh_m[kWarps][G];
+  __shared__ float sh_l[kWarps][G];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const auto k_s = [&](int st) { return base + L::kStageBytes * st; };
+  const auto v_s = [&](int st) { return k_s(st) + L::kTileBytes; };
+  const auto scales = [&](int st) {  // K's 64, then V's
+    return reinterpret_cast<float*>(base_ptr + L::kStageBytes * st + L::kScaleOff);
+  };
+  const auto full_bar = [&](int st) { return smem_u32(&bars[st]); };
+  const auto empty_bar = [&](int st) { return smem_u32(&bars[kStages + st]); };
+
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int len = min(max(p.lengths[b], 0), p.s);  // lengths above S count as S
+  const int start = split * p.block_s;
+  int s0, e0, s1, e1;
+  window_ranges<kWindow>(start, min(start + p.block_s, len), len, p.window,
+                         p.sinks, s0, e0, s1, e1);
+  const int n0 = s0 < e0 ? (e0 - s0 + kTile - 1) / kTile : 0;
+  const int n_tiles = n0 + (s1 < e1 ? (e1 - s1 + kTile - 1) / kTile : 0);
+  const auto tile_key = [&](int it) {
+    return it < n0 ? s0 + it * kTile : s1 + (it - n0) * kTile;
+  };
+  const size_t bh = (size_t)b * p.hkv + kvh;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar(st), 1);
+      mbar_init(empty_bar(st), kWarps);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const float* ks_bh = p.k_scale + bh * p.s;
+    const float* vs_bh = p.v_scale + bh * p.s;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const int key0 = tile_key(it);
+      float sk[2], sv[2];  // in flight while the wait passes
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int key = key0 + lane + 32 * u;
+        sk[u] = key < len ? __ldg(ks_bh + key) : 0.f;
+        sv[u] = key < len ? __ldg(vs_bh + key) : 0.f;
+      }
+      // the stage's previous tile released by every consumer warp (the
+      // first round passes at once)
+      mbar_wait(empty_bar(st), ((it / kStages) & 1) ^ 1);
+      float* const sc = scales(st);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        sc[lane + 32 * u] = sk[u];
+        sc[kTile + lane + 32 * u] = sv[u];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect_tx(full_bar(st), 2 * L::kTileBytes);
+        tma_load(k_s(st), &k_map, full_bar(st), 0, key0, (int)bh);
+        tma_load(v_s(st), &v_map, full_bar(st), 0, key0, (int)bh);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;  // this thread's fragment row and pair
+  const int w16 = warp * 16;             // the warp's keys in a tile
+  float m = kNegInf, l = 0.f;  // row g over this warp's keys (l: this thread's)
+  // O^T, m-tile mt: (row 2t, dim pd), (2t + 1, pd), (2t, pd + 1), (2t + 1,
+  // pd + 1), pd = g * D / 8 + 2 mt
+  float acc[D / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+
+  if (n_tiles > 0) {
+    // q row g's A fragments (rows 8..15 and rows >= G zero), column c's
+    // dims 4t, 4t + 1 | 4t + 2, 4t + 3
+    const __nv_bfloat16* q_g = p.q + bh * G * D;
+    uint32_t qa[D / 16][2];
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const uint2 x = g < G ? *reinterpret_cast<const uint2*>(q_g + g * D + c * 16 + 4 * t)
+                            : make_uint2(0u, 0u);
+      qa[c][0] = x.x;
+      qa[c][1] = x.y;
+    }
+    const int vcol = g * (D / 8);  // this thread's output dims and V bytes
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const int end = it < n0 ? e0 : e1;
+      const int key0 = tile_key(it);
+      mbar_wait(full_bar(st), (it / kStages) & 1);
+      // the warp's K fragments (matrix i: keys (i % 2) * 8.., column
+      // 2 c2 + i / 2), its four V rows' bytes and its keys' scales
+      uint32_t kr[D / 32][4];
+#pragma unroll
+      for (int c2 = 0; c2 < D / 32; ++c2) {
+        ldsm_x4(kr[c2], byte_addr<D>(k_s(st), w16 + lane / 8 % 2 * 8 + lane % 8,
+                                     (2 * c2 + lane / 16) * 16));
+      }
+      uint32_t vw[4][D / 32];  // keys 2t, 2t + 1, 2t + 8, 2t + 9
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint8_t* src =
+            base_ptr + (byte_addr<D>(v_s(st), w16 + 2 * t + i % 2 + i / 2 * 8,
+                                     vcol & ~15) - base) + vcol % 16;
+        if constexpr (D == 128) {
+          const uint4 x = *reinterpret_cast<const uint4*>(src);
+          vw[i][0] = x.x;
+          vw[i][1] = x.y;
+          vw[i][2] = x.z;
+          vw[i][3] = x.w;
+        } else {
+          const uint2 x = *reinterpret_cast<const uint2*>(src);
+          vw[i][0] = x.x;
+          vw[i][1] = x.y;
+        }
+      }
+      const float* const sc = scales(st);
+      float2 ks[2], vs[2];  // keys w16 + j * 8 + 2t + e
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        ks[j] = *reinterpret_cast<const float2*>(sc + w16 + j * 8 + 2 * t);
+        vs[j] = *reinterpret_cast<const float2*>(sc + kTile + w16 + j * 8 + 2 * t);
+      }
+
+      // S = Q K^T over the warp's keys w16 + j * 8 + 2t + e
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int c2 = 0; c2 < D / 32; ++c2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 2 * c2 + h;
+          const uint32_t a[4] = {qa[c][0], 0u, qa[c][1], 0u};
+          uint32_t b0, b1;
+          widen4<KV>(kr[c2][2 * h], b0, b1);
+          mma_16816(s[0], a, b0, b1);
+          widen4<KV>(kr[c2][2 * h + 1], b0, b1);
+          mma_16816(s[1], a, b0, b1);
+        }
+      }
+      // the tile's softmax for row g over the warp's 16 keys: the K scale
+      // on the score column, one max (the quad's four threads hold it), one
+      // rescale, one exp2 a key
+      const int kb = key0 + w16 + 2 * t;
+      float z[2][2], mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float k_sc = e ? ks[j].y : ks[j].x;
+          z[j][e] = kb + j * 8 + e < end ? s[j][e] * (p.scale_log2 * k_sc) : kNegInf;
+          mx = fmaxf(mx, z[j][e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx);
+      const float corr = exp2f(m - m_new);
+      float pr[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // a masked key adds nothing, even while m_new is kNegInf
+          pr[j][e] = kb + j * 8 + e < end ? exp2f(z[j][e] - m_new) : 0.f;
+        }
+      }
+      l = l * corr + (pr[0][0] + pr[0][1]) + (pr[1][0] + pr[1][1]);
+      m = m_new;
+      // P^T's B fragments (keys 2t, 2t + 1 | 2t + 8, 2t + 9 of row g), the
+      // V scale folded in after l, as a bf16 hi + lo pair
+      uint32_t p_hi[2], p_lo[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        split_bf16(pr[j][0] * vs[j].x, pr[j][1] * vs[j].y, p_hi[j], p_lo[j]);
+      }
+      // the rescale of rows 2t and 2t + 1, held by lanes 8t and 8t + 4
+      const float ca = __shfl_sync(0xffffffffu, corr, 8 * t);
+      const float cb = __shfl_sync(0xffffffffu, corr, 8 * t + 4);
+      if (key0 + kTile > end) {  // the tile ends inside it: no bytes past it
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (key0 + w16 + 2 * t + i % 2 + i / 2 * 8 >= end) {
+#pragma unroll
+            for (int x = 0; x < D / 32; ++x) vw[i][x] = 0u;
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < D / 16; ++mt) {
+        acc[mt][0] *= ca;
+        acc[mt][1] *= cb;
+        acc[mt][2] *= ca;
+        acc[mt][3] *= cb;
+        // bytes 2 mt and 2 mt + 1 of each row's D / 8: (key 2t, 2t + 1)
+        // pairs of dims pd and pd + 1, then (2t + 8, 2t + 9)
+        const uint32_t sel = mt % 2 ? 0x7362u : 0x5140u;
+        uint32_t a[4];
+        widen4<KV>(__byte_perm(vw[0][mt / 2], vw[1][mt / 2], sel), a[0], a[1]);
+        widen4<KV>(__byte_perm(vw[2][mt / 2], vw[3][mt / 2], sel), a[2], a[3]);
+        mma_16816(acc[mt], a, p_hi[0], p_hi[1]);
+        mma_16816(acc[mt], a, p_lo[0], p_lo[1]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(st));  // this warp is done with it
+    }
+  }
+
+  // the warps' states into shared memory (the ring's, free once every
+  // warp has left the loop), then the bf16 kernel's end
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  float* const sh_acc = reinterpret_cast<float*>(base_ptr);
+  fkp_sm90::named_sync(1, kConsumers);
+  if (g < G && t == 0) {
+    sh_m[warp][g] = m;
+    sh_l[warp][g] = l;
+  }
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt) {
+    const int pd = g * (D / 8) + 2 * mt;
+    if (2 * t < G) {
+      *reinterpret_cast<float2*>(sh_acc + (warp * G + 2 * t) * D + pd) =
+          make_float2(acc[mt][0], acc[mt][2]);
+    }
+    if (2 * t + 1 < G) {
+      *reinterpret_cast<float2*>(sh_acc + (warp * G + 2 * t + 1) * D + pd) =
+          make_float2(acc[mt][1], acc[mt][3]);
+    }
+  }
+  fkp_sm90::named_sync(1, kConsumers);
+  finish<D, G>(p, split, bh, sh_m, sh_l, sh_acc, counters);
+}
+
+// the call's shape as the kernels take it, or false
+inline bool valid(int b, int hq, int hkv, int s, int n_splits, int block_s) {
+  return b > 0 && hkv > 0 && hq % hkv == 0 && s > 0 && n_splits > 0 &&
+         block_s > 0 && b <= 65535 && hkv <= 65535;
+}
+
+// Launches the 8-bit instance <D, G, KV, kWindow> on a grid of (n_splits,
+// hkv, b); returns a CUDA error code (the shared-memory attribute's,
+// cudaErrorInvalidValue where a map cannot be encoded, else
+// cudaGetLastError() after the launch).
+template <int D, int G, class KV, bool kWindow>
+int launch_q(const Params& p, const void* k, const void* v, int b,
+             int* counters, cudaStream_t stream) {
+  const auto kernel = &flash_decode_q_sm90_kernel<D, G, KV, kWindow>;
+  constexpr int kBytes = LayoutQ<D>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr CUtensorMapSwizzle kSwizzle =
+      D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap km, vm;
+  if (!fkp_sm90::encode_tiled(&km, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k, D,
+                              p.s, b * p.hkv, kTile, D, kSwizzle) ||
+      !fkp_sm90::encode_tiled(&vm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, v, D,
+                              p.s, b * p.hkv, kTile, D, kSwizzle)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<dim3(p.n_splits, p.hkv, b), kThreads, kBytes, stream>>>(km, vm, p,
+                                                                   counters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch(D, G, kWindow) with each an std::integral_constant, for d (64,
+// 128), g (1, 2, 4, 8) and the window (> 0: the band's instance); returns
+// its result, or cudaErrorInvalidValue for another d or g. The bf16 and
+// the 8-bit entries pick their instance by it.
+template <class Launch>
+int by_shape(int d, int g, int window, Launch&& launch) {
+  const auto by_window = [&](auto dc, auto gc) {
+    return window > 0 ? launch(dc, gc, std::true_type{})
+                      : launch(dc, gc, std::false_type{});
+  };
+  const auto by_group = [&](auto dc) {
+    switch (g) {
+      case 1: return by_window(dc, std::integral_constant<int, 1>{});
+      case 2: return by_window(dc, std::integral_constant<int, 2>{});
+      case 4: return by_window(dc, std::integral_constant<int, 4>{});
+      case 8: return by_window(dc, std::integral_constant<int, 8>{});
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  if (d == 64) return by_group(std::integral_constant<int, 64>{});
+  if (d == 128) return by_group(std::integral_constant<int, 128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The 8-bit instance of KV for the call's d, g and window (by_shape).
+// flash_decode_q.cu builds the int8 instances, flash_decode_q_fp8.cu the
+// e4m3 ones.
+template <class KV>
+int launch_q_any(int d, int g, const Params& p, const void* k, const void* v,
+                 int b, int* counters, cudaStream_t stream) {
+  return by_shape(d, g, p.window, [&](auto dc, auto gc, auto wc) {
+    return launch_q<decltype(dc)::value, decltype(gc)::value, KV,
+                    decltype(wc)::value>(p, k, v, b, counters, stream);
+  });
+}
+
+int launch_e4m3(int d, int g, const Params& p, const void* k, const void* v,
+                int b, int* counters, cudaStream_t stream);  // flash_decode_q_fp8.cu
 
 }  // namespace fkp_dec90

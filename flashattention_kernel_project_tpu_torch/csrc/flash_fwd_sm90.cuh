@@ -3,13 +3,14 @@
 // the instances of one discipline (kDisc) from this header, for d in
 // {64, 128} with and without a band (kWindow), in blocks of 128 or 64 query
 // rows (kRows): 24 instances in all. The same block body (fwd_block) is
-// the ragged forward's wgmma route behind flash_fwd_ragged_sm90_kernel
-// (flash_fwd_ragged.cu's head describes it): per-row bounds read on the
-// device, no LSE, and over an 8-bit cache 64-key byte tiles widened to
-// bf16 by the producer warpgroup. The Hopper primitives it shares with
-// the bf16 GEMM and the backward (mbarriers, the TMA load, the wgmma
-// descriptor and products, fence, commit and wait, the map encoder) are
-// sm90.cuh's.
+// the dense forward over an 8-bit cache behind flash_fwd_q_sm90_kernel
+// (flash_fwd_q.cu's head describes it) and the ragged forward's wgmma
+// route behind flash_fwd_ragged_sm90_kernel (flash_fwd_ragged.cu's head
+// describes it: per-row bounds read on the device, no LSE); over an 8-bit
+// cache it takes 64-key byte tiles widened to bf16 by the producer
+// warpgroup. The Hopper primitives it shares with the bf16 GEMM and the
+// backward (mbarriers, the TMA load, the wgmma descriptor and products,
+// fence, commit and wait, the map encoder) are sm90.cuh's.
 //
 // Replaces flashattention_kernel_project_tpu/ops/flash_attention.py::
 // _fwd_kernel (:92, pallas_call :1375/:1380) in its three disciplines, with
@@ -17,22 +18,22 @@
 // _fwd_kernel_packed (:710, pallas_call :1526), the fixed-max d=64 forward
 // (the TPU pairs two KV heads there because a d=64 product fills half of
 // its 128-deep matrix unit; wgmma is 16 deep, so the fixed-max d=64
-// instance computes it as it stands). It computes what the mma.sync dense
-// flavour of flash_fwd_core.cuh computed, which the dense 8-bit forward
-// still uses: the same masks, disciplines, empty-row rule, range
-// guard and precision (the scale on f32 scores, p into PV as a bf16 hi + lo
-// pair, two products); that header's notes describe them.
+// instance computes it as it stands). It computes what the mma.sync
+// forward it replaced computed: the same masks, disciplines, empty-row
+// rule, range guard and precision (the scale on f32 scores, p into PV as
+// a bf16 hi + lo pair, two products); flash_fwd_core.cuh's notes describe
+// them.
 //
 // What bounds it on the H100: at prefill shapes (N = S in the hundreds to
 // thousands, d = 128) the two products do 4*N*S*d flops (6*N*S*d with the
 // second PV product) against about 2*(N + 2*S)*d bytes of device memory,
 // far above the card's ~295 flop/byte ridge: tensor-core issue and the
-// softmax arithmetic between the products bound it (flash_fwd_core.cuh
-// :35-42). The mma.sync design reached 13.5% of the bf16 peak at bench.py's
-// shape: its PV gathered V's B fragments two bytes at a time, its K/V tiles
-// were loaded through registers between two block barriers with no second
-// buffer, and every tile paid the causal compare and select. What each
-// choice here does about that:
+// softmax arithmetic between the products bound it. The mma.sync design
+// reached 13.5% of the bf16 peak at bench.py's shape: its PV gathered V's
+// B fragments two bytes at a time, its K/V tiles were loaded through
+// registers between two block barriers with no second buffer, and every
+// tile paid the causal compare and select. What each choice here does
+// about that:
 // - wgmma (m64nNk16, f32 accumulators in registers), the only path to the
 //   full tensor-core rate: S = Q K^T with both operands read from shared
 //   memory by descriptor (K stored [key][dim] is the K-major B operand),
@@ -90,6 +91,7 @@
 #include <type_traits>
 
 #include "flash_fwd_core.cuh"
+#include "mma.cuh"
 #include "sm90.cuh"
 #include "widen.cuh"
 
@@ -106,34 +108,40 @@ using fkp_fwd::kSafeBound;
 using fkp_mma::split_bf16;
 
 constexpr int kN = 128;                 // keys a K/V tile
-// registers a thread after setmaxnreg: the producer gives up what the
-// consumers take (128 * 24 + 256 * 240 <= 65536)
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
 constexpr int kBoxBytes = kN * 128;     // a K or V box: 128 keys of 128 bytes
 
 // The threads of a block of kRows query rows (64 or 128): a consumer
 // warpgroup for each 64 rows, then the producer warpgroup; over an 8-bit
-// cache (kQuant) a loading warp and four widening warps.
+// cache (kQuant) a loading warp and widening warps, four at 64 rows and
+// three at 128 (a 128-row block's consumers take twice as long over a
+// tile, and its 384 threads leave 168 registers a thread, enough for
+// either role). Only the bf16 instances trade registers by setmaxnreg:
+// the 8-bit widening warps ran 15% slower at 152 than at 168, and below
+// (tools/ab_8bit.py).
 template <int kRows, bool kQuant = false>
 struct Block {
   static constexpr int kConsumers = kRows * 2;
-  static constexpr int kWideners = kQuant ? 128 : 0;
+  static constexpr int kWideners = !kQuant ? 0 : kRows == 64 ? 128 : 96;
   static constexpr int kThreads = kConsumers + (kQuant ? 32 + kWideners : 128);
 };
+// registers a thread after setmaxnreg in the bf16 instances: the producer
+// gives up what the consumers take (128 * 24 + 256 * 240 <= 65536)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
 // Shared memory of the (d, kRows, KV) instance: Q (boxes of kRows rows),
 // then the ring's stages, each K then V, every box 1024-byte aligned (the
 // 128B swizzle's period), after up to 1 KB of alignment slack. The 8-bit
-// instances (the ragged forward over an int8 or e4m3 cache) take tiles of
-// 64 keys and add, after the ring of widened bf16 stages, each stage's 64
-// K and 64 V scales (f32, in a KB) and a ring of 3 byte stages, the 8-bit
-// K and V tiles as the TMA brings them ([key][D] bytes, unswizzled). At
-// d = 128: Q (16 KB at 64 rows), 3 widened stages (96 KB), their scales
-// (3 KB) and 3 byte stages (48 KB), 163 KB of the 227. With 128-key tiles
-// the byte stages and the widened ones passed the 227 at three stages
-// each, and at two a widened stage is free only when the consumers need
-// it again, so the widening would not overlap the products.
+// instances (the dense and the ragged forward over an int8 or e4m3 cache)
+// take tiles of 64 keys and add, after the ring of widened bf16 stages,
+// each stage's 64 K and 64 V scales (f32, in a KB) and a ring of 3 byte
+// stages, the 8-bit K and V tiles as the TMA brings them ([key][D] bytes,
+// unswizzled). At d = 128: Q (16 KB at 64 rows, 32 at 128), 3 widened
+// stages (96 KB), their scales (3 KB) and 3 byte stages (48 KB), 163 KB
+// (179 KB) of the 227. With 128-key tiles the byte stages and the widened
+// ones passed the 227 at three stages each, and at two a widened stage is
+// free only when the consumers need it again, so the widening would not
+// overlap the products.
 template <int D, int kRows, class KV = __nv_bfloat16>
 struct Layout {
   static constexpr bool kQuant = sizeof(KV) == 1;
@@ -150,7 +158,6 @@ struct Layout {
   static constexpr int kScaleOff = kQTile + 2 * kStages * kTile;
   static constexpr int kByteOff = kScaleOff + kStages * kScales;
   static constexpr int kBytes = 1024 + kByteOff + kByteStages * 2 * kByteTile;
-  static_assert(!kQuant || kRows == 64, "the 8-bit instances run 64-row blocks");
   static_assert(kBytes <= 232448, "past the 227 KB a block may hold");
 };
 
@@ -187,7 +194,6 @@ __device__ __forceinline__ void fwd_block(
     const float* __restrict__ k_max, GuardArgs gd, RaggedPtrs rp) {
   using L = Layout<D, kRows, KV>;
   constexpr bool kQuant = L::kQuant;
-  static_assert(kRagged || !kQuant, "the 8-bit instances are ragged");
   static_assert(!kRagged || kDisc != kHybrid, "the ragged forward has no hybrid");
   constexpr int kM = kRows;
   using Threads = Block<kRows, kQuant>;
@@ -293,16 +299,17 @@ __device__ __forceinline__ void fwd_block(
       }
     } else {
       // 8-bit: warp 0's first thread loads Q and the byte tiles into the
-      // byte ring; warps 1-4 widen each byte tile exactly to the swizzled
-      // bf16 K and V tiles of a ring stage (the layout the bf16 TMA boxes
-      // give, which the products' descriptors read), zero at keys past
-      // kv_len, with the tile's scales beside them (0 there too), while the
-      // consumers multiply the stages before it: each thread loads its
-      // eight (d 64: four) 16-byte pieces of the tile at once, then widens
-      // and stores them (with three warps and two pieces in flight the
-      // widening set the pace: 0.033 ms at the serving chunk against 0.018
-      // with the widening taken out, tools/ab_ragged.py). No setmaxnreg: a
-      // 64-row block's 288 threads fit the SM's registers at ptxas's 224.
+      // byte ring; the widening warps widen each byte tile exactly to the
+      // swizzled bf16 K and V tiles of a ring stage (the layout the bf16
+      // TMA boxes give, which the products' descriptors read), zero at keys
+      // past kv_len, with the tile's scales beside them (0 there too),
+      // while the consumers multiply the stages before it: each thread
+      // loads all its 16-byte pieces of the tile at once (8 at 64 rows and
+      // d 128), then widens and stores them (with three warps and two
+      // pieces in flight the widening set the pace of a 64-row block: 0.033
+      // ms at the serving chunk against 0.018 with the widening taken out,
+      // tools/ab_ragged.py; the first thread also loading, in place of a
+      // warp of its own, cost the chunk 8%).
       const int pw = (threadIdx.x - kConsumers) / 32;
       if (pw == 0) {
         if (threadIdx.x == kConsumers) {
@@ -327,8 +334,11 @@ __device__ __forceinline__ void fwd_block(
       const int lane = threadIdx.x % 32;
       const size_t plane = (size_t)kh * s_max;  // the (b, kvh) scale row
       constexpr int kPieces = L::kKeys * D / 16;  // 16-byte pieces of a byte tile
-      constexpr int kEach = 2 * kPieces / kWideners;  // a thread's, K and V
-      static_assert(kEach * kWideners == 2 * kPieces && L::kKeys <= kWideners);
+      // a thread's pieces, K and V (the last may lie past the tile's 2 *
+      // kPieces where kWideners does not divide them)
+      constexpr int kEach = (2 * kPieces + kWideners - 1) / kWideners;
+      constexpr bool kWhole = kEach * kWideners == 2 * kPieces;
+      static_assert(L::kKeys <= kWideners, "a widening thread a key's scales");
       for (int it = 0; it < n_visit; ++it) {
         const int bs = it % L::kByteStages;
         const int st = it % L::kStages;
@@ -355,12 +365,15 @@ __device__ __forceinline__ void fwd_block(
 #pragma unroll
         for (int u = 0; u < kEach; ++u) {
           const int i = wt + u * kWideners;
-          raw[u] = *reinterpret_cast<const uint4*>(
-              bytes + i / kPieces * L::kByteTile + i % kPieces * 16);
+          if (kWhole || i < 2 * kPieces) {
+            raw[u] = *reinterpret_cast<const uint4*>(
+                bytes + i / kPieces * L::kByteTile + i % kPieces * 16);
+          }
         }
 #pragma unroll
         for (int u = 0; kWiden && u < kEach; ++u) {
           const int i = wt + u * kWideners;
+          if (!kWhole && i >= 2 * kPieces) break;
           const int kv = i / kPieces;  // 0: K, 1: V
           const int r = i % kPieces / (D / 16);
           const int c = i % (D / 16) * 16;
@@ -754,6 +767,28 @@ __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
       q_offset, window, sinks, k_max, gd, RaggedPtrs{});
 }
 
+// The dense forward over an 8-bit cache (flash_attention_kv_quant):
+// instance <D, kWindow, kDisc, kRows, KV (int8_t or __nv_fp8_e4m3)> over
+// K/V [b, hkv, s, D] bytes with per-token scales k_scale, v_scale [b,
+// hkv, s, 1] f32; O, LSE and the fixed-max guard as the bf16 kernel's.
+template <int D, bool kWindow, int kDisc, int kRows, class KV>
+__global__ void __launch_bounds__(Block<kRows, true>::kThreads, 1)
+    flash_fwd_q_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int hq, int hkv, int n,
+                            int s, float scale_log2, int causal, int q_offset,
+                            int window, int sinks,
+                            const float* __restrict__ k_max, GuardArgs gd,
+                            const float* __restrict__ k_scale,
+                            const float* __restrict__ v_scale) {
+  fwd_block<D, kWindow, kDisc, kRows, KV, false>(
+      &q_map, &k_map, &v_map, o, lse, hq, hkv, n, s, scale_log2, causal,
+      q_offset, window, sinks, k_max, gd,
+      RaggedPtrs{nullptr, nullptr, k_scale, v_scale});
+}
+
 // The ragged forward's wgmma route (the prefill chunks): instance <D,
 // kWindow, kDisc (online or fixed-max), kRows, KV (bf16, int8_t or
 // __nv_fp8_e4m3; 8-bit at 64 rows only)> over a cache [b, hkv, s_max, D].
@@ -784,6 +819,9 @@ struct FwdArgs {
   float scale_log2;
   int causal, q_offset, window, sinks;
   cudaStream_t stream;
+  // the 8-bit forward's per-token scales [b, hkv, s, 1] f32 (null for bf16)
+  const float* k_scale = nullptr;
+  const float* v_scale = nullptr;
 };
 
 // Launches instance <D, kWindow, kDisc, kRows>; returns a CUDA error code
@@ -849,6 +887,78 @@ int launch_disc(int d, const FwdArgs& a) {
 int launch_fixed(int d, const FwdArgs& a);   // flash_fwd_fixed.cu
 int launch_hybrid(int d, const FwdArgs& a);  // flash_fwd_hybrid.cu
 
+// The TMA maps of an 8-bit K and V [heads, s, d] for the 8-bit instances:
+// whole rows of d bytes, unswizzled, `keys` rows a box; false if either
+// cannot be encoded.
+inline bool encode_byte_maps(CUtensorMap* km, CUtensorMap* vm, const void* k,
+                             const void* v, int d, int s, int heads, int keys) {
+  return encode_tiled(km, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k, d, s, heads,
+                      keys, d, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         encode_tiled(vm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, v, d, s, heads,
+                      keys, d, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// Launches the 8-bit instance <D, kWindow, kDisc, kRows, KV>; returns a
+// CUDA error code as `launch`.
+template <int D, bool kWindow, int kDisc, int kRows, class KV>
+int launch_q(const FwdArgs& a) {
+  using L = Layout<D, kRows, KV>;
+  const auto kernel = &flash_fwd_q_sm90_kernel<D, kWindow, kDisc, kRows, KV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap qm, km, vm;
+  if (!encode_map(&qm, a.q, D, a.n, a.b * a.hq, kRows) ||
+      !encode_byte_maps(&km, &vm, a.k, a.v, D, a.s, a.b * a.hkv, L::kKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((a.n + kRows - 1) / kRows, a.hq, a.b);
+  kernel<<<grid, Block<kRows, true>::kThreads, L::kBytes, a.stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.lse),
+      a.hq, a.hkv, a.n, a.s, a.scale_log2, a.causal, a.q_offset, a.window,
+      a.sinks, a.k_max, a.gd, a.k_scale, a.v_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 8-bit instances of one cache type and discipline, by d (64 or 128),
+// band and block rows (block_rows, as the bf16 forward picks them). The
+// hybrid and the banded instances take 64-row blocks alone: at 128 rows,
+// with both softmax paths or the band's terms, their consumers spilled at
+// d 128 within the 168 registers a thread (and with a setmaxnreg split the
+// widening warps did), while the hybrid's 64-row blocks ran within 4% of
+// its 128-row ones. -1 for another d.
+template <class KV, int kDisc>
+int launch_q_disc(int d, const FwdArgs& a) {
+  const auto by_rows = [&](auto D, auto W) {
+    constexpr int kD = decltype(D)::value;
+    constexpr bool kW = decltype(W)::value;
+    if constexpr (kDisc == fkp_fwd::kHybrid || kW) {
+      return launch_q<kD, kW, kDisc, 64, KV>(a);
+    } else {
+      return block_rows(a) == 64 ? launch_q<kD, kW, kDisc, 64, KV>(a)
+                                 : launch_q<kD, kW, kDisc, 128, KV>(a);
+    }
+  };
+  const auto by_band = [&](auto D) {
+    return a.window > 0 ? by_rows(D, std::true_type{})
+                        : by_rows(D, std::false_type{});
+  };
+  if (d == 64) return by_band(std::integral_constant<int, 64>{});
+  if (d == 128) return by_band(std::integral_constant<int, 128>{});
+  return -1;
+}
+
+// The dense 8-bit instances by source, one cache type and discipline
+// each, so that nvcc builds them in parallel: int8 flash_fwd_q.cu (online,
+// with the C entry), flash_fwd_q_fixed.cu and flash_fwd_q_hybrid.cu; e4m3
+// flash_fwd_q_fp8.cu, flash_fwd_q_fp8_fixed.cu and
+// flash_fwd_q_fp8_hybrid.cu.
+int launch_q_int8_fixed(int d, const FwdArgs& a);
+int launch_q_int8_hybrid(int d, const FwdArgs& a);
+int launch_q_e4m3(int d, const FwdArgs& a);
+int launch_q_e4m3_fixed(int d, const FwdArgs& a);
+int launch_q_e4m3_hybrid(int d, const FwdArgs& a);
+
 // What fkp_flash_fwd_ragged passes to the wgmma route's instance: rows
 // the block rows (64 or 128; the 8-bit instances take 64).
 struct RaggedArgs {
@@ -875,12 +985,8 @@ int launch_ragged(const RaggedArgs& a) {
   CUtensorMap qm, km, vm;
   bool ok = encode_map(&qm, a.q, D, a.n, a.b * a.hq, kRows);
   if constexpr (L::kQuant) {
-    // whole rows of D bytes, unswizzled, 64 keys a box
-    ok = ok &&
-         encode_tiled(&km, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.k, D, a.s_max,
-                      a.b * a.hkv, L::kKeys, D, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-         encode_tiled(&vm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.v, D, a.s_max,
-                      a.b * a.hkv, L::kKeys, D, CU_TENSOR_MAP_SWIZZLE_NONE);
+    ok = ok && encode_byte_maps(&km, &vm, a.k, a.v, D, a.s_max, a.b * a.hkv,
+                                L::kKeys);
   } else {
     ok = ok && encode_map(&km, a.k, D, a.s_max, a.b * a.hkv, L::kKeys) &&
          encode_map(&vm, a.v, D, a.s_max, a.b * a.hkv, L::kKeys);

@@ -1,9 +1,10 @@
 // How a 32-bit word of KV-cache elements widens to f32, exactly: two bf16,
-// or four int8 or e4m3 values. Shared by the decode core (which widens into
-// registers) and the tiled kernels that widen 8-bit tiles into bf16
-// tensor-core operands in shared memory (int8 and e4m3 values are exact in
-// bf16 too): the mma.sync forward core, the paged extend and decode, and
-// the ragged forward's wgmma instances (widen16).
+// or four int8 or e4m3 values. Shared by the kernels that widen 8-bit
+// tiles into bf16 tensor-core operands (int8 and e4m3 values are exact in
+// bf16 too): in shared memory the paged extend and decode and the
+// forward's 8-bit wgmma instances (widen16), in registers the 8-bit linear
+// decode (e4m3; its int8 takes a bf16 subtraction), and the 8-bit GEMM
+// core.
 
 #pragma once
 

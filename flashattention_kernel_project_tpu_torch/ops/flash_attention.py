@@ -15,7 +15,8 @@ proves it sound, online elsewhere; the ragged forwards take it as True, as
 in JAX). On a CUDA tensor `_fwd` launches the hand-written Hopper kernel of
 csrc/flash_fwd_sm90.cuh (wgmma, TMA and a K/V ring) through
 csrc/flash_fwd.cu (with pack=True kernel 2's counterpart, its fixed-max
-d=64 instance), `_fwd_q` the one in csrc/flash_fwd_q.cu (an 8-bit cache),
+d=64 instance), `_fwd_q_cuda` the same kernel's 8-bit form through
+csrc/flash_fwd_q.cu (an int8 or e4m3 cache widened to bf16 in shared memory),
 `_fwd_ragged` (a bf16 cache) and `flash_attention_ragged_kv_quant` (8-bit)
 one of two Hopper kernels by the route `ops.paged_decode.ragged_plan`
 picks from static shapes (chunks of T < 9, the linear speculative verify
@@ -635,9 +636,11 @@ def _fwd_q_plain(q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset,
 
 def _fwd_q_cuda(q, k_q, k_scale, v_q, v_scale, causal, sm_scale, q_offset,
                 window=0, sinks=0, disc=ONLINE, k_max=None, guard=False):
-    """(O, LSE) from csrc/flash_fwd_q.cu: q bf16, k_q/v_q [B, Hkv, S, D]
-    int8 or float8_e4m3fn with [B, Hkv, S, 1] float32 scales; k_max (a 0-d
-    device tensor) for HYBRID. guard=True (FIXED): (O, LSE, bad), as
+    """(O, LSE) from csrc/flash_fwd_q.cu (flash_fwd_sm90.cuh's block body
+    over 64-key byte tiles widened to bf16, in 64- or 128-row blocks): q bf16,
+    k_q/v_q [B, Hkv, S, D] int8 or float8_e4m3fn with [B, Hkv, S, 1]
+    float32 scales, contiguous and 16-byte aligned; k_max (a 0-d device
+    tensor) for HYBRID. guard=True (FIXED): (O, LSE, bad), as
     `_fwd`'s, counted in `flash_attention_kv_quant.guard_launches` too."""
     _check_guard(guard, disc)
     check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),

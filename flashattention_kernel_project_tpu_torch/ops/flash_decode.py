@@ -12,10 +12,11 @@ splits; each emits unnormalized partials (m, l, y) over its keys below
 reduction outside the Pallas kernel in the JAX package. On a CUDA tensor a
 bf16 cache takes the Hopper kernel of csrc/flash_decode_sm90.cuh (64-key
 tiles through a TMA ring, both products on the tensor cores), which also
-merges the splits: one launch a call, no plain merge. An 8-bit cache takes
-csrc/flash_decode.cu (int8 or e4m3 with per-token scales) or
-csrc/flash_decode_mxu.cu (an int8 cache with both products int8 x int8,
-mxu=True) for the partials, and the plain merge.
+merges the splits: one launch a call, no plain merge. An 8-bit cache (int8
+or e4m3 with per-token scales) takes the same header's 8-bit kernel (the
+byte tiles widened to bf16 in registers), one launch a call as well;
+mxu=True (an int8 cache with both products int8 x int8) takes
+csrc/flash_decode_mxu.cu for the partials, and the plain merge.
 """
 
 from __future__ import annotations
@@ -50,8 +51,8 @@ _MAX_COUNTERS = 1 << 18
 
 
 def _core_n_splits(batch: int, kv_heads: int, s_max: int) -> int:
-    """The 8-bit decodes' splits (decode_core.cuh's kernel 7 and kernel 8):
-    about two blocks per SM on an H100, B*Hkv alone being 32 blocks at the
+    """The int8 x int8 decode's splits (kernel 8, mxu=True): about two
+    blocks per SM on an H100, B*Hkv alone being 32 blocks at the
     serving shape (B=8, Hkv=4), a quarter of the 132 SMs. Splits are kept at
     128 keys or more, so short caches get fewer. Only the order of the sums
     depends on this (with mxu=True the requantization groups too). (The TPU
@@ -69,6 +70,40 @@ def _blocks_per_sm(d: int) -> int:
     return H100_SMEM_PER_SM // (ring + _SMEM_EXTRA + H100_SMEM_RESERVED_PER_BLOCK)
 
 
+# csrc/flash_decode_sm90.cuh's 8-bit kernel: the blocks an SM holds by
+# its registers (LayoutQ::kMinBlocks, its __launch_bounds__: 4 at d = 64,
+# 3 at d = 128) and its shared memory besides the ring (alignment slack,
+# barriers, row statistics)
+_Q_MIN_BLOCKS_D64, _Q_MIN_BLOCKS = 4, 3
+_SMEM_EXTRA_Q = 1024 + 512
+
+
+def _q_stage_bytes(d: int) -> int:
+    """A stage of the 8-bit kernel's ring: a 64-key K and V tile of d bytes
+    a key and their 64 + 64 f32 scales, rounded up to 1 KB."""
+    return -(-(2 * _TILE * d + 2 * _TILE * 4) // 1024) * 1024
+
+
+def _blocks_per_sm_q(d: int) -> int:
+    """Blocks of the 8-bit Hopper decode an H100 SM holds: as many as its
+    shared memory takes (4 at d = 128, 7 at d = 64), at most the
+    kernel's __launch_bounds__ minimum (3 and 4), which the registers
+    set."""
+    ring = _STAGES * _q_stage_bytes(d)
+    smem = H100_SMEM_PER_SM // (ring + _SMEM_EXTRA_Q + H100_SMEM_RESERVED_PER_BLOCK)
+    return min(smem, _Q_MIN_BLOCKS_D64 if d <= 64 else _Q_MIN_BLOCKS)
+
+
+def _whole_tile_splits(pairs: int, s_max: int, blocks_per_sm: int) -> int:
+    """As many splits as keep 132 SMs' blocks full (blocks_per_sm each, over
+    the `pairs` blocks a split adds) and no more, each whole 64-key tiles
+    and at least two of them; one where the pairs fill the card."""
+    tiles = -(-s_max // _TILE)
+    want = H100_SMS * blocks_per_sm // max(pairs, 1)
+    n = max(1, min(want, tiles // 2))
+    return -(-tiles // -(-tiles // n))  # whole tiles, none of them empty
+
+
 def default_n_splits(batch: int, kv_heads: int, s_max: int, d: int = 128) -> int:
     """Splits of the bf16 decode: as many as keep the card's blocks full
     (132 SMs times the blocks an SM holds at the kernel's ring, over the
@@ -78,15 +113,20 @@ def default_n_splits(batch: int, kv_heads: int, s_max: int, d: int = 128) -> int
     256 blocks. Only the order of the sums depends on this. (The TPU
     default, one split per 4096 keys, suits a core that runs its grid
     serially.)"""
-    tiles = -(-s_max // _TILE)
-    want = H100_SMS * _blocks_per_sm(d) // max(batch * kv_heads, 1)
-    n = max(1, min(want, tiles // 2))
-    return -(-tiles // -(-tiles // n))  # whole tiles, none of them empty
+    return _whole_tile_splits(batch * kv_heads, s_max, _blocks_per_sm(d))
+
+
+def q_n_splits(batch: int, kv_heads: int, s_max: int, d: int = 128) -> int:
+    """Splits of the 8-bit decode (kernel 7), by `default_n_splits`'s rule
+    at the blocks an SM holds of the 8-bit kernel (`_blocks_per_sm_q`): at
+    the serving shape (B 8, Hkv 4, S 2048, d 128) 11 splits of 192 keys,
+    352 blocks; `default_block_s` sizes them."""
+    return _whole_tile_splits(batch * kv_heads, s_max, _blocks_per_sm_q(d))
 
 
 def default_block_s(s_max: int, n_splits: int) -> int:
-    """Keys a split of the bf16 decode covers at the default split count:
-    whole 64-key tiles, ceil(tiles / n_splits) of them."""
+    """Keys a split of the bf16 or 8-bit decode covers at the default split
+    count: whole 64-key tiles, ceil(tiles / n_splits) of them."""
     tiles = -(-s_max // _TILE)
     return -(-tiles // n_splits) * _TILE
 
@@ -235,6 +275,24 @@ def _decode_partials_cuda(q, k, v, lengths, n_splits, block_s, sm_scale,
     return m, l, y
 
 
+def _split_workspace(q, hkv, n_splits):
+    """(the f32 m, l and y of every split that a one-launch decode merges on
+    the card, in one allocation the caller keeps until its launch; their
+    pointers), or (None, three Nones) with one split. The merge's counters
+    take at most _MAX_COUNTERS (batch row, KV head) pairs: a ValueError
+    beyond."""
+    b, hq, d = q.shape
+    if n_splits == 1:
+        return None, [None] * 3
+    if b * hkv > _MAX_COUNTERS:
+        raise ValueError(f"the CUDA decode merges more than one split for at "
+                         f"most {_MAX_COUNTERS} (batch row, KV head) pairs, "
+                         f"got {b * hkv}")
+    rows = b * hq * n_splits
+    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    return ws, [ws.data_ptr(), ws.data_ptr() + 4 * rows, ws.data_ptr() + 8 * rows]
+
+
 def _decode_plain(q, k, v, lengths, n_splits, block_s, sm_scale, window=0,
                   sinks=0):
     """flash_decode in plain PyTorch: the plain partials through
@@ -255,18 +313,8 @@ def _decode_cuda(q, k, v, lengths, n_splits, block_s, sm_scale, window=0,
     _check_cuda_inputs(q, k, v, lengths)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    g = hq // hkv
-    if n_splits > 1 and b * hkv > _MAX_COUNTERS:
-        raise ValueError(f"the CUDA decode merges more than one split for at "
-                         f"most {_MAX_COUNTERS} (batch row, KV head) pairs, "
-                         f"got {b * hkv}")
     out = torch.empty_like(q)
-    work = [None] * 3
-    if n_splits > 1:  # m, l, y of every split, one allocation
-        rows = b * hkv * n_splits * g
-        ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
-        work = [ws.data_ptr(), ws.data_ptr() + 4 * rows,
-                ws.data_ptr() + 8 * rows]
+    _ws, work = _split_workspace(q, hkv, n_splits)
     rc = _kernel_out()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), *work, b, hq, hkv, s, d, n_splits, block_s,
@@ -356,22 +404,48 @@ def _decode_partials_q_plain(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
                                   block_s, sm_scale, window, sinks)
 
 
+def _decode_q_plain(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
+                    block_s, sm_scale, window=0, sinks=0):
+    """flash_decode_int8 (mxu=False) in plain PyTorch: the plain partials
+    through `merge_partials`, [B, Hq, D] in q's dtype."""
+    b, hq, d = q.shape
+    parts = _decode_partials_q_plain(q, k_q, k_scale, v_q, v_scale, lengths,
+                                     n_splits, block_s, sm_scale, window, sinks)
+    return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
+
+
+_DECODE_Q_ARGS = ([ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
+
+
 @functools.cache
 def _kernel_q():
     """fkp_flash_decode_q: q, k, k_scale, v, v_scale, lengths, m, l, y, then
     (b, hq, hkv, s, d, n_splits, block_s), a float scale, (window, sinks),
-    fp8 and the stream."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel("fkp_flash_decode_q",
-                         [vp] * 9 + [i32] * 7 + [ctypes.c_float] + [i32] * 3
-                         + [vp])
+    fp8 and the stream: the splits' partials."""
+    return _build.kernel("fkp_flash_decode_q", [ctypes.c_void_p] * 9 + _DECODE_Q_ARGS)
+
+
+@functools.cache
+def _kernel_q_out():
+    """fkp_flash_decode_q_out: q, k, k_scale, v, v_scale, lengths, out, m,
+    l, y (the splits' workspace, None with one split), then as
+    fkp_flash_decode_q: the merged rows."""
+    return _build.kernel("fkp_flash_decode_q_out",
+                         [ctypes.c_void_p] * 10 + _DECODE_Q_ARGS)
+
+
+def _check_q_inputs(q, k_q, k_scale, v_q, v_scale, lengths):
+    check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
+                     "8-bit decode")
+    _check_decode_shapes(q, k_q, v_q, lengths)
 
 
 def _decode_partials_q_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
                             block_s, sm_scale, window=0, sinks=0):
-    check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
-                     "8-bit decode")
-    _check_decode_shapes(q, k_q, v_q, lengths)
+    """The 8-bit Hopper kernel's partials of each split (fkp_flash_decode_q),
+    the same (m, l, y) as `_decode_partials_q_plain`."""
+    _check_q_inputs(q, k_q, k_scale, v_q, v_scale, lengths)
     b, hq, d = q.shape
     hkv, s = k_q.shape[1], k_q.shape[2]
     g = hq // hkv
@@ -391,6 +465,31 @@ def _decode_partials_q_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
     flash_decode_int8.window_launches += bool(window)
     _build.check(rc, "flash_decode_q")
     return m, l, y
+
+
+def _decode_q_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits, block_s,
+                   sm_scale, window=0, sinks=0):
+    """flash_decode_int8 (mxu=False) on the card in one launch
+    (fkp_flash_decode_q_out): the kernel merges its splits itself, through
+    an f32 workspace of their partials when there are more than one.
+    Counted in `flash_decode_int8.launches` (and `.window_launches` with a
+    window)."""
+    _check_q_inputs(q, k_q, k_scale, v_q, v_scale, lengths)
+    b, hq, d = q.shape
+    hkv, s = k_q.shape[1], k_q.shape[2]
+    out = torch.empty_like(q)
+    _ws, work = _split_workspace(q, hkv, n_splits)
+    rc = _kernel_q_out()(
+        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), *work, b, hq,
+        hkv, s, d, n_splits, block_s, float(sm_scale), int(window), int(sinks),
+        int(k_q.dtype == torch.float8_e4m3fn),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_decode_int8.launches += 1
+    flash_decode_int8.window_launches += bool(window)
+    _build.check(rc, "flash_decode_q")
+    return out
 
 
 def _quantize_q_rows(q, sm_scale):
@@ -514,10 +613,15 @@ def flash_decode_int8(
     k_q, v_q [B, Hkv, S, D] int8 or float8_e4m3fn; k_scale, v_scale
     [B, Hkv, S, 1] float32, the cache's own layout. The other arguments and
     the result are flash_decode's. CPU tensors run
-    `_decode_partials_q_plain`; CUDA tensors launch the 8-bit kernel of
-    csrc/flash_decode.cu (q bf16, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8})
-    or raise. window and sinks as flash_decode's. `flash_decode_fp8` is the
-    same function.
+    `_decode_partials_q_plain` through `merge_partials`; CUDA tensors
+    launch csrc/flash_decode_sm90.cuh's 8-bit kernel once, the split merge
+    included (q bf16, contiguous, 16-byte aligned, d in {64, 128}, Hq/Hkv
+    in {1, 2, 4, 8}), or raise. n_splits None takes `q_n_splits`, splits of
+    whole 64-key tiles (`default_block_s`); a caller's n_splits covers
+    ceil(S / n_splits) keys a split, as in JAX. window and sinks as
+    flash_decode's. `flash_decode_fp8` is the same function. Two calls must
+    not run at once on two streams of one device: they would share the
+    kernel's split-merge counters.
 
     mxu=True (an int8 cache only; ValueError for e4m3, where JAX asserts):
     both products int8 x int8, q and the exp weights requantized per row
@@ -540,21 +644,26 @@ def flash_decode_int8(
     hkv, s = k_q.shape[1], k_q.shape[2]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
-    if n_splits is None:
-        n_splits = _core_n_splits(b, hkv, s)
-    if n_splits < 1:
+    if n_splits is not None and n_splits < 1:
         raise ValueError(f"n_splits must be >= 1, got {n_splits}")
-    block_s = mxu_block_s(s, n_splits) if mxu else -(-s // n_splits)
+    if mxu:
+        n_splits = n_splits or _core_n_splits(b, hkv, s)
+        block_s = mxu_block_s(s, n_splits)
+    elif n_splits is None:
+        n_splits = q_n_splits(b, hkv, s, d)
+        block_s = default_block_s(s, n_splits)
+    else:
+        block_s = -(-s // n_splits)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     args = (q, k_q, k_scale, v_q, v_scale, lengths, n_splits, block_s,
             sm_scale, window, sinks)
-    if q.device.type == "cpu":
-        parts = (_decode_partials_mxu_plain if mxu else _decode_partials_q_plain)(*args)
-    elif q.device.type == "cuda":
-        parts = (_decode_partials_mxu_cuda if mxu else _decode_partials_q_cuda)(*args)
-    else:
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no decode for device {q.device}")
+    if not mxu:
+        return (_decode_q_plain if q.device.type == "cpu" else _decode_q_cuda)(*args)
+    parts = (_decode_partials_mxu_plain if q.device.type == "cpu"
+             else _decode_partials_mxu_cuda)(*args)
     return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
 
 
