@@ -448,10 +448,11 @@ def dense_rows(n: int, hq: int, b: int, sms: int) -> int:
 
 
 def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set,
-               need=("HGMMA", "UTMALDG"), forbid=("HMMA.16816",)):
+               need=("HGMMA", "UTMALDG"), forbid=("HMMA.16816",), frame=True):
     """The instances of a wgmma kernel as ptxas and the SASS show them: each
     compiled (`want`, as `instance` reads them from a symbol), none
-    spilling, none with wgmma instructions serialized by ptxas, and each in
+    spilling (frame=False: nor with a stack frame), none with wgmma
+    instructions serialized by ptxas, and each in
     the object of its source (objects: source -> whether an instance
     belongs there) with the opcodes of `need` (by default HGMMA, wgmma, and
     UTMALDG, TMA loads) and none of `forbid` (by default HMMA.16816,
@@ -478,6 +479,8 @@ def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set,
     for inst, line in sorted(spills.items()):
         if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
             raise AssertionError(f"{kernel}{inst} spills: {line}")
+        if not frame and not re.search(r"\b0 bytes stack frame", line):
+            raise AssertionError(f"{kernel}{inst} has a stack frame: {line}")
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the SASS gate "
@@ -574,6 +577,32 @@ def phase_gemm_f32_build(build_log: str, label):
         f"{regs.get(GEMM_F32_TILE)} registers a thread at launch [{label}]")
 
 
+# The softmax-epilogue GEMM's wgmma instances (csrc/gemm_softmax_sm90.cuh):
+# (tile width, resident)
+GEMM_SOFTMAX_OBJECT = "gemm_softmax_sm90.cu"
+GEMM_SOFTMAX_KERNEL = "gemm_softmax_sm90_kernel"
+
+
+def phase_gemm_softmax_build(build_log: str, label):
+    """Kernels 16 and 17's four wgmma instances (128 x 128 and 128 x 256
+    tiles, rows and resident) through `wgmma_gate`, in
+    gemm_softmax_sm90.cu's object: no spill, no stack frame, no serialized
+    wgmma; HGMMA, UTMALDG (A's, B's and C's boxes) and UTMASTG (C's boxes
+    back) and no HMMA.16816 in each; with their registers from ptxas."""
+    instance = template_args(GEMM_SOFTMAX_KERNEL, 2)
+    counts = wgmma_gate(build_log, GEMM_SOFTMAX_KERNEL, instance,
+                        {GEMM_SOFTMAX_OBJECT: lambda inst: True},
+                        {(n, r) for n in (128, 256) for r in (0, 1)},
+                        need=("HGMMA", "UTMALDG", "UTMASTG"), frame=False)
+    regs = ptxas_registers(build_log, instance)
+    log("softmax-epilogue GEMM: 4 wgmma instances (kBN, resident) built with no "
+        "spill, no stack frame and no serialized wgmma; SASS (HGMMA, UTMALDG, "
+        "UTMASTG, HMMA.16816), registers at launch: "
+        + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['UTMASTG']}/"
+                    f"{c['HMMA.16816']}, {regs.get(inst)}"
+                    for inst, c in sorted(counts.items())) + f" [{label}]")
+
+
 def sm90_launches() -> int:
     """The launches of the bf16 wgmma GEMM so far, over both wrappers."""
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
@@ -596,6 +625,16 @@ def gemm_tile_n(batch: int, m: int, n: int) -> int:
     from flashattention_kernel_project_tpu_torch.ops import _build
 
     return _build.kernel("fkp_gemm_sm90_tile_n", [ctypes.c_int] * 3)(batch, m, n)
+
+
+def softmax_tile_n(batch: int, m: int, n: int) -> int:
+    """The tile width (128 or 256) the softmax epilogue's wgmma kernel
+    picks for a call of this shape on this card (csrc/gemm_softmax_sm90.cu)."""
+    import ctypes
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+
+    return _build.kernel("fkp_gemm_softmax_sm90_tile_n", [ctypes.c_int] * 3)(batch, m, n)
 
 
 # (batch, m, k, n) at the edges of the wgmma GEMM's 128-row tiles, 64-deep
@@ -641,6 +680,95 @@ def _hold_gemm(what, got, want, out, split=None):
     if not ok:
         raise AssertionError(f"{what}: {line}")
     return line
+
+
+# (batch, m, k, n) at the edges of the softmax-epilogue wgmma kernel's
+# 128-row bands, 64-deep slices and 128- or 256-column tiles shared by a
+# pair of CTAs: M 1, 127, 128, 129; N 8 (one live 8-column block, one tile:
+# the second CTA has none), 248, 256, 264 (a second tile of one 8-column
+# block), 4104 (17 or 33 tiles, the running max over many); K 8, 72, 2048;
+# batch 1-3; 3x129x2048x4104 takes 256-column tiles, the rest 128, and
+# 3x2944x72x256 has more bands than half the SMs with N <= 256 (where
+# kernel 13's tile_n would pick 256, one tile a band)
+SOFTMAX_TILE_SHAPES = [
+    (1, 1, 8, 8), (2, 127, 72, 248), (3, 128, 2048, 256), (1, 129, 8, 264),
+    (2, 1, 72, 4104), (1, 127, 2048, 8), (2, 128, 8, 264), (3, 127, 8, 256),
+    (1, 129, 72, 248), (2, 1, 2048, 256), (3, 128, 72, 4104), (3, 129, 2048, 4104),
+    (3, 2944, 72, 256),
+]
+# rel-L2 of the wgmma kernel's f32 outputs, against either plain version:
+# they read up to 6.6e-6 at K 2048 (the products' sums in another order);
+# an e rounded to bf16 before the rescale would read ~1e-3
+SOFTMAX_F32_TOL = 2e-5
+# rel-L2 of the wgmma kernel's bf16 outputs against its rounding order,
+# by resident: rows against `_softmax_epilogue_tiles_plain`, read up to
+# 1.9e-4 at the tile-edge shapes (the plain version: 5e-4 to 2.6e-3 where
+# K or N is large); resident against its plain version, which is its
+# rounding order too, read up to 8.7e-4 (1 / l rounded to bf16 moves a
+# whole row by an ulp where the order of l's sum tips it)
+SOFTMAX_MIRROR_TOL = {False: 5e-4, True: 2e-3}
+
+
+def phase_softmax_tiles(device, label, shapes=SOFTMAX_TILE_SHAPES):
+    """Kernels 16 and 17 on the wgmma kernel (csrc/gemm_softmax_sm90.cuh)
+    at the edges of its bands and tiles, through
+    batched_matmul_softmax_epilogue, rows and resident, to bf16 and to f32:
+    each call must take the wgmma kernel (`.sm90_launches` rises by one for
+    a rows call, by two for a resident one and its gated rows launch), the
+    witness must stay 0, and each output is held by the ladder's gates
+    against its plain version (`_softmax_epilogue_plain`,
+    `_softmax_epilogue_resident_plain`, which is also the resident
+    kernel's rounding order); a rows output also against the kernel's
+    rounding order (`_softmax_epilogue_tiles_plain` at the tile width the
+    kernel took), within SOFTMAX_MIRROR_TOL, and an f32 output within
+    SOFTMAX_F32_TOL of both. Both tile widths must occur."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    bf, f32 = torch.bfloat16, torch.float32
+    fn = g.batched_matmul_softmax_epilogue
+    sc = CONFIG3["scale"]
+    widths = set()
+    for batch, m, k, n in shapes:
+        a = torch.randn(batch, m, k, generator=gen, device=device).to(bf)
+        b = torch.randn(batch, k, n, generator=gen, device=device).to(bf)
+        bias = torch.randn(n, generator=gen, device=device)
+        tile = softmax_tile_n(batch, m, n)
+        widths.add(tile)
+        for out in (bf, f32):
+            name = "f32" if out == f32 else "bf16"
+            for resident in (False, True):
+                before = fn.sm90_launches
+                got = fn(a, b, bias, scale=sc, out_dtype=out, resident=resident)
+                took = fn.sm90_launches - before
+                what = (f"softmax epilogue {'resident' if resident else 'rows'} "
+                        f"{batch}x{m}x{k}x{n} -> {name} (128 x {tile} tiles)")
+                if took != 1 + resident:
+                    raise AssertionError(f"{what}: {took} wgmma launches, "
+                                         f"{1 + resident} expected")
+                if resident:
+                    want = g._softmax_epilogue_resident_plain(a, b, bias, sc, out)[0]
+                    mirror, gate = want, "resident"
+                    if int(fn.witness):
+                        raise AssertionError(f"{what}: witness {int(fn.witness)}")
+                else:
+                    want = g._softmax_epilogue_plain(a, b, bias, sc, out)
+                    mirror = g._softmax_epilogue_tiles_plain(a, b, bias, sc, out, tile)
+                    gate = f"rows {name}"
+                torch.cuda.synchronize()
+                rung = Rung("gemm_softmax", what, None, None, gate, 0, 0, 0)
+                line = _hold_ladder(rung, got, want, dict(max_abs_err=0.0))
+                err_plain, err = _rel_l2(got, want), _rel_l2(got, mirror)
+                limit = SOFTMAX_F32_TOL if out == f32 else SOFTMAX_MIRROR_TOL[resident]
+                if not (err <= limit and (out == bf or err_plain <= limit)):
+                    raise AssertionError(f"{what}: {line}; against the kernel's rounding "
+                                         f"order rel-L2 {err:.3e} (limit {limit})")
+                log(f"{what}: {line}; against the kernel's rounding order rel-L2 "
+                    f"{err:.3e} (limit {limit}) [{label}]")
+    if widths != {128, 256}:
+        raise AssertionError(f"the softmax tile-edge shapes took tile widths {sorted(widths)}")
 
 
 def phase_gemm_tiles(device, label, shapes=GEMM_TILE_SHAPES,
@@ -5305,6 +5433,9 @@ class Rung:
     f32x: bool | None = None  # ... (not) take the f32 wgmma kernel
     entry: str | None = None  # the kernels-line entry it stands for, if not `kernel`
     split: object = None  # the f32 wgmma kernel's split plain version ("f32")
+    # the softmax epilogue's wgmma launches the call must make (rows 1,
+    # resident 2 with its gated rows launch; 0 on the mma.sync kernels)
+    softmax_sm90: int | None = None
 
 
 def ladder_rungs(device) -> list:
@@ -5381,13 +5512,19 @@ def ladder_rungs(device) -> list:
              res=rand(200, 72))
 
     # BASELINE config 3 (run_all.py:105-116) in bf16 and f32 out, and the
-    # ragged N = 160 of tests/test_gemm.py:65 (the padded-column mask)
+    # ragged N = 160 of tests/test_gemm.py:65 (the padded-column mask), on
+    # the wgmma kernel; K 130 and N 75 (off its alignment) and K = 0 (the
+    # softmax of the bias alone) on the mma.sync rows kernel
     b3, n3, sc = CONFIG3["b"], CONFIG3["n"], CONFIG3["scale"]
     cases = ((f"config 3: {b3}x{n3}^3", rand(b3, n3, n3, dtype=bf),
               rand(b3, n3, n3, dtype=bf), rand(n3)),
              ("3x96x128x160", rand(3, 96, 128, dtype=bf), rand(3, 128, 160, dtype=bf),
               rand(160)))
-    for i, (what, a, b, bi) in enumerate(cases):
+    unaligned = (("1x200x130x75", rand(1, 200, 130, dtype=bf), rand(1, 130, 75, dtype=bf),
+                  rand(75)),
+                 ("2x64x0x72", rand(2, 64, 0, dtype=bf), rand(2, 0, 72, dtype=bf),
+                  rand(72, scale=4.0)))
+    for i, (what, a, b, bi) in enumerate(cases + unaligned):
         for out in (bf, f32):
             name = "f32" if out == f32 else "bf16"
             entry = (i, out) == (0, bf)
@@ -5403,7 +5540,7 @@ def ladder_rungs(device) -> list:
                 # bmm, then softmax in f32: the scores through device memory
                 unfused=(lambda a=a, b=b, bi=bi: torch.softmax(
                     torch.bmm(a, b).float() * sc + bi, dim=-1).bfloat16())
-                if entry else None, graph=False))
+                if entry else None, graph=False, softmax_sm90=int(i < len(cases))))
     resident_rungs(rungs, cases, rand, out_bytes, peak[bf])
 
     # run_all.py:143-157, a bf16 input, a ragged row, leading dims, and rows
@@ -5442,7 +5579,7 @@ def resident_rungs(rungs, cases, rand, out_bytes, peak):
     sc = CONFIG3["scale"]
     fn = g.batched_matmul_softmax_epilogue
     # config 3; M and N ragged against the 128 x 128 tiles; K and N not
-    # multiples of 8 (the element-wise instance)
+    # multiples of 8 (the mma.sync kernel's element-wise instance)
     shapes = (cases[0], ("2x1088x256x200", rand(2, 1088, 256, dtype=bf),
                          rand(2, 256, 200, dtype=bf), rand(200)),
               ("1x200x130x75", rand(1, 200, 130, dtype=bf), rand(1, 130, 75, dtype=bf),
@@ -5465,7 +5602,9 @@ def resident_rungs(rungs, cases, rand, out_bytes, peak):
                 torch.bmm(a, b).float() * sc + bi, dim=-1).bfloat16()) if i == 0 else None,
             beside=dict(rows_kernel=lambda a=a, b=b, bi=bi: fn(a, b, bi, scale=sc,
                                                                out_dtype=bf))
-            if i == 0 else None, graph=False))
+            if i == 0 else None, graph=False,
+            # K 130, N 75: off the wgmma kernel's alignment, the mma.sync one
+            softmax_sm90=0 if i == 2 else 2))
 
 
 def gemm8_rungs(rungs, gen, rand, out_bytes, a16):
@@ -5678,9 +5817,9 @@ LADDER_KERNELS = dict(  # entry name -> (source, the TPU kernel's def line)
     gemm=("gemm_sm90.cuh", "gemm.py:75"), gemm_batched=("gemm_sm90.cuh", "gemm.py:172"),
     gemm_f32=("gemm_f32_sm90.cuh", "gemm.py:75"),
     gemm_fused_epilogue=("gemm.cu", "gemm.py:250"),
-    gemm_softmax=("gemm_softmax.cu", "gemm.py:334"),
+    gemm_softmax=("gemm_softmax_sm90.cuh", "gemm.py:334"),
     softmax=("softmax.cu", "softmax.py:44"),
-    gemm_softmax_resident=("gemm_softmax.cu", "gemm.py:458"),
+    gemm_softmax_resident=("gemm_softmax_sm90.cuh", "gemm.py:458"),
     gemm_w8=("gemm_w8.cu", "quant.py:72"), gemm_i8=("gemm_i8.cu", "quant.py:224"),
     streaming_decode=("flash_decode_sm90.cuh", "streaming.py:45"))
 # the counters whose sum is an entry's launches, where not its own name
@@ -5693,25 +5832,34 @@ def phase_resident_fallback(device, label):
     """The resident form on inputs scaled by 40 (tests/test_gemm.py:110-127,
     bf16 operands as the card takes them, f32 out): the witness must count
     breaching rows, and the output must be kernel 16's on the same inputs,
-    bit for bit (the gated rows launch overwrote it)."""
+    bit for bit (the gated rows launch overwrote it). At 1x1024x256x128 all
+    three launches take the wgmma kernel; at 1x200x130x75 (K and N off its
+    alignment) none does: the mma.sync resident kernel and rows kernel."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
 
     gen = torch.Generator(device=device).manual_seed(42)
-    a = (40 * torch.randn(1, 1024, 256, generator=gen, device=device)).bfloat16()
-    w = (40 * torch.randn(1, 256, 128, generator=gen, device=device)).bfloat16()
-    bias = torch.randn(128, generator=gen, device=device)
     fn = g.batched_matmul_softmax_epilogue
-    got = fn(a, w, bias, scale=1.0, out_dtype=torch.float32, resident=True)
-    witness = fn.witness
-    rows = fn(a, w, bias, scale=1.0, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    log(f"resident fallback (1x1024x256x128, inputs x 40): witness "
-        f"{int(witness)} rows, output bit-equal to kernel 16's: "
-        f"{torch.equal(got, rows)} [{label}]")
-    if not int(witness) > 0 or not torch.equal(got, rows):
-        raise AssertionError("the resident form did not fall back to kernel 16")
+    for m, k, n, sm90 in ((1024, 256, 128, 3), (200, 130, 75, 0)):
+        a = (40 * torch.randn(1, m, k, generator=gen, device=device)).bfloat16()
+        w = (40 * torch.randn(1, k, n, generator=gen, device=device)).bfloat16()
+        bias = torch.randn(n, generator=gen, device=device)
+        before = fn.sm90_launches
+        got = fn(a, w, bias, scale=1.0, out_dtype=torch.float32, resident=True)
+        witness = fn.witness
+        rows = fn(a, w, bias, scale=1.0, out_dtype=torch.float32)
+        took = fn.sm90_launches - before
+        torch.cuda.synchronize()
+        what = f"resident fallback (1x{m}x{k}x{n}, inputs x 40)"
+        log(f"{what}: witness {int(witness)} rows, output bit-equal to kernel 16's: "
+            f"{torch.equal(got, rows)}; wgmma launches {took} of 3 [{label}]")
+        if not int(witness) > 0 or not torch.equal(got, rows):
+            raise AssertionError(f"{what}: the resident form did not fall back to "
+                                 f"kernel 16")
+        if took != sm90:
+            raise AssertionError(f"{what}: the calls made {took} wgmma launches, "
+                                 f"{sm90} expected")
 
 
 def phase_ladder(device, label):
@@ -5723,6 +5871,8 @@ def phase_ladder(device, label):
     checked on its own. Returns the kernels' entries."""
     import torch
 
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("library: torch.backends.cuda.matmul.allow_tf32 = False and "
@@ -5731,14 +5881,24 @@ def phase_ladder(device, label):
     torch.cuda.synchronize()
     reset_counters()
     outs = []
+    softmax = g.batched_matmul_softmax_epilogue
+    softmax_sm90 = dict(gemm_softmax=0, gemm_softmax_resident=0)
     for r in rungs:  # each GEMM call on the kernel its shape and type pick
-        before = sm90_launches(), f32x_launches()
+        before = sm90_launches(), f32x_launches(), softmax.sm90_launches
         outs.append(r.call())
         for want, got, kind in ((r.sm90, sm90_launches() - before[0], "bf16"),
                                 (r.f32x, f32x_launches() - before[1], "f32")):
             if want is not None and got != int(want):
                 raise AssertionError(f"{r.label}: {got} {kind} wgmma GEMM launches, "
                                      f"{int(want)} expected")
+        if r.softmax_sm90 is not None:
+            got = softmax.sm90_launches - before[2]
+            if got != r.softmax_sm90:
+                raise AssertionError(f"{r.label}: {got} softmax-epilogue wgmma "
+                                     f"launches, {r.softmax_sm90} expected")
+            # the resident form's own launch (its gated rows launch counts
+            # as the fallback's)
+            softmax_sm90[r.kernel] += got if r.kernel == "gemm_softmax" else got // 2
     phase_baseline_configs(device, label)
     torch.cuda.synchronize()
     launches = read_counters()
@@ -5764,6 +5924,13 @@ def phase_ladder(device, label):
             raise AssertionError(f"{name}: no wgmma launch on the ladder's path")
         entries[name].update(launches=sm90, mma_sync_launches=entries[name]["launches"]
                              - sm90 - launches[f"{name}/f32x"])
+    # kernels 16 and 17: the entries' launches are the wgmma kernel's
+    # (gemm_softmax_sm90.cuh), the rest the mma.sync kernels' (gemm_softmax.cu)
+    for name, sm90 in softmax_sm90.items():
+        if not sm90 > 0:
+            raise AssertionError(f"{name}: no wgmma launch on the ladder's path")
+        entries[name].update(launches=sm90,
+                             mma_sync_launches=entries[name]["launches"] - sm90)
     # the streaming rungs count in streaming_decode's counter alone
     if launches["flash_decode"]:
         raise AssertionError(f"{launches['flash_decode']} flash_decode launches on "
@@ -5772,10 +5939,14 @@ def phase_ladder(device, label):
     if launches["gemm_softmax/fallback"] != launches["gemm_softmax/resident"]:
         raise AssertionError(f"{launches['gemm_softmax/fallback']} gated rows "
                              f"launches for {launches['gemm_softmax/resident']} resident")
+    mma_sync = ("gemm", "gemm_batched", "gemm_softmax", "gemm_softmax_resident")
     log(f"ladder: kernel launches { {k: e['launches'] for k, e in entries.items()} } "
-        f"(gemm, gemm_batched: the wgmma kernel's; on the mma.sync core "
-        f"{ {k: entries[k]['mma_sync_launches'] for k in ('gemm', 'gemm_batched')} }), "
-        f"gated rows launches {launches['gemm_softmax/fallback']} [{label}]")
+        f"(gemm, gemm_batched, gemm_softmax, gemm_softmax_resident: the wgmma "
+        f"kernels'; on the mma.sync kernels "
+        f"{ {k: entries[k]['mma_sync_launches'] for k in mma_sync} }), "
+        f"gated rows launches {launches['gemm_softmax/fallback']}, of all three "
+        f"softmax-epilogue kinds on its wgmma kernel {launches['gemm_softmax/sm90']} "
+        f"[{label}]")
     witness = {k: int(v) for k, v in WITNESS.items()}
     log(f"resident witness counts: {witness} [{label}]")
     if any(witness.values()):
@@ -6688,6 +6859,7 @@ def main() -> int:
     phase_fwd_sm90_build(build_log, label)
     phase_gemm_sm90_build(build_log, label)
     phase_gemm_f32_build(build_log, label)
+    phase_gemm_softmax_build(build_log, label)
     phase_bwd_sm90_build(build_log, label)
     phase_dec_sm90_build(build_log, label)
     phase_dec_q_build(build_log, label)
@@ -6778,6 +6950,8 @@ def main() -> int:
     # edges, then timed in turns with torch.matmul / torch.bmm (the f32 one
     # beside the FFMA core too, and against the fp64 oracle)
     phase_gemm_tiles(device, label)
+    # kernels 16 and 17 on their wgmma kernel at its bands' and tiles' edges
+    phase_softmax_tiles(device, label)
     gemm_times = phase_gemm_sm90_times(device, label)
     f32_times = phase_gemm_f32_times(device, label)
     for entry in ladder:

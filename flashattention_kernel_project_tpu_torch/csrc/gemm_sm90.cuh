@@ -55,6 +55,9 @@
 //   wholly inside or outside C: a warp's store covers whole 32-byte
 //   sectors. Written in pairs (store2, 4 bytes a thread for bf16) it took
 //   22% of the time at 8 x 1024^3.
+// The ring, its producer (load_tile), the consumers' products (mma_tile),
+// the maps (encode_ab) and the 16-byte stores are shared with the
+// softmax-epilogue GEMM (gemm_softmax_sm90.cuh).
 // What sets the pace now (PERF.md, on the H100): the products alone run at
 // ~83% of the bound at 4096^3, and the loads alone as fast as the bound;
 // the tensor cores idle while C is written, 7% of the time at 4096^3 and
@@ -77,7 +80,8 @@
 // The probes of tools/ab_gemm.py's builds (-DFKP_GEMM_PROBE; the library
 // builds 0, the GEMM): 1 the loads alone (no wgmma); 2 the products alone
 // (each stage loaded once, then re-armed without a load); 3 no epilogue
-// (C is not written). Their times say which part sets the pace (PERF.md).
+// (C is not written); 4 gemm_softmax_sm90.cuh's own. Their times say
+// which part sets the pace (PERF.md).
 #ifndef FKP_GEMM_PROBE
 #define FKP_GEMM_PROBE 0
 #endif
@@ -278,6 +282,116 @@ __device__ __forceinline__ void tile_at(int t, int m_tiles, int n_tiles,
   col0 = in / rows * kBN;
 }
 
+// The K ring of a kBN-column instance in shared memory, as one role (the
+// producer, or a consumer warpgroup) walks it: the stages' boxes from
+// `base` (1024-byte aligned), their full and empty mbarriers from shared
+// address `bars` (full [kStages], then empty [kStages]), and the role's
+// stage and phase.
+template <int kBN>
+struct Ring {
+  using L = Layout<kBN>;
+  uint32_t base;
+  uint32_t bars;
+  int st = 0, phase = 0;
+
+  __device__ __forceinline__ uint32_t a_s(int s) const { return base + s * L::kStage; }
+  __device__ __forceinline__ uint32_t b_s(int s) const { return a_s(s) + kBoxA; }
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8 * (L::kStages + s);
+  }
+  __device__ __forceinline__ void advance() {
+    if (++st == L::kStages) {
+      st = 0;
+      phase ^= 1;
+    }
+  }
+  // one thread, before the block's barrier: a load completes a stage's full
+  // barrier, one arrival of each consumer warp its empty one
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// The producer warpgroup gives its registers to the consumers.
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+}
+
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+}
+
+// The producer thread's loads for one tile of C (rows row0.., columns
+// col0.. of batch b): A's box and B's boxes that hold a column below n, a
+// 64-deep slice of K a stage, n_k slices. `first`: the block's first tile
+// (the products-alone probe loads the ring's stages then only).
+template <int kBN>
+__device__ __forceinline__ void load_tile(Ring<kBN>& r, const CUtensorMap* a_map,
+                                          const CUtensorMap* b_map, int b,
+                                          int row0, int col0, int n, int n_k,
+                                          bool first) {
+  using L = Layout<kBN>;
+  const int boxes = min(L::kBoxesB, (n - col0 + kBoxCols - 1) / kBoxCols);
+  for (int kt = 0; kt < n_k; ++kt) {
+    // the stage's previous slice released by every consumer warp (the
+    // first round passes at once)
+    mbar_wait(r.empty(r.st), r.phase ^ 1);
+    if (FKP_GEMM_PROBE == 2 && (r.phase || !first || kt >= L::kStages)) {
+      mbar_arrive(r.full(r.st));
+    } else {
+      mbar_expect_tx(r.full(r.st), kBoxA + boxes * kBoxB);
+      tma_load(r.a_s(r.st), a_map, r.full(r.st), kt * kBK, row0, b);
+      for (int x = 0; x < boxes; ++x) {
+        tma_load(r.b_s(r.st) + x * kBoxB, b_map, r.full(r.st),
+                 col0 + x * kBoxCols, kt * kBK, b);
+      }
+    }
+    r.advance();
+  }
+}
+
+// A consumer warpgroup's products for one tile: acc = its 64 rows of A @
+// the tile's columns of B over n_k slices of the ring. A stage is released
+// when the products that read it have retired: one slice's wgmmas stay in
+// flight while the next slice's are issued. acc's element 4j + e lies at
+// (row g if e < 2 else g + 8, column 8j + 2q + (e & 1)) of the warp's 16
+// rows (lane = 4g + q).
+template <int kBN>
+__device__ __forceinline__ void mma_tile(Ring<kBN>& r, float (&acc)[kBN / 2],
+                                         int wg, int lane, int n_k) {
+  const auto release = [&](int s) {  // this warp is done with stage s
+    __syncwarp();
+    if (lane == 0) mbar_arrive(r.empty(s));
+  };
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  int prev = 0;
+  for (int kt = 0; kt < n_k; ++kt) {
+    mbar_wait(r.full(r.st), r.phase);
+    wgmma_fence();
+    // 16 of k (32 bytes) a step: along A's swizzled rows, and 16 rows
+    // (2048 bytes) down B's boxes, whose next 64 columns lie a box away
+#pragma unroll
+    for (int kk = 0; kk < (FKP_GEMM_PROBE == 1 ? 0 : kBK / 16); ++kk) {
+      wgmma_tile<kBN>(acc, desc(r.a_s(r.st) + wg * 64 * 128 + kk * 32, 16, 1024),
+                      desc(r.b_s(r.st) + kk * 2048, kBoxB, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous slice's products have retired
+    if (kt > 0) release(prev);
+    prev = r.st;
+    r.advance();
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  release(prev);
+}
+
 // C [batch, m, n] = A [batch, m, k] @ B [batch, k, n] through the maps
 // a_map (boxes of 128 rows x 64 of k) and b_map (boxes of 64 k-rows x 64
 // columns). The first 256 threads are the consumer warpgroups, 64 rows of
@@ -291,104 +405,38 @@ __global__ void __launch_bounds__(kThreads, 1)
   using L = Layout<kBN>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * L::kStages];  // full, empty
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const auto a_s = [&](int st) { return base + st * L::kStage; };
-  const auto b_s = [&](int st) { return a_s(st) + kBoxA; };
-  const auto full_bar = [&](int st) { return smem_u32(&bars[st]); };
-  const auto empty_bar = [&](int st) {
-    return smem_u32(&bars[L::kStages + st]);
-  };
+  Ring<kBN> ring{(smem_u32(smem_raw) + 1023u) & ~1023u, smem_u32(bars)};
   const int m_tiles = (o.m + kBM - 1) / kBM;
   const int n_tiles = (o.n + kBN - 1) / kBN;
   const int total = batch * m_tiles * n_tiles;
   const int n_k = (k + kBK - 1) / kBK;
 
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < L::kStages; ++st) {
-      mbar_init(full_bar(st), 1);
-      mbar_init(empty_bar(st), kConsumers / 32);  // one arrival a warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {  // the producer warpgroup: one thread loads
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    producer_regs();
     if (threadIdx.x == kConsumers) {
-      int st = 0, phase = 0;
-      const auto advance = [&] {
-        if (++st == L::kStages) {
-          st = 0;
-          phase ^= 1;
-        }
-      };
       for (int t = blockIdx.x; t < total; t += gridDim.x) {
         int b, row0, col0;
         tile_at<kBN>(t, m_tiles, n_tiles, b, row0, col0);
-        // B's boxes that hold a column below n
-        const int boxes = min(L::kBoxesB, (o.n - col0 + kBoxCols - 1) / kBoxCols);
-        for (int kt = 0; kt < n_k; ++kt) {
-          // the stage's previous slice released by every consumer warp (the
-          // first round passes at once)
-          mbar_wait(empty_bar(st), phase ^ 1);
-          if (FKP_GEMM_PROBE == 2 && (phase || t != blockIdx.x || kt >= L::kStages)) {
-            mbar_arrive(full_bar(st));
-          } else {
-            mbar_expect_tx(full_bar(st), kBoxA + boxes * kBoxB);
-            tma_load(a_s(st), &a_map, full_bar(st), kt * kBK, row0, b);
-            for (int x = 0; x < boxes; ++x) {
-              tma_load(b_s(st) + x * kBoxB, &b_map, full_bar(st),
-                       col0 + x * kBoxCols, kt * kBK, b);
-            }
-          }
-          advance();
-        }
+        load_tile(ring, &a_map, &b_map, b, row0, col0, o.n, n_k, t == blockIdx.x);
       }
     }
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  consumer_regs();
   const int wg = threadIdx.x / 128;
   const int warp = threadIdx.x / 32 % 4;  // in the warpgroup
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // accumulator row (and row + 8)
   const int q = lane % 4;  // accumulator column pair
-  const auto release = [&](int s) {  // this warp is done with stage s
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar(s));
-  };
-  int st = 0, phase = 0;
   for (int t = blockIdx.x; t < total; t += gridDim.x) {
     int b, row0, col0;
     tile_at<kBN>(t, m_tiles, n_tiles, b, row0, col0);
-    float acc[kBN / 2];  // element 4j + e at (row g if e < 2 else g + 8,
-                         // column 8j + 2q + (e & 1)) of the warp's 16 rows
-#pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
-    int prev = 0;
-    for (int kt = 0; kt < n_k; ++kt) {
-      mbar_wait(full_bar(st), phase);
-      wgmma_fence();
-      // 16 of k (32 bytes) a step: along A's swizzled rows, and 16 rows
-      // (2048 bytes) down B's boxes, whose next 64 columns lie a box away
-#pragma unroll
-      for (int kk = 0; kk < (FKP_GEMM_PROBE == 1 ? 0 : kBK / 16); ++kk) {
-        wgmma_tile<kBN>(acc, desc(a_s(st) + wg * 64 * 128 + kk * 32, 16, 1024),
-                        desc(b_s(st) + kk * 2048, kBoxB, 1024));
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous slice's products have retired
-      if (kt > 0) release(prev);
-      prev = st;
-      if (++st == L::kStages) {
-        st = 0;
-        phase ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-    pin(acc);
-    release(prev);
+    float acc[kBN / 2];
+    mma_tile(ring, acc, wg, lane, n_k);
     if (FKP_GEMM_PROBE == 3) {  // keep the products live: one test, no store
       uint32_t bits = 0;
 #pragma unroll
@@ -415,6 +463,15 @@ inline int tile_n(int batch, int m, int n, int sms) {
   return 2 * wide <= sms ? 128 : 256;
 }
 
+// The 3-D maps over [batch, rows, cols] of A (boxes of 128 rows x 64 of k)
+// and B (boxes of 64 k-rows x 64 columns): a ragged tile reads zeros past
+// its own batch's rows, never the next batch's. False if one fails.
+inline bool encode_ab(CUtensorMap* am, CUtensorMap* bm, const void* a,
+                      const void* b, const Out& o, int batch, int k) {
+  return encode_map(am, a, k, o.m, batch, kBM) &&
+         encode_map(bm, b, o.n, k, batch, kBK);
+}
+
 // Launches instance kBN on a grid of min(tiles, sms) blocks; returns a CUDA
 // error code (the shared-memory
 // attribute's, cudaErrorInvalidValue where a map cannot be encoded, else
@@ -428,8 +485,7 @@ int launch(const void* a, const void* b, const Out& o, int batch, int k,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap am, bm;
-  if (!encode_map(&am, a, k, o.m, batch, kBM) ||
-      !encode_map(&bm, b, o.n, k, batch, kBK)) {
+  if (!encode_ab(&am, &bm, a, b, o, batch, k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long tiles =

@@ -1,6 +1,14 @@
 // The batched GEMM with a fused scale + bias + row-softmax epilogue for
 // Hopper (sm_90a): C[b] = softmax_rows(scale * A[b] @ B[b] + bias[col]).
 //
+// The entries below take one of two designs by the call's path
+// (ops/gemm.py::softmax_epilogue_path): K and N multiples of 8 with
+// 16-byte-aligned bases and K > 0 go to the wgmma kernel of
+// gemm_softmax_sm90.cuh (built in gemm_softmax_sm90.cu: one sweep, the
+// softmax in its epilogue, both forms); every other call to the mma.sync
+// kernels of this file, described from here on, which read A and B
+// element by element (any shape).
+//
 // Replaces flashattention_kernel_project_tpu/ops/gemm.py::
 // _batched_softmax_epilogue_kernel (batched_matmul_softmax_epilogue,
 // through _batched_softmax_epilogue_rows; BASELINE.json config 3). The TPU
@@ -29,8 +37,7 @@
 // is 2*B*M*N*K = 550 GFLOP against 0.8 GB of inputs and outputs, so
 // the tensor-core rate bounds it (0.556 ms at 989 TFLOP/s); this kernel
 // runs twice those products on mma.sync. The one-sweep form is
-// gemm_softmax_resident_kernel below. Left for later: wgmma and TMA. bf16
-// inputs only.
+// gemm_softmax_resident_kernel below. bf16 inputs only.
 //
 // The resident form: gemm_softmax_resident_kernel replaces
 // flashattention_kernel_project_tpu/ops/gemm.py::
@@ -54,6 +61,7 @@
 // one read and one write of C.
 
 #include "gemm_core.cuh"
+#include "gemm_softmax_sm90.cuh"
 
 namespace {
 
@@ -69,10 +77,8 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
   m = mm;
 }
 
-// two blocks an SM: at most 128 registers a thread (without the bound the
-// aligned instance took 234 and ran one block an SM)
+// two blocks an SM: at most 128 registers a thread
 // gate: null, or a device count; while it is 0 every block returns at once
-template <bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_softmax_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b,
                         const float* bias, Out o, int k, float scale_log2,
@@ -117,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int r = 0; r < 8; ++r) rm[r] = kNegInf, rl[r] = 0.f;
   for (int col0 = 0; col0 < n; col0 += kBN) {
-    tile_bf16<kAligned>(acc, s, a, b, row0, col0, m, n, k);
+    tile_bf16<false>(acc, s, a, b, row0, col0, m, n, k);
     scores(col0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -174,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // sweep 2: the same tiles again, normalised
   for (int col0 = 0; col0 < n; col0 += kBN) {
-    tile_bf16<kAligned>(acc, s, a, b, row0, col0, m, n, k);
+    tile_bf16<false>(acc, s, a, b, row0, col0, m, n, k);
     scores(col0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -193,30 +199,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // C[i] = C[i] * inv, rounded to T, for the n elements of one row of C
-// (offset `idx` elements), the block's threads in turn; 16-byte pieces
-// where `wide` (n a multiple of 16 bytes' worth), else element by element.
+// (offset `idx` elements), the threads `tid` of `threads` in turn.
 template <class T>
 __device__ __forceinline__ void rescale_row(T* c, size_t idx, int n, float inv,
-                                            bool wide, int tid, int threads) {
-  constexpr int kPer = 16 / sizeof(T);
-  if (wide) {
-    for (int j = tid * kPer; j < n; j += threads * kPer) {
-      uint4 v = *reinterpret_cast<const uint4*>(c + idx + j);
-      T* e = reinterpret_cast<T*>(&v);
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) e[u] = T(static_cast<float>(e[u]) * inv);
-      *reinterpret_cast<uint4*>(c + idx + j) = v;
-    }
-  } else {
-    for (int j = tid; j < n; j += threads) {
-      c[idx + j] = T(static_cast<float>(c[idx + j]) * inv);
-    }
+                                            int tid, int threads) {
+  for (int j = tid; j < n; j += threads) {
+    c[idx + j] = T(static_cast<float>(c[idx + j]) * inv);
   }
 }
 
 // witness: a device count, plus the block's real rows whose l left
 // [2^-100, 2^120] or is not finite
-template <bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_softmax_resident_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b,
                                  const float* bias, Out o, int k,
@@ -241,9 +234,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   // the one sweep: e = exp2(z) with no max subtracted, stored rounded to
   // the output type; l sums the f32 e over the live columns, a tile's sum
   // added to part_l (in shared memory, so that no register holds l across
-  // the products: with it the aligned instance spilled)
+  // the products: with it the 16-byte instance, since removed, spilled)
   for (int col0 = 0; col0 < n; col0 += kBN) {
-    tile_bf16<kAligned>(acc, s, a, b, row0, col0, m, n, k);
+    tile_bf16<false>(acc, s, a, b, row0, col0, m, n, k);
     float rl[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // rows i * 2 + h
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -288,9 +281,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = warp; r < rows; r += kThreads / 32) {
     const size_t idx = base + (size_t)(row0 + r) * n;
     if (o.bf16) {
-      rescale_row(static_cast<__nv_bfloat16*>(o.c), idx, n, inv_l[r], kAligned, lane, 32);
+      rescale_row(static_cast<__nv_bfloat16*>(o.c), idx, n, inv_l[r], lane, 32);
     } else {
-      rescale_row(static_cast<float*>(o.c), idx, n, inv_l[r], kAligned, lane, 32);
+      rescale_row(static_cast<float*>(o.c), idx, n, inv_l[r], lane, 32);
     }
   }
 }
@@ -298,53 +291,61 @@ __global__ void __launch_bounds__(kThreads, 2)
 }  // namespace
 
 // a [batch, m, k], b [batch, k, n] bf16 contiguous, bias f32 [n]; c [batch,
-// m, n] bf16 (bf16_out) or f32. scale_log2 = scale * log2(e). aligned: k and
-// n are multiples of 8 and a, b are 16-byte aligned. gate: null, or a
-// device int32 count (the resident kernel's witness) that the launch
-// returns at once on while it is 0. Returns cudaGetLastError() after the
-// launch.
+// m, n] bf16 (bf16_out) or f32. scale_log2 = scale * log2(e). path
+// (ops/gemm.py::softmax_epilogue_path): 2 the wgmma kernel
+// (gemm_softmax_sm90.cuh: k and n multiples of 8, a and b 16-byte
+// aligned, k > 0; cudaErrorInvalidValue for k <= 0), which takes
+// tile_max, a device f32 workspace of batch * m * ceil(n / 128); else the
+// mma.sync kernel below, reading element by element (any shape; tile_max
+// null). gate: null, or a device int32 count (the resident kernel's
+// witness) that the launch returns at once on while it is 0.
+// Returns cudaGetLastError() after the launch, or the wgmma launch's error
+// code.
 extern "C" int fkp_gemm_softmax(const void* a, const void* b, const void* bias,
-                                void* c, const void* gate, int batch, int m,
-                                int n, int k, float scale_log2, int bf16_out,
-                                int aligned, void* stream) {
+                                void* c, const void* gate, void* tile_max,
+                                int batch, int m, int n, int k,
+                                float scale_log2, int bf16_out, int path,
+                                void* stream) {
   const Out o{c, nullptr, nullptr, m, n, bf16_out};
-  const dim3 grid((m + kBM - 1) / kBM, batch);
-  const auto ta = static_cast<const __nv_bfloat16*>(a);
-  const auto tb = static_cast<const __nv_bfloat16*>(b);
   const auto tbias = static_cast<const float*>(bias);
   const auto tgate = static_cast<const int*>(gate);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (aligned) {
-    gemm_softmax_kernel<true><<<grid, kThreads, 0, s>>>(ta, tb, tbias, o, k, scale_log2, tgate);
-  } else {
-    gemm_softmax_kernel<false><<<grid, kThreads, 0, s>>>(ta, tb, tbias, o, k, scale_log2, tgate);
+  if (path == 2) {
+    if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    return fkp_gemm_softmax_sm90::launch_softmax(
+        a, b, tbias, o, static_cast<float*>(tile_max), nullptr, tgate, batch, k,
+        scale_log2, false, s);
   }
+  const dim3 grid((m + kBM - 1) / kBM, batch);
+  gemm_softmax_kernel<<<grid, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(a),
+                                                static_cast<const __nv_bfloat16*>(b),
+                                                tbias, o, k, scale_log2, tgate);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The resident form (one sweep, fixed-max): arguments as fkp_gemm_softmax,
-// with c's every element written, and `witness` a device int32 to which the
-// launch adds its count of breaching rows (the caller zeroes it). aligned
-// also means n is a multiple of 8. Returns cudaGetLastError() after the
-// launch.
+// The resident form (one sweep, fixed-max): arguments as fkp_gemm_softmax
+// without tile_max, with c's every element written, and `witness` a device
+// int32 to which the launch adds its count of breaching rows (the caller
+// zeroes it). Returns cudaGetLastError() after the launch, or the wgmma
+// launch's error code.
 extern "C" int fkp_gemm_softmax_resident(const void* a, const void* b,
                                          const void* bias, void* c, void* witness,
                                          int batch, int m, int n, int k,
                                          float scale_log2, int bf16_out,
-                                         int aligned, void* stream) {
+                                         int path, void* stream) {
   const Out o{c, nullptr, nullptr, m, n, bf16_out};
-  const dim3 grid((m + kBM - 1) / kBM, batch);
-  const auto ta = static_cast<const __nv_bfloat16*>(a);
-  const auto tb = static_cast<const __nv_bfloat16*>(b);
   const auto tbias = static_cast<const float*>(bias);
   const auto tw = static_cast<int*>(witness);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (aligned) {
-    gemm_softmax_resident_kernel<true><<<grid, kThreads, 0, s>>>(
-        ta, tb, tbias, o, k, scale_log2, tw);
-  } else {
-    gemm_softmax_resident_kernel<false><<<grid, kThreads, 0, s>>>(
-        ta, tb, tbias, o, k, scale_log2, tw);
+  if (path == 2) {
+    if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    return fkp_gemm_softmax_sm90::launch_softmax(a, b, tbias, o, nullptr, tw,
+                                                 nullptr, batch, k, scale_log2,
+                                                 true, s);
   }
+  const dim3 grid((m + kBM - 1) / kBM, batch);
+  gemm_softmax_resident_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), tbias,
+      o, k, scale_log2, tw);
   return static_cast<int>(cudaGetLastError());
 }

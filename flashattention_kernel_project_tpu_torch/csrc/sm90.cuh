@@ -7,7 +7,9 @@
 // 1-D bulk load that complete on one, the wgmma shared-memory descriptor
 // under the 128-byte swizzle, the wgmma products the attention kernels
 // issue, wgmma's fence, commit and wait, the proxy fence, named barriers,
-// and the host-side encoder of a TMA map.
+// the cluster's ranks, remote stores, arrivals and barrier (the
+// softmax-epilogue GEMM, gemm_softmax_sm90.cuh), and the host-side encoder
+// of a TMA map.
 
 #pragma once
 
@@ -87,6 +89,25 @@ __device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
          "r"(c2)
       : "memory");
+}
+
+// the box at shared memory src into global memory at box (c0 column, c1
+// row, c2 head) of a 3-D map, as one bulk-group operation (parts of the
+// box past the tensor's bounds are not written)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+// orders this thread's generic-proxy accesses, global memory included,
+// before the async proxy's (a TMA load of what st.global wrote)
+__device__ __forceinline__ void fence_proxy_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {
@@ -257,6 +278,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
   } else {
     wgmma_rs_n64(d, a, db);
   }
+}
+
+// Thread block clusters (the softmax-epilogue GEMM's pairs of CTAs): this
+// CTA's rank in its cluster; the address in CTA `rank`'s shared memory of
+// the variable at this CTA's shared address `addr`; a store of two floats
+// there; an arrival there on an mbarrier that releases this thread's prior
+// writes to the cluster; a wait on a local mbarrier that acquires them;
+// and a barrier over every thread of the cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+               :: "r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(remote_bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // named barrier `id` over two consumer warpgroups: wait there, or arrive

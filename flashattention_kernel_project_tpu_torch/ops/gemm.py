@@ -10,10 +10,13 @@ csrc/gemm_sm90.cuh (two bf16 operands) or of csrc/gemm_f32_sm90.cuh (two
 f32 operands: JAX's Precision.HIGHEST, each operand split exactly into
 three bf16 pieces and six bf16 products summed in f32,
 `_matmul_f32_split_plain`); else the mma.sync core (bf16 on the tensor
-cores, float32 in full float32 FFMA, never TF32) and
-csrc/gemm_softmax.cu (`batched_matmul_softmax_epilogue`: the two-sweep rows
-kernel, and with resident=True the one-sweep fixed-max kernel that falls
-back to it on the device). On a CPU tensor
+cores, float32 in full float32 FFMA, never TF32).
+`batched_matmul_softmax_epilogue` takes csrc/gemm_softmax.cu's entries,
+which pick by `softmax_epilogue_path`: for aligned shapes the one-sweep
+wgmma kernel of csrc/gemm_softmax_sm90.cuh (the softmax in its epilogue,
+the rows form and the resident fixed-max one), else the mma.sync kernels
+(the two-sweep rows kernel and the one-sweep fixed-max kernel); the
+resident form falls back to the rows form on the device. On a CPU tensor
 each takes its plain version in PyTorch, the same function in float32.
 `matmul_xla` is the ladder's library rung, torch.matmul, as the JAX
 package's is XLA's own dot. The TPU kernels' block sizes (block_m, block_n,
@@ -76,6 +79,19 @@ def gemm_path(a_dtype, b_dtype, a_shape, b_shape, aligned: bool,
     if a_dtype == b_dtype == torch.float32:
         return PATH_SM90_F32
     return PATH_ALIGNED
+
+
+def softmax_epilogue_path(a_dtype, b_dtype, a_shape, b_shape,
+                          aligned: bool) -> int:
+    """The kernel a CUDA call of `batched_matmul_softmax_epilogue` takes,
+    by type and shape alone (the entries' `path`, a [B, M, K] @ b [B, K,
+    N]): `gemm_path`'s PATH_SM90 (two bf16 operands, K > 0, `aligned`) is
+    the wgmma kernel of csrc/gemm_softmax_sm90.cuh; every other call
+    (PATH_ELEMENTWISE) the mma.sync kernels of csrc/gemm_softmax.cu, which
+    read element by element. A documented route, not a fallback: the
+    wrapper raises on f32 operands before it."""
+    path = gemm_path(a_dtype, b_dtype, a_shape, b_shape, aligned, epilogue=False)
+    return PATH_SM90 if path == PATH_SM90 else PATH_ELEMENTWISE
 
 
 @functools.cache
@@ -255,6 +271,43 @@ def _softmax_epilogue_plain(a, b, bias, scale, out_dtype):
     return (e * (1.0 / torch.where(s == 0.0, 1.0, s))).to(out_dtype)
 
 
+def _softmax_epilogue_tiles_plain(a, b, bias, scale, out_dtype, tile_n):
+    """The wgmma rows kernel's arithmetic in plain PyTorch
+    (csrc/gemm_softmax_sm90.cuh), in f32, at its tile width tile_n (128 or
+    256): a row's tiles of tile_n columns split between the two CTAs of a
+    cluster, rank r taking tiles r, r + 2, ... in order; each rank keeps
+    its own running row max m_t after its tile t, e = exp2(z - m_t)
+    rounded to out_dtype and l = l * exp2(m_prev - m_t) + the tile's
+    unrounded e; then the two ranks' (m, l) merge into m = max(m_0, m_1), l
+    = l_0 * exp2(m_0 - m) + l_1 * exp2(m_1 - m), and each tile's rounded e
+    times exp2(m_t - m) * (1 / l) (an l of 0 counts as 1), rounded to
+    out_dtype. `_softmax_epilogue_plain`'s function, with e rounded once
+    more before the rescale where out_dtype is bf16; the kernel differs
+    from it only in the order of its sums and its exp2 (ex2.approx). For
+    the tests and chip_smoke.py, as `_matmul_f32_split_plain`; the
+    wrapper's CPU path stays `_softmax_epilogue_plain`."""
+    z = torch.matmul(a.float(), b.float()) * (scale * _LOG2E) + bias.float() * _LOG2E
+    n_tiles = -(-z.shape[-1] // tile_n)
+    tiles, ranks = [None] * n_tiles, []
+    for rank in (0, 1):
+        m = torch.full((*z.shape[:-1], 1), -1e30, device=z.device)
+        l = torch.zeros_like(m)
+        for t in range(rank, n_tiles, 2):
+            zt = z[..., t * tile_n:(t + 1) * tile_n]
+            m_t = torch.maximum(m, zt.amax(dim=-1, keepdim=True))
+            e = torch.exp2(zt - m_t)
+            l = l * torch.exp2(m - m_t) + e.sum(dim=-1, keepdim=True)
+            m = m_t
+            tiles[t] = (e.to(out_dtype), m_t)
+        ranks.append((m, l))
+    (m0, l0), (m1, l1) = ranks
+    m = torch.maximum(m0, m1)
+    l = l0 * torch.exp2(m0 - m) + l1 * torch.exp2(m1 - m)
+    inv = 1.0 / torch.where(l == 0.0, 1.0, l)
+    return torch.cat([(e.float() * (torch.exp2(m_t - m) * inv)).to(out_dtype)
+                      for e, m_t in tiles], dim=-1)
+
+
 # the l-range of the fixed-max form (JAX gemm.py:598-603): a real row whose
 # l is not finite or leaves [2^-100, 2^120] breaches it
 _L_LO, _L_HI = 2.0 ** -100, 2.0 ** 120
@@ -283,7 +336,7 @@ def _softmax_epilogue_resident_plain(a, b, bias, scale, out_dtype):
 def _softmax_kernel():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_gemm_softmax",
-                         [vp] * 5 + [i32] * 4 + [ctypes.c_float, i32, i32, vp])
+                         [vp] * 6 + [i32] * 4 + [ctypes.c_float, i32, i32, vp])
 
 
 @functools.cache
@@ -305,19 +358,22 @@ def batched_matmul_softmax_epilogue(
     """C[i] = softmax_rows(scale * A[i] @ B[i] + bias[col]): a [B, M, K],
     b [B, K, N], bias [N] -> [B, M, N] in out_dtype, the softmax fused on
     the f32 accumulator (BASELINE.json config 3). `resident` None or False
-    (the JAX default) is the rows structure: the row max subtracted, two
-    sweeps over N on the card. resident=True is the TPU's A-resident
-    fixed-max form: one sweep, exp2 with no max subtracted, and an l-range
+    (the JAX default) is the rows structure: the row max subtracted, one
+    sweep over N on the wgmma route and two on the mma.sync route.
+    resident=True is the TPU's A-resident fixed-max form: one sweep, exp2
+    with no max subtracted, and an l-range
     witness (a real row whose l is not finite or leaves [2^-100, 2^120])
     that sends the call to the rows structure's output; the last call's
     witness count stays on `batched_matmul_softmax_epilogue.witness`, a
     0-d int32 tensor on the inputs' device (reading it from the card
     synchronises; the call itself does not). CPU tensors run the plain
-    versions; CUDA tensors launch csrc/gemm_softmax.cu (bf16 operands) or
-    raise. Launches are counted: `.launches` the rows kernel on its own,
-    `.resident_launches` the one-sweep kernel, `.fallback_launches` the rows
-    kernel gated on the witness (launched after every resident one; it
-    returns at once while the witness is 0)."""
+    versions; CUDA tensors launch csrc/gemm_softmax.cu's entries (bf16
+    operands), on the kernel `softmax_epilogue_path` picks, or raise.
+    Launches are counted: `.launches` the rows form on its own,
+    `.resident_launches` the resident form, `.fallback_launches` the rows
+    form gated on the witness (launched after every resident one; it
+    returns at once while the witness is 0), and `.sm90_launches` those of
+    the three that took the wgmma kernel (csrc/gemm_softmax_sm90.cuh)."""
     _dims(a, b, batched=True)
     bsz, m, k = a.shape
     n = b.shape[2]
@@ -342,30 +398,43 @@ def batched_matmul_softmax_epilogue(
         return _empty(a, b, out_dtype)
     a, b = a.contiguous(), b.contiguous()
     bias = bias.to(a.device, torch.float32).contiguous()
+    if bias.data_ptr() % 16:  # the wgmma kernel reads it in pairs
+        bias = bias.clone()
     c = torch.empty((bsz, m, n), dtype=out_dtype, device=a.device)
+    path = softmax_epilogue_path(a.dtype, b.dtype, a.shape, b.shape, _aligned(a, b))
+    sm90 = int(path == PATH_SM90)
+    # the rows form's tile maxima on the wgmma kernel: room for its
+    # narrower tiles (128 columns)
+    tile_max = (torch.empty((bsz, m, -(-n // 128)), dtype=torch.float32,
+                            device=a.device) if sm90 else None)
     args = (bsz, m, n, k, float(scale * _LOG2E), int(out_dtype == torch.bfloat16),
-            int(_aligned(a, b)), torch.cuda.current_stream(a.device).cuda_stream)
+            path, torch.cuda.current_stream(a.device).cuda_stream)
     gate = None
     if resident:
         witness = torch.zeros((), dtype=torch.int32, device=a.device)
         rc = _resident_kernel()(a.data_ptr(), b.data_ptr(), bias.data_ptr(),
                                 c.data_ptr(), witness.data_ptr(), *args)
         fn.resident_launches += 1
+        fn.sm90_launches += sm90
         _build.check(rc, "gemm_softmax_resident")
         fn.witness, gate = witness, witness.data_ptr()
     rc = _softmax_kernel()(a.data_ptr(), b.data_ptr(), bias.data_ptr(),
-                           c.data_ptr(), gate, *args)
+                           c.data_ptr(), gate,
+                           None if tile_max is None else tile_max.data_ptr(), *args)
     if resident:
         fn.fallback_launches += 1
     else:
         fn.launches += 1
+    fn.sm90_launches += sm90
     _build.check(rc, "gemm_softmax")
     return c
 
 
 # kernel launches, for showing that a path ran the kernels (matmul_bf16
 # counts in matmul's); `.sm90_launches` and `.f32x_launches` count those of
-# `.launches` that took the bf16 and the f32 wgmma kernel
+# `.launches` that took the bf16 and the f32 wgmma kernel (the softmax
+# epilogue's `.sm90_launches`: those of its three counts that took its
+# wgmma kernel)
 matmul.launches = 0
 matmul.sm90_launches = 0
 matmul.f32x_launches = 0
@@ -376,5 +445,6 @@ matmul_fused_epilogue.launches = 0
 batched_matmul_softmax_epilogue.launches = 0
 batched_matmul_softmax_epilogue.resident_launches = 0
 batched_matmul_softmax_epilogue.fallback_launches = 0
+batched_matmul_softmax_epilogue.sm90_launches = 0
 # the resident form's last witness count (None before the first such call)
 batched_matmul_softmax_epilogue.witness = None

@@ -27,6 +27,13 @@ H100_SMEM_PER_SM = 233_472  # bytes an SM gives its blocks' shared memory
 H100_SMEM_RESERVED_PER_BLOCK = 1024  # bytes the system keeps of each block's
 
 
+def backend() -> str:
+    """JAX's name for the platform the port's kernels run on, as
+    `jax.default_backend()` gives it: "gpu" where CUDA is available, else
+    "cpu" (where every wrapper takes its plain PyTorch version)."""
+    return "gpu" if torch.cuda.is_available() else "cpu"
+
+
 def require_hopper(device: int = 0) -> str:
     """Raise unless CUDA is available and `device` is compute capability
     9.0 (Hopper, the sm_90a build target). Returns the device name."""

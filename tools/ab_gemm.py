@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Compare builds of the GEMM (kernels 13 and 14) on one card, in turns.
+"""Compare builds of the GEMM (kernels 13 and 14) or of the
+softmax-epilogue GEMM (kernels 16 and 17) on one card, in turns.
 
-    python3 tools/ab_gemm.py [bf16|f32] [NAME=CSRC_DIR[:FLAG,...] ...]
+    python3 tools/ab_gemm.py [bf16|f32|softmax] [NAME=CSRC_DIR[:FLAG,...] ...]
 
 Each NAME=CSRC_DIR builds that directory's gemm.cu (with gemm_sm90.cu and
 gemm_f32_sm90.cu where the directory has them) and common.cu, with the nvcc
@@ -28,6 +29,25 @@ f32: f32 operands, held the same way at the tile-edge shapes and N = 100
 SPLIT_TOL), then timed at 2048^3 and 1024^3 -> f32 in turns beside
 torch.matmul f32 (TF32 off), from a warm L2 (CUDA graphs) and from a cold
 one (each call after a 128 MB write, less the write's time).
+
+softmax (only when named): each NAME=CSRC_DIR builds that directory's
+gemm_softmax.cu (with gemm_softmax_sm90.cu where it has it) and common.cu,
+and "this" is this checkout's csrc/ built the same way; a build with
+gemm_softmax_sm90.cu is called on the wgmma path (2), another on its
+aligned mma.sync kernels. csrc/gemm_softmax_sm90.cuh's probes:
+-DFKP_GEMM_PROBE=3 (no epilogue: the products alone with their loads) and
+4 (the epilogue without the finish's rescale). Every build but a probe is
+held at tile-edge shapes, bf16 and f32 out, the rows form against
+`_softmax_epilogue_plain` (rel-L2 1e-2, rows summing to 1) and the
+resident form, with its gated rows launch after it as the wrapper makes
+it, against `_softmax_epilogue_resident_plain` (rel-L2 1e-2, witness 0);
+then both forms are timed at config 3 (32 x 2048^3, scale 0.125) -> bf16
+and -> f32, at the aligned ragged shapes 3x96x128x160 and
+2x1088x256x200 -> bf16 and at 32x2048x2048x256 -> bf16 (N <= 256 with
+more bands than half the SMs), from a warm L2 (CUDA graphs) and a cold one (each
+call after a 128 MB write, less the write's time), the builds in turns,
+beside the unfused torch.bmm + torch.softmax and, at config 3, this
+checkout's wgmma GEMM alone (kernel 13) at the same shape.
 """
 
 import ctypes
@@ -51,10 +71,11 @@ FLUSH_MB = 128  # written before a call timed from a cold L2 (the H100's holds 5
 SOURCES = ("gemm.cu", "gemm_sm90.cu", "gemm_f32_sm90.cu", "common.cu")
 
 
-def build(name, csrc, flags, nvcc, nvcc_flags, out_dir):
-    """(fkp_gemm of a library built from csrc's GEMM sources, its path for
-    bf16 operands, its path for f32 operands)."""
-    srcs = [f for f in SOURCES if os.path.exists(os.path.join(csrc, f))]
+def compile_library(name, csrc, sources, flags, nvcc, nvcc_flags, out_dir, show):
+    """(the library built from those of `sources` that csrc has, one nvcc
+    process a source, all at once, then linked; the sources it has).
+    Prints each compile's lines that `show` picks."""
+    srcs = [f for f in sources if os.path.exists(os.path.join(csrc, f))]
     objs = [os.path.join(out_dir, f"{name}.{f}.o") for f in srcs]
     procs = [subprocess.Popen([nvcc, *nvcc_flags, *flags, "-c",
                                os.path.join(csrc, f), "-o", o],
@@ -66,17 +87,160 @@ def build(name, csrc, flags, nvcc, nvcc_flags, out_dir):
         if p.returncode:
             raise SystemExit(f"{name}: build failed\n{out[-4000:]}")
         print(f"{name}: " + " | ".join(line.strip() for line in out.splitlines()
-                                       if "gemm_sm90_kernel" in line
-                                       or "gemm_f32_sm90_kernel" in line
-                                       or "spill" in line)[-2000:], flush=True)
+                                       if show(line))[-3000:], flush=True)
     lib = os.path.join(out_dir, f"lib{name}.so")
     subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
                     *objs, "-o", lib], check=True)
-    fn = ctypes.CDLL(lib).fkp_gemm
+    return ctypes.CDLL(lib), srcs
+
+
+def build(name, csrc, flags, nvcc, nvcc_flags, out_dir):
+    """(fkp_gemm of a library built from csrc's GEMM sources, its path for
+    bf16 operands, its path for f32 operands)."""
+    lib, srcs = compile_library(
+        name, csrc, SOURCES, flags, nvcc, nvcc_flags, out_dir,
+        lambda line: "gemm_sm90_kernel" in line or "gemm_f32_sm90_kernel" in line
+        or "spill" in line)
+    fn = lib.fkp_gemm
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp] * 5 + [i32] * 8 + [vp]
     fn.restype = i32
     return fn, 2 if "gemm_sm90.cu" in srcs else 1, 3 if "gemm_f32_sm90.cu" in srcs else 1
+
+
+SOFTMAX_SOURCES = ("gemm_softmax.cu", "gemm_softmax_sm90.cu", "common.cu")
+SOFTMAX_CHECKS = [  # batch, m, k, n: the band's rows and the N tiles' edges
+    (1, 1, 8, 8), (3, 96, 128, 160), (2, 1088, 256, 200), (1, 129, 72, 4104),
+    (2, 127, 2048, 264), (3, 128, 72, 248), (1, 1024, 256, 128)]
+SOFTMAX_TIMES = [(32, 2048, 2048, 2048), (3, 96, 128, 160), (2, 1088, 256, 200),
+                 (32, 2048, 2048, 256)]
+SCALE = 0.125
+
+
+def build_softmax(name, csrc, flags, nvcc, nvcc_flags, out_dir):
+    """(fkp_gemm_softmax, fkp_gemm_softmax_resident, whether the build has
+    the wgmma kernel) of a library built from csrc's softmax sources."""
+    cdll, srcs = compile_library(
+        f"sm_{name}", csrc, SOFTMAX_SOURCES, flags, nvcc, nvcc_flags, out_dir,
+        lambda line: "Used" in line or "spill" in line or "serialized" in line)
+    new = "gemm_softmax_sm90.cu" in srcs
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    rows, res = cdll.fkp_gemm_softmax, cdll.fkp_gemm_softmax_resident
+    tail = [i32] * 4 + [ctypes.c_float, i32, i32, vp]
+    rows.argtypes = [vp] * (6 if new else 5) + tail
+    res.argtypes = [vp] * 5 + tail
+    rows.restype = res.restype = i32
+    return rows, res, new
+
+
+def softmax_part(entries, probes, dev, label):
+    """The softmax builds held at SOFTMAX_CHECKS, then timed at
+    SOFTMAX_TIMES (module docstring)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(21)
+    scale_log2 = SCALE * 1.4426950408889634
+
+    def run(entry, a, b, bias, out, resident):
+        rows, res, new = entry
+        batch, m, k = a.shape
+        n = b.shape[2]
+        c = torch.empty((batch, m, n), dtype=out, device=dev)
+        args = (batch, m, n, k, scale_log2, int(out == bf), 2 if new else 1,
+                torch.cuda.current_stream().cuda_stream)
+        gate = None
+        if resident:
+            witness = torch.zeros((), dtype=torch.int32, device=dev)
+            _build.check(res(a.data_ptr(), b.data_ptr(), bias.data_ptr(), c.data_ptr(),
+                             witness.data_ptr(), *args), "fkp_gemm_softmax_resident")
+            gate = witness.data_ptr()
+            run.witness = witness
+        ws = ([torch.empty(batch * m * -(-n // 128), device=dev).data_ptr()]
+              if new else [])
+        _build.check(rows(a.data_ptr(), b.data_ptr(), bias.data_ptr(), c.data_ptr(),
+                          gate, *ws, *args), "fkp_gemm_softmax")
+        return c
+
+    def inputs(batch, m, k, n):
+        return (torch.randn(batch, m, k, generator=gen, device=dev).to(bf),
+                torch.randn(batch, k, n, generator=gen, device=dev).to(bf),
+                torch.randn(n, generator=gen, device=dev))
+
+    for batch, m, k, n in SOFTMAX_CHECKS:
+        a, b, bias = inputs(batch, m, k, n)
+        for out in (bf, f32):
+            rows_want = g._softmax_epilogue_plain(a, b, bias, SCALE, out)
+            res_want = g._softmax_epilogue_resident_plain(a, b, bias, SCALE, out)[0]
+            for name, entry in entries.items():
+                if name in probes:
+                    continue
+                for resident, want in ((False, rows_want), (True, res_want)):
+                    got = run(entry, a, b, bias, out, resident)
+                    torch.cuda.synchronize()
+                    what = (f"{name} {'resident' if resident else 'rows'} "
+                            f"{batch}x{m}x{k}x{n} -> {'bf16' if out == bf else 'f32'}")
+                    err = cs._rel_l2(got, want)
+                    dev_sum = float((got.float().sum(-1) - 1.0).abs().max())
+                    if not (torch.isfinite(got).all() and err <= cs.BF16_TOL
+                            and dev_sum <= cs.RESIDENT_ROW_RTOL):
+                        raise SystemExit(f"{what}: rel-L2 {err:.3e}, rows sum to 1 "
+                                         f"+- {dev_sum:.3e}")
+                    if resident and int(run.witness):
+                        raise SystemExit(f"{what}: witness {int(run.witness)}")
+    print(f"{len(entries) - len(probes)} softmax builds held to plain at the "
+          f"tile-edge shapes, rows and resident, bf16 and f32 out | {label}",
+          flush=True)
+
+    scratch = torch.empty(FLUSH_MB << 20, dtype=torch.uint8, device=dev)
+    flush = lambda: scratch.fill_(1)  # noqa: E731
+    gemm13 = build("gemm13", _build.CSRC, [], _build.nvcc(), _build.NVCC_FLAGS,
+                   os.path.join(_build.BUILD_DIR, "ab"))
+    for batch, m, k, n in SOFTMAX_TIMES:
+        a, b, bias = inputs(batch, m, k, n)
+        config3 = (batch, m, k, n) == SOFTMAX_TIMES[0]
+        iters = 10 if config3 else 50
+        for out in (bf, f32) if config3 else (bf,):
+            oname = "bf16" if out == bf else "f32"
+            fns = {}
+            for resident in (False, True):
+                form = "resident" if resident else "rows"
+                for name, entry in entries.items():
+                    fns[f"{name} {form}"] = (
+                        lambda e=entry, r=resident: run(e, a, b, bias, out, r))
+            fns["bmm + softmax"] = lambda: torch.softmax(
+                torch.bmm(a, b).float() * SCALE + bias, dim=-1).to(out)
+            if config3:
+                fn13 = gemm13[0]
+
+                def gemm_alone():
+                    c = torch.empty((batch, m, n), dtype=out, device=dev)
+                    _build.check(fn13(a.data_ptr(), b.data_ptr(), c.data_ptr(), None,
+                                      None, batch, m, n, k, 1, int(out == bf), 0, 2,
+                                      torch.cuda.current_stream().cuda_stream), "fkp_gemm")
+                fns["GEMM alone (kernel 13)"] = gemm_alone
+            warm = {}
+            for _ in range(2):  # in turns: forward, then reverse order
+                for key in list(fns) if not warm else reversed(list(fns)):
+                    t = cs.time_ms(fns[key], dev, iters, graph=True)
+                    warm[key] = min(warm.get(key, t), t)
+            cold = cs.time_turns({"flush": flush, **{
+                key: (lambda f=f: (flush(), f())) for key, f in fns.items()}}, dev,
+                iters=iters)
+            bnd = cs.bound(2 * batch * m * n * k,
+                           cs.nbytes(a, b, bias) + batch * m * n * (2 if out == bf else 4))
+            for what, ms, less in (("warm L2", warm, 0.0),
+                                   ("cold L2", cold, cold["flush"])):
+                lib = ms["bmm + softmax"] - less
+                print(f"softmax epilogue {batch}x{m}x{k}x{n} -> {oname}, {what}"
+                      + (f" (less the {FLUSH_MB} MB write's {less:.4f} ms)" if less else "")
+                      + f": bound {bnd['bound_ms']:.4f} ms | " + " | ".join(
+                          f"{key} {ms[key] - less:.4f} ({lib / (ms[key] - less):.2f}x "
+                          f"under bmm + softmax, {bnd['bound_ms'] / (ms[key] - less):.1%})"
+                          for key in fns) + f" | {label}", flush=True)
 
 
 def main() -> int:
@@ -90,12 +254,24 @@ def main() -> int:
         raise SystemExit("no CUDA device")
     args = sys.argv[1:]
     parts = ("bf16", "f32")
-    if args and args[0] in parts:
+    if args and args[0] in (*parts, "softmax"):
         parts, args = (args[0],), args[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.library()
     out_dir = os.path.join(_build.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
+    if parts == ("softmax",):
+        entries, probes = {}, set()
+        for spec in [f"this={_build.CSRC}", *args]:
+            name, _, rest = spec.partition("=")
+            csrc, _, flags = rest.partition(":")
+            if "FKP_GEMM_PROBE" in flags:
+                probes.add(name)
+            entries[name] = build_softmax(name, os.path.abspath(csrc),
+                                          [f for f in flags.split(",") if f],
+                                          _build.nvcc(), _build.NVCC_FLAGS, out_dir)
+        softmax_part(entries, probes, torch.device("cuda", 0), platform.card_label())
+        return 0
+    _build.library()
     entries = {"this": (g._gemm_kernel(), g.PATH_SM90, g.PATH_SM90_F32)}
     probes = set()
     for spec in args:
