@@ -603,6 +603,63 @@ def phase_gemm_softmax_build(build_log: str, label):
                     for inst, c in sorted(counts.items())) + f" [{label}]")
 
 
+# The 8-bit GEMMs' wgmma kernels: kernel 19 (csrc/gemm_w8_sm90.cu, (weight
+# type, tile rows of x, consumer warpgroups)) and kernel 20
+# (csrc/gemm_i8_sm90.cu, tile columns)
+GEMM_W8_OBJECT = "gemm_w8_sm90.cu"
+GEMM_W8_KERNEL = "gemm_w8_sm90_kernel"
+GEMM_W8_INSTANCES = {(fmt, rows, wg) for fmt in ("int8", "e4m3")
+                     for rows, wg in ((256, 2), (128, 2), (64, 1), (16, 1))}
+GEMM_I8_OBJECT = "gemm_i8_sm90.cu"
+GEMM_I8_KERNEL = "gemm_i8_sm90_kernel"
+
+
+def gemm_w8_instance(sym: str):
+    """(weight type, kBM, kWG) of a gemm_w8_sm90_kernel instance's symbol,
+    or None for another symbol."""
+    name, rest = mangled_name(sym)
+    if name != GEMM_W8_KERNEL:
+        return None
+    rows, wg = (int(a) for a in re.findall(r"L[ib](\d+)E", rest)[:2])
+    return ("e4m3" if "fp8" in rest else "int8", rows, wg)
+
+
+def phase_gemm_8bit_build(build_log: str, label):
+    """Kernels 19 and 20's wgmma instances through `wgmma_gate`: kernel 19's
+    eight (int8 and e4m3 weights x tiles of 256 x 128, 128 x 128, 64 x 64
+    and 16 x 64: rows of x x columns of C) with HGMMA and UTMALDG, kernel
+    20's two (128 x 256 and 128 x 128) with IGMMA (int8 wgmma) and
+    UTMALDG, each in its source's object, none with HMMA.16816 or
+    IMMA.16832 (mma.sync), no spill, no serialized wgmma; with their
+    registers from ptxas."""
+    forbid = ("HMMA.16816", "IMMA.16832")
+    w8 = wgmma_gate(build_log, GEMM_W8_KERNEL, gemm_w8_instance,
+                    {GEMM_W8_OBJECT: lambda inst: True}, GEMM_W8_INSTANCES,
+                    forbid=forbid)
+    i8_instance = template_args(GEMM_I8_KERNEL, 1)
+    i8 = wgmma_gate(build_log, GEMM_I8_KERNEL, i8_instance,
+                    {GEMM_I8_OBJECT: lambda inst: True}, {(128,), (256,)},
+                    need=("IGMMA", "UTMALDG"), forbid=forbid)
+    w8_regs = ptxas_registers(build_log, gemm_w8_instance)
+    i8_regs = ptxas_registers(build_log, i8_instance)
+    log("8-bit GEMMs: kernel 19's 8 wgmma instances (weights, kBM, kWG) and kernel "
+        "20's 2 (kBN) built with no spill and no serialized wgmma; SASS (HGMMA or "
+        "IGMMA, UTMALDG; no HMMA.16816, IMMA.16832), registers at launch: "
+        + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}, {w8_regs.get(inst)}"
+                    for inst, c in sorted(w8.items())) + "; "
+        + ", ".join(f"{inst[0]}: {c['IGMMA']}/{c['UTMALDG']}, {i8_regs.get(inst)}"
+                    for inst, c in sorted(i8.items())) + f" [{label}]")
+
+
+def gemm8_launches() -> tuple:
+    """(the 8-bit GEMMs' wgmma launches so far, over the three wrappers;
+    kernel 20's transposing passes so far)."""
+    from flashattention_kernel_project_tpu_torch.ops import quant as qt
+
+    return (qt.matmul_int8_weights.sm90_launches + qt.matmul_fp8_weights.sm90_launches
+            + qt.matmul_int8.sm90_launches, qt.matmul_int8.transpose_launches)
+
+
 def sm90_launches() -> int:
     """The launches of the bf16 wgmma GEMM so far, over both wrappers."""
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
@@ -3444,6 +3501,7 @@ COUNTER_KINDS = dict(window="window_launches", fixed="fixed_launches",
                      resident="resident_launches", fallback="fallback_launches",
                      mxu="mxu_launches", q_int8="q_int8_launches",
                      guard="guard_launches", slots="slots_launches",
+                     transpose="transpose_launches",
                      copy_only="copy_only_launches", sm90="sm90_launches",
                      f32x="f32x_launches",
                      fused="fused_launches", split="split_launches",
@@ -5436,6 +5494,10 @@ class Rung:
     # the softmax epilogue's wgmma launches the call must make (rows 1,
     # resident 2 with its gated rows launch; 0 on the mma.sync kernels)
     softmax_sm90: int | None = None
+    # an 8-bit GEMM call that must (not) take its wgmma kernel (kernel 20's
+    # with one transposing pass, of `transposed`, its B operand)
+    gemm8_sm90: bool | None = None
+    transposed: object = None
 
 
 def ladder_rungs(device) -> list:
@@ -5607,13 +5669,28 @@ def resident_rungs(rungs, cases, rand, out_bytes, peak):
             softmax_sm90=0 if i == 2 else 2))
 
 
+# (M, K, N) of the 8-bit GEMMs' aligned calls that do not divide their
+# tiles: one row, one 16-column group, K of one slice or less, M, N and K
+# off every tile. Kernel 19 (64-deep slices; w8_plan on 132 SMs, rows of x
+# x columns of C): 64 x 64 for 200 x 336 x 272, 65 x 128 x 144 and 40 x
+# 136 x 1040, 16 x 64 for 1 x 64 x 16, 128 x 128 for 100 x 72 x 16912
+# (133 tiles), 256 x 128 for 1100 x 520 x 4112 (165 tiles); kernel 20
+# (128-deep slices): 128 x 128 tiles for the first three, 128 x 256 for
+# 1100 x 336 x 4112
+W8_EDGES = [(200, 336, 272), (65, 128, 144), (1, 64, 16), (40, 136, 1040),
+            (100, 72, 16912), (1100, 520, 4112)]
+I8_EDGES = [(200, 336, 272), (65, 128, 144), (1, 64, 16), (1100, 336, 4112)]
+
+
 def gemm8_rungs(rungs, gen, rand, out_bytes, a16):
     """Kernels 19 and 20 at run_all.py:76-101's shapes (bf16 4096^2
     activations, 4096^2 weights quantized per column by the port's own
-    quantizers, bit-equal to JAX's; int8 activations per row), with the
-    ragged shapes of tests/test_quant.py, a ragged K, and kernel 19 at the
-    decode shape of the JAX engine's int8 projections (M 8, K 2048, N
-    11008, models/engine.py:388-390)."""
+    quantizers, bit-equal to JAX's; int8 activations per row), kernel 19 at
+    the decode shape of the JAX engine's int8 projections (M 8, K 2048, N
+    11008, models/engine.py:388-390), both at W8_EDGES / I8_EDGES (bf16
+    and f32 out; kernel 19 with an f32 x at the first), all on their wgmma
+    kernels; and the ragged shapes of tests/test_quant.py and a ragged K,
+    off their alignment, on the mma.sync kernels."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import quant as qt
@@ -5621,7 +5698,7 @@ def gemm8_rungs(rungs, gen, rand, out_bytes, a16):
 
     bf, f32 = torch.bfloat16, torch.float32
 
-    def w8(label, x, n, fmt, out=bf, timed=None):
+    def w8(label, x, n, fmt, out=bf, timed=None, sm90=True):
         w = rand(x.shape[1], n)
         wq, ws = qt.quantize_int8(w, axis=0) if fmt == "int8" else qt.quantize_fp8_weights(w)
         fn = qt.matmul_int8_weights if fmt == "int8" else qt.matmul_fp8_weights
@@ -5633,39 +5710,60 @@ def gemm8_rungs(rungs, gen, rand, out_bytes, a16):
             platform.H100_BF16_FLOPS, timed=timed,
             # the JAX engine's own form (engine.py:394-401): three calls
             unfused=(lambda: (torch.matmul(x, wq.to(bf)) * ws).to(out))
-            if timed else None))
+            if timed else None, gemm8_sm90=sm90))
         return wq, ws
 
     # run_all.py:76-86
     w8_4096 = w8("gemm_int8_weights_4096 (bf16 4096^3 -> bf16)", a16, 4096, "int8",
                  timed="entry")
     w8("gemm_fp8_weights_4096 (bf16 4096^3 -> bf16)", a16, 4096, "fp8", timed="extra")
-    # ragged (tests/test_quant.py: 100 x 200 x 130), an f32 x rounded in the
-    # wrapper, f32 out; the decode shape
+    # ragged (tests/test_quant.py: 100 x 200 x 130, N off the 16-byte rows),
+    # an f32 x rounded in the wrapper, f32 out: the mma.sync kernel
     x_r = rand(100, 200)
-    w8("matmul_int8_weights f32 100x200x130 -> f32", x_r, 130, "int8", out=f32)
-    w8("matmul_fp8_weights f32 100x200x130 -> f32", x_r, 130, "fp8", out=f32)
-    w8("matmul_int8_weights bf16 8x2048x11008 (decode) -> bf16", rand(8, 2048, dtype=bf),
-       11008, "int8")
+    w8("matmul_int8_weights f32 100x200x130 -> f32", x_r, 130, "int8", out=f32, sm90=False)
+    w8("matmul_fp8_weights f32 100x200x130 -> f32", x_r, 130, "fp8", out=f32, sm90=False)
+    # the decode shape (64 x 64 tiles), timed beside its byte bound
+    x_dec = rand(8, 2048, dtype=bf)
+    for fmt in ("int8", "fp8"):
+        name = "matmul_int8_weights" if fmt == "int8" else "matmul_fp8_weights"
+        w8(f"{name} bf16 8x2048x11008 (decode) -> bf16", x_dec, 11008, fmt,
+           timed="extra")
+    for i, (m, k, n) in enumerate(W8_EDGES):
+        x_e = rand(m, k) if i == 0 else rand(m, k, dtype=bf)
+        for fmt in ("int8", "fp8"):
+            name = "matmul_int8_weights" if fmt == "int8" else "matmul_fp8_weights"
+            for out in (bf, f32):
+                w8(f"{name} {'f32' if i == 0 else 'bf16'} {m}x{k}x{n} (edge) -> "
+                   f"{'f32' if out == f32 else 'bf16'}", x_e, n, fmt, out=out)
 
-    def i8(label, m, k, n, out=f32, timed=None, b=None):
+    def i8(label, m, k, n, out=f32, timed=None, b=None, sm90=True):
         a_q, a_s = qt.quantize_int8(rand(m, k), axis=1)
         b_q, b_s = b if b is not None else qt.quantize_int8(rand(k, n), axis=0)
+        beside = None
+        if timed:
+            b_col = b_q.t().contiguous().t()  # column-major, as cuBLASLt wants it
+            beside = dict(int_mm_col_major_b=int_mm(a_q, a_s, b_q, b_s, out, True),
+                          int_mm_alone_col_major_b=lambda: torch._int_mm(a_q, b_col),
+                          transposing_pass=lambda: qt._transpose_i8_cuda(b_q))
         rungs.append(Rung(
             "gemm_i8", label, lambda: qt.matmul_int8(a_q, a_s, b_q, b_s, out_dtype=out),
             lambda: qt._matmul_i8_plain(a_q, a_s, b_q, b_s, out), "exact",
             2 * m * k * n, nbytes(a_q, a_s, b_q, b_s) + out_bytes((m, n), out),
             platform.H100_INT8_OPS, timed=timed,
             unfused=int_mm(a_q, a_s, b_q, b_s, out) if timed else None,
-            beside=dict(int_mm_col_major_b=int_mm(a_q, a_s, b_q, b_s, out, True))
-            if timed else None))
+            beside=beside, gemm8_sm90=sm90, transposed=b_q if sm90 else None))
 
     # run_all.py:88-101, the int8 weights of the rung above as B, as there
     i8("gemm_int8_int8_4096 (int8 4096^3 -> f32)", 4096, 4096, 4096, timed="entry",
        b=w8_4096)
-    i8("matmul_int8 200x320x150 -> f32", 200, 320, 150)
-    i8("matmul_int8 200x320x150 -> bf16", 200, 320, 150, out=bf)
-    i8("matmul_int8 200x130x72 -> f32 (K not a multiple of 16)", 200, 130, 72)
+    for m, k, n in I8_EDGES:
+        for out in (f32, bf):
+            i8(f"matmul_int8 {m}x{k}x{n} (edge) -> {'f32' if out == f32 else 'bf16'}",
+               m, k, n, out=out)
+    i8("matmul_int8 200x320x150 -> f32", 200, 320, 150, sm90=False)
+    i8("matmul_int8 200x320x150 -> bf16", 200, 320, 150, out=bf, sm90=False)
+    i8("matmul_int8 200x130x72 -> f32 (K not a multiple of 16)", 200, 130, 72,
+       sm90=False)
 
 
 def int_mm(a_q, a_s, b_q, b_s, out, col_major=False):
@@ -5820,11 +5918,13 @@ LADDER_KERNELS = dict(  # entry name -> (source, the TPU kernel's def line)
     gemm_softmax=("gemm_softmax_sm90.cuh", "gemm.py:334"),
     softmax=("softmax.cu", "softmax.py:44"),
     gemm_softmax_resident=("gemm_softmax_sm90.cuh", "gemm.py:458"),
-    gemm_w8=("gemm_w8.cu", "quant.py:72"), gemm_i8=("gemm_i8.cu", "quant.py:224"),
+    gemm_w8=("gemm_w8_sm90.cu", "quant.py:72"), gemm_i8=("gemm_i8_sm90.cu", "quant.py:224"),
+    gemm_i8_transpose=("gemm_i8_sm90.cu", "quant.py:224"),
     streaming_decode=("flash_decode_sm90.cuh", "streaming.py:45"))
 # the counters whose sum is an entry's launches, where not its own name
 LADDER_COUNTERS = dict(gemm_softmax_resident=("gemm_softmax/resident",),
                        gemm_w8=("gemm_w8", "gemm_w8_fp8"),
+                       gemm_i8_transpose=("gemm_i8/transpose",),
                        gemm_f32=("gemm/f32x", "gemm_batched/f32x"))
 
 
@@ -5862,6 +5962,32 @@ def phase_resident_fallback(device, label):
                                  f"{sm90} expected")
 
 
+def transpose_entry(device, entry, bs, label):
+    """Kernel 20's transposing pass (csrc/gemm_i8_sm90.cu) on `bs`, every B
+    the ladder's wgmma calls took, held bit-equal to b.t().contiguous(),
+    then timed on the first (4096^2) in turns with it (the plain version, also the one
+    PyTorch call of the same function), beside its byte bound (K*N read,
+    K*N written). Fills `entry`."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import quant as qt
+
+    for b in bs:
+        if not torch.equal(qt._transpose_i8_cuda(b), b.t().contiguous()):
+            raise AssertionError(f"the transposing pass of {tuple(b.shape)} is not "
+                                 f"b.t() bit for bit")
+    b = bs[0]
+    ms, plain_ms = time_pair(lambda: qt._transpose_i8_cuda(b),
+                             lambda: b.t().contiguous(), device)
+    bnd = bound(0.0, 2 * b.numel())
+    entry.update(ms=ms, plain_ms=plain_ms, library_ms=plain_ms, max_abs_err=0.0,
+                 shape=f"int8 {b.shape[0]}x{b.shape[1]} -> its transpose", **bnd)
+    log(f"kernel 20's transposing pass: bit-equal to b.t() at "
+        f"{[tuple(x.shape) for x in bs]}; {tuple(b.shape)}: {ms:.4f} ms "
+        f"({bnd['bound_ms'] / ms:.1%} of its bound {bnd['bound_ms']:.4f} ms, bytes) | "
+        f"b.t().contiguous() {plain_ms:.4f} ms [{label}]")
+
+
 def phase_ladder(device, label):
     """The GEMM and softmax ladder through the ops API, BASELINE configs 1
     and 2 among it, with every launch counter at 0 before it (its launches
@@ -5884,10 +6010,14 @@ def phase_ladder(device, label):
     softmax = g.batched_matmul_softmax_epilogue
     softmax_sm90 = dict(gemm_softmax=0, gemm_softmax_resident=0)
     for r in rungs:  # each GEMM call on the kernel its shape and type pick
-        before = sm90_launches(), f32x_launches(), softmax.sm90_launches
+        before = sm90_launches(), f32x_launches(), softmax.sm90_launches, gemm8_launches()
         outs.append(r.call())
+        after8 = gemm8_launches()
         for want, got, kind in ((r.sm90, sm90_launches() - before[0], "bf16"),
-                                (r.f32x, f32x_launches() - before[1], "f32")):
+                                (r.f32x, f32x_launches() - before[1], "f32"),
+                                (r.gemm8_sm90, after8[0] - before[3][0], "8-bit"),
+                                (r.gemm8_sm90 if r.kernel == "gemm_i8" else None,
+                                 after8[1] - before[3][1], "transposing-pass")):
             if want is not None and got != int(want):
                 raise AssertionError(f"{r.label}: {got} {kind} wgmma GEMM launches, "
                                      f"{int(want)} expected")
@@ -5907,6 +6037,8 @@ def phase_ladder(device, label):
         # configs 1 and 2 add a GEMM and a softmax each; config 1's GEMM is
         # on the f32 wgmma kernel
         calls = (sum(bool(r.f32x) for r in rungs) + 1 if name == "gemm_f32" else
+                 sum(r.kernel == "gemm_i8" and bool(r.gemm8_sm90) for r in rungs)
+                 if name == "gemm_i8_transpose" else
                  sum(r.kernel == name for r in rungs) + 2 * (name in ("gemm", "softmax")))
         got = sum(launches[c] for c in LADDER_COUNTERS.get(name, (name,)))
         if got != calls:
@@ -5931,6 +6063,15 @@ def phase_ladder(device, label):
             raise AssertionError(f"{name}: no wgmma launch on the ladder's path")
         entries[name].update(launches=sm90,
                              mma_sync_launches=entries[name]["launches"] - sm90)
+    # kernels 19 and 20: the entries' launches are the wgmma kernels'
+    # (gemm_w8_sm90.cu, gemm_i8_sm90.cu), the rest the mma.sync kernels'
+    for name, counters in (("gemm_w8", ("gemm_w8/sm90", "gemm_w8_fp8/sm90")),
+                           ("gemm_i8", ("gemm_i8/sm90",))):
+        sm90 = sum(launches[c] for c in counters)
+        if not sm90 > 0:
+            raise AssertionError(f"{name}: no wgmma launch on the ladder's path")
+        entries[name].update(launches=sm90,
+                             mma_sync_launches=entries[name]["launches"] - sm90)
     # the streaming rungs count in streaming_decode's counter alone
     if launches["flash_decode"]:
         raise AssertionError(f"{launches['flash_decode']} flash_decode launches on "
@@ -5939,7 +6080,8 @@ def phase_ladder(device, label):
     if launches["gemm_softmax/fallback"] != launches["gemm_softmax/resident"]:
         raise AssertionError(f"{launches['gemm_softmax/fallback']} gated rows "
                              f"launches for {launches['gemm_softmax/resident']} resident")
-    mma_sync = ("gemm", "gemm_batched", "gemm_softmax", "gemm_softmax_resident")
+    mma_sync = ("gemm", "gemm_batched", "gemm_softmax", "gemm_softmax_resident",
+                "gemm_w8", "gemm_i8")
     log(f"ladder: kernel launches { {k: e['launches'] for k, e in entries.items()} } "
         f"(gemm, gemm_batched, gemm_softmax, gemm_softmax_resident: the wgmma "
         f"kernels'; on the mma.sync kernels "
@@ -5959,6 +6101,8 @@ def phase_ladder(device, label):
         del want
     del outs
     phase_resident_fallback(device, label)
+    transpose_entry(device, entries["gemm_i8_transpose"],
+                    [r.transposed for r in rungs if r.transposed is not None], label)
 
     for rung in rungs:
         if rung.timed is None:
@@ -6860,6 +7004,7 @@ def main() -> int:
     phase_gemm_sm90_build(build_log, label)
     phase_gemm_f32_build(build_log, label)
     phase_gemm_softmax_build(build_log, label)
+    phase_gemm_8bit_build(build_log, label)
     phase_bwd_sm90_build(build_log, label)
     phase_dec_sm90_build(build_log, label)
     phase_dec_q_build(build_log, label)

@@ -84,6 +84,7 @@ namespace fkp_dec90 {
 
 using fkp_mma::mma_16816;
 using fkp_mma::split_bf16;
+using fkp::widen4;
 using fkp_sm90::kBoxCols;
 using fkp_sm90::mbar_arrive;
 using fkp_sm90::mbar_expect_tx;
@@ -351,32 +352,6 @@ template <int D>
 __device__ __forceinline__ uint32_t byte_addr(uint32_t tile, int r, int c) {
   const uint32_t off = r * D + c;
   return tile + (off ^ (((off >> 7) & (D == 128 ? 7u : 3u)) << 4));
-}
-
-// Four 8-bit values (a word, value 0 in its low byte) widened exactly to
-// two bf16 pairs, lo (x0, x1) and hi (x2, x3). int8: x = low7 - 128 * sign
-// as the bf16 difference (128 + low7) - (128 + 128 * sign), both terms and
-// the result exact (0x4300 | low7 is 128 + low7, 0x4380 is 256): one
-// PRMT, two LOP3 and one HSUB2 a pair. e4m3 by widen.cuh, then packed.
-template <class KV>
-__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  if constexpr (std::is_same_v<KV, int8_t>) {
-    const auto pair = [](uint32_t t) {
-      const uint32_t val = (t & 0x007f007fu) | 0x43004300u;
-      const uint32_t off = (t & 0x00800080u) | 0x43004300u;
-      const __nv_bfloat162 r =
-          __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&val),
-                  *reinterpret_cast<const __nv_bfloat162*>(&off));
-      return *reinterpret_cast<const uint32_t*>(&r);
-    };
-    lo = pair(__byte_perm(w, 0u, 0x4140));  // bytes (x0, 0, x1, 0)
-    hi = pair(__byte_perm(w, 0u, 0x4342));
-  } else {
-    float f[4];
-    fkp::Widen<KV>::word(w, f);
-    lo = fkp_mma::pack_bf16(f[0], f[1]);
-    hi = fkp_mma::pack_bf16(f[2], f[3]);
-  }
 }
 
 // One block per (split, KV head, batch row): threads 0..127 are the

@@ -4,8 +4,10 @@
 // or K = 0; an aligned call without an epilogue takes a wgmma kernel
 // instead, gemm_sm90.cuh for bf16 operands and gemm_f32_sm90.cuh for f32),
 // gemm_softmax.cu (the batched product with the row softmax in its
-// epilogue) and gemm_w8.cu (bf16 A times 8-bit B, a per-column scale in the
-// epilogue); gemm_sm90.cuh reads Out and store2 from here. A [M, K] and B
+// epilogue: the calls its wgmma kernel does not take) and gemm_w8.cu (bf16
+// A times 8-bit B, a per-column scale in the epilogue: the calls
+// gemm_w8_sm90.cu does not take); gemm_sm90.cuh reads Out and store2 from
+// here. A [M, K] and B
 // [K, N] are row-major, as the TPU kernels take them; a block computes one
 // 128 x 128 tile of C with 256 threads (8 warps).
 //
@@ -15,9 +17,10 @@
 // a 64 x 32 piece of the tile: 4 x 4 mma.sync m16n8k16 bf16 -> f32 products
 // a 16-deep step, A fragments by ldmatrix, B fragments by ldmatrix.trans
 // from the [k][n] slice. Rows are padded by 8 bf16 so the ldmatrix rows of a
-// warp fall on distinct banks. An 8-bit B (int8 or e4m3) is copied by
-// cp.async into a byte staging slice and widened, exactly, into the bf16 B
-// stage once it has landed; from there the bf16 path runs unchanged.
+// warp fall on distinct banks. An 8-bit B (int8 or e4m3; gemm_w8.cu, whose
+// calls are all unaligned, so element by element) is copied into a byte
+// staging slice and widened, exactly, into the bf16 B stage once it has
+// landed; from there the bf16 path runs unchanged.
 //
 // float32 (the reference's shared-memory tiled rung; the unaligned f32
 // calls and the f32 epilogue): full float32 FFMA, not TF32, which keeps
@@ -40,9 +43,9 @@
 // instructions bounds it: 989 TFLOP/s bf16, 67 TFLOP/s float32 FFMA.
 // mma.sync reaches only part of the bf16 peak (23% at 4096^3); wgmma, TMA,
 // a deeper ring and a persistent schedule are gemm_sm90.cuh's and
-// gemm_f32_sm90.cuh's, for gemm.cu's aligned calls without an epilogue:
-// the fused epilogue, the softmax epilogues and the 8-bit-weight GEMM
-// still run this core.
+// gemm_f32_sm90.cuh's, for gemm.cu's aligned calls without an epilogue
+// (and their siblings' for the aligned softmax-epilogue and 8-bit-weight
+// calls): the fused epilogue and the unaligned calls still run this core.
 
 #pragma once
 

@@ -1,7 +1,10 @@
 // The int8 x int8 GEMM for Hopper (sm_90a): out = (f32(a_q @ b_q) *
 // a_scale[row]) * b_scale[col], a_q [M, K] and b_q [K, N] int8, the sum
 // exact in int32, a_scale [M, 1] and b_scale [1, N] f32, one rounding to the
-// output type.
+// output type. Since the wgmma kernel (gemm_i8_sm90.cu) takes every
+// aligned call, this mma.sync kernel takes the calls
+// ops/quant.py::i8_path does not send there (K or N not a multiple of 16,
+// an offset base, K = 0), so it reads element by element.
 //
 // Replaces flashattention_kernel_project_tpu/ops/quant.py::_matmul_i8_kernel
 // (matmul_int8, :289): the TPU kernel sums int8 MXU products into an int32
@@ -16,8 +19,8 @@
 // cannot transpose an int8 tile. B's 64-deep [k][n] slice is therefore read
 // into registers (4 rows of 8 bytes a thread, issued before the products of
 // the slice in shared memory, so the loads run under them), transposed 4 x
-// 4 bytes at a time with byte permutes, and stored [n][k]. A's slice goes by
-// cp.async, two stages. Both lie in shared memory as [row][k] with rows of
+// 4 bytes at a time with byte permutes, and stored [n][k]. A's slice goes
+// to the other of two stages. Both lie in shared memory as [row][k] with rows of
 // 64 + 16 bytes, the bf16 core's 80-byte rows, so a plain ldmatrix (b16)
 // loads both fragments (mma.cuh: the int8 layouts are the bf16 ones in
 // bytes) without bank conflicts. K is zero-filled to the next 64.
@@ -25,8 +28,7 @@
 // What bounds it on the H100: at the ladder's 4096^3 the function does
 // 2*M*N*K operations against M*K + K*N + 4*(M + N) + M*N*out bytes, far
 // above the ridge, so the int8 tensor-core rate bounds it (1,979 TOP/s,
-// 0.069 ms). Left for later: wgmma (mma.sync reaches part of the peak),
-// more stages.
+// 0.069 ms); mma.sync reaches part of that peak.
 
 #include "gemm_core.cuh"
 
@@ -38,7 +40,6 @@ using fkp_gemm_core::kScale;
 using fkp_gemm_core::kThreads;
 using fkp_gemm_core::Out;
 using fkp_gemm_core::store2;
-using fkp_mma::cp_async_16;
 using fkp_mma::transpose4;
 
 constexpr int kBK = 64;            // int8 depth of a slice
@@ -49,7 +50,6 @@ struct __align__(16) SmemI8 {
 };
 
 // A's [kBM x kBK] slice at (row0, k0) into stage st, zero outside [m) x [k)
-template <bool kAligned>
 __device__ __forceinline__ void load_a(SmemI8& s, int st, const int8_t* a, int row0,
                                        int k0, int m, int k) {
   constexpr int kPieces = kBK / 16;
@@ -57,14 +57,9 @@ __device__ __forceinline__ void load_a(SmemI8& s, int st, const int8_t* a, int r
     const int r = i / kPieces, c = (i % kPieces) * 16;
     const int gr = row0 + r, gc = k0 + c;
     int8_t* dst = &s.a[st][r * kStride + c];
-    if constexpr (kAligned) {
-      const bool live = gr < m && gc < k;
-      cp_async_16(dst, live ? a + (size_t)gr * k + gc : a, live);
-    } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        dst[j] = gr < m && gc + j < k ? a[(size_t)gr * k + gc + j] : int8_t{0};
-      }
+    for (int j = 0; j < 16; ++j) {
+      dst[j] = gr < m && gc + j < k ? a[(size_t)gr * k + gc + j] : int8_t{0};
     }
   }
 }
@@ -72,30 +67,22 @@ __device__ __forceinline__ void load_a(SmemI8& s, int st, const int8_t* a, int r
 // This thread's piece of B's [kBK x kBN] slice at (k0, col0): rows k0 + 4 *
 // (tid % 16) + r (r < 4), columns col0 + 8 * (tid / 16) + 0..7, as two
 // words a row (bytes in column order), zero outside [k) x [n).
-template <bool kAligned>
 __device__ __forceinline__ void load_b(uint32_t (&w)[4][2], const int8_t* b,
                                        int k0, int col0, int n, int k) {
   const int kr = k0 + 4 * (threadIdx.x % 16), gc = col0 + 8 * (threadIdx.x / 16);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int gr = kr + r;
-    if constexpr (kAligned) {
-      uint2 v = make_uint2(0u, 0u);
-      if (gr < k && gc < n) v = *reinterpret_cast<const uint2*>(b + (size_t)gr * n + gc);
-      w[r][0] = v.x;
-      w[r][1] = v.y;
-    } else {
-      uint32_t v[2] = {0u, 0u};
+    uint32_t v[2] = {0u, 0u};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (gr < k && gc + j < n) {
-          v[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(b[(size_t)gr * n + gc + j]))
-                      << (8 * (j % 4));
-        }
+    for (int j = 0; j < 8; ++j) {
+      if (gr < k && gc + j < n) {
+        v[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(b[(size_t)gr * n + gc + j]))
+                    << (8 * (j % 4));
       }
-      w[r][0] = v[0];
-      w[r][1] = v[1];
     }
+    w[r][0] = v[0];
+    w[r][1] = v[1];
   }
 }
 
@@ -115,7 +102,6 @@ __device__ __forceinline__ void store_b(SmemI8& s, int st, const uint32_t (&w)[4
   }
 }
 
-template <bool kAligned>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_qq_kernel(const int8_t* a, const int8_t* b, Out o, int k) {
   __shared__ SmemI8 s;
@@ -132,18 +118,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
   const int n_k = (k + kBK - 1) / kBK;
   uint32_t wb[4][2];
-  load_a<kAligned>(s, 0, a, row0, 0, m, k);
-  fkp_mma::cp_async_commit();
-  load_b<kAligned>(wb, b, 0, col0, n, k);
+  load_a(s, 0, a, row0, 0, m, k);
+  load_b(wb, b, 0, col0, n, k);
   store_b(s, 0, wb);
   for (int t = 0; t < n_k; ++t) {
     if (t + 1 < n_k) {
-      load_a<kAligned>(s, (t + 1) & 1, a, row0, (t + 1) * kBK, m, k);
-      load_b<kAligned>(wb, b, (t + 1) * kBK, col0, n, k);  // in flight below
+      // A's stage (t + 1) & 1 was last read at t - 1, which ended in a barrier
+      load_a(s, (t + 1) & 1, a, row0, (t + 1) * kBK, m, k);
+      load_b(wb, b, (t + 1) * kBK, col0, n, k);  // in flight below
     }
-    fkp_mma::cp_async_commit();  // an empty group on the last slice
-    fkp_mma::cp_async_wait<1>();  // A's slice t has landed
-    __syncthreads();              // and B's, stored before this barrier
+    __syncthreads();  // A's and B's slice t, stored before this barrier
     // a pair of int8 read as one b16: 16 b16 = one 32-deep step
     const auto* sa = reinterpret_cast<const __nv_bfloat16*>(s.a[t & 1]);
     const auto* sb = reinterpret_cast<const __nv_bfloat16*>(s.b[t & 1]);
@@ -188,21 +172,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 }  // namespace
 
 // a [m, k], b [k, n] int8, a_scale [m], b_scale [n] f32, all contiguous;
-// c [m, n] bf16 (bf16_out) or f32. aligned: k and n are multiples of 16 and
-// a, b 16-byte aligned. Returns cudaGetLastError() after the launch.
+// any m, n, k and bases; c [m, n] bf16 (bf16_out) or f32. Returns
+// cudaGetLastError() after the launch.
 extern "C" int fkp_gemm_i8(const void* a, const void* b, const void* a_scale,
                            const void* b_scale, void* c, int m, int n, int k,
-                           int bf16_out, int aligned, void* stream) {
+                           int bf16_out, void* stream) {
   const Out o{c, nullptr, nullptr, m, n, bf16_out,
               static_cast<const float*>(a_scale), static_cast<const float*>(b_scale)};
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  const auto ta = static_cast<const int8_t*>(a);
-  const auto tb = static_cast<const int8_t*>(b);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (aligned) {
-    gemm_qq_kernel<true><<<grid, kThreads, 0, st>>>(ta, tb, o, k);
-  } else {
-    gemm_qq_kernel<false><<<grid, kThreads, 0, st>>>(ta, tb, o, k);
-  }
+  gemm_qq_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), o, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,7 +57,9 @@
 //   22% of the time at 8 x 1024^3.
 // The ring, its producer (load_tile), the consumers' products (mma_tile),
 // the maps (encode_ab) and the 16-byte stores are shared with the
-// softmax-epilogue GEMM (gemm_softmax_sm90.cuh).
+// softmax-epilogue GEMM (gemm_softmax_sm90.cuh); the ring, the tile order
+// and the stores with the int8 GEMM (gemm_i8_sm90.cu), the tile order with
+// the 8-bit-weight GEMM (gemm_w8_sm90.cu).
 // What sets the pace now (PERF.md, on the H100): the products alone run at
 // ~83% of the bound at 4096^3, and the loads alone as fast as the bound;
 // the tensor cores idle while C is written, 7% of the time at 4096^3 and
@@ -267,8 +269,10 @@ __device__ __forceinline__ void store_f32x4(const Out& o, size_t bbase,
 }
 
 // Tile t of the order the blocks walk: batch-major; in a batch, groups of
-// kGroup row tiles, each group column by column, its row tiles innermost.
-template <int kBN>
+// kGroup row tiles, each group column by column, its row tiles innermost
+// (tiles of kRows x kBN; the 8-bit-weight GEMM's small-M plan takes 64
+// rows).
+template <int kBN, int kRows = kBM>
 __device__ __forceinline__ void tile_at(int t, int m_tiles, int n_tiles,
                                         int& b, int& row0, int& col0) {
   const int per_batch = m_tiles * n_tiles;
@@ -278,7 +282,7 @@ __device__ __forceinline__ void tile_at(int t, int m_tiles, int n_tiles,
   const int first = r / span * kGroup;
   const int rows = min(m_tiles - first, kGroup);
   const int in = r - first * n_tiles;
-  row0 = (first + in % rows) * kBM;
+  row0 = (first + in % rows) * kRows;
   col0 = in / rows * kBN;
 }
 

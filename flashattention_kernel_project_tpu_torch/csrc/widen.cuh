@@ -2,8 +2,9 @@
 // or four int8 or e4m3 values. Shared by the kernels that widen 8-bit
 // tiles into bf16 tensor-core operands (int8 and e4m3 values are exact in
 // bf16 too): in shared memory the paged extend and decode and the
-// forward's 8-bit wgmma instances (widen16), in registers the 8-bit linear
-// decode (e4m3; its int8 takes a bf16 subtraction), and the 8-bit GEMM
+// forward's 8-bit wgmma instances (widen16), by words (widen4: e4m3 by
+// Widen, int8 by a bf16 subtraction) the 8-bit linear decode in registers
+// and the 8-bit-weight wgmma GEMM into shared memory, and the 8-bit GEMM
 // core.
 
 #pragma once
@@ -92,6 +93,36 @@ __device__ __forceinline__ void widen16(const uint4& in, uint4& lo, uint4& hi) {
   }
   lo = make_uint4(out[0], out[1], out[2], out[3]);
   hi = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
+// Four 8-bit values (a word, value 0 in its low byte) widened exactly to
+// two bf16 pairs, lo (x0, x1) and hi (x2, x3). int8: x = low7 - 128 * sign
+// as the bf16 difference (128 + low7) - (128 + 128 * sign), both terms and
+// the result exact (0x4300 | low7 is 128 + low7, 0x4380 is 256): one
+// PRMT, two LOP3 and one HSUB2 a pair. e4m3 by Widen, then packed. The
+// 8-bit linear decode widens its keys with it, the 8-bit-weight GEMM
+// (gemm_w8_sm90.cu) its weights.
+template <class KV>
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  if constexpr (std::is_same_v<KV, int8_t>) {
+    const auto pair = [](uint32_t t) {
+      const uint32_t val = (t & 0x007f007fu) | 0x43004300u;
+      const uint32_t off = (t & 0x00800080u) | 0x43004300u;
+      const __nv_bfloat162 r =
+          __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&val),
+                  *reinterpret_cast<const __nv_bfloat162*>(&off));
+      return *reinterpret_cast<const uint32_t*>(&r);
+    };
+    lo = pair(__byte_perm(w, 0u, 0x4140));  // bytes (x0, 0, x1, 0)
+    hi = pair(__byte_perm(w, 0u, 0x4342));
+  } else {
+    float f[4];
+    fkp::Widen<KV>::word(w, f);
+    const __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
+    lo = *reinterpret_cast<const uint32_t*>(&a);
+    hi = *reinterpret_cast<const uint32_t*>(&b);
+  }
 }
 
 }  // namespace fkp

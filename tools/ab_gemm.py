@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Compare builds of the GEMM (kernels 13 and 14) or of the
-softmax-epilogue GEMM (kernels 16 and 17) on one card, in turns.
+"""Compare builds of the GEMM (kernels 13 and 14), of the
+softmax-epilogue GEMM (kernels 16 and 17) or of the 8-bit GEMMs (kernels
+19 and 20) on one card, in turns.
 
-    python3 tools/ab_gemm.py [bf16|f32|softmax] [NAME=CSRC_DIR[:FLAG,...] ...]
+    python3 tools/ab_gemm.py [bf16|f32|softmax|w8|i8] [NAME=CSRC_DIR[:FLAG,...] ...]
 
 Each NAME=CSRC_DIR builds that directory's gemm.cu (with gemm_sm90.cu and
 gemm_f32_sm90.cu where the directory has them) and common.cu, with the nvcc
@@ -48,6 +49,28 @@ more bands than half the SMs), from a warm L2 (CUDA graphs) and a cold one (each
 call after a 128 MB write, less the write's time), the builds in turns,
 beside the unfused torch.bmm + torch.softmax and, at config 3, this
 checkout's wgmma GEMM alone (kernel 13) at the same shape.
+
+w8 and i8 (only when named): each NAME=CSRC_DIR builds that directory's
+8-bit sources (gemm_w8.cu, gemm_i8.cu, with gemm_w8_sm90.cu and
+gemm_i8_sm90.cu where it has them) and common.cu, and "this" is this
+checkout's csrc/ built the same way. A build with the wgmma sources is
+called on them (kernel 19 with this checkout's `w8_plan`, kernel 20 with
+its transposing pass), another on its aligned mma.sync kernels (a parent
+commit's), each with its own C arguments. Probes (-DFKP_GEMM_PROBE):
+gemm_w8_sm90.cu's 1 (the loads alone), 2 (the products alone), 7 (no
+widening); gemm_i8_sm90.cu's 1, 2 and 3 (no epilogue). Every build but a
+probe is held first at the tile-edge shapes (I8_CHECKS / W8_CHECKS; bf16
+and f32 out; kernel 19 rel-L2 1e-2 for bf16, 2e-5 and max-abs 1e-2 for
+f32, with an f32 x rounded first; kernel 20 bit-equal to
+`_matmul_i8_plain`). Then w8 times kernel 19 at 4096^3 and at the decode
+shape (8 x 2048 x 11008), int8 and e4m3 weights, -> bf16, beside the
+engine's three calls (cast, torch.matmul, scale); i8 times kernel 20 at
+4096^3 -> f32 (a new build's whole call: the transposing pass and the
+GEMM), this build's GEMM alone and its transposing pass alone, beside
+torch._int_mm + scales with B row-major and column-major and torch._int_mm
+alone (column-major B; not the same function, a yardstick). Both from a
+warm L2 (CUDA graphs, the builds in turns) and from a cold one (each call
+after a 128 MB write, less the write's time), with the bound.
 """
 
 import ctypes
@@ -243,6 +266,178 @@ def softmax_part(entries, probes, dev, label):
                           for key in fns) + f" | {label}", flush=True)
 
 
+EIGHT_SOURCES = ("gemm_w8.cu", "gemm_w8_sm90.cu", "gemm_i8.cu", "gemm_i8_sm90.cu",
+                 "common.cu")
+W8_CHECKS = cs.W8_EDGES + [(8, 2048, 11008)]  # m, k, n
+I8_CHECKS = cs.I8_EDGES + [(300, 4096, 528)]
+W8_TIMES = [(4096, 4096, 4096), (8, 2048, 11008)]
+I8_TIMES = [(4096, 4096, 4096)]
+
+
+def build_8bit(name, csrc, flags, nvcc, nvcc_flags, out_dir):
+    """The 8-bit entries of a library built from csrc's 8-bit sources, as
+    (w8, i8, new): w8(x, w_q, w_scale, out) and i8(a_q, a_scale, b_q,
+    b_scale, out) call it as that commit's ops/quant.py does on aligned
+    operands; new: whether it has the wgmma sources."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+    from flashattention_kernel_project_tpu_torch.ops import quant as qt
+
+    cdll, srcs = compile_library(
+        f"q_{name}", csrc, EIGHT_SOURCES, flags, nvcc, nvcc_flags, out_dir,
+        lambda line: "Used" in line or "spill" in line or "serialized" in line)
+    new = "gemm_w8_sm90.cu" in srcs and "gemm_i8_sm90.cu" in srcs
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    if new:
+        w8_fn, i8_fn, tr_fn = (cdll.fkp_gemm_w8_sm90, cdll.fkp_gemm_i8_sm90,
+                               cdll.fkp_gemm_i8_transpose)
+        w8_fn.argtypes = [vp] * 4 + [i32] * 7 + [vp]
+        i8_fn.argtypes = [vp] * 5 + [i32] * 4 + [vp]
+        tr_fn.argtypes = [vp] * 2 + [i32] * 2 + [vp]
+        tr_fn.restype = i32
+    else:
+        w8_fn, i8_fn = cdll.fkp_gemm_w8, cdll.fkp_gemm_i8
+        w8_fn.argtypes = [vp] * 4 + [i32] * 6 + [vp]
+        i8_fn.argtypes = [vp] * 5 + [i32] * 5 + [vp]
+    w8_fn.restype = i8_fn.restype = i32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def w8(x, wq, ws, out):
+        m, k = x.shape
+        n = wq.shape[1]
+        c = torch.empty((m, n), dtype=out, device=x.device)
+        fp8, bf = int(wq.dtype == torch.float8_e4m3fn), int(out == torch.bfloat16)
+        tail = (list(qt.w8_plan(m, n, sms)) if new else [1]) + [stream()]
+        _build.check(w8_fn(x.data_ptr(), wq.data_ptr(), ws.data_ptr(), c.data_ptr(),
+                           m, n, k, fp8, bf, *tail), f"{name} w8")
+        return c
+
+    def transpose(b):
+        bt = torch.empty((b.shape[1], b.shape[0]), dtype=torch.int8, device=b.device)
+        _build.check(tr_fn(b.data_ptr(), bt.data_ptr(), b.shape[0], b.shape[1],
+                           stream()), f"{name} transpose")
+        return bt
+
+    def i8(a, a_s, b, b_s, out, bt=None):
+        m, k = a.shape
+        n = b.shape[1]
+        c = torch.empty((m, n), dtype=out, device=a.device)
+        bf = int(out == torch.bfloat16)
+        if new:
+            bt = transpose(b) if bt is None else bt
+            rc = i8_fn(a.data_ptr(), bt.data_ptr(), a_s.data_ptr(), b_s.data_ptr(),
+                       c.data_ptr(), m, n, k, bf, stream())
+        else:
+            rc = i8_fn(a.data_ptr(), b.data_ptr(), a_s.data_ptr(), b_s.data_ptr(),
+                       c.data_ptr(), m, n, k, bf, 1, stream())
+        _build.check(rc, f"{name} i8")
+        return c
+
+    i8.transpose = transpose if new else None
+    return w8, i8, new
+
+
+def eight_bit_part(kind, entries, probes, dev, label):
+    """The 8-bit builds held at W8_CHECKS or I8_CHECKS, then timed at
+    W8_TIMES or I8_TIMES (module docstring)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import quant as qt
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def weights(k, n, fmt):
+        w = rand(k, n)
+        return qt.quantize_int8(w, axis=0) if fmt == "int8" else qt.quantize_fp8_weights(w)
+
+    held = [name for name in entries if name not in probes]
+    if kind == "w8":
+        for i, (m, k, n) in enumerate(W8_CHECKS):
+            x = rand(m, k).to(bf)
+            for fmt in ("int8", "fp8"):
+                wq, ws = weights(k, n, fmt)
+                for out in (bf, f32):
+                    want = qt._matmul_w8_plain(x, wq, ws, out)
+                    for name in held:
+                        got = entries[name][0](x, wq, ws, out)
+                        torch.cuda.synchronize()
+                        try:
+                            cs._hold_gemm(f"{name} w8 {fmt} {m}x{k}x{n}", got, want, out)
+                        except AssertionError as err:
+                            raise SystemExit(f"{err} -> {out}")
+    else:
+        for m, k, n in I8_CHECKS:
+            a_q, a_s = qt.quantize_int8(rand(m, k), axis=1)
+            b_q, b_s = qt.quantize_int8(rand(k, n), axis=0)
+            for out in (f32, bf):
+                want = qt._matmul_i8_plain(a_q, a_s, b_q, b_s, out)
+                for name in held:
+                    got = entries[name][1](a_q, a_s, b_q, b_s, out)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise SystemExit(f"{name} i8 {m}x{k}x{n} -> {out}: not bit-equal "
+                                         f"to plain (rel-L2 {cs._rel_l2(got, want):.3e})")
+    print(f"{len(held)} builds held to plain at the {kind} tile-edge shapes, bf16 and "
+          f"f32 out | {label}", flush=True)
+
+    scratch = torch.empty(FLUSH_MB << 20, dtype=torch.uint8, device=dev)
+    flush = lambda: scratch.fill_(1)  # noqa: E731
+    cases = []  # (what, fns, flops, bytes, peak)
+    if kind == "w8":
+        for m, k, n in W8_TIMES:
+            x = rand(m, k).to(bf)
+            for fmt in ("int8", "fp8"):
+                wq, ws = weights(k, n, fmt)
+                fns = {name: (lambda e=e, x=x, wq=wq, ws=ws: e[0](x, wq, ws, bf))
+                       for name, e in entries.items()}
+                fns["cast + matmul + scale"] = (
+                    lambda x=x, wq=wq, ws=ws: (torch.matmul(x, wq.to(bf)) * ws).to(bf))
+                plan = qt.w8_plan(m, n, torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)
+                cases.append((f"w8 {fmt} {m}x{k}x{n} -> bf16 (tiles {plan})", fns, 2 * m * k * n, cs.nbytes(x, wq, ws) + 2 * m * n,
+                              platform.H100_BF16_FLOPS))
+    else:
+        for m, k, n in I8_TIMES:
+            a_q, a_s = qt.quantize_int8(rand(m, k), axis=1)
+            b_q, b_s = qt.quantize_int8(rand(k, n), axis=0)
+            b_col = b_q.t().contiguous().t()
+            fns = {name: (lambda e=e: e[1](a_q, a_s, b_q, b_s, f32))
+                   for name, e in entries.items()}
+            this = entries["this"][1]
+            bt = this.transpose(b_q)
+            fns["this: GEMM alone"] = lambda: this(a_q, a_s, b_q, b_s, f32, bt=bt)
+            fns["this: transposing pass alone"] = lambda: this.transpose(b_q)
+            fns["_int_mm + scales (B row-major)"] = (
+                lambda: (torch._int_mm(a_q, b_q).float() * a_s * b_s))
+            fns["_int_mm + scales (B column-major)"] = (
+                lambda: (torch._int_mm(a_q, b_col).float() * a_s * b_s))
+            fns["_int_mm alone (B column-major)"] = lambda: torch._int_mm(a_q, b_col)
+            cases.append((f"i8 {m}x{k}x{n} -> f32 (transposing pass bound "
+                          f"{cs.bound(0, 2 * k * n)['bound_ms']:.4f} ms)", fns,
+                          2 * m * k * n, cs.nbytes(a_q, a_s, b_q, b_s) + 4 * m * n,
+                          platform.H100_INT8_OPS))
+    for what, fns, flops, nbytes, peak in cases:
+        warm = cs.time_turns(fns, dev)
+        cold = cs.time_turns({"flush": flush, **{
+            key: (lambda f=f: (flush(), f())) for key, f in fns.items()}}, dev)
+        bnd = cs.bound(flops, nbytes, peak)
+        for how, ms, less in (("warm L2", warm, 0.0), ("cold L2", cold, cold["flush"])):
+            print(f"{what}, {how}" + (f" (less the {FLUSH_MB} MB write's {less:.4f} ms)"
+                                      if less else "")
+                  + f": bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) | " + " | ".join(
+                      f"{key} {ms[key] - less:.4f} ({bnd['bound_ms'] / (ms[key] - less):.1%})"
+                      for key in fns) + f" | {label}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -254,7 +449,7 @@ def main() -> int:
         raise SystemExit("no CUDA device")
     args = sys.argv[1:]
     parts = ("bf16", "f32")
-    if args and args[0] in (*parts, "softmax"):
+    if args and args[0] in (*parts, "softmax", "w8", "i8"):
         parts, args = (args[0],), args[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     out_dir = os.path.join(_build.BUILD_DIR, "ab")
@@ -270,6 +465,19 @@ def main() -> int:
                                           [f for f in flags.split(",") if f],
                                           _build.nvcc(), _build.NVCC_FLAGS, out_dir)
         softmax_part(entries, probes, torch.device("cuda", 0), platform.card_label())
+        return 0
+    if parts in (("w8",), ("i8",)):
+        entries, probes = {}, set()
+        for spec in [f"this={_build.CSRC}", *args]:
+            name, _, rest = spec.partition("=")
+            csrc, _, flags = rest.partition(":")
+            if "FKP_GEMM_PROBE" in flags:
+                probes.add(name)
+            entries[name] = build_8bit(name, os.path.abspath(csrc),
+                                       [f for f in flags.split(",") if f],
+                                       _build.nvcc(), _build.NVCC_FLAGS, out_dir)
+        eight_bit_part(parts[0], entries, probes, torch.device("cuda", 0),
+                       platform.card_label())
         return 0
     _build.library()
     entries = {"this": (g._gemm_kernel(), g.PATH_SM90, g.PATH_SM90_F32)}
