@@ -431,6 +431,17 @@ def mangled_name(sym: str) -> tuple[str, str]:
     return name, sym[i:]
 
 
+def template_args(kernel: str, count: int):
+    """A reader of `kernel`'s symbols: its first `count` integer template
+    arguments, or None for another symbol."""
+    def read(sym: str):
+        name, rest = mangled_name(sym)
+        if name != kernel:
+            return None
+        return tuple(int(a) for a in re.findall(r"L[ib](\d+)E", rest)[:count])
+    return read
+
+
 def sm90_instance(sym: str):
     """(d, band, disc, block rows) of a flash_fwd_sm90_kernel instance's
     symbol, or None for another symbol."""
@@ -522,59 +533,56 @@ def phase_fwd_sm90_build(build_log: str, label):
                     for inst, c in sorted(counts.items())) + f" [{label}]")
 
 
-# The bf16 GEMM's wgmma instances (csrc/gemm_sm90.cuh): tiles of 128 x kBN
+# The bf16 GEMM's wgmma instances (csrc/gemm_sm90.cuh): tiles of 128 x kBN,
+# plain (kEpi 0) and with the fused epilogue (kEpi 1, kernel 15)
 GEMM_SM90_OBJECT = "gemm_sm90.cu"
 GEMM_SM90_KERNEL = "gemm_sm90_kernel"
 GEMM_SM90_TILES = (128, 256)
-
-
-def gemm_sm90_instance(sym: str):
-    """kBN of a gemm_sm90_kernel instance's symbol, or None for another
-    symbol."""
-    name, rest = mangled_name(sym)
-    if name != GEMM_SM90_KERNEL:
-        return None
-    return int(re.findall(r"L[ib](\d+)E", rest)[0])
+gemm_sm90_instance = template_args(GEMM_SM90_KERNEL, 2)  # (kBN, kEpi)
 
 
 def phase_gemm_sm90_build(build_log: str, label):
-    """The bf16 GEMM's two wgmma instances (128 x 256 and 128 x 128 tiles)
-    through `wgmma_gate`, in gemm_sm90.cu's object."""
+    """The bf16 GEMM's four wgmma instances (128 x 256 and 128 x 128 tiles,
+    plain and with the fused epilogue) through `wgmma_gate`, in
+    gemm_sm90.cu's object; with their registers from ptxas (the consumers
+    run at most 232 after setmaxnreg)."""
+    want = {(n, epi) for n in GEMM_SM90_TILES for epi in (0, 1)}
     counts = wgmma_gate(build_log, GEMM_SM90_KERNEL, gemm_sm90_instance,
-                        {GEMM_SM90_OBJECT: lambda inst: True}, set(GEMM_SM90_TILES))
-    log("bf16 GEMM: 2 wgmma instances (128 x kBN) built with no spill and no "
-        "serialized wgmma; SASS (HGMMA, UTMALDG, HMMA.16816): "
-        + ", ".join(f"kBN {inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}"
-                    for inst, c in sorted(counts.items())) + f" [{label}]")
+                        {GEMM_SM90_OBJECT: lambda inst: True}, want)
+    regs = ptxas_registers(build_log, gemm_sm90_instance)
+    log("bf16 GEMM: 4 wgmma instances (128 x kBN, kEpi: 1 the fused epilogue) built "
+        "with no spill and no serialized wgmma; SASS (HGMMA, UTMALDG, HMMA.16816), "
+        "registers at launch: "
+        + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}, "
+                    f"{regs.get(inst)}" for inst, c in sorted(counts.items()))
+        + f" [{label}]")
 
 
-# The f32 GEMM's wgmma kernel (csrc/gemm_f32_sm90.cuh): tiles of 128 x 128
+# The f32 GEMM's wgmma kernel (csrc/gemm_f32_sm90.cuh): tiles of 128 x 128,
+# plain (kEpi 0) and with the fused epilogue (kEpi 1, kernel 15)
 GEMM_F32_OBJECT = "gemm_f32_sm90.cu"
 GEMM_F32_KERNEL = "gemm_f32_sm90_kernel"
 GEMM_F32_TILE = 128
-
-
-def gemm_f32_instance(sym: str):
-    """The tile width of the gemm_f32_sm90_kernel symbol (its one
-    instance), or None for another symbol."""
-    return GEMM_F32_TILE if mangled_name(sym)[0] == GEMM_F32_KERNEL else None
+gemm_f32_instance = template_args(GEMM_F32_KERNEL, 1)  # (kEpi,)
 
 
 def phase_gemm_f32_build(build_log: str, label):
-    """The f32 GEMM's wgmma kernel through `wgmma_gate`, in
-    gemm_f32_sm90.cu's object: HGMMA and UTMALDG in its SASS, no HMMA.16816
-    and no FFMA (the split subtracts, the products are the tensor cores',
-    the promotion adds), no spill, no serialized wgmma; with its registers
+    """The f32 GEMM's two wgmma instances (plain and with the fused
+    epilogue) through `wgmma_gate`, in gemm_f32_sm90.cu's object: HGMMA
+    and UTMALDG in their SASS, no HMMA.16816 and no FFMA (the split
+    subtracts, the products are the tensor cores', the promotion and the
+    epilogue add), no spill, no serialized wgmma; with their registers
     from ptxas."""
     counts = wgmma_gate(build_log, GEMM_F32_KERNEL, gemm_f32_instance,
-                        {GEMM_F32_OBJECT: lambda inst: True}, {GEMM_F32_TILE},
+                        {GEMM_F32_OBJECT: lambda inst: True}, {(0,), (1,)},
                         forbid=("HMMA.16816", "FFMA"))
     regs = ptxas_registers(build_log, gemm_f32_instance)
-    c = counts[GEMM_F32_TILE]
-    log(f"f32 GEMM: the wgmma kernel (128 x 128 tiles) built with no spill and "
-        f"no serialized wgmma; SASS HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}, "
-        f"HMMA.16816 {c['HMMA.16816']}, FFMA {c['FFMA']}; "
-        f"{regs.get(GEMM_F32_TILE)} registers a thread at launch [{label}]")
+    log("f32 GEMM: 2 wgmma instances (128 x 128 tiles; kEpi 0, 1 the fused "
+        "epilogue) built with no spill and no serialized wgmma; SASS (HGMMA, "
+        "UTMALDG, HMMA.16816, FFMA), registers at launch: "
+        + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}/"
+                    f"{c['FFMA']}, {regs.get(inst)}" for inst, c in sorted(counts.items()))
+        + f" [{label}]")
 
 
 # The softmax-epilogue GEMM's wgmma instances (csrc/gemm_softmax_sm90.cuh):
@@ -661,17 +669,21 @@ def gemm8_launches() -> tuple:
 
 
 def sm90_launches() -> int:
-    """The launches of the bf16 wgmma GEMM so far, over both wrappers."""
+    """The launches of the bf16 wgmma GEMM so far, over its three
+    wrappers."""
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
 
-    return g.matmul.sm90_launches + g.batched_matmul.sm90_launches
+    return (g.matmul.sm90_launches + g.batched_matmul.sm90_launches
+            + g.matmul_fused_epilogue.sm90_launches)
 
 
 def f32x_launches() -> int:
-    """The launches of the f32 wgmma GEMM so far, over both wrappers."""
+    """The launches of the f32 wgmma GEMM so far, over its three
+    wrappers."""
     from flashattention_kernel_project_tpu_torch.ops import gemm as g
 
-    return g.matmul.f32x_launches + g.batched_matmul.f32x_launches
+    return (g.matmul.f32x_launches + g.batched_matmul.f32x_launches
+            + g.matmul_fused_epilogue.f32x_launches)
 
 
 def gemm_tile_n(batch: int, m: int, n: int) -> int:
@@ -703,6 +715,12 @@ GEMM_TILE_SHAPES = [
     (1, 200, 136, 72), (1, 1000, 1000, 1000), (3, 200, 520, 264),
     (1, 129, 8, 4104), (2, 1100, 328, 2056), (4, 520, 72, 4104),
 ]
+
+
+# kernel 15 on 128 x 256 tiles at their edges: M off the 128-row tiles, N
+# ending 8 columns into a 256-column tile, K off the 64-deep slices (153
+# tiles of 128 x 256, more than half the SMs)
+EPILOGUE_WIDE_SHAPES = [(1, 2100, 72, 2056)]
 
 
 # the f32 wgmma GEMM at the same edges, with N = 100 (a multiple of 4, not
@@ -835,7 +853,10 @@ def phase_gemm_tiles(device, label, shapes=GEMM_TILE_SHAPES,
     kernel and f32 operands on the f32 one, to bf16 and to f32, against
     `_matmul_plain` and (f32 operands) `_matmul_f32_split_plain`
     (`_hold_gemm`). Each call must take its wgmma kernel (its counter
-    rises by one), and the bf16 shapes must take both tile widths. Then the f32
+    rises by one), and the bf16 shapes must take both tile widths. Kernel
+    15 (matmul_fused_epilogue) the same way at the batch-1 shapes and
+    EPILOGUE_WIDE_SHAPES, against `_fused_epilogue_plain` and (f32
+    operands) `fused_split_plain`, bias and residual as f32 and bf16. Then the f32
     kernel on inf and NaN operands (its non-finite entries torch.matmul
     f32's) and on operands whose lower pieces are bf16 subnormals (logged:
     whether the tensor cores keep them)."""
@@ -875,6 +896,44 @@ def phase_gemm_tiles(device, label, shapes=GEMM_TILE_SHAPES,
         if widths != tiles:
             raise AssertionError(f"the {kind} tile-edge shapes took tile widths "
                                  f"{sorted(widths)}")
+
+    # kernel 15 on the same kernels at their batch-1 edges (and a bf16 one
+    # on 128 x 256 tiles, N ending 8 columns into a tile): bias and
+    # residual given as f32 and as bf16, each call on its wgmma kernel
+    fn = g.matmul_fused_epilogue
+    for dt, cases, count, tiles in (
+            (bf, shapes + EPILOGUE_WIDE_SHAPES, lambda: fn.sm90_launches,
+             set(GEMM_SM90_TILES)),
+            (f32, f32_shapes, lambda: fn.f32x_launches, {GEMM_F32_TILE})):
+        widths = set()
+        kind = "bf16" if dt == bf else "f32"
+        for batch, m, k, n in cases:
+            if batch != 1:
+                continue
+            a = torch.randn(m, k, generator=gen, device=device).to(dt)
+            b = torch.randn(k, n, generator=gen, device=device).to(dt)
+            tile = gemm_tile_n(1, m, n) if dt == bf else GEMM_F32_TILE
+            widths.add(tile)
+            for side in (f32, bf):
+                bias = torch.randn(n, generator=gen, device=device).to(side)
+                res = torch.randn(m, n, generator=gen, device=device).to(side)
+                for out in (bf, f32):
+                    before = count()
+                    got = fn(a, b, bias, res, out_dtype=out)
+                    took = count() - before
+                    want = g._fused_epilogue_plain(a, b, bias, res, out)
+                    split = fused_split_plain(a, b, bias, res, out) if dt == f32 else None
+                    torch.cuda.synchronize()
+                    what = (f"fused epilogue {kind} {m}x{k}x{n}, {str(side)[6:]} bias and "
+                            f"residual -> {'bf16' if out == bf else 'f32'} (128 x {tile} "
+                            f"tiles)")
+                    if took != 1:
+                        raise AssertionError(f"{what}: {took} {kind} wgmma launches "
+                                             f"for one call")
+                    log(f"{what}: {_hold_gemm(what, got, want, out, split)} [{label}]")
+        if widths != tiles:
+            raise AssertionError(f"the {kind} fused-epilogue edge shapes took tile "
+                                 f"widths {sorted(widths)}")
 
     # inf and NaN: B has bf16 values (zero lower pieces), a row of ones and
     # zeros, where an inf met a zero piece would give NaN
@@ -3072,17 +3131,6 @@ BWD_DQ_KERNEL = "flash_bwd_dq_sm90_kernel"
 BWD_OBJECTS = {"flash_bwd_kv64.cu": (64, 0), "flash_bwd_kv128.cu": (128, 0),
                "flash_bwd_fused64.cu": (64, 1), "flash_bwd_fused128.cu": (128, 1)}
 BWD_DQ_OBJECTS = {"flash_bwd_dq64.cu": 64, "flash_bwd_dq128.cu": 128}
-
-
-def template_args(kernel: str, count: int):
-    """A reader of `kernel`'s symbols: its first `count` integer template
-    arguments, or None for another symbol."""
-    def read(sym: str):
-        name, rest = mangled_name(sym)
-        if name != kernel:
-            return None
-        return tuple(int(a) for a in re.findall(r"L[ib](\d+)E", rest)[:count])
-    return read
 
 
 def phase_bwd_sm90_build(build_log: str, label):
@@ -5500,6 +5548,36 @@ class Rung:
     transposed: object = None
 
 
+def fused_split_plain(a, b, bias, res, out):
+    """Kernel 15's function on the f32 wgmma kernel's split product
+    (`_matmul_f32_split_plain` in f32), for an f32 fused-epilogue call."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    c = g._matmul_f32_split_plain(a, b, torch.float32) + bias.float()
+    return (torch.relu(c) + res.float()).to(out)
+
+
+def unfused_epilogue(a, b, bias, res, out):
+    """A closure making the unfused PyTorch calls of kernel 15's function on
+    bf16 a and b (a multi-call baseline, never on the port's path): the
+    product to f32 by torch.mm's out_dtype where the installed torch takes
+    it (else torch.matmul of the operands widened to f32, and the run says
+    so), then + bias, relu_, + residual and the cast to `out`."""
+    import torch
+
+    try:
+        torch.mm(a[:8, :8], b[:8, :8], out_dtype=torch.float32)
+        product = lambda: torch.mm(a, b, out_dtype=torch.float32)  # noqa: E731
+    except (TypeError, RuntimeError):
+        log("library: this torch's mm takes no out_dtype; the unfused epilogue's "
+            "product is torch.matmul of the operands widened to f32")
+        a32, b32 = a.float(), b.float()
+        product = lambda: torch.matmul(a32, b32)  # noqa: E731
+    return lambda: (product() + bias).relu_().add_(res).to(out)
+
+
 def ladder_rungs(device) -> list:
     """The ladder's calls at their shapes; inputs normal from a seed on the
     card."""
@@ -5521,17 +5599,19 @@ def ladder_rungs(device) -> list:
         return int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
 
     def gemm(label, a, b, out=f32, bias=None, res=None, timed=None, library=None,
-             sm90=False, f32x=False):
+             sm90=False, f32x=False, unfused=None):
         batched = a.dim() == 3
         kernel = ("gemm_fused_epilogue" if bias is not None
                   else "gemm_batched" if batched else "gemm")
         if bias is not None:
             call = lambda: g.matmul_fused_epilogue(a, b, bias, res, out_dtype=out)  # noqa: E731
             plain = lambda: g._fused_epilogue_plain(a, b, bias, res, out)  # noqa: E731
+            split = lambda: fused_split_plain(a, b, bias, res, out)  # noqa: E731
         else:
             mm = g.batched_matmul if batched else g.matmul
             call = lambda: mm(a, b, out_dtype=out)  # noqa: E731
             plain = lambda: g._matmul_plain(a, b, out)  # noqa: E731
+            split = lambda: g._matmul_f32_split_plain(a, b, out)  # noqa: E731
         shape = (*a.shape[:-1], b.shape[-1])
         extra = () if bias is None else (bias, res)
         # the f32 wgmma kernel: six bf16 products on the tensor cores
@@ -5539,10 +5619,9 @@ def ladder_rungs(device) -> list:
         rungs.append(Rung(kernel, label, call, plain, "f32" if out == f32 else "bf16",
                           passes * 2 * a.numel() * b.shape[-1],
                           nbytes(a, b, *extra) + out_bytes(shape, out), rate,
-                          library, timed, sm90=sm90, f32x=f32x,
-                          entry="gemm_f32" if f32x else None,
-                          split=(lambda: g._matmul_f32_split_plain(a, b, out))
-                          if f32x else None))
+                          library, timed, unfused=unfused, sm90=sm90, f32x=f32x,
+                          entry="gemm_f32" if f32x and bias is None else None,
+                          split=split if f32x else None))
 
     # run_all.py:44-75; the aligned bf16 products take the wgmma kernel
     a16, b16 = rand(4096, 4096, dtype=bf), rand(4096, 4096, dtype=bf)
@@ -5556,9 +5635,12 @@ def ladder_rungs(device) -> list:
     ab, bb = rand(8, 1024, 1024, dtype=bf), rand(8, 1024, 1024, dtype=bf)
     gemm("batched bf16 8x1024^3 -> bf16", ab, bb, out=bf, timed="entry",
          library=lambda: torch.bmm(ab, bb), sm90=True)
+    # kernel 15 on the bf16 wgmma kernel, beside the unfused calls of the
+    # same function (`unfused_epilogue`)
     bias, res = rand(4096), rand(4096, 4096)
     gemm("fused epilogue bf16 4096^3 -> bf16", a16, b16, out=bf, bias=bias,
-         res=res, timed="entry")
+         res=res, timed="entry", sm90=True,
+         unfused=unfused_epilogue(a16, b16, bias, res, bf))
     # ragged: K = 130 (and 72 columns of bf16) take the element-wise loads,
     # K = 132 (f32) and K = 136 (bf16) the wgmma kernels' zero-filled TMA
     # boxes
@@ -5568,10 +5650,12 @@ def ladder_rungs(device) -> list:
             gemm(f"matmul {name} 200x{k}x72", rand(200, k, dtype=dt), rand(k, 72, dtype=dt),
                  sm90=(dt, k) == (bf, 136), f32x=(dt, k) == (f32, 132))
     gemm("batched bf16 3x200x130x72", rand(3, 200, 130, dtype=bf), rand(3, 130, 72, dtype=bf))
+    # the bf16 epilogue at K = 130 on the mma.sync core, the f32 one at K =
+    # 132 on the f32 wgmma kernel
     for dt, k in ((bf, 130), (f32, 132)):
         gemm(f"fused epilogue {'f32' if dt == f32 else 'bf16'} 200x{k}x72",
              rand(200, k, dtype=dt), rand(k, 72, dtype=dt), bias=rand(72),
-             res=rand(200, 72))
+             res=rand(200, 72), f32x=dt == f32)
 
     # BASELINE config 3 (run_all.py:105-116) in bf16 and f32 out, and the
     # ragged N = 160 of tests/test_gemm.py:65 (the padded-column mask), on
@@ -5914,7 +5998,7 @@ def phase_baseline_configs(device, label):
 LADDER_KERNELS = dict(  # entry name -> (source, the TPU kernel's def line)
     gemm=("gemm_sm90.cuh", "gemm.py:75"), gemm_batched=("gemm_sm90.cuh", "gemm.py:172"),
     gemm_f32=("gemm_f32_sm90.cuh", "gemm.py:75"),
-    gemm_fused_epilogue=("gemm.cu", "gemm.py:250"),
+    gemm_fused_epilogue=("gemm_sm90.cuh", "gemm.py:250"),
     gemm_softmax=("gemm_softmax_sm90.cuh", "gemm.py:334"),
     softmax=("softmax.cu", "softmax.py:44"),
     gemm_softmax_resident=("gemm_softmax_sm90.cuh", "gemm.py:458"),
@@ -6036,7 +6120,7 @@ def phase_ladder(device, label):
     for name, (source, replaces) in LADDER_KERNELS.items():
         # configs 1 and 2 add a GEMM and a softmax each; config 1's GEMM is
         # on the f32 wgmma kernel
-        calls = (sum(bool(r.f32x) for r in rungs) + 1 if name == "gemm_f32" else
+        calls = (sum(r.entry == "gemm_f32" for r in rungs) + 1 if name == "gemm_f32" else
                  sum(r.kernel == "gemm_i8" and bool(r.gemm8_sm90) for r in rungs)
                  if name == "gemm_i8_transpose" else
                  sum(r.kernel == name for r in rungs) + 2 * (name in ("gemm", "softmax")))
@@ -6056,6 +6140,16 @@ def phase_ladder(device, label):
             raise AssertionError(f"{name}: no wgmma launch on the ladder's path")
         entries[name].update(launches=sm90, mma_sync_launches=entries[name]["launches"]
                              - sm90 - launches[f"{name}/f32x"])
+    # kernel 15: the entry's launches are the wgmma kernels' (the bf16 one's,
+    # gemm_sm90.cuh, and the f32 one's, gemm_f32_sm90.cuh), the rest the
+    # mma.sync core's (K = 130)
+    fused = entries["gemm_fused_epilogue"]
+    wgmma = launches["gemm_fused_epilogue/sm90"] + launches["gemm_fused_epilogue/f32x"]
+    if not (launches["gemm_fused_epilogue/sm90"] > 0 and launches["gemm_fused_epilogue/f32x"] > 0):
+        raise AssertionError("gemm_fused_epilogue: a wgmma kernel took no launch on the "
+                             "ladder's path")
+    fused.update(launches=wgmma, f32x_launches=launches["gemm_fused_epilogue/f32x"],
+                 mma_sync_launches=fused["launches"] - wgmma)
     # kernels 16 and 17: the entries' launches are the wgmma kernel's
     # (gemm_softmax_sm90.cuh), the rest the mma.sync kernels' (gemm_softmax.cu)
     for name, sm90 in softmax_sm90.items():
@@ -6080,11 +6174,11 @@ def phase_ladder(device, label):
     if launches["gemm_softmax/fallback"] != launches["gemm_softmax/resident"]:
         raise AssertionError(f"{launches['gemm_softmax/fallback']} gated rows "
                              f"launches for {launches['gemm_softmax/resident']} resident")
-    mma_sync = ("gemm", "gemm_batched", "gemm_softmax", "gemm_softmax_resident",
-                "gemm_w8", "gemm_i8")
+    mma_sync = ("gemm", "gemm_batched", "gemm_fused_epilogue", "gemm_softmax",
+                "gemm_softmax_resident", "gemm_w8", "gemm_i8")
     log(f"ladder: kernel launches { {k: e['launches'] for k, e in entries.items()} } "
-        f"(gemm, gemm_batched, gemm_softmax, gemm_softmax_resident: the wgmma "
-        f"kernels'; on the mma.sync kernels "
+        f"(gemm, gemm_batched, gemm_fused_epilogue, gemm_softmax, "
+        f"gemm_softmax_resident: the wgmma kernels'; on the mma.sync kernels "
         f"{ {k: entries[k]['mma_sync_launches'] for k in mma_sync} }), "
         f"gated rows launches {launches['gemm_softmax/fallback']}, of all three "
         f"softmax-epilogue kinds on its wgmma kernel {launches['gemm_softmax/sm90']} "
@@ -6536,10 +6630,41 @@ def sass_counts(obj: str, kernel: str, opcodes) -> dict:
     raise AssertionError(f"no instance {kernel} in {obj}")
 
 
-def _probe_entry(name, replaces, launches, **times):
-    return dict(name=name, route="cuda", source=f"{PKG}/csrc/probes.cu",
+def _probe_entry(name, replaces, launches, source="probes.cu", **times):
+    return dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
                 replaces=f"{TPU}/probes.py:{replaces}", launches=launches,
                 library_ms=None, **times)
+
+
+# The stage probes copy, qk and pv on the Hopper forward's block
+# (csrc/probes_sm90.cu): (d, stage, block rows)
+PROBE_SM90_OBJECT = "probes_sm90.cu"
+PROBE_SM90_KERNEL = "probe_sm90_kernel"
+PROBE_STAGES = {0: "copy", 1: "qk", 2: "pv"}
+
+
+def phase_probes_build(build_log: str, label):
+    """The probes' 12 instances on the forward's block (d 64 and 128; copy,
+    qk, pv; 64- and 128-row blocks) through `wgmma_gate`, in
+    probes_sm90.cu's object: no spill, no serialized wgmma, UTMALDG (the
+    forward's TMA ring) in each, HGMMA in qk's and pv's and none in the
+    copy's, no HMMA.16816 in any; with their registers from ptxas."""
+    instance = template_args(PROBE_SM90_KERNEL, 3)
+    want = {(d, st, rows) for d in (64, 128) for st in PROBE_STAGES for rows in (64, 128)}
+    counts = wgmma_gate(build_log, PROBE_SM90_KERNEL, instance,
+                        {PROBE_SM90_OBJECT: lambda inst: True}, want,
+                        need=("UTMALDG",))
+    for (d, st, rows), c in counts.items():
+        if bool(c["HGMMA"]) != (st != 0):
+            raise AssertionError(f"probe {PROBE_STAGES[st]} (d {d}, {rows} rows): "
+                                 f"{c['HGMMA']} HGMMA")
+    regs = ptxas_registers(build_log, instance)
+    log("stage probes on the forward's block: 12 instances (d, stage 0 copy / 1 qk / "
+        "2 pv, rows) built with no spill and no serialized wgmma; SASS (HGMMA, "
+        "UTMALDG, HMMA.16816), registers at launch: "
+        + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}, "
+                    f"{regs.get(inst)}" for inst, c in sorted(counts.items()))
+        + f" [{label}]")
 
 
 def phase_probes(device, label):
@@ -6549,12 +6674,14 @@ def phase_probes(device, label):
     block_k = 512, numpy seed 0): copy, qk, pv and the softmax chain, qk_kt
     beside qk, and kernel 1 at the same shape, stable and stable=False; then
     run_all.py's probe rungs: qk and pv at d64, qk_packed at d64 and the
-    stream copy at 8192 x 4096 f32 (and bf16). Each launch counted, each
-    output held against its plain version (copy and chain within 1e-6, the
-    products' rel-L2 within 1e-5, the stream copy bit for bit), each probe
-    timed beside it (CUDA graphs, in turns) and its bound; the chain's
-    exp2 count checked in the SASS. Prints the sum of the stages against the
-    fused kernel. Returns the JSON entries."""
+    stream copy at 8192 x 4096 f32 (and bf16). copy, qk and pv run on the
+    Hopper forward's block (csrc/probes_sm90.cu; `phase_probes_build`
+    gates their SASS), the others on csrc/probes.cu. Each launch counted,
+    each output held against its plain version (copy and chain within
+    1e-6, the products' rel-L2 within 1e-5, the stream copy bit for bit),
+    each probe timed beside it (CUDA graphs, in turns) and its bound; the
+    chain's exp2 count checked in the SASS. Prints the sum of the stages
+    against the fused kernel. Returns the JSON entries."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
@@ -6640,14 +6767,13 @@ def phase_probes(device, label):
     log(f"probe stream copy: bit-equal to x + 1 at n = {tails} [{label}]")
 
     # the chain's exp2 of every score stays in the binary (a hoisted exp2
-    # would leave a handful), and the products run per tile
+    # would leave a handful), and qk_kt's products run per tile
     obj = os.path.join(_build.BUILD_DIR, "probes.cu.o")
     sass = {stage: sass_counts(obj, f"probe_kernelILi128ELi{i}E",
                                ("MUFU.EX2", "HMMA"))
-            for stage, i in (("copy", 0), ("qk", 1), ("pv", 2), ("chain", 3))}
+            for stage, i in (("chain", 3), ("qk_kt", 4))}
     log(f"probes SASS at d128 (MUFU.EX2, HMMA per instance): {sass}")
-    if (sass["chain"]["MUFU.EX2"] < 32 or sass["pv"]["HMMA"] < 64
-            or sass["qk"]["HMMA"] < 64):
+    if sass["chain"]["MUFU.EX2"] < 32 or sass["qk_kt"]["HMMA"] < 64:
         raise AssertionError(f"a probe's stage work left its key loop: {sass}")
 
     # times, each beside its plain version, in turns, from CUDA graphs
@@ -6708,13 +6834,15 @@ def phase_probes(device, label):
                stream=bound(0, 2 * nbytes(x)))
     shape = f"{B}x{H}/{HKV}x{N}x{D} bf16, block_q 512, block_k 512"
     shape64 = f"{B}x{H}/{HKV}x{N}x64 bf16"
-    tiles_bytes = (N // 64) * B * H * N * D * 2 * 2  # K and V once a query tile
+    # K and V once a query block of the forward's (copy, qk, pv: its rows)
+    rows = dense_rows(N, H, B, torch.cuda.get_device_properties(0).multi_processor_count)
+    tiles_bytes = (N // rows) * B * H * N * D * 2 * 2
     for name in calls:
         k_ms, p_ms = ms[name]
         extra = ""
         if name == "copy":
             extra = (f" | the tiles' traffic {tiles_bytes / k_ms / 1e6:.1f} GB/s "
-                     f"(K and V once a 64-row query tile, mostly from L2); K "
+                     f"(K and V once a {rows}-row query block, mostly from L2); K "
                      f"and V once from HBM {nbytes(k, v) / 3.35e12 * 1e3:.4f} ms")
         if name == "chain":
             extra = (f" | {exp2} exp2 at {MUFU_PER_SM_CLK}/clock/SM x "
@@ -6748,12 +6876,12 @@ def phase_probes(device, label):
                     **bnd[name])
 
     entries = [
-        _probe_entry("probe_copy", 83, got["probe_copy"], shape=shape,
-                     **times("copy")),
-        _probe_entry("probe_qk", 106, got["probe_qk"], shape=shape, **times("qk"),
-                     extra={shape64: times("qk64")}),
-        _probe_entry("probe_pv", 262, got["probe_pv"], shape=shape, **times("pv"),
-                     extra={shape64: times("pv64")}),
+        _probe_entry("probe_copy", 83, got["probe_copy"], source=PROBE_SM90_OBJECT,
+                     shape=shape, **times("copy")),
+        _probe_entry("probe_qk", 106, got["probe_qk"], source=PROBE_SM90_OBJECT,
+                     shape=shape, **times("qk"), extra={shape64: times("qk64")}),
+        _probe_entry("probe_pv", 262, got["probe_pv"], source=PROBE_SM90_OBJECT,
+                     shape=shape, **times("pv"), extra={shape64: times("pv64")}),
         _probe_entry("probe_softmax_chain", 287, got["probe_chain"], shape=shape,
                      **times("chain")),
         _probe_entry("probe_qk_kt", 129, got["probe_qk_kt"], shape=shape,
@@ -7012,6 +7140,7 @@ def main() -> int:
     phase_dec_paged_build(build_log, label)
     phase_ragged_build(build_log, label)
     phase_fwd_q_build(build_log, label)
+    phase_probes_build(build_log, label)
     fwd = phase_forward(device, [
         (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
         (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill

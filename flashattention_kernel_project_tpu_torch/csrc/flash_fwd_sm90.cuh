@@ -8,7 +8,8 @@
 // route behind flash_fwd_ragged_sm90_kernel (flash_fwd_ragged.cu's head
 // describes it: per-row bounds read on the device, no LSE); over an 8-bit
 // cache it takes 64-key byte tiles widened to bf16 by the producer
-// warpgroup. The Hopper primitives it shares with the bf16 GEMM and the
+// warpgroup. Its stage switch (kStage) keeps one stage of it alone: the
+// stage probes of probes_sm90.cu. The Hopper primitives it shares with the bf16 GEMM and the
 // backward (mbarriers, the TMA load, the wgmma descriptor and products,
 // fence, commit and wait, the map encoder) are sm90.cuh's.
 //
@@ -178,20 +179,34 @@ struct RaggedPtrs {
   const float* v_scale;
 };
 
+// What a block of fwd_block runs: the whole forward (kForward), or one stage
+// of it alone, the stage probes of probes_sm90.cu (ops/probes.py's copy,
+// qk and pv; their numbers are its stage numbers): the K/V ring with each
+// stage waited on and released and no products (kProbeCopy), the QK
+// products (kProbeQK) or the PV products (kProbePV), each as the forward
+// issues them.
+enum FwdStage : int { kProbeCopy = 0, kProbeQK = 1, kProbePV = 2, kForward = 3 };
+
 // The block body. One block per (kRows-row query tile, q head, batch row):
 // the first kRows * 2 threads are the consumer warpgroups, 64 rows each,
 // the last 128 the producer warpgroup. Maps: q over [b*hq, n, d] in boxes of
 // kRows rows, k and v over [b*hkv, s, d] in boxes of 128 keys, 64 dims a
 // box (8-bit: whole rows of D bytes, unswizzled). The other arguments as
 // fkp_flash_fwd takes them; kRagged reads s and q_offset of the block's
-// row from rp and writes no LSE (lse null); KV the cache's type.
-template <int D, bool kWindow, int kDisc, int kRows, class KV, bool kRagged>
+// row from rp and writes no LSE (lse null); KV the cache's type. A probe
+// stage (kStage, bf16, online, no band, not ragged) writes f32 [b, hq, n,
+// D] at o in place of O (each row: the copy's sum over the rows j *
+// block_k of k + v, the QK's score sum broadcast over D, the PV's
+// q[row, 0] * sum_k v[k]) and no LSE.
+template <int D, bool kWindow, int kDisc, int kRows, class KV, bool kRagged,
+          int kStage = kForward>
 __device__ __forceinline__ void fwd_block(
     const CUtensorMap* q_map, const CUtensorMap* k_map,
     const CUtensorMap* v_map, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int hq, int hkv, int n, int s, float scale_log2,
     int causal, int q_offset, int window, int sinks,
-    const float* __restrict__ k_max, GuardArgs gd, RaggedPtrs rp) {
+    const float* __restrict__ k_max, GuardArgs gd, RaggedPtrs rp,
+    int block_k = 0) {
   using L = Layout<D, kRows, KV>;
   constexpr bool kQuant = L::kQuant;
   static_assert(!kRagged || kDisc != kHybrid, "the ragged forward has no hybrid");
@@ -651,6 +666,99 @@ __device__ __forceinline__ void fwd_block(
   // skips its last arrival, so that every arrival is waited for.
   const int turn = 1 + wg;
   const int other_turn = 2 - wg;
+  if constexpr (kStage != kForward) {
+    static_assert(!kQuant && !kRagged && !kWindow && kDisc == kOnline,
+                  "the probes run the bf16 online block without a band");
+    if constexpr (kStage == kProbePV) {
+      // p = q[row, 0] at every key, into the A fragments the softmax
+      // fills: Q's column 0 (row r's first 16-byte chunk lies at chunk
+      // r % 8 of its 128-byte row; rows past n are zeros)
+      const int r = wg * 64 + warp * 16 + g;  // row0's row of the tile
+      const auto col0 = [&](int rr) {
+        return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+            base_ptr + rr * 128 + ((rr % 8) << 4)));
+      };
+      const float x0 = col0(r), x1 = col0(r + 8);
+#pragma unroll
+      for (int kk = 0; kk < L::kKeys / 16; ++kk) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          split_bf16(x0, x0, p_hi[kk][2 * half], p_lo[kk][2 * half]);
+          split_bf16(x1, x1, p_hi[kk][2 * half + 1], p_lo[kk][2 * half + 1]);
+        }
+      }
+    }
+    float rs0 = 0.f, rs1 = 0.f;  // QK: this thread's share of the score sums
+    constexpr bool kProducts = kStage != kProbeCopy;
+    if (kProducts && kPingPong && wg == 1 && n_visit > 0) named_arrive(other_turn);
+    for (int it = 0; it < n_visit; ++it) {
+      const int st = it % L::kStages;
+      mbar_wait(full_bar(st), (it / L::kStages) & 1);
+      if constexpr (kStage == kProbeCopy) {
+        // the tile's rows j * block_k, in key order: acc += f32(k) + f32(v)
+        // at this thread's columns 8nd + 2t, + 1 (box nd / 8, 16-byte chunk
+        // nd % 8, swizzled by the row)
+        const int key0 = tile_of(it) * L::kKeys;
+        for (int r = (block_k - key0 % block_k) % block_k;
+             r < L::kKeys && key0 + r < s; r += block_k) {
+#pragma unroll
+          for (int nd = 0; nd < D / 8; ++nd) {
+            const uint32_t at = nd / 8 * L::kBox + r * 128 +
+                                (((nd % 8) ^ (r % 8)) << 4) + 4 * t;
+            const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                base_ptr + (k_s(st) - base) + at));
+            const float2 vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                base_ptr + (v_s(st) - base) + at));
+            acc[4 * nd] += kf.x + vf.x;
+            acc[4 * nd + 1] += kf.y + vf.y;
+          }
+        }
+      } else {
+        if (kPingPong) named_sync(turn);
+        wgmma_fence();
+        if constexpr (kStage == kProbeQK) {
+          issue_qk(st);
+        } else {
+          issue_pv(st);
+        }
+        if (kPingPong && (wg == 0 || it + 1 < n_visit)) named_arrive(other_turn);
+        wgmma_wait<0>();
+        if constexpr (kStage == kProbeQK) {
+          pin(sc);
+#pragma unroll
+          for (int nt = 0; nt < L::kKeys / 8; ++nt) {
+            rs0 += sc[4 * nt] + sc[4 * nt + 1];
+            rs1 += sc[4 * nt + 2] + sc[4 * nt + 3];
+          }
+        } else {
+          pin(acc);
+        }
+      }
+      release(st);
+    }
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+    float* const out = reinterpret_cast<float*>(o) + ((size_t)b * hq + h) * n * D;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int c = nd * 8 + 2 * t;
+      float2 w0, w1;
+      if constexpr (kStage == kProbeCopy) {  // every row holds the same sums
+        w0 = w1 = make_float2(acc[4 * nd], acc[4 * nd + 1]);
+      } else if constexpr (kStage == kProbeQK) {
+        w0 = make_float2(rs0, rs0);
+        w1 = make_float2(rs1, rs1);
+      } else {
+        w0 = make_float2(acc[4 * nd], acc[4 * nd + 1]);
+        w1 = make_float2(acc[4 * nd + 2], acc[4 * nd + 3]);
+      }
+      if (row0 < n) *reinterpret_cast<float2*>(out + (size_t)row0 * D + c) = w0;
+      if (row1 < n) *reinterpret_cast<float2*>(out + (size_t)row1 * D + c) = w1;
+    }
+    return;
+  }
   if (n_visit > 0) {
     if (kPingPong && wg == 1) named_arrive(other_turn);
     mbar_wait(full_bar(0), 0);

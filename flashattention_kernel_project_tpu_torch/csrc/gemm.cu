@@ -11,12 +11,13 @@
 // accumulator in registers and loops over K itself. fkp_gemm takes one of
 // three kernels by the call's path (ops/gemm.py::gemm_path), every call
 // with aligned operands (K and N multiples of 16 bytes' worth of elements,
-// 16-byte bases), no epilogue and K > 0 on wgmma: two bf16 operands go to
-// gemm_sm90.cuh (built in gemm_sm90.cu), two f32 operands to
-// gemm_f32_sm90.cuh (built in gemm_f32_sm90.cu: JAX's six-pass bf16
-// product for f32 at Precision.HIGHEST). The fused epilogue, unaligned
-// shapes and K = 0 go to gemm_kernel below, on gemm_core.cuh's mma.sync
-// (bf16) and FFMA (f32) tiles of 128 x 128, the epilogue a template switch.
+// 16-byte bases) and K > 0 on wgmma, with or without the epilogue: two
+// bf16 operands go to gemm_sm90.cuh (built in gemm_sm90.cu), two f32
+// operands to gemm_f32_sm90.cuh (built in gemm_f32_sm90.cu: JAX's six-pass
+// bf16 product for f32 at Precision.HIGHEST), each with the epilogue a
+// template switch of its 16-byte stores. Unaligned shapes and K = 0 go to
+// gemm_kernel below, on gemm_core.cuh's mma.sync (bf16) and FFMA (f32)
+// tiles of 128 x 128, the epilogue a template switch of store2.
 
 #include "gemm_core.cuh"
 #include "gemm_sm90.cuh"
@@ -25,7 +26,7 @@ namespace fkp_gemm_sm90 {
 // the f32 wgmma kernel's launch (gemm_f32_sm90.cuh, built in
 // gemm_f32_sm90.cu, whose kernel must be defined in one object only)
 int launch_gemm_f32(const void* a, const void* b, const Out& o, int batch,
-                    int k, cudaStream_t stream);
+                    int k, int epilogue, cudaStream_t stream);
 }  // namespace fkp_gemm_sm90
 
 namespace {
@@ -92,14 +93,14 @@ int launch(const void* a, const void* b, const Out& o, int batch, int k,
 
 // a [batch, m, k], b [batch, k, n] contiguous, both bf16 (bf16_in) or both
 // f32; c [batch, m, n] bf16 (bf16_out) or f32. epilogue: bias f32 [n] and
-// residual f32 [m, n] (batch 1), else both may be null. path: 0 reads
-// element by element (any shape); 1 copies 16-byte pieces (k and n
-// multiples of 8 (bf16) or 4 (f32) elements, a and b 16-byte aligned); 2
-// the bf16 wgmma kernel (gemm_sm90.cuh: path 1's alignment, bf16 operands,
-// no epilogue, k > 0); 3 the f32 wgmma kernel (gemm_f32_sm90.cuh: path 1's
-// alignment, f32 operands, no epilogue, k > 0); cudaErrorInvalidValue for
-// a call a wgmma path does not take. Returns cudaGetLastError() after the
-// launch, or the wgmma launch's error code.
+// residual f32 [m, n] (batch 1; on paths 2 and 3 both 16-byte aligned),
+// else both may be null. path: 0 reads element by element (any shape); 1
+// copies 16-byte pieces (k and n multiples of 8 (bf16) or 4 (f32)
+// elements, a and b 16-byte aligned); 2 the bf16 wgmma kernel
+// (gemm_sm90.cuh: path 1's alignment, bf16 operands, k > 0); 3 the f32
+// wgmma kernel (gemm_f32_sm90.cuh: path 1's alignment, f32 operands, k >
+// 0); cudaErrorInvalidValue for a call a wgmma path does not take. Returns
+// cudaGetLastError() after the launch, or the wgmma launch's error code.
 extern "C" int fkp_gemm(const void* a, const void* b, void* c,
                         const void* bias, const void* residual, int batch,
                         int m, int n, int k, int bf16_in, int bf16_out,
@@ -108,11 +109,16 @@ extern "C" int fkp_gemm(const void* a, const void* b, void* c,
               static_cast<const float*>(residual), m, n, bf16_out};
   const auto s = static_cast<cudaStream_t>(stream);
   if (path == 2 || path == 3) {
-    if (bf16_in != (path == 2) || epilogue || k <= 0) {
+    const auto misaligned = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+    };
+    if (bf16_in != (path == 2) || k <= 0 ||
+        (epilogue && (batch != 1 || misaligned(bias) || misaligned(residual)))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return path == 2 ? fkp_gemm_sm90::launch_gemm(a, b, o, batch, k, s)
-                     : fkp_gemm_sm90::launch_gemm_f32(a, b, o, batch, k, s);
+    return path == 2
+               ? fkp_gemm_sm90::launch_gemm(a, b, o, batch, k, epilogue, s)
+               : fkp_gemm_sm90::launch_gemm_f32(a, b, o, batch, k, epilogue, s);
   }
   const int aligned = path;
   if (bf16_in) {

@@ -1,7 +1,7 @@
 // The mma.sync tiled GEMM shared by gemm.cu's gemm_kernel (C = A @ B over
 // an optional leading batch, with an optional ReLU(. + bias) + residual
-// epilogue: the calls with the fused epilogue, shapes that are not aligned
-// or K = 0; an aligned call without an epilogue takes a wgmma kernel
+// epilogue: the calls with shapes that are not aligned or K = 0; an
+// aligned call, with or without the epilogue, takes a wgmma kernel
 // instead, gemm_sm90.cuh for bf16 operands and gemm_f32_sm90.cuh for f32),
 // gemm_softmax.cu (the batched product with the row softmax in its
 // epilogue: the calls its wgmma kernel does not take) and gemm_w8.cu (bf16
@@ -23,8 +23,8 @@
 // landed; from there the bf16 path runs unchanged.
 //
 // float32 (the reference's shared-memory tiled rung; the unaligned f32
-// calls and the f32 epilogue): full float32 FFMA, not TF32, which keeps
-// about three decimal digits where the TPU kernel runs float32 at
+// calls, with or without the epilogue): full float32 FFMA, not TF32, which
+// keeps about three decimal digits where the TPU kernel runs float32 at
 // Precision.HIGHEST. Each thread computes an 8 x 8 register tile
 // (two 4-row by two 4-column quarters, so its shared-memory reads are 16
 // bytes wide and conflict-free); A's 8-deep slice is stored transposed,
@@ -43,9 +43,9 @@
 // instructions bounds it: 989 TFLOP/s bf16, 67 TFLOP/s float32 FFMA.
 // mma.sync reaches only part of the bf16 peak (23% at 4096^3); wgmma, TMA,
 // a deeper ring and a persistent schedule are gemm_sm90.cuh's and
-// gemm_f32_sm90.cuh's, for gemm.cu's aligned calls without an epilogue
-// (and their siblings' for the aligned softmax-epilogue and 8-bit-weight
-// calls): the fused epilogue and the unaligned calls still run this core.
+// gemm_f32_sm90.cuh's, for gemm.cu's aligned calls with or without the
+// fused epilogue (and their siblings' for the aligned softmax-epilogue and
+// 8-bit-weight calls): the unaligned calls and K = 0 still run this core.
 
 #pragma once
 

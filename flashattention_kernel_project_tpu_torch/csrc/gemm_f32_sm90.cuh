@@ -2,18 +2,22 @@
 // Precision.HIGHEST: each f32 operand split exactly into three bf16 pieces
 // (hi + mid + lo = x) and six bf16 products accumulated in f32 on wgmma.
 // gemm.cu's fkp_gemm launches it (path 3) for every call with two f32
-// operands, no epilogue, K > 0, K and N multiples of 4 and 16-byte-aligned
-// bases (ops/gemm.py::gemm_path): matmul at batch 1 and batched_matmul at
-// any batch, f32 or bf16 out. gemm_f32_sm90.cu builds it in an nvcc process
-// of its own.
+// operands, K > 0, K and N multiples of 4 and 16-byte-aligned bases
+// (ops/gemm.py::gemm_path): matmul at batch 1, batched_matmul at any batch
+// and matmul_fused_epilogue, f32 or bf16 out. gemm_f32_sm90.cu builds its
+// two instances (plain and with the fused epilogue) in an nvcc process of
+// its own.
 //
 // Replaces flashattention_kernel_project_tpu/ops/gemm.py::_matmul_kernel
-// (:75, pallas_call :138) and _batched_matmul_kernel (:172, pallas_call
-// :226) on those calls, whose jnp.dot runs f32 at Precision.HIGHEST: six
-// bf16 passes on the MXU (JAX gemm.py:30-45). The unaligned f32 calls and
-// the fused epilogue keep gemm_core.cuh's f32 FFMA tile. The function is
-// C = A @ B to f32 accuracy, rounded once to the output type; rows past M
-// and K are zero-filled by the TMA maps and columns past N never written.
+// (:75, pallas_call :138), _batched_matmul_kernel (:172, pallas_call :226)
+// and _fused_epilogue_kernel (:250, pallas_call :310) on those calls, whose
+// jnp.dot runs f32 at Precision.HIGHEST: six bf16 passes on the MXU (JAX
+// gemm.py:30-45). The unaligned f32 calls and K = 0 keep gemm_core.cuh's
+// f32 FFMA tile. The function is C = A @ B to f32 accuracy (with the
+// epilogue, ReLU(C + bias[col]) + residual[row, col] in f32, as
+// gemm_sm90.cuh's stores take it), rounded once to the output type; rows
+// past M and K are zero-filled by the TMA maps and columns past N never
+// written.
 //
 // The split (`split` below): hi = x with its low 16 bits cleared, mid the
 // same of x - hi, lo of x - hi - mid, each with x's sign (so -0 splits
@@ -210,30 +214,33 @@ __device__ __forceinline__ void wgmma_rs_n128_d(float (&d)[64],
 }
 
 // C in pairs of columns (bf16 out with n not a multiple of 8, where a
-// 16-byte piece could straddle n): rows rg and rg + 8 of the accumulator.
+// 16-byte piece could straddle n): rows rg and rg + 8 of the accumulator,
+// through the epilogue kEpi (store2's, reading bias and residual in pairs).
+template <int kEpi>
 __device__ __forceinline__ void store_pairs(const Out& o, size_t bbase, int rg,
                                             int col0, const float (&acc)[kF32BN / 2],
                                             int q) {
 #pragma unroll
   for (int j = 0; j < kF32BN / 8; ++j) {
     const int col = col0 + 8 * j + 2 * q;
-    fkp_gemm_core::store2<fkp_gemm_core::kPlain>(o, bbase, rg, col, acc[4 * j],
-                                                 acc[4 * j + 1]);
-    fkp_gemm_core::store2<fkp_gemm_core::kPlain>(o, bbase, rg + 8, col,
-                                                 acc[4 * j + 2], acc[4 * j + 3]);
+    fkp_gemm_core::store2<kEpi>(o, bbase, rg, col, acc[4 * j], acc[4 * j + 1]);
+    fkp_gemm_core::store2<kEpi>(o, bbase, rg + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
 // C [batch, m, n] = A [batch, m, k] @ B [batch, k, n], f32 operands,
 // through the maps a_map (f32 boxes of 128 rows x 32 of k) and b_map (32
-// k-rows x 32 columns). The first 256 threads are the consumer warpgroups,
+// k-rows x 32 columns), with the fused epilogue where kEpi = kBiasRelu
+// (gemm_sm90_kernel's). The first 256 threads are the consumer warpgroups,
 // 64 rows of the tile each; the last 128 the producer warpgroup: its warp
 // 0 issues the loads, warps 1-3 split B. Block i takes tiles i,
 // i + gridDim.x, ...
+template <int kEpi>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_f32_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
                          const __grid_constant__ CUtensorMap b_map, Out o,
                          int k, int batch) {
+  constexpr bool kEpilogue = kEpi == fkp_gemm_core::kBiasRelu;
   extern __shared__ uint8_t smem_raw[];
   // f32 stages full / empty, plane sets full / empty
   __shared__ __align__(8) uint64_t bars[2 * kF32Stages + 2 * kSets];
@@ -515,7 +522,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int rg = row0 + wg * 64 + warp * 16 + g;
     const size_t bbase = (size_t)b * o.m * o.n;
     if (o.bf16 && o.n % 8) {
-      store_pairs(o, bbase, rg, col0, acc, q);
+      store_pairs<kEpi>(o, bbase, rg, col0, acc, q);
+    } else if constexpr (kEpilogue) {
+      // this thread's pieces lie in row g + 8 (q & 1); their first bias
+      // and residual loaded after the last wait (before it, beside the
+      // slice's products and A fragments, the consumers spilled)
+      EpiBuf epi;
+      const int row = rg + 8 * (q & 1);
+      if (o.bf16) {
+        epi_first<8>(epi, o, row, col0, q);
+        store_bf16x8<kF32BN, kEpi>(o, bbase, row, col0, acc, q, epi);
+      } else {
+        epi_first<4>(epi, o, row, col0, q);
+        store_f32x4<kF32BN, kEpi>(o, bbase, row, col0, acc, q, epi);
+      }
     } else if (o.bf16) {  // this thread's pieces lie in row g + 8 (q & 1)
       store_bf16x8<kF32BN>(o, bbase, rg + 8 * (q & 1), col0, acc, q);
     } else {
@@ -524,12 +544,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Launches the kernel on a grid of min(tiles, sms) blocks; returns a CUDA
-// error code (the shared-memory attribute's, cudaErrorInvalidValue where a
-// map cannot be encoded, else cudaGetLastError() after the launch).
-inline int launch_f32(const void* a, const void* b, const Out& o, int batch,
-                      int k, int sms, cudaStream_t stream) {
-  const auto kernel = &gemm_f32_sm90_kernel;
+// Launches instance kEpi on a grid of min(tiles, sms) blocks; returns a
+// CUDA error code (the shared-memory attribute's, cudaErrorInvalidValue
+// where a map cannot be encoded, else cudaGetLastError() after the launch).
+template <int kEpi>
+int launch_f32(const void* a, const void* b, const Out& o, int batch, int k,
+               int sms, cudaStream_t stream) {
+  const auto kernel = &gemm_f32_sm90_kernel<kEpi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -548,8 +569,9 @@ inline int launch_f32(const void* a, const void* b, const Out& o, int batch,
 
 // C = A @ B for a [batch, m, k] and b [batch, k, n] f32, contiguous, k > 0,
 // k and n multiples of 4, 16-byte-aligned bases, into o (bf16 or f32) on
-// `stream`; gemm_f32_sm90.cu builds it. A CUDA error code.
+// `stream`, through the fused epilogue where `epilogue` (as launch_gemm's);
+// gemm_f32_sm90.cu builds it. A CUDA error code.
 int launch_gemm_f32(const void* a, const void* b, const Out& o, int batch,
-                    int k, cudaStream_t stream);
+                    int k, int epilogue, cudaStream_t stream);
 
 }  // namespace fkp_gemm_sm90

@@ -1,4 +1,5 @@
-// The bf16 GEMM's wgmma instances (gemm_sm90.cuh), in an nvcc process of
+// The bf16 GEMM's wgmma instances (gemm_sm90.cuh): tiles of 128 x 256 and
+// 128 x 128, plain and with the fused epilogue, in an nvcc process of
 // their own; gemm.cu's fkp_gemm launches them.
 
 #include "gemm_sm90.cuh"
@@ -6,13 +7,18 @@
 namespace fkp_gemm_sm90 {
 
 int launch_gemm(const void* a, const void* b, const Out& o, int batch, int k,
-                cudaStream_t stream) {
+                int epilogue, cudaStream_t stream) {
+  using fkp_gemm_core::kBiasRelu;
+  using fkp_gemm_core::kPlain;
   int sms = 0;
   const int err = sm_count(&sms);
   if (err != 0) return err;
-  return tile_n(batch, o.m, o.n, sms) == 128
-             ? launch<128>(a, b, o, batch, k, sms, stream)
-             : launch<256>(a, b, o, batch, k, sms, stream);
+  if (tile_n(batch, o.m, o.n, sms) == 128) {
+    return epilogue ? launch<128, kBiasRelu>(a, b, o, batch, k, sms, stream)
+                    : launch<128, kPlain>(a, b, o, batch, k, sms, stream);
+  }
+  return epilogue ? launch<256, kBiasRelu>(a, b, o, batch, k, sms, stream)
+                  : launch<256, kPlain>(a, b, o, batch, k, sms, stream);
 }
 
 }  // namespace fkp_gemm_sm90

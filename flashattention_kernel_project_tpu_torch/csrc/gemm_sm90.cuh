@@ -1,18 +1,21 @@
 // The bf16 GEMM for Hopper (sm_90a): wgmma, TMA and a K ring. gemm.cu's
-// fkp_gemm launches it for every call with two bf16 operands, no epilogue,
-// K and N multiples of 8 and 16-byte-aligned bases (ops/gemm.py::gemm_path):
-// matmul and matmul_bf16 at batch 1, batched_matmul at any batch, f32 or
-// bf16 out. gemm_sm90.cu builds its two instances (tiles of 128 x 256 and
-// 128 x 128) in an nvcc process of its own.
+// fkp_gemm launches it for every call with two bf16 operands, K > 0, K and
+// N multiples of 8 and 16-byte-aligned bases (ops/gemm.py::gemm_path):
+// matmul and matmul_bf16 at batch 1, batched_matmul at any batch and
+// matmul_fused_epilogue, f32 or bf16 out. gemm_sm90.cu builds its four
+// instances (tiles of 128 x 256 and 128 x 128, each plain and with the
+// fused epilogue) in an nvcc process of its own.
 //
 // Replaces flashattention_kernel_project_tpu/ops/gemm.py::_matmul_kernel
-// (:75, pallas_call :138) and _batched_matmul_kernel (:172, pallas_call
-// :226) on those calls; aligned f32 calls take gemm_f32_sm90.cuh, which
-// shares this skeleton, and the mma.sync core of gemm_core.cuh keeps the
-// rest (the fused epilogue, unaligned shapes). The function is
-// the same: C = A @ B with f32 accumulation over the whole of K, rounded
-// once to the output type; rows past M and K are zero-filled by the TMA
-// maps and columns past N never written.
+// (:75, pallas_call :138), _batched_matmul_kernel (:172, pallas_call :226)
+// and _fused_epilogue_kernel (:250, pallas_call :310) on those calls;
+// aligned f32 calls take gemm_f32_sm90.cuh, which shares this skeleton,
+// and the mma.sync core of gemm_core.cuh keeps the unaligned ones and
+// K = 0. The function is the same: C = A @ B with f32 accumulation over
+// the whole of K (with the epilogue, ReLU(A @ B + bias[col]) +
+// residual[row, col] in f32, JAX's order), rounded once to the output
+// type; rows past M and K are zero-filled by the TMA maps and columns past
+// N never written.
 //
 // What bounds it on the H100: at the ladder's shapes (M = N = K = 4096;
 // 8 x 1024^3) a GEMM does 2*M*N*K flops against 2*(M*K + K*N) bytes in and
@@ -55,6 +58,16 @@
 //   wholly inside or outside C: a warp's store covers whole 32-byte
 //   sectors. Written in pairs (store2, 4 bytes a thread for bf16) it took
 //   22% of the time at 8 x 1024^3.
+// - The fused epilogue (kEpi = kBiasRelu) is a template switch of those
+//   stores: a thread's piece takes its columns of bias and of its row of
+//   the residual as f32 vectors (64 MB of f32 residual at 4096^2, read
+//   while the tensor cores idle), loaded a few pieces ahead of the piece
+//   being written (`EpiBuf`: four pieces ahead for bf16 C, eight for f32),
+//   the first ones before the tile's last wgmma wait. Measured on the H100
+//   (PERF.md): the epilogue costs ~0.025 ms at 4096^3 over kernel 13's
+//   0.183. Tried and dropped: the producer's L2 prefetch of each tile's
+//   residual rows (~5% slower), no loads before the wait (2-4% slower),
+//   half the inputs held ahead (~1.4% slower).
 // The ring, its producer (load_tile), the consumers' products (mma_tile),
 // the maps (encode_ab) and the 16-byte stores are shared with the
 // softmax-epilogue GEMM (gemm_softmax_sm90.cuh); the ring, the tile order
@@ -203,6 +216,82 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[kBN / 2], uint64_t da,
   }
 }
 
+// The fused epilogue's inputs a thread holds ahead of the pieces it
+// writes: kEpiBuf float4, for each of the next few pieces its columns of
+// bias, then of its row of the residual (kW = 8 columns a piece for bf16
+// C, four float4 a piece; kW = 4 for f32 C, two): epi_ahead<kW>() pieces.
+constexpr int kEpiBuf = 16;
+struct EpiBuf {
+  float4 v[kEpiBuf];
+};
+
+template <int kW>
+__host__ __device__ constexpr int epi_ahead() {
+  return 2 * kEpiBuf / kW;
+}
+
+// Piece p's first column of the pieces a thread writes, of kW columns
+// (store_bf16x8's for kW = 8, store_f32x4's for 4).
+template <int kW>
+__device__ __forceinline__ int piece_col(int col0, int p, int q) {
+  return kW == 8 ? col0 + (2 * p + (q >> 1)) * 8 : col0 + p * 8 + 4 * (q >> 1);
+}
+
+// Loads into slot `slot` of e the bias and residual of the piece of kW
+// columns at (row, col); a piece outside C (never written) reads row 0,
+// column 0 instead, so that every load stays inside the tensors.
+template <int kW>
+__device__ __forceinline__ void load_piece(EpiBuf& e, int slot, const Out& o,
+                                           int row, int col) {
+  constexpr int kV = kW / 4;  // float4s of bias (and of residual) a piece
+  const bool live = row < o.m && col < o.n;
+  const int r = live ? row : 0, c = live ? col : 0;
+  const float4* b = reinterpret_cast<const float4*>(o.bias + c);
+  const float4* x = reinterpret_cast<const float4*>(o.residual + (size_t)r * o.n + c);
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    e.v[slot * 2 * kV + i] = __ldg(b + i);
+    e.v[slot * 2 * kV + kV + i] = __ldg(x + i);
+  }
+}
+
+// The first pieces' epilogue inputs of a thread writing row `row` of the
+// tile at col0 (as many as e holds).
+template <int kW>
+__device__ __forceinline__ void epi_first(EpiBuf& e, const Out& o, int row,
+                                          int col0, int q) {
+#pragma unroll
+  for (int p = 0; p < epi_ahead<kW>(); ++p) {
+    load_piece<kW>(e, p, o, row, piece_col<kW>(col0, p, q));
+  }
+}
+
+// ReLU(acc + bias) + residual, in f32, in the TPU kernel's order
+__device__ __forceinline__ float bias_relu(float acc, float bias, float res) {
+  return fmaxf(acc + bias, 0.f) + res;
+}
+
+// Piece p's epilogue inputs (bias then residual, kW of each) from e as
+// f32, and the load of piece p + epi_ahead<kW>() into its slot (of
+// `pieces`).
+template <int kW>
+__device__ __forceinline__ void take_piece(EpiBuf& e, int p, int pieces,
+                                           const Out& o, int row, int col0,
+                                           int q, float (&bias)[kW],
+                                           float (&res)[kW]) {
+  constexpr int kAhead = epi_ahead<kW>(), kV = kW / 4;
+  const int slot = p % kAhead;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const float4 b = e.v[slot * 2 * kV + i], x = e.v[slot * 2 * kV + kV + i];
+    bias[4 * i] = b.x, bias[4 * i + 1] = b.y, bias[4 * i + 2] = b.z, bias[4 * i + 3] = b.w;
+    res[4 * i] = x.x, res[4 * i + 1] = x.y, res[4 * i + 2] = x.z, res[4 * i + 3] = x.w;
+  }
+  if (p + kAhead < pieces) {
+    load_piece<kW>(e, slot, o, row, piece_col<kW>(col0, p + kAhead, q));
+  }
+}
+
 // bf16 C in 16-byte pieces: for n8 blocks j and j + 1, the four threads of
 // a quad hold columns 2q, 2q + 1 of rows g and g + 8 in each; three xor
 // shuffles give thread q the eight columns of piece q: block j + (q >> 1),
@@ -240,6 +329,51 @@ __device__ __forceinline__ void store_bf16x8(const Out& o, size_t bbase,
   }
 }
 
+// The same stores through the epilogue kEpi (kBiasRelu): the shuffles
+// trade f32 pairs, and each piece takes its bias and residual from e
+// (epi_first's, refilled as the pieces go) before it is rounded.
+template <int kBN, int kEpi>
+__device__ __forceinline__ void store_bf16x8(const Out& o, size_t bbase,
+                                             int row, int col0,
+                                             const float (&acc)[kBN / 2],
+                                             int q, EpiBuf& e) {
+  static_assert(kEpi == fkp_gemm_core::kBiasRelu, "the plain stores take no EpiBuf");
+  __nv_bfloat16* c = static_cast<__nv_bfloat16*>(o.c) + bbase + (size_t)row * o.n;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; j += 2) {
+    float2 w[4];  // piece i's columns 2q, 2q + 1, in f32
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    float2 got2[4];  // the piece's columns 2i, 2i + 1, from quad lane i
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int peer = q ^ r;
+      const float2 send = peer == 0 ? w[0] : peer == 1 ? w[1] : peer == 2 ? w[2] : w[3];
+      float2 got = send;
+      if (r != 0) {
+        got.x = __shfl_xor_sync(0xffffffffu, send.x, r);
+        got.y = __shfl_xor_sync(0xffffffffu, send.y, r);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i == peer) got2[i] = got;
+      }
+    }
+    float bias[8], res[8];
+    take_piece<8>(e, j / 2, kBN / 16, o, row, col0, q, bias, res);
+    uint32_t out[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[i] = fkp_mma::pack_bf16(bias_relu(got2[i].x, bias[2 * i], res[2 * i]),
+                                  bias_relu(got2[i].y, bias[2 * i + 1], res[2 * i + 1]));
+    }
+    const int col = col0 + (j + (q >> 1)) * 8;
+    if (row < o.m && col < o.n) {
+      *reinterpret_cast<uint4*>(c + col) = make_uint4(out[0], out[1], out[2], out[3]);
+    }
+  }
+}
+
 // f32 C in 16-byte pieces: in n8 block j, quad lanes q and q ^ 1 swap one
 // pair (one xor shuffle of two words) so that lane q holds columns
 // 4 (q >> 1) .. + 3 of row g + 8 (q & 1), written to row `row` of C. A
@@ -264,6 +398,36 @@ __device__ __forceinline__ void store_f32x4(const Out& o, size_t bbase,
     if (row < o.m && col < o.n) {
       *reinterpret_cast<float4*>(c + col) =
           odd ? make_float4(g0, g1, k0, k1) : make_float4(k0, k1, g0, g1);
+    }
+  }
+}
+
+// The same stores through the epilogue kEpi (kBiasRelu), each piece's bias
+// and residual from e, as store_bf16x8's.
+template <int kBN, int kEpi>
+__device__ __forceinline__ void store_f32x4(const Out& o, size_t bbase,
+                                            int row, int col0,
+                                            const float (&acc)[kBN / 2],
+                                            int q, EpiBuf& e) {
+  static_assert(kEpi == fkp_gemm_core::kBiasRelu, "the plain stores take no EpiBuf");
+  float* c = static_cast<float*>(o.c) + bbase + (size_t)row * o.n;
+  const bool odd = q & 1;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const float k0 = odd ? acc[4 * j + 2] : acc[4 * j];
+    const float k1 = odd ? acc[4 * j + 3] : acc[4 * j + 1];
+    const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
+    const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+    const float g0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float g1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    const float4 v = odd ? make_float4(g0, g1, k0, k1) : make_float4(k0, k1, g0, g1);
+    float bias[4], res[4];
+    take_piece<4>(e, j, kBN / 8, o, row, col0, q, bias, res);
+    const int col = col0 + j * 8 + 4 * (q >> 1);
+    if (row < o.m && col < o.n) {
+      *reinterpret_cast<float4*>(c + col) =
+          make_float4(bias_relu(v.x, bias[0], res[0]), bias_relu(v.y, bias[1], res[1]),
+                      bias_relu(v.z, bias[2], res[2]), bias_relu(v.w, bias[3], res[3]));
     }
   }
 }
@@ -359,15 +523,22 @@ __device__ __forceinline__ void load_tile(Ring<kBN>& r, const CUtensorMap* a_map
   }
 }
 
+// nothing: mma_tile's default work before its last wait
+struct NoPre {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // A consumer warpgroup's products for one tile: acc = its 64 rows of A @
 // the tile's columns of B over n_k slices of the ring. A stage is released
 // when the products that read it have retired: one slice's wgmmas stay in
 // flight while the next slice's are issued. acc's element 4j + e lies at
 // (row g if e < 2 else g + 8, column 8j + 2q + (e & 1)) of the warp's 16
-// rows (lane = 4g + q).
-template <int kBN>
+// rows (lane = 4g + q). pre() runs before the last wait, while the last
+// slice's products are in flight (the fused epilogue's first loads).
+template <int kBN, class Pre = NoPre>
 __device__ __forceinline__ void mma_tile(Ring<kBN>& r, float (&acc)[kBN / 2],
-                                         int wg, int lane, int n_k) {
+                                         int wg, int lane, int n_k,
+                                         Pre pre = Pre{}) {
   const auto release = [&](int s) {  // this warp is done with stage s
     __syncwarp();
     if (lane == 0) mbar_arrive(r.empty(s));
@@ -391,6 +562,7 @@ __device__ __forceinline__ void mma_tile(Ring<kBN>& r, float (&acc)[kBN / 2],
     prev = r.st;
     r.advance();
   }
+  pre();
   wgmma_wait<0>();
   pin(acc);
   release(prev);
@@ -398,15 +570,17 @@ __device__ __forceinline__ void mma_tile(Ring<kBN>& r, float (&acc)[kBN / 2],
 
 // C [batch, m, n] = A [batch, m, k] @ B [batch, k, n] through the maps
 // a_map (boxes of 128 rows x 64 of k) and b_map (boxes of 64 k-rows x 64
-// columns). The first 256 threads are the consumer warpgroups, 64 rows of
-// the tile each, the last 128 the producer warpgroup. Block i takes tiles
-// i, i + gridDim.x, ...
-template <int kBN>
+// columns), with the fused epilogue where kEpi = kBiasRelu (o.bias and
+// o.residual f32, 16-byte aligned; batch 1). The first 256 threads are the
+// consumer warpgroups, 64 rows of the tile each, the last 128 the producer
+// warpgroup. Block i takes tiles i, i + gridDim.x, ...
+template <int kBN, int kEpi>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
                      const __grid_constant__ CUtensorMap b_map, Out o, int k,
                      int batch) {
   using L = Layout<kBN>;
+  constexpr bool kEpilogue = kEpi == fkp_gemm_core::kBiasRelu;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * L::kStages];  // full, empty
   Ring<kBN> ring{(smem_u32(smem_raw) + 1023u) & ~1023u, smem_u32(bars)};
@@ -440,7 +614,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     int b, row0, col0;
     tile_at<kBN>(t, m_tiles, n_tiles, b, row0, col0);
     float acc[kBN / 2];
-    mma_tile(ring, acc, wg, lane, n_k);
+    [[maybe_unused]] EpiBuf epi;  // the fused epilogue's inputs, a few pieces ahead
+    if constexpr (kEpilogue) {
+      // the first pieces' inputs, loaded while the last slice's products run
+      const int erow = row0 + wg * 64 + warp * 16 + g + 8 * (q & 1);
+      mma_tile(ring, acc, wg, lane, n_k, [&] {
+        if (o.bf16) {
+          epi_first<8>(epi, o, erow, col0, q);
+        } else {
+          epi_first<4>(epi, o, erow, col0, q);
+        }
+      });
+    } else {
+      mma_tile(ring, acc, wg, lane, n_k);
+    }
     if (FKP_GEMM_PROBE == 3) {  // keep the products live: one test, no store
       uint32_t bits = 0;
 #pragma unroll
@@ -451,7 +638,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     // this thread's pieces lie in row g + 8 (q & 1) of its warp's 16
     const int row = row0 + wg * 64 + warp * 16 + g + 8 * (q & 1);
     const size_t bbase = (size_t)b * o.m * o.n;
-    if (o.bf16) {
+    if constexpr (kEpilogue) {
+      if (o.bf16) {
+        store_bf16x8<kBN, kEpi>(o, bbase, row, col0, acc, q, epi);
+      } else {
+        store_f32x4<kBN, kEpi>(o, bbase, row, col0, acc, q, epi);
+      }
+    } else if (o.bf16) {
       store_bf16x8<kBN>(o, bbase, row, col0, acc, q);
     } else {
       store_f32x4<kBN>(o, bbase, row, col0, acc, q);
@@ -476,14 +669,14 @@ inline bool encode_ab(CUtensorMap* am, CUtensorMap* bm, const void* a,
          encode_map(bm, b, o.n, k, batch, kBK);
 }
 
-// Launches instance kBN on a grid of min(tiles, sms) blocks; returns a CUDA
-// error code (the shared-memory
-// attribute's, cudaErrorInvalidValue where a map cannot be encoded, else
+// Launches instance (kBN, kEpi) on a grid of min(tiles, sms) blocks;
+// returns a CUDA error code (the shared-memory attribute's,
+// cudaErrorInvalidValue where a map cannot be encoded, else
 // cudaGetLastError() after the launch).
-template <int kBN>
+template <int kBN, int kEpi>
 int launch(const void* a, const void* b, const Out& o, int batch, int k,
            int sms, cudaStream_t stream) {
-  const auto kernel = &gemm_sm90_kernel<kBN>;
+  const auto kernel = &gemm_sm90_kernel<kBN, kEpi>;
   constexpr int kBytes = Layout<kBN>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
@@ -512,8 +705,10 @@ inline int sm_count(int* sms) {
 
 // C = A @ B for a [batch, m, k] and b [batch, k, n] bf16, contiguous, k > 0,
 // k and n multiples of 8, 16-byte-aligned bases, into o (bf16 or f32) on
-// `stream`; gemm_sm90.cu builds it. A CUDA error code.
+// `stream`, through the fused epilogue where `epilogue` (batch 1, o.bias
+// and o.residual f32 and 16-byte aligned); gemm_sm90.cu builds it. A CUDA
+// error code.
 int launch_gemm(const void* a, const void* b, const Out& o, int batch, int k,
-                cudaStream_t stream);
+                int epilogue, cudaStream_t stream);
 
 }  // namespace fkp_gemm_sm90

@@ -1,20 +1,15 @@
-// Stage probes of the attention forward for Hopper (sm_90a): the forward
-// stripped to one stage each, so that its time splits into the K/V stream,
-// the QK product, the softmax chain and the PV product by subtraction.
+// Stage probes of the attention forward for Hopper (sm_90a), row 23 of the
+// port's kernel table, and the stream copy. The probes copy, qk and pv (row
+// 22) are the Hopper forward's own block with the other stages taken out
+// (probes_sm90.cu); the three here are still one standalone mma.sync
+// template over the stage, on 64-row blocks of 4 warps:
 //
-// Replaces flashattention_kernel_project_tpu/ops/probes.py, rows 22-23 of
-// the port's kernel table:
-// - copy_probe (_make_probe :50 with _copy_kernel_factory :83): the K/V
-//   tiles streamed into shared memory and no math; each output row holds
-//   the sum over key tiles of k[j * block_k] + v[j * block_k];
-// - qk_probe (_qk_kernel_factory :106): the QK products, each row's score
-//   sum broadcast over d;
-// - pv_probe (_pv_kernel_factory :262): the PV products on a synthesized p
-//   tile (p = q[row, 0] at every key): q[row, 0] * sum_k v[k];
+// Replaces flashattention_kernel_project_tpu/ops/probes.py:
 // - softmax_chain_probe (:287, :328): the online (m, l, rescale, exp) chain
 //   on scores q[row, 0] * 0.001 at every key, no products; acc / (l + 1e-6);
 // - qk_kt_probe (:129): the QK products with K transposed to [B, Hkv, D, S]
 //   by the wrapper, read here as [dim][key] tiles, as the TPU's NN form;
+//   each row's score sum broadcast over d;
 // - qk_packed_probe (:184): the QK stage over the packed operands the
 //   wrapper builds as JAX builds them in XLA: two heads' q rows side by side
 //   [G * N, 2d] against block-diagonal [2 * block_k, 2d] K tiles, the zero
@@ -22,14 +17,12 @@
 //   the same template at D = 2d, with no V stream (JAX's has none);
 // - stream_copy_probe (:360): out = x + 1 over [R, C], in x's type.
 //
-// Design: each probe is the port's dense forward (flash_fwd_core.cuh) with
-// all but one stage taken out: the same grid (one block of 4 warps per
-// 64-query tile, q head and batch row), the same 64-key K/V tiles loaded
-// 16 bytes a thread into padded shared memory between two barriers, the same
-// mma.sync m16n8k16 fragments. The stage is a template switch, so each
-// instance compiles only its own arithmetic. block_q and block_k set no
-// hardware tile here; block_k only says which key rows the copy probe adds
-// (the TPU kernel's tile rows). Outputs are f32 [B, Hq, N, D], written once.
+// Design of the template: one block of 4 warps per 64-query tile, q head
+// and batch row; 64-key K/V tiles loaded 16 bytes a thread into padded
+// shared memory between two barriers (the design of the port's first
+// forward, whose body is gone); mma.sync m16n8k16 fragments. The stage is
+// a template switch, so each instance compiles only its own arithmetic.
+// Outputs are f32 [B, Hq, N, D], written once.
 //
 // Keeping each stage's work in the binary: every loaded row reaches shared
 // memory (a shared store is never removed, other threads may read it), the
@@ -38,12 +31,10 @@
 // compiler cannot prove a row's scores equal, so it takes exp2 of every one
 // instead of hoisting it out of the key loop.
 //
-// What bounds each on the H100: qk and pv do 2*N*S*d flops a head against
-// ~2*(N + 2*S)*d bytes, far above the ~295 flop/byte ridge: the tensor
-// cores' issue rate (989 TFLOP/s) bounds them. The chain's bound is the
-// exp2 unit (16 results a clock an SM). The copy moves K and V once per
-// query tile: N / 64 times the K/V bytes, mostly from L2; its device-memory
-// bound is the inputs and the output once. The stream copy is bound by its
+// What bounds each on the H100: the QK stages do 2*N*S*d flops a head
+// against ~2*(N + 2*S)*d bytes, far above the ~295 flop/byte ridge: the
+// tensor cores' issue rate (989 TFLOP/s) bounds them. The chain's bound is
+// the exp2 unit (16 results a clock an SM). The stream copy is bound by its
 // read and write bytes at 3.35 TB/s.
 
 #include <cuda_bf16.h>
@@ -62,32 +53,26 @@ constexpr int kBlockN = 64;        // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-enum Stage : int { kCopy = 0, kQK = 1, kPV = 2, kChain = 3, kQKT = 4, kPacked = 5 };
-
-__device__ __forceinline__ float2 bf16x2_at(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
+// the stage numbers of ops/probes.py (0-2 are probes_sm90.cu's)
+enum Stage : int { kChain = 3, kQKT = 4, kPacked = 5 };
 
 // q [b, hq, n, D] bf16; k, v [b, hkv, s, D] bf16 (kQKT: k is K^T [b, hkv, D,
 // s]; kQKT and kPacked read no v); o [b, hq, n, D] f32. n and s multiples of
-// 64; hq a multiple of hkv. block_k (kCopy): the rows j * block_k are added.
-// zero: 0.f, read at run time (kChain).
+// 64; hq a multiple of hkv. zero: 0.f, read at run time (kChain).
 template <int D, int kStage>
 __global__ void __launch_bounds__(kThreads, 1)
     probe_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, float* __restrict__ o,
-                 int hq, int hkv, int n, int s, int block_k, float zero) {
-  constexpr bool kScores = kStage == kQK || kStage == kQKT || kStage == kPacked;
-  constexpr bool kLoadV = kStage != kQKT && kStage != kPacked;
-  constexpr bool kAcc = kStage == kCopy || kStage == kPV || kStage == kChain;
+                 int hq, int hkv, int n, int s, float zero) {
+  constexpr bool kScores = kStage == kQKT || kStage == kPacked;
+  constexpr bool kLoadV = kStage == kChain;
   constexpr int kStride = D + 8;         // a [key][dim] tile row, in bf16
   constexpr int kTStride = kBlockN + 8;  // a [dim][key] tile row (kQKT)
   __shared__ __align__(16)
       __nv_bfloat16 k_s[kStage == kQKT ? D * kTStride : kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kLoadV ? kBlockN * kStride : 8];
   const unsigned short* k_u16 = reinterpret_cast<const unsigned short*>(k_s);
-  const unsigned short* v_u16 = reinterpret_cast<const unsigned short*>(v_s);
 
   const int m_block = blockIdx.x;
   const int h = blockIdx.y;
@@ -117,20 +102,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       qf[kk][3] = *reinterpret_cast<const uint32_t*>(q_bh + (size_t)row1 * D + c + 8);
     }
   }
-  // PV: the A fragment of the synthesized p tile, q[row, 0] at every key
-  uint32_t pa[4] = {0u, 0u, 0u, 0u};
   // the chain: the rows' base scores q[row, 0] * 0.001 and their (m, l)
   float base0 = 0.f, base1 = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  if constexpr (kStage == kPV || kStage == kChain) {
-    const unsigned short* q_u16 = reinterpret_cast<const unsigned short*>(q_bh);
-    const uint32_t x0 = q_u16[(size_t)row0 * D];
-    const uint32_t x1 = q_u16[(size_t)row1 * D];
-    pa[0] = pa[2] = x0 | (x0 << 16);
-    pa[1] = pa[3] = x1 | (x1 << 16);
+  if constexpr (kStage == kChain) {
     base0 = __bfloat162float(q_bh[(size_t)row0 * D]) * 0.001f;
     base1 = __bfloat162float(q_bh[(size_t)row1 * D]) * 0.001f;
   }
+  constexpr bool kAcc = kStage == kChain;
   float acc[kAcc ? D / 8 : 1][4];
 #pragma unroll
   for (int nd = 0; nd < (kAcc ? D / 8 : 1); ++nd) {
@@ -167,20 +146,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    if constexpr (kStage == kCopy) {
-      // the tile's rows that start a block_k tile (the TPU tile's first
-      // row), in key order: acc += f32(k) + f32(v)
-      for (int r = (block_k - key0 % block_k) % block_k; r < kBlockN; r += block_k) {
-#pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          const int c = nd * 8 + 2 * t;
-          const float2 kf = bf16x2_at(k_s + r * kStride + c);
-          const float2 vf = bf16x2_at(v_s + r * kStride + c);
-          acc[nd][0] += kf.x + vf.x;
-          acc[nd][1] += kf.y + vf.y;
-        }
-      }
-    } else if constexpr (kScores) {
+    if constexpr (kScores) {
       // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
@@ -201,20 +167,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         rs0 += sc[0] + sc[1];
         rs1 += sc[2] + sc[3];
-      }
-    } else if constexpr (kStage == kPV) {
-      // acc += P V over the tile: B element (key k, dim n) is V[k][n]
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        const unsigned short* vp = v_u16 + (kk * 16 + 2 * t) * kStride + g;
-#pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          const unsigned short* vq = vp + nd * 8;
-          const uint32_t b0 = (uint32_t)vq[0] | ((uint32_t)vq[kStride] << 16);
-          const uint32_t b1 =
-              (uint32_t)vq[8 * kStride] | ((uint32_t)vq[9 * kStride] << 16);
-          mma_16816(acc[nd], pa, b0, b1);
-        }
       }
     } else {  // kChain: the forward's per-score softmax arithmetic
       // the thread's 32 scores of the tile (16 keys of row0, 16 of row1),
@@ -278,14 +230,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int nd = 0; nd < D / 8; ++nd) {
     const int c = nd * 8 + 2 * t;
     float2 w0, w1;
-    if constexpr (kStage == kCopy) {  // every row holds the same sums
-      w0 = w1 = make_float2(acc[nd][0], acc[nd][1]);
-    } else if constexpr (kScores) {
+    if constexpr (kScores) {
       w0 = make_float2(rs0, rs0);
       w1 = make_float2(rs1, rs1);
-    } else if constexpr (kStage == kPV) {
-      w0 = make_float2(acc[nd][0], acc[nd][1]);
-      w1 = make_float2(acc[nd][2], acc[nd][3]);
     } else {
       w0 = make_float2(acc[nd][0] / (l0 + 1e-6f), acc[nd][1] / (l0 + 1e-6f));
       w1 = make_float2(acc[nd][2] / (l1 + 1e-6f), acc[nd][3] / (l1 + 1e-6f));
@@ -376,36 +323,33 @@ template <int D>
 int launch_probe(int stage, const dim3& grid, cudaStream_t st,
                  const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, float* o, int hq, int hkv, int n,
-                 int s, int block_k, float zero) {
+                 int s, float zero) {
   void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*,
-                 const __nv_bfloat16*, float*, int, int, int, int, int, float);
+                 const __nv_bfloat16*, float*, int, int, int, int, float);
   switch (stage) {
-    case kCopy: kernel = probe_kernel<D, kCopy>; break;
-    case kQK: kernel = probe_kernel<D, kQK>; break;
-    case kPV: kernel = probe_kernel<D, kPV>; break;
     case kChain: kernel = probe_kernel<D, kChain>; break;
     case kQKT: kernel = probe_kernel<D, kQKT>; break;
     case kPacked: kernel = probe_kernel<D, kPacked>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  kernel<<<grid, kThreads, 0, st>>>(q, k, v, o, hq, hkv, n, s, block_k, zero);
+  kernel<<<grid, kThreads, 0, st>>>(q, k, v, o, hq, hkv, n, s, zero);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One probe stage (0 copy, 1 qk, 2 pv, 3 softmax chain, 4 qk with K^T, 5 qk
-// over packed operands): q [b, hq, n, d], k and v [b, hkv, s, d] bf16
-// contiguous (stage 4: k is K^T [b, hkv, d, s]; stages 4 and 5 read no v,
-// which may be null); o [b, hq, n, d] f32. d in {64, 128}, n and s multiples
-// of 64, hq a multiple of hkv. block_k >= 1 (stage 0's key rows j *
-// block_k); zero must be 0.f. Returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue without one for arguments outside these.
+// One probe stage (3 softmax chain, 4 qk with K^T, 5 qk over packed
+// operands; 0-2 are fkp_probe_sm90's): q [b, hq, n, d], k and v [b, hkv,
+// s, d] bf16 contiguous (stage 4: k is K^T [b, hkv, d, s]; stages 4 and 5
+// read no v, which may be null); o [b, hq, n, d] f32. d in {64, 128}, n and
+// s multiples of 64, hq a multiple of hkv. zero must be 0.f. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue without
+// one for arguments outside these.
 extern "C" int fkp_probe(const void* q, const void* k, const void* v, void* o,
                          int b, int hq, int hkv, int n, int s, int d, int stage,
-                         int block_k, float zero, void* stream) {
-  if (n % kBlockM || s % kBlockN || hkv < 1 || hq % hkv || block_k < 1 ||
-      (v == nullptr && stage != kQKT && stage != kPacked)) {
+                         float zero, void* stream) {
+  if (n % kBlockM || s % kBlockN || hkv < 1 || hq % hkv ||
+      (v == nullptr && stage == kChain)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n / kBlockM, hq, b);
@@ -414,8 +358,8 @@ extern "C" int fkp_probe(const void* q, const void* k, const void* v, void* o,
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   float* of = static_cast<float*>(o);
-  if (d == 64) return launch_probe<64>(stage, grid, st, qb, kb, vb, of, hq, hkv, n, s, block_k, zero);
-  if (d == 128) return launch_probe<128>(stage, grid, st, qb, kb, vb, of, hq, hkv, n, s, block_k, zero);
+  if (d == 64) return launch_probe<64>(stage, grid, st, qb, kb, vb, of, hq, hkv, n, s, zero);
+  if (d == 128) return launch_probe<128>(stage, grid, st, qb, kb, vb, of, hq, hkv, n, s, zero);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -5,12 +5,13 @@ Counterpart of flashattention_kernel_project_tpu/ops/gemm.py. On a CUDA
 tensor the products are the hand-written Hopper kernels: csrc/gemm.cu's
 entry for `matmul`, `matmul_bf16`, `batched_matmul` and
 `matmul_fused_epilogue`, which takes one of three kernels by `gemm_path`:
-for aligned shapes with no epilogue, the wgmma kernel of
-csrc/gemm_sm90.cuh (two bf16 operands) or of csrc/gemm_f32_sm90.cuh (two
-f32 operands: JAX's Precision.HIGHEST, each operand split exactly into
-three bf16 pieces and six bf16 products summed in f32,
-`_matmul_f32_split_plain`); else the mma.sync core (bf16 on the tensor
-cores, float32 in full float32 FFMA, never TF32).
+for aligned shapes with K > 0, with or without the fused epilogue, the
+wgmma kernel of csrc/gemm_sm90.cuh (two bf16 operands) or of
+csrc/gemm_f32_sm90.cuh (two f32 operands: JAX's Precision.HIGHEST, each
+operand split exactly into three bf16 pieces and six bf16 products summed
+in f32, `_matmul_f32_split_plain`), the epilogue in their 16-byte stores;
+else the mma.sync core (bf16 on the tensor cores, float32 in full float32
+FFMA, never TF32).
 `batched_matmul_softmax_epilogue` takes csrc/gemm_softmax.cu's entries,
 which pick by `softmax_epilogue_path`: for aligned shapes the one-sweep
 wgmma kernel of csrc/gemm_softmax_sm90.cuh (the softmax in its epilogue,
@@ -63,16 +64,18 @@ PATH_ELEMENTWISE, PATH_ALIGNED, PATH_SM90, PATH_SM90_F32 = 0, 1, 2, 3
 def gemm_path(a_dtype, b_dtype, a_shape, b_shape, aligned: bool,
               epilogue: bool) -> int:
     """The kernel a CUDA call of the GEMMs takes, by type and shape alone
-    (fkp_gemm's `path`, a [.., M, K] @ b [.., K, N]): with no epilogue,
-    K > 0 and `aligned` operands (`_aligned`: K and N multiples of 16
-    bytes' worth of elements, 16-byte bases, which is what a TMA map asks
-    of a tensor), the bf16 wgmma kernel (PATH_SM90) for two bf16 operands
-    and the f32 one (PATH_SM90_F32) for two f32 operands; else the mma.sync
-    core, in 16-byte pieces where aligned (PATH_ALIGNED), element by
-    element where not."""
+    (fkp_gemm's `path`, a [.., M, K] @ b [.., K, N]): with K > 0 and
+    `aligned` operands (`_aligned`: K and N multiples of 16 bytes' worth of
+    elements, 16-byte bases, which is what a TMA map asks of a tensor), the
+    bf16 wgmma kernel (PATH_SM90) for two bf16 operands and the f32 one
+    (PATH_SM90_F32) for two f32 operands, with or without the fused
+    epilogue (`epilogue` picks no route: both kernels take it as a switch
+    of their stores); else the mma.sync core, in 16-byte pieces where
+    aligned (PATH_ALIGNED: K = 0), element by element where not."""
+    del epilogue
     if not aligned:
         return PATH_ELEMENTWISE
-    if epilogue or a_shape[-1] == 0:
+    if a_shape[-1] == 0:
         return PATH_ALIGNED
     if a_dtype == b_dtype == torch.bfloat16:
         return PATH_SM90
@@ -112,8 +115,12 @@ def _gemm_cuda(wrapper, a, b, out_dtype, bias=None, residual=None):
     n = b.shape[-1]
     c = torch.empty((batch, m, n), dtype=out_dtype, device=a.device)
     if bias is not None:
-        bias = bias.to(a.device, torch.float32).contiguous()
-        residual = residual.to(a.device, torch.float32).contiguous()
+        # f32 and 16-byte aligned: the wgmma kernels read them in 16-byte
+        # pieces
+        bias, residual = (
+            x if x.data_ptr() % 16 == 0 else x.clone()
+            for x in (bias.to(a.device, torch.float32).contiguous(),
+                      residual.to(a.device, torch.float32).contiguous()))
     path = gemm_path(a.dtype, b.dtype, a.shape, b.shape, _aligned(a, b),
                      bias is not None)
     rc = _gemm_kernel()(
@@ -245,7 +252,9 @@ def matmul_fused_epilogue(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
                           out_dtype=torch.float32) -> torch.Tensor:
     """C = ReLU(A @ B + bias[col]) + residual, the epilogue in f32 on the
     accumulator before the single store: a [M, K], b [K, N], bias [N],
-    residual [M, N] (any float type, read as f32). Types as `matmul`."""
+    residual [M, N] (any float type, read as f32). Types as `matmul`;
+    launches counted as `matmul`'s (`.launches`, and of those
+    `.sm90_launches` and `.f32x_launches` on the wgmma kernels)."""
     _dims(a, b, batched=False)
     m, n = a.shape[0], b.shape[1]
     if tuple(bias.shape) != (n,) or tuple(residual.shape) != (m, n):
@@ -432,9 +441,9 @@ def batched_matmul_softmax_epilogue(
 
 # kernel launches, for showing that a path ran the kernels (matmul_bf16
 # counts in matmul's); `.sm90_launches` and `.f32x_launches` count those of
-# `.launches` that took the bf16 and the f32 wgmma kernel (the softmax
-# epilogue's `.sm90_launches`: those of its three counts that took its
-# wgmma kernel)
+# `.launches` that took the bf16 and the f32 wgmma kernel (matmul,
+# batched_matmul and matmul_fused_epilogue; the softmax epilogue's
+# `.sm90_launches`: those of its three counts that took its wgmma kernel)
 matmul.launches = 0
 matmul.sm90_launches = 0
 matmul.f32x_launches = 0
@@ -442,6 +451,8 @@ batched_matmul.launches = 0
 batched_matmul.sm90_launches = 0
 batched_matmul.f32x_launches = 0
 matmul_fused_epilogue.launches = 0
+matmul_fused_epilogue.sm90_launches = 0
+matmul_fused_epilogue.f32x_launches = 0
 batched_matmul_softmax_epilogue.launches = 0
 batched_matmul_softmax_epilogue.resident_launches = 0
 batched_matmul_softmax_epilogue.fallback_launches = 0

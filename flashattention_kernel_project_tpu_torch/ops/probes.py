@@ -6,9 +6,12 @@ Counterpart of flashattention_kernel_project_tpu/ops/probes.py
 and outputs. Each probe keeps one stage of the forward (the K/V stream, the
 QK product, the softmax chain, the PV product), so that the forward's time
 splits into stages by subtraction, as benchmarks/profile_attention.py does.
-On a CUDA tensor each launches its instance of csrc/probes.cu (the port's
-dense forward with the other stages taken out) or raises; on a CPU tensor
-it runs its plain PyTorch version, in float32. Each counts its launches.
+On a CUDA tensor each launches its kernel or raises: `copy_probe`,
+`qk_probe` and `pv_probe` the Hopper forward's own block with the other
+stages taken out (csrc/probes_sm90.cu, on flash_fwd_sm90.cuh's fwd_block:
+its grid and block rows, TMA ring and wgmma products), the others
+csrc/probes.cu's mma.sync template; on a CPU tensor each runs its plain
+PyTorch version, in float32. Each counts its launches.
 
 block_q and block_k set no hardware tile on Hopper; they are kept because
 `copy_probe`'s output depends on block_k (it adds key row j * block_k of
@@ -31,7 +34,8 @@ import torch
 from flashattention_kernel_project_tpu_torch.ops import _build
 from flashattention_kernel_project_tpu_torch.ops.softmax import NEG_INF
 
-# the stage template argument of csrc/probes.cu
+# the stage numbers of csrc/probes_sm90.cu (copy, qk, pv) and
+# csrc/probes.cu (the rest)
 _COPY, _QK, _PV, _CHAIN, _QKT, _PACKED = range(6)
 _KERNEL_DIMS = (64, 128)
 _TILE = 64  # the kernel's query and key tile
@@ -124,7 +128,13 @@ def _packed_plain(q, k):
 def _kernel():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_probe",
-                         [vp] * 4 + [i32] * 8 + [ctypes.c_float, vp])
+                         [vp] * 4 + [i32] * 7 + [ctypes.c_float, vp])
+
+
+@functools.cache
+def _kernel_sm90():
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel("fkp_probe_sm90", [vp] * 4 + [i32] * 8 + [vp])
 
 
 @functools.cache
@@ -151,12 +161,17 @@ def _check_cuda(what, *tensors, dims=_KERNEL_DIMS):
 
 
 def _launch(probe, stage, q, k, v, hq, hkv, n, s, d, block_k, out):
-    """One launch of csrc/probes.cu's stage, counted in probe.launches."""
-    rc = _kernel()(
-        q.data_ptr(), k.data_ptr(), 0 if v is None else v.data_ptr(),
-        out.data_ptr(), q.shape[0], hq, hkv, n, s, d, stage, block_k, 0.0,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    """One launch of the stage's kernel (copy, qk, pv: csrc/probes_sm90.cu;
+    the rest csrc/probes.cu), counted in probe.launches."""
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if stage in (_COPY, _QK, _PV):
+        rc = _kernel_sm90()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), q.shape[0], hq, hkv, n, s, d,
+                            stage, block_k, stream)
+    else:
+        rc = _kernel()(q.data_ptr(), k.data_ptr(),
+                       0 if v is None else v.data_ptr(), out.data_ptr(),
+                       q.shape[0], hq, hkv, n, s, d, stage, 0.0, stream)
     probe.launches += 1
     _build.check(rc, probe.__name__)
 

@@ -108,6 +108,37 @@ def test_matmul_fused_epilogue_matches_jax(rng, dtype):
     assert_max_abs(got.numpy(), oracles.gemm_fused_epilogue(a, b, bias, res), tol=1e-2)
 
 
+@pytest.mark.parametrize("side", ["bf16", "f32"])
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("m,k,n", [(200, 136, 264), (129, 72, 136)])
+def test_matmul_fused_epilogue_tile_edges_match_jax(rng, m, k, n, dtype, out, side):
+    """matmul_fused_epilogue at the wgmma kernels' tile edges (M off the
+    128-row tiles, N a multiple of 8 but not of 256 or 128, K off the
+    64-deep slices), bf16 and f32 operands, bf16 and f32 out, bias and
+    residual given as bf16 and as f32, against JAX's in interpret mode:
+    rel-L2 within F32_TOL for f32 out, BF16_TOL for bf16 out (the two
+    round the same f32 value, which may sit on a rounding edge)."""
+    a = rng.standard_normal((m, k), dtype=np.float32)
+    b = rng.standard_normal((k, n), dtype=np.float32)
+    bias = rng.standard_normal(n, dtype=np.float32)
+    res = rng.standard_normal((m, n), dtype=np.float32)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    jside, tside = ((jnp.bfloat16, torch.bfloat16) if side == "bf16"
+                    else (jnp.float32, torch.float32))
+    jout, tout = ((jnp.bfloat16, torch.bfloat16) if out == "bf16"
+                  else (jnp.float32, torch.float32))
+    want = jops.matmul_fused_epilogue(
+        jnp.asarray(a).astype(jdt), jnp.asarray(b).astype(jdt),
+        jnp.asarray(bias).astype(jside), jnp.asarray(res).astype(jside),
+        block_m=128, block_n=128, block_k=64, out_dtype=jout)
+    got = ops.matmul_fused_epilogue(_t(a).to(tdt), _t(b).to(tdt), _t(bias).to(tside),
+                                    _t(res).to(tside), out_dtype=tout)
+    assert got.dtype == tout and tuple(got.shape) == (m, n)
+    assert_rel_l2(got.float().numpy(), _np(want), tol=F32_TOL if out == "f32" else BF16_TOL)
+
+
 def _softmax_rows(a, w, bias, scale):
     z = (np.einsum("bmk,bkn->bmn", a.astype(np.float64), w.astype(np.float64))
          * scale + bias)
@@ -227,6 +258,8 @@ def _operands(case):
         "batched f32": ((3, 200, 132, 72), f32),
         "epilogue bf16": ((1, 256, 256, 256), bf),
         "epilogue f32": ((1, 200, 132, 72), f32),
+        "epilogue K 130 bf16": ((1, 200, 130, 72), bf),
+        "epilogue K 0 bf16": ((1, 200, 0, 72), bf),
     }[case]
     return torch.empty(bm, m, k, dtype=dt), torch.empty(bm, k, n, dtype=dt)
 
@@ -237,15 +270,17 @@ def _operands(case):
     ("N 75 bf16", "elementwise"), ("K 0 bf16", "aligned"),
     ("2048^3 f32", "sm90_f32"), ("K 132 f32", "sm90_f32"),
     ("K 130 f32", "elementwise"), ("K 0 f32", "aligned"),
-    ("batched f32", "sm90_f32"), ("epilogue bf16", "aligned"),
-    ("epilogue f32", "aligned"), ("offset view", "elementwise"),
+    ("batched f32", "sm90_f32"), ("epilogue bf16", "sm90"),
+    ("epilogue f32", "sm90_f32"), ("epilogue K 130 bf16", "elementwise"),
+    ("epilogue K 0 bf16", "aligned"), ("offset view", "elementwise"),
 ])
 def test_gemm_path(case, path):
     """Which kernel a CUDA call takes (gemm_path, by type and shape alone):
-    with no epilogue, K > 0 and aligned operands (K and N multiples of 16
-    bytes' worth of elements, 16-byte bases) the bf16 wgmma kernel for two
-    bf16 operands and the f32 one for two f32 operands; the mma.sync core
-    otherwise, in 16-byte pieces where aligned."""
+    with K > 0 and aligned operands (K and N multiples of 16 bytes' worth of
+    elements, 16-byte bases) the bf16 wgmma kernel for two bf16 operands
+    and the f32 one for two f32 operands, with or without the fused
+    epilogue; the mma.sync core otherwise, in 16-byte pieces where
+    aligned (K = 0)."""
     a, b = _operands(case)
     want = dict(sm90=tgemm.PATH_SM90, sm90_f32=tgemm.PATH_SM90_F32,
                 aligned=tgemm.PATH_ALIGNED, elementwise=tgemm.PATH_ELEMENTWISE)[path]

@@ -2,6 +2,8 @@
 float32 on the CPU: the JAX probes in interpret mode, as tests/test_probes.py
 runs them, the port's on their plain versions, on the same numpy inputs."""
 
+import os
+import re
 import subprocess
 import sys
 
@@ -47,6 +49,39 @@ def test_probe_matches_jax(name):
         np.testing.assert_allclose(to, jo, rtol=EXACT_RTOL)
     else:
         assert rel_l2(to, jo) <= SUM_ORDER_TOL
+
+
+@pytest.mark.parametrize("name", ["copy_probe", "qk_probe", "pv_probe"])
+def test_probe_matches_jax_at_the_hopper_blocks_tails(name):
+    """copy, qk and pv run on the Hopper forward's block on the card (rows
+    in blocks of 64 or 128, keys in tiles of 128): here N = 192 and S = 320,
+    multiples of 64 that end inside a 128-row block and a 128-key tile,
+    with blocks of 64 (the copy adds a row every 64 keys, two a key tile),
+    held against JAX's on the same inputs."""
+    q, k, v = _inputs(8, [(1, 4, 192, 32), (1, 2, 320, 32), (1, 2, 320, 32)])
+    jo, to = _both(name, (q, k, v), block_q=64, block_k=64)
+    assert to.shape == jo.shape == (1, 4, 192, 32)
+    if name == "copy_probe":
+        np.testing.assert_allclose(to, jo, rtol=EXACT_RTOL)
+    else:
+        assert rel_l2(to, jo) <= SUM_ORDER_TOL
+
+
+@pytest.mark.parametrize("source,enum", [("flash_fwd_sm90.cuh", "FwdStage"),
+                                         ("probes.cu", "Stage")])
+def test_stage_numbers_are_the_kernels(source, enum):
+    """The stage numbers the wrapper passes are the kernels' own: copy, qk
+    and pv csrc/flash_fwd_sm90.cuh's probe stages (probes_sm90.cu), the
+    chain, qk_kt and qk_packed csrc/probes.cu's."""
+    path = os.path.join(os.path.dirname(probes.__file__), os.pardir, "csrc", source)
+    with open(path) as f:
+        body = re.search(rf"enum {enum} : int {{([^}}]*)}}", f.read()).group(1)
+    got = {name: int(value) for name, value in re.findall(r"(k\w+) = (\d+)", body)}
+    want = {"flash_fwd_sm90.cuh": dict(kProbeCopy=probes._COPY, kProbeQK=probes._QK,
+                                       kProbePV=probes._PV),
+            "probes.cu": dict(kChain=probes._CHAIN, kQKT=probes._QKT,
+                              kPacked=probes._PACKED)}[source]
+    assert {name: got[name] for name in want} == want
 
 
 def test_copy_probe_reads_each_tiles_first_row():

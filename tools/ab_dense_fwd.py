@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Compare builds of the dense attention forward (kernels 1 and 2) on one
-card, in turns.
+"""Compare builds of the dense attention forward (kernels 1 and 2), or of
+its stage probes copy, qk and pv (row 22), on one card, in turns.
 
-    python3 tools/ab_dense_fwd.py [NAME=CSRC_DIR[:FLAG,...] ...]
+    python3 tools/ab_dense_fwd.py [probes] [NAME=CSRC_DIR[:FLAG,...] ...]
 
 Each NAME=CSRC_DIR builds that directory's flash_fwd*.cu and common.cu
 (with the nvcc flags after ':', e.g. -DNAME=1) into a library of its own
@@ -14,6 +14,18 @@ _fwd_plain (O rel-L2 1e-2, LSE 1e-3) at tile-edge shapes in the three
 disciplines, then timed from CUDA graphs at bench.py's shape (causal and
 full), d=64, the training band and the 512 serving prefill, the builds in
 turns (forward, then reverse order, the minimum of the two), beside SDPA.
+
+probes: each NAME=CSRC_DIR (and "this", this checkout's csrc/) builds its
+probes.cu (with probes_sm90.cu where it has it) and common.cu; copy, qk
+and pv are called on probes_sm90.cu's entry where the build has it (the
+Hopper forward's block), else on probes.cu's (a parent commit's mma.sync
+template, with its own arguments). Every build is held to the plain
+versions (copy within 1e-6 relative, qk and pv rel-L2 1e-5) at PROBE_CHECKS,
+then timed at profile_attention.py's shape (1 x 16/4 x 4096 x 128,
+non-causal, block_k 512) and at d = 64, the builds in turns beside this
+checkout's fused forward (stable and stable=False) at the same shape,
+with the stages' sum against the fused forward and each bound (the
+function's, and pv's with p's bf16 pair: two products).
 """
 
 import ctypes
@@ -66,6 +78,132 @@ def build(name, csrc, flags, nvcc, nvcc_flags, out_dir):
     return fn
 
 
+PROBE_CHECKS = [  # b, hq, hkv, n, s, d, block_k
+    (1, 16, 4, 4096, 4096, 128, 512), (2, 4, 2, 192, 320, 128, 64),
+    (2, 4, 2, 192, 320, 64, 64), (1, 16, 4, 1024, 1024, 64, 128)]
+PROBE_TIMES = [128, 64]  # d at 1 x 16/4 x 4096, non-causal
+STAGES = {"copy": 0, "qk": 1, "pv": 2}
+
+
+def build_probes(name, csrc, flags, nvcc, nvcc_flags, out_dir):
+    """probe(stage, q, k, v, block_k, out) over a library built from csrc's
+    probe sources: probes_sm90.cu's entry where it has it, else
+    probes.cu's (the old signature, with block_k)."""
+    srcs = [f for f in ("probes.cu", "probes_sm90.cu", "common.cu")
+            if os.path.exists(os.path.join(csrc, f))]
+    objs = [os.path.join(out_dir, f"pr_{name}.{f}.o") for f in srcs]
+    procs = [subprocess.Popen([nvcc, *nvcc_flags, *flags, "-c",
+                               os.path.join(csrc, f), "-o", o],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for f, o in zip(srcs, objs)]
+    for p in procs:
+        out, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"{name}: build failed\n{out[-4000:]}")
+        print(f"{name}: " + " | ".join(line.strip() for line in out.splitlines()
+                                       if "Used" in line or "spill" in line)[-2000:],
+              flush=True)
+    lib = os.path.join(out_dir, f"libpr_{name}.so")
+    subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                    *objs, "-o", lib], check=True)
+    cdll = ctypes.CDLL(lib)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    new = "probes_sm90.cu" in srcs
+    fn = cdll.fkp_probe_sm90 if new else cdll.fkp_probe
+    fn.argtypes = [vp] * 4 + [i32] * 8 + ([vp] if new else [ctypes.c_float, vp])
+    fn.restype = i32
+
+    def probe(stage, q, k, v, block_k, out):
+        import torch
+
+        tail = [] if new else [0.0]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
+                q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], stage,
+                block_k, *tail, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"{name} probe stage {stage}: CUDA error {rc}")
+        return out
+    return probe
+
+
+def probes_main(specs) -> int:
+    """The probes mode (module docstring)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+    from flashattention_kernel_project_tpu_torch.ops import probes as pr
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    _build.library()
+    out_dir = os.path.join(_build.BUILD_DIR, "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    entries = {}
+    for spec in [f"this={_build.CSRC}", *specs]:
+        name, _, rest = spec.partition("=")
+        csrc, _, flags = rest.partition(":")
+        entries[name] = build_probes(name, os.path.abspath(csrc),
+                                     [f for f in flags.split(",") if f], _build.nvcc(),
+                                     _build.NVCC_FLAGS, out_dir)
+    dev = torch.device("cuda", 0)
+    label = platform.card_label()
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def inputs(b, hq, hkv, n, s, d):
+        return (torch.randn(b, hq, n, d, generator=gen, device=dev).bfloat16(),
+                torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16(),
+                torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16())
+
+    def run(name, stage, q, k, v, block_k):
+        return entries[name](STAGES[stage], q, k, v, block_k,
+                             torch.empty(q.shape, dtype=torch.float32, device=dev))
+
+    for b, hq, hkv, n, s, d, block_k in PROBE_CHECKS:
+        q, k, v = inputs(b, hq, hkv, n, s, d)
+        plain = dict(copy=pr._copy_plain(q, k, v, block_k), qk=pr._qk_plain(q, k),
+                     pv=pr._pv_plain(q, v))
+        for name in entries:
+            for stage, want in plain.items():
+                got = run(name, stage, q, k, v, block_k)
+                torch.cuda.synchronize()
+                if stage == "copy":
+                    err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+                    ok = err <= cs.EXACT_RTOL
+                else:
+                    err = cs._rel_l2(got, want)
+                    ok = err <= cs.SUM_ORDER_TOL
+                if not (ok and torch.isfinite(got).all()):
+                    raise SystemExit(f"{name} {stage} {b}x{hq}/{hkv}x{n}x{s}x{d} "
+                                     f"block_k {block_k}: error {err:.3e}")
+    print(f"{len(entries)} builds' copy, qk and pv held to plain at "
+          f"{len(PROBE_CHECKS)} shapes | {label}", flush=True)
+    for d in PROBE_TIMES:
+        q, k, v = inputs(1, 16, 4, 4096, 4096, d)
+        fns = {f"{name} {stage}": (lambda name=name, stage=stage: run(name, stage, q, k, v, 512))
+               for name in entries for stage in STAGES}
+        fns["fused forward"] = lambda: fa.flash_attention(q, k, v, causal=False)
+        fns["fused forward, stable=False"] = lambda: fa.flash_attention(
+            q, k, v, causal=False, stable=False)
+        ms = cs.time_turns(fns, dev)
+        flops = 2 * 16 * 4096 * 4096 * d
+        bnd = {"copy": cs.bound(0, 2 * cs.nbytes(k) + 4 * q.numel()),
+               "qk": cs.bound(flops, cs.nbytes(q, k) + 4 * q.numel()),
+               "pv": cs.bound(flops, cs.nbytes(v) + 4 * q.numel() + 2 * 16 * 4096)}
+        pair = cs.bound(2 * flops, 0)["bound_ms"]
+        fused = ms["fused forward"]
+        for name in entries:
+            total = sum(ms[f"{name} {stage}"] for stage in STAGES)
+            print(f"probes 1x16/4x4096x{d}, block_k 512, {name}: " + " | ".join(
+                f"{stage} {ms[f'{name} {stage}']:.4f} ms ({bnd[stage]['bound_ms'] / ms[f'{name} {stage}']:.1%} "
+                f"of its bound {bnd[stage]['bound_ms']:.4f}"
+                + (f"; {pair / ms[f'{name} pv']:.1%} of the pair's {pair:.4f})" if stage == "pv" else ")")
+                for stage in STAGES)
+                + f" | copy + qk + pv {total:.4f} vs the fused forward {fused:.4f} "
+                f"(stable=False {ms['fused forward, stable=False']:.4f}) | {label}", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -75,6 +213,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
+    if sys.argv[1:2] == ["probes"]:
+        return probes_main(sys.argv[2:])
     _build.library()
     out_dir = os.path.join(_build.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Compare builds of the GEMM (kernels 13 and 14), of the
-softmax-epilogue GEMM (kernels 16 and 17) or of the 8-bit GEMMs (kernels
-19 and 20) on one card, in turns.
+"""Compare builds of the GEMM (kernels 13 and 14), of the fused-epilogue
+GEMM (kernel 15), of the softmax-epilogue GEMM (kernels 16 and 17) or of
+the 8-bit GEMMs (kernels 19 and 20) on one card, in turns.
 
-    python3 tools/ab_gemm.py [bf16|f32|softmax|w8|i8] [NAME=CSRC_DIR[:FLAG,...] ...]
+    python3 tools/ab_gemm.py [bf16|f32|epilogue|softmax|w8|i8] [NAME=CSRC_DIR[:FLAG,...] ...]
 
 Each NAME=CSRC_DIR builds that directory's gemm.cu (with gemm_sm90.cu and
 gemm_f32_sm90.cu where the directory has them) and common.cu, with the nvcc
@@ -30,6 +30,21 @@ f32: f32 operands, held the same way at the tile-edge shapes and N = 100
 SPLIT_TOL), then timed at 2048^3 and 1024^3 -> f32 in turns beside
 torch.matmul f32 (TF32 off), from a warm L2 (CUDA graphs) and from a cold
 one (each call after a 128 MB write, less the write's time).
+
+epilogue (only when named): kernel 15, C = ReLU(A @ B + bias) +
+residual, on the builds of the default mode. A build whose fkp_gemm takes
+the epilogue on its wgmma paths (this checkout's; found by one small call)
+is called there, another (a parent commit's) on its aligned mma.sync /
+FFMA path (1). Every build but a probe is held at EPI_CHECKS (bf16 and f32
+operands, bias and residual as f32 and bf16, bf16 and f32 out) against
+`_fused_epilogue_plain` (bf16 out rel-L2 1e-2; f32 out as the f32 mode,
+an f32 wgmma build also against chip_smoke.py's `fused_split_plain`), then
+timed at 4096^3 bf16 -> bf16 and -> f32 and at 2048^3 f32 -> f32, from a
+warm L2 (CUDA graphs) and a cold one (each call after a 128 MB write, less
+the write's time), the builds in turns, beside the unfused PyTorch calls of
+the same function (chip_smoke.py's `unfused_epilogue`; f32: torch.matmul
+f32 with TF32 off, + bias, relu_, + residual) and this build's GEMM alone
+(kernel 13, or the f32 wgmma kernel), with the bound.
 
 softmax (only when named): each NAME=CSRC_DIR builds that directory's
 gemm_softmax.cu (with gemm_softmax_sm90.cu where it has it) and common.cu,
@@ -129,6 +144,115 @@ def build(name, csrc, flags, nvcc, nvcc_flags, out_dir):
     fn.argtypes = [vp] * 5 + [i32] * 8 + [vp]
     fn.restype = i32
     return fn, 2 if "gemm_sm90.cu" in srcs else 1, 3 if "gemm_f32_sm90.cu" in srcs else 1
+
+
+EPI_CHECKS = [  # m, k, n (batch 1): the tiles' edges of both kernels
+    (200, 136, 72), (1000, 1000, 1000), (129, 8, 4104), (2100, 72, 2056),
+    (200, 132, 100)]
+EPI_TIMES = [(4096, "bf16"), (2048, "f32")]
+
+
+def epilogue_part(entries, probes, dev, label):
+    """Kernel 15's builds held at EPI_CHECKS, then timed at EPI_TIMES
+    (module docstring)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+    from flashattention_kernel_project_tpu_torch.ops import gemm as g
+
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def call(fn, path, a, b, bias, res, out):
+        m, k = a.shape
+        n = b.shape[1]
+        c = torch.empty((m, n), dtype=out, device=dev)
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                None if bias is None else bias.data_ptr(),
+                None if res is None else res.data_ptr(), 1, m, n, k,
+                int(a.dtype == bf), int(out == bf), int(bias is not None), path, stream())
+        return rc, c
+
+    # a build's path for each operand type: its wgmma path where its
+    # fkp_gemm takes the epilogue there, else the aligned core's
+    paths = {}
+    for name, (fn, p16, p32) in entries.items():
+        x = torch.zeros(8, 8, dtype=bf, device=dev)
+        z = torch.zeros(8, device=dev)
+        rc, _ = call(fn, p16, x, x, z, torch.zeros(8, 8, device=dev), f32)
+        torch.cuda.synchronize()
+        paths[name] = {bf: p16, f32: p32} if rc == 0 else {bf: 1, f32: 1}
+    print("epilogue paths (bf16, f32 operands): " + ", ".join(
+        f"{name} {p[bf]}/{p[f32]}" for name, p in paths.items()), flush=True)
+
+    def run(name, a, b, bias, res, out):
+        rc, c = call(entries[name][0], paths[name][a.dtype], a, b, bias, res, out)
+        _build.check(rc, f"{name} fkp_gemm")
+        return c
+
+    held = [name for name in entries if name not in probes]
+    for m, k, n in EPI_CHECKS:
+        for dt in (bf, f32):
+            if dt == bf and n % 8:
+                continue
+            a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+            b = torch.randn(k, n, generator=gen, device=dev).to(dt)
+            for side in (f32, bf):
+                bias = torch.randn(n, generator=gen, device=dev).to(side)
+                res = torch.randn(m, n, generator=gen, device=dev).to(side)
+                for out in (bf, f32):
+                    want = g._fused_epilogue_plain(a, b, bias, res, out)
+                    split = cs.fused_split_plain(a, b, bias, res, out) if dt == f32 else None
+                    for name in held:
+                        got = run(name, a, b, bias.float(), res.float(), out)
+                        torch.cuda.synchronize()
+                        what = (f"{name} epilogue {'bf16' if dt == bf else 'f32'} {m}x{k}x{n}"
+                                f" ({str(side)[6:]} bias) -> {'bf16' if out == bf else 'f32'}")
+                        try:
+                            cs._hold_gemm(what, got, want, out,
+                                          split if paths[name][f32] == 3 else None)
+                        except AssertionError as err:
+                            raise SystemExit(str(err))
+    print(f"{len(held)} builds held to plain at the epilogue's tile-edge shapes, bf16 "
+          f"and f32 operands and out | {label}", flush=True)
+
+    scratch = torch.empty(FLUSH_MB << 20, dtype=torch.uint8, device=dev)
+    flush = lambda: scratch.fill_(1)  # noqa: E731
+    this = entries["this"][0]
+    for size, kind in EPI_TIMES:
+        dt = bf if kind == "bf16" else f32
+        a = torch.randn(size, size, generator=gen, device=dev).to(dt)
+        b = torch.randn(size, size, generator=gen, device=dev).to(dt)
+        bias = torch.randn(size, generator=gen, device=dev)
+        res = torch.randn(size, size, generator=gen, device=dev)
+        for out in (bf, f32) if dt == bf else (f32,):
+            fns = {name: (lambda name=name: run(name, a, b, bias, res, out))
+                   for name in entries}
+            if dt == bf:
+                fns["unfused calls"] = cs.unfused_epilogue(a, b, bias, res, out)
+            else:
+                fns["unfused calls"] = lambda: (torch.matmul(a, b) + bias).relu_().add_(res)
+            alone = "kernel 13 alone" if dt == bf else "the f32 wgmma kernel alone"
+            fns[alone] = lambda: _build.check(
+                call(this, 2 if dt == bf else 3, a, b, None, None, out)[0], "fkp_gemm")
+            warm = cs.time_turns(fns, dev)
+            cold = cs.time_turns({"flush": flush, **{
+                key: (lambda f=f: (flush(), f())) for key, f in fns.items()}}, dev)
+            passes = 1 if dt == bf else 6  # the f32 kernel's six bf16 products
+            bnd = cs.bound(passes * 2 * size ** 3, cs.nbytes(a, b, bias, res)
+                           + size * size * (2 if out == bf else 4))
+            for how, ms, less in (("warm L2", warm, 0.0), ("cold L2", cold, cold["flush"])):
+                lib = ms["unfused calls"] - less
+                print(f"fused epilogue {kind} {size}^3 -> {'bf16' if out == bf else 'f32'}, "
+                      f"{how}" + (f" (less the {FLUSH_MB} MB write's {less:.4f} ms)"
+                                  if less else "")
+                      + f": bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) | " + " | ".join(
+                          f"{key} {ms[key] - less:.4f} ({lib / (ms[key] - less):.2f}x under "
+                          f"the unfused calls, {bnd['bound_ms'] / (ms[key] - less):.1%})"
+                          for key in fns) + f" | {label}", flush=True)
 
 
 SOFTMAX_SOURCES = ("gemm_softmax.cu", "gemm_softmax_sm90.cu", "common.cu")
@@ -449,7 +573,7 @@ def main() -> int:
         raise SystemExit("no CUDA device")
     args = sys.argv[1:]
     parts = ("bf16", "f32")
-    if args and args[0] in (*parts, "softmax", "w8", "i8"):
+    if args and args[0] in (*parts, "epilogue", "softmax", "w8", "i8"):
         parts, args = (args[0],), args[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     out_dir = os.path.join(_build.BUILD_DIR, "ab")
@@ -493,6 +617,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     bf, f32 = torch.bfloat16, torch.float32
     label = platform.card_label()
+    if parts == ("epilogue",):
+        epilogue_part(entries, probes, dev, label)
+        return 0
 
     def run(entry, a, b, out):
         fn, bf16_path, f32_path = entry
