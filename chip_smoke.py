@@ -105,7 +105,10 @@ width, with random weights from a seed:
     bound, and kernel 1 stable and stable=False at the same shape, with
     the sum of the stages against the fused kernel; run_all.py's probe
     rungs (qk and pv at d64, qk_packed at d64, the stream copy at 8192 x
-    4096 f32 beside torch's x + 1); the chain's exp2 count in the SASS;
+    4096 f32 beside torch's x + 1); qk_kt at d 64 and 128 and qk_packed at
+    d 32 and 64 held to plain also at the tails of the Hopper block, and
+    each one's kernel alone and whole call timed beside qk at the same
+    flops; the chain's exp2 count in the SASS;
     then ab_paged_int8.py's slots 2, 3 and 4 over its int8 and bf16 pools
     (each depth bit-equal to slots 2) and copy_only (bit-equal to its plain
     version), timed beside kernel 10;
@@ -6636,19 +6639,23 @@ def _probe_entry(name, replaces, launches, source="probes.cu", **times):
                 library_ms=None, **times)
 
 
-# The stage probes copy, qk and pv on the Hopper forward's block
-# (csrc/probes_sm90.cu): (d, stage, block rows)
+# The stage probes copy, qk, pv, qk_kt and qk_packed on the Hopper forward's
+# block (csrc/probes_sm90.cu): (d, stage, block rows)
 PROBE_SM90_OBJECT = "probes_sm90.cu"
 PROBE_SM90_KERNEL = "probe_sm90_kernel"
-PROBE_STAGES = {0: "copy", 1: "qk", 2: "pv"}
+PROBE_STAGES = {0: "copy", 1: "qk", 2: "pv", 4: "qk_kt", 5: "qk_packed"}
+# qk_kt and qk_packed at the tails of the Hopper block (N 192 and S 320 end
+# inside a 128-row block and a 128-key tile; blocks of 64): (hq, hkv)
+PROBE_TAIL_HEADS = ((16, 4), (8, 4))
+PROBE_TAIL = dict(n=192, s=320, block_q=64, block_k=64)
 
 
 def phase_probes_build(build_log: str, label):
-    """The probes' 12 instances on the forward's block (d 64 and 128; copy,
-    qk, pv; 64- and 128-row blocks) through `wgmma_gate`, in
-    probes_sm90.cu's object: no spill, no serialized wgmma, UTMALDG (the
-    forward's TMA ring) in each, HGMMA in qk's and pv's and none in the
-    copy's, no HMMA.16816 in any; with their registers from ptxas."""
+    """The probes' 20 instances on the forward's block (d 64 and 128; copy,
+    qk, pv, qk_kt, qk_packed; 64- and 128-row blocks) through `wgmma_gate`,
+    in probes_sm90.cu's object: no spill, no serialized wgmma, UTMALDG (the
+    forward's TMA ring) in each, HGMMA in each but the copy's, no
+    HMMA.16816 in any; with their registers from ptxas."""
     instance = template_args(PROBE_SM90_KERNEL, 3)
     want = {(d, st, rows) for d in (64, 128) for st in PROBE_STAGES for rows in (64, 128)}
     counts = wgmma_gate(build_log, PROBE_SM90_KERNEL, instance,
@@ -6659,8 +6666,9 @@ def phase_probes_build(build_log: str, label):
             raise AssertionError(f"probe {PROBE_STAGES[st]} (d {d}, {rows} rows): "
                                  f"{c['HGMMA']} HGMMA")
     regs = ptxas_registers(build_log, instance)
-    log("stage probes on the forward's block: 12 instances (d, stage 0 copy / 1 qk / "
-        "2 pv, rows) built with no spill and no serialized wgmma; SASS (HGMMA, "
+    log(f"stage probes on the forward's block: {len(counts)} instances (d, stage 0 "
+        "copy / 1 qk / 2 pv / 4 qk_kt / 5 qk_packed, rows) built with no spill and no "
+        "serialized wgmma; SASS (HGMMA, "
         "UTMALDG, HMMA.16816), registers at launch: "
         + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}, "
                     f"{regs.get(inst)}" for inst, c in sorted(counts.items()))
@@ -6674,14 +6682,19 @@ def phase_probes(device, label):
     block_k = 512, numpy seed 0): copy, qk, pv and the softmax chain, qk_kt
     beside qk, and kernel 1 at the same shape, stable and stable=False; then
     run_all.py's probe rungs: qk and pv at d64, qk_packed at d64 and the
-    stream copy at 8192 x 4096 f32 (and bf16). copy, qk and pv run on the
-    Hopper forward's block (csrc/probes_sm90.cu; `phase_probes_build`
-    gates their SASS), the others on csrc/probes.cu. Each launch counted,
-    each output held against its plain version (copy and chain within
-    1e-6, the products' rel-L2 within 1e-5, the stream copy bit for bit),
-    each probe timed beside it (CUDA graphs, in turns) and its bound; the
-    chain's exp2 count checked in the SASS. Prints the sum of the stages
-    against the fused kernel. Returns the JSON entries."""
+    stream copy at 8192 x 4096 f32 (and bf16). copy, qk, pv, qk_kt and
+    qk_packed run on the Hopper forward's block (csrc/probes_sm90.cu;
+    `phase_probes_build` gates their SASS), the chain and the stream copy
+    on csrc/probes.cu. Each launch counted, each output held against its
+    plain version (copy and chain within 1e-6, the products' rel-L2 within
+    1e-5, the stream copy bit for bit), each probe timed beside it (CUDA
+    graphs, in turns) and its bound; after the counted path, qk_kt at d 64
+    and qk_packed at d 32 at the same shape, and both at d 64 and 128 (32
+    and 64) at `PROBE_TAIL` with `PROBE_TAIL_HEADS`, held to plain; each
+    one's kernel alone (through the entry, on K^T or the packed operands
+    built before) and whole call timed in turns beside qk at the same
+    flops; the chain's exp2 count checked in the SASS. Prints the sum of
+    the stages against the fused kernel. Returns the JSON entries."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
@@ -6766,15 +6779,48 @@ def phase_probes(device, label):
             tails.append(f"{n} {str(dtype)[6:]}")
     log(f"probe stream copy: bit-equal to x + 1 at n = {tails} [{label}]")
 
+    # qk_kt and qk_packed at their other widths and at the Hopper block's
+    # tails, held to plain (after the counted path)
+    tail_errs = {}
+    q32, k32 = (t[..., :32].contiguous() for t in (q64, k64))
+    checks = {"qk_kt d64": (lambda: pr.qk_kt_probe(q64, k64, v64, **PROBE_BLOCKS),
+                            lambda: pr._qk_plain(q64, k64)),
+              "qk_packed d32": (lambda: pr.qk_packed_probe(q32, k32),
+                                lambda: pr._packed_plain(q32, k32))}
+    for hq, hkv in PROBE_TAIL_HEADS:
+        for d in (64, 128):
+            qt, kt_, vt = (torch.randn(*shape, generator=gen, device=device).bfloat16()
+                           for shape in ((1, hq, PROBE_TAIL["n"], d),
+                                         (1, hkv, PROBE_TAIL["s"], d),
+                                         (1, hkv, PROBE_TAIL["s"], d)))
+            blocks = dict(block_q=PROBE_TAIL["block_q"], block_k=PROBE_TAIL["block_k"])
+            checks[f"qk_kt {hq}/{hkv} d{d} tail"] = (
+                lambda qt=qt, kt_=kt_, vt=vt, blocks=blocks: pr.qk_kt_probe(qt, kt_, vt, **blocks),
+                lambda qt=qt, kt_=kt_: pr._qk_plain(qt, kt_))
+            qh, kh = (t[..., :d // 2].contiguous() for t in (qt, kt_))
+            checks[f"qk_packed {hq}/{hkv} d{d // 2} tail"] = (
+                lambda qh=qh, kh=kh, blocks=blocks: pr.qk_packed_probe(qh, kh, **blocks),
+                lambda qh=qh, kh=kh: pr._packed_plain(qh, kh))
+    for name, (kernel, plain_fn) in checks.items():
+        got_o, want_o = kernel(), plain_fn()
+        err = _rel_l2(got_o, want_o)
+        tail_errs[name] = err
+        if (got_o.shape != want_o.shape or not torch.isfinite(got_o).all()
+                or not err <= SUM_ORDER_TOL):
+            raise AssertionError(f"probe {name}: shape {tuple(got_o.shape)}, rel-L2 "
+                                 f"{err:.3e} vs plain (want {tuple(want_o.shape)}, "
+                                 f"{SUM_ORDER_TOL})")
+    log(f"probes qk_kt and qk_packed held to plain (rel-L2): "
+        + ", ".join(f"{name} {err:.2e}" for name, err in tail_errs.items())
+        + f" [{label}]")
+
     # the chain's exp2 of every score stays in the binary (a hoisted exp2
-    # would leave a handful), and qk_kt's products run per tile
+    # would leave a handful)
     obj = os.path.join(_build.BUILD_DIR, "probes.cu.o")
-    sass = {stage: sass_counts(obj, f"probe_kernelILi128ELi{i}E",
-                               ("MUFU.EX2", "HMMA"))
-            for stage, i in (("chain", 3), ("qk_kt", 4))}
-    log(f"probes SASS at d128 (MUFU.EX2, HMMA per instance): {sass}")
-    if sass["chain"]["MUFU.EX2"] < 32 or sass["qk_kt"]["HMMA"] < 64:
-        raise AssertionError(f"a probe's stage work left its key loop: {sass}")
+    sass = sass_counts(obj, "probe_kernelILi128EE", ("MUFU.EX2",))
+    log(f"probe chain SASS at d128: {sass}")
+    if sass["MUFU.EX2"] < 32:
+        raise AssertionError(f"the chain's exp2 left its key loop: {sass}")
 
     # times, each beside its plain version, in turns, from CUDA graphs
     calls = dict(
@@ -6795,6 +6841,30 @@ def phase_probes(device, label):
         for name in order:
             fused_ms[name].append(time_ms(fused[name], device, graph=True))
     fused_ms = {name: min(t) for name, t in fused_ms.items()}
+    # qk_kt and qk_packed: the kernel alone (through the entry, on K^T or the
+    # packed operands built before) and the whole call (the torch transpose
+    # or packing included), in turns beside qk at the same flops (qk_packed
+    # at d / 2: its packed products are qk's at d)
+    def alone(probe, stage, qq, kk, ops):
+        _, (hq_, _, n_, _, d_) = pr.probe_route(stage, qq, kk)
+        o_ = torch.empty(qq.shape[0], hq_, n_, d_, dtype=torch.float32, device=device)
+        return lambda: pr._launch(probe, stage, qq, kk, ops, block_k, o_)
+
+    kt128, kt64 = (t.transpose(-1, -2).contiguous() for t in (k, k64))
+    pk64, pk32 = pr._pack(q64, k64, block_k), pr._pack(q32, k32, block_k)
+    qk_turns = time_turns({
+        "qk d128": calls["qk"],
+        "qk_kt d128 kernel": alone(pr.qk_kt_probe, pr._QKT, q, k, (q, kt128, None)),
+        "qk_kt d128 whole": calls["qk_kt"],
+        "qk_packed d64 kernel": alone(pr.qk_packed_probe, pr._PACKED, q64, k64,
+                                      (*pk64, None)),
+        "qk_packed d64 whole": calls["packed64"],
+        "qk d64": calls["qk64"],
+        "qk_kt d64 kernel": alone(pr.qk_kt_probe, pr._QKT, q64, k64, (q64, kt64, None)),
+        "qk_kt d64 whole": checks["qk_kt d64"][0],
+        "qk_packed d32 kernel": alone(pr.qk_packed_probe, pr._PACKED, q32, k32,
+                                      (*pk32, None)),
+        "qk_packed d32 whole": checks["qk_packed d32"][0]}, device)
     # the stream copy over bf16 beside x + 1, in turns (f32: time_pair's)
     stream_bf16 = time_turns({"kernel": lambda: pr.stream_copy_probe(xb),
                               "x + 1": lambda: xb + 1}, device)
@@ -6875,6 +6945,34 @@ def phase_probes(device, label):
         return dict(ms=ms[name][0], plain_ms=ms[name][1], max_abs_err=errs[name][1],
                     **bnd[name])
 
+    # qk_kt and qk_packed beside qk, each over its bound (qk_packed's over the
+    # unpacked products, the function's, and over the packed ones it issues)
+    kt_bnd = {128: bnd["qk_kt"]["bound_ms"],
+              64: bound(flops64, nbytes(q64, k64, out["qk64"]))["bound_ms"]}
+    pk_bnd = {64: (bnd["packed64"]["bound_ms"], bound(flops, 0)["bound_ms"]),
+              32: (bound(flops64 // 2, nbytes(q32, k32) + 4 * B * (H // 2) * N * 64)["bound_ms"],
+                   bound(flops64, 0)["bound_ms"])}
+    qk_side = {}
+    for d in (128, 64):
+        kern, whole, base = (qk_turns[f"qk_kt d{d} kernel"], qk_turns[f"qk_kt d{d} whole"],
+                             qk_turns[f"qk d{d}"])
+        qk_side[f"qk_kt d{d}"] = dict(kernel_ms=kern, whole_ms=whole, qk_ms=base)
+        log(f"probe qk_kt (1x16/4x4096x{d}, block_k 512): kernel alone {kern:.4f} ms "
+            f"({kt_bnd[d] / kern:.1%} of its bound {kt_bnd[d]:.4f}), whole call "
+            f"{whole:.4f} ms; qk at the same shape {base:.4f} ms (kernel / qk "
+            f"{kern / base:.3f}) [{label}]")
+    for d, qk_d in ((64, 128), (32, 64)):
+        kern, whole, base = (qk_turns[f"qk_packed d{d} kernel"],
+                             qk_turns[f"qk_packed d{d} whole"], qk_turns[f"qk d{qk_d}"])
+        unpacked, packed = pk_bnd[d]
+        qk_side[f"qk_packed d{d}"] = dict(kernel_ms=kern, whole_ms=whole, qk_ms=base,
+                                          packed_bound_ms=packed)
+        log(f"probe qk_packed (1x16/4x4096x{d}, 2d = {2 * d}, block_q 256, block_k "
+            f"512): kernel alone {kern:.4f} ms ({packed / kern:.1%} of the packed "
+            f"products' bound {packed:.4f}, {unpacked / kern:.1%} of the unpacked "
+            f"{unpacked:.4f}), whole call {whole:.4f} ms; qk at d {qk_d}, the same "
+            f"products, {base:.4f} ms (kernel / qk {kern / base:.3f}) [{label}]")
+
     entries = [
         _probe_entry("probe_copy", 83, got["probe_copy"], source=PROBE_SM90_OBJECT,
                      shape=shape, **times("copy")),
@@ -6884,10 +6982,14 @@ def phase_probes(device, label):
                      shape=shape, **times("pv"), extra={shape64: times("pv64")}),
         _probe_entry("probe_softmax_chain", 287, got["probe_chain"], shape=shape,
                      **times("chain")),
-        _probe_entry("probe_qk_kt", 129, got["probe_qk_kt"], shape=shape,
-                     **times("qk_kt")),
+        _probe_entry("probe_qk_kt", 129, got["probe_qk_kt"], source=PROBE_SM90_OBJECT,
+                     shape=shape, **times("qk_kt"), **qk_side["qk_kt d128"],
+                     extra={shape64: qk_side["qk_kt d64"]}),
         _probe_entry("probe_qk_packed", 184, got["probe_qk_packed"],
-                     shape=shape64 + ", block_q 256, block_k 512", **times("packed64")),
+                     source=PROBE_SM90_OBJECT,
+                     shape=shape64 + ", block_q 256, block_k 512", **times("packed64"),
+                     **qk_side["qk_packed d64"],
+                     extra={"1x16/4x4096x32 bf16": qk_side["qk_packed d32"]}),
         _probe_entry("probe_stream_copy", 360, got["probe_stream_copy"],
                      shape="8192x4096 f32", **times("stream")),
     ]

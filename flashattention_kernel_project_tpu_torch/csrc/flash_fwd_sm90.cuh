@@ -181,11 +181,25 @@ struct RaggedPtrs {
 
 // What a block of fwd_block runs: the whole forward (kForward), or one stage
 // of it alone, the stage probes of probes_sm90.cu (ops/probes.py's copy,
-// qk and pv; their numbers are its stage numbers): the K/V ring with each
-// stage waited on and released and no products (kProbeCopy), the QK
-// products (kProbeQK) or the PV products (kProbePV), each as the forward
-// issues them.
-enum FwdStage : int { kProbeCopy = 0, kProbeQK = 1, kProbePV = 2, kForward = 3 };
+// qk, pv, qk_kt and qk_packed; their numbers are its stage numbers): the
+// K/V ring with each stage waited on and released and no products
+// (kProbeCopy), the QK products (kProbeQK) or the PV products (kProbePV),
+// each as the forward issues them; the QK products over K^T [b*hkv, D, s],
+// read as the MN-major B operand, with no V stream (kProbeQKT); the QK
+// products with no V stream (kProbePacked: the packed operands at D = 2d).
+enum FwdStage : int {
+  kProbeCopy = 0,
+  kProbeQK = 1,
+  kProbePV = 2,
+  kProbeQKT = 4,
+  kProbePacked = 5,
+  kForward = -1
+};
+
+// whether a block at `stage` streams V (every stage but the K-only probes)
+__host__ __device__ constexpr bool stage_reads_v(int stage) {
+  return stage != kProbeQKT && stage != kProbePacked;
+}
 
 // The block body. One block per (kRows-row query tile, q head, batch row):
 // the first kRows * 2 threads are the consumer warpgroups, 64 rows each,
@@ -196,8 +210,10 @@ enum FwdStage : int { kProbeCopy = 0, kProbeQK = 1, kProbePV = 2, kForward = 3 }
 // row from rp and writes no LSE (lse null); KV the cache's type. A probe
 // stage (kStage, bf16, online, no band, not ragged) writes f32 [b, hq, n,
 // D] at o in place of O (each row: the copy's sum over the rows j *
-// block_k of k + v, the QK's score sum broadcast over D, the PV's
-// q[row, 0] * sum_k v[k]) and no LSE.
+// block_k of k + v, the QK stages' score sum broadcast over D, the PV's
+// q[row, 0] * sum_k v[k]) and no LSE. kProbeQKT's k map is over K^T [b*hkv,
+// D, s] in boxes of 64 keys x D dim rows; kProbeQKT and kProbePacked read no
+// v map.
 template <int D, bool kWindow, int kDisc, int kRows, class KV, bool kRagged,
           int kStage = kForward>
 __device__ __forceinline__ void fwd_block(
@@ -214,6 +230,10 @@ __device__ __forceinline__ void fwd_block(
   using Threads = Block<kRows, kQuant>;
   constexpr int kConsumers = Threads::kConsumers;
   constexpr bool kPingPong = kRows == 128;  // two consumer warpgroups
+  // the probe stages that issue the QK products
+  [[maybe_unused]] constexpr bool kQKStage =
+      kStage == kProbeQK || kStage == kProbeQKT || kStage == kProbePacked;
+  [[maybe_unused]] constexpr bool kLoadV = stage_reads_v(kStage);
   extern __shared__ uint8_t smem_raw[];
   // Q, full, empty; the 8-bit instances' byte stages: full, empty
   __shared__ __align__(8) uint64_t bars[1 + 2 * L::kStages + 2 * L::kByteStages];
@@ -303,12 +323,23 @@ __device__ __forceinline__ void fwd_block(
           // the stage's previous tile released by every consumer warp (the
           // first round passes at once)
           mbar_wait(empty_bar(st), ((it / L::kStages) & 1) ^ 1);
-          mbar_expect_tx(full_bar(st), 2 * L::kTile);
-          for (int x = 0; x < L::kBoxes; ++x) {
-            tma_load(k_s(st) + x * L::kBox, k_map, full_bar(st),
-                     x * kBoxCols, key0, kh);
-            tma_load(v_s(st) + x * L::kBox, v_map, full_bar(st),
-                     x * kBoxCols, key0, kh);
+          mbar_expect_tx(full_bar(st), (kLoadV ? 2 : 1) * L::kTile);
+          if constexpr (kStage == kProbeQKT) {
+            // K^T: the tile's two boxes of 64 keys x D dim rows, D * 128
+            // bytes apart in the stage's K slot
+            for (int x = 0; x < kN / kBoxCols; ++x) {
+              tma_load(k_s(st) + x * D * 128, k_map, full_bar(st),
+                       key0 + x * kBoxCols, 0, kh);
+            }
+          } else {
+            for (int x = 0; x < L::kBoxes; ++x) {
+              tma_load(k_s(st) + x * L::kBox, k_map, full_bar(st),
+                       x * kBoxCols, key0, kh);
+              if constexpr (kLoadV) {
+                tma_load(v_s(st) + x * L::kBox, v_map, full_bar(st),
+                         x * kBoxCols, key0, kh);
+              }
+            }
           }
         }
       }
@@ -485,17 +516,24 @@ __device__ __forceinline__ void fwd_block(
   // flight; O's rescale by tile j's max waits for it. So tile j-1's p
   // (p_hi/p_lo) and stage stay live across an iteration. Every wgmma issue
   // and wait lies on control flow uniform in the warpgroup.
+  // (kProbeQKT: B is K^T [dim][key], read MN-major as O += P V reads V: 16
+  // dim rows, 2048 bytes, a step down both 64-key boxes, D * 128 bytes apart)
   const auto issue_qk = [&](int st) {  // S = Q K^T, 16 dims (32 bytes) a step
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t col = kk % 4 * 32;
       const uint64_t dq =
           desc(q_s + kk / 4 * L::kQBox + wg * 64 * 128 + col, 16, 1024);
-      const uint64_t dk = desc(k_s(st) + kk / 4 * L::kBox + col, 16, 1024);
-      if constexpr (L::kKeys == 128) {
-        wgmma_ss_n128(sc, dq, dk, kk > 0);
+      if constexpr (kStage == kProbeQKT) {
+        wgmma_ss_n128<0, 1>(sc, dq, desc(k_s(st) + kk * 2048, D * 128, 1024),
+                            kk > 0);
       } else {
-        wgmma_ss_n64<0, 0>(sc, dq, dk, kk > 0);
+        const uint64_t dk = desc(k_s(st) + kk / 4 * L::kBox + col, 16, 1024);
+        if constexpr (L::kKeys == 128) {
+          wgmma_ss_n128(sc, dq, dk, kk > 0);
+        } else {
+          wgmma_ss_n64<0, 0>(sc, dq, dk, kk > 0);
+        }
       }
     }
     wgmma_commit();
@@ -716,14 +754,14 @@ __device__ __forceinline__ void fwd_block(
       } else {
         if (kPingPong) named_sync(turn);
         wgmma_fence();
-        if constexpr (kStage == kProbeQK) {
+        if constexpr (kQKStage) {
           issue_qk(st);
         } else {
           issue_pv(st);
         }
         if (kPingPong && (wg == 0 || it + 1 < n_visit)) named_arrive(other_turn);
         wgmma_wait<0>();
-        if constexpr (kStage == kProbeQK) {
+        if constexpr (kQKStage) {
           pin(sc);
 #pragma unroll
           for (int nt = 0; nt < L::kKeys / 8; ++nt) {
@@ -747,7 +785,7 @@ __device__ __forceinline__ void fwd_block(
       float2 w0, w1;
       if constexpr (kStage == kProbeCopy) {  // every row holds the same sums
         w0 = w1 = make_float2(acc[4 * nd], acc[4 * nd + 1]);
-      } else if constexpr (kStage == kProbeQK) {
+      } else if constexpr (kQKStage) {
         w0 = make_float2(rs0, rs0);
         w1 = make_float2(rs1, rs1);
       } else {

@@ -1,51 +1,36 @@
-// Stage probes of the attention forward for Hopper (sm_90a), row 23 of the
-// port's kernel table, and the stream copy. The probes copy, qk and pv (row
-// 22) are the Hopper forward's own block with the other stages taken out
-// (probes_sm90.cu); the three here are still one standalone mma.sync
-// template over the stage, on 64-row blocks of 4 warps:
+// The softmax-chain probe of the attention forward (row 23 of the port's
+// kernel table) and the stream copy, for Hopper (sm_90a). The other stage
+// probes (copy, qk, pv, qk_kt, qk_packed) are the Hopper forward's own block
+// with the other stages taken out (probes_sm90.cu, entry fkp_probe_sm90);
+// the chain here (entry fkp_probe, stage 3) is still a standalone
+// template on 64-row blocks of 4 warps, the design of the port's first
+// forward, whose body is gone.
 //
 // Replaces flashattention_kernel_project_tpu/ops/probes.py:
 // - softmax_chain_probe (:287, :328): the online (m, l, rescale, exp) chain
 //   on scores q[row, 0] * 0.001 at every key, no products; acc / (l + 1e-6);
-// - qk_kt_probe (:129): the QK products with K transposed to [B, Hkv, D, S]
-//   by the wrapper, read here as [dim][key] tiles, as the TPU's NN form;
-//   each row's score sum broadcast over d;
-// - qk_packed_probe (:184): the QK stage over the packed operands the
-//   wrapper builds as JAX builds them in XLA: two heads' q rows side by side
-//   [G * N, 2d] against block-diagonal [2 * block_k, 2d] K tiles, the zero
-//   quadrants multiplied as the TPU multiplies them. It is the QK stage of
-//   the same template at D = 2d, with no V stream (JAX's has none);
 // - stream_copy_probe (:360): out = x + 1 over [R, C], in x's type.
 //
-// Design of the template: one block of 4 warps per 64-query tile, q head
-// and batch row; 64-key K/V tiles loaded 16 bytes a thread into padded
-// shared memory between two barriers (the design of the port's first
-// forward, whose body is gone); mma.sync m16n8k16 fragments. The stage is
-// a template switch, so each instance compiles only its own arithmetic.
-// Outputs are f32 [B, Hq, N, D], written once.
+// Design of the chain: one block of 4 warps per 64-query tile, q head and
+// batch row; 64-key K/V tiles loaded 16 bytes a thread into padded shared
+// memory between two barriers; each thread holds the scores of the
+// m16n8k16 accumulator layout. Outputs are f32 [B, Hq, N, D], written once.
 //
-// Keeping each stage's work in the binary: every loaded row reaches shared
-// memory (a shared store is never removed, other threads may read it), the
-// products are asm volatile, and the chain's scores are the row's base score
-// plus `zero * key` with `zero` a kernel argument (0 at run time): the
-// compiler cannot prove a row's scores equal, so it takes exp2 of every one
-// instead of hoisting it out of the key loop.
+// Keeping its work in the binary: every loaded row reaches shared memory (a
+// shared store is never removed, other threads may read it), and the
+// scores are the row's base score plus `zero * key` with `zero` a kernel
+// argument (0 at run time): the compiler cannot prove a row's scores equal,
+// so it takes exp2 of every one instead of hoisting it out of the key loop.
 //
-// What bounds each on the H100: the QK stages do 2*N*S*d flops a head
-// against ~2*(N + 2*S)*d bytes, far above the ~295 flop/byte ridge: the
-// tensor cores' issue rate (989 TFLOP/s) bounds them. The chain's bound is
-// the exp2 unit (16 results a clock an SM). The stream copy is bound by its
-// read and write bytes at 3.35 TB/s.
+// What bounds each on the H100: the chain's bound is the exp2 unit (16
+// results a clock an SM). The stream copy is bound by its read and write
+// bytes at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma.cuh"
-
 namespace {
-
-using fkp_mma::mma_16816;
 
 constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/softmax.py
 constexpr int kBlockM = 64;        // query rows per block (16 per warp)
@@ -53,26 +38,21 @@ constexpr int kBlockN = 64;        // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-// the stage numbers of ops/probes.py (0-2 are probes_sm90.cu's)
-enum Stage : int { kChain = 3, kQKT = 4, kPacked = 5 };
+// the stage number of ops/probes.py (the others are probes_sm90.cu's)
+enum Stage : int { kChain = 3 };
 
-// q [b, hq, n, D] bf16; k, v [b, hkv, s, D] bf16 (kQKT: k is K^T [b, hkv, D,
-// s]; kQKT and kPacked read no v); o [b, hq, n, D] f32. n and s multiples of
-// 64; hq a multiple of hkv. zero: 0.f, read at run time (kChain).
-template <int D, int kStage>
+// The chain: q [b, hq, n, D] bf16; k, v [b, hkv, s, D] bf16 (loaded, as
+// the forward loads them, and unused); o [b, hq, n, D] f32. n and s
+// multiples of 64; hq a multiple of hkv. zero: 0.f, read at run time.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     probe_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, float* __restrict__ o,
                  int hq, int hkv, int n, int s, float zero) {
-  constexpr bool kScores = kStage == kQKT || kStage == kPacked;
-  constexpr bool kLoadV = kStage == kChain;
-  constexpr int kStride = D + 8;         // a [key][dim] tile row, in bf16
-  constexpr int kTStride = kBlockN + 8;  // a [dim][key] tile row (kQKT)
-  __shared__ __align__(16)
-      __nv_bfloat16 k_s[kStage == kQKT ? D * kTStride : kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kLoadV ? kBlockN * kStride : 8];
-  const unsigned short* k_u16 = reinterpret_cast<const unsigned short*>(k_s);
+  constexpr int kStride = D + 8;  // a [key][dim] tile row, in bf16
+  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kStride];
+  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kStride];
 
   const int m_block = blockIdx.x;
   const int h = blockIdx.y;
@@ -86,159 +66,94 @@ __global__ void __launch_bounds__(kThreads, 1)
   const __nv_bfloat16* q_bh = q + bh * n * D;
   const size_t kv_head = ((size_t)b * hkv + kvh) * s * D;
   const __nv_bfloat16* k_bh = k + kv_head;
-  const __nv_bfloat16* v_bh = kLoadV ? v + kv_head : nullptr;
+  const __nv_bfloat16* v_bh = v + kv_head;
   const int row0 = m_block * kBlockM + warp * 16 + g;
   const int row1 = row0 + 8;
 
-  // the QK stages: the warp's Q fragments for the whole key loop
-  uint32_t qf[kScores ? D / 16 : 1][4];
-  if constexpr (kScores) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(q_bh + (size_t)row0 * D + c);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(q_bh + (size_t)row1 * D + c);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(q_bh + (size_t)row0 * D + c + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(q_bh + (size_t)row1 * D + c + 8);
-    }
-  }
-  // the chain: the rows' base scores q[row, 0] * 0.001 and their (m, l)
-  float base0 = 0.f, base1 = 0.f;
+  // the rows' base scores q[row, 0] * 0.001 and their (m, l)
+  const float base0 = __bfloat162float(q_bh[(size_t)row0 * D]) * 0.001f;
+  const float base1 = __bfloat162float(q_bh[(size_t)row1 * D]) * 0.001f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  if constexpr (kStage == kChain) {
-    base0 = __bfloat162float(q_bh[(size_t)row0 * D]) * 0.001f;
-    base1 = __bfloat162float(q_bh[(size_t)row1 * D]) * 0.001f;
-  }
-  constexpr bool kAcc = kStage == kChain;
-  float acc[kAcc ? D / 8 : 1][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < (kAcc ? D / 8 : 1); ++nd) {
+  for (int nd = 0; nd < D / 8; ++nd) {
     acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
   }
-  float rs0 = 0.f, rs1 = 0.f;  // the QK stages' score sums (this thread's)
 
   const int n_tiles = s / kBlockN;
   for (int j = 0; j < n_tiles; ++j) {
     const int key0 = j * kBlockN;
     __syncthreads();  // every warp is done with the previous tile
-    if constexpr (kStage == kQKT) {
-      // K^T [D][s]: D rows of the tile's 64 keys
-      constexpr int kVecPerRow = kBlockN / 8;
-      for (int i = threadIdx.x; i < D * kVecPerRow; i += kThreads) {
-        const int r = i / kVecPerRow;
-        const int c = (i % kVecPerRow) * 8;
-        *reinterpret_cast<uint4*>(k_s + r * kTStride + c) =
-            *reinterpret_cast<const uint4*>(k_bh + (size_t)r * s + key0 + c);
-      }
-    } else {
-      constexpr int kVecPerRow = D / 8;
-      for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-        const int r = i / kVecPerRow;
-        const int c = (i % kVecPerRow) * 8;
-        const size_t off = (size_t)(key0 + r) * D + c;
-        *reinterpret_cast<uint4*>(k_s + r * kStride + c) =
-            *reinterpret_cast<const uint4*>(k_bh + off);
-        if constexpr (kLoadV) {
-          *reinterpret_cast<uint4*>(v_s + r * kStride + c) =
-              *reinterpret_cast<const uint4*>(v_bh + off);
-        }
-      }
+    constexpr int kVecPerRow = D / 8;
+    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
+      const int r = i / kVecPerRow;
+      const int c = (i % kVecPerRow) * 8;
+      const size_t off = (size_t)(key0 + r) * D + c;
+      *reinterpret_cast<uint4*>(k_s + r * kStride + c) =
+          *reinterpret_cast<const uint4*>(k_bh + off);
+      *reinterpret_cast<uint4*>(v_s + r * kStride + c) =
+          *reinterpret_cast<const uint4*>(v_bh + off);
     }
     __syncthreads();
 
-    if constexpr (kScores) {
-      // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys
+    // the forward's per-score softmax arithmetic: the thread's 32 scores
+    // of the tile (16 keys of row0, 16 of row1), element e of n-tile nt at
+    // key key0 + nt*8 + 2t + (e & 1)
+    float sv[kBlockN / 8][4];
+    float tmax0 = kNegInf, tmax1 = kNegInf;
 #pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t b0, b1;
-          if constexpr (kStage == kQKT) {  // B element (dim k, key n)
-            const unsigned short* kp = k_u16 + (kk * 16 + 2 * t) * kTStride + nt * 8 + g;
-            b0 = (uint32_t)kp[0] | ((uint32_t)kp[kTStride] << 16);
-            b1 = (uint32_t)kp[8 * kTStride] | ((uint32_t)kp[9 * kTStride] << 16);
-          } else {
-            const __nv_bfloat16* kp = k_s + (nt * 8 + g) * kStride + kk * 16 + 2 * t;
-            b0 = *reinterpret_cast<const uint32_t*>(kp);
-            b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
-          }
-          mma_16816(sc, qf[kk], b0, b1);
-        }
-        rs0 += sc[0] + sc[1];
-        rs1 += sc[2] + sc[3];
-      }
-    } else {  // kChain: the forward's per-score softmax arithmetic
-      // the thread's 32 scores of the tile (16 keys of row0, 16 of row1),
-      // element e of n-tile nt at key key0 + nt*8 + 2t + (e & 1)
-      float sv[kBlockN / 8][4];
-      float tmax0 = kNegInf, tmax1 = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float col = (float)(key0 + nt * 8 + 2 * t + (e & 1));
-          sv[nt][e] = (e < 2 ? base0 : base1) + zero * col;
-          if (e < 2) {
-            tmax0 = fmaxf(tmax0, sv[nt][e]);
-          } else {
-            tmax1 = fmaxf(tmax1, sv[nt][e]);
-          }
+      for (int e = 0; e < 4; ++e) {
+        const float col = (float)(key0 + nt * 8 + 2 * t + (e & 1));
+        sv[nt][e] = (e < 2 ? base0 : base1) + zero * col;
+        if (e < 2) {
+          tmax0 = fmaxf(tmax0, sv[nt][e]);
+        } else {
+          tmax1 = fmaxf(tmax1, sv[nt][e]);
         }
       }
-      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 1));
-      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 2));
-      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 1));
-      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 2));
-      const float mn0 = fmaxf(m0, tmax0);
-      const float mn1 = fmaxf(m1, tmax1);
-      const float r0 = exp2f(m0 - mn0);
-      const float r1 = exp2f(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ps0 = 0.f, ps1 = 0.f;
+    }
+    tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 1));
+    tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 2));
+    tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 1));
+    tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 2));
+    const float mn0 = fmaxf(m0, tmax0);
+    const float mn1 = fmaxf(m1, tmax1);
+    const float r0 = exp2f(m0 - mn0);
+    const float r1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        ps0 += exp2f(sv[nt][0] - mn0) + exp2f(sv[nt][1] - mn0);
-        ps1 += exp2f(sv[nt][2] - mn1) + exp2f(sv[nt][3] - mn1);
-      }
-      // the row's sum over the tile's 64 keys (its four threads)
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
-      l0 = l0 * r0 + ps0;
-      l1 = l1 * r1 + ps1;
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+      ps0 += exp2f(sv[nt][0] - mn0) + exp2f(sv[nt][1] - mn0);
+      ps1 += exp2f(sv[nt][2] - mn1) + exp2f(sv[nt][3] - mn1);
+    }
+    // the row's sum over the tile's 64 keys (its four threads)
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
+    l0 = l0 * r0 + ps0;
+    l1 = l1 * r1 + ps1;
 #pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        acc[nd][0] = acc[nd][0] * r0 + ps0;
-        acc[nd][1] = acc[nd][1] * r0 + ps0;
-        acc[nd][2] = acc[nd][2] * r1 + ps1;
-        acc[nd][3] = acc[nd][3] * r1 + ps1;
-      }
+    for (int nd = 0; nd < D / 8; ++nd) {
+      acc[nd][0] = acc[nd][0] * r0 + ps0;
+      acc[nd][1] = acc[nd][1] * r0 + ps0;
+      acc[nd][2] = acc[nd][2] * r1 + ps1;
+      acc[nd][3] = acc[nd][3] * r1 + ps1;
     }
   }
 
-  if constexpr (kScores) {
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-  }
   float* o_bh = o + bh * n * D;
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
     const int c = nd * 8 + 2 * t;
-    float2 w0, w1;
-    if constexpr (kScores) {
-      w0 = make_float2(rs0, rs0);
-      w1 = make_float2(rs1, rs1);
-    } else {
-      w0 = make_float2(acc[nd][0] / (l0 + 1e-6f), acc[nd][1] / (l0 + 1e-6f));
-      w1 = make_float2(acc[nd][2] / (l1 + 1e-6f), acc[nd][3] / (l1 + 1e-6f));
-    }
-    *reinterpret_cast<float2*>(o_bh + (size_t)row0 * D + c) = w0;
-    *reinterpret_cast<float2*>(o_bh + (size_t)row1 * D + c) = w1;
+    *reinterpret_cast<float2*>(o_bh + (size_t)row0 * D + c) =
+        make_float2(acc[nd][0] / (l0 + 1e-6f), acc[nd][1] / (l0 + 1e-6f));
+    *reinterpret_cast<float2*>(o_bh + (size_t)row1 * D + c) =
+        make_float2(acc[nd][2] / (l1 + 1e-6f), acc[nd][3] / (l1 + 1e-6f));
   }
 }
 
@@ -319,37 +234,18 @@ int launch_stream(const void* x, void* out, long long n, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_probe(int stage, const dim3& grid, cudaStream_t st,
-                 const __nv_bfloat16* q, const __nv_bfloat16* k,
-                 const __nv_bfloat16* v, float* o, int hq, int hkv, int n,
-                 int s, float zero) {
-  void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*,
-                 const __nv_bfloat16*, float*, int, int, int, int, float);
-  switch (stage) {
-    case kChain: kernel = probe_kernel<D, kChain>; break;
-    case kQKT: kernel = probe_kernel<D, kQKT>; break;
-    case kPacked: kernel = probe_kernel<D, kPacked>; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  kernel<<<grid, kThreads, 0, st>>>(q, k, v, o, hq, hkv, n, s, zero);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// One probe stage (3 softmax chain, 4 qk with K^T, 5 qk over packed
-// operands; 0-2 are fkp_probe_sm90's): q [b, hq, n, d], k and v [b, hkv,
-// s, d] bf16 contiguous (stage 4: k is K^T [b, hkv, d, s]; stages 4 and 5
-// read no v, which may be null); o [b, hq, n, d] f32. d in {64, 128}, n and
-// s multiples of 64, hq a multiple of hkv. zero must be 0.f. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue without
-// one for arguments outside these.
+// The softmax chain probe (stage 3; the other stages are fkp_probe_sm90's):
+// q [b, hq, n, d], k and v [b, hkv, s, d] bf16 contiguous; o [b, hq, n, d]
+// f32. d in {64, 128}, n and s multiples of 64, hq a multiple of hkv. zero
+// must be 0.f. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue without one for arguments outside these.
 extern "C" int fkp_probe(const void* q, const void* k, const void* v, void* o,
                          int b, int hq, int hkv, int n, int s, int d, int stage,
                          float zero, void* stream) {
-  if (n % kBlockM || s % kBlockN || hkv < 1 || hq % hkv ||
-      (v == nullptr && stage == kChain)) {
+  if (n % kBlockM || s % kBlockN || hkv < 1 || hq % hkv || stage != kChain ||
+      v == nullptr || (d != 64 && d != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n / kBlockM, hq, b);
@@ -358,9 +254,12 @@ extern "C" int fkp_probe(const void* q, const void* k, const void* v, void* o,
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   float* of = static_cast<float*>(o);
-  if (d == 64) return launch_probe<64>(stage, grid, st, qb, kb, vb, of, hq, hkv, n, s, zero);
-  if (d == 128) return launch_probe<128>(stage, grid, st, qb, kb, vb, of, hq, hkv, n, s, zero);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64) {
+    probe_kernel<64><<<grid, kThreads, 0, st>>>(qb, kb, vb, of, hq, hkv, n, s, zero);
+  } else {
+    probe_kernel<128><<<grid, kThreads, 0, st>>>(qb, kb, vb, of, hq, hkv, n, s, zero);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out = x + 1 over n elements, x and out contiguous and 16-byte aligned,

@@ -1,15 +1,18 @@
-// The stage probes copy, qk and pv for Hopper (sm_90a): the dense forward's
-// block (flash_fwd_sm90.cuh's fwd_block) with all but one stage taken out,
-// its stage switch kStage, so that the forward's time splits into the K/V
-// stream, the QK products and the PV products by subtraction.
+// The stage probes copy, qk, pv, qk_kt and qk_packed for Hopper (sm_90a):
+// the dense forward's block (flash_fwd_sm90.cuh's fwd_block) with all but
+// one stage taken out, its stage switch kStage, so that the forward's time
+// splits into the K/V stream, the QK products and the PV products by
+// subtraction, and the QK stage runs over the operands the TPU's variants
+// ask about.
 //
 // Replaces flashattention_kernel_project_tpu/ops/probes.py::_make_probe
 // (:50, pallas_call :64) with _copy_kernel_factory (:83, copy_probe),
 // _qk_kernel_factory (:106, qk_probe) and _pv_kernel_factory (:262,
-// pv_probe), with JAX's outputs (ops/probes.py's plain versions): f32 [b,
-// hq, n, d], each row the sum over key tiles of k[j * block_k] +
-// v[j * block_k] (copy), its score sum sum_k q . k broadcast over d (qk),
-// or q[row, 0] * sum_k v[k] (pv).
+// pv_probe), qk_kt_probe (:129, pallas_call :162) and qk_packed_probe
+// (:184, pallas_call :236), with JAX's outputs (ops/probes.py's plain
+// versions): f32 [b, hq, n, d], each row the sum over key tiles of
+// k[j * block_k] + v[j * block_k] (copy), its score sum sum_k q . k
+// broadcast over d (qk, qk_kt, qk_packed), or q[row, 0] * sum_k v[k] (pv).
 //
 // Each probe keeps the forward's grid and block rows (block_rows: 128-row
 // ping-pong blocks, 64-row blocks where one wave holds the grid), its TMA
@@ -24,13 +27,24 @@
 // - pv: the RS wgmma of O += P V a tile on p's bf16 hi + lo pair (two
 //   products a 16-key slice), p = q[row, 0] at every key in the A
 //   fragments the softmax would fill (hi = q[row, 0], lo = 0); K streamed.
+// - qk_kt: qk's products with K transposed to [b, hkv, d, s] by the wrapper
+//   (as JAX transposes it in XLA): each tile two TMA boxes of 64 keys x d
+//   dim rows, read by the SS wgmma as its MN-major B operand (imm-trans-b
+//   1), as the PV product reads V; no V stream (JAX's kernel takes none).
+//   It answers qk_kt_probe's question, whether the NN form costs anything.
+// - qk_packed: qk at D = 2d over the operands the wrapper packs as JAX
+//   packs them in XLA (two heads' q rows side by side, [G * N, 2d], against
+//   block-diagonal [2 * block_k, 2d] K tiles: pairs = hkv / 2 heads of G * N
+//   rows and 2S keys), the zero quadrants multiplied as the TPU multiplies
+//   them; no V stream.
 // A change to the forward's loads or products moves its probes with it.
 // block_q sets no hardware tile here; block_k only says which key rows the
 // copy adds (the TPU kernel's tile rows).
 //
-// What bounds each on the H100: qk and pv do 2*N*S*d flops a head (pv
-// twice over, the pair) against ~2*(N + 2*S)*d bytes, far above the ~295
-// flop/byte ridge: the tensor cores' issue rate (989 TFLOP/s) bounds them.
+// What bounds each on the H100: qk, qk_kt and pv do 2*N*S*d flops a head
+// (pv twice over, the pair; qk_packed twice the unpacked products, the zero
+// quadrants) against ~2*(N + 2*S)*d bytes, far above the ~295 flop/byte
+// ridge: the tensor cores' issue rate (989 TFLOP/s) bounds them.
 // The copy moves K and V once per query block, N / rows times the K/V
 // bytes, mostly from L2; its device-memory bound is the inputs and the
 // output once.
@@ -39,9 +53,10 @@
 
 namespace fkp_sm90 {
 
-// Probe stage kStage (kProbeCopy, kProbeQK or kProbePV) at head dim D in
-// blocks of kRows query rows: maps as flash_fwd_sm90_kernel's; o [b, hq, n,
-// D] f32.
+// Probe stage kStage (kProbeCopy, kProbeQK, kProbePV, kProbeQKT or
+// kProbePacked) at head dim D in blocks of kRows query rows: maps as
+// flash_fwd_sm90_kernel's (kProbeQKT: k over K^T, launch_probe's; kProbeQKT
+// and kProbePacked read no v map); o [b, hq, n, D] f32.
 template <int D, int kStage, int kRows>
 __global__ void __launch_bounds__(Block<kRows>::kThreads, 1)
     probe_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -64,10 +79,15 @@ int launch_probe(const FwdArgs& a, int block_k) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap qm, km, vm;
-  if (!encode_map(&qm, a.q, D, a.n, a.b * a.hq, kRows) ||
-      !encode_map(&km, a.k, D, a.s, a.b * a.hkv, kN) ||
-      !encode_map(&vm, a.v, D, a.s, a.b * a.hkv, kN)) {
+  // K^T [b*hkv, D, s]: boxes of 64 keys (128 bytes, swizzled) x D dim
+  // rows, keys past s zero-filled; no V map where the stage reads no V
+  CUtensorMap qm, km, vm{};
+  const bool k_ok = kStage == kProbeQKT
+                        ? encode_map(&km, a.k, a.s, D, a.b * a.hkv, D)
+                        : encode_map(&km, a.k, D, a.s, a.b * a.hkv, kN);
+  if (!encode_map(&qm, a.q, D, a.n, a.b * a.hq, kRows) || !k_ok ||
+      (stage_reads_v(kStage) &&
+       !encode_map(&vm, a.v, D, a.s, a.b * a.hkv, kN))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((a.n + kRows - 1) / kRows, a.hq, a.b);
@@ -94,10 +114,12 @@ int launch_stage(int d, const FwdArgs& a, int block_k) {
 
 }  // namespace fkp_sm90
 
-// One probe stage on the Hopper forward's block (0 copy, 1 qk, 2 pv): q [b,
-// hq, n, d], k and v [b, hkv, s, d] bf16, contiguous and 16-byte aligned; o
-// [b, hq, n, d] f32. d in {64, 128}, n and s >= 1, hq a multiple of hkv,
-// block_k >= 1 (the copy's key rows j * block_k). Returns
+// One probe stage on the Hopper forward's block (0 copy, 1 qk, 2 pv, 4 qk
+// with K^T, 5 qk over the packed operands): q [b, hq, n, d], k and v [b,
+// hkv, s, d] bf16, contiguous and 16-byte aligned (stage 4: k is K^T [b,
+// hkv, d, s], s a multiple of 8; stages 4 and 5 read no v, which may be
+// null); o [b, hq, n, d] f32. d in {64, 128}, n and s >= 1, hq a multiple
+// of hkv, block_k >= 1 (the copy's key rows j * block_k). Returns
 // cudaGetLastError() after the launch (or the error of the instance's
 // shared-memory attribute), or cudaErrorInvalidValue without one for
 // arguments outside these or inputs a TMA map cannot describe.
@@ -105,7 +127,8 @@ extern "C" int fkp_probe_sm90(const void* q, const void* k, const void* v,
                               void* o, int b, int hq, int hkv, int n, int s,
                               int d, int stage, int block_k, void* stream) {
   if (n < 1 || s < 1 || hkv < 1 || hq % hkv || block_k < 1 ||
-      (d != 64 && d != 128)) {
+      (d != 64 && d != 128) ||
+      (fkp_sm90::stage_reads_v(stage) && v == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   fkp_sm90::FwdArgs a{};
@@ -126,6 +149,10 @@ extern "C" int fkp_probe_sm90(const void* q, const void* k, const void* v,
       return fkp_sm90::launch_stage<fkp_sm90::kProbeQK>(d, a, block_k);
     case fkp_sm90::kProbePV:
       return fkp_sm90::launch_stage<fkp_sm90::kProbePV>(d, a, block_k);
+    case fkp_sm90::kProbeQKT:
+      return fkp_sm90::launch_stage<fkp_sm90::kProbeQKT>(d, a, block_k);
+    case fkp_sm90::kProbePacked:
+      return fkp_sm90::launch_stage<fkp_sm90::kProbePacked>(d, a, block_k);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -161,7 +161,9 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory
-// (descriptors), both K-major; scale_d == 0 overwrites D.
+// (descriptors); kTransA / kTransB = 1 read A / B MN-major (transposed),
+// 0 K-major; scale_d == 0 overwrites D.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -173,7 +175,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -187,7 +189,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (each warp's 16

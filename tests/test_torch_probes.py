@@ -51,16 +51,23 @@ def test_probe_matches_jax(name):
         assert rel_l2(to, jo) <= SUM_ORDER_TOL
 
 
-@pytest.mark.parametrize("name", ["copy_probe", "qk_probe", "pv_probe"])
+@pytest.mark.parametrize("name", ["copy_probe", "qk_probe", "pv_probe",
+                                  "qk_kt_probe", "qk_packed_probe"])
 def test_probe_matches_jax_at_the_hopper_blocks_tails(name):
-    """copy, qk and pv run on the Hopper forward's block on the card (rows
-    in blocks of 64 or 128, keys in tiles of 128): here N = 192 and S = 320,
-    multiples of 64 that end inside a 128-row block and a 128-key tile,
-    with blocks of 64 (the copy adds a row every 64 keys, two a key tile),
-    held against JAX's on the same inputs."""
-    q, k, v = _inputs(8, [(1, 4, 192, 32), (1, 2, 320, 32), (1, 2, 320, 32)])
-    jo, to = _both(name, (q, k, v), block_q=64, block_k=64)
-    assert to.shape == jo.shape == (1, 4, 192, 32)
+    """copy, qk, pv, qk_kt and qk_packed run on the Hopper forward's block on
+    the card (rows in blocks of 64 or 128, keys in tiles of 128): here N =
+    192 and S = 320, multiples of 64 that end inside a 128-row block and a
+    128-key tile, with blocks of 64 (the copy adds a row every 64 keys, two
+    a key tile; qk_packed's 8/4 heads make 2 pairs of 384 rows and 640
+    keys), held against JAX's on the same inputs."""
+    if name == "qk_packed_probe":
+        arrays = _inputs(9, [(1, 8, 192, 32), (1, 4, 320, 32)])
+        want = (1, 2, 2, 192, 64)
+    else:
+        arrays = _inputs(8, [(1, 4, 192, 32), (1, 2, 320, 32), (1, 2, 320, 32)])
+        want = (1, 4, 192, 32)
+    jo, to = _both(name, arrays, block_q=64, block_k=64)
+    assert to.shape == jo.shape == want
     if name == "copy_probe":
         np.testing.assert_allclose(to, jo, rtol=EXACT_RTOL)
     else:
@@ -70,18 +77,45 @@ def test_probe_matches_jax_at_the_hopper_blocks_tails(name):
 @pytest.mark.parametrize("source,enum", [("flash_fwd_sm90.cuh", "FwdStage"),
                                          ("probes.cu", "Stage")])
 def test_stage_numbers_are_the_kernels(source, enum):
-    """The stage numbers the wrapper passes are the kernels' own: copy, qk
-    and pv csrc/flash_fwd_sm90.cuh's probe stages (probes_sm90.cu), the
-    chain, qk_kt and qk_packed csrc/probes.cu's."""
+    """The stage numbers the wrapper passes are the kernels' own: copy, qk,
+    pv, qk_kt and qk_packed csrc/flash_fwd_sm90.cuh's probe stages
+    (probes_sm90.cu), whose kForward (the whole forward) is none of them;
+    the chain alone csrc/probes.cu's."""
     path = os.path.join(os.path.dirname(probes.__file__), os.pardir, "csrc", source)
     with open(path) as f:
         body = re.search(rf"enum {enum} : int {{([^}}]*)}}", f.read()).group(1)
-    got = {name: int(value) for name, value in re.findall(r"(k\w+) = (\d+)", body)}
-    want = {"flash_fwd_sm90.cuh": dict(kProbeCopy=probes._COPY, kProbeQK=probes._QK,
-                                       kProbePV=probes._PV),
-            "probes.cu": dict(kChain=probes._CHAIN, kQKT=probes._QKT,
-                              kPacked=probes._PACKED)}[source]
+    got = {name: int(value) for name, value in re.findall(r"(k\w+) = (-?\d+)", body)}
+    if source == "probes.cu":
+        assert got == dict(kChain=probes._CHAIN)
+        return
+    want = dict(kProbeCopy=probes._COPY, kProbeQK=probes._QK, kProbePV=probes._PV,
+                kProbeQKT=probes._QKT, kProbePacked=probes._PACKED)
     assert {name: got[name] for name in want} == want
+    assert got["kForward"] not in range(6)
+
+
+@pytest.mark.parametrize("stage", range(7))
+def test_probe_route(stage):
+    """Which C entry a stage's CUDA launch calls and the sizes it passes,
+    from CPU tensors: every stage but the chain on the Hopper block's
+    fkp_probe_sm90, qk_packed at its packed operands' sizes (pairs as both
+    head counts, G * N rows, 2S keys, 2d); no stage 6."""
+    b, hq, hkv, n, s, d = 2, 8, 4, 192, 320, 32
+    q, k = torch.zeros(b, hq, n, d), torch.zeros(b, hkv, s, d)
+    if stage == 6:
+        with pytest.raises(ValueError, match="no probe stage"):
+            probes.probe_route(stage, q, k)
+        return
+    entry, sizes = probes.probe_route(stage, q, k)
+    if stage == probes._CHAIN:
+        assert (entry, sizes) == ("fkp_probe", (hq, hkv, n, s, d))
+    elif stage == probes._PACKED:
+        assert (entry, sizes) == ("fkp_probe_sm90", (2, 2, 2 * n, 2 * s, 2 * d))
+        q_in, kp = probes._pack(q, k, 64)
+        assert sizes == (q_in.shape[1], kp.shape[1], q_in.shape[2], kp.shape[2],
+                         kp.shape[3])
+    else:
+        assert (entry, sizes) == ("fkp_probe_sm90", (hq, hkv, n, s, d))
 
 
 def test_copy_probe_reads_each_tiles_first_row():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Compare builds of the dense attention forward (kernels 1 and 2), or of
-its stage probes copy, qk and pv (row 22), on one card, in turns.
+its stage probes copy, qk and pv (row 22), qk_kt and qk_packed (row 23),
+on one card, in turns.
 
     python3 tools/ab_dense_fwd.py [probes] [NAME=CSRC_DIR[:FLAG,...] ...]
 
@@ -16,16 +17,24 @@ full), d=64, the training band and the 512 serving prefill, the builds in
 turns (forward, then reverse order, the minimum of the two), beside SDPA.
 
 probes: each NAME=CSRC_DIR (and "this", this checkout's csrc/) builds its
-probes.cu (with probes_sm90.cu where it has it) and common.cu; copy, qk
-and pv are called on probes_sm90.cu's entry where the build has it (the
-Hopper forward's block), else on probes.cu's (a parent commit's mma.sync
-template, with its own arguments). Every build is held to the plain
-versions (copy within 1e-6 relative, qk and pv rel-L2 1e-5) at PROBE_CHECKS,
-then timed at profile_attention.py's shape (1 x 16/4 x 4096 x 128,
-non-causal, block_k 512) and at d = 64, the builds in turns beside this
-checkout's fused forward (stable and stable=False) at the same shape,
-with the stages' sum against the fused forward and each bound (the
-function's, and pv's with p's bf16 pair: two products).
+probes.cu (with probes_sm90.cu where it has it) and common.cu; each stage
+is called on probes_sm90.cu's entry where the build's entry takes it (the
+Hopper forward's block: copy, qk and pv wherever the build has that
+source, qk_kt and qk_packed where it has kProbeQKT), else on probes.cu's
+fkp_probe (an older commit's template, with its own arguments), the
+kernel alone on operands built before (K^T, the packed q and K). Every
+build is held to the
+plain versions (copy within 1e-6 relative, the products rel-L2 1e-5) at
+PROBE_CHECKS (qk_packed at d / 2), then timed at profile_attention.py's
+shape (1 x 16/4 x 4096 x 128, non-causal, block_k 512) and at d = 64, the
+builds in turns beside this checkout's fused forward (stable and
+stable=False) at the same shape; qk_packed at d / 2 (block_k 512), the
+products of qk at d. Printed: each stage against its bound (the
+function's; pv's also with p's bf16 pair, two products; qk_packed's over
+its packed products and over the unpacked ones), copy + qk + pv against the
+fused forward, and this checkout's whole calls of qk_kt_probe and
+qk_packed_probe (the torch transpose or packing included) beside the
+transpose and the packing alone.
 """
 
 import ctypes
@@ -80,15 +89,18 @@ def build(name, csrc, flags, nvcc, nvcc_flags, out_dir):
 
 PROBE_CHECKS = [  # b, hq, hkv, n, s, d, block_k
     (1, 16, 4, 4096, 4096, 128, 512), (2, 4, 2, 192, 320, 128, 64),
-    (2, 4, 2, 192, 320, 64, 64), (1, 16, 4, 1024, 1024, 64, 128)]
+    (2, 4, 2, 192, 320, 64, 64), (1, 16, 4, 1024, 1024, 64, 128),
+    (4, 16, 4, 192, 320, 128, 64)]
 PROBE_TIMES = [128, 64]  # d at 1 x 16/4 x 4096, non-causal
-STAGES = {"copy": 0, "qk": 1, "pv": 2}
+STAGES = {"copy": 0, "qk": 1, "pv": 2, "qk_kt": 4, "qk_packed": 5}
 
 
 def build_probes(name, csrc, flags, nvcc, nvcc_flags, out_dir):
-    """probe(stage, q, k, v, block_k, out) over a library built from csrc's
-    probe sources: probes_sm90.cu's entry where it has it, else
-    probes.cu's (the old signature, with block_k)."""
+    """probe(stage, q, k, v, block_k, out, sizes) over a library built from
+    csrc's probe sources, sizes (hq, hkv, n, s, d) as ops/probes.py's
+    probe_route gives them: probes_sm90.cu's entry for the stages it takes,
+    else probes.cu's (without block_k since probes_sm90.cu exists, with it
+    before)."""
     srcs = [f for f in ("probes.cu", "probes_sm90.cu", "common.cu")
             if os.path.exists(os.path.join(csrc, f))]
     objs = [os.path.join(out_dir, f"pr_{name}.{f}.o") for f in srcs]
@@ -109,18 +121,28 @@ def build_probes(name, csrc, flags, nvcc, nvcc_flags, out_dir):
                     *objs, "-o", lib], check=True)
     cdll = ctypes.CDLL(lib)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    new = "probes_sm90.cu" in srcs
-    fn = cdll.fkp_probe_sm90 if new else cdll.fkp_probe
-    fn.argtypes = [vp] * 4 + [i32] * 8 + ([vp] if new else [ctypes.c_float, vp])
-    fn.restype = i32
+    sm90_stages = set()
+    if "probes_sm90.cu" in srcs:
+        with open(os.path.join(csrc, "probes_sm90.cu")) as f:
+            sm90_stages = {0, 1, 2} | ({4, 5} if "kProbeQKT" in f.read() else set())
+        cdll.fkp_probe_sm90.argtypes = [vp] * 4 + [i32] * 8 + [vp]
+        cdll.fkp_probe_sm90.restype = i32
+    cdll.fkp_probe.argtypes = [vp] * 4 + [i32] * (7 if sm90_stages else 8) + [
+        ctypes.c_float, vp]
+    cdll.fkp_probe.restype = i32
 
-    def probe(stage, q, k, v, block_k, out):
+    def probe(stage, q, k, v, block_k, out, sizes):
         import torch
 
-        tail = [] if new else [0.0]
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
-                q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], stage,
-                block_k, *tail, torch.cuda.current_stream().cuda_stream)
+        args = [q.data_ptr(), k.data_ptr(), 0 if v is None else v.data_ptr(),
+                out.data_ptr(), q.shape[0], *sizes, stage]
+        stream = torch.cuda.current_stream().cuda_stream
+        if stage in sm90_stages:
+            rc = cdll.fkp_probe_sm90(*args, block_k, stream)
+        elif sm90_stages:
+            rc = cdll.fkp_probe(*args, 0.0, stream)
+        else:
+            rc = cdll.fkp_probe(*args, block_k, 0.0, stream)
         if rc:
             raise SystemExit(f"{name} probe stage {stage}: CUDA error {rc}")
         return out
@@ -155,17 +177,37 @@ def probes_main(specs) -> int:
                 torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16(),
                 torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16())
 
-    def run(name, stage, q, k, v, block_k):
-        return entries[name](STAGES[stage], q, k, v, block_k,
-                             torch.empty(q.shape, dtype=torch.float32, device=dev))
+    def operands(stage, q, k, v, block_k):
+        """The kernel's operands for the caller's q, k, v (K^T for qk_kt, the
+        packed q and K for qk_packed), and its sizes."""
+        _, sizes = pr.probe_route(STAGES[stage], q, k)
+        if stage == "qk_kt":
+            return (q, k.transpose(-1, -2).contiguous(), None), sizes
+        if stage == "qk_packed":
+            return (*pr._pack(q, k, block_k), None), sizes
+        return (q, k, v), sizes
+
+    def run(name, stage, ops, sizes, block_k):
+        out = torch.empty(ops[0].shape[0], sizes[0], sizes[2], sizes[4],
+                          dtype=torch.float32, device=dev)
+        return entries[name](STAGES[stage], *ops, block_k, out, sizes)
+
+    def halves(q, k, v):
+        """q, k, v cut to half their width: qk_packed's inputs, whose
+        packed width is d."""
+        return [t[..., :t.shape[-1] // 2].contiguous() for t in (q, k, v)]
 
     for b, hq, hkv, n, s, d, block_k in PROBE_CHECKS:
         q, k, v = inputs(b, hq, hkv, n, s, d)
+        qh, kh, vh = halves(q, k, v)
         plain = dict(copy=pr._copy_plain(q, k, v, block_k), qk=pr._qk_plain(q, k),
-                     pv=pr._pv_plain(q, v))
-        for name in entries:
-            for stage, want in plain.items():
-                got = run(name, stage, q, k, v, block_k)
+                     pv=pr._pv_plain(q, v), qk_kt=pr._qk_plain(q, k),
+                     qk_packed=pr._packed_plain(qh, kh).reshape(b, hkv // 2, -1, d))
+        for stage, want in plain.items():
+            ops = operands(stage, *((qh, kh, vh) if stage == "qk_packed" else (q, k, v)),
+                           block_k)
+            for name in entries:
+                got = run(name, stage, *ops, block_k)
                 torch.cuda.synchronize()
                 if stage == "copy":
                     err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
@@ -176,31 +218,56 @@ def probes_main(specs) -> int:
                 if not (ok and torch.isfinite(got).all()):
                     raise SystemExit(f"{name} {stage} {b}x{hq}/{hkv}x{n}x{s}x{d} "
                                      f"block_k {block_k}: error {err:.3e}")
-    print(f"{len(entries)} builds' copy, qk and pv held to plain at "
-          f"{len(PROBE_CHECKS)} shapes | {label}", flush=True)
+    print(f"{len(entries)} builds' {', '.join(STAGES)} held to plain at "
+          f"{len(PROBE_CHECKS)} shapes (qk_packed at d / 2) | {label}", flush=True)
     for d in PROBE_TIMES:
         q, k, v = inputs(1, 16, 4, 4096, 4096, d)
-        fns = {f"{name} {stage}": (lambda name=name, stage=stage: run(name, stage, q, k, v, 512))
+        qh, kh, vh = halves(q, k, v)
+        ops = {stage: operands(stage, *((qh, kh, vh) if stage == "qk_packed"
+                                        else (q, k, v)), 512)
+               for stage in STAGES}
+        fns = {f"{name} {stage}": (lambda name=name, stage=stage:
+                                   run(name, stage, *ops[stage], 512))
                for name in entries for stage in STAGES}
         fns["fused forward"] = lambda: fa.flash_attention(q, k, v, causal=False)
         fns["fused forward, stable=False"] = lambda: fa.flash_attention(
             q, k, v, causal=False, stable=False)
+        fns["this qk_kt_probe"] = lambda: pr.qk_kt_probe(q, k, v, block_q=512,
+                                                         block_k=512)
+        fns["this qk_packed_probe"] = lambda: pr.qk_packed_probe(
+            qh, kh, block_q=256, block_k=512)
+        fns["transpose"] = lambda: k.transpose(-1, -2).contiguous()
+        fns["pack"] = lambda: pr._pack(qh, kh, 512)
         ms = cs.time_turns(fns, dev)
         flops = 2 * 16 * 4096 * 4096 * d
-        bnd = {"copy": cs.bound(0, 2 * cs.nbytes(k) + 4 * q.numel()),
-               "qk": cs.bound(flops, cs.nbytes(q, k) + 4 * q.numel()),
-               "pv": cs.bound(flops, cs.nbytes(v) + 4 * q.numel() + 2 * 16 * 4096)}
+        out_bytes = 4 * q.numel()
+        bnd = {"copy": cs.bound(0, 2 * cs.nbytes(k) + out_bytes),
+               "qk": cs.bound(flops, cs.nbytes(q, k) + out_bytes),
+               "pv": cs.bound(flops, cs.nbytes(v) + out_bytes + 2 * 16 * 4096),
+               "qk_kt": cs.bound(flops, cs.nbytes(q, k) + out_bytes),
+               "qk_packed": cs.bound(flops, cs.nbytes(qh, kh) + out_bytes)}
         pair = cs.bound(2 * flops, 0)["bound_ms"]
+        unpacked = cs.bound(flops // 2, cs.nbytes(qh, kh) + out_bytes)["bound_ms"]
         fused = ms["fused forward"]
+
+        def note(name, stage):
+            t, b_ = ms[f"{name} {stage}"], bnd[stage]["bound_ms"]
+            extra = (f"; {pair / t:.1%} of the pair's {pair:.4f}" if stage == "pv" else
+                     f"; {unpacked / t:.1%} of the unpacked {unpacked:.4f}"
+                     if stage == "qk_packed" else "")
+            return f"{stage} {t:.4f} ms ({b_ / t:.1%} of its bound {b_:.4f}{extra})"
         for name in entries:
-            total = sum(ms[f"{name} {stage}"] for stage in STAGES)
-            print(f"probes 1x16/4x4096x{d}, block_k 512, {name}: " + " | ".join(
-                f"{stage} {ms[f'{name} {stage}']:.4f} ms ({bnd[stage]['bound_ms'] / ms[f'{name} {stage}']:.1%} "
-                f"of its bound {bnd[stage]['bound_ms']:.4f}"
-                + (f"; {pair / ms[f'{name} pv']:.1%} of the pair's {pair:.4f})" if stage == "pv" else ")")
-                for stage in STAGES)
-                + f" | copy + qk + pv {total:.4f} vs the fused forward {fused:.4f} "
-                f"(stable=False {ms['fused forward, stable=False']:.4f}) | {label}", flush=True)
+            total = sum(ms[f"{name} {stage}"] for stage in ("copy", "qk", "pv"))
+            print(f"probes 1x16/4x4096x{d} (qk_packed at d {d // 2}), block_k 512, "
+                  f"{name}, kernels alone: "
+                  + " | ".join(note(name, stage) for stage in STAGES)
+                  + f" | copy + qk + pv {total:.4f} vs the fused forward {fused:.4f} "
+                  f"(stable=False {ms['fused forward, stable=False']:.4f}) | {label}",
+                  flush=True)
+        print(f"whole calls at d {d} (qk_packed d {d // 2}, block_q 256), this: "
+              f"qk_kt_probe {ms['this qk_kt_probe']:.4f} ms (K^T in torch alone "
+              f"{ms['transpose']:.4f}), qk_packed_probe {ms['this qk_packed_probe']:.4f} "
+              f"ms (the packing alone {ms['pack']:.4f}) | {label}", flush=True)
     return 0
 
 
