@@ -90,10 +90,12 @@ width, with random weights from a seed:
     plain version, against the kernel without the option (kernel 7 or
     12) and timed beside it and the bf16 kernel on the dequantized cache;
     q_int8=True on e4m3 pages and with gather=False must run the ordinary
-    kernel bit for bit; kernel 8 must equal its plain version bit for
-    bit; _fwd(guard=True) at bench.py's shape, the d64 rung (packed, a row
-    counted once for a KV pair) and _fwd_q_cuda(guard=True) over an int8
-    cache: count 0 with O and LSE
+    kernel bit for bit; kernel 8's partials must equal its plain version's
+    bit for bit in m and y, its whole call (one launch, the split merge on
+    the card) the merged plain partials (bit for bit at one split), also at
+    its tile and split edges; _fwd(guard=True) at bench.py's shape, the d64
+    rung (packed, a row counted once for a KV pair) and
+    _fwd_q_cuda(guard=True) over an int8 cache: count 0 with O and LSE
     bit-equal to the unguarded kernel on bounded inputs, 1 on the JAX
     test's crafted row, plain's count on q x 60, timed beside the
     unguarded kernel;
@@ -108,7 +110,7 @@ width, with random weights from a seed:
     4096 f32 beside torch's x + 1); qk_kt at d 64 and 128 and qk_packed at
     d 32 and 64 held to plain also at the tails of the Hopper block, and
     each one's kernel alone and whole call timed beside qk at the same
-    flops; the chain's exp2 count in the SASS;
+    flops; the chain's exp2 count in the SASS of its Hopper instance;
     then ab_paged_int8.py's slots 2, 3 and 4 over its int8 and bf16 pools
     (each depth bit-equal to slots 2) and copy_only (bit-equal to its plain
     version), timed beside kernel 10;
@@ -6244,6 +6246,29 @@ def phase_ladder(device, label):
 # this and 1.1 times its plain version's distance on the same inputs
 MXU_VS_CAST_TOL = 2e-2
 QI8_VS_Q_TOL = 2e-2     # q_int8=True against q_int8=False, the same bound
+# kernel 8's partials against its plain version: m and y bit for bit (exact
+# integer products, the same f32 steps and expf), l (a sum in the block's
+# order) within MXU_L_RTOL relative; the whole call, merged on the card,
+# against merge_partials of the plain partials: bit for bit at one split
+# (the block divides its own rows, merge_partials' arithmetic), else within
+# MXU_MERGE_TOL rel-L2 (the merge's exp and sum order are the card's)
+MXU_L_RTOL = 1e-6
+MXU_MERGE_TOL = 1e-3
+# kernel 8 at its tile and split edges: (b, hq, hkv, s, d, n_splits, lengths,
+# (window, sinks) or None): G 1, 2, 4 and 8 at d 64 and 128; splits of 32
+# keys, of 96 (the second starts inside a 64-key tile) and one of 4096
+# (JAX's split, the most shared memory at G 8); lengths 0, 1 and S
+MXU_EDGES = [
+    (4, 4, 4, 200, 64, 7, [0, 1, 33, 200], None),
+    (4, 8, 4, 200, 128, 7, [0, 1, 64, 200], None),
+    (4, 8, 4, 200, 64, 3, [0, 1, 150, 200], (60, 3)),
+    (4, 8, 2, 200, 64, 3, [0, 1, 97, 200], (100, 4)),
+    (4, 16, 4, 384, 128, 3, [0, 1, 129, 384], (100, 4)),
+    (4, 16, 2, 200, 128, 3, [0, 1, 95, 200], None),
+    (4, 32, 4, 200, 64, 7, [0, 1, 31, 200], None),
+    (2, 8, 8, 4096, 128, 1, [4096, 1], None),
+    (2, 16, 2, 4096, 128, 1, [0, 4096], None),
+]
 # q_int8=True against its plain version: 2.4x the largest distance read on
 # the H100 (4.1e-4 at run_all.py's rung), under the ordinary kernel's own
 # distance from it (6.8e-3 there, 1.7e-3 at the serving shape), so a kernel
@@ -6263,20 +6288,82 @@ PAGED_I8 = [  # (b, hq, hkv, d, page, max_pages, lengths)
 GUARD = [(1, 16, 4, 4096, 128), (1, 16, 4, 4096, 64)]  # bench.py's; the d64 rung
 
 
+def hold_mxu(what, parts, plain_parts, o, lengths, n_splits):
+    """Kernel 8 against its plain version: the partials (m and y bit for
+    bit, l within MXU_L_RTOL relative), the whole call against
+    merge_partials of the plain partials (bit for bit at one split, else
+    MXU_MERGE_TOL rel-L2) and its empty rows exactly 0. Returns (the whole
+    call's rel-L2, its max-abs)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+
+    (m, l, y), (pm, pl, py) = parts, plain_parts
+    l_err = float(((l - pl).abs() / pl.abs().clamp_min(1e-30)).max())
+    if not (torch.equal(m, pm) and torch.equal(y, py) and l_err <= MXU_L_RTOL):
+        raise AssertionError(
+            f"{what}: partials m equal {torch.equal(m, pm)}, y equal "
+            f"{torch.equal(y, py)} (max-abs {float((y - py).abs().max()):.3e}), "
+            f"l rel {l_err:.3e} > {MXU_L_RTOL}")
+    b, hq, d = o.shape
+    po = fd.merge_partials(pm, pl, py).reshape(b, hq, d).bfloat16()
+    err = _rel_l2(o, po)
+    max_abs = float((o.float() - po.float()).abs().max())
+    if not (torch.equal(o, po) if n_splits == 1 else err <= MXU_MERGE_TOL):
+        raise AssertionError(f"{what}: the whole call {err:.3e} rel-L2 from the "
+                             f"merged plain partials at {n_splits} splits")
+    for row, n in enumerate(lengths.tolist()):
+        if n == 0 and float(o[row].float().abs().max()) != 0.0:
+            raise AssertionError(f"{what}: row {row} is empty but not 0")
+    return err, max_abs
+
+
+def mxu_edges(device, label, shapes=MXU_EDGES):
+    """Kernel 8 at `shapes` (MXU_EDGES), each held by `hold_mxu`."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=device).manual_seed(103)
+    errs = []
+    for b, hq, hkv, s, d, n_splits, lens, band in shapes:
+        q = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+        cache = (*quantized(gen, device, (b, hkv, s, d), "int8"),
+                 *quantized(gen, device, (b, hkv, s, d), "int8"))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        window, sinks = band or (0, 0)
+        block_s = fd.mxu_block_s(s, n_splits)
+        args = (q, *cache, lengths, n_splits, block_s, d ** -0.5, window, sinks)
+        what = (f"flash_decode_mxu b{b} {hq}/{hkv} s{s} d{d} {n_splits}x{block_s} "
+                f"lengths {lens} window {window} sinks {sinks}")
+        err, _ = hold_mxu(what, fd._decode_partials_mxu_cuda(*args),
+                          fd._decode_partials_mxu_plain(*args),
+                          fd._decode_mxu_cuda(*args), lengths, n_splits)
+        errs.append(f"G{hq // hkv} d{d} {n_splits}x{block_s}"
+                    f"{' window' if window else ''} {err:.1e}")
+    log(f"flash_decode_mxu at its edges, partials bit-equal in m and y, l within "
+        f"{MXU_L_RTOL}, whole call vs merged plain (rel-L2): " + ", ".join(errs)
+        + f" [{label}]")
+
+
 def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8):
     """Kernel 8 (flash_decode_int8(mxu=True)) and kernel 12's int8 score
     product (paged_flash_decode_quant(q_int8=True)) over int8 caches: every
     call first, with the launch counters at 0 before them (each must have
     launched its own kernel once, and the cast kernels never); then each
-    output against its plain version (kernel 8 bit for bit, kernel 12's
-    q_int8 instance rel-L2 QI8_VS_PLAIN_TOL), against the kernel without
-    the option on the same cache (kernel 7 or 12, within JAX's 2e-2),
-    empty rows exactly 0; q_int8=True on e4m3 pages and with
-    gather=False must launch the ordinary kernel and equal q_int8=False bit
-    for bit. Each kernel timed beside its plain version, the kernel without
-    the option and the bf16 kernel on the dequantized cache. Returns the
-    two JSON entries (library_ms null: no PyTorch call attends an int8
-    cache), timed at the first (run_all.py's) shape."""
+    output against its plain version (kernel 8 by `hold_mxu`: its partials
+    bit for bit in m and y, its whole call against the merged plain
+    partials; kernel 12's q_int8 instance rel-L2 QI8_VS_PLAIN_TOL), against
+    the kernel without the option on the same cache (kernel 7 or 12, within
+    JAX's 2e-2), empty rows exactly 0, one device operation a call and a
+    CUDA graph's replay bit-equal to it; kernel 8 at its edges
+    (`mxu_edges`); q_int8=True on e4m3 pages and with gather=False must
+    launch the ordinary kernel and equal q_int8=False bit for bit. Each
+    kernel timed beside its plain version, the kernel without the option
+    and the bf16 kernel on the dequantized cache (kernel 8: its whole call,
+    its partials alone, kernel 7's whole call). Returns the two JSON entries
+    (library_ms null: no PyTorch call attends an int8 cache), timed at the
+    first (run_all.py's) shape."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
@@ -6336,12 +6423,11 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
         block_s = fd.mxu_block_s(s, n_splits)
         args = (c["q"], *c["cache"], lengths, n_splits, block_s, d ** -0.5,
                 window or 0, sinks)
-        po = fd.merge_partials(*fd._decode_partials_mxu_plain(*args))
-        po = po.reshape(b, hq, d).bfloat16()
-        err, max_abs = kernel_8bit_check("flash_decode_mxu", o, po, mxu, "int8")
-        if not torch.equal(o, po):
-            raise AssertionError(f"flash_decode_mxu is not bit-equal to its "
-                                 f"plain version: max-abs {max_abs:.3e}")
+        plain_parts = fd._decode_partials_mxu_plain(*args)
+        po = fd.merge_partials(*plain_parts).reshape(b, hq, d).bfloat16()
+        kernel_8bit_check("flash_decode_mxu", o, po, mxu, "int8")
+        err, max_abs = hold_mxu("flash_decode_mxu", fd._decode_partials_mxu_cuda(*args),
+                                plain_parts, o, lengths, n_splits)
         o7 = fd.flash_decode_int8(c["q"], *c["cache"], lengths, window=window,
                                   sinks=sinks)
         cast, plain_cast = _rel_l2(o, o7), _rel_l2(po, o7)
@@ -6350,12 +6436,23 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
                 f"flash_decode_mxu {cast:.3e} from the cast kernel > "
                 f"max({MXU_VS_CAST_TOL}, 1.1 x plain's {plain_cast:.3e})")
         lens = lengths.tolist()
-        for row, n in enumerate(lens):
-            if n == 0 and float(o[row].float().abs().max()) != 0.0:
-                raise AssertionError(f"flash_decode_mxu row {row} is empty but not 0")
-        ms, plain_ms = time_pair(lambda: fd._decode_partials_mxu_cuda(*args),
-                                 lambda: fd._decode_partials_mxu_plain(*args),
-                                 device, iters=50)
+
+        def whole(args=args):
+            return fd._decode_mxu_cuda(*args)
+
+        def plain_whole(args=args, shape=(b, hq, d)):
+            parts = fd._decode_partials_mxu_plain(*args)
+            return fd.merge_partials(*parts).reshape(shape).bfloat16()
+
+        ops, graph_ops = device_ops(whole), graph_device_ops(whole)
+        if len(ops) != 1 or len(graph_ops) != 1:
+            raise AssertionError(f"flash_decode_mxu: one call ran {ops} (a "
+                                 f"captured call: {graph_ops}); one expected")
+        if not graph_bit_equal(whole):
+            raise AssertionError("flash_decode_mxu: a CUDA graph's replay differs")
+        ms, plain_ms = time_pair(whole, plain_whole, device, iters=50)
+        kernel_ms = time_ms(lambda: fd._decode_partials_mxu_cuda(*args), device,
+                            iters=50, graph=True)
         # kernel 7 (the cast kernel) at its own splits, against its plain
         # version, one launch a call
         n7 = fd.q_n_splits(b, hkv, s, d)
@@ -6377,22 +6474,26 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
                     platform.H100_INT8_OPS)
         shape = (f"b{b} hq{hq} hkv{hkv} s{s} d{d} n_splits{n_splits} "
                  f"block_s{block_s} window{window} sinks{sinks}")
-        log(f"flash_decode_mxu {shape} lengths={lens}: rel-L2 {err:.3e} vs "
-            f"plain, {cast:.3e} vs the cast kernel (plain {plain_cast:.3e}), "
-            f"max-abs {max_abs:.3e} | "
-            f"kernel {ms:.4f} ms ({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s "
-            f"of live K/V and scales, {bnd['bound_ms'] / ms:.1%} of its bound "
-            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}) vs plain partials "
-            f"{plain_ms:.4f} ms | the cast kernel (7), whole call, "
-            f"{cast_ms:.4f} ms (rel-L2 {err7:.3e} vs its plain version) | the "
-            f"bf16 decode (6), whole call, on the dequantized cache "
-            f"{bf16_ms:.4f} ms [{label}]")
-        times = dict(ms=ms, plain_ms=plain_ms, cast_ms=cast_ms, bf16_ms=bf16_ms,
-                     **bnd)
+        log(f"flash_decode_mxu {shape} lengths={lens}: partials bit-equal in m "
+            f"and y, whole call rel-L2 {err:.3e} vs the merged plain partials, "
+            f"{cast:.3e} vs the cast kernel (plain {plain_cast:.3e}), max-abs "
+            f"{max_abs:.3e} | one device operation a call ({ops}; captured: "
+            f"{graph_ops}), a CUDA graph's replay bit-equal | whole call "
+            f"{ms:.4f} ms ({bytes_8bit(live, hkv, d) / ms / 1e6:.1f} GB/s of live "
+            f"K/V and scales, {bnd['bound_ms'] / ms:.1%} of its bound "
+            f"{bnd['bound_ms']:.4f} ms, {bnd['bound_by']}), kernel (partials) "
+            f"{kernel_ms:.4f} ms vs plain partials and merge {plain_ms:.4f} ms | "
+            f"the cast kernel (7), whole call, {cast_ms:.4f} ms (rel-L2 "
+            f"{err7:.3e} vs its plain version) | the bf16 decode (6), whole "
+            f"call, on the dequantized cache {bf16_ms:.4f} ms [{label}]")
+        times = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                     cast_ms=cast_ms, bf16_ms=bf16_ms, **bnd)
         if i == 0:
             mxu.update(times, shape=shape)
         else:
             mxu.setdefault("extra", {})[shape] = times
+
+    mxu_edges(device, label)
 
     qi8 = dict(name="paged_decode_qi8", route="cuda",
                source=f"{PKG}/csrc/paged_decode_qi8.cu",
@@ -6639,11 +6740,15 @@ def _probe_entry(name, replaces, launches, source="probes.cu", **times):
                 library_ms=None, **times)
 
 
-# The stage probes copy, qk, pv, qk_kt and qk_packed on the Hopper forward's
-# block (csrc/probes_sm90.cu): (d, stage, block rows)
+# The stage probes copy, qk, pv, the softmax chain, qk_kt and qk_packed on
+# the Hopper forward's block (csrc/probes_sm90.cu): (d, stage, block rows)
 PROBE_SM90_OBJECT = "probes_sm90.cu"
 PROBE_SM90_KERNEL = "probe_sm90_kernel"
-PROBE_STAGES = {0: "copy", 1: "qk", 2: "pv", 4: "qk_kt", 5: "qk_packed"}
+PROBE_STAGES = {0: "copy", 1: "qk", 2: "pv", 3: "chain", 4: "qk_kt", 5: "qk_packed"}
+PROBE_NO_PRODUCTS = (0, 3)  # the copy and the chain issue no wgmma
+# the chain's exp2 of every score in the SASS: a thread's share of a
+# 128-key tile's scores (2 rows x 32 keys), in probe_sm90_kernel<128, 3, 128>
+CHAIN_EXP2_MIN = 64
 # qk_kt and qk_packed at the tails of the Hopper block (N 192 and S 320 end
 # inside a 128-row block and a 128-key tile; blocks of 64): (hq, hkv)
 PROBE_TAIL_HEADS = ((16, 4), (8, 4))
@@ -6651,23 +6756,25 @@ PROBE_TAIL = dict(n=192, s=320, block_q=64, block_k=64)
 
 
 def phase_probes_build(build_log: str, label):
-    """The probes' 20 instances on the forward's block (d 64 and 128; copy,
-    qk, pv, qk_kt, qk_packed; 64- and 128-row blocks) through `wgmma_gate`,
-    in probes_sm90.cu's object: no spill, no serialized wgmma, UTMALDG (the
-    forward's TMA ring) in each, HGMMA in each but the copy's, no
-    HMMA.16816 in any; with their registers from ptxas."""
+    """The probes' 24 instances on the forward's block (d 64 and 128; copy,
+    qk, pv, chain, qk_kt, qk_packed; 64- and 128-row blocks) through
+    `wgmma_gate`, in probes_sm90.cu's object: no spill, no serialized
+    wgmma, UTMALDG (the forward's TMA ring) in each, HGMMA in each but the
+    copy's and the chain's, no HMMA.16816 in any; with their registers from
+    ptxas."""
     instance = template_args(PROBE_SM90_KERNEL, 3)
     want = {(d, st, rows) for d in (64, 128) for st in PROBE_STAGES for rows in (64, 128)}
     counts = wgmma_gate(build_log, PROBE_SM90_KERNEL, instance,
                         {PROBE_SM90_OBJECT: lambda inst: True}, want,
                         need=("UTMALDG",))
     for (d, st, rows), c in counts.items():
-        if bool(c["HGMMA"]) != (st != 0):
+        if bool(c["HGMMA"]) != (st not in PROBE_NO_PRODUCTS):
             raise AssertionError(f"probe {PROBE_STAGES[st]} (d {d}, {rows} rows): "
                                  f"{c['HGMMA']} HGMMA")
     regs = ptxas_registers(build_log, instance)
     log(f"stage probes on the forward's block: {len(counts)} instances (d, stage 0 "
-        "copy / 1 qk / 2 pv / 4 qk_kt / 5 qk_packed, rows) built with no spill and no "
+        "copy / 1 qk / 2 pv / 3 chain / 4 qk_kt / 5 qk_packed, rows) built with no "
+        "spill and no "
         "serialized wgmma; SASS (HGMMA, "
         "UTMALDG, HMMA.16816), registers at launch: "
         + ", ".join(f"{inst}: {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA.16816']}, "
@@ -6682,13 +6789,13 @@ def phase_probes(device, label):
     block_k = 512, numpy seed 0): copy, qk, pv and the softmax chain, qk_kt
     beside qk, and kernel 1 at the same shape, stable and stable=False; then
     run_all.py's probe rungs: qk and pv at d64, qk_packed at d64 and the
-    stream copy at 8192 x 4096 f32 (and bf16). copy, qk, pv, qk_kt and
-    qk_packed run on the Hopper forward's block (csrc/probes_sm90.cu;
-    `phase_probes_build` gates their SASS), the chain and the stream copy
-    on csrc/probes.cu. Each launch counted, each output held against its
-    plain version (copy and chain within 1e-6, the products' rel-L2 within
-    1e-5, the stream copy bit for bit), each probe timed beside it (CUDA
-    graphs, in turns) and its bound; after the counted path, qk_kt at d 64
+    stream copy at 8192 x 4096 f32 (and bf16). copy, qk, pv, the chain,
+    qk_kt and qk_packed run on the Hopper forward's block
+    (csrc/probes_sm90.cu; `phase_probes_build` gates their SASS), the
+    stream copy on csrc/probes.cu. Each launch counted, each output held
+    against its plain version (copy and chain within 1e-6, the products'
+    rel-L2 within 1e-5, the stream copy bit for bit), each probe timed
+    beside it (CUDA graphs, in turns) and its bound; after the counted path, qk_kt at d 64
     and qk_packed at d 32 at the same shape, and both at d 64 and 128 (32
     and 64) at `PROBE_TAIL` with `PROBE_TAIL_HEADS`, held to plain; each
     one's kernel alone (through the entry, on K^T or the packed operands
@@ -6816,10 +6923,10 @@ def phase_probes(device, label):
 
     # the chain's exp2 of every score stays in the binary (a hoisted exp2
     # would leave a handful)
-    obj = os.path.join(_build.BUILD_DIR, "probes.cu.o")
-    sass = sass_counts(obj, "probe_kernelILi128EE", ("MUFU.EX2",))
-    log(f"probe chain SASS at d128: {sass}")
-    if sass["MUFU.EX2"] < 32:
+    obj = os.path.join(_build.BUILD_DIR, PROBE_SM90_OBJECT + ".o")
+    sass = sass_counts(obj, f"{PROBE_SM90_KERNEL}ILi128ELi3ELi128EE", ("MUFU.EX2",))
+    log(f"probe chain SASS at d128, 128-row blocks: {sass} (gate {CHAIN_EXP2_MIN})")
+    if sass["MUFU.EX2"] < CHAIN_EXP2_MIN:
         raise AssertionError(f"the chain's exp2 left its key loop: {sass}")
 
     # times, each beside its plain version, in turns, from CUDA graphs
@@ -6846,7 +6953,7 @@ def phase_probes(device, label):
     # or packing included), in turns beside qk at the same flops (qk_packed
     # at d / 2: its packed products are qk's at d)
     def alone(probe, stage, qq, kk, ops):
-        _, (hq_, _, n_, _, d_) = pr.probe_route(stage, qq, kk)
+        hq_, _, n_, _, d_ = pr.probe_sizes(stage, qq, kk)
         o_ = torch.empty(qq.shape[0], hq_, n_, d_, dtype=torch.float32, device=device)
         return lambda: pr._launch(probe, stage, qq, kk, ops, block_k, o_)
 
@@ -6887,7 +6994,8 @@ def phase_probes(device, label):
     flops = 2 * B * H * N * N * D
     flops64 = 2 * B * H * N * N * 64
     q_col = B * H * N * q.element_size()
-    exp2 = B * H * N * (N + N // 64)  # every score, and each tile's rescale
+    # every score, and each block_k tile's rescale of a row (JAX's chain)
+    exp2 = B * H * N * (N + N // PROBE_BLOCKS["block_k"])
     clock = max_sm_clock_hz()
     t_exp = exp2 / (MUFU_PER_SM_CLK * platform.H100_SMS * clock) * 1e3
     chain_bytes = bound(0, q_col + nbytes(out["chain"]))
@@ -6980,8 +7088,8 @@ def phase_probes(device, label):
                      shape=shape, **times("qk"), extra={shape64: times("qk64")}),
         _probe_entry("probe_pv", 262, got["probe_pv"], source=PROBE_SM90_OBJECT,
                      shape=shape, **times("pv"), extra={shape64: times("pv64")}),
-        _probe_entry("probe_softmax_chain", 287, got["probe_chain"], shape=shape,
-                     **times("chain")),
+        _probe_entry("probe_softmax_chain", 287, got["probe_chain"],
+                     source=PROBE_SM90_OBJECT, shape=shape, **times("chain")),
         _probe_entry("probe_qk_kt", 129, got["probe_qk_kt"], source=PROBE_SM90_OBJECT,
                      shape=shape, **times("qk_kt"), **qk_side["qk_kt d128"],
                      extra={shape64: qk_side["qk_kt d64"]}),

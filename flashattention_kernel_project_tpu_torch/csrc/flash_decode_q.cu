@@ -72,9 +72,9 @@ extern "C" int fkp_flash_decode_q(const void* q, const void* k,
 
 // The same call merged on the card: out [b, hq, d] bf16 takes the
 // normalised rows (0 for a row that sees no key). With n_splits > 1, m, l
-// and y (as fkp_flash_decode_q's) are the splits' workspace and b * hkv is
-// at most 2^18; with one split they are unread and may be null. Returns
-// as fkp_flash_decode_q.
+// and y (as fkp_flash_decode_q's, y 16-byte aligned) are the splits'
+// workspace and b * hkv is at most 2^18; with one split they are unread
+// and may be null. Returns as fkp_flash_decode_q.
 extern "C" int fkp_flash_decode_q_out(const void* q, const void* k,
                                       const void* k_scale, const void* v,
                                       const void* v_scale, const void* lengths,
@@ -86,6 +86,7 @@ extern "C" int fkp_flash_decode_q_out(const void* q, const void* k,
   if (!fkp_dec90::valid(b, hq, hkv, s, n_splits, block_s) || !out ||
       !k_scale || !v_scale ||
       (n_splits > 1 && (!m || !l || !y ||
+                        reinterpret_cast<uintptr_t>(y) % 16 ||
                         (long long)b * hkv > fkp_dec90::kMaxCounters))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

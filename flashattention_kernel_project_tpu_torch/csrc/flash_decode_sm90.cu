@@ -78,9 +78,9 @@ extern "C" int fkp_flash_decode(const void* q, const void* k, const void* v,
 
 // The same call merged on the card: out [b, hq, d] bf16 takes the
 // normalised rows (0 for a row that sees no key). With n_splits > 1, m, l
-// and y (as fkp_flash_decode's) are the splits' workspace and b * hkv is
-// at most 2^18; with one split they are unread and may be null. Returns
-// as fkp_flash_decode.
+// and y (as fkp_flash_decode's, y 16-byte aligned) are the splits'
+// workspace and b * hkv is at most 2^18; with one split they are unread
+// and may be null. Returns as fkp_flash_decode.
 extern "C" int fkp_flash_decode_out(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* out, void* m, void* l, void* y,
@@ -89,6 +89,7 @@ extern "C" int fkp_flash_decode_out(const void* q, const void* k,
                                     int window, int sinks, void* stream) {
   if (!fkp_dec90::valid(b, hq, hkv, s, n_splits, block_s) || !out ||
       (n_splits > 1 && (!m || !l || !y ||
+                        reinterpret_cast<uintptr_t>(y) % 16 ||
                         (long long)b * hkv > fkp_dec90::kMaxCounters))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

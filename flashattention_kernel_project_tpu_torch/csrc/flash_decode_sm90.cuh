@@ -7,7 +7,9 @@
 // cache (kernel 7, flash_decode_q_sm90_kernel below: the ring, the split
 // merge and the entries' contract, over byte tiles widened in registers)
 // is built by flash_decode_q.cu (int8, and the 8-bit entries) and
-// flash_decode_q_fp8.cu (e4m3), whose head says what it replaces.
+// flash_decode_q_fp8.cu (e4m3), whose head says what it replaces. The int8
+// x int8 decode (kernel 8, flash_decode_mxu.cu) takes this header's byte
+// tiles, window ranges and split merge (merge_rows, all three kernels').
 //
 // Replaces flashattention_kernel_project_tpu/ops/flash_decode.py::
 // _decode_kernel (:38, pallas_call :392), reached through flash_decode for
@@ -105,8 +107,6 @@ constexpr int kBoxBytes = kTile * 128;     // 64 keys x 64 dims, bf16
 // arrival counters, one a (batch row, KV head): a call with more splits
 // than one takes at most this many pairs
 constexpr int kMaxCounters = 1 << 18;
-// splits the merge holds in shared memory at once (m and l: 16 KB at G = 8)
-constexpr int kMergeSplits = 256;
 
 // Shared memory of the d instances: the ring's stages, each K then V,
 // every box 1024-byte aligned (the 128B swizzle's period), after up to 1 KB
@@ -140,9 +140,8 @@ struct LayoutQ {
   // runtime reserves)
   static_assert(kMinBlocks * (kBytes + 2048) <= 233472,
                 "the SM holds kMinBlocks blocks' shared memory");
-  static_assert(kStages * kStageBytes >= kWarps * 8 * D * 4 &&
-                    kStages * kStageBytes >= kMergeSplits * 8 * 2 * 4,
-                "the warps' states and the merge reuse the ring");
+  static_assert(kStages * kStageBytes >= kWarps * 8 * D * 4,
+                "the warps' states reuse the ring");
 };
 
 // What a launch takes besides the two TMA maps. m, l [b, hkv, n_splits,
@@ -168,8 +167,8 @@ struct Params {
 // under a sliding window (kWindow): the sink keys [0, min(sinks, len)) and
 // the band [max(len - window, 0), len), as at most two disjoint ranges
 // [s0, e0) and [s1, e1) (one where they touch; an empty range has s >= e).
-// Without a window: [start, end) itself. (decode_core.cuh's
-// window_ranges, copied.)
+// Without a window: [start, end) itself. Kernel 8 (flash_decode_mxu.cu)
+// takes the same ranges.
 template <bool kWindow>
 __device__ __forceinline__ void window_ranges(int start, int end, int len,
                                               int window, int sinks, int& s0,
@@ -215,21 +214,115 @@ __device__ __forceinline__ uint32_t tile_addr(uint32_t tile, int r, int c) {
          ((((c % kBoxCols) / 8) ^ (r % 8)) << 4);
 }
 
+// The arrival of a block of (b, kvh) that has written its split's
+// partials, by its kConsumers threads: whether it is the last of the
+// n_splits blocks to arrive, by the pair's counter, which the last resets
+// to 0 for the next launch.
+__device__ __forceinline__ bool last_to_arrive(int n_splits, size_t bh,
+                                               int* __restrict__ counters) {
+  __shared__ int sh_last;
+  // every block's partials are written before its arrival
+  __threadfence();
+  fkp_sm90::named_sync(1, kConsumers);
+  if (threadIdx.x == 0) {
+    const int arrived = atomicAdd(counters + bh, 1) + 1;
+    sh_last = arrived == n_splits;
+    if (sh_last) counters[bh] = 0;
+  }
+  fkp_sm90::named_sync(1, kConsumers);
+  return sh_last;
+}
+
+// The split merge on the card, by the kConsumers threads of a block that
+// has written its split's partials (m in natural-log units, l, y at
+// [bh, split] of m, l [.., n_splits, G] and y [.., n_splits, G, D], y
+// 16-byte aligned): the last block of (b, kvh) to arrive merges the
+// splits' partials into out [bh * G, D] bf16, each thread kCols outputs
+// of one row, with no shared memory or barrier. It loads the m, l and y
+// of a chunk of splits at once, into registers, and folds them into its
+// running max and sums; rows that see no key give 0. (The merge it
+// replaced went to L2 for a chunk's m and l and then for its y a few
+// splits at a time, with the row weights computed by G threads between
+// two barriers: 0.0035 ms against 0.0018 a call at 9 splits of kernel 8,
+// tools/ab_8bit.py mxu.)
+template <int D, int G>
+__device__ __forceinline__ void merge_rows(const float* m, const float* l,
+                                           const float* y, __nv_bfloat16* out,
+                                           int n_splits, size_t bh,
+                                           int* __restrict__ counters) {
+  if (!last_to_arrive(n_splits, bh, counters)) return;
+#if defined(FKP_DEC_PROBE) && FKP_DEC_PROBE == 1
+  return;  // a probe (tools/ab_decode.py): the arrival without the merge
+#endif
+  __threadfence();
+  constexpr int kCols = G * D >= kConsumers ? G * D / kConsumers : 1;
+  constexpr int kChunk = 64 / (2 + kCols);  // splits a chunk
+  using Vec = typename std::conditional<
+      kCols % 4 == 0, float4,
+      typename std::conditional<kCols == 2, float2, float>::type>::type;
+  constexpr int kVecs = kCols * 4 / sizeof(Vec);  // vectors a split
+  const int i0 = threadIdx.x * kCols;  // the thread's first output
+  if (i0 >= G * D) return;
+  const int row = i0 / D;
+  const int n = n_splits;
+  const float* m_r = m + bh * n * G + row;
+  const float* l_r = l + bh * n * G + row;
+  const float* y_r = y + bh * n * G * D + i0;
+  float m_run = kNegInf, l_run = 0.f, y_run[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) y_run[c] = 0.f;
+  for (int c0 = 0; c0 < n; c0 += kChunk) {
+    float mv[kChunk], lv[kChunk];
+    Vec yv[kChunk][kVecs];
+#pragma unroll
+    for (int sp = 0; sp < kChunk; ++sp) {
+      const bool in = c0 + sp < n;
+      mv[sp] = in ? __ldcg(m_r + (size_t)(c0 + sp) * G) : kNegInf;
+      lv[sp] = in ? __ldcg(l_r + (size_t)(c0 + sp) * G) : 0.f;
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) {
+        yv[sp][v] = in ? __ldcg(reinterpret_cast<const Vec*>(
+                             y_r + (size_t)(c0 + sp) * G * D) + v)
+                       : Vec{};
+      }
+    }
+    float mc = m_run;
+#pragma unroll
+    for (int sp = 0; sp < kChunk; ++sp) mc = fmaxf(mc, mv[sp]);
+    const float scale = expf(m_run - mc);  // the earlier sums'
+    l_run *= scale;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) y_run[c] *= scale;
+#pragma unroll
+    for (int sp = 0; sp < kChunk; ++sp) {
+      // a split with no live key (or past n) weighs nothing
+      const float w = lv[sp] == 0.f ? 0.f : expf(mv[sp] - mc);
+      l_run += lv[sp] * w;
+      const float* const ys = reinterpret_cast<const float*>(yv[sp]);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) y_run[c] += w * ys[c];
+    }
+    m_run = mc;
+  }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    out[bh * G * D + i0 + c] =
+        __float2bfloat16(l_run == 0.f ? 0.f : y_run[c] / l_run);
+  }
+}
+
 // The block's end, after the consumer warps have stored their states
 // (sh_m, sh_l: each warp's row max, log2 domain, and sum; sh_acc: its
 // [kWarps][G][D] f32 rows, in the ring's memory) and met at named barrier
 // 1: the warps' states merged, then with one split the block's rows
 // normalised into out, else its partials written and, by the last block
-// of (b, kvh) to arrive, the splits merged into out (the counter reset to
-// 0). Out null: the partials alone. Called by the kConsumers threads.
+// of (b, kvh) to arrive, the splits merged into out (merge_rows). Out
+// null: the partials alone. Called by the kConsumers threads.
 template <int D, int G>
 __device__ __forceinline__ void finish(const Params& p, int split, size_t bh,
                                        const float (*sh_m)[G],
                                        const float (*sh_l)[G], float* sh_acc,
                                        int* __restrict__ counters) {
-  __shared__ int sh_last;
-  // the merge's running max, sum of l and rescale factor, a row
-  __shared__ float sh_run_m[G], sh_run_l[G], sh_scale[G];
   const int tid = threadIdx.x;
   const bool single = p.out != nullptr && p.n_splits == 1;
   const size_t part = bh * p.n_splits + split;
@@ -256,90 +349,7 @@ __device__ __forceinline__ void finish(const Params& p, int split, size_t bh,
     }
   }
   if (p.out == nullptr || single) return;
-
-  // More splits than one: the last block of (b, kvh) to arrive merges the
-  // splits' partials (written by every block before its arrival) and
-  // resets the counter for the next launch.
-  __threadfence();
-  fkp_sm90::named_sync(1, kConsumers);
-  if (tid < G) {
-    sh_run_m[tid] = kNegInf;
-    sh_run_l[tid] = 0.f;
-  }
-  if (tid == 0) {
-    const int arrived = atomicAdd(counters + bh, 1) + 1;
-    sh_last = arrived == p.n_splits;
-    if (sh_last) counters[bh] = 0;
-  }
-  fkp_sm90::named_sync(1, kConsumers);
-  if (!sh_last) return;
-#if defined(FKP_DEC_PROBE) && FKP_DEC_PROBE == 1
-  return;  // a probe (tools/ab_decode.py): the arrival without the merge
-#endif
-  __threadfence();
-  // The merge, kMergeSplits splits at a time in shared memory (the ring's,
-  // free again): their m and l with one load a thread, then each row's max,
-  // the splits' weights and the rescaled sum of l (one thread a row), then
-  // each thread's outputs summed over the splits' y rows, four splits of
-  // loads in flight at once. Rows that see no key give 0.
-  float* const w_s = sh_acc;                     // [kMergeSplits][G]: m, then weights
-  float* const l_s = sh_acc + kMergeSplits * G;  // [kMergeSplits][G]
-  const float* m_bh = p.m + bh * p.n_splits * G;
-  const float* l_bh = p.l + bh * p.n_splits * G;
-  const float* y_bh = p.y + bh * p.n_splits * G * D;
-  constexpr int kPer = (G * D + kConsumers - 1) / kConsumers;  // outputs a thread
-  float yg[kPer];
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) yg[u] = 0.f;
-  for (int c0 = 0; c0 < p.n_splits; c0 += kMergeSplits) {
-    const int cn = min(kMergeSplits, p.n_splits - c0);
-    for (int j = tid; j < cn * G; j += kConsumers) {
-      w_s[j] = __ldcg(m_bh + c0 * G + j);
-      l_s[j] = __ldcg(l_bh + c0 * G + j);
-    }
-    fkp_sm90::named_sync(1, kConsumers);
-    if (tid < G) {  // row tid: the new max, the weights, the sum of l
-      const float m_old = sh_run_m[tid];
-      float mc = m_old;
-      for (int sp = 0; sp < cn; ++sp) mc = fmaxf(mc, w_s[sp * G + tid]);
-      const float scale = exp2f((m_old - mc) * kLog2e);  // the earlier sums'
-      float lsum = sh_run_l[tid] * scale;
-      for (int sp = 0; sp < cn; ++sp) {
-        const float ls = l_s[sp * G + tid];
-        // a split with no live key weighs nothing
-        const float w = ls == 0.f ? 0.f : exp2f((w_s[sp * G + tid] - mc) * kLog2e);
-        w_s[sp * G + tid] = w;
-        lsum += ls * w;
-      }
-      sh_run_m[tid] = mc;
-      sh_run_l[tid] = lsum;
-      sh_scale[tid] = scale;
-    }
-    fkp_sm90::named_sync(1, kConsumers);
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int i = tid + u * kConsumers;
-      if (i < G * D) yg[u] *= sh_scale[i / D];
-    }
-#pragma unroll 4
-    for (int sp = 0; sp < cn; ++sp) {
-      const float* y_sp = y_bh + (size_t)(c0 + sp) * G * D;
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int i = tid + u * kConsumers;
-        if (i < G * D) yg[u] += w_s[sp * G + i / D] * __ldcg(y_sp + i);
-      }
-    }
-    fkp_sm90::named_sync(1, kConsumers);  // before the next chunk's loads
-  }
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int i = tid + u * kConsumers;
-    if (i < G * D) {
-      const float lg = sh_run_l[i / D];
-      p.out[bh * G * D + i] = __float2bfloat16(lg == 0.f ? 0.f : yg[u] / lg);
-    }
-  }
+  merge_rows<D, G>(p.m, p.l, p.y, p.out, p.n_splits, bh, counters);
 }
 
 // The shared address of bytes (row r, c..c+15, c a multiple of 16) of an

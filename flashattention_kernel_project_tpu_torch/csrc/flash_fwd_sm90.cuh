@@ -181,16 +181,19 @@ struct RaggedPtrs {
 
 // What a block of fwd_block runs: the whole forward (kForward), or one stage
 // of it alone, the stage probes of probes_sm90.cu (ops/probes.py's copy,
-// qk, pv, qk_kt and qk_packed; their numbers are its stage numbers): the
-// K/V ring with each stage waited on and released and no products
-// (kProbeCopy), the QK products (kProbeQK) or the PV products (kProbePV),
-// each as the forward issues them; the QK products over K^T [b*hkv, D, s],
-// read as the MN-major B operand, with no V stream (kProbeQKT); the QK
-// products with no V stream (kProbePacked: the packed operands at D = 2d).
+// qk, pv, softmax chain, qk_kt and qk_packed; their numbers are its stage
+// numbers): the K/V ring with each stage waited on and released and no
+// products (kProbeCopy), the QK products (kProbeQK) or the PV products
+// (kProbePV), each as the forward issues them; the forward's softmax on
+// synthesized scores, with no products (kProbeChain); the QK products over
+// K^T [b*hkv, D, s], read as the MN-major B operand, with no V stream
+// (kProbeQKT); the QK products with no V stream (kProbePacked: the packed
+// operands at D = 2d).
 enum FwdStage : int {
   kProbeCopy = 0,
   kProbeQK = 1,
   kProbePV = 2,
+  kProbeChain = 3,
   kProbeQKT = 4,
   kProbePacked = 5,
   kForward = -1
@@ -211,9 +214,9 @@ __host__ __device__ constexpr bool stage_reads_v(int stage) {
 // stage (kStage, bf16, online, no band, not ragged) writes f32 [b, hq, n,
 // D] at o in place of O (each row: the copy's sum over the rows j *
 // block_k of k + v, the QK stages' score sum broadcast over D, the PV's
-// q[row, 0] * sum_k v[k]) and no LSE. kProbeQKT's k map is over K^T [b*hkv,
-// D, s] in boxes of 64 keys x D dim rows; kProbeQKT and kProbePacked read no
-// v map.
+// q[row, 0] * sum_k v[k], the chain's acc / (l + 1e-6)) and no LSE.
+// kProbeQKT's k map is over K^T [b*hkv, D, s] in boxes of 64 keys x D dim
+// rows; kProbeQKT and kProbePacked read no v map.
 template <int D, bool kWindow, int kDisc, int kRows, class KV, bool kRagged,
           int kStage = kForward>
 __device__ __forceinline__ void fwd_block(
@@ -707,16 +710,16 @@ __device__ __forceinline__ void fwd_block(
   if constexpr (kStage != kForward) {
     static_assert(!kQuant && !kRagged && !kWindow && kDisc == kOnline,
                   "the probes run the bf16 online block without a band");
+    // Q's column 0 at row rr of the tile (row rr's first 16-byte chunk lies
+    // at chunk rr % 8 of its 128-byte row; rows past n are zeros)
+    const int qrow = wg * 64 + warp * 16 + g;  // row0's row of the tile
+    const auto col0 = [&](int rr) {
+      return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+          base_ptr + rr * 128 + ((rr % 8) << 4)));
+    };
     if constexpr (kStage == kProbePV) {
-      // p = q[row, 0] at every key, into the A fragments the softmax
-      // fills: Q's column 0 (row r's first 16-byte chunk lies at chunk
-      // r % 8 of its 128-byte row; rows past n are zeros)
-      const int r = wg * 64 + warp * 16 + g;  // row0's row of the tile
-      const auto col0 = [&](int rr) {
-        return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
-            base_ptr + rr * 128 + ((rr % 8) << 4)));
-      };
-      const float x0 = col0(r), x1 = col0(r + 8);
+      // p = q[row, 0] at every key, into the A fragments the softmax fills
+      const float x0 = col0(qrow), x1 = col0(qrow + 8);
 #pragma unroll
       for (int kk = 0; kk < L::kKeys / 16; ++kk) {
 #pragma unroll
@@ -726,8 +729,25 @@ __device__ __forceinline__ void fwd_block(
         }
       }
     }
+    // kProbeChain: row i's scores are q[i, 0] * 0.001 at every key (JAX's
+    // synthesized tile) plus zero * key, where zero is 0 for every block_k
+    // the entry takes (>= 1) but read at run time: the compiler cannot
+    // prove a row's scores equal, so it keeps one exp2 a score in the key
+    // loop instead of hoisting it (zc: zero times the thread's key offsets
+    // in a tile, element e of n-tile nt at 8 nt + 2t + (e & 1))
+    [[maybe_unused]] float base0 = 0.f, base1 = 0.f, zero = 0.f;
+    [[maybe_unused]] float zc[L::kKeys / 4];
+    if constexpr (kStage == kProbeChain) {
+      base0 = col0(qrow) * 0.001f;
+      base1 = col0(qrow + 8) * 0.001f;
+      zero = static_cast<float>(block_k < 1);
+#pragma unroll
+      for (int i = 0; i < L::kKeys / 4; ++i) {
+        zc[i] = zero * static_cast<float>(i / 2 * 8 + 2 * t + i % 2);
+      }
+    }
     float rs0 = 0.f, rs1 = 0.f;  // QK: this thread's share of the score sums
-    constexpr bool kProducts = kStage != kProbeCopy;
+    constexpr bool kProducts = kStage != kProbeCopy && kStage != kProbeChain;
     if (kProducts && kPingPong && wg == 1 && n_visit > 0) named_arrive(other_turn);
     for (int it = 0; it < n_visit; ++it) {
       const int st = it % L::kStages;
@@ -750,6 +770,33 @@ __device__ __forceinline__ void fwd_block(
             acc[4 * nd] += kf.x + vf.x;
             acc[4 * nd + 1] += kf.y + vf.y;
           }
+        }
+      } else if constexpr (kStage == kProbeChain) {
+        // the tile's scores into S's registers, as the QK product fills
+        // them; the forward's softmax on them (online, masked past s); then,
+        // in place of O += P V, acc = acc * r + the row's sum of p. The sum
+        // is the one the softmax adds to l (JAX's chain also sums p once
+        // for both): this thread's share, l's increment over the rescaled
+        // l, with acc a share of the row's too, summed over the row's four
+        // threads at the end as l is
+        const float zk = zero * static_cast<float>(tile_of(it) * L::kKeys);
+        const float b0 = base0 + zk, b1 = base1 + zk;
+#pragma unroll
+        for (int nt = 0; nt < L::kKeys / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[4 * nt + e] = (e < 2 ? b0 : b1) + zc[2 * nt + (e & 1)];
+          }
+        }
+        const float l0_was = l0, l1_was = l1;
+        tile_softmax(it);
+        const float ps0 = l0 - l0_was * r0, ps1 = l1 - l1_was * r1;
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          acc[4 * nd] = acc[4 * nd] * r0 + ps0;
+          acc[4 * nd + 1] = acc[4 * nd + 1] * r0 + ps0;
+          acc[4 * nd + 2] = acc[4 * nd + 2] * r1 + ps1;
+          acc[4 * nd + 3] = acc[4 * nd + 3] * r1 + ps1;
         }
       } else {
         if (kPingPong) named_sync(turn);
@@ -778,6 +825,19 @@ __device__ __forceinline__ void fwd_block(
     rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
     rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
     rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+    if constexpr (kStage == kProbeChain) {  // the rows' acc and l, then acc / (l + 1e-6)
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 2);
+      }
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      l0 += 1e-6f;
+      l1 += 1e-6f;
+    }
     float* const out = reinterpret_cast<float*>(o) + ((size_t)b * hq + h) * n * D;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd) {
@@ -788,6 +848,9 @@ __device__ __forceinline__ void fwd_block(
       } else if constexpr (kQKStage) {
         w0 = make_float2(rs0, rs0);
         w1 = make_float2(rs1, rs1);
+      } else if constexpr (kStage == kProbeChain) {
+        w0 = make_float2(acc[4 * nd] / l0, acc[4 * nd + 1] / l0);
+        w1 = make_float2(acc[4 * nd + 2] / l1, acc[4 * nd + 3] / l1);
       } else {
         w0 = make_float2(acc[4 * nd], acc[4 * nd + 1]);
         w1 = make_float2(acc[4 * nd + 2], acc[4 * nd + 3]);

@@ -1,18 +1,21 @@
-// The stage probes copy, qk, pv, qk_kt and qk_packed for Hopper (sm_90a):
-// the dense forward's block (flash_fwd_sm90.cuh's fwd_block) with all but
-// one stage taken out, its stage switch kStage, so that the forward's time
-// splits into the K/V stream, the QK products and the PV products by
-// subtraction, and the QK stage runs over the operands the TPU's variants
-// ask about.
+// The stage probes copy, qk, pv, softmax chain, qk_kt and qk_packed for
+// Hopper (sm_90a): the dense forward's block (flash_fwd_sm90.cuh's
+// fwd_block) with all but one stage taken out, its stage switch kStage, so
+// that the forward's time splits into the K/V stream, the QK products, the
+// softmax and the PV products by subtraction, and the QK stage runs over
+// the operands the TPU's variants ask about.
 //
 // Replaces flashattention_kernel_project_tpu/ops/probes.py::_make_probe
 // (:50, pallas_call :64) with _copy_kernel_factory (:83, copy_probe),
 // _qk_kernel_factory (:106, qk_probe) and _pv_kernel_factory (:262,
-// pv_probe), qk_kt_probe (:129, pallas_call :162) and qk_packed_probe
-// (:184, pallas_call :236), with JAX's outputs (ops/probes.py's plain
-// versions): f32 [b, hq, n, d], each row the sum over key tiles of
-// k[j * block_k] + v[j * block_k] (copy), its score sum sum_k q . k
-// broadcast over d (qk, qk_kt, qk_packed), or q[row, 0] * sum_k v[k] (pv).
+// pv_probe), softmax_chain_probe (:328, pallas_call :338, with
+// _softmax_chain_kernel_factory :287), qk_kt_probe (:129, pallas_call :162)
+// and qk_packed_probe (:184, pallas_call :236), with JAX's outputs
+// (ops/probes.py's plain versions): f32 [b, hq, n, d], each row the sum
+// over key tiles of k[j * block_k] + v[j * block_k] (copy), its score sum
+// sum_k q . k broadcast over d (qk, qk_kt, qk_packed), q[row, 0] *
+// sum_k v[k] (pv), or the online chain's acc / (l + 1e-6) on the scores
+// q[row, 0] * 0.001 at every key (chain).
 //
 // Each probe keeps the forward's grid and block rows (block_rows: 128-row
 // ping-pong blocks, 64-row blocks where one wave holds the grid), its TMA
@@ -27,6 +30,19 @@
 // - pv: the RS wgmma of O += P V a tile on p's bf16 hi + lo pair (two
 //   products a 16-key slice), p = q[row, 0] at every key in the A
 //   fragments the softmax would fill (hi = q[row, 0], lo = 0); K streamed.
+// - chain: the forward's softmax (its `softmax` lambda: the online max,
+//   rescale, exp2 of every score and l, unmasked but for the tile past s)
+//   on scores the consumers write into the registers the QK product would
+//   fill, q[row, 0] * 0.001 (Q's shared tile) plus zero * key with zero a
+//   value read at run time (0 for every block_k the entry takes), so the
+//   compiler keeps one exp2 a score; in place of the PV product, acc =
+//   acc * r + the row's sum of p over the D columns. The scores stand in
+//   the log2 domain (scale 1, as JAX's chain takes no scale): the add that
+//   writes each one costs what the forward's scale multiply costs, which
+//   folds away. A row's scores are equal, so p = 1 and the output is JAX's
+//   with exp2 for exp. K and V streamed, each stage waited on and
+//   released; no products. It splits the forward's softmax from its
+//   products and loads.
 // - qk_kt: qk's products with K transposed to [b, hkv, d, s] by the wrapper
 //   (as JAX transposes it in XLA): each tile two TMA boxes of 64 keys x d
 //   dim rows, read by the SS wgmma as its MN-major B operand (imm-trans-b
@@ -47,14 +63,16 @@
 // ridge: the tensor cores' issue rate (989 TFLOP/s) bounds them.
 // The copy moves K and V once per query block, N / rows times the K/V
 // bytes, mostly from L2; its device-memory bound is the inputs and the
-// output once.
+// output once. The chain is bound by the exp2 unit (16 results a clock an
+// SM): one exp2 a score and one a tile's row rescale.
 
 #include "flash_fwd_sm90.cuh"
 
 namespace fkp_sm90 {
 
-// Probe stage kStage (kProbeCopy, kProbeQK, kProbePV, kProbeQKT or
-// kProbePacked) at head dim D in blocks of kRows query rows: maps as
+// Probe stage kStage (kProbeCopy, kProbeQK, kProbePV, kProbeChain,
+// kProbeQKT or kProbePacked) at head dim D in blocks of kRows query rows
+// (the chain's scale 1: its scores stand in the log2 domain): maps as
 // flash_fwd_sm90_kernel's (kProbeQKT: k over K^T, launch_probe's; kProbeQKT
 // and kProbePacked read no v map); o [b, hq, n, D] f32.
 template <int D, int kStage, int kRows>
@@ -114,15 +132,15 @@ int launch_stage(int d, const FwdArgs& a, int block_k) {
 
 }  // namespace fkp_sm90
 
-// One probe stage on the Hopper forward's block (0 copy, 1 qk, 2 pv, 4 qk
-// with K^T, 5 qk over the packed operands): q [b, hq, n, d], k and v [b,
-// hkv, s, d] bf16, contiguous and 16-byte aligned (stage 4: k is K^T [b,
-// hkv, d, s], s a multiple of 8; stages 4 and 5 read no v, which may be
-// null); o [b, hq, n, d] f32. d in {64, 128}, n and s >= 1, hq a multiple
-// of hkv, block_k >= 1 (the copy's key rows j * block_k). Returns
-// cudaGetLastError() after the launch (or the error of the instance's
-// shared-memory attribute), or cudaErrorInvalidValue without one for
-// arguments outside these or inputs a TMA map cannot describe.
+// One probe stage on the Hopper forward's block (0 copy, 1 qk, 2 pv, 3 the
+// softmax chain, 4 qk with K^T, 5 qk over the packed operands): q [b, hq,
+// n, d], k and v [b, hkv, s, d] bf16, contiguous and 16-byte aligned
+// (stage 4: k is K^T [b, hkv, d, s], s a multiple of 8; stages 4 and 5 read
+// no v, which may be null); o [b, hq, n, d] f32. d in {64, 128}, n and s >=
+// 1, hq a multiple of hkv, block_k >= 1 (the copy's key rows j * block_k).
+// Returns cudaGetLastError() after the launch (or the error of the
+// instance's shared-memory attribute), or cudaErrorInvalidValue without one
+// for arguments outside these or inputs a TMA map cannot describe.
 extern "C" int fkp_probe_sm90(const void* q, const void* k, const void* v,
                               void* o, int b, int hq, int hkv, int n, int s,
                               int d, int stage, int block_k, void* stream) {
@@ -149,6 +167,8 @@ extern "C" int fkp_probe_sm90(const void* q, const void* k, const void* v,
       return fkp_sm90::launch_stage<fkp_sm90::kProbeQK>(d, a, block_k);
     case fkp_sm90::kProbePV:
       return fkp_sm90::launch_stage<fkp_sm90::kProbePV>(d, a, block_k);
+    case fkp_sm90::kProbeChain:
+      return fkp_sm90::launch_stage<fkp_sm90::kProbeChain>(d, a, block_k);
     case fkp_sm90::kProbeQKT:
       return fkp_sm90::launch_stage<fkp_sm90::kProbeQKT>(d, a, block_k);
     case fkp_sm90::kProbePacked:

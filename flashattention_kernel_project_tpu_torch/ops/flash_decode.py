@@ -16,7 +16,9 @@ merges the splits: one launch a call, no plain merge. An 8-bit cache (int8
 or e4m3 with per-token scales) takes the same header's 8-bit kernel (the
 byte tiles widened to bf16 in registers), one launch a call as well;
 mxu=True (an int8 cache with both products int8 x int8) takes
-csrc/flash_decode_mxu.cu for the partials, and the plain merge.
+csrc/flash_decode_mxu.cu (K's and then V's byte tiles through one TMA ring,
+the split's statistics and int8 weights in shared memory), which also
+merges its splits: one launch a call.
 """
 
 from __future__ import annotations
@@ -277,10 +279,10 @@ def _decode_partials_cuda(q, k, v, lengths, n_splits, block_s, sm_scale,
 
 def _split_workspace(q, hkv, n_splits):
     """(the f32 m, l and y of every split that a one-launch decode merges on
-    the card, in one allocation the caller keeps until its launch; their
-    pointers), or (None, three Nones) with one split. The merge's counters
-    take at most _MAX_COUNTERS (batch row, KV head) pairs: a ValueError
-    beyond."""
+    the card, in one allocation the caller keeps until its launch, y first
+    so that it keeps the allocation's alignment; their pointers m, l, y),
+    or (None, three Nones) with one split. The merge's counters take at
+    most _MAX_COUNTERS (batch row, KV head) pairs: a ValueError beyond."""
     b, hq, d = q.shape
     if n_splits == 1:
         return None, [None] * 3
@@ -290,7 +292,8 @@ def _split_workspace(q, hkv, n_splits):
                          f"got {b * hkv}")
     rows = b * hq * n_splits
     ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
-    return ws, [ws.data_ptr(), ws.data_ptr() + 4 * rows, ws.data_ptr() + 8 * rows]
+    m = ws.data_ptr() + 4 * rows * d
+    return ws, [m, m + 4 * rows, ws.data_ptr()]
 
 
 def _decode_plain(q, k, v, lengths, n_splits, block_s, sm_scale, window=0,
@@ -534,40 +537,72 @@ def _decode_partials_mxu_plain(q, k_q, k_scale, v_q, v_scale, lengths,
     return m, l, y
 
 
+_DECODE_MXU_ARGS = ([ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
+
+
 @functools.cache
 def _kernel_mxu():
     """fkp_flash_decode_mxu: q, k, k_scale, v, v_scale, lengths, m, l, y,
     then (b, hq, hkv, s, d, n_splits, block_s), a float scale, (window,
-    sinks) and the stream."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    sinks) and the stream: the splits' partials."""
     return _build.kernel("fkp_flash_decode_mxu",
-                         [vp] * 9 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
-                         + [vp])
+                         [ctypes.c_void_p] * 9 + _DECODE_MXU_ARGS)
+
+
+@functools.cache
+def _kernel_mxu_out():
+    """fkp_flash_decode_mxu_out: q, k, k_scale, v, v_scale, lengths, out,
+    m, l, y (the splits' workspace, None with one split), then as
+    fkp_flash_decode_mxu: the merged rows."""
+    return _build.kernel("fkp_flash_decode_mxu_out",
+                         [ctypes.c_void_p] * 10 + _DECODE_MXU_ARGS)
+
+
+# csrc/flash_decode_mxu.cu: the bytes of its ring of 64-key byte tiles (4
+# stages at d = 128, 8 at d = 64), and a bound on its static shared memory
+# besides the int8 q rows' G * d bytes (barriers, row statistics)
+_MXU_RING = 32768
+_MXU_STATIC = 1024
 
 
 def _mxu_smem_bytes(g, d, block_s):
-    """Shared memory of a kernel-8 block: the split's f32 scores and int8
-    weights (dynamic) and the int8 q rows, int32 sums and row statistics
-    (static) of csrc/flash_decode_mxu.cu."""
-    return 5 * g * block_s + 5 * g * d + (4 + 2) * 4 * g
+    """Shared memory of a kernel-8 block (csrc/flash_decode_mxu.cu): 1 KB
+    of alignment slack, the ring and each stage's 64 K scales, the split's
+    f32 scores (G a key), V scales and int8 weights (G a key), the int8 q
+    rows and the static rest."""
+    stages = _MXU_RING // (_TILE * d)
+    return (1024 + _MXU_RING + stages * _TILE * 4 + (5 * g + 4) * block_s
+            + g * d + _MXU_STATIC)
 
 
-def _decode_partials_mxu_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
-                              block_s, sm_scale, window=0, sinks=0):
+def _check_mxu_inputs(q, k_q, k_scale, v_q, v_scale, lengths, block_s):
+    """The int8 x int8 kernel's checks: an int8 cache as the 8-bit decodes
+    take it, and a split whose scores and weights fit a block's shared
+    memory (ValueError otherwise)."""
     check_8bit_cache(q, k_q, k_scale, v_q, v_scale, (*k_q.shape[:3], 1),
                      "int8 x int8 decode")
     if k_q.dtype != torch.int8:
         raise TypeError(f"the int8 x int8 decode needs an int8 cache, got {k_q.dtype}")
     _check_decode_shapes(q, k_q, v_q, lengths)
-    b, hq, d = q.shape
-    hkv, s = k_q.shape[1], k_q.shape[2]
-    g = hq // hkv
+    g, d = q.shape[1] // k_q.shape[1], q.shape[2]
     if _mxu_smem_bytes(g, d, block_s) > H100_SMEM_PER_BLOCK:
         raise ValueError(
             f"the int8 x int8 decode keeps a split's scores and weights in "
             f"shared memory: {block_s} keys at G = {g} need "
             f"{_mxu_smem_bytes(g, d, block_s)} bytes, over the "
             f"{H100_SMEM_PER_BLOCK} a block may hold; use more splits")
+
+
+def _decode_partials_mxu_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
+                              block_s, sm_scale, window=0, sinks=0):
+    """Kernel 8's partials of each split (fkp_flash_decode_mxu), the same
+    (m, l, y) as `_decode_partials_mxu_plain`. Counted in
+    `flash_decode_int8.mxu_launches`."""
+    _check_mxu_inputs(q, k_q, k_scale, v_q, v_scale, lengths, block_s)
+    b, hq, d = q.shape
+    hkv, s = k_q.shape[1], k_q.shape[2]
+    g = hq // hkv
     m = torch.empty((b, hkv, n_splits, g, 1), dtype=torch.float32,
                     device=q.device)
     l = torch.empty_like(m)
@@ -582,6 +617,28 @@ def _decode_partials_mxu_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits,
     flash_decode_int8.mxu_launches += 1
     _build.check(rc, "flash_decode_mxu")
     return m, l, y
+
+
+def _decode_mxu_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits, block_s,
+                     sm_scale, window=0, sinks=0):
+    """flash_decode_int8(mxu=True) on the card in one launch
+    (fkp_flash_decode_mxu_out): the kernel merges its splits itself,
+    through an f32 workspace of their partials when there are more than
+    one. Counted in `flash_decode_int8.mxu_launches`."""
+    _check_mxu_inputs(q, k_q, k_scale, v_q, v_scale, lengths, block_s)
+    b, hq, d = q.shape
+    hkv, s = k_q.shape[1], k_q.shape[2]
+    out = torch.empty_like(q)
+    _ws, work = _split_workspace(q, hkv, n_splits)
+    rc = _kernel_mxu_out()(
+        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), *work, b, hq,
+        hkv, s, d, n_splits, block_s, float(sm_scale), int(window), int(sinks),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_decode_int8.mxu_launches += 1
+    _build.check(rc, "flash_decode_mxu")
+    return out
 
 
 def mxu_block_s(s: int, n_splits: int) -> int:
@@ -625,12 +682,15 @@ def flash_decode_int8(
 
     mxu=True (an int8 cache only; ValueError for e4m3, where JAX asserts):
     both products int8 x int8, q and the exp weights requantized per row
-    (kernel 8 of the JAX package, `_decode_partials_mxu_plain`; on a CUDA
-    tensor csrc/flash_decode_mxu.cu, counted in `.mxu_launches`). Each
-    split is one requantization group of the weights and is sized by JAX's
-    rule (`mxu_block_s`); n_splits defaults to `_core_n_splits`, where
-    JAX's default is one split per 4096 keys. A split must fit the kernel's
-    shared memory (ValueError otherwise).
+    (kernel 8 of the JAX package, `_decode_partials_mxu_plain` through
+    `merge_partials`; on a CUDA tensor one launch of
+    csrc/flash_decode_mxu.cu, the split merge included on counters of its
+    own, counted in `.mxu_launches`; two such calls must not run at once on
+    two streams of one device either). Each split is one requantization
+    group of the weights and is sized by JAX's rule (`mxu_block_s`);
+    n_splits defaults to `_core_n_splits`, where JAX's default is one split
+    per 4096 keys. A split must fit the kernel's shared memory (ValueError
+    otherwise).
     """
     if mxu and k_q.dtype != torch.int8:
         raise ValueError(f"mxu=True needs an int8 cache, got {k_q.dtype}")
@@ -660,10 +720,11 @@ def flash_decode_int8(
             sm_scale, window, sinks)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no decode for device {q.device}")
+    if q.device.type == "cuda":
+        return (_decode_mxu_cuda if mxu else _decode_q_cuda)(*args)
     if not mxu:
-        return (_decode_q_plain if q.device.type == "cpu" else _decode_q_cuda)(*args)
-    parts = (_decode_partials_mxu_plain if q.device.type == "cpu"
-             else _decode_partials_mxu_cuda)(*args)
+        return _decode_q_plain(*args)
+    parts = _decode_partials_mxu_plain(*args)
     return merge_partials(*parts).reshape(b, hq, d).to(q.dtype)
 
 

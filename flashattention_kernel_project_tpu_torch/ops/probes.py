@@ -7,15 +7,15 @@ and outputs. Each probe keeps one stage of the forward (the K/V stream, the
 QK product, the softmax chain, the PV product), so that the forward's time
 splits into stages by subtraction, as benchmarks/profile_attention.py does.
 On a CUDA tensor each launches its kernel or raises: `copy_probe`,
-`qk_probe`, `pv_probe`, `qk_kt_probe` and `qk_packed_probe` the Hopper
-forward's own block with the other stages taken out (csrc/probes_sm90.cu's
-fkp_probe_sm90, on flash_fwd_sm90.cuh's fwd_block: its grid and block
-rows, TMA ring and wgmma products; qk_kt reads K^T as the MN-major operand,
-qk_packed is the QK stage at D = 2d over the packed operands), the softmax
-chain csrc/probes.cu's fkp_probe (`probe_route` says which entry a stage
-calls and with what sizes), the stream copy its own kernel there; on a CPU
-tensor each runs its plain PyTorch version, in float32. Each counts its
-launches.
+`qk_probe`, `pv_probe`, `softmax_chain_probe`, `qk_kt_probe` and
+`qk_packed_probe` the Hopper forward's own block with the other stages
+taken out (csrc/probes_sm90.cu's fkp_probe_sm90, on flash_fwd_sm90.cuh's
+fwd_block: its grid and block rows, TMA ring, wgmma products and softmax;
+the chain runs the forward's softmax on synthesized scores, qk_kt reads
+K^T as the MN-major operand, qk_packed is the QK stage at D = 2d over the
+packed operands; `probe_sizes` says which sizes a stage passes), the
+stream copy its own kernel (csrc/probes.cu); on a CPU tensor each runs
+its plain PyTorch version, in float32. Each counts its launches.
 
 block_q and block_k set no hardware tile on Hopper; they are kept because
 `copy_probe`'s output depends on block_k (it adds key row j * block_k of
@@ -39,9 +39,8 @@ from flashattention_kernel_project_tpu_torch.ops import _build
 from flashattention_kernel_project_tpu_torch.ops.softmax import NEG_INF
 
 # the stage numbers of csrc/flash_fwd_sm90.cuh's FwdStage (copy, qk, pv,
-# qk_kt, qk_packed: csrc/probes_sm90.cu) and csrc/probes.cu's Stage (chain)
+# the softmax chain, qk_kt, qk_packed: csrc/probes_sm90.cu)
 _COPY, _QK, _PV, _CHAIN, _QKT, _PACKED = range(6)
-_ENTRY_SM90, _ENTRY_CHAIN = "fkp_probe_sm90", "fkp_probe"
 _KERNEL_DIMS = (64, 128)
 _TILE = 64  # the kernel's query and key tile
 
@@ -130,13 +129,6 @@ def _packed_plain(q, k):
 
 
 @functools.cache
-def _kernel():
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel("fkp_probe",
-                         [vp] * 4 + [i32] * 7 + [ctypes.c_float, vp])
-
-
-@functools.cache
 def _kernel_sm90():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     return _build.kernel("fkp_probe_sm90", [vp] * 4 + [i32] * 8 + [vp])
@@ -165,41 +157,35 @@ def _check_cuda(what, *tensors, dims=_KERNEL_DIMS):
         raise ValueError(f"the CUDA {what} takes N and S multiples of {_TILE}")
 
 
-def probe_route(stage: int, q, k):
-    """The CUDA launch of probe `stage` on the caller's q [B, Hq, N, d] and
-    k [B, Hkv, S, d]: (entry, (hq, hkv, n, s, d)), the C entry it calls
-    (csrc/probes_sm90.cu's fkp_probe_sm90 for copy, qk, pv, qk_kt and
-    qk_packed; csrc/probes.cu's fkp_probe for the softmax chain alone) and
-    the sizes it passes. qk_packed's are its packed operands': the Hkv / 2
-    pairs as both head counts, G * N rows, 2S keys and 2d; qk_kt's are
-    qk's (the kernel reads K^T [B, Hkv, d, S] by them). Reads shapes only."""
+def probe_sizes(stage: int, q, k):
+    """The sizes (hq, hkv, n, s, d) that the CUDA launch of probe `stage`
+    passes to csrc/probes_sm90.cu's fkp_probe_sm90 for the caller's q
+    [B, Hq, N, d] and k [B, Hkv, S, d]. qk_packed's are its packed
+    operands': the Hkv / 2 pairs as both head counts, G * N rows, 2S keys
+    and 2d; qk_kt's are qk's (the kernel reads K^T [B, Hkv, d, S] by
+    them). Reads shapes only."""
     hq, n, d = q.shape[1], q.shape[2], q.shape[3]
     hkv, s = k.shape[1], k.shape[2]
     if stage == _PACKED:
         pairs = hkv // 2
-        return _ENTRY_SM90, (pairs, pairs, hq // hkv * n, 2 * s, 2 * d)
-    if stage == _CHAIN:
-        return _ENTRY_CHAIN, (hq, hkv, n, s, d)
-    if stage in (_COPY, _QK, _PV, _QKT):
-        return _ENTRY_SM90, (hq, hkv, n, s, d)
+        return pairs, pairs, hq // hkv * n, 2 * s, 2 * d
+    if stage in (_COPY, _QK, _PV, _CHAIN, _QKT):
+        return hq, hkv, n, s, d
     raise ValueError(f"no probe stage {stage}")
 
 
 def _launch(probe, stage, q, k, operands, block_k, out):
     """One launch of the stage's kernel on `operands` (q, k, v as the kernel
     reads them: K^T for qk_kt, the packed q and K for qk_packed, v None
-    where it reads none) through the entry and sizes `probe_route` gives
-    for the caller's q and k, counted in probe.launches."""
-    entry, (hq, hkv, n, s, d) = probe_route(stage, q, k)
+    where it reads none) through fkp_probe_sm90, every stage's entry, at
+    the sizes `probe_sizes` gives for the caller's q and k, counted in
+    probe.launches."""
+    hq, hkv, n, s, d = probe_sizes(stage, q, k)
     kq, kk, kv = operands
     ptrs = (kq.data_ptr(), kk.data_ptr(), 0 if kv is None else kv.data_ptr(),
             out.data_ptr())
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if entry == _ENTRY_SM90:
-        rc = _kernel_sm90()(*ptrs, q.shape[0], hq, hkv, n, s, d, stage,
-                            block_k, stream)
-    else:
-        rc = _kernel()(*ptrs, q.shape[0], hq, hkv, n, s, d, stage, 0.0, stream)
+    rc = _kernel_sm90()(*ptrs, q.shape[0], hq, hkv, n, s, d, stage, block_k,
+                        torch.cuda.current_stream(q.device).cuda_stream)
     probe.launches += 1
     _build.check(rc, probe.__name__)
 

@@ -136,6 +136,28 @@ def test_mxu_split_rule_and_default_splits():
     assert_rel_l2(to, jo, tol=TOL)
 
 
+@pytest.mark.parametrize("band", [None, (100, 4)], ids=["full", "window+sinks"])
+@pytest.mark.parametrize("s,n_splits,block_s", [(200, 3, 96), (8192, 9, 928)])
+def test_mxu_decode_matches_jax_at_unaligned_splits(s, n_splits, block_s, band):
+    """The port's split arithmetic (on the CPU, its plain version) against
+    JAX's at splits that start off a multiple of 64 keys: S 200 in 3 splits
+    of 96, and chip_smoke.py's S 8192 in 9 splits of 928 at a small width,
+    lengths 0, inside the second split, on its edge and full, without and
+    with a window and sinks. The kernel's TMA tiles, which start at a
+    split's or a range's first key, meet such splits on the card, where
+    chip_smoke.py's `mxu_edges` (MXU_EDGES) holds them."""
+    assert tfd.mxu_block_s(s, n_splits) == block_s and block_s % 64
+    rng = np.random.default_rng(s + n_splits)
+    b, hq, hkv, d = 4, 4, 2, 16
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    lengths = np.array([0, block_s + 37, block_s, s], np.int32)
+    kw = {} if band is None else dict(window=band[0], sinks=band[1])
+    jo, to = _both_mxu(q, _int8_cache(rng, b, hkv, s, d), lengths,
+                       n_splits=n_splits, **kw)
+    assert_rel_l2(to, jo, tol=TOL)
+    assert np.all(to[0] == 0.0)
+
+
 def test_mxu_needs_an_int8_cache():
     """mxu=True on an e4m3 cache raises, where JAX asserts."""
     rng = np.random.default_rng(8)
@@ -149,9 +171,22 @@ def test_mxu_needs_an_int8_cache():
 
 def test_mxu_kernel_refuses_a_split_past_shared_memory():
     """The CUDA wrapper refuses a split whose scores and weights would not
-    fit a block's shared memory (JAX's 4096-key split fits at G = 8)."""
-    assert tfd._mxu_smem_bytes(8, 128, 4128) <= tfd.H100_SMEM_PER_BLOCK
-    assert tfd._mxu_smem_bytes(8, 128, 8192) > tfd.H100_SMEM_PER_BLOCK
+    fit a block's shared memory beside the kernel's ring (JAX's 4096-key
+    split fits at G = 8, at both widths), and raises before any launch."""
+    for d in (64, 128):
+        assert tfd._mxu_smem_bytes(8, d, 4096) <= tfd.H100_SMEM_PER_BLOCK
+        assert tfd._mxu_smem_bytes(8, d, 4128) <= tfd.H100_SMEM_PER_BLOCK
+        assert tfd._mxu_smem_bytes(8, d, 8192) > tfd.H100_SMEM_PER_BLOCK
+    # the ring and the 5 G + 4 bytes a key of the split's arrays
+    assert (tfd._mxu_smem_bytes(4, 128, 928) - tfd._mxu_smem_bytes(4, 128, 896)
+            == 24 * 32)
+    rng = np.random.default_rng(10)
+    cache = tuple(map(_torch, _int8_cache(rng, 1, 1, 8192, 128)))
+    q = torch.zeros(1, 8, 128, dtype=torch.bfloat16)
+    lengths = torch.tensor([8192], dtype=torch.int32)
+    for fn in (tfd._decode_mxu_cuda, tfd._decode_partials_mxu_cuda):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(q, *cache, lengths, 1, 8192, 0.1)
 
 
 def _int8_pool(rng, b, hkv, d, page, max_pages, fmt="int8"):

@@ -74,19 +74,19 @@ def test_probe_matches_jax_at_the_hopper_blocks_tails(name):
         assert rel_l2(to, jo) <= SUM_ORDER_TOL
 
 
-@pytest.mark.parametrize("source,enum", [("flash_fwd_sm90.cuh", "FwdStage"),
-                                         ("probes.cu", "Stage")])
-def test_stage_numbers_are_the_kernels(source, enum):
-    """The stage numbers the wrapper passes are the kernels' own: copy, qk,
-    pv, qk_kt and qk_packed csrc/flash_fwd_sm90.cuh's probe stages
-    (probes_sm90.cu), whose kForward (the whole forward) is none of them;
-    the chain alone csrc/probes.cu's."""
-    path = os.path.join(os.path.dirname(probes.__file__), os.pardir, "csrc", source)
+@pytest.mark.parametrize("stages", ["products", "chain"])
+def test_stage_numbers_are_the_kernels(stages):
+    """The stage numbers the wrapper passes are the kernels' own, all
+    csrc/flash_fwd_sm90.cuh's FwdStage (probes_sm90.cu): copy, qk, pv, qk_kt
+    and qk_packed, whose kForward (the whole forward) is none of them; and
+    the softmax chain's kProbeChain."""
+    path = os.path.join(os.path.dirname(probes.__file__), os.pardir, "csrc",
+                        "flash_fwd_sm90.cuh")
     with open(path) as f:
-        body = re.search(rf"enum {enum} : int {{([^}}]*)}}", f.read()).group(1)
+        body = re.search(r"enum FwdStage : int {([^}]*)}", f.read()).group(1)
     got = {name: int(value) for name, value in re.findall(r"(k\w+) = (-?\d+)", body)}
-    if source == "probes.cu":
-        assert got == dict(kChain=probes._CHAIN)
+    if stages == "chain":
+        assert got["kProbeChain"] == probes._CHAIN
         return
     want = dict(kProbeCopy=probes._COPY, kProbeQK=probes._QK, kProbePV=probes._PV,
                 kProbeQKT=probes._QKT, kProbePacked=probes._PACKED)
@@ -96,26 +96,24 @@ def test_stage_numbers_are_the_kernels(source, enum):
 
 @pytest.mark.parametrize("stage", range(7))
 def test_probe_route(stage):
-    """Which C entry a stage's CUDA launch calls and the sizes it passes,
-    from CPU tensors: every stage but the chain on the Hopper block's
-    fkp_probe_sm90, qk_packed at its packed operands' sizes (pairs as both
-    head counts, G * N rows, 2S keys, 2d); no stage 6."""
+    """The sizes a stage's CUDA launch passes to fkp_probe_sm90 (every
+    stage's entry, the softmax chain's too), from CPU tensors: the caller's
+    q and k, qk_packed at its packed operands' (pairs as both head counts,
+    G * N rows, 2S keys, 2d); no stage 6."""
     b, hq, hkv, n, s, d = 2, 8, 4, 192, 320, 32
     q, k = torch.zeros(b, hq, n, d), torch.zeros(b, hkv, s, d)
     if stage == 6:
         with pytest.raises(ValueError, match="no probe stage"):
-            probes.probe_route(stage, q, k)
+            probes.probe_sizes(stage, q, k)
         return
-    entry, sizes = probes.probe_route(stage, q, k)
-    if stage == probes._CHAIN:
-        assert (entry, sizes) == ("fkp_probe", (hq, hkv, n, s, d))
-    elif stage == probes._PACKED:
-        assert (entry, sizes) == ("fkp_probe_sm90", (2, 2, 2 * n, 2 * s, 2 * d))
+    sizes = probes.probe_sizes(stage, q, k)
+    if stage == probes._PACKED:
+        assert sizes == (2, 2, 2 * n, 2 * s, 2 * d)
         q_in, kp = probes._pack(q, k, 64)
         assert sizes == (q_in.shape[1], kp.shape[1], q_in.shape[2], kp.shape[2],
                          kp.shape[3])
     else:
-        assert (entry, sizes) == ("fkp_probe_sm90", (hq, hkv, n, s, d))
+        assert sizes == (hq, hkv, n, s, d)
 
 
 def test_copy_probe_reads_each_tiles_first_row():

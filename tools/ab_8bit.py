@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Compare builds of the 8-bit linear decode (kernel 7) and the dense 8-bit
-forward (kernel 1 over an int8 or e4m3 cache) on one card, in turns.
+forward (kernel 1 over an int8 or e4m3 cache), or of the int8 x int8
+decode (kernel 8), on one card, in turns.
 
     python3 tools/ab_8bit.py [--profile] [NAME=CSRC_DIR[:FLAG,...] ...]
+    python3 tools/ab_8bit.py mxu [NAME=CSRC_DIR[:FLAG,...] ...]
 
 Builds this checkout's kernels (the package's library, "this") and, for
 each NAME=CSRC_DIR, that directory's 8-bit decode and dense 8-bit forward
@@ -27,7 +29,9 @@ inputs call after call) and cold (a 64 MiB write between calls, whose own
 time is taken off):
 - the decode's whole call at the serving shape (B 8, 16/4 heads, S 2048,
   d 128, chip_smoke.py's lengths), int8 and e4m3; at 8192 keys (every
-  length 8192, int8); with the serving window (256, 4 sinks, int8);
+  length 8192, int8); with the serving window (256, 4 sinks, int8); at
+  the most splits (one sequence of 65536 keys, 8/1 heads, int8, d 128
+  and 64);
 - the dense forward at 1 x 16/4 x 4096 x 128 causal, int8 in the three
   disciplines and e4m3 fixed-max, and BASELINE config 5 (1 x 32/8 x 32768
   x 128, int8, causal, fixed-max; warm only).
@@ -35,6 +39,21 @@ With --profile, an int8 linear decode step of the serving model (B 8,
 every length 600, chip_smoke.py's `profile_decode_steps` shape) through
 each build's decode, in turns: its device time and device operations a
 step from torch.profiler.
+
+mxu: kernel 8 (flash_decode_int8(mxu=True)). Each NAME=CSRC_DIR builds
+that directory's flash_decode_mxu.cu with common.cu; a build with the
+entry fkp_flash_decode_mxu_out is called as this tree's decode takes its
+inputs (one launch, the split merge on the card), one without it as the
+earlier kernel was (its partials, then `merge_partials`, a reshape and a
+cast in plain torch: that tree's whole call). At chip_smoke.py's DEC_I8
+shapes (run_all.py's 8192-key rung, the serving shape and its window),
+`_core_n_splits` and `mxu_block_s`, every build's partials are held to
+`_decode_partials_mxu_plain` (m and y bit for bit, l within 1e-6
+relative) and its whole call to `merge_partials` of them (rel-L2 1e-3),
+then timed from CUDA graphs in turns, warm and cold L2 as above: each
+build's whole call and its kernel alone (the partials), this checkout's
+(the package's own wrappers, "this") and kernel 7's whole call
+(mxu=False, `q_n_splits`) on the same cache.
 """
 
 import ctypes
@@ -50,6 +69,9 @@ import chip_smoke as cs  # noqa: E402
 LOG2E = 1.4426950408889634
 SERVING = (8, 16, 4, 2048, 128)
 LONG = (8, 16, 4, 8192, 128)
+# one sequence of 65536 keys, 8/1 heads: the most splits q_n_splits gives
+# (396 at d 128, 512 at d 64), the split merge's largest work
+MANY = [(1, 8, 1, 65536, 128), (1, 8, 1, 65536, 64)]
 WINDOW = ([100, 255, 256, 257, 700, 1500, 2000, 2048], 256, 4)
 DENSE = (1, 16, 4, 4096, 128)
 CONFIG5 = (1, 32, 8, 32768, 128)
@@ -146,11 +168,7 @@ def _decode_maker(cdll, fn, new):
 
             def run():
                 out = torch.empty_like(q)
-                rows = b * hkv * n * g
-                ws = torch.empty(rows * (d + 2), dtype=torch.float32,
-                                 device=q.device)
-                work = ([ws.data_ptr(), ws.data_ptr() + 4 * rows,
-                         ws.data_ptr() + 8 * rows] if n > 1 else [None] * 3)
+                _ws, work = fd._split_workspace(q, hkv, n)
                 _check(cdll, fn(*ptrs, out.data_ptr(), *work, b, hq, hkv, s, d,
                                 n, block_s, d ** -0.5, window, sinks, fp8,
                                 stream()), "fkp_flash_decode_q_out")
@@ -212,6 +230,146 @@ def turns(fns, dev, cold, iters=20):
     return {k: ms[k] - ms["flush"] for k in fns}
 
 
+def build_mxu(name, csrc, flags, out_dir):
+    """(whole, partials) call makers over a library built from csrc's
+    kernel 8: each maker takes a call's arguments as
+    `_decode_partials_mxu_plain` does and returns a closure of one call."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+
+    srcs = ("flash_decode_mxu.cu", "common.cu")
+    objs = [os.path.join(out_dir, f"mxu_{name}.{f}.o") for f in srcs]
+    procs = [subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-c",
+                               os.path.join(csrc, f), "-o", o],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for f, o in zip(srcs, objs)]
+    for p in procs:
+        out, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"{name}: build failed\n{out[-6000:]}")
+        print(f"{name}: " + " | ".join(line.split(":", 1)[-1].strip()
+                                       for line in out.splitlines()
+                                       if "Used" in line or "spill" in line)[-3000:],
+              flush=True)
+    lib = os.path.join(out_dir, f"libmxu_{name}.so")
+    subprocess.run([_build.nvcc(), "-shared", "-gencode",
+                    "arch=compute_90a,code=sm_90a", *objs, "-o", lib], check=True)
+    cdll = ctypes.CDLL(lib)
+    cdll.fkp_error_string.restype = ctypes.c_char_p
+    cdll.fkp_error_string.argtypes = [ctypes.c_int]
+    vp = ctypes.c_void_p
+    tail = [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2 + [vp]
+    part_fn = cdll.fkp_flash_decode_mxu
+    part_fn.argtypes = [vp] * 9 + tail
+    part_fn.restype = ctypes.c_int
+    new = hasattr(cdll, "fkp_flash_decode_mxu_out")
+    if new:
+        out_fn = cdll.fkp_flash_decode_mxu_out
+        out_fn.argtypes = [vp] * 10 + tail
+        out_fn.restype = ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def partials(q, k, ks, v, vs, lengths, n, block_s, sm_scale, window, sinks):
+        b, hq, d = q.shape
+        hkv, s = k.shape[1], k.shape[2]
+        g = hq // hkv
+        ptrs = [x.data_ptr() for x in (q, k, ks, v, vs, lengths)]
+
+        def run():
+            m = torch.empty((b, hkv, n, g, 1), dtype=torch.float32, device=q.device)
+            l = torch.empty_like(m)
+            y = torch.empty((b, hkv, n, g, d), dtype=torch.float32, device=q.device)
+            _check(cdll, part_fn(*ptrs, m.data_ptr(), l.data_ptr(), y.data_ptr(), b,
+                                 hq, hkv, s, d, n, block_s, sm_scale, window, sinks,
+                                 stream()), "fkp_flash_decode_mxu")
+            return m, l, y
+        return run
+
+    def whole(q, k, ks, v, vs, lengths, n, block_s, sm_scale, window, sinks):
+        b, hq, d = q.shape
+        hkv, s = k.shape[1], k.shape[2]
+        if not new:
+            part = partials(q, k, ks, v, vs, lengths, n, block_s, sm_scale, window,
+                            sinks)
+            return lambda: fd.merge_partials(*part()).reshape(b, hq, d).to(q.dtype)
+        ptrs = [x.data_ptr() for x in (q, k, ks, v, vs, lengths)]
+
+        def run():
+            out = torch.empty_like(q)
+            _ws, work = fd._split_workspace(q, hkv, n)
+            _check(cdll, out_fn(*ptrs, out.data_ptr(), *work, b, hq, hkv, s, d, n,
+                                block_s, sm_scale, window, sinks, stream()),
+                   "fkp_flash_decode_mxu_out")
+            return out
+        return run
+    return whole, partials
+
+
+def mxu_main(specs) -> int:
+    """The mxu mode (module docstring)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import _build
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+    from flashattention_kernel_project_tpu_torch.utils import platform
+
+    out_dir = os.path.join(_build.BUILD_DIR, "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    _build.library()
+    builds = {"this": (lambda *a: lambda: fd._decode_mxu_cuda(*a),
+                       lambda *a: lambda: fd._decode_partials_mxu_cuda(*a))}
+    for spec in specs:
+        name, _, rest = spec.partition("=")
+        csrc, _, flags = rest.partition(":")
+        builds[name] = build_mxu(name, os.path.abspath(csrc),
+                                 [f for f in flags.split(",") if f], out_dir)
+    label = platform.card_label()
+    print(label, flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for b, hq, hkv, s, d, lens, band in cs.DEC_I8:
+        q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
+        if lens == "full":
+            lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        else:
+            lengths = torch.randint(1, s, (b,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+            lengths[0], lengths[-1] = 0, s
+        cache = (*cs.quantized(gen, dev, (b, hkv, s, d), "int8"),
+                 *cs.quantized(gen, dev, (b, hkv, s, d), "int8"))
+        window, sinks = band or (0, 0)
+        n = fd._core_n_splits(b, hkv, s)
+        block_s = fd.mxu_block_s(s, n)
+        args = (q, *cache, lengths, n, block_s, d ** -0.5, window, sinks)
+        plain = fd._decode_partials_mxu_plain(*args)
+        fns = {}
+        for name, (whole, partials) in builds.items():
+            fns[f"{name} whole"] = whole(*args)
+            fns[f"{name} kernel"] = partials(*args)
+            cs.hold_mxu(f"{name} at b{b} s{s} window {window}",
+                        fns[f"{name} kernel"](), plain, fns[f"{name} whole"](),
+                        lengths, n)
+        n7 = fd.q_n_splits(b, hkv, s, d)
+        args7 = (*args[:6], n7, fd.default_block_s(s, n7), *args[8:])
+        fns["kernel 7 whole"] = lambda args7=args7: fd._decode_q_cuda(*args7)
+        live = (cs._live_keys(lengths.tolist(), window or None, sinks) if window
+                else int(lengths.clamp(max=s).sum()))
+        bnd = cs.bound(4 * live * hq * d, cs.nbytes(q, q) + cs.bytes_8bit(live, hkv, d),
+                       platform.H100_INT8_OPS)
+        what = (f"b{b} {hq}/{hkv} s{s} d{d} {n} splits of {block_s} window {window} "
+                f"sinks {sinks}")
+        for cold in (False, True):
+            ms = turns(fns, dev, cold, iters=50)
+            print(f"kernel 8 {what} ({'cold' if cold else 'warm'} L2): bound "
+                  f"{bnd['bound_ms']:.4f} ms | " + " | ".join(
+                      f"{k} {t:.4f} ms ({bnd['bound_ms'] / t:.1%})"
+                      for k, t in ms.items()) + f" [{label}]", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -223,6 +381,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     args = sys.argv[1:]
+    if args[:1] == ["mxu"]:
+        return mxu_main(args[1:])
     profile = "--profile" in args
     out_dir = os.path.join(_build.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
@@ -272,6 +432,11 @@ def main() -> int:
     cases.append((f"8192 keys b{b} {hq}/{hkv} d{d} int8", q,
                   cache(b, hkv, s, d, "int8"),
                   torch.full((b,), s, dtype=torch.int32, device=dev), 0, 0))
+    for b, hq, hkv, s, d in MANY:
+        cases.append((f"many splits b{b} {hq}/{hkv} s{s} d{d} int8",
+                      torch.randn(b, hq, d, generator=gen, device=dev).bfloat16(),
+                      cache(b, hkv, s, d, "int8"),
+                      torch.full((b,), s, dtype=torch.int32, device=dev), 0, 0))
     for what, q_, c, lengths, win, snk in cases:
         s, d = c[0].shape[2], q_.shape[-1]
         n = fd.q_n_splits(q_.shape[0], c[0].shape[1], s, d)

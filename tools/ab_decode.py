@@ -27,7 +27,9 @@ alone (its partials) beside SDPA at the serving shape (B 8, 16/4 heads, S
 2048, d 128, chip_smoke.py's lengths, SDPA with a length mask), with the
 serving window (256, 4 sinks; SDPA with the band mask) and at run_all.py's
 streaming rung (B 256, 8/1 heads, S 4096, every length 4096), there beside
-kernel 21 (streaming_decode: the same kernel at one split) and SDPA.
+kernel 21 (streaming_decode: the same kernel at one split) and SDPA, and
+at the most splits the rule gives (one sequence of 65536 keys, 8/1 heads,
+d 128 and 64: 264 and 512 splits).
 """
 
 import ctypes
@@ -45,6 +47,9 @@ OLD_SOURCES = ("flash_decode.cu", "common.cu")
 SERVING = (8, 16, 4, 2048, 128)
 WINDOW = ([100, 255, 256, 257, 700, 1500, 2000, 2048], 256, 4)
 RUNG = (256, 8, 1, 4096, 128)
+# one sequence of 65536 keys, 8/1 heads: the most splits the rule gives (264
+# at d 128, 512 at d 64), the split merge's largest work
+MANY = [(1, 8, 1, 65536, 128), (1, 8, 1, 65536, 64)]
 
 
 def build(name, csrc, flags, out_dir):
@@ -106,11 +111,7 @@ def whole_call(entry, q, k, v, lengths, window, sinks):
 
         def run():
             out = torch.empty_like(q)
-            ws = torch.empty(b * hkv * n * g * (d + 2), dtype=torch.float32,
-                             device=q.device)
-            rows = b * hkv * n * g
-            work = ([ws.data_ptr(), ws.data_ptr() + 4 * rows,
-                     ws.data_ptr() + 8 * rows] if n > 1 else [None] * 3)
+            _ws, work = fd._split_workspace(q, hkv, n)
             _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             lengths.data_ptr(), out.data_ptr(), *work, b, hq,
                             hkv, s, d, n, block_s, d ** -0.5, window, sinks,
@@ -232,6 +233,14 @@ def main() -> int:
     timed(f"streaming rung b{b} {hq}/{hkv} s{s} d{d}", q, k, v, full, 0, 0,
           cs.sdpa_fn(q[:, :, None], k, v),
           extra={"kernel 21": lambda: st.streaming_decode(q, k, v, full)})
+    for b, hq, hkv, s, d in MANY:
+        q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+        full = torch.full((b,), s, dtype=torch.int32, device=dev)
+        held(q, k, v, full, 0, 0, f"{s} keys at d {d}")
+        timed(f"many splits b{b} {hq}/{hkv} s{s} d{d}", q, k, v, full, 0, 0,
+              cs.sdpa_fn(q[:, :, None], k, v))
     return 0
 
 

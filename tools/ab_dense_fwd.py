@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare builds of the dense attention forward (kernels 1 and 2), or of
-its stage probes copy, qk and pv (row 22), qk_kt and qk_packed (row 23),
-on one card, in turns.
+its stage probes copy, qk, pv, the softmax chain, qk_kt and qk_packed (rows
+22 and 23), on one card, in turns.
 
     python3 tools/ab_dense_fwd.py [probes] [NAME=CSRC_DIR[:FLAG,...] ...]
 
@@ -20,20 +20,23 @@ probes: each NAME=CSRC_DIR (and "this", this checkout's csrc/) builds its
 probes.cu (with probes_sm90.cu where it has it) and common.cu; each stage
 is called on probes_sm90.cu's entry where the build's entry takes it (the
 Hopper forward's block: copy, qk and pv wherever the build has that
-source, qk_kt and qk_packed where it has kProbeQKT), else on probes.cu's
-fkp_probe (an older commit's template, with its own arguments), the
-kernel alone on operands built before (K^T, the packed q and K). Every
-build is held to the
-plain versions (copy within 1e-6 relative, the products rel-L2 1e-5) at
-PROBE_CHECKS (qk_packed at d / 2), then timed at profile_attention.py's
-shape (1 x 16/4 x 4096 x 128, non-causal, block_k 512) and at d = 64, the
-builds in turns beside this checkout's fused forward (stable and
-stable=False) at the same shape; qk_packed at d / 2 (block_k 512), the
-products of qk at d. Printed: each stage against its bound (the
-function's; pv's also with p's bf16 pair, two products; qk_packed's over
-its packed products and over the unpacked ones), copy + qk + pv against the
-fused forward, and this checkout's whole calls of qk_kt_probe and
-qk_packed_probe (the torch transpose or packing included) beside the
+source, qk_kt and qk_packed where it has kProbeQKT, the chain where it has
+kProbeChain), else on probes.cu's fkp_probe (an older commit's template,
+with its own arguments), the kernel alone on operands built before (K^T,
+the packed q and K). Every build is held to the plain versions (copy and
+chain within 1e-6 relative, the products rel-L2 1e-5) at PROBE_CHECKS
+(qk_packed at d / 2), then timed at profile_attention.py's shape (1 x 16/4
+x 4096 x 128, non-causal, block_k 512) and at d = 64, the builds in turns
+beside this checkout's fused forward (stable and stable=False) at the same
+shape; qk_packed at d / 2 (block_k 512), the products of qk at d. Printed:
+each stage against its bound (the function's; pv's also with p's bf16 pair,
+two products; qk_packed's over its packed products and over the unpacked
+ones; the chain's the exp2 unit's, 16 a clock an SM at the card's highest
+SM clock, one exp2 a score and one a block_k tile's rescale, as
+chip_smoke.py's), the forward's split (copy, qk, pv and chain against the
+fused forward: the products' sum, the fused time outside them and the
+chain's time beside it), and this checkout's whole calls of qk_kt_probe
+and qk_packed_probe (the torch transpose or packing included) beside the
 transpose and the packing alone.
 """
 
@@ -92,13 +95,13 @@ PROBE_CHECKS = [  # b, hq, hkv, n, s, d, block_k
     (2, 4, 2, 192, 320, 64, 64), (1, 16, 4, 1024, 1024, 64, 128),
     (4, 16, 4, 192, 320, 128, 64)]
 PROBE_TIMES = [128, 64]  # d at 1 x 16/4 x 4096, non-causal
-STAGES = {"copy": 0, "qk": 1, "pv": 2, "qk_kt": 4, "qk_packed": 5}
+STAGES = {"copy": 0, "qk": 1, "pv": 2, "chain": 3, "qk_kt": 4, "qk_packed": 5}
 
 
 def build_probes(name, csrc, flags, nvcc, nvcc_flags, out_dir):
     """probe(stage, q, k, v, block_k, out, sizes) over a library built from
     csrc's probe sources, sizes (hq, hkv, n, s, d) as ops/probes.py's
-    probe_route gives them: probes_sm90.cu's entry for the stages it takes,
+    probe_sizes gives them: probes_sm90.cu's entry for the stages it takes,
     else probes.cu's (without block_k since probes_sm90.cu exists, with it
     before)."""
     srcs = [f for f in ("probes.cu", "probes_sm90.cu", "common.cu")
@@ -124,12 +127,15 @@ def build_probes(name, csrc, flags, nvcc, nvcc_flags, out_dir):
     sm90_stages = set()
     if "probes_sm90.cu" in srcs:
         with open(os.path.join(csrc, "probes_sm90.cu")) as f:
-            sm90_stages = {0, 1, 2} | ({4, 5} if "kProbeQKT" in f.read() else set())
+            text = f.read()
+        sm90_stages = ({0, 1, 2} | ({4, 5} if "kProbeQKT" in text else set())
+                       | ({3} if "kProbeChain" in text else set()))
         cdll.fkp_probe_sm90.argtypes = [vp] * 4 + [i32] * 8 + [vp]
         cdll.fkp_probe_sm90.restype = i32
-    cdll.fkp_probe.argtypes = [vp] * 4 + [i32] * (7 if sm90_stages else 8) + [
-        ctypes.c_float, vp]
-    cdll.fkp_probe.restype = i32
+    if hasattr(cdll, "fkp_probe"):  # the older template's entry
+        cdll.fkp_probe.argtypes = [vp] * 4 + [i32] * (7 if sm90_stages else 8) + [
+            ctypes.c_float, vp]
+        cdll.fkp_probe.restype = i32
 
     def probe(stage, q, k, v, block_k, out, sizes):
         import torch
@@ -170,6 +176,7 @@ def probes_main(specs) -> int:
                                      _build.NVCC_FLAGS, out_dir)
     dev = torch.device("cuda", 0)
     label = platform.card_label()
+    clock = cs.max_sm_clock_hz()
     gen = torch.Generator(device=dev).manual_seed(23)
 
     def inputs(b, hq, hkv, n, s, d):
@@ -180,7 +187,7 @@ def probes_main(specs) -> int:
     def operands(stage, q, k, v, block_k):
         """The kernel's operands for the caller's q, k, v (K^T for qk_kt, the
         packed q and K for qk_packed), and its sizes."""
-        _, sizes = pr.probe_route(STAGES[stage], q, k)
+        sizes = pr.probe_sizes(STAGES[stage], q, k)
         if stage == "qk_kt":
             return (q, k.transpose(-1, -2).contiguous(), None), sizes
         if stage == "qk_packed":
@@ -201,7 +208,8 @@ def probes_main(specs) -> int:
         q, k, v = inputs(b, hq, hkv, n, s, d)
         qh, kh, vh = halves(q, k, v)
         plain = dict(copy=pr._copy_plain(q, k, v, block_k), qk=pr._qk_plain(q, k),
-                     pv=pr._pv_plain(q, v), qk_kt=pr._qk_plain(q, k),
+                     pv=pr._pv_plain(q, v), chain=pr._chain_plain(q, s, block_k),
+                     qk_kt=pr._qk_plain(q, k),
                      qk_packed=pr._packed_plain(qh, kh).reshape(b, hkv // 2, -1, d))
         for stage, want in plain.items():
             ops = operands(stage, *((qh, kh, vh) if stage == "qk_packed" else (q, k, v)),
@@ -209,7 +217,7 @@ def probes_main(specs) -> int:
             for name in entries:
                 got = run(name, stage, *ops, block_k)
                 torch.cuda.synchronize()
-                if stage == "copy":
+                if stage in ("copy", "chain"):
                     err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
                     ok = err <= cs.EXACT_RTOL
                 else:
@@ -246,6 +254,9 @@ def probes_main(specs) -> int:
                "pv": cs.bound(flops, cs.nbytes(v) + out_bytes + 2 * 16 * 4096),
                "qk_kt": cs.bound(flops, cs.nbytes(q, k) + out_bytes),
                "qk_packed": cs.bound(flops, cs.nbytes(qh, kh) + out_bytes)}
+        t_exp = (16 * 4096 * (4096 + 4096 // 512) / (cs.MUFU_PER_SM_CLK * platform.H100_SMS
+                                                     * clock) * 1e3)
+        bnd["chain"] = dict(bound_ms=max(t_exp, cs.bound(0, 2 * 16 * 4096 + out_bytes)["bound_ms"]))
         pair = cs.bound(2 * flops, 0)["bound_ms"]
         unpacked = cs.bound(flops // 2, cs.nbytes(qh, kh) + out_bytes)["bound_ms"]
         fused = ms["fused forward"]
@@ -258,12 +269,16 @@ def probes_main(specs) -> int:
             return f"{stage} {t:.4f} ms ({b_ / t:.1%} of its bound {b_:.4f}{extra})"
         for name in entries:
             total = sum(ms[f"{name} {stage}"] for stage in ("copy", "qk", "pv"))
+            products = ms[f"{name} qk"] + ms[f"{name} pv"]
             print(f"probes 1x16/4x4096x{d} (qk_packed at d {d // 2}), block_k 512, "
                   f"{name}, kernels alone: "
                   + " | ".join(note(name, stage) for stage in STAGES)
                   + f" | copy + qk + pv {total:.4f} vs the fused forward {fused:.4f} "
-                  f"(stable=False {ms['fused forward, stable=False']:.4f}) | {label}",
-                  flush=True)
+                  f"(stable=False {ms['fused forward, stable=False']:.4f}) | split: "
+                  f"copy {ms[f'{name} copy']:.4f}, qk + pv {products:.4f} "
+                  f"({products / fused:.1%} of the fused), the fused outside the "
+                  f"products {fused - products:.4f}, the chain alone "
+                  f"{ms[f'{name} chain']:.4f} | {label}", flush=True)
         print(f"whole calls at d {d} (qk_packed d {d // 2}, block_q 256), this: "
               f"qk_kt_probe {ms['this qk_kt_probe']:.4f} ms (K^T in torch alone "
               f"{ms['transpose']:.4f}), qk_packed_probe {ms['this qk_packed_probe']:.4f} "
