@@ -3326,14 +3326,15 @@ def motif_corpus(cfg, n_tokens=1 << 17, motif_len=512):
 
 
 def phase_train(device, cfg, params, corpus, batch, seq, lr, steps, label,
-                kernels=None):
+                kernels=None, profile=None):
     """bench_train.py's training loop in the port: a seeded token file
     streamed through the native TokenLoader, one warm-up and `steps` timed
     sgd_train_steps. Every loss finite, the first within 1.0 of
     ln(vocab), a fixed held-out batch's loss lower after the steps, and
     (on a GPU) the forward and both backward kernels launched (with the
     config's window, if it has one; `kernels` names the counters to read
-    instead); then one step profiled. Returns the trained params, the
+    instead); then one step profiled (by `profile`, profile_step's
+    signature; profile_step by default). Returns the trained params, the
     kernels' launch counts and the median ms/step."""
     import shutil
     import tempfile
@@ -3385,7 +3386,7 @@ def phase_train(device, cfg, params, corpus, batch, seq, lr, steps, label,
             schedules = {k: read_counters()[k]
                          for k in ("flash_bwd", "flash_bwd/fused", "flash_bwd/split")}
             peak = torch.cuda.max_memory_allocated()
-            profile_step(cfg, params, tokens(), lr, label)
+            (profile or profile_step)(cfg, params, tokens(), lr, label)
         with torch.no_grad():
             held1 = float(tfm.loss_fn(cfg, params, held))
     finally:
@@ -4254,7 +4255,8 @@ def phase_consistency(device, cfg, params, n_prompt, n_steps, label,
     """prefill + n_steps greedy decode_steps for 2 prompts; each step's
     logits against a full forward over the same tokens. With quant_fmt
     ("int8" or "fp8") the cache is 8-bit, and generate(quantized_cache=True,
-    quant_fmt=...) must give the same greedy tokens."""
+    quant_fmt=...) must give the same greedy tokens. An MoE model decodes
+    from its split parameters (the fused layout has no MoE form)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.models import engine
@@ -4266,7 +4268,7 @@ def phase_consistency(device, cfg, params, n_prompt, n_steps, label,
     q8 = dict(quantized=True, quant_fmt=quant_fmt) if quant_fmt else {}
     cache = engine.init_cache(cfg, 2, n_prompt + n_steps + 1, device, **q8)
     logits, cache = engine.prefill(cfg, params, prompt, cache)
-    dec = engine.fuse_decode_params(cfg, params)
+    dec = params if cfg.moe_experts else engine.fuse_decode_params(cfg, params)
     steps = [logits]
     toks = [logits.argmax(-1).to(torch.int32)]
     for _ in range(n_steps):
@@ -6280,6 +6282,9 @@ DEC_I8 = [  # (b, hq, hkv, s, d, lengths "full" or "ragged", (window, sinks) or 
     (8, 16, 4, 8192, 128, "full", None),    # run_all.py:443-458's decode rung
     (8, 16, 4, 2048, 128, "ragged", None),  # phase_decode_8bit's serving shape
     (8, 16, 4, 2048, 128, "ragged", (256, 4)),
+    # B·Hkv 264: the core rule's one split of 8192 keys would not fit a
+    # block's shared memory at G 4; the default takes two (ROADMAP C.5)
+    (66, 16, 4, 8192, 128, "full", None),
 ]
 PAGED_I8 = [  # (b, hq, hkv, d, page, max_pages, lengths)
     (8, 16, 4, 128, 128, 64, [8192] * 8),  # run_all.py:461-511's paged rung
@@ -6419,7 +6424,7 @@ def phase_int8_products(device, label, dec_shapes=DEC_I8, paged_shapes=PAGED_I8)
     for i, (c, o) in enumerate(zip(dec, outs_d)):
         b, hq, hkv, s, d = c["shape"]
         window, sinks, lengths = c["window"], c["sinks"], c["lengths"]
-        n_splits = fd._core_n_splits(b, hkv, s)
+        n_splits = fd.mxu_n_splits(b, hkv, s, hq // hkv, d)
         block_s = fd.mxu_block_s(s, n_splits)
         args = (c["q"], *c["cache"], lengths, n_splits, block_s, d ** -0.5,
                 window or 0, sinks)
@@ -7287,6 +7292,322 @@ def phase_paged_probes(device, label, shape=AB_PAGED):
     return slots16, slots8, copy_entry
 
 
+# ---------------------------------------------------------------------------
+# MoE on one device: bench_train.py --moe-experts 8's model trained, its
+# dispatches held on real activations, served through the engine, and its
+# cached decode held to a full forward.
+# ---------------------------------------------------------------------------
+
+# benchmarks/serving_queue.py:158's train_moe8_4l (bench_train.py
+# --moe-experts 8): the training configuration with 8 experts of d_ff 5504
+# each, top-2, capacity factor 1.25 and aux weight 0.01 (the JAX config's
+# defaults), batch 4 x 4096
+MOE_TRAIN = dict(TRAIN, moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                 moe_aux_weight=0.01)
+MOE_DISPATCH_TOL = 2e-6  # dense against sort, rtol and atol (tests/test_moe.py:205)
+# the card's moe_ffn against the same call on the CPU (rel-L2 over the tokens
+# whose chosen experts and kept slots agree), and the tokens whose choice
+# may differ: a near-tie of the router, whose f32 sums the two devices take
+# in another order
+MOE_CPU_TOL = 1e-5
+MOE_MAX_FLIPS = 1
+MOE_TOKENS = 2048  # of the trained model's layer-0 MLP input
+# this repo's attention kernels, by name
+ATTENTION_KERNEL = r"(flash|paged|ragged)_\w+_kernel"
+
+
+def moe_kind(op, kernel: str, cfg) -> str:
+    """The kind of a kernel of an MoE training step, by its own name (this
+    repo's attention kernels) or by the innermost operator that launched it:
+    its name, its input shapes and the backward node around it."""
+    if re.search(ATTENTION_KERNEL, kernel):
+        return "attention kernels"
+    e, f, v = cfg.moe_experts, cfg.d_ff, cfg.vocab_size
+    shapes = [list(s) for s in (op.input_shapes or []) if s and
+              all(isinstance(d, int) for d in s)]
+    node = op.cpu_parent
+    while node is not None and "Backward" not in node.name:
+        node = node.cpu_parent
+    node = node.name if node is not None else ""
+    if any(v in s for s in shapes):
+        return "lm_head, embedding and loss (f32)"
+    expert3 = [s for s in shapes if len(s) == 3 and s[0] == e]
+    if op.name in ("aten::bmm", "aten::baddbmm") and expert3:
+        return "expert products (f32 bmm)"
+    if op.name in ("aten::gelu", "aten::gelu_backward"):
+        return "expert gelu"
+    if op.name == "aten::bmm":  # the dense dispatch's products (einsum)
+        return "dispatch and combine"
+    if op.name in ("aten::copy_", "aten::_to_copy") and any(f in s for s in expert3):
+        return "expert weights widened to f32"
+    if any((len(s) == 2 and s[-1] == e) or s == [e] for s in shapes):
+        return "router"
+    if (op.name in ("aten::index", "aten::index_put_", "aten::_index_put_impl_",
+                    "aten::sort", "aten::searchsorted", "aten::scatter_",
+                    "aten::scatter_add_", "aten::index_add_", "aten::gather")
+            or "IndexBackward" in node
+            or (op.name == "aten::cat" and [1, cfg.d_model] in shapes)):
+        return "dispatch and combine"
+    if op.name in ("aten::mm", "aten::addmm"):
+        return "projections (bf16 GEMM)"
+    return "glue"
+
+
+def moe_device_ms(fn, cfg, what, label):
+    """Run fn() under torch.profiler and log its device time by kind
+    (`moe_kind`), each kernel classed through the operator that launched
+    it, with each kind's three largest operators; this repo's attention
+    kernels by their names, launched inside an operator (a backward node)
+    or not (ctypes in the forward), the rest of the latter "unattributed".
+    Returns {kind: ms}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kinds, ops, linked, flash, total, n_ops = {}, {}, 0.0, 0.0, 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            total += us
+            n_ops += 1
+            if re.search(ATTENTION_KERNEL, ev.name):
+                flash += us
+        elif ev.device_type == DeviceType.CPU:
+            for k in ev.kernels:
+                kind = moe_kind(ev, k.name, cfg)
+                kinds[kind] = kinds.get(kind, 0.0) + k.duration
+                by_op = ops.setdefault(kind, {})
+                by_op[ev.name] = by_op.get(ev.name, 0.0) + k.duration
+                linked += k.duration
+    rest = total - (linked - kinds.pop("attention kernels", 0.0)) - flash
+    kinds["attention kernels"] = flash
+    if rest > 0:
+        kinds["unattributed"] = rest
+    kinds = {k: us / 1e3 for k, us in kinds.items()}
+    dev = sum(kinds.values())
+    log(f"MoE {what} profile: {dev:.2f} ms of device time in {wall:.2f} ms of "
+        f"wall (profiled), {n_ops} device operations | " + ", ".join(
+            f"{k} {v:.2f} ms ({100 * v / dev:.1f}%)"
+            for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+        + f" [{label}]")
+    for kind, by_op in sorted(ops.items()):
+        top = sorted(by_op.items(), key=lambda kv: -kv[1])[:3]
+        log(f"MoE {what} profile: {kind}: " + ", ".join(
+            f"{name} {us / 1e3:.2f} ms" for name, us in top))
+    return kinds
+
+
+def profile_moe_step(cfg, params, tokens, lr, label):
+    """One more MoE training step, profiled by `moe_device_ms`."""
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+
+    return moe_device_ms(lambda: tfm.sgd_train_step(cfg, params, tokens, lr),
+                         cfg, "train step", label)
+
+
+def moe_dispatch_check(device, cfg, params, corpus, label):
+    """moe_ffn on MOE_TOKENS tokens of the trained model's layer-0 MLP input
+    (rms_norm of the residual after layer 0's attention, in f32): the dense
+    and the sort dispatch within MOE_DISPATCH_TOL on the card; the card's
+    call against the same call on the CPU, every token whose chosen experts
+    differ printed with its probabilities (more than MOE_MAX_FLIPS fail),
+    and rel-L2 within MOE_CPU_TOL over the tokens whose choices and kept
+    slots agree (a flip upstream can shift an expert's queue by one)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import moe
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+
+    seq = MOE_TOKENS
+    toks = torch.from_numpy(corpus[1000:1000 + seq].astype(np.int32)).to(device)
+    layer = tfm.layer_params(params, 0)
+    with torch.no_grad():
+        x = params["embed"][toks[None]]
+        sin, cos = tfm.rope_tables(cfg, torch.arange(seq, device=device)[None])
+        x = tfm._attention_block(cfg, layer, x, sin, cos)
+        h = tfm.rms_norm(x, layer["rms_mlp"]).reshape(seq, cfg.d_model).float()
+        mcfg = moe.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                             num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                             capacity_factor=cfg.moe_capacity_factor)
+        mp = {"w_gate": layer["moe_router"], "w1": layer["moe_w1"].float(),
+              "w2": layer["moe_w2"].float()}
+        dense = moe.moe_ffn(mp, h, mcfg, dispatch="dense")
+        srt = moe.moe_ffn(mp, h, mcfg, dispatch="sort")
+        gap = float((dense - srt).abs().max())
+        if not torch.allclose(dense, srt, rtol=MOE_DISPATCH_TOL,
+                              atol=MOE_DISPATCH_TOL):
+            raise AssertionError(f"MoE dense and sort dispatch differ on the "
+                                 f"card: max-abs {gap:.3e}")
+        cpu = torch.device("cpu")
+        hc, mpc = h.to(cpu), {k: w.to(cpu) for k, w in mp.items()}
+        on_cpu = moe.moe_ffn(mpc, hc, mcfg)
+        on_card = moe.moe_ffn(mp, h, mcfg).to(cpu)
+        probs = [torch.softmax(a @ w["w_gate"], dim=-1).to(cpu)
+                 for a, w in ((h, mp), (hc, mpc))]
+        cap = mcfg.capacity(seq)
+        routes = [moe._top_k_dispatch_sort(p, mcfg.top_k, cap)[1] for p in probs]
+        choices = [torch.stack([m.argmax(-1) for m in
+                                moe._top_k_choices(p, mcfg.top_k)[1]], -1)
+                   for p in probs]
+    flips = (choices[0] != choices[1]).any(-1)
+    same = ~flips & (routes[0] == routes[1]).all(-1)
+    for t in flips.nonzero()[:, 0].tolist():
+        top = probs[0][t].topk(mcfg.top_k + 1)
+        log(f"MoE router near-tie: token {t} experts {choices[0][t].tolist()} on "
+            f"the card, {choices[1][t].tolist()} on the CPU; card's top "
+            f"{mcfg.top_k + 1} probabilities {top.values.tolist()} (experts "
+            f"{top.indices.tolist()}), the gap at the flip "
+            f"{float((top.values[:-1] - top.values[1:]).min()):.3e}")
+    err = _rel_l2(on_card[same], on_cpu[same])
+    drops = int((routes[0] == cfg.moe_experts * cap).sum())
+    log(f"MoE dispatch on {seq} tokens of layer 0's MLP input (trained model; "
+        f"capacity {cap} an expert, {drops} of {seq * mcfg.top_k} choices "
+        f"dropped): dense vs sort max-abs {gap:.3e} (<= {MOE_DISPATCH_TOL}); "
+        f"card vs CPU: {int(flips.sum())} tokens chose other experts, "
+        f"{seq - int(same.sum())} excluded, rel-L2 over the other "
+        f"{int(same.sum())} {err:.3e} (<= {MOE_CPU_TOL}) [{label}]")
+    if int(flips.sum()) > MOE_MAX_FLIPS:
+        raise AssertionError(f"MoE routing: {int(flips.sum())} tokens chose "
+                             f"other experts on the card than on the CPU")
+    if not err <= MOE_CPU_TOL:
+        raise AssertionError(f"MoE output on the card {err:.3e} rel-L2 from "
+                             f"the CPU's > {MOE_CPU_TOL}")
+
+
+def moe_serve(device, cfg, params, label, batch=8, n_prompt=128, n_new=64,
+              chunk=256, verify=5, page=128, n_paged=16):
+    """The trained MoE model served through the engine from its split
+    parameters, with every launch counter at 0 before: prefill of `batch`
+    prompts, 4 decode_steps to warm up and `n_new` greedy decode_steps
+    (kernels 1 and 6, timed: tok/s), one decode_step profiled by
+    `moe_device_ms`, an extend chunk of `chunk` (kernel 3, wgmma route)
+    and a ragged extend of `verify` (slab route), then each row's cache
+    paged_insert'ed into pages of `page` and `n_paged` decode_steps_paged
+    and a `verify`-token extend_paged (kernels 10 and 11). Every kernel of
+    the path must have launched, every token lie in the vocabulary and
+    every logit be finite. Returns the launches and the decode's tok/s."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import engine
+
+    gen = torch.Generator(device=device).manual_seed(37)
+
+    def draw(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=device, dtype=torch.int32)
+
+    prompts = draw(batch, n_prompt)
+    max_len = n_prompt + 4 + n_new + 1 + chunk + verify
+    torch.cuda.synchronize()
+    reset_counters()
+    cache = engine.init_cache(cfg, batch, max_len, device)
+    logits, cache = engine.prefill(cfg, params, prompts, cache)
+    outs = [logits]
+    warm, cache = engine.decode_steps(cfg, params, logits.argmax(-1).to(torch.int32),
+                                      cache, n_steps=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, cache = engine.decode_steps(cfg, params, warm[:, -1], cache,
+                                      n_steps=n_new)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    moe_device_ms(lambda: engine.decode_step(cfg, params, toks[:, -1], cache),
+                  cfg, f"decode step (B {batch})", label)
+    logits, cache = engine.extend(cfg, params, draw(batch, chunk), cache)
+    outs.append(logits)
+    n = torch.arange(batch, device=device, dtype=torch.int32) % verify + 1
+    logits, cache = engine.extend(cfg, params, draw(batch, verify), cache, n=n)
+    outs.append(logits)
+    lens = cache.lengths.tolist()
+    max_pages = -(-(max(lens) + n_paged + verify) // page)
+    pcache = engine.init_paged_cache(cfg, batch, batch * max_pages + 1, device,
+                                     page_size=page, max_pages_per_seq=max_pages)
+    for slot, length in enumerate(lens):
+        engine.paged_insert(pcache, slot,
+                            list(range(1 + slot * max_pages, 1 + (slot + 1) * max_pages)),
+                            [k[slot, :, :length] for k in cache.k],
+                            [v[slot, :, :length] for v in cache.v], length)
+    ptoks, pcache = engine.decode_steps_paged(
+        cfg, params, logits.argmax(-1).to(torch.int32), pcache, n_steps=n_paged)
+    logits, pcache = engine.extend_paged(cfg, params, draw(batch, verify), pcache)
+    outs.append(logits)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    need = ("flash_fwd", "flash_decode", "flash_fwd_ragged/wgmma",
+            "flash_fwd_ragged/slab", "paged_decode", "paged_extend")
+    launches = {k: counts[k] for k in need}
+    tok_s = batch * n_new / decode_s
+    log(f"MoE serve: prefill {batch} x {n_prompt}, 4 + {n_new} decode_steps "
+        f"({tok_s:.1f} tok/s, {decode_s * 1e3 / n_new:.2f} ms a step, host "
+        f"clock after the 4), extend {chunk}, ragged extend {verify} (n "
+        f"{n.tolist()}), paged_insert into pages of {page}, {n_paged} "
+        f"decode_steps_paged, extend_paged {verify}: launches {launches} [{label}]")
+    if not all(launches.values()):
+        raise AssertionError(f"MoE serve: a kernel of the path never launched: "
+                             f"{launches}")
+    for t in (toks, ptoks):
+        if not bool(((t >= 0) & (t < cfg.vocab_size)).all()):
+            raise AssertionError("MoE serve: a token outside the vocabulary")
+    if not all(bool(torch.isfinite(x).all()) for x in outs):
+        raise AssertionError("MoE serve: non-finite logits")
+    return launches, tok_s
+
+
+def phase_moe(device, corpus, label):
+    """bench_train.py --moe-experts 8's model (MOE_TRAIN, bf16, weights from
+    seed 0) on the card: (a) 5 timed sgd_train_steps through phase_train
+    (losses finite, the first within 1.0 of ln(vocab), the held-out loss
+    falling, the forward and the two-kernel backward launched) and one
+    profiled step by kind; (b) its dispatches on real activations
+    (`moe_dispatch_check`); (c) the trained model served (`moe_serve`);
+    (d) cached decode against a full forward (phase_consistency) with
+    capacity factor E / top_k, where no token can be dropped in either
+    (routing couples a batch's tokens, so a cached step and a full forward
+    would otherwise drop differently). f32 products with TF32 off: a
+    rounded router product flips near-tie argmaxes. Returns the launches of
+    (a), (c) and (d) by kernel."""
+    import dataclasses
+
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tfm.TransformerConfig(**MOE_TRAIN, dtype=torch.bfloat16)
+    params = tfm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    t0 = time.perf_counter()
+    params, train, ms = phase_train(device, cfg, params, corpus, TRAIN_BATCH,
+                                    TRAIN_SEQ, TRAIN_LR, steps=5, label=label,
+                                    profile=profile_moe_step)
+    t1 = time.perf_counter()
+    moe_dispatch_check(device, cfg, params, corpus, label)
+    t2 = time.perf_counter()
+    serve, tok_s = moe_serve(device, cfg, params, label)
+    t3 = time.perf_counter()
+    ccfg = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    reset_counters()
+    phase_consistency(device, ccfg, params, n_prompt=128, n_steps=16,
+                      label=label, what=f" (MoE, capacity factor "
+                      f"{ccfg.moe_capacity_factor})")
+    torch.cuda.synchronize()
+    counts = read_counters()
+    cons = {k: counts[k] for k in ("flash_fwd", "flash_decode")}
+    t4 = time.perf_counter()
+    log(f"MoE phase: train {t1 - t0:.1f} s, dispatch {t2 - t1:.1f} s, serve "
+        f"{t3 - t2:.1f} s, consistency {t4 - t3:.1f} s | launches: train "
+        f"{train}, serve {serve}, consistency {cons} [{label}]")
+    return dict(train=train, serve=serve, consistency=cons, ms=ms, tok_s=tok_s)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside chip_smoke.py: run it from a checkout "
@@ -7631,6 +7952,11 @@ def main() -> int:
     packed["launches"] = serve64["flash_fwd/packed"] + train64["flash_fwd/packed"]
     log(f"packed forward launches: {serve64['flash_fwd/packed']} serving the "
         f"d64 model, {train64['flash_fwd/packed']} in its 5 training steps")
+
+    # 13. bench_train.py --moe-experts 8's model: trained, its dispatches on
+    # real activations, served through the engine, cached decode held to a
+    # full forward (kernels 1, 3, 4, 5, 6, 10 and 11 on its path)
+    phase_moe(device, corpus, label)
 
     print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend, dec_q,
                                   paged_q, ragged_q, extend_q, win_fwd, win_dec,

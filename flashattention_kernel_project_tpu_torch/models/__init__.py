@@ -1,13 +1,14 @@
-"""The GQA decoder, its training step, checkpoints, the KV-cache engine
-and the serving scheduler. Every public name of the JAX package's `models`
-is here, apart from MoE (`MoEConfig`, `init_moe_params`, `moe_ffn`, the
-`moe` module; ROADMAP A.10a) and the mesh shardings (`param_shardings`,
-`moe_param_shardings`, `make_ep_moe`; ROADMAP A.9), not yet ported."""
+"""The GQA decoder (dense or Mixture-of-Experts), its training step,
+checkpoints, the KV-cache engine and the serving scheduler. Every public
+name of the JAX package's `models` is here, apart from the mesh shardings
+(`param_shardings`, `moe_param_shardings`, `make_ep_moe`; ROADMAP A.9),
+not yet ported."""
 
 from flashattention_kernel_project_tpu_torch.models import (  # noqa: F401
     checkpoint,
     convert,
     engine,
+    moe,
     serving,
     transformer,
 )
@@ -30,6 +31,11 @@ from flashattention_kernel_project_tpu_torch.models.engine import (  # noqa: F40
     quantize_decode_params,
     speculative_accept,
     speculative_generate,
+)
+from flashattention_kernel_project_tpu_torch.models.moe import (  # noqa: F401
+    MoEConfig,
+    init_moe_params,
+    moe_ffn,
 )
 from flashattention_kernel_project_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,

@@ -18,6 +18,13 @@ attention kernels' 8-bit forms, which dequantize inside the kernel.
 `quantize_decode_params` makes 8-bit weight-only decode parameters, which
 the projections multiply by as widened bf16, outside any kernel.
 
+An MoE model (`moe_experts > 0`) serves from its split parameters through
+`prefill`, `extend`, `decode_step(s)`, `paged_insert`, `decode_step(s)_paged`
+and `extend_paged`, which route every token of a call together (the batch
+shares the experts' capacity). The fused decode layout has no MoE form, so
+`fuse_decode_params`, `quantize_decode_params`, `generate` and the
+Scheduler refuse MoE parameters, as the JAX package's single-device ones do.
+
 Unlike the JAX engine, whose functions return a new cache, the port updates
 the cache IN PLACE: `prefill`, `extend`, `extend_paged`, `decode_step`,
 `decode_step_paged` and `paged_insert` write the new K/V rows into the
@@ -157,7 +164,6 @@ def prefill(cfg, params, tokens, cache: KVCache):
     Assumes the prefilled slots are empty (lengths == 0): attention here
     only sees the prompt itself, in full precision; an 8-bit cache receives
     the quantized rows afterwards."""
-    tfm._dense_only(cfg)
     b, t = tokens.shape
     x = params["embed"][tokens]
     positions = cache.lengths[:, None].long() + torch.arange(
@@ -179,18 +185,31 @@ def prefill(cfg, params, tokens, cache: KVCache):
             sinks=cfg.attn_sinks,
         )
         x = x + o.transpose(1, 2).reshape(b, t, cfg.q_dim) @ layer["wo"]
-        x = _mlp(layer, x)
+        x = _mlp(layer, x, cfg)
         _quantize_and_write(cache, i, kt, vt, cache.lengths)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths += t
     return tfm.logits_f32(x[:, -1], params["embed"]), cache
 
 
+def _no_moe(params: dict, what: str):
+    """The fused decode layout has no MoE form (the JAX package's has none
+    either: its fuse_decode_params raises KeyError on an MoE tree)."""
+    if "moe_w1" in params["layers"]:
+        raise NotImplementedError(
+            f"{what}: the fused decode layout has no MoE form, so generate and "
+            "the Scheduler do not serve an MoE model; serve it through "
+            "prefill, extend and the decode steps with its split parameters. "
+            "The JAX package serves MoE through a mesh Scheduler (ROADMAP A.9)")
+
+
 def fuse_decode_params(cfg: tfm.TransformerConfig, params: dict) -> dict:
     """One-time transform for the decode loop: QKV concatenated into one
     [D, q+2kv] matrix and gate/up into one [D, 2F] per layer, so a decode
     step streams 5 weight matrices per layer instead of 7 (decode at small
-    batch is bound by weight bytes). The split layout stays for prefill."""
+    batch is bound by weight bytes). The split layout stays for prefill.
+    MoE parameters raise NotImplementedError (no fused MoE layout)."""
+    _no_moe(params, "fuse_decode_params")
     L = params["layers"]
     return {
         "embed": params["embed"],
@@ -214,7 +233,9 @@ def quantize_decode_params(cfg: tfm.TransformerConfig, params: dict,
     output column; the lm_head becomes lm_head_q [vocab, D] and lm_head_s
     [vocab, 1], one per vocabulary row. The embedding gather and the norms
     stay full precision. At decode's small batch the weights are the bytes
-    a step reads, so this halves them."""
+    a step reads, so this halves them. MoE parameters raise
+    NotImplementedError, as fuse_decode_params does."""
+    _no_moe(params, "quantize_decode_params")
     quantizer = quantizer_for(cache_dtype(fmt))
     L = params["layers"]
     layers = {"rms_attn": L["rms_attn"], "rms_mlp": L["rms_mlp"]}
@@ -265,14 +286,16 @@ def _qkv(cfg, layer, h, b, t):
     return q, k, v
 
 
-def _mlp(layer, x):
+def _mlp(layer, x, cfg):
     if "w_gate_up" in layer or "w_gate_up_q" in layer:
         h = tfm.rms_norm(x, layer["rms_mlp"])
         gu = _proj(h, layer, "w_gate_up")
         f = gu.shape[-1] // 2
         gated = torch.nn.functional.silu(gu[..., :f]) * gu[..., f:]
         return x + _proj(gated, layer, "w_down")
-    return tfm._mlp_block(layer, x)
+    # the split layout, dense or MoE: an MoE layer routes with cfg's top_k
+    # and capacity, so a model serves with the dispatch it trained with
+    return tfm._mlp_block(layer, x, cfg)
 
 
 def decode_step(cfg, params, tokens, cache: KVCache, *, n_splits=None):
@@ -280,7 +303,6 @@ def decode_step(cfg, params, tokens, cache: KVCache, *, n_splits=None):
     Appends each slot's K/V row at its length and advances the lengths by
     one, in place. `params` may be fused (fuse_decode_params), 8-bit
     (quantize_decode_params) or split."""
-    tfm._dense_only(cfg)
     b = tokens.shape[0]
     x = params["embed"][tokens][:, None]  # [B, 1, D]
     sin, cos = tfm.rope_tables(cfg, cache.lengths[:, None])
@@ -303,7 +325,7 @@ def decode_step(cfg, params, tokens, cache: KVCache, *, n_splits=None):
         else:
             o = flash_decode(q_dec, cache.k[i], cache.v[i], new_lengths, **kw)
         x = x + _proj(o.reshape(b, 1, cfg.q_dim), layer, "wo")
-        x = _mlp(layer, x)
+        x = _mlp(layer, x, cfg)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths.copy_(new_lengths)
     return _lm_head(params, x[:, 0]), cache
@@ -351,8 +373,8 @@ def extend(
     position n[b] - 1. The padded tail is still written, so the cache needs
     T rows of room past each slot's length (an 8-bit cache's tail scales
     too, equally invisible). An 8-bit cache is read by the 8-bit ragged
-    kernel, which dequantizes as it loads."""
-    tfm._dense_only(cfg)
+    kernel, which dequantizes as it loads. An MoE model routes the padded
+    tail too, so its tokens take expert capacity, as in the JAX package."""
     b, t = tokens.shape
     x = params["embed"][tokens]
     old_lengths = cache.lengths.clone()
@@ -379,7 +401,7 @@ def extend(
             o = flash_attention_ragged(qh, cache.k[i], cache.v[i], new_lengths,
                                        old_lengths, **kw)
         x = x + _proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer, "wo")
-        x = _mlp(layer, x)
+        x = _mlp(layer, x, cfg)
     x = tfm.rms_norm(x, params["rms_final"])
     if all_logits:
         xe = x
@@ -600,7 +622,6 @@ def decode_step_paged(cfg, params, tokens, cache: PagedKVCache):
     zero attention output. `params` may be fused, 8-bit or split. An 8-bit
     pool quantizes each appended token and decodes through the 8-bit
     paged kernel."""
-    tfm._dense_only(cfg)
     b = tokens.shape[0]
     x = params["embed"][tokens][:, None]  # [B, 1, D]
     sin, cos = tfm.rope_tables(cfg, cache.lengths[:, None])
@@ -625,7 +646,7 @@ def decode_step_paged(cfg, params, tokens, cache: PagedKVCache):
             o = paged_flash_decode(q_dec, cache.k_pages[i], cache.v_pages[i],
                                    cache.block_tables, new_lengths)
         x = x + _proj(o.reshape(b, 1, cfg.q_dim), layer, "wo")
-        x = _mlp(layer, x)
+        x = _mlp(layer, x, cfg)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths.copy_(new_lengths)
     return _lm_head(params, x[:, 0]), cache
@@ -654,7 +675,6 @@ def extend_paged(cfg, params, tokens, cache: PagedKVCache):
     lengths advance on the device, with no host sync. `params` may be fused
     or split. An 8-bit pool quantizes the chunk per token as it appends it
     (paged_append_chunk_quant) and scores it through the 8-bit kernel."""
-    tfm._dense_only(cfg)
     b, t = tokens.shape
     x = params["embed"][tokens]
     old_lengths = cache.lengths.clone()
@@ -683,7 +703,7 @@ def extend_paged(cfg, params, tokens, cache: PagedKVCache):
                                cache.block_tables, new_lengths, old_lengths,
                                **scales)  # [B, Hq, T, D]
         x = x + _proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer, "wo")
-        x = _mlp(layer, x)
+        x = _mlp(layer, x, cfg)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths.copy_(new_lengths)
     return tfm.logits_f32(x, params["embed"]), cache

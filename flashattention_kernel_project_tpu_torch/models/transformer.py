@@ -1,15 +1,20 @@
 """GQA decoder-only transformer: RMSNorm, RoPE, grouped-query attention
-through ops.flash_attention, SwiGLU MLP, tied embeddings.
+through ops.flash_attention, a SwiGLU or a Mixture-of-Experts MLP, tied
+embeddings.
 
-Counterpart of flashattention_kernel_project_tpu/models/transformer.py,
-dense path: the forward, the next-token loss and a plain SGD step.
-Parameters are a dict of tensors in the JAX package's layout, so a JAX
-parameter tree converts by copying (models/convert.py):
+Counterpart of flashattention_kernel_project_tpu/models/transformer.py on
+one device: the forward, the next-token loss (with an MoE config's
+load-balancing term) and a plain SGD step. Parameters are a dict of
+tensors in the JAX package's layout, so a JAX parameter tree converts by
+copying (models/convert.py):
 
     embed [vocab, d_model], rms_final [d_model] float32,
     layers: wq [L, d_model, q_dim], wk/wv [L, d_model, kv_dim],
-            wo [L, q_dim, d_model], w_gate/w_up [L, d_model, d_ff],
-            w_down [L, d_ff, d_model], rms_attn/rms_mlp [L, d_model] float32
+            wo [L, q_dim, d_model], rms_attn/rms_mlp [L, d_model] float32,
+            and w_gate/w_up [L, d_model, d_ff], w_down [L, d_ff, d_model]
+            (dense), or moe_router [L, d_model, E] float32,
+            moe_w1 [L, E, d_model, d_ff], moe_w2 [L, E, d_ff, d_model]
+            (moe_experts = E > 0)
 
 Weights are stored [in, out] and applied as x @ w.
 """
@@ -19,7 +24,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
+from flashattention_kernel_project_tpu_torch.models import moe
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
@@ -28,8 +35,10 @@ from flashattention_kernel_project_tpu_torch.ops.flash_attention import (
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The JAX config's fields, less the TPU tiling knobs (block_q,
-    block_k); the kernels pick their own tiles. moe_experts > 0 is not
-    ported yet."""
+    block_k); the kernels pick their own tiles. moe_experts > 0 replaces
+    every layer's SwiGLU with a top-k routed expert MLP (models/moe.py) of
+    moe_top_k choices, capacity factor moe_capacity_factor, whose
+    load-balancing loss enters loss_fn times moe_aux_weight."""
 
     vocab_size: int = 32000
     d_model: int = 1024
@@ -44,6 +53,9 @@ class TransformerConfig:
     attn_window: int | None = None
     attn_sinks: int = 0
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def q_dim(self) -> int:
@@ -54,26 +66,23 @@ class TransformerConfig:
         return self.n_kv_heads * self.d_head
 
 
-def _dense_only(cfg: TransformerConfig):
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE layers are ROADMAP item A.10")
-
-
 def init_params(
     cfg: TransformerConfig, generator: torch.Generator, device
 ) -> dict:
     """Scaled-normal init (std = fan_in**-0.5, embed 0.02), weights in
     cfg.dtype, drawn from `generator` (which must live on `device`).
     torch's draws differ from jax.random's: tests that compare with the JAX
-    package convert its parameters instead."""
-    _dense_only(cfg)
+    package convert its parameters instead. An MoE config's router is
+    float32 (routing takes argmaxes over near-ties, which bf16 would flip)
+    and its expert weights are scaled by their fan-in, d_model**-0.5 and
+    d_ff**-0.5."""
     L = cfg.n_layers
 
-    def dense(shape, scale=None):
+    def dense(shape, scale=None, dtype=cfg.dtype):
         scale = scale or shape[-2] ** -0.5
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (w * scale).to(cfg.dtype)
+        return (w * scale).to(dtype)
 
     def ones(shape):
         return torch.ones(shape, dtype=torch.float32, device=device)
@@ -86,10 +95,20 @@ def init_params(
         wo=dense((L, cfg.q_dim, d)),
         rms_attn=ones((L, d)),
         rms_mlp=ones((L, d)),
-        w_gate=dense((L, d, f)),
-        w_up=dense((L, d, f)),
-        w_down=dense((L, f, d)),
     )
+    if cfg.moe_experts:
+        e = cfg.moe_experts
+        layers.update(
+            moe_router=dense((L, d, e), dtype=torch.float32),
+            moe_w1=dense((L, e, d, f), scale=d ** -0.5),
+            moe_w2=dense((L, e, f, d), scale=f ** -0.5),
+        )
+    else:
+        layers.update(
+            w_gate=dense((L, d, f)),
+            w_up=dense((L, d, f)),
+            w_down=dense((L, f, d)),
+        )
     return dict(
         embed=dense((cfg.vocab_size, d), scale=0.02),
         rms_final=ones((d,)),
@@ -149,7 +168,22 @@ def _attention_block(cfg, layer, x, sin, cos):
     return x + o @ layer["wo"]
 
 
-def _mlp_block(layer, x):
+def _moe_mlp_block(layer, x, cfg):
+    """The MoE MLP residual block -> (out, aux_loss): the norm in x's
+    dtype, routing and experts in float32 (the bf16 expert weights widened,
+    as the JAX package does), the residual add in x's dtype. Every token of
+    x, padding included, takes its share of the experts' capacity."""
+    h = rms_norm(x, layer["rms_mlp"])
+    out, aux = moe._moe_tokens(
+        h.reshape(-1, h.shape[-1]).float(), layer["moe_router"],
+        layer["moe_w1"].float(), layer["moe_w2"].float(), cfg.moe_top_k,
+        cfg.moe_capacity_factor)
+    return x + out.reshape(x.shape).to(x.dtype), aux
+
+
+def _mlp_block(layer, x, cfg):
+    if "moe_w1" in layer:
+        return _moe_mlp_block(layer, x, cfg)[0]
     h = rms_norm(x, layer["rms_mlp"])
     gated = torch.nn.functional.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])
     return x + gated @ layer["w_down"]
@@ -164,29 +198,45 @@ def logits_f32(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
     """tokens [B, N] int -> logits [B, N, vocab] float32 (causal LM)."""
-    _dense_only(cfg)
+    return _forward_aux(cfg, params, tokens)[0]
+
+
+def _forward_aux(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
+    """forward and the mean over the layers of the MoE load-balancing loss
+    (None for a dense config). The MoE block is recomputed in the backward
+    rather than saved (as the JAX package rematerializes it): its expert
+    hidden, [E, C, d_ff] float32 a layer, would dominate training memory."""
     n = tokens.shape[1]
     x = params["embed"][tokens]
     positions = torch.arange(n, device=tokens.device)[None, :]
     sin, cos = rope_tables(cfg, positions)
+    auxes = []
     for i in range(cfg.n_layers):
         layer = layer_params(params, i)
         x = _attention_block(cfg, layer, x, sin, cos)
-        x = _mlp_block(layer, x)
+        if cfg.moe_experts:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _moe_mlp_block, layer, x, cfg, use_reentrant=False)
+            auxes.append(aux)
+        else:
+            x = _mlp_block(layer, x, cfg)
     x = rms_norm(x, params["rms_final"])
-    return logits_f32(x, params["embed"])
+    aux = torch.stack(auxes).mean() if auxes else None
+    return logits_f32(x, params["embed"]), aux
 
 
 def loss_fn(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
     """Next-token cross-entropy, the mean over every position's
     log_softmax(logits) at the following token, in float32 (the lm_head's
-    logits are float32)."""
-    logits = forward(cfg, params, tokens)
+    logits are float32); an MoE config adds moe_aux_weight times the mean
+    load-balancing loss (Switch Transformer eq. 4)."""
+    logits, aux = _forward_aux(cfg, params, tokens)
     # the last position has no target: ignore_index keeps it out of the mean
     # without copying the [B, N-1, vocab] slice of the logits
     targets = torch.nn.functional.pad(tokens[:, 1:].long(), (0, 1), value=-100)
-    return torch.nn.functional.cross_entropy(
+    loss = torch.nn.functional.cross_entropy(
         logits.flatten(0, 1), targets.flatten(), ignore_index=-100)
+    return loss if aux is None else loss + cfg.moe_aux_weight * aux
 
 
 def _leaves(tree: dict, prefix: str = "") -> dict:

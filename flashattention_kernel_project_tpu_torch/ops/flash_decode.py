@@ -641,6 +641,18 @@ def _decode_mxu_cuda(q, k_q, k_scale, v_q, v_scale, lengths, n_splits, block_s,
     return out
 
 
+def mxu_n_splits(batch: int, kv_heads: int, s_max: int, g: int, d: int) -> int:
+    """The int8 x int8 decode's default splits: `_core_n_splits`, or the
+    fewest more whose split (`mxu_block_s`) keeps its scores and weights in
+    a block's shared memory (`_mxu_smem_bytes`). Where the core rule's
+    split fits, this is the core rule; past it (one split of 8192 keys at
+    G 4 once B * Hkv reaches 264) the split is cut to what fits."""
+    n = _core_n_splits(batch, kv_heads, s_max)
+    while _mxu_smem_bytes(g, d, mxu_block_s(s_max, n)) > H100_SMEM_PER_BLOCK:
+        n += 1
+    return n
+
+
 def mxu_block_s(s: int, n_splits: int) -> int:
     """Keys a split of the int8 x int8 decode covers: ceil(S / n_splits)
     rounded up to a multiple of 32, JAX's rule (flash_decode.py:497-502).
@@ -688,9 +700,10 @@ def flash_decode_int8(
     own, counted in `.mxu_launches`; two such calls must not run at once on
     two streams of one device either). Each split is one requantization
     group of the weights and is sized by JAX's rule (`mxu_block_s`);
-    n_splits defaults to `_core_n_splits`, where JAX's default is one split
-    per 4096 keys. A split must fit the kernel's shared memory (ValueError
-    otherwise).
+    n_splits defaults to `mxu_n_splits` (the core rule, `_core_n_splits`,
+    cut to splits that fit the kernel's shared memory), where JAX's default
+    is one split per 4096 keys. A caller's split must fit the kernel's
+    shared memory (ValueError otherwise).
     """
     if mxu and k_q.dtype != torch.int8:
         raise ValueError(f"mxu=True needs an int8 cache, got {k_q.dtype}")
@@ -707,7 +720,7 @@ def flash_decode_int8(
     if n_splits is not None and n_splits < 1:
         raise ValueError(f"n_splits must be >= 1, got {n_splits}")
     if mxu:
-        n_splits = n_splits or _core_n_splits(b, hkv, s)
+        n_splits = n_splits or mxu_n_splits(b, hkv, s, hq // hkv, d)
         block_s = mxu_block_s(s, n_splits)
     elif n_splits is None:
         n_splits = q_n_splits(b, hkv, s, d)

@@ -116,8 +116,9 @@ def test_mxu_decode_near_the_dequantized_cache():
 
 def test_mxu_split_rule_and_default_splits():
     """block_s follows JAX's rule (ceil(S / n_splits) up to a multiple of
-    32; a split wholly past S holds no key); n_splits=None takes the 8-bit
-    decodes' default (`_core_n_splits`), the same function as passing it."""
+    32; a split wholly past S holds no key); n_splits=None takes the int8 x
+    int8 decode's default (`mxu_n_splits`), the same function as passing
+    it."""
     assert tfd.mxu_block_s(100, 3) == 64  # ceil(100/3) = 34 -> 64
     assert tfd.mxu_block_s(4096, 1) == 4096
     assert tfd.mxu_block_s(8192, 9) == 928
@@ -128,7 +129,7 @@ def test_mxu_split_rule_and_default_splits():
     lengths = torch.tensor([40, 9], dtype=torch.int32)
     got = tfd.flash_decode_int8(q, *cache, lengths, mxu=True)
     want = tfd.flash_decode_int8(q, *cache, lengths, mxu=True,
-                                 n_splits=tfd._core_n_splits(b, hkv, s))
+                                 n_splits=tfd.mxu_n_splits(b, hkv, s, hq // hkv, d))
     assert torch.equal(got, want)
     # 3 splits of 32 over 40 keys: the third is past S and weighs nothing
     jo, to = _both_mxu(q.numpy(), tuple(np.asarray(x) for x in cache),
@@ -187,6 +188,51 @@ def test_mxu_kernel_refuses_a_split_past_shared_memory():
     for fn in (tfd._decode_mxu_cuda, tfd._decode_partials_mxu_cuda):
         with pytest.raises(ValueError, match="shared memory"):
             fn(q, *cache, lengths, 1, 8192, 0.1)
+
+
+# cache lengths for the default split rule: short, tile and split edges, the
+# serving and run_all.py lengths, and the longest the kernels take here
+_MXU_RULE_S = (1, 31, 64, 100, 127, 128, 129, 928, 2048, 4095, 4096, 4097,
+               8192, 8193, 16384, 32768, 65536)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_mxu_default_split_fits_shared_memory(d):
+    """The default n_splits (`mxu_n_splits`) keeps a split's scores and
+    weights in a block's shared memory for every B * Hkv from 1 to 1024, S
+    up to 65536 and G in {1, 2, 4, 8}: the core rule's single split at
+    B * Hkv >= 264 (8192 keys at G 4 need 232,960 bytes) no longer
+    reaches the card's refusal."""
+    for g in (1, 2, 4, 8):
+        for pairs in range(1, 1025):
+            for s in _MXU_RULE_S:
+                n = tfd.mxu_n_splits(pairs, 1, s, g, d)
+                assert n >= tfd._core_n_splits(pairs, 1, s)
+                smem = tfd._mxu_smem_bytes(g, d, tfd.mxu_block_s(s, n))
+                assert smem <= tfd.H100_SMEM_PER_BLOCK, (pairs, s, g, n)
+                if n > tfd._core_n_splits(pairs, 1, s):  # the fewest that fit
+                    fewer = tfd._mxu_smem_bytes(g, d, tfd.mxu_block_s(s, n - 1))
+                    assert fewer > tfd.H100_SMEM_PER_BLOCK
+    # the shapes the core rule sent past shared memory
+    assert tfd._core_n_splits(66, 4, 8192) == 1
+    assert tfd.mxu_n_splits(66, 4, 8192, 4, 128) == 2
+    assert tfd.mxu_n_splits(32, 8, 16384, 4, 128) == 3
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_mxu_default_split_unchanged_where_it_fit(d):
+    """Where the core rule's split fits (every serving shape, B8 S8192's 9
+    splits of 928), the default is the core rule itself, so the function,
+    whose requantization groups are its splits, is unchanged there."""
+    for g in (1, 2, 4, 8):
+        for b, hkv in ((1, 1), (1, 4), (8, 4), (8, 8), (32, 4), (64, 4),
+                       (65, 4), (256, 1)):
+            for s in _MXU_RULE_S:
+                core = tfd._core_n_splits(b, hkv, s)
+                if tfd._mxu_smem_bytes(g, d, tfd.mxu_block_s(s, core)) \
+                        <= tfd.H100_SMEM_PER_BLOCK:
+                    assert tfd.mxu_n_splits(b, hkv, s, g, d) == core
+    assert tfd.mxu_n_splits(8, 4, 8192, 4, 128) == 9
 
 
 def _int8_pool(rng, b, hkv, d, page, max_pages, fmt="int8"):

@@ -140,16 +140,11 @@ def test_convert_keeps_bf16():
 
 
 def test_unported_model_options_raise():
-    import dataclasses
-
     cache = engine.init_cache(CFG, 1, 8, CPU, quantized=True)
     with pytest.raises(NotImplementedError):  # the seq-sharded decode (A.9)
         flash_decode_int8(torch.zeros(1, CFG.n_heads, CFG.d_head), cache.k[0],
                           cache.k_scale[0], cache.v[0], cache.v_scale[0],
                           cache.lengths, return_partials=True)
-    moe = dataclasses.replace(CFG, moe_experts=4)
-    with pytest.raises(NotImplementedError):
-        transformer.init_params(moe, torch.Generator().manual_seed(0), CPU)
 
 
 def test_sampling_top_k_top_p():

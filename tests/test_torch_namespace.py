@@ -12,8 +12,6 @@ import pytest
 # launch counters stay one attribute away (ops.flash_attention._fwd, ...);
 # the function is the module's attribute of the same name
 MODULE_SHADOWS = {"ops": ["flash_attention", "flash_decode", "softmax"]}
-# MoE on one device (ROADMAP A.10a)
-MOE = ["MoEConfig", "init_moe_params", "moe_ffn", "moe"]
 # multi-device: the mesh shardings and the `parallel` package, which is in
 # the JAX package's namespace once any module of it has been imported
 # (ROADMAP A.9)
@@ -24,7 +22,7 @@ BENCHMARKING = ["BenchResult", "benchmark", "benchmark_chained", "benchmarking"]
 # the TPU's own: the port has utils.platform's H100 peaks, require_hopper
 # and card_label instead (a kept deviation, ROADMAP C)
 TPU_ONLY = ["default_interpret", "has_tpu", "tpu_peak_flops", "tpu_hbm_bandwidth"]
-ABSENT = {"": PARALLEL, "ops": [], "models": MOE + SHARDINGS,
+ABSENT = {"": PARALLEL, "ops": [], "models": SHARDINGS,
           "utils": BENCHMARKING + TPU_ONLY}
 
 

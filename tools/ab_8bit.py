@@ -46,8 +46,9 @@ entry fkp_flash_decode_mxu_out is called as this tree's decode takes its
 inputs (one launch, the split merge on the card), one without it as the
 earlier kernel was (its partials, then `merge_partials`, a reshape and a
 cast in plain torch: that tree's whole call). At chip_smoke.py's DEC_I8
-shapes (run_all.py's 8192-key rung, the serving shape and its window),
-`_core_n_splits` and `mxu_block_s`, every build's partials are held to
+shapes (run_all.py's 8192-key rung, the serving shape and its window, and
+B66 at 8192 keys, where the default split is cut to fit shared memory),
+`mxu_n_splits` and `mxu_block_s`, every build's partials are held to
 `_decode_partials_mxu_plain` (m and y bit for bit, l within 1e-6
 relative) and its whole call to `merge_partials` of them (rel-L2 1e-3),
 then timed from CUDA graphs in turns, warm and cold L2 as above: each
@@ -341,7 +342,7 @@ def mxu_main(specs) -> int:
         cache = (*cs.quantized(gen, dev, (b, hkv, s, d), "int8"),
                  *cs.quantized(gen, dev, (b, hkv, s, d), "int8"))
         window, sinks = band or (0, 0)
-        n = fd._core_n_splits(b, hkv, s)
+        n = fd.mxu_n_splits(b, hkv, s, hq // hkv, d)
         block_s = fd.mxu_block_s(s, n)
         args = (q, *cache, lengths, n, block_s, d ** -0.5, window, sinks)
         plain = fd._decode_partials_mxu_plain(*args)
