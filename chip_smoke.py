@@ -188,7 +188,17 @@ width, with random weights from a seed:
     byte tiles, 64- and 128-row blocks): its 32 instances built with no
     spill, HGMMA and UTMALDG and no HMMA.16816 in their SASS; O, LSE and
     the guard's count against the plain version at its row-block and tile
-    edges in the three disciplines, int8 and e4m3.
+    edges in the three disciplines, int8 and e4m3;
+  - serving over a device mesh (phase_mesh, last): two ranks spawned on the
+    one card, one process each, joined by gloo (NCCL refuses two ranks on
+    one GPU); the serving model through Scheduler(mesh=) (linear in
+    chunks of 256, paged with the prefix cache, paged int8, speculative
+    linear and paged) and Scheduler(seq_mesh=) (bf16, int8), 8 requests x
+    64 tokens each, the tokens equal on both ranks and held to the
+    single-device Scheduler by the near-tie audit; the TP and SP engines'
+    logits against the single-device engine's; seq_sharded_decode at B 8,
+    16/4 heads, S 8192, d 128 against flash_decode. Its times are two
+    ranks sharing one card over gloo, not a multi-device speed.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -208,6 +218,7 @@ import os
 import re
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -4250,13 +4261,107 @@ def phase_paged_consistency(device, cfg, params, n_prompt, n_shared, chunk,
     return max(map(max, errs))
 
 
+@contextlib.contextmanager
+def moe_choices(pin=None):
+    """Within the block, each call of models/moe.py's _top_k_choices (one a
+    MoE layer, in call order) appends (router log-probabilities [T, E],
+    choices [T, k]) to the list it yields. With pin(call, logp, choices) ->
+    choices, a call routes its tokens to the experts pin returns in place
+    of its own, the gates being their probabilities renormalized, as
+    _top_k_choices computes them."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import moe
+
+    orig, calls = moe._top_k_choices, []
+
+    def traced(probs, top_k):
+        gates, masks, aux = orig(probs, top_k)
+        choices = torch.stack([m.argmax(-1) for m in masks], dim=-1)
+        if pin is not None:
+            new = pin(len(calls), probs.log(), choices)
+            if not torch.equal(new, choices):
+                masks = [moe._one_hot(new[:, j], probs.shape[1], probs.dtype)
+                         for j in range(top_k)]
+                g = probs.gather(1, new)
+                gates = g / g.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+                choices = new
+        calls.append((probs.log(), choices))
+        return gates, masks, aux
+
+    moe._top_k_choices = traced
+    try:
+        yield calls
+    finally:
+        moe._top_k_choices = orig
+
+
+class RoutePin:
+    """The routing audit of an MoE model's cached decode against its full
+    forward. Top-k routing is discontinuous: where a token's k-th and
+    (k+1)-th router choices are near-tied, the bf16 floor between the two
+    paths flips its experts, and its output moves by a gate times the
+    difference of two experts, far past the floor. So the forward takes,
+    at every token and layer, the experts the decode chose (its prefill
+    for the prompt's positions, its steps after), and every such pin must
+    be a near-tie by NearTie's rule: the decode's top-k margin (k-th minus
+    (k+1)-th router log-probability) within max(8 eps, 1e-3), eps being
+    the largest router log-probability difference between the two paths
+    over the tokens and layers where they chose alike. The logits are
+    then held to the gate unchanged, every step and row."""
+
+    def __init__(self, cfg, dec_calls, n_prompt, n_steps):
+        import torch
+
+        n_layers, self.k = cfg.n_layers, cfg.moe_top_k
+        self.n_prompt, self.flips, self.eps = n_prompt, [], 0.0
+        self.want = []  # per layer: (log-probs [2, L, E], choices [2, L, k])
+        for layer in range(n_layers):
+            steps = [dec_calls[n_layers * i + layer]
+                     for i in range(1, n_steps + 1)]
+            self.want.append(tuple(
+                torch.cat([dec_calls[layer][j].view(2, n_prompt, -1)]
+                          + [c[j][:, None] for c in steps], dim=1)
+                for j in (0, 1)))
+
+    def __call__(self, layer, logp, choices):
+        import torch
+
+        want_lp, want = self.want[layer]
+        lp, got = logp.view(*want_lp.shape), choices.view(*want.shape)
+        differ = (got.sort(-1).values != want.sort(-1).values).any(-1)
+        dz = (lp - want_lp).abs().amax(-1)  # [2, L]
+        if (~differ).any():
+            self.eps = max(self.eps, float(dz[~differ].max()))
+        for row, pos in differ.nonzero().tolist():
+            top = want_lp[row, pos].topk(self.k + 1).values
+            self.flips.append((row, pos - self.n_prompt + 1, layer,
+                               float(top[self.k - 1] - top[self.k]),
+                               float(dz[row, pos])))
+        return torch.where(differ[..., None], want, got).view(choices.shape)
+
+    def audit(self, tag):
+        """Raises where a pin is not at a near-tie; returns the bound."""
+        bound = max(8.0 * self.eps, 1e-3)
+        wide = [f for f in self.flips if not f[3] <= bound]
+        if wide:
+            raise AssertionError(
+                f"{tag}: the decode and the forward route apart at a top-k "
+                f"margin past {bound:.2e} (8 x eps {self.eps:.2e}): (row, "
+                f"step, layer, margin, router log-prob difference) {wide}")
+        return bound
+
+
 def phase_consistency(device, cfg, params, n_prompt, n_steps, label,
                       quant_fmt=None, tol=LOGITS_TOL, what=""):
     """prefill + n_steps greedy decode_steps for 2 prompts; each step's
     logits against a full forward over the same tokens. With quant_fmt
     ("int8" or "fp8") the cache is 8-bit, and generate(quantized_cache=True,
     quant_fmt=...) must give the same greedy tokens. An MoE model decodes
-    from its split parameters (the fused layout has no MoE form)."""
+    from its split parameters (the fused layout has no MoE form), and its
+    forward takes the decode's experts where they are near-tied (RoutePin:
+    its tokens' experts are otherwise a discontinuous function of the bf16
+    floor)."""
     import torch
 
     from flashattention_kernel_project_tpu_torch.models import engine
@@ -4267,16 +4372,20 @@ def phase_consistency(device, cfg, params, n_prompt, n_steps, label,
                            device=device, dtype=torch.int32)
     q8 = dict(quantized=True, quant_fmt=quant_fmt) if quant_fmt else {}
     cache = engine.init_cache(cfg, 2, n_prompt + n_steps + 1, device, **q8)
-    logits, cache = engine.prefill(cfg, params, prompt, cache)
-    dec = params if cfg.moe_experts else engine.fuse_decode_params(cfg, params)
-    steps = [logits]
-    toks = [logits.argmax(-1).to(torch.int32)]
-    for _ in range(n_steps):
-        logits, cache = engine.decode_step(cfg, dec, toks[-1], cache)
-        steps.append(logits)
-        toks.append(logits.argmax(-1).to(torch.int32))
+    moe_model = bool(cfg.moe_experts)
+    with moe_choices() as dec_calls:
+        logits, cache = engine.prefill(cfg, params, prompt, cache)
+        dec = params if moe_model else engine.fuse_decode_params(cfg, params)
+        steps = [logits]
+        toks = [logits.argmax(-1).to(torch.int32)]
+        for _ in range(n_steps):
+            logits, cache = engine.decode_step(cfg, dec, toks[-1], cache)
+            steps.append(logits)
+            toks.append(logits.argmax(-1).to(torch.int32))
     seq = torch.cat([prompt, torch.stack(toks[:-1], dim=1)], dim=1)
-    full = tfm.forward(cfg, params, seq)[:, n_prompt - 1:]  # [2, steps+1, V]
+    pin = RoutePin(cfg, dec_calls, n_prompt, n_steps) if moe_model else None
+    with moe_choices(pin):
+        full = tfm.forward(cfg, params, seq)[:, n_prompt - 1:]  # [2, steps+1, V]
     cached = torch.stack(steps, dim=1)
     assert cached.shape == full.shape and torch.isfinite(cached).all()
     errs = [_rel_l2(cached[:, i], full[:, i]) for i in range(n_steps + 1)]
@@ -4289,6 +4398,13 @@ def phase_consistency(device, cfg, params, n_prompt, n_steps, label,
         f"of {n_prompt}, window {cfg.attn_window}, sinks {cfg.attn_sinks}: logits rel-L2 max {max(errs):.3e} mean "
         f"{sum(errs) / len(errs):.3e}, equal greedy tokens {same:.3f} [{label}]")
     log(f"{tag}: rel-L2 per step " + " ".join(f"{e:.2e}" for e in errs))
+    if pin is not None:
+        bound = pin.audit(tag)
+        log(f"{tag}: the forward took the decode's experts at {len(pin.flips)}"
+            f" (token, layer) of its own choosing, each a near-tie (margin <= "
+            f"{bound:.2e}, 8 x eps {pin.eps:.2e}): (row, step (< 0: a prompt "
+            f"position), layer, margin, router log-prob difference) "
+            f"{[(r, i, l, f'{m:.2e}', f'{d:.2e}') for r, i, l, m, d in pin.flips]}")
     if not max(errs) <= tol:
         raise AssertionError(f"{tag}: decode logits rel-L2 {max(errs):.3e} > {tol}")
     if quant_fmt:
@@ -7567,10 +7683,14 @@ def phase_moe(device, corpus, label):
     falling, the forward and the two-kernel backward launched) and one
     profiled step by kind; (b) its dispatches on real activations
     (`moe_dispatch_check`); (c) the trained model served (`moe_serve`);
-    (d) cached decode against a full forward (phase_consistency) with
-    capacity factor E / top_k, where no token can be dropped in either
-    (routing couples a batch's tokens, so a cached step and a full forward
-    would otherwise drop differently). f32 products with TF32 off: a
+    (d) cached decode against a full forward (phase_consistency, with its
+    routing audit) on the seed-0 weights with capacity factor E / top_k,
+    where no token can be dropped in either (routing couples a batch's
+    tokens, so a cached step and a full forward would otherwise drop
+    differently). Not on the trained weights: the native TokenLoader's two
+    prefetch threads hand over the shuffled batches in the order they
+    finish, so the trained weights differ from run to run (the step itself
+    is bit-reproducible). f32 products with TF32 off: a
     rounded router product flips near-tie argmaxes. Returns the launches of
     (a), (c) and (d) by kernel."""
     import dataclasses
@@ -7594,10 +7714,12 @@ def phase_moe(device, corpus, label):
     t3 = time.perf_counter()
     ccfg = dataclasses.replace(
         cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    init = tfm.init_params(
+        ccfg, torch.Generator(device=device).manual_seed(0), device)
     reset_counters()
-    phase_consistency(device, ccfg, params, n_prompt=128, n_steps=16,
-                      label=label, what=f" (MoE, capacity factor "
-                      f"{ccfg.moe_capacity_factor})")
+    phase_consistency(device, ccfg, init, n_prompt=128, n_steps=16,
+                      label=label, what=f" (MoE, seed-0 weights, capacity "
+                      f"factor {ccfg.moe_capacity_factor})")
     torch.cuda.synchronize()
     counts = read_counters()
     cons = {k: counts[k] for k in ("flash_fwd", "flash_decode")}
@@ -7606,6 +7728,296 @@ def phase_moe(device, corpus, label):
         f"{t3 - t2:.1f} s, consistency {t4 - t3:.1f} s | launches: train "
         f"{train}, serve {serve}, consistency {cons} [{label}]")
     return dict(train=train, serve=serve, consistency=cons, ms=ms, tok_s=tok_s)
+
+
+# ---------------------------------------------------------------------------
+# Serving over a device mesh (parallel/): two ranks, one process each, both
+# on the one card, joined by gloo (NCCL refuses two ranks on one GPU; gloo
+# stages CUDA tensors through the host). Every number here is two ranks
+# sharing one card over gloo, not a tensor-parallel speed.
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 2
+MESH_REQUESTS = 8
+# (d): run_all.py's decode rung (B 8, 16/4 heads, S 8192, d 128); rows
+# that fill the cache, end in either shard, stop at its edge, or are empty
+MESH_SEQ = (8, 16, 4, 8192, 128)
+MESH_SEQ_LENS = [8192, 4096, 4097, 100, 0, 6000, 1, 8191]
+SEQ_TOL = 1e-2  # rel-L2 of bf16 attention outputs (O_TOL)
+# path -> (the mesh it runs on, Scheduler options, prompts with the shared
+# prefix, the kernels that must launch on every rank). "draft": the spec
+# draft of bench_spec.py (whole on every rank)
+MESH_PATHS = {
+    "tp (linear, prefill_chunk=256)": (
+        "mesh", dict(prefill_chunk=256), False,
+        ("flash_fwd_ragged", "flash_decode")),
+    "tp (paged, prefix cache)": (
+        "mesh", dict(paged=True, page_size=128, prefix_cache=True,
+                     prefill_chunk=256), True,
+        ("flash_fwd_ragged", "paged_decode")),
+    "tp (paged, prefix cache, int8)": (
+        "mesh", dict(paged=True, page_size=128, prefix_cache=True,
+                     prefill_chunk=256, quantized_cache=True), True,
+        ("flash_fwd_ragged", "paged_decode_q")),
+    "tp spec (linear)": (
+        "mesh", dict(draft=True), False,
+        ("flash_fwd_ragged", "flash_fwd_ragged/slab", "flash_decode")),
+    "tp spec (paged)": (
+        "mesh", dict(draft=True, paged=True, page_size=128), False,
+        ("paged_extend", "flash_decode")),
+    "sp (linear)": ("seq_mesh", {}, False, ("flash_fwd", "flash_decode")),
+    "sp (linear, int8)": (
+        "seq_mesh", dict(quantized_cache=True), False,
+        ("flash_fwd", "flash_decode_q")),
+}
+
+
+def _mesh_models(device):
+    """The serving model (seed 0) and bench_spec.py's draft (seed 1), bf16,
+    as every rank and the parent build them."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(**SERVING, dtype=torch.bfloat16)
+    params = tfm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    dcfg = tfm.TransformerConfig(**DRAFT, dtype=torch.bfloat16)
+    dparams = tfm.init_params(
+        dcfg, torch.Generator(device=device).manual_seed(1), device)
+    return cfg, params, dcfg, dparams
+
+
+def _mesh_sched_kw(kw, dcfg, dparams):
+    kw = dict(kw)
+    if kw.pop("draft", False):
+        kw.update(draft_cfg=dcfg, draft_params=dparams, spec_k=SPEC_K)
+    return kw
+
+
+def mesh_rank(rank, world, device_type, prompts, system_prompts, max_new):
+    """One rank of phase_mesh, on the card beside the other: every path of
+    MESH_PATHS through Scheduler(mesh=) or Scheduler(seq_mesh=) over a
+    2-rank axis, each with every launch counter at 0 just before it
+    (tokens, launches, wall seconds); then (d) seq_sharded_decode against
+    flash_decode on the whole cache, and the engines' logits against the
+    single-device engine's on the same rank. Returns them by name."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch import parallel
+    from flashattention_kernel_project_tpu_torch.models import engine
+    from flashattention_kernel_project_tpu_torch.models.serving import Scheduler
+    from flashattention_kernel_project_tpu_torch.ops.flash_decode import flash_decode
+
+    device = torch.device(device_type, 0 if device_type == "cuda" else None)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg, params, dcfg, dparams = _mesh_models(device)
+    meshes = dict(
+        mesh=parallel.make_mesh({"model": world}, device_type=device.type),
+        seq_mesh=parallel.make_mesh({"sp": world}, device_type=device.type))
+    out = {}
+    for name, (kind, kw, shared, _) in MESH_PATHS.items():
+        sched_kw = dict(max_batch=8, max_len=2048, **{kind: meshes[kind]},
+                        **_mesh_sched_kw(kw, dcfg, dparams))
+        warm = Scheduler(cfg, params, **sched_kw)
+        warm.submit(prompts[0][:8], max_new_tokens=4)
+        warm.run()
+        del warm
+        sched = Scheduler(cfg, params, **sched_kw)
+        sync()
+        reset_counters()
+        t0 = time.perf_counter()
+        ps = system_prompts if shared else prompts
+        uids = [sched.submit(p, max_new_tokens=max_new) for p in ps]
+        res = sched.run()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in read_counters().items() if v}
+        extra = {}
+        if sched.paged:
+            extra["pages back"] = sched._pool.free_pages == sched._n_pages - 1
+        if sched.prefix_cache:
+            extra["prefix hits"] = sched.prefix_hits
+        out[name] = dict(tokens=[res[u] for u in uids], launches=launches,
+                         wall=wall, extra=extra,
+                         kv_heads=sched.cache.k_pages[0].shape[1]
+                         if sched.paged else sched.cache.k[0].shape[1],
+                         cache_rows=None if sched.paged
+                         else sched.cache.k[0].shape[2])
+        del sched
+
+    # (d) the sequence-sharded decode at run_all.py's decode rung
+    b, hq, hkv, s, d = MESH_SEQ
+    gen = torch.Generator(device=device).manual_seed(11)
+    q = torch.randn((b, hq, d), generator=gen, device=device).bfloat16()
+    k = torch.randn((b, hkv, s, d), generator=gen, device=device).bfloat16()
+    v = torch.randn((b, hkv, s, d), generator=gen, device=device).bfloat16()
+    lengths = torch.tensor(MESH_SEQ_LENS, dtype=torch.int32, device=device)
+    mesh = meshes["seq_mesh"]
+    fn = parallel.seq_sharded_decode(mesh)
+    k_loc, v_loc = (parallel.mesh.shard(x, mesh, fn.kv_spec) for x in (k, v))
+    whole = flash_decode(q, k, v, lengths)
+    sync()
+    reset_counters()
+    got = fn(q, k_loc, v_loc, lengths)
+    sync()
+    launches = {k_: n for k_, n in read_counters().items() if n}
+    out["seq_sharded_decode"] = dict(
+        rel_l2=_rel_l2(got, whole), finite=bool(torch.isfinite(got).all()),
+        launches=launches, out=got.float().cpu().numpy())
+
+    # the engines' logits against the single-device engine on this rank:
+    # TP prefill and one decode step, SP one decode step from the same
+    # prefilled cache
+    tokens = torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
+                           device=device, dtype=torch.int32)
+    full = engine.init_cache(cfg, 8, 256, device)
+    ref_pre, full = engine.prefill(cfg, params, tokens, full)
+    nxt = ref_pre.argmax(-1).to(torch.int32)
+    tp_mesh = meshes["mesh"]
+    pre_fn, _, dec_fn, rules = parallel.make_tp_engine(cfg, tp_mesh)
+    sparams = parallel.shard_params(params, tp_mesh, rules)
+    tcache = parallel.init_tp_cache(cfg, tp_mesh, 8, 256)
+    tp_pre, tcache = pre_fn(sparams, tokens, tcache)
+    tp_dec, _ = dec_fn(sparams, nxt, tcache)
+    spec = parallel.tp_engine.sp_cache_specs(cfg.n_layers)
+    scache = parallel.init_sp_cache(cfg, mesh, 8, 256)
+    for dst, src, sp in zip(scache.k + scache.v, full.k + full.v,
+                            spec.k + spec.v):
+        dst.copy_(parallel.mesh.shard(src, mesh, sp))
+    scache.lengths.copy_(full.lengths)
+    sp_dec, _ = parallel.make_sp_decode_step(cfg, mesh)(params, nxt, scache)
+    ref_dec, _ = engine.decode_step(cfg, engine.fuse_decode_params(cfg, params),
+                                    nxt, full)
+    out["logits"] = dict(tp_prefill=_rel_l2(tp_pre, ref_pre),
+                         tp_decode=_rel_l2(tp_dec, ref_dec),
+                         sp_decode=_rel_l2(sp_dec, ref_dec))
+    return out
+
+
+def phase_mesh(device, label):
+    """Serving over a device mesh with two ranks on the one card (spawned,
+    one process each, gloo; the kernels are built by this process first,
+    so the ranks only load the library): the serving configuration at full
+    width through (a) Scheduler(mesh=) over the linear cache (prefill in
+    chunks of 256), the page pool with the 384-token shared prefix, and the
+    page pool with an int8 cache; (b) the TP speculative Scheduler with
+    bench_spec.py's draft over the linear cache and the page pool; (c)
+    Scheduler(seq_mesh=) over the linear bf16 and int8 caches; 8 serving
+    requests x 64 new tokens each; (d) seq_sharded_decode at B 8, 16/4
+    heads, S 8192, d 128 against flash_decode on the whole cache (rel-L2
+    within SEQ_TOL, the same on both ranks). Each path's tokens must be
+    equal on the two ranks, and against the single-device Scheduler's in
+    this process every first divergence must pass the near-tie audit; the
+    TP and SP engines' logits must be within LOGITS_TOL of the
+    single-device engine's; each path's kernels (rows 3, 6, 7, 10, 11, 12
+    at the per-rank shapes; row 1 in SP's prefill and the draft's) must
+    launch on every rank. Returns the launches by path and rank."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models.serving import Scheduler
+    from flashattention_kernel_project_tpu_torch.utils.testing import run_ranks
+
+    t0 = time.perf_counter()
+    cfg, params, dcfg, dparams = _mesh_models(device)
+    prompts = serving_prompts(cfg, MESH_REQUESTS)
+    system = np.random.default_rng(1).integers(0, cfg.vocab_size, 384)
+    system_prompts = [np.concatenate([system, p]).astype(np.int32)
+                      for p in prompts]
+    max_new = 64
+    # the single-device Scheduler on the same paths, in this process
+    refs = {}
+    for name, (kind, kw, shared, _) in MESH_PATHS.items():
+        sched = Scheduler(cfg, params, max_batch=8, max_len=2048,
+                          **_mesh_sched_kw(kw, dcfg, dparams))
+        ps = system_prompts if shared else prompts
+        uids = [sched.submit(p, max_new_tokens=max_new) for p in ps]
+        res = sched.run()
+        refs[name] = [res[u] for u in uids]
+        del sched
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(mesh_rank, MESH_WORLD, device.type, prompts,
+                          system_prompts, max_new, tmpdir=tmp, timeout=900.0)
+    t2 = time.perf_counter()
+    ties = {False: NearTie(cfg, params, list(prompts[0]) + refs[
+        "tp (linear, prefill_chunk=256)"][0][:1])}
+    ties[True] = NearTie(cfg, params, list(prompts[0]) + refs[
+        "sp (linear, int8)"][0][:1], quantized=True)
+    launches = {}
+    for name, (kind, kw, shared, kernels) in MESH_PATHS.items():
+        runs = [r[name] for r in ranks]
+        ps = system_prompts if shared else prompts
+        if runs[1]["tokens"] != runs[0]["tokens"]:
+            raise AssertionError(f"mesh {name}: the two ranks' tokens differ")
+        for rank, run in enumerate(runs):
+            missing = [k for k in kernels if not run["launches"].get(k)]
+            if device.type == "cuda" and missing:
+                raise AssertionError(f"mesh {name}: rank {rank} never launched "
+                                     f"{missing}: {run['launches']}")
+            if run["extra"].get("pages back") is False:
+                raise AssertionError(f"mesh {name}: rank {rank}'s pool not "
+                                     "fully recycled")
+            if len(run["tokens"]) != len(ps) or any(
+                    len(t) != max_new for t in run["tokens"]):
+                raise AssertionError(f"mesh {name}: rank {rank} returned "
+                                     "short streams")
+        if kw.get("prefix_cache") and not runs[0]["extra"]["prefix hits"]:
+            raise AssertionError(f"mesh {name}: no insert reused the prefix")
+        tie = ties[bool(kw.get("quantized_cache"))]
+        windows, gaps = tie.audit(runs[0]["tokens"], refs[name], ps,
+                                  f"mesh {name}")
+        same = np.mean([a == b for x, y in zip(runs[0]["tokens"], refs[name])
+                        for a, b in zip(x, y)])
+        toks = sum(len(t) for t in runs[0]["tokens"])
+        launches[name] = [run["launches"] for run in runs]
+        log(f"mesh {name}: {len(ps)} requests x {max_new} tokens on "
+            f"{MESH_WORLD} ranks ({kind}, KV heads a rank "
+            f"{runs[0]['kv_heads']}, cache rows a rank {runs[0]['cache_rows']}"
+            f"); tokens equal on both ranks; equal to the single-device "
+            f"Scheduler {same:.4f}, agreement windows {windows}, gaps at "
+            f"divergences {[f'{g:.2e}' for g in gaps]} (bound "
+            f"{tie.bound:.2e}) | {runs[0]['extra']} | {toks} tokens in "
+            f"{runs[0]['wall']:.2f} s = {toks / runs[0]['wall']:.1f} tok/s, "
+            f"two ranks sharing one card over gloo, not a TP speed | "
+            f"launches per rank {launches[name]} [{label}]")
+    seq = [r["seq_sharded_decode"] for r in ranks]
+    if not all(s["finite"] for s in seq) or not np.array_equal(
+            seq[0]["out"], seq[1]["out"]):
+        raise AssertionError("seq_sharded_decode: non-finite, or the ranks "
+                             "differ")
+    if max(s["rel_l2"] for s in seq) > SEQ_TOL:
+        raise AssertionError(f"seq_sharded_decode: rel-L2 "
+                             f"{[s['rel_l2'] for s in seq]} > {SEQ_TOL}")
+    if device.type == "cuda" and not all(s["launches"].get("flash_decode")
+                                         for s in seq):
+        raise AssertionError(f"seq_sharded_decode never launched kernel 6: "
+                             f"{[s['launches'] for s in seq]}")
+    logits = [r["logits"] for r in ranks]
+    bad = {k: v for lg in logits for k, v in lg.items() if v > LOGITS_TOL}
+    if bad:
+        raise AssertionError(f"mesh engines' logits off the single-device "
+                             f"engine's: {bad} > {LOGITS_TOL}")
+    errs = [f"{x['rel_l2']:.2e}" for x in seq]
+    log(f"mesh seq_sharded_decode: B {MESH_SEQ[0]}, {MESH_SEQ[1]}/{MESH_SEQ[2]}"
+        f" heads, S {MESH_SEQ[3]} over {MESH_WORLD} shards of "
+        f"{MESH_SEQ[3] // MESH_WORLD}, d {MESH_SEQ[4]}, lengths {MESH_SEQ_LENS}:"
+        f" rel-L2 against flash_decode on the whole cache "
+        f"{errs} (<= {SEQ_TOL}), equal on both "
+        f"ranks | launches per rank {[s['launches'] for s in seq]} | engine "
+        f"logits rel-L2 against the single-device engine, per rank {logits} "
+        f"(<= {LOGITS_TOL}) [{label}]")
+    log(f"mesh phase: references {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s "
+        f"(spawn, params, 7 paths, (d), logits) [{label}]")
+    return launches
 
 
 def main() -> int:
@@ -7957,6 +8369,12 @@ def main() -> int:
     # real activations, served through the engine, cached decode held to a
     # full forward (kernels 1, 3, 4, 5, 6, 10 and 11 on its path)
     phase_moe(device, corpus, label)
+
+    # 14. serving over a device mesh: two ranks spawned on the one card over
+    # gloo, the serving model through Scheduler(mesh=) and (seq_mesh=) and
+    # seq_sharded_decode, each against the single-device path (kernels 1,
+    # 3, 6, 7, 10, 11 and 12 at the per-rank shapes)
+    phase_mesh(device, label)
 
     print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend, dec_q,
                                   paged_q, ragged_q, extend_q, win_fwd, win_dec,

@@ -7,6 +7,7 @@ The JAX package stays beside it as the reference; module names follow it:
             loader that builds csrc/*.cu (hand-written CUDA for sm_90a)
   models/   the GQA decoder, its training step and checkpoints, the
             KV-cache engine and the serving scheduler
+  parallel/ serving over a device mesh on torch.distributed
   runtime/  the native continuous-batching core and token loader (ctypes)
   utils/    device checks and H100 peaks, retries, error metrics, oracles
 
@@ -16,7 +17,7 @@ at import.
 
 __version__ = "0.1.0"
 
-from flashattention_kernel_project_tpu_torch import models, ops, runtime, utils  # noqa: F401
+from flashattention_kernel_project_tpu_torch import models, ops, parallel, runtime, utils  # noqa: F401
 from flashattention_kernel_project_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,
     init_params,

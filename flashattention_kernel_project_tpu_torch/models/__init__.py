@@ -1,8 +1,8 @@
-"""The GQA decoder (dense or Mixture-of-Experts), its training step,
-checkpoints, the KV-cache engine and the serving scheduler. Every public
-name of the JAX package's `models` is here, apart from the mesh shardings
-(`param_shardings`, `moe_param_shardings`, `make_ep_moe`; ROADMAP A.9),
-not yet ported."""
+"""The GQA decoder (dense or Mixture-of-Experts), its training step and
+tensor-parallel layout, checkpoints, the KV-cache engine and the serving
+scheduler. Every public name of the JAX package's `models` is here, apart
+from the expert-parallel shardings (`moe_param_shardings`, `make_ep_moe`;
+ROADMAP A.9), not yet ported."""
 
 from flashattention_kernel_project_tpu_torch.models import (  # noqa: F401
     checkpoint,
@@ -43,6 +43,7 @@ from flashattention_kernel_project_tpu_torch.models.transformer import (  # noqa
     forward,
     init_params,
     loss_fn,
+    param_shardings,
     rms_norm,
     rope_tables,
     sgd_train_step,

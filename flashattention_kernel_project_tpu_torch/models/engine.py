@@ -32,6 +32,16 @@ cache's per-layer buffers and advance its lengths, then return the same
 cache object. Writes that would run past a linear buffer are clamped to its
 end, as jax.lax.dynamic_update_slice clamps its start; paged writes past a
 table's capacity go to the junk page 0.
+
+Tensor parallelism: `prefill`, `extend`, `extend_paged`, `decode_step(s)`
+and `decode_step(s)_paged` take `axis`, the torch.distributed process group
+of a mesh's model axis (parallel.tp_engine), where the JAX engine takes a
+shard_map axis name. With it, cfg is the rank's local config (heads and
+d_ff divided by the group's size), the parameters are the rank's shards
+(parallel.shard_params, the split layout), the cache holds the rank's KV
+heads, and each layer all-reduces twice over the group, after `wo` and
+after `w_down` (JAX's psums). The embedding and the lm_head are replicated,
+so every rank returns the same logits. axis=None is one device.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from flashattention_kernel_project_tpu_torch.models import transformer as tfm
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (
@@ -156,14 +167,15 @@ def _quantize_and_write(cache: KVCache, i: int, k_new, v_new, lengths):
                 (vals[0], vals[1], scales[0], scales[1]), lengths)
 
 
-def prefill(cfg, params, tokens, cache: KVCache):
+def prefill(cfg, params, tokens, cache: KVCache, *, axis=None):
     """Run the prompt tokens [B, T] through the model, writing K/V at each
     slot's current length and advancing the lengths by T (in place).
     Returns (last-position logits [B, vocab] float32, cache).
 
     Assumes the prefilled slots are empty (lengths == 0): attention here
     only sees the prompt itself, in full precision; an 8-bit cache receives
-    the quantized rows afterwards."""
+    the quantized rows afterwards. axis: the tensor-parallel group (see the
+    module's docstring)."""
     b, t = tokens.shape
     x = params["embed"][tokens]
     positions = cache.lengths[:, None].long() + torch.arange(
@@ -184,8 +196,9 @@ def prefill(cfg, params, tokens, cache: KVCache):
             window=cfg.attn_window,
             sinks=cfg.attn_sinks,
         )
-        x = x + o.transpose(1, 2).reshape(b, t, cfg.q_dim) @ layer["wo"]
-        x = _mlp(layer, x, cfg)
+        x = x + _psum(o.transpose(1, 2).reshape(b, t, cfg.q_dim) @ layer["wo"],
+                      axis)
+        x = _mlp(layer, x, cfg, axis)
         _quantize_and_write(cache, i, kt, vt, cache.lengths)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths += t
@@ -286,23 +299,39 @@ def _qkv(cfg, layer, h, b, t):
     return q, k, v
 
 
-def _mlp(layer, x, cfg):
+def _psum(t, axis):
+    """t summed over the tensor-parallel group `axis`, in place (JAX's
+    psum); t itself with axis None."""
+    if axis is not None:
+        dist.all_reduce(t, group=axis)
+    return t
+
+
+def _mlp(layer, x, cfg, axis=None):
     if "w_gate_up" in layer or "w_gate_up_q" in layer:
         h = tfm.rms_norm(x, layer["rms_mlp"])
         gu = _proj(h, layer, "w_gate_up")
         f = gu.shape[-1] // 2
         gated = torch.nn.functional.silu(gu[..., :f]) * gu[..., f:]
-        return x + _proj(gated, layer, "w_down")
+        return x + _psum(_proj(gated, layer, "w_down"), axis)
+    if axis is not None:
+        # the split layout under TP: w_gate and w_up hold the rank's columns,
+        # w_down its rows, so the rank's product is a partial sum
+        h = tfm.rms_norm(x, layer["rms_mlp"])
+        gated = (torch.nn.functional.silu(h @ layer["w_gate"])
+                 * (h @ layer["w_up"]))
+        return x + _psum(gated @ layer["w_down"], axis)
     # the split layout, dense or MoE: an MoE layer routes with cfg's top_k
     # and capacity, so a model serves with the dispatch it trained with
     return tfm._mlp_block(layer, x, cfg)
 
 
-def decode_step(cfg, params, tokens, cache: KVCache, *, n_splits=None):
+def decode_step(cfg, params, tokens, cache: KVCache, *, n_splits=None,
+                axis=None):
     """One decode step: tokens [B] -> (logits [B, vocab] float32, cache).
     Appends each slot's K/V row at its length and advances the lengths by
     one, in place. `params` may be fused (fuse_decode_params), 8-bit
-    (quantize_decode_params) or split."""
+    (quantize_decode_params) or split. axis: the tensor-parallel group."""
     b = tokens.shape[0]
     x = params["embed"][tokens][:, None]  # [B, 1, D]
     sin, cos = tfm.rope_tables(cfg, cache.lengths[:, None])
@@ -324,8 +353,8 @@ def decode_step(cfg, params, tokens, cache: KVCache, *, n_splits=None):
                                   **kw)
         else:
             o = flash_decode(q_dec, cache.k[i], cache.v[i], new_lengths, **kw)
-        x = x + _proj(o.reshape(b, 1, cfg.q_dim), layer, "wo")
-        x = _mlp(layer, x, cfg)
+        x = x + _psum(_proj(o.reshape(b, 1, cfg.q_dim), layer, "wo"), axis)
+        x = _mlp(layer, x, cfg, axis)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths.copy_(new_lengths)
     return _lm_head(params, x[:, 0]), cache
@@ -348,18 +377,20 @@ def _step_loop(step, tokens, cache, n_steps, temperature, generator, top_k,
 def decode_steps(
     cfg, params, tokens, cache: KVCache, *, n_steps: int, n_splits=None,
     temperature: float = 0.0, generator: torch.Generator | None = None,
-    top_k: int | None = None, top_p: float | None = None,
+    top_k: int | None = None, top_p: float | None = None, axis=None,
 ):
     """n_steps decode steps, each feeding back its sampled token: tokens
-    [B] -> ([B, n_steps] int32, cache advanced n_steps)."""
+    [B] -> ([B, n_steps] int32, cache advanced n_steps). axis: the
+    tensor-parallel group."""
     return _step_loop(
-        lambda cur, c: decode_step(cfg, params, cur, c, n_splits=n_splits),
+        lambda cur, c: decode_step(cfg, params, cur, c, n_splits=n_splits,
+                                   axis=axis),
         tokens, cache, n_steps, temperature, generator, top_k, top_p)
 
 
 def extend(
     cfg, params, tokens, cache: KVCache, *, n: torch.Tensor | None = None,
-    all_logits: bool = False,
+    all_logits: bool = False, axis=None,
 ):
     """Chunked prefill: append T tokens per slot to a live cache, in place,
     attending to each slot's whole prefix through flash_attention_ragged.
@@ -374,7 +405,8 @@ def extend(
     T rows of room past each slot's length (an 8-bit cache's tail scales
     too, equally invisible). An 8-bit cache is read by the 8-bit ragged
     kernel, which dequantizes as it loads. An MoE model routes the padded
-    tail too, so its tokens take expert capacity, as in the JAX package."""
+    tail too, so its tokens take expert capacity, as in the JAX package.
+    axis: the tensor-parallel group."""
     b, t = tokens.shape
     x = params["embed"][tokens]
     old_lengths = cache.lengths.clone()
@@ -400,8 +432,9 @@ def extend(
         else:
             o = flash_attention_ragged(qh, cache.k[i], cache.v[i], new_lengths,
                                        old_lengths, **kw)
-        x = x + _proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer, "wo")
-        x = _mlp(layer, x, cfg)
+        x = x + _psum(_proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer,
+                            "wo"), axis)
+        x = _mlp(layer, x, cfg, axis)
     x = tfm.rms_norm(x, params["rms_final"])
     if all_logits:
         xe = x
@@ -615,13 +648,14 @@ def cache_from_pages(
     return out
 
 
-def decode_step_paged(cfg, params, tokens, cache: PagedKVCache):
+def decode_step_paged(cfg, params, tokens, cache: PagedKVCache, *, axis=None):
     """One decode step against the paged cache: tokens [B] -> (logits
     [B, vocab] float32, cache). Appends each slot's K/V row into its current
     page and advances the lengths by one, in place; a slot of length 0 gets
     zero attention output. `params` may be fused, 8-bit or split. An 8-bit
     pool quantizes each appended token and decodes through the 8-bit
-    paged kernel."""
+    paged kernel. axis: the tensor-parallel group (the pools hold the
+    rank's KV heads; the block tables are the same on every rank)."""
     b = tokens.shape[0]
     x = params["embed"][tokens][:, None]  # [B, 1, D]
     sin, cos = tfm.rope_tables(cfg, cache.lengths[:, None])
@@ -645,8 +679,8 @@ def decode_step_paged(cfg, params, tokens, cache: PagedKVCache):
                          cache.block_tables, cache.lengths)
             o = paged_flash_decode(q_dec, cache.k_pages[i], cache.v_pages[i],
                                    cache.block_tables, new_lengths)
-        x = x + _proj(o.reshape(b, 1, cfg.q_dim), layer, "wo")
-        x = _mlp(layer, x, cfg)
+        x = x + _psum(_proj(o.reshape(b, 1, cfg.q_dim), layer, "wo"), axis)
+        x = _mlp(layer, x, cfg, axis)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths.copy_(new_lengths)
     return _lm_head(params, x[:, 0]), cache
@@ -655,16 +689,16 @@ def decode_step_paged(cfg, params, tokens, cache: PagedKVCache):
 def decode_steps_paged(
     cfg, params, tokens, cache: PagedKVCache, *, n_steps: int,
     temperature: float = 0.0, generator: torch.Generator | None = None,
-    top_k: int | None = None, top_p: float | None = None,
+    top_k: int | None = None, top_p: float | None = None, axis=None,
 ):
     """decode_steps against the paged cache: tokens [B] -> ([B, n_steps]
-    int32, cache advanced n_steps)."""
+    int32, cache advanced n_steps). axis: the tensor-parallel group."""
     return _step_loop(
-        lambda cur, c: decode_step_paged(cfg, params, cur, c),
+        lambda cur, c: decode_step_paged(cfg, params, cur, c, axis=axis),
         tokens, cache, n_steps, temperature, generator, top_k, top_p)
 
 
-def extend_paged(cfg, params, tokens, cache: PagedKVCache):
+def extend_paged(cfg, params, tokens, cache: PagedKVCache, *, axis=None):
     """Multi-token extend against the paged cache, in place: tokens [B, T]
     -> (every position's logits [B, T, vocab] float32, cache advanced by
     T). The paged counterpart of `extend(..., all_logits=True)`, and the
@@ -674,7 +708,8 @@ def extend_paged(cfg, params, tokens, cache: PagedKVCache):
     pages for T more tokens (the Scheduler's reserve rows see to it). The
     lengths advance on the device, with no host sync. `params` may be fused
     or split. An 8-bit pool quantizes the chunk per token as it appends it
-    (paged_append_chunk_quant) and scores it through the 8-bit kernel."""
+    (paged_append_chunk_quant) and scores it through the 8-bit kernel.
+    axis: the tensor-parallel group."""
     b, t = tokens.shape
     x = params["embed"][tokens]
     old_lengths = cache.lengths.clone()
@@ -702,8 +737,9 @@ def extend_paged(cfg, params, tokens, cache: PagedKVCache):
         o = paged_flash_extend(qh, cache.k_pages[i], cache.v_pages[i],
                                cache.block_tables, new_lengths, old_lengths,
                                **scales)  # [B, Hq, T, D]
-        x = x + _proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer, "wo")
-        x = _mlp(layer, x, cfg)
+        x = x + _psum(_proj(o.transpose(1, 2).reshape(b, t, cfg.q_dim), layer,
+                            "wo"), axis)
+        x = _mlp(layer, x, cfg, axis)
     x = tfm.rms_norm(x, params["rms_final"])
     cache.lengths.copy_(new_lengths)
     return tfm.logits_f32(x, params["embed"]), cache

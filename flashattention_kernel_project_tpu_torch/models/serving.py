@@ -32,10 +32,26 @@ Modes, as in the JAX Scheduler:
   cache's batch-1 prefill cache is int8 too and the splice carries its
   scales; a paged Scheduler prefills in full precision and the page
   scatter quantizes; a prefix hit dequantizes the shared pages into the
-  suffix's linear cache. The draft keeps its full-precision cache.
+  suffix's linear cache. The draft keeps its full-precision cache;
+- `mesh` (tensor parallel over `model_axis`, parallel/tp_engine.py): the
+  parameters cut in the Megatron layout, the cache (linear or paged) cut
+  over its KV heads, two all-reduces a layer; prefill always runs the
+  chunked ragged `extend`. It composes with `paged` + `prefix_cache`,
+  `multi_step`, speculative decoding (linear or paged) and
+  `quantized_cache`; the draft stays whole on every rank;
+- `seq_mesh` (sequence parallel over `seq_axis`): the linear cache (bf16 or
+  8-bit) cut along its length, the parameters whole; prefill runs whole on
+  every rank and each rank keeps only its key range; with `multi_step`
+  too.
 
-The JAX Scheduler's remaining modes (meshes) raise NotImplementedError
-naming the ROADMAP item that brings them.
+Over a mesh every rank runs its own Scheduler on its shards (torch.
+distributed runs one process a rank where JAX runs one controller), with
+the same submits in the same order. The logits are the same on every rank,
+so every host decision (admission, slots, pages, prefix hits, argmax,
+sampling from an identically seeded generator, speculative accepts) is too,
+and run() returns the same tokens on every rank. The JAX Scheduler's walls
+raise NotImplementedError with its messages, and an MoE model over a mesh
+raises naming the expert-parallel item (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -122,20 +138,16 @@ def _host_filtered_probs(z, t, top_k, top_p):
     return e / e.sum(-1, keepdims=True)
 
 
-# mode -> the ROADMAP.md item that brings it to the port
-_NOT_PORTED = {
-    "mesh": "A.9 (multi-device)",
-    "seq_mesh": "A.9 (multi-device)",
-}
-
-
 class Scheduler:
     """Slot-based continuous batching over the KV-cache engine.
 
     Sampling (temperature > 0, per request or for the scheduler) draws from
     `generator`, a torch.Generator on the parameters' device; without one
     every request is greedy. With `draft_cfg` and `draft_params` the
-    scheduler decodes speculatively, `spec_k` draft tokens a round."""
+    scheduler decodes speculatively, `spec_k` draft tokens a round. `mesh`
+    (a DeviceMesh from parallel.make_mesh, cut over `model_axis`) or
+    `seq_mesh` (over `seq_axis`) serve over a mesh; `params` are then the
+    whole parameters on the rank's device, which the Scheduler shards."""
 
     def __init__(
         self,
@@ -149,7 +161,9 @@ class Scheduler:
         n_splits: int | None = None,
         prefill_chunk: int | None = None,
         mesh=None,
+        model_axis: str = "model",
         seq_mesh=None,
+        seq_axis: str = "sp",
         paged: bool = False,
         page_size: int = 128,
         n_pages: int | None = None,
@@ -163,13 +177,9 @@ class Scheduler:
         top_p: float | None = None,
         generator: torch.Generator | None = None,
     ):
-        requested = dict(mesh=mesh is not None, seq_mesh=seq_mesh is not None)
-        for mode, on in requested.items():
-            if on:
-                raise NotImplementedError(
-                    f"Scheduler({mode}=...) is not ported: ROADMAP item "
-                    f"{_NOT_PORTED[mode]}"
-                )
+        if seq_mesh is not None and (mesh is not None or paged):
+            raise NotImplementedError(
+                "seq_mesh (length-sharded cache) is a linear single-TP mode")
         if prefix_cache and not paged:
             raise ValueError("prefix_cache requires paged=True")
         # speculative decoding: the verify extend writes spec_k + 1 rows past
@@ -178,13 +188,48 @@ class Scheduler:
         if self.spec:
             if multi_step > 1:
                 raise NotImplementedError("multi_step: no spec composition")
+            if seq_mesh is not None:
+                raise NotImplementedError(
+                    "speculative decoding: linear or paged cache (no seq_mesh)")
+            if paged and quantized_cache and mesh is not None:
+                raise NotImplementedError(
+                    "speculative x paged x quantized x TP: the TP paged "
+                    "verify is wired bf16-only (compose any three)")
             if draft_params is None:
                 raise ValueError("draft_cfg needs draft_params")
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("the draft and the target need the same vocabulary")
+        on_mesh = mesh is not None or seq_mesh is not None
+        if (multi_step > 1 and on_mesh and temperature > 0.0
+                and generator is not None):
+            raise NotImplementedError(
+                "multi_step sampling over a mesh: not wired (the mesh windows "
+                "are greedy; single-device linear/paged sampling windows are "
+                "supported)")
+        if on_mesh:
+            from flashattention_kernel_project_tpu_torch.parallel import (
+                axis_group,
+                axis_index,
+                axis_size,
+                shard_params,
+                tp_engine,
+            )
+
+            tp_engine.check_dense(cfg)
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        self.mesh = mesh
+        # the config of this rank's caches and engine calls (TP: its heads
+        # and d_ff) and the model axis' group the engine all-reduces over
+        # (None on one device); the first global row of the rank's key
+        # range (SP)
+        self._lcfg, self._axis, self._seq_lo = cfg, None, 0
+        if mesh is not None:
+            self._lcfg = tp_engine.local_config(cfg,
+                                                axis_size(mesh, model_axis))
+            self._axis = axis_group(mesh, model_axis)
+        self._steps = None  # the SP multi-step window
         self.max_len = max_len
         self.eos_token = eos_token
         self.n_splits = n_splits
@@ -212,7 +257,7 @@ class Scheduler:
             self._pages_per_seq = -(-max_len // page_size)
             self._n_pages = n_pages or (max_batch * self._pages_per_seq + 1)
             self.cache = engine.init_paged_cache(
-                cfg, max_batch, self._n_pages, self.device,
+                self._lcfg, max_batch, self._n_pages, self.device,
                 page_size=page_size, max_pages_per_seq=self._pages_per_seq,
                 quantized=quantized_cache,
             )
@@ -225,12 +270,20 @@ class Scheduler:
             self._page_refs: dict[int, int] = {}       # page id -> refs
             self._page_key: dict[int, bytes] = {}      # page id -> key
             self.prefix_hits = 0  # inserts that reused resident pages
-            self._decode = functools.partial(engine.decode_step_paged, cfg)
+            self._decode = functools.partial(engine.decode_step_paged,
+                                             self._lcfg, axis=self._axis)
+        elif seq_mesh is not None:
+            self.cache = tp_engine.init_sp_cache(
+                cfg, seq_mesh, max_batch, max_len, quantized=quantized_cache,
+                seq_axis=seq_axis)
+            self._seq_lo = (axis_index(seq_mesh, seq_axis)
+                            * self.cache.k[0].shape[2])
         else:
-            self.cache = engine.init_cache(cfg, max_batch, max_len, self.device,
-                                           quantized=quantized_cache)
+            self.cache = engine.init_cache(self._lcfg, max_batch, max_len,
+                                           self.device, quantized=quantized_cache)
             self._decode = functools.partial(
-                engine.decode_step, cfg, n_splits=n_splits
+                engine.decode_step, self._lcfg, n_splits=n_splits,
+                axis=self._axis,
             )
         if self.spec:
             # the draft keeps its own linear cache; its decode params are
@@ -257,7 +310,22 @@ class Scheduler:
         self.core = BatchSchedulerCore(max_batch, max_len - self._reserve)
         self._callbacks: dict[int, Callable[[int, int, bool], None]] = {}
         self._requests: dict[int, Request] = {}
-        self._decode_params = engine.fuse_decode_params(cfg, params)
+        if mesh is not None:
+            # the rank's shards of the parameters, in the split layout (its
+            # decode too)
+            self.params = self._decode_params = shard_params(
+                params, mesh, tfm.param_shardings(cfg, model_axis=model_axis))
+        elif seq_mesh is not None:
+            # the parameters stay whole and split, as JAX's SP step takes them
+            self._decode_params = params
+            self._decode = tp_engine.make_sp_decode_step(
+                cfg, seq_mesh, seq_axis=seq_axis, n_splits=n_splits)
+            if multi_step > 1:
+                self._steps = tp_engine.make_sp_decode_steps(
+                    cfg, seq_mesh, n_steps=multi_step, seq_axis=seq_axis,
+                    n_splits=n_splits)
+        else:
+            self._decode_params = engine.fuse_decode_params(cfg, params)
         self._wall_s = 0.0
 
     # ----------------------------------------------------------------- API
@@ -409,7 +477,8 @@ class Scheduler:
         if shared:
             self.prefix_hits += 1
             return self._chunked_prefill(req, tb, prefix_pages=shared)
-        if self.prefill_chunk:
+        if self.prefill_chunk or self.mesh is not None:
+            # over a TP mesh prefill always takes the ragged extend
             return self._chunked_prefill(req, tb)
         t = len(req.prompt)
         prompt = np.zeros((1, tb), np.int32)
@@ -429,23 +498,28 @@ class Scheduler:
     def _init_cache1(self, rows: int) -> engine.KVCache:
         """A batch-1 prefill cache of `rows` rows: 8-bit over a linear 8-bit
         batch cache (the splice copies values and scales); full precision
-        over a page pool, whose page scatter quantizes."""
-        return engine.init_cache(self.cfg, 1, rows, self.device,
+        over a page pool, whose page scatter quantizes. Over a TP mesh it
+        holds the rank's KV heads."""
+        return engine.init_cache(self._lcfg, 1, rows, self.device,
                                  quantized=self.quantized_cache and not self.paged)
 
     def _splice_linear(self, slot: int, cache1: engine.KVCache, tb: int, t: int,
                        into: engine.KVCache | None = None):
         """Copy the batch-1 cache's rows [0, tb) into the batch cache at
         `slot` (in place; `into` another linear cache, the draft's) and set
-        the slot's length to t. An 8-bit cache's scales go with them."""
+        the slot's length to t. An 8-bit cache's scales go with them. Over
+        a seq_mesh the batch cache holds the rank's key range, and only the
+        rows in it are copied."""
         target = self.cache if into is None else into
+        lo = self._seq_lo if into is None else 0
+        hi = min(tb, lo + target.k[0].shape[2])
         pairs = [(target.k, cache1.k), (target.v, cache1.v)]
         if target.quantized:
             pairs += [(target.k_scale, cache1.k_scale),
                       (target.v_scale, cache1.v_scale)]
         for bigs, smalls in pairs:
             for big, small in zip(bigs, smalls):
-                big[slot, :, :tb] = small[0, :, :tb]
+                big[slot, :, :max(hi - lo, 0)] = small[0, :, lo:hi]
         target.lengths[slot] = t
 
     def _match_prefix(self, prompt: np.ndarray):
@@ -514,7 +588,7 @@ class Scheduler:
         t = len(req.prompt)
         if prefix_pages:
             s = len(prefix_pages) * self._page
-            cache1 = engine.cache_from_pages(self.cfg, self.cache,
+            cache1 = engine.cache_from_pages(self._lcfg, self.cache,
                                              prefix_pages, s, tb + c)
         else:
             s = 0
@@ -525,12 +599,10 @@ class Scheduler:
             chunk = np.zeros((1, c), np.int32)
             chunk[0, :nj] = req.prompt[j0:j0 + nj]
             n = torch.full((1,), nj, dtype=torch.int32, device=self.device)
-            logits, cache1 = with_retries(
-                functools.partial(
-                    engine.extend, self.cfg, self.params,
-                    torch.from_numpy(chunk).to(self.device), cache1, n=n,
-                )
-            )
+            tokens = torch.from_numpy(chunk).to(self.device)
+            logits, cache1 = with_retries(functools.partial(
+                engine.extend, self._lcfg, self.params, tokens, cache1, n=n,
+                axis=self._axis))
             if j0 + nj < t:
                 self._decode_once()
         return logits, cache1
@@ -592,11 +664,13 @@ class Scheduler:
         chunk = torch.cat([cur[:, None], d], dim=1)       # [B, k+1]
         old_len = self.cache.lengths.cpu().numpy().copy()
         if self.paged:
-            verify = functools.partial(engine.extend_paged, self.cfg,
-                                       self.params, chunk, self.cache)
+            verify = functools.partial(engine.extend_paged, self._lcfg,
+                                       self.params, chunk, self.cache,
+                                       axis=self._axis)
         else:
-            verify = functools.partial(engine.extend, self.cfg, self.params,
-                                       chunk, self.cache, all_logits=True)
+            verify = functools.partial(engine.extend, self._lcfg, self.params,
+                                       chunk, self.cache, all_logits=True,
+                                       axis=self._axis)
         all_l, self.cache = with_retries(verify)
         d_np = d.cpu().numpy()
         greedy = engine.greedy_accept(
@@ -650,14 +724,18 @@ class Scheduler:
         samp = dict(temperature=self.temperature, generator=self._generator,
                     top_k=self.top_k, top_p=self.top_p) if self.sampling else {}
         tokens = torch.from_numpy(self.cur_tokens.copy()).to(self.device)
-        if self.paged:
+        if self._steps is not None:
+            step_fn = functools.partial(self._steps, self._decode_params,
+                                        tokens, self.cache)
+        elif self.paged:
             step_fn = functools.partial(
-                engine.decode_steps_paged, self.cfg, self._decode_params,
-                tokens, self.cache, n_steps=m, **samp)
+                engine.decode_steps_paged, self._lcfg, self._decode_params,
+                tokens, self.cache, n_steps=m, axis=self._axis, **samp)
         else:
             step_fn = functools.partial(
-                engine.decode_steps, self.cfg, self._decode_params, tokens,
-                self.cache, n_steps=m, n_splits=self.n_splits, **samp)
+                engine.decode_steps, self._lcfg, self._decode_params, tokens,
+                self.cache, n_steps=m, n_splits=self.n_splits,
+                axis=self._axis, **samp)
         toks, self.cache = with_retries(step_fn)
         toks = toks.cpu().numpy()
         new_len = old_len.copy()

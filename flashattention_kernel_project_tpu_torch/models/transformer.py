@@ -4,9 +4,10 @@ embeddings.
 
 Counterpart of flashattention_kernel_project_tpu/models/transformer.py on
 one device: the forward, the next-token loss (with an MoE config's
-load-balancing term) and a plain SGD step. Parameters are a dict of
-tensors in the JAX package's layout, so a JAX parameter tree converts by
-copying (models/convert.py):
+load-balancing term) and a plain SGD step; `param_shardings` is the
+parameters' tensor-parallel layout over a mesh (parallel/). Parameters are
+a dict of tensors in the JAX package's layout, so a JAX parameter tree
+converts by copying (models/convert.py):
 
     embed [vocab, d_model], rms_final [d_model] float32,
     layers: wq [L, d_model, q_dim], wk/wv [L, d_model, kv_dim],
@@ -30,6 +31,7 @@ from flashattention_kernel_project_tpu_torch.models import moe
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
+from flashattention_kernel_project_tpu_torch.utils.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +121,34 @@ def init_params(
 def layer_params(params: dict, i: int) -> dict:
     """Layer i's weights (views, no copy)."""
     return {name: w[i] for name, w in params["layers"].items()}
+
+
+def param_shardings(cfg: TransformerConfig, data_axis="data", model_axis="model"):
+    """The Megatron tensor-parallel layout of the parameters, JAX's specs
+    (utils.sharding.P, one entry per dimension, the leading one the layer
+    axis): wq, wk, wv, w_gate and w_up cut by columns over `model_axis`, wo
+    and w_down by rows, the norms, the embedding and rms_final whole.
+    parallel.shard_params cuts a tree by it. An MoE config raises
+    NotImplementedError: its expert-parallel layout (JAX's
+    moe_param_shardings and make_ep_moe) is ROADMAP A.9's expert-parallel
+    item."""
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "param_shardings: an MoE model shards its experts over the mesh "
+            "(moe_param_shardings, make_ep_moe), ROADMAP A.9's expert-parallel "
+            "item, not ported")
+    layer = dict(
+        wq=P(None, None, model_axis),
+        wk=P(None, None, model_axis),
+        wv=P(None, None, model_axis),
+        wo=P(None, model_axis, None),
+        rms_attn=P(None, None),
+        rms_mlp=P(None, None),
+        w_gate=P(None, None, model_axis),
+        w_up=P(None, None, model_axis),
+        w_down=P(None, model_axis, None),
+    )
+    return dict(embed=P(None, None), rms_final=P(None), layers=layer)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -3,9 +3,10 @@
 
 Counterpart of flashattention_kernel_project_tpu/ops/flash_decode.py
 (`flash_decode`, `flash_decode_int8`, `flash_decode_fp8`,
-`merge_partials`). The cache's key axis is cut into `n_splits` independent
-splits; each emits unnormalized partials (m, l, y) over its keys below
-`lengths` (with a sliding window, only the band's keys and the sinks), and
+`merge_partials`; `fold_partials` is the fold of return_partials=True).
+The cache's key axis is cut into `n_splits` independent splits; each
+emits unnormalized partials (m, l, y) over its keys below `lengths` (with
+a sliding window, only the band's keys and the sinks), and
 `merge_partials` combines them. On a CPU tensor the partials come from
 `_decode_partials_plain`, `_decode_partials_q_plain` and
 `_decode_partials_mxu_plain` and the merge is plain PyTorch, as it is a jnp
@@ -131,6 +132,19 @@ def default_block_s(s_max: int, n_splits: int) -> int:
     count: whole 64-key tiles, ceil(tiles / n_splits) of them."""
     tiles = -(-s_max // _TILE)
     return -(-tiles // n_splits) * _TILE
+
+
+def fold_partials(m, l, y):
+    """Fold the split axis of per-split partials m, l [B, Hkv, n_splits, G,
+    1] and y [B, Hkv, n_splits, G, D] into one unnormalized streaming state
+    (m [B, Hkv, G, 1], l [B, Hkv, G, 1], y [B, Hkv, G, D], m in natural-log
+    units), as the JAX package's return_partials does: the state a
+    sequence-sharded decode gathers across ranks and merges with
+    `merge_partials`. A row with no live key keeps l = 0, y = 0 and m =
+    NEG_INF, so it weighs nothing in that merge."""
+    m_g = m.amax(dim=-3)
+    alpha = torch.exp(m - m_g[..., None, :, :])
+    return m_g, (l * alpha).sum(dim=-3), (y * alpha).sum(dim=-3)
 
 
 def merge_partials(m, l, y):
@@ -362,13 +376,14 @@ def flash_decode(
     included (bf16, contiguous, d in {64, 128}, Hq/Hkv in {1, 2, 4, 8}),
     or raise. Two calls must not run at once on two streams of one device:
     they would share the kernel's split-merge counters.
+
+    return_partials=True skips the merge's normalization and returns the
+    folded unnormalized state (m [B, Hkv, G, 1], l [B, Hkv, G, 1], y [B,
+    Hkv, G, D], float32, `fold_partials`): what parallel.seq_sharded_decode
+    gathers across ranks. On a CUDA tensor the kernel's split partials
+    (fkp_flash_decode, one launch) are folded in plain PyTorch.
     """
     window, sinks = _decode_band(window, sinks)
-    if return_partials:
-        raise NotImplementedError(
-            "flash_decode: return_partials (seq-sharded decode) is ROADMAP "
-            "item A.9"
-        )
     b, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     if hq % hkv:
@@ -384,11 +399,15 @@ def flash_decode(
         sm_scale = 1.0 / math.sqrt(d)
     args = (q, k_cache, v_cache, lengths, n_splits, block_s, sm_scale, window,
             sinks)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no decode for device {q.device}")
+    if return_partials:
+        partials = (_decode_partials_plain if q.device.type == "cpu"
+                    else _decode_partials_cuda)
+        return fold_partials(*partials(*args))
     if q.device.type == "cpu":
         return _decode_plain(*args)
-    if q.device.type == "cuda":
-        return _decode_cuda(*args)
-    raise ValueError(f"no decode for device {q.device}")
+    return _decode_cuda(*args)
 
 
 # kernel launches, for showing that a path ran the kernel, and those of
@@ -704,15 +723,15 @@ def flash_decode_int8(
     cut to splits that fit the kernel's shared memory), where JAX's default
     is one split per 4096 keys. A caller's split must fit the kernel's
     shared memory (ValueError otherwise).
+
+    return_partials=True returns flash_decode's folded state (m, l, y),
+    from the kernel's split partials on a CUDA tensor (fkp_flash_decode_q,
+    or fkp_flash_decode_mxu with mxu=True; one launch) folded in plain
+    PyTorch.
     """
     if mxu and k_q.dtype != torch.int8:
         raise ValueError(f"mxu=True needs an int8 cache, got {k_q.dtype}")
     window, sinks = _decode_band(window, sinks)
-    if return_partials:
-        raise NotImplementedError(
-            "flash_decode_int8: return_partials (seq-sharded decode) is "
-            "ROADMAP item A.9"
-        )
     b, hq, d = q.shape
     hkv, s = k_q.shape[1], k_q.shape[2]
     if hq % hkv:
@@ -733,6 +752,12 @@ def flash_decode_int8(
             sm_scale, window, sinks)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no decode for device {q.device}")
+    if return_partials:
+        partials = {("cpu", False): _decode_partials_q_plain,
+                    ("cpu", True): _decode_partials_mxu_plain,
+                    ("cuda", False): _decode_partials_q_cuda,
+                    ("cuda", True): _decode_partials_mxu_cuda}
+        return fold_partials(*partials[q.device.type, bool(mxu)](*args))
     if q.device.type == "cuda":
         return (_decode_mxu_cuda if mxu else _decode_q_cuda)(*args)
     if not mxu:

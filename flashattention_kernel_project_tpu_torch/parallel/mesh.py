@@ -1,0 +1,227 @@
+"""Device meshes over torch.distributed, and the attention kernels on one.
+
+Counterpart of flashattention_kernel_project_tpu/parallel/mesh.py. JAX runs
+one controller, and shard_map runs a function on every device of a Mesh;
+torch.distributed runs one process a rank, each running the same Python.
+So here:
+- `make_mesh` returns a torch.distributed.device_mesh.DeviceMesh over the
+  process group the caller has initialised, with JAX's axis names ("data",
+  "model", "sp") as its mesh_dim_names; a JAX axis name resolves to that
+  dimension's process group (`axis_group`);
+- `shard_params` (JAX: device_put with a NamedSharding) returns this rank's
+  slice of each leaf;
+- a function JAX wraps in shard_map takes and returns the rank's own
+  shards: `head_sharded_attention` and the head-sharded decodes run the
+  kernel on the rank's batch rows and KV heads and return its slice of the
+  output, with no collective; `seq_sharded_decode` returns the whole output,
+  bit-equal on every rank (JAX's out_specs P()), from the partials its
+  ranks all-gather (JAX's all_gather) and merge.
+The kernels are the single-device ones (ops/), launched at the rank's
+shapes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from flashattention_kernel_project_tpu_torch.ops.flash_attention import flash_attention
+from flashattention_kernel_project_tpu_torch.ops.flash_decode import (
+    flash_decode,
+    flash_decode_int8,
+    merge_partials,
+)
+from flashattention_kernel_project_tpu_torch.utils.sharding import P
+
+
+def make_mesh(axis_sizes: dict[str, int] | None = None, *,
+              device_type: str = "cuda"):
+    """A DeviceMesh over the initialised default process group, its ranks
+    laid out row-major in the shape `axis_sizes` ({"data": 2, "model": 4};
+    one -1 entry takes the remaining ranks; default: every rank on one
+    "model" axis). Each axis gets process groups of the default group's
+    backend, one for each line of ranks along it, created by every rank in
+    the same order. device_type: "cuda" (the rank's current device) or
+    "cpu", as the tests run it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    n = dist.get_world_size()
+    axis_sizes = dict(axis_sizes or {"model": n})
+    names = tuple(axis_sizes)
+    sizes = list(axis_sizes.values())
+    if sizes.count(-1) > 1:
+        raise ValueError(f"at most one -1 in {axis_sizes}")
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1]))
+        sizes[sizes.index(-1)] = n // known
+    if int(np.prod(sizes)) != n:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} does not cover the "
+                         f"{n} ranks")
+    ranks = np.arange(n).reshape(sizes)
+    me = dist.get_rank()
+    backend = dist.get_backend()
+    groups = []
+    for dim in range(len(sizes)):
+        lines = np.moveaxis(ranks, dim, -1).reshape(-1, sizes[dim])
+        mine = None
+        for line in lines:
+            g = dist.new_group([int(r) for r in line], backend=backend)
+            if me in line:
+                mine = g
+        groups.append(mine)
+    return DeviceMesh.from_group(groups, device_type,
+                                 mesh=torch.from_numpy(ranks),
+                                 mesh_dim_names=names)
+
+
+def axis_group(mesh, axis: str):
+    """The process group of this rank's line along the mesh axis `axis`."""
+    return mesh.get_group(axis)
+
+
+def axis_size(mesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's position along `axis` (its rank in `axis_group`)."""
+    return dist.get_rank(axis_group(mesh, axis))
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's shards live on: the current CUDA device, or
+    the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def shard(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of the whole array x under `spec` (P): each
+    dimension named by a mesh axis cut into that axis' size equal blocks,
+    the rank's block by its position along the axis (ValueError if the
+    size does not divide). Axes the mesh lacks leave their dimension
+    whole, as JAX's wrappers drop an absent data axis."""
+    out = x
+    for dim, axis in enumerate(spec):
+        if axis is None or axis not in mesh.mesh_dim_names:
+            continue
+        n = axis_size(mesh, axis)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                             f"divide over {n} ranks of axis {axis!r}")
+        size = x.shape[dim] // n
+        out = out.narrow(dim, axis_index(mesh, axis) * size, size)
+    return out.contiguous()
+
+
+def shard_params(params, mesh, rules):
+    """This rank's slice of every leaf of `params`, by the matching tree of
+    specs `rules` (models.param_shardings): the counterpart of JAX's
+    device_put with a NamedSharding. A leaf whose spec is None or P() stays
+    whole."""
+    if isinstance(params, dict):
+        return {k: shard_params(v, mesh, rules[k]) for k, v in params.items()}
+    return params if not rules else shard(params, mesh, rules)
+
+
+def _batch_spec(mesh, data_axis):
+    return data_axis if data_axis in mesh.mesh_dim_names else None
+
+
+def head_sharded_attention(mesh, *, causal: bool = True,
+                           sm_scale: float | None = None,
+                           data_axis: str | None = "data",
+                           model_axis: str = "model", **kernel_kwargs):
+    """The fused attention with the KV heads cut over `model_axis` and the
+    batch over `data_axis` (when the mesh has it): no collective, attention
+    being independent across heads. Returns fn(q, k, v) on the rank's
+    shards (q [B/data, Hq/model, N, D], k, v [B/data, Hkv/model, S, D]) ->
+    its slice of the output [B/data, Hq/model, N, D]. Each returned fn
+    carries `kv_spec`, the spec of the cache (or K, V) it takes."""
+
+    def fn(q, k, v):
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               **kernel_kwargs)
+
+    fn.kv_spec = P(_batch_spec(mesh, data_axis), model_axis, None, None)
+    return fn
+
+
+def head_sharded_decode(mesh, *, n_splits: int = 8,
+                        sm_scale: float | None = None,
+                        data_axis: str | None = "data",
+                        model_axis: str = "model", **kernel_kwargs):
+    """The split-KV decode with the cache cut over its KV heads
+    (P(batch, model_axis, None, None)): each rank reads only its heads'
+    cache. Returns fn(q [B/data, Hq/model, D], k_cache, v_cache, lengths
+    [B/data]) -> its slice of the output [B/data, Hq/model, D]."""
+
+    def fn(q, k_cache, v_cache, lengths):
+        return flash_decode(q, k_cache, v_cache, lengths, n_splits=n_splits,
+                            sm_scale=sm_scale, **kernel_kwargs)
+
+    fn.kv_spec = P(_batch_spec(mesh, data_axis), model_axis, None, None)
+    return fn
+
+
+def head_sharded_decode_quant(mesh, *, n_splits: int = 8,
+                              sm_scale: float | None = None,
+                              data_axis: str | None = "data",
+                              model_axis: str = "model", **kernel_kwargs):
+    """head_sharded_decode over an 8-bit cache (values and per-token scales
+    cut over the KV heads alike): fn(q, k_q, k_scale, v_q, v_scale,
+    lengths) -> the rank's slice of the output [B/data, Hq/model, D]."""
+
+    def fn(q, k_q, k_s, v_q, v_s, lengths):
+        return flash_decode_int8(q, k_q, k_s, v_q, v_s, lengths,
+                                 n_splits=n_splits, sm_scale=sm_scale,
+                                 **kernel_kwargs)
+
+    fn.kv_spec = P(_batch_spec(mesh, data_axis), model_axis, None, None)
+    return fn
+
+
+def gather_merge(m, l, y, group):
+    """The folded partials (m, l [B, Hkv, G, 1], y [B, Hkv, G, D]) of every
+    rank of `group`, all-gathered in one collective and merged: [B, Hkv, G,
+    D] float32, the same on every rank. A rank whose rows hold no live key
+    (l = 0) weighs nothing."""
+    mine = torch.cat([m, l, y], dim=-1).contiguous()
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    st = torch.stack(parts, dim=-3)  # [B, Hkv, ranks, G, D + 2]
+    return merge_partials(st[..., :1], st[..., 1:2], st[..., 2:])
+
+
+def seq_sharded_decode(mesh, *, n_splits: int | None = None,
+                       sm_scale: float | None = None,
+                       data_axis: str | None = "data", seq_axis: str = "sp",
+                       **kernel_kwargs):
+    """The split-KV decode with the cache cut along its length over
+    `seq_axis` (P(batch, None, seq_axis, None)), for contexts longer than
+    one device holds. Each rank decodes its key range with its length
+    clipped to the range and returns the unnormalized partials
+    (flash_decode(return_partials=True)); one all-gather of the partials
+    and `merge_partials` give the output on every rank. Returns fn(q [B/data,
+    Hq, D], k_shard [B/data, Hkv, S/sp, D], v_shard, lengths [B/data], the
+    global lengths) -> [B/data, Hq, D] in q's dtype, the same on every
+    rank."""
+    group = axis_group(mesh, seq_axis)
+
+    def fn(q, k_shard, v_shard, lengths):
+        s_loc = k_shard.shape[2]
+        lo = dist.get_rank(group) * s_loc
+        local_len = (lengths - lo).clamp(0, s_loc).to(torch.int32)
+        m, l, y = flash_decode(q, k_shard, v_shard, local_len,
+                               n_splits=n_splits, sm_scale=sm_scale,
+                               return_partials=True, **kernel_kwargs)
+        out = gather_merge(m, l, y, group)
+        return out.reshape(q.shape).to(q.dtype)
+
+    fn.kv_spec = P(_batch_spec(mesh, data_axis), None, seq_axis, None)
+    return fn

@@ -140,11 +140,18 @@ def test_convert_keeps_bf16():
 
 
 def test_unported_model_options_raise():
+    """return_partials, once unported (A.9), returns the folded partials of
+    an empty cache: l = 0, y = 0, no NaN (tests/test_torch_parallel_mesh.py
+    holds it to JAX)."""
     cache = engine.init_cache(CFG, 1, 8, CPU, quantized=True)
-    with pytest.raises(NotImplementedError):  # the seq-sharded decode (A.9)
-        flash_decode_int8(torch.zeros(1, CFG.n_heads, CFG.d_head), cache.k[0],
-                          cache.k_scale[0], cache.v[0], cache.v_scale[0],
-                          cache.lengths, return_partials=True)
+    m, l, y = flash_decode_int8(torch.zeros(1, CFG.n_heads, CFG.d_head),
+                                cache.k[0], cache.k_scale[0], cache.v[0],
+                                cache.v_scale[0], cache.lengths,
+                                return_partials=True)
+    g = CFG.n_heads // CFG.n_kv_heads
+    assert m.shape == l.shape == (1, CFG.n_kv_heads, g, 1)
+    assert y.shape == (1, CFG.n_kv_heads, g, CFG.d_head)
+    assert (l == 0).all() and (y == 0).all() and torch.isfinite(m).all()
 
 
 def test_sampling_top_k_top_p():

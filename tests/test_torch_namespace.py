@@ -1,6 +1,6 @@
 """The port's package namespaces carry the JAX package's public names: a
 script written against `flashattention_kernel_project_tpu`'s `ops`,
-`models` and `utils` runs against the port when only the import changes,
+`models`, `utils` and `parallel` runs against the port when only the import changes,
 apart from the names listed here, each with the item that ports it."""
 
 import importlib
@@ -12,25 +12,32 @@ import pytest
 # launch counters stay one attribute away (ops.flash_attention._fwd, ...);
 # the function is the module's attribute of the same name
 MODULE_SHADOWS = {"ops": ["flash_attention", "flash_decode", "softmax"]}
-# multi-device: the mesh shardings and the `parallel` package, which is in
-# the JAX package's namespace once any module of it has been imported
-# (ROADMAP A.9)
-SHARDINGS = ["param_shardings", "moe_param_shardings", "make_ep_moe"]
-PARALLEL = ["parallel"]
+# multi-device (ROADMAP A.9), by the step that ports them: the ring
+# attention, Ulysses, the TP and CP training steps, the pipeline, and the
+# expert-parallel MoE (the JAX `parallel` modules of the first four are
+# absent too)
+RING = ["ring_attention", "ring_attention_kv_quant", "ring_attention_trainable",
+        "merge_normalized"]
+ULYSSES = ["ulysses", "ulysses_attention"]
+TRAIN_STEPS = ["train", "make_train_step", "make_cp_train_step",
+               "make_optax_train_step"]
+PIPELINE = ["pipeline", "make_pp_train_step", "pp_loss_fn", "pp_param_specs"]
+EXPERT_PARALLEL = ["moe_param_shardings", "make_ep_moe"]
 # the benchmark harness (ROADMAP A.5)
 BENCHMARKING = ["BenchResult", "benchmark", "benchmark_chained", "benchmarking"]
 # the TPU's own: the port has utils.platform's H100 peaks, require_hopper
 # and card_label instead (a kept deviation, ROADMAP C)
 TPU_ONLY = ["default_interpret", "has_tpu", "tpu_peak_flops", "tpu_hbm_bandwidth"]
-ABSENT = {"": PARALLEL, "ops": [], "models": SHARDINGS,
-          "utils": BENCHMARKING + TPU_ONLY}
+ABSENT = {"": [], "ops": [], "models": EXPERT_PARALLEL,
+          "utils": BENCHMARKING + TPU_ONLY,
+          "parallel": RING + ULYSSES + TRAIN_STEPS + PIPELINE}
 
 
 def _public(module):
     return sorted(n for n in dir(module) if not n.startswith("_"))
 
 
-@pytest.mark.parametrize("sub", ["", "ops", "models", "utils"])
+@pytest.mark.parametrize("sub", ["", "ops", "models", "utils", "parallel"])
 def test_port_namespace_carries_jax_names(sub):
     suffix = f".{sub}" if sub else ""
     jax_ns = importlib.import_module("flashattention_kernel_project_tpu" + suffix)
@@ -51,7 +58,7 @@ def test_port_namespace_carries_jax_names(sub):
         assert callable(getattr(getattr(port, n), n))
 
 
-@pytest.mark.parametrize("sub", ["", "models", "utils"])
+@pytest.mark.parametrize("sub", ["", "models", "utils", "parallel"])
 def test_absent_names_are_still_absent(sub):
     """The listed names are absent because their items are not ported; when
     one lands, it leaves its list."""

@@ -163,10 +163,15 @@ def test_flash_decode_default_splits_fill_the_card():
 
 @pytest.mark.parametrize("kwargs", [dict(return_partials=True)])
 def test_flash_decode_unported_options_raise(kwargs):
-    q = torch.zeros(1, 2, 16)
-    kv = torch.zeros(1, 1, 8, 16)
-    with pytest.raises(NotImplementedError):
-        tfd.flash_decode(q, kv, kv, torch.ones(1, dtype=torch.int32), **kwargs)
+    """return_partials, once unported, folds the splits' partials: merged
+    over one "shard" they give the decode itself."""
+    q = torch.randn(1, 2, 16)
+    kv = torch.randn(1, 1, 8, 16)
+    lengths = torch.full((1,), 5, dtype=torch.int32)
+    m, l, y = tfd.flash_decode(q, kv, kv, lengths, n_splits=2, **kwargs)
+    assert m.shape == l.shape == (1, 1, 2, 1) and y.shape == (1, 1, 2, 16)
+    torch.testing.assert_close((y / l).reshape(1, 2, 16),
+                               tfd.flash_decode(q, kv, kv, lengths, n_splits=2))
 
 
 @pytest.mark.parametrize("kwargs", [dict(window=8), dict(sinks=2)])

@@ -253,7 +253,7 @@ def test_paged_append_quant_matches_jax_bit_for_bit(chunk, fmt):
 
 
 def test_8bit_options_and_checks_raise():
-    """The options still to port raise naming their ROADMAP item; window
+    """return_partials folds the splits (y / l is the decode); window
     and sinks, mxu and q_int8 run (tests/test_torch_window.py and
     tests/test_torch_int8_decodes.py hold them to JAX); the CUDA wrappers'
     checks refuse what the kernels do not take (the 8-bit GEMMs' checks
@@ -263,9 +263,9 @@ def test_8bit_options_and_checks_raise():
     _, _, k, ks = _quantized(rng, (2, 2, 8, 16), "int8")
     lengths = torch.tensor([3, 8], dtype=torch.int32)
     args = (q, k, ks, k, ks, lengths)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tfd.flash_decode_int8(*args, return_partials=True)
+    m, l, y = tfd.flash_decode_int8(*args, return_partials=True)
     full = tfd.flash_decode_int8(*args)
+    torch.testing.assert_close((y / l).reshape(full.shape), full)
     got = tfd.flash_decode_int8(*args, mxu=True)
     assert got.shape == full.shape and torch.isfinite(got).all()
     for kwargs in (dict(window=4), dict(window=4, sinks=1)):

@@ -115,16 +115,24 @@ def test_scheduler_sampling_uses_generator(both_params):
 
 @pytest.mark.parametrize(
     "mode",
-    [dict(quantized_cache=True, mesh=object()), dict(mesh=object()),
-     dict(seq_mesh=object()), dict(draft_cfg=CFG, multi_step=4)],
+    [dict(quantized_cache=True, mesh=object(), seq_mesh=object()),
+     dict(paged=True, seq_mesh=object()),
+     dict(seq_mesh=object(), draft_cfg=CFG), dict(draft_cfg=CFG, multi_step=4)],
 )
 def test_scheduler_unported_modes_raise(both_params, mode):
-    """The modes still to port raise naming their ROADMAP item; speculative
-    decoding with multi_step raises as the JAX Scheduler does."""
+    """The JAX Scheduler's walls raise as its do, before any mesh is
+    touched: seq_mesh with mesh or paged, speculative decoding over a
+    seq_mesh or with multi_step (the mesh modes themselves run:
+    tests/test_torch_mesh_serving.py)."""
     _, tp = both_params
-    match = "no spec composition" if "draft_cfg" in mode else "ROADMAP item A"
+    if "multi_step" in mode:
+        match = "no spec composition"
+    elif "draft_cfg" in mode:
+        match = "no seq_mesh"
+    else:
+        match = "linear single-TP mode"
     with pytest.raises(NotImplementedError, match=match):
-        Scheduler(CFG, tp, max_batch=2, max_len=64, **mode)
+        Scheduler(CFG, tp, max_batch=2, max_len=64, draft_params=tp, **mode)
 
 
 def test_scheduler_prefix_cache_needs_paged(both_params):

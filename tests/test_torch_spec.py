@@ -399,8 +399,8 @@ def test_scheduler_spec_guards(both_params):
         Scheduler(CFG, tp, multi_step=4, **kw)
     q8 = Scheduler(CFG, tp, quantized_cache=True, paged=True, **kw)
     assert q8.cache.quantized and not q8.dcache.quantized
-    with pytest.raises(NotImplementedError, match="A.9"):
-        Scheduler(CFG, tp, mesh=object(), **kw)
+    with pytest.raises(NotImplementedError, match="bf16-only"):
+        Scheduler(CFG, tp, mesh=object(), paged=True, quantized_cache=True, **kw)
     with pytest.raises(ValueError, match="draft_params"):
         Scheduler(CFG, tp, max_batch=2, max_len=64, draft_cfg=DRAFT)
     with pytest.raises(ValueError, match="vocabulary"):
