@@ -189,7 +189,7 @@ width, with random weights from a seed:
     spill, HGMMA and UTMALDG and no HMMA.16816 in their SASS; O, LSE and
     the guard's count against the plain version at its row-block and tile
     edges in the three disciplines, int8 and e4m3;
-  - serving over a device mesh (phase_mesh, last): two ranks spawned on the
+  - serving over a device mesh (phase_mesh): two ranks spawned on the
     one card, one process each, joined by gloo (NCCL refuses two ranks on
     one GPU); the serving model through Scheduler(mesh=) (linear in
     chunks of 256, paged with the prefix cache, paged int8, speculative
@@ -198,7 +198,16 @@ width, with random weights from a seed:
     single-device Scheduler by the near-tie audit; the TP and SP engines'
     logits against the single-device engine's; seq_sharded_decode at B 8,
     16/4 heads, S 8192, d 128 against flash_decode. Its times are two
-    ranks sharing one card over gloo, not a multi-device speed.
+    ranks sharing one card over gloo, not a multi-device speed;
+  - training over a device mesh (phase_mesh_train, last), two ranks the
+    same way: ring attention (causal, windowed, trainable) and Ulysses at
+    1 x 16/4 x 8192 x 128 and the 8-bit ring at BASELINE config 5's
+    shape against the single-device kernels (outputs and gradients), then
+    bench_train.py's model and batch through the CP, TP, AdamW and
+    pipeline steps, 3 steps each: the first loss against loss_fn, the SGD
+    steps' params against sgd_train_step's, losses falling, replicated
+    params bit-equal on both ranks, each path's launches as its schedule
+    predicts.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -8020,6 +8029,340 @@ def phase_mesh(device, label):
     return launches
 
 
+# (a), (c): 1 x 16/4 x 8192 x 128 bf16 over 2 shards of 4096; the windowed
+# ring's band (truncated to depth 2: the off-diagonal shard at q_offset 4096)
+MESH_TRAIN_RING = (1, 16, 4, 8192, 128)
+MESH_TRAIN_WINDOW = 1024
+# (b): BASELINE.json config 5 (32/8 heads, 32K, int8 KV, causal) over 2
+# shards of 16384
+MESH_TRAIN_Q8 = (1, 32, 8, 32768, 128)
+# (d): bench_train.py's model and batch, 3 steps a path; AdamW's lr and
+# weight decay (explicit: torch's and optax's defaults differ), its clip
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_MICRO = 4
+MESH_ADAMW = dict(lr=1e-3, weight_decay=1e-2)
+MESH_CLIP = 1.0
+RING_TOL = 1e-2   # rel-L2 of bf16 outputs and gradients (O_TOL)
+STEP_TOL = 1e-2   # the first loss (relative) and each leaf after one SGD step (rel-L2)
+
+
+def _ring_launches(rank, per_call=1):
+    """The forwards (or backwards) the causal ring's schedule launches on
+    `rank` a call: the diagonal and the rank's r shards below it."""
+    return (rank + 1) * per_call
+
+
+def _digest(tensors) -> str:
+    """One hash of the tensors' bytes: bit-equality across ranks."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_train_rank(rank, world, device_type):
+    """One rank of phase_mesh_train, on the card beside the other. Each
+    path runs with every launch counter at 0 just before it and is held
+    here against the single-device path on the same inputs: (a) the bf16
+    ring, trainable ring and windowed ring, (b) the 8-bit ring, (c) Ulysses,
+    (d) 3 steps each of the CP, TP, AdamW and pipeline training steps.
+    Returns, by path, the errors, launches, wall ms and digests of what is
+    replicated."""
+    import functools
+
+    import torch
+
+    from flashattention_kernel_project_tpu_torch import models, parallel
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+    from flashattention_kernel_project_tpu_torch.ops.quant import quantize_kv
+    from flashattention_kernel_project_tpu_torch.parallel.mesh import shard
+    from flashattention_kernel_project_tpu_torch.utils.sharding import P
+
+    device = torch.device(device_type, 0 if device_type == "cuda" else None)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        """fn() with the counters at 0 just before: (result, launches, ms)."""
+        sync()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return res, {k: n for k, n in read_counters().items() if n}, ms
+
+    def loss_of(o):
+        o = o.float()
+        return (o * o.cos()).sum()
+
+    sp = parallel.make_mesh({"sp": world}, device_type=device.type)
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(21)
+    b, hq, hkv, n, d = MESH_TRAIN_RING
+    q = torch.randn((b, hq, n, d), generator=gen, device=device).bfloat16()
+    k = torch.randn((b, hkv, n, d), generator=gen, device=device).bfloat16()
+    v = torch.randn((b, hkv, n, d), generator=gen, device=device).bfloat16()
+
+    # (a) the bf16 ring, forward only, causal and windowed
+    for name, window in (("ring", None), ("ring (window)", MESH_TRAIN_WINDOW)):
+        fn = parallel.ring_attention(sp, causal=True, data_axis=None,
+                                     window=window)
+        whole = shard(fa.flash_attention(q, k, v, causal=True, window=window),
+                      sp, fn.spec)
+        shards = [shard(x, sp, fn.spec) for x in (q, k, v)]
+        got, launches, ms = counted(lambda: fn(*shards))
+        out[name] = dict(err=[_rel_l2(got, whole)], launches=launches, ms=ms)
+
+    # (a) the trainable ring and (c) Ulysses: the output and the gradients
+    # of sum(o cos o) against autograd through the single-device kernel
+    qf, kf, vf = (x.clone().requires_grad_() for x in (q, k, v))
+    of = fa.flash_attention(qf, kf, vf, causal=True)
+    loss_of(of).backward()
+    for name, make in (("ring (trainable)", parallel.ring_attention_trainable),
+                       ("ulysses", parallel.ulysses_attention)):
+        fn = make(sp, causal=True, data_axis=None)
+        shards = [shard(x, sp, fn.spec).requires_grad_() for x in (q, k, v)]
+
+        def run():
+            o = fn(*shards)
+            loss_of(o).backward()
+            return o
+
+        got, launches, ms = counted(run)
+        err = [_rel_l2(got.detach(), shard(of.detach(), sp, fn.spec))]
+        err += [_rel_l2(s.grad, shard(w.grad, sp, fn.spec))
+                for s, w in zip(shards, (qf, kf, vf))]
+        out[name] = dict(err=err, launches=launches, ms=ms)
+    del qf, kf, vf, of, q, k, v
+
+    # (b) the 8-bit ring at config 5's shape
+    b, hq, hkv, n, d = MESH_TRAIN_Q8
+    q = torch.randn((b, hq, n, d), generator=gen, device=device).bfloat16()
+    kq, ks, vq, vs = quantize_kv(
+        torch.randn((b, hkv, n, d), generator=gen, device=device).bfloat16(),
+        torch.randn((b, hkv, n, d), generator=gen, device=device).bfloat16())
+    fn = parallel.ring_attention_kv_quant(sp, causal=True, data_axis=None)
+    whole = shard(fa.flash_attention_kv_quant(q, kq, ks, vq, vs, causal=True),
+                  sp, fn.spec)
+    shards = [shard(x, sp, fn.spec) for x in (q, kq, ks, vq, vs)]
+    got, launches, ms = counted(lambda: fn(*shards))
+    out["ring (8-bit)"] = dict(err=[_rel_l2(got, whole)], launches=launches, ms=ms)
+    del q, kq, ks, vq, vs, whole, shards, got
+
+    # (d) the training steps at bench_train.py's widths and batch, each
+    # against one single-device SGD step on this rank
+    cfg = tfm.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    params = tfm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(device)
+    ref_params, ref_loss = models.sgd_train_step(cfg, params, tokens, lr=TRAIN_LR)
+    ref_loss = float(ref_loss)
+    tp = parallel.make_mesh({"data": 1, "model": world}, device_type=device.type)
+    pipe = parallel.make_mesh({"pipe": world}, device_type=device.type)
+
+    def cp():
+        step, _ = parallel.make_cp_train_step(cfg, sp, lr=TRAIN_LR)
+        return step, params, None, lambda p: p
+
+    def tp_step():
+        step, rules = parallel.make_train_step(cfg, tp, lr=TRAIN_LR)
+        return step, parallel.shard_params(params, tp, rules), None, \
+            lambda p: parallel.shard_params(p, tp, rules)
+
+    def adamw():
+        init, step, rules, _ = parallel.make_optax_train_step(
+            cfg, tp, functools.partial(torch.optim.AdamW, **MESH_ADAMW), params,
+            clip_norm=MESH_CLIP)
+        p = parallel.shard_params(params, tp, rules)
+        return step, p, init(p), None
+
+    def pp():
+        step, specs = parallel.make_pp_train_step(
+            cfg, pipe, n_micro=MESH_TRAIN_MICRO, lr=TRAIN_LR)
+        return step, parallel.shard_params(params, pipe, specs), None, \
+            lambda p: parallel.shard_params(p, pipe, specs)
+
+    # path -> (the function that builds its step, the tokens' spec on the
+    # data axis, the leaves replicated over the path's axis)
+    tp_whole = ("embed", "rms_final", "layers.rms_attn", "layers.rms_mlp")
+    paths = {"cp step": (cp, None, None),
+             "tp step": (tp_step, P("data", None), tp_whole),
+             "adamw step": (adamw, P("data", None), tp_whole),
+             "pp step": (pp, None, ("embed", "rms_final"))}
+    for name, (build, tok_spec, replicated) in paths.items():
+        step, p, state, ref_of = build()
+        toks = tokens if tok_spec is None else shard(tokens, tp, tok_spec)
+        losses, step_ms, first = [], [], None
+
+        def run():
+            nonlocal p, state, first
+            for i in range(MESH_TRAIN_STEPS):
+                sync()
+                t0 = time.perf_counter()
+                if state is None:
+                    p, loss = step(p, toks)
+                else:
+                    p, state, loss = step(p, state, toks)
+                sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+                if i == 0 and ref_of is not None:
+                    # each leaf's distance from sgd_train_step's, and its
+                    # update's (p1 - p0) from the reference update
+                    ref = tfm._leaves(ref_of(ref_params))
+                    p0 = tfm._leaves(ref_of(params))
+                    first = {k_: (_rel_l2(x, ref[k_]),
+                                  _rel_l2(x.float() - p0[k_].float(),
+                                          ref[k_].float() - p0[k_].float()))
+                             for k_, x in tfm._leaves(p).items()}
+
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _, launches, _ = counted(run)
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device.type == "cuda" else None)
+        leaves = tfm._leaves(p)
+        keep = list(leaves) if replicated is None else [
+            k_ for k_ in leaves if k_ in replicated]
+        out[name] = dict(losses=losses, ref_loss=ref_loss, step_ms=step_ms,
+                         params=first, launches=launches, peak_gib=peak,
+                         digest=_digest([leaves[k_] for k_ in keep]
+                                        + [torch.tensor(losses)]))
+        del step, p, state
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train_expected(name, rank):
+    """The launches the schedule predicts on `rank` for the path `name`:
+    {counter: count}. The causal ring launches r + 1 forwards (and, when
+    trainable, backwards) a call on rank r; the windowed ring at depth 2
+    runs the diagonal and, on rank 1, the off-diagonal shard at q_offset
+    4096 with the band; Ulysses one forward and one backward; the steps a
+    forward and a backward a layer (4 layers), the CP step's ring r + 1 of
+    each, the pipeline's stage 2 layers x 4 microbatches with its forwards
+    recomputed (remat); 3 steps."""
+    layers, steps = TRAIN["n_layers"], MESH_TRAIN_STEPS
+    ring = _ring_launches(rank)
+
+    def fwd_bwd(fwd, bwd):
+        return {"flash_fwd": fwd, "flash_bwd": bwd, "flash_bwd/split": bwd}
+
+    stage_layers = layers // MESH_WORLD
+    pp = steps * stage_layers * MESH_TRAIN_MICRO
+    return {
+        "ring": {"flash_fwd": ring},
+        "ring (window)": {"flash_fwd": ring, "flash_fwd/window": ring},
+        "ring (trainable)": fwd_bwd(ring, ring),
+        "ring (8-bit)": {"flash_fwd_q": ring},
+        "ulysses": fwd_bwd(1, 1),
+        "cp step": fwd_bwd(steps * layers * ring, steps * layers * ring),
+        "tp step": fwd_bwd(steps * layers, steps * layers),
+        "adamw step": fwd_bwd(steps * layers, steps * layers),
+        "pp step": fwd_bwd(2 * pp, pp),
+    }[name]
+
+
+def phase_mesh_train(device, label):
+    """Context-parallel and multi-device training with two ranks on the one
+    card (spawned, one process each, gloo, as phase_mesh; this process
+    built the kernels first): (a) ring_attention causal and with window
+    MESH_TRAIN_WINDOW, ring_attention_trainable at 1 x 16/4 x 8192 x 128
+    bf16 in two shards of 4096, (b) ring_attention_kv_quant at BASELINE
+    config 5's shape in two shards of 16384, (c) ulysses_attention at (a)'s
+    shape, each against the single-device kernel on the whole sequence
+    (rel-L2 RING_TOL: outputs, and dq, dk, dv of sum(o cos o)); (d)
+    make_cp_train_step (sp 2), make_train_step (data 1 x model 2),
+    make_optax_train_step (AdamW, clip_norm MESH_CLIP) and
+    make_pp_train_step (2 stages of 2 layers, 4 microbatches) at
+    bench_train.py's model and batch (4 x 4096, seed 0), 3 steps each: the
+    first loss within STEP_TOL of models.loss_fn's on the same params and
+    tokens, the SGD steps' params after step 1 within STEP_TOL (rel-L2 a
+    leaf) of sgd_train_step's, losses falling, the replicated params and
+    the losses bit-equal on both ranks. Every path's launches of the
+    forward, backward and 8-bit forward on each rank must equal what its
+    schedule predicts. Times are two ranks sharing one card over gloo,
+    not a multi-device speed. Returns the launches by path and rank."""
+    from flashattention_kernel_project_tpu_torch.utils.testing import run_ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(mesh_train_rank, MESH_WORLD, device.type, tmpdir=tmp,
+                          timeout=600.0)
+    wall = time.perf_counter() - t0
+    failures = []
+    for name in ranks[0]:
+        runs = [r[name] for r in ranks]
+        for rank, run in enumerate(runs):
+            want = _mesh_train_expected(name, rank)
+            got = {k: run["launches"].get(k, 0) for k in want}
+            if device.type == "cuda" and got != want:
+                failures.append(f"{name}: rank {rank} launched {got}, the "
+                                f"schedule predicts {want} (all: {run['launches']})")
+        if "err" in runs[0]:
+            errs = [run["err"] for run in runs]
+            if max(max(e) for e in errs) > RING_TOL:
+                failures.append(f"{name}: rel-L2 {errs} > {RING_TOL}")
+            what = "output" if len(errs[0]) == 1 else "output, dq, dk, dv"
+            ms = [round(run["ms"], 2) for run in runs]
+            log(f"mesh train {name}: {what} rel-L2 against the single-device "
+                f"kernel on the whole sequence, per rank "
+                f"{[[f'{x:.2e}' for x in e] for e in errs]} (<= {RING_TOL}) | "
+                f"launches per rank {[run['launches'] for run in runs]} | "
+                f"{ms} ms a call per rank, two ranks sharing one card over "
+                f"gloo [{label}]")
+            continue
+        losses = [run["losses"] for run in runs]
+        first = abs(losses[0][0] - runs[0]["ref_loss"]) / abs(runs[0]["ref_loss"])
+        if first > STEP_TOL:
+            failures.append(f"{name}: first loss {losses[0][0]} against "
+                            f"loss_fn's {runs[0]['ref_loss']} ({first:.2e})")
+        if not losses[0][-1] < losses[0][0]:
+            failures.append(f"{name}: losses {losses[0]} do not fall")
+        if runs[1]["digest"] != runs[0]["digest"]:
+            failures.append(f"{name}: the replicated params or losses differ "
+                            "between the ranks")
+        held = "n/a (AdamW)"
+        if runs[0]["params"] is not None:
+            dist_ = {f"{rank}:{k}": e for rank, run in enumerate(runs)
+                     for k, e in run["params"].items()}
+            bad = {k: e[0] for k, e in dist_.items() if e[0] > STEP_TOL}
+            if bad:
+                failures.append(f"{name}: params after step 1 off sgd_train_step"
+                                f"'s: {bad} > {STEP_TOL}")
+            worst = max(dist_.items(), key=lambda kv: kv[1][0])
+            upd = max(dist_.items(), key=lambda kv: kv[1][1])
+            held = (f"{worst[1][0]:.2e} ({worst[0]}); the update p1 - p0 "
+                    f"against the reference update, largest {upd[1][1]:.2e} "
+                    f"({upd[0]}), not gated")
+        step_ms = [run["step_ms"] for run in runs]
+        log(f"mesh train {name}: losses {losses[0]} (equal on both ranks, "
+            f"replicated params bit-equal), first against loss_fn "
+            f"{first:.2e} (<= {STEP_TOL}); params after step 1 against "
+            f"sgd_train_step, largest rel-L2 {held} | ms per step per rank "
+            f"{[[f'{x:.1f}' for x in m] for m in step_ms]}, two ranks sharing "
+            f"one card over gloo, not a multi-device speed; peak GiB per rank "
+            f"{[run['peak_gib'] and round(run['peak_gib'], 2) for run in runs]}"
+            f" | launches per rank {[run['launches'] for run in runs]} [{label}]")
+    log(f"mesh train phase: {wall:.1f} s (spawn, (a)-(d)) [{label}]")
+    if failures:
+        raise AssertionError("phase_mesh_train:\n" + "\n".join(failures))
+    return {name: [r[name]["launches"] for r in ranks] for name in ranks[0]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside chip_smoke.py: run it from a checkout "
@@ -8375,6 +8718,13 @@ def main() -> int:
     # seq_sharded_decode, each against the single-device path (kernels 1,
     # 3, 6, 7, 10, 11 and 12 at the per-rank shapes)
     phase_mesh(device, label)
+
+    # 15. training over a device mesh: two ranks spawned on the one card
+    # over gloo, ring attention (bf16, windowed, trainable, 8-bit) and
+    # Ulysses against the single-device kernels, then bench_train.py's model
+    # through the CP, TP, AdamW and pipeline steps (kernels 1, 1 (window),
+    # 1 (8-bit), 4 and 5 at the per-rank shapes)
+    phase_mesh_train(device, label)
 
     print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend, dec_q,
                                   paged_q, ragged_q, extend_q, win_fwd, win_dec,

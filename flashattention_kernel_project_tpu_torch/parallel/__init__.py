@@ -1,14 +1,18 @@
-"""Serving over a device mesh on torch.distributed: the mesh, the
-head- and sequence-sharded attention and decode (mesh.py), and the
-tensor- and sequence-parallel serving engine (tp_engine.py), under the JAX
-package's names. Every rank runs the same calls on its own shards; see
-mesh.py. Ring attention, Ulysses, the TP and CP training steps and the
-pipeline (JAX's ring_attention.py, ulysses.py, train.py, pipeline.py) are
-not ported yet (ROADMAP A.9)."""
+"""Multi-device serving and training on torch.distributed, under the JAX
+package's names: the mesh, the head- and sequence-sharded attention and
+decode (mesh.py), the tensor- and sequence-parallel serving engine
+(tp_engine.py), ring attention, plain, 8-bit and trainable
+(ring_attention.py), Ulysses (ulysses.py), the DP x TP, context-parallel
+and optimizer-driven training steps (train.py) and the GPipe pipeline
+(pipeline.py). Every rank runs the same calls on its own shards; see
+mesh.py. Expert parallelism is not ported yet (ROADMAP A.9)."""
 
 from flashattention_kernel_project_tpu_torch.parallel import (  # noqa: F401
     mesh,
+    pipeline,
     tp_engine,
+    train,
+    ulysses,
 )
 from flashattention_kernel_project_tpu_torch.parallel.mesh import (  # noqa: F401
     axis_group,
@@ -21,6 +25,17 @@ from flashattention_kernel_project_tpu_torch.parallel.mesh import (  # noqa: F40
     seq_sharded_decode,
     shard_params,
 )
+from flashattention_kernel_project_tpu_torch.parallel.pipeline import (  # noqa: F401
+    make_pp_train_step,
+    pp_loss_fn,
+    pp_param_specs,
+)
+from flashattention_kernel_project_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    merge_normalized,
+    ring_attention,
+    ring_attention_kv_quant,
+    ring_attention_trainable,
+)
 from flashattention_kernel_project_tpu_torch.parallel.tp_engine import (  # noqa: F401
     cache_specs,
     init_sp_cache,
@@ -30,4 +45,12 @@ from flashattention_kernel_project_tpu_torch.parallel.tp_engine import (  # noqa
     make_sp_decode_step,
     make_tp_engine,
     make_tp_paged_decode,
+)
+from flashattention_kernel_project_tpu_torch.parallel.train import (  # noqa: F401
+    make_cp_train_step,
+    make_optax_train_step,
+    make_train_step,
+)
+from flashattention_kernel_project_tpu_torch.parallel.ulysses import (  # noqa: F401
+    ulysses_attention,
 )

@@ -123,10 +123,88 @@ def shard_params(params, mesh, rules):
     """This rank's slice of every leaf of `params`, by the matching tree of
     specs `rules` (models.param_shardings): the counterpart of JAX's
     device_put with a NamedSharding. A leaf whose spec is None or P() stays
-    whole."""
+    whole. A dict whose keys differ from its rules' raises ValueError, as
+    JAX's tree map does."""
     if isinstance(params, dict):
+        if not isinstance(rules, dict) or set(params) != set(rules):
+            raise ValueError(f"dict key mismatch: specs for "
+                             f"{sorted(rules) if isinstance(rules, dict) else rules},"
+                             f" params {sorted(params)}")
         return {k: shard_params(v, mesh, rules[k]) for k, v in params.items()}
     return params if not rules else shard(params, mesh, rules)
+
+
+def _staged(x: torch.Tensor, group):
+    """x as a point-to-point or all-to-all op on `group` takes it, and the
+    function that brings what the op gives back to x's device. gloo's
+    send, recv and all-to-all read host memory, so under gloo a CUDA
+    tensor goes through a host copy (as gloo's own all-reduce and
+    all-gather stage CUDA tensors); under NCCL device tensors pass
+    straight through. Only the transfer is staged: the kernels still run
+    on the card."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.cpu(), lambda y: y.to(x.device)
+    return x, lambda y: y
+
+
+def _pack(tensors) -> torch.Tensor:
+    """The tensors' bytes end to end, one uint8 tensor: one message."""
+    return torch.cat([t.contiguous().view(torch.uint8).reshape(-1)
+                      for t in tensors])
+
+
+def _unpack(buf: torch.Tensor, like) -> list[torch.Tensor]:
+    """_pack's inverse: tensors shaped and typed as `like`, each a copy of
+    its own (so aligned as a fresh allocation, as the kernels need)."""
+    out, at = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(buf[at:at + n].clone().view(t.dtype).view(t.shape))
+        at += n
+    return out
+
+
+def exchange(send, dst: int | None, recv_like, src: int | None, group):
+    """One batch_isend_irecv on `group`: the tensors `send` (a list, or
+    None) to the group rank `dst`, and tensors shaped and typed as
+    `recv_like` (a list, or None) from the group rank `src`, each list one
+    message. Returns the received tensors on recv_like's device, or None.
+    Every rank of a send or receive must make the matching call, in the
+    same order."""
+    ops, buf, back = [], None, None
+    if send:
+        out, _ = _staged(_pack(send), group)
+        ops.append(dist.P2POp(dist.isend, out, dist.get_global_rank(group, dst),
+                              group))
+    if recv_like:
+        want = torch.empty(sum(t.numel() * t.element_size() for t in recv_like),
+                           dtype=torch.uint8, device=recv_like[0].device)
+        buf, back = _staged(want, group)
+        ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, src),
+                              group))
+    for work in dist.batch_isend_irecv(ops) if ops else []:
+        work.wait()
+    return None if buf is None else _unpack(back(buf), recv_like)
+
+
+def ring_shift(tensors, group) -> list[torch.Tensor]:
+    """JAX's ppermute with perm [(i, i + 1 mod n)] on `group`: each rank's
+    `tensors` go to the next rank, and the previous rank's come back, in
+    one call (sends and receives posted together, so no rank waits on a
+    send before its receive). Every rank's tensors have the same shapes."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    return exchange(tensors, (me + 1) % n, tensors, (me - 1) % n, group)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """dist.all_to_all_single on `group`: x's leading dimension cut into
+    one equal block a rank, block j sent to rank j; the blocks received,
+    in rank order, in the same shape."""
+    out, back = _staged(x.contiguous(), group)
+    got = torch.empty_like(out)
+    dist.all_to_all_single(got, out, group=group)
+    return back(got)
 
 
 def _batch_spec(mesh, data_axis):

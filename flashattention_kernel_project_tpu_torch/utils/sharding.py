@@ -21,5 +21,9 @@ class P(tuple):
                 raise TypeError(f"a spec entry is an axis name or None, got {a!r}")
         return super().__new__(cls, axes)
 
+    def __reduce__(self):
+        # pickle rebuilds it from its entries (a spawned rank's specs)
+        return type(self), tuple(self)
+
     def __repr__(self) -> str:
         return "P(" + ", ".join(map(repr, self)) + ")"

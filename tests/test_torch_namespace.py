@@ -12,16 +12,7 @@ import pytest
 # launch counters stay one attribute away (ops.flash_attention._fwd, ...);
 # the function is the module's attribute of the same name
 MODULE_SHADOWS = {"ops": ["flash_attention", "flash_decode", "softmax"]}
-# multi-device (ROADMAP A.9), by the step that ports them: the ring
-# attention, Ulysses, the TP and CP training steps, the pipeline, and the
-# expert-parallel MoE (the JAX `parallel` modules of the first four are
-# absent too)
-RING = ["ring_attention", "ring_attention_kv_quant", "ring_attention_trainable",
-        "merge_normalized"]
-ULYSSES = ["ulysses", "ulysses_attention"]
-TRAIN_STEPS = ["train", "make_train_step", "make_cp_train_step",
-               "make_optax_train_step"]
-PIPELINE = ["pipeline", "make_pp_train_step", "pp_loss_fn", "pp_param_specs"]
+# multi-device (ROADMAP A.9): the expert-parallel MoE, its last step
 EXPERT_PARALLEL = ["moe_param_shardings", "make_ep_moe"]
 # the benchmark harness (ROADMAP A.5)
 BENCHMARKING = ["BenchResult", "benchmark", "benchmark_chained", "benchmarking"]
@@ -30,7 +21,7 @@ BENCHMARKING = ["BenchResult", "benchmark", "benchmark_chained", "benchmarking"]
 TPU_ONLY = ["default_interpret", "has_tpu", "tpu_peak_flops", "tpu_hbm_bandwidth"]
 ABSENT = {"": [], "ops": [], "models": EXPERT_PARALLEL,
           "utils": BENCHMARKING + TPU_ONLY,
-          "parallel": RING + ULYSSES + TRAIN_STEPS + PIPELINE}
+          "parallel": []}
 
 
 def _public(module):
