@@ -199,7 +199,7 @@ width, with random weights from a seed:
     logits against the single-device engine's; seq_sharded_decode at B 8,
     16/4 heads, S 8192, d 128 against flash_decode. Its times are two
     ranks sharing one card over gloo, not a multi-device speed;
-  - training over a device mesh (phase_mesh_train, last), two ranks the
+  - training over a device mesh (phase_mesh_train), two ranks the
     same way: ring attention (causal, windowed, trainable) and Ulysses at
     1 x 16/4 x 8192 x 128 and the 8-bit ring at BASELINE config 5's
     shape against the single-device kernels (outputs and gradients), then
@@ -207,7 +207,18 @@ width, with random weights from a seed:
     pipeline steps, 3 steps each: the first loss against loss_fn, the SGD
     steps' params against sgd_train_step's, losses falling, replicated
     params bit-equal on both ranks, each path's launches as its schedule
-    predicts.
+    predicts;
+  - expert parallelism and sharded checkpoints over a device mesh
+    (phase_mesh_moe, last), two ranks the same way, on bench_train.py
+    --moe-experts 8's model: make_ep_moe on 4 x 4096 hidden states
+    against moe_ffn (output and gradients); the TP SGD and AdamW steps'
+    MoE branch (data 1 x model 2, remat), 3 steps each, held as the dense
+    ones are, the AdamW run saved as a sharded checkpoint
+    (torch.distributed.checkpoint) before its last step, restored into the
+    mesh to retake it bit for bit and onto one device equal to the ranks'
+    shards; Scheduler(seq_mesh=) over the model (bf16, int8), 8 requests x
+    64 tokens, against the same Scheduler on one rank by the near-tie
+    audit, and the SP decode logits against the single-device engine's.
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -8363,6 +8374,609 @@ def phase_mesh_train(device, label):
     return {name: [r[name]["launches"] for r in ranks] for name in ranks[0]}
 
 
+# ---------------------------------------------------------------------------
+# Expert parallelism and sharded checkpoints over a device mesh: phase_moe's
+# model on two ranks of the one card over gloo, as phase_mesh. Every time
+# here is two ranks sharing one card over gloo, not a multi-device speed.
+# ---------------------------------------------------------------------------
+
+EP_TOL = 1e-5  # make_ep_moe against moe_ffn on one device (tests/test_moe.py:96)
+
+
+class StepPin(RoutePin):
+    """RoutePin's rule for one decode step of two paths: the reference
+    takes, at each layer, the experts the other path's step chose (`calls`,
+    moe_choices' record of it), and each pin must be a near-tie."""
+
+    def __init__(self, cfg, calls):
+        self.k, self.n_prompt, self.flips, self.eps = cfg.moe_top_k, 0, [], 0.0
+        self.want = [(lp[None], ch[None]) for lp, ch in calls]
+
+
+def _route_margin(logp, k: int) -> float:
+    """The k-th minus the (k+1)-th router log-probability of a token."""
+    top = logp.topk(k + 1).values
+    return float(top[k - 1] - top[k])
+
+
+def trace_picks(sched, calls, cfg) -> dict:
+    """Wrap a Scheduler's _pick: for each token it picks, by request uid in
+    order, (the top1 - top2 margin of the logits it picked from, the
+    smallest top-k router margin over the layers of the decode step that
+    made them, for the token's own slot; None for a first token, which a
+    prefill makes). `calls` is moe_choices' record, which the decode step's
+    layers extend before the pick. Returns the dict it fills."""
+    orig, by_uid, n = sched._pick, {}, cfg.n_layers
+
+    def pick(logits, temps=None):
+        top = logits.float().topk(2, dim=-1).values
+        gaps = (top[:, 0] - top[:, 1]).tolist()
+        if temps is not None:  # a first token: the request being inserted
+            req = next(r for r in sched.slots if r is not None and not r.generated)
+            by_uid.setdefault(req.uid, []).append((gaps[0], None))
+        else:
+            step = calls[-n:]
+            for i, req in enumerate(sched.slots):
+                if req is not None:
+                    route = min(_route_margin(lp[i], cfg.moe_top_k) for lp, _ in step)
+                    by_uid.setdefault(req.uid, []).append((gaps[i], route))
+        return orig(logits, temps)
+
+    sched._pick = pick
+    return by_uid
+
+
+def moe_tie_bounds(cfg, params, prefix, quantized=False):
+    """NearTie's bounds for an MoE model: eps, the largest logit difference
+    between a fresh prefill of `prefix` and a prefill of all but its last
+    token plus one decode step (over an int8 cache when `quantized`), and
+    eps_route, the largest router log-probability difference of the last
+    token between the two where they choose the same experts, both at
+    capacity factor E / top_k, where neither path drops a token (a prefill
+    drops by capacity, a decode step of 8 slots never does). Returns
+    (eps, max(8 eps, 1e-3), eps_route, max(8 eps_route, 1e-3))."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import engine
+
+    cfg = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    device = params["embed"].device
+    tokens = torch.as_tensor(np.asarray(prefix, np.int32)[None], device=device)
+    with moe_choices() as fresh:
+        cache = engine.init_cache(cfg, 1, len(prefix) + 1, device)
+        full, _ = engine.prefill(cfg, params, tokens, cache)
+    cache = engine.init_cache(cfg, 1, len(prefix) + 1, device,
+                              quantized=quantized)
+    engine.prefill(cfg, params, tokens[:, :-1], cache)
+    with moe_choices() as step_calls:
+        step, _ = engine.decode_step(cfg, params, tokens[0, -1:], cache)
+    eps = float((full - step).abs().max())
+    eps_route = 0.0
+    for (lp_a, ch_a), (lp_b, ch_b) in zip(fresh, step_calls):
+        if torch.equal(ch_a[-1].sort().values, ch_b[0].sort().values):
+            eps_route = max(eps_route, float((lp_a[-1] - lp_b[0]).abs().max()))
+    return eps, max(8.0 * eps, 1e-3), eps_route, max(8.0 * eps_route, 1e-3)
+
+
+def moe_audit(streams, refs, margins, bound, route_bound, what):
+    """The near-tie audit for an MoE model's token streams against a
+    reference's: at each first divergence the reference's own top1 - top2
+    logit margin must be within `bound` (moe_tie_bounds), or a router
+    margin of the request's
+    decode steps so far within `route_bound` (RoutePin's rule: top-k routing
+    is discontinuous, and a near-tied choice that flips moves a token's
+    output past any rounding). Returns (windows, [(logit margin, smallest
+    router margin)] at the divergences); raises past both bounds."""
+    windows, sites, bad = [], [], []
+    for got, want, marg in zip(streams, refs, margins):
+        diff = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+        windows.append(diff[0] if diff else len(want))
+        if not diff:
+            continue
+        t = diff[0]
+        routes = [r for _, r in marg[:t + 1] if r is not None]
+        site = (marg[t][0], min(routes) if routes else None)
+        sites.append(site)
+        if not (site[0] <= bound or (site[1] is not None and site[1] <= route_bound)):
+            bad.append((t, site))
+    if bad:
+        raise AssertionError(
+            f"{what}: divergence at a site that is not a near-tie: (position, "
+            f"(logit margin, router margin)) {bad}, bounds {bound:.2e} and "
+            f"{route_bound:.2e}")
+    return windows, sites
+
+
+def _rank_block(x, spec, axes: dict, rank: int):
+    """The block of the whole tensor x that `rank` holds under `spec` on a
+    row-major mesh of `axes` (parallel.mesh.shard's cut, without a mesh)."""
+    coords = dict(zip(axes, np.unravel_index(rank, tuple(axes.values()))))
+    for dim, axis in enumerate(spec or ()):
+        if axis in axes:
+            size = x.shape[dim] // axes[axis]
+            x = x.narrow(dim, int(coords[axis]) * size, size)
+    return x
+
+
+MESH_MOE_TP = {"data": 1, "model": MESH_WORLD}
+
+
+def mesh_moe_rank(rank, world, device_type, prompts, max_new, ckpt):
+    """One rank of phase_mesh_moe, on the card beside the other, each path
+    with every launch counter at 0 just before it: (a) make_ep_moe over
+    {"expert": world} on TRAIN_BATCH x TRAIN_SEQ hidden states, forward and
+    the backward of mean(y^2), against moe_ffn on one device; (b)
+    make_train_step and make_optax_train_step (AdamW) on the MoE decoder
+    over data 1 x model `world` with remat, MESH_TRAIN_STEPS steps each,
+    against loss_fn and sgd_train_step, the AdamW run checkpointed after
+    step 2 into `ckpt` (DTensors through torch.distributed.checkpoint),
+    restored into the mesh and its step 3 taken again; (c)
+    Scheduler(seq_mesh=) over the model with bf16 and int8 caches, and
+    (rank 0) the same Scheduler on a one-rank mesh, the single-device
+    reference; the SP engine's decode logits against the single-device
+    engine's on the same slots, routed alike where near-tied (StepPin).
+    Returns, by path, the errors, launches, times and digests."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from flashattention_kernel_project_tpu_torch import models, parallel
+    from flashattention_kernel_project_tpu_torch.models import checkpoint as ck
+    from flashattention_kernel_project_tpu_torch.models import engine, moe
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+    from flashattention_kernel_project_tpu_torch.models.serving import Scheduler
+    from flashattention_kernel_project_tpu_torch.parallel.mesh import shard
+    from flashattention_kernel_project_tpu_torch.utils.sharding import P
+
+    device = torch.device(device_type, 0 if device_type == "cuda" else None)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False  # routing reads near-ties
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        """fn() with the counters at 0 just before: (result, launches, ms)."""
+        sync()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return res, {k: n for k, n in read_counters().items() if n}, ms
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated() / 2**30
+                if device.type == "cuda" else None)
+
+    def reset_peak():
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    cfg = tfm.TransformerConfig(**MOE_TRAIN, dtype=torch.bfloat16)
+    params = tfm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    out = {}
+
+    # (a) make_ep_moe on layer 0's experts, against moe_ffn on one device
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                         num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                         capacity_factor=cfg.moe_capacity_factor)
+    layer = tfm.layer_params(params, 0)
+    whole = {"w_gate": layer["moe_router"], "w1": layer["moe_w1"].float(),
+             "w2": layer["moe_w2"].float()}
+    gen = torch.Generator(device=device).manual_seed(23)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=device)
+    ref = {k: w.clone().requires_grad_() for k, w in whole.items()}
+    xr = x.clone().requires_grad_()
+    y = moe.moe_ffn(ref, xr, mcfg)
+    (y * y).mean().backward()
+    emesh = parallel.make_mesh({"expert": world}, device_type=device.type)
+    especs = models.moe_param_shardings(mcfg)
+    mine = {k: w.clone().requires_grad_()
+            for k, w in parallel.shard_params(whole, emesh, especs).items()}
+    xe = x.clone().requires_grad_()
+    fn = models.make_ep_moe(emesh, mcfg)
+    reset_peak()
+
+    def ep():
+        ye = fn(mine, xe)
+        (ye * ye).mean().backward()
+        return ye.detach()
+
+    ye, launches, ms = counted(ep)
+    err = {"output": _rel_l2(ye, y.detach())}
+    err.update({k: _rel_l2(w.grad, shard(ref[k].grad, emesh, especs[k]))
+                for k, w in mine.items()})
+    err["x"] = _rel_l2(xe.grad, xr.grad)
+    out["ep"] = dict(err=err, ms=ms, peak_gib=peak_gib(), launches=launches,
+                     digest=_digest([ye]),
+                     replicated=_digest([mine["w_gate"].grad, xe.grad]),
+                     e_local=mine["w1"].shape[0])
+    del ref, xr, y, mine, xe, ye, x, whole, fn
+
+    # (b) the TP steps' MoE branch at bench_train.py's batch
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(device)
+    ref_params, ref_loss = models.sgd_train_step(cfg, params, tokens, lr=TRAIN_LR)
+    ref_loss = float(ref_loss)
+    tp = parallel.make_mesh(MESH_MOE_TP, device_type=device.type)
+    toks = shard(tokens, tp, P("data", None))
+    replicated = ("embed", "rms_final", "layers.rms_attn", "layers.rms_mlp",
+                  "layers.moe_router")
+
+    step, rules = parallel.make_train_step(cfg, tp, lr=TRAIN_LR, remat=True)
+    p = parallel.shard_params(params, tp, rules)
+    losses, step_ms, first = [], [], None
+    reset_peak()
+
+    def sgd():
+        nonlocal p, first
+        for i in range(MESH_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            p, loss = step(p, toks)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            if i == 0:
+                want = tfm._leaves(parallel.shard_params(ref_params, tp, rules))
+                first = {k: _rel_l2(x_, want[k])
+                         for k, x_ in tfm._leaves(p).items()}
+
+    _, launches, _ = counted(sgd)
+    leaves = tfm._leaves(p)
+    out["tp step"] = dict(
+        losses=losses, ref_loss=ref_loss, step_ms=step_ms, params=first,
+        launches=launches, peak_gib=peak_gib(),
+        digest=_digest([leaves[k] for k in replicated] + [torch.tensor(losses)]))
+    del p, leaves, ref_params, step
+
+    init, ostep, rules, sspecs = parallel.make_optax_train_step(
+        cfg, tp, functools.partial(torch.optim.AdamW, **MESH_ADAMW), params,
+        clip_norm=MESH_CLIP, remat=True)
+    p = parallel.shard_params(params, tp, rules)
+    s = init(p)
+    losses, step_ms, io = [], [], {}
+    reset_peak()
+
+    def adamw():
+        nonlocal p, s
+        for i in range(MESH_TRAIN_STEPS):
+            if i == MESH_TRAIN_STEPS - 1:
+                # a sharded checkpoint of the state before the last step
+                sync()
+                t0 = time.perf_counter()
+                ck.save_checkpoint(
+                    ckpt, ck.to_dtensors(p, tp, rules), step=i,
+                    opt_state=ck.to_dtensors(s, tp, ck.optimizer_specs(s, sspecs)),
+                    config=cfg)
+                io["save_s"] = time.perf_counter() - t0
+                # the step updates the optimizer's state in place: digest
+                # the saved shards now
+                io["saved"] = dict(
+                    params={k: _digest([x_]) for k, x_ in tfm._leaves(p).items()},
+                    state={i_: {n: _digest([v]) for n, v in e.items()}
+                           for i_, e in s["state"].items()})
+                saved_p, saved_s = p, s
+            sync()
+            t0 = time.perf_counter()
+            p, s, loss = ostep(p, s, toks)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        sync()
+        t0 = time.perf_counter()
+        got = ck.restore_checkpoint(
+            ckpt, params_template=ck.to_dtensors(saved_p, tp, rules),
+            opt_state_template=ck.to_dtensors(
+                saved_s, tp, ck.optimizer_specs(saved_s, sspecs)))
+        sync()
+        io["restore_s"] = time.perf_counter() - t0
+        p3, _, loss3 = ostep(ck.from_dtensors(got["params"]),
+                             ck.from_dtensors(got["opt_state"]), toks)
+        leaves = tfm._leaves(p)
+        io["resumed"] = (float(loss3) == losses[-1] and _digest(
+            list(tfm._leaves(p3).values())) == _digest(list(leaves.values())))
+        io["step"] = got["step"]
+
+    _, launches, _ = counted(adamw)
+    leaves = tfm._leaves(p)
+    out["adamw step"] = dict(
+        losses=losses, ref_loss=ref_loss, step_ms=step_ms, params=None,
+        launches=launches, peak_gib=peak_gib(), sspecs=sspecs, **io,
+        digest=_digest([leaves[k] for k in replicated] + [torch.tensor(losses)]))
+    del p, s, leaves, ostep, init
+    reset_peak()
+
+    # (c) Scheduler(seq_mesh=) over the MoE model; rank 0 also serves the
+    # same requests on a one-rank mesh (every rank makes every group)
+    sp = parallel.make_mesh({"sp": world}, device_type=device.type)
+    solo = [dist.new_group([r], backend=dist.get_backend()) for r in range(world)]
+    one = DeviceMesh.from_group(solo[rank], device.type, mesh_dim_names=("sp",))
+    for quantized in (False, True):
+        kw = dict(max_batch=8, max_len=2048, quantized_cache=quantized)
+        warm = Scheduler(cfg, params, seq_mesh=sp, **kw)
+        warm.submit(prompts[0][:8], max_new_tokens=4)
+        warm.run()
+        del warm
+        sched = Scheduler(cfg, params, seq_mesh=sp, **kw)
+
+        def serve(sched=sched):
+            uids = [sched.submit(p_, max_new_tokens=max_new) for p_ in prompts]
+            res = sched.run()
+            return [res[u] for u in uids]
+
+        tokens_sp, launches, ms = counted(serve)
+        name = f"sp ({'int8' if quantized else 'bf16'})"
+        out[name] = dict(tokens=tokens_sp, launches=launches, wall=ms / 1e3,
+                         cache_rows=sched.cache.k[0].shape[2], ref=None)
+        del sched
+        if rank == 0:
+            sched = Scheduler(cfg, params, seq_mesh=one, **kw)
+            with moe_choices() as calls:
+                margins = trace_picks(sched, calls, cfg)
+                uids = [sched.submit(p_, max_new_tokens=max_new) for p_ in prompts]
+                res = sched.run()
+            out[name]["ref"] = [res[u] for u in uids]
+            out[name]["margins"] = [margins[u] for u in uids]
+            del sched, calls
+
+        # the SP engine's decode logits against the single-device engine's
+        # (split parameters) on the same prefilled slots, the reference
+        # routed as the SP step where they differ (each a near-tie)
+        gen = torch.Generator(device=device).manual_seed(11)
+        prompt = torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
+                               device=device, dtype=torch.int32)
+        full = engine.init_cache(cfg, 8, 256, device, quantized=quantized)
+        ref_pre, full = engine.prefill(cfg, params, prompt, full)
+        nxt = ref_pre.argmax(-1).to(torch.int32)
+        spec = parallel.tp_engine.sp_cache_specs(cfg.n_layers, quantized=quantized)
+        scache = parallel.init_sp_cache(cfg, sp, 8, 256, quantized=quantized)
+        pairs = [(scache.k + scache.v, full.k + full.v, spec.k + spec.v)]
+        if quantized:
+            pairs.append((scache.k_scale + scache.v_scale,
+                          full.k_scale + full.v_scale, spec.k_scale + spec.v_scale))
+        for dsts, srcs, specs in pairs:
+            for dst, src, sp_ in zip(dsts, srcs, specs):
+                dst.copy_(shard(src, sp, sp_))
+        scache.lengths.copy_(full.lengths)
+        with moe_choices() as calls:
+            sp_dec, _ = parallel.make_sp_decode_step(cfg, sp)(params, nxt, scache)
+        pin = StepPin(cfg, calls)
+        with moe_choices(pin):
+            ref_dec, _ = engine.decode_step(cfg, params, nxt, full)
+        pin.audit(f"mesh MoE SP decode step ({name})")
+        out[name]["logits"] = dict(
+            rel_l2=_rel_l2(sp_dec, ref_dec), flips=pin.flips,
+            max_abs=float((sp_dec - ref_dec).abs().max()))
+        del full, scache, calls
+    return out
+
+
+def _mesh_moe_expected(name):
+    """The forwards and backwards the TP steps launch on each rank: one of
+    each a layer a step, the forward again in the backward (remat); the
+    AdamW path takes its last step twice (from the checkpoint)."""
+    steps = MESH_TRAIN_STEPS + (name == "adamw step")
+    n = steps * MOE_TRAIN["n_layers"]
+    return {"flash_fwd": 2 * n, "flash_bwd": n, "flash_bwd/split": n}
+
+
+def phase_mesh_moe(device, label):
+    """Expert parallelism and sharded checkpoints with two ranks on the one
+    card (spawned, one process each, gloo, as phase_mesh): bench_train.py
+    --moe-experts 8's model (MOE_TRAIN, bf16, seed 0, TF32 off) through
+    (a) make_ep_moe over {"expert": 2} on 4 x 4096 hidden states, forward
+    and backward, against moe_ffn on one device (output and every gradient
+    within EP_TOL rel-L2, the outputs bit-equal on both ranks); (b)
+    make_train_step and make_optax_train_step (AdamW, clip MESH_CLIP) over
+    data 1 x model 2 with remat at bench_train.py's batch, 3 steps each:
+    the first loss within STEP_TOL of loss_fn's, the SGD params after step
+    1 within STEP_TOL of sgd_train_step's, losses falling, the replicated
+    params and the losses bit-equal on both ranks, the launches of the
+    forward and both backward kernels as the schedule predicts; the AdamW
+    run saved as a sharded checkpoint before step 3, restored into the mesh
+    and its step 3 taken again bit for bit, and the checkpoint restored
+    onto one device in this process equal, bit for bit, to the ranks'
+    shards put together; (c) Scheduler(seq_mesh=) over the model, 8
+    serving requests x 64 tokens, max_len 2048 (1024-row shards), bf16 and
+    int8 caches: the tokens equal on both ranks, every first divergence
+    from the same Scheduler on one rank passing the MoE near-tie audit
+    (`moe_audit`: the reference's own logit margin there within 8 eps, or
+    a router margin of the request's steps within 8 eps_route, both from
+    `moe_tie_bounds`), the SP decode logits within LOGITS_TOL of the
+    single-device engine's, rows 1 and 6 / 7 launched on every rank. Times are two ranks sharing one card
+    over gloo, not a multi-device speed. Returns the launches by path and
+    rank."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.models import checkpoint as ck
+    from flashattention_kernel_project_tpu_torch.models import transformer as tfm
+    from flashattention_kernel_project_tpu_torch.utils.testing import run_ranks
+
+    t0 = time.perf_counter()
+    cfg = tfm.TransformerConfig(**MOE_TRAIN, dtype=torch.bfloat16)
+    prompts = serving_prompts(cfg, MESH_REQUESTS)
+    max_new = 64
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        ranks = run_ranks(mesh_moe_rank, MESH_WORLD, device.type, prompts,
+                          max_new, ckpt, tmpdir=tmp, timeout=900.0)
+        t1 = time.perf_counter()
+        # the sharded checkpoint restored onto one device
+        params = tfm.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device)
+        leaves = tfm._leaves(params)
+        template = tfm._unflatten({k: torch.zeros_like(v) for k, v in leaves.items()})
+        # AdamW's state of parameter i (its leaf in order), param_groups
+        # left out: a template may ask for part of a sharded item
+        opt_template = {"state": {
+            i: {"step": torch.zeros(()), "exp_avg": torch.zeros_like(v),
+                "exp_avg_sq": torch.zeros_like(v)}
+            for i, v in enumerate(leaves.values())}}
+        del params, leaves
+        t2 = time.perf_counter()
+        got = ck.restore_checkpoint(ckpt, params_template=template,
+                                    opt_state_template=opt_template)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        one_s = time.perf_counter() - t2
+        del template, opt_template
+    whole = tfm._leaves(got["params"])
+    state = got["opt_state"]["state"]
+    specs = tfm._leaves(tfm.param_shardings(cfg))
+    sspecs = ranks[0]["adamw step"]["sspecs"]
+    for rank, r in enumerate(ranks):
+        saved = r["adamw step"]["saved"]
+        bad = [k for k, d in saved["params"].items()
+               if _digest([_rank_block(whole[k], specs[k], MESH_MOE_TP, rank)]) != d]
+        bad += [f"state {i}.{n}" for i, e in saved["state"].items()
+                for n, d in e.items()
+                if _digest([_rank_block(state[i][n], sspecs[i]
+                                        if state[i][n].dim() else None,
+                                        MESH_MOE_TP, rank)]) != d]
+        if bad:
+            failures.append(f"checkpoint on one device: rank {rank}'s shards "
+                            f"differ in {bad}")
+    del got, whole, state
+    log(f"mesh MoE checkpoint: saved before AdamW step {ranks[0]['adamw step']['step'] + 1} "
+        f"as DTensors through torch.distributed.checkpoint in "
+        f"{[round(r['adamw step']['save_s'], 2) for r in ranks]} s a rank, "
+        f"restored into the mesh in "
+        f"{[round(r['adamw step']['restore_s'], 2) for r in ranks]} s, the "
+        f"step taken again bit-equal {[r['adamw step']['resumed'] for r in ranks]}"
+        f"; restored onto one device here in {one_s:.2f} s, equal bit for "
+        f"bit to both ranks' shards put together: {not failures} (warm "
+        f"file cache; two ranks sharing one card over gloo) [{label}]")
+    if not all(r["adamw step"]["resumed"] for r in ranks):
+        failures.append("checkpoint: the resumed step differs from the "
+                        "uninterrupted one")
+
+    # (a)
+    eps = [r["ep"] for r in ranks]
+    for rank, e in enumerate(eps):
+        big = {k: v for k, v in e["err"].items() if not v <= EP_TOL}
+        if big:
+            failures.append(f"make_ep_moe: rank {rank} rel-L2 {big} > {EP_TOL}")
+    if eps[1]["digest"] != eps[0]["digest"]:
+        failures.append("make_ep_moe: the ranks' outputs differ")
+    log(f"mesh MoE make_ep_moe: {TRAIN_BATCH} x {TRAIN_SEQ} tokens of d_model "
+        f"{cfg.d_model}, {cfg.moe_experts} experts over 2 ranks ({eps[0]['e_local']} "
+        f"a rank), sort dispatch (auto); against moe_ffn on one device, "
+        f"rel-L2 per rank (output and the gradients of mean(y^2)) "
+        f"{[{k: f'{v:.2e}' for k, v in e['err'].items()} for e in eps]} (<= "
+        f"{EP_TOL}); outputs bit-equal on both ranks, w_gate's and x's "
+        f"gradients bit-equal {eps[0]['replicated'] == eps[1]['replicated']} "
+        f"| forward + backward {[round(e['ms'], 2) for e in eps]} ms per rank"
+        f", peak GiB {[e['peak_gib'] and round(e['peak_gib'], 2) for e in eps]}"
+        f", two ranks sharing one card over gloo [{label}]")
+
+    # (b)
+    launches = {}
+    for name in ("tp step", "adamw step"):
+        runs = [r[name] for r in ranks]
+        want = _mesh_moe_expected(name)
+        for rank, run in enumerate(runs):
+            have = {k: run["launches"].get(k, 0) for k in want}
+            if device.type == "cuda" and have != want:
+                failures.append(f"{name}: rank {rank} launched {have}, the "
+                                f"schedule predicts {want} (all: {run['launches']})")
+        losses = runs[0]["losses"]
+        first = abs(losses[0] - runs[0]["ref_loss"]) / abs(runs[0]["ref_loss"])
+        if first > STEP_TOL:
+            failures.append(f"{name}: first loss {losses[0]} against loss_fn's "
+                            f"{runs[0]['ref_loss']} ({first:.2e})")
+        if not losses[-1] < losses[0]:
+            failures.append(f"{name}: losses {losses} do not fall")
+        if runs[1]["digest"] != runs[0]["digest"]:
+            failures.append(f"{name}: the replicated params or losses differ "
+                            "between the ranks")
+        held = "n/a (AdamW)"
+        if runs[0]["params"] is not None:
+            errs = {f"{rank}:{k}": e for rank, run in enumerate(runs)
+                    for k, e in run["params"].items()}
+            bad = {k: e for k, e in errs.items() if e > STEP_TOL}
+            if bad:
+                failures.append(f"{name}: params after step 1 off "
+                                f"sgd_train_step's: {bad} > {STEP_TOL}")
+            worst = max(errs.items(), key=lambda kv: kv[1])
+            held = f"{worst[1]:.2e} ({worst[0]})"
+        launches[name] = [run["launches"] for run in runs]
+        log(f"mesh MoE {name} (data 1 x model 2, {cfg.moe_experts // 2} experts "
+            f"a rank, dense dispatch, remat): losses {losses} (equal on both "
+            f"ranks, replicated params bit-equal), first against loss_fn "
+            f"{first:.2e} (<= {STEP_TOL}); params after step 1 against "
+            f"sgd_train_step, largest rel-L2 {held} | ms per step per rank "
+            f"{[[f'{x:.1f}' for x in run['step_ms']] for run in runs]}, two "
+            f"ranks sharing one card over gloo, not a multi-device speed; "
+            f"peak GiB per rank "
+            f"{[run['peak_gib'] and round(run['peak_gib'], 2) for run in runs]}"
+            f" | launches per rank {launches[name]} [{label}]")
+
+    # (c)
+    params = tfm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    for name, kernel in (("sp (bf16)", "flash_decode"), ("sp (int8)", "flash_decode_q")):
+        runs = [r[name] for r in ranks]
+        if runs[1]["tokens"] != runs[0]["tokens"]:
+            failures.append(f"mesh MoE {name}: the two ranks' tokens differ")
+        for rank, run in enumerate(runs):
+            missing = [k for k in ("flash_fwd", kernel) if not run["launches"].get(k)]
+            if device.type == "cuda" and missing:
+                failures.append(f"mesh MoE {name}: rank {rank} never launched "
+                                f"{missing}: {run['launches']}")
+            if len(run["tokens"]) != len(prompts) or any(
+                    len(t_) != max_new for t_ in run["tokens"]):
+                failures.append(f"mesh MoE {name}: rank {rank} returned short "
+                                "streams")
+        lg = runs[0]["logits"]
+        if max(run["logits"]["rel_l2"] for run in runs) > LOGITS_TOL:
+            failures.append(f"mesh MoE {name}: SP decode logits off the "
+                            f"single-device engine's: "
+                            f"{[run['logits']['rel_l2'] for run in runs]} > {LOGITS_TOL}")
+        ref = runs[0]["ref"]
+        eps, bound, eps_route, route_bound = moe_tie_bounds(
+            cfg, params, list(prompts[0]) + ref[0][:1], quantized="int8" in name)
+        windows, sites = moe_audit(runs[0]["tokens"], ref, runs[0]["margins"],
+                                   bound, route_bound, f"mesh MoE {name}")
+        same = np.mean([a == b for x, y in zip(runs[0]["tokens"], ref)
+                        for a, b in zip(x, y)])
+        toks = sum(len(t_) for t_ in runs[0]["tokens"])
+        errs = [f"{run['logits']['rel_l2']:.2e}" for run in runs]
+        log(f"mesh MoE {name}: {len(prompts)} requests x {max_new} tokens on "
+            f"{MESH_WORLD} ranks (seq_mesh, cache rows a rank "
+            f"{runs[0]['cache_rows']}); tokens equal on both ranks; equal to "
+            f"the same Scheduler on one rank {same:.4f}, agreement windows "
+            f"{windows}, (logit margin, smallest router margin) at the "
+            f"divergences {[(f'{m:.2e}', r_ and f'{r_:.2e}') for m, r_ in sites]}"
+            f" (bounds {bound:.2e}, {route_bound:.2e}: 8 x eps {eps:.2e}, "
+            f"{eps_route:.2e}) | SP decode "
+            f"step on 8 x 128 prefilled rows against the single-device engine: "
+            f"logits rel-L2 per rank {errs} (<= {LOGITS_TOL}), max-abs "
+            f"{lg['max_abs']:.2e}, the reference pinned to the SP step's experts at "
+            f"(row, step, layer, margin, router log-prob difference) "
+            f"{lg['flips']} | {toks} tokens in {runs[0]['wall']:.2f} s = "
+            f"{toks / runs[0]['wall']:.1f} tok/s, two ranks sharing one card "
+            f"over gloo, not an SP speed | launches per rank "
+            f"{[run['launches'] for run in runs]} [{label}]")
+        launches[name] = [run["launches"] for run in runs]
+    log(f"mesh MoE phase: ranks {t1 - t0:.1f} s (spawn, params, (a), (b), (c)), "
+        f"the one-device restore and checks {time.perf_counter() - t1:.1f} s "
+        f"[{label}]")
+    if failures:
+        raise AssertionError("phase_mesh_moe:\n" + "\n".join(failures))
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside chip_smoke.py: run it from a checkout "
@@ -8725,6 +9339,13 @@ def main() -> int:
     # through the CP, TP, AdamW and pipeline steps (kernels 1, 1 (window),
     # 1 (8-bit), 4 and 5 at the per-rank shapes)
     phase_mesh_train(device, label)
+
+    # 16. expert parallelism and sharded checkpoints over a device mesh:
+    # the MoE model of 13 through make_ep_moe, the TP steps' MoE branch
+    # (a sharded checkpoint through torch.distributed.checkpoint mid-run),
+    # and Scheduler(seq_mesh=) (kernels 1, 4, 5, 6 and 7 at the per-rank
+    # shapes)
+    phase_mesh_moe(device, label)
 
     print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend, dec_q,
                                   paged_q, ragged_q, extend_q, win_fwd, win_dec,

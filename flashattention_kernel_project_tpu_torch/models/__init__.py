@@ -1,8 +1,8 @@
-"""The GQA decoder (dense or Mixture-of-Experts), its training step and
-tensor-parallel layout, checkpoints, the KV-cache engine and the serving
-scheduler. Every public name of the JAX package's `models` is here, apart
-from the expert-parallel shardings (`moe_param_shardings`, `make_ep_moe`;
-ROADMAP A.9), not yet ported."""
+"""The GQA decoder (dense or Mixture-of-Experts, with its expert-parallel
+form), its training step and tensor-parallel layout, checkpoints (sharded
+ones through torch.distributed.checkpoint), the KV-cache engine and the
+serving scheduler. Every public name of the JAX package's `models` is
+here."""
 
 from flashattention_kernel_project_tpu_torch.models import (  # noqa: F401
     checkpoint,
@@ -35,7 +35,9 @@ from flashattention_kernel_project_tpu_torch.models.engine import (  # noqa: F40
 from flashattention_kernel_project_tpu_torch.models.moe import (  # noqa: F401
     MoEConfig,
     init_moe_params,
+    make_ep_moe,
     moe_ffn,
+    moe_param_shardings,
 )
 from flashattention_kernel_project_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,

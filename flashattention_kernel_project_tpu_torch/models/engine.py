@@ -212,8 +212,8 @@ def _no_moe(params: dict, what: str):
         raise NotImplementedError(
             f"{what}: the fused decode layout has no MoE form, so generate and "
             "the Scheduler do not serve an MoE model; serve it through "
-            "prefill, extend and the decode steps with its split parameters. "
-            "The JAX package serves MoE through a mesh Scheduler (ROADMAP A.9)")
+            "prefill, extend and the decode steps with its split parameters, "
+            "or through Scheduler(seq_mesh=), as the JAX package does")
 
 
 def fuse_decode_params(cfg: tfm.TransformerConfig, params: dict) -> dict:

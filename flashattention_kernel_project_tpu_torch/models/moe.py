@@ -13,8 +13,11 @@ router, the dispatch and the expert products in XLA, with no Pallas
 kernel. The router product and the expert products take float32 weights
 (bf16 expert weights are widened first), and TF32 must stay off on the
 card: routing takes argmaxes over near-ties, which a rounded product flips.
-The expert-parallel form (`make_ep_moe`, `moe_param_shardings`) is ROADMAP
-item A.9.
+
+Expert parallelism (`moe_param_shardings`, `make_ep_moe`) runs on
+torch.distributed, one process a rank (parallel/mesh.py): the experts cut
+over a mesh axis, the router and the dispatch computed alike on every rank,
+each rank running its own experts, one all-reduce summing their parts.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from flashattention_kernel_project_tpu_torch.utils.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +64,18 @@ def init_moe_params(cfg: MoEConfig, generator: torch.Generator, device) -> dict:
     }
 
 
+def moe_param_shardings(cfg: MoEConfig, expert_axis: str = "expert") -> dict:
+    """The expert-parallel layout (utils.sharding.P specs): the router
+    whole on every rank, w1 and w2 cut over `expert_axis` on their expert
+    dimension."""
+    del cfg
+    return {
+        "w_gate": P(),
+        "w1": P(expert_axis, None, None),
+        "w2": P(expert_axis, None, None),
+    }
+
+
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     """jax.nn.one_hot: an index outside [0, n) gives a row of zeros."""
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
@@ -87,22 +105,28 @@ def _top_k_dispatch(probs: torch.Tensor, top_k: int, capacity: int):
     probs [T, E] -> (dispatch, combine [T, E, C] one-hot(-weighted), aux).
     Each choice fills an expert's buffer after every earlier choice, in
     token order."""
-    t, e = probs.shape
     gates, masks, aux_loss = _top_k_choices(probs, top_k)
-    counts = torch.zeros((e,), dtype=torch.int64, device=probs.device)
-    dispatch = probs.new_zeros((t, e, capacity))
-    combine = probs.new_zeros((t, e, capacity))
+    return (*_dense_slots(gates, masks, capacity), aux_loss)
+
+
+def _dense_slots(gates: torch.Tensor, masks, capacity: int):
+    """The dense dispatch and combine [T, E, C] of the choices (gates
+    [T, k], masks: k one-hots [T, E]) at `capacity` slots an expert."""
+    t, e = masks[0].shape
+    counts = torch.zeros((e,), dtype=torch.int64, device=gates.device)
+    dispatch = gates.new_zeros((t, e, capacity))
+    combine = gates.new_zeros((t, e, capacity))
     for k, oh in enumerate(masks):
         ohi = oh.long()
         # each token's position within its chosen expert's buffer
         pos = ohi.cumsum(dim=0) - ohi + counts[None, :]            # [T, E]
         counts = counts + ohi.sum(dim=0)
-        keep = (pos < capacity).to(probs.dtype) * oh                # [T, E]
-        pos_oh = _one_hot((pos * ohi).sum(dim=-1), capacity, probs.dtype)
+        keep = (pos < capacity).to(gates.dtype) * oh                # [T, E]
+        pos_oh = _one_hot((pos * ohi).sum(dim=-1), capacity, gates.dtype)
         d = keep[:, :, None] * pos_oh[:, None, :]                   # [T, E, C]
         dispatch = dispatch + d
         combine = combine + gates[:, k][:, None, None] * d
-    return dispatch, combine, aux_loss
+    return dispatch, combine
 
 
 def _top_k_dispatch_sort(probs: torch.Tensor, top_k: int, capacity: int):
@@ -193,3 +217,102 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                            dispatch)
     out = out.reshape(x.shape).to(x.dtype)
     return (out, aux) if return_aux else out
+
+
+def _pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """x averaged over `group`, with each rank's own cotangent passed back
+    (JAX's pmean, whose transpose averages the cotangents, alike on every
+    rank)."""
+    total = x.detach().clone()
+    dist.all_reduce(total, group=group)
+    return x + (total / dist.get_world_size(group) - x).detach()
+
+
+def make_ep_moe(mesh, cfg: MoEConfig, *, expert_axis: str = "expert",
+                data_axis: str | None = None, return_aux: bool = False,
+                dispatch: str = "auto"):
+    """The expert-parallel MoE FFN over `mesh` (parallel.make_mesh).
+
+    Returns fn(params, x), run by every rank: params are the rank's shards
+    by moe_param_shardings (parallel.shard_params: w_gate whole, w1 and w2
+    the rank's e_local = num_experts / |expert_axis| experts), x the whole
+    input [..., T, D], or, with `data_axis`, the rank's block of its leading
+    dimension. The router and the dispatch run alike on every rank, each
+    rank runs only its experts (the dense form: its slice of the one-hot
+    pair; the sort form: its slots, with the choices routed elsewhere read
+    from a zero row), and one all-reduce over the expert axis sums the
+    parts. The output (x's shape and dtype; with return_aux, also the
+    load-balancing loss) is the same on every rank of the expert axis and
+    equals moe_ffn's, with the same routing and drops. With `data_axis`
+    each data shard routes its own tokens at its own capacity, and the aux
+    loss is averaged over the data axis.
+
+    Gradients are exact on every rank with no collective asked of the
+    caller: a loss taken on the output gives each rank its slice of the w1
+    and w2 gradients, and the whole w_gate and x gradients. The region's
+    inputs (the tokens and the gates) enter through parallel.mesh's
+    copy_to_group, its output leaves through reduce_from_group (Megatron's
+    pair). With `data_axis` they are the rank's data shard's, as a data
+    parallel step averages them.
+
+    ValueError where the experts do not divide over the expert axis."""
+    from flashattention_kernel_project_tpu_torch.parallel.mesh import (
+        axis_group,
+        axis_index,
+        axis_size,
+        copy_to_group,
+        reduce_from_group,
+    )
+
+    n_shards = axis_size(mesh, expert_axis)
+    if cfg.num_experts % n_shards:
+        raise ValueError(f"{cfg.num_experts} experts do not divide over the "
+                         f"{n_shards} ranks of axis {expert_axis!r}")
+    _use_sort_dispatch(dispatch, 0, 1, 1)  # an unknown form raises here
+    e_local = cfg.num_experts // n_shards
+    group = axis_group(mesh, expert_axis)
+    shard = axis_index(mesh, expert_axis)
+    data = axis_group(mesh, data_axis) if data_axis else None
+    d = cfg.d_model
+
+    def fn(params, x):
+        w1, w2 = params["w1"].float(), params["w2"].float()
+        if w1.shape[0] != e_local:
+            raise ValueError(f"w1 holds {w1.shape[0]} experts, this rank's "
+                             f"shard is {e_local}: pass parallel.shard_params' "
+                             "shards")
+        x2 = x.reshape(-1, d).float()
+        t = x2.shape[0]
+        cap = cfg.capacity(t)
+        probs = torch.softmax(x2 @ params["w_gate"].float(), dim=-1)
+        xe = copy_to_group(x2, group)
+        if _use_sort_dispatch(dispatch, t, cfg.num_experts, cap):
+            slot_token, slot_tk, gates, aux = _top_k_dispatch_sort(
+                probs, cfg.top_k, cap)
+            lo, n_loc = shard * e_local * cap, e_local * cap
+            zero = x2.new_zeros((1, d))
+            expert_in = torch.cat([xe, zero])[slot_token[lo:lo + n_loc]]
+            eo = torch.cat([_expert_ffn(w1, w2, expert_in.view(e_local, cap, d))
+                            .reshape(-1, d), zero])
+            # another rank's slot (or a dropped choice) reads the zero row
+            idx = slot_tk - lo
+            idx = torch.where((idx >= 0) & (idx < n_loc), idx,
+                              torch.full_like(idx, n_loc))
+            gates = copy_to_group(gates, group)
+            part = sum(gates[:, j, None] * eo[idx[:, j]]
+                       for j in range(cfg.top_k))
+        else:
+            gates, masks, aux = _top_k_choices(probs, cfg.top_k)
+            dsp, comb = _dense_slots(copy_to_group(gates, group), masks, cap)
+            mine = slice(shard * e_local, (shard + 1) * e_local)
+            expert_in = torch.einsum("tec,td->ecd", dsp[:, mine], xe)
+            part = torch.einsum("tec,ecd->td", comb[:, mine],
+                                _expert_ffn(w1, w2, expert_in))
+        out = reduce_from_group(part, group).reshape(x.shape).to(x.dtype)
+        if not return_aux:
+            return out
+        if data is not None:
+            aux = _pmean(aux, data)
+        return out, aux
+
+    return fn

@@ -50,8 +50,10 @@ the same submits in the same order. The logits are the same on every rank,
 so every host decision (admission, slots, pages, prefix hits, argmax,
 sampling from an identically seeded generator, speculative accepts) is too,
 and run() returns the same tokens on every rank. The JAX Scheduler's walls
-raise NotImplementedError with its messages, and an MoE model over a mesh
-raises naming the expert-parallel item (ROADMAP A.9).
+raise NotImplementedError with its messages. An MoE model serves over
+`seq_mesh` (its parameters whole and split on every rank, its layers
+routing the whole batch as on one device); `mesh` refuses it, the JAX
+tensor-parallel engine having no MoE form.
 """
 
 from __future__ import annotations
@@ -215,7 +217,11 @@ class Scheduler:
                 tp_engine,
             )
 
-            tp_engine.check_dense(cfg)
+            if mesh is not None and cfg.moe_experts:
+                raise NotImplementedError(
+                    "Scheduler(mesh=): the tensor-parallel engine has no MoE "
+                    "form (the JAX package's raises KeyError: 'w_gate' there); "
+                    "serve an MoE model over seq_mesh=")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device

@@ -127,16 +127,10 @@ def param_shardings(cfg: TransformerConfig, data_axis="data", model_axis="model"
     """The Megatron tensor-parallel layout of the parameters, JAX's specs
     (utils.sharding.P, one entry per dimension, the leading one the layer
     axis): wq, wk, wv, w_gate and w_up cut by columns over `model_axis`, wo
-    and w_down by rows, the norms, the embedding and rms_final whole.
-    parallel.shard_params cuts a tree by it. An MoE config raises
-    NotImplementedError: its expert-parallel layout (JAX's
-    moe_param_shardings and make_ep_moe) is ROADMAP A.9's expert-parallel
-    item."""
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "param_shardings: an MoE model shards its experts over the mesh "
-            "(moe_param_shardings, make_ep_moe), ROADMAP A.9's expert-parallel "
-            "item, not ported")
+    and w_down by rows, the norms, the embedding and rms_final whole. An
+    MoE config's experts ride the model axis (expert parallelism: moe_w1
+    and moe_w2 cut on their expert dimension) and its router is whole.
+    parallel.shard_params cuts a tree by it."""
     layer = dict(
         wq=P(None, None, model_axis),
         wk=P(None, None, model_axis),
@@ -144,10 +138,19 @@ def param_shardings(cfg: TransformerConfig, data_axis="data", model_axis="model"
         wo=P(None, model_axis, None),
         rms_attn=P(None, None),
         rms_mlp=P(None, None),
-        w_gate=P(None, None, model_axis),
-        w_up=P(None, None, model_axis),
-        w_down=P(None, model_axis, None),
     )
+    if cfg.moe_experts:
+        layer.update(
+            moe_router=P(None, None, None),
+            moe_w1=P(None, model_axis, None, None),
+            moe_w2=P(None, model_axis, None, None),
+        )
+    else:
+        layer.update(
+            w_gate=P(None, None, model_axis),
+            w_up=P(None, None, model_axis),
+            w_down=P(None, model_axis, None),
+        )
     return dict(embed=P(None, None), rms_final=P(None), layers=layer)
 
 

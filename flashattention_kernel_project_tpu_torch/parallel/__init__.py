@@ -5,7 +5,8 @@ decode (mesh.py), the tensor- and sequence-parallel serving engine
 (ring_attention.py), Ulysses (ulysses.py), the DP x TP, context-parallel
 and optimizer-driven training steps (train.py) and the GPipe pipeline
 (pipeline.py). Every rank runs the same calls on its own shards; see
-mesh.py. Expert parallelism is not ported yet (ROADMAP A.9)."""
+mesh.py. Expert parallelism is models.make_ep_moe, and the MoE branch of
+the DP x TP steps."""
 
 from flashattention_kernel_project_tpu_torch.parallel import (  # noqa: F401
     mesh,

@@ -15,7 +15,10 @@ So here:
   kernel on the rank's batch rows and KV heads and return its slice of the
   output, with no collective; `seq_sharded_decode` returns the whole output,
   bit-equal on every rank (JAX's out_specs P()), from the partials its
-  ranks all-gather (JAX's all_gather) and merge.
+  ranks all-gather (JAX's all_gather) and merge;
+- a region whose ranks each compute a part of a replicated sum (the
+  expert-parallel MoE) enters through `copy_to_group` and leaves through
+  `reduce_from_group`, which give every rank exact gradients.
 The kernels are the single-device ones (ops/), launched at the rank's
 shapes.
 """
@@ -132,6 +135,56 @@ def shard_params(params, mesh, rules):
                              f" params {sorted(params)}")
         return {k: shard_params(v, mesh, rules[k]) for k, v in params.items()}
     return params if not rules else shard(params, mesh, rules)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's f: the identity forward on a value every rank of `group`
+    holds alike; an all-reduce (sum) of the cotangent backward, where each
+    rank used the value for its own part of a region."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g: an all-reduce (sum) of the ranks' partial outputs
+    forward; the identity backward, the cotangent of the replicated sum
+    being the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """x, entering a region whose ranks of `group` each compute a part of
+    a sum from it: the backward sums the ranks' cotangents, so x's
+    gradient is whole and the same on every rank."""
+    return x if dist.get_world_size(group) == 1 else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The region's partial x summed over `group` (JAX's psum in a
+    shard_map whose output is replicated), differentiable with exact
+    gradients on every rank: unlike train._psum, whose backward sums
+    again (JAX's transpose, which the training steps fold out), the
+    backward here passes the cotangent through, and copy_to_group at the
+    region's inputs sums what each rank's part sends back."""
+    return x if dist.get_world_size(group) == 1 else _ReduceFromGroup.apply(x, group)
 
 
 def _staged(x: torch.Tensor, group):

@@ -49,20 +49,10 @@ from flashattention_kernel_project_tpu_torch.parallel.mesh import (
 from flashattention_kernel_project_tpu_torch.utils.sharding import P
 
 
-def check_dense(cfg: tfm.TransformerConfig) -> None:
-    """Raise NotImplementedError for an MoE config: its mesh layout is
-    expert parallel, not ported."""
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "an MoE model over a mesh needs expert parallelism (make_ep_moe, "
-            "moe_param_shardings): ROADMAP A.9's expert-parallel item, not "
-            "ported")
-
-
 def local_config(cfg: tfm.TransformerConfig, tp: int) -> tfm.TransformerConfig:
     """The per-rank config: heads and MLP width divided over the TP axis
-    (ValueError if they do not divide)."""
-    check_dense(cfg)
+    (ValueError if they do not divide). An MoE config's d_ff is divided
+    too, as JAX's is."""
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise ValueError(f"heads ({cfg.n_heads}/{cfg.n_kv_heads}) not "
                          f"divisible by tp={tp}")
@@ -231,7 +221,6 @@ def init_sp_cache(cfg: tfm.TransformerConfig, mesh, batch: int, max_len: int,
     """This rank's key range of a length-sharded linear cache (max_len over
     the axis' size rows; ValueError if it does not divide); 8-bit values
     and scales when quantized. Its lengths are the global ones."""
-    check_dense(cfg)
     sp = axis_size(mesh, seq_axis)
     if max_len % sp:
         raise ValueError(f"max_len {max_len} not divisible by {sp} ranks")
@@ -304,8 +293,9 @@ def make_sp_decode_step(cfg: tfm.TransformerConfig, mesh, *,
     step over the length-sharded cache (init_sp_cache), the parameters
     whole (the split layout). With an 8-bit cache the new row is quantized
     on the rank that holds it and each rank decodes its range through the
-    8-bit kernel."""
-    check_dense(cfg)
+    8-bit kernel. An MoE model's layers route their batch alike on every
+    rank (engine._mlp with no axis: the parameters are whole), empty slots
+    included, as JAX's SP step does."""
     group = axis_group(mesh, seq_axis)
 
     def fn(params, tokens, cache):

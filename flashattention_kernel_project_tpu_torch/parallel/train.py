@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
 
+from flashattention_kernel_project_tpu_torch.models import moe
 from flashattention_kernel_project_tpu_torch.models import transformer as tfm
 from flashattention_kernel_project_tpu_torch.ops.flash_attention import flash_attention
 from flashattention_kernel_project_tpu_torch.parallel.mesh import axis_group
@@ -124,11 +125,38 @@ def _nll(logits, targets):
 # DP x TP
 # ---------------------------------------------------------------------------
 
+def _tp_moe_block(cfg, layer, x, group):
+    """The MoE MLP residual block under TP (JAX's train.py:60-88): moe_w1
+    and moe_w2 arrive cut over the model axis on their expert dimension;
+    the router and the dense dispatch run alike on every rank (always the
+    dense form, whatever the size), each rank runs its own experts on its
+    slice of the one-hot pair, and one `_psum` sums the parts. Returns
+    (out, the layer's load-balancing loss)."""
+    h2 = tfm.rms_norm(x, layer["rms_mlp"])
+    h2f = h2.reshape(-1, cfg.d_model).float()
+    probs = torch.softmax(h2f @ layer["moe_router"], dim=-1)
+    cap = moe.MoEConfig(num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                        capacity_factor=cfg.moe_capacity_factor).capacity(
+                            h2f.shape[0])
+    dispatch, combine, aux = moe._top_k_dispatch(probs, cfg.moe_top_k, cap)
+    e_local = layer["moe_w1"].shape[0]
+    mine = slice(dist.get_rank(group) * e_local,
+                 (dist.get_rank(group) + 1) * e_local)
+    expert_in = torch.einsum("tec,td->ecd", dispatch[:, mine], h2f)
+    expert_out = moe._expert_ffn(layer["moe_w1"].float(),
+                                 layer["moe_w2"].float(), expert_in)
+    part = torch.einsum("tec,ecd->td", combine[:, mine], expert_out)
+    out = _psum(part, group).reshape(h2.shape)
+    return x + out.to(x.dtype), aux
+
+
 def _tp_forward(cfg, params, tokens, *, group, remat=False):
-    """The forward on the rank's shards: head counts from the local weight
-    shapes (wq arrives column-cut), two `_psum`s a layer after the
-    row-parallel projections (wo, w_down). remat=True checkpoints each
-    layer (torch.utils.checkpoint, non-reentrant): its activations are
+    """The forward on the rank's shards -> (logits, the MoE load-balancing
+    loss averaged over the layers, None for a dense config): head counts
+    from the local weight shapes (wq arrives column-cut), two `_psum`s a
+    layer after the row-parallel projections (wo, and w_down or the
+    experts' parts). remat=True checkpoints each layer
+    (torch.utils.checkpoint, non-reentrant): its activations are
     recomputed in the backward. Attention runs causal with the default
     discipline, as JAX's TP step does."""
     b, n = tokens.shape
@@ -148,24 +176,34 @@ def _tp_forward(cfg, params, tokens, *, group, remat=False):
                             v.transpose(1, 2).contiguous(), causal=True)
         o = o.transpose(1, 2).reshape(b, n, hq * cfg.d_head)
         x = x + _psum(o @ layer["wo"], group)
+        if "moe_w1" in layer:
+            return _tp_moe_block(cfg, layer, x, group)
         h2 = tfm.rms_norm(x, layer["rms_mlp"])
         gated = torch.nn.functional.silu(h2 @ layer["w_gate"]) * (h2 @ layer["w_up"])
-        return x + _psum(gated @ layer["w_down"], group)
+        return x + _psum(gated @ layer["w_down"], group), None
 
-    for i in range(params["layers"]["wq"].shape[0]):
+    n_layers = params["layers"]["wq"].shape[0]
+    auxes = []
+    for i in range(n_layers):
         layer = tfm.layer_params(params, i)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(layer_fn, x, layer,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(layer_fn, x, layer,
+                                                       use_reentrant=False)
         else:
-            x = layer_fn(x, layer)
+            x, aux = layer_fn(x, layer)
+        if aux is not None:
+            auxes.append(aux)
     x = tfm.rms_norm(x, params["rms_final"])
-    return tfm.logits_f32(x, params["embed"])
+    aux = torch.stack(auxes).sum() / n_layers if auxes else None
+    return tfm.logits_f32(x, params["embed"]), aux
 
 
 def _tp_loss(cfg, params, tokens, *, group, remat=False):
-    logits = _tp_forward(cfg, params, tokens, group=group, remat=remat)
-    return _nll(logits[:, :-1], tokens[:, 1:]).mean()
+    """The next-token NLL's mean, plus moe_aux_weight times the load-
+    balancing loss for an MoE config (JAX's _tp_loss)."""
+    logits, aux = _tp_forward(cfg, params, tokens, group=group, remat=remat)
+    loss = _nll(logits[:, :-1], tokens[:, 1:]).mean()
+    return loss if aux is None else loss + cfg.moe_aux_weight * aux
 
 
 def _tp_grads(cfg, mesh, params, tokens, *, data_axis, model_axis, remat):
@@ -192,9 +230,10 @@ def make_train_step(cfg: tfm.TransformerConfig, mesh, *, lr: float = 1e-3,
     loss), param_specs): params are the rank's shards by param_specs
     (parallel.shard_params), tokens the rank's rows of the batch (cut over
     `data_axis` when the mesh has it); the loss is the global mean, the same
-    on every rank. remat=True checkpoints each layer. An MoE config raises
-    NotImplementedError: its experts shard over the model axis (ROADMAP
-    A.9's expert-parallel item)."""
+    on every rank. remat=True checkpoints each layer. An MoE config's
+    experts are cut over the model axis (expert parallelism, JAX's
+    train.py:60-88): its router is whole and its gradient averaged over the
+    axis like the norms'."""
     rules = tfm.param_shardings(cfg, data_axis=data_axis, model_axis=model_axis)
 
     def step(params, tokens):

@@ -11,8 +11,6 @@ seconds), each scenario's failure is reported by its own test. The rank
 function is module-level and this module imports JAX only inside functions,
 so a rank imports no JAX."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -220,7 +218,8 @@ def test_mesh_scheduler_matches_jax_scheduler(world, name):
 def test_mesh_walls_raise_as_jax():
     """The JAX Scheduler's walls raise NotImplementedError with its
     messages in both packages, before the mesh is touched; an MoE model
-    over a mesh raises naming the expert-parallel item."""
+    over a TP mesh is refused as JAX's refuses it, and served over a
+    seq_mesh."""
     import jax
 
     from flashattention_kernel_project_tpu import parallel as jparallel
@@ -258,7 +257,39 @@ def test_mesh_walls_raise_as_jax():
         with pytest.raises(NotImplementedError, match=msg):
             JS(_jax_cfg(TP_CFG), jp, max_batch=2, max_len=64, interpret=True,
                **theirs)
-    moe = dataclasses.replace(cfg, moe_experts=4)
-    for key in ("mesh", "seq_mesh"):
-        with pytest.raises(NotImplementedError, match="expert-parallel"):
-            Scheduler(moe, tp, max_batch=2, max_len=64, **{key: object()})
+    # an MoE model: mesh= refuses it (JAX's TP engine has no MoE form and
+    # raises KeyError: 'w_gate'), linear and paged; seq_mesh= serves it
+    # (tests/test_torch_ep.py holds its tokens to JAX's)
+    moe_kw = dict(TP_CFG, moe_experts=4)
+    moe = models.TransformerConfig(**moe_kw, dtype=torch.float32)
+    jmoe = _jax_params(moe_kw, 0)
+    mp = params_from_jax(jax.tree.map(np.asarray, jmoe), CPU)
+    for paged in ({}, dict(paged=True, page_size=16)):
+        with pytest.raises(NotImplementedError, match="no MoE form"):
+            Scheduler(moe, mp, max_batch=2, max_len=64, mesh=object(), **paged)
+        with pytest.raises(KeyError, match="w_gate"):
+            ref = JS(_jax_cfg(moe_kw), jmoe, max_batch=2, max_len=64,
+                     interpret=True, mesh=jmesh, **paged)
+            ref.submit(np.arange(4, dtype=np.int32), max_new_tokens=2)
+            ref.run()
+    _serve_on_one_rank(moe, mp)
+
+
+def _serve_on_one_rank(cfg, params):
+    """Scheduler(seq_mesh=) accepts the MoE model: a one-rank gloo world in
+    this process, torn down after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh({"sp": 1}, device_type="cpu")
+            sched = Scheduler(cfg, params, max_batch=2, max_len=64,
+                              seq_mesh=mesh)
+            uid = sched.submit(np.arange(5, dtype=np.int32), max_new_tokens=3)
+            assert len(sched.run()[uid]) == 3
+        finally:
+            dist.destroy_process_group()

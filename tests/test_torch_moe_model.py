@@ -246,7 +246,8 @@ def test_moe_checkpoint_round_trip(tmp_path):
 def test_fused_layout_paths_refuse_moe(both_params):
     """generate and the Scheduler build the fused decode layout, which has
     no MoE form: JAX's raise KeyError on an MoE tree, the port's a
-    NotImplementedError that names the mesh Scheduler (A.9)."""
+    NotImplementedError that names the Scheduler that serves it
+    (seq_mesh=), as JAX's does."""
     jp, tp = both_params
     prompt = _tokens(7, (1, 4))
     with pytest.raises(KeyError):
@@ -255,7 +256,7 @@ def test_fused_layout_paths_refuse_moe(both_params):
         JScheduler(JCFG, jp, max_batch=1, max_len=32)
     with pytest.raises(KeyError):
         JScheduler(JCFG, jp, max_batch=1, max_len=32, paged=True, page_size=16)
-    msg = "no MoE form.*A.9"
+    msg = "no MoE form.*seq_mesh"
     with pytest.raises(NotImplementedError, match=msg):
         engine.generate(CFG, tp, torch.from_numpy(prompt), max_new_tokens=2)
     with pytest.raises(NotImplementedError, match=msg):

@@ -279,14 +279,11 @@ def _window_tokens(logits, steps):
 
 def test_param_shardings_are_jax_specs():
     """The port's param_shardings gives JAX's specs entry for entry (the
-    engine tests shard by them); an MoE config raises."""
+    engine tests shard by them), dense and MoE (the experts on the model
+    axis, the router whole: JAX's transformer.py:137-144)."""
     from jax.sharding import PartitionSpec
 
     from flashattention_kernel_project_tpu.models import transformer as jtfm
-
-    cfg = _cfg(TP_CFG)
-    jcfg, _, _, _ = _jax_setup(TP_CFG, 1, (1, 1))
-    ours, theirs = models.param_shardings(cfg), jtfm.param_shardings(jcfg)
 
     def flat(tree, prefix=""):
         if isinstance(tree, dict):
@@ -294,11 +291,17 @@ def test_param_shardings_are_jax_specs():
                     for k2, v2 in flat(v, f"{prefix}{k}.").items()}
         return {prefix[:-1]: tuple(tree)}
 
-    assert flat(ours) == flat(theirs)
-    assert isinstance(ours["layers"]["wq"], P)
-    assert isinstance(theirs["layers"]["wq"], PartitionSpec)
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        models.param_shardings(dataclasses.replace(cfg, moe_experts=4))
+    cfg = _cfg(TP_CFG)
+    jcfg, _, _, _ = _jax_setup(TP_CFG, 1, (1, 1))
+    for moe in (0, 4):
+        ours = models.param_shardings(dataclasses.replace(cfg, moe_experts=moe))
+        theirs = jtfm.param_shardings(dataclasses.replace(jcfg, moe_experts=moe))
+        assert flat(ours) == flat(theirs)
+        assert list(ours["layers"]) == list(theirs["layers"])
+        assert isinstance(ours["layers"]["wq"], P)
+        assert isinstance(theirs["layers"]["wq"], PartitionSpec)
+    assert ours["layers"]["moe_w1"] == P(None, "model", None, None)
+    assert ours["layers"]["moe_router"] == P(None, None, None)
 
 
 def test_local_config_divides_heads_and_width():
@@ -309,5 +312,13 @@ def test_local_config_divides_heads_and_width():
     for tp in (3, 8):
         with pytest.raises(ValueError, match="divisible"):
             parallel.local_config(cfg, tp)
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        parallel.local_config(dataclasses.replace(cfg, moe_experts=4), 2)
+    # an MoE config divides its heads and d_ff too, as JAX's does
+    from flashattention_kernel_project_tpu.parallel import tp_engine as jtp
+
+    moe = dataclasses.replace(cfg, moe_experts=4)
+    jcfg, _, _, _ = _jax_setup(TP_CFG, 1, (1, 1))
+    theirs = jtp.local_config(dataclasses.replace(jcfg, moe_experts=4), 2)
+    ours = parallel.local_config(moe, 2)
+    assert ((ours.n_heads, ours.n_kv_heads, ours.d_ff, ours.moe_experts)
+            == (theirs.n_heads, theirs.n_kv_heads, theirs.d_ff,
+                theirs.moe_experts) == (4, 2, 32, 4))

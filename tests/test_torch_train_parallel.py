@@ -135,6 +135,8 @@ def _scenarios(inputs):
         "adamw": (TP_AXES, _optim_rank, (CFG, adamw[1], adamw[2], "adamw", 1.0, 3)),
         "momentum": (TP_AXES, _optim_rank, (CFG, mom[1], mom[2], "sgd", 0.5, 3)),
         "remat": (TP_AXES, _tp_remat_rank, (CFG, remat[1], remat[2], 1e-2)),
+        # the MoE branch: one expert a rank of the model axis
+        "tp moe": (TP_AXES, _tp_remat_rank, (MOE, moe[1], moe[2], 1e-2)),
     }
 
 
@@ -391,15 +393,29 @@ def test_tp_remat_matches_no_remat(world):
             np.testing.assert_allclose(pa[k], pb[k], atol=1e-6, err_msg=k)
 
 
-def test_tp_step_moe_raises():
-    """The TP step's MoE branch needs the experts cut over the model axis
-    (ROADMAP A.9's expert-parallel item): NotImplementedError, as
-    models.param_shardings raises; the CP step takes the MoE config."""
-    for make in (parallel.make_train_step,
-                 functools.partial(parallel.make_optax_train_step,
-                                   optimizer=torch.optim.SGD, params=None)):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            make(_cfg(MOE), None)
+def test_tp_step_moe_raises(world):
+    """The TP step's MoE branch runs (it raised before it was ported): the
+    experts cut over the model axis, remat or not to 1e-6, the loss within
+    JAX's 5e-3 of one device (each data shard routes its own tokens) and
+    the replicated leaves bit-equal across the ranks. The JAX package is
+    held to tightly in tests/test_torch_ep.py."""
+    inputs = world[0]
+    _, params_np, tokens = inputs[4]
+    cfg = _cfg(MOE)
+    _, want = models.sgd_train_step(cfg, params_from_jax(params_np, CPU),
+                                    torch.from_numpy(tokens), lr=1e-2)
+    specs = tfm._leaves(models.param_shardings(cfg))
+    assert specs["layers.moe_w1"] == P(None, "model", None, None)
+    runs = _results(world, "tp moe")
+    for (la, pa), (lb, pb) in runs:
+        np.testing.assert_allclose(la, lb, rtol=1e-6)
+        np.testing.assert_allclose(la[0], float(want), rtol=5e-3)
+        for k in pa:
+            np.testing.assert_allclose(pa[k], pb[k], atol=1e-6, err_msg=k)
+    for k, spec in specs.items():
+        if not any(spec):
+            for (_, p), _ in runs:
+                np.testing.assert_array_equal(p[k], runs[0][0][1][k])
 
 
 def test_tiling_knobs_dropped():
