@@ -218,7 +218,14 @@ width, with random weights from a seed:
     mesh to retake it bit for bit and onto one device equal to the ranks'
     shards; Scheduler(seq_mesh=) over the model (bf16, int8), 8 requests x
     64 tokens, against the same Scheduler on one rank by the near-tie
-    audit, and the SP decode logits against the single-device engine's.
+    audit, and the SP decode logits against the single-device engine's;
+  - the benchmark harness (phase_benchmarking, last): utils.benchmarking's
+    benchmark_chained, benchmark_device, benchmark and capture_trace on
+    bench.py's headline call and the serving decode, each against time_ms
+    from CUDA graphs.
+Every phase logs its seconds as it ends, and the run's end logs them all
+on one line with the total, then the kernels line (each kernel's contract
+keys; its whole entry is logged earlier on a "kernel detail" line).
 Every phase raises on failure, so the script exits non-zero if any check
 fails. It needs one card, checks first that the card answers
 (utils.health.device_healthcheck), and prints no result without CUDA. Its
@@ -233,6 +240,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -494,6 +502,39 @@ def dense_rows(n: int, hq: int, b: int, sms: int) -> int:
     return 64 if -(-n // 64) * hq * b <= sms else 128
 
 
+SASS = {}  # object file -> its `cuobjdump -sass` text (dump_sass)
+
+
+def _cuobjdump() -> str:
+    from flashattention_kernel_project_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the SASS "
+                             "gates cannot run")
+    return tool
+
+
+def dump_sass(objs) -> None:
+    """`cuobjdump -sass` of each object file, one process each, all started
+    together (the gates read them from SASS)."""
+    import concurrent.futures
+    import subprocess
+
+    tool = _cuobjdump()
+    run = lambda obj: subprocess.run(  # noqa: E731
+        [tool, "-sass", obj], check=True, capture_output=True, text=True,
+        timeout=300).stdout
+    with concurrent.futures.ThreadPoolExecutor(max(1, os.cpu_count() or 1)) as ex:
+        SASS.update(zip(objs, ex.map(run, objs)))
+
+
+def sass_of(obj: str) -> str:
+    if obj not in SASS:
+        dump_sass([obj])
+    return SASS[obj]
+
+
 def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set,
                need=("HGMMA", "UTMALDG"), forbid=("HMMA.16816",), frame=True):
     """The instances of a wgmma kernel as ptxas and the SASS show them: each
@@ -506,8 +547,6 @@ def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set,
     mma.sync). Raises otherwise; cuobjdump must sit beside nvcc. Returns
     {instance: SASS counts of HGMMA, UTMALDG, HMMA.16816 and the opcodes of
     `need` and `forbid`}."""
-    import subprocess
-
     from flashattention_kernel_project_tpu_torch.ops import _build
 
     spills, current = {}, None
@@ -528,15 +567,9 @@ def wgmma_gate(build_log: str, kernel: str, instance, objects: dict, want: set,
             raise AssertionError(f"{kernel}{inst} spills: {line}")
         if not frame and not re.search(r"\b0 bytes stack frame", line):
             raise AssertionError(f"{kernel}{inst} has a stack frame: {line}")
-    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the SASS gate "
-                             f"of {kernel} cannot run")
     counts = {}
     for src, belongs in objects.items():
-        obj = os.path.join(_build.BUILD_DIR, src + ".o")
-        sass = subprocess.run([tool, "-sass", obj], check=True,
-                              capture_output=True, text=True, timeout=300).stdout
+        sass = sass_of(os.path.join(_build.BUILD_DIR, src + ".o"))
         for section in sass.split("Function : ")[1:]:
             inst = instance(section.split("\n", 1)[0].strip())
             if inst is None:
@@ -6859,17 +6892,7 @@ def sass_counts(obj: str, kernel: str, opcodes) -> dict:
     """How often each SASS opcode occurs in the instance `kernel` (a mangled
     name's fragment) of an object file, from cuobjdump beside nvcc; raises
     where the toolkit has no cuobjdump, since the count is a gate."""
-    import subprocess
-
-    from flashattention_kernel_project_tpu_torch.ops import _build
-
-    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the probes' "
-                             "SASS gate cannot run")
-    sass = subprocess.run([tool, "-sass", obj], check=True, capture_output=True,
-                          text=True, timeout=300).stdout
-    for section in sass.split("Function : ")[1:]:
+    for section in sass_of(obj).split("Function : ")[1:]:
         if kernel in section.split("\n", 1)[0]:
             return {op: section.count(op) for op in opcodes}
     raise AssertionError(f"no instance {kernel} in {obj}")
@@ -8977,6 +9000,222 @@ def phase_mesh_moe(device, label):
     return launches
 
 
+BENCH_TOL = 0.15      # chained and device time against time_ms(graph=True)
+EAGER_FLOOR = 0.9     # benchmark's eager mean against the same graph time
+ROOFLINE_CAP = 1.05   # a share of the roofline past 1 is a timer's fault
+BENCH_MIN_DELTA_S = 0.2  # benchmark_chained's delta: ~1-2 s a call
+
+
+def bench_cases(device):
+    """The two calls that phase_benchmarking times: bench.py's headline
+    (kernel 1's hybrid instance; flops as bench.py:79 counts them) and
+    flash_decode at phase_decode's serving shape and lengths (kernel 6).
+    Each: (name, fn of its first argument, that argument, the work given
+    to the timers, the kernel's symbol, its launch counter)."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.ops import flash_attention as fa
+    from flashattention_kernel_project_tpu_torch.ops import flash_decode as fd
+
+    B, H, HKV, N, D = 1, 16, 4, 4096, 128
+    rng = np.random.default_rng(42)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(device).bfloat16()
+               for shape in ((B, H, N, D), (B, HKV, N, D), (B, HKV, N, D)))
+    k_max = fa.k_max_norm(k)
+    head = lambda x: fa.flash_attention(x, k, v, causal=True, stable="auto",  # noqa: E731
+                                        k_max=k_max)
+    head_work = dict(flops=int(4 * B * H * N * N * D * 0.5),  # bench.py:79
+                     bytes_accessed=nbytes(q, k, v, q))
+    b, hq, hkv, s, d = 8, 16, 4, 2048, 128
+    gen = torch.Generator(device=device).manual_seed(11)  # phase_decode's
+    qd = torch.randn(b, hq, d, generator=gen, device=device).bfloat16()
+    kc = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
+    vc = torch.randn(b, hkv, s, d, generator=gen, device=device).bfloat16()
+    lengths = torch.randint(1, s, (b,), generator=gen, device=device,
+                            dtype=torch.int32)
+    lengths[0] = 0
+    lengths[-1] = s
+    live = int(lengths.sum())
+    dec = lambda x: fd.flash_decode(x, kc, vc, lengths)  # noqa: E731
+    dec_work = dict(flops=4 * live * hq * d,
+                    bytes_accessed=nbytes(qd, qd) + 2 * live * hkv * d * 2)
+    return [
+        ("headline", head, q, head_work, SM90_KERNEL, "flash_fwd/hybrid",
+         f"flash_attention(causal, stable=auto, k_max) {B}x{H}/{HKV}x{N}x{D} bf16"),
+        ("decode", dec, qd, dec_work, DEC_KERNEL, "flash_decode",
+         f"flash_decode b{b} hq{hq} hkv{hkv} s{s} d{d}, {live} live keys"),
+    ]
+
+
+def trace_kernel_us(trace_dir: str, symbol: str) -> tuple:
+    """_trace_device_us of the newest trace under trace_dir: its device
+    span, and the device us of the ops named after `symbol`; raises if
+    none is."""
+    from flashattention_kernel_project_tpu_torch.utils.benchmarking import (
+        _trace_device_us,
+    )
+
+    total, per_op = _trace_device_us(trace_dir)
+    mine = {n: us for n, us in per_op.items() if symbol in n}
+    if not mine or total <= 0:
+        raise AssertionError(f"the trace under {trace_dir} (span {total} us) "
+                             f"holds no {symbol}: {sorted(per_op)}")
+    return total, sum(mine.values()), len(per_op)
+
+
+def phase_benchmarking(device, label):
+    """utils.benchmarking on the card, its own path with the counters at 0
+    before it: the two calls of `bench_cases`, each timed in two turns
+    (in order, then in reverse) by benchmark_chained (min_delta_s 0.2),
+    benchmark_device (its trace kept and read), benchmark (eager) and
+    time_ms(graph=True) over 50 calls a graph (as time_turns: at 10 a
+    graph, the host's ~20 us of submitting each replay read as 2 us a
+    decode call on an NVIDIA H100 80GB HBM3 at 700 W). Gates: chained and device time within BENCH_TOL
+    of the graph time, benchmark's eager mean at least EAGER_FLOOR of it,
+    every roofline fraction at most ROOFLINE_CAP, the kernel's own symbol
+    in benchmark_device's trace and in capture_trace's, each kernel
+    launched; a trace of a CPU call (no device event) and CPU tensors are
+    refused. Returns the readings by call."""
+    import torch
+
+    from flashattention_kernel_project_tpu_torch.utils import benchmarking as bm
+
+    reset_counters()
+    out, counters = {}, []
+    with tempfile.TemporaryDirectory(prefix="fkp_bench_") as tmp:
+        for name, fn, x, work, symbol, counter, what in bench_cases(device):
+            counters.append(counter)
+            timers = dict(
+                chained=lambda: bm.benchmark_chained(
+                    fn, x, name=f"{name} chained", min_delta_s=BENCH_MIN_DELTA_S,
+                    **work),
+                device=lambda: bm.benchmark_device(
+                    fn, x, name=f"{name} device",
+                    trace_dir=os.path.join(tmp, f"{name}_device"), **work),
+                eager=lambda: bm.benchmark(fn, x, name=f"{name} eager", **work),
+                graph=lambda: time_ms(lambda: fn(x), device, iters=50,
+                                      graph=True))
+            readings = {t: [] for t in timers}
+            for order in (list(timers), list(timers)[::-1]):
+                for t in order:
+                    readings[t].append(timers[t]())
+            results = [r for t in ("chained", "device", "eager") for r in readings[t]]
+            for r in results:
+                log(f"benchmarking: {r.report()} [{label}]")
+            ms = {t: min(r if t == "graph" else r.mean_ms for r in rs)
+                  for t, rs in readings.items()}
+            dev_span, dev_kernel, dev_ops = trace_kernel_us(
+                os.path.join(tmp, f"{name}_device"), symbol)
+            cap_span, cap_kernel, _ = trace_kernel_us(bm.capture_trace(
+                fn, x, trace_dir=os.path.join(tmp, f"{name}_capture")), symbol)
+            fracs = [r.roofline_fraction() for r in results]
+            ratio = {t: ms[t] / ms["graph"] for t in ("chained", "device", "eager")}
+            host = 1 - ms["graph"] / ms["eager"]
+            log(f"benchmarking {name} ({what}): chained {ms['chained']:.4f} ms "
+                f"(x{ratio['chained']:.3f} graph), device {ms['device']:.4f} "
+                f"(x{ratio['device']:.3f}; {readings['device'][0].iters} and "
+                f"{readings['device'][1].iters} iterations), eager "
+                f"{ms['eager']:.4f} (x{ratio['eager']:.3f}; the host's share "
+                f"{host:.1%}), time_ms(graph=True) {ms['graph']:.4f} | roofline "
+                f"{min(fracs):.1%}-{max(fracs):.1%} | device trace: span "
+                f"{dev_span:.1f} us, {symbol} {dev_kernel:.1f} us of {dev_ops} "
+                f"op names; capture_trace: span {cap_span:.1f} us, {symbol} "
+                f"{cap_kernel:.1f} us [{label}]")
+            misses = [f"{t} x{ratio[t]:.3f}" for t in ("chained", "device")
+                      if abs(ratio[t] - 1) > BENCH_TOL]
+            if ratio["eager"] < EAGER_FLOOR:
+                misses.append(f"eager x{ratio['eager']:.3f} < {EAGER_FLOOR}")
+            if max(fracs) > ROOFLINE_CAP:
+                misses.append(f"roofline {max(fracs):.3f} > {ROOFLINE_CAP}")
+            if misses:
+                raise AssertionError(f"benchmarking {name}: {misses} against "
+                                     f"time_ms(graph=True) {ms['graph']:.4f} ms")
+            out[name] = dict(ms, host_share=host, roofline=max(fracs))
+        # a window with no device event is refused, and so are CPU tensors
+        cpu = os.path.join(tmp, "cpu")
+        bm.capture_trace(torch.mm, *[torch.ones(64, 64)] * 2, trace_dir=cpu)
+        for call in (lambda: bm._trace_device_us(cpu),
+                     lambda: bm.benchmark_device(torch.mm, torch.ones(8, 8),
+                                                 torch.ones(8, 8))):
+            try:
+                call()
+            except ValueError as err:
+                log(f"benchmarking: refused as it must: {err}")
+            else:
+                raise AssertionError("benchmarking read a window or tensors "
+                                     "with no device time")
+    counts = read_counters()
+    launches = {c: counts[c] for c in counters}
+    if not all(launches.values()):
+        raise AssertionError(f"benchmarking launched no kernel of {launches}")
+    log(f"benchmarking launches: {launches} [{label}]")
+    return out
+
+
+def phase_apart(name: str, timeout: int = 600) -> None:
+    """chip_smoke's phase `name` in a fresh process (tools/run_phase.py,
+    which loads the library this process built), its lines in this
+    output; raises if it fails. Device traces taken 640-700 s into this
+    script's process held part of their dispatch, where a fresh process's
+    held all of it (NVIDIA H100 80GB HBM3, 700 W)."""
+    import subprocess
+
+    sys.stdout.flush()
+    subprocess.run([sys.executable, os.path.join(ROOT, "tools", "run_phase.py"),
+                    name], check=True, timeout=timeout)
+
+
+class PhaseClock:
+    """The run's seconds by phase: `with clock(name):` logs "phase <name>:
+    <s> s" as the phase ends; `summary()` gives every phase's seconds and
+    the total since the clock started, on one line."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        s = time.perf_counter() - t0
+        self.seconds[name] = self.seconds.get(name, 0.0) + s
+        log(f"phase {name}: {s:.1f} s")
+
+    def summary(self) -> str:
+        parts = ", ".join(f"{n} {s:.1f}" for n, s in self.seconds.items())
+        return (f"phase seconds: {parts}; total "
+                f"{time.perf_counter() - self.t0:.1f} s")
+
+
+# the keys of each kernel in the kernels line (the rest of an entry's
+# detail is logged by its phase and in kernel_detail's lines)
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def _short(v):
+    return float(f"{v:.4g}") if isinstance(v, float) else v
+
+
+def compact(entry: dict) -> dict:
+    """A kernel's entry in the kernels line: KERNEL_KEYS (every one must be
+    there), numbers to 4 significant digits, and the share of the bound."""
+    out = {k: _short(entry[k]) for k in KERNEL_KEYS}
+    out["bound_share"] = _short(entry["bound_ms"] / entry["ms"])
+    return out
+
+
+def kernel_detail(entries) -> None:
+    """Log each kernel entry whole (shapes, the other timings), before the
+    kernels line keeps only KERNEL_KEYS of it."""
+    for e in entries:
+        log("kernel detail: " + json.dumps(
+            {k: _short(v) for k, v in e.items() if k != "launches"},
+            separators=(",", ":"), default=str))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside chip_smoke.py: run it from a checkout "
@@ -8988,6 +9227,7 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on a Hopper GPU",
               file=sys.stderr)
         return 2
+    clock = PhaseClock()
     sys.path.insert(0, ROOT)
     from flashattention_kernel_project_tpu_torch.models import transformer as tfm
     from flashattention_kernel_project_tpu_torch.ops import _build
@@ -9008,9 +9248,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     # 2. kernels against their plain versions
-    t0 = time.perf_counter()
-    _build.library()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s from "
+    with clock("build"):
+        _build.library()
+    log(f"kernels built from "
         f"{[os.path.relpath(s, ROOT) for s in _build.kernel_sources()]}")
     with open(os.path.join(_build.BUILD_DIR, "libfkp_kernels.so.log")) as f:
         build_log = f.read()
@@ -9028,75 +9268,93 @@ def main() -> int:
             kernel = name + (f"<{','.join(args)}>" if args else "")
         if "registers" in line or "spill" in line:
             log(f"ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
-    phase_fwd_sm90_build(build_log, label)
-    phase_gemm_sm90_build(build_log, label)
-    phase_gemm_f32_build(build_log, label)
-    phase_gemm_softmax_build(build_log, label)
-    phase_gemm_8bit_build(build_log, label)
-    phase_bwd_sm90_build(build_log, label)
-    phase_dec_sm90_build(build_log, label)
-    phase_dec_q_build(build_log, label)
-    phase_ext_sm90_build(build_log, label)
-    phase_dec_paged_build(build_log, label)
-    phase_ragged_build(build_log, label)
-    phase_fwd_q_build(build_log, label)
-    phase_probes_build(build_log, label)
-    fwd = phase_forward(device, [
-        (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
-        (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill
-        (1, 16, 4, 1024, 1024, 64, True, 0),   # d=64
-        (2, 4, 2, 200, 333, 128, False, 0),    # ragged, non-causal
-        (2, 4, 2, 200, 333, 128, True, 133),   # ragged, causal, q_offset
-    ], label)
-    phase_fwd_tiles(device, label)
-    phase_fwd_sm90_times(device, label)
-    dec = phase_decode(device, 8, 16, 4, 2048, 128, label)
-    ragged = phase_ragged(device, [
-        # the third chunk of a 768-token prompt at chunk 256 (the slice's)
-        (1, 16, 4, 256, 2304, [768], [512], 128, True),
-        # per-row raggedness and an empty row
-        (4, 16, 4, 64, 1024, [64, 300, 1000, 0], [0, 236, 936, 0], 128, True),
-        (2, 4, 2, 200, 512, [333, 512], [133, 312], 64, True),
-        (4, 16, 4, 64, 1024, [64, 300, 1000, 0], [0, 236, 936, 0], 128, False),
-    ], label)
-    paged = phase_paged_decode(device, [
-        # the slice's pool: 16 pages of 128 a slot, 129 pages
-        (8, 16, 4, 128, 128, 16, [1, 127, 128, 129, 700, 1500, 2048, 0]),
-        (4, 8, 2, 64, 16, 19, [5, 16, 300, 0]),
-    ], label)
-    extend = phase_paged_extend(device, [
-        EXT_SERVING,  # the slice's verify (T = spec_k + 1)
-        (4, 8, 2, 64, 16, 19, 3, [0, 14, 300, 5]),
-        # G = 8, T = 9: a folded group of 72 rows, two query tiles
-        (2, 16, 2, 128, 64, 16, 9, [33, 900]),
-    ], label)
+    with clock("build_checks"):
+        dump_sass(sorted(glob.glob(os.path.join(_build.BUILD_DIR, "*.o"))))
+        phase_fwd_sm90_build(build_log, label)
+        phase_gemm_sm90_build(build_log, label)
+        phase_gemm_f32_build(build_log, label)
+        phase_gemm_softmax_build(build_log, label)
+        phase_gemm_8bit_build(build_log, label)
+        phase_bwd_sm90_build(build_log, label)
+        phase_dec_sm90_build(build_log, label)
+        phase_dec_q_build(build_log, label)
+        phase_ext_sm90_build(build_log, label)
+        phase_dec_paged_build(build_log, label)
+        phase_ragged_build(build_log, label)
+        phase_fwd_q_build(build_log, label)
+        phase_probes_build(build_log, label)
+    with clock("forward"):
+        fwd = phase_forward(device, [
+            (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
+            (1, 16, 4, 512, 512, 128, True, 0),    # the slice's longest prefill
+            (1, 16, 4, 1024, 1024, 64, True, 0),   # d=64
+            (2, 4, 2, 200, 333, 128, False, 0),    # ragged, non-causal
+            (2, 4, 2, 200, 333, 128, True, 133),   # ragged, causal, q_offset
+        ], label)
+    with clock("fwd_tiles"):
+        phase_fwd_tiles(device, label)
+    with clock("fwd_sm90_times"):
+        phase_fwd_sm90_times(device, label)
+    with clock("decode"):
+        dec = phase_decode(device, 8, 16, 4, 2048, 128, label)
+    with clock("ragged"):
+        ragged = phase_ragged(device, [
+            # the third chunk of a 768-token prompt at chunk 256 (the slice's)
+            (1, 16, 4, 256, 2304, [768], [512], 128, True),
+            # per-row raggedness and an empty row
+            (4, 16, 4, 64, 1024, [64, 300, 1000, 0], [0, 236, 936, 0], 128, True),
+            (2, 4, 2, 200, 512, [333, 512], [133, 312], 64, True),
+            (4, 16, 4, 64, 1024, [64, 300, 1000, 0], [0, 236, 936, 0], 128, False),
+        ], label)
+    with clock("paged_decode"):
+        paged = phase_paged_decode(device, [
+            # the slice's pool: 16 pages of 128 a slot, 129 pages
+            (8, 16, 4, 128, 128, 16, [1, 127, 128, 129, 700, 1500, 2048, 0]),
+            (4, 8, 2, 64, 16, 19, [5, 16, 300, 0]),
+        ], label)
+    with clock("paged_extend"):
+        extend = phase_paged_extend(device, [
+            EXT_SERVING,  # the slice's verify (T = spec_k + 1)
+            (4, 8, 2, 64, 16, 19, 3, [0, 14, 300, 5]),
+            # G = 8, T = 9: a folded group of 72 rows, two query tiles
+            (2, 16, 2, 128, 64, 16, 9, [33, 900]),
+        ], label)
     # the 8-bit kernels (int8 and e4m3) at the same shapes, each beside the
     # bf16 kernel on its dequantized cache
-    dec_q = phase_decode_8bit(device, 8, 16, 4, 2048, 128, label)
-    paged_q = phase_paged_decode_8bit(device, 8, 16, 4, 128, 128, 16,
-                                      [1, 127, 128, 129, 700, 1500, 2048, 0], label)
-    ragged_q = phase_ragged_8bit(device, 1, 16, 4, 256, 2304, [768], [512], 128,
-                                 label)
-    extend_q = phase_paged_extend_8bit(device, [
-        EXT_SERVING,
-        (8, 16, 4, 128, 16, 128, 5, [0, 1, 12, 15, 16, 700, 1500, 2043]),
-    ], label)
+    with clock("decode_8bit"):
+        dec_q = phase_decode_8bit(device, 8, 16, 4, 2048, 128, label)
+    with clock("paged_decode_8bit"):
+        paged_q = phase_paged_decode_8bit(device, 8, 16, 4, 128, 128, 16,
+                                          [1, 127, 128, 129, 700, 1500, 2048, 0], label)
+    with clock("ragged_8bit"):
+        ragged_q = phase_ragged_8bit(device, 1, 16, 4, 256, 2304, [768], [512], 128,
+                                     label)
+    with clock("paged_extend_8bit"):
+        extend_q = phase_paged_extend_8bit(device, [
+            EXT_SERVING,
+            (8, 16, 4, 128, 16, 128, 5, [0, 1, 12, 15, 16, 700, 1500, 2043]),
+        ], label)
     # the band kernels against their plain versions over the same band, and
     # the band skip at run_all.py's long-context shape
-    win_fwd = phase_window_forward(device, [
-        (1, 16, 4, 4096, 4096, 128, 0, 1024, 64),  # the training shape's band
-        (1, 16, 4, 512, 512, 128, 0, 256, 4),      # the slice's longest prefill
-        (1, 16, 4, 1024, 1024, 128, 0, 256, 100),  # sinks wider than a key tile
-        (1, 16, 4, 512, 2048, 128, 1536, 256, 4),  # q_offset past the window
-    ], label, entry_shape=1)
-    phase_band_skip(device, label)
-    win_fix = phase_window_fixed(device, label)
-    win_ragged, win_ragged_q = phase_window_ragged(
-        device, 1, 16, 4, 256, 2304, [768], [512], 128, SERVING_WINDOW,
-        SERVING_SINKS, label)
-    win_dec, win_dec_q = phase_window_decode(
-        device, 8, 16, 4, 2048, 128, [100, 255, 256, 257, 700, 1500, 2000, 2048],
-        SERVING_WINDOW, SERVING_SINKS, label)
+    with clock("window_forward"):
+        win_fwd = phase_window_forward(device, [
+            (1, 16, 4, 4096, 4096, 128, 0, 1024, 64),  # the training shape's band
+            (1, 16, 4, 512, 512, 128, 0, 256, 4),      # the slice's longest prefill
+            (1, 16, 4, 1024, 1024, 128, 0, 256, 100),  # sinks wider than a key tile
+            (1, 16, 4, 512, 2048, 128, 1536, 256, 4),  # q_offset past the window
+        ], label, entry_shape=1)
+    with clock("band_skip"):
+        phase_band_skip(device, label)
+    with clock("window_fixed"):
+        win_fix = phase_window_fixed(device, label)
+    with clock("window_ragged"):
+        win_ragged, win_ragged_q = phase_window_ragged(
+            device, 1, 16, 4, 256, 2304, [768], [512], 128, SERVING_WINDOW,
+            SERVING_SINKS, label)
+    with clock("window_decode"):
+        win_dec, win_dec_q = phase_window_decode(
+            device, 8, 16, 4, 2048, 128, [100, 255, 256, 257, 700, 1500, 2000, 2048],
+            SERVING_WINDOW, SERVING_SINKS, label)
     # the fixed-max and hybrid disciplines against their plain versions:
     # kernel 1 fixed-max at bench.py's shape (causal and full) and a ragged
     # one (the 32K windowed one is above), kernel 2's counterpart at
@@ -9104,30 +9362,43 @@ def main() -> int:
     # breaching and mixed inputs, kernel 3 fixed-max at the
     # serving chunk, the dense 8-bit forward in each discipline and at
     # BASELINE config 5, then bench.py's headline call
-    fix_fwd = phase_fixed(device, [
-        (1, 16, 4, 4096, 4096, 128, True, 0),   # bench.py's shape
-        (1, 16, 4, 4096, 4096, 128, False, 0),  # run_all.py's full rung
-        (2, 4, 2, 200, 333, 128, True, 133),    # ragged, causal, q_offset
-    ], label)
-    packed = phase_packed(device, 1, 16, 4, 4096, 64, label)
-    hyb_fwd = phase_hybrid(device, 1, 16, 4, 4096, 128, label)
-    hyb_fwd64 = phase_hybrid(device, 1, 16, 4, 4096, 64, label)  # the d64 rung
-    fix_ragged, fix_ragged_q = phase_ragged_fixed(
-        device, 1, 16, 4, 256, 2304, [768], [512], 128, label)
-    fwd_q = phase_kv_quant(device, 1, 16, 4, 4096, 128, label)
-    fwd_q["launches"] = phase_config5(device, fwd_q, label)
-    hyb_fwd["launches"] = phase_headline(device, hyb_fwd, label)
+    with clock("fixed"):
+        fix_fwd = phase_fixed(device, [
+            (1, 16, 4, 4096, 4096, 128, True, 0),   # bench.py's shape
+            (1, 16, 4, 4096, 4096, 128, False, 0),  # run_all.py's full rung
+            (2, 4, 2, 200, 333, 128, True, 133),    # ragged, causal, q_offset
+        ], label)
+    with clock("packed"):
+        packed = phase_packed(device, 1, 16, 4, 4096, 64, label)
+    with clock("hybrid"):
+        hyb_fwd = phase_hybrid(device, 1, 16, 4, 4096, 128, label)
+    with clock("hybrid_d64"):
+        hyb_fwd64 = phase_hybrid(device, 1, 16, 4, 4096, 64, label)  # the d64 rung
+    with clock("ragged_fixed"):
+        fix_ragged, fix_ragged_q = phase_ragged_fixed(
+            device, 1, 16, 4, 256, 2304, [768], [512], 128, label)
+    with clock("kv_quant"):
+        fwd_q = phase_kv_quant(device, 1, 16, 4, 4096, 128, label)
+    with clock("config5"):
+        fwd_q["launches"] = phase_config5(device, fwd_q, label)
+    with clock("headline"):
+        hyb_fwd["launches"] = phase_headline(device, hyb_fwd, label)
     # the GEMM and softmax ladder (run_all.py's GEMM and softmax rungs,
     # BASELINE configs 1-3), its own path with the counters at 0 before it
-    ladder = phase_ladder(device, label)
+    with clock("ladder"):
+        ladder = phase_ladder(device, label)
     # the wgmma GEMMs (kernels 13 and 14, bf16 and f32) at their tiles'
     # edges, then timed in turns with torch.matmul / torch.bmm (the f32 one
     # beside the FFMA core too, and against the fp64 oracle)
-    phase_gemm_tiles(device, label)
+    with clock("gemm_tiles"):
+        phase_gemm_tiles(device, label)
     # kernels 16 and 17 on their wgmma kernel at its bands' and tiles' edges
-    phase_softmax_tiles(device, label)
-    gemm_times = phase_gemm_sm90_times(device, label)
-    f32_times = phase_gemm_f32_times(device, label)
+    with clock("softmax_tiles"):
+        phase_softmax_tiles(device, label)
+    with clock("gemm_sm90_times"):
+        gemm_times = phase_gemm_sm90_times(device, label)
+    with clock("gemm_f32_times"):
+        f32_times = phase_gemm_f32_times(device, label)
     for entry in ladder:
         if entry["name"] in ("gemm", "gemm_batched"):
             entry["turns"] = {k: v for k, v in gemm_times.items()
@@ -9136,13 +9407,17 @@ def main() -> int:
             entry["turns"] = f32_times
     # kernels 8 and 12 (q_int8) over int8 caches and kernel 1's range guard,
     # each its own path with the counters at 0 before it
-    mxu, qi8 = phase_int8_products(device, label)
-    guard = phase_guard(device, label)
+    with clock("int8_products"):
+        mxu, qi8 = phase_int8_products(device, label)
+    with clock("guard"):
+        guard = phase_guard(device, label)
     # the stage probes (profile_attention.py's breakdown, run_all.py's probe
     # rungs) and the paged gather's slots and copy_only (ab_paged_int8.py),
     # each its own path with the counters at 0 before it
-    probes = phase_probes(device, label)
-    paged_probes = phase_paged_probes(device, label)
+    with clock("probes"):
+        probes = phase_probes(device, label)
+    with clock("paged_probes"):
+        paged_probes = phase_paged_probes(device, label)
 
     # 3. the serving slices at the serving configuration: the default
     # Scheduler, the paged one (a page pool, a shared 384-token system
@@ -9152,21 +9427,24 @@ def main() -> int:
     params = tfm.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)
     prompts = serving_prompts(cfg, 32)
-    sched, single, launches = phase_slice(
-        device, cfg, params, prompts, max_batch=8, max_len=2048, max_new=64,
-        label=label)
+    with clock("slice"):
+        sched, single, launches = phase_slice(
+            device, cfg, params, prompts, max_batch=8, max_len=2048, max_new=64,
+            label=label)
     fwd["launches"] = launches["flash_fwd"]
     dec["launches"] = launches["flash_decode"]
     system = np.random.default_rng(1).integers(0, cfg.vocab_size, 384)
-    paged_launches = phase_paged_slice(
-        device, cfg, params,
-        [np.concatenate([system, p]).astype(np.int32) for p in prompts],
-        max_batch=8, max_len=2048, max_new=64, linear=sched.metrics(),
-        label=label)
+    with clock("paged_slice"):
+        paged_launches = phase_paged_slice(
+            device, cfg, params,
+            [np.concatenate([system, p]).astype(np.int32) for p in prompts],
+            max_batch=8, max_len=2048, max_new=64, linear=sched.metrics(),
+            label=label)
     ragged["launches"] = paged_launches["flash_fwd_ragged"]
     paged["launches"] = paged_launches["paged_decode"]
-    phase_multi_step(device, cfg, params, prompts, max_batch=8, max_len=2048,
-                     max_new=64, single=single, label=label)
+    with clock("multi_step"):
+        phase_multi_step(device, cfg, params, prompts, max_batch=8, max_len=2048,
+                         max_new=64, single=single, label=label)
 
     # 4. speculative decoding at bench_spec.py's configuration: the serving
     # model as the target, the 2-layer draft; then the serving slice through
@@ -9174,25 +9452,30 @@ def main() -> int:
     draft_cfg = tfm.TransformerConfig(**DRAFT, dtype=torch.bfloat16)
     draft_params = tfm.init_params(
         draft_cfg, torch.Generator(device=device).manual_seed(1), device)
-    tie = phase_spec_generate(device, cfg, params, draft_cfg, draft_params,
-                              batch=4, prompt_len=128, max_new=128, label=label)
-    spec_launches = phase_spec_slice(
-        device, cfg, params, draft_cfg, draft_params, prompts, max_batch=8,
-        max_len=2048, max_new=64, single=single, linear=sched.metrics(),
-        tie=tie, label=label)
+    with clock("spec_generate"):
+        tie = phase_spec_generate(device, cfg, params, draft_cfg, draft_params,
+                                  batch=4, prompt_len=128, max_new=128, label=label)
+    with clock("spec_slice"):
+        spec_launches = phase_spec_slice(
+            device, cfg, params, draft_cfg, draft_params, prompts, max_batch=8,
+            max_len=2048, max_new=64, single=single, linear=sched.metrics(),
+            tie=tie, label=label)
     extend["launches"] = spec_launches["paged_extend"]
-    for quantized in (False, True):
+    with clock("profile_spec_round"):
+        for quantized in (False, True):
+            profile_spec_round(device, cfg, params, draft_cfg, draft_params,
+                               label, quantized=quantized)
+        # the linear cache's round: its verify is the ragged forward's slab
+        # route
         profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
-                           quantized=quantized)
-    # the linear cache's round: its verify is the ragged forward's slab route
-    profile_spec_round(device, cfg, params, draft_cfg, draft_params, label,
-                       paged=False)
+                           paged=False)
 
     # 5. the int8 cache of bench_serving.py --int8: the serving requests
     # linear, paged, multi_step=4 and speculative over both caches
-    q8 = phase_8bit_slices(device, cfg, params, draft_cfg, draft_params,
-                           prompts, system, max_batch=8, max_len=2048,
-                           max_new=64, label=label)
+    with clock("8bit_slices"):
+        q8 = phase_8bit_slices(device, cfg, params, draft_cfg, draft_params,
+                               prompts, system, max_batch=8, max_len=2048,
+                               max_new=64, label=label)
     dec_q["launches"] = q8["int8 slice (linear)"]["flash_decode_q"]
     paged_q["launches"] = q8["int8 slice (paged)"]["paged_decode_q"]
     extend_q["launches"] = q8["int8 spec slice (paged)"]["paged_extend_q"]
@@ -9202,20 +9485,26 @@ def main() -> int:
     # paged cache with a prefix shared through cache_from_pages; bf16 within
     # its floor, the 8-bit caches (int8, e4m3 linear; int8 paged) within the
     # JAX suite's 5e-2 on top of that floor; int8 weights
-    floor = phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
-                              label=label)
-    paged_floor = phase_paged_consistency(
-        device, cfg, params, n_prompt=640, n_shared=512, chunk=256, n_steps=16,
-        label=label)
-    for fmt in FMTS:
-        phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
-                          label=label, quant_fmt=fmt,
-                          tol=QUANT_LOGITS_TOL + floor)
-    phase_paged_consistency(device, cfg, params, n_prompt=640, n_shared=512,
-                            chunk=256, n_steps=16, label=label, quantized=True,
-                            tol=QUANT_LOGITS_TOL + paged_floor)
-    phase_int8_weights(device, cfg, params, label)
-    profile_decode_steps(device, cfg, params, label)
+    with clock("consistency"):
+        floor = phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
+                                  label=label)
+    with clock("paged_consistency"):
+        paged_floor = phase_paged_consistency(
+            device, cfg, params, n_prompt=640, n_shared=512, chunk=256, n_steps=16,
+            label=label)
+    with clock("consistency_8bit"):
+        for fmt in FMTS:
+            phase_consistency(device, cfg, params, n_prompt=128, n_steps=16,
+                              label=label, quant_fmt=fmt,
+                              tol=QUANT_LOGITS_TOL + floor)
+    with clock("paged_consistency_int8"):
+        phase_paged_consistency(device, cfg, params, n_prompt=640, n_shared=512,
+                                chunk=256, n_steps=16, label=label, quantized=True,
+                                tol=QUANT_LOGITS_TOL + paged_floor)
+    with clock("int8_weights"):
+        phase_int8_weights(device, cfg, params, label)
+    with clock("profile_decode_steps"):
+        profile_decode_steps(device, cfg, params, label)
 
     # 7. the windowed serving model (window 256, 4 sinks) on the same
     # weights: the serving requests five ways, each launch counter at 0
@@ -9224,80 +9513,97 @@ def main() -> int:
     band = dict(attn_window=SERVING_WINDOW, attn_sinks=SERVING_SINKS)
     wcfg = tfm.TransformerConfig(**SERVING, **band, dtype=torch.bfloat16)
     wdraft = tfm.TransformerConfig(**DRAFT, **band, dtype=torch.bfloat16)
-    win = phase_window_slices(device, wcfg, params, wdraft, draft_params, prompts,
-                              system, max_batch=8, max_len=2048, max_new=64,
-                              label=label)
+    with clock("window_slices"):
+        win = phase_window_slices(device, wcfg, params, wdraft, draft_params, prompts,
+                                  system, max_batch=8, max_len=2048, max_new=64,
+                                  label=label)
     win_fwd["launches"] = win["window slice"]["flash_fwd/window"]
     win_dec["launches"] = win["window slice"]["flash_decode/window"]
     win_ragged["launches"] = win["window slice (paged)"]["flash_fwd_ragged/window"]
     win_ragged_q["launches"] = win["window slice (int8)"]["flash_fwd_ragged_q/window"]
     win_dec_q["launches"] = win["window slice (int8)"]["flash_decode_q/window"]
     del draft_params
-    wfloor = phase_consistency(device, wcfg, params, n_prompt=640, n_steps=16,
-                               label=label)
-    phase_consistency(device, wcfg, params, n_prompt=640, n_steps=16,
-                      label=label, quant_fmt="int8", tol=QUANT_LOGITS_TOL + wfloor)
+    with clock("window_consistency"):
+        wfloor = phase_consistency(device, wcfg, params, n_prompt=640, n_steps=16,
+                                   label=label)
+        phase_consistency(device, wcfg, params, n_prompt=640, n_steps=16,
+                          label=label, quant_fmt="int8", tol=QUANT_LOGITS_TOL + wfloor)
     # e4m3's own error at this prompt length passes the JAX suite's 5e-2
     # (set on a small float32 model): measure it through plain float32
     # attention on the same tokens, and gate the kernels' path at the
     # larger of the two plus the bf16 floor (the port's plain path has
     # JAX's e4m3 gap: tests/test_torch_quant_serving.py)
-    with plain_attention():
-        fp8_ref = phase_consistency(device, wcfg, params, n_prompt=640,
-                                    n_steps=16, label=label, quant_fmt="fp8",
-                                    tol=float("inf"), what=" (plain attention)")
-    phase_consistency(device, wcfg, params, n_prompt=640, n_steps=16,
-                      label=label, quant_fmt="fp8",
-                      tol=max(QUANT_LOGITS_TOL, fp8_ref) + wfloor)
+    with clock("window_consistency_fp8"):
+        with plain_attention():
+            fp8_ref = phase_consistency(device, wcfg, params, n_prompt=640,
+                                        n_steps=16, label=label, quant_fmt="fp8",
+                                        tol=float("inf"), what=" (plain attention)")
+        phase_consistency(device, wcfg, params, n_prompt=640, n_steps=16,
+                          label=label, quant_fmt="fp8",
+                          tol=max(QUANT_LOGITS_TOL, fp8_ref) + wfloor)
 
     # 7b. the serving model with attn_stable=False (the fixed-max forwards)
     # on the same weights, three ways, each launch counter at 0 before it,
     # then cached decode against its full forward
     fcfg = tfm.TransformerConfig(**SERVING, attn_stable=False,
                                  dtype=torch.bfloat16)
-    fixed = phase_fixed_slices(device, fcfg, params, prompts, max_batch=8,
-                               max_len=2048, max_new=64, tie=tie, label=label)
+    with clock("fixed_slices"):
+        fixed = phase_fixed_slices(device, fcfg, params, prompts, max_batch=8,
+                                   max_len=2048, max_new=64, tie=tie, label=label)
     fix_fwd["launches"] = fixed["fixed slice"]["flash_fwd/fixed"]
     fix_ragged["launches"] = fixed["fixed slice (prefill_chunk=256)"][
         "flash_fwd_ragged/fixed"]
     fix_ragged_q["launches"] = fixed["fixed slice (int8, prefill_chunk=256)"][
         "flash_fwd_ragged_q/fixed"]
-    phase_consistency(device, fcfg, params, n_prompt=128, n_steps=16,
-                      label=label, what=" (attn_stable=False)")
+    with clock("fixed_consistency"):
+        phase_consistency(device, fcfg, params, n_prompt=128, n_steps=16,
+                          label=label, what=" (attn_stable=False)")
     del params, sched
 
     # 8. the backward kernels against their plain version, without and with
     # the training config's window
-    bwd = phase_backward(device, [
-        (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
-        (4, 16, 4, 4096, 4096, 128, True, 0),  # the training step's shape
-        (1, 16, 4, 1024, 1024, 64, True, 0),   # d=64
-        (2, 4, 2, 200, 333, 128, False, 0),    # ragged, non-causal
-        (2, 4, 2, 200, 333, 128, True, 133),   # ragged, causal, q_offset
-    ], label, entry_shape=1)
-    win_bwd = phase_window_backward(device, 4, 16, 4, 4096, 128, TRAIN_WINDOW,
-                                    TRAIN_SINKS, label)
+    with clock("backward"):
+        bwd = phase_backward(device, [
+            (1, 16, 4, 4096, 4096, 128, True, 0),  # bench.py's shape
+            (4, 16, 4, 4096, 4096, 128, True, 0),  # the training step's shape
+            (1, 16, 4, 1024, 1024, 64, True, 0),   # d=64
+            (2, 4, 2, 200, 333, 128, False, 0),    # ragged, non-causal
+            (2, 4, 2, 200, 333, 128, True, 133),   # ragged, causal, q_offset
+        ], label, entry_shape=1)
+    with clock("window_backward"):
+        win_bwd = phase_window_backward(device, 4, 16, 4, 4096, 128, TRAIN_WINDOW,
+                                        TRAIN_SINKS, label)
     # the backward at its tiles' edges in both schedules, then timed in
     # turns with SDPA's backward
-    phase_bwd_tiles(device, label)
-    bwd_times = phase_bwd_sm90_times(device, label)
+    with clock("bwd_tiles"):
+        phase_bwd_tiles(device, label)
+    with clock("bwd_sm90_times"):
+        bwd_times = phase_bwd_sm90_times(device, label)
     bwd[0]["turns"] = bwd_times
+    kernels = [fwd, dec, *bwd, ragged, paged, extend, dec_q, paged_q, ragged_q,
+               extend_q, win_fwd, win_dec, win_dec_q, win_ragged, win_ragged_q,
+               *win_bwd, fix_fwd, win_fix, hyb_fwd, hyb_fwd64, packed,
+               fix_ragged, fix_ragged_q, fwd_q, *ladder, mxu, qi8, guard,
+               *probes, *paged_probes]
+    kernel_detail(kernels)
 
     # 9. training at the bench_train.py configuration
     cfg = tfm.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
     params = tfm.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)
     corpus = motif_corpus(cfg)
-    params, train_launches, train_ms = phase_train(
-        device, cfg, params, corpus, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, steps=5,
-        label=label)
+    with clock("train"):
+        params, train_launches, train_ms = phase_train(
+            device, cfg, params, corpus, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, steps=5,
+            label=label)
     # row 4 (kernel A) runs in every backward, row 5 (kernel B) in the
     # two-kernel schedule's
     bwd[0]["launches"] = train_launches["flash_bwd"]
     bwd[1]["launches"] = train_launches["flash_bwd/split"]
 
     # 10. train -> checkpoint -> restore -> serve
-    phase_checkpoint(device, cfg, params, corpus, label)
+    with clock("checkpoint"):
+        phase_checkpoint(device, cfg, params, corpus, label)
     del params
 
     # 11. training with the window (1024) and 64 sinks, from the same seed
@@ -9305,9 +9611,10 @@ def main() -> int:
                                  attn_sinks=TRAIN_SINKS, dtype=torch.bfloat16)
     params = tfm.init_params(
         wcfg, torch.Generator(device=device).manual_seed(0), device)
-    _, wtrain_launches, wtrain_ms = phase_train(
-        device, wcfg, params, corpus, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, steps=5,
-        label=label)
+    with clock("window_train"):
+        _, wtrain_launches, wtrain_ms = phase_train(
+            device, wcfg, params, corpus, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, steps=5,
+            label=label)
     win_bwd[0]["launches"] = wtrain_launches["flash_bwd/window"]
     win_bwd[1]["launches"] = wtrain_launches["flash_bwd/split"]
     log(f"train with window {wcfg.attn_window} and {wcfg.attn_sinks} sinks: "
@@ -9317,7 +9624,8 @@ def main() -> int:
 
     # 12. the JAX package's default model (d_head 64) with attn_stable=False:
     # 8 requests served and 5 SGD steps, through the packed forward
-    serve64, train64 = phase_default_model(device, label)
+    with clock("default_model"):
+        serve64, train64 = phase_default_model(device, label)
     packed["launches"] = serve64["flash_fwd/packed"] + train64["flash_fwd/packed"]
     log(f"packed forward launches: {serve64['flash_fwd/packed']} serving the "
         f"d64 model, {train64['flash_fwd/packed']} in its 5 training steps")
@@ -9325,36 +9633,42 @@ def main() -> int:
     # 13. bench_train.py --moe-experts 8's model: trained, its dispatches on
     # real activations, served through the engine, cached decode held to a
     # full forward (kernels 1, 3, 4, 5, 6, 10 and 11 on its path)
-    phase_moe(device, corpus, label)
+    with clock("moe"):
+        phase_moe(device, corpus, label)
 
     # 14. serving over a device mesh: two ranks spawned on the one card over
     # gloo, the serving model through Scheduler(mesh=) and (seq_mesh=) and
     # seq_sharded_decode, each against the single-device path (kernels 1,
     # 3, 6, 7, 10, 11 and 12 at the per-rank shapes)
-    phase_mesh(device, label)
+    with clock("mesh"):
+        phase_mesh(device, label)
 
     # 15. training over a device mesh: two ranks spawned on the one card
     # over gloo, ring attention (bf16, windowed, trainable, 8-bit) and
     # Ulysses against the single-device kernels, then bench_train.py's model
     # through the CP, TP, AdamW and pipeline steps (kernels 1, 1 (window),
     # 1 (8-bit), 4 and 5 at the per-rank shapes)
-    phase_mesh_train(device, label)
+    with clock("mesh_train"):
+        phase_mesh_train(device, label)
 
     # 16. expert parallelism and sharded checkpoints over a device mesh:
     # the MoE model of 13 through make_ep_moe, the TP steps' MoE branch
     # (a sharded checkpoint through torch.distributed.checkpoint mid-run),
     # and Scheduler(seq_mesh=) (kernels 1, 4, 5, 6 and 7 at the per-rank
     # shapes)
-    phase_mesh_moe(device, label)
+    with clock("mesh_moe"):
+        phase_mesh_moe(device, label)
 
-    print(json.dumps({"kernels": [fwd, dec, *bwd, ragged, paged, extend, dec_q,
-                                  paged_q, ragged_q, extend_q, win_fwd, win_dec,
-                                  win_dec_q, win_ragged, win_ragged_q,
-                                  *win_bwd, fix_fwd, win_fix, hyb_fwd,
-                                  hyb_fwd64, packed, fix_ragged, fix_ragged_q,
-                                  fwd_q, *ladder, mxu, qi8, guard, *probes,
-                                  *paged_probes]}),
-          flush=True)
+    # 17. utils.benchmarking's four timers on bench.py's headline call and
+    # the serving decode (kernels 1 and 6), each against time_ms, in a
+    # process of their own
+    with clock("benchmarking"):
+        phase_apart("benchmarking")
+
+    log(clock.summary())
+    log(label)
+    print(json.dumps({"kernels": [compact(e) for e in kernels]},
+                     separators=(",", ":")), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,6 +27,27 @@ H100_SMEM_PER_SM = 233_472  # bytes an SM gives its blocks' shared memory
 H100_SMEM_RESERVED_PER_BLOCK = 1024  # bytes the system keeps of each block's
 
 
+def peak_flops(dtype: str = "bf16") -> float:
+    """The H100's peak tensor-core operations a second for `dtype`, the
+    counterpart of JAX's `tpu_peak_flops`. "fp32" is the effective f32
+    product rate: as on the TPU, the port's f32 GEMM
+    (`csrc/gemm_f32_sm90.cuh`) runs six bf16 products, so 1/6 of the bf16
+    rate is the denominator of the executed path."""
+    if dtype == "int8":
+        return H100_INT8_OPS
+    if dtype == "fp8":
+        return H100_FP8_FLOPS
+    if dtype in ("fp32", "f32", "float32"):
+        return H100_BF16_FLOPS / 6.0
+    return H100_BF16_FLOPS
+
+
+def hbm_bandwidth() -> float:
+    """The H100's peak device-memory bytes a second (JAX's
+    `tpu_hbm_bandwidth`)."""
+    return H100_HBM_BYTES_PER_S
+
+
 def backend() -> str:
     """JAX's name for the platform the port's kernels run on, as
     `jax.default_backend()` gives it: "gpu" where CUDA is available, else

@@ -12,13 +12,11 @@ import pytest
 # launch counters stay one attribute away (ops.flash_attention._fwd, ...);
 # the function is the module's attribute of the same name
 MODULE_SHADOWS = {"ops": ["flash_attention", "flash_decode", "softmax"]}
-# the benchmark harness (ROADMAP A.5)
-BENCHMARKING = ["BenchResult", "benchmark", "benchmark_chained", "benchmarking"]
 # the TPU's own: the port has utils.platform's H100 peaks, require_hopper
 # and card_label instead (a kept deviation, ROADMAP C)
 TPU_ONLY = ["default_interpret", "has_tpu", "tpu_peak_flops", "tpu_hbm_bandwidth"]
 ABSENT = {"": [], "ops": [], "models": [],
-          "utils": BENCHMARKING + TPU_ONLY,
+          "utils": TPU_ONLY,
           "parallel": []}
 
 
